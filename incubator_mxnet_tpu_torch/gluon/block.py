@@ -1,0 +1,63 @@
+"""Block: the port's base layer.
+
+Counterpart of the JAX package's ``gluon/block.py`` on ``torch.nn.Module``.
+Parameter names are the module attribute paths (``layer0.attn.qkv.weight``),
+which equal the JAX package's structural names, so weights carry across by
+name.
+
+Parameters are declared on the ``meta`` device (shape only, no memory) and
+materialize on a real device in :meth:`Block.initialize` or when weights are
+loaded, the way MXNet defers initialization. A block starts in inference
+mode (dropout off), MXNet's predict mode; ``train()`` turns training on.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Optional
+
+import torch
+
+from .. import initializer as _init
+from ..device import Context, resolve
+
+
+class Block(torch.nn.Module):
+    """``torch.nn.Module`` with MXNet's initialize/collect_params surface."""
+
+    def __init__(self):
+        super().__init__()
+        self.training = False
+
+    def _declare(self, name: str, shape) -> None:
+        """Declare a float32 parameter ``name`` of ``shape`` (uninitialized,
+        on the meta device)."""
+        self.register_parameter(name, torch.nn.Parameter(
+            torch.empty(tuple(int(s) for s in shape), device="meta")))
+
+    def collect_params(self) -> "OrderedDict[str, torch.nn.Parameter]":
+        """Parameters by structural name."""
+        return OrderedDict(self.named_parameters())
+
+    def set_param(self, name: str, value: torch.Tensor) -> None:
+        """Replace parameter ``name`` (dotted path) by ``value``."""
+        owner, _, leaf = name.rpartition(".")
+        mod = self.get_submodule(owner) if owner else self
+        old = mod._parameters[leaf]
+        mod._parameters[leaf] = torch.nn.Parameter(
+            value, requires_grad=old.requires_grad)
+
+    def initialize(self, init="xavier", ctx: Optional[Context] = None):
+        """Draw every parameter with ``init`` (an initializer or its name)
+        on ``ctx`` (default ``gpu(0)``); returns ``self``."""
+        dev = resolve(ctx)
+        initer = _init.create(init)
+        for name, p in list(self.named_parameters()):
+            arr = initer(name, p.shape)
+            self.set_param(name, torch.from_numpy(arr).to(dev))
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        """Device of the parameters (``meta`` before initialization)."""
+        return next(self.parameters()).device

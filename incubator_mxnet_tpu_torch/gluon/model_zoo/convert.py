@@ -1,0 +1,44 @@
+"""Carry weights from the JAX package into the port.
+
+No counterpart in the JAX package. The port's parameter names are the JAX
+package's structural names (``parallel.spmd.collect_params`` there), and
+the layouts are the same, so the carry-over is a checked copy by name.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from ...device import Context, resolve
+from ..block import Block
+
+
+def load_jax_params(net: Block, params: Mapping[str, np.ndarray],
+                    ctx: Optional[Context] = None) -> Block:
+    """Copy ``params`` (structural name -> numpy array, as the JAX
+    package's ``collect_params`` names them) into ``net`` on ``ctx``
+    (default ``gpu(0)``). Every name of ``net`` must be given and no
+    other, each with its exact shape; anything else raises ``ValueError``
+    before a single parameter changes. Returns ``net``."""
+    dev = resolve(ctx)
+    own = net.collect_params()
+    missing = sorted(set(own) - set(params))
+    extra = sorted(set(params) - set(own))
+    if missing or extra:
+        raise ValueError(f"parameter names differ: missing {missing}, "
+                         f"unexpected {extra}")
+    arrays = {}
+    for name, p in own.items():
+        arr = np.asarray(params[name])
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
+                             f"{tuple(p.shape)}")
+        arrays[name] = arr
+    for name, p in own.items():
+        # np.array copies: the parameter never aliases the caller's buffer
+        net.set_param(name, torch.from_numpy(np.array(arrays[name])).to(
+            device=dev, dtype=p.dtype))
+    return net

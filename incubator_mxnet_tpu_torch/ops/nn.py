@@ -1,0 +1,70 @@
+"""Neural-network ops of the ported path.
+
+Counterparts of the ops of the JAX package's ``ops/nn.py`` that the GPT
+decoder runs. None of them is a TPU kernel there (XLA compiles them), so
+here they are plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["activation", "dropout", "embedding", "fully_connected",
+           "layer_norm"]
+
+
+def fully_connected(x, weight, bias=None, flatten=True):
+    """y = x·Wᵀ + b with weight (units, in_units), as the reference's
+    FullyConnected; ``flatten`` folds every axis after the first into
+    the input features."""
+    if flatten and x.dim() > 2:
+        x = x.reshape(x.shape[0], -1)
+    return F.linear(x, weight, bias)
+
+
+def layer_norm(x, gamma, beta, eps=1e-5):
+    """Layer norm over the last axis, population variance."""
+    return F.layer_norm(x, (x.shape[-1],), gamma, beta, eps)
+
+
+def embedding(indices, weight):
+    """Rows of ``weight`` at integer ``indices``."""
+    return F.embedding(indices.long(), weight)
+
+
+def _gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation, and the reference's
+    # Activation("gelu") takes that default
+    return F.gelu(x, approximate="tanh")
+
+
+_ACTS = {"gelu": _gelu}
+
+
+def activation(x, act_type):
+    """Reference ``Activation(act_type=...)``."""
+    if act_type not in _ACTS:
+        raise ValueError(f"unknown act_type {act_type!r}; known "
+                         f"{sorted(_ACTS)}")
+    return _ACTS[act_type](x)
+
+
+def dropout(x, p=0.5, training=False,
+            generator: Optional[torch.Generator] = None):
+    """Inverted dropout; the identity unless ``training``. The mask is drawn
+    from ``generator`` (the device's ``random.generator`` by default)."""
+    if not training or p <= 0.0:
+        return x
+    if generator is None:
+        from .. import random as _random
+        from ..device import Context
+
+        ctx = Context("cpu") if x.device.type == "cpu" else \
+            Context("gpu", x.device.index or 0)
+        generator = _random.generator(ctx)
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return x * mask.to(x.dtype) / keep

@@ -1,0 +1,126 @@
+"""The port's CUDA flash-attention kernel against its plain version.
+
+This file imports nothing of JAX, so it also runs on a machine with a card
+and no JAX (``python -m pytest --noconftest tests/test_torch_flash_kernel.py``;
+the repo's conftest imports JAX). Without a card the kernel tests skip: the
+kernel has no CPU mode. The wrapper's checks and the plain version's
+handling of strided inputs run everywhere.
+
+Tolerances on the card: fp32 1e-4 abs (the kernel sums in another order
+than the plain version's matmuls, TF32 off on both); bf16 2e-2 abs (the
+output is rounded to bf16; both compute in fp32 inside).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import incubator_mxnet_tpu_torch  # noqa: F401  (TF32 off at import)
+from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+# (name, b, h, tq, tk, d, causal, cache_offset, lengths)
+CASES = [
+    ("square_causal_d32", 2, 3, 40, 40, 32, True, False, None),
+    ("tq_lt_tk_causal_d128", 2, 2, 24, 56, 128, True, False, None),
+    ("lengths", 3, 2, 19, 56, 64, False, False, [56, 17, 1]),
+    ("cache_offset_tq3", 3, 2, 3, 48, 32, True, True, [48, 20, 3]),
+    ("masked_rows", 2, 2, 20, 8, 64, True, False, [8, 0]),
+    ("prefill_T256", 1, 12, 256, 256, 64, True, False, None),
+    ("decode_S8_Tk512", 8, 12, 1, 512, 64, True, True,
+     [1, 7, 64, 65, 129, 300, 511, 512]),
+]
+TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _inputs(b, h, tq, tk, d, seed=0):
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(rs.randn(*s).astype(np.float32))
+            for s in ((b, h, tq, d), (b, h, tk, d), (b, h, tk, d))]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    _, b, h, tq, tk, d, causal, cache_offset, lengths = case
+    q, k, v = (t.to(cuda_device, dtype) for t in _inputs(b, h, tq, tk, d))
+    lens = None if lengths is None else torch.tensor(lengths)
+    n0 = fa.flash_fwd_launches
+    got, got_lse = fa.flash_attention(q, k, v, lens, causal=causal,
+                                      cache_offset=cache_offset,
+                                      return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_launches == n0 + 1
+    want, want_lse = fa.flash_attention_reference(
+        q, k, v, lens, causal=causal, cache_offset=cache_offset,
+        return_lse=True)
+    tol = TOLS[dtype]
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=tol)
+
+
+def test_kernel_takes_head_split_views_and_merges_heads(cuda_device):
+    """The GPT path: q/k/v are strided views of a fused projection, and the
+    output's head merge is a view."""
+    rs = np.random.RandomState(5)
+    qkv = torch.from_numpy(rs.randn(2, 37, 3, 4, 64).astype(np.float32))
+    qkv = qkv.to(cuda_device)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    out = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_reference(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
+    merged = out.transpose(1, 2)
+    assert merged.is_contiguous()
+
+
+def test_plain_version_reads_strided_views_like_copies():
+    rs = np.random.RandomState(5)
+    qkv = torch.from_numpy(rs.randn(2, 17, 3, 4, 32).astype(np.float32))
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    assert not q.is_contiguous()
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_cache_offset_requires_lengths():
+    q, k, v = _inputs(1, 1, 1, 4, 32)
+    with pytest.raises(ValueError, match="lengths"):
+        fa.flash_attention(q, k, v, cache_offset=True)
+
+
+@pytest.mark.parametrize("bad, err, match", [
+    (dict(dtype=torch.float16), TypeError, "float32 or bfloat16"),
+    (dict(d=48), ValueError, "head dim"),
+    (dict(kv_len_mismatch=True), ValueError, "k/v must be"),
+    (dict(strided_d=True), ValueError, "contiguous"),
+    (dict(lengths=[1.5]), ValueError, "lengths"),
+    (dict(requires_grad=True), NotImplementedError, "backward"),
+], ids=["fp16", "d48", "kv_mismatch", "strided_d", "float_lengths", "grad"])
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, err,
+                                                               match):
+    """The checks the CUDA path runs before a launch (run here on CPU
+    tensors: they read only shapes, strides and dtypes)."""
+    d = bad.get("d", 32)
+    dtype = bad.get("dtype", torch.float32)
+    q = torch.zeros(1, 2, 3, d, dtype=dtype)
+    k = torch.zeros(1, 2, 5, d, dtype=dtype)
+    v = torch.zeros(1, 2, 4 if bad.get("kv_len_mismatch") else 5, d,
+                    dtype=dtype)
+    if bad.get("strided_d"):
+        q = torch.zeros(1, 2, 3, 2 * d)[..., ::2]
+    if bad.get("requires_grad"):
+        q.requires_grad_(True)
+    with pytest.raises(err, match=match):
+        fa._check_cuda(q, k, v, bad.get("lengths"))

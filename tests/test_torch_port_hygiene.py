@@ -1,0 +1,152 @@
+"""Port hygiene: the PyTorch package stands alone.
+
+It imports neither ``jax`` nor any module of the JAX package; its default
+device is the card and never a silent CPU; on the CPU the flash-attention
+kernel is never launched (its plain version runs instead).
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch import serving
+from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt, load_jax_params
+from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "incubator_mxnet_tpu_torch"
+
+
+def test_import_pulls_in_no_jax_and_no_jax_package():
+    code = ("import sys, incubator_mxnet_tpu_torch, "
+            "incubator_mxnet_tpu_torch.serving, "
+            "incubator_mxnet_tpu_torch.gluon.model_zoo.gpt\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib')) "
+            "or m == 'incubator_mxnet_tpu' "
+            "or m.startswith('incubator_mxnet_tpu.'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module
+
+
+def test_sources_import_no_jax_and_no_jax_package():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 10
+    for f in files + [ROOT / "chip_smoke.py"]:
+        for mod in _imported_modules(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib"), f"{f}: imports {mod}"
+            # mind the shared prefix: incubator_mxnet_tpu_torch is fine
+            assert top != "incubator_mxnet_tpu", f"{f}: imports {mod}"
+    # the package never even names the JAX package (its docs say "the JAX
+    # package's ops/..."): no name that could turn into an import
+    for f in files + sorted(PKG.rglob("*.cu")):
+        for i, line in enumerate(f.read_text().splitlines(), 1):
+            for part in line.split("incubator_mxnet_tpu")[1:]:
+                assert part.startswith("_torch"), f"{f}:{i}: {line.strip()}"
+
+
+def test_default_device_is_the_card_never_a_silent_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    assert mx.current_context() == mx.gpu(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.gpu().torch_device()
+    net = get_gpt("gpt_decoder_tiny", vocab_size=17, units=32, num_layers=1,
+                  max_length=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        net.initialize("xavier")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_jax_params(net, {}, ctx=None)
+    net.initialize("xavier", ctx=mx.cpu())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.DecodeSession(net, max_slots=1, max_len=16,
+                              prefill_buckets=(8,))
+    with mx.cpu():                       # an explicit CPU default is honored
+        assert mx.current_context() == mx.cpu()
+        sess = serving.DecodeSession(net, max_slots=1, max_len=16,
+                                     prefill_buckets=(8,))
+        sess.close()
+
+
+def test_cpu_path_never_launches_the_kernel():
+    mx.random.seed(1)
+    net = get_gpt("gpt_decoder_tiny", vocab_size=17, units=32, num_layers=1,
+                  max_length=16).initialize("xavier", ctx=mx.cpu())
+    fa.flash_fwd_launches = 0
+    with serving.DecodeSession(net, ctx=mx.cpu(), max_slots=2, max_len=16,
+                               prefill_buckets=(8,)) as sess:
+        got = sess.generate(np.arange(1, 6), max_new_tokens=4)
+    assert len(got) == 4
+    assert fa.flash_fwd_launches == 0
+
+
+def test_kernel_build_is_content_addressed():
+    """The library name hashes the source and flags, so an edited source
+    rebuilds and nothing is built at import."""
+    from incubator_mxnet_tpu_torch.ops import _build
+
+    path = _build.lib_path("flash_fwd")
+    assert path.parent == ROOT / "build" / "kernels"
+    assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
+    assert (_build.CSRC / "flash_fwd.cu").exists()
+    assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert fa._fn is None or torch.cuda.is_available()
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert _chip_smoke().main([]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_chip_smoke_bound_counts_only_the_keys_the_data_reaches():
+    cs = _chip_smoke()
+    lens = torch.tensor([3, 10, 0])
+    valid = cs._valid_mask(3, 1, 16, lens, True, True, torch.device("cpu"))
+    assert valid.shape == (3, 1, 1, 16)
+    assert valid.sum().item() == 13           # decode row t attends [0, t]
+    h, d = 12, 64
+    ms, by = cs.attention_bound(3, h, 1, 16, d, torch.float32, valid, False)
+    # q read + o written, K and V only for the 13 cached keys, fp32
+    nbytes = (3 * h * d * 2 + 13 * h * d * 2) * 4
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3)
+    causal = cs._valid_mask(1, 256, 256, None, True, False,
+                            torch.device("cpu"))
+    assert causal.sum().item() == 256 * 257 // 2
+    ms, by = cs.attention_bound(1, h, 256, 256, d, torch.float32, causal,
+                                False)
+    assert by == "operations"
+    assert ms == pytest.approx(4 * d * h * 256 * 257 / 2 / 67e12 * 1e3)
