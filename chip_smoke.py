@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Prove the PyTorch port builds, is right, and serves on one CUDA card.
+"""Prove the PyTorch port builds, is right, serves and trains on one card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -9,18 +9,31 @@ Phases (any failure raises, and the script exits non-zero):
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, started together);
 3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at the shapes the serving path gives it, in fp32 and bf16 (TF32 off),
-   with its device time (CUDA-graph replay, inputs warm in L2), its time as
-   an eager call (host work included), the plain version's and one PyTorch
-   library call's device time (timed here only, never used by the port)
-   and the least time the card could take for the same work;
-4. slice phase: greedy KV-cache decode of ``gpt_decoder_117m`` (12 layers,
-   768 units, 12 heads, vocab 50257; weights drawn from ``--seed``) through
-   ``serving.DecodeSession`` with 8 slots and a 512-token cache, 12 prompts
-   of 5 to 250 tokens, 32 new tokens each. Three streams are held token for
-   token against the full-forward greedy oracle (``net(tokens)`` re-run per
-   token), and the kernel's launch count over the run shows the path went
-   through it.
+   at the shapes the serving and training paths give it, in fp32 and bf16
+   (TF32 off), with its device time (CUDA-graph replay, inputs warm in L2),
+   its time as an eager call (host work included), the plain version's and
+   one PyTorch library call's device time (timed here only, never used by
+   the port) and the least time the card could take for the same work.
+   The forward kernel (K4) first, then the two backward kernels (K5 dq,
+   K6 dk/dv);
+4. serving phase: greedy KV-cache decode of ``gpt_decoder_117m`` (12
+   layers, 768 units, 12 heads, vocab 50257; weights drawn from ``--seed``)
+   through ``serving.DecodeSession`` with 8 slots and a 512-token cache, 12
+   prompts of 5 to 250 tokens, 32 new tokens each. Three streams are held
+   token for token against the full-forward greedy oracle (``net(tokens)``
+   re-run per token), and K4's launch count shows the path went through it;
+5. training phase: ``gpt_decoder_117m`` with ``max_length`` 256 and
+   dropout 0 at B=8, T=256: the fp32 gradient of every parameter through
+   the kernels against the same model with its attention swapped for the
+   autograd of the plain versions (the swap is made here, for this oracle
+   only); a learning check (fp32 ``SPMDTrainer``, the loss on one repeated
+   batch falls over 10 steps); train -> decode (the trained weights served
+   through ``DecodeSession`` and held against the full-forward oracle); two
+   eager ``gluon.Trainer`` steps; the bench row (net cast to bf16,
+   ``SPMDTrainer`` SGD lr 1e-4 momentum 0.9), timed; and a ``torch.profiler``
+   breakdown of one bf16 step. K4, K5 and K6 each launch exactly 12 times
+   per training pass (counted over the training steps alone; train ->
+   decode is counted on its own).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 2
@@ -45,6 +58,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# fp32 training gradients, kernels vs plain versions: relative L2 error per
+# parameter tensor (both fp32, TF32 off; only the order of sums differs)
+GRAD_RTOL = 1e-3
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
 
@@ -138,6 +154,31 @@ def attention_bound(b, h, tq, tk, d, dtype, valid, return_lse):
                                        else "operations")
 
 
+def attention_bwd_bound(kernel, b, h, tq, tk, d, dtype, valid):
+    """Least time (ms) of one backward kernel and what bounds it. Inputs
+    are read once where the data reaches them (query rows that attend a
+    key: q, g and the fp32 lse and delta; keys some query attends: k, v),
+    outputs written once in full (``dq``: dq; ``dkv``: dk and dv). FLOPs
+    per attended (query, key) pair: 6*D for dq (s, dP, dS.K), 8*D for dk/dv
+    (s, dP, P^T.dO, dS^T.Q)."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    valid = valid.expand(b, 1, tq, tk)
+    pairs = valid.sum().item() * h
+    rows = valid.any(dim=3).sum().item() * h
+    keys = valid.any(dim=2).sum().item() * h
+    nbytes = (rows + keys) * d * 2 * esize + rows * 2 * 4
+    if kernel == "dq":
+        nbytes += b * h * tq * d * esize
+        flops = 6.0 * d * pairs
+    else:
+        nbytes += 2 * b * h * tk * d * esize
+        flops = 8.0 * d * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def kernel_phase(seed):
     import torch.nn.functional as F
 
@@ -156,6 +197,9 @@ def kernel_phase(seed):
         # non-causal key lengths (one empty row set) with the lse output
         ("lengths_lse_B4_T128x384", 4, 128, 384, False, False,
          np.array([384, 200, 17, 0]), True),
+        # the training forward: B=8, T=256, causal, with the lse the
+        # backward needs
+        ("train_causal_lse_B8_T256", 8, 256, 256, True, False, None, True),
     ]
     results = []
     for name, b, tq, tk, causal, cache_offset, lengths, want_lse in cases:
@@ -210,8 +254,122 @@ def kernel_phase(seed):
     return results
 
 
+def _sdpa_bwd_ms(q, k, v, g, valid):
+    """Device ms of ``scaled_dot_product_attention``'s backward under the
+    same boolean mask: a CUDA graph of forward + ``autograd.grad`` less a
+    graph of the forward alone (grad enabled in both, so the forward saves
+    what its backward needs). A yardstick only; fully masked rows give NaN
+    there and are not compared."""
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=valid)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (qg, kg, vg), g)
+
+    return device_ms(fwd_bwd) - device_ms(fwd)
+
+
+def _zero_where_unreached(name, dq, dk, dv, valid):
+    """Rows that see no key get dq == 0, keys no row sees get dk == dv ==
+    0, exactly (no NaN anywhere)."""
+    dead_rows = ~valid.any(dim=3)                      # (B, 1, Tq)
+    dead_keys = ~valid.any(dim=2)                      # (B, 1, Tk)
+    for label, x, dead in (("dq", dq, dead_rows), ("dk", dk, dead_keys),
+                           ("dv", dv, dead_keys)):
+        if torch.isnan(x).any():
+            raise AssertionError(f"{name}: NaN in {label}")
+        mask = dead.unsqueeze(-1).expand_as(x)
+        if mask.any() and x[mask].abs().max().item() != 0:
+            raise AssertionError(f"{name}: {label} not 0 where no pair "
+                                 "reaches it")
+
+
+def backward_kernel_phase(seed):
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda", 0)
+    rs = np.random.RandomState(seed + 7)
+    h, d = 12, 64
+    cases = [
+        # the training shape: B=8, H=12, T=256, causal
+        ("train_causal_B8_T256", 8, 256, 256, True, False, None),
+        # non-causal key lengths with a length-0 entry
+        ("lengths_lse_B4_T128x384", 4, 128, 384, False, False,
+         np.array([384, 200, 17, 0])),
+        # cache offset: the diagonal aligned to each entry's fill
+        ("cache_offset_B4_T16x512", 4, 16, 512, True, True,
+         np.array([512, 300, 64, 16])),
+        # Tq > Tk causal: the first 192 rows of each head see no key
+        ("tq_gt_tk_causal_B2_T256x64", 2, 256, 64, True, False, None),
+    ]
+    results = []
+    for name, b, tq, tk, causal, cache_offset, lengths in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (torch.from_numpy(rs.randn(b, h, t, d).astype(
+                np.float32)).to(dev, dtype) for t in (tq, tk, tk, tq))
+            lens = None if lengths is None else \
+                torch.from_numpy(lengths.astype(np.int32)).to(dev)
+            kw = dict(causal=causal, cache_offset=cache_offset)
+            out, lse = fa.flash_attention(q, k, v, lens, return_lse=True,
+                                          **kw)
+            delta = (g.float() * out.float()).sum(-1)
+            args = (q, k, v, lens, lse, delta, g)
+            got = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args,
+                                                                   **kw))
+            want = (fa.flash_bwd_dq_reference(*args, **kw),
+                    *fa.flash_bwd_dkv_reference(*args, **kw))
+            torch.cuda.synchronize()
+            valid = _valid_mask(b, tq, tk, lens, causal, cache_offset, dev)
+            _zero_where_unreached(name, *got, valid)
+            tol = TOLS[dtype]
+            errs = {}
+            for label, x, y in zip(("dq", "dk", "dv"), got, want):
+                err = (x.float() - y.float()).abs().max().item()
+                # relative to max|plain|: the kernels round p and dS to
+                # bf16 before their products (as the TPU kernels do), the
+                # plain version keeps them in fp32
+                ref = max(1.0, y.float().abs().max().item())
+                if not math.isfinite(err) or err > tol * ref:
+                    raise AssertionError(
+                        f"flash_bwd {name} {DTYPE_NAMES[dtype]} {label}: "
+                        f"max abs err {err} > {tol} x {ref}")
+                errs[label] = (err, err / ref)
+            library_ms = _sdpa_bwd_ms(q, k, v, g, valid)
+            for kernel, labels, launch, plain in (
+                    ("dq", ("dq",), fa.flash_bwd_dq,
+                     fa.flash_bwd_dq_reference),
+                    ("dkv", ("dk", "dv"), fa.flash_bwd_dkv,
+                     fa.flash_bwd_dkv_reference)):
+                ms = device_ms(lambda: launch(*args, **kw))
+                wrapper_ms = call_ms(lambda: launch(*args, **kw))
+                plain_ms = device_ms(lambda: plain(*args, **kw))
+                bound_ms, bound_by = attention_bwd_bound(
+                    kernel, b, h, tq, tk, d, dtype, valid)
+                err = max(errs[x][0] for x in labels)
+                rel = max(errs[x][1] for x in labels)
+                r = dict(kernel=f"flash_bwd_{kernel}", case=name,
+                         dtype=DTYPE_NAMES[dtype], max_abs_err=err,
+                         err_over_max_ref=rel, tol=tol, ms=ms,
+                         wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+                results.append(r)
+                print(f"kernel flash_bwd_{kernel} {name} {r['dtype']}: "
+                      f"max_abs_err={err:.3e} ({rel:.2e} of max|plain|, tol "
+                      f"{tol:g}) ms={ms:.5f} (device, CUDA graph) wrapper_ms"
+                      f"={wrapper_ms:.5f} (eager call) plain_ms="
+                      f"{plain_ms:.5f} library_ms={library_ms:.5f} (SDPA "
+                      f"whole backward, boolean mask) bound_ms="
+                      f"{bound_ms:.5f} ({bound_by})", flush=True)
+    return results
+
+
 # ---------------------------------------------------------------------------
-# slice phase
+# serving phase
 # ---------------------------------------------------------------------------
 def oracle_check(net, prompt, stream, dev):
     """Hold ``stream`` against the full-forward greedy oracle; returns the
@@ -323,6 +481,249 @@ def slice_phase(seed):
                 tokens=tokens, wall_s=wall, stats=stats, peak_bytes=peak)
 
 
+# ---------------------------------------------------------------------------
+# training phase
+# ---------------------------------------------------------------------------
+COUNTERS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _reset_launches(fa):
+    for name in COUNTERS:
+        setattr(fa, name + "_launches", 0)
+
+
+def _read_launches(fa):
+    return {name: getattr(fa, name + "_launches") for name in COUNTERS}
+
+
+def _grads(net, loss_fn, x, y):
+    """fp32 loss and the gradient of every parameter, eager (record)."""
+    import incubator_mxnet_tpu_torch as mx
+
+    params = list(net.parameters())
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    return loss.detach(), torch.autograd.grad(loss, params)
+
+
+def gradient_oracle(net, loss_fn, x, y):
+    """Gradients through the kernels against the same model with its
+    attention swapped for the autograd of the plain forward (dense, fp32):
+    relative L2 error per parameter tensor <= GRAD_RTOL."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import gpt as gpt_mod
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    loss, grads = _grads(net, loss_fn, x, y)
+    kernel_attention = gpt_mod.flash_attention
+    gpt_mod.flash_attention = fa.flash_attention_reference
+    try:
+        ref_loss, ref_grads = _grads(net, loss_fn, x, y)
+    finally:
+        gpt_mod.flash_attention = kernel_attention
+    if not torch.isfinite(loss) or abs(float(loss - ref_loss)) > \
+            1e-5 * abs(float(ref_loss)):
+        raise AssertionError(f"oracle loss {float(loss)} != plain "
+                             f"{float(ref_loss)}")
+    worst = (0.0, "")
+    names = [n for n, _ in net.named_parameters()]
+    for name, g, r in zip(names, grads, ref_grads):
+        den = r.norm().item()
+        err = (g - r).norm().item()
+        rel = err / den if den > 0 else err
+        if not math.isfinite(rel) or rel > GRAD_RTOL:
+            raise AssertionError(f"gradient oracle: {name} relative L2 "
+                                 f"error {rel} > {GRAD_RTOL}")
+        worst = max(worst, (rel, name))
+    print(f"gradient oracle (fp32, {len(names)} parameter tensors): loss "
+          f"{float(loss):.6f} vs plain {float(ref_loss):.6f}; worst relative "
+          f"L2 error {worst[0]:.3e} ({worst[1]}), tolerance {GRAD_RTOL:g}",
+          flush=True)
+    return worst[0]
+
+
+def _profile_step(step, x, y, card, step_ms):
+    """Device time per kernel of one training step (``torch.profiler``;
+    kernel events only, so no time is counted twice), printed largest
+    first, with the device's idle share of an unprofiled step of
+    ``step_ms``; returns the rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(x, y)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        # kernels only: no CPU op and no user range (which would count
+        # its kernels a second time)
+        if e.device_type != DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    print(f"profile of one bf16 training step ({card}): device time "
+          f"{total:.3f} ms in {sum(r[1] for r in rows)} kernel launches "
+          f"(step wall {wall_ms:.3f} ms under the profiler); against the "
+          f"unprofiled {step_ms:.3f} ms step the device idles "
+          f"{100 * max(0.0, 1 - total / step_ms):.1f}% of it", flush=True)
+    if total == 0:
+        print("profile: the profiler reported no device time (not "
+              "measured)", flush=True)
+        return rows
+    for ms, count, key in rows[:14]:
+        print(f"  {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<4d} "
+              f"{key[:100]}", flush=True)
+    for tag in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel"):
+        hit = [r for r in rows if tag in r[2]]
+        ms = sum(r[0] for r in hit)
+        print(f"  {tag}: {ms:.3f} ms ({100 * ms / total:.1f}% of device "
+              f"time) in {sum(r[1] for r in hit)} launches", flush=True)
+    return rows
+
+
+def train_phase(seed, card):
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, parallel, serving
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda", 0)
+    ctx = mx.gpu(0)
+    b, t, vocab = 8, 256, 50257
+    mx.random.seed(seed)
+    net = get_gpt("gpt_decoder_117m", vocab_size=vocab, dropout=0.0,
+                  max_length=t).initialize("xavier", ctx=ctx)
+    rs = np.random.RandomState(seed + 3)
+    x = torch.from_numpy(rs.randint(0, vocab, (b, t)).astype(np.int32))
+    y = torch.from_numpy(rs.randint(0, vocab, (b, t)).astype(np.float32))
+    x, y = x.to(dev), y.to(dev)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def lm_loss(logits, labels):
+        return ce(logits, labels).mean()
+
+    # the training launches are read in two windows, each with the counts
+    # set to 0 just before its first step and read just after its last;
+    # train -> decode between them is read on its own
+    _reset_launches(fa)
+    worst = gradient_oracle(net, lm_loss, x, y)
+
+    # learning check: the loss on one repeated batch falls
+    st = parallel.SPMDTrainer(net, lm_loss, "adam", {"learning_rate": 3e-4})
+    losses = [float(st.step(x, y)) for _ in range(10)]
+    launches = _read_launches(fa)
+    backward_passes = 1 + 10
+    print(f"learning check (fp32 SPMDTrainer, adam lr 3e-4, one batch "
+          f"repeated): losses {[round(v, 4) for v in losses]}", flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 0.95 * losses[0]:
+        raise AssertionError("the loss did not fall by 5% over 10 steps")
+    st.sync_to_net()
+    del st
+
+    # train -> decode: serve the trained weights
+    prompt = rs.randint(0, vocab, (24,)).astype(np.int32)
+    _reset_launches(fa)
+    with serving.DecodeSession(net, ctx=ctx, max_slots=2, max_len=t,
+                               name="trained") as sess:
+        stream = sess.generate(prompt, max_new_tokens=16)
+        stats = sess.stats()
+    decode_launches = _read_launches(fa)
+    n = oracle_check(net, prompt, stream, dev)
+    steps, prefills = stats["steps"], stats["prefills"]
+    print(f"train -> decode: the trained weights served {len(stream)} "
+          f"tokens; {n} matched the full-forward oracle; launches "
+          f"{decode_launches} in {steps} decode steps and {prefills} "
+          f"prefills (flash_fwd >= 12 x {steps} = {12 * steps})", flush=True)
+    if decode_launches["flash_fwd"] < 12 * steps \
+            or decode_launches["flash_bwd_dq"] \
+            or decode_launches["flash_bwd_dkv"]:
+        raise AssertionError("train -> decode: the decode path did not go "
+                             "through flash_fwd alone")
+
+    _reset_launches(fa)
+    # the eager entry point: record -> backward -> step
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 1e-4, "momentum": 0.9})
+    eager = []
+    for _ in range(2):
+        with mx.autograd.record():
+            per_sample = ce(net(x), y)
+        mx.autograd.backward(per_sample)
+        trainer.step(b)
+        eager.append(float(per_sample.detach().mean()))
+    backward_passes += 2
+    if not all(math.isfinite(v) for v in eager):
+        raise AssertionError(f"gluon.Trainer losses not finite: {eager}")
+    print(f"gluon.Trainer (fp32, sgd lr 1e-4 momentum 0.9): 2 steps, "
+          f"losses {eager}", flush=True)
+
+    # the bench row: bf16 net, SPMDTrainer SGD lr 1e-4 momentum 0.9
+    net.cast("bfloat16")
+    st = parallel.SPMDTrainer(net, lm_loss, "sgd",
+                              {"learning_rate": 1e-4, "momentum": 0.9})
+    for _ in range(3):
+        st.step(x, y)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = 10
+    t0 = time.perf_counter()
+    bf16_losses = [st.step(x, y) for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated(dev)
+    backward_passes += 3 + steps
+    if not all(torch.isfinite(v) for v in bf16_losses):
+        raise AssertionError("bf16 SPMDTrainer loss not finite")
+    tokens_s = b * t / (step_ms / 1e3)
+    print(f"bf16 SPMDTrainer step (B={b}, T={t}, sgd lr 1e-4 momentum 0.9; "
+          f"{card}): {step_ms:.3f} ms per step (host clock, {steps} steps "
+          f"after 3 warmup), {tokens_s:.1f} tokens/s, peak memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    rows = _profile_step(st.step, x, y, card, step_ms)
+    backward_passes += 1
+    second = _read_launches(fa)
+    launches = {name: launches[name] + second[name] for name in COUNTERS}
+
+    # one forward and one backward per pass, each through the 12 layers
+    want = 12 * backward_passes
+    print(f"launches on the training path: {launches} over "
+          f"{backward_passes} backward passes (12 x {backward_passes} = "
+          f"{want} each)", flush=True)
+    for name in COUNTERS:
+        if launches[name] != want:
+            raise AssertionError(f"training launched {name} "
+                                 f"{launches[name]} times, not {want}")
+    return dict(launches=launches, decode_launches=decode_launches,
+                backward_passes=backward_passes, grad_worst_rel=worst,
+                learning_losses=losses, step_ms=step_ms, tokens_s=tokens_s,
+                peak_bytes=peak, profile=rows[:14])
+
+
+def _entry(name, source, replaces, launches, cases, head_case):
+    head = next(r for r in cases if r["case"] == head_case
+                and r["dtype"] == "fp32")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in cases
+                               if r["dtype"] == "fp32"),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head_case,
+            "cases": cases}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -332,28 +733,35 @@ def main(argv=None) -> int:
         return 2
     from incubator_mxnet_tpu_torch.ops import _build
 
-    print(card_line(), flush=True)
+    card = card_line()
+    print(card, flush=True)
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {list(_build.SOURCES)} in {time.perf_counter() - t0:.1f} "
           "s", flush=True)
 
     kernel = kernel_phase(args.seed)
+    bwd = backward_kernel_phase(args.seed)
     served = slice_phase(args.seed)
+    gc.collect()
+    trained = train_phase(args.seed, card)
 
-    head = next(r for r in kernel if r["case"].startswith("decode")
-                and r["dtype"] == "fp32")
-    record = {"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "incubator_mxnet_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "incubator_mxnet_tpu/ops/pallas_attention.py:54",
-        "launches": served["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in kernel
-                           if r["dtype"] == "fp32"),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shape": head["case"], "cases": kernel}]}
+    src = "incubator_mxnet_tpu_torch/csrc/"
+    ref = "incubator_mxnet_tpu/ops/pallas_attention.py:"
+    train_case = "train_causal_B8_T256"
+    fwd = _entry("flash_fwd", src + "flash_fwd.cu", ref + "54",
+                 trained["launches"]["flash_fwd"], kernel,
+                 "train_causal_lse_B8_T256")
+    fwd["launches_by_path"] = {
+        "decode": served["launches"],
+        "train": trained["launches"]["flash_fwd"],
+        "train_to_decode": trained["decode_launches"]["flash_fwd"]}
+    record = {"kernels": [fwd] + [
+        _entry(name, src + "flash_bwd.cu", ref + line,
+               trained["launches"][name],
+               [r for r in bwd if r["kernel"] == name], train_case)
+        for name, line in (("flash_bwd_dq", "209"),
+                           ("flash_bwd_dkv", "267"))]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

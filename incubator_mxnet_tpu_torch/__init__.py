@@ -5,9 +5,12 @@ to PyTorch on an NVIDIA H100, built slice by slice. It imports ``torch``
 and never ``jax`` or any module of the JAX package.
 
 Slice 1 is greedy KV-cache decode serving for the GPT decoder
-(``serving.DecodeSession`` over ``gluon.model_zoo.get_gpt``); its one TPU
-kernel, the flash-attention forward, is a hand-written CUDA kernel
-(``csrc/flash_fwd.cu``, wrapped by ``ops.flash_attention``).
+(``serving.DecodeSession`` over ``gluon.model_zoo.get_gpt``); slice 2 is
+its training, through ``autograd.record`` + ``gluon.Trainer`` and through
+``parallel.SPMDTrainer``. Their TPU kernels, the flash-attention forward
+and its two backward kernels, are hand-written CUDA kernels
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, wrapped by
+``ops.flash_attention``).
 
 Devices are explicit: every entry point takes a ``ctx``; the default is
 ``gpu(0)`` (``cuda:0``) and raises when there is no card. The CPU runs only
@@ -22,10 +25,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from . import base, config, device, initializer, random  # noqa: E402
-from . import ops, gluon, serving  # noqa: E402
+from . import autograd, lr_scheduler, optimizer  # noqa: E402
+from . import ops, gluon, parallel, serving  # noqa: E402
 from .base import MXTPUError  # noqa: E402
 from .device import Context, cpu, current_context, gpu  # noqa: E402
 
-__all__ = ["Context", "MXTPUError", "base", "config", "cpu",
-           "current_context", "device", "gluon", "gpu", "initializer", "ops",
-           "random", "serving"]
+__all__ = ["Context", "MXTPUError", "autograd", "base", "config", "cpu",
+           "current_context", "device", "gluon", "gpu", "initializer",
+           "lr_scheduler", "ops", "optimizer", "parallel", "random",
+           "serving"]

@@ -1,6 +1,7 @@
 """Gluon API of the port."""
 
-from . import model_zoo, nn
+from . import loss, model_zoo, nn
 from .block import Block
+from .trainer import Trainer
 
-__all__ = ["Block", "model_zoo", "nn"]
+__all__ = ["Block", "Trainer", "loss", "model_zoo", "nn"]

@@ -7,8 +7,9 @@ name.
 
 Parameters are declared on the ``meta`` device (shape only, no memory) and
 materialize on a real device in :meth:`Block.initialize` or when weights are
-loaded, the way MXNet defers initialization. A block starts in inference
-mode (dropout off), MXNet's predict mode; ``train()`` turns training on.
+loaded, the way MXNet defers initialization. Whether a layer trains
+(dropout on) follows ``autograd.is_training()``, as in MXNet, not torch's
+per-module ``training`` flag.
 """
 
 from __future__ import annotations
@@ -20,6 +21,15 @@ import torch
 
 from .. import initializer as _init
 from ..device import Context, resolve
+
+
+def _dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    dt = getattr(torch, str(dtype), None)
+    if not isinstance(dt, torch.dtype):
+        raise TypeError(f"unknown dtype {dtype!r}")
+    return dt
 
 
 class Block(torch.nn.Module):
@@ -40,12 +50,14 @@ class Block(torch.nn.Module):
         return OrderedDict(self.named_parameters())
 
     def set_param(self, name: str, value: torch.Tensor) -> None:
-        """Replace parameter ``name`` (dotted path) by ``value``."""
+        """Replace parameter ``name`` (dotted path) by ``value``, keeping
+        its attributes."""
         owner, _, leaf = name.rpartition(".")
         mod = self.get_submodule(owner) if owner else self
         old = mod._parameters[leaf]
-        mod._parameters[leaf] = torch.nn.Parameter(
-            value, requires_grad=old.requires_grad)
+        new = torch.nn.Parameter(value, requires_grad=old.requires_grad)
+        new.__dict__.update(old.__dict__)    # grad_req, lr_mult, wd_mult
+        mod._parameters[leaf] = new
 
     def initialize(self, init="xavier", ctx: Optional[Context] = None):
         """Draw every parameter with ``init`` (an initializer or its name)
@@ -55,6 +67,17 @@ class Block(torch.nn.Module):
         for name, p in list(self.named_parameters()):
             arr = initer(name, p.shape)
             self.set_param(name, torch.from_numpy(arr).to(dev))
+        return self
+
+    def cast(self, dtype) -> "Block":
+        """Cast every parameter to ``dtype`` (a torch dtype or its name,
+        e.g. ``"bfloat16"``) in place, keeping each parameter object, so a
+        Trainer made before the cast trains the cast weights (as the JAX
+        package's ``Parameter.cast`` does); returns ``self``."""
+        dt = _dtype(dtype)
+        for p in self.parameters():
+            p.data = p.data.to(dt)
+            p.grad = None
         return self
 
     @property

@@ -15,7 +15,9 @@ embeddings, untied LM head) with three entry points over one parameter set:
 
 Attention is ``ops.flash_attention``: on a CUDA tensor, the hand-written
 kernel, in causal mode for ``forward``/``prefill`` and in cache-offset mode
-for ``decode_step``. Q/K/V enter it as strided head-split views of the
+for ``decode_step``. A ``forward`` with grad enabled goes through its
+autograd Function, so training's backward runs the two backward kernels;
+``prefill`` and ``decode_step`` run without grad. Q/K/V enter it as strided head-split views of the
 fused QKV projection (no copies), and its output comes back already in
 (B, T, H, D) order, so merging the heads is a view too.
 """

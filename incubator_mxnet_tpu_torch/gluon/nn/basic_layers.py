@@ -8,6 +8,7 @@ parameter names and layouts (Dense weight ``(units, in_units)``, LayerNorm
 
 from __future__ import annotations
 
+from ... import autograd
 from ...ops import nn as F
 from ..block import Block
 
@@ -61,11 +62,13 @@ class LayerNorm(Block):
 
 
 class Dropout(Block):
-    """Inverted dropout; the identity in inference mode."""
+    """Inverted dropout, active iff ``autograd.is_training()`` (on inside
+    ``autograd.record()`` and ``train_mode()``, off elsewhere), as in the
+    JAX package. The mask is drawn from the device's ``random.generator``."""
 
     def __init__(self, rate):
         super().__init__()
         self._rate = float(rate)
 
     def forward(self, x):
-        return F.dropout(x, self._rate, training=self.training)
+        return F.dropout(x, self._rate, training=autograd.is_training())

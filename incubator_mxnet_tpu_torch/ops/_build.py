@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 #: every kernel source of the package
-SOURCES = ("flash_fwd",)
+SOURCES = ("flash_bwd", "flash_fwd")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

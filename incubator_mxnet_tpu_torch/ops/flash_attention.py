@@ -1,21 +1,28 @@
-"""Flash attention forward: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: the hand-written CUDA kernels and
+their plain PyTorch versions.
 
 Counterpart of the JAX package's ``ops/pallas_attention.py``.
-``flash_attention`` keeps that module's contract; a CUDA tensor always
-launches the kernel in ``csrc/flash_fwd.cu`` (which replaces the TPU kernel
-``_flash_fwd_kernel``), a CPU tensor takes ``flash_attention_reference``.
-There is no size crossover to a dense path here: whether one pays on this
-card has not been measured.
+``flash_attention`` keeps that module's contract. A CUDA tensor always
+launches the kernels: the forward in ``csrc/flash_fwd.cu`` (which replaces
+the TPU kernel ``_flash_fwd_kernel``) and, for a gradient, the two backward
+kernels in ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel``). A CPU tensor takes the plain versions,
+``flash_attention_reference`` and ``flash_attention_bwd_reference``. There
+is no size crossover to a dense path here: whether one pays on this card
+has not been measured.
 
 Layouts: q (B, H, Tq, D), k/v (B, H, Tk, D), any strides with a contiguous
 head dimension, so the head-split views of a fused QKV projection go in
 without copies. The output is a (B, H, Tq, D) view of a (B, Tq, H, D)
 buffer: ``out.transpose(1, 2).reshape(B, Tq, H * D)`` merges the heads
-without a copy.
+without a copy. The gradients come back in the same layout.
 
-No backward yet (the TPU backward kernels are a later slice): the CUDA path
-refuses inputs that require grad.
+Gradients: when grad is enabled and one of q, k, v requires it,
+``flash_attention`` runs :class:`FlashAttentionFunction`, the counterpart of
+the JAX package's ``_flash_core`` custom VJP: the forward saves the output
+and the fp32 row log-sum-exp, the backward computes ``delta = sum(g * o)``
+in plain PyTorch and runs the two backward kernels (or, on the CPU, their
+plain version).
 """
 
 from __future__ import annotations
@@ -24,20 +31,28 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_reference",
+__all__ = ["FlashAttentionFunction", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_reference",
+           "flash_attention_reference", "flash_bwd_dkv",
+           "flash_bwd_dkv_reference", "flash_bwd_dq", "flash_bwd_dq_reference",
+           "flash_bwd_dkv_launches", "flash_bwd_dq_launches",
            "flash_fwd_launches"]
 
-#: kernel launches made by ``flash_attention`` (one per CUDA call); reset
-#: it to 0 before a run and read it after, to show the run went through
-#: the kernel
+#: kernel launches made by each wrapper (one per CUDA call); reset them to
+#: 0 before a run and read them after, to show the run went through the
+#: kernels
 flash_fwd_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _fn = None
+_bwd_fns = None
 
 
 def _resolve(q, k, lengths, scale, causal, cache_offset):
@@ -53,16 +68,10 @@ def _resolve(q, k, lengths, scale, causal, cache_offset):
     return s, bool(causal)
 
 
-def flash_attention_reference(q, k, v, lengths=None, scale=None,
-                              causal=False, cache_offset=False,
-                              return_lse=False):
-    """Plain PyTorch attention with the kernel's contract, computed in
-    fp32 whatever the input dtype (output cast back to it). Rows with no
-    valid key give 0 and lse = -inf, as the kernel does."""
-    s, causal = _resolve(q, k, lengths, scale, causal, cache_offset)
-    b, h, tq, _ = q.shape
+def _valid(q, k, lengths, causal, cache_offset):
+    """(B or 1, 1, Tq, Tk) bool: the (query, key) pairs the call attends."""
+    b, _, tq, _ = q.shape
     tk = k.shape[2]
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * s
     rows = torch.arange(tq, device=q.device).view(1, 1, tq, 1)
     cols = torch.arange(tk, device=q.device).view(1, 1, 1, tk)
     valid = torch.ones((1, 1, tq, tk), dtype=torch.bool, device=q.device)
@@ -74,6 +83,18 @@ def flash_attention_reference(q, k, v, lengths=None, scale=None,
     if causal:
         off = (lens - tq) if cache_offset else (tk - tq)
         valid = valid & (cols <= rows + off)
+    return valid
+
+
+def flash_attention_reference(q, k, v, lengths=None, scale=None,
+                              causal=False, cache_offset=False,
+                              return_lse=False):
+    """Plain PyTorch attention with the kernel's contract, computed in
+    fp32 whatever the input dtype (output cast back to it). Rows with no
+    valid key give 0 and lse = -inf, as the kernel does."""
+    s, causal = _resolve(q, k, lengths, scale, causal, cache_offset)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * s
+    valid = _valid(q, k, lengths, causal, cache_offset)
     scores = scores.masked_fill(~valid, float("-inf"))
     m = scores.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -87,6 +108,52 @@ def flash_attention_reference(q, k, v, lengths=None, scale=None,
     return out, lse.squeeze(-1)
 
 
+def _bwd_probs(q, k, v, lengths, lse, delta, g, scale, causal,
+               cache_offset):
+    """fp32 probabilities p and score cotangents dS of the backward,
+    recomputed from the forward's lse (rows with a non-finite lse give 0)."""
+    s, causal = _resolve(q, k, lengths, scale, causal, cache_offset)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * s
+    valid = _valid(q, k, lengths, causal, cache_offset)
+    lse = lse.float().unsqueeze(-1)
+    finite = torch.isfinite(lse)
+    p = torch.where(valid & finite,
+                    torch.exp(scores - torch.where(finite, lse, 0.0)), 0.0)
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta.float().unsqueeze(-1)) * s
+    return p, ds
+
+
+def flash_bwd_dq_reference(q, k, v, lengths, lse, delta, g, scale=None,
+                           causal=False, cache_offset=False):
+    """Plain version of the dq kernel: dense, in fp32, dq in q's dtype."""
+    _, ds = _bwd_probs(q, k, v, lengths, lse, delta, g, scale, causal,
+                       cache_offset)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, lengths, lse, delta, g, scale=None,
+                            causal=False, cache_offset=False):
+    """Plain version of the dk/dv kernel: dense, in fp32, (dk, dv) in the
+    input dtypes."""
+    p, ds = _bwd_probs(q, k, v, lengths, lse, delta, g, scale, causal,
+                       cache_offset)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()).to(k.dtype)
+    dv = torch.matmul(p.transpose(-1, -2), g.float()).to(v.dtype)
+    return dk, dv
+
+
+def flash_attention_bwd_reference(q, k, v, lengths, lse, delta, g,
+                                  scale=None, causal=False,
+                                  cache_offset=False):
+    """Plain PyTorch version of the two backward kernels: ``lse`` and
+    ``delta`` are the (B, H, Tq) fp32 row statistics (``delta = sum(g *
+    o)``), ``g`` the output cotangent. Dense, in fp32; returns (dq, dk, dv)
+    in the input dtypes."""
+    args = (q, k, v, lengths, lse, delta, g, scale, causal, cache_offset)
+    return (flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args))
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -98,6 +165,21 @@ def _kernel():
         fn.restype = i
         _fn = fn
     return _fn
+
+
+def _bwd_kernels():
+    global _bwd_fns
+    if _bwd_fns is None:
+        lib = _build.load("flash_bwd")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        tail = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
+                ctypes.c_float, i, i, i, p]
+        dq, dkv = lib.mxtpu_flash_bwd_dq, lib.mxtpu_flash_bwd_dkv
+        dq.argtypes = [p] * 8 + tail
+        dkv.argtypes = [p] * 9 + tail
+        dq.restype = dkv.restype = i
+        _bwd_fns = dq, dkv
+    return _bwd_fns
 
 
 def _check_cuda(q, k, v, lengths):
@@ -127,10 +209,6 @@ def _check_cuda(q, k, v, lengths):
                              f"(stride {t.stride(3)})")
         if min(t.stride()) < 0:
             raise ValueError(f"{name} has a negative stride")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention on CUDA has no backward kernel yet; call it "
-            "under torch.no_grad()")
     if lengths is not None:
         lengths = torch.as_tensor(lengths)
         if lengths.shape != (b,) or lengths.is_floating_point():
@@ -140,21 +218,34 @@ def _check_cuda(q, k, v, lengths):
     return lengths
 
 
-def flash_attention(q, k, v, lengths=None, scale=None, causal=False,
-                    cache_offset=False, return_lse=False):
-    """Block-tiled flash attention. q (B, H, Tq, D), k/v (B, H, Tk, D);
-    ``lengths`` (B,) optional per-sample valid key length.
+def _check_bwd(q, lse, delta, g):
+    """The backward kernels' extra inputs: g like q with a contiguous head
+    dim (copied otherwise), lse and delta contiguous fp32 (B, H, Tq)."""
+    if g.shape != q.shape:
+        raise ValueError(f"g must be shaped like q {tuple(q.shape)}, got "
+                         f"{tuple(g.shape)}")
+    if g.dtype != q.dtype or g.device != q.device:
+        raise TypeError(f"g ({g.dtype}, {g.device}) must match q "
+                        f"({q.dtype}, {q.device})")
+    if (g.stride(3) != 1 and g.shape[3] > 1) or min(g.stride()) < 0:
+        g = g.contiguous()
+    rows = tuple(q.shape[:3])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != rows or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be fp32 {rows} on {q.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return g, lse.contiguous(), delta.contiguous()
 
-    ``causal`` aligns the diagonal bottom-right (``col <= row + Tk - Tq``).
-    ``cache_offset=True`` is the KV-cache decode alignment: K/V are the
-    ``[0, lengths_b)`` prefix of a fixed buffer and the Tq queries are the
-    last Tq of that prefix, so query row i attends keys
-    ``[0, lengths_b - Tq + i]``. It requires ``lengths`` and implies
-    ``causal``. With ``return_lse`` also returns the fp32 (B, H, Tq)
-    log-sum-exp per row. A row with no valid key gives 0 and lse -inf.
 
-    A CPU tensor takes :func:`flash_attention_reference`; a CUDA tensor
-    launches the kernel or raises."""
+def _like_out(q):
+    """A (B, H, T, D) view of a fresh (B, T, H, D) buffer."""
+    b, h, t, d = q.shape
+    return torch.empty((b, t, h, d), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
+def _forward(q, k, v, lengths, scale, causal, cache_offset, return_lse):
     global flash_fwd_launches
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, lengths, scale, causal,
@@ -166,8 +257,7 @@ def flash_attention(q, k, v, lengths=None, scale=None, causal=False,
     lengths = _check_cuda(q, k, v, lengths)
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    buf = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    out = buf.transpose(1, 2)
+    out = _like_out(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     strides = (ctypes.c_longlong * 12)(
@@ -185,3 +275,128 @@ def flash_attention(q, k, v, lengths=None, scale=None, causal=False,
                            f"{err}")
     flash_fwd_launches += 1
     return (out, lse) if return_lse else out
+
+
+def _launch_bwd(which, q, k, v, lengths, lse, delta, g, scale, causal,
+                cache_offset):
+    """Launch the dq (``which == 0``) or dk/dv kernel on CUDA tensors."""
+    s, causal = _resolve(q, k, lengths, scale, causal, cache_offset)
+    lengths = _check_cuda(q, k, v, lengths)
+    g, lse, delta = _check_bwd(q, lse, delta, g)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    outs = (_like_out(q),) if which == 0 else (_like_out(k), _like_out(v))
+    ostrides = [x for o in outs for x in o.stride()[:3]]
+    ostrides += [0] * (6 - len(ostrides))
+    strides = (ctypes.c_longlong * 18)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
+        *ostrides)
+    fn = _bwd_kernels()[which]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 lengths.data_ptr() if lengths is not None else None,
+                 *(o.data_ptr() for o in outs), b, h, tq, tk, d, strides, s,
+                 int(causal), int(bool(cache_offset)), _DTYPE_CODE[q.dtype],
+                 stream)
+    if err != 0:
+        name = ("flash_bwd_dq", "flash_bwd_dkv")[which]
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return outs
+
+
+def _device_of(q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cpu or cuda, got "
+                         f"{q.device}")
+    return q.device.type
+
+
+def flash_bwd_dq(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
+                 cache_offset=False):
+    """dq of the flash backward: a CPU tensor takes
+    :func:`flash_bwd_dq_reference`, a CUDA tensor launches the dq kernel or
+    raises."""
+    global flash_bwd_dq_launches
+    if _device_of(q) == "cpu":
+        return flash_bwd_dq_reference(q, k, v, lengths, lse, delta, g, scale,
+                                      causal, cache_offset)
+    (dq,) = _launch_bwd(0, q, k, v, lengths, lse, delta, g, scale, causal,
+                        cache_offset)
+    flash_bwd_dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
+                  cache_offset=False):
+    """(dk, dv) of the flash backward: a CPU tensor takes
+    :func:`flash_bwd_dkv_reference`, a CUDA tensor launches the dk/dv kernel
+    or raises."""
+    global flash_bwd_dkv_launches
+    if _device_of(q) == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, lengths, lse, delta, g,
+                                       scale, causal, cache_offset)
+    dk, dv = _launch_bwd(1, q, k, v, lengths, lse, delta, g, scale, causal,
+                         cache_offset)
+    flash_bwd_dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, lengths, lse, delta, g, scale=None,
+                        causal=False, cache_offset=False):
+    """The flash backward, the counterpart of the JAX package's
+    ``_flash_bwd``: (dq, dk, dv) in the input dtypes from the forward's
+    ``lse`` and ``delta = sum(g * o)`` (both fp32 (B, H, Tq))."""
+    args = (q, k, v, lengths, lse, delta, g, scale, causal, cache_offset)
+    return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable flash attention (the JAX package's ``_flash_core``
+    custom VJP). Returns ``(out, lse)``; lse carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, scale, causal, cache_offset):
+        out, lse = _forward(q, k, v, lengths, scale, causal, cache_offset,
+                            True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.lengths = lengths
+        ctx.flags = (scale, causal, cache_offset)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        # delta from the output in its stored type, as the JAX package does
+        delta = (g.float() * out.float()).sum(-1)
+        dq, dk, dv = flash_attention_bwd(q, k, v, ctx.lengths, lse, delta,
+                                         g.to(q.dtype), *ctx.flags)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, lengths=None, scale=None, causal=False,
+                    cache_offset=False, return_lse=False):
+    """Block-tiled flash attention. q (B, H, Tq, D), k/v (B, H, Tk, D);
+    ``lengths`` (B,) optional per-sample valid key length.
+
+    ``causal`` aligns the diagonal bottom-right (``col <= row + Tk - Tq``).
+    ``cache_offset=True`` is the KV-cache decode alignment: K/V are the
+    ``[0, lengths_b)`` prefix of a fixed buffer and the Tq queries are the
+    last Tq of that prefix, so query row i attends keys
+    ``[0, lengths_b - Tq + i]``. It requires ``lengths`` and implies
+    ``causal``. With ``return_lse`` also returns the fp32 (B, H, Tq)
+    log-sum-exp per row. A row with no valid key gives 0 and lse -inf.
+
+    When grad is enabled and q, k or v requires it, the call runs
+    :class:`FlashAttentionFunction`, so a backward pass reaches the
+    backward kernels. A CPU tensor takes the plain versions; a CUDA tensor
+    launches the kernels or raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out, lse = FlashAttentionFunction.apply(q, k, v, lengths, scale,
+                                                causal, cache_offset)
+        return (out, lse) if return_lse else out
+    return _forward(q, k, v, lengths, scale, causal, cache_offset,
+                    return_lse)

@@ -1,4 +1,4 @@
-"""The port's CUDA flash-attention kernel against its plain version.
+"""The port's CUDA flash-attention kernels against their plain versions.
 
 This file imports nothing of JAX, so it also runs on a machine with a card
 and no JAX (``python -m pytest --noconftest tests/test_torch_flash_kernel.py``;
@@ -6,9 +6,12 @@ the repo's conftest imports JAX). Without a card the kernel tests skip: the
 kernel has no CPU mode. The wrapper's checks and the plain version's
 handling of strided inputs run everywhere.
 
-Tolerances on the card: fp32 1e-4 abs (the kernel sums in another order
-than the plain version's matmuls, TF32 off on both); bf16 2e-2 abs (the
-output is rounded to bf16; both compute in fp32 inside).
+Tolerances on the card, forward: fp32 1e-4 abs (the kernel sums in
+another order than the plain version's matmuls, TF32 off on both); bf16
+2e-2 abs (the output is rounded to bf16; both compute in fp32 inside).
+Backward (dq, dk, dv), relative to max|plain| of each: fp32 1e-4 (order of
+sums), bf16 2e-2 (the kernels round p and dS to bf16 before their
+products, as the TPU kernels do; the plain version keeps them in fp32).
 """
 
 import numpy as np
@@ -106,7 +109,7 @@ def test_cache_offset_requires_lengths():
     (dict(kv_len_mismatch=True), ValueError, "k/v must be"),
     (dict(strided_d=True), ValueError, "contiguous"),
     (dict(lengths=[1.5]), ValueError, "lengths"),
-    (dict(requires_grad=True), NotImplementedError, "backward"),
+    (dict(grad_shape=True), ValueError, "g must be shaped like q"),
 ], ids=["fp16", "d48", "kv_mismatch", "strided_d", "float_lengths", "grad"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, err,
                                                                match):
@@ -120,7 +123,71 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, err,
                     dtype=dtype)
     if bad.get("strided_d"):
         q = torch.zeros(1, 2, 3, 2 * d)[..., ::2]
-    if bad.get("requires_grad"):
-        q.requires_grad_(True)
     with pytest.raises(err, match=match):
         fa._check_cuda(q, k, v, bad.get("lengths"))
+        if bad.get("grad_shape"):          # the backward's extra checks
+            rows = torch.zeros(q.shape[:3])
+            fa._check_bwd(q, rows, rows, torch.zeros(1, 2, 4, d))
+
+
+def _bwd_case(case, dtype, device, seed=0):
+    """Inputs of one backward call: q, k, v, lengths, the forward's lse and
+    output (from the kernel), a cotangent and delta = sum(g * o)."""
+    _, b, h, tq, tk, d, causal, cache_offset, lengths = case
+    q, k, v = (t.to(device, dtype) for t in _inputs(b, h, tq, tk, d, seed))
+    lens = None if lengths is None else torch.tensor(lengths)
+    out, lse = fa.flash_attention(q, k, v, lens, causal=causal,
+                                  cache_offset=cache_offset, return_lse=True)
+    g = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        b, h, tq, d).astype(np.float32)).to(device, dtype)
+    delta = (g.float() * out.float()).sum(-1)
+    return (q, k, v, lens, lse, delta, g), dict(causal=causal,
+                                                cache_offset=cache_offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_backward_kernels_match_plain_on_card(cuda_device, case, dtype):
+    args, kw = _bwd_case(case, dtype, cuda_device)
+    n_dq, n_dkv = fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches
+    got = fa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches) == \
+        (n_dq + 1, n_dkv + 1)
+    want = fa.flash_attention_bwd_reference(*args, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape and x.dtype == dtype, name
+        assert torch.isfinite(x).all(), name
+        # relative to max|plain|: the kernels round p and dS to bf16 before
+        # their products (as the TPU kernels do), the plain version does not
+        tol = TOLS[dtype] * max(1.0, y.float().abs().max().item())
+        torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_backward_kernels_repeat_bit_for_bit(cuda_device):
+    args, kw = _bwd_case(CASES[5], torch.bfloat16, cuda_device)
+    first = fa.flash_attention_bwd(*args, **kw)
+    second = fa.flash_attention_bwd(*args, **kw)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_autograd_through_the_kernels_on_card(cuda_device):
+    """The Function on CUDA tensors: torch autograd reaches K5 and K6, and
+    the gradients of strided head-split views equal the plain version's
+    autograd (TF32 off, fp32)."""
+    rs = np.random.RandomState(9)
+    base = torch.from_numpy(rs.randn(2, 37, 3, 4, 64).astype(np.float32))
+    g = torch.from_numpy(rs.randn(2, 4, 37, 64).astype(np.float32))
+    grads = []
+    for kernel in (True, False):
+        qkv = base.to(cuda_device).requires_grad_(True)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        fn = fa.flash_attention if kernel else fa.flash_attention_reference
+        n0 = fa.flash_bwd_dq_launches
+        fn(q, k, v, causal=True).backward(g.to(cuda_device))
+        assert fa.flash_bwd_dq_launches == n0 + int(kernel)
+        grads.append(qkv.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-4)

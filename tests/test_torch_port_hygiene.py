@@ -2,7 +2,8 @@
 
 It imports neither ``jax`` nor any module of the JAX package; its default
 device is the card and never a silent CPU; on the CPU the flash-attention
-kernel is never launched (its plain version runs instead).
+kernels are never launched (their plain versions run instead), neither by
+serving nor by training.
 """
 
 import ast
@@ -26,7 +27,13 @@ PKG = ROOT / "incubator_mxnet_tpu_torch"
 def test_import_pulls_in_no_jax_and_no_jax_package():
     code = ("import sys, incubator_mxnet_tpu_torch, "
             "incubator_mxnet_tpu_torch.serving, "
-            "incubator_mxnet_tpu_torch.gluon.model_zoo.gpt\n"
+            "incubator_mxnet_tpu_torch.gluon.model_zoo.gpt, "
+            "incubator_mxnet_tpu_torch.autograd, "
+            "incubator_mxnet_tpu_torch.gluon.loss, "
+            "incubator_mxnet_tpu_torch.gluon.trainer, "
+            "incubator_mxnet_tpu_torch.lr_scheduler, "
+            "incubator_mxnet_tpu_torch.optimizer, "
+            "incubator_mxnet_tpu_torch.parallel.spmd\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) "
             "or m == 'incubator_mxnet_tpu' "
@@ -100,6 +107,28 @@ def test_cpu_path_never_launches_the_kernel():
     assert fa.flash_fwd_launches == 0
 
 
+def test_cpu_training_never_launches_a_kernel():
+    mx.random.seed(2)
+    net = get_gpt("gpt_decoder_tiny", vocab_size=17, units=32, num_layers=1,
+                  max_length=16).initialize("xavier", ctx=mx.cpu())
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x = torch.from_numpy(np.random.RandomState(0).randint(0, 17, (2, 9)))
+    y = x.float()
+    fa.flash_fwd_launches = fa.flash_bwd_dq_launches = 0
+    fa.flash_bwd_dkv_launches = 0
+    st = mx.parallel.SPMDTrainer(net, lambda lg, lb: ce(lg, lb).mean(),
+                                 "adam", {"learning_rate": 1e-3})
+    assert torch.isfinite(st.step(x, y))
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": .1})
+    with mx.autograd.record():
+        loss = ce(net(x), y)
+    mx.autograd.backward(loss)
+    tr.step(2)
+    assert net.collect_params()["head.weight"].grad is not None
+    assert (fa.flash_fwd_launches, fa.flash_bwd_dq_launches,
+            fa.flash_bwd_dkv_launches) == (0, 0, 0)
+
+
 def test_kernel_build_is_content_addressed():
     """The library name hashes the source and flags, so an edited source
     rebuilds and nothing is built at import."""
@@ -110,7 +139,9 @@ def test_kernel_build_is_content_addressed():
     assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
     assert (_build.CSRC / "flash_fwd.cu").exists()
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert set(_build.SOURCES) == {"flash_fwd", "flash_bwd"}
     assert fa._fn is None or torch.cuda.is_available()
+    assert fa._bwd_fns is None or torch.cuda.is_available()
 
 
 def _chip_smoke():
@@ -150,3 +181,43 @@ def test_chip_smoke_bound_counts_only_the_keys_the_data_reaches():
                                 False)
     assert by == "operations"
     assert ms == pytest.approx(4 * d * h * 256 * 257 / 2 / 67e12 * 1e3)
+
+
+def test_chip_smoke_backward_bound_counts_pairs_and_quoted_figures():
+    cs = _chip_smoke()
+    dev = torch.device("cpu")
+    valid = cs._valid_mask(8, 256, 256, None, True, False, dev)
+    h, d = 12, 64
+    assert valid.sum().item() * h == 3_158_016     # attended pairs
+    fig = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel in ("dq", "dkv"):
+            fig[kernel, dtype] = cs.attention_bwd_bound(
+                kernel, 8, h, 256, 256, d, dtype, valid)
+    # fp32: bound by operations at 67 TFLOP/s, 6*D and 8*D per pair
+    assert fig["dq", torch.float32] == (
+        pytest.approx(6 * d * 3_158_016 / 67e12 * 1e3), "operations")
+    assert fig["dkv", torch.float32] == (
+        pytest.approx(8 * d * 3_158_016 / 67e12 * 1e3), "operations")
+    assert fig["dq", torch.float32][0] == pytest.approx(0.0181, abs=1e-4)
+    assert fig["dkv", torch.float32][0] == pytest.approx(0.0241, abs=1e-4)
+    # bf16: bound by bytes at 3.35 TB/s; dq moves q, g, k, v, dq and the
+    # two fp32 row statistics, dk/dv one tensor more
+    plane, rows = 8 * h * 256 * d * 2, 8 * h * 256 * 4
+    for kernel, planes, mb, us in (("dq", 5, 15.9, 4.75),
+                                   ("dkv", 6, 19.1, 5.69)):
+        ms, by = fig[kernel, torch.bfloat16]
+        nbytes = planes * plane + 2 * rows
+        assert by == "bytes" and nbytes / 1e6 == pytest.approx(mb, abs=0.05)
+        assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3)
+        assert ms * 1e3 == pytest.approx(us, abs=0.01)
+    # data-dependent: an empty batch entry and unreached keys move nothing
+    lens = torch.tensor([3, 0])
+    valid = cs._valid_mask(2, 4, 16, lens, False, False, dev)
+    ms, by = cs.attention_bwd_bound("dkv", 2, 1, 4, 16, 32, torch.float32,
+                                    valid)
+    # inputs: 4 reached rows of q, g (+ lse, delta), 3 reached keys of k, v;
+    # outputs: dk, dv in full
+    nbytes = (4 * 32 * 2 + 4 * 2 + 3 * 32 * 2 + 2 * 16 * 32 * 2) * 4
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3)
