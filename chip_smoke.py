@@ -33,9 +33,29 @@ Phases (any failure raises, and the script exits non-zero):
    ``SPMDTrainer`` SGD lr 1e-4 momentum 0.9), timed; and a ``torch.profiler``
    breakdown of one bf16 step. K4, K5 and K6 each launch exactly 12 times
    per training pass (counted over the training steps alone; train ->
-   decode is counted on its own).
+   decode is counted on its own);
+6. conv kernel phase: the fused conv + BatchNorm kernels (K1 forward, K2
+   input gradient, K3 weight gradient) against their plain versions in
+   fp32 and bf16 at ResNet-50's shapes at B=32 and one shape off the
+   model's path, with the same timings; the library call is cuDNN
+   (``F.conv2d`` on channels-last tensors, and
+   ``aten.convolution_backward`` for the input and the weight gradient);
+7. ResNet phase: ``fused_resnet50_v1`` (1000 classes, 224x224 inputs,
+   weights drawn from ``--seed``): the fp32 oracle of one training step at
+   B=8 (loss and the 106 running statistics against the model with
+   ``fused_conv_bn`` swapped for the autograd of its plain versions; the
+   gradients of all 161 trainable tensors against the plain backward run
+   on K1's forward values, see ``resnet_oracle``); a learning check (fp32
+   ``SPMDTrainer``, SGD, one repeated batch); two eager ``gluon.Trainer``
+   steps; eval logits at B=32, with the running statistics set to that
+   batch's, against the plain swap and the training-mode forward; the
+   bench row (net cast to bf16, B=128,
+   ``SPMDTrainer`` SGD lr 0.1 momentum 0.9), timed, with a
+   ``torch.profiler`` breakdown of one step. K1 launches exactly 52 times
+   per forward, K2 and K3 52 times per backward.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (K1 to K6); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 2
 before printing any result.
 """
@@ -497,10 +517,11 @@ def _read_launches(fa):
 
 
 def _grads(net, loss_fn, x, y):
-    """fp32 loss and the gradient of every parameter, eager (record)."""
+    """fp32 loss and the gradient of every trainable parameter, eager
+    (record)."""
     import incubator_mxnet_tpu_torch as mx
 
-    params = list(net.parameters())
+    params = [p for p in net.parameters() if p.requires_grad]
     with mx.autograd.record():
         loss = loss_fn(net(x), y)
     return loss.detach(), torch.autograd.grad(loss, params)
@@ -541,11 +562,16 @@ def gradient_oracle(net, loss_fn, x, y):
     return worst[0]
 
 
-def _profile_step(step, x, y, card, step_ms):
+FLASH_TAGS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+              "flash_bwd_dkv_kernel")
+
+
+def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14):
     """Device time per kernel of one training step (``torch.profiler``;
     kernel events only, so no time is counted twice), printed largest
     first, with the device's idle share of an unprofiled step of
-    ``step_ms``; returns the rows."""
+    ``step_ms`` and the share of the kernels named by ``tags``; returns
+    the rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -579,11 +605,10 @@ def _profile_step(step, x, y, card, step_ms):
         print("profile: the profiler reported no device time (not "
               "measured)", flush=True)
         return rows
-    for ms, count, key in rows[:14]:
+    for ms, count, key in rows[:top]:
         print(f"  {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<4d} "
               f"{key[:100]}", flush=True)
-    for tag in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_kernel"):
+    for tag in tags:
         hit = [r for r in rows if tag in r[2]]
         ms = sum(r[0] for r in hit)
         print(f"  {tag}: {ms:.3f} ms ({100 * ms / total:.1f}% of device "
@@ -710,6 +735,552 @@ def train_phase(seed, card):
                 learning_losses=losses, step_ms=step_ms, tokens_s=tokens_s,
                 peak_bytes=peak, profile=rows[:14])
 
+# ---------------------------------------------------------------------------
+# conv kernel phase
+# ---------------------------------------------------------------------------
+# (name, n, h, w, ci, co, k, stride, pad, kind): kind "plain" has no
+# prologue, "pro" the BatchNorm prologue + ReLU, "res" also the residual
+# join and the emitted activation. The first six are ResNet-50's at B=32;
+# the last lies off the model's path (5x5, odd H, widths not multiples of
+# 8 or 16).
+CONV_CASES = [
+    ("1x1_64to64_56_plain", 32, 56, 56, 64, 64, 1, 1, 0, "plain"),
+    ("3x3_64to64_56_pro", 32, 56, 56, 64, 64, 3, 1, 1, "pro"),
+    ("3x3_s2_128_56to28_pro", 32, 56, 56, 128, 128, 3, 2, 1, "pro"),
+    ("1x1_256to64_56_join_emit", 32, 56, 56, 256, 64, 1, 1, 0, "res"),
+    ("1x1_s2_512to1024_28to14_plain", 32, 28, 28, 512, 1024, 1, 2, 0,
+     "plain"),
+    ("3x3_512to512_7_pro", 32, 7, 7, 512, 512, 3, 1, 1, "pro"),
+    ("5x5_s2_24to40_15_res_emit", 32, 15, 15, 24, 40, 5, 2, 2, "res"),
+]
+CONV_HEAD = "3x3_64to64_56_pro"
+CONV_KERNELS = ("fused_conv", "conv_bwd_dx", "conv_bwd_dw")
+# fp32 per-channel sums and dW: relative L2 error, kernels vs plain
+CONV_L2_TOL = 1e-4
+
+
+def _conv_dims(case):
+    _, n, h, w, ci, co, k, stride, pad, kind = case
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    return n, h, w, ci, co, k, stride, pad, kind, ho, wo
+
+
+def conv_bound(kernel, case, dtype):
+    """Least time (ms) of one conv kernel call and what bounds it: 2 FLOPs
+    per multiply-add (2*N*Ho*Wo*Ci*Co*kh*kw, the same for all three) at
+    the peak of the inputs' type; each input read once and each output
+    written once (activations and weights in the type, per-channel
+    vectors fp32)."""
+    n, h, w, ci, co, k, _, _, kind, ho, wo = _conv_dims(case)
+    es = torch.tensor([], dtype=dtype).element_size()
+    xb, yb, wb = n * h * w * ci * es, n * ho * wo * co * es, k * k * ci * co * es
+    pro, res = kind != "plain", kind == "res"
+    if kernel == "fused_conv":      # x [r] w a b [ar br] -> y s ss [xp]
+        nbytes = xb * (1 + 2 * res) + wb + yb + 8 * co + 8 * ci * (pro + res)
+    elif kernel == "conv_bwd_dx":   # dy y x w ds dss a b [r ar br g] -> dx da db [dr dar]
+        nbytes = 2 * yb + 2 * xb + wb + 8 * co + 16 * ci * pro \
+            + xb * 3 * res + 12 * ci * res
+    else:                           # x [r] dy y ds dss a b [ar br] -> dw
+        nbytes = xb * (1 + res) + 2 * yb + wb + 8 * co + 8 * ci * (pro + res)
+    flops = 2.0 * n * ho * wo * ci * co * k * k
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _conv_inputs(case, dtype, dev, gen):
+    n, h, w, ci, co, k, _, _, kind, ho, wo = _conv_dims(case)
+
+    def rnd(*shape, scale=1.0, shift=0.0, uniform=False):
+        t = torch.rand(shape, generator=gen, device=dev) if uniform else \
+            torch.randn(shape, generator=gen, device=dev)
+        return t * scale + shift
+
+    t = dict(x=rnd(n, h, w, ci).to(dtype),
+             w=rnd(k, k, ci, co, scale=1 / math.sqrt(k * k * ci)).to(dtype),
+             dy=rnd(n, ho, wo, co).to(dtype), ds=rnd(co, scale=0.1),
+             dss=rnd(co, scale=0.01))
+    if kind != "plain":
+        t.update(a=rnd(ci, shift=0.5, uniform=True), b=rnd(ci, scale=0.5))
+    if kind == "res":
+        t.update(r=rnd(n, h, w, ci).to(dtype),
+                 ar=rnd(ci, shift=0.5, uniform=True), br=rnd(ci, scale=0.5),
+                 g=rnd(n, h, w, ci).to(dtype))
+    return t
+
+
+def _conv_errs(names, got, want, dtype):
+    """Max abs error over max(1, max|plain|) of each output (and, fp32,
+    the relative L2 error of the per-channel sums and dW); raises past
+    the tolerances. Returns (max abs error, worst relative error)."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            continue
+        g, w = g.float(), w.float()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} or "
+                                 "non-finite values")
+        err = (g - w).abs().max().item()
+        rel = err / max(1.0, w.abs().max().item())
+        if rel > TOLS[dtype]:
+            raise AssertionError(f"{name} {DTYPE_NAMES[dtype]}: max abs err "
+                                 f"{err} > {TOLS[dtype]} x max(1, max|plain|)")
+        if dtype == torch.float32 and (w.dim() == 1 or name == "dw"):
+            l2 = (g - w).norm().item() / max(w.norm().item(), 1e-30)
+            if l2 > CONV_L2_TOL:
+                raise AssertionError(f"{name}: relative L2 {l2} > "
+                                     f"{CONV_L2_TOL}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    return worst_abs, worst_rel
+
+
+def conv_kernel_phase(seed):
+    import torch.nn.functional as F
+
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 21)
+    results = []
+    for case in CONV_CASES:
+        name = case[0]
+        n, h, w, ci, co, k, stride, pad, kind, ho, wo = _conv_dims(case)
+        res = kind == "res"
+        for dtype in (torch.float32, torch.bfloat16):
+            t = _conv_inputs(case, dtype, dev, gen)
+            rkw = dict(r=t.get("r"), ar=t.get("ar"), br=t.get("br"))
+            fargs = (t["x"], t["w"], t.get("a"), t.get("b"), stride, pad,
+                     True)
+            want_f = fc.fused_conv_reference(*fargs, emit=res, **rkw)
+            bargs = fargs[:4] + (want_f[0], t["dy"], t["ds"], t["dss"],
+                                 stride, pad, True)
+            calls = {
+                "fused_conv": (
+                    lambda: fc.fused_conv(*fargs, emit=res, **rkw),
+                    lambda: fc.fused_conv_reference(*fargs, emit=res,
+                                                    **rkw),
+                    ("y", "sum", "sumsq", "emitted")),
+                "conv_bwd_dx": (
+                    lambda: fc.conv_bwd_dx(*bargs, g=t.get("g"), **rkw),
+                    lambda: fc.conv_bwd_dx_reference(*bargs, g=t.get("g"),
+                                                     **rkw),
+                    ("dx", "da", "db", "dr", "dar")),
+                "conv_bwd_dw": (
+                    lambda: (fc.conv_bwd_dw(*bargs, **rkw),),
+                    lambda: (fc.conv_bwd_dw_reference(*bargs, **rkw),),
+                    ("dw",)),
+            }
+            # cuDNN on channels-last tensors: timed only, never used by
+            # the port
+            x_cl, dy_cl = t["x"].permute(0, 3, 1, 2), t["dy"].permute(
+                0, 3, 1, 2)
+            w_cl = t["w"].permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            conv_args = ([stride] * 2, [pad] * 2, [1, 1], False, [0, 0], 1)
+            library = {
+                "fused_conv": lambda: F.conv2d(x_cl, w_cl, stride=stride,
+                                               padding=pad),
+                "conv_bwd_dx": lambda: torch.ops.aten.convolution_backward(
+                    dy_cl, x_cl, w_cl, None, *conv_args,
+                    [True, False, False]),
+                "conv_bwd_dw": lambda: torch.ops.aten.convolution_backward(
+                    dy_cl, x_cl, w_cl, None, *conv_args,
+                    [False, True, False]),
+            }
+            for kernel in CONV_KERNELS:
+                launch, plain, names = calls[kernel]
+                got, want = launch(), plain()
+                torch.cuda.synchronize()
+                err, rel = _conv_errs(names, got, want, dtype)
+                ms = device_ms(launch)
+                plain_ms = device_ms(plain)
+                library_ms = device_ms(library[kernel])
+                bound_ms, bound_by = conv_bound(kernel, case, dtype)
+                r = dict(kernel=kernel, case=name, dtype=DTYPE_NAMES[dtype],
+                         max_abs_err=err, err_over_max_ref=rel,
+                         tol=TOLS[dtype], ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+                results.append(r)
+                print(f"kernel {kernel} {name} {r['dtype']}: max_abs_err="
+                      f"{err:.3e} ({rel:.2e} of max|plain|, tol "
+                      f"{TOLS[dtype]:g}) ms={ms:.5f} (device, CUDA graph) "
+                      f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f}"
+                      f" (cuDNN) bound_ms={bound_ms:.5f} ({bound_by})",
+                      flush=True)
+            del t, want_f, calls, library
+            gc.collect()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# ResNet phase
+# ---------------------------------------------------------------------------
+def _plain_fused_conv_bn(x, w, a=None, b=None, stride=1, pad=0, relu=True,
+                         resid=None, resid_scale=None, resid_shift=None,
+                         emit_act=False):
+    """``fused_conv_bn`` through the autograd of the plain forward (dense
+    PyTorch, fp32 inside), with its argument defaults: the oracle."""
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+    if resid is not None:
+        a, b, resid_scale, resid_shift = fc.join_defaults(
+            x, a, b, resid_scale, resid_shift)
+    return fc.fused_conv_reference(x, w, a, b, stride, pad, relu, resid,
+                                   resid_scale, resid_shift, emit=emit_act)
+
+
+class _PlainBackward(torch.autograd.Function):
+    """K1's forward values with the autograd of the plain forward as their
+    gradient: the gradient oracle's reference, which follows the kernels'
+    forward trajectory (the same ReLU masks and batch statistics), so the
+    comparison sees K2, K3 and the autograd wiring and nothing else."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, r, ar, br, stride, pad, relu, emit):
+        from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+        ctx.save_for_backward(x, w, a, b, r, ar, br)
+        ctx.conf = (stride, pad, relu, emit)
+        return fc.fused_conv(x, w, a, b, stride, pad, relu, r, ar, br, emit)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+        stride, pad, relu, emit = ctx.conf
+        ins = [None if t is None else t.detach().requires_grad_(True)
+               for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = fc.fused_conv_reference(*ins[:4], stride, pad, relu,
+                                           *ins[4:], emit)
+        grads = iter(torch.autograd.grad(
+            outs, [t for t in ins if t is not None], cts, allow_unused=True))
+        return tuple(None if t is None else next(grads) for t in ins) \
+            + (None,) * 4
+
+
+def _pinned_fused_conv_bn(x, w, a=None, b=None, stride=1, pad=0, relu=True,
+                          resid=None, resid_scale=None, resid_shift=None,
+                          emit_act=False):
+    """``fused_conv_bn`` with K1's values and the plain backward."""
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+    if resid is not None:
+        a, b, resid_scale, resid_shift = fc.join_defaults(
+            x, a, b, resid_scale, resid_shift)
+    return _PlainBackward.apply(x, w, a, b, resid, resid_scale, resid_shift,
+                                stride, pad, relu, emit_act)
+
+
+class swap_convs:
+    """``with swap_convs(fn):`` the fused ResNet calls ``fn`` in place of
+    ``fused_conv_bn`` (the swap is made here, for the oracles only)."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def __enter__(self):
+        from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import \
+            fused_resnet
+        self._mod = fused_resnet
+        self._saved = fused_resnet.fused_conv_bn
+        fused_resnet.fused_conv_bn = self._fn
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.fused_conv_bn = self._saved
+
+
+def _conv_launches():
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+    return {k: getattr(fc, k + "_launches") for k in CONV_KERNELS}
+
+
+def _reset_conv_launches():
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+    for k in CONV_KERNELS:
+        setattr(fc, k + "_launches", 0)
+
+
+def _check_launches(label, got, per_pass, forwards, backwards):
+    want = {"fused_conv": per_pass * forwards,
+            "conv_bwd_dx": per_pass * backwards,
+            "conv_bwd_dw": per_pass * backwards}
+    print(f"{label}: launches {got} over {forwards} forwards and "
+          f"{backwards} backwards ({per_pass} each per pass: {want})",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: launches {got} != {want}")
+
+
+def convs_per_pass(net):
+    """Fused convs in one forward: three per bottleneck, one more per
+    downsample projection (52 for ResNet-50)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import \
+        FusedBottleneckV1
+
+    blocks = [m for m in net.modules() if isinstance(m, FusedBottleneckV1)]
+    return sum(3 + (b.bnd is not None) for b in blocks)
+
+
+def _frozen(net):
+    return {n: p.detach().clone() for n, p in net.named_parameters()
+            if not p.requires_grad}
+
+
+def _rel_l2(got, want):
+    den = want.norm().item()
+    return (got - want).norm().item() / (den if den > 0 else 1.0)
+
+
+def resnet_oracle(net, ce, x, y):
+    """The fp32 oracle of one training step from one state, three runs:
+    the kernels; the model with ``fused_conv_bn`` swapped for the autograd
+    of its plain versions (loss and the running statistics after the
+    forward: 1e-5); and the plain backward on K1's forward values (every
+    trainable tensor's gradient: relative L2 <= GRAD_RTOL). The kernels'
+    gradients against the fully plain run's are printed, not held: the two
+    forwards sum in other orders, and this fp32 network at its initial
+    weights turns such differences into percents of the gradients of the
+    early layers."""
+    def loss_fn(logits, labels):
+        return ce(logits, labels).mean()
+
+    start = _frozen(net)
+
+    def run(fn):
+        with torch.no_grad():
+            for n, p in net.named_parameters():
+                if n in start:
+                    p.copy_(start[n])
+        if fn is None:
+            return _grads(net, loss_fn, x, y), _frozen(net)
+        with swap_convs(fn):
+            return _grads(net, loss_fn, x, y), _frozen(net)
+
+    _reset_conv_launches()
+    (loss, grads), stats = run(None)
+    launches = _conv_launches()
+    (ref_loss, plain_grads), ref_stats = run(_plain_fused_conv_bn)
+    (_, ref_grads), _ = run(_pinned_fused_conv_bn)
+    _check_launches("gradient oracle (kernel run)", launches,
+                    convs_per_pass(net), 1, 1)
+    if not torch.isfinite(loss) or abs(float(loss - ref_loss)) > \
+            1e-5 * abs(float(ref_loss)):
+        raise AssertionError(f"oracle loss {float(loss)} != plain "
+                             f"{float(ref_loss)}")
+    names = [n for n, p in net.named_parameters() if p.requires_grad]
+    worst, worst_plain = (0.0, ""), (0.0, "")
+    for name, g, r, q in zip(names, grads, ref_grads, plain_grads):
+        rel = _rel_l2(g, r)
+        if not math.isfinite(rel) or rel > GRAD_RTOL:
+            raise AssertionError(f"gradient oracle: {name} relative L2 "
+                                 f"error {rel} > {GRAD_RTOL}")
+        worst = max(worst, (rel, name))
+        worst_plain = max(worst_plain, (_rel_l2(g, q), name))
+    worst_stat = (0.0, "")
+    for name, v in stats.items():
+        r = ref_stats[name]
+        err = (v - r).abs().max().item() / max(1.0, r.abs().max().item())
+        if not err <= 1e-5:
+            raise AssertionError(f"running statistic {name}: error {err}")
+        worst_stat = max(worst_stat, (err, name))
+    print(f"gradient oracle (fp32, B={x.shape[0]}, {len(names)} trainable "
+          f"tensors, {len(stats)} running statistics): loss "
+          f"{float(loss):.6f} vs plain {float(ref_loss):.6f}; worst "
+          f"relative L2 error against the plain backward on K1's forward "
+          f"{worst[0]:.3e} ({worst[1]}), tolerance {GRAD_RTOL:g}; against "
+          f"the fully plain run {worst_plain[0]:.3e} ({worst_plain[1]}, "
+          f"not held); worst running statistic {worst_stat[0]:.3e} "
+          f"({worst_stat[1]}), tolerance 1e-05", flush=True)
+    return dict(worst=worst[0], worst_plain=worst_plain[0],
+                worst_stat=worst_stat[0], n_trainable=len(names),
+                n_running_stats=len(stats))
+
+
+CONV_TAGS = ("fused_conv_fwd_kernel", "conv_bwd_dx_kernel",
+             "conv_bwd_dw_kernel", "column_sum_kernel", "split_sum_kernel",
+             "join_emit_kernel")
+
+
+# batch sizes of the ResNet phase: eval, gradient oracle, learning check
+# and eager steps, bench row (then its fallback)
+RESNET_BATCHES = (32, 8, 16, (128, 64))
+
+
+def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
+    """Drive ``net`` (``fused_resnet50_v1`` from ``main``; initialized on
+    ``ctx``) through eval, the gradient oracle and the training entry
+    points on ``hw`` x ``hw`` images, as the module docstring says."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, parallel
+
+    dev = ctx.torch_device()
+    per_pass = convs_per_pass(net)
+    classes = net.output.weight.shape[0]
+    b_eval, b_oracle, b_train, b_bench = batches
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 31)
+
+    def batch(b):
+        x = torch.rand((b, 3, hw, hw), generator=gen, device=dev)
+        y = torch.randint(0, classes, (b,), generator=gen, device=dev)
+        return x, y.float()
+
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    # the fp32 gradient oracle
+    x, y = batch(b_oracle)
+    oracle = resnet_oracle(net, ce, x, y)
+
+    # the training path, counted in two windows (the eval check between
+    # them is counted on its own)
+    _reset_conv_launches()
+    passes = 0
+    x, y = batch(b_train)
+    st = parallel.SPMDTrainer(net, ce, "sgd",
+                              {"learning_rate": 0.05, "momentum": 0.9})
+    losses = [float(st.step(x, y)) for _ in range(10)]
+    passes += 10
+    print(f"learning check (fp32 SPMDTrainer, B={b_train}, sgd lr 0.05 "
+          f"momentum 0.9, one batch repeated): losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 0.95 * losses[0]:
+        raise AssertionError("the loss did not fall by 5% over 10 steps")
+    st.sync_to_net()
+    del st
+
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.01, "momentum": 0.9})
+    eager = []
+    for _ in range(2):
+        with mx.autograd.record():
+            per_sample = ce(net(x), y)
+        mx.autograd.backward(per_sample)
+        trainer.step(x.shape[0])
+        eager.append(float(per_sample.detach().mean()))
+    passes += 2
+    if not all(math.isfinite(v) for v in eager):
+        raise AssertionError(f"gluon.Trainer losses not finite: {eager}")
+    print(f"gluon.Trainer (fp32, B={b_train}, sgd lr 0.01 momentum 0.9): 2 "
+          f"steps, losses {eager}", flush=True)
+    del trainer
+    first = _conv_launches()
+
+    # eval logits. One training-mode forward of the eval batch (no grad)
+    # with the BatchNorm momentum at 0 sets every running statistic to this
+    # batch's statistics; the eval forward of the same batch must then give
+    # that forward's logits (the same folded BatchNorm), and the logits of
+    # the model with fused_conv_bn swapped for the plain versions
+    x, _ = batch(b_eval)
+    momenta = {m: m._momentum for m in net.modules()
+               if hasattr(m, "_momentum")}
+    _reset_conv_launches()
+    try:
+        for m in momenta:
+            m._momentum = 0.0
+        with torch.no_grad(), mx.autograd.train_mode():
+            train_logits = net(x)
+    finally:
+        for m, v in momenta.items():
+            m._momentum = v
+    with mx.autograd.pause():
+        logits = net(x)
+    eval_launches = _conv_launches()
+    with mx.autograd.pause(), swap_convs(_plain_fused_conv_bn):
+        want = net(x)
+    torch.cuda.synchronize()
+    eval_err = _rel_l2(logits, want)
+    self_err = _rel_l2(logits, train_logits)
+    print(f"eval logits (fp32, B={b_eval}, running statistics of this "
+          f"batch): shape {tuple(logits.shape)}, max |logit| "
+          f"{want.abs().max().item():.4g}; relative L2 error against the "
+          f"plain swap {eval_err:.3e}, against the training-mode forward "
+          f"{self_err:.3e} (tol {TOLS[torch.float32]:g} each)", flush=True)
+    if logits.shape != want.shape or not torch.isfinite(logits).all() \
+            or max(eval_err, self_err) > TOLS[torch.float32]:
+        raise AssertionError("eval logits disagree with the plain path or "
+                             "with the training-mode forward")
+    _check_launches("eval", eval_launches, per_pass, 2, 0)
+    _reset_conv_launches()
+
+    # (e) the bench row: bf16 net, B=128, SPMDTrainer SGD lr 0.1 mom 0.9
+    net.cast("bfloat16")
+    gc.collect()
+    bench = None
+    for b in b_bench:
+        xb, yb = batch(b)
+        xb = xb.to(torch.bfloat16)
+        st = parallel.SPMDTrainer(net, ce, "sgd",
+                                  {"learning_rate": 0.1, "momentum": 0.9})
+        for _ in range(2):
+            st.step(xb, yb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        bf16_losses = [st.step(xb, yb) for _ in range(5)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 5
+        peak = torch.cuda.max_memory_allocated(dev)
+        passes += 7
+        if not all(torch.isfinite(v) for v in bf16_losses):
+            raise AssertionError("bf16 SPMDTrainer loss not finite")
+        print(f"bf16 SPMDTrainer step (B={b}, sgd lr 0.1 "
+              f"momentum 0.9; {card}): {step_ms:.3f} ms per step (host "
+              f"clock, 5 steps after 2 warmup), {b / step_ms * 1e3:.1f} "
+              f"images/s, peak memory {peak / 2**20:.1f} MiB", flush=True)
+        bench = dict(batch=b, step_ms=step_ms, images_s=b / step_ms * 1e3,
+                     peak_bytes=peak)
+        if step_ms <= 2000.0:
+            break
+        print(f"the B={b} step took over 2 s: the row drops to the next "
+              "batch size", flush=True)
+        del st
+    rows = _profile_step(st.step, xb, yb, card, bench["step_ms"],
+                         tags=CONV_TAGS, top=16)
+    passes += 1
+    second = _conv_launches()
+    launches = {k: first[k] + second[k] for k in CONV_KERNELS}
+    _check_launches("training path (SPMDTrainer, gluon.Trainer, bench row)",
+                    launches, per_pass, passes, passes)
+    return dict(launches=launches, eval_launches=eval_launches,
+                per_pass=per_pass, passes=passes, oracle=oracle,
+                learning_losses=losses, eval_err=eval_err, bench=bench,
+                profile=rows[:16])
+
+
+
+def resnet_main(seed, card):
+    """The ResNet phase on ``fused_resnet50_v1``: 1000 classes, 224x224,
+    52 fused convs per pass, 161 trainable tensors, 106 running
+    statistics."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_model
+
+    ctx = mx.gpu(0)
+    mx.random.seed(seed)
+    t0 = time.perf_counter()
+    net = get_model("fused_resnet50_v1", classes=1000).initialize(
+        "xavier", ctx=ctx)
+    nparams = sum(p.numel() for p in net.parameters())
+    print(f"model fused_resnet50_v1: {nparams} parameters, drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = resnet_phase(seed, card, net, ctx)
+    if (out["per_pass"], out["oracle"]["n_trainable"],
+            out["oracle"]["n_running_stats"]) != (52, 161, 106):
+        raise AssertionError("fused_resnet50_v1 runs 52 fused convs per "
+                             "pass and has 161 trainable tensors and 106 "
+                             "running statistics")
+    return out
+
 
 def _entry(name, source, replaces, launches, cases, head_case):
     head = next(r for r in cases if r["case"] == head_case
@@ -742,9 +1313,12 @@ def main(argv=None) -> int:
 
     kernel = kernel_phase(args.seed)
     bwd = backward_kernel_phase(args.seed)
+    conv = conv_kernel_phase(args.seed)
     served = slice_phase(args.seed)
     gc.collect()
     trained = train_phase(args.seed, card)
+    gc.collect()
+    resnet = resnet_main(args.seed, card)
 
     src = "incubator_mxnet_tpu_torch/csrc/"
     ref = "incubator_mxnet_tpu/ops/pallas_attention.py:"
@@ -762,6 +1336,17 @@ def main(argv=None) -> int:
                [r for r in bwd if r["kernel"] == name], train_case)
         for name, line in (("flash_bwd_dq", "209"),
                            ("flash_bwd_dkv", "267"))]}
+    conv_ref = "incubator_mxnet_tpu/ops/pallas_conv.py:"
+    for name, source, line in (("fused_conv", "fused_conv.cu", "222"),
+                               ("conv_bwd_dx", "conv_bwd.cu", "553"),
+                               ("conv_bwd_dw", "conv_bwd.cu", "780")):
+        entry = _entry(name, src + source, conv_ref + line,
+                       resnet["launches"][name],
+                       [r for r in conv if r["kernel"] == name], CONV_HEAD)
+        entry["launches_by_path"] = {
+            "resnet_train": resnet["launches"][name],
+            "resnet_eval": resnet["eval_launches"][name]}
+        record["kernels"].append(entry)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

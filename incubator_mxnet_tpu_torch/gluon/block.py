@@ -39,11 +39,20 @@ class Block(torch.nn.Module):
         super().__init__()
         self.training = False
 
-    def _declare(self, name: str, shape) -> None:
+    def _declare(self, name: str, shape, grad_req: str = "write") -> None:
         """Declare a float32 parameter ``name`` of ``shape`` (uninitialized,
-        on the meta device)."""
-        self.register_parameter(name, torch.nn.Parameter(
-            torch.empty(tuple(int(s) for s in shape), device="meta")))
+        on the meta device). ``grad_req="null"`` declares state that no
+        gradient reaches (BatchNorm running statistics): the parameter has
+        ``requires_grad=False``, as a JAX ``params.get(...,
+        grad_req="null")``, and trainers leave it out of their updates."""
+        if grad_req not in ("write", "null"):
+            raise ValueError(f"grad_req {grad_req!r}: 'write' or 'null'")
+        p = torch.nn.Parameter(
+            torch.empty(tuple(int(s) for s in shape), device="meta"),
+            requires_grad=grad_req == "write")
+        if grad_req == "null":
+            p.grad_req = "null"
+        self.register_parameter(name, p)
 
     def collect_params(self) -> "OrderedDict[str, torch.nn.Parameter]":
         """Parameters by structural name."""

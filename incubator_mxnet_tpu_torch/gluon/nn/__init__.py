@@ -1,5 +1,7 @@
 """Gluon layers of the port."""
 
-from .basic_layers import Dense, Dropout, Embedding, LayerNorm
+from .basic_layers import (Dense, Dropout, Embedding, HybridSequential,
+                           LayerNorm, Sequential)
 
-__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm"]
+__all__ = ["Dense", "Dropout", "Embedding", "HybridSequential", "LayerNorm",
+           "Sequential"]

@@ -1,9 +1,11 @@
 """Basic layers of the ported path.
 
 Counterpart of the JAX package's ``gluon/nn/basic_layers.py``: ``Dense``,
-``Embedding``, ``LayerNorm`` and ``Dropout``, with the reference's
-parameter names and layouts (Dense weight ``(units, in_units)``, LayerNorm
-``gamma``/``beta``).
+``Embedding``, ``LayerNorm``, ``Dropout``, ``Sequential`` and
+``HybridSequential``, with the reference's parameter names and layouts
+(Dense weight ``(units, in_units)``, LayerNorm ``gamma``/``beta``; the
+children of a sequential block are named ``0``, ``1``, ..., so their
+parameters read ``stages.0.0.conv1_weight`` as in the JAX package).
 """
 
 from __future__ import annotations
@@ -12,7 +14,35 @@ from ... import autograd
 from ...ops import nn as F
 from ..block import Block
 
-__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm"]
+__all__ = ["Dense", "Dropout", "Embedding", "HybridSequential", "LayerNorm",
+           "Sequential"]
+
+
+class Sequential(Block):
+    """Stack of blocks run in order (reference ``nn.Sequential``)."""
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.add_module(str(len(self._modules)), b)
+
+    def forward(self, x):
+        for b in self._modules.values():
+            x = b(x)
+        return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, i):
+        return list(self._modules.values())[i]
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+
+class HybridSequential(Sequential):
+    """Reference ``nn.HybridSequential``: the same stack here, since the
+    port runs eagerly (there is nothing to hybridize)."""
 
 
 class Dense(Block):

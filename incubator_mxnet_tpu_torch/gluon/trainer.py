@@ -12,7 +12,9 @@ Counterpart of the JAX package's ``gluon/trainer.py`` ``Trainer``::
 ``step`` sets ``rescale_grad = 1 / batch_size`` and applies the
 optimizer's MXNet rule to every parameter in place. A gradient that no
 backward has written since the last step is stale: ``step`` raises unless
-``ignore_stale_grad=True``, which skips that parameter. One device only:
+``ignore_stale_grad=True``, which skips that parameter. A parameter
+without a gradient (``requires_grad=False`` or ``grad_req="null"``: the
+BatchNorm running statistics) is left alone. One device only:
 the JAX package's kvstore, FusedStep and SuperStep engines are not ported
 (``parallel.SPMDTrainer`` is the fused one-device step here).
 """

@@ -2,9 +2,10 @@
 
 Counterpart of the JAX package's ``initializer.py``, cut to what the
 ported models use: ``zeros``, ``ones`` and ``xavier``, with the reference's
-name-pattern dispatch (names ending in ``bias``/``beta`` take zeros,
-``gamma`` takes ones). Values are drawn with numpy from
-``random.next_seed()``.
+name-pattern dispatch (names ending in ``bias``/``beta`` or in
+``running_mean``/``moving_mean`` take zeros; ``gamma`` and
+``running_var``/``moving_var`` take ones). Values are drawn with numpy
+from ``random.next_seed()``.
 """
 
 from __future__ import annotations
@@ -42,9 +43,9 @@ class Initializer:
 
     def __call__(self, name: str, shape) -> np.ndarray:
         shape = tuple(int(s) for s in shape)
-        if name.endswith(("bias", "beta")):
+        if name.endswith(("bias", "beta", "running_mean", "moving_mean")):
             return np.zeros(shape, np.float32)
-        if name.endswith("gamma"):
+        if name.endswith(("gamma", "running_var", "moving_var")):
             return np.ones(shape, np.float32)
         return self._init_weight(name, shape)
 

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. Libraries are
 built at first use into ``build/kernels/`` at the root of the checkout
 (listed in ``.gitignore``) and named by a hash of the source and flags, so
-a changed source rebuilds and an unchanged one loads at once. Nothing is
-built or loaded at import.
+a changed source rebuilds and an unchanged one loads at once. The hash
+also covers the shared headers (``csrc/*.cuh``) the sources include.
+Nothing is built or loaded at import.
 
 ``build_all()`` starts one ``nvcc`` per source together and waits for all,
 so a cold start costs the slowest build, not their sum.
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 #: every kernel source of the package
-SOURCES = ("flash_bwd", "flash_fwd")
+SOURCES = ("conv_bwd", "flash_bwd", "flash_fwd", "fused_conv")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -53,6 +54,7 @@ def nvcc_path() -> str:
 def lib_path(name: str) -> Path:
     """Content-addressed library path of kernel source ``name``."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

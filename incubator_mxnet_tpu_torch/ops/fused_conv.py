@@ -1,0 +1,507 @@
+"""Fused conv + BatchNorm: the hand-written CUDA kernels and their plain
+PyTorch versions.
+
+Counterpart of the JAX package's ``ops/pallas_conv.py``. ``fused_conv_bn``
+keeps that module's contract: NHWC activations, HWIO weights, odd square
+or rectangular kernels, stride 1 or 2, symmetric padding, fp32 or bf16.
+The previous layer's BatchNorm (``a``, ``b``), the residual join
+(``resid`` with ``resid_scale``, ``resid_shift``) and the ReLU run as a
+prologue on the input; the conv's own per-channel ``sum`` and ``sumsq``
+come out of its epilogue, to be folded by :func:`bn_scale_shift` into the
+next call's prologue.
+
+A CUDA tensor always launches the kernels: the forward in
+``csrc/fused_conv.cu`` (which replaces the TPU kernel
+``_fused_conv_kernel``, both of its stride-2 layouts in one kernel) and,
+for a gradient, the input-gradient and weight-gradient kernels in
+``csrc/conv_bwd.cu`` (``_conv_bwd_dx_kernel``, ``_conv_bwd_dw_kernel``;
+stride 2 included, where the JAX package's default keeps XLA for dx). A
+CPU tensor takes the plain versions, :func:`fused_conv_reference`,
+:func:`conv_bwd_dx_reference` and :func:`conv_bwd_dw_reference`, which
+follow the JAX package's ``_apply_prologue_host`` and ``_conv_raw`` with
+``F.conv2d`` and ``torch.nn.grad``. None of the JAX package's
+``MXTPU_CONV_*`` knobs (VMEM budget, output-channel block, row target,
+im2col, stride-2 layout, backward dispatch, epilogue) has a counterpart:
+there is one kernel per function, and the model always takes the
+residual-epilogue chain.
+
+Numerics, as the TPU kernels: the prologue runs in fp32 and is rounded to
+x's type before the product; the conv accumulates in fp32 and ``y`` is
+stored in x's type, while ``sum``/``sumsq`` are taken of the fp32
+accumulator; the backward folds the statistics cotangents into ``dy``
+(``dy + ds + 2*y*dss`` in fp32, rounded to y's type) and masks with the
+strict ``lin > 0`` of the recomputed prologue.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from . import _build
+
+__all__ = ["FusedConvEpiFunction", "FusedConvFunction", "apply_prologue",
+           "bn_scale_shift", "conv_bwd_dw", "conv_bwd_dw_launches",
+           "conv_bwd_dw_reference", "conv_bwd_dx", "conv_bwd_dx_launches",
+           "conv_bwd_dx_reference", "dw_splits", "fused_conv",
+           "fused_conv_bn", "fused_conv_launches", "fused_conv_reference",
+           "join_defaults"]
+
+#: kernel launches made by each wrapper (one per CUDA call); reset them to
+#: 0 before a run and read them after, to show the run went through the
+#: kernels
+fused_conv_launches = 0
+conv_bwd_dx_launches = 0
+conv_bwd_dw_launches = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TILE = 64          # rows and columns of a kernel tile
+_KSTEP = 16         # pixels per step of the weight-gradient kernel
+_DW_BLOCKS = 528    # weight-gradient blocks to aim for: 4 per SM of an H100
+_fns = {}
+
+
+def _out_size(h, pad, k, stride):
+    return (h + 2 * pad - k) // stride + 1
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def apply_prologue(x, a=None, b=None, r=None, ar=None, br=None, relu=True):
+    """``relu(a*x + b [+ ar*r + br])`` in fp32, rounded to x's type (the
+    JAX package's ``_apply_prologue_host``). With neither ``a`` nor ``r``
+    it is x itself, with no ReLU. The activation is ``where(lin > 0, lin,
+    0)``, so its gradient is the strict ``lin > 0`` mask of the kernels."""
+    if a is None and r is None:
+        return x
+    xf = x.float()
+    if a is not None:
+        xf = xf * a.float() + b.float()
+    if r is not None:
+        rf = r.float()
+        xf = xf + (rf if ar is None else rf * ar.float()) \
+            + (0.0 if br is None else br.float())
+    if relu:
+        xf = torch.where(xf > 0.0, xf, torch.zeros_like(xf))
+    return xf.to(x.dtype)
+
+
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1).contiguous()
+
+
+def _oihw(w):
+    return w.permute(3, 2, 0, 1)
+
+
+def fused_conv_reference(x, w, a=None, b=None, stride=1, pad=0, relu=True,
+                         r=None, ar=None, br=None, emit=False):
+    """Plain version of the forward kernel: the prologue, then a dense fp32
+    conv (``F.conv2d``) of the rounded prologue output with w. Returns
+    ``(y, sum, sumsq)`` (+ the prologue output when ``emit``); the sums are
+    of the fp32 conv output, y is it rounded to x's type."""
+    xp = apply_prologue(x, a, b, r, ar, br, relu)
+    acc = _nhwc(F.conv2d(_nchw(xp.float()), _oihw(w.float()), stride=stride,
+                         padding=pad))
+    s = acc.sum(dim=(0, 1, 2))
+    ss = (acc * acc).sum(dim=(0, 1, 2))
+    out = (acc.to(x.dtype), s, ss)
+    return out + (xp,) if emit else out
+
+
+def _fold(dy, y, ds, dss):
+    """``dy + ds + 2*y*dss`` in fp32, rounded to y's type, as fp32."""
+    dyt = dy.float() + ds.float() + 2.0 * y.float() * dss.float()
+    return dyt.to(y.dtype).float()
+
+
+def conv_bwd_dx_reference(x, w, a, b, y, dy, ds, dss, stride=1, pad=0,
+                          relu=True, r=None, ar=None, br=None, g=None):
+    """Plain version of the input-gradient kernel. Returns ``(dx, da, db)``
+    (``da``/``db`` None when ``a`` is None), and ``(dx, da, db, dr, dar)``
+    with a residual; ``g`` is the emitted activation's cotangent."""
+    dyt = _fold(dy, y, ds, dss)
+    n, h, wd, ci = x.shape
+    dxp = _nhwc(torch.nn.grad.conv2d_input(
+        (n, ci, h, wd), _oihw(w.float()), _nchw(dyt), stride=stride,
+        padding=pad))
+    if g is not None:
+        dxp = dxp + g.float()
+    if a is None and r is None:
+        return dxp.to(x.dtype), None, None
+    x32 = x.float()
+    av = a.float() if a is not None else torch.ones_like(x32[0, 0, 0])
+    lin = x32 * av + (b.float() if a is not None else 0.0)
+    if r is not None:
+        r32 = r.float()
+        lin = lin + r32 * ar.float() + br.float()
+    dxf = torch.where(lin > 0.0, dxp, torch.zeros_like(dxp)) if relu \
+        else dxp
+    dx = (dxf * av).to(x.dtype)
+    da = (dxf * x32).sum(dim=(0, 1, 2)) if a is not None else None
+    db = dxf.sum(dim=(0, 1, 2)) if a is not None else None
+    if r is None:
+        return dx, da, db
+    dr = (dxf * ar.float()).to(x.dtype)
+    dar = (dxf * r32).sum(dim=(0, 1, 2))
+    return dx, da, db, dr, dar
+
+
+def conv_bwd_dw_reference(x, w, a, b, y, dy, ds, dss, stride=1, pad=0,
+                          relu=True, r=None, ar=None, br=None):
+    """Plain version of the weight-gradient kernel: the prologue output and
+    the folded cotangent (both rounded as the kernel rounds them) in a
+    dense fp32 weight gradient, cast to w's type."""
+    xp = apply_prologue(x, a, b, r, ar, br, relu).float()
+    dw = torch.nn.grad.conv2d_weight(
+        _nchw(xp), tuple(_oihw(w).shape), _nchw(_fold(dy, y, ds, dss)),
+        stride=stride, padding=pad)
+    return dw.permute(2, 3, 1, 0).contiguous().to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+def _kernel(name):
+    fn = _fns.get(name)
+    if fn is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        shape = [i] * 11 + [i, i, p]       # N..Wo, relu, dtype, stream
+        if name == "fwd":
+            fn = _build.load("fused_conv").mxtpu_fused_conv_fwd
+            fn.argtypes = [p] * 12 + shape
+        elif name == "dx":
+            fn = _build.load("conv_bwd").mxtpu_conv_bwd_dx
+            fn.argtypes = [p] * 18 + shape
+        else:
+            fn = _build.load("conv_bwd").mxtpu_conv_bwd_dw
+            fn.argtypes = [p] * 12 + [i] + shape
+        fn.restype = i
+        _fns[name] = fn
+    return fn
+
+
+def _device_of(x):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_conv runs on cpu or cuda, got {x.device}")
+    return x.device.type
+
+
+def _geometry(x, w, stride, pad):
+    """Check the call contract; returns (n, h, w, ci, co, kh, kw, ho, wo)."""
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"x must be NHWC and w HWIO, got x "
+                         f"{tuple(x.shape)}, w {tuple(w.shape)}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_conv takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"w dtype {w.dtype} != x dtype {x.dtype}")
+    n, h, wd, ci = x.shape
+    kh, kw, wci, co = w.shape
+    if wci != ci:
+        raise ValueError(f"channel mismatch: x has {ci}, w takes {wci}")
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"kernel {kh}x{kw}: only odd sizes")
+    if stride not in (1, 2):
+        raise ValueError(f"stride {stride}: only 1 or 2")
+    if pad < 0:
+        raise ValueError(f"pad {pad} < 0")
+    ho, wo = _out_size(h, pad, kh, stride), _out_size(wd, pad, kw, stride)
+    if min(n, h, wd, ci, co) < 1 or ho < 1 or wo < 1:
+        raise ValueError(f"empty conv: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, output {ho}x{wo}")
+    return n, h, wd, ci, co, kh, kw, ho, wo
+
+
+def _same(name, t, like):
+    """``t`` as a contiguous tensor shaped, typed and placed like ``like``."""
+    if t is None:
+        return None
+    if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype \
+            or t.device != like.device:
+        raise ValueError(f"{name} must be {like.dtype} {tuple(like.shape)} "
+                         f"on {like.device}, got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device}")
+    return t.contiguous()
+
+
+def _vec(name, t, c, dev):
+    """A per-channel operand as contiguous fp32 (c,) on ``dev``."""
+    if t is None:
+        return None
+    t = torch.as_tensor(t)
+    if t.shape != (c,):
+        raise ValueError(f"{name} must be ({c},), got {tuple(t.shape)}")
+    return t.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _run(fn, x, *args):
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
+def _prologue_operands(x, a, b, r, ar, br, ci):
+    dev = x.device
+    if (a is None) != (b is None):
+        raise ValueError("a and b come together")
+    if r is not None and (ar is None or br is None):
+        raise ValueError("resid needs resid_scale and resid_shift")
+    return (_vec("a", a, ci, dev), _vec("b", b, ci, dev),
+            _same("resid", r, x),
+            _vec("resid_scale", ar, ci, dev) if r is not None else None,
+            _vec("resid_shift", br, ci, dev) if r is not None else None)
+
+
+def fused_conv(x, w, a=None, b=None, stride=1, pad=0, relu=True, r=None,
+               ar=None, br=None, emit=False):
+    """The forward kernel: ``(y, sum, sumsq)`` (+ the prologue output when
+    ``emit``). A CPU tensor takes :func:`fused_conv_reference`; a CUDA
+    tensor launches ``csrc/fused_conv.cu`` or raises."""
+    global fused_conv_launches
+    n, h, wd, ci, co, kh, kw, ho, wo = _geometry(x, w, stride, pad)
+    if emit and r is None:
+        raise ValueError("emit needs a resid operand")
+    if _device_of(x) == "cpu":
+        return fused_conv_reference(x, w, a, b, stride, pad, relu, r, ar, br,
+                                    emit)
+    x, w = x.contiguous(), w.contiguous()
+    if w.device != x.device:
+        raise ValueError(f"w on {w.device}, x on {x.device}")
+    a, b, r, ar, br = _prologue_operands(x, a, b, r, ar, br, ci)
+    dev = x.device
+    y = torch.empty((n, ho, wo, co), dtype=x.dtype, device=dev)
+    s = torch.empty(co, dtype=torch.float32, device=dev)
+    ss = torch.empty(co, dtype=torch.float32, device=dev)
+    xp = torch.empty_like(x) if emit else None
+    mtiles = -(-n * ho * wo // _TILE)
+    part = torch.empty(2 * mtiles * co, dtype=torch.float32, device=dev)
+    _run(_kernel("fwd"), x, _ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(r),
+         _ptr(ar), _ptr(br), _ptr(y), _ptr(s), _ptr(ss), _ptr(xp),
+         _ptr(part), n, h, wd, ci, co, kh, kw, stride, pad, ho, wo,
+         int(bool(relu)), _DTYPE_CODE[x.dtype])
+    fused_conv_launches += 1
+    return (y, s, ss, xp) if emit else (y, s, ss)
+
+
+def _backward_operands(x, w, y, dy, stride, pad):
+    geo = _geometry(x, w, stride, pad)
+    n, _, _, _, co, _, _, ho, wo = geo
+    want = (n, ho, wo, co)
+    for name, t in (("y", y), ("dy", dy)):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
+    return geo
+
+
+def conv_bwd_dx(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
+                r=None, ar=None, br=None, g=None):
+    """The input-gradient kernel: ``(dx, da, db)`` (+ ``dr, dar`` with a
+    residual). A CPU tensor takes :func:`conv_bwd_dx_reference`; a CUDA
+    tensor launches ``csrc/conv_bwd.cu`` or raises."""
+    global conv_bwd_dx_launches
+    n, h, wd, ci, co, kh, kw, ho, wo = _backward_operands(
+        x, w, y, dy, stride, pad)
+    if _device_of(x) == "cpu":
+        return conv_bwd_dx_reference(x, w, a, b, y, dy, ds, dss, stride, pad,
+                                     relu, r, ar, br, g)
+    x = x.contiguous()
+    w, y, g = w.contiguous(), y.contiguous(), _same("g", g, x)
+    dy = _same("dy", dy.to(y.dtype), y)
+    if y.dtype != x.dtype or w.device != x.device or y.device != x.device:
+        raise ValueError("x, w, y and dy must share one type and device")
+    a, b, r, ar, br = _prologue_operands(x, a, b, r, ar, br, ci)
+    ds, dss = _vec("ds", ds, co, x.device), _vec("dss", dss, co, x.device)
+    dev = x.device
+    pro = a is not None or r is not None
+    dx = torch.empty_like(x)
+    dr = torch.empty_like(x) if r is not None else None
+    f32 = dict(dtype=torch.float32, device=dev)
+    da = torch.empty(ci, **f32) if a is not None else None
+    db = torch.empty(ci, **f32) if a is not None else None
+    dar = torch.empty(ci, **f32) if r is not None else None
+    rows = stride * stride * -(-n * -(-h // stride) * -(-wd // stride)
+                               // _TILE)
+    part = torch.empty(3 * rows * ci if pro else 1, **f32)
+    _run(_kernel("dx"), x, _ptr(dy), _ptr(y), _ptr(x), _ptr(w), _ptr(a),
+         _ptr(b), _ptr(ds), _ptr(dss), _ptr(r), _ptr(ar), _ptr(br), _ptr(g),
+         _ptr(dx), _ptr(da), _ptr(db), _ptr(dr), _ptr(dar), _ptr(part), n,
+         h, wd, ci, co, kh, kw, stride, pad, ho, wo, int(bool(relu)),
+         _DTYPE_CODE[x.dtype])
+    conv_bwd_dx_launches += 1
+    return (dx, da, db, dr, dar) if r is not None else (dx, da, db)
+
+
+def dw_splits(n, ho, wo, ci, co, kh, kw):
+    """How many ranges the weight-gradient kernel cuts its N*Ho*Wo pixels
+    into: enough blocks to fill the card (about ``_DW_BLOCKS``), each range
+    at least 8 steps of 16 pixels."""
+    tiles = kh * kw * -(-ci // _TILE) * -(-co // _TILE)
+    steps = -(-n * ho * wo // _KSTEP)
+    return max(1, min(-(-_DW_BLOCKS // tiles), steps // 8))
+
+
+def conv_bwd_dw(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
+                r=None, ar=None, br=None):
+    """The weight-gradient kernel: dW in w's type. A CPU tensor takes
+    :func:`conv_bwd_dw_reference`; a CUDA tensor launches
+    ``csrc/conv_bwd.cu`` or raises."""
+    global conv_bwd_dw_launches
+    n, h, wd, ci, co, kh, kw, ho, wo = _backward_operands(
+        x, w, y, dy, stride, pad)
+    if _device_of(x) == "cpu":
+        return conv_bwd_dw_reference(x, w, a, b, y, dy, ds, dss, stride, pad,
+                                     relu, r, ar, br)
+    x = x.contiguous()
+    w, y = w.contiguous(), y.contiguous()
+    dy = _same("dy", dy.to(y.dtype), y)
+    if y.dtype != x.dtype or w.device != x.device or y.device != x.device:
+        raise ValueError("x, w, y and dy must share one type and device")
+    a, b, r, ar, br = _prologue_operands(x, a, b, r, ar, br, ci)
+    ds, dss = _vec("ds", ds, co, x.device), _vec("dss", dss, co, x.device)
+    splits = dw_splits(n, ho, wo, ci, co, kh, kw)
+    dw = torch.empty_like(w)
+    part = torch.empty(splits * kh * kw * ci * co, dtype=torch.float32,
+                       device=x.device)
+    _run(_kernel("dw"), x, _ptr(x), _ptr(dy), _ptr(y), _ptr(a), _ptr(b),
+         _ptr(ds), _ptr(dss), _ptr(r), _ptr(ar), _ptr(br), _ptr(dw),
+         _ptr(part), splits, n, h, wd, ci, co, kh, kw, stride, pad, ho, wo,
+         int(bool(relu)), _DTYPE_CODE[x.dtype])
+    conv_bwd_dw_launches += 1
+    return dw
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+def _cotangents(y, dy, ds, dss):
+    """Materialized cotangents in the kernels' types: dy in y's type, the
+    statistics cotangents fp32."""
+    return dy.to(y.dtype), ds.float(), dss.float()
+
+
+class FusedConvFunction(torch.autograd.Function):
+    """Differentiable fused conv without a residual (the JAX package's
+    ``_fused_conv`` custom VJP): outputs ``(y, sum, sumsq)``, cotangents
+    ``(dy, ds, dss)``. A cotangent that is not used arrives as zeros."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, stride, pad, relu):
+        y, s, ss = fused_conv(x, w, a, b, stride, pad, relu)
+        ctx.save_for_backward(x, w, a, b, y)
+        ctx.conf = (stride, pad, relu)
+        return y, s, ss
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, ds, dss):
+        x, w, a, b, y = ctx.saved_tensors
+        dy, ds, dss = _cotangents(y, dy, ds, dss)
+        need = ctx.needs_input_grad
+        dx = dw = da = db = None
+        if need[1]:
+            dw = conv_bwd_dw(x, w, a, b, y, dy, ds, dss, *ctx.conf)
+        if need[0] or need[2] or need[3]:
+            dx, da, db = conv_bwd_dx(x, w, a, b, y, dy, ds, dss, *ctx.conf)
+        return dx, dw, da, db, None, None, None
+
+
+class FusedConvEpiFunction(torch.autograd.Function):
+    """Differentiable fused conv with the residual join in its prologue and
+    an optional emitted activation (the JAX package's ``_fused_conv_epi``):
+    outputs ``(y, sum, sumsq[, joined])``; the shift's gradient equals the
+    prologue shift's (``dbr = db``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, r, ar, br, stride, pad, relu, emit):
+        outs = fused_conv(x, w, a, b, stride, pad, relu, r, ar, br, emit)
+        ctx.save_for_backward(x, w, a, b, r, ar, br, outs[0])
+        ctx.conf = (stride, pad, relu)
+        ctx.emit = emit
+        return outs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, ds, dss, *g):
+        x, w, a, b, r, ar, br, y = ctx.saved_tensors
+        dy, ds, dss = _cotangents(y, dy, ds, dss)
+        g = g[0].to(x.dtype) if ctx.emit else None
+        need = ctx.needs_input_grad
+        dx = dw = da = db = dr = dar = None
+        if need[1]:
+            dw = conv_bwd_dw(x, w, a, b, y, dy, ds, dss, *ctx.conf, r, ar, br)
+        if any(need[i] for i in (0, 2, 3, 4, 5, 6)):
+            dx, da, db, dr, dar = conv_bwd_dx(x, w, a, b, y, dy, ds, dss,
+                                              *ctx.conf, r, ar, br, g)
+        return dx, dw, da, db, dr, dar, db, None, None, None, None
+
+
+def fused_conv_bn(x, w, a=None, b=None, stride=1, pad=0, relu=True,
+                  resid=None, resid_scale=None, resid_shift=None,
+                  emit_act=False):
+    """Fused (BatchNorm prologue + ReLU [+ residual join]) -> conv ->
+    (statistics epilogue), differentiable.
+
+    x: (N, H, W, Ci) NHWC; w: (kh, kw, Ci, Co) HWIO; a, b: optional (Ci,)
+    fp32 scale and shift of the previous BatchNorm (``a = gamma /
+    sqrt(var + eps)``, ``b = beta - mean * a``). Returns ``(y, sum,
+    sumsq)``: y is the raw conv output in x's type, the fp32 per-channel
+    sums feed :func:`bn_scale_shift`. With ``resid`` (x-shaped) the
+    prologue is the whole bottleneck junction ``relu(a*x + b +
+    resid_scale*resid + resid_shift)``, scale 1 and shift 0 by default,
+    and a missing ``a`` is the identity; ``emit_act`` also returns that
+    joined activation. ``emit_act`` without ``resid`` raises."""
+    if resid is None:
+        if emit_act:
+            raise ValueError(
+                "emit_act requires a resid operand (the emitted activation "
+                "is the joined shortcut input; without a residual the "
+                "caller already holds x)")
+        return FusedConvFunction.apply(x, w, a, b, int(stride), int(pad),
+                                       bool(relu))
+    a, b, ar, br = join_defaults(x, a, b, resid_scale, resid_shift)
+    return FusedConvEpiFunction.apply(x, w, a, b, resid, ar, br, int(stride),
+                                      int(pad), bool(relu), bool(emit_act))
+
+
+def join_defaults(x, a, b, resid_scale, resid_shift):
+    """The residual join's operands with the JAX package's defaults: a
+    missing prologue is the identity (a=1, b=0), a missing residual scale
+    1 and shift 0. Returns ``(a, b, resid_scale, resid_shift)``."""
+    ci = x.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if a is None:
+        a, b = torch.ones(ci, **f32), torch.zeros(ci, **f32)
+    ar = torch.ones(ci, **f32) if resid_scale is None else resid_scale
+    br = torch.zeros(ci, **f32) if resid_shift is None else resid_shift
+    return a, b, ar, br
+
+
+def bn_scale_shift(s, ss, count, gamma, beta, eps=1e-5):
+    """Fold batch statistics and the BatchNorm parameters into the next
+    prologue's fp32 ``(a, b)``; returns ``(a, b, mean, var)`` with the
+    biased batch variance ``max(ss/count - mean^2, 0)`` (what the running
+    variance averages, as in the JAX package)."""
+    count = float(count)
+    mean = s / count
+    var = torch.clamp(ss / count - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    a = gamma.float() * inv
+    b = beta.float() - mean * a
+    return a, b, mean, var
+

@@ -1,8 +1,8 @@
 """Neural-network ops of the ported path.
 
 Counterparts of the ops of the JAX package's ``ops/nn.py`` that the GPT
-decoder runs. None of them is a TPU kernel there (XLA compiles them), so
-here they are plain PyTorch.
+decoder and the fused ResNet run. None of them is a TPU kernel there (XLA
+compiles them), so here they are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["activation", "dropout", "embedding", "fully_connected",
-           "layer_norm"]
+           "layer_norm", "pooling"]
 
 
 def fully_connected(x, weight, bias=None, flatten=True):
@@ -68,3 +68,21 @@ def dropout(x, p=0.5, training=False,
     keep = 1.0 - p
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return x * mask.to(x.dtype) / keep
+
+
+def pooling(x, kernel=(2, 2), pool_type="max", stride=None, pad=(0, 0),
+            layout="NCHW"):
+    """2-D max pooling (reference ``Pooling``), padded with -inf as the JAX
+    package's ``lax.reduce_window``; ``stride`` defaults to ``kernel``.
+    ``layout="NHWC"`` takes and returns channels-last tensors without a
+    copy. Only ``pool_type="max"`` is ported."""
+    if pool_type != "max":
+        raise NotImplementedError(f"pool_type {pool_type!r}: the port has "
+                                  "max pooling only")
+    if layout not in ("NCHW", "NHWC"):
+        raise ValueError(f"layout {layout!r}: NCHW or NHWC")
+    stride = kernel if stride is None else stride
+    if layout == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    out = F.max_pool2d(x, kernel, stride, pad)
+    return out.permute(0, 2, 3, 1) if layout == "NHWC" else out

@@ -11,6 +11,15 @@ formulas of ``_to_optax`` (clip -> coupled weight decay -> rule; ``adamw``
 decouples it). ``sync_to_net`` writes the trained values back into the
 net.
 
+Auxiliary state: a parameter with ``requires_grad=False`` (declared with
+``grad_req="null"``, the BatchNorm running statistics) is frozen, as the
+JAX trainer's ``grad_req == "null"`` parameters: it stays out of the
+optimizer. The JAX step returns the running statistics as ``aux`` and
+writes them into its frozen parameters; here the model updates them in
+place inside the step, on the trainer's own copies that
+``functional_call`` hands it, so they persist in ``params`` from step to
+step and ``sync_to_net`` writes them back with the weights.
+
 Meshes, the ZeRO ladder, quantized collectives, ``run_superstep`` and the
 optax names other than ``sgd``, ``nag``, ``adam`` and ``adamw`` wait for
 the multi-GPU slice and raise ``NotImplementedError`` here.
@@ -159,7 +168,8 @@ class SPMDTrainer:
 
     @torch.no_grad()
     def sync_to_net(self) -> None:
-        """Write the trainer's parameter values back into the Block."""
+        """Write the trainer's parameter values back into the Block: the
+        trained weights and the auxiliary state (running statistics)."""
         own = dict(self.net.named_parameters())
         for n, v in self.params.items():
             own[n].copy_(v)

@@ -1,0 +1,210 @@
+"""The port's CUDA fused conv + BatchNorm kernels against their plain
+versions.
+
+This file imports nothing of JAX, so it also runs on a machine with a card
+and no JAX (``python -m pytest --noconftest
+tests/test_torch_fused_conv_kernel.py``; the repo's conftest imports JAX).
+Without a card the kernel tests skip: the kernels have no CPU mode. The
+wrapper's checks and the weight-gradient split rule run everywhere.
+
+Tolerances on the card (TF32 off): every output by its max abs error over
+max(1, max|plain|), fp32 1e-4 (the kernels sum in another order than
+cuDNN), bf16 2e-2 (outputs rounded to bf16 on both sides, at times on the
+two sides of a rounding boundary); the fp32 per-channel sums and dW also
+by relative L2 error, 1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import incubator_mxnet_tpu_torch  # noqa: F401  (TF32 off at import)
+from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+L2_TOL = 1e-4
+
+# (name, n, h, w, ci, co, k, stride, pad, kind); kind "plain": no prologue,
+# "pro": BatchNorm prologue + ReLU, "res": + residual join and emit
+CASES = [
+    ("1x1_plain", 2, 9, 7, 8, 16, 1, 1, 0, "plain"),
+    ("1x1_s2_plain_odd", 3, 9, 11, 24, 40, 1, 2, 0, "plain"),
+    ("3x3_pro_ragged", 2, 7, 7, 20, 72, 3, 1, 1, "pro"),
+    ("3x3_s2_pro", 2, 14, 14, 64, 64, 3, 2, 1, "pro"),
+    ("1x1_res_emit", 2, 8, 8, 72, 24, 1, 1, 0, "res"),
+    ("3x3_res_emit", 2, 6, 5, 16, 16, 3, 1, 1, "res"),
+    ("5x5_s2_res_emit_odd", 2, 15, 15, 24, 40, 5, 2, 2, "res"),
+    ("1x1_bottleneck_B4_28", 4, 28, 28, 256, 64, 1, 1, 0, "res"),
+]
+
+
+def make_case(case, dtype, device, seed=0):
+    """Inputs of one case on ``device``: activations in ``dtype``, the
+    per-channel operands fp32."""
+    _, n, h, w, ci, co, k, stride, pad, kind = case
+    rs = np.random.RandomState(seed)
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    d = dict(x=rs.randn(n, h, w, ci), w=rs.randn(k, k, ci, co) / np.sqrt(
+        k * k * ci), dy=rs.randn(n, ho, wo, co), ds=rs.randn(co) * 0.1,
+        dss=rs.randn(co) * 0.01)
+    if kind != "plain":
+        d.update(a=rs.rand(ci) + 0.5, b=rs.randn(ci) * 0.5)
+    if kind == "res":
+        d.update(r=rs.randn(n, h, w, ci), ar=rs.rand(ci) + 0.5,
+                 br=rs.randn(ci) * 0.5, g=rs.randn(n, h, w, ci))
+    act = ("x", "w", "dy", "r", "g")
+    return {key: torch.from_numpy(v.astype(np.float32)).to(
+        device, dtype if key in act else torch.float32)
+        for key, v in d.items()}
+
+
+def _err(got, want):
+    """(max abs err over max(1, max|want|), relative L2 error)."""
+    got, want = got.float(), want.float()
+    ref = max(1.0, want.abs().max().item())
+    den = want.norm().item()
+    diff = (got - want).norm().item()
+    return ((got - want).abs().max().item() / ref,
+            diff / den if den > 0 else diff)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _run_all(t, case, kernel):
+    _, _, _, _, _, _, _, stride, pad, kind = case
+    res = kind == "res"
+    rkw = dict(r=t.get("r"), ar=t.get("ar"), br=t.get("br"))
+    fwd = fc.fused_conv if kernel else fc.fused_conv_reference
+    dx = fc.conv_bwd_dx if kernel else fc.conv_bwd_dx_reference
+    dw = fc.conv_bwd_dw if kernel else fc.conv_bwd_dw_reference
+    out = fwd(t["x"], t["w"], t.get("a"), t.get("b"), stride, pad, True,
+              emit=res, **rkw)
+    # the backward from the plain forward's y, for both
+    y = t["y"]
+    args = (t["x"], t["w"], t.get("a"), t.get("b"), y, t["dy"], t["ds"],
+            t["dss"], stride, pad, True)
+    gx = dx(*args, g=t.get("g"), **rkw)
+    gw = dw(*args, **rkw)
+    names = ["y", "sum", "sumsq"] + (["emitted"] if res else []) \
+        + ["dx", "da", "db"] + (["dr", "dar"] if res else []) + ["dw"]
+    return dict(zip(names, list(out) + list(gx) + [gw]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_kernels_match_plain_on_card(cuda_device, case, dtype):
+    t = make_case(case, dtype, cuda_device)
+    t["y"] = fc.fused_conv_reference(t["x"], t["w"], t.get("a"), t.get("b"),
+                                     case[7], case[8], True, t.get("r"),
+                                     t.get("ar"), t.get("br"))[0]
+    n0 = (fc.fused_conv_launches, fc.conv_bwd_dx_launches,
+          fc.conv_bwd_dw_launches)
+    got = _run_all(t, case, True)
+    torch.cuda.synchronize()
+    assert (fc.fused_conv_launches, fc.conv_bwd_dx_launches,
+            fc.conv_bwd_dw_launches) == tuple(v + 1 for v in n0)
+    want = _run_all(t, case, False)
+    assert set(got) == set(want)
+    for name in want:
+        g, w = got[name], want[name]
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
+        err, l2 = _err(g, w)
+        assert err <= TOLS[dtype], f"{name}: {err} > {TOLS[dtype]}"
+        if dtype == torch.float32 and (name == "dw" or w.dim() == 1):
+            assert l2 <= L2_TOL, f"{name}: relative L2 {l2} > {L2_TOL}"
+
+
+def test_padding_is_zero_after_the_prologue(cuda_device):
+    """A padded tap contributes 0, not relu(b): with x = 0 and b > 0 every
+    interior output of a 3x3 all-ones conv is 9*relu(b)*Ci, the corners
+    4*relu(b)*Ci."""
+    ci = 8
+    x = torch.zeros(1, 5, 5, ci, device=cuda_device)
+    w = torch.ones(3, 3, ci, 1, device=cuda_device)
+    a = torch.ones(ci, device=cuda_device)
+    b = torch.full((ci,), 0.5, device=cuda_device)
+    y, _, _ = fc.fused_conv(x, w, a, b, 1, 1, True)
+    torch.cuda.synchronize()
+    assert y[0, 2, 2, 0].item() == 9 * 0.5 * ci
+    assert y[0, 0, 0, 0].item() == 4 * 0.5 * ci
+
+
+def test_kernels_repeat_bit_for_bit(cuda_device):
+    """No atomics: the partial sums are added in a fixed order."""
+    case = CASES[3]
+    t = make_case(case, torch.float32, cuda_device)
+    t["y"] = fc.fused_conv_reference(t["x"], t["w"], t["a"], t["b"], 2, 1,
+                                     True)[0]
+    first, second = (_run_all(t, case, True) for _ in range(2))
+    for name in first:
+        if first[name] is not None:
+            assert torch.equal(first[name], second[name]), name
+
+
+@pytest.mark.parametrize("emit", [False, True])
+def test_autograd_through_the_kernels_on_card(cuda_device, emit):
+    """``fused_conv_bn``'s Functions on CUDA tensors reach K1, K2 and K3,
+    and their gradients equal the same Functions on the CPU (the plain
+    versions), fp32."""
+    case = CASES[4] if emit else CASES[3]
+    base = make_case(case, torch.float32, torch.device("cpu"), seed=3)
+    names = [k for k in ("x", "w", "a", "b", "r", "ar", "br") if k in base]
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        leaves = {k: base[k].to(dev).requires_grad_(True) for k in names}
+        n0 = fc.conv_bwd_dw_launches
+        outs = fc.fused_conv_bn(
+            leaves["x"], leaves["w"], leaves["a"], leaves["b"],
+            stride=case[7], pad=case[8], relu=True, resid=leaves.get("r"),
+            resid_scale=leaves.get("ar"), resid_shift=leaves.get("br"),
+            emit_act=emit)
+        cts = [base["dy"], base["ds"], base["dss"]] + (
+            [base["g"]] if emit else [])
+        torch.autograd.backward(list(outs), [c.to(dev) for c in cts])
+        assert fc.conv_bwd_dw_launches == n0 + int(dev.type == "cuda")
+        grads.append({k: leaves[k].grad.cpu() for k in names})
+    for k in names:
+        err, _ = _err(grads[0][k], grads[1][k])
+        assert err <= TOLS[torch.float32], f"d{k}: {err}"
+
+
+@pytest.mark.parametrize("bad, err, match", [
+    (dict(dtype=torch.float16), TypeError, "float32 or bfloat16"),
+    (dict(k=2), ValueError, "only odd"),
+    (dict(stride=3), ValueError, "stride 3"),
+    (dict(ci_w=4), ValueError, "channel mismatch"),
+    (dict(pad=-1), ValueError, "pad -1"),
+    (dict(empty=True), ValueError, "empty conv"),
+], ids=["fp16", "even_kernel", "stride3", "channels", "neg_pad", "empty"])
+def test_wrapper_rejects_what_the_kernels_do_not_take(bad, err, match):
+    """The contract checks every wrapper runs first (here on CPU tensors:
+    they read only shapes and types)."""
+    dtype = bad.get("dtype", torch.float32)
+    k = bad.get("k", 3)
+    x = torch.zeros(1, 1 if bad.get("empty") else 6, 6, 8, dtype=dtype)
+    w = torch.zeros(k, k, bad.get("ci_w", 8), 4, dtype=dtype)
+    with pytest.raises(err, match=match):
+        fc.fused_conv(x, w, stride=bad.get("stride", 1),
+                      pad=bad.get("pad", 0))
+
+
+def test_weight_gradient_splits_fill_the_card_and_keep_whole_steps():
+    # ResNet-50 stage 1 at B=32: 1x1 64->64 over 100,352 pixels is one
+    # 64x64 tile, so the pixels are cut into 528 ranges of 12 steps
+    assert fc.dw_splits(32, 56, 56, 64, 64, 1, 1) == 528
+    # 3x3 512->512 at 7x7 is 576 tiles already: no split
+    assert fc.dw_splits(32, 7, 7, 512, 512, 3, 3) == 1
+    # a tiny conv is never cut below 8 steps of 16 pixels per range
+    assert fc.dw_splits(1, 4, 4, 8, 8, 1, 1) == 1
+    assert fc.dw_splits(1, 32, 32, 8, 8, 1, 1) == 8

@@ -1,9 +1,9 @@
 """Port hygiene: the PyTorch package stands alone.
 
 It imports neither ``jax`` nor any module of the JAX package; its default
-device is the card and never a silent CPU; on the CPU the flash-attention
-kernels are never launched (their plain versions run instead), neither by
-serving nor by training.
+device is the card and never a silent CPU; on the CPU no CUDA kernel is
+ever launched (their plain versions run instead), neither by serving nor
+by training, for the GPT decoder and the fused ResNet alike.
 """
 
 import ast
@@ -19,6 +19,7 @@ import incubator_mxnet_tpu_torch as mx
 from incubator_mxnet_tpu_torch import serving
 from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt, load_jax_params
 from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+from incubator_mxnet_tpu_torch.ops import fused_conv as fc
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "incubator_mxnet_tpu_torch"
@@ -33,7 +34,9 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "incubator_mxnet_tpu_torch.gluon.trainer, "
             "incubator_mxnet_tpu_torch.lr_scheduler, "
             "incubator_mxnet_tpu_torch.optimizer, "
-            "incubator_mxnet_tpu_torch.parallel.spmd\n"
+            "incubator_mxnet_tpu_torch.parallel.spmd, "
+            "incubator_mxnet_tpu_torch.ops.fused_conv, "
+            "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.fused_resnet\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) "
             "or m == 'incubator_mxnet_tpu' "
@@ -139,9 +142,62 @@ def test_kernel_build_is_content_addressed():
     assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
     assert (_build.CSRC / "flash_fwd.cu").exists()
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
-    assert set(_build.SOURCES) == {"flash_fwd", "flash_bwd"}
+    assert set(_build.SOURCES) == {"flash_fwd", "flash_bwd", "fused_conv",
+                                   "conv_bwd"}
     assert fa._fn is None or torch.cuda.is_available()
     assert fa._bwd_fns is None or torch.cuda.is_available()
+    assert not fc._fns or torch.cuda.is_available()
+
+
+def test_kernel_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """The conv kernels include ``csrc/conv_common.cuh``: editing it must
+    rename both libraries (and leave the flash kernels' names alone, whose
+    hash covers the same headers)."""
+    import shutil
+
+    from incubator_mxnet_tpu_torch.ops import _build
+
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.lib_path(n) for n in _build.SOURCES}
+    assert before == {n: _build.lib_path(n) for n in _build.SOURCES}
+    header = tmp_path / "conv_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.lib_path(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    assert {p.parent for p in after.values()} == {ROOT / "build" / "kernels"}
+
+
+def test_cpu_resnet_path_never_launches_a_kernel():
+    """Eval, an ``SPMDTrainer`` step and an eager ``gluon.Trainer`` step
+    of a small fused ResNet on the CPU: the conv kernels' counters stay 0
+    (the plain versions ran)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import (
+        FusedResNetV1)
+
+    mx.random.seed(3)
+    net = FusedResNetV1([1, 1, 1, 1], [8, 16, 32, 64, 128],
+                        classes=5).initialize("xavier", ctx=mx.cpu())
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.rand(2, 3, 32, 32).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 5, (2,)).astype(np.float32))
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    fc.fused_conv_launches = fc.conv_bwd_dx_launches = 0
+    fc.conv_bwd_dw_launches = 0
+    with mx.autograd.pause():
+        assert torch.isfinite(net(x)).all()
+    st = mx.parallel.SPMDTrainer(net, lambda lg, lb: ce(lg, lb).mean(),
+                                 "sgd", {"learning_rate": 0.1})
+    assert torch.isfinite(st.step(x, y))
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": .1})
+    with mx.autograd.record():
+        loss = ce(net(x), y)
+    mx.autograd.backward(loss)
+    tr.step(2)
+    assert net.collect_params()["conv0_weight"].grad is not None
+    assert (fc.fused_conv_launches, fc.conv_bwd_dx_launches,
+            fc.conv_bwd_dw_launches) == (0, 0, 0)
 
 
 def _chip_smoke():
@@ -221,3 +277,34 @@ def test_chip_smoke_backward_bound_counts_pairs_and_quoted_figures():
     nbytes = (4 * 32 * 2 + 4 * 2 + 3 * 32 * 2 + 2 * 16 * 32 * 2) * 4
     assert by == "bytes"
     assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3)
+
+
+def test_chip_smoke_resnet_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.resnet_phase`` on a small fused ResNet on the CPU (the
+    plain versions run, so no launch is counted): every check of the phase
+    passes and the launch windows expect 52-style counts from the net's
+    own structure."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import (
+        FusedResNetV1)
+
+    cs = _chip_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+    windows = []
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda label, got, *want: windows.append((got, want)))
+    mx.random.seed(0)
+    net = FusedResNetV1([1, 2, 1, 1], [8, 16, 32, 64, 128],
+                        classes=10).initialize("xavier", ctx=mx.cpu())
+    out = cs.resnet_phase(0, "cpu", net, mx.cpu(), hw=32,
+                          batches=(4, 2, 4, (4,)))
+    assert out["per_pass"] == cs.convs_per_pass(net) == 5 * 3 + 4
+    assert (out["oracle"]["n_trainable"], out["oracle"]["n_running_stats"]) \
+        == (62, 40)
+    assert out["oracle"]["worst"] <= cs.GRAD_RTOL and out["eval_err"] == 0
+    assert out["learning_losses"][-1] < 0.95 * out["learning_losses"][0]
+    zero = {k: 0 for k in cs.CONV_KERNELS}
+    assert windows == [(zero, (19, 1, 1)), (zero, (19, 2, 0)),
+                       (zero, (19, 20, 20))]
