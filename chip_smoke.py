@@ -7,7 +7,8 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
-   source, started together);
+   source, started together), and compile the rtc kernels of
+   ``csrc/rtc/`` with NVRTC;
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the shapes the serving and training paths give it, in fp32 and bf16
    (TF32 off), with its device time (CUDA-graph replay, inputs warm in L2),
@@ -52,9 +53,28 @@ Phases (any failure raises, and the script exits non-zero):
    bench row (net cast to bf16, B=128,
    ``SPMDTrainer`` SGD lr 0.1 momentum 0.9), timed, with a
    ``torch.profiler`` breakdown of one step. K1 launches exactly 52 times
-   per forward, K2 and K3 52 times per backward.
+   per forward, K2 and K3 52 times per backward;
+8. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
+   kernels (K7, ``csrc/rtc/*.cu``, compiled by NVRTC in the build step)
+   run an ``mx.rtc`` program (``scale`` and ``saxpy`` over 163,037,184
+   floats, ``first_row`` of a (50257, 768) embedding) held bit for bit
+   against their plain versions; then ``gpt_decoder_117m`` at
+   ``max_length`` 256, B=8, fp32 trains imperatively: ``autograd.record``
+   -> ``net(mx.nd.array(tokens))`` -> ``mx.nd.Custom(logits, labels,
+   op_type="softmax_ce_rtc")`` (softmax forward and cross-entropy
+   gradient backward, two runtime-compiled kernels) -> ``backward`` ->
+   ``gluon.Trainer.step``: its 149 gradients against the plain loss's
+   (``SoftmaxCrossEntropyLoss``, summed; relative L2 <= 1e-4), a learning
+   check, the step's time and peak memory. softmax_ce_fwd/bwd launch once
+   per step and K4-K6 12 times per pass (counted over this main path
+   alone). Then each rtc kernel against its plain version at the path's
+   shapes (softmax_ce_fwd within 1e-5 of each probability, relative; the
+   rest bit for bit), timed (CUDA-graph replay) beside its plain version,
+   a library call and its byte bound; and ``mx.nd.flash_attention`` and
+   ``invoke_op("fused_conv_bn")`` with gradients, equal to the direct
+   calls bit for bit.
 
-The line before the last is the kernels' JSON record (K1 to K6); the last
+The line before the last is the kernels' JSON record (K1 to K7); the last
 line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 2
 before printing any result.
@@ -566,7 +586,8 @@ FLASH_TAGS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
               "flash_bwd_dkv_kernel")
 
 
-def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14):
+def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14,
+                  what="bf16 training step"):
     """Device time per kernel of one training step (``torch.profiler``;
     kernel events only, so no time is counted twice), printed largest
     first, with the device's idle share of an unprofiled step of
@@ -596,7 +617,7 @@ def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14):
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"profile of one bf16 training step ({card}): device time "
+    print(f"profile of one {what} ({card}): device time "
           f"{total:.3f} ms in {sum(r[1] for r in rows)} kernel launches "
           f"(step wall {wall_ms:.3f} ms under the profiler); against the "
           f"unprofiled {step_ms:.3f} ms step the device idles "
@@ -1282,6 +1303,404 @@ def resnet_main(seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# imperative phase: mx.nd, mx.operator and mx.rtc (K7)
+# ---------------------------------------------------------------------------
+RTC_KERNELS = ("scale", "saxpy", "first_row", "softmax_ce_fwd",
+               "softmax_ce_bwd")
+# gpt_decoder_117m's parameter count at max_length 1024: the flat vector
+# scale and saxpy run over
+RTC_FLAT = 163_037_184
+RTC_HEAD = "softmax_ce_fwd"
+# softmax_ce_fwd: probabilities, a sum of exponentials in another order;
+# held elementwise relative to the plain version's, since most of them are
+# far below any absolute bound worth holding (median 1e-8 at 4*randn logits)
+RTC_FWD_RTOL = 1e-5
+# the imperative step's gradients against the plain loss's: relative L2
+IMPERATIVE_GRAD_RTOL = 1e-4
+
+
+def _rtc_counts(reset=False):
+    from incubator_mxnet_tpu_torch import rtc
+    from incubator_mxnet_tpu_torch.ops import rtc_kernels as rk
+
+    out = {}
+    for name in RTC_KERNELS:
+        key = rk.KERNELS[name].lookup
+        out[name] = rtc.launches[key]
+        if reset:
+            rtc.launches[key] = 0
+    return out
+
+
+def rtc_bound(name, shape):
+    """Least time (ms) of one rtc kernel call and what bounds it: each
+    input read once, each output written once (fp32; int32 labels), and
+    the fp32 operations at 67 TFLOP/s (scale 1, saxpy 2, softmax_ce_fwd 5
+    per element: max, subtract, exp, sum, divide; softmax_ce_bwd 1)."""
+    if name == "first_row":
+        nbytes, flops = 2 * shape[1] * 4, 0          # one row in, one out
+    else:
+        n = math.prod(shape)
+        nbytes, flops = {"scale": (2 * n * 4, n),
+                         "saxpy": (3 * n * 4, 2 * n),
+                         "softmax_ce_fwd": (2 * n * 4, 5 * n),
+                         "softmax_ce_bwd": (2 * n * 4 + shape[0] * 4, n)}[name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _max_rel_err(got, want):
+    """Largest ``|got - want| / |want|``; 0 where both are 0, inf where
+    only ``want`` is."""
+    rel = (got - want).abs() / want.abs()
+    return torch.nan_to_num(rel, nan=0.0, posinf=math.inf).max().item()
+
+
+def _ce_bwd_ms(logits, labels):
+    """Device ms of ``F.cross_entropy``'s backward (sum): a CUDA graph of
+    forward + ``autograd.grad`` less a graph of the forward alone."""
+    import torch.nn.functional as F
+
+    lg = logits.detach().requires_grad_(True)
+    lab = labels.long()
+
+    def fwd():
+        return F.cross_entropy(lg, lab, reduction="sum")
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), lg)
+
+    both = device_ms(fwd_bwd)
+    return both - device_ms(fwd), both
+
+
+def _check_imperative_launches(rtc_got, rtc_want, flash_got, flash_want):
+    print(f"launches on the imperative path: rtc {rtc_got} (want "
+          f"{rtc_want}); flash {flash_got} (want {flash_want} each)",
+          flush=True)
+    if rtc_got != rtc_want or any(v != flash_want
+                                  for v in flash_got.values()):
+        raise AssertionError("imperative path: launch counts differ")
+
+
+def imperative_phase(seed, card, net, ctx, b=8, flat=RTC_FLAT, lr=3e-4,
+                     conv_case=None):
+    """The imperative front door on a GPT decoder ``net`` (dropout 0) at
+    B=``b`` and T=its ``max_length``: the main path (an mx.rtc program of
+    scale/saxpy/first_row over a ``flat``-element vector and the size of
+    the net's embedding, then the imperative training step whose loss is
+    the ``softmax_ce_rtc`` custom op, with its gradient oracle, learning
+    check and timing), counted; then (a) the five rtc kernels against
+    their plain versions and timed, (c) the registered kernel ops through
+    ``invoke`` against the direct calls, bit for bit (``conv_case``: a
+    ``CONV_CASES`` entry, default the conv kernel phase's head case)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.ndarray import NDArray
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+    from incubator_mxnet_tpu_torch.ops import rtc_kernels as rk
+
+    dev = ctx.torch_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 31)
+    t, vocab = net.max_length, net.vocab_size
+    heads, head_dim = net.num_heads, net.head_dim
+    units, n_rows = heads * head_dim, b * net.max_length
+    params = [p for p in net.parameters() if p.requires_grad]
+    names = [n for n, p in net.named_parameters() if p.requires_grad]
+    rs = np.random.RandomState(seed + 5)
+    tokens = mx.nd.array(rs.randint(0, vocab, (b, t)), ctx=ctx)
+    labels = mx.nd.array(rs.randint(0, vocab, (n_rows,)), ctx=ctx)
+    lab = labels.as_torch().long()
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": lr})
+
+    def rtc_inputs():
+        def randn(*shape):
+            return NDArray(torch.randn(shape, generator=gen, device=dev))
+        return randn(flat), randn(flat), randn(vocab, units)
+
+    def rtc_program(x, y, emb):
+        """The user program of mx.rtc kernels: scale, saxpy, first_row."""
+        out = dict(scale=rk.scale(x, 0.5))
+        out["saxpy"] = rk.saxpy(out["scale"], y, 2.0)
+        out["first_row"] = rk.first_row(emb)
+        return out
+
+    def rtc_step():
+        """record -> net(NDArray) -> Custom(softmax_ce_rtc) -> backward;
+        returns the mean cross entropy of this forward."""
+        with mx.autograd.record():
+            logits = net(tokens)
+            probs = mx.nd.Custom(logits.reshape((-1, vocab)), labels,
+                                 op_type="softmax_ce_rtc")
+        probs.backward()
+        p = probs.as_torch()
+        return -torch.log(p[torch.arange(n_rows, device=dev), lab]).mean()
+
+    # the main path, counted: every count set to 0 just before and read
+    # just after. The mx.rtc program, its results held against the plain
+    # versions; then the plain loss's step (the oracle's reference) and
+    # the imperative steps: the oracle's, 5 learning steps, 3 timed steps
+    torch.cuda.synchronize()
+    _rtc_counts(reset=True)
+    _reset_launches(fa)
+    x, y, emb = rtc_inputs()
+    program = rtc_program(x, y, emb)
+    for name, want_t in (
+            ("scale", rk.scale_reference(x.as_torch(), 0.5)),
+            ("saxpy", rk.saxpy_reference(program["scale"].as_torch(),
+                                         y.as_torch(), 2.0)),
+            ("first_row", rk.first_row_reference(emb.as_torch()))):
+        if not torch.equal(program[name].as_torch(), want_t):
+            raise AssertionError(f"rtc program: {name} differs from its "
+                                 "plain version")
+        del want_t
+    print(f"rtc program (scale, saxpy over {flat} fp32, first_row of "
+          f"({vocab}, {units})): equal to the plain versions bit for bit",
+          flush=True)
+    del x, y, emb, program
+    gc.collect()
+    with mx.autograd.record():
+        plain = ce(net(tokens).reshape((-1, vocab)), labels)
+    plain.backward()                       # head of ones: the summed loss
+    plain_loss = plain.as_torch().detach().mean().item()
+    plain_grads = [p.grad.clone() for p in params]
+    del plain
+    loss0 = rtc_step()
+    rtc_steps, passes = 1, 2
+    worst = (0.0, "")
+    for name, g, p in zip(names, plain_grads, params):
+        rel = _rel_l2(p.grad, g)
+        if not math.isfinite(rel) or rel > IMPERATIVE_GRAD_RTOL:
+            raise AssertionError(f"imperative step: {name} gradient "
+                                 f"relative L2 error {rel} > "
+                                 f"{IMPERATIVE_GRAD_RTOL} against the plain "
+                                 "loss")
+        worst = max(worst, (rel, name))
+    print(f"imperative step oracle (fp32, {len(names)} parameter tensors): "
+          f"mean cross entropy {loss0.item():.6f} (softmax_ce_rtc) vs "
+          f"{plain_loss:.6f} (SoftmaxCrossEntropyLoss, summed); worst "
+          f"gradient relative L2 error {worst[0]:.3e} ({worst[1]}), "
+          f"tolerance {IMPERATIVE_GRAD_RTOL:g}", flush=True)
+    if abs(loss0.item() - plain_loss) > 1e-5 * abs(plain_loss):
+        raise AssertionError("imperative step: the loss differs from the "
+                             "plain loss's")
+    del plain_grads
+    # learning: the same step with gluon.Trainer (adam), one batch
+    losses = [loss0.item()]
+    trainer.step(n_rows)
+    for _ in range(5):
+        losses.append(rtc_step().item())
+        trainer.step(n_rows)
+    rtc_steps += 5
+    passes += 5
+    print(f"imperative learning check (fp32, gluon.Trainer adam lr {lr:g}, "
+          f"one batch repeated): mean cross entropy "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 0.95 * losses[0]:
+        raise AssertionError("imperative step: the loss did not fall by 5% "
+                             "over 5 steps")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        rtc_step()
+        trainer.step(n_rows)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    peak = torch.cuda.max_memory_allocated(dev)
+    rtc_steps += 3
+    passes += 3
+    launches = _rtc_counts()
+    flash = _read_launches(fa)
+    print(f"imperative step (fp32, B={b}, T={t}, record -> net -> "
+          f"Custom(softmax_ce_rtc) -> backward -> gluon.Trainer adam; "
+          f"{card}): {step_ms:.3f} ms per step (host clock, 3 steps), peak "
+          f"memory {peak / 2**20:.1f} MiB", flush=True)
+    _check_imperative_launches(
+        launches, dict(scale=1, saxpy=1, first_row=1,
+                       softmax_ce_fwd=rtc_steps, softmax_ce_bwd=rtc_steps),
+        flash, net.num_layers * passes)
+
+    # beside it (not counted): the same step on tensors with the plain loss,
+    # and a profile of one imperative step
+    x_t, y_t = tokens.as_torch(), labels.as_torch()
+
+    def tensor_step(*_):
+        with mx.autograd.record():
+            loss = ce(net(x_t).reshape(-1, vocab), y_t)
+        mx.autograd.backward(loss)
+        trainer.step(n_rows)
+
+    tensor_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        tensor_step()
+    torch.cuda.synchronize()
+    tensor_ms = (time.perf_counter() - t0) * 1e3 / 3
+    print(f"the same step on tensors with SoftmaxCrossEntropyLoss (fp32; "
+          f"{card}): {tensor_ms:.3f} ms per step (host clock, 3 steps after "
+          f"1 warmup) against {step_ms:.3f} ms imperative", flush=True)
+    profile = _profile_step(lambda *_: (rtc_step(), trainer.step(n_rows)),
+                            None, None, card, step_ms,
+                            tags=("softmax_ce_fwd", "softmax_ce_bwd")
+                            + FLASH_TAGS, top=12,
+                            what="fp32 imperative step")
+
+    # (a) each rtc kernel against its plain version, then timed (launches
+    # made here are not counted)
+    x, y, emb = rtc_inputs()
+    program = rtc_program(x, y, emb)
+    logits = NDArray(4 * torch.randn(n_rows, vocab, generator=gen,
+                                     device=dev))
+    probs = NDArray(torch.zeros_like(logits.as_torch()))
+    dx = NDArray(torch.zeros_like(logits.as_torch()))
+    rk.softmax_ce_fwd(logits, probs)
+    rk.softmax_ce_bwd(labels, probs, dx)
+    got = dict(program, softmax_ce_fwd=probs, softmax_ce_bwd=dx)
+    plain = {
+        "scale": lambda: rk.scale_reference(x.as_torch(), 0.5),
+        "saxpy": lambda: rk.saxpy_reference(program["scale"].as_torch(),
+                                            y.as_torch(), 2.0),
+        "first_row": lambda: rk.first_row_reference(emb.as_torch()),
+        "softmax_ce_fwd": lambda: rk.softmax_ce_fwd_reference(
+            logits.as_torch()),
+        "softmax_ce_bwd": lambda: rk.softmax_ce_bwd_reference(
+            labels.as_torch(), probs.as_torch()),
+    }
+    calls = {"scale": lambda: rk.scale(x, 0.5),
+             "saxpy": lambda: rk.saxpy(program["scale"], y, 2.0),
+             "first_row": lambda: rk.first_row(emb),
+             "softmax_ce_fwd": lambda: rk.softmax_ce_fwd(logits, probs),
+             "softmax_ce_bwd": lambda: rk.softmax_ce_bwd(labels, probs, dx)}
+    # one PyTorch call computing the same function, timed only
+    library = {
+        "scale": lambda: torch.mul(x.as_torch(), 0.5),
+        "saxpy": lambda: torch.add(y.as_torch(), program["scale"].as_torch(),
+                                   alpha=2.0),
+        "first_row": lambda: torch.clone(emb.as_torch()[0]),
+        "softmax_ce_fwd": lambda: torch.softmax(logits.as_torch(), -1),
+    }
+    shapes = {"scale": (flat,), "saxpy": (flat,), "first_row": (vocab, units),
+              "softmax_ce_fwd": (n_rows, vocab),
+              "softmax_ce_bwd": (n_rows, vocab)}
+    rows = {}
+    for name in RTC_KERNELS:
+        want_t = plain[name]()
+        got_t = got[name].as_torch()
+        torch.cuda.synchronize()
+        err = (got_t - want_t).abs().max().item()
+        rel = _max_rel_err(got_t, want_t)
+        # softmax_ce_fwd relative to the plain version, the rest bit for bit
+        tol = RTC_FWD_RTOL if name == "softmax_ce_fwd" else 0.0
+        if got_t.shape != want_t.shape or not math.isfinite(err) \
+                or rel > tol:
+            raise AssertionError(f"rtc {name}: max relative err {rel} > "
+                                 f"{tol}")
+        del want_t
+        ms = device_ms(calls[name])
+        plain_ms = device_ms(plain[name])
+        ce_both = None
+        if name == "softmax_ce_bwd":
+            library_ms, ce_both = _ce_bwd_ms(logits.as_torch(),
+                                             labels.as_torch())
+        else:
+            library_ms = device_ms(library[name])
+        bound_ms, bound_by = rtc_bound(name, shapes[name])
+        rows[name] = dict(
+            name=name, source="incubator_mxnet_tpu_torch/csrc/rtc/"
+            + rk.KERNELS[name].source + ".cu",
+            lookup=rk.KERNELS[name].lookup, shape=list(shapes[name]),
+            launches=launches[name], max_abs_err=err, max_rel_err=rel,
+            rel_tol=tol, ms=ms, timing="cuda_graph", plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        lib_txt = f"{library_ms:.5f}"
+        if ce_both is not None:
+            lib_txt += (f" (F.cross_entropy backward; forward + backward "
+                        f"{ce_both:.5f})")
+        print(f"kernel rtc {name} {shapes[name]} fp32: max_abs_err="
+              f"{err:.3e} max_rel_err={rel:.3e} (tol {tol:g} relative) "
+              f"ms={ms:.5f} (device, CUDA graph) "
+              f"plain_ms={plain_ms:.5f} library_ms={lib_txt} bound_ms="
+              f"{bound_ms:.5f} ({bound_by}); launches on the path "
+              f"{launches[name]}", flush=True)
+    del x, y, emb, program, got, plain, calls, library, logits, probs, dx
+    gc.collect()
+
+    # (c) the registered kernel ops through invoke equal the direct calls
+    q, k, v, g = (torch.randn(b, heads, t, head_dim, generator=gen,
+                              device=dev) for _ in range(4))
+    direct = [z.clone().requires_grad_(True) for z in (q, k, v)]
+    out = fa.flash_attention(*direct, causal=True)
+    torch.autograd.backward(out, g)
+    nds = [NDArray(z.clone()) for z in (q, k, v)]
+    for z in nds:
+        z.attach_grad()
+    with mx.autograd.record():
+        out_nd = mx.nd.flash_attention(*nds, causal=True)
+    out_nd.backward(NDArray(g))
+    same_fa = torch.equal(out_nd.as_torch(), out.detach()) and all(
+        torch.equal(z.grad.as_torch(), w.grad) for z, w in zip(nds, direct))
+    case = conv_case or next(c for c in CONV_CASES if c[0] == CONV_HEAD)
+    stride, pad = _conv_dims(case)[6:8]
+    ti = _conv_inputs(case, torch.float32, dev, gen)
+    ins = [ti[key] for key in ("x", "w", "a", "b")]
+    heads_g = [ti["dy"], ti["ds"], ti["dss"]]
+    direct = [z.clone().requires_grad_(True) for z in ins]
+    outs = fc.fused_conv_bn(*direct, stride=stride, pad=pad, relu=True)
+    torch.autograd.backward(outs, heads_g)
+    nds = [NDArray(z.clone()) for z in ins]
+    for z in nds:
+        z.attach_grad()
+    with mx.autograd.record():
+        outs_nd = mx.nd.invoke_op("fused_conv_bn", *nds, stride=stride,
+                                  pad=pad, relu=True)
+    mx.autograd.backward(list(outs_nd), [NDArray(h) for h in heads_g])
+    same_conv = all(torch.equal(a.as_torch(), o.detach())
+                    for a, o in zip(outs_nd, outs)) and all(
+        torch.equal(z.grad.as_torch(), w.grad) for z, w in zip(nds, direct))
+    print(f"registered kernel ops through invoke: mx.nd.flash_attention "
+          f"(B={b}, H={heads}, T={t}, D={head_dim}, causal; output and dq, "
+          f"dk, dv) {'equal' if same_fa else 'DIFFER from'} the direct call "
+          f"bit for bit; invoke_op('fused_conv_bn') at {case[0]} (y, sum, "
+          f"sumsq and dx, dw, da, db) "
+          f"{'equal' if same_conv else 'DIFFER from'} the direct call bit "
+          "for bit", flush=True)
+    if not (same_fa and same_conv):
+        raise AssertionError("a registered kernel op through invoke differs "
+                             "from its direct call")
+    return dict(rows=rows, launches=launches, flash_launches=flash,
+                passes=passes, rtc_steps=rtc_steps, n_params=len(names),
+                grad_worst_rel=worst[0], learning_losses=losses,
+                step_ms=step_ms, tensor_step_ms=tensor_ms, peak_bytes=peak,
+                profile=profile[:12])
+
+
+def imperative_main(seed, card):
+    """The imperative phase on ``gpt_decoder_117m`` at ``max_length`` 256
+    (12 layers, 768 units, vocab 50257; 149 trainable tensors)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
+
+    ctx = mx.gpu(0)
+    mx.random.seed(seed)
+    net = get_gpt("gpt_decoder_117m", vocab_size=50257, dropout=0.0,
+                  max_length=256).initialize("xavier", ctx=ctx)
+    out = imperative_phase(seed, card, net, ctx)
+    if out["n_params"] != 149:
+        raise AssertionError("gpt_decoder_117m has 149 trainable tensors")
+    return out
+
+
 def _entry(name, source, replaces, launches, cases, head_case):
     head = next(r for r in cases if r["case"] == head_case
                 and r["dtype"] == "fp32")
@@ -1303,6 +1722,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from incubator_mxnet_tpu_torch.ops import _build
+    from incubator_mxnet_tpu_torch.ops import rtc_kernels as rk
 
     card = card_line()
     print(card, flush=True)
@@ -1310,6 +1730,11 @@ def main(argv=None) -> int:
     _build.build_all()
     print(f"build: {list(_build.SOURCES)} in {time.perf_counter() - t0:.1f} "
           "s", flush=True)
+    t0 = time.perf_counter()
+    for name in RTC_KERNELS:                 # NVRTC, or the cubin cache
+        rk.kernel(name)
+    print(f"build: the rtc kernels {list(RTC_KERNELS)} (NVRTC, sm_90a "
+          f"cubins) in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernel = kernel_phase(args.seed)
     bwd = backward_kernel_phase(args.seed)
@@ -1319,6 +1744,8 @@ def main(argv=None) -> int:
     trained = train_phase(args.seed, card)
     gc.collect()
     resnet = resnet_main(args.seed, card)
+    gc.collect()
+    imperative = imperative_main(args.seed, card)
 
     src = "incubator_mxnet_tpu_torch/csrc/"
     ref = "incubator_mxnet_tpu/ops/pallas_attention.py:"
@@ -1347,6 +1774,18 @@ def main(argv=None) -> int:
             "resnet_train": resnet["launches"][name],
             "resnet_eval": resnet["eval_launches"][name]}
         record["kernels"].append(entry)
+    rows = imperative["rows"]
+    head = rows[RTC_HEAD]
+    record["kernels"].append({
+        "name": "rtc_cuda_module", "route": "cuda",
+        "source": "incubator_mxnet_tpu_torch/rtc.py",
+        "replaces": "incubator_mxnet_tpu/rtc.py:66",
+        "launches": sum(r["launches"] for r in rows.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "shape": RTC_HEAD,
+        "cases": list(rows.values())})
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

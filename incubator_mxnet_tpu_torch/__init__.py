@@ -10,7 +10,13 @@ its training, through ``autograd.record`` + ``gluon.Trainer`` and through
 ``parallel.SPMDTrainer``. Their TPU kernels, the flash-attention forward
 and its two backward kernels, are hand-written CUDA kernels
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, wrapped by
-``ops.flash_attention``).
+``ops.flash_attention``). Slice 3 trains the fused ResNet-50 with the
+conv + BatchNorm kernels (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``).
+Slice 4 is MXNet's imperative front door: ``mx.nd`` (NDArrays over torch
+tensors, the op registry, ``mx.nd.Custom``), ``autograd.Function`` and
+``mark_variables``, ``mx.operator`` custom ops, and ``mx.rtc.CudaModule``,
+which compiles CUDA source at run time with NVRTC and launches it on
+NDArrays.
 
 Devices are explicit: every entry point takes a ``ctx``; the default is
 ``gpu(0)`` (``cuda:0``) and raises when there is no card. The CPU runs only
@@ -26,11 +32,15 @@ torch.backends.cudnn.allow_tf32 = False
 
 from . import base, config, device, initializer, random  # noqa: E402
 from . import autograd, lr_scheduler, optimizer  # noqa: E402
-from . import ops, gluon, parallel, serving  # noqa: E402
+from . import ops, ndarray, operator, rtc  # noqa: E402
+from . import gluon, parallel, serving  # noqa: E402
 from .base import MXTPUError  # noqa: E402
 from .device import Context, cpu, current_context, gpu  # noqa: E402
+from .ops import rtc_kernels  # noqa: E402,F401  (registers softmax_ce_rtc)
+
+nd = ndarray
 
 __all__ = ["Context", "MXTPUError", "autograd", "base", "config", "cpu",
            "current_context", "device", "gluon", "gpu", "initializer",
-           "lr_scheduler", "ops", "optimizer", "parallel", "random",
-           "serving"]
+           "lr_scheduler", "nd", "ndarray", "operator", "ops", "optimizer",
+           "parallel", "random", "rtc", "serving"]

@@ -14,11 +14,20 @@ per-sample loss), and a parameter whose ``grad_req`` is ``'write'`` (the
 default) gets a fresh gradient from each backward instead of the sum torch
 would accumulate into ``.grad``. ``grad_req = 'add'`` accumulates.
 
-One difference stays: MXNet records nothing outside ``record()``, while
-torch records whenever its grad mode is on, which is its default. So a
-``net(x)`` outside ``record()`` builds a graph here (and its attention
-saves what the backward needs). Run inference under ``pause()`` or
-``torch.no_grad()``, as the serving path does.
+One difference stays for bare tensors: MXNet records nothing outside
+``record()``, while torch records whenever its grad mode is on, which is
+its default. So a ``net(x)`` on tensors outside ``record()`` builds a
+graph here (and its attention saves what the backward needs). Run
+inference under ``pause()`` or ``torch.no_grad()``, as the serving path
+does. ``NDArray`` ops and a block called on NDArrays record only under
+``record()``, as in MXNet.
+
+NDArrays: ``backward`` and ``grad`` take NDArray heads, head gradients
+and variables. A variable is an NDArray made one by ``attach_grad`` or
+:func:`mark_variables`; ``backward`` writes its gradient into its
+``grad`` array (``'write'`` replaces, ``'add'`` accumulates, ``'null'``
+skips). :class:`Function` is MXNet's custom differentiable op over
+NDArrays, run as a ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -28,9 +37,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["backward", "grad", "is_recording", "is_training", "pause",
-           "predict_mode", "record", "set_recording", "set_training",
-           "train_mode"]
+__all__ = ["Function", "backward", "grad", "is_recording", "is_training",
+           "mark_variables", "pause", "predict_mode", "record",
+           "set_recording", "set_training", "train_mode"]
 
 
 class _TLS(threading.local):
@@ -120,43 +129,188 @@ def _leaves(heads):
     return leaves
 
 
+def _tensor(x):
+    """The tensor of an NDArray (a tensor passes through)."""
+    from .ndarray.ndarray import NDArray
+
+    return x._data if isinstance(x, NDArray) else x
+
+
 def _head_grads(heads, head_grads):
     if head_grads is None:
         head_grads = [None] * len(heads)
     elif not isinstance(head_grads, (list, tuple)):
         head_grads = [head_grads]
-    return [torch.ones_like(h) if hg is None else hg
+    return [torch.ones_like(h) if hg is None else _tensor(hg)
             for h, hg in zip(heads, head_grads)]
 
 
+def _owner(leaf):
+    """The NDArray variable whose tensor ``leaf`` is, or None."""
+    ref = getattr(leaf, "_mx_owner", None)
+    return None if ref is None else ref()
+
+
+def _write_grad(var, g) -> None:
+    """Store gradient ``g`` into NDArray variable ``var`` by its
+    ``grad_req``."""
+    buf = var._grad
+    if var._grad_req == "null" or buf is None:
+        return
+    g = g.to(buf._data.dtype)
+    buf._data = g if var._grad_req == "write" else buf._data + g
+
+
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
-    """``autograd.backward([y])``: write gradients into the parameters the
-    heads depend on. A missing head gradient is ones, whatever the head's
-    shape. Parameters with ``grad_req == 'write'`` (the default) lose
-    their previous gradient first; ``'add'`` accumulates."""
+    """``autograd.backward([y])``: write gradients into the parameters and
+    NDArray variables the heads depend on. A missing head gradient is
+    ones, whatever the head's shape. Parameters with ``grad_req ==
+    'write'`` (the default) lose their previous gradient first; ``'add'``
+    accumulates."""
     heads = list(heads) if isinstance(heads, (list, tuple)) else [heads]
+    heads = [_tensor(h) for h in heads]
     for h in heads:
         if h.grad_fn is None:
             raise ValueError("cannot differentiate a head that was not "
                              "computed under autograd.record()")
+    variables = []
     for leaf in _leaves(heads):
-        if getattr(leaf, "grad_req", "write") == "write":
+        var = _owner(leaf)
+        if var is not None:
+            variables.append((leaf, var))
+            leaf.grad = None
+        elif getattr(leaf, "grad_req", "write") == "write":
             leaf.grad = None
     torch.autograd.backward(heads, _head_grads(heads, head_grads),
                             retain_graph=retain_graph)
+    for leaf, var in variables:
+        if leaf.grad is not None:
+            _write_grad(var, leaf.grad)
+            leaf.grad = None
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
          create_graph=False, train_mode=True):
     """Gradients of ``heads`` with respect to ``variables``, returned
-    without touching ``.grad`` (reference ``autograd.grad``)."""
+    without touching ``.grad`` (reference ``autograd.grad``). NDArray
+    variables must have a gradient attached (``attach_grad``), as in the
+    JAX package, and give NDArray gradients; with ``create_graph`` those
+    are on the tape for a higher-order gradient."""
+    from .ndarray.ndarray import NDArray
+
     heads = list(heads) if isinstance(heads, (list, tuple)) else [heads]
+    heads = [_tensor(h) for h in heads]
     single = not isinstance(variables, (list, tuple))
     variables = [variables] if single else list(variables)
-    out = torch.autograd.grad(heads, variables, _head_grads(heads,
-                                                            head_grads),
+    for v in variables:
+        if isinstance(v, NDArray) and v._grad is None:
+            raise ValueError("autograd.grad: variables must have grad "
+                             "attached (call x.attach_grad() before "
+                             "recording)")
+    leaves = [_tensor(v) for v in variables]
+    out = torch.autograd.grad(heads, leaves, _head_grads(heads, head_grads),
                               retain_graph=retain_graph,
                               create_graph=create_graph, allow_unused=True)
-    out = [torch.zeros_like(v) if g is None else g
+    out = [torch.zeros_like(t) if g is None else g
+           for g, t in zip(out, leaves)]
+    out = [NDArray(g) if isinstance(v, NDArray) else g
            for g, v in zip(out, variables)]
     return out[0] if single else out
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make NDArrays variables with the given gradient buffers (reference
+    ``autograd.mark_variables``): each becomes a leaf (any producer edge
+    is cut) whose gradient ``backward`` writes into its buffer."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, buf, req in zip(variables, gradients, grad_reqs):
+        var._grad = None if req == "null" else buf
+        var._grad_req = req
+        var._make_variable()
+
+
+# ---------------------------------------------------------------------------
+# Custom differentiable Function (reference autograd.Function)
+# ---------------------------------------------------------------------------
+class _Bridge(torch.autograd.Function):
+    """Runs an op over NDArrays (an :class:`Function`, a custom op of
+    ``mx.operator``) as one node of torch's graph. ``body.run_forward(
+    tensors)`` returns the output tensors and the tensors its backward
+    keeps; ``body.run_backward(grads, saved)`` returns one gradient per
+    input. Both run with recording off. Integer outputs take no gradient
+    and integer inputs receive none."""
+
+    @staticmethod
+    def forward(ctx, body, *tensors):
+        outs, saved = body.run_forward(tensors)
+        ctx.body = body
+        ctx.float_in = [t.is_floating_point() for t in tensors]
+        ctx.save_for_backward(*saved)
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.is_floating_point()])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        in_grads = ctx.body.run_backward(grads, ctx.saved_tensors)
+        return (None, *[g if f else None
+                        for g, f in zip(in_grads, ctx.float_in)])
+
+
+class Function:
+    """User-defined differentiable op (reference ``mx.autograd.Function``).
+
+    Subclass and implement ``forward(self, *inputs)`` and
+    ``backward(self, *output_grads)`` over NDArrays; ``backward`` returns
+    one gradient per input. Both run with recording off. Under
+    ``record()`` the call is one node of the tape (a
+    ``torch.autograd.Function``)."""
+
+    def __init__(self):
+        self._saved = ()
+        self._single = True
+
+    def save_for_backward(self, *arrays):
+        self._saved = arrays
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def _forward_nd(self, inputs):
+        with _RecordingStateScope(False, None):
+            outputs = self.forward(*inputs)
+        self._single = not isinstance(outputs, (list, tuple))
+        return [outputs] if self._single else list(outputs)
+
+    def run_forward(self, tensors):
+        from .ndarray.ndarray import NDArray
+
+        outs = self._forward_nd([NDArray(t) for t in tensors])
+        return [o._data for o in outs], ()
+
+    def run_backward(self, grads, saved):
+        from .ndarray.ndarray import NDArray
+
+        with _RecordingStateScope(False, None):
+            in_grads = self.backward(*[NDArray(g) for g in grads])
+        if not isinstance(in_grads, (list, tuple)):
+            in_grads = [in_grads]
+        return [_tensor(g) for g in in_grads]
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+
+        if is_recording() and any(x._data.requires_grad for x in inputs):
+            outs = [NDArray(t) for t in _Bridge.apply(
+                self, *[x._data for x in inputs])]
+        else:
+            outs = self._forward_nd(list(inputs))
+        return outs[0] if self._single else tuple(outs)

@@ -71,6 +71,12 @@ class _Config:
 config = _Config()
 
 config.register(
+    "MXTPU_ENGINE_TYPE", "async", str,
+    "Execution mode: 'async' (the default: ops queue on the card's stream) "
+    "or 'naive' (torch.cuda.synchronize after every NDArray op, so a "
+    "device fault surfaces at the op that caused it; reference "
+    "NaiveEngine).")
+config.register(
     "MXTPU_SERVING_DEADLINE_MS", 0.0, float,
     "Per-request serving deadline: requests that age past this while "
     "queued are shed with DeadlineExceededError(retry_after) instead of "
@@ -99,3 +105,7 @@ config.register(
     "Default generation budget per decode request (submit's "
     "max_new_tokens overrides). Generation also stops at the request's "
     "eos_id or at cache capacity.")
+
+
+def is_naive_engine() -> bool:
+    return str(config.get("MXTPU_ENGINE_TYPE")).lower() == "naive"

@@ -10,6 +10,10 @@ materialize on a real device in :meth:`Block.initialize` or when weights are
 loaded, the way MXNet defers initialization. Whether a layer trains
 (dropout on) follows ``autograd.is_training()``, as in MXNet, not torch's
 per-module ``training`` flag.
+
+A block called on NDArrays returns NDArrays, as the JAX package's blocks
+do, and records for autograd only under ``autograd.record()``; called on
+tensors it returns tensors.
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ from typing import Optional
 
 import torch
 
+from .. import autograd
 from .. import initializer as _init
 from ..device import Context, resolve
+from ..ndarray.ndarray import NDArray
 
 
 def _dtype(dtype) -> torch.dtype:
@@ -53,6 +59,16 @@ class Block(torch.nn.Module):
         if grad_req == "null":
             p.grad_req = "null"
         self.register_parameter(name, p)
+
+    def __call__(self, *args, **kwargs):
+        if not any(isinstance(a, NDArray) for a in args):
+            return super().__call__(*args, **kwargs)
+        args = [a._data if isinstance(a, NDArray) else a for a in args]
+        with torch.set_grad_enabled(autograd.is_recording()):
+            out = super().__call__(*args, **kwargs)
+        if isinstance(out, (tuple, list)):
+            return type(out)(NDArray(o.contiguous()) for o in out)
+        return NDArray(out.contiguous())
 
     def collect_params(self) -> "OrderedDict[str, torch.nn.Parameter]":
         """Parameters by structural name."""

@@ -34,6 +34,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from .registry import register
 
 __all__ = ["FlashAttentionFunction", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_reference",
@@ -377,6 +378,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+@register("flash_attention")
 def flash_attention(q, k, v, lengths=None, scale=None, causal=False,
                     cache_offset=False, return_lse=False):
     """Block-tiled flash attention. q (B, H, Tq, D), k/v (B, H, Tk, D);

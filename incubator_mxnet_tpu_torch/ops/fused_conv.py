@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from .registry import register
 
 __all__ = ["FusedConvEpiFunction", "FusedConvFunction", "apply_prologue",
            "bn_scale_shift", "conv_bwd_dw", "conv_bwd_dw_launches",
@@ -451,6 +452,7 @@ class FusedConvEpiFunction(torch.autograd.Function):
         return dx, dw, da, db, dr, dar, db, None, None, None, None
 
 
+@register("fused_conv_bn")
 def fused_conv_bn(x, w, a=None, b=None, stride=1, pad=0, relu=True,
                   resid=None, resid_scale=None, resid_shift=None,
                   emit_act=False):

@@ -1,8 +1,10 @@
 """Neural-network ops of the ported path.
 
 Counterparts of the ops of the JAX package's ``ops/nn.py`` that the GPT
-decoder and the fused ResNet run. None of them is a TPU kernel there (XLA
-compiles them), so here they are plain PyTorch.
+decoder and the fused ResNet run, and the registered ops of ``mx.nd``
+(``FullyConnected``, ``relu``, ``sigmoid``, ``softmax``, ``log_softmax``).
+None of them is a TPU kernel there (XLA compiles them), so here they are
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -12,17 +14,47 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .registry import register
+
 __all__ = ["activation", "dropout", "embedding", "fully_connected",
-           "layer_norm", "pooling"]
+           "layer_norm", "log_softmax", "pooling", "relu", "sigmoid",
+           "softmax"]
 
 
-def fully_connected(x, weight, bias=None, flatten=True):
+@register("FullyConnected", aliases=("fully_connected",))
+def fully_connected(x, weight, bias=None, num_hidden=None, no_bias=False,
+                    flatten=True):
     """y = x·Wᵀ + b with weight (units, in_units), as the reference's
     FullyConnected; ``flatten`` folds every axis after the first into
-    the input features."""
+    the input features. ``num_hidden`` is the reference's attribute (the
+    weight gives the width); ``no_bias`` drops ``bias``."""
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
-    return F.linear(x, weight, bias)
+    return F.linear(x, weight, None if no_bias else bias)
+
+
+@register("relu")
+def relu(x):
+    return torch.relu(x)
+
+
+@register("sigmoid")
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+@register("softmax")
+def softmax(x, axis=-1, temperature=None):
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    return torch.softmax(x, dim=axis)
+
+
+@register("log_softmax")
+def log_softmax(x, axis=-1, temperature=None):
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    return torch.log_softmax(x, dim=axis)
 
 
 def layer_norm(x, gamma, beta, eps=1e-5):

@@ -7,6 +7,7 @@ by training, for the GPT decoder and the fused ResNet alike.
 """
 
 import ast
+import math
 import pathlib
 import subprocess
 import sys
@@ -36,7 +37,12 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "incubator_mxnet_tpu_torch.optimizer, "
             "incubator_mxnet_tpu_torch.parallel.spmd, "
             "incubator_mxnet_tpu_torch.ops.fused_conv, "
-            "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.fused_resnet\n"
+            "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.fused_resnet, "
+            "incubator_mxnet_tpu_torch.ndarray, "
+            "incubator_mxnet_tpu_torch.operator, "
+            "incubator_mxnet_tpu_torch.rtc, "
+            "incubator_mxnet_tpu_torch.ops._nvrtc, "
+            "incubator_mxnet_tpu_torch.ops.rtc_kernels\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) "
             "or m == 'incubator_mxnet_tpu' "
@@ -61,6 +67,10 @@ def _imported_modules(path):
 def test_sources_import_no_jax_and_no_jax_package():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 10
+    for name in ("ndarray/__init__.py", "ndarray/ndarray.py", "operator.py",
+                 "rtc.py", "ops/_nvrtc.py", "ops/rtc_kernels.py",
+                 "ops/registry.py", "ops/tensor.py"):
+        assert PKG / name in files, name
     for f in files + [ROOT / "chip_smoke.py"]:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
@@ -87,6 +97,10 @@ def test_default_device_is_the_card_never_a_silent_cpu():
         net.initialize("xavier")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_jax_params(net, {}, ctx=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.nd.array([1.0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx.nd.zeros((2,))
     net.initialize("xavier", ctx=mx.cpu())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serving.DecodeSession(net, max_slots=1, max_len=16,
@@ -158,7 +172,8 @@ def test_kernel_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
     from incubator_mxnet_tpu_torch.ops import _build
 
     for f in _build.CSRC.iterdir():
-        shutil.copy(f, tmp_path / f.name)
+        if f.is_file():                  # csrc/rtc/ holds the NVRTC sources
+            shutil.copy(f, tmp_path / f.name)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = {n: _build.lib_path(n) for n in _build.SOURCES}
     assert before == {n: _build.lib_path(n) for n in _build.SOURCES}
@@ -308,3 +323,95 @@ def test_chip_smoke_resnet_phase_rehearses_on_the_cpu(monkeypatch):
     zero = {k: 0 for k in cs.CONV_KERNELS}
     assert windows == [(zero, (19, 1, 1)), (zero, (19, 2, 0)),
                        (zero, (19, 20, 20))]
+
+
+def test_no_k7_launch_falls_back_to_a_plain_function():
+    """``mx.rtc`` and the kernels it launches catch nothing: a launch that
+    cannot happen raises. The only handler in the NVRTC bindings skips a
+    library file that does not load, on to the next place to look."""
+    for name in ("rtc.py", "ops/rtc_kernels.py", "operator.py"):
+        tree = ast.parse((PKG / name).read_text())
+        handlers = [n for n in ast.walk(tree)
+                    if isinstance(n, ast.ExceptHandler)]
+        assert not handlers, f"{name}:{handlers[0].lineno}"
+    tree = ast.parse((PKG / "ops" / "_nvrtc.py").read_text())
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    assert len(handlers) == 1
+    assert ast.unparse(handlers[0].type) == "OSError"
+    assert [type(b) for b in handlers[0].body] == [ast.Continue]
+
+
+def test_chip_smoke_imperative_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.imperative_phase`` on a small GPT on the CPU (the plain
+    versions run, so no launch is counted): the oracle, the learning check,
+    the rtc kernels' rows and the bit-for-bit invoke checks all pass, and
+    the launch window expects one launch of each rtc kernel of the program,
+    one softmax_ce_fwd/bwd per imperative step and a flash launch per
+    layer per pass."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
+
+    cs = _chip_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, **k: (fn(), 0.0)[1])
+    windows = []
+    monkeypatch.setattr(cs, "_check_imperative_launches",
+                        lambda *a: windows.append(a))
+    mx.random.seed(0)
+    net = get_gpt("gpt_decoder_tiny", vocab_size=97, units=64, num_layers=2,
+                  max_length=16, dropout=0.0).initialize("xavier",
+                                                         ctx=mx.cpu())
+    small = ("3x3_small_pro", 2, 8, 8, 8, 8, 3, 1, 1, "pro")
+    out = cs.imperative_phase(0, "cpu", net, mx.cpu(), b=2, flat=1000,
+                              lr=1e-2, conv_case=small)
+    assert out["n_params"] == 29
+    assert out["grad_worst_rel"] <= cs.IMPERATIVE_GRAD_RTOL
+    assert out["learning_losses"][-1] < 0.95 * out["learning_losses"][0]
+    assert (out["rtc_steps"], out["passes"]) == (9, 10)
+    zero = {k: 0 for k in cs.RTC_KERNELS}
+    want = dict(scale=1, saxpy=1, first_row=1, softmax_ce_fwd=9,
+                softmax_ce_bwd=9)
+    assert windows == [(zero, want, {k: 0 for k in cs.COUNTERS}, 2 * 10)]
+    rows = out["rows"]
+    assert list(rows) == list(cs.RTC_KERNELS)
+    assert rows["softmax_ce_fwd"]["max_rel_err"] <= cs.RTC_FWD_RTOL
+    assert all(r["max_abs_err"] == 0 == r["max_rel_err"]
+               for n, r in rows.items() if n != "softmax_ce_fwd")
+    assert all(isinstance(r["library_ms"], float) for r in rows.values())
+    assert rows["scale"]["shape"] == [1000]
+    assert rows["softmax_ce_bwd"]["shape"] == [32, 97]
+
+
+def test_chip_smoke_softmax_gate_catches_flushed_probabilities():
+    """The softmax_ce_fwd gate is relative per probability: at 4*randn
+    logits over a GPT-2 row most probabilities are below 1e-6, and a
+    kernel that flushed them to 0 fails it (an absolute 1e-6 would pass)."""
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    want = torch.softmax(4 * torch.randn(4, 50257, generator=gen), -1)
+    flushed = torch.where(want < 1e-6, torch.zeros_like(want), want)
+    assert (flushed - want).abs().max().item() < 1e-6
+    assert cs._max_rel_err(flushed, want) == 1.0 > cs.RTC_FWD_RTOL
+    rounded = want * (1 + 2 ** -23)
+    assert 0 < cs._max_rel_err(rounded, want) <= cs.RTC_FWD_RTOL
+    zero = torch.zeros(3)
+    assert cs._max_rel_err(zero, zero) == 0.0
+    assert cs._max_rel_err(torch.ones(3), zero) == math.inf
+
+
+def test_chip_smoke_rtc_bounds_are_the_quoted_figures():
+    cs = _chip_smoke()
+    for name, shape, gbytes, ms in (
+            ("scale", (cs.RTC_FLAT,), 1.304, 0.389),
+            ("saxpy", (cs.RTC_FLAT,), 1.956, 0.584),
+            ("softmax_ce_fwd", (2048, 50257), 0.8234, 0.246),
+            ("softmax_ce_bwd", (2048, 50257), 0.8234, 0.246)):
+        got_ms, by = cs.rtc_bound(name, shape)
+        assert by == "bytes"
+        assert got_ms * cs.HBM_BYTES_PER_S / 1e12 == pytest.approx(
+            gbytes, abs=5e-4)
+        assert got_ms == pytest.approx(ms, abs=5e-4)
+    ms, by = cs.rtc_bound("first_row", (50257, 768))
+    assert by == "bytes" and ms == pytest.approx(2 * 768 * 4 / 3.35e9)
