@@ -7,8 +7,11 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
-   source, started together), and compile the rtc kernels of
-   ``csrc/rtc/`` with NVRTC;
+   source, started together), print ``tools/torch_ptxas_report.py
+   conv_bwd_tc`` (registers, spills, and the HGMMA and UTMALDG
+   instructions in the SASS of the bf16 tensor-core K2/K3: both must be
+   there, and no spill), and compile the rtc kernels of ``csrc/rtc/`` with
+   NVRTC;
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the shapes the serving and training paths give it, in fp32 and bf16
    (TF32 off), with its device time (CUDA-graph replay, inputs warm in L2),
@@ -40,7 +43,11 @@ Phases (any failure raises, and the script exits non-zero):
    fp32 and bf16 at ResNet-50's shapes at B=32 and one shape off the
    model's path, with the same timings; the library call is cuDNN
    (``F.conv2d`` on channels-last tensors, and
-   ``aten.convolution_backward`` for the input and the weight gradient);
+   ``aten.convolution_backward`` for the input and the weight gradient).
+   Each K2/K3 row names its route (``fused_conv.conv_bwd_route``): every
+   bf16 row must take the tensor-core kernels (``csrc/conv_bwd_tc.cu``),
+   every fp32 row the SIMT kernels (``csrc/conv_bwd.cu``); a bf16 row also
+   times the SIMT kernel on the same inputs (``simt_ms``);
 7. ResNet phase: ``fused_resnet50_v1`` (1000 classes, 224x224 inputs,
    weights drawn from ``--seed``): the fp32 oracle of one training step at
    B=8 (loss and the 106 running statistics against the model with
@@ -49,11 +56,14 @@ Phases (any failure raises, and the script exits non-zero):
    on K1's forward values, see ``resnet_oracle``); a learning check (fp32
    ``SPMDTrainer``, SGD, one repeated batch); two eager ``gluon.Trainer``
    steps; eval logits at B=32, with the running statistics set to that
-   batch's, against the plain swap and the training-mode forward; the
-   bench row (net cast to bf16, B=128,
-   ``SPMDTrainer`` SGD lr 0.1 momentum 0.9), timed, with a
-   ``torch.profiler`` breakdown of one step. K1 launches exactly 52 times
-   per forward, K2 and K3 52 times per backward;
+   batch's, against the plain swap and the training-mode forward; then,
+   the net cast to bf16, the bf16 gradient gate (one step at B=8, the 161
+   gradients through the tensor-core K2/K3 against their plain versions
+   on K1's forward, ``resnet_bf16_gate``), a bf16 learning check, and the
+   bench row (B=128, ``SPMDTrainer`` SGD lr 0.1 momentum 0.9), timed, with
+   a ``torch.profiler`` breakdown of one step. K1 launches exactly 52
+   times per forward, K2 and K3 52 times per backward: every fp32
+   backward on the SIMT route, every bf16 one on the tensor-core route;
 8. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
    kernels (K7, ``csrc/rtc/*.cu``, compiled by NVRTC in the build step)
    run an ``mx.rtc`` program (``scale`` and ``saxpy`` over 163,037,184
@@ -74,8 +84,10 @@ Phases (any failure raises, and the script exits non-zero):
    ``invoke_op("fused_conv_bn")`` with gradients, equal to the direct
    calls bit for bit.
 
-The line before the last is the kernels' JSON record (K1 to K7); the last
-line is
+The line before the last is the kernels' JSON record (K1 to K7; K2 and
+K3 once per route, ``conv_bwd_dx``/``conv_bwd_dw`` the SIMT kernels at the
+fp32 head case, ``conv_bwd_dx_tc``/``conv_bwd_dw_tc`` the tensor-core
+kernels at the bf16 head case); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 2
 before printing any result.
 """
@@ -86,9 +98,11 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -776,6 +790,10 @@ CONV_CASES = [
 ]
 CONV_HEAD = "3x3_64to64_56_pro"
 CONV_KERNELS = ("fused_conv", "conv_bwd_dx", "conv_bwd_dw")
+# the backward kernels' routes (ops/fused_conv.conv_bwd_route): "tc" the
+# bf16 tensor-core kernels (csrc/conv_bwd_tc.cu), "simt" csrc/conv_bwd.cu
+ROUTED = ("conv_bwd_dx", "conv_bwd_dw")
+ROUTES = ("tc", "simt")
 # fp32 per-channel sums and dW: relative L2 error, kernels vs plain
 CONV_L2_TOL = 1e-4
 
@@ -858,6 +876,25 @@ def _conv_errs(names, got, want, dtype):
     return worst_abs, worst_rel
 
 
+def _route_launches():
+    """{(kernel, route): launches} of the two backward kernels."""
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+    return {(k, r): getattr(fc, f"{k}_{r}_launches") for k in ROUTED
+            for r in ROUTES}
+
+
+def _route_taken(before, kernel):
+    """The route ``kernel`` took since ``before`` (one launch)."""
+    now = _route_launches()
+    taken = [r for r in ROUTES
+             if now[kernel, r] - before[kernel, r] == 1]
+    if len(taken) != 1:
+        raise AssertionError(f"{kernel}: launches by route {now} after "
+                             f"{before}: not one launch")
+    return taken[0]
+
+
 def conv_kernel_phase(seed):
     import torch.nn.functional as F
 
@@ -912,28 +949,49 @@ def conv_kernel_phase(seed):
                     dy_cl, x_cl, w_cl, None, *conv_args,
                     [False, True, False]),
             }
+            # the SIMT kernels on the same inputs, timed beside the
+            # route the rule takes
+            simt = {
+                "conv_bwd_dx": lambda: fc.conv_bwd_dx(
+                    *bargs, g=t.get("g"), route="simt", **rkw),
+                "conv_bwd_dw": lambda: fc.conv_bwd_dw(*bargs, route="simt",
+                                                      **rkw),
+            }
             for kernel in CONV_KERNELS:
                 launch, plain, names = calls[kernel]
+                before = _route_launches()
                 got, want = launch(), plain()
                 torch.cuda.synchronize()
+                route = None
+                if kernel in ROUTED:
+                    route = _route_taken(before, kernel)
+                    expect = "tc" if dtype == torch.bfloat16 else "simt"
+                    if route != expect:
+                        raise AssertionError(f"{kernel} {name} "
+                                             f"{DTYPE_NAMES[dtype]} took "
+                                             f"{route}, not {expect}")
                 err, rel = _conv_errs(names, got, want, dtype)
                 ms = device_ms(launch)
                 plain_ms = device_ms(plain)
                 library_ms = device_ms(library[kernel])
+                simt_ms = device_ms(simt[kernel]) if route == "tc" else None
                 bound_ms, bound_by = conv_bound(kernel, case, dtype)
                 r = dict(kernel=kernel, case=name, dtype=DTYPE_NAMES[dtype],
-                         max_abs_err=err, err_over_max_ref=rel,
+                         route=route, max_abs_err=err, err_over_max_ref=rel,
                          tol=TOLS[dtype], ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
+                         library_ms=library_ms, simt_ms=simt_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
                 results.append(r)
-                print(f"kernel {kernel} {name} {r['dtype']}: max_abs_err="
-                      f"{err:.3e} ({rel:.2e} of max|plain|, tol "
+                also = "" if simt_ms is None else \
+                    f" simt_ms={simt_ms:.5f} (SIMT kernel)"
+                print(f"kernel {kernel} {name} {r['dtype']}"
+                      f"{'' if route is None else ' route ' + route}: "
+                      f"max_abs_err={err:.3e} ({rel:.2e} of max|plain|, tol "
                       f"{TOLS[dtype]:g}) ms={ms:.5f} (device, CUDA graph) "
                       f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f}"
-                      f" (cuDNN) bound_ms={bound_ms:.5f} ({bound_by})",
-                      flush=True)
-            del t, want_f, calls, library
+                      f" (cuDNN){also} bound_ms={bound_ms:.5f} "
+                      f"({bound_by})", flush=True)
+            del t, want_f, calls, library, simt
             gc.collect()
     return results
 
@@ -1028,17 +1086,30 @@ def _reset_conv_launches():
 
     for k in CONV_KERNELS:
         setattr(fc, k + "_launches", 0)
+    for k in ROUTED:
+        for r in ROUTES:
+            setattr(fc, f"{k}_{r}_launches", 0)
 
 
-def _check_launches(label, got, per_pass, forwards, backwards):
+def _check_launches(label, got, per_pass, forwards, backwards, routes=None,
+                    route=None):
+    """The window's launches against ``per_pass`` per forward and per
+    backward; with ``route``, every backward launch in ``routes`` (from
+    ``_route_launches``) took that route."""
     want = {"fused_conv": per_pass * forwards,
             "conv_bwd_dx": per_pass * backwards,
             "conv_bwd_dw": per_pass * backwards}
     print(f"{label}: launches {got} over {forwards} forwards and "
-          f"{backwards} backwards ({per_pass} each per pass: {want})",
-          flush=True)
+          f"{backwards} backwards ({per_pass} each per pass: {want})"
+          + ("" if route is None else f", by route {routes}"), flush=True)
     if got != want:
         raise AssertionError(f"{label}: launches {got} != {want}")
+    if route is not None:
+        want_r = {(k, r): want[k] if r == route else 0 for k in ROUTED
+                  for r in ROUTES}
+        if routes != want_r:
+            raise AssertionError(f"{label}: launches by route {routes} != "
+                                 f"{want_r}")
 
 
 def convs_per_pass(net):
@@ -1088,11 +1159,11 @@ def resnet_oracle(net, ce, x, y):
 
     _reset_conv_launches()
     (loss, grads), stats = run(None)
-    launches = _conv_launches()
+    launches, routes = _conv_launches(), _route_launches()
     (ref_loss, plain_grads), ref_stats = run(_plain_fused_conv_bn)
     (_, ref_grads), _ = run(_pinned_fused_conv_bn)
     _check_launches("gradient oracle (kernel run)", launches,
-                    convs_per_pass(net), 1, 1)
+                    convs_per_pass(net), 1, 1, routes, "simt")
     if not torch.isfinite(loss) or abs(float(loss - ref_loss)) > \
             1e-5 * abs(float(ref_loss)):
         raise AssertionError(f"oracle loss {float(loss)} != plain "
@@ -1126,9 +1197,96 @@ def resnet_oracle(net, ce, x, y):
                 n_running_stats=len(stats))
 
 
+# bf16 gradients of one step, K2/K3 against their plain versions in the
+# same backward on K1's forward values: relative L2 error per trainable
+# tensor. Both fold and round where the TPU kernels do; they differ in the
+# order of fp32 sums, which flips a bf16 rounding of dx now and then
+# (2^-9 of an element), carried down the 52 convs of the backward. 2e-2
+# is the loosest the port allows itself.
+BF16_GRAD_RTOL = 2e-2
+
+
+class plain_conv_backward:
+    """``with plain_conv_backward():`` the fused conv's autograd Functions
+    call the plain versions of K2 and K3 (the swap is made here, for the
+    bf16 gate only); K1 still computes the forward. cuDNN runs its
+    deterministic algorithms meanwhile: the plain versions' convolution
+    gradients otherwise differ from run to run in the last fp32 bits, which
+    the bf16 network carries to percents in the stem's gradients (measured
+    on an H100), while the kernels repeat bit for bit."""
+
+    def __enter__(self):
+        from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+        self._saved = (fc.conv_bwd_dx, fc.conv_bwd_dw,
+                       torch.backends.cudnn.deterministic)
+        fc.conv_bwd_dx = fc.conv_bwd_dx_reference
+        fc.conv_bwd_dw = fc.conv_bwd_dw_reference
+        torch.backends.cudnn.deterministic = True
+        return self
+
+    def __exit__(self, *exc):
+        from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+        fc.conv_bwd_dx, fc.conv_bwd_dw, det = self._saved
+        torch.backends.cudnn.deterministic = det
+
+
+def resnet_bf16_gate(net, ce, x, y):
+    """One bf16 training step from one state, three times: through K2/K3
+    (the tensor-core route); through their plain versions
+    (``plain_conv_backward``): every trainable tensor's gradient within
+    ``BF16_GRAD_RTOL`` relative L2; and through the autograd of the plain
+    forward on K1's forward values (``_pinned_fused_conv_bn``), printed,
+    not held: that backward keeps dy_t in fp32 and differentiates the fp32
+    accumulator where the kernels (and the TPU's) round to bf16. Returns
+    the worst errors."""
+    def loss_fn(logits, labels):
+        return ce(logits, labels).mean()
+
+    start = _frozen(net)
+
+    def run(fn):
+        with torch.no_grad():
+            for n, p in net.named_parameters():
+                if n in start:
+                    p.copy_(start[n])
+        if fn is None:
+            return _grads(net, loss_fn, x, y)
+        with swap_convs(fn):
+            return _grads(net, loss_fn, x, y)
+
+    _reset_conv_launches()
+    loss, grads = run(None)
+    launches, routes = _conv_launches(), _route_launches()
+    with plain_conv_backward():
+        ref_loss, ref_grads = run(None)
+    _, auto_grads = run(_pinned_fused_conv_bn)
+    _check_launches("bf16 gradient gate (kernel run)", launches,
+                    convs_per_pass(net), 1, 1, routes, "tc")
+    names = [n for n, p in net.named_parameters() if p.requires_grad]
+    worst, worst_auto = (0.0, ""), (0.0, "")
+    for name, g, r, q in zip(names, grads, ref_grads, auto_grads):
+        rel = _rel_l2(g.float(), r.float())
+        if not math.isfinite(rel) or rel > BF16_GRAD_RTOL:
+            raise AssertionError(f"bf16 gradient gate: {name} relative L2 "
+                                 f"error {rel} > {BF16_GRAD_RTOL}")
+        worst = max(worst, (rel, name))
+        worst_auto = max(worst_auto, (_rel_l2(g.float(), q.float()), name))
+    print(f"bf16 gradient gate (B={x.shape[0]}, {len(names)} trainable "
+          f"tensors): loss {float(loss):.6f} vs {float(ref_loss):.6f}; "
+          f"worst relative L2 error against the plain K2/K3 on K1's "
+          f"forward {worst[0]:.3e} ({worst[1]}), tolerance "
+          f"{BF16_GRAD_RTOL:g}; against the autograd of the plain forward "
+          f"{worst_auto[0]:.3e} ({worst_auto[1]}, not held)", flush=True)
+    return dict(worst=worst[0], worst_name=worst[1],
+                worst_autograd=worst_auto[0], n_trainable=len(names))
+
+
 CONV_TAGS = ("fused_conv_fwd_kernel", "conv_bwd_dx_kernel",
-             "conv_bwd_dw_kernel", "column_sum_kernel", "split_sum_kernel",
-             "join_emit_kernel")
+             "conv_bwd_dw_kernel", "conv_bwd_dx_tc_kernel",
+             "conv_bwd_dw_tc_kernel", "column_sum_kernel",
+             "split_sum_kernel", "join_emit_kernel")
 
 
 # batch sizes of the ResNet phase: eval, gradient oracle, learning check
@@ -1194,7 +1352,7 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
     print(f"gluon.Trainer (fp32, B={b_train}, sgd lr 0.01 momentum 0.9): 2 "
           f"steps, losses {eager}", flush=True)
     del trainer
-    first = _conv_launches()
+    first, first_routes = _conv_launches(), _route_launches()
 
     # eval logits. One training-mode forward of the eval batch (no grad)
     # with the BatchNorm momentum at 0 sets every running statistic to this
@@ -1231,10 +1389,32 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
         raise AssertionError("eval logits disagree with the plain path or "
                              "with the training-mode forward")
     _check_launches("eval", eval_launches, per_pass, 2, 0)
-    _reset_conv_launches()
+    _check_launches("fp32 training path (SPMDTrainer, gluon.Trainer)",
+                    first, per_pass, passes, passes, first_routes, "simt")
 
-    # (e) the bench row: bf16 net, B=128, SPMDTrainer SGD lr 0.1 mom 0.9
+    # bf16: the gradient gate, a learning check, then (e) the bench row:
+    # B=128, SPMDTrainer SGD lr 0.1 momentum 0.9; K2/K3 on the tensor cores
     net.cast("bfloat16")
+    gc.collect()
+    x, y = batch(b_oracle)
+    bf16_gate = resnet_bf16_gate(net, ce, x.to(torch.bfloat16), y)
+    _reset_conv_launches()
+    bf16_passes = 0
+    x, y = batch(b_train)
+    x = x.to(torch.bfloat16)
+    st = parallel.SPMDTrainer(net, ce, "sgd",
+                              {"learning_rate": 0.05, "momentum": 0.9})
+    bf16_learning = [float(st.step(x, y)) for _ in range(10)]
+    bf16_passes += 10
+    print(f"bf16 learning check (SPMDTrainer, B={b_train}, sgd lr 0.05 "
+          f"momentum 0.9, one batch repeated): losses "
+          f"{[round(v, 4) for v in bf16_learning]}", flush=True)
+    if not all(math.isfinite(v) for v in bf16_learning) \
+            or not bf16_learning[-1] < 0.95 * bf16_learning[0]:
+        raise AssertionError("the bf16 loss did not fall by 5% over 10 "
+                             "steps")
+    st.sync_to_net()
+    del st
     gc.collect()
     bench = None
     for b in b_bench:
@@ -1251,7 +1431,7 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / 5
         peak = torch.cuda.max_memory_allocated(dev)
-        passes += 7
+        bf16_passes += 7
         if not all(torch.isfinite(v) for v in bf16_losses):
             raise AssertionError("bf16 SPMDTrainer loss not finite")
         print(f"bf16 SPMDTrainer step (B={b}, sgd lr 0.1 "
@@ -1267,15 +1447,19 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
         del st
     rows = _profile_step(st.step, xb, yb, card, bench["step_ms"],
                          tags=CONV_TAGS, top=16)
-    passes += 1
-    second = _conv_launches()
+    bf16_passes += 1
+    second, second_routes = _conv_launches(), _route_launches()
+    _check_launches("bf16 training path (learning check, bench row)",
+                    second, per_pass, bf16_passes, bf16_passes,
+                    second_routes, "tc")
     launches = {k: first[k] + second[k] for k in CONV_KERNELS}
-    _check_launches("training path (SPMDTrainer, gluon.Trainer, bench row)",
-                    launches, per_pass, passes, passes)
-    return dict(launches=launches, eval_launches=eval_launches,
-                per_pass=per_pass, passes=passes, oracle=oracle,
-                learning_losses=losses, eval_err=eval_err, bench=bench,
-                profile=rows[:16])
+    routes = {k: first_routes[k] + second_routes[k] for k in first_routes}
+    return dict(launches=launches, routes=routes,
+                eval_launches=eval_launches, per_pass=per_pass,
+                passes=passes + bf16_passes, bf16_passes=bf16_passes,
+                oracle=oracle, learning_losses=losses, eval_err=eval_err,
+                bf16_gate=bf16_gate, bf16_learning_losses=bf16_learning,
+                bench=bench, profile=rows[:16])
 
 
 
@@ -1701,17 +1885,60 @@ def imperative_main(seed, card):
     return out
 
 
-def _entry(name, source, replaces, launches, cases, head_case):
-    head = next(r for r in cases if r["case"] == head_case
-                and r["dtype"] == "fp32")
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in cases
-                               if r["dtype"] == "fp32"),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "shape": head_case,
-            "cases": cases}
+def _entry(name, source, replaces, launches, cases, head_case,
+           dtype="fp32"):
+    """A kernel's record: its numbers at ``head_case`` in ``dtype``, and
+    (an fp32 head) the bf16 head case's under ``"bf16"``."""
+    def head_of(dt):
+        return next((r for r in cases if r["case"] == head_case
+                     and r["dtype"] == dt), None)
+
+    head = head_of(dtype)
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max(r["max_abs_err"] for r in cases
+                                if r["dtype"] == dtype),
+             "ms": head["ms"], "plain_ms": head["plain_ms"],
+             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+             "library_ms": head["library_ms"], "shape": head_case,
+             "dtype": dtype, "cases": cases}
+    bf16 = head_of("bf16") if dtype == "fp32" else None
+    if bf16 is not None:
+        entry["bf16"] = {k: bf16[k] for k in ("ms", "plain_ms", "library_ms",
+                                              "bound_ms", "bound_by")}
+    return entry
+
+
+# the bf16 backward kernels, which must run on the tensor cores and load
+# through TMA
+TC_KERNELS = ("conv_bwd_dx_tc_kernel", "conv_bwd_dw_tc_kernel")
+
+
+def tensor_core_sass():
+    """``tools/torch_ptxas_report.py conv_bwd_tc``, printed: registers,
+    spills, and the HGMMA (wgmma) and UTMALDG (TMA) instructions in each
+    tensor-core kernel's SASS; raises unless every instantiation has
+    both and none spills."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "tools"
+                             / "torch_ptxas_report.py"), "conv_bwd_tc"],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    print(out.rstrip(), flush=True)
+    rows = [ln for ln in out.splitlines()
+            if any(k in ln for k in TC_KERNELS) and "Used" in ln]
+    if not rows or any(" HGMMA 0" in ln or "UTMALDG 0" in ln
+                       or "SASS" not in ln for ln in rows):
+        raise AssertionError("a tensor-core kernel without HGMMA or "
+                             "UTMALDG in its SASS")
+    spills = [ln for ln in out.splitlines()
+              if any(k in ln for k in TC_KERNELS) and "spill" in ln
+              and not re.search(r"\b0 bytes spill stores, 0 bytes spill "
+                                r"loads", ln)]
+    if spills:
+        raise AssertionError(f"tensor-core kernels spill: {spills}")
+    print(f"tensor-core SASS: {len(rows)} kernels with HGMMA and UTMALDG, "
+          f"no spills ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def main(argv=None) -> int:
@@ -1730,6 +1957,7 @@ def main(argv=None) -> int:
     _build.build_all()
     print(f"build: {list(_build.SOURCES)} in {time.perf_counter() - t0:.1f} "
           "s", flush=True)
+    tensor_core_sass()
     t0 = time.perf_counter()
     for name in RTC_KERNELS:                 # NVRTC, or the cubin cache
         rk.kernel(name)
@@ -1764,16 +1992,32 @@ def main(argv=None) -> int:
         for name, line in (("flash_bwd_dq", "209"),
                            ("flash_bwd_dkv", "267"))]}
     conv_ref = "incubator_mxnet_tpu/ops/pallas_conv.py:"
-    for name, source, line in (("fused_conv", "fused_conv.cu", "222"),
-                               ("conv_bwd_dx", "conv_bwd.cu", "553"),
-                               ("conv_bwd_dw", "conv_bwd.cu", "780")):
-        entry = _entry(name, src + source, conv_ref + line,
-                       resnet["launches"][name],
-                       [r for r in conv if r["kernel"] == name], CONV_HEAD)
-        entry["launches_by_path"] = {
-            "resnet_train": resnet["launches"][name],
-            "resnet_eval": resnet["eval_launches"][name]}
-        record["kernels"].append(entry)
+    entry = _entry("fused_conv", src + "fused_conv.cu", conv_ref + "222",
+                   resnet["launches"]["fused_conv"],
+                   [r for r in conv if r["kernel"] == "fused_conv"],
+                   CONV_HEAD)
+    entry["launches_by_path"] = {
+        "resnet_train": resnet["launches"]["fused_conv"],
+        "resnet_eval": resnet["eval_launches"]["fused_conv"]}
+    record["kernels"].append(entry)
+    # K2 and K3 by route: the SIMT kernels carry fp32 (the oracle, the
+    # fp32 training steps), the tensor-core kernels bf16 (the gate, the
+    # bf16 learning check and the bench row)
+    for name, line in (("conv_bwd_dx", "553"), ("conv_bwd_dw", "780")):
+        for route, source, dtype in (("simt", "conv_bwd.cu", "fp32"),
+                                     ("tc", "conv_bwd_tc.cu", "bf16")):
+            entry = _entry(name if route == "simt" else f"{name}_tc",
+                           src + source, conv_ref + line,
+                           resnet["routes"][name, route],
+                           [r for r in conv if r["kernel"] == name
+                            and r["route"] == route], CONV_HEAD, dtype)
+            if route == "tc":
+                entry["simt_ms"] = next(
+                    r["simt_ms"] for r in entry["cases"]
+                    if r["case"] == CONV_HEAD)
+            entry["launches_by_path"] = {"resnet_train":
+                                         resnet["routes"][name, route]}
+            record["kernels"].append(entry)
     rows = imperative["rows"]
     head = rows[RTC_HEAD]
     record["kernels"].append({

@@ -330,18 +330,6 @@ conv_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// dw[c] = sum over the splits of part[z, c], in order, cast to w's type.
-template <typename T>
-__global__ void split_sum_kernel(const float* __restrict__ part, int splits,
-                                 long long cols, T* __restrict__ dw) {
-  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       c < cols; c += (long long)gridDim.x * blockDim.x) {
-    float t = 0.0f;
-    for (int z = 0; z < splits; ++z) t += part[z * cols + c];
-    Elem<T>::st(dw + c, t);
-  }
-}
-
 template <typename T>
 int launch_dx(const void* dy, const void* y, const void* x, const void* w,
               const float* a, const float* b, const float* ds,

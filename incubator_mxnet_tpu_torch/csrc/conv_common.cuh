@@ -1,7 +1,8 @@
 // Pieces shared by the fused conv+BatchNorm kernels (fused_conv.cu: K1,
 // conv_bwd.cu: K2 and K3): element access in fp32 or bf16, the 64x64
 // register-blocked product of two shared-memory tiles, and the
-// deterministic reductions of per-block partial sums.
+// deterministic reductions of per-block partial sums (conv_bwd_tc.cu, the
+// bf16 tensor-core K2 and K3, shares the arithmetic and the reductions).
 //
 // Arithmetic that the TPU kernels do in fp32 and then round (the BatchNorm
 // prologue, the folding of the statistics cotangents) is written with
@@ -108,6 +109,18 @@ inline void column_sum(const float* part, int rows, int cols, float* out,
                        cudaStream_t stream) {
   column_sum_kernel<<<dim3((cols + 31) / 32), dim3(32, 32), 0, stream>>>(
       part, rows, cols, out);
+}
+
+// dw[c] = sum over the splits of part[z, c], in order, cast to w's type.
+template <typename T>
+__global__ void split_sum_kernel(const float* __restrict__ part, int splits,
+                                 long long cols, T* __restrict__ dw) {
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       c < cols; c += (long long)gridDim.x * blockDim.x) {
+    float t = 0.0f;
+    for (int z = 0; z < splits; ++z) t += part[z * cols + c];
+    Elem<T>::st(dw + c, t);
+  }
 }
 
 }  // namespace mxconv

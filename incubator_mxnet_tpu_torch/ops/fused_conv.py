@@ -13,9 +13,12 @@ next call's prologue.
 A CUDA tensor always launches the kernels: the forward in
 ``csrc/fused_conv.cu`` (which replaces the TPU kernel
 ``_fused_conv_kernel``, both of its stride-2 layouts in one kernel) and,
-for a gradient, the input-gradient and weight-gradient kernels in
-``csrc/conv_bwd.cu`` (``_conv_bwd_dx_kernel``, ``_conv_bwd_dw_kernel``;
-stride 2 included, where the JAX package's default keeps XLA for dx). A
+for a gradient, the input-gradient and weight-gradient kernels
+(``_conv_bwd_dx_kernel``, ``_conv_bwd_dw_kernel``; stride 2 included,
+where the JAX package's default keeps XLA for dx). :func:`conv_bwd_route`
+picks them by type and widths: bf16 with Ci and Co multiples of 8 goes to
+the tensor-core kernels of ``csrc/conv_bwd_tc.cu`` (wgmma fed by TMA),
+everything else to ``csrc/conv_bwd.cu`` (scalar fp32 FMAs). A
 CPU tensor takes the plain versions, :func:`fused_conv_reference`,
 :func:`conv_bwd_dx_reference` and :func:`conv_bwd_dw_reference`, which
 follow the JAX package's ``_apply_prologue_host`` and ``_conv_raw`` with
@@ -47,7 +50,10 @@ from .registry import register
 __all__ = ["FusedConvEpiFunction", "FusedConvFunction", "apply_prologue",
            "bn_scale_shift", "conv_bwd_dw", "conv_bwd_dw_launches",
            "conv_bwd_dw_reference", "conv_bwd_dx", "conv_bwd_dx_launches",
-           "conv_bwd_dx_reference", "dw_splits", "fused_conv",
+           "conv_bwd_dx_reference", "conv_bwd_route", "dw_splits",
+           "dw_tc_box", "dw_tc_taps", "dx_tc_box", "dx_tc_cols",
+           "dx_tc_taps", "fused_conv",
+           "tc_box",
            "fused_conv_bn", "fused_conv_launches", "fused_conv_reference",
            "join_defaults"]
 
@@ -57,11 +63,16 @@ __all__ = ["FusedConvEpiFunction", "FusedConvFunction", "apply_prologue",
 fused_conv_launches = 0
 conv_bwd_dx_launches = 0
 conv_bwd_dw_launches = 0
+#: the same launches by route (see :func:`conv_bwd_route`)
+conv_bwd_dx_tc_launches = conv_bwd_dx_simt_launches = 0
+conv_bwd_dw_tc_launches = conv_bwd_dw_simt_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64          # rows and columns of a kernel tile
 _KSTEP = 16         # pixels per step of the weight-gradient kernel
 _DW_BLOCKS = 528    # weight-gradient blocks to aim for: 4 per SM of an H100
+_TC_ROWS = 64       # pixels of a tensor-core block (one m64 wgmma)
+_TC_BLOCKS = 264    # tensor-core blocks to aim for: 2 per SM of an H100
 _fns = {}
 
 
@@ -182,9 +193,15 @@ def _kernel(name):
         elif name == "dx":
             fn = _build.load("conv_bwd").mxtpu_conv_bwd_dx
             fn.argtypes = [p] * 18 + shape
-        else:
+        elif name == "dw":
             fn = _build.load("conv_bwd").mxtpu_conv_bwd_dw
             fn.argtypes = [p] * 12 + [i] + shape
+        elif name == "dx_tc":        # relu, then bw, bh, bn, cols, taps
+            fn = _build.load("conv_bwd_tc").mxtpu_conv_bwd_dx_tc
+            fn.argtypes = [p] * 18 + [i] * 17 + [p]
+        else:                        # dw_tc: relu, then bw, bh, bn, taps
+            fn = _build.load("conv_bwd_tc").mxtpu_conv_bwd_dw_tc
+            fn.argtypes = [p] * 12 + [i] * 17 + [p]
         fn.restype = i
         _fns[name] = fn
     return fn
@@ -311,13 +328,16 @@ def _backward_operands(x, w, y, dy, stride, pad):
 
 
 def conv_bwd_dx(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
-                r=None, ar=None, br=None, g=None):
+                r=None, ar=None, br=None, g=None, route=None):
     """The input-gradient kernel: ``(dx, da, db)`` (+ ``dr, dar`` with a
     residual). A CPU tensor takes :func:`conv_bwd_dx_reference`; a CUDA
-    tensor launches ``csrc/conv_bwd.cu`` or raises."""
-    global conv_bwd_dx_launches
+    tensor launches the kernel :func:`conv_bwd_route` names (or
+    ``route="simt"``: the SIMT kernel whatever the type) or raises."""
+    global conv_bwd_dx_launches, conv_bwd_dx_tc_launches
+    global conv_bwd_dx_simt_launches
     n, h, wd, ci, co, kh, kw, ho, wo = _backward_operands(
         x, w, y, dy, stride, pad)
+    route = _pick_route(x.dtype, ci, co, route)
     if _device_of(x) == "cpu":
         return conv_bwd_dx_reference(x, w, a, b, y, dy, ds, dss, stride, pad,
                                      relu, r, ar, br, g)
@@ -336,38 +356,150 @@ def conv_bwd_dx(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
     da = torch.empty(ci, **f32) if a is not None else None
     db = torch.empty(ci, **f32) if a is not None else None
     dar = torch.empty(ci, **f32) if r is not None else None
-    rows = stride * stride * -(-n * -(-h // stride) * -(-wd // stride)
-                               // _TILE)
-    part = torch.empty(3 * rows * ci if pro else 1, **f32)
-    _run(_kernel("dx"), x, _ptr(dy), _ptr(y), _ptr(x), _ptr(w), _ptr(a),
-         _ptr(b), _ptr(ds), _ptr(dss), _ptr(r), _ptr(ar), _ptr(br), _ptr(g),
-         _ptr(dx), _ptr(da), _ptr(db), _ptr(dr), _ptr(dar), _ptr(part), n,
-         h, wd, ci, co, kh, kw, stride, pad, ho, wo, int(bool(relu)),
-         _DTYPE_CODE[x.dtype])
+    hq, wq = -(-h // stride), -(-wd // stride)     # the widest phase
+    ptrs = (_ptr(dy), _ptr(y), _ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(ds),
+            _ptr(dss), _ptr(r), _ptr(ar), _ptr(br), _ptr(g), _ptr(dx),
+            _ptr(da), _ptr(db), _ptr(dr), _ptr(dar))
+    dims = (n, h, wd, ci, co, kh, kw, stride, pad, ho, wo, int(bool(relu)))
+    if route == "tc":
+        taps = dx_tc_taps(kw, stride, wd)
+        box = dx_tc_box(n, h, wd, kw, stride, taps)
+        rows = stride * stride * _boxes(n, hq, wq, box)
+        part = torch.empty(3 * rows * ci if pro else 1, **f32)
+        _run(_kernel("dx_tc"), x, *ptrs, _ptr(part), *dims, *box,
+             dx_tc_cols(n, h, wd, ci, stride, taps), taps)
+        conv_bwd_dx_tc_launches += 1
+    else:
+        rows = stride * stride * -(-n * hq * wq // _TILE)
+        part = torch.empty(3 * rows * ci if pro else 1, **f32)
+        _run(_kernel("dx"), x, *ptrs, _ptr(part), *dims,
+             _DTYPE_CODE[x.dtype])
+        conv_bwd_dx_simt_launches += 1
     conv_bwd_dx_launches += 1
     return (dx, da, db, dr, dar) if r is not None else (dx, da, db)
 
 
-def dw_splits(n, ho, wo, ci, co, kh, kw):
+def conv_bwd_route(dtype, ci, co):
+    """Which backward kernels a conv takes on the card: ``"tc"`` (the
+    tensor-core kernels of ``csrc/conv_bwd_tc.cu``) for bf16 with ``ci``
+    and ``co`` multiples of 8, whose NHWC rows are whole 16-byte units as
+    TMA needs; ``"simt"`` (``csrc/conv_bwd.cu``) for everything else: fp32
+    (no tensor-core path keeps fp32 off TF32) and ragged bf16 widths."""
+    if dtype == torch.bfloat16 and ci % 8 == 0 and co % 8 == 0:
+        return "tc"
+    return "simt"
+
+
+def _pick_route(dtype, ci, co, route):
+    """:func:`conv_bwd_route`'s choice, or ``route`` where a caller names
+    one: ``"simt"`` takes any call (to time the SIMT kernels in bf16
+    beside the tensor-core ones), ``"tc"`` only what the rule sends
+    there."""
+    rule = conv_bwd_route(dtype, ci, co)
+    if route is None or route == rule or route == "simt":
+        return rule if route is None else route
+    raise ValueError(f"route {route!r}: {dtype} with Ci={ci}, Co={co} "
+                     f"takes {rule!r}")
+
+
+def tc_box(n, h, w):
+    """The box of pixels a tensor-core block takes from an (n, h, w)
+    extent: ``(bw, bh, bn)``, at most 64 pixels, whole rows of the width
+    where they fit, then whole images, so that one 4-D TMA load brings
+    it."""
+    bw = min(w, _TC_ROWS)
+    bh = min(h, _TC_ROWS // bw) if bw == w else 1
+    bn = min(n, _TC_ROWS // (bw * bh)) if bw == w and bh == h else 1
+    return bw, bh, bn
+
+
+def _boxes(n, h, w, box=None):
+    """How many boxes (default :func:`tc_box`'s) cover an (n, h, w)
+    extent."""
+    bw, bh, bn = tc_box(n, h, w) if box is None else box
+    return -(-w // bw) * -(-h // bh) * -(-n // bn)
+
+
+def dw_tc_taps(kw, stride, wo, res):
+    """Taps of one kernel row that a tensor-core weight-gradient block
+    takes: all 3 of a 3-wide stride-1 kernel without a residual, whose
+    output rows and the 2 columns its taps reach past them fit a block (one
+    box of x then serves the 3 taps, rewritten once); 1 otherwise."""
+    return 3 if kw == 3 and stride == 1 and not res \
+        and wo + kw - 1 <= _TC_ROWS else 1
+
+
+def dw_tc_box(n, ho, wo, kw, taps):
+    """The output box of a tensor-core weight-gradient block: :func:`tc_box`
+    for one tap; for a row of taps, whole output rows widened by the
+    ``kw - 1`` columns the taps reach past them (no output pixels there)."""
+    if taps == 1:
+        return tc_box(n, ho, wo)
+    bw = wo + kw - 1
+    return bw, min(ho, _TC_ROWS // bw), 1
+
+
+def dx_tc_taps(kw, stride, w):
+    """Taps of one kernel row a tensor-core dx step takes: all 3 of a
+    3-wide stride-1 kernel whose input rows and the 2 columns its taps
+    reach past them fit a block (one box of dy, folded once, serves the 3
+    taps); 1 otherwise."""
+    return 3 if kw == 3 and stride == 1 and w + kw - 1 <= _TC_ROWS else 1
+
+
+def dx_tc_box(n, h, w, kw, stride, taps):
+    """The box of input pixels of a tensor-core dx block: :func:`tc_box`
+    over a stride phase for one tap; for a row of taps, whole rows widened
+    by the ``kw - 1`` columns the taps reach (no pixels of dx there)."""
+    if taps == 1:
+        return tc_box(n, -(-h // stride), -(-w // stride))
+    bw = w + kw - 1
+    return bw, min(h, _TC_ROWS // bw), 1
+
+
+def dx_tc_cols(n, h, w, ci, stride, taps=1):
+    """Input channels per tensor-core dx block: 128 where Ci is wider than
+    64, the grid still holds ``_TC_BLOCKS`` blocks and a step takes one
+    tap (three weight tiles of 128 would leave room for one block an SM),
+    else 64."""
+    if taps != 1:
+        return 64
+    blocks = stride * stride * _boxes(n, -(-h // stride), -(-w // stride))
+    return 128 if ci > 64 and blocks * -(-ci // 128) >= _TC_BLOCKS else 64
+
+
+def dw_splits(n, ho, wo, ci, co, kh, kw, route="simt", taps=1):
     """How many ranges the weight-gradient kernel cuts its N*Ho*Wo pixels
-    into: enough blocks to fill the card (about ``_DW_BLOCKS``), each range
-    at least 8 steps of 16 pixels."""
-    tiles = kh * kw * -(-ci // _TILE) * -(-co // _TILE)
-    steps = -(-n * ho * wo // _KSTEP)
-    return max(1, min(-(-_DW_BLOCKS // tiles), steps // 8))
+    into, each of whole steps, enough to fill the card. ``"simt"``: about
+    ``_DW_BLOCKS`` blocks of 64x64, each range at least 8 steps of 16
+    pixels. ``"tc"``: at most ``_TC_BLOCKS`` blocks of 64x64 (by ``taps``
+    taps) where the tiles allow (one wave of two blocks per SM: a second,
+    short wave would double the time), a step is a box of
+    :func:`dw_tc_box`, each range at least 4 boxes, and no range is
+    empty."""
+    tiles = kh * (kw // taps) * -(-ci // _TILE) * -(-co // _TILE)
+    if route == "simt":
+        steps = -(-n * ho * wo // _KSTEP)
+        return max(1, min(-(-_DW_BLOCKS // tiles), steps // 8))
+    boxes = _boxes(n, ho, wo, dw_tc_box(n, ho, wo, kw, taps))
+    want = max(1, min(_TC_BLOCKS // tiles, boxes // 4))
+    return -(-boxes // -(-boxes // want))
 
 
 def conv_bwd_dw(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
-                r=None, ar=None, br=None):
+                r=None, ar=None, br=None, route=None):
     """The weight-gradient kernel: dW in w's type. A CPU tensor takes
-    :func:`conv_bwd_dw_reference`; a CUDA tensor launches
-    ``csrc/conv_bwd.cu`` or raises."""
-    global conv_bwd_dw_launches
+    :func:`conv_bwd_dw_reference`; a CUDA tensor launches the kernel
+    :func:`conv_bwd_route` names (or ``route="simt"``) or raises."""
+    global conv_bwd_dw_launches, conv_bwd_dw_tc_launches
+    global conv_bwd_dw_simt_launches
     n, h, wd, ci, co, kh, kw, ho, wo = _backward_operands(
         x, w, y, dy, stride, pad)
+    route = _pick_route(x.dtype, ci, co, route)
     if _device_of(x) == "cpu":
         return conv_bwd_dw_reference(x, w, a, b, y, dy, ds, dss, stride, pad,
                                      relu, r, ar, br)
+    taps = dw_tc_taps(kw, stride, wo, r is not None) if route == "tc" else 1
     x = x.contiguous()
     w, y = w.contiguous(), y.contiguous()
     dy = _same("dy", dy.to(y.dtype), y)
@@ -375,14 +507,21 @@ def conv_bwd_dw(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
         raise ValueError("x, w, y and dy must share one type and device")
     a, b, r, ar, br = _prologue_operands(x, a, b, r, ar, br, ci)
     ds, dss = _vec("ds", ds, co, x.device), _vec("dss", dss, co, x.device)
-    splits = dw_splits(n, ho, wo, ci, co, kh, kw)
+    splits = dw_splits(n, ho, wo, ci, co, kh, kw, route, taps)
     dw = torch.empty_like(w)
     part = torch.empty(splits * kh * kw * ci * co, dtype=torch.float32,
                        device=x.device)
-    _run(_kernel("dw"), x, _ptr(x), _ptr(dy), _ptr(y), _ptr(a), _ptr(b),
-         _ptr(ds), _ptr(dss), _ptr(r), _ptr(ar), _ptr(br), _ptr(dw),
-         _ptr(part), splits, n, h, wd, ci, co, kh, kw, stride, pad, ho, wo,
-         int(bool(relu)), _DTYPE_CODE[x.dtype])
+    args = (_ptr(x), _ptr(dy), _ptr(y), _ptr(a), _ptr(b), _ptr(ds),
+            _ptr(dss), _ptr(r), _ptr(ar), _ptr(br), _ptr(dw), _ptr(part),
+            splits, n, h, wd, ci, co, kh, kw, stride, pad, ho, wo,
+            int(bool(relu)))
+    if route == "tc":
+        _run(_kernel("dw_tc"), x, *args, *dw_tc_box(n, ho, wo, kw, taps),
+             taps)
+        conv_bwd_dw_tc_launches += 1
+    else:
+        _run(_kernel("dw"), x, *args, _DTYPE_CODE[x.dtype])
+        conv_bwd_dw_simt_launches += 1
     conv_bwd_dw_launches += 1
     return dw
 

@@ -12,6 +12,11 @@ max(1, max|plain|), fp32 1e-4 (the kernels sum in another order than
 cuDNN), bf16 2e-2 (outputs rounded to bf16 on both sides, at times on the
 two sides of a rounding boundary); the fp32 per-channel sums and dW also
 by relative L2 error, 1e-4.
+
+The backward takes one of two kernel pairs (``fc.conv_bwd_route``): bf16
+with both widths multiples of 8 the tensor-core kernels
+(``csrc/conv_bwd_tc.cu``), everything else the SIMT kernels
+(``csrc/conv_bwd.cu``); each test below states which it reaches.
 """
 
 import numpy as np
@@ -35,6 +40,19 @@ CASES = [
     ("3x3_res_emit", 2, 6, 5, 16, 16, 3, 1, 1, "res"),
     ("5x5_s2_res_emit_odd", 2, 15, 15, 24, 40, 5, 2, 2, "res"),
     ("1x1_bottleneck_B4_28", 4, 28, 28, 256, 64, 1, 1, 0, "res"),
+    # bf16: a row of 3 taps per weight-gradient block over 13-pixel boxes
+    # (11 output columns + 2), 4 rows a box, the last box part empty
+    ("3x3_pro_odd_rows", 2, 9, 11, 16, 24, 3, 1, 1, "pro"),
+]
+# ResNet-50's widths at a small batch: bf16 takes the tensor-core kernels
+RESNET_CASES = [
+    ("3x3_64_56_pro", 2, 56, 56, 64, 64, 3, 1, 1, "pro"),
+    ("3x3_s2_128_28to14_pro", 2, 28, 28, 128, 128, 3, 2, 1, "pro"),
+    ("1x1_s2_512to1024_14to7_plain", 2, 14, 14, 512, 1024, 1, 2, 0,
+     "plain"),
+    ("1x1_256to64_28_join_emit", 2, 28, 28, 256, 64, 1, 1, 0, "res"),
+    ("3x3_512_7_pro_B4", 4, 7, 7, 512, 512, 3, 1, 1, "pro"),
+    ("1x1_2048to512_7_pro", 2, 7, 7, 2048, 512, 1, 1, 0, "pro"),
 ]
 
 
@@ -125,6 +143,66 @@ def test_kernels_match_plain_on_card(cuda_device, case, dtype):
             assert l2 <= L2_TOL, f"{name}: relative L2 {l2} > {L2_TOL}"
 
 
+def _route_launches():
+    return (fc.conv_bwd_dx_tc_launches, fc.conv_bwd_dw_tc_launches,
+            fc.conv_bwd_dx_simt_launches, fc.conv_bwd_dw_simt_launches)
+
+
+def _check_against_plain(t, case, dtype):
+    t["y"] = fc.fused_conv_reference(t["x"], t["w"], t.get("a"), t.get("b"),
+                                     case[7], case[8], True, t.get("r"),
+                                     t.get("ar"), t.get("br"))[0]
+    got = _run_all(t, case, True)
+    torch.cuda.synchronize()
+    want = _run_all(t, case, False)
+    for name in want:
+        if want[name] is None:
+            continue
+        assert torch.isfinite(got[name]).all(), name
+        err, _ = _err(got[name], want[name])
+        assert err <= TOLS[dtype], f"{name}: {err} > {TOLS[dtype]}"
+    return got
+
+
+@pytest.mark.parametrize("case", RESNET_CASES,
+                         ids=[c[0] for c in RESNET_CASES])
+def test_bf16_resnet_widths_take_the_tensor_cores(cuda_device, case):
+    """bf16 at ResNet-50's widths (a stride-2 3x3 and a 1x1/2 512->1024
+    among them) goes through the tensor-core K2 and K3 and matches the
+    plain versions."""
+    t = make_case(case, torch.bfloat16, cuda_device)
+    n0 = _route_launches()
+    _check_against_plain(t, case, torch.bfloat16)
+    assert _route_launches() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3])
+
+
+def test_bf16_tensor_core_kernels_repeat_bit_for_bit(cuda_device):
+    """The tensor-core K2 (partials, then the ordered column sum) and K3
+    (fp32 split planes, then the ordered split sum) use no atomics."""
+    for case in (RESNET_CASES[1], RESNET_CASES[3]):
+        t = make_case(case, torch.bfloat16, cuda_device)
+        t["y"] = fc.fused_conv_reference(
+            t["x"], t["w"], t.get("a"), t.get("b"), case[7], case[8], True,
+            t.get("r"), t.get("ar"), t.get("br"))[0]
+        n0 = _route_launches()
+        first, second = (_run_all(t, case, True) for _ in range(2))
+        assert _route_launches()[:2] == (n0[0] + 2, n0[1] + 2)
+        for name in first:
+            if first[name] is not None:
+                assert torch.equal(first[name], second[name]), name
+
+
+def test_ragged_bf16_widths_take_the_simt_kernels(cuda_device):
+    """Ci = 20 is no whole number of 16-byte rows: bf16 stays on the SIMT
+    kernels, and they still match."""
+    case = CASES[2]
+    assert fc.conv_bwd_route(torch.bfloat16, case[4], case[5]) == "simt"
+    t = make_case(case, torch.bfloat16, cuda_device)
+    n0 = _route_launches()
+    _check_against_plain(t, case, torch.bfloat16)
+    assert _route_launches() == (n0[0], n0[1], n0[2] + 1, n0[3] + 1)
+
+
 def test_padding_is_zero_after_the_prologue(cuda_device):
     """A padded tap contributes 0, not relu(b): with x = 0 and b > 0 every
     interior output of a 3x3 all-ones conv is 9*relu(b)*Ci, the corners
@@ -200,11 +278,21 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(bad, err, match):
 
 
 def test_weight_gradient_splits_fill_the_card_and_keep_whole_steps():
-    # ResNet-50 stage 1 at B=32: 1x1 64->64 over 100,352 pixels is one
-    # 64x64 tile, so the pixels are cut into 528 ranges of 12 steps
+    # SIMT (fp32 and ragged bf16). ResNet-50 stage 1 at B=32: 1x1 64->64
+    # over 100,352 pixels is one 64x64 tile, so the pixels are cut into
+    # 528 ranges of 12 steps
     assert fc.dw_splits(32, 56, 56, 64, 64, 1, 1) == 528
     # 3x3 512->512 at 7x7 is 576 tiles already: no split
     assert fc.dw_splits(32, 7, 7, 512, 512, 3, 3) == 1
     # a tiny conv is never cut below 8 steps of 16 pixels per range
     assert fc.dw_splits(1, 4, 4, 8, 8, 1, 1) == 1
     assert fc.dw_splits(1, 32, 32, 8, 8, 1, 1) == 8
+    # tensor cores: a step is a box of at most 64 pixels (one 56-pixel
+    # row at 56x56, so 1792 boxes at B=32), 264 blocks aimed for
+    assert fc.tc_box(32, 56, 56) == (56, 1, 1)
+    assert fc.dw_splits(32, 56, 56, 64, 64, 1, 1, "tc") == 256   # 7 each
+    assert fc.dw_splits(32, 7, 7, 512, 512, 3, 3, "tc") == 1
+    # a tiny conv is never cut below 4 boxes per range (32x32: 16 boxes
+    # of two 32-pixel rows)
+    assert fc.dw_splits(1, 4, 4, 8, 8, 1, 1, "tc") == 1
+    assert fc.dw_splits(1, 32, 32, 8, 8, 1, 1, "tc") == 4

@@ -157,7 +157,7 @@ def test_kernel_build_is_content_addressed():
     assert (_build.CSRC / "flash_fwd.cu").exists()
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
     assert set(_build.SOURCES) == {"flash_fwd", "flash_bwd", "fused_conv",
-                                   "conv_bwd"}
+                                   "conv_bwd", "conv_bwd_tc"}
     assert fa._fn is None or torch.cuda.is_available()
     assert fa._bwd_fns is None or torch.cuda.is_available()
     assert not fc._fns or torch.cuda.is_available()
@@ -165,8 +165,8 @@ def test_kernel_build_is_content_addressed():
 
 def test_kernel_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
     """The conv kernels include ``csrc/conv_common.cuh``: editing it must
-    rename both libraries (and leave the flash kernels' names alone, whose
-    hash covers the same headers)."""
+    rename their libraries (and the flash kernels' too, whose hash covers
+    the same headers)."""
     import shutil
 
     from incubator_mxnet_tpu_torch.ops import _build
@@ -320,9 +320,16 @@ def test_chip_smoke_resnet_phase_rehearses_on_the_cpu(monkeypatch):
         == (62, 40)
     assert out["oracle"]["worst"] <= cs.GRAD_RTOL and out["eval_err"] == 0
     assert out["learning_losses"][-1] < 0.95 * out["learning_losses"][0]
+    assert out["bf16_gate"]["worst"] <= cs.BF16_GRAD_RTOL
+    assert out["bf16_learning_losses"][-1] < \
+        0.95 * out["bf16_learning_losses"][0]
     zero = {k: 0 for k in cs.CONV_KERNELS}
-    assert windows == [(zero, (19, 1, 1)), (zero, (19, 2, 0)),
-                       (zero, (19, 20, 20))]
+    routes = {(k, r): 0 for k in cs.ROUTED for r in cs.ROUTES}
+    assert windows == [(zero, (19, 1, 1, routes, "simt")),
+                       (zero, (19, 2, 0)),
+                       (zero, (19, 12, 12, routes, "simt")),
+                       (zero, (19, 1, 1, routes, "tc")),
+                       (zero, (19, 18, 18, routes, "tc"))]
 
 
 def test_no_k7_launch_falls_back_to_a_plain_function():
