@@ -8,10 +8,10 @@ Phases (any failure raises, and the script exits non-zero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, started together), print ``tools/torch_ptxas_report.py
-   conv_bwd_tc`` (registers, spills, and the HGMMA and UTMALDG
-   instructions in the SASS of the bf16 tensor-core K2/K3: both must be
-   there, and no spill), and compile the rtc kernels of ``csrc/rtc/`` with
-   NVRTC;
+   fused_conv_tc conv_bwd_tc`` (registers, spills, and the HGMMA and
+   UTMALDG instructions in the SASS of the bf16 tensor-core K1/K2/K3: both
+   must be there, and no spill), and compile the rtc kernels of
+   ``csrc/rtc/`` with NVRTC;
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the shapes the serving and training paths give it, in fp32 and bf16
    (TF32 off), with its device time (CUDA-graph replay, inputs warm in L2),
@@ -44,26 +44,33 @@ Phases (any failure raises, and the script exits non-zero):
    model's path, with the same timings; the library call is cuDNN
    (``F.conv2d`` on channels-last tensors, and
    ``aten.convolution_backward`` for the input and the weight gradient).
-   Each K2/K3 row names its route (``fused_conv.conv_bwd_route``): every
-   bf16 row must take the tensor-core kernels (``csrc/conv_bwd_tc.cu``),
-   every fp32 row the SIMT kernels (``csrc/conv_bwd.cu``); a bf16 row also
-   times the SIMT kernel on the same inputs (``simt_ms``);
+   Each row names its route (``fused_conv.conv_route``): every bf16 row
+   must take the tensor-core kernels (``csrc/fused_conv_tc.cu``,
+   ``csrc/conv_bwd_tc.cu``), every fp32 row the SIMT kernels
+   (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``); a bf16 row also times
+   the SIMT kernel on the same inputs (``simt_ms``);
 7. ResNet phase: ``fused_resnet50_v1`` (1000 classes, 224x224 inputs,
    weights drawn from ``--seed``): the fp32 oracle of one training step at
    B=8 (loss and the 106 running statistics against the model with
    ``fused_conv_bn`` swapped for the autograd of its plain versions; the
    gradients of all 161 trainable tensors against the plain backward run
-   on K1's forward values, see ``resnet_oracle``); a learning check (fp32
+   on K1's forward values, see ``resnet_oracle``); the bf16 forward gate
+   at the net as drawn (cast to bf16 for it and restored after: one
+   training-mode forward at B=8 through the tensor-core K1 and through the
+   SIMT K1, each against an fp32 forward on the same bf16-rounded weights
+   and input, the tensor-core one no farther,
+   ``resnet_bf16_forward_gate``); a learning check (fp32
    ``SPMDTrainer``, SGD, one repeated batch); two eager ``gluon.Trainer``
    steps; eval logits at B=32, with the running statistics set to that
    batch's, against the plain swap and the training-mode forward; then,
    the net cast to bf16, the bf16 gradient gate (one step at B=8, the 161
    gradients through the tensor-core K2/K3 against their plain versions
    on K1's forward, ``resnet_bf16_gate``), a bf16 learning check, and the
-   bench row (B=128, ``SPMDTrainer`` SGD lr 0.1 momentum 0.9), timed, with
-   a ``torch.profiler`` breakdown of one step. K1 launches exactly 52
-   times per forward, K2 and K3 52 times per backward: every fp32
-   backward on the SIMT route, every bf16 one on the tensor-core route;
+   bench row
+   (B=128, ``SPMDTrainer`` SGD lr 0.1 momentum 0.9), timed, with a
+   ``torch.profiler`` breakdown of one step. K1 launches exactly 52 times
+   per forward, K2 and K3 52 times per backward: every fp32 pass on the
+   SIMT route, every bf16 one on the tensor-core route;
 8. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
    kernels (K7, ``csrc/rtc/*.cu``, compiled by NVRTC in the build step)
    run an ``mx.rtc`` program (``scale`` and ``saxpy`` over 163,037,184
@@ -84,18 +91,22 @@ Phases (any failure raises, and the script exits non-zero):
    ``invoke_op("fused_conv_bn")`` with gradients, equal to the direct
    calls bit for bit.
 
-The line before the last is the kernels' JSON record (K1 to K7; K2 and
-K3 once per route, ``conv_bwd_dx``/``conv_bwd_dw`` the SIMT kernels at the
-fp32 head case, ``conv_bwd_dx_tc``/``conv_bwd_dw_tc`` the tensor-core
-kernels at the bf16 head case); the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 2
+The line before the last is the kernels' JSON record (K1 to K7; K1, K2 and
+K3 once per route, ``fused_conv``/``conv_bwd_dx``/``conv_bwd_dw`` the SIMT
+kernels at the fp32 head case, ``fused_conv_tc``/``conv_bwd_dx_tc``/
+``conv_bwd_dw_tc`` the tensor-core kernels at the bf16 head case); the last
+line is
+``{"ok": true, "device": {...}}``. Without a CUDA card, or run alone without
+the repository beside it (the port does not import), the script exits 2
 before printing any result.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
+import importlib.util
 import json
 import math
 import re
@@ -790,9 +801,10 @@ CONV_CASES = [
 ]
 CONV_HEAD = "3x3_64to64_56_pro"
 CONV_KERNELS = ("fused_conv", "conv_bwd_dx", "conv_bwd_dw")
-# the backward kernels' routes (ops/fused_conv.conv_bwd_route): "tc" the
-# bf16 tensor-core kernels (csrc/conv_bwd_tc.cu), "simt" csrc/conv_bwd.cu
-ROUTED = ("conv_bwd_dx", "conv_bwd_dw")
+# the conv kernels' routes (ops/fused_conv.conv_route): "tc" the bf16
+# tensor-core kernels (csrc/fused_conv_tc.cu, csrc/conv_bwd_tc.cu), "simt"
+# csrc/fused_conv.cu and csrc/conv_bwd.cu
+ROUTED = ("fused_conv", "conv_bwd_dx", "conv_bwd_dw")
 ROUTES = ("tc", "simt")
 # fp32 per-channel sums and dW: relative L2 error, kernels vs plain
 CONV_L2_TOL = 1e-4
@@ -877,7 +889,7 @@ def _conv_errs(names, got, want, dtype):
 
 
 def _route_launches():
-    """{(kernel, route): launches} of the two backward kernels."""
+    """{(kernel, route): launches} of the three conv kernels."""
     from incubator_mxnet_tpu_torch.ops import fused_conv as fc
 
     return {(k, r): getattr(fc, f"{k}_{r}_launches") for k in ROUTED
@@ -952,6 +964,8 @@ def conv_kernel_phase(seed):
             # the SIMT kernels on the same inputs, timed beside the
             # route the rule takes
             simt = {
+                "fused_conv": lambda: fc.fused_conv(
+                    *fargs, emit=res, route="simt", **rkw),
                 "conv_bwd_dx": lambda: fc.conv_bwd_dx(
                     *bargs, g=t.get("g"), route="simt", **rkw),
                 "conv_bwd_dw": lambda: fc.conv_bwd_dw(*bargs, route="simt",
@@ -1094,7 +1108,7 @@ def _reset_conv_launches():
 def _check_launches(label, got, per_pass, forwards, backwards, routes=None,
                     route=None):
     """The window's launches against ``per_pass`` per forward and per
-    backward; with ``route``, every backward launch in ``routes`` (from
+    backward; with ``route``, every launch in ``routes`` (from
     ``_route_launches``) took that route."""
     want = {"fused_conv": per_pass * forwards,
             "conv_bwd_dx": per_pass * backwards,
@@ -1283,10 +1297,132 @@ def resnet_bf16_gate(net, ce, x, y):
                 worst_autograd=worst_auto[0], n_trainable=len(names))
 
 
-CONV_TAGS = ("fused_conv_fwd_kernel", "conv_bwd_dx_kernel",
-             "conv_bwd_dw_kernel", "conv_bwd_dx_tc_kernel",
-             "conv_bwd_dw_tc_kernel", "column_sum_kernel",
-             "split_sum_kernel", "join_emit_kernel")
+# The bf16 forward gate: the tensor-core K1's distance from the fp32
+# forward over the SIMT K1's, held for the logits (relative L2) and the
+# running statistics (worst), each at most 1 + FWD_GATE_SLACK. Both kernels
+# round x_pro and y to bf16 at the same places and differ in how their fp32
+# sums round, which flips a bf16 rounding now and then; 52 layers carry
+# the flips on. At the net as drawn the logits' ratio lay in 0.984-1.005
+# over eleven batches on an H100 and the statistics' at 1.000, while a
+# kernel that lost precision or summed the wrong rows would be farther by
+# multiples. After fp32 training steps the same ratio spread over
+# 0.91-1.22 (six batches), too wide to hold anything by, so the gate runs
+# at the net as drawn. The loss is printed, not held: one scalar whose two
+# distances differ by a ratio of 0.16 to 2.95 between batches.
+FWD_GATE_HELD = ("logits", "stats")
+FWD_GATE_SLACK = 0.05
+
+
+class force_conv_route:
+    """``with force_conv_route(route):`` every ``fused_conv`` call (K1)
+    names ``route`` (None: the rule's); the swap is made here, for the
+    forward gate only."""
+
+    def __init__(self, route):
+        self._route = route
+
+    def __enter__(self):
+        from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+        self._saved = fc.fused_conv
+        if self._route is not None:
+            fc.fused_conv = functools.partial(self._saved, route=self._route)
+        return self
+
+    def __exit__(self, *exc):
+        from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+        fc.fused_conv = self._saved
+
+
+def bf16_forward_distances(net, ce, x, y):
+    """One training-mode forward of the bf16 net (batch statistics; the
+    running statistics move) from one state, three times: through the
+    tensor-core K1 (the route the rule takes); through the SIMT K1
+    (``route="simt"``) on the same inputs; and in fp32, the net cast up
+    (the same bf16-rounded weights, running statistics and input; the SIMT
+    K1 in fp32). Each bf16 forward's distance from the fp32 one: the loss
+    (relative), the logits (relative L2) and the running statistics after
+    the forward (the worst max abs error over max(1, max|fp32|)). The state
+    is restored after each run. Returns ``{"tc": {...}, "simt": {...}}``
+    and the number of running statistics."""
+    import incubator_mxnet_tpu_torch as mx
+
+    per_pass = convs_per_pass(net)
+    start = _frozen(net)
+
+    def run(label, route=None, fp32=False):
+        with torch.no_grad():
+            for n, p in net.named_parameters():
+                if n in start:
+                    p.copy_(start[n])
+        _reset_conv_launches()
+        if fp32:
+            net.cast("float32")
+        try:
+            with torch.no_grad(), mx.autograd.train_mode(), \
+                    force_conv_route(route):
+                logits = net(x.float() if fp32 else x).float()
+                loss = float(ce(logits, y).mean())
+            stats = {n: v.float() for n, v in _frozen(net).items()}
+        finally:
+            if fp32:
+                net.cast("bfloat16")
+        _check_launches(f"bf16 forward gate ({label})", _conv_launches(),
+                        per_pass, 1, 0, _route_launches(),
+                        "simt" if fp32 or route == "simt" else "tc")
+        return loss, logits, stats
+
+    ref_loss, ref_logits, ref_stats = run("fp32", fp32=True)
+    dist = {}
+    for route in ("tc", "simt"):
+        loss, logits, stats = run(route, None if route == "tc" else route)
+        worst_stat = max(
+            (v - ref_stats[n]).abs().max().item()
+            / max(1.0, ref_stats[n].abs().max().item())
+            for n, v in stats.items())
+        dist[route] = dict(loss=abs(loss - ref_loss) / abs(ref_loss),
+                           logits=_rel_l2(logits, ref_logits),
+                           stats=worst_stat)
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            if n in start:
+                p.copy_(start[n])
+    return dist, len(ref_stats)
+
+
+def resnet_bf16_forward_gate(net, ce, x, y):
+    """The bf16 forward gate: ``bf16_forward_distances`` on one batch; the
+    tensor-core K1's distances over the SIMT K1's are printed and held as
+    ``FWD_GATE_HELD`` and ``FWD_GATE_SLACK`` say. Returns both distances
+    and the ratios."""
+    dist, n_stats = bf16_forward_distances(net, ce, x, y)
+    ratio = {k: dist["tc"][k] / max(dist["simt"][k], 1e-30)
+             for k in dist["tc"]}
+    held = {k: ratio[k] for k in FWD_GATE_HELD}
+    print(f"bf16 forward gate (B={x.shape[0]}, training mode, "
+          f"{n_stats} running statistics): distance from the fp32 "
+          f"forward on the same bf16-rounded inputs, tensor-core K1 "
+          + ", ".join(f"{k} {v:.4e}" for k, v in dist["tc"].items())
+          + "; the SIMT K1 "
+          + ", ".join(f"{k} {v:.4e}" for k, v in dist["simt"].items())
+          + "; ratio " + ", ".join(f"{k} {v:.4f}" for k, v in ratio.items())
+          + f" (held: {', '.join(FWD_GATE_HELD)} <= "
+          f"{1 + FWD_GATE_SLACK:g}; the loss printed)", flush=True)
+    if not all(math.isfinite(v) and v <= 1 + FWD_GATE_SLACK
+               for v in held.values()):
+        raise AssertionError(f"bf16 forward gate: the tensor-core K1 is "
+                             f"farther from the fp32 forward than the SIMT "
+                             f"K1: ratios {held}")
+    return dict(tc=dist["tc"], simt=dist["simt"], ratio=ratio,
+                n_running_stats=n_stats)
+
+
+CONV_TAGS = ("fused_conv_fwd_kernel", "fused_conv_tc_kernel",
+             "conv_bwd_dx_kernel", "conv_bwd_dw_kernel",
+             "conv_bwd_dx_tc_kernel", "conv_bwd_dw_tc_kernel",
+             "column_sum_kernel", "column_sums_kernel", "split_sum_kernel",
+             "split_finish_kernel", "join_emit_kernel")
 
 
 # batch sizes of the ResNet phase: eval, gradient oracle, learning check
@@ -1318,6 +1454,24 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
     # the fp32 gradient oracle
     x, y = batch(b_oracle)
     oracle = resnet_oracle(net, ce, x, y)
+
+    # the bf16 forward gate, at the net as drawn (see FWD_GATE_SLACK): the
+    # net cast to bf16 for it, then cast back and its fp32 values restored;
+    # its batch comes from a generator of its own, so nothing after it moves
+    fp32_values = {n: p.detach().clone() for n, p in net.named_parameters()}
+    net.cast("bfloat16")
+    gate_gen = torch.Generator(device=dev)
+    gate_gen.manual_seed(seed + 41)
+    xg = torch.rand((b_oracle, 3, hw, hw), generator=gate_gen, device=dev)
+    yg = torch.randint(0, classes, (b_oracle,), generator=gate_gen,
+                       device=dev)
+    fwd_gate = resnet_bf16_forward_gate(net, ce, xg.to(torch.bfloat16),
+                                        yg.float())
+    net.cast("float32")
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            p.copy_(fp32_values[n])
+    del fp32_values, xg, yg
 
     # the training path, counted in two windows (the eval check between
     # them is counted on its own)
@@ -1373,7 +1527,7 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
             m._momentum = v
     with mx.autograd.pause():
         logits = net(x)
-    eval_launches = _conv_launches()
+    eval_launches, eval_routes = _conv_launches(), _route_launches()
     with mx.autograd.pause(), swap_convs(_plain_fused_conv_bn):
         want = net(x)
     torch.cuda.synchronize()
@@ -1388,7 +1542,8 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
             or max(eval_err, self_err) > TOLS[torch.float32]:
         raise AssertionError("eval logits disagree with the plain path or "
                              "with the training-mode forward")
-    _check_launches("eval", eval_launches, per_pass, 2, 0)
+    _check_launches("eval", eval_launches, per_pass, 2, 0, eval_routes,
+                    "simt")
     _check_launches("fp32 training path (SPMDTrainer, gluon.Trainer)",
                     first, per_pass, passes, passes, first_routes, "simt")
 
@@ -1455,10 +1610,12 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
     launches = {k: first[k] + second[k] for k in CONV_KERNELS}
     routes = {k: first_routes[k] + second_routes[k] for k in first_routes}
     return dict(launches=launches, routes=routes,
-                eval_launches=eval_launches, per_pass=per_pass,
+                eval_launches=eval_launches, eval_routes=eval_routes,
+                per_pass=per_pass,
                 passes=passes + bf16_passes, bf16_passes=bf16_passes,
                 oracle=oracle, learning_losses=losses, eval_err=eval_err,
-                bf16_gate=bf16_gate, bf16_learning_losses=bf16_learning,
+                bf16_fwd_gate=fwd_gate, bf16_gate=bf16_gate,
+                bf16_learning_losses=bf16_learning,
                 bench=bench, profile=rows[:16])
 
 
@@ -1909,26 +2066,29 @@ def _entry(name, source, replaces, launches, cases, head_case,
     return entry
 
 
-# the bf16 backward kernels, which must run on the tensor cores and load
-# through TMA
-TC_KERNELS = ("conv_bwd_dx_tc_kernel", "conv_bwd_dw_tc_kernel")
+# the bf16 conv kernels, which must run on the tensor cores and load
+# through TMA, and their sources
+TC_KERNELS = ("fused_conv_tc_kernel", "conv_bwd_dx_tc_kernel",
+              "conv_bwd_dw_tc_kernel")
+TC_SOURCES = ("fused_conv_tc", "conv_bwd_tc")
 
 
 def tensor_core_sass():
-    """``tools/torch_ptxas_report.py conv_bwd_tc``, printed: registers,
-    spills, and the HGMMA (wgmma) and UTMALDG (TMA) instructions in each
-    tensor-core kernel's SASS; raises unless every instantiation has
-    both and none spills."""
+    """``tools/torch_ptxas_report.py fused_conv_tc conv_bwd_tc``, printed:
+    registers, spills, and the HGMMA (wgmma) and UTMALDG (TMA)
+    instructions in each tensor-core kernel's SASS; raises unless every
+    instantiation has both and none spills."""
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, str(Path(__file__).resolve().parent / "tools"
-                             / "torch_ptxas_report.py"), "conv_bwd_tc"],
+                             / "torch_ptxas_report.py"), *TC_SOURCES],
         capture_output=True, text=True, timeout=300, check=True).stdout
     print(out.rstrip(), flush=True)
     rows = [ln for ln in out.splitlines()
             if any(k in ln for k in TC_KERNELS) and "Used" in ln]
-    if not rows or any(" HGMMA 0" in ln or "UTMALDG 0" in ln
-                       or "SASS" not in ln for ln in rows):
+    if {k for k in TC_KERNELS if any(k in ln for ln in rows)} \
+            != set(TC_KERNELS) or any(" HGMMA 0" in ln or "UTMALDG 0" in ln
+                                      or "SASS" not in ln for ln in rows):
         raise AssertionError("a tensor-core kernel without HGMMA or "
                              "UTMALDG in its SASS")
     spills = [ln for ln in out.splitlines()
@@ -1947,6 +2107,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if importlib.util.find_spec("incubator_mxnet_tpu_torch") is None:
+        # the script alone, without the repository beside it
+        print("chip_smoke: the port (incubator_mxnet_tpu_torch) is not "
+              "importable: run the script from the root of the repository",
+              file=sys.stderr)
         return 2
     from incubator_mxnet_tpu_torch.ops import _build
     from incubator_mxnet_tpu_torch.ops import rtc_kernels as rk
@@ -1992,20 +2158,15 @@ def main(argv=None) -> int:
         for name, line in (("flash_bwd_dq", "209"),
                            ("flash_bwd_dkv", "267"))]}
     conv_ref = "incubator_mxnet_tpu/ops/pallas_conv.py:"
-    entry = _entry("fused_conv", src + "fused_conv.cu", conv_ref + "222",
-                   resnet["launches"]["fused_conv"],
-                   [r for r in conv if r["kernel"] == "fused_conv"],
-                   CONV_HEAD)
-    entry["launches_by_path"] = {
-        "resnet_train": resnet["launches"]["fused_conv"],
-        "resnet_eval": resnet["eval_launches"]["fused_conv"]}
-    record["kernels"].append(entry)
-    # K2 and K3 by route: the SIMT kernels carry fp32 (the oracle, the
-    # fp32 training steps), the tensor-core kernels bf16 (the gate, the
-    # bf16 learning check and the bench row)
-    for name, line in (("conv_bwd_dx", "553"), ("conv_bwd_dw", "780")):
-        for route, source, dtype in (("simt", "conv_bwd.cu", "fp32"),
-                                     ("tc", "conv_bwd_tc.cu", "bf16")):
+    # K1, K2 and K3 by route: the SIMT kernels carry fp32 (the oracle, the
+    # fp32 training steps, eval), the tensor-core kernels bf16 (the gates,
+    # the bf16 learning check and the bench row)
+    for name, line, sources in (
+            ("fused_conv", "222", ("fused_conv.cu", "fused_conv_tc.cu")),
+            ("conv_bwd_dx", "553", ("conv_bwd.cu", "conv_bwd_tc.cu")),
+            ("conv_bwd_dw", "780", ("conv_bwd.cu", "conv_bwd_tc.cu"))):
+        for route, source, dtype in (("simt", sources[0], "fp32"),
+                                     ("tc", sources[1], "bf16")):
             entry = _entry(name if route == "simt" else f"{name}_tc",
                            src + source, conv_ref + line,
                            resnet["routes"][name, route],
@@ -2017,6 +2178,9 @@ def main(argv=None) -> int:
                     if r["case"] == CONV_HEAD)
             entry["launches_by_path"] = {"resnet_train":
                                          resnet["routes"][name, route]}
+            if name == "fused_conv":
+                entry["launches_by_path"]["resnet_eval"] = \
+                    resnet["eval_routes"][name, route]
             record["kernels"].append(entry)
     rows = imperative["rows"]
     head = rows[RTC_HEAD]

@@ -1,8 +1,10 @@
 // Pieces shared by the fused conv+BatchNorm kernels (fused_conv.cu: K1,
 // conv_bwd.cu: K2 and K3): element access in fp32 or bf16, the 64x64
-// register-blocked product of two shared-memory tiles, and the
-// deterministic reductions of per-block partial sums (conv_bwd_tc.cu, the
-// bf16 tensor-core K2 and K3, shares the arithmetic and the reductions).
+// register-blocked product of two shared-memory tiles, the deterministic
+// reductions of per-block partial sums, and the elementwise pass that
+// emits the joined activation (the bf16 tensor-core kernels,
+// conv_bwd_tc.cu and fused_conv_tc.cu, share the arithmetic, the
+// reductions and that pass).
 //
 // Arithmetic that the TPU kernels do in fp32 and then round (the BatchNorm
 // prologue, the folding of the statistics cotangents) is written with
@@ -111,6 +113,49 @@ inline void column_sum(const float* part, int rows, int cols, float* out,
       part, rows, cols, out);
 }
 
+// The column sums of up to three consecutive planes of rows x cols
+// partials in one launch (plane blockIdx.y into o0, o1, o2; a null output
+// skips its plane), for the tensor-core kernels, whose partials run to
+// thousands of rows: each thread keeps four running sums over every 128th
+// row (four loads in flight, not one), added in a fixed order, so the
+// result repeats bit for bit.
+__global__ void column_sums_kernel(const float* __restrict__ part, int rows,
+                                   int cols, float* o0, float* o1,
+                                   float* o2) {
+  float* out = blockIdx.y == 0 ? o0 : blockIdx.y == 1 ? o1 : o2;
+  if (out == nullptr) return;  // uniform over the block
+  __shared__ float sm[32][33];
+  const float* plane = part + (long long)blockIdx.y * rows * cols;
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f, t3 = 0.0f;
+  if (c < cols) {
+    int r = threadIdx.y;
+    for (; r + 96 < rows; r += 128) {
+      t0 += plane[(long long)r * cols + c];
+      t1 += plane[(long long)(r + 32) * cols + c];
+      t2 += plane[(long long)(r + 64) * cols + c];
+      t3 += plane[(long long)(r + 96) * cols + c];
+    }
+    for (; r < rows; r += 32) t0 += plane[(long long)r * cols + c];
+  }
+  const float t = (t0 + t1) + (t2 + t3);
+  sm[threadIdx.y][threadIdx.x] = t;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < cols) {
+    float u = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) u += sm[k][threadIdx.x];
+    out[c] = u;
+  }
+}
+
+inline void column_sums(const float* part, int planes, int rows, int cols,
+                        float* o0, float* o1, float* o2,
+                        cudaStream_t stream) {
+  column_sums_kernel<<<dim3((cols + 31) / 32, planes), dim3(32, 32), 0,
+                       stream>>>(part, rows, cols, o0, o1, o2);
+}
+
 // dw[c] = sum over the splits of part[z, c], in order, cast to w's type.
 template <typename T>
 __global__ void split_sum_kernel(const float* __restrict__ part, int splits,
@@ -120,6 +165,30 @@ __global__ void split_sum_kernel(const float* __restrict__ part, int splits,
     float t = 0.0f;
     for (int z = 0; z < splits; ++z) t += part[z * cols + c];
     Elem<T>::st(dw + c, t);
+  }
+}
+
+// xp = relu(a*x + b [+ ar*r + br]) rounded to x's type, elementwise: the
+// emitted activation for shapes whose rows are not x's pixels.
+template <typename T>
+__global__ void join_emit_kernel(const T* __restrict__ x,
+                                 const float* __restrict__ a,
+                                 const float* __restrict__ b,
+                                 const T* __restrict__ r,
+                                 const float* __restrict__ ar,
+                                 const float* __restrict__ br,
+                                 T* __restrict__ xp, long long total, int ci_n,
+                                 int relu) {
+  const bool has_pro = a != nullptr, has_res = r != nullptr;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const int ci = (int)(i % ci_n);
+    float v = prologue_lin(Elem<T>::ld(x + i), has_pro ? a[ci] : 1.0f,
+                           has_pro ? b[ci] : 0.0f, has_res,
+                           has_res ? Elem<T>::ld(r + i) : 0.0f,
+                           has_res ? ar[ci] : 0.0f, has_res ? br[ci] : 0.0f);
+    if (relu) v = v > 0.0f ? v : 0.0f;
+    Elem<T>::st(xp + i, v);
   }
 }
 

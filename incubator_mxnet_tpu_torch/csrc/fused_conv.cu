@@ -30,8 +30,9 @@
 //
 // What bounds it: at ResNet-50's shapes the work is 2*M*N*K FLOPs against
 // a few bytes per FLOP, so the bound is the card's arithmetic; these are
-// scalar fp32 FMAs (67 TFLOP/s peak), not tensor cores. wgmma with TMA
-// staging is the follow-up.
+// scalar fp32 FMAs (67 TFLOP/s peak), not tensor cores. It serves fp32 and
+// bf16 widths that are no multiple of 8; the rest of bf16 goes to the
+// tensor-core fused_conv_tc.cu (ops/fused_conv.py's conv_route).
 
 #include "conv_common.cuh"
 
@@ -177,30 +178,6 @@ fused_conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int k = 0; k < 16; ++k) t += red[which][k][c];
     if (col < sh.Co)
       (which ? part_ss : part_s)[(long long)blockIdx.x * sh.Co + col] = t;
-  }
-}
-
-// xp = relu(a*x + b [+ ar*r + br]) rounded to x's type, elementwise: the
-// emitted activation for shapes whose rows are not x's pixels.
-template <typename T>
-__global__ void join_emit_kernel(const T* __restrict__ x,
-                                 const float* __restrict__ a,
-                                 const float* __restrict__ b,
-                                 const T* __restrict__ r,
-                                 const float* __restrict__ ar,
-                                 const float* __restrict__ br,
-                                 T* __restrict__ xp, long long total, int ci_n,
-                                 int relu) {
-  const bool has_pro = a != nullptr, has_res = r != nullptr;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const int ci = (int)(i % ci_n);
-    float v = prologue_lin(Elem<T>::ld(x + i), has_pro ? a[ci] : 1.0f,
-                           has_pro ? b[ci] : 0.0f, has_res,
-                           has_res ? Elem<T>::ld(r + i) : 0.0f,
-                           has_res ? ar[ci] : 0.0f, has_res ? br[ci] : 0.0f);
-    if (relu) v = v > 0.0f ? v : 0.0f;
-    Elem<T>::st(xp + i, v);
   }
 }
 

@@ -45,12 +45,16 @@ class Block(torch.nn.Module):
         super().__init__()
         self.training = False
 
-    def _declare(self, name: str, shape, grad_req: str = "write") -> None:
+    def _declare(self, name: str, shape, grad_req: str = "write",
+                 init=None) -> None:
         """Declare a float32 parameter ``name`` of ``shape`` (uninitialized,
         on the meta device). ``grad_req="null"`` declares state that no
         gradient reaches (BatchNorm running statistics): the parameter has
         ``requires_grad=False``, as a JAX ``params.get(...,
-        grad_req="null")``, and trainers leave it out of their updates."""
+        grad_req="null")``, and trainers leave it out of their updates.
+        ``init`` (an initializer or its name) is the parameter's own, which
+        :meth:`initialize` prefers to its global one, as
+        ``params.get(..., init=...)`` in the JAX package."""
         if grad_req not in ("write", "null"):
             raise ValueError(f"grad_req {grad_req!r}: 'write' or 'null'")
         p = torch.nn.Parameter(
@@ -58,6 +62,8 @@ class Block(torch.nn.Module):
             requires_grad=grad_req == "write")
         if grad_req == "null":
             p.grad_req = "null"
+        if init is not None:
+            p.init = init
         self.register_parameter(name, p)
 
     def __call__(self, *args, **kwargs):
@@ -84,12 +90,16 @@ class Block(torch.nn.Module):
         new.__dict__.update(old.__dict__)    # grad_req, lr_mult, wd_mult
         mod._parameters[leaf] = new
 
-    def initialize(self, init="xavier", ctx: Optional[Context] = None):
-        """Draw every parameter with ``init`` (an initializer or its name)
-        on ``ctx`` (default ``gpu(0)``); returns ``self``."""
+    def initialize(self, init=None, ctx: Optional[Context] = None):
+        """Draw every parameter on ``ctx`` (default ``gpu(0)``) with its
+        own initializer (``_declare``'s ``init``) if it has one, else with
+        ``init`` (an initializer or its name; None is ``"uniform"``,
+        ``Uniform(0.07)``, as in MXNet); returns ``self``."""
         dev = resolve(ctx)
-        initer = _init.create(init)
+        default = _init.create(init)
         for name, p in list(self.named_parameters()):
+            own = getattr(p, "init", None)
+            initer = default if own is None else _init.create(own)
             arr = initer(name, p.shape)
             self.set_param(name, torch.from_numpy(arr).to(dev))
         return self

@@ -188,15 +188,19 @@ class FusedBottleneckV1(Block):
         self._stride = stride
         self._eps = epsilon
         self._momentum = momentum
-        self._declare("conv1_weight", (1, 1, in_channels, c4))
+        self._declare("conv1_weight", (1, 1, in_channels, c4),
+                      init="xavier")
         self.bn1 = _BNParams(self, "bn1", c4)
-        self._declare("conv2_weight", (3, 3, c4, c4))
+        self._declare("conv2_weight", (3, 3, c4, c4),
+                      init="xavier")
         self.bn2 = _BNParams(self, "bn2", c4)
-        self._declare("conv3_weight", (1, 1, c4, channels))
+        self._declare("conv3_weight", (1, 1, c4, channels),
+                      init="xavier")
         self.bn3 = _BNParams(self, "bn3", channels)
         self.bnd = None
         if downsample:
-            self._declare("convd_weight", (1, 1, in_channels, channels))
+            self._declare("convd_weight", (1, 1, in_channels, channels),
+                          init="xavier")
             self.bnd = _BNParams(self, "bnd", channels)
 
     def forward(self, x):
@@ -234,7 +238,8 @@ class FusedResNetV1(Block):
         super().__init__()
         self._eps = epsilon
         self._momentum = momentum
-        self._declare("conv0_weight", (7, 7, 3, channels[0]))
+        self._declare("conv0_weight", (7, 7, 3, channels[0]),
+                      init="xavier")
         self.bn0 = _BNParams(self, "bn0", channels[0])
         self.stages = HybridSequential()
         for i, num_layer in enumerate(layers):

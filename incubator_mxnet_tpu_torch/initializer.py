@@ -1,7 +1,9 @@
 """Weight initializers.
 
 Counterpart of the JAX package's ``initializer.py``, cut to what the
-ported models use: ``zeros``, ``ones`` and ``xavier``, with the reference's
+ported models use: ``zeros``, ``ones``, ``uniform`` (the default:
+``create(None)`` is ``Uniform(0.07)``, as in MXNet) and ``xavier``, with
+the reference's
 name-pattern dispatch (names ending in ``bias``/``beta`` or in
 ``running_mean``/``moving_mean`` take zeros; ``gamma`` and
 ``running_var``/``moving_var`` take ones). Values are drawn with numpy
@@ -29,6 +31,8 @@ def register(name):
 def create(spec) -> "Initializer":
     if isinstance(spec, Initializer):
         return spec
+    if spec is None:
+        return Uniform(0.07)
     if isinstance(spec, str):
         name = spec.lower()
         if name not in _REGISTRY:
@@ -63,6 +67,18 @@ class Zero(Initializer):
 class One(Initializer):
     def _init_weight(self, name, shape):
         return np.ones(shape, np.float32)
+
+
+@register("uniform")
+class Uniform(Initializer):
+    """Weights uniform on ``[-scale, scale]``."""
+
+    def __init__(self, scale=0.07):
+        self.scale = scale
+
+    def _init_weight(self, name, shape):
+        rng = np.random.default_rng(_random.next_seed())
+        return rng.uniform(-self.scale, self.scale, shape).astype(np.float32)
 
 
 def _fan(shape, factor_type):

@@ -10,15 +10,15 @@ prologue on the input; the conv's own per-channel ``sum`` and ``sumsq``
 come out of its epilogue, to be folded by :func:`bn_scale_shift` into the
 next call's prologue.
 
-A CUDA tensor always launches the kernels: the forward in
-``csrc/fused_conv.cu`` (which replaces the TPU kernel
-``_fused_conv_kernel``, both of its stride-2 layouts in one kernel) and,
-for a gradient, the input-gradient and weight-gradient kernels
-(``_conv_bwd_dx_kernel``, ``_conv_bwd_dw_kernel``; stride 2 included,
-where the JAX package's default keeps XLA for dx). :func:`conv_bwd_route`
-picks them by type and widths: bf16 with Ci and Co multiples of 8 goes to
-the tensor-core kernels of ``csrc/conv_bwd_tc.cu`` (wgmma fed by TMA),
-everything else to ``csrc/conv_bwd.cu`` (scalar fp32 FMAs). A
+A CUDA tensor always launches the kernels: the forward (which replaces
+the TPU kernel ``_fused_conv_kernel``, both of its stride-2 layouts in one
+kernel) and, for a gradient, the input-gradient and weight-gradient
+kernels (``_conv_bwd_dx_kernel``, ``_conv_bwd_dw_kernel``; stride 2
+included, where the JAX package's default keeps XLA for dx).
+:func:`conv_route` picks all three by type and widths: bf16 with Ci and Co
+multiples of 8 goes to the tensor-core kernels of ``csrc/fused_conv_tc.cu``
+and ``csrc/conv_bwd_tc.cu`` (wgmma fed by TMA), everything else to
+``csrc/fused_conv.cu`` and ``csrc/conv_bwd.cu`` (scalar fp32 FMAs). A
 CPU tensor takes the plain versions, :func:`fused_conv_reference`,
 :func:`conv_bwd_dx_reference` and :func:`conv_bwd_dw_reference`, which
 follow the JAX package's ``_apply_prologue_host`` and ``_conv_raw`` with
@@ -50,9 +50,9 @@ from .registry import register
 __all__ = ["FusedConvEpiFunction", "FusedConvFunction", "apply_prologue",
            "bn_scale_shift", "conv_bwd_dw", "conv_bwd_dw_launches",
            "conv_bwd_dw_reference", "conv_bwd_dx", "conv_bwd_dx_launches",
-           "conv_bwd_dx_reference", "conv_bwd_route", "dw_splits",
+           "conv_bwd_dx_reference", "conv_route", "dw_splits",
            "dw_tc_box", "dw_tc_taps", "dx_tc_box", "dx_tc_cols",
-           "dx_tc_taps", "fused_conv",
+           "dx_tc_taps", "fused_conv", "fwd_tc_cols", "fwd_tc_splits",
            "tc_box",
            "fused_conv_bn", "fused_conv_launches", "fused_conv_reference",
            "join_defaults"]
@@ -63,7 +63,8 @@ __all__ = ["FusedConvEpiFunction", "FusedConvFunction", "apply_prologue",
 fused_conv_launches = 0
 conv_bwd_dx_launches = 0
 conv_bwd_dw_launches = 0
-#: the same launches by route (see :func:`conv_bwd_route`)
+#: the same launches by route (see :func:`conv_route`)
+fused_conv_tc_launches = fused_conv_simt_launches = 0
 conv_bwd_dx_tc_launches = conv_bwd_dx_simt_launches = 0
 conv_bwd_dw_tc_launches = conv_bwd_dw_simt_launches = 0
 
@@ -73,6 +74,7 @@ _KSTEP = 16         # pixels per step of the weight-gradient kernel
 _DW_BLOCKS = 528    # weight-gradient blocks to aim for: 4 per SM of an H100
 _TC_ROWS = 64       # pixels of a tensor-core block (one m64 wgmma)
 _TC_BLOCKS = 264    # tensor-core blocks to aim for: 2 per SM of an H100
+_SMS = 132          # streaming multiprocessors of an H100
 _fns = {}
 
 
@@ -190,6 +192,9 @@ def _kernel(name):
         if name == "fwd":
             fn = _build.load("fused_conv").mxtpu_fused_conv_fwd
             fn.argtypes = [p] * 12 + shape
+        elif name == "fwd_tc":       # relu, bw, bh, bn, cols, taps, splits
+            fn = _build.load("fused_conv_tc").mxtpu_fused_conv_tc
+            fn.argtypes = [p] * 13 + [i] * 18 + [p]
         elif name == "dx":
             fn = _build.load("conv_bwd").mxtpu_conv_bwd_dx
             fn.argtypes = [p] * 18 + shape
@@ -253,13 +258,19 @@ def _same(name, t, like):
 
 
 def _vec(name, t, c, dev):
-    """A per-channel operand as contiguous fp32 (c,) on ``dev``."""
+    """A per-channel operand as contiguous fp32 (c,) on ``dev``, 16-byte
+    aligned (the tensor-core kernels read it 8 channels a load)."""
     if t is None:
         return None
+    if isinstance(t, torch.Tensor) and t.dtype == torch.float32 \
+            and t.device == dev and t.shape == (c,) and t.is_contiguous() \
+            and t.data_ptr() % 16 == 0:
+        return t    # as the model passes them: no conversion to pay for
     t = torch.as_tensor(t)
     if t.shape != (c,):
         raise ValueError(f"{name} must be ({c},), got {tuple(t.shape)}")
-    return t.to(device=dev, dtype=torch.float32).contiguous()
+    t = t.to(device=dev, dtype=torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _ptr(t):
@@ -267,9 +278,12 @@ def _ptr(t):
 
 
 def _run(fn, x, *args):
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.device.index == torch.cuda.current_device():
         err = fn(*args, stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
@@ -287,14 +301,18 @@ def _prologue_operands(x, a, b, r, ar, br, ci):
 
 
 def fused_conv(x, w, a=None, b=None, stride=1, pad=0, relu=True, r=None,
-               ar=None, br=None, emit=False):
+               ar=None, br=None, emit=False, route=None):
     """The forward kernel: ``(y, sum, sumsq)`` (+ the prologue output when
     ``emit``). A CPU tensor takes :func:`fused_conv_reference`; a CUDA
-    tensor launches ``csrc/fused_conv.cu`` or raises."""
-    global fused_conv_launches
+    tensor launches the kernel :func:`conv_route` names (or
+    ``route="simt"``: ``csrc/fused_conv.cu`` whatever the type) or
+    raises."""
+    global fused_conv_launches, fused_conv_tc_launches
+    global fused_conv_simt_launches
     n, h, wd, ci, co, kh, kw, ho, wo = _geometry(x, w, stride, pad)
     if emit and r is None:
         raise ValueError("emit needs a resid operand")
+    route = _pick_route(x.dtype, ci, co, route)
     if _device_of(x) == "cpu":
         return fused_conv_reference(x, w, a, b, stride, pad, relu, r, ar, br,
                                     emit)
@@ -307,12 +325,28 @@ def fused_conv(x, w, a=None, b=None, stride=1, pad=0, relu=True, r=None,
     s = torch.empty(co, dtype=torch.float32, device=dev)
     ss = torch.empty(co, dtype=torch.float32, device=dev)
     xp = torch.empty_like(x) if emit else None
-    mtiles = -(-n * ho * wo // _TILE)
-    part = torch.empty(2 * mtiles * co, dtype=torch.float32, device=dev)
-    _run(_kernel("fwd"), x, _ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(r),
-         _ptr(ar), _ptr(br), _ptr(y), _ptr(s), _ptr(ss), _ptr(xp),
-         _ptr(part), n, h, wd, ci, co, kh, kw, stride, pad, ho, wo,
-         int(bool(relu)), _DTYPE_CODE[x.dtype])
+    ptrs = (_ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(r), _ptr(ar), _ptr(br),
+            _ptr(y), _ptr(s), _ptr(ss), _ptr(xp))
+    dims = (n, h, wd, ci, co, kh, kw, stride, pad, ho, wo, int(bool(relu)))
+    if route == "tc":
+        taps = dw_tc_taps(kw, stride, wo, r is not None)
+        box = dw_tc_box(n, ho, wo, kw, taps)
+        cols = fwd_tc_cols(co, taps)
+        splits = fwd_tc_splits(n, ho, wo, ci, co, kh, kw, taps, cols)
+        boxes = _boxes(n, ho, wo, box)
+        part = torch.empty(2 * boxes * co, dtype=torch.float32, device=dev)
+        part_y = torch.empty(splits * boxes * _TC_ROWS * co,
+                             dtype=torch.float32, device=dev) \
+            if splits > 1 else None
+        _run(_kernel("fwd_tc"), x, *ptrs, _ptr(part), _ptr(part_y), *dims,
+             *box, cols, taps, splits)
+        fused_conv_tc_launches += 1
+    else:
+        mtiles = -(-n * ho * wo // _TILE)
+        part = torch.empty(2 * mtiles * co, dtype=torch.float32, device=dev)
+        _run(_kernel("fwd"), x, *ptrs, _ptr(part), *dims,
+             _DTYPE_CODE[x.dtype])
+        fused_conv_simt_launches += 1
     fused_conv_launches += 1
     return (y, s, ss, xp) if emit else (y, s, ss)
 
@@ -331,7 +365,7 @@ def conv_bwd_dx(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
                 r=None, ar=None, br=None, g=None, route=None):
     """The input-gradient kernel: ``(dx, da, db)`` (+ ``dr, dar`` with a
     residual). A CPU tensor takes :func:`conv_bwd_dx_reference`; a CUDA
-    tensor launches the kernel :func:`conv_bwd_route` names (or
+    tensor launches the kernel :func:`conv_route` names (or
     ``route="simt"``: the SIMT kernel whatever the type) or raises."""
     global conv_bwd_dx_launches, conv_bwd_dx_tc_launches
     global conv_bwd_dx_simt_launches
@@ -379,23 +413,25 @@ def conv_bwd_dx(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
     return (dx, da, db, dr, dar) if r is not None else (dx, da, db)
 
 
-def conv_bwd_route(dtype, ci, co):
-    """Which backward kernels a conv takes on the card: ``"tc"`` (the
-    tensor-core kernels of ``csrc/conv_bwd_tc.cu``) for bf16 with ``ci``
-    and ``co`` multiples of 8, whose NHWC rows are whole 16-byte units as
-    TMA needs; ``"simt"`` (``csrc/conv_bwd.cu``) for everything else: fp32
-    (no tensor-core path keeps fp32 off TF32) and ragged bf16 widths."""
+def conv_route(dtype, ci, co):
+    """Which kernels a conv takes on the card, forward and backward alike:
+    ``"tc"`` (the tensor-core kernels of ``csrc/fused_conv_tc.cu`` and
+    ``csrc/conv_bwd_tc.cu``) for bf16 with ``ci`` and ``co`` multiples of
+    8, whose NHWC rows are whole 16-byte units as TMA needs; ``"simt"``
+    (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``) for everything else:
+    fp32 (no tensor-core path keeps fp32 off TF32) and ragged bf16
+    widths."""
     if dtype == torch.bfloat16 and ci % 8 == 0 and co % 8 == 0:
         return "tc"
     return "simt"
 
 
 def _pick_route(dtype, ci, co, route):
-    """:func:`conv_bwd_route`'s choice, or ``route`` where a caller names
+    """:func:`conv_route`'s choice, or ``route`` where a caller names
     one: ``"simt"`` takes any call (to time the SIMT kernels in bf16
     beside the tensor-core ones), ``"tc"`` only what the rule sends
     there."""
-    rule = conv_bwd_route(dtype, ci, co)
+    rule = conv_route(dtype, ci, co)
     if route is None or route == rule or route == "simt":
         return rule if route is None else route
     raise ValueError(f"route {route!r}: {dtype} with Ci={ci}, Co={co} "
@@ -421,18 +457,20 @@ def _boxes(n, h, w, box=None):
 
 
 def dw_tc_taps(kw, stride, wo, res):
-    """Taps of one kernel row that a tensor-core weight-gradient block
-    takes: all 3 of a 3-wide stride-1 kernel without a residual, whose
-    output rows and the 2 columns its taps reach past them fit a block (one
-    box of x then serves the 3 taps, rewritten once); 1 otherwise."""
+    """Taps of one kernel row that a tensor-core weight-gradient block, or
+    a step of a tensor-core forward block, takes: all 3 of a 3-wide
+    stride-1 kernel without a residual, whose output rows and the 2
+    columns its taps reach past them fit a block (one box of x then serves
+    the 3 taps, rewritten once); 1 otherwise."""
     return 3 if kw == 3 and stride == 1 and not res \
         and wo + kw - 1 <= _TC_ROWS else 1
 
 
 def dw_tc_box(n, ho, wo, kw, taps):
-    """The output box of a tensor-core weight-gradient block: :func:`tc_box`
-    for one tap; for a row of taps, whole output rows widened by the
-    ``kw - 1`` columns the taps reach past them (no output pixels there)."""
+    """The output box of a tensor-core weight-gradient or forward block:
+    :func:`tc_box` for one tap; for a row of taps, whole output rows
+    widened by the ``kw - 1`` columns the taps reach past them (no output
+    pixels there)."""
     if taps == 1:
         return tc_box(n, ho, wo)
     bw = wo + kw - 1
@@ -468,6 +506,33 @@ def dx_tc_cols(n, h, w, ci, stride, taps=1):
     return 128 if ci > 64 and blocks * -(-ci // 128) >= _TC_BLOCKS else 64
 
 
+def fwd_tc_cols(co, taps=1):
+    """Output channels per tensor-core forward block: 128 where Co is wider
+    than 64 and a step takes one tap (three weight tiles of 128 would leave
+    room for one block an SM), else 64. A block of 128 rewrites its x tile
+    once for twice the channels: on an H100 it was the faster at every
+    ResNet-50 shape tried, 7x7 grids of 128 blocks included (PERF.md)."""
+    return 128 if taps == 1 and co > 64 else 64
+
+
+def fwd_tc_splits(n, ho, wo, ci, co, kh, kw, taps=1, cols=64):
+    """How many ranges of whole steps (64 channels of one tap, or of a row
+    of taps) a tensor-core forward block's K is cut into: 1 unless the grid
+    (boxes by column blocks) would busy at most half the card's SMs at a
+    deep K (32 steps or more: Ci = 2048 at 1x1); then enough ranges of at
+    least 4 steps to come near ``_TC_BLOCKS`` blocks, none empty. The
+    ranges add up in fp32 planes, summed in order (no atomics). On an H100
+    a split was faster only there (1x1 2048->512 at 7x7, B=8); at 16 to 25
+    steps and at B=32 it was slower (PERF.md)."""
+    blocks = _boxes(n, ho, wo, dw_tc_box(n, ho, wo, kw, taps)) \
+        * -(-co // cols)
+    steps = kh * (kw // taps) * -(-ci // _TILE)
+    if blocks > _SMS // 2 or steps < 32:
+        return 1
+    want = max(1, min(_TC_BLOCKS // blocks, steps // 4))
+    return -(-steps // -(-steps // want))
+
+
 def dw_splits(n, ho, wo, ci, co, kh, kw, route="simt", taps=1):
     """How many ranges the weight-gradient kernel cuts its N*Ho*Wo pixels
     into, each of whole steps, enough to fill the card. ``"simt"``: about
@@ -490,7 +555,7 @@ def conv_bwd_dw(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
                 r=None, ar=None, br=None, route=None):
     """The weight-gradient kernel: dW in w's type. A CPU tensor takes
     :func:`conv_bwd_dw_reference`; a CUDA tensor launches the kernel
-    :func:`conv_bwd_route` names (or ``route="simt"``) or raises."""
+    :func:`conv_route` names (or ``route="simt"``) or raises."""
     global conv_bwd_dw_launches, conv_bwd_dw_tc_launches
     global conv_bwd_dw_simt_launches
     n, h, wd, ci, co, kh, kw, ho, wo = _backward_operands(

@@ -150,11 +150,14 @@ class Optimizer:
 
 @register
 class SGD(Optimizer):
-    """SGD with momentum: ``m = momentum*m - lr*(g + wd*w); w += m``."""
+    """SGD with momentum: ``m = momentum*m - lr*(g + wd*w); w += m``.
+    ``lazy_update`` (kept, default True as in MXNet) chooses how a sparse
+    gradient updates; a dense gradient updates the same either way."""
 
-    def __init__(self, momentum=0.0, **kwargs):
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -214,7 +217,12 @@ class _AdamBase(Optimizer):
 @register
 class Adam(_AdamBase):
     """Adam with MXNet's step: ``lr_t = lr*sqrt(1-b2^t)/(1-b1^t)``,
-    ``w -= lr_t * m / (sqrt(v) + eps)``, wd added to the gradient."""
+    ``w -= lr_t * m / (sqrt(v) + eps)``, wd added to the gradient.
+    ``lazy_update`` is kept as SGD keeps it (dense gradients only)."""
+
+    def __init__(self, lazy_update=True, **kwargs):
+        super().__init__(**kwargs)
+        self.lazy_update = lazy_update
 
     def step(self, weight, g, state, lr, wd, t):
         g.add_(weight, alpha=wd)

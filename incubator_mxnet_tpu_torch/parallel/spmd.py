@@ -56,8 +56,11 @@ def _to_torch_optim(optimizer, optimizer_params: Optional[dict], params):
         tx = torch.optim.SGD(params, lr=lr, momentum=p.pop("momentum", 0.0),
                              weight_decay=wd)
     elif name == "nag":
-        tx = torch.optim.SGD(params, lr=lr, momentum=p.pop("momentum", 0.9),
-                             nesterov=True, weight_decay=wd)
+        # optax.sgd(momentum=0, nesterov=True) is plain SGD; torch's SGD
+        # refuses nesterov without a momentum
+        mom = p.pop("momentum", 0.9)
+        tx = torch.optim.SGD(params, lr=lr, momentum=mom,
+                             nesterov=mom != 0, weight_decay=wd)
     elif name in ("adam", "adamw"):
         cls = torch.optim.Adam if name == "adam" else torch.optim.AdamW
         tx = cls(params, lr=lr, betas=(p.pop("beta1", 0.9),

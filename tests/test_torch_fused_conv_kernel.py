@@ -13,10 +13,11 @@ cuDNN), bf16 2e-2 (outputs rounded to bf16 on both sides, at times on the
 two sides of a rounding boundary); the fp32 per-channel sums and dW also
 by relative L2 error, 1e-4.
 
-The backward takes one of two kernel pairs (``fc.conv_bwd_route``): bf16
-with both widths multiples of 8 the tensor-core kernels
-(``csrc/conv_bwd_tc.cu``), everything else the SIMT kernels
-(``csrc/conv_bwd.cu``); each test below states which it reaches.
+Each conv takes one of two kernel sets (``fc.conv_route``): bf16 with
+both widths multiples of 8 the tensor-core kernels (``csrc/fused_conv_tc.cu``
+forward, ``csrc/conv_bwd_tc.cu`` backward), everything else the SIMT
+kernels (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``); each test below
+states which it reaches.
 """
 
 import numpy as np
@@ -53,6 +54,9 @@ RESNET_CASES = [
     ("1x1_256to64_28_join_emit", 2, 28, 28, 256, 64, 1, 1, 0, "res"),
     ("3x3_512_7_pro_B4", 4, 7, 7, 512, 512, 3, 1, 1, "pro"),
     ("1x1_2048to512_7_pro", 2, 7, 7, 2048, 512, 1, 1, 0, "pro"),
+    # enough boxes that the forward takes 128 output channels a block
+    ("1x1_64to256_56_pro_B8", 8, 56, 56, 64, 256, 1, 1, 0, "pro"),
+    ("1x1_256to128_56_join_emit_B8", 8, 56, 56, 256, 128, 1, 1, 0, "res"),
 ]
 
 
@@ -124,10 +128,13 @@ def test_kernels_match_plain_on_card(cuda_device, case, dtype):
                                      t.get("ar"), t.get("br"))[0]
     n0 = (fc.fused_conv_launches, fc.conv_bwd_dx_launches,
           fc.conv_bwd_dw_launches)
+    route = fc.conv_route(dtype, case[4], case[5])
+    r0 = getattr(fc, f"fused_conv_{route}_launches")
     got = _run_all(t, case, True)
     torch.cuda.synchronize()
     assert (fc.fused_conv_launches, fc.conv_bwd_dx_launches,
             fc.conv_bwd_dw_launches) == tuple(v + 1 for v in n0)
+    assert getattr(fc, f"fused_conv_{route}_launches") == r0 + 1
     want = _run_all(t, case, False)
     assert set(got) == set(want)
     for name in want:
@@ -144,8 +151,10 @@ def test_kernels_match_plain_on_card(cuda_device, case, dtype):
 
 
 def _route_launches():
+    """(dx tc, dw tc, dx simt, dw simt, fwd tc, fwd simt) launches."""
     return (fc.conv_bwd_dx_tc_launches, fc.conv_bwd_dw_tc_launches,
-            fc.conv_bwd_dx_simt_launches, fc.conv_bwd_dw_simt_launches)
+            fc.conv_bwd_dx_simt_launches, fc.conv_bwd_dw_simt_launches,
+            fc.fused_conv_tc_launches, fc.fused_conv_simt_launches)
 
 
 def _check_against_plain(t, case, dtype):
@@ -167,19 +176,23 @@ def _check_against_plain(t, case, dtype):
 @pytest.mark.parametrize("case", RESNET_CASES,
                          ids=[c[0] for c in RESNET_CASES])
 def test_bf16_resnet_widths_take_the_tensor_cores(cuda_device, case):
-    """bf16 at ResNet-50's widths (a stride-2 3x3 and a 1x1/2 512->1024
-    among them) goes through the tensor-core K2 and K3 and matches the
-    plain versions."""
+    """bf16 at ResNet-50's widths (a stride-2 3x3, a 1x1/2 512->1024, a
+    join with its emitted rows, and 7x7 convs whose deep K the forward
+    splits over the grid at this batch among them) goes through the
+    tensor-core K1, K2 and K3 and matches the plain versions."""
     t = make_case(case, torch.bfloat16, cuda_device)
     n0 = _route_launches()
     _check_against_plain(t, case, torch.bfloat16)
-    assert _route_launches() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3])
+    assert _route_launches() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3],
+                                 n0[4] + 1, n0[5])
 
 
 def test_bf16_tensor_core_kernels_repeat_bit_for_bit(cuda_device):
-    """The tensor-core K2 (partials, then the ordered column sum) and K3
-    (fp32 split planes, then the ordered split sum) use no atomics."""
-    for case in (RESNET_CASES[1], RESNET_CASES[3]):
+    """The tensor-core K1 (partials, then the ordered column sums; split
+    planes summed in order), K2 (partials, then the ordered column sum)
+    and K3 (fp32 split planes, then the ordered split sum) use no
+    atomics."""
+    for case in (RESNET_CASES[1], RESNET_CASES[3], RESNET_CASES[5]):
         t = make_case(case, torch.bfloat16, cuda_device)
         t["y"] = fc.fused_conv_reference(
             t["x"], t["w"], t.get("a"), t.get("b"), case[7], case[8], True,
@@ -187,6 +200,7 @@ def test_bf16_tensor_core_kernels_repeat_bit_for_bit(cuda_device):
         n0 = _route_launches()
         first, second = (_run_all(t, case, True) for _ in range(2))
         assert _route_launches()[:2] == (n0[0] + 2, n0[1] + 2)
+        assert _route_launches()[4] == n0[4] + 2
         for name in first:
             if first[name] is not None:
                 assert torch.equal(first[name], second[name]), name
@@ -194,13 +208,14 @@ def test_bf16_tensor_core_kernels_repeat_bit_for_bit(cuda_device):
 
 def test_ragged_bf16_widths_take_the_simt_kernels(cuda_device):
     """Ci = 20 is no whole number of 16-byte rows: bf16 stays on the SIMT
-    kernels, and they still match."""
+    kernels, forward and backward, and they still match."""
     case = CASES[2]
-    assert fc.conv_bwd_route(torch.bfloat16, case[4], case[5]) == "simt"
+    assert fc.conv_route(torch.bfloat16, case[4], case[5]) == "simt"
     t = make_case(case, torch.bfloat16, cuda_device)
     n0 = _route_launches()
     _check_against_plain(t, case, torch.bfloat16)
-    assert _route_launches() == (n0[0], n0[1], n0[2] + 1, n0[3] + 1)
+    assert _route_launches() == (n0[0], n0[1], n0[2] + 1, n0[3] + 1, n0[4],
+                                 n0[5] + 1)
 
 
 def test_padding_is_zero_after_the_prologue(cuda_device):
@@ -216,6 +231,30 @@ def test_padding_is_zero_after_the_prologue(cuda_device):
     torch.cuda.synchronize()
     assert y[0, 2, 2, 0].item() == 9 * 0.5 * ci
     assert y[0, 0, 0, 0].item() == 4 * 0.5 * ci
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_padding_is_zero_after_the_prologue_on_the_tensor_cores(
+        cuda_device, stride):
+    """The tensor-core K1 rewrites a padded tap to 0, not relu(b) (TMA
+    fills it with 0, which the prologue would map to relu(b)): with x = 0
+    and b = 0.5 the centre of a 3x3 all-ones conv is 9*0.5*Ci, a corner
+    4*0.5*Ci (both exact in bf16), at stride 1 (a row of taps per step)
+    and stride 2 (a tap per step)."""
+    ci = 16
+    x = torch.zeros(2, 5, 5, ci, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.ones(3, 3, ci, 8, device=cuda_device, dtype=torch.bfloat16)
+    a = torch.ones(ci, device=cuda_device)
+    b = torch.full((ci,), 0.5, device=cuda_device)
+    n0 = fc.fused_conv_tc_launches
+    y, s, _ = fc.fused_conv(x, w, a, b, stride, 1, True)
+    torch.cuda.synchronize()
+    assert fc.fused_conv_tc_launches == n0 + 1
+    want, want_s, _ = fc.fused_conv_reference(x, w, a, b, stride, 1, True)
+    assert torch.equal(y, want) and torch.equal(s, want_s)
+    c = 2 // stride
+    assert y[0, c, c, 0].item() == 9 * 0.5 * ci
+    assert y[1, 0, 0, 7].item() == 4 * 0.5 * ci
 
 
 def test_kernels_repeat_bit_for_bit(cuda_device):

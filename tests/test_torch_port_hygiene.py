@@ -157,7 +157,8 @@ def test_kernel_build_is_content_addressed():
     assert (_build.CSRC / "flash_fwd.cu").exists()
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
     assert set(_build.SOURCES) == {"flash_fwd", "flash_bwd", "fused_conv",
-                                   "conv_bwd", "conv_bwd_tc"}
+                                   "conv_bwd", "conv_bwd_tc",
+                                   "fused_conv_tc"}
     assert fa._fn is None or torch.cuda.is_available()
     assert fa._bwd_fns is None or torch.cuda.is_available()
     assert not fc._fns or torch.cuda.is_available()
@@ -231,6 +232,25 @@ def test_chip_smoke_refuses_to_run_without_a_card(capsys):
     assert _chip_smoke().main([]) == 2
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_chip_smoke_alone_exits_2_and_prints_no_result(tmp_path):
+    """Run from a directory that holds ``chip_smoke.py`` and nothing else of
+    the repo (a card faked present), the port does not import: the script
+    says so and exits 2, with nothing on its standard output."""
+    import os
+    import shutil
+
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+    code = ("import sys, torch; torch.cuda.is_available = lambda: True; "
+            "sys.path.insert(0, '.'); import chip_smoke; "
+            "sys.exit(chip_smoke.main([]))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 2 and out.stdout == "", out.stderr
+    assert "not importable" in out.stderr
 
 
 def test_chip_smoke_bound_counts_only_the_keys_the_data_reaches():
@@ -326,10 +346,17 @@ def test_chip_smoke_resnet_phase_rehearses_on_the_cpu(monkeypatch):
     zero = {k: 0 for k in cs.CONV_KERNELS}
     routes = {(k, r): 0 for k in cs.ROUTED for r in cs.ROUTES}
     assert windows == [(zero, (19, 1, 1, routes, "simt")),
-                       (zero, (19, 2, 0)),
+                       (zero, (19, 1, 0, routes, "simt")),
+                       (zero, (19, 1, 0, routes, "tc")),
+                       (zero, (19, 1, 0, routes, "simt")),
+                       (zero, (19, 2, 0, routes, "simt")),
                        (zero, (19, 12, 12, routes, "simt")),
                        (zero, (19, 1, 1, routes, "tc")),
                        (zero, (19, 18, 18, routes, "tc"))]
+    gate = out["bf16_fwd_gate"]
+    assert gate["n_running_stats"] == 40
+    # on the CPU both routes are the plain version: the same distances
+    assert gate["tc"] == gate["simt"] and gate["tc"]["logits"] > 0
 
 
 def test_no_k7_launch_falls_back_to_a_plain_function():

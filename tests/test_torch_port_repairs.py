@@ -1,0 +1,171 @@
+"""Port parity: three places where the port refused or differed from what
+the JAX package does, each held against the JAX package.
+
+- ``lazy_update``: ``optimizer.create("sgd"/"adam", lazy_update=True)``
+  is taken, and with dense gradients a step equals the JAX optimizer's.
+- The default initializer: ``initialize()`` with no ``init`` draws
+  ``Uniform(0.07)``, a parameter's own ``init`` (the fused ResNet's conv
+  weights: ``"xavier"``) wins over the global one, and
+  ``initializer.create(None)`` is ``Uniform(0.07)``. RNG draws differ
+  between the packages, so the distributions are compared: the bound
+  and the variance of each tensor.
+- NAG at momentum 0 in ``SPMDTrainer`` runs as plain SGD, as
+  ``optax.sgd(lr, momentum=0.0, nesterov=True)`` does.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import incubator_mxnet_tpu as jmx
+from incubator_mxnet_tpu import gluon as jgluon
+from incubator_mxnet_tpu import initializer as jinit
+from incubator_mxnet_tpu import optimizer as jopt
+from incubator_mxnet_tpu import parallel as jparallel
+from incubator_mxnet_tpu.gluon.model_zoo import get_gpt as jax_get_gpt
+from incubator_mxnet_tpu.gluon.model_zoo.vision import fused_resnet as jfr
+from incubator_mxnet_tpu.parallel.spmd import collect_params
+
+import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch import gluon, initializer, optimizer, parallel
+from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt, load_jax_params
+from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import FusedResNetV1
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# lazy_update
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name, hyper", [
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3}),
+    ("sgd", {"learning_rate": 0.1}),
+    ("adam", {"learning_rate": 0.01, "wd": 1e-3}),
+])
+def test_lazy_update_is_taken_and_a_dense_step_matches_jax(name, hyper):
+    rs = np.random.RandomState(0)
+    w0 = rs.randn(6, 5).astype(np.float32)
+    grads = [rs.randn(6, 5).astype(np.float32) for _ in range(2)]
+    jo = jopt.create(name, lazy_update=True, **hyper)
+    po = optimizer.create(name, lazy_update=True, **hyper)
+    assert po.lazy_update is True
+    jw = jmx.nd.array(w0)
+    jstate = jo.create_state(0, jw)
+    pw = torch.from_numpy(w0.copy())
+    pstate = po.create_state(0, pw)
+    for g in grads:
+        jstate = jo.update(0, jw, jmx.nd.array(g), jstate)
+        po.update(0, pw, torch.from_numpy(g.copy()), pstate)
+    np.testing.assert_allclose(pw.numpy(), jw.asnumpy(), **TOL)
+    # the default is lazy, as in the JAX package
+    assert optimizer.create(name).lazy_update is True
+
+
+# ---------------------------------------------------------------------------
+# the default initializer
+# ---------------------------------------------------------------------------
+def test_create_none_is_uniform_007_as_in_jax():
+    want = jinit.create(None)
+    got = initializer.create(None)
+    assert type(got).__name__ == type(want).__name__ == "Uniform"
+    assert got.scale == want.scale == 0.07
+    assert isinstance(initializer.create("uniform"), initializer.Uniform)
+
+
+def _bound_and_var(arr):
+    return float(np.abs(arr).max()), float(arr.var())
+
+
+def test_initialize_without_init_draws_uniform_007():
+    """A Dense layer drawn with no ``init``: its weight lies within
+    [-0.07, 0.07] with the uniform variance 0.07^2/3, as the JAX
+    package's, and its bias is 0 in both."""
+    mx.random.seed(0)
+    net = gluon.nn.Dense(256, in_units=512).initialize(ctx=mx.cpu())
+    jmx.random.seed(0)
+    jnet = jgluon.nn.Dense(256, in_units=512)
+    jnet.initialize()
+    want = {n: p.data().asnumpy() for n, p in collect_params(jnet).items()}
+    got = {n: p.detach().numpy() for n, p in net.collect_params().items()}
+    assert set(got) == set(want)
+    var = 0.07 ** 2 / 3
+    for arr in (got["weight"], want["weight"]):
+        bound, v = _bound_and_var(arr)
+        assert bound <= 0.07 and bound > 0.069
+        assert abs(v - var) < 0.03 * var
+    assert not got["bias"].any() and not want["bias"].any()
+
+
+def test_own_xavier_wins_over_the_global_uniform():
+    """The fused ResNet declares its conv weights ``init="xavier"``: under
+    ``initialize("uniform")`` they keep Xavier's bound and variance (most
+    of them wider than 0.07 here) in the port as in the JAX package, while
+    the classifier, which declares none, takes Uniform(0.07)."""
+    layers, channels = [1, 1, 1, 1], [8, 16, 32, 64, 128]
+    mx.random.seed(1)
+    net = FusedResNetV1(layers, channels, classes=10).initialize(
+        "uniform", ctx=mx.cpu())
+    jmx.random.seed(1)
+    jnet = jfr.FusedResNetV1(layers, channels, classes=10)
+    jnet.initialize(init="uniform")
+    jnet(jmx.nd.array(np.zeros((1, 3, 32, 32), np.float32)))
+    want = {n: p.data().asnumpy() for n, p in collect_params(jnet).items()}
+    got = {n: p.detach().numpy() for n, p in net.collect_params().items()}
+    assert set(got) == set(want)
+    convs = [n for n in got if n.endswith("_weight") and "conv" in n]
+    assert len(convs) == 1 + 3 * 4 + 4
+    wide = 0
+    for n in convs:
+        shape = got[n].shape
+        hw = int(np.prod(shape[2:]))
+        bound = np.sqrt(3.0 / ((shape[0] * hw + shape[1] * hw) / 2.0))
+        wide += bound > 0.08
+        for arr in (got[n], want[n]):
+            b, v = _bound_and_var(arr)
+            assert b <= bound * (1 + 1e-6), (n, b, bound)
+            assert bound <= 0.08 or b > 0.07, (n, b, bound)
+            if arr.size >= 2000:
+                assert abs(v - bound ** 2 / 3) < 0.15 * bound ** 2 / 3, n
+    assert wide >= 5
+    for arr in (got["output.weight"], want["output.weight"]):
+        b, v = _bound_and_var(arr)
+        assert 0.06 < b <= 0.07
+
+
+# ---------------------------------------------------------------------------
+# NAG at momentum 0 in SPMDTrainer
+# ---------------------------------------------------------------------------
+VOCAB, B, T = 37, 8, 8
+
+
+def test_spmd_nag_without_momentum_is_plain_sgd_as_in_jax():
+    np.random.seed(4)
+    jmx.random.seed(4)
+    jnet = jax_get_gpt("gpt_decoder_tiny", vocab_size=VOCAB, units=32,
+                       num_layers=2, max_length=48, dropout=0.0)
+    jnet.initialize(init="xavier")
+    jnet(jmx.nd.array(np.ones((1, 2)), dtype="int32"))
+    params = {n: p.data().asnumpy() for n, p in collect_params(jnet).items()}
+    net = load_jax_params(
+        get_gpt("gpt_decoder_tiny", vocab_size=VOCAB, units=32,
+                num_layers=2, max_length=48, dropout=0.0), params,
+        ctx=mx.cpu())
+    jce, ce = jgluon.loss.SoftmaxCrossEntropyLoss(), \
+        gluon.loss.SoftmaxCrossEntropyLoss()
+    hyper = {"learning_rate": 0.1, "momentum": 0.0}
+    jst = jparallel.SPMDTrainer(jnet, lambda lg, lb: jce(lg, lb).mean(),
+                                "nag", dict(hyper))
+    st = parallel.SPMDTrainer(net, lambda lg, lb: ce(lg, lb).mean(), "nag",
+                              dict(hyper))
+    rs = np.random.RandomState(5)
+    for _ in range(2):
+        x = rs.randint(0, VOCAB, (B, T)).astype(np.int32)
+        y = rs.randint(0, VOCAB, (B, T)).astype(np.float32)
+        np.testing.assert_allclose(float(st.step(x, y)),
+                                   float(jst.step(x, y)), rtol=1e-4,
+                                   atol=1e-5)
+    st.sync_to_net()
+    for n, p in net.collect_params().items():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   np.asarray(jst.params[n]), rtol=1e-4,
+                                   atol=1e-5, err_msg=n)

@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Device time of the fused conv kernels by conv shape of ResNet-50.
+
+    python3 tools/torch_resnet_conv_times.py [--batch 128] [--dtype bf16]
+
+Reads the 52 fused convs of ``fused_resnet50_v1`` at 224x224 off the
+model's own bottlenecks (shape, stride, and what its prologue holds: none,
+the BatchNorm, or the residual join with its emitted activation), and for
+each distinct one times K1 (``fused_conv``), K2 (``conv_bwd_dx``) and K3
+(``conv_bwd_dw``) on the route the rule takes (CUDA-graph replay,
+``chip_smoke.device_ms``) and cuDNN's forward (``F.conv2d`` on
+channels-last tensors, timed only), on random inputs made as
+``chip_smoke.py`` makes its conv cases. Prints one row per shape with its
+count in the net and each kernel's time, and the sums over the 52 convs: a
+forward's and a backward's kernel time split by shape. Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import pathlib
+import sys
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def resnet50_convs():
+    """[(h, ci, co, k, stride, pad, kind)] of the 52 fused convs in the
+    order a forward runs them; kind "plain", "pro" or "res" (join+emit)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import (
+        FusedBottleneckV1, fused_resnet50_v1)
+
+    net = fused_resnet50_v1()
+    convs, h, first = [], 56, True
+    for blk in net.modules():
+        if not isinstance(blk, FusedBottleneckV1):
+            continue
+        s = blk._stride
+        w1, w2, w3 = (tuple(getattr(blk, f"conv{i}_weight").shape)
+                      for i in (1, 2, 3))
+        convs += [(h, w1[2], w1[3], 1, 1, 0, "plain" if first else "res"),
+                  (h, w2[2], w2[3], 3, s, 1, "pro"),
+                  (h // s, w3[2], w3[3], 1, 1, 0, "pro")]
+        if blk.bnd is not None:
+            wd = tuple(blk.convd_weight.shape)
+            convs.append((h, wd[2], wd[3], 1, s, 0, "plain"))
+        h //= s
+        first = False
+    return convs
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_resnet_conv_times: no CUDA device", file=sys.stderr)
+        return 2
+    import torch.nn.functional as F
+
+    import incubator_mxnet_tpu_torch  # noqa: F401  (TF32 off at import)
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+    dtype, dev = DTYPES[args.dtype], torch.device("cuda", 0)
+    convs = resnet50_convs()
+    assert len(convs) == 52
+    counts = {}
+    for c in convs:
+        counts[c] = counts.get(c, 0) + 1
+    print(cs.card_line(), flush=True)
+    print(f"fused convs of fused_resnet50_v1, B={args.batch}, "
+          f"{args.dtype}: ms per call (device, CUDA graph) and x count",
+          flush=True)
+    totals = dict(fwd=0.0, dx=0.0, dw=0.0, cudnn=0.0)
+    for (h, ci, co, k, s, p, kind), count in counts.items():
+        name = f"{k}x{k}{'/2' if s == 2 else ''} {ci}->{co} {h}^2 {kind}"
+        case = (name, args.batch, h, h, ci, co, k, s, p, kind)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        t = cs._conv_inputs(case, dtype, dev, gen)
+        res = kind == "res"
+        rkw = dict(r=t.get("r"), ar=t.get("ar"), br=t.get("br"))
+        fargs = (t["x"], t["w"], t.get("a"), t.get("b"), s, p, True)
+        y = fc.fused_conv(*fargs, emit=res, **rkw)[0]
+        bargs = fargs[:4] + (y, t["dy"], t["ds"], t["dss"], s, p, True)
+        x_cl = t["x"].permute(0, 3, 1, 2)
+        w_cl = t["w"].permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        ms = dict(
+            fwd=cs.device_ms(lambda: fc.fused_conv(*fargs, emit=res,
+                                                   **rkw)),
+            dx=cs.device_ms(lambda: fc.conv_bwd_dx(*bargs, g=t.get("g"),
+                                                   **rkw)),
+            dw=cs.device_ms(lambda: fc.conv_bwd_dw(*bargs, **rkw)),
+            cudnn=cs.device_ms(lambda: F.conv2d(x_cl, w_cl, stride=s,
+                                                padding=p)))
+        for key in totals:
+            totals[key] += count * ms[key]
+        route = fc.conv_route(dtype, ci, co)
+        print(f"  {name:28s} x{count:<2d} route {route}: K1 "
+              f"{ms['fwd']:.5f}  K2 {ms['dx']:.5f}  K3 {ms['dw']:.5f}  "
+              f"cuDNN fwd {ms['cudnn']:.5f}", flush=True)
+        del t, y
+        gc.collect()
+    print(f"sum over the 52 convs (ms per pass): K1 {totals['fwd']:.3f}, "
+          f"K2 {totals['dx']:.3f}, K3 {totals['dw']:.3f}, cuDNN forward "
+          f"{totals['cudnn']:.3f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
