@@ -8,10 +8,10 @@ Phases (any failure raises, and the script exits non-zero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, started together), print ``tools/torch_ptxas_report.py
-   fused_conv_tc conv_bwd_tc`` (registers, spills, and the HGMMA and
-   UTMALDG instructions in the SASS of the bf16 tensor-core K1/K2/K3: both
-   must be there, and no spill), and compile the rtc kernels of
-   ``csrc/rtc/`` with NVRTC;
+   fused_conv_tc conv_bwd_tc flash_bwd_tc`` (registers, spills, and the
+   HGMMA and UTMALDG instructions in the SASS of the bf16 tensor-core
+   K1/K2/K3 and K5/K6: both must be there, and no spill), and compile the
+   rtc kernels of ``csrc/rtc/`` with NVRTC;
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the shapes the serving and training paths give it, in fp32 and bf16
    (TF32 off), with its device time (CUDA-graph replay, inputs warm in L2),
@@ -19,7 +19,11 @@ Phases (any failure raises, and the script exits non-zero):
    one PyTorch library call's device time (timed here only, never used by
    the port) and the least time the card could take for the same work.
    The forward kernel (K4) first, then the two backward kernels (K5 dq,
-   K6 dk/dv);
+   K6 dk/dv) on ``BWD_CASES``; each backward row names its route
+   (``flash_attention.flash_bwd_route``): every bf16 row must take the
+   tensor-core kernels (``csrc/flash_bwd_tc.cu``), every fp32 row the SIMT
+   kernels (``csrc/flash_bwd.cu``), and a bf16 row also times the SIMT
+   kernels on the same inputs (``simt_ms``);
 4. serving phase: greedy KV-cache decode of ``gpt_decoder_117m`` (12
    layers, 768 units, 12 heads, vocab 50257; weights drawn from ``--seed``)
    through ``serving.DecodeSession`` with 8 slots and a 512-token cache, 12
@@ -33,11 +37,15 @@ Phases (any failure raises, and the script exits non-zero):
    only); a learning check (fp32 ``SPMDTrainer``, the loss on one repeated
    batch falls over 10 steps); train -> decode (the trained weights served
    through ``DecodeSession`` and held against the full-forward oracle); two
-   eager ``gluon.Trainer`` steps; the bench row (net cast to bf16,
-   ``SPMDTrainer`` SGD lr 1e-4 momentum 0.9), timed; and a ``torch.profiler``
-   breakdown of one bf16 step. K4, K5 and K6 each launch exactly 12 times
-   per training pass (counted over the training steps alone; train ->
-   decode is counted on its own);
+   eager ``gluon.Trainer`` steps; the bf16 gradient gate (the net cast to
+   bf16: one step's gradients through the tensor-core K5/K6 against the
+   same step with ``flash_attention_bwd`` swapped for its plain version,
+   ``gpt_bf16_gate``); the bench row (``SPMDTrainer`` SGD lr 1e-4
+   momentum 0.9), timed; and a ``torch.profiler`` breakdown of one bf16
+   step. K4, K5 and K6 each launch exactly 12 times per training pass
+   (counted over the training steps alone; train -> decode and the bf16
+   gate are counted on their own), K5/K6 of every fp32 pass on the SIMT
+   route, of every bf16 pass on the tensor-core route;
 6. conv kernel phase: the fused conv + BatchNorm kernels (K1 forward, K2
    input gradient, K3 weight gradient) against their plain versions in
    fp32 and bf16 at ResNet-50's shapes at B=32 and one shape off the
@@ -48,7 +56,10 @@ Phases (any failure raises, and the script exits non-zero):
    must take the tensor-core kernels (``csrc/fused_conv_tc.cu``,
    ``csrc/conv_bwd_tc.cu``), every fp32 row the SIMT kernels
    (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``); a bf16 row also times
-   the SIMT kernel on the same inputs (``simt_ms``);
+   the SIMT kernel on the same inputs (``simt_ms``). At the head case the
+   tensor-core K1's per-channel sums and sums of squares lie within
+   ``K1_SUMS_RTOL`` (relative L2) of an fp64 evaluation on the same bf16
+   inputs (``k1_sums_fp64``);
 7. ResNet phase: ``fused_resnet50_v1`` (1000 classes, 224x224 inputs,
    weights drawn from ``--seed``): the fp32 oracle of one training step at
    B=8 (loss and the 106 running statistics against the model with
@@ -91,11 +102,12 @@ Phases (any failure raises, and the script exits non-zero):
    ``invoke_op("fused_conv_bn")`` with gradients, equal to the direct
    calls bit for bit.
 
-The line before the last is the kernels' JSON record (K1 to K7; K1, K2 and
-K3 once per route, ``fused_conv``/``conv_bwd_dx``/``conv_bwd_dw`` the SIMT
-kernels at the fp32 head case, ``fused_conv_tc``/``conv_bwd_dx_tc``/
-``conv_bwd_dw_tc`` the tensor-core kernels at the bf16 head case); the last
-line is
+The line before the last is the kernels' JSON record (K1 to K7; K1, K2,
+K3, K5 and K6 once per route, ``fused_conv``/``conv_bwd_dx``/
+``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
+fp32 head case, ``fused_conv_tc``/``conv_bwd_dx_tc``/``conv_bwd_dw_tc``/
+``flash_bwd_dq_tc``/``flash_bwd_dkv_tc`` the tensor-core kernels at the
+bf16 head case); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or run alone without
 the repository beside it (the port does not import), the script exits 2
 before printing any result.
@@ -127,6 +139,9 @@ TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # parameter tensor (both fp32, TF32 off; only the order of sums differs)
 GRAD_RTOL = 1e-3
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+# the routes of the kernels that have two (conv K1-K3, flash K5/K6): "tc"
+# the bf16 tensor-core kernels, "simt" the others
+ROUTES = ("tc", "simt")
 
 
 def card_line() -> str:
@@ -319,18 +334,20 @@ def kernel_phase(seed):
     return results
 
 
-def _sdpa_bwd_ms(q, k, v, g, valid):
+def _sdpa_bwd_ms(q, k, v, g, valid, causal=False):
     """Device ms of ``scaled_dot_product_attention``'s backward under the
-    same boolean mask: a CUDA graph of forward + ``autograd.grad`` less a
-    graph of the forward alone (grad enabled in both, so the forward saves
-    what its backward needs). A yardstick only; fully masked rows give NaN
-    there and are not compared."""
+    same boolean mask (``causal``: with ``is_causal=True`` and no mask,
+    which lets it take its flash backend): a CUDA graph of forward +
+    ``autograd.grad`` less a graph of the forward alone (grad enabled in
+    both, so the forward saves what its backward needs). A yardstick only;
+    fully masked rows give NaN there and are not compared."""
     import torch.nn.functional as F
 
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    kw = dict(is_causal=True) if causal else dict(attn_mask=valid)
 
     def fwd():
-        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=valid)
+        return F.scaled_dot_product_attention(qg, kg, vg, **kw)
 
     def fwd_bwd():
         return torch.autograd.grad(fwd(), (qg, kg, vg), g)
@@ -353,41 +370,79 @@ def _zero_where_unreached(name, dq, dk, dv, valid):
                                  "reaches it")
 
 
+# (name, b, tq, tk, d, causal, cache_offset, lengths) of the backward
+# kernel phase, H = 12
+BWD_CASES = [
+    # the training shape: B=8, H=12, T=256, causal
+    ("train_causal_B8_T256", 8, 256, 256, 64, True, False, None),
+    # non-causal key lengths with a length-0 entry
+    ("lengths_lse_B4_T128x384", 4, 128, 384, 64, False, False,
+     (384, 200, 17, 0)),
+    # cache offset: the diagonal aligned to each entry's fill
+    ("cache_offset_B4_T16x512", 4, 16, 512, 64, True, True,
+     (512, 300, 64, 16)),
+    # Tq > Tk causal: the first 192 rows of each head see no key
+    ("tq_gt_tk_causal_B2_T256x64", 2, 256, 64, 64, True, False, None),
+    # D=128: two 64-column boxes a row on the tensor-core route
+    ("causal_D128_B2_T512", 2, 512, 512, 128, True, False, None),
+]
+BWD_HEAD = "train_causal_B8_T256"
+
+
+# the backward kernels' launches by route
+ROUTE_COUNTERS = tuple(f"{k}_{r}" for k in ("flash_bwd_dq", "flash_bwd_dkv")
+                       for r in ROUTES)
+
+
+def _read_routes(fa):
+    return {name: getattr(fa, name + "_launches") for name in ROUTE_COUNTERS}
+
+
 def backward_kernel_phase(seed):
+    """K5 and K6 against their plain versions on ``BWD_CASES`` in fp32 and
+    bf16. Each row names its route (``flash_attention.flash_bwd_route``):
+    every bf16 row must take the tensor-core kernels
+    (``csrc/flash_bwd_tc.cu``), every fp32 row the SIMT kernels
+    (``csrc/flash_bwd.cu``); a bf16 row also times the SIMT kernels on the
+    same inputs (``simt_ms``). The library call is SDPA's whole backward
+    under the same boolean mask and, for causal rows with Tq == Tk and no
+    lengths (where its top-left causal mask is the same one), with
+    ``is_causal=True`` (``library_causal_ms``). ``delta_ms`` is the row
+    statistic ``delta = sum(g * o)`` as ``FlashAttentionFunction``
+    computes it before the two kernels (ATen), so that dq + dk/dv + delta
+    is the port's whole backward beside SDPA's."""
     from incubator_mxnet_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda", 0)
     rs = np.random.RandomState(seed + 7)
-    h, d = 12, 64
-    cases = [
-        # the training shape: B=8, H=12, T=256, causal
-        ("train_causal_B8_T256", 8, 256, 256, True, False, None),
-        # non-causal key lengths with a length-0 entry
-        ("lengths_lse_B4_T128x384", 4, 128, 384, False, False,
-         np.array([384, 200, 17, 0])),
-        # cache offset: the diagonal aligned to each entry's fill
-        ("cache_offset_B4_T16x512", 4, 16, 512, True, True,
-         np.array([512, 300, 64, 16])),
-        # Tq > Tk causal: the first 192 rows of each head see no key
-        ("tq_gt_tk_causal_B2_T256x64", 2, 256, 64, True, False, None),
-    ]
+    h = 12
     results = []
-    for name, b, tq, tk, causal, cache_offset, lengths in cases:
+    for name, b, tq, tk, d, causal, cache_offset, lengths in BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, g = (torch.from_numpy(rs.randn(b, h, t, d).astype(
                 np.float32)).to(dev, dtype) for t in (tq, tk, tk, tq))
             lens = None if lengths is None else \
-                torch.from_numpy(lengths.astype(np.int32)).to(dev)
+                torch.tensor(lengths, dtype=torch.int32, device=dev)
             kw = dict(causal=causal, cache_offset=cache_offset)
             out, lse = fa.flash_attention(q, k, v, lens, return_lse=True,
                                           **kw)
             delta = (g.float() * out.float()).sum(-1)
             args = (q, k, v, lens, lse, delta, g)
+            before = _read_routes(fa)
             got = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args,
                                                                    **kw))
             want = (fa.flash_bwd_dq_reference(*args, **kw),
                     *fa.flash_bwd_dkv_reference(*args, **kw))
             torch.cuda.synchronize()
+            expect = "tc" if dtype == torch.bfloat16 else "simt"
+            now = _read_routes(fa)
+            for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+                taken = [r for r in ROUTES if now[f"{kernel}_{r}"]
+                         - before[f"{kernel}_{r}"] == 1]
+                if taken != [expect]:
+                    raise AssertionError(f"{kernel} {name} "
+                                         f"{DTYPE_NAMES[dtype]} took "
+                                         f"{taken}, not {expect}")
             valid = _valid_mask(b, tq, tk, lens, causal, cache_offset, dev)
             _zero_where_unreached(name, *got, valid)
             tol = TOLS[dtype]
@@ -404,6 +459,9 @@ def backward_kernel_phase(seed):
                         f"max abs err {err} > {tol} x {ref}")
                 errs[label] = (err, err / ref)
             library_ms = _sdpa_bwd_ms(q, k, v, g, valid)
+            library_causal_ms = _sdpa_bwd_ms(q, k, v, g, valid, causal=True) \
+                if causal and lens is None and tq == tk else None
+            delta_ms = device_ms(lambda: (g.float() * out.float()).sum(-1))
             for kernel, labels, launch, plain in (
                     ("dq", ("dq",), fa.flash_bwd_dq,
                      fa.flash_bwd_dq_reference),
@@ -412,24 +470,37 @@ def backward_kernel_phase(seed):
                 ms = device_ms(lambda: launch(*args, **kw))
                 wrapper_ms = call_ms(lambda: launch(*args, **kw))
                 plain_ms = device_ms(lambda: plain(*args, **kw))
+                simt_ms = device_ms(lambda: launch(*args, route="simt",
+                                                   **kw)) \
+                    if expect == "tc" else None
                 bound_ms, bound_by = attention_bwd_bound(
                     kernel, b, h, tq, tk, d, dtype, valid)
                 err = max(errs[x][0] for x in labels)
                 rel = max(errs[x][1] for x in labels)
                 r = dict(kernel=f"flash_bwd_{kernel}", case=name,
-                         dtype=DTYPE_NAMES[dtype], max_abs_err=err,
-                         err_over_max_ref=rel, tol=tol, ms=ms,
-                         wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
+                         dtype=DTYPE_NAMES[dtype], route=expect,
+                         max_abs_err=err, err_over_max_ref=rel, tol=tol,
+                         ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                         library_ms=library_ms,
+                         library_causal_ms=library_causal_ms,
+                         simt_ms=simt_ms, delta_ms=delta_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
                 results.append(r)
-                print(f"kernel flash_bwd_{kernel} {name} {r['dtype']}: "
-                      f"max_abs_err={err:.3e} ({rel:.2e} of max|plain|, tol "
-                      f"{tol:g}) ms={ms:.5f} (device, CUDA graph) wrapper_ms"
-                      f"={wrapper_ms:.5f} (eager call) plain_ms="
-                      f"{plain_ms:.5f} library_ms={library_ms:.5f} (SDPA "
-                      f"whole backward, boolean mask) bound_ms="
-                      f"{bound_ms:.5f} ({bound_by})", flush=True)
+                also = "" if simt_ms is None else \
+                    f" simt_ms={simt_ms:.5f} (SIMT kernel)"
+                if library_causal_ms is not None:
+                    also += (f" library_causal_ms={library_causal_ms:.5f} "
+                             "(SDPA whole backward, is_causal)")
+                also += f" delta_ms={delta_ms:.5f} (ATen)"
+                print(f"kernel flash_bwd_{kernel} {name} {r['dtype']} route "
+                      f"{expect}: max_abs_err={err:.3e} ({rel:.2e} of "
+                      f"max|plain|, tol {tol:g}) ms={ms:.5f} (device, CUDA "
+                      f"graph) wrapper_ms={wrapper_ms:.5f} (eager call) "
+                      f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f}"
+                      f" (SDPA whole backward, boolean mask){also} "
+                      f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+            del q, k, v, g, out, lse, delta, args, got, want
+            gc.collect()
     return results
 
 
@@ -550,10 +621,14 @@ def slice_phase(seed):
 # training phase
 # ---------------------------------------------------------------------------
 COUNTERS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# bf16 training gradients, tensor-core K5/K6 vs their plain version on the
+# same forward: relative L2 error per parameter tensor (the kernels round
+# p and dS to bf16 before their products, the plain version does not)
+BF16_GRAD_RTOL = 2e-2
 
 
 def _reset_launches(fa):
-    for name in COUNTERS:
+    for name in COUNTERS + ROUTE_COUNTERS:
         setattr(fa, name + "_launches", 0)
 
 
@@ -607,8 +682,43 @@ def gradient_oracle(net, loss_fn, x, y):
     return worst[0]
 
 
+def gpt_bf16_gate(net, loss_fn, x, y):
+    """One bf16 step's gradients through the tensor-core K5/K6 against the
+    same step with ``flash_attention_bwd`` swapped for its plain version
+    (made here, for this gate only; the forward is the same K4 in both):
+    relative L2 error per parameter tensor <= BF16_GRAD_RTOL."""
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    loss, grads = _grads(net, loss_fn, x, y)
+    kernel_bwd = fa.flash_attention_bwd
+    fa.flash_attention_bwd = fa.flash_attention_bwd_reference
+    try:
+        ref_loss, ref_grads = _grads(net, loss_fn, x, y)
+    finally:
+        fa.flash_attention_bwd = kernel_bwd
+    if not torch.isfinite(loss) or not torch.equal(loss, ref_loss):
+        raise AssertionError(f"bf16 gate: loss {float(loss)} != "
+                             f"{float(ref_loss)} (the same forward)")
+    worst = (0.0, "")
+    names = [n for n, p in net.named_parameters() if p.requires_grad]
+    for name, g, r in zip(names, grads, ref_grads):
+        g, r = g.float(), r.float()
+        den = r.norm().item()
+        rel = (g - r).norm().item() / den if den > 0 else g.norm().item()
+        if not math.isfinite(rel) or rel > BF16_GRAD_RTOL:
+            raise AssertionError(f"bf16 gradient gate: {name} relative L2 "
+                                 f"error {rel} > {BF16_GRAD_RTOL}")
+        worst = max(worst, (rel, name))
+    print(f"bf16 gradient gate ({len(names)} parameter tensors, tensor-core "
+          f"K5/K6 vs their plain version on the same forward): worst "
+          f"relative L2 error {worst[0]:.3e} ({worst[1]}), tolerance "
+          f"{BF16_GRAD_RTOL:g}", flush=True)
+    return worst[0]
+
+
 FLASH_TAGS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-              "flash_bwd_dkv_kernel")
+              "flash_bwd_dkv_kernel", "flash_bwd_dq_tc_kernel",
+              "flash_bwd_dkv_tc_kernel")
 
 
 def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14,
@@ -693,7 +803,8 @@ def train_phase(seed, card):
     st = parallel.SPMDTrainer(net, lm_loss, "adam", {"learning_rate": 3e-4})
     losses = [float(st.step(x, y)) for _ in range(10)]
     launches = _read_launches(fa)
-    backward_passes = 1 + 10
+    routes = _read_routes(fa)
+    backward_passes = fp32_passes = 1 + 10
     print(f"learning check (fp32 SPMDTrainer, adam lr 3e-4, one batch "
           f"repeated): losses {[round(v, 4) for v in losses]}", flush=True)
     if not all(math.isfinite(v) for v in losses) \
@@ -734,13 +845,30 @@ def train_phase(seed, card):
         trainer.step(b)
         eager.append(float(per_sample.detach().mean()))
     backward_passes += 2
+    fp32_passes += 2
     if not all(math.isfinite(v) for v in eager):
         raise AssertionError(f"gluon.Trainer losses not finite: {eager}")
     print(f"gluon.Trainer (fp32, sgd lr 1e-4 momentum 0.9): 2 steps, "
           f"losses {eager}", flush=True)
+    window = _read_launches(fa)
+    launches = {name: launches[name] + window[name] for name in COUNTERS}
+    window = _read_routes(fa)
+    routes = {name: routes[name] + window[name] for name in ROUTE_COUNTERS}
+
+    # the bf16 gradient gate, read on its own: one pass through the
+    # tensor-core K5/K6, one through their plain version (K4 in both)
+    net.cast("bfloat16")
+    _reset_launches(fa)
+    bf16_worst = gpt_bf16_gate(net, lm_loss, x, y)
+    gate = {**_read_launches(fa), **_read_routes(fa)}
+    want_gate = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                 "flash_bwd_dq_tc": 12, "flash_bwd_dkv_tc": 12,
+                 "flash_bwd_dq_simt": 0, "flash_bwd_dkv_simt": 0}
+    if gate != want_gate:
+        raise AssertionError(f"bf16 gate launches {gate}, not {want_gate}")
 
     # the bench row: bf16 net, SPMDTrainer SGD lr 1e-4 momentum 0.9
-    net.cast("bfloat16")
+    _reset_launches(fa)
     st = parallel.SPMDTrainer(net, lm_loss, "sgd",
                               {"learning_rate": 1e-4, "momentum": 0.9})
     for _ in range(3):
@@ -764,20 +892,34 @@ def train_phase(seed, card):
           f"{peak / 2**20:.1f} MiB", flush=True)
     rows = _profile_step(st.step, x, y, card, step_ms)
     backward_passes += 1
-    second = _read_launches(fa)
-    launches = {name: launches[name] + second[name] for name in COUNTERS}
+    bf16_passes = backward_passes - fp32_passes
+    window = _read_launches(fa)
+    launches = {name: launches[name] + window[name] for name in COUNTERS}
+    window = _read_routes(fa)
+    routes = {name: routes[name] + window[name] for name in ROUTE_COUNTERS}
 
-    # one forward and one backward per pass, each through the 12 layers
+    # one forward and one backward per pass, each through the 12 layers;
+    # the backward of every fp32 pass on the SIMT K5/K6, of every bf16
+    # pass on the tensor-core ones
     want = 12 * backward_passes
     print(f"launches on the training path: {launches} over "
           f"{backward_passes} backward passes (12 x {backward_passes} = "
-          f"{want} each)", flush=True)
+          f"{want} each); by route {routes} ({fp32_passes} fp32 passes "
+          f"on simt, {bf16_passes} bf16 on tc)", flush=True)
     for name in COUNTERS:
         if launches[name] != want:
             raise AssertionError(f"training launched {name} "
                                  f"{launches[name]} times, not {want}")
-    return dict(launches=launches, decode_launches=decode_launches,
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for route, passes in (("simt", fp32_passes), ("tc", bf16_passes)):
+            if routes[f"{kernel}_{route}"] != 12 * passes:
+                raise AssertionError(f"training launched {kernel} on {route}"
+                                     f" {routes[f'{kernel}_{route}']} times, "
+                                     f"not 12 x {passes}")
+    return dict(launches=launches, routes=routes, gate_launches=gate,
+                decode_launches=decode_launches,
                 backward_passes=backward_passes, grad_worst_rel=worst,
+                bf16_grad_worst_rel=bf16_worst,
                 learning_losses=losses, step_ms=step_ms, tokens_s=tokens_s,
                 peak_bytes=peak, profile=rows[:14])
 
@@ -805,9 +947,13 @@ CONV_KERNELS = ("fused_conv", "conv_bwd_dx", "conv_bwd_dw")
 # tensor-core kernels (csrc/fused_conv_tc.cu, csrc/conv_bwd_tc.cu), "simt"
 # csrc/fused_conv.cu and csrc/conv_bwd.cu
 ROUTED = ("fused_conv", "conv_bwd_dx", "conv_bwd_dw")
-ROUTES = ("tc", "simt")
 # fp32 per-channel sums and dW: relative L2 error, kernels vs plain
 CONV_L2_TOL = 1e-4
+# the tensor-core K1's per-channel sums and sums of squares at the head
+# case: relative L2 error from an fp64 evaluation on the same bf16 inputs
+# (the port holds its fp32 running statistics to the JAX package's at
+# 1e-5; the tensor cores' fp32 accumulation leans about 5e-7 there)
+K1_SUMS_RTOL = 1e-5
 
 
 def _conv_dims(case):
@@ -907,6 +1053,21 @@ def _route_taken(before, kernel):
     return taken[0]
 
 
+def k1_sums_fp64(x, w, a=None, b=None, stride=1, pad=0, relu=True, r=None,
+                 ar=None, br=None):
+    """K1's per-channel sum and sum of squares as the plain version takes
+    them, with the prologue output rounded to the input type as the kernels
+    round it, and the conv and the sums in fp64."""
+    import torch.nn.functional as F
+
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+    xp = fc.apply_prologue(x, a, b, r, ar, br, relu)
+    acc = fc._nhwc(F.conv2d(fc._nchw(xp.double()), fc._oihw(w.double()),
+                            stride=stride, padding=pad))
+    return acc.sum(dim=(0, 1, 2)), (acc * acc).sum(dim=(0, 1, 2))
+
+
 def conv_kernel_phase(seed):
     import torch.nn.functional as F
 
@@ -985,6 +1146,20 @@ def conv_kernel_phase(seed):
                                              f"{DTYPE_NAMES[dtype]} took "
                                              f"{route}, not {expect}")
                 err, rel = _conv_errs(names, got, want, dtype)
+                sums_l2 = None
+                if kernel == "fused_conv" and route == "tc" \
+                        and name == CONV_HEAD:
+                    exact = k1_sums_fp64(*fargs, **rkw)
+                    sums_l2 = [((g.double() - e).norm() / e.norm()).item()
+                               for g, e in zip(got[1:3], exact)]
+                    print(f"K1 sums guard {name} bf16 route tc: relative L2 "
+                          f"from fp64 sum {sums_l2[0]:.3e}, sumsq "
+                          f"{sums_l2[1]:.3e} (tol {K1_SUMS_RTOL:g})",
+                          flush=True)
+                    if not all(math.isfinite(v) and v <= K1_SUMS_RTOL
+                               for v in sums_l2):
+                        raise AssertionError(f"K1 sums guard: {sums_l2} > "
+                                             f"{K1_SUMS_RTOL}")
                 ms = device_ms(launch)
                 plain_ms = device_ms(plain)
                 library_ms = device_ms(library[kernel])
@@ -995,6 +1170,8 @@ def conv_kernel_phase(seed):
                          tol=TOLS[dtype], ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, simt_ms=simt_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
+                if sums_l2 is not None:
+                    r["sums_rel_l2_fp64"] = sums_l2
                 results.append(r)
                 also = "" if simt_ms is None else \
                     f" simt_ms={simt_ms:.5f} (SIMT kernel)"
@@ -1595,7 +1772,7 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
               f"images/s, peak memory {peak / 2**20:.1f} MiB", flush=True)
         bench = dict(batch=b, step_ms=step_ms, images_s=b / step_ms * 1e3,
                      peak_bytes=peak)
-        if step_ms <= 2000.0:
+        if step_ms <= 2000.0 or b == b_bench[-1]:   # the last one stays
             break
         print(f"the B={b} step took over 2 s: the row drops to the next "
               "batch size", flush=True)
@@ -2066,15 +2243,17 @@ def _entry(name, source, replaces, launches, cases, head_case,
     return entry
 
 
-# the bf16 conv kernels, which must run on the tensor cores and load
-# through TMA, and their sources
+# the bf16 conv and flash-backward kernels, which must run on the tensor
+# cores and load through TMA, and their sources
 TC_KERNELS = ("fused_conv_tc_kernel", "conv_bwd_dx_tc_kernel",
-              "conv_bwd_dw_tc_kernel")
-TC_SOURCES = ("fused_conv_tc", "conv_bwd_tc")
+              "conv_bwd_dw_tc_kernel", "flash_bwd_dq_tc_kernel",
+              "flash_bwd_dkv_tc_kernel")
+TC_SOURCES = ("fused_conv_tc", "conv_bwd_tc", "flash_bwd_tc")
 
 
 def tensor_core_sass():
-    """``tools/torch_ptxas_report.py fused_conv_tc conv_bwd_tc``, printed:
+    """``tools/torch_ptxas_report.py fused_conv_tc conv_bwd_tc
+    flash_bwd_tc``, printed:
     registers, spills, and the HGMMA (wgmma) and UTMALDG (TMA)
     instructions in each tensor-core kernel's SASS; raises unless every
     instantiation has both and none spills."""
@@ -2143,7 +2322,7 @@ def main(argv=None) -> int:
 
     src = "incubator_mxnet_tpu_torch/csrc/"
     ref = "incubator_mxnet_tpu/ops/pallas_attention.py:"
-    train_case = "train_causal_B8_T256"
+    train_case = BWD_HEAD
     fwd = _entry("flash_fwd", src + "flash_fwd.cu", ref + "54",
                  trained["launches"]["flash_fwd"], kernel,
                  "train_causal_lse_B8_T256")
@@ -2151,12 +2330,26 @@ def main(argv=None) -> int:
         "decode": served["launches"],
         "train": trained["launches"]["flash_fwd"],
         "train_to_decode": trained["decode_launches"]["flash_fwd"]}
-    record = {"kernels": [fwd] + [
-        _entry(name, src + "flash_bwd.cu", ref + line,
-               trained["launches"][name],
-               [r for r in bwd if r["kernel"] == name], train_case)
-        for name, line in (("flash_bwd_dq", "209"),
-                           ("flash_bwd_dkv", "267"))]}
+    record = {"kernels": [fwd]}
+    # K5 and K6 by route: the SIMT kernels carry fp32 (the oracle, the
+    # fp32 training steps), the tensor-core kernels bf16 (the gate, the
+    # bench row)
+    for name, line in (("flash_bwd_dq", "209"), ("flash_bwd_dkv", "267")):
+        for route, source, dtype in (("simt", "flash_bwd.cu", "fp32"),
+                                     ("tc", "flash_bwd_tc.cu", "bf16")):
+            entry = _entry(name if route == "simt" else f"{name}_tc",
+                           src + source, ref + line,
+                           trained["routes"][f"{name}_{route}"],
+                           [r for r in bwd if r["kernel"] == name
+                            and r["route"] == route], train_case, dtype)
+            head = next(r for r in entry["cases"] if r["case"] == train_case)
+            entry["library_causal_ms"] = head["library_causal_ms"]
+            if route == "tc":
+                entry["simt_ms"] = head["simt_ms"]
+                entry["launches_by_path"] = {
+                    "train": trained["routes"][f"{name}_tc"],
+                    "bf16_gate": trained["gate_launches"][f"{name}_tc"]}
+            record["kernels"].append(entry)
     conv_ref = "incubator_mxnet_tpu/ops/pallas_conv.py:"
     # K1, K2 and K3 by route: the SIMT kernels carry fp32 (the oracle, the
     # fp32 training steps, eval), the tensor-core kernels bf16 (the gates,

@@ -681,7 +681,7 @@ int launch_dx(const void* dy, const void* y, const void* x, const void* w,
   const uint64_t wdims[2] = {(uint64_t)sh.Co,
                              (uint64_t)sh.KH * sh.KW * sh.Ci};
   const uint32_t wbox[2] = {(uint32_t)kDepth, (uint32_t)BN}, wes[2] = {1, 1};
-  if ((err = encode(&map_w, w, 2, wdims, wbox, wes))) return err;
+  if ((err = encode_packed(&map_w, w, 2, wdims, wbox, wes))) return err;
   constexpr int smem = dx_smem_bytes<BN, T>();
   static bool opted = false;
   if ((err = allow_smem((const void*)conv_bwd_dx_tc_kernel<BN, T>, smem,

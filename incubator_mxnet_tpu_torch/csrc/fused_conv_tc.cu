@@ -410,7 +410,7 @@ int launch_fwd(const void* x, const void* w, const float* a, const float* b,
                              (uint64_t)sh.KH * sh.KW * sh.Ci};
   const uint32_t wbox[2] = {(uint32_t)kDepth, (uint32_t)kDepth};
   const uint32_t wes[2] = {1, 1};
-  if ((err = encode(&map_w, w, 2, wdims, wbox, wes))) return err;
+  if ((err = encode_packed(&map_w, w, 2, wdims, wbox, wes))) return err;
   constexpr int smem = fwd_smem_bytes<BN, T>();
   static bool opted = false;
   if ((err = allow_smem((const void*)fused_conv_tc_kernel<BN, T>, smem,

@@ -5,8 +5,10 @@ Counterpart of the JAX package's ``ops/pallas_attention.py``.
 ``flash_attention`` keeps that module's contract. A CUDA tensor always
 launches the kernels: the forward in ``csrc/flash_fwd.cu`` (which replaces
 the TPU kernel ``_flash_fwd_kernel``) and, for a gradient, the two backward
-kernels in ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel`` and
-``_flash_bwd_dkv_kernel``). A CPU tensor takes the plain versions,
+kernels (``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``) on the
+route :func:`flash_bwd_route` names: the bf16 tensor-core kernels of
+``csrc/flash_bwd_tc.cu`` (``"tc"``) or the SIMT kernels of
+``csrc/flash_bwd.cu`` (``"simt"``). A CPU tensor takes the plain versions,
 ``flash_attention_reference`` and ``flash_attention_bwd_reference``. There
 is no size crossover to a dense path here: whether one pays on this card
 has not been measured.
@@ -22,7 +24,9 @@ Gradients: when grad is enabled and one of q, k, v requires it,
 the JAX package's ``_flash_core`` custom VJP: the forward saves the output
 and the fp32 row log-sum-exp, the backward computes ``delta = sum(g * o)``
 in plain PyTorch and runs the two backward kernels (or, on the CPU, their
-plain version).
+plain version). The route rule is one of dtype, shape and alignment,
+decided before the launch: a launch that fails raises, whatever its
+route.
 """
 
 from __future__ import annotations
@@ -40,8 +44,10 @@ __all__ = ["FlashAttentionFunction", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_reference", "flash_bwd_dkv",
            "flash_bwd_dkv_reference", "flash_bwd_dq", "flash_bwd_dq_reference",
-           "flash_bwd_dkv_launches", "flash_bwd_dq_launches",
-           "flash_fwd_launches"]
+           "flash_bwd_route", "flash_bwd_dkv_launches",
+           "flash_bwd_dkv_simt_launches", "flash_bwd_dkv_tc_launches",
+           "flash_bwd_dq_launches", "flash_bwd_dq_simt_launches",
+           "flash_bwd_dq_tc_launches", "flash_fwd_launches"]
 
 #: kernel launches made by each wrapper (one per CUDA call); reset them to
 #: 0 before a run and read them after, to show the run went through the
@@ -49,11 +55,15 @@ __all__ = ["FlashAttentionFunction", "flash_attention",
 flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+#: the backward launches by route (see :func:`flash_bwd_route`)
+flash_bwd_dq_tc_launches = flash_bwd_dq_simt_launches = 0
+flash_bwd_dkv_tc_launches = flash_bwd_dkv_simt_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+_TC_HEAD_DIMS = (64, 128)
 _fn = None
-_bwd_fns = None
+_bwd_fns = {}
 
 
 def _resolve(q, k, lengths, scale, causal, cache_offset):
@@ -168,19 +178,58 @@ def _kernel():
     return _fn
 
 
-def _bwd_kernels():
-    global _bwd_fns
-    if _bwd_fns is None:
-        lib = _build.load("flash_bwd")
+def _bwd_kernels(route):
+    """(dq, dkv) entry points of the route's library: ``"simt"``
+    ``csrc/flash_bwd.cu`` (a dtype argument before the stream), ``"tc"``
+    ``csrc/flash_bwd_tc.cu`` (bf16 only)."""
+    fns = _bwd_fns.get(route)
+    if fns is None:
+        tc = route == "tc"
+        lib = _build.load("flash_bwd_tc" if tc else "flash_bwd")
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
-                ctypes.c_float, i, i, i, p]
-        dq, dkv = lib.mxtpu_flash_bwd_dq, lib.mxtpu_flash_bwd_dkv
+                ctypes.c_float, i, i] + ([] if tc else [i]) + [p]
+        suffix = "_tc" if tc else ""
+        dq = getattr(lib, "mxtpu_flash_bwd_dq" + suffix)
+        dkv = getattr(lib, "mxtpu_flash_bwd_dkv" + suffix)
         dq.argtypes = [p] * 8 + tail
         dkv.argtypes = [p] * 9 + tail
         dq.restype = dkv.restype = i
-        _bwd_fns = dq, dkv
-    return _bwd_fns
+        fns = _bwd_fns[route] = dq, dkv
+    return fns
+
+
+def flash_bwd_route(q, k, v, g, outs=()):
+    """Which backward kernels a call takes on the card: ``"tc"`` (the
+    tensor-core kernels of ``csrc/flash_bwd_tc.cu``) for bf16 with D 64 or
+    128 where every operand (q, k, v, g and the outputs ``outs``) has a
+    contiguous head dim, a base address and (b, h, t) strides that are
+    multiples of 16 bytes (a dim of size 1 has no stride to hold to), as
+    TMA needs; ``"simt"`` (``csrc/flash_bwd.cu``) for everything else:
+    fp32 (no tensor-core path keeps fp32 off TF32), D = 32 and misaligned
+    views. Decided from dtype, shape and alignment before the launch."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in _TC_HEAD_DIMS:
+        return "simt"
+    for t in (q, k, v, g, *outs):
+        if t.dtype != torch.bfloat16 or t.dim() != 4 \
+                or t.shape[-1] != q.shape[-1] or t.stride(3) != 1 \
+                or t.data_ptr() % 16:
+            return "simt"
+        if any(t.shape[i] > 1 and t.stride(i) * 2 % 16 for i in range(3)):
+            return "simt"
+    return "tc"
+
+
+def _pick_bwd_route(q, k, v, g, outs, route):
+    """:func:`flash_bwd_route`'s choice, or ``route`` where a caller names
+    one: ``"simt"`` takes any call (to time the SIMT kernels in bf16
+    beside the tensor-core ones), ``"tc"`` only what the rule sends there."""
+    rule = flash_bwd_route(q, k, v, g, outs)
+    if route is None or route == rule or route == "simt":
+        return rule if route is None else route
+    raise ValueError(f"route {route!r}: this call ({q.dtype}, D="
+                     f"{q.shape[-1]}, its strides and alignment) takes "
+                     f"{rule!r}")
 
 
 def _check_cuda(q, k, v, lengths):
@@ -279,32 +328,35 @@ def _forward(q, k, v, lengths, scale, causal, cache_offset, return_lse):
 
 
 def _launch_bwd(which, q, k, v, lengths, lse, delta, g, scale, causal,
-                cache_offset):
-    """Launch the dq (``which == 0``) or dk/dv kernel on CUDA tensors."""
+                cache_offset, route):
+    """Launch the dq (``which == 0``) or dk/dv kernel on CUDA tensors, on
+    the route :func:`_pick_bwd_route` names; returns (outputs, route)."""
     s, causal = _resolve(q, k, lengths, scale, causal, cache_offset)
     lengths = _check_cuda(q, k, v, lengths)
     g, lse, delta = _check_bwd(q, lse, delta, g)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     outs = (_like_out(q),) if which == 0 else (_like_out(k), _like_out(v))
+    route = _pick_bwd_route(q, k, v, g, outs, route)
     ostrides = [x for o in outs for x in o.stride()[:3]]
     ostrides += [0] * (6 - len(ostrides))
     strides = (ctypes.c_longlong * 18)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
         *ostrides)
-    fn = _bwd_kernels()[which]
+    fn = _bwd_kernels(route)[which]
+    dtype = () if route == "tc" else (_DTYPE_CODE[q.dtype],)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(),
                  lengths.data_ptr() if lengths is not None else None,
                  *(o.data_ptr() for o in outs), b, h, tq, tk, d, strides, s,
-                 int(causal), int(bool(cache_offset)), _DTYPE_CODE[q.dtype],
-                 stream)
+                 int(causal), int(bool(cache_offset)), *dtype, stream)
     if err != 0:
         name = ("flash_bwd_dq", "flash_bwd_dkv")[which]
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    return outs
+        raise RuntimeError(f"{name} kernel launch failed ({route} route): "
+                           f"CUDA error {err}")
+    return outs, route
 
 
 def _device_of(q):
@@ -315,42 +367,61 @@ def _device_of(q):
 
 
 def flash_bwd_dq(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
-                 cache_offset=False):
+                 cache_offset=False, route=None):
     """dq of the flash backward: a CPU tensor takes
-    :func:`flash_bwd_dq_reference`, a CUDA tensor launches the dq kernel or
-    raises."""
-    global flash_bwd_dq_launches
+    :func:`flash_bwd_dq_reference`, a CUDA tensor launches the dq kernel of
+    the route :func:`flash_bwd_route` names (or ``route="simt"``: the SIMT
+    kernel whatever the type) or raises. A ``route`` the rule does not
+    allow raises on the CPU too."""
+    global flash_bwd_dq_launches, flash_bwd_dq_tc_launches
+    global flash_bwd_dq_simt_launches
     if _device_of(q) == "cpu":
+        if route is not None:
+            _pick_bwd_route(q, k, v, g, (), route)
         return flash_bwd_dq_reference(q, k, v, lengths, lse, delta, g, scale,
                                       causal, cache_offset)
-    (dq,) = _launch_bwd(0, q, k, v, lengths, lse, delta, g, scale, causal,
-                        cache_offset)
+    (dq,), route = _launch_bwd(0, q, k, v, lengths, lse, delta, g, scale,
+                               causal, cache_offset, route)
+    if route == "tc":
+        flash_bwd_dq_tc_launches += 1
+    else:
+        flash_bwd_dq_simt_launches += 1
     flash_bwd_dq_launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
-                  cache_offset=False):
+                  cache_offset=False, route=None):
     """(dk, dv) of the flash backward: a CPU tensor takes
     :func:`flash_bwd_dkv_reference`, a CUDA tensor launches the dk/dv kernel
-    or raises."""
-    global flash_bwd_dkv_launches
+    of the route :func:`flash_bwd_route` names (or ``route="simt"``) or
+    raises. A ``route`` the rule does not allow raises on the CPU too."""
+    global flash_bwd_dkv_launches, flash_bwd_dkv_tc_launches
+    global flash_bwd_dkv_simt_launches
     if _device_of(q) == "cpu":
+        if route is not None:
+            _pick_bwd_route(q, k, v, g, (), route)
         return flash_bwd_dkv_reference(q, k, v, lengths, lse, delta, g,
                                        scale, causal, cache_offset)
-    dk, dv = _launch_bwd(1, q, k, v, lengths, lse, delta, g, scale, causal,
-                         cache_offset)
+    (dk, dv), route = _launch_bwd(1, q, k, v, lengths, lse, delta, g, scale,
+                                  causal, cache_offset, route)
+    if route == "tc":
+        flash_bwd_dkv_tc_launches += 1
+    else:
+        flash_bwd_dkv_simt_launches += 1
     flash_bwd_dkv_launches += 1
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, lengths, lse, delta, g, scale=None,
-                        causal=False, cache_offset=False):
+                        causal=False, cache_offset=False, route=None):
     """The flash backward, the counterpart of the JAX package's
     ``_flash_bwd``: (dq, dk, dv) in the input dtypes from the forward's
-    ``lse`` and ``delta = sum(g * o)`` (both fp32 (B, H, Tq))."""
+    ``lse`` and ``delta = sum(g * o)`` (both fp32 (B, H, Tq)); ``route``
+    as :func:`flash_bwd_dq` takes it."""
     args = (q, k, v, lengths, lse, delta, g, scale, causal, cache_offset)
-    return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+    return (flash_bwd_dq(*args, route=route),
+            *flash_bwd_dkv(*args, route=route))
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -12,6 +12,10 @@ another order than the plain version's matmuls, TF32 off on both); bf16
 Backward (dq, dk, dv), relative to max|plain| of each: fp32 1e-4 (order of
 sums), bf16 2e-2 (the kernels round p and dS to bf16 before their
 products, as the TPU kernels do; the plain version keeps them in fp32).
+The backward takes the route ``flash_bwd_route`` names: bf16 with D 64 or
+128 and 16-byte aligned operands on the tensor-core kernels
+(``csrc/flash_bwd_tc.cu``), everything else on the SIMT kernels
+(``csrc/flash_bwd.cu``); the card tests check which one ran.
 """
 
 import numpy as np
@@ -31,6 +35,7 @@ CASES = [
     ("prefill_T256", 1, 12, 256, 256, 64, True, False, None),
     ("decode_S8_Tk512", 8, 12, 1, 512, 64, True, True,
      [1, 7, 64, 65, 129, 300, 511, 512]),
+    ("causal_d128_T320", 2, 3, 320, 320, 128, True, False, None),
 ]
 TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -145,16 +150,36 @@ def _bwd_case(case, dtype, device, seed=0):
                                                 cache_offset=cache_offset)
 
 
+def _route_counts():
+    return {(k, r): getattr(fa, f"flash_bwd_{k}_{r}_launches")
+            for k in ("dq", "dkv") for r in ("tc", "simt")}
+
+
+def _expect_route(before, route):
+    """One launch of each backward kernel since ``before``, on ``route``."""
+    now = _route_counts()
+    for k in ("dq", "dkv"):
+        assert now[k, route] == before[k, route] + 1, (k, route, now)
+        other = "simt" if route == "tc" else "tc"
+        assert now[k, other] == before[k, other], (k, other, now)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_backward_kernels_match_plain_on_card(cuda_device, case, dtype):
     args, kw = _bwd_case(case, dtype, cuda_device)
     n_dq, n_dkv = fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches
+    before = _route_counts()
     got = fa.flash_attention_bwd(*args, **kw)
     torch.cuda.synchronize()
     assert (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches) == \
         (n_dq + 1, n_dkv + 1)
+    q, k, v, _, _, _, g = args
+    rule = fa.flash_bwd_route(q, k, v, g)
+    assert rule == ("tc" if dtype == torch.bfloat16 and case[5] in (64, 128)
+                    else "simt")
+    _expect_route(before, rule)
     want = fa.flash_attention_bwd_reference(*args, **kw)
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         assert x.shape == y.shape and x.dtype == dtype, name
@@ -167,11 +192,55 @@ def test_backward_kernels_match_plain_on_card(cuda_device, case, dtype):
 
 
 def test_backward_kernels_repeat_bit_for_bit(cuda_device):
+    """No atomics: the tensor-core route (bf16, D=64) repeats exactly."""
     args, kw = _bwd_case(CASES[5], torch.bfloat16, cuda_device)
+    before = _route_counts()
     first = fa.flash_attention_bwd(*args, **kw)
+    _expect_route(before, "tc")
     second = fa.flash_attention_bwd(*args, **kw)
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+def test_backward_simt_route_stays_reachable_in_bf16(cuda_device):
+    """``route="simt"`` runs the SIMT kernels on a call the rule sends to
+    the tensor cores, and both agree within the bf16 tolerance;
+    ``route="tc"`` where the rule says simt raises before a launch."""
+    args, kw = _bwd_case(CASES[1], torch.bfloat16, cuda_device)
+    before = _route_counts()
+    simt = fa.flash_attention_bwd(*args, route="simt", **kw)
+    _expect_route(before, "simt")
+    before = _route_counts()
+    tc = fa.flash_attention_bwd(*args, **kw)
+    _expect_route(before, "tc")
+    for x, y in zip(tc, simt):
+        tol = TOLS[torch.bfloat16] * max(1.0, y.float().abs().max().item())
+        torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol)
+    args32, kw32 = _bwd_case(CASES[1], torch.float32, cuda_device)
+    before = _route_counts()
+    with pytest.raises(ValueError, match="takes 'simt'"):
+        fa.flash_bwd_dq(*args32, route="tc", **kw32)
+    assert _route_counts() == before
+
+
+def test_backward_misaligned_bf16_view_takes_simt(cuda_device):
+    """A bf16 view whose rows are not 16-byte units goes to the SIMT
+    kernels and still matches the plain version."""
+    case = ("odd_rows", 2, 2, 40, 40, 64, True, False, None)
+    args, kw = _bwd_case(case, torch.bfloat16, cuda_device)
+    q, k, v, lens, lse, delta, g = args
+    wide = torch.zeros(2, 2, 40, 65, dtype=q.dtype, device=q.device)
+    wide[..., :64] = q
+    q = wide[..., :64]                     # t-stride 65: not 16-byte rows
+    assert fa.flash_bwd_route(q, k, v, g) == "simt"
+    before = _route_counts()
+    got = fa.flash_attention_bwd(q, k, v, lens, lse, delta, g, **kw)
+    _expect_route(before, "simt")
+    want = fa.flash_attention_bwd_reference(q, k, v, lens, lse, delta, g,
+                                            **kw)
+    for x, y in zip(got, want):
+        tol = TOLS[torch.bfloat16] * max(1.0, y.float().abs().max().item())
+        torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol)
 
 
 def test_autograd_through_the_kernels_on_card(cuda_device):
@@ -191,3 +260,26 @@ def test_autograd_through_the_kernels_on_card(cuda_device):
         assert fa.flash_bwd_dq_launches == n0 + int(kernel)
         grads.append(qkv.grad)
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-4)
+
+
+def test_autograd_through_the_tc_route_on_card(cuda_device):
+    """bf16 head-split views of a fused QKV buffer (t-stride 3*H*D) take
+    the tensor-core kernels through autograd, and their gradients match
+    the plain version's autograd on the same bf16 inputs within the bf16
+    tolerance (relative to max|plain|)."""
+    rs = np.random.RandomState(11)
+    base = torch.from_numpy(rs.randn(2, 150, 3, 4, 64).astype(np.float32))
+    g = torch.from_numpy(rs.randn(2, 4, 150, 64).astype(np.float32))
+    g = g.to(cuda_device, torch.bfloat16)
+    grads = []
+    for kernel in (True, False):
+        qkv = base.to(cuda_device, torch.bfloat16).requires_grad_(True)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        fn = fa.flash_attention if kernel else fa.flash_attention_reference
+        before = _route_counts()
+        fn(q, k, v, causal=True).backward(g)
+        if kernel:
+            _expect_route(before, "tc")
+        grads.append(qkv.grad.float())
+    tol = TOLS[torch.bfloat16] * max(1.0, grads[1].abs().max().item())
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=tol)

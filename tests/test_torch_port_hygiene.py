@@ -156,11 +156,11 @@ def test_kernel_build_is_content_addressed():
     assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
     assert (_build.CSRC / "flash_fwd.cu").exists()
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
-    assert set(_build.SOURCES) == {"flash_fwd", "flash_bwd", "fused_conv",
-                                   "conv_bwd", "conv_bwd_tc",
+    assert set(_build.SOURCES) == {"flash_fwd", "flash_bwd", "flash_bwd_tc",
+                                   "fused_conv", "conv_bwd", "conv_bwd_tc",
                                    "fused_conv_tc"}
     assert fa._fn is None or torch.cuda.is_available()
-    assert fa._bwd_fns is None or torch.cuda.is_available()
+    assert not fa._bwd_fns or torch.cuda.is_available()
     assert not fc._fns or torch.cuda.is_available()
 
 
