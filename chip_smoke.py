@@ -8,28 +8,38 @@ Phases (any failure raises, and the script exits non-zero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, started together), print ``tools/torch_ptxas_report.py
-   fused_conv_tc conv_bwd_tc flash_bwd_tc`` (registers, spills, and the
-   HGMMA and UTMALDG instructions in the SASS of the bf16 tensor-core
-   K1/K2/K3 and K5/K6: both must be there, and no spill), and compile the
-   rtc kernels of ``csrc/rtc/`` with NVRTC;
+   fused_conv_tc conv_bwd_tc flash_fwd_tc flash_bwd_tc`` (registers,
+   spills, and the HGMMA and UTMALDG instructions in the SASS of the bf16
+   tensor-core K1/K2/K3 and K4/K5/K6: both must be there, and no spill),
+   and compile the rtc kernels of ``csrc/rtc/`` with NVRTC;
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the shapes the serving and training paths give it, in fp32 and bf16
    (TF32 off), with its device time (CUDA-graph replay, inputs warm in L2),
    its time as an eager call (host work included), the plain version's and
    one PyTorch library call's device time (timed here only, never used by
    the port) and the least time the card could take for the same work.
-   The forward kernel (K4) first, then the two backward kernels (K5 dq,
-   K6 dk/dv) on ``BWD_CASES``; each backward row names its route
-   (``flash_attention.flash_bwd_route``): every bf16 row must take the
-   tensor-core kernels (``csrc/flash_bwd_tc.cu``), every fp32 row the SIMT
-   kernels (``csrc/flash_bwd.cu``), and a bf16 row also times the SIMT
-   kernels on the same inputs (``simt_ms``);
+   The forward kernel (K4) first, on its own cases, one on the GPT's own
+   operands (views of one fused QKV projection) and ``BWD_CASES``; each
+   row names its route (``flash_attention.flash_fwd_route``): a decode
+   step (Tq = 1) must take the split kernels
+   (``csrc/flash_fwd_split.cu``), the other bf16 rows the tensor-core
+   kernel (``csrc/flash_fwd_tc.cu``), the other fp32 rows the SIMT kernel
+   (``csrc/flash_fwd.cu``); a row not on the SIMT route also runs the SIMT
+   kernel on the same inputs, holds it against the plain version as well
+   and times it (``simt_ms``), and causal square rows time SDPA with
+   ``is_causal`` beside its boolean mask. Then the two
+   backward kernels (K5 dq, K6 dk/dv) on ``BWD_CASES``; each backward row
+   names its route (``flash_attention.flash_bwd_route``): every bf16 row
+   must take the tensor-core kernels (``csrc/flash_bwd_tc.cu``), every
+   fp32 row the SIMT kernels (``csrc/flash_bwd.cu``), and a bf16 row also
+   times the SIMT kernels on the same inputs (``simt_ms``);
 4. serving phase: greedy KV-cache decode of ``gpt_decoder_117m`` (12
    layers, 768 units, 12 heads, vocab 50257; weights drawn from ``--seed``)
    through ``serving.DecodeSession`` with 8 slots and a 512-token cache, 12
    prompts of 5 to 250 tokens, 32 new tokens each. Three streams are held
    token for token against the full-forward greedy oracle (``net(tokens)``
-   re-run per token), and K4's launch count shows the path went through it;
+   re-run per token), and K4's launch count shows the path went through it:
+   every decode step on the split route (``decode_routes``);
 5. training phase: ``gpt_decoder_117m`` with ``max_length`` 256 and
    dropout 0 at B=8, T=256: the fp32 gradient of every parameter through
    the kernels against the same model with its attention swapped for the
@@ -44,7 +54,7 @@ Phases (any failure raises, and the script exits non-zero):
    momentum 0.9), timed; and a ``torch.profiler`` breakdown of one bf16
    step. K4, K5 and K6 each launch exactly 12 times per training pass
    (counted over the training steps alone; train -> decode and the bf16
-   gate are counted on their own), K5/K6 of every fp32 pass on the SIMT
+   gate are counted on their own), K4/K5/K6 of every fp32 pass on the SIMT
    route, of every bf16 pass on the tensor-core route;
 6. conv kernel phase: the fused conv + BatchNorm kernels (K1 forward, K2
    input gradient, K3 weight gradient) against their plain versions in
@@ -102,12 +112,13 @@ Phases (any failure raises, and the script exits non-zero):
    ``invoke_op("fused_conv_bn")`` with gradients, equal to the direct
    calls bit for bit.
 
-The line before the last is the kernels' JSON record (K1 to K7; K1, K2,
-K3, K5 and K6 once per route, ``fused_conv``/``conv_bwd_dx``/
+The line before the last is the kernels' JSON record (K1 to K7; K1 to K6
+once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
-fp32 head case, ``fused_conv_tc``/``conv_bwd_dx_tc``/``conv_bwd_dw_tc``/
-``flash_bwd_dq_tc``/``flash_bwd_dkv_tc`` the tensor-core kernels at the
-bf16 head case); the last line is
+fp32 head case, ``flash_fwd_tc``/``fused_conv_tc``/``conv_bwd_dx_tc``/
+``conv_bwd_dw_tc``/``flash_bwd_dq_tc``/``flash_bwd_dkv_tc`` the
+tensor-core kernels at the bf16 head case, ``flash_fwd_split`` the split
+kernels at the fp32 decode case); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or run alone without
 the repository beside it (the port does not import), the script exits 2
 before printing any result.
@@ -140,7 +151,8 @@ TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GRAD_RTOL = 1e-3
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 # the routes of the kernels that have two (conv K1-K3, flash K5/K6): "tc"
-# the bf16 tensor-core kernels, "simt" the others
+# the bf16 tensor-core kernels, "simt" the others (K4 has three,
+# ``FWD_ROUTES``)
 ROUTES = ("tc", "simt")
 
 
@@ -259,78 +271,185 @@ def attention_bwd_bound(kernel, b, h, tq, tk, d, dtype, valid):
                                        else "operations")
 
 
-def kernel_phase(seed):
+# (name, b, tq, tk, d, causal, cache_offset, lengths, want_lse) of the
+# forward's own cases, H = 12; lengths "decode" are drawn from the seed
+FWD_CASES = [
+    # prefill at the largest and the smallest bucket: B=1, causal
+    ("prefill_causal_B1_T256", 1, 256, 256, 64, True, False, None, False),
+    ("prefill_causal_B1_T16", 1, 16, 16, 64, True, False, None, False),
+    # a decode step: 8 slots against the 512-token cache, ragged fill
+    ("decode_cache_offset_S8_Tk512", 8, 1, 512, 64, True, True, "decode",
+     False),
+    # non-causal key lengths (one empty row set) with the lse output
+    ("lengths_lse_B4_T128x384", 4, 128, 384, 64, False, False,
+     (384, 200, 17, 0), True),
+    # the training forward: B=8, T=256, causal, with the lse the backward
+    # needs
+    ("train_causal_lse_B8_T256", 8, 256, 256, 64, True, False, None, True),
+]
+# the training forward on the GPT's own operands: q, k, v views of one
+# fused (B, T, 3, H, D) projection, o into a (B, T, H, D) buffer
+GPT_VIEWS = "gpt_qkv_views_B8_T256"
+FWD_HEAD = "train_causal_lse_B8_T256"
+FWD_DECODE = "decode_cache_offset_S8_Tk512"
+# the lse against the plain version's, absolute (-inf rows identical)
+LSE_TOL = 1e-3
+FWD_ROUTES = ("tc", "split", "simt")
+
+
+def fwd_cases():
+    """The forward's cases, the GPT-views case, then each of ``BWD_CASES``
+    whose shape is not among them (with the lse): D=128, Tq=16 with cache
+    offset, Tq > Tk."""
+    cases = list(FWD_CASES)
+    cases.append((GPT_VIEWS, *next(c for c in FWD_CASES
+                                   if c[0] == FWD_HEAD)[1:]))
+    seen = {c[1:8] for c in cases}
+    cases += [(*c, True) for c in BWD_CASES if c[1:] not in seen]
+    return cases
+
+
+def fwd_route_expected(tq, d, dtype):
+    """The route ``flash_fwd_route`` gives a call with aligned operands."""
+    if tq == 1:
+        return "split"
+    return "tc" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+
+
+def _fwd_route_counts(fa):
+    return {r: getattr(fa, f"flash_fwd_{r}_launches") for r in FWD_ROUTES}
+
+
+def _check_fwd_route(label, before, now, expect):
+    """One forward call since ``before``, on ``expect``."""
+    taken = [r for r in FWD_ROUTES if now[r] - before[r] == 1]
+    if taken != [expect] or sum(now.values()) - sum(before.values()) != 1:
+        raise AssertionError(f"flash_fwd {label} took {taken}, not "
+                             f"{expect}")
+
+
+def _check_fwd_out(label, got, want, dtype):
+    """(o's max abs err, the lse's) of a forward ``(o, lse)`` against the
+    plain version's: o within ``TOLS``, the lse within ``LSE_TOL`` (fp32:
+    ``TOLS``) with its -inf rows identical, and no NaN in either."""
+    if torch.isnan(got[0]).any() or torch.isnan(got[1]).any():
+        raise AssertionError(f"flash_fwd {label}: NaN")
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    g_inf, w_inf = torch.isinf(got[1]), torch.isinf(want[1])
+    if not torch.equal(g_inf, w_inf):
+        raise AssertionError(f"flash_fwd {label}: lse -inf rows differ")
+    fin = ~w_inf
+    lse_err = (got[1][fin] - want[1][fin]).abs().max().item() \
+        if fin.any() else 0.0
+    tol = TOLS[dtype]
+    lse_tol = min(tol, LSE_TOL)
+    if not math.isfinite(err) or err > tol:
+        raise AssertionError(f"flash_fwd {label}: max abs err {err} > {tol}")
+    if not math.isfinite(lse_err) or lse_err > lse_tol:
+        raise AssertionError(f"flash_fwd {label}: lse max abs err "
+                             f"{lse_err} > {lse_tol}")
+    return err, lse_err
+
+
+def kernel_phase(seed, dev=None, cases=None, h=12):
+    """K4 against its plain version on ``fwd_cases()`` in fp32 and bf16.
+    Each row names its route (``flash_attention.flash_fwd_route``) and must
+    take the one the rule gives its shape; a row not on the SIMT route
+    also runs the SIMT kernel on the same inputs, held to the same
+    tolerances, and times it (``simt_ms``). The
+    library call is SDPA under the same boolean mask and, for causal rows
+    with Tq == Tk and no lengths (where its top-left causal mask is the
+    same one), with ``is_causal=True`` (``library_causal_ms``). o is held
+    to ``TOLS``, the lse to ``LSE_TOL`` (fp32: ``TOLS``) with its -inf rows
+    identical, and neither holds a NaN."""
     import torch.nn.functional as F
 
     from incubator_mxnet_tpu_torch.ops import flash_attention as fa
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device("cuda", 0) if dev is None else dev
     rs = np.random.RandomState(seed)
-    h, d = 12, 64
     decode_lens = np.sort(rs.randint(1, 513, size=8))
-    cases = [
-        # prefill at the largest bucket: B=1, causal
-        ("prefill_causal_B1_T256", 1, 256, 256, True, False, None, False),
-        # a decode step: 8 slots against the 512-token cache, ragged fill
-        ("decode_cache_offset_S8_Tk512", 8, 1, 512, True, True,
-         decode_lens, False),
-        # non-causal key lengths (one empty row set) with the lse output
-        ("lengths_lse_B4_T128x384", 4, 128, 384, False, False,
-         np.array([384, 200, 17, 0]), True),
-        # the training forward: B=8, T=256, causal, with the lse the
-        # backward needs
-        ("train_causal_lse_B8_T256", 8, 256, 256, True, False, None, True),
-    ]
     results = []
-    for name, b, tq, tk, causal, cache_offset, lengths, want_lse in cases:
+    for name, b, tq, tk, d, causal, cache_offset, lengths, want_lse in \
+            (fwd_cases() if cases is None else cases):
+        if isinstance(lengths, str):
+            lengths = decode_lens
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.from_numpy(rs.randn(b, h, t, d).astype(
-                np.float32)).to(dev, dtype) for t in (tq, tk, tk))
+            if name == GPT_VIEWS:
+                qkv = torch.from_numpy(rs.randn(b, tq, 3, h, d).astype(
+                    np.float32)).to(dev, dtype)
+                q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+            else:
+                q, k, v = (torch.from_numpy(rs.randn(b, h, t, d).astype(
+                    np.float32)).to(dev, dtype) for t in (tq, tk, tk))
             lens = None if lengths is None else \
-                torch.from_numpy(lengths.astype(np.int32)).to(dev)
+                torch.tensor(np.asarray(lengths, np.int32), device=dev)
             kw = dict(causal=causal, cache_offset=cache_offset,
-                      return_lse=want_lse)
+                      return_lse=True)
+            expect = fwd_route_expected(tq, d, dtype)
+            before = _fwd_route_counts(fa)
             got = fa.flash_attention(q, k, v, lens, **kw)
+            label = f"{name} {DTYPE_NAMES[dtype]}"
+            _check_fwd_route(label, before, _fwd_route_counts(fa), expect)
             want = fa.flash_attention_reference(q, k, v, lens, **kw)
-            torch.cuda.synchronize()
-            if not want_lse:
-                got, want = (got, None), (want, None)
-            err = (got[0].float() - want[0].float()).abs().max().item()
-            if want_lse:
-                g_inf, w_inf = torch.isinf(got[1]), torch.isinf(want[1])
-                if not torch.equal(g_inf, w_inf):
-                    raise AssertionError(f"{name}: lse -inf rows differ")
-                fin = ~w_inf
-                err = max(err, (got[1][fin] - want[1][fin]).abs().max()
-                          .item())
+            err, lse_err = _check_fwd_out(label, got, want, dtype)
+            simt_err = None
+            if expect != "simt":
+                simt_err, _ = _check_fwd_out(
+                    f"{label} simt", fa.flash_attention(q, k, v, lens,
+                                                        route="simt", **kw),
+                    want, dtype)
             tol = TOLS[dtype]
-            if not math.isfinite(err) or err > tol:
-                raise AssertionError(f"flash_fwd {name} {DTYPE_NAMES[dtype]}"
-                                     f": max abs err {err} > {tol}")
+            lse_tol = min(tol, LSE_TOL)
             valid = _valid_mask(b, tq, tk, lens, causal, cache_offset, dev)
+            kw["return_lse"] = want_lse
 
-            def kernel():
-                return fa.flash_attention(q, k, v, lens, **kw)
+            def kernel(route=None):
+                return fa.flash_attention(q, k, v, lens, route=route, **kw)
 
             ms = device_ms(kernel)
             wrapper_ms = call_ms(kernel)
             plain_ms = device_ms(
                 lambda: fa.flash_attention_reference(q, k, v, lens, **kw))
+            simt_ms = device_ms(lambda: kernel("simt")) \
+                if expect != "simt" else None
             library_ms = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=valid))
+            library_causal_ms = device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True)) \
+                if causal and lens is None and tq == tk else None
             bound_ms, bound_by = attention_bound(b, h, tq, tk, d, dtype,
                                                  valid, want_lse)
-            r = dict(case=name, dtype=DTYPE_NAMES[dtype], max_abs_err=err,
-                     tol=tol, ms=ms, wrapper_ms=wrapper_ms,
-                     plain_ms=plain_ms, library_ms=library_ms,
+            r = dict(kernel="flash_fwd", case=name, dtype=DTYPE_NAMES[dtype],
+                     route=expect, max_abs_err=err, lse_err=lse_err,
+                     simt_max_abs_err=simt_err, tol=tol,
+                     lse_tol=lse_tol, ms=ms, wrapper_ms=wrapper_ms,
+                     plain_ms=plain_ms, simt_ms=simt_ms,
+                     library_ms=library_ms,
+                     library_causal_ms=library_causal_ms,
                      bound_ms=bound_ms, bound_by=bound_by)
             results.append(r)
-            print(f"kernel flash_fwd {name} {r['dtype']}: max_abs_err="
-                  f"{err:.3e} (tol {tol:g}) ms={ms:.5f} (device, CUDA graph)"
-                  f" wrapper_ms={wrapper_ms:.5f} (eager call, host "
-                  f"included) plain_ms={plain_ms:.5f} library_ms="
+            also = "" if simt_ms is None else \
+                (f" simt_ms={simt_ms:.5f} (SIMT kernel, max_abs_err="
+                 f"{simt_err:.3e})")
+            if library_causal_ms is not None:
+                also += (f" library_causal_ms={library_causal_ms:.5f} (SDPA,"
+                         " is_causal)")
+            print(f"kernel flash_fwd {label} route {expect}: max_abs_err="
+                  f"{err:.3e} (tol {tol:g}) lse_err={lse_err:.3e} (tol "
+                  f"{lse_tol:g}) ms={ms:.5f} (device, CUDA graph) "
+                  f"wrapper_ms={wrapper_ms:.5f} (eager call, host included)"
+                  f" plain_ms={plain_ms:.5f}{also} library_ms="
                   f"{library_ms:.5f} (SDPA, boolean mask) bound_ms="
                   f"{bound_ms:.5f} ({bound_by})", flush=True)
+    slower = [f"{r['case']} {r['dtype']} ({r['route']} {r['ms']:.5f} >= "
+              f"simt {r['simt_ms']:.5f})" for r in results
+              if r["simt_ms"] is not None and r["ms"] >= r["simt_ms"]]
+    print("flash_fwd: the tc and split routes against the SIMT kernel on "
+          "the same inputs: " + ("faster in every row" if not slower else
+                                 "not faster in " + "; ".join(slower)),
+          flush=True)
     return results
 
 
@@ -389,9 +508,11 @@ BWD_CASES = [
 BWD_HEAD = "train_causal_B8_T256"
 
 
-# the backward kernels' launches by route
+# the flash kernels' launches by route: the backward's, then the
+# forward's (``FWD_ROUTES``)
 ROUTE_COUNTERS = tuple(f"{k}_{r}" for k in ("flash_bwd_dq", "flash_bwd_dkv")
-                       for r in ROUTES)
+                       for r in ROUTES) + tuple(f"flash_fwd_{r}"
+                                                for r in FWD_ROUTES)
 
 
 def _read_routes(fa):
@@ -534,6 +655,20 @@ def oracle_check(net, prompt, stream, dev):
     return len(stream)
 
 
+def decode_routes(buckets, prompt_lens, steps):
+    """The forward launches by route of fp32 decode serving: 12 a decode
+    step (Tq = 1: split) and 12 a prefill, whose Tq is its prompt's
+    bucket (fp32: simt)."""
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    want = dict.fromkeys(FWD_ROUTES, 0)
+    want["split"] += 12 * steps
+    for n in prompt_lens:
+        bucket = min(bk for bk in buckets if bk >= n)
+        want[fwd_route_expected(bucket, 64, torch.float32)] += 12
+    return want
+
+
 def slice_phase(seed):
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch import serving
@@ -569,13 +704,14 @@ def slice_phase(seed):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        fa.flash_fwd_launches = 0
+        _reset_launches(fa)
         t0 = time.perf_counter()
         handles = [sess.submit(p, max_new_tokens=new_tokens)
                    for p in prompts]
         streams = [h.result(600) for h in handles]
         wall = time.perf_counter() - t0
         launches = fa.flash_fwd_launches
+        routes = _fwd_route_counts(fa)
         stats = sess.stats()
         peak = torch.cuda.max_memory_allocated(dev)
         if not sess.drain(60):
@@ -606,6 +742,12 @@ def slice_phase(seed):
     if launches < 12 * steps:
         raise AssertionError("the decode path did not go through the "
                              "flash_fwd kernel")
+    want_routes = decode_routes(sess.prefill_buckets, lengths, steps)
+    print(f"flash_fwd launches by route: {routes} (want {want_routes}: the "
+          f"{steps} decode steps on split)", flush=True)
+    if routes != want_routes or prefills != len(prompts):
+        raise AssertionError(f"serving launched flash_fwd by route {routes}"
+                             f", not {want_routes}")
 
     order = np.argsort(lengths)
     checked = [int(order[0]), int(order[len(order) // 2]), int(order[-1])]
@@ -613,8 +755,9 @@ def slice_phase(seed):
         n = oracle_check(net, prompts[i], streams[i], dev)
         print(f"oracle: request {i} (prompt {lengths[i]} tokens) matched "
               f"{n} of {len(streams[i])} tokens", flush=True)
-    return dict(launches=launches, steps=steps, prefills=prefills,
-                tokens=tokens, wall_s=wall, stats=stats, peak_bytes=peak)
+    return dict(launches=launches, routes=routes, steps=steps,
+                prefills=prefills, tokens=tokens, wall_s=wall, stats=stats,
+                peak_bytes=peak)
 
 
 # ---------------------------------------------------------------------------
@@ -716,9 +859,10 @@ def gpt_bf16_gate(net, loss_fn, x, y):
     return worst[0]
 
 
-FLASH_TAGS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-              "flash_bwd_dkv_kernel", "flash_bwd_dq_tc_kernel",
-              "flash_bwd_dkv_tc_kernel")
+FLASH_TAGS = ("flash_fwd_kernel", "flash_fwd_tc_kernel",
+              "flash_fwd_split_kernel", "flash_fwd_merge_kernel",
+              "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+              "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
 
 
 def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14,
@@ -821,6 +965,7 @@ def train_phase(seed, card):
         stream = sess.generate(prompt, max_new_tokens=16)
         stats = sess.stats()
     decode_launches = _read_launches(fa)
+    decode_routes_got = _fwd_route_counts(fa)
     n = oracle_check(net, prompt, stream, dev)
     steps, prefills = stats["steps"], stats["prefills"]
     print(f"train -> decode: the trained weights served {len(stream)} "
@@ -832,6 +977,10 @@ def train_phase(seed, card):
             or decode_launches["flash_bwd_dkv"]:
         raise AssertionError("train -> decode: the decode path did not go "
                              "through flash_fwd alone")
+    want_routes = decode_routes(sess.prefill_buckets, [len(prompt)], steps)
+    if decode_routes_got != want_routes or prefills != 1:
+        raise AssertionError(f"train -> decode launched flash_fwd by route "
+                             f"{decode_routes_got}, not {want_routes}")
 
     _reset_launches(fa)
     # the eager entry point: record -> backward -> step
@@ -863,7 +1012,9 @@ def train_phase(seed, card):
     gate = {**_read_launches(fa), **_read_routes(fa)}
     want_gate = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
                  "flash_bwd_dq_tc": 12, "flash_bwd_dkv_tc": 12,
-                 "flash_bwd_dq_simt": 0, "flash_bwd_dkv_simt": 0}
+                 "flash_bwd_dq_simt": 0, "flash_bwd_dkv_simt": 0,
+                 "flash_fwd_tc": 24, "flash_fwd_split": 0,
+                 "flash_fwd_simt": 0}
     if gate != want_gate:
         raise AssertionError(f"bf16 gate launches {gate}, not {want_gate}")
 
@@ -899,8 +1050,8 @@ def train_phase(seed, card):
     routes = {name: routes[name] + window[name] for name in ROUTE_COUNTERS}
 
     # one forward and one backward per pass, each through the 12 layers;
-    # the backward of every fp32 pass on the SIMT K5/K6, of every bf16
-    # pass on the tensor-core ones
+    # every fp32 pass on the SIMT K4/K5/K6, every bf16 pass on the
+    # tensor-core ones
     want = 12 * backward_passes
     print(f"launches on the training path: {launches} over "
           f"{backward_passes} backward passes (12 x {backward_passes} = "
@@ -910,14 +1061,17 @@ def train_phase(seed, card):
         if launches[name] != want:
             raise AssertionError(f"training launched {name} "
                                  f"{launches[name]} times, not {want}")
-    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         for route, passes in (("simt", fp32_passes), ("tc", bf16_passes)):
             if routes[f"{kernel}_{route}"] != 12 * passes:
                 raise AssertionError(f"training launched {kernel} on {route}"
                                      f" {routes[f'{kernel}_{route}']} times, "
                                      f"not 12 x {passes}")
+    if routes["flash_fwd_split"]:
+        raise AssertionError("training launched flash_fwd on split")
     return dict(launches=launches, routes=routes, gate_launches=gate,
                 decode_launches=decode_launches,
+                decode_routes=decode_routes_got,
                 backward_passes=backward_passes, grad_worst_rel=worst,
                 bf16_grad_worst_rel=bf16_worst,
                 learning_losses=losses, step_ms=step_ms, tokens_s=tokens_s,
@@ -2243,16 +2397,17 @@ def _entry(name, source, replaces, launches, cases, head_case,
     return entry
 
 
-# the bf16 conv and flash-backward kernels, which must run on the tensor
-# cores and load through TMA, and their sources
+# the bf16 conv and flash kernels, which must run on the tensor cores and
+# load through TMA, and their sources
 TC_KERNELS = ("fused_conv_tc_kernel", "conv_bwd_dx_tc_kernel",
-              "conv_bwd_dw_tc_kernel", "flash_bwd_dq_tc_kernel",
-              "flash_bwd_dkv_tc_kernel")
-TC_SOURCES = ("fused_conv_tc", "conv_bwd_tc", "flash_bwd_tc")
+              "conv_bwd_dw_tc_kernel", "flash_fwd_tc_kernel",
+              "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+TC_SOURCES = ("fused_conv_tc", "conv_bwd_tc", "flash_fwd_tc",
+              "flash_bwd_tc")
 
 
 def tensor_core_sass():
-    """``tools/torch_ptxas_report.py fused_conv_tc conv_bwd_tc
+    """``tools/torch_ptxas_report.py fused_conv_tc conv_bwd_tc flash_fwd_tc
     flash_bwd_tc``, printed:
     registers, spills, and the HGMMA (wgmma) and UTMALDG (TMA)
     instructions in each tensor-core kernel's SASS; raises unless every
@@ -2323,14 +2478,31 @@ def main(argv=None) -> int:
     src = "incubator_mxnet_tpu_torch/csrc/"
     ref = "incubator_mxnet_tpu/ops/pallas_attention.py:"
     train_case = BWD_HEAD
-    fwd = _entry("flash_fwd", src + "flash_fwd.cu", ref + "54",
-                 trained["launches"]["flash_fwd"], kernel,
-                 "train_causal_lse_B8_T256")
-    fwd["launches_by_path"] = {
-        "decode": served["launches"],
-        "train": trained["launches"]["flash_fwd"],
-        "train_to_decode": trained["decode_launches"]["flash_fwd"]}
-    record = {"kernels": [fwd]}
+    # K4 by route: the SIMT kernel carries fp32 training and the prefills,
+    # the tensor-core kernel bf16 training (the gate, the bench row), the
+    # split kernels the decode steps
+    record = {"kernels": []}
+    for route, source, head, dtype in (
+            ("simt", "flash_fwd.cu", FWD_HEAD, "fp32"),
+            ("tc", "flash_fwd_tc.cu", FWD_HEAD, "bf16"),
+            ("split", "flash_fwd_split.cu", FWD_DECODE, "fp32")):
+        name = "flash_fwd" if route == "simt" else f"flash_fwd_{route}"
+        by_path = {
+            "decode": served["routes"][route],
+            "train": trained["routes"][f"flash_fwd_{route}"],
+            "train_to_decode": trained["decode_routes"][route]}
+        if route == "tc":
+            by_path["bf16_gate"] = trained["gate_launches"]["flash_fwd_tc"]
+        main_path = "decode" if route == "split" else "train"
+        entry = _entry(name, src + source, ref + "54", by_path[main_path],
+                       [r for r in kernel if r["route"] == route], head,
+                       dtype)
+        row = next(r for r in entry["cases"] if r["case"] == head
+                   and r["dtype"] == dtype)
+        entry["library_causal_ms"] = row["library_causal_ms"]
+        entry["simt_ms"] = row["simt_ms"]
+        entry["launches_by_path"] = by_path
+        record["kernels"].append(entry)
     # K5 and K6 by route: the SIMT kernels carry fp32 (the oracle, the
     # fp32 training steps), the tensor-core kernels bf16 (the gate, the
     # bench row)

@@ -61,60 +61,19 @@
 
 #include <type_traits>
 
-#include "hopper.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
-using namespace mxhop;
-using bf16 = __nv_bfloat16;
+using namespace mxflash;
 
-constexpr int kTile = 64;                    // rows of a tile (queries/keys)
 constexpr int kThreads = 160;                // consumer warpgroup + producer
-constexpr int kBox = kTile * 64 * 2;         // one 64 x 64 bf16 box
 constexpr int kStages = 2;                   // ring of shared-memory stages
-constexpr float kLog2e = 1.4426950408889634f;
-
-// which (query, key) pairs of one batch entry are attended
-struct Mask {
-  int kmax, diag, tq, causal;
-  // (no short-circuit: no branch per element)
-  __device__ __forceinline__ bool ok(int query, int key) const {
-    return (query < tq) & (key < kmax) & (!causal | (key <= query + diag));
-  }
-  // every pair of the tile [q0, q0 + 64) x [k0, k0 + 64) is attended
-  __device__ __forceinline__ bool full(int q0, int k0) const {
-    return q0 + kTile <= tq && k0 + kTile <= kmax &&
-           (!causal || k0 + kTile - 1 <= q0 + diag);
-  }
-};
-
-__device__ __forceinline__ Mask make_mask(const int* lengths, int b, int Tq,
-                                          int Tk, int causal,
-                                          int cache_offset) {
-  const int klen = lengths ? lengths[b] : Tk;
-  return Mask{min(Tk, klen), cache_offset ? klen - Tq : Tk - Tq, Tq, causal};
-}
 
 // lse * log2(e) for exp2; a non-finite lse (a row with no valid key) reads
 // as +inf, so its p = exp2(-inf) = 0 with no test per element
 __device__ __forceinline__ float lse_log2(float l) {
   return isfinite(l) ? l * kLog2e : INFINITY;
-}
-
-// 2^x in one MUFU op (relative error about 2^-22; results below 2^-126
-// flush to 0, and p is rounded to bf16 after it)
-__device__ __forceinline__ float exp2_fast(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the 64 keys [kend) a dq block walks: the key tiles up to the last
-// attended key of its rows
-__device__ __forceinline__ int dq_tiles(const Mask& m, int q0) {
-  int kend = m.kmax;
-  if (m.causal) kend = min(kend, min(q0 + kTile, m.tq) - 1 + m.diag + 1);
-  return kend > 0 ? (kend + kTile - 1) / kTile : 0;
 }
 
 // the query tiles [i_begin, i_begin + 64 * n) a dk/dv block walks
@@ -128,47 +87,6 @@ __device__ __forceinline__ int dkv_tiles(const Mask& m, int j0,
   *i_begin = ib;
   const int i_end = j0 < m.kmax ? m.tq : 0;
   return i_end > ib ? (i_end - ib + kTile - 1) / kTile : 0;
-}
-
-// K-major operand of k-step kk: D/64 boxes of 64 rows, 16 columns a step
-__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int kk) {
-  return smem_desc(tile + (kk / 4) * kBox + (kk % 4) * 32, 0, 1024);
-}
-
-// MN-major operand of k-step kk: 16 rows (the depth) a step, its D/64
-// column boxes kBox apart
-__device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int kk) {
-  return smem_desc(tile + kk * 2048, kBox, 1024);
-}
-
-// Round the m64 x D accumulator to bf16 and store its rows < `rows` to
-// `out` (row stride `st` elements), through shared memory `stage` (D/64
-// swizzled boxes) so that each thread writes whole 16-byte chunks.
-template <int D>
-__device__ __forceinline__ void store_tile(const float (&acc)[D / 2],
-                                           uint8_t* stage, bf16* out,
-                                           long long st, int rows) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  sync_consumers();  // every product that read `stage` is done
-#pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int r = 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1);
-    const int col = 8 * (i >> 2) + 2 * (lane & 3);
-    const int box = col >> 6, chunk = (col & 63) >> 3;
-    *reinterpret_cast<uint32_t*>(stage + box * kBox + r * 128 +
-                                 ((chunk ^ (r & 7)) << 4) + (col & 7) * 2) =
-        pack_bf16(acc[i], acc[i + 1]);
-  }
-  sync_consumers();
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int idx = tid; idx < kTile * kChunks; idx += 128) {
-    const int r = idx / kChunks, cc = idx % kChunks;
-    if (r >= rows) break;  // rows grow with idx
-    const int box = cc >> 3, chunk = cc & 7;
-    *reinterpret_cast<uint4*>(out + r * st + cc * 8) =
-        *reinterpret_cast<const uint4*>(stage + box * kBox + r * 128 +
-                                        ((chunk ^ (r & 7)) << 4));
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -208,7 +126,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   const Mask m = make_mask(lengths, b, Tq, Tk, causal, cache_offset);
-  const int ntiles = dq_tiles(m, q0);
+  const int ntiles = key_tiles(m, q0);
 
   if (tid == 0) {
     mbar_init(qbar, 1);
@@ -502,28 +420,6 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 // ---------------------------------------------------------------------------
 // host: tensor maps and launches
 // ---------------------------------------------------------------------------
-// The map of a (B, H, T, D) bf16 operand with element strides (b, h, t)
-// and a contiguous head dim, in boxes of 64 rows x 64 columns. A dim of
-// size 1 has no stride to speak of: it gets the packed one (the dims
-// below it end to end).
-int encode_bhtd(CUtensorMap* map, const void* base, int B, int H, int T,
-                int D, const long long* s) {
-  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)T, (uint64_t)H,
-                            (uint64_t)B};
-  const long long e[3] = {s[2], s[1], s[0]};
-  uint64_t strides[3];
-  for (int i = 0; i < 3; ++i) {
-    const uint64_t packed = i == 0 ? dims[0] * 2 : strides[i - 1] * dims[i];
-    strides[i] = dims[i + 1] == 1 ? packed : (uint64_t)e[i] * 2;
-    if (strides[i] % 16 != 0) return (int)cudaErrorInvalidValue;
-  }
-  if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const uint32_t box[4] = {64, (uint32_t)kTile, 1, 1};
-  const uint32_t es[4] = {1, 1, 1, 1};
-  return encode(map, base, 4, dims, strides, box, es);
-}
-
 struct Args {
   const void *q, *k, *v, *g;
   const float *lse, *delta;

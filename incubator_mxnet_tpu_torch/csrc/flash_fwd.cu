@@ -22,9 +22,12 @@
 // and D/4 interleaved output dimensions (d = 4*j + part), so the shared
 // memory reads of the score and P.V loops are free of bank conflicts
 // (rows padded by one float). Row max and row sum are reduced across the
-// four threads with warp shuffles. Decode (Tq=1) uses one of the 32 rows of
-// its tile: the rest of the block idles (a known cost of this first
-// design; wgmma/TMA and a decode-specific split over keys come later).
+// four threads with warp shuffles. Decode (Tq=1) would use one of the 32
+// rows of its tile, so ops/flash_attention.py's `flash_fwd_route` sends
+// decode steps (Tq = 1) to the split kernels of flash_fwd_split.cu and bf16
+// calls with D 64 or 128 and 16-byte aligned operands to the tensor-core
+// kernel of flash_fwd_tc.cu; this kernel takes the rest (fp32 training and
+// prefill, D = 32, misaligned views) and any call named `route="simt"`.
 //
 // Inputs may be strided: each of q, k, v, o has its own batch, head and
 // sequence strides (elements); the head dimension must be contiguous. This

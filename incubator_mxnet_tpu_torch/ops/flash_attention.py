@@ -3,15 +3,19 @@ their plain PyTorch versions.
 
 Counterpart of the JAX package's ``ops/pallas_attention.py``.
 ``flash_attention`` keeps that module's contract. A CUDA tensor always
-launches the kernels: the forward in ``csrc/flash_fwd.cu`` (which replaces
-the TPU kernel ``_flash_fwd_kernel``) and, for a gradient, the two backward
-kernels (``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``) on the
-route :func:`flash_bwd_route` names: the bf16 tensor-core kernels of
-``csrc/flash_bwd_tc.cu`` (``"tc"``) or the SIMT kernels of
-``csrc/flash_bwd.cu`` (``"simt"``). A CPU tensor takes the plain versions,
-``flash_attention_reference`` and ``flash_attention_bwd_reference``. There
-is no size crossover to a dense path here: whether one pays on this card
-has not been measured.
+launches the kernels: the forward (which replaces the TPU kernel
+``_flash_fwd_kernel``) on the route :func:`flash_fwd_route` names: the
+bf16 tensor-core kernel of ``csrc/flash_fwd_tc.cu`` (``"tc"``: training
+and prefill), the kernels of ``csrc/flash_fwd_split.cu`` that split the
+keys of a decode step (one query row) over blocks and merge them
+(``"split"``), or the SIMT kernel of ``csrc/flash_fwd.cu`` (``"simt"``);
+and, for a gradient, the two backward kernels (``_flash_bwd_dq_kernel``
+and ``_flash_bwd_dkv_kernel``) on the route :func:`flash_bwd_route`
+names: the bf16 tensor-core kernels of ``csrc/flash_bwd_tc.cu``
+(``"tc"``) or the SIMT kernels of ``csrc/flash_bwd.cu`` (``"simt"``). A
+CPU tensor takes the plain versions, ``flash_attention_reference`` and
+``flash_attention_bwd_reference``. There is no size crossover to a dense
+path here: whether one pays on this card has not been measured.
 
 Layouts: q (B, H, Tq, D), k/v (B, H, Tk, D), any strides with a contiguous
 head dimension, so the head-split views of a fused QKV projection go in
@@ -24,9 +28,9 @@ Gradients: when grad is enabled and one of q, k, v requires it,
 the JAX package's ``_flash_core`` custom VJP: the forward saves the output
 and the fp32 row log-sum-exp, the backward computes ``delta = sum(g * o)``
 in plain PyTorch and runs the two backward kernels (or, on the CPU, their
-plain version). The route rule is one of dtype, shape and alignment,
+plain version). The route rules are ones of dtype, shape and alignment,
 decided before the launch: a launch that fails raises, whatever its
-route.
+route, and no route gives way to another.
 """
 
 from __future__ import annotations
@@ -47,12 +51,18 @@ __all__ = ["FlashAttentionFunction", "flash_attention",
            "flash_bwd_route", "flash_bwd_dkv_launches",
            "flash_bwd_dkv_simt_launches", "flash_bwd_dkv_tc_launches",
            "flash_bwd_dq_launches", "flash_bwd_dq_simt_launches",
-           "flash_bwd_dq_tc_launches", "flash_fwd_launches"]
+           "flash_bwd_dq_tc_launches", "flash_fwd_launches",
+           "flash_fwd_route", "flash_fwd_simt_launches",
+           "flash_fwd_split_launches", "flash_fwd_tc_launches",
+           "split_plan"]
 
-#: kernel launches made by each wrapper (one per CUDA call); reset them to
-#: 0 before a run and read them after, to show the run went through the
-#: kernels
+#: kernel launches made by each wrapper (one per call, whatever the route
+#: and however many CUDA launches it makes); reset them to 0 before a run
+#: and read them after, to show the run went through the kernels
 flash_fwd_launches = 0
+#: the forward calls by route (see :func:`flash_fwd_route`)
+flash_fwd_tc_launches = flash_fwd_split_launches = 0
+flash_fwd_simt_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 #: the backward launches by route (see :func:`flash_bwd_route`)
@@ -62,8 +72,14 @@ flash_bwd_dkv_tc_launches = flash_bwd_dkv_simt_launches = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _TC_HEAD_DIMS = (64, 128)
-_fn = None
+#: the split kernels (one query row): keys a tile of the chunk, and the
+#: blocks an SM the plan aims for (at 8 slots x 12 heads against a 512-key
+#: cache, chunks of one tile: PERF.md)
+SPLIT_TILE = 64
+SPLIT_BLOCKS_PER_SM = 8
+_fwd_fns = {}
 _bwd_fns = {}
+_sm_counts = {}
 
 
 def _resolve(q, k, lengths, scale, causal, cache_offset):
@@ -165,17 +181,30 @@ def flash_attention_bwd_reference(q, k, v, lengths, lse, delta, g,
     return (flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args))
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("flash_fwd").mxtpu_flash_fwd
+def _fwd_kernel(route):
+    """The forward entry point of the route's library: ``"simt"``
+    ``csrc/flash_fwd.cu`` (a dtype argument before the stream), ``"tc"``
+    ``csrc/flash_fwd_tc.cu`` (bf16 only), ``"split"``
+    ``csrc/flash_fwd_split.cu`` (one query row: the workspace after
+    lengths, no Tq and no causal flags; dtype, chunk and chunk count
+    before the stream)."""
+    fn = _fwd_fns.get(route)
+    if fn is None:
+        source = {"simt": "flash_fwd", "tc": "flash_fwd_tc",
+                  "split": "flash_fwd_split"}[route]
+        fn = getattr(_build.load(source), "mxtpu_" + source)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                       i, i, i, p]
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        if route == "split":
+            fn.argtypes = [p] * 7 + [i, i, i, i, strides, ctypes.c_float,
+                                     i, i, i, p]
+        else:
+            fn.argtypes = [p] * 6 + [i, i, i, i, i, strides, ctypes.c_float,
+                                     i, i] + ([i] if route == "simt" else
+                                              []) + [p]
         fn.restype = i
-        _fn = fn
-    return _fn
+        _fwd_fns[route] = fn
+    return fn
 
 
 def _bwd_kernels(route):
@@ -199,6 +228,88 @@ def _bwd_kernels(route):
     return fns
 
 
+def _aligned16(t, d):
+    """``t`` is (B, H, T, d) with a contiguous head dim, a base address
+    and (b, h, t) strides that are multiples of 16 bytes (a dim of size 1
+    has no stride to hold to): TMA can describe it, and its rows read in
+    16-byte vectors."""
+    if t.dim() != 4 or t.shape[-1] != d or t.stride(3) != 1 \
+            or t.data_ptr() % 16:
+        return False
+    size = t.element_size()
+    return not any(t.shape[i] > 1 and t.stride(i) * size % 16
+                   for i in range(3))
+
+
+def _fwd_routes(q, k, v, out):
+    """The forward routes whose kernels take this call: ``"simt"`` any;
+    with every operand 16-byte aligned, ``"split"`` one query row in fp32
+    or bf16 with D in (32, 64, 128), ``"tc"`` bf16 with D 64 or 128."""
+    d = q.shape[-1]
+    routes = ["simt"]
+    ops = (q, k, v) + (() if out is None else (out,))
+    if q.dtype in _DTYPE_CODE and d in _HEAD_DIMS and all(
+            t.dtype == q.dtype and _aligned16(t, d) for t in ops):
+        if q.shape[2] == 1:
+            routes.append("split")
+        if q.dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+            routes.append("tc")
+    return routes
+
+
+def flash_fwd_route(q, k, v, out=None):
+    """Which forward kernel a call takes on the card: ``"split"``
+    (``csrc/flash_fwd_split.cu``) for a decode step (Tq = 1), fp32 or
+    bf16, D in (32, 64, 128); ``"tc"`` (``csrc/flash_fwd_tc.cu``) for the
+    rest in bf16 with D 64 or 128; ``"simt"`` (``csrc/flash_fwd.cu``) for
+    everything else: fp32 training and prefill (no tensor-core path keeps
+    fp32 off TF32), D = 32 and misaligned views. The split and tc routes
+    need q, k, v and the output ``out`` with a contiguous head dim, a base
+    address and (b, h, t) strides that are multiples of 16 bytes, as TMA
+    and 16-byte loads need. Decided from dtype, shape and alignment before
+    the launch. Measured on an H100 (``tools/torch_flash_fwd_routes.py``,
+    PERF.md): at Tq = 1 the split kernels beat the tensor-core kernel in
+    bf16 and the SIMT one 8x in fp32. A prompt takes tc or SIMT: a split
+    with 8 query rows a block, since removed, was slower than tc at every
+    Tq above 1 and than SIMT on prompts of 2 to 24 tokens."""
+    routes = _fwd_routes(q, k, v, out)
+    if "split" in routes:
+        return "split"
+    return "tc" if "tc" in routes else "simt"
+
+
+def _pick_fwd_route(q, k, v, out, route):
+    """:func:`flash_fwd_route`'s choice, or ``route`` where a caller names
+    one whose kernel takes the call (to time one route beside another):
+    ``"simt"`` any call, ``"split"`` and ``"tc"`` aligned operands of
+    their dtypes and head dims, ``"split"`` one query row."""
+    if route is None:
+        return flash_fwd_route(q, k, v, out)
+    if route in _fwd_routes(q, k, v, out):
+        return route
+    raise ValueError(f"route {route!r}: this call ({q.dtype}, D="
+                     f"{q.shape[-1]}, its strides and alignment) takes "
+                     f"{flash_fwd_route(q, k, v, out)!r}")
+
+
+def split_plan(b, h, tk, sms=132):
+    """(keys a chunk, chunks) of the split kernels: chunks of whole 64-key
+    tiles, as few as give about ``SPLIT_BLOCKS_PER_SM`` blocks an SM over
+    the ``sms`` SMs (at least one tile a chunk)."""
+    tiles = -(-tk // SPLIT_TILE)
+    nsplit = min(tiles, max(1, -(-SPLIT_BLOCKS_PER_SM * sms // (b * h))))
+    chunk = SPLIT_TILE * -(-tiles // nsplit)
+    return chunk, -(-tk // chunk)
+
+
+def _sm_count(device):
+    n = _sm_counts.get(device)
+    if n is None:
+        n = _sm_counts[device] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
 def flash_bwd_route(q, k, v, g, outs=()):
     """Which backward kernels a call takes on the card: ``"tc"`` (the
     tensor-core kernels of ``csrc/flash_bwd_tc.cu``) for bf16 with D 64 or
@@ -211,11 +322,7 @@ def flash_bwd_route(q, k, v, g, outs=()):
     if q.dtype != torch.bfloat16 or q.shape[-1] not in _TC_HEAD_DIMS:
         return "simt"
     for t in (q, k, v, g, *outs):
-        if t.dtype != torch.bfloat16 or t.dim() != 4 \
-                or t.shape[-1] != q.shape[-1] or t.stride(3) != 1 \
-                or t.data_ptr() % 16:
-            return "simt"
-        if any(t.shape[i] > 1 and t.stride(i) * 2 % 16 for i in range(3)):
+        if t.dtype != torch.bfloat16 or not _aligned16(t, q.shape[-1]):
             return "simt"
     return "tc"
 
@@ -295,14 +402,17 @@ def _like_out(q):
                        device=q.device).transpose(1, 2)
 
 
-def _forward(q, k, v, lengths, scale, causal, cache_offset, return_lse):
-    global flash_fwd_launches
-    if q.device.type == "cpu":
+def _forward(q, k, v, lengths, scale, causal, cache_offset, return_lse,
+             route=None):
+    """The forward on the route :func:`_pick_fwd_route` names (a CPU
+    tensor: the plain version, after checking a named route)."""
+    global flash_fwd_launches, flash_fwd_tc_launches
+    global flash_fwd_split_launches, flash_fwd_simt_launches
+    if _device_of(q) == "cpu":
+        if route is not None:
+            _pick_fwd_route(q, k, v, None, route)
         return flash_attention_reference(q, k, v, lengths, scale, causal,
                                          cache_offset, return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, got "
-                         f"{q.device}")
     s, causal = _resolve(q, k, lengths, scale, causal, cache_offset)
     lengths = _check_cuda(q, k, v, lengths)
     b, h, tq, d = q.shape
@@ -310,19 +420,34 @@ def _forward(q, k, v, lengths, scale, causal, cache_offset, return_lse):
     out = _like_out(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) \
         if return_lse else None
+    route = _pick_fwd_route(q, k, v, out, route)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    fn = _kernel()
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            lengths.data_ptr() if lengths is not None else None)
+    fn = _fwd_kernel(route)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr() if lse is not None else None,
-                 lengths.data_ptr() if lengths is not None else None,
-                 b, h, tq, tk, d, strides, s, int(causal),
-                 int(bool(cache_offset)), _DTYPE_CODE[q.dtype], stream)
+        if route == "split":
+            chunk, nchunks = split_plan(b, h, tk, _sm_count(q.device))
+            part = torch.empty(b * h * nchunks * (d + 2),
+                               dtype=torch.float32, device=q.device)
+            err = fn(*head, part.data_ptr(), b, h, tk, d, strides, s,
+                     _DTYPE_CODE[q.dtype], chunk, nchunks, stream)
+        else:
+            dtype = () if route == "tc" else (_DTYPE_CODE[q.dtype],)
+            err = fn(*head, b, h, tq, tk, d, strides, s, int(causal),
+                     int(bool(cache_offset)), *dtype, stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_fwd kernel launch failed ({route} route):"
+                           f" CUDA error {err}")
+    if route == "tc":
+        flash_fwd_tc_launches += 1
+    elif route == "split":
+        flash_fwd_split_launches += 1
+    else:
+        flash_fwd_simt_launches += 1
     flash_fwd_launches += 1
     return (out, lse) if return_lse else out
 
@@ -429,9 +554,10 @@ class FlashAttentionFunction(torch.autograd.Function):
     custom VJP). Returns ``(out, lse)``; lse carries no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lengths, scale, causal, cache_offset):
+    def forward(ctx, q, k, v, lengths, scale, causal, cache_offset,
+                route=None):
         out, lse = _forward(q, k, v, lengths, scale, causal, cache_offset,
-                            True)
+                            True, route)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.lengths = lengths
         ctx.flags = (scale, causal, cache_offset)
@@ -446,12 +572,12 @@ class FlashAttentionFunction(torch.autograd.Function):
         delta = (g.float() * out.float()).sum(-1)
         dq, dk, dv = flash_attention_bwd(q, k, v, ctx.lengths, lse, delta,
                                          g.to(q.dtype), *ctx.flags)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 @register("flash_attention")
 def flash_attention(q, k, v, lengths=None, scale=None, causal=False,
-                    cache_offset=False, return_lse=False):
+                    cache_offset=False, return_lse=False, route=None):
     """Block-tiled flash attention. q (B, H, Tq, D), k/v (B, H, Tk, D);
     ``lengths`` (B,) optional per-sample valid key length.
 
@@ -466,10 +592,13 @@ def flash_attention(q, k, v, lengths=None, scale=None, causal=False,
     When grad is enabled and q, k or v requires it, the call runs
     :class:`FlashAttentionFunction`, so a backward pass reaches the
     backward kernels. A CPU tensor takes the plain versions; a CUDA tensor
-    launches the kernels or raises."""
+    launches the forward kernel of the route :func:`flash_fwd_route` names
+    (or ``route``: ``"simt"`` for any call, ``"split"`` (one query row) or
+    ``"tc"`` where their kernels take it) or raises. A ``route`` whose kernel cannot take
+    the call raises on the CPU too."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out, lse = FlashAttentionFunction.apply(q, k, v, lengths, scale,
-                                                causal, cache_offset)
+                                                causal, cache_offset, route)
         return (out, lse) if return_lse else out
     return _forward(q, k, v, lengths, scale, causal, cache_offset,
-                    return_lse)
+                    return_lse, route)

@@ -12,9 +12,14 @@ another order than the plain version's matmuls, TF32 off on both); bf16
 Backward (dq, dk, dv), relative to max|plain| of each: fp32 1e-4 (order of
 sums), bf16 2e-2 (the kernels round p and dS to bf16 before their
 products, as the TPU kernels do; the plain version keeps them in fp32).
-The backward takes the route ``flash_bwd_route`` names: bf16 with D 64 or
-128 and 16-byte aligned operands on the tensor-core kernels
-(``csrc/flash_bwd_tc.cu``), everything else on the SIMT kernels
+The forward takes the route ``flash_fwd_route`` names: a decode step (one
+query row) on the split kernels (``csrc/flash_fwd_split.cu``), the rest in
+bf16 with D 64 or 128 and 16-byte aligned operands on the tensor-core
+kernel (``csrc/flash_fwd_tc.cu``), everything else on the SIMT kernel
+(``csrc/flash_fwd.cu``); every route is also run by name on every case
+its kernel takes. The backward takes the route ``flash_bwd_route`` names:
+bf16 with D 64 or 128 and 16-byte aligned operands on the tensor-core
+kernels (``csrc/flash_bwd_tc.cu``), everything else on the SIMT kernels
 (``csrc/flash_bwd.cu``); the card tests check which one ran.
 """
 
@@ -36,6 +41,9 @@ CASES = [
     ("decode_S8_Tk512", 8, 12, 1, 512, 64, True, True,
      [1, 7, 64, 65, 129, 300, 511, 512]),
     ("causal_d128_T320", 2, 3, 320, 320, 128, True, False, None),
+    # decode steps with an empty slot, at the other head dims
+    ("decode_d32_len0", 3, 2, 1, 130, 32, True, True, [0, 130, 63]),
+    ("decode_d128_lengths", 2, 3, 1, 200, 128, False, False, [200, 1]),
 ]
 TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -73,6 +81,115 @@ def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
     assert got.shape == want.shape and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
     torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=tol)
+
+
+FWD_ROUTES = ("tc", "split", "simt")
+
+
+def _fwd_route_counts():
+    return {r: getattr(fa, f"flash_fwd_{r}_launches") for r in FWD_ROUTES}
+
+
+def _expect_fwd_route(before, route):
+    """One forward launch since ``before``, on ``route``."""
+    now = _fwd_route_counts()
+    assert {r: now[r] - before[r] for r in FWD_ROUTES} == \
+        {r: int(r == route) for r in FWD_ROUTES}, (route, now)
+
+
+def _takes(route, dtype, tq, d):
+    """Whether the route's kernel takes a contiguous case of this dtype,
+    query count and head dim (``flash_attention._fwd_routes``)."""
+    if route == "tc":
+        return dtype == torch.bfloat16 and d in (64, 128)
+    if route == "split":
+        return tq == 1
+    return True
+
+
+ROUTE_CASES = [(c, dt, r) for c in CASES
+               for dt in (torch.float32, torch.bfloat16)
+               for r in FWD_ROUTES if _takes(r, dt, c[3], c[5])]
+
+
+@pytest.mark.parametrize(
+    "case, dtype, route", ROUTE_CASES,
+    ids=[f"{c[0]}-{'bf16' if dt == torch.bfloat16 else 'fp32'}-{r}"
+         for c, dt, r in ROUTE_CASES])
+def test_each_forward_route_matches_plain_on_card(cuda_device, case, dtype,
+                                                  route):
+    """Every route's kernel, named, on every case it takes: o within the
+    dtype's tolerance, the lse within 1e-3 with the -inf rows identical,
+    no NaN."""
+    _, b, h, tq, tk, d, causal, cache_offset, lengths = case
+    q, k, v = (t.to(cuda_device, dtype) for t in _inputs(b, h, tq, tk, d))
+    lens = None if lengths is None else torch.tensor(lengths)
+    before = _fwd_route_counts()
+    got, got_lse = fa.flash_attention(q, k, v, lens, causal=causal,
+                                      cache_offset=cache_offset,
+                                      return_lse=True, route=route)
+    torch.cuda.synchronize()
+    _expect_fwd_route(before, route)
+    want, want_lse = fa.flash_attention_reference(
+        q, k, v, lens, causal=causal, cache_offset=cache_offset,
+        return_lse=True)
+    assert not torch.isnan(got).any() and not torch.isnan(got_lse).any()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOLS[dtype])
+    assert torch.equal(torch.isneginf(got_lse), torch.isneginf(want_lse))
+    fin = torch.isfinite(want_lse)
+    torch.testing.assert_close(got_lse[fin], want_lse[fin], rtol=0,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("route, dtype", [
+    ("tc", torch.bfloat16), ("split", torch.float32),
+    ("split", torch.bfloat16)], ids=["tc", "split_fp32", "split_bf16"])
+def test_forward_routes_repeat_bit_for_bit(cuda_device, route, dtype):
+    """No atomics: the tensor-core and split kernels repeat exactly (the
+    prefill case on tc, the decode case on split)."""
+    case = CASES[5] if route == "tc" else CASES[6]
+    _, b, h, tq, tk, d, causal, cache_offset, lengths = case
+    q, k, v = (t.to(cuda_device, dtype) for t in _inputs(b, h, tq, tk, d))
+    lens = None if lengths is None else torch.tensor(lengths)
+    kw = dict(causal=causal, cache_offset=cache_offset, return_lse=True)
+    before = _fwd_route_counts()
+    first = fa.flash_attention(q, k, v, lens, **kw)
+    _expect_fwd_route(before, route)
+    second = fa.flash_attention(q, k, v, lens, **kw)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_forward_rule_on_the_main_paths_shapes(cuda_device):
+    """The GPT's bf16 head-split views take tc, a decode step takes split
+    (fp32 and bf16), a misaligned bf16 view takes simt; each matches the
+    plain version."""
+    rs = np.random.RandomState(13)
+    qkv = torch.from_numpy(rs.randn(2, 150, 3, 4, 64).astype(np.float32))
+    qkv = qkv.to(cuda_device, torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    wide = torch.zeros(2, 4, 150, 72, dtype=q.dtype, device=q.device)
+    wide[..., :64] = q
+    odd = wide[..., 1:65]                  # a base 2 bytes off 16
+    for qq, route in ((q, "tc"), (odd, "simt")):
+        before = _fwd_route_counts()
+        out = fa.flash_attention(qq, k, v, causal=True)
+        _expect_fwd_route(before, route)
+        want = fa.flash_attention_reference(qq, k, v, causal=True)
+        torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                                   atol=TOLS[torch.bfloat16])
+    _, b, h, tq, tk, d, causal, cache_offset, lengths = CASES[6]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(cuda_device, dtype)
+                   for t in _inputs(b, h, tq, tk, d, seed=2))
+        lens = torch.tensor(lengths, device=cuda_device)
+        before = _fwd_route_counts()
+        out = fa.flash_attention(q, k, v, lens, cache_offset=True)
+        _expect_fwd_route(before, "split")
+        want = fa.flash_attention_reference(q, k, v, lens, cache_offset=True)
+        torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                                   atol=TOLS[dtype])
 
 
 def test_kernel_takes_head_split_views_and_merges_heads(cuda_device):
@@ -264,7 +381,8 @@ def test_autograd_through_the_kernels_on_card(cuda_device):
 
 def test_autograd_through_the_tc_route_on_card(cuda_device):
     """bf16 head-split views of a fused QKV buffer (t-stride 3*H*D) take
-    the tensor-core kernels through autograd, and their gradients match
+    the tensor-core kernels through autograd (the forward's too, whose lse
+    the backward reads), and their gradients match
     the plain version's autograd on the same bf16 inputs within the bf16
     tolerance (relative to max|plain|)."""
     rs = np.random.RandomState(11)
@@ -277,9 +395,11 @@ def test_autograd_through_the_tc_route_on_card(cuda_device):
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
         fn = fa.flash_attention if kernel else fa.flash_attention_reference
         before = _route_counts()
+        before_fwd = _fwd_route_counts()
         fn(q, k, v, causal=True).backward(g)
-        if kernel:
+        if kernel:     # tc K4 -> tc K5/K6
             _expect_route(before, "tc")
+            _expect_fwd_route(before_fwd, "tc")
         grads.append(qkv.grad.float())
     tol = TOLS[torch.bfloat16] * max(1.0, grads[1].abs().max().item())
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=tol)

@@ -156,10 +156,11 @@ def test_kernel_build_is_content_addressed():
     assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
     assert (_build.CSRC / "flash_fwd.cu").exists()
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
-    assert set(_build.SOURCES) == {"flash_fwd", "flash_bwd", "flash_bwd_tc",
-                                   "fused_conv", "conv_bwd", "conv_bwd_tc",
-                                   "fused_conv_tc"}
-    assert fa._fn is None or torch.cuda.is_available()
+    assert set(_build.SOURCES) == {"flash_fwd", "flash_fwd_tc",
+                                   "flash_fwd_split", "flash_bwd",
+                                   "flash_bwd_tc", "fused_conv", "conv_bwd",
+                                   "conv_bwd_tc", "fused_conv_tc"}
+    assert not fa._fwd_fns or torch.cuda.is_available()
     assert not fa._bwd_fns or torch.cuda.is_available()
     assert not fc._fns or torch.cuda.is_available()
 
@@ -312,6 +313,64 @@ def test_chip_smoke_backward_bound_counts_pairs_and_quoted_figures():
     nbytes = (4 * 32 * 2 + 4 * 2 + 3 * 32 * 2 + 2 * 16 * 32 * 2) * 4
     assert by == "bytes"
     assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3)
+
+
+def test_chip_smoke_kernel_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.kernel_phase`` at small shapes on the CPU (the plain
+    versions run, so the route check is recorded instead of made): every
+    case, the GPT's head-split views among them, passes its gates in fp32
+    and bf16, names the route the rule gives its shape, and holds the SIMT
+    kernel to the plain version and times it beside every other route."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "device_ms", lambda fn, **k: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "call_ms", lambda fn, **k: (fn(), 0.0)[1])
+    checks = []
+    monkeypatch.setattr(cs, "_check_fwd_route",
+                        lambda label, before, now, expect:
+                        checks.append((label, expect)))
+    cases = [("prefill", 1, 20, 20, 64, True, False, None, False),
+             ("decode", 3, 1, 40, 64, True, True, (3, 40, 17), False),
+             (cs.GPT_VIEWS, 2, 24, 24, 64, True, False, None, True),
+             ("offset_T16_D128", 2, 16, 40, 128, True, True, (40, 16), True),
+             ("tq_gt_tk_D32", 1, 30, 8, 32, True, False, None, True)]
+    rows = cs.kernel_phase(0, torch.device("cpu"), cases, h=2)
+    want = {"prefill": ("simt", "tc"), "decode": ("split", "split"),
+            cs.GPT_VIEWS: ("simt", "tc"),
+            "offset_T16_D128": ("simt", "tc"),
+            "tq_gt_tk_D32": ("simt", "simt")}
+    assert [(r["case"], r["route"]) for r in rows] == \
+        [(c, w) for c, pair in want.items() for w in pair]
+    assert checks == [(f"{r['case']} {r['dtype']}", r["route"])
+                      for r in rows]
+    for r in rows:
+        assert r["max_abs_err"] == 0 and r["lse_err"] == 0
+        assert (r["simt_ms"] is None) == (r["route"] == "simt")
+        assert r["simt_max_abs_err"] == (None if r["route"] == "simt"
+                                         else 0)
+        assert (r["library_causal_ms"] is None) == \
+            (r["case"] not in ("prefill", cs.GPT_VIEWS))
+        assert r["bound_ms"] > 0 and r["lse_tol"] <= cs.LSE_TOL
+    # the card's case list: the forward's own, the GPT views and every
+    # backward shape not among them
+    names = [c[0] for c in cs.fwd_cases()]
+    assert names[:len(cs.FWD_CASES) + 1] == \
+        [c[0] for c in cs.FWD_CASES] + [cs.GPT_VIEWS]
+    shapes = {c[1:8] for c in cs.fwd_cases()}
+    assert all(c[1:] in shapes for c in cs.BWD_CASES)
+    assert {"causal_D128_B2_T512", "cache_offset_B4_T16x512",
+            "tq_gt_tk_causal_B2_T256x64", "prefill_causal_B1_T16"} <= \
+        set(names)
+
+
+def test_chip_smoke_decode_routes_follow_the_prefill_buckets():
+    """Serving in fp32: 12 split launches a decode step, and 12 a prefill
+    on the route its bucket's Tq takes: SIMT, the 16-token bucket too."""
+    cs = _chip_smoke()
+    buckets = (16, 64)
+    got = cs.decode_routes(buckets, [1, 16, 17, 48], steps=5)
+    assert got == {"tc": 0, "split": 12 * 5, "simt": 12 * 4}
+    assert cs.decode_routes((1, 16), [1], steps=2) == \
+        {"tc": 0, "split": 12 * 3, "simt": 0}
 
 
 def test_chip_smoke_resnet_phase_rehearses_on_the_cpu(monkeypatch):

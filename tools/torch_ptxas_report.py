@@ -7,7 +7,8 @@ port, as ``ptxas -v`` reports them.
 Compiles each ``incubator_mxnet_tpu_torch/csrc/<name>.cu`` of
 ``ops/_build.SOURCES`` (or of the names given) to an object file (in a temporary directory, with
 the package's own ``nvcc`` flags less ``-shared``) and prints one line per
-kernel instantiation. Where ``cuobjdump`` is found (beside ``nvcc``, or on
+kernel instantiation, and any warning of a performance loss (wgmma
+serialized). Where ``cuobjdump`` is found (beside ``nvcc``, or on
 PATH), each kernel's line also counts the tensor-core (``HGMMA``, from
 ``wgmma``) and TMA (``UTMALDG``) instructions of its SASS: nonzero counts
 show a kernel runs on the tensor cores and loads through TMA. Needs
@@ -39,7 +40,8 @@ def report(name: str, tmp: str) -> list:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             func = m.group(1)
-        if func and ("Used" in line or "spill" in line):
+        if func and ("Used" in line or "spill" in line
+                     or "Performance Loss" in line):
             rows.append((func, line.strip()))
     return rows
 
