@@ -108,7 +108,13 @@ Phases (any failure raises, and the script exits non-zero):
    alone). Then each rtc kernel against its plain version at the path's
    shapes (softmax_ce_fwd within 1e-5 of each probability, relative; the
    rest bit for bit), timed (CUDA-graph replay) beside its plain version,
-   a library call and its byte bound; and ``mx.nd.flash_attention`` and
+   a library call and its byte bound; K7's cases beside the path
+   (``rtc_cases``: softmax_ce_fwd over rows longer than the resident limit,
+   (256, 100003), and over (5, 7) and (3, 4099), each with its plan,
+   resident or streamed, printed, and with req="add" at the path's shape;
+   scale over 163,037,181 floats on views at offsets of 1 and 3 floats,
+   into a new array and into a view at x's offset), held and timed the
+   same way; and ``mx.nd.flash_attention`` and
    ``invoke_op("fused_conv_bn")`` with gradients, equal to the direct
    calls bit for bit.
 
@@ -1990,6 +1996,12 @@ RTC_HEAD = "softmax_ce_fwd"
 RTC_FWD_RTOL = 1e-5
 # the imperative step's gradients against the plain loss's: relative L2
 IMPERATIVE_GRAD_RTOL = 1e-4
+# K7's cases beside the path's own shapes: softmax_ce_fwd over a row longer
+# than the resident limit (streamed) and over small odd rows (and, with
+# req="add", at the path's shape); scale over a flat vector less 3 floats
+# on views at these float offsets of a larger buffer
+RTC_SOFTMAX_SHAPES = ((256, 100003), (5, 7), (3, 4099))
+RTC_SCALE_OFFSETS = (1, 3)
 
 
 def _rtc_counts(reset=False):
@@ -2005,11 +2017,12 @@ def _rtc_counts(reset=False):
     return out
 
 
-def rtc_bound(name, shape):
+def rtc_bound(name, shape, req="write"):
     """Least time (ms) of one rtc kernel call and what bounds it: each
     input read once, each output written once (fp32; int32 labels), and
     the fp32 operations at 67 TFLOP/s (scale 1, saxpy 2, softmax_ce_fwd 5
-    per element: max, subtract, exp, sum, divide; softmax_ce_bwd 1)."""
+    per element: max, subtract, exp, sum, divide; softmax_ce_bwd 1).
+    ``req="add"`` (softmax_ce_fwd) also reads the output and adds."""
     if name == "first_row":
         nbytes, flops = 2 * shape[1] * 4, 0          # one row in, one out
     else:
@@ -2018,6 +2031,8 @@ def rtc_bound(name, shape):
                          "saxpy": (3 * n * 4, 2 * n),
                          "softmax_ce_fwd": (2 * n * 4, 5 * n),
                          "softmax_ce_bwd": (2 * n * 4 + shape[0] * 4, n)}[name]
+        if req == "add":
+            nbytes, flops = nbytes + n * 4, flops + n
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[torch.float32]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -2049,6 +2064,110 @@ def _ce_bwd_ms(logits, labels):
     return both - device_ms(fwd), both
 
 
+def _plan_text(plan):
+    return (f"{'resident' if plan.resident else 'streamed'}: "
+            f"{plan.threads} threads, {plan.shared_bytes} bytes of shared "
+            "memory")
+
+
+def rtc_cases(gen, dev, path_shape, flat, softmax_shapes=RTC_SOFTMAX_SHAPES,
+              offsets=RTC_SCALE_OFFSETS):
+    """K7's cases beside the path, each held against its plain version
+    (softmax_ce_fwd 1e-5 relative, scale bit for bit) and timed beside its
+    plain version, one library call (none for req="add") and its bound:
+    softmax_ce_fwd at each of ``softmax_shapes`` and, with req="add", at
+    ``path_shape``, each with its plan (resident or streamed); scale over
+    ``flat - 3`` floats on views of a larger buffer at each of ``offsets``,
+    into a new array (x and y at two alignment phases: single floats) and
+    into a view at x's offset (one phase: a head, 16-byte quads, a
+    tail). Launches made here are not counted. Any failure raises."""
+    from incubator_mxnet_tpu_torch.ndarray import NDArray
+    from incubator_mxnet_tpu_torch.ops import rtc_kernels as rk
+
+    limit = rk.smem_optin(dev)
+    cases = []
+
+    def check(case, name, shape, got, want, tol, call, plain, library,
+              bound, **extra):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = _max_rel_err(got, want)
+        if got.shape != want.shape or not math.isfinite(err) or rel > tol:
+            raise AssertionError(f"rtc {case}: max relative err {rel} > "
+                                 f"{tol}")
+        ms, plain_ms = device_ms(call), device_ms(plain)
+        library_ms = device_ms(library) if library else None
+        lib_txt = "none" if library_ms is None else f"{library_ms:.5f}"
+        bound_ms, bound_by = bound
+        print(f"kernel rtc case {case} {name} {tuple(shape)} fp32: "
+              f"max_abs_err={err:.3e} max_rel_err={rel:.3e} (tol {tol:g} "
+              f"relative) ms={ms:.5f} (device, CUDA graph) "
+              f"plain_ms={plain_ms:.5f} library_ms={lib_txt} "
+              f"bound_ms={bound_ms:.5f} ({bound_by})"
+              + "".join(f"; {k} {v}" for k, v in extra.items()
+                        if k != "plan"), flush=True)
+        cases.append(dict(case=case, name=name, shape=list(shape),
+                          max_abs_err=err, max_rel_err=rel, rel_tol=tol,
+                          ms=ms, timing="cuda_graph", plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, **extra))
+
+    for shape, req in ([(sh, "write") for sh in softmax_shapes]
+                       + [(tuple(path_shape), "add")]):
+        x = NDArray(4 * torch.randn(shape, generator=gen, device=dev))
+        y0 = torch.rand(shape, generator=gen, device=dev) if req == "add" \
+            else torch.zeros(shape, device=dev)
+        y = NDArray(y0.clone())
+        plan = rk.softmax_ce_fwd_plan(shape[1], limit)
+        print(f"softmax_ce_fwd plan {shape} (req {req}): "
+              f"{_plan_text(plan)}", flush=True)
+        rk.softmax_ce_fwd(x, y, req)
+        want = rk.softmax_ce_fwd_reference(x.as_torch())
+        if req == "add":
+            want = y0 + want
+        check(f"softmax_ce_fwd_{req}_{shape[0]}x{shape[1]}",
+              "softmax_ce_fwd", shape, y.as_torch(), want, RTC_FWD_RTOL,
+              lambda: rk.softmax_ce_fwd(x, y, req),
+              (lambda: rk.softmax_ce_fwd_reference(x.as_torch()))
+              if req == "write" else
+              (lambda: y0 + rk.softmax_ce_fwd_reference(x.as_torch())),
+              (lambda: torch.softmax(x.as_torch(), -1))
+              if req == "write" else None,
+              rtc_bound("softmax_ce_fwd", shape, req), req=req,
+              plan=plan._asdict())
+        del x, y, y0, want
+    n = flat - 3
+    buf = torch.randn(flat + 1, generator=gen, device=dev)
+    out = torch.zeros(flat + 1, device=dev)
+    for off in offsets:
+        x = NDArray(buf[off:off + n])
+        want = rk.scale_reference(x.as_torch(), 0.5)
+        y = rk.scale(x, 0.5)
+        check(f"scale_view{off}_new_out", "scale", (n,), y.as_torch(), want,
+              0.0, lambda: rk.scale(x, 0.5),
+              lambda: rk.scale_reference(x.as_torch(), 0.5),
+              lambda: torch.mul(x.as_torch(), 0.5), rtc_bound("scale", (n,)),
+              offset_x=off, offset_y=0)
+        y = NDArray(out[off:off + n])
+
+        def into_view():                # the kernel itself: x's phase
+            if x.ctx.device_type == "cpu":  # the CPU rehearsal
+                y.as_torch().copy_(rk.scale_reference(x.as_torch(), 0.5))
+            else:
+                rk.kernel("scale").launch([x, y, 0.5, n], x.ctx,
+                                          *rk.scale_plan(n))
+        into_view()
+        check(f"scale_view{off}_view_out", "scale", (n,), y.as_torch(),
+              want, 0.0, into_view,
+              lambda: rk.scale_reference(x.as_torch(), 0.5),
+              lambda: torch.mul(x.as_torch(), 0.5, out=y.as_torch()),
+              rtc_bound("scale", (n,)), offset_x=off, offset_y=off)
+        del x, y, want
+    del buf, out
+    gc.collect()
+    return cases
+
+
 def _check_imperative_launches(rtc_got, rtc_want, flash_got, flash_want):
     print(f"launches on the imperative path: rtc {rtc_got} (want "
           f"{rtc_want}); flash {flash_got} (want {flash_want} each)",
@@ -2059,16 +2178,18 @@ def _check_imperative_launches(rtc_got, rtc_want, flash_got, flash_want):
 
 
 def imperative_phase(seed, card, net, ctx, b=8, flat=RTC_FLAT, lr=3e-4,
-                     conv_case=None):
+                     conv_case=None, softmax_shapes=RTC_SOFTMAX_SHAPES):
     """The imperative front door on a GPT decoder ``net`` (dropout 0) at
     B=``b`` and T=its ``max_length``: the main path (an mx.rtc program of
     scale/saxpy/first_row over a ``flat``-element vector and the size of
     the net's embedding, then the imperative training step whose loss is
     the ``softmax_ce_rtc`` custom op, with its gradient oracle, learning
     check and timing), counted; then (a) the five rtc kernels against
-    their plain versions and timed, (c) the registered kernel ops through
-    ``invoke`` against the direct calls, bit for bit (``conv_case``: a
-    ``CONV_CASES`` entry, default the conv kernel phase's head case)."""
+    their plain versions and timed, (b) K7's cases beside the path
+    (``rtc_cases``, with ``softmax_shapes``), (c) the registered kernel
+    ops through ``invoke`` against the direct calls, bit for bit
+    (``conv_case``: a ``CONV_CASES`` entry, default the conv kernel
+    phase's head case)."""
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch import gluon
     from incubator_mxnet_tpu_torch.ndarray import NDArray
@@ -2305,8 +2426,15 @@ def imperative_phase(seed, card, net, ctx, b=8, flat=RTC_FLAT, lr=3e-4,
               f"plain_ms={plain_ms:.5f} library_ms={lib_txt} bound_ms="
               f"{bound_ms:.5f} ({bound_by}); launches on the path "
               f"{launches[name]}", flush=True)
+    plan = rk.softmax_ce_fwd_plan(vocab, rk.smem_optin(dev))
+    print(f"softmax_ce_fwd plan {shapes['softmax_ce_fwd']} (the path's): "
+          f"{_plan_text(plan)}", flush=True)
+    rows["softmax_ce_fwd"]["plan"] = plan._asdict()
     del x, y, emb, program, got, plain, calls, library, logits, probs, dx
     gc.collect()
+
+    # (b) K7's cases beside the path
+    cases = rtc_cases(gen, dev, (n_rows, vocab), flat, softmax_shapes)
 
     # (c) the registered kernel ops through invoke equal the direct calls
     q, k, v, g = (torch.randn(b, heads, t, head_dim, generator=gen,
@@ -2350,7 +2478,8 @@ def imperative_phase(seed, card, net, ctx, b=8, flat=RTC_FLAT, lr=3e-4,
     if not (same_fa and same_conv):
         raise AssertionError("a registered kernel op through invoke differs "
                              "from its direct call")
-    return dict(rows=rows, launches=launches, flash_launches=flash,
+    return dict(rows=rows, rtc_cases=cases, launches=launches,
+                flash_launches=flash,
                 passes=passes, rtc_steps=rtc_steps, n_params=len(names),
                 grad_worst_rel=worst[0], learning_losses=losses,
                 step_ms=step_ms, tensor_step_ms=tensor_ms, peak_bytes=peak,
@@ -2549,16 +2678,17 @@ def main(argv=None) -> int:
             record["kernels"].append(entry)
     rows = imperative["rows"]
     head = rows[RTC_HEAD]
+    cases = list(rows.values()) + imperative["rtc_cases"]
     record["kernels"].append({
         "name": "rtc_cuda_module", "route": "cuda",
         "source": "incubator_mxnet_tpu_torch/rtc.py",
         "replaces": "incubator_mxnet_tpu/rtc.py:66",
         "launches": sum(r["launches"] for r in rows.values()),
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in cases),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "shape": RTC_HEAD,
-        "cases": list(rows.values())})
+        "cases": cases})
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,7 @@ CACHE_DIR = Path(__file__).resolve().parents[2] / "build" / "rtc"
 #: dynamic shared memory a kernel gets without opting in
 DEFAULT_MAX_DYNAMIC_SMEM = 48 * 1024
 _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES = 8
+_CU_DEVICE_ATTRIBUTE_MAX_SHARED_MEMORY_PER_BLOCK_OPTIN = 97
 
 _lock = threading.Lock()
 _nvrtc = None
@@ -198,6 +199,8 @@ class Libcuda:
         self.ctx_get_device = _bind(lib, "cuCtxGetDevice", [POINTER(c_int)])
         self.ctx_set_current = _bind(lib, "cuCtxSetCurrent", [c_void_p])
         self.device_get = _bind(lib, "cuDeviceGet", [POINTER(c_int), c_int])
+        self.device_get_attribute = _bind(lib, "cuDeviceGetAttribute",
+                                          [POINTER(c_int), c_int, c_int])
         self.primary_ctx_get_state = _bind(
             lib, "cuDevicePrimaryCtxGetState",
             [c_int, POINTER(c_uint), POINTER(c_int)])
@@ -256,6 +259,16 @@ class Libcuda:
                        "cuDevicePrimaryCtxRetain")
             self._primary[index] = ctx
         self.check(self.ctx_set_current(ctx), "cuCtxSetCurrent")
+
+    def max_shared_per_block_optin(self, index: int) -> int:
+        """The shared memory (bytes) a block on device ``index`` may opt
+        into (232,448 on an H100)."""
+        dev, value = c_int(), c_int()
+        self.check(self.device_get(byref(dev), index), "cuDeviceGet")
+        attr = _CU_DEVICE_ATTRIBUTE_MAX_SHARED_MEMORY_PER_BLOCK_OPTIN
+        self.check(self.device_get_attribute(byref(value), attr, dev),
+                   "cuDeviceGetAttribute(MAX_SHARED_MEMORY_PER_BLOCK_OPTIN)")
+        return value.value
 
     def load_module(self, cubin: bytes) -> c_void_p:
         module = c_void_p()

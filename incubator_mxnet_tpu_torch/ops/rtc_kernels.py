@@ -19,7 +19,10 @@ live in ``csrc/rtc/`` and compile at the first call that needs them:
 Each wrapper takes NDArrays. An array on the CPU takes the plain version
 (``*_reference``, over tensors); an array on the card launches the kernel
 through ``CudaKernel.launch`` (counted in ``mx.rtc.launches`` under the
-kernel's name) or raises.
+kernel's name) or raises. Two launches are planned by pure functions:
+``scale_plan`` (one 1024-float tile a block) and ``softmax_ce_fwd_plan``
+(a row held in shared memory when the card's opt-in limit allows it, else
+streamed).
 """
 
 from __future__ import annotations
@@ -32,10 +35,12 @@ import torch
 
 from .. import operator
 from ..ndarray.ndarray import NDArray
+from . import _nvrtc
 
-__all__ = ["KERNELS", "first_row", "first_row_reference", "kernel", "saxpy",
-           "saxpy_reference", "scale", "scale_reference", "softmax_ce_bwd",
-           "softmax_ce_bwd_reference", "softmax_ce_fwd",
+__all__ = ["KERNELS", "SoftmaxPlan", "first_row", "first_row_reference",
+           "kernel", "saxpy", "saxpy_reference", "scale", "scale_plan",
+           "scale_reference", "smem_optin", "softmax_ce_bwd",
+           "softmax_ce_bwd_reference", "softmax_ce_fwd", "softmax_ce_fwd_plan",
            "softmax_ce_fwd_reference"]
 
 RTC_SRC = Path(__file__).resolve().parent.parent / "csrc" / "rtc"
@@ -73,6 +78,11 @@ _REQ = {"null": 0, "write": 1, "inplace": 1, "add": 2}
 _THREADS = 256
 _ROW_THREADS = 1024
 _BLOCKS_PER_SM = 16
+#: softmax_ce.cu: its static shared memory (32 reduction slots and
+#: ROW_CHUNKS mbarriers, bytes), and the threads of a block over a
+#: streamed row
+_ROW_STATIC = 32 * 4 + 8 * 8
+_STREAM_THREADS = 512
 
 _modules: dict = {}
 _kernels: dict = {}
@@ -99,6 +109,47 @@ def kernel(name: str):
 def _elementwise_grid(n: int, device: torch.device):
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return (max(1, min(math.ceil(n / _THREADS), sms * _BLOCKS_PER_SM)), 1, 1)
+
+
+def scale_plan(n: int):
+    """``scale``'s grid and block over ``n`` floats: 256 threads a block,
+    one tile of 1024 floats a block (a 16-byte quad a thread, or four
+    floats when x and y sit at two alignment phases). A grid of one wave
+    of resident blocks, looping over the tiles, measured about 8% slower
+    on the card (``tools/torch_rtc_designs.py``)."""
+    return (max(1, math.ceil(n / (4 * _THREADS))), 1, 1), (_THREADS, 1, 1)
+
+
+class SoftmaxPlan(NamedTuple):
+    threads: int                         # a block, one block per row
+    shared_bytes: int                    # dynamic shared memory
+    resident: bool                       # the row held in shared memory
+
+
+def softmax_ce_fwd_plan(row_size: int, smem_limit: int) -> SoftmaxPlan:
+    """The launch of ``softmax_ce_fwd`` over rows of ``row_size`` floats on
+    a card whose blocks may opt into ``smem_limit`` bytes of shared
+    memory. A row is resident when ``ceil((row_size + 3) / 4)`` 16-byte
+    quads (the row at any of its four alignment phases) fit in dynamic
+    shared memory beside the kernel's static shared memory; a streamed
+    row needs no dynamic shared memory. The kernel reads the choice from
+    the dynamic shared memory it is given."""
+    quads = (row_size + 6) // 4
+    if _ROW_STATIC + 16 * quads <= smem_limit:
+        threads = min(_ROW_THREADS, 32 * max(1, math.ceil(quads / 32)))
+        return SoftmaxPlan(threads, 16 * quads, True)
+    return SoftmaxPlan(_STREAM_THREADS, 0, False)
+
+
+_smem_optin: Dict[int, int] = {}
+
+
+def smem_optin(device: torch.device) -> int:
+    """The shared memory a block of ``device`` may opt into (bytes)."""
+    if device.index not in _smem_optin:
+        _smem_optin[device.index] = \
+            _nvrtc.libcuda().max_shared_per_block_optin(device.index)
+    return _smem_optin[device.index]
 
 
 def _on_cpu(x: NDArray) -> bool:
@@ -136,8 +187,7 @@ def scale(x: NDArray, factor: float) -> NDArray:
         return NDArray(scale_reference(x._data, factor))
     y = NDArray(torch.empty_like(x._data))
     kernel("scale").launch([x, y, factor, x.size], x.ctx,
-                           _elementwise_grid(x.size, x._data.device),
-                           (_THREADS, 1, 1))
+                           *scale_plan(x.size))
     return y
 
 
@@ -187,8 +237,10 @@ def softmax_ce_fwd(x: NDArray, y: NDArray, req: str = "write") -> None:
     if _on_cpu(x):
         _assign(y, req, NDArray(softmax_ce_fwd_reference(x._data)))
         return
+    plan = softmax_ce_fwd_plan(x.shape[1], smem_optin(x._data.device))
     kernel("softmax_ce_fwd").launch([x, y, x.shape[1], _REQ[req]], x.ctx,
-                                    (x.shape[0], 1, 1), (_ROW_THREADS, 1, 1))
+                                    (x.shape[0], 1, 1), (plan.threads, 1, 1),
+                                    shared_mem=plan.shared_bytes)
 
 
 def softmax_ce_bwd(label: NDArray, y: NDArray, dx: NDArray,

@@ -443,12 +443,16 @@ def test_chip_smoke_imperative_phase_rehearses_on_the_cpu(monkeypatch):
     layer per pass."""
     from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
 
+    from incubator_mxnet_tpu_torch.ops import rtc_kernels
+
     cs = _chip_smoke()
     for name in ("synchronize", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated",
                         lambda *a, **k: 0)
     monkeypatch.setattr(cs, "device_ms", lambda fn, **k: (fn(), 0.0)[1])
+    # an H100's opt-in shared memory a block, for the printed plans
+    monkeypatch.setattr(rtc_kernels, "smem_optin", lambda dev: 232_448)
     windows = []
     monkeypatch.setattr(cs, "_check_imperative_launches",
                         lambda *a: windows.append(a))
@@ -458,7 +462,8 @@ def test_chip_smoke_imperative_phase_rehearses_on_the_cpu(monkeypatch):
                                                          ctx=mx.cpu())
     small = ("3x3_small_pro", 2, 8, 8, 8, 8, 3, 1, 1, "pro")
     out = cs.imperative_phase(0, "cpu", net, mx.cpu(), b=2, flat=1000,
-                              lr=1e-2, conv_case=small)
+                              lr=1e-2, conv_case=small,
+                              softmax_shapes=((2, 60001), (5, 7), (3, 41)))
     assert out["n_params"] == 29
     assert out["grad_worst_rel"] <= cs.IMPERATIVE_GRAD_RTOL
     assert out["learning_losses"][-1] < 0.95 * out["learning_losses"][0]
@@ -475,6 +480,24 @@ def test_chip_smoke_imperative_phase_rehearses_on_the_cpu(monkeypatch):
     assert all(isinstance(r["library_ms"], float) for r in rows.values())
     assert rows["scale"]["shape"] == [1000]
     assert rows["softmax_ce_bwd"]["shape"] == [32, 97]
+    assert rows["softmax_ce_fwd"]["plan"]["resident"]
+    # K7's cases beside the path: each held to its tolerance, with its plan
+    cases = {c["case"]: c for c in out["rtc_cases"]}
+    assert list(cases) == [
+        "softmax_ce_fwd_write_2x60001", "softmax_ce_fwd_write_5x7",
+        "softmax_ce_fwd_write_3x41", "softmax_ce_fwd_add_32x97",
+        "scale_view1_new_out", "scale_view1_view_out",
+        "scale_view3_new_out", "scale_view3_view_out"]
+    assert [c["plan"]["resident"] for c in out["rtc_cases"][:4]] == [
+        False, True, True, True]
+    assert all(c["max_rel_err"] <= c["rel_tol"] for c in cases.values())
+    assert all(c["max_abs_err"] == 0 for c in cases.values()
+               if c["name"] == "scale")
+    assert [c["shape"] for c in cases.values() if c["name"] == "scale"] \
+        == [[997]] * 4
+    assert cases["softmax_ce_fwd_add_32x97"]["library_ms"] is None
+    assert cases["softmax_ce_fwd_add_32x97"]["bound_ms"] == pytest.approx(
+        3 * 32 * 97 * 4 / cs.HBM_BYTES_PER_S * 1e3)
 
 
 def test_chip_smoke_softmax_gate_catches_flushed_probabilities():

@@ -8,7 +8,9 @@ the argument checks, the refusals (a CPU context or array, the Pallas
 stubs, a missing NVRTC: nothing falls back), the cubin cache, and the CPU
 path of the kernels' wrappers. On the card (the tests skip without one,
 decided in a fixture): the five kernels of ``csrc/rtc/`` built and
-launched at small and odd shapes against their plain versions, the
+launched at small and odd shapes against their plain versions (the
+forward's rows resident in shared memory and streamed, on views at every
+alignment phase, by ``req``; ``scale`` on views at every phase), the
 softmax cross-entropy custom op forward and backward, MXNet's ``axpy``
 example, an opt-in to over 48 KB of dynamic shared memory, capture in a
 CUDA graph, and a compile error carrying NVRTC's log.
@@ -283,7 +285,8 @@ def test_first_row_matches_plain_on_card(cuda_ctx):
                        rtc_kernels.first_row_reference(x.as_torch()))
 
 
-@pytest.mark.parametrize("shape", [(5, 7), (64, 50257), (3, 4099)])
+@pytest.mark.parametrize("shape", [(5, 7), (64, 50257), (3, 4099),
+                                   (8, 100003)])
 def test_softmax_ce_kernels_match_plain_on_card(cuda_ctx, shape):
     rs = np.random.RandomState(shape[1])
     x = mx.nd.array((4 * rs.randn(*shape)).astype(np.float32), ctx=cuda_ctx)
@@ -301,6 +304,138 @@ def test_softmax_ce_kernels_match_plain_on_card(cuda_ctx, shape):
     rtc_kernels.softmax_ce_bwd(lab, y, dx, "add")
     assert torch.equal(dx.as_torch(), 2 * rtc_kernels.softmax_ce_bwd_reference(
         lab.as_torch(), y.as_torch()))
+
+
+def _view(buf, offset, shape):
+    """An NDArray over ``buf`` from float ``offset`` on: its 16-byte
+    alignment phase is ``offset % 4`` when ``buf``'s storage is aligned."""
+    n = int(np.prod(shape))
+    return mx.nd.NDArray(buf[offset:offset + n].view(shape))
+
+
+# the longest resident row (58,061 floats within an H100's 232,448 bytes),
+# the shortest streamed one, and a row over twice as long
+@pytest.mark.parametrize("shape", [(4, 58061), (4, 58062), (8, 100003)])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 3), (2, 1)])
+@pytest.mark.parametrize("req", ["write", "add"])
+def test_softmax_ce_fwd_rows_at_every_phase_on_card(cuda_ctx, shape, offsets,
+                                                    req):
+    """Both branches of the forward (the row held in shared memory, or
+    streamed: ``softmax_ce_fwd_plan``) on views of x and y at offsets of
+    0-3 floats, x and y at one phase (16-byte loads and stores) or at two
+    (scalar stores), by ``req``: within 1e-5 of each probability."""
+    rs = np.random.RandomState(shape[1] + offsets[0])
+    n = shape[0] * shape[1]
+    xb = torch.from_numpy((4 * rs.randn(n + 4)).astype(np.float32)).cuda()
+    yb = torch.from_numpy(rs.rand(n + 4).astype(np.float32)).cuda()
+    x, y = _view(xb, offsets[0], shape), _view(yb, offsets[1], shape)
+    yb0 = yb.clone()
+    rtc_kernels.softmax_ce_fwd(x, y, req)
+    want = rtc_kernels.softmax_ce_fwd_reference(x.as_torch())
+    if req == "add":
+        want = _view(yb0, offsets[1], shape).as_torch() + want
+    torch.testing.assert_close(y.as_torch(), want, rtol=1e-5, atol=0)
+    around = [slice(0, offsets[1]), slice(offsets[1] + n, n + 4)]
+    assert all(torch.equal(yb[s], yb0[s]) for s in around)
+    plan = rtc_kernels.softmax_ce_fwd_plan(
+        shape[1], rtc_kernels.smem_optin(xb.device))
+    assert plan.resident == (shape[1] <= 58061)
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (3, 4099), (4, 50257)])
+@pytest.mark.parametrize("req", ["write", "add"])
+def test_softmax_ce_fwd_streams_with_no_dynamic_shared_memory_on_card(
+        cuda_ctx, shape, req):
+    """A launch of the kernel itself at ``CudaKernel.launch``'s default
+    of no dynamic shared memory takes the streamed branch at any row
+    length: its reductions and barriers are static shared memory, which
+    is the 192 bytes the plan counts beside a resident row."""
+    import ctypes
+
+    rs = np.random.RandomState(shape[1])
+    x = mx.nd.array((4 * rs.randn(*shape)).astype(np.float32), ctx=cuda_ctx)
+    y0 = torch.from_numpy(rs.rand(*shape).astype(np.float32)).cuda()
+    y = mx.nd.NDArray(y0.clone())
+    k = rtc_kernels.kernel("softmax_ce_fwd")
+    k.launch([x, y, shape[1], 2 if req == "add" else 1], cuda_ctx,
+             (shape[0], 1, 1), (512, 1, 1))
+    want = rtc_kernels.softmax_ce_fwd_reference(x.as_torch())
+    if req == "add":
+        want = y0 + want
+    torch.testing.assert_close(y.as_torch(), want, rtol=1e-5, atol=0)
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuFuncGetAttribute.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                       ctypes.c_int, ctypes.c_void_p]
+    static = ctypes.c_int()
+    assert lib.cuFuncGetAttribute(          # CU_FUNC_ATTRIBUTE_SHARED_SIZE_BYTES
+        ctypes.byref(static), 1, k._functions[cuda_ctx.device_id]) == 0
+    assert static.value == rtc_kernels._ROW_STATIC
+
+
+@pytest.mark.parametrize("row", [100, 4099, 100003])
+def test_softmax_ce_fwd_keeps_torch_nan_pattern_and_repeats_on_card(
+        cuda_ctx, row):
+    """Rows of -inf give NaN, rows with some -inf give 0 there, a +inf
+    gives NaN, as torch.softmax; a second launch is bit-identical."""
+    rs = np.random.RandomState(row)
+    x = torch.from_numpy((3 * rs.randn(5, row)).astype(np.float32))
+    x[0] = -float("inf")
+    x[1, ::3] = -float("inf")
+    x[2, :row // 2] = -float("inf")
+    x[3, 7] = float("inf")
+    xg = mx.nd.array(x.numpy(), ctx=cuda_ctx)
+    y = mx.nd.zeros(x.shape, ctx=cuda_ctx)
+    rtc_kernels.softmax_ce_fwd(xg, y)
+    want = torch.softmax(x, -1)
+    got = y.as_torch().cpu()
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got.nan_to_num(), want.nan_to_num(),
+                               rtol=1e-5, atol=0)
+    again = mx.nd.zeros(x.shape, ctx=cuda_ctx)
+    rtc_kernels.softmax_ce_fwd(xg, again)
+    assert torch.equal(again.as_torch().nan_to_num(),
+                       y.as_torch().nan_to_num())
+
+
+@pytest.mark.parametrize("n", [1, 3, 4097, 1_000_003])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 3), (1, 0), (2, 3)])
+def test_scale_on_views_at_every_phase_on_card(cuda_ctx, n, offsets):
+    """``scale`` on views of larger buffers, x and y at one alignment phase
+    (a scalar head, 16-byte quads, a scalar tail) or at two (single
+    floats), into a view and into a new array: bit for bit ``x *
+    factor``, nothing written around the view."""
+    rs = np.random.RandomState(n)
+    xb = torch.from_numpy(rs.randn(n + 4).astype(np.float32)).cuda()
+    yb = torch.full((n + 4,), 7.0, device="cuda")
+    x, y = _view(xb, offsets[0], (n,)), _view(yb, offsets[1], (n,))
+    n0 = rtc.launches["scale"]
+    rtc_kernels.kernel("scale").launch([x, y, -1.75, n], cuda_ctx,
+                                       *rtc_kernels.scale_plan(n))
+    assert rtc.launches["scale"] == n0 + 1
+    want = rtc_kernels.scale_reference(x.as_torch(), -1.75)
+    assert torch.equal(y.as_torch(), want)
+    outside = torch.cat([yb[:offsets[1]], yb[offsets[1] + n:]])
+    assert torch.equal(outside, torch.full_like(outside, 7.0))
+    assert torch.equal(rtc_kernels.scale(x, -1.75).as_torch(), want)
+
+
+@pytest.mark.parametrize("grid,block", [((1, 1, 1), (1, 1, 1)),
+                                        ((2, 1, 1), (1, 1, 1)),
+                                        ((3, 1, 1), (32, 1, 1))])
+@pytest.mark.parametrize("offsets", [(1, 1), (3, 3), (1, 0)])
+def test_scale_is_right_on_any_grid_on_card(cuda_ctx, grid, block, offsets):
+    """The kernel itself on grids far smaller than ``scale_plan``'s, down
+    to one thread: the grid-stride loops cover the head, the quads and the
+    tail (or the single floats) whatever the grid."""
+    n = 4099
+    rs = np.random.RandomState(offsets[0])
+    xb = torch.from_numpy(rs.randn(n + 4).astype(np.float32)).cuda()
+    yb = torch.full((n + 4,), 7.0, device="cuda")
+    x, y = _view(xb, offsets[0], (n,)), _view(yb, offsets[1], (n,))
+    rtc_kernels.kernel("scale").launch([x, y, 0.375, n], cuda_ctx, grid,
+                                       block)
+    assert torch.equal(y.as_torch(),
+                       rtc_kernels.scale_reference(x.as_torch(), 0.375))
 
 
 def test_softmax_ce_custom_op_backward_on_card(cuda_ctx):
