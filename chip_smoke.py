@@ -8,10 +8,12 @@ Phases (any failure raises, and the script exits non-zero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, started together), print ``tools/torch_ptxas_report.py
-   fused_conv_tc conv_bwd_tc flash_fwd_tc flash_bwd_tc`` (registers,
-   spills, and the HGMMA and UTMALDG instructions in the SASS of the bf16
-   tensor-core K1/K2/K3 and K4/K5/K6: both must be there, and no spill),
-   and compile the rtc kernels of ``csrc/rtc/`` with NVRTC;
+   fused_conv_tc conv_bwd_tc flash_fwd_tc flash_bwd_tc flash_bwd_f32``
+   (registers, spills, and the HGMMA and UTMALDG instructions in the SASS
+   of the bf16 tensor-core K1/K2/K3 and K4/K5/K6: both must be there; the
+   fp32 K5/K6 of ``flash_bwd_f32`` run on the FP32 pipes, no HGMMA; no
+   kernel spills), and compile the rtc kernels of ``csrc/rtc/`` with
+   NVRTC;
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the shapes the serving and training paths give it, in fp32 and bf16
    (TF32 off), with its device time (CUDA-graph replay, inputs warm in L2),
@@ -31,8 +33,10 @@ Phases (any failure raises, and the script exits non-zero):
    backward kernels (K5 dq, K6 dk/dv) on ``BWD_CASES``; each backward row
    names its route (``flash_attention.flash_bwd_route``): every bf16 row
    must take the tensor-core kernels (``csrc/flash_bwd_tc.cu``), every
-   fp32 row the SIMT kernels (``csrc/flash_bwd.cu``), and a bf16 row also
-   times the SIMT kernels on the same inputs (``simt_ms``);
+   fp32 row the register micro-tile kernels (``csrc/flash_bwd_f32.cu``,
+   each output bit-equal to a second launch's); each row also runs the
+   SIMT kernels (``csrc/flash_bwd.cu``) on the same inputs, holds them to
+   the same tolerance and times them (``simt_ms``);
 4. serving phase: greedy KV-cache decode of ``gpt_decoder_117m`` (12
    layers, 768 units, 12 heads, vocab 50257; weights drawn from ``--seed``)
    through ``serving.DecodeSession`` with 8 slots and a 512-token cache, 12
@@ -54,8 +58,9 @@ Phases (any failure raises, and the script exits non-zero):
    momentum 0.9), timed; and a ``torch.profiler`` breakdown of one bf16
    step. K4, K5 and K6 each launch exactly 12 times per training pass
    (counted over the training steps alone; train -> decode and the bf16
-   gate are counted on their own), K4/K5/K6 of every fp32 pass on the SIMT
-   route, of every bf16 pass on the tensor-core route;
+   gate are counted on their own), K4 of every fp32 pass on the SIMT
+   route and K5/K6 on the f32 route, K4/K5/K6 of every bf16 pass on the
+   tensor-core route;
 6. conv kernel phase: the fused conv + BatchNorm kernels (K1 forward, K2
    input gradient, K3 weight gradient) against their plain versions in
    fp32 and bf16 at ResNet-50's shapes at B=32 and one shape off the
@@ -104,9 +109,10 @@ Phases (any failure raises, and the script exits non-zero):
    ``gluon.Trainer.step``: its 149 gradients against the plain loss's
    (``SoftmaxCrossEntropyLoss``, summed; relative L2 <= 1e-4), a learning
    check, the step's time and peak memory. softmax_ce_fwd/bwd launch once
-   per step and K4-K6 12 times per pass (counted over this main path
-   alone). Then each rtc kernel against its plain version at the path's
-   shapes (softmax_ce_fwd within 1e-5 of each probability, relative; the
+   per step and K4-K6 12 times per pass, K4 on the SIMT route and K5/K6 on
+   the f32 route (counted over this main path alone). Then each rtc kernel
+   against its plain version at the path's shapes (softmax_ce_fwd within
+   1e-5 of each probability, relative; the
    rest bit for bit), timed (CUDA-graph replay) beside its plain version,
    a library call and its byte bound; K7's cases beside the path
    (``rtc_cases``: softmax_ce_fwd over rows longer than the resident limit,
@@ -121,10 +127,12 @@ Phases (any failure raises, and the script exits non-zero):
 The line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
-fp32 head case, ``flash_fwd_tc``/``fused_conv_tc``/``conv_bwd_dx_tc``/
-``conv_bwd_dw_tc``/``flash_bwd_dq_tc``/``flash_bwd_dkv_tc`` the
-tensor-core kernels at the bf16 head case, ``flash_fwd_split`` the split
-kernels at the fp32 decode case); the last line is
+fp32 head case, ``flash_bwd_dq_f32``/``flash_bwd_dkv_f32`` the fp32
+micro-tile kernels there, ``flash_fwd_tc``/``fused_conv_tc``/
+``conv_bwd_dx_tc``/``conv_bwd_dw_tc``/``flash_bwd_dq_tc``/
+``flash_bwd_dkv_tc`` the tensor-core kernels at the bf16 head case,
+``flash_fwd_split`` the split kernels at the fp32 decode case); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or run alone without
 the repository beside it (the port does not import), the script exits 2
 before printing any result.
@@ -156,9 +164,9 @@ TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # parameter tensor (both fp32, TF32 off; only the order of sums differs)
 GRAD_RTOL = 1e-3
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
-# the routes of the kernels that have two (conv K1-K3, flash K5/K6): "tc"
-# the bf16 tensor-core kernels, "simt" the others (K4 has three,
-# ``FWD_ROUTES``)
+# the routes of the conv kernels K1-K3: "tc" the bf16 tensor-core
+# kernels, "simt" the others (K4 has three, ``FWD_ROUTES``; K5/K6 three,
+# ``BWD_ROUTES``)
 ROUTES = ("tc", "simt")
 
 
@@ -514,37 +522,84 @@ BWD_CASES = [
 BWD_HEAD = "train_causal_B8_T256"
 
 
+# the backward's routes (``flash_attention.flash_bwd_route``): "tc" the
+# bf16 tensor-core kernels, "f32" the fp32 register micro-tile kernels,
+# "simt" the others
+BWD_ROUTES = ("tc", "f32", "simt")
 # the flash kernels' launches by route: the backward's, then the
 # forward's (``FWD_ROUTES``)
 ROUTE_COUNTERS = tuple(f"{k}_{r}" for k in ("flash_bwd_dq", "flash_bwd_dkv")
-                       for r in ROUTES) + tuple(f"flash_fwd_{r}"
-                                                for r in FWD_ROUTES)
+                       for r in BWD_ROUTES) + tuple(f"flash_fwd_{r}"
+                                                    for r in FWD_ROUTES)
 
 
 def _read_routes(fa):
     return {name: getattr(fa, name + "_launches") for name in ROUTE_COUNTERS}
 
 
-def backward_kernel_phase(seed):
-    """K5 and K6 against their plain versions on ``BWD_CASES`` in fp32 and
-    bf16. Each row names its route (``flash_attention.flash_bwd_route``):
-    every bf16 row must take the tensor-core kernels
-    (``csrc/flash_bwd_tc.cu``), every fp32 row the SIMT kernels
-    (``csrc/flash_bwd.cu``); a bf16 row also times the SIMT kernels on the
-    same inputs (``simt_ms``). The library call is SDPA's whole backward
-    under the same boolean mask and, for causal rows with Tq == Tk and no
-    lengths (where its top-left causal mask is the same one), with
-    ``is_causal=True`` (``library_causal_ms``). ``delta_ms`` is the row
-    statistic ``delta = sum(g * o)`` as ``FlashAttentionFunction``
-    computes it before the two kernels (ATen), so that dq + dk/dv + delta
-    is the port's whole backward beside SDPA's."""
+def bwd_route_expected(d, dtype):
+    """The route ``flash_bwd_route`` gives a call with aligned operands."""
+    if d not in (64, 128):
+        return "simt"
+    return "tc" if dtype == torch.bfloat16 else "f32"
+
+
+def _check_bwd_route(label, before, now, expect):
+    """One launch of each backward kernel since ``before``, on ``expect``."""
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        taken = [r for r in BWD_ROUTES if now[f"{kernel}_{r}"]
+                 - before[f"{kernel}_{r}"] == 1]
+        if taken != [expect] or sum(
+                now[f"{kernel}_{r}"] - before[f"{kernel}_{r}"]
+                for r in BWD_ROUTES) != 1:
+            raise AssertionError(f"{kernel} {label} took {taken}, not "
+                                 f"{expect}")
+
+
+def _bwd_errs(label, got, want, valid, tol):
+    """{dq, dk, dv: (max abs err, err / max|plain|)} of a backward against
+    the plain version's, each within ``tol`` of max|plain|, with no NaN and
+    exact zeros where no pair reaches."""
+    _zero_where_unreached(label, *got, valid)
+    errs = {}
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = (x.float() - y.float()).abs().max().item()
+        # relative to max|plain|: the bf16 kernels round p and dS to bf16
+        # before their products (as the TPU kernels do), the plain version
+        # keeps them in fp32; in fp32 only the order of sums differs
+        ref = max(1.0, y.float().abs().max().item())
+        if not math.isfinite(err) or err > tol * ref:
+            raise AssertionError(f"flash_bwd {label} {name}: max abs err "
+                                 f"{err} > {tol} x {ref}")
+        errs[name] = (err, err / ref)
+    return errs
+
+
+def backward_kernel_phase(seed, dev=None, cases=None, h=12):
+    """K5 and K6 against their plain versions on ``BWD_CASES`` (or
+    ``cases``) in fp32 and bf16. Each row names its route
+    (``flash_attention.flash_bwd_route``) and must take the one the rule
+    gives it (``_check_bwd_route``): with D 64 or 128, bf16 the
+    tensor-core kernels (``csrc/flash_bwd_tc.cu``) and fp32 the register
+    micro-tile kernels (``csrc/flash_bwd_f32.cu``); D = 32 the SIMT kernels
+    (``csrc/flash_bwd.cu``). A row not on the SIMT route also runs the
+    SIMT kernels on the same inputs, held to the same tolerance and timed
+    (``simt_ms``; the SIMT numbers also make a row of their own, route
+    "simt"); every f32 output equals a second launch's bit for bit. The
+    library call is SDPA's whole backward under the same boolean mask and,
+    for causal rows with Tq == Tk and no lengths (where its top-left
+    causal mask is the same one), with ``is_causal=True``
+    (``library_causal_ms``). ``delta_ms`` is the row statistic ``delta =
+    sum(g * o)`` as ``FlashAttentionFunction`` computes it before the two
+    kernels (ATen), so that dq + dk/dv + delta is the port's whole
+    backward beside SDPA's."""
     from incubator_mxnet_tpu_torch.ops import flash_attention as fa
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device("cuda", 0) if dev is None else dev
     rs = np.random.RandomState(seed + 7)
-    h = 12
     results = []
-    for name, b, tq, tk, d, causal, cache_offset, lengths in BWD_CASES:
+    for name, b, tq, tk, d, causal, cache_offset, lengths in \
+            (BWD_CASES if cases is None else cases):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, g = (torch.from_numpy(rs.randn(b, h, t, d).astype(
                 np.float32)).to(dev, dtype) for t in (tq, tk, tk, tq))
@@ -555,36 +610,29 @@ def backward_kernel_phase(seed):
                                           **kw)
             delta = (g.float() * out.float()).sum(-1)
             args = (q, k, v, lens, lse, delta, g)
+            label = f"{name} {DTYPE_NAMES[dtype]}"
+            expect = bwd_route_expected(d, dtype)
             before = _read_routes(fa)
             got = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args,
                                                                    **kw))
             want = (fa.flash_bwd_dq_reference(*args, **kw),
                     *fa.flash_bwd_dkv_reference(*args, **kw))
-            torch.cuda.synchronize()
-            expect = "tc" if dtype == torch.bfloat16 else "simt"
-            now = _read_routes(fa)
-            for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
-                taken = [r for r in ROUTES if now[f"{kernel}_{r}"]
-                         - before[f"{kernel}_{r}"] == 1]
-                if taken != [expect]:
-                    raise AssertionError(f"{kernel} {name} "
-                                         f"{DTYPE_NAMES[dtype]} took "
-                                         f"{taken}, not {expect}")
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            _check_bwd_route(label, before, _read_routes(fa), expect)
             valid = _valid_mask(b, tq, tk, lens, causal, cache_offset, dev)
-            _zero_where_unreached(name, *got, valid)
             tol = TOLS[dtype]
-            errs = {}
-            for label, x, y in zip(("dq", "dk", "dv"), got, want):
-                err = (x.float() - y.float()).abs().max().item()
-                # relative to max|plain|: the kernels round p and dS to
-                # bf16 before their products (as the TPU kernels do), the
-                # plain version keeps them in fp32
-                ref = max(1.0, y.float().abs().max().item())
-                if not math.isfinite(err) or err > tol * ref:
-                    raise AssertionError(
-                        f"flash_bwd {name} {DTYPE_NAMES[dtype]} {label}: "
-                        f"max abs err {err} > {tol} x {ref}")
-                errs[label] = (err, err / ref)
+            errs = _bwd_errs(label, got, want, valid, tol)
+            simt_errs = None
+            if expect != "simt":
+                simt_errs = _bwd_errs(f"{label} simt", fa.flash_attention_bwd(
+                    *args, route="simt", **kw), want, valid, tol)
+            if expect == "f32":
+                again = fa.flash_attention_bwd(*args, **kw)
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"flash_bwd {label}: a second "
+                                         "launch differs")
+                del again
             library_ms = _sdpa_bwd_ms(q, k, v, g, valid)
             library_causal_ms = _sdpa_bwd_ms(q, k, v, g, valid, causal=True) \
                 if causal and lens is None and tq == tk else None
@@ -594,40 +642,55 @@ def backward_kernel_phase(seed):
                      fa.flash_bwd_dq_reference),
                     ("dkv", ("dk", "dv"), fa.flash_bwd_dkv,
                      fa.flash_bwd_dkv_reference)):
-                ms = device_ms(lambda: launch(*args, **kw))
-                wrapper_ms = call_ms(lambda: launch(*args, **kw))
                 plain_ms = device_ms(lambda: plain(*args, **kw))
-                simt_ms = device_ms(lambda: launch(*args, route="simt",
-                                                   **kw)) \
-                    if expect == "tc" else None
                 bound_ms, bound_by = attention_bwd_bound(
                     kernel, b, h, tq, tk, d, dtype, valid)
-                err = max(errs[x][0] for x in labels)
-                rel = max(errs[x][1] for x in labels)
-                r = dict(kernel=f"flash_bwd_{kernel}", case=name,
-                         dtype=DTYPE_NAMES[dtype], route=expect,
-                         max_abs_err=err, err_over_max_ref=rel, tol=tol,
-                         ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                         library_ms=library_ms,
-                         library_causal_ms=library_causal_ms,
-                         simt_ms=simt_ms, delta_ms=delta_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
-                results.append(r)
-                also = "" if simt_ms is None else \
-                    f" simt_ms={simt_ms:.5f} (SIMT kernel)"
-                if library_causal_ms is not None:
-                    also += (f" library_causal_ms={library_causal_ms:.5f} "
-                             "(SDPA whole backward, is_causal)")
-                also += f" delta_ms={delta_ms:.5f} (ATen)"
-                print(f"kernel flash_bwd_{kernel} {name} {r['dtype']} route "
-                      f"{expect}: max_abs_err={err:.3e} ({rel:.2e} of "
-                      f"max|plain|, tol {tol:g}) ms={ms:.5f} (device, CUDA "
-                      f"graph) wrapper_ms={wrapper_ms:.5f} (eager call) "
-                      f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f}"
-                      f" (SDPA whole backward, boolean mask){also} "
-                      f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+                common = dict(kernel=f"flash_bwd_{kernel}", case=name,
+                              dtype=DTYPE_NAMES[dtype], tol=tol,
+                              plain_ms=plain_ms, library_ms=library_ms,
+                              library_causal_ms=library_causal_ms,
+                              delta_ms=delta_ms, bound_ms=bound_ms,
+                              bound_by=bound_by)
+                rows = [(expect, errs)]
+                if simt_errs is not None:
+                    rows.append(("simt", simt_errs))
+                simt_ms = None
+                for route, e in reversed(rows):   # the SIMT row first
+                    ms = device_ms(lambda: launch(*args, route=route, **kw))
+                    wrapper_ms = call_ms(lambda: launch(*args, route=route,
+                                                        **kw))
+                    err = max(e[x][0] for x in labels)
+                    rel = max(e[x][1] for x in labels)
+                    r = dict(common, route=route, max_abs_err=err,
+                             err_over_max_ref=rel, ms=ms,
+                             wrapper_ms=wrapper_ms,
+                             simt_ms=simt_ms if route == expect else None)
+                    results.append(r)
+                    also = "" if r["simt_ms"] is None else \
+                        f" simt_ms={simt_ms:.5f} (SIMT kernel)"
+                    if library_causal_ms is not None:
+                        also += (f" library_causal_ms={library_causal_ms:.5f}"
+                                 " (SDPA whole backward, is_causal)")
+                    also += f" delta_ms={delta_ms:.5f} (ATen)"
+                    print(f"kernel flash_bwd_{kernel} {label} route {route}:"
+                          f" max_abs_err={err:.3e} ({rel:.2e} of max|plain|,"
+                          f" tol {tol:g}) ms={ms:.5f} (device, CUDA graph) "
+                          f"wrapper_ms={wrapper_ms:.5f} (eager call) "
+                          f"plain_ms={plain_ms:.5f} library_ms="
+                          f"{library_ms:.5f} (SDPA whole backward, boolean "
+                          f"mask){also} bound_ms={bound_ms:.5f} ({bound_by})",
+                          flush=True)
+                    if route == "simt":
+                        simt_ms = ms
             del q, k, v, g, out, lse, delta, args, got, want
             gc.collect()
+    slower = [f"{r['kernel']} {r['case']} {r['dtype']} ({r['route']} "
+              f"{r['ms']:.5f} >= simt {r['simt_ms']:.5f})" for r in results
+              if r["simt_ms"] is not None and r["ms"] >= r["simt_ms"]]
+    print("flash_bwd: the tc and f32 routes against the SIMT kernels on the "
+          "same inputs: " + ("faster in every row" if not slower else
+                             "not faster in " + "; ".join(slower)),
+          flush=True)
     return results
 
 
@@ -868,7 +931,8 @@ def gpt_bf16_gate(net, loss_fn, x, y):
 FLASH_TAGS = ("flash_fwd_kernel", "flash_fwd_tc_kernel",
               "flash_fwd_split_kernel", "flash_fwd_merge_kernel",
               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-              "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+              "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
+              "flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel")
 
 
 def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14,
@@ -920,6 +984,20 @@ def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14,
         print(f"  {tag}: {ms:.3f} ms ({100 * ms / total:.1f}% of device "
               f"time) in {sum(r[1] for r in hit)} launches", flush=True)
     return rows
+
+
+def training_routes(fp32_passes, bf16_passes, layers=12):
+    """The flash launches by route of ``fp32_passes`` and ``bf16_passes``
+    training passes of a GPT of ``layers`` layers: each kernel once a
+    layer a pass, K4 of fp32 passes on SIMT, K5/K6 of fp32 passes on f32,
+    every bf16 pass on tc."""
+    want = dict.fromkeys(ROUTE_COUNTERS, 0)
+    want["flash_fwd_simt"] = layers * fp32_passes
+    want["flash_fwd_tc"] = layers * bf16_passes
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        want[f"{kernel}_f32"] = layers * fp32_passes
+        want[f"{kernel}_tc"] = layers * bf16_passes
+    return want
 
 
 def train_phase(seed, card):
@@ -1018,6 +1096,7 @@ def train_phase(seed, card):
     gate = {**_read_launches(fa), **_read_routes(fa)}
     want_gate = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
                  "flash_bwd_dq_tc": 12, "flash_bwd_dkv_tc": 12,
+                 "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0,
                  "flash_bwd_dq_simt": 0, "flash_bwd_dkv_simt": 0,
                  "flash_fwd_tc": 24, "flash_fwd_split": 0,
                  "flash_fwd_simt": 0}
@@ -1056,25 +1135,22 @@ def train_phase(seed, card):
     routes = {name: routes[name] + window[name] for name in ROUTE_COUNTERS}
 
     # one forward and one backward per pass, each through the 12 layers;
-    # every fp32 pass on the SIMT K4/K5/K6, every bf16 pass on the
-    # tensor-core ones
+    # every fp32 pass on the SIMT K4 and the f32 K5/K6, every bf16 pass on
+    # the tensor-core ones
     want = 12 * backward_passes
     print(f"launches on the training path: {launches} over "
           f"{backward_passes} backward passes (12 x {backward_passes} = "
           f"{want} each); by route {routes} ({fp32_passes} fp32 passes "
-          f"on simt, {bf16_passes} bf16 on tc)", flush=True)
+          f"on simt K4 and f32 K5/K6, {bf16_passes} bf16 on tc)",
+          flush=True)
     for name in COUNTERS:
         if launches[name] != want:
             raise AssertionError(f"training launched {name} "
                                  f"{launches[name]} times, not {want}")
-    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        for route, passes in (("simt", fp32_passes), ("tc", bf16_passes)):
-            if routes[f"{kernel}_{route}"] != 12 * passes:
-                raise AssertionError(f"training launched {kernel} on {route}"
-                                     f" {routes[f'{kernel}_{route}']} times, "
-                                     f"not 12 x {passes}")
-    if routes["flash_fwd_split"]:
-        raise AssertionError("training launched flash_fwd on split")
+    want_routes = training_routes(fp32_passes, bf16_passes)
+    if routes != want_routes:
+        raise AssertionError(f"training launched by route {routes}, not "
+                             f"{want_routes}")
     return dict(launches=launches, routes=routes, gate_launches=gate,
                 decode_launches=decode_launches,
                 decode_routes=decode_routes_got,
@@ -2168,12 +2244,14 @@ def rtc_cases(gen, dev, path_shape, flat, softmax_shapes=RTC_SOFTMAX_SHAPES,
     return cases
 
 
-def _check_imperative_launches(rtc_got, rtc_want, flash_got, flash_want):
+def _check_imperative_launches(rtc_got, rtc_want, flash_got, flash_want,
+                               routes_got, routes_want):
     print(f"launches on the imperative path: rtc {rtc_got} (want "
-          f"{rtc_want}); flash {flash_got} (want {flash_want} each)",
-          flush=True)
+          f"{rtc_want}); flash {flash_got} (want {flash_want} each); by "
+          f"route {routes_got} (want {routes_want})", flush=True)
     if rtc_got != rtc_want or any(v != flash_want
-                                  for v in flash_got.values()):
+                                  for v in flash_got.values()) \
+            or routes_got != routes_want:
         raise AssertionError("imperative path: launch counts differ")
 
 
@@ -2314,14 +2392,17 @@ def imperative_phase(seed, card, net, ctx, b=8, flat=RTC_FLAT, lr=3e-4,
     passes += 3
     launches = _rtc_counts()
     flash = _read_launches(fa)
+    flash_routes = _read_routes(fa)
     print(f"imperative step (fp32, B={b}, T={t}, record -> net -> "
           f"Custom(softmax_ce_rtc) -> backward -> gluon.Trainer adam; "
           f"{card}): {step_ms:.3f} ms per step (host clock, 3 steps), peak "
           f"memory {peak / 2**20:.1f} MiB", flush=True)
+    # every pass fp32: K4 on SIMT, K5/K6 on f32, 12 a pass each
     _check_imperative_launches(
         launches, dict(scale=1, saxpy=1, first_row=1,
                        softmax_ce_fwd=rtc_steps, softmax_ce_bwd=rtc_steps),
-        flash, net.num_layers * passes)
+        flash, net.num_layers * passes, flash_routes,
+        training_routes(passes, 0, net.num_layers))
 
     # beside it (not counted): the same step on tensors with the plain loss,
     # and a profile of one imperative step
@@ -2479,7 +2560,7 @@ def imperative_phase(seed, card, net, ctx, b=8, flat=RTC_FLAT, lr=3e-4,
         raise AssertionError("a registered kernel op through invoke differs "
                              "from its direct call")
     return dict(rows=rows, rtc_cases=cases, launches=launches,
-                flash_launches=flash,
+                flash_launches=flash, flash_routes=flash_routes,
                 passes=passes, rtc_steps=rtc_steps, n_params=len(names),
                 grad_worst_rel=worst[0], learning_losses=losses,
                 step_ms=step_ms, tensor_step_ms=tensor_ms, peak_bytes=peak,
@@ -2533,18 +2614,23 @@ TC_KERNELS = ("fused_conv_tc_kernel", "conv_bwd_dx_tc_kernel",
               "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
 TC_SOURCES = ("fused_conv_tc", "conv_bwd_tc", "flash_fwd_tc",
               "flash_bwd_tc")
+# the fp32 flash backward, on the FP32 pipes (no HGMMA), and its source
+F32_KERNELS = ("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel")
+F32_SOURCES = ("flash_bwd_f32",)
 
 
-def tensor_core_sass():
+def kernel_sass():
     """``tools/torch_ptxas_report.py fused_conv_tc conv_bwd_tc flash_fwd_tc
-    flash_bwd_tc``, printed:
-    registers, spills, and the HGMMA (wgmma) and UTMALDG (TMA)
-    instructions in each tensor-core kernel's SASS; raises unless every
-    instantiation has both and none spills."""
+    flash_bwd_tc flash_bwd_f32``, printed: registers, spills, and the
+    HGMMA (wgmma) and UTMALDG (TMA) instructions in each kernel's SASS;
+    raises unless every tensor-core instantiation has both, the fp32
+    backward's instantiations (D 64 and 128) have no HGMMA, and none
+    spills."""
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, str(Path(__file__).resolve().parent / "tools"
-                             / "torch_ptxas_report.py"), *TC_SOURCES],
+                             / "torch_ptxas_report.py"), *TC_SOURCES,
+         *F32_SOURCES],
         capture_output=True, text=True, timeout=300, check=True).stdout
     print(out.rstrip(), flush=True)
     rows = [ln for ln in out.splitlines()
@@ -2554,14 +2640,21 @@ def tensor_core_sass():
                                       or "SASS" not in ln for ln in rows):
         raise AssertionError("a tensor-core kernel without HGMMA or "
                              "UTMALDG in its SASS")
+    f32 = [ln for ln in out.splitlines()
+           if any(k in ln for k in F32_KERNELS) and "Used" in ln]
+    if len(f32) != 2 * len(F32_KERNELS) \
+            or any(" HGMMA 0" not in ln for ln in f32):
+        raise AssertionError(f"the fp32 backward's SASS: {f32}")
     spills = [ln for ln in out.splitlines()
-              if any(k in ln for k in TC_KERNELS) and "spill" in ln
+              if any(k in ln for k in TC_KERNELS + F32_KERNELS)
+              and "spill" in ln
               and not re.search(r"\b0 bytes spill stores, 0 bytes spill "
                                 r"loads", ln)]
     if spills:
-        raise AssertionError(f"tensor-core kernels spill: {spills}")
-    print(f"tensor-core SASS: {len(rows)} kernels with HGMMA and UTMALDG, "
-          f"no spills ({time.perf_counter() - t0:.1f} s)", flush=True)
+        raise AssertionError(f"kernels spill: {spills}")
+    print(f"SASS: {len(rows)} tensor-core kernels with HGMMA and UTMALDG, "
+          f"{len(f32)} fp32 backward kernels on the FP32 pipes, no spills "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def main(argv=None) -> int:
@@ -2586,7 +2679,7 @@ def main(argv=None) -> int:
     _build.build_all()
     print(f"build: {list(_build.SOURCES)} in {time.perf_counter() - t0:.1f} "
           "s", flush=True)
-    tensor_core_sass()
+    kernel_sass()
     t0 = time.perf_counter()
     for name in RTC_KERNELS:                 # NVRTC, or the cubin cache
         rk.kernel(name)
@@ -2632,24 +2725,30 @@ def main(argv=None) -> int:
         entry["simt_ms"] = row["simt_ms"]
         entry["launches_by_path"] = by_path
         record["kernels"].append(entry)
-    # K5 and K6 by route: the SIMT kernels carry fp32 (the oracle, the
-    # fp32 training steps), the tensor-core kernels bf16 (the gate, the
-    # bench row)
+    # K5 and K6 by route: the f32 kernels carry fp32 (the oracle, the fp32
+    # training steps, the imperative step), the tensor-core kernels bf16
+    # (the gate, the bench row); the SIMT kernels, which no main path
+    # launches any more, timed on the same inputs through route="simt"
     for name, line in (("flash_bwd_dq", "209"), ("flash_bwd_dkv", "267")):
         for route, source, dtype in (("simt", "flash_bwd.cu", "fp32"),
+                                     ("f32", "flash_bwd_f32.cu", "fp32"),
                                      ("tc", "flash_bwd_tc.cu", "bf16")):
-            entry = _entry(name if route == "simt" else f"{name}_tc",
+            entry = _entry(name if route == "simt" else f"{name}_{route}",
                            src + source, ref + line,
-                           trained["routes"][f"{name}_{route}"],
+                           trained["routes"][f"{name}_{route}"]
+                           + imperative["flash_routes"][f"{name}_{route}"],
                            [r for r in bwd if r["kernel"] == name
                             and r["route"] == route], train_case, dtype)
-            head = next(r for r in entry["cases"] if r["case"] == train_case)
+            head = next(r for r in entry["cases"] if r["case"] == train_case
+                        and r["dtype"] == dtype)
             entry["library_causal_ms"] = head["library_causal_ms"]
+            entry["simt_ms"] = head["simt_ms"]
+            entry["launches_by_path"] = {
+                "train": trained["routes"][f"{name}_{route}"],
+                "imperative": imperative["flash_routes"][f"{name}_{route}"]}
             if route == "tc":
-                entry["simt_ms"] = head["simt_ms"]
-                entry["launches_by_path"] = {
-                    "train": trained["routes"][f"{name}_tc"],
-                    "bf16_gate": trained["gate_launches"][f"{name}_tc"]}
+                entry["launches_by_path"]["bf16_gate"] = \
+                    trained["gate_launches"][f"{name}_tc"]
             record["kernels"].append(entry)
     conv_ref = "incubator_mxnet_tpu/ops/pallas_conv.py:"
     # K1, K2 and K3 by route: the SIMT kernels carry fp32 (the oracle, the

@@ -70,25 +70,6 @@ using namespace mxflash;
 constexpr int kThreads = 160;                // consumer warpgroup + producer
 constexpr int kStages = 2;                   // ring of shared-memory stages
 
-// lse * log2(e) for exp2; a non-finite lse (a row with no valid key) reads
-// as +inf, so its p = exp2(-inf) = 0 with no test per element
-__device__ __forceinline__ float lse_log2(float l) {
-  return isfinite(l) ? l * kLog2e : INFINITY;
-}
-
-// the query tiles [i_begin, i_begin + 64 * n) a dk/dv block walks
-__device__ __forceinline__ int dkv_tiles(const Mask& m, int j0,
-                                         int* i_begin) {
-  int ib = 0;
-  if (m.causal) {
-    const int first = j0 - m.diag;  // the first query that sees key j0
-    ib = first > 0 ? (first / kTile) * kTile : 0;
-  }
-  *i_begin = ib;
-  const int i_end = j0 < m.kmax ? m.tq : 0;
-  return i_end > ib ? (i_end - ib + kTile - 1) / kTile : 0;
-}
-
 // ---------------------------------------------------------------------------
 // K5: dq
 // ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 // What the tensor-core flash-attention kernels share: the forward of
 // flash_fwd_tc.cu (K4) and the backward of flash_bwd_tc.cu (K5, K6). The
-// mask of one batch entry, the exponentials in base 2, the shared-memory
-// descriptors of a 64-row tile, the epilogue that writes an m64 x D
-// accumulator through swizzled shared memory in 16-byte chunks, and the
-// TMA map of a strided (B, H, T, D) bf16 operand.
+// mask of one batch entry, the tile walks, the exponentials in base 2, the
+// shared-memory descriptors of a 64-row tile, the epilogue that writes an
+// m64 x D accumulator through swizzled shared memory in 16-byte chunks,
+// and the TMA map of a strided (B, H, T, D) bf16 operand. The fp32
+// backward of flash_bwd_f32.cu takes the mask, the tile walks and the
+// exponentials from here too.
 //
 // Every tile is 64 rows (queries or keys) of 64 bf16 (128 bytes) under the
 // 128-byte swizzle (hopper.cuh), so a (64 x D) tile is D/64 boxes. The m64
@@ -60,6 +62,25 @@ __device__ __forceinline__ float exp2_fast(float x) {
 __device__ __forceinline__ int key_tiles(const Mask& m, int q0) {
   const int kend = m.kend(q0);
   return kend > 0 ? (kend + kTile - 1) / kTile : 0;
+}
+
+// the query tiles [i_begin, i_begin + 64 * n) a dk/dv block walks
+__device__ __forceinline__ int dkv_tiles(const Mask& m, int j0,
+                                         int* i_begin) {
+  int ib = 0;
+  if (m.causal) {
+    const int first = j0 - m.diag;  // the first query that sees key j0
+    ib = first > 0 ? (first / kTile) * kTile : 0;
+  }
+  *i_begin = ib;
+  const int i_end = j0 < m.kmax ? m.tq : 0;
+  return i_end > ib ? (i_end - ib + kTile - 1) / kTile : 0;
+}
+
+// lse * log2(e) for exp2; a non-finite lse (a row with no valid key) reads
+// as +inf, so its p = exp2(-inf) = 0 with no test per element
+__device__ __forceinline__ float lse_log2(float l) {
+  return isfinite(l) ? l * kLog2e : INFINITY;
 }
 
 // K-major operand of k-step kk: D/64 boxes of 64 rows, 16 columns a step

@@ -330,12 +330,15 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dims (innermost first, dims[0] contiguous) whose
-// dims 1.. lie `strides[0..rank-2]` bytes apart (multiples of 16), in
-// boxes of `box` under the 128-byte swizzle, zero fill outside it.
+// A bf16 tensor (or one of `dtype`) of `rank` dims (innermost first,
+// dims[0] contiguous) whose dims 1.. lie `strides[0..rank-2]` bytes apart
+// (multiples of 16), in boxes of `box` under the 128-byte swizzle, zero
+// fill outside it.
 inline int encode(CUtensorMap* map, const void* base, int rank,
                   const uint64_t* dims, const uint64_t* strides,
-                  const uint32_t* box, const uint32_t* estride) {
+                  const uint32_t* box, const uint32_t* estride,
+                  CUtensorMapDataType dtype =
+                      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return kMapError + (int)CUDA_ERROR_NOT_FOUND;
   cuuint64_t gdim[5], gstride[4];
@@ -347,7 +350,7 @@ inline int encode(CUtensorMap* map, const void* base, int rank,
     if (i + 1 < rank) gstride[i] = strides[i];
   }
   const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      map, dtype, rank, const_cast<void*>(base),
       gdim, gstride, bdim, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -12,8 +12,10 @@ keys of a decode step (one query row) over blocks and merge them
 and, for a gradient, the two backward kernels (``_flash_bwd_dq_kernel``
 and ``_flash_bwd_dkv_kernel``) on the route :func:`flash_bwd_route`
 names: the bf16 tensor-core kernels of ``csrc/flash_bwd_tc.cu``
-(``"tc"``) or the SIMT kernels of ``csrc/flash_bwd.cu`` (``"simt"``). A
-CPU tensor takes the plain versions, ``flash_attention_reference`` and
+(``"tc"``), the fp32 kernels of ``csrc/flash_bwd_f32.cu`` (``"f32"``:
+register micro-tiles on the FP32 pipes) or the SIMT kernels of
+``csrc/flash_bwd.cu`` (``"simt"``). A CPU tensor takes the plain
+versions, ``flash_attention_reference`` and
 ``flash_attention_bwd_reference``. There is no size crossover to a dense
 path here: whether one pays on this card has not been measured.
 
@@ -49,8 +51,9 @@ __all__ = ["FlashAttentionFunction", "flash_attention",
            "flash_attention_reference", "flash_bwd_dkv",
            "flash_bwd_dkv_reference", "flash_bwd_dq", "flash_bwd_dq_reference",
            "flash_bwd_route", "flash_bwd_dkv_launches",
-           "flash_bwd_dkv_simt_launches", "flash_bwd_dkv_tc_launches",
-           "flash_bwd_dq_launches", "flash_bwd_dq_simt_launches",
+           "flash_bwd_dkv_f32_launches", "flash_bwd_dkv_simt_launches",
+           "flash_bwd_dkv_tc_launches", "flash_bwd_dq_launches",
+           "flash_bwd_dq_f32_launches", "flash_bwd_dq_simt_launches",
            "flash_bwd_dq_tc_launches", "flash_fwd_launches",
            "flash_fwd_route", "flash_fwd_simt_launches",
            "flash_fwd_split_launches", "flash_fwd_tc_launches",
@@ -68,6 +71,7 @@ flash_bwd_dkv_launches = 0
 #: the backward launches by route (see :func:`flash_bwd_route`)
 flash_bwd_dq_tc_launches = flash_bwd_dq_simt_launches = 0
 flash_bwd_dkv_tc_launches = flash_bwd_dkv_simt_launches = 0
+flash_bwd_dq_f32_launches = flash_bwd_dkv_f32_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -210,15 +214,16 @@ def _fwd_kernel(route):
 def _bwd_kernels(route):
     """(dq, dkv) entry points of the route's library: ``"simt"``
     ``csrc/flash_bwd.cu`` (a dtype argument before the stream), ``"tc"``
-    ``csrc/flash_bwd_tc.cu`` (bf16 only)."""
+    ``csrc/flash_bwd_tc.cu`` (bf16 only), ``"f32"``
+    ``csrc/flash_bwd_f32.cu`` (fp32 only)."""
     fns = _bwd_fns.get(route)
     if fns is None:
-        tc = route == "tc"
-        lib = _build.load("flash_bwd_tc" if tc else "flash_bwd")
+        simt = route == "simt"
+        suffix = "" if simt else "_" + route
+        lib = _build.load("flash_bwd" + suffix)
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
-                ctypes.c_float, i, i] + ([] if tc else [i]) + [p]
-        suffix = "_tc" if tc else ""
+                ctypes.c_float, i, i] + ([i] if simt else []) + [p]
         dq = getattr(lib, "mxtpu_flash_bwd_dq" + suffix)
         dkv = getattr(lib, "mxtpu_flash_bwd_dkv" + suffix)
         dq.argtypes = [p] * 8 + tail
@@ -311,26 +316,32 @@ def _sm_count(device):
 
 
 def flash_bwd_route(q, k, v, g, outs=()):
-    """Which backward kernels a call takes on the card: ``"tc"`` (the
-    tensor-core kernels of ``csrc/flash_bwd_tc.cu``) for bf16 with D 64 or
-    128 where every operand (q, k, v, g and the outputs ``outs``) has a
-    contiguous head dim, a base address and (b, h, t) strides that are
-    multiples of 16 bytes (a dim of size 1 has no stride to hold to), as
-    TMA needs; ``"simt"`` (``csrc/flash_bwd.cu``) for everything else:
-    fp32 (no tensor-core path keeps fp32 off TF32), D = 32 and misaligned
-    views. Decided from dtype, shape and alignment before the launch."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in _TC_HEAD_DIMS:
+    """Which backward kernels a call takes on the card, for D 64 or 128
+    where every operand (q, k, v, g and the outputs ``outs``) has one dtype,
+    a contiguous head dim, a base address and (b, h, t) strides that are
+    multiples of 16 bytes (a dim of size 1 has no stride to hold to):
+    ``"tc"`` (the tensor-core kernels of ``csrc/flash_bwd_tc.cu``, TMA and
+    ``wgmma``) in bf16, ``"f32"`` (``csrc/flash_bwd_f32.cu``: register
+    micro-tiles on the FP32 pipes, fed by TMA; no tensor-core path keeps
+    fp32 off TF32) in fp32. ``"simt"`` (``csrc/flash_bwd.cu``) takes
+    everything else: D = 32 and misaligned views. Measured on an H100
+    (``chip_smoke.py``'s backward kernel phase, PERF.md): on the same fp32
+    inputs the f32 kernels beat the SIMT ones at every shape of the
+    phase. Decided from dtype, shape and alignment before the launch."""
+    d = q.shape[-1]
+    if q.dtype not in _DTYPE_CODE or d not in _TC_HEAD_DIMS:
         return "simt"
     for t in (q, k, v, g, *outs):
-        if t.dtype != torch.bfloat16 or not _aligned16(t, q.shape[-1]):
+        if t.dtype != q.dtype or not _aligned16(t, d):
             return "simt"
-    return "tc"
+    return "tc" if q.dtype == torch.bfloat16 else "f32"
 
 
 def _pick_bwd_route(q, k, v, g, outs, route):
     """:func:`flash_bwd_route`'s choice, or ``route`` where a caller names
-    one: ``"simt"`` takes any call (to time the SIMT kernels in bf16
-    beside the tensor-core ones), ``"tc"`` only what the rule sends there."""
+    one: ``"simt"`` takes any call (to time the SIMT kernels beside the
+    tensor-core or f32 ones), ``"tc"`` and ``"f32"`` only what the rule
+    sends there."""
     rule = flash_bwd_route(q, k, v, g, outs)
     if route is None or route == rule or route == "simt":
         return rule if route is None else route
@@ -469,7 +480,7 @@ def _launch_bwd(which, q, k, v, lengths, lse, delta, g, scale, causal,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
         *ostrides)
     fn = _bwd_kernels(route)[which]
-    dtype = () if route == "tc" else (_DTYPE_CODE[q.dtype],)
+    dtype = (_DTYPE_CODE[q.dtype],) if route == "simt" else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
@@ -499,7 +510,7 @@ def flash_bwd_dq(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
     kernel whatever the type) or raises. A ``route`` the rule does not
     allow raises on the CPU too."""
     global flash_bwd_dq_launches, flash_bwd_dq_tc_launches
-    global flash_bwd_dq_simt_launches
+    global flash_bwd_dq_simt_launches, flash_bwd_dq_f32_launches
     if _device_of(q) == "cpu":
         if route is not None:
             _pick_bwd_route(q, k, v, g, (), route)
@@ -509,6 +520,8 @@ def flash_bwd_dq(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
                                causal, cache_offset, route)
     if route == "tc":
         flash_bwd_dq_tc_launches += 1
+    elif route == "f32":
+        flash_bwd_dq_f32_launches += 1
     else:
         flash_bwd_dq_simt_launches += 1
     flash_bwd_dq_launches += 1
@@ -522,7 +535,7 @@ def flash_bwd_dkv(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
     of the route :func:`flash_bwd_route` names (or ``route="simt"``) or
     raises. A ``route`` the rule does not allow raises on the CPU too."""
     global flash_bwd_dkv_launches, flash_bwd_dkv_tc_launches
-    global flash_bwd_dkv_simt_launches
+    global flash_bwd_dkv_simt_launches, flash_bwd_dkv_f32_launches
     if _device_of(q) == "cpu":
         if route is not None:
             _pick_bwd_route(q, k, v, g, (), route)
@@ -532,6 +545,8 @@ def flash_bwd_dkv(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
                                   causal, cache_offset, route)
     if route == "tc":
         flash_bwd_dkv_tc_launches += 1
+    elif route == "f32":
+        flash_bwd_dkv_f32_launches += 1
     else:
         flash_bwd_dkv_simt_launches += 1
     flash_bwd_dkv_launches += 1

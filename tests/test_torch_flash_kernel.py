@@ -18,8 +18,9 @@ bf16 with D 64 or 128 and 16-byte aligned operands on the tensor-core
 kernel (``csrc/flash_fwd_tc.cu``), everything else on the SIMT kernel
 (``csrc/flash_fwd.cu``); every route is also run by name on every case
 its kernel takes. The backward takes the route ``flash_bwd_route`` names:
-bf16 with D 64 or 128 and 16-byte aligned operands on the tensor-core
-kernels (``csrc/flash_bwd_tc.cu``), everything else on the SIMT kernels
+with D 64 or 128 and 16-byte aligned operands, bf16 on the tensor-core
+kernels (``csrc/flash_bwd_tc.cu``) and fp32 on the register micro-tile
+kernels (``csrc/flash_bwd_f32.cu``); everything else on the SIMT kernels
 (``csrc/flash_bwd.cu``); the card tests check which one ran.
 """
 
@@ -267,18 +268,20 @@ def _bwd_case(case, dtype, device, seed=0):
                                                 cache_offset=cache_offset)
 
 
+BWD_ROUTES = ("tc", "f32", "simt")
+
+
 def _route_counts():
     return {(k, r): getattr(fa, f"flash_bwd_{k}_{r}_launches")
-            for k in ("dq", "dkv") for r in ("tc", "simt")}
+            for k in ("dq", "dkv") for r in BWD_ROUTES}
 
 
 def _expect_route(before, route):
     """One launch of each backward kernel since ``before``, on ``route``."""
     now = _route_counts()
     for k in ("dq", "dkv"):
-        assert now[k, route] == before[k, route] + 1, (k, route, now)
-        other = "simt" if route == "tc" else "tc"
-        assert now[k, other] == before[k, other], (k, other, now)
+        for r in BWD_ROUTES:
+            assert now[k, r] == before[k, r] + int(r == route), (k, r, now)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -294,8 +297,8 @@ def test_backward_kernels_match_plain_on_card(cuda_device, case, dtype):
         (n_dq + 1, n_dkv + 1)
     q, k, v, _, _, _, g = args
     rule = fa.flash_bwd_route(q, k, v, g)
-    assert rule == ("tc" if dtype == torch.bfloat16 and case[5] in (64, 128)
-                    else "simt")
+    assert rule == ("simt" if case[5] not in (64, 128) else
+                    "tc" if dtype == torch.bfloat16 else "f32")
     _expect_route(before, rule)
     want = fa.flash_attention_bwd_reference(*args, **kw)
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
@@ -335,7 +338,7 @@ def test_backward_simt_route_stays_reachable_in_bf16(cuda_device):
         torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol)
     args32, kw32 = _bwd_case(CASES[1], torch.float32, cuda_device)
     before = _route_counts()
-    with pytest.raises(ValueError, match="takes 'simt'"):
+    with pytest.raises(ValueError, match="takes 'f32'"):
         fa.flash_bwd_dq(*args32, route="tc", **kw32)
     assert _route_counts() == before
 
@@ -373,8 +376,11 @@ def test_autograd_through_the_kernels_on_card(cuda_device):
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
         fn = fa.flash_attention if kernel else fa.flash_attention_reference
         n0 = fa.flash_bwd_dq_launches
+        before = _route_counts()
         fn(q, k, v, causal=True).backward(g.to(cuda_device))
         assert fa.flash_bwd_dq_launches == n0 + int(kernel)
+        if kernel:     # fp32 head-split views: the f32 K5/K6
+            _expect_route(before, "f32")
         grads.append(qkv.grad)
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-4)
 
@@ -403,3 +409,87 @@ def test_autograd_through_the_tc_route_on_card(cuda_device):
         grads.append(qkv.grad.float())
     tol = TOLS[torch.bfloat16] * max(1.0, grads[1].abs().max().item())
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=tol)
+
+
+# the f32 route's cases, (name, b, h, tq, tk, d, causal, cache_offset,
+# lengths): causal, lengths with a length-0 entry, cache offset, Tq > Tk,
+# D=128 (the GPT's head-split views are their own test below)
+F32_CASES = [
+    ("causal_T200", 2, 3, 200, 200, 64, True, False, None),
+    ("lengths_len0", 3, 2, 70, 130, 64, False, False, [130, 33, 0]),
+    ("cache_offset_T5", 3, 2, 5, 140, 64, True, True, [140, 70, 5]),
+    ("tq_gt_tk_causal", 2, 2, 150, 40, 64, True, False, None),
+    ("causal_d128_T320", 2, 3, 320, 320, 128, True, False, None),
+    ("lengths_d128", 2, 2, 66, 100, 128, False, False, [100, 1]),
+]
+
+
+def _held(got, want, valid):
+    """dq, dk, dv within 1e-4 of max|plain|, no NaN, exactly 0 where no
+    pair reaches."""
+    dead_rows, dead_keys = ~valid.any(3), ~valid.any(2)
+    for name, x, y, dead in zip(("dq", "dk", "dv"), got, want,
+                                (dead_rows, dead_keys, dead_keys)):
+        assert not torch.isnan(x).any(), name
+        tol = TOLS[torch.float32] * max(1.0, y.abs().max().item())
+        torch.testing.assert_close(x, y, rtol=0, atol=tol,
+                                   msg=lambda m: f"{name}: {m}")
+        mask = dead.unsqueeze(-1).expand_as(x)
+        assert (x[mask] == 0).all(), name
+
+
+@pytest.mark.parametrize("case", F32_CASES, ids=[c[0] for c in F32_CASES])
+def test_f32_route_matches_plain_on_card(cuda_device, case):
+    """fp32 aligned operands take the f32 kernels, held to 1e-4 of
+    max|plain| (the order of fp32 sums), and so does the SIMT route on the
+    same inputs."""
+    args, kw = _bwd_case(case, torch.float32, cuda_device, seed=4)
+    q, k, v, lens, _, _, g = args
+    assert fa.flash_bwd_route(q, k, v, g) == "f32"
+    want = fa.flash_attention_bwd_reference(*args, **kw)
+    valid = fa._valid(q, k, lens, kw["causal"], kw["cache_offset"])
+    valid = valid.expand(q.shape[0], 1, q.shape[2], k.shape[2])
+    for route in ("f32", "simt"):
+        before = _route_counts()
+        got = fa.flash_attention_bwd(*args, route=route, **kw)
+        torch.cuda.synchronize()
+        _expect_route(before, route)
+        _held(got, want, valid)
+
+
+def test_f32_route_on_the_gpt_views_on_card(cuda_device):
+    """The fp32 GPT's operands: q, k, v head-split views of one fused
+    (B, T, 3, H, D) projection (t-stride 3*H*D floats), the cotangent a
+    head-merge view; the f32 kernels take them and match the plain
+    version."""
+    rs = np.random.RandomState(21)
+    b, t, h, d = 2, 150, 12, 64
+    qkv = torch.from_numpy(rs.randn(b, t, 3, h, d).astype(np.float32))
+    q, k, v = (x.transpose(1, 2) for x in qkv.to(cuda_device).unbind(2))
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    g = fa._like_out(q)
+    g.copy_(torch.from_numpy(rs.randn(b, h, t, d).astype(np.float32)))
+    delta = (g * out).sum(-1)
+    args = (q, k, v, None, lse, delta, g)
+    assert q.stride(2) == 3 * h * d
+    assert fa.flash_bwd_route(q, k, v, g) == "f32"
+    before = _route_counts()
+    got = fa.flash_attention_bwd(*args, causal=True)
+    torch.cuda.synchronize()
+    _expect_route(before, "f32")
+    want = fa.flash_attention_bwd_reference(*args, causal=True)
+    valid = fa._valid(q, k, None, True, False).expand(b, 1, t, t)
+    _held(got, want, valid)
+
+
+def test_f32_route_repeats_bit_for_bit(cuda_device):
+    """No atomics: the f32 kernels repeat exactly (the causal D=64 case
+    and the lengths case at D=128)."""
+    for case in (F32_CASES[0], F32_CASES[5]):
+        args, kw = _bwd_case(case, torch.float32, cuda_device, seed=6)
+        before = _route_counts()
+        first = fa.flash_attention_bwd(*args, **kw)
+        _expect_route(before, "f32")
+        second = fa.flash_attention_bwd(*args, **kw)
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)

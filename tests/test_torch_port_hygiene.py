@@ -158,8 +158,9 @@ def test_kernel_build_is_content_addressed():
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
     assert set(_build.SOURCES) == {"flash_fwd", "flash_fwd_tc",
                                    "flash_fwd_split", "flash_bwd",
-                                   "flash_bwd_tc", "fused_conv", "conv_bwd",
-                                   "conv_bwd_tc", "fused_conv_tc"}
+                                   "flash_bwd_f32", "flash_bwd_tc",
+                                   "fused_conv", "conv_bwd", "conv_bwd_tc",
+                                   "fused_conv_tc"}
     assert not fa._fwd_fns or torch.cuda.is_available()
     assert not fa._bwd_fns or torch.cuda.is_available()
     assert not fc._fns or torch.cuda.is_available()
@@ -362,6 +363,69 @@ def test_chip_smoke_kernel_phase_rehearses_on_the_cpu(monkeypatch):
         set(names)
 
 
+def test_chip_smoke_backward_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.backward_kernel_phase`` at small shapes on the CPU (the
+    plain versions run, so the route check is recorded instead of made):
+    every fp32 row names ``"f32"`` or ``"simt"`` as the rule gives its
+    head dim, bf16 rows ``"tc"`` or ``"simt"``; each row off the SIMT route
+    carries ``simt_ms`` and has a SIMT row of its own beside it, held to
+    the same gates; every gate passes on the plain versions."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "device_ms", lambda fn, **k: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "call_ms", lambda fn, **k: (fn(), 0.0)[1])
+    checks = []
+    monkeypatch.setattr(cs, "_check_bwd_route",
+                        lambda label, before, now, expect:
+                        checks.append((label, expect)))
+    cases = [("causal_D64", 1, 20, 20, 64, True, False, None),
+             ("lengths_len0_D128", 2, 9, 30, 128, False, False, (30, 0)),
+             ("offset_D32", 2, 4, 24, 32, True, True, (24, 9)),
+             ("tq_gt_tk_D64", 1, 30, 8, 64, True, False, None)]
+    rows = cs.backward_kernel_phase(0, torch.device("cpu"), cases, h=2)
+    want = {"causal_D64": ("f32", "tc"), "lengths_len0_D128": ("f32", "tc"),
+            "offset_D32": ("simt", "simt"), "tq_gt_tk_D64": ("f32", "tc")}
+    assert checks == [(f"{c} {dt}", r) for c, pair in want.items()
+                      for dt, r in zip(("fp32", "bf16"), pair)]
+    for c, pair in want.items():
+        for dt, route in zip(("fp32", "bf16"), pair):
+            for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+                got = [r for r in rows if (r["case"], r["dtype"],
+                                           r["kernel"]) == (c, dt, kernel)]
+                # the SIMT row first, then the routed one
+                assert [r["route"] for r in got] == \
+                    (["simt"] if route == "simt" else ["simt", route])
+                assert got[-1]["simt_ms"] == (None if route == "simt"
+                                              else 0.0)
+                assert all(r["max_abs_err"] == 0 and r["bound_ms"] > 0
+                           for r in got)
+                assert (got[-1]["library_causal_ms"] is None) == \
+                    (c != "causal_D64")
+    assert cs.bwd_route_expected(64, torch.float32) == "f32"
+    assert cs.bwd_route_expected(128, torch.bfloat16) == "tc"
+    assert cs.bwd_route_expected(32, torch.float32) == "simt"
+
+
+def test_chip_smoke_backward_route_check_names_the_route_taken():
+    """``_check_bwd_route`` passes one launch of each kernel on the route
+    it expects and raises on another route, on two, or on none."""
+    cs = _chip_smoke()
+    before = dict.fromkeys(cs.ROUTE_COUNTERS, 0)
+
+    def after(*taken):
+        now = dict(before)
+        for kernel, route in taken:
+            now[f"{kernel}_{route}"] += 1
+        return now
+
+    both = [("flash_bwd_dq", "f32"), ("flash_bwd_dkv", "f32")]
+    cs._check_bwd_route("x", before, after(*both), "f32")
+    for bad in (after(("flash_bwd_dq", "f32"), ("flash_bwd_dkv", "simt")),
+                after(*both, ("flash_bwd_dq", "simt")),
+                after(("flash_bwd_dq", "f32"))):
+        with pytest.raises(AssertionError, match="not f32"):
+            cs._check_bwd_route("x", before, bad, "f32")
+
+
 def test_chip_smoke_decode_routes_follow_the_prefill_buckets():
     """Serving in fp32: 12 split launches a decode step, and 12 a prefill
     on the route its bucket's Tq takes: SIMT, the 16-token bucket too."""
@@ -471,7 +535,12 @@ def test_chip_smoke_imperative_phase_rehearses_on_the_cpu(monkeypatch):
     zero = {k: 0 for k in cs.RTC_KERNELS}
     want = dict(scale=1, saxpy=1, first_row=1, softmax_ce_fwd=9,
                 softmax_ce_bwd=9)
-    assert windows == [(zero, want, {k: 0 for k in cs.COUNTERS}, 2 * 10)]
+    # on the CPU no kernel launches: every count 0, against 2 layers x 10
+    # passes, K4 on simt and K5/K6 on f32
+    routes = cs.training_routes(10, 0, layers=2)
+    assert routes["flash_bwd_dq_f32"] == routes["flash_fwd_simt"] == 20
+    assert windows == [(zero, want, {k: 0 for k in cs.COUNTERS}, 2 * 10,
+                        dict.fromkeys(cs.ROUTE_COUNTERS, 0), routes)]
     rows = out["rows"]
     assert list(rows) == list(cs.RTC_KERNELS)
     assert rows["softmax_ce_fwd"]["max_rel_err"] <= cs.RTC_FWD_RTOL

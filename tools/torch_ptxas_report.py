@@ -34,7 +34,10 @@ def report(name: str, tmp: str) -> list:
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
     cmd = [_build.nvcc_path(), *flags, "-Xptxas", "-v", "-c", "-o",
            f"{tmp}/{name}.o", str(_build.CSRC / f"{name}.cu")]
-    out = subprocess.run(cmd, capture_output=True, text=True, check=True)
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit "
+                           f"{out.returncode}):\n{out.stdout}{out.stderr}")
     rows, func = [], None
     for line in (out.stdout + out.stderr).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
