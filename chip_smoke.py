@@ -8,12 +8,13 @@ Phases (any failure raises, and the script exits non-zero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, started together), print ``tools/torch_ptxas_report.py
-   fused_conv_tc conv_bwd_tc flash_fwd_tc flash_bwd_tc flash_bwd_f32``
-   (registers, spills, and the HGMMA and UTMALDG instructions in the SASS
-   of the bf16 tensor-core K1/K2/K3 and K4/K5/K6: both must be there; the
-   fp32 K5/K6 of ``flash_bwd_f32`` run on the FP32 pipes, no HGMMA; no
-   kernel spills), and compile the rtc kernels of ``csrc/rtc/`` with
-   NVRTC;
+   fused_conv_tc conv_bwd_tc flash_fwd_tc flash_bwd_tc flash_bwd_f32
+   flash_fwd_f32 conv_bwd_f32`` (registers, spills, and the HGMMA and
+   UTMALDG instructions in the SASS of the bf16 tensor-core K1/K2/K3 and
+   K4/K5/K6: both must be there; the fp32 K5/K6 of ``flash_bwd_f32``, K4
+   of ``flash_fwd_f32`` and K2 of ``conv_bwd_f32`` run on the FP32 pipes
+   and load by TMA: UTMALDG and no HGMMA; no kernel spills), and compile
+   the rtc kernels of ``csrc/rtc/`` with NVRTC;
 3. kernel phase: each kernel against its plain PyTorch version on the card,
    at the shapes the serving and training paths give it, in fp32 and bf16
    (TF32 off), with its device time (CUDA-graph replay, inputs warm in L2),
@@ -25,10 +26,13 @@ Phases (any failure raises, and the script exits non-zero):
    row names its route (``flash_attention.flash_fwd_route``): a decode
    step (Tq = 1) must take the split kernels
    (``csrc/flash_fwd_split.cu``), the other bf16 rows the tensor-core
-   kernel (``csrc/flash_fwd_tc.cu``), the other fp32 rows the SIMT kernel
-   (``csrc/flash_fwd.cu``); a row not on the SIMT route also runs the SIMT
-   kernel on the same inputs, holds it against the plain version as well
-   and times it (``simt_ms``), and causal square rows time SDPA with
+   kernel (``csrc/flash_fwd_tc.cu``), the other fp32 rows from
+   ``FWD_F32_MIN_TQ`` query rows the register micro-tile kernel
+   (``csrc/flash_fwd_f32.cu``, its output and lse bit-equal to a second
+   launch's), the rest the SIMT kernel (``csrc/flash_fwd.cu``); a row not
+   on the SIMT route also runs the SIMT kernel on the same inputs, holds
+   it against the plain version as well and times it (``simt_ms``, and a
+   SIMT row of its own), and causal square rows time SDPA with
    ``is_causal`` beside its boolean mask. Then the two
    backward kernels (K5 dq, K6 dk/dv) on ``BWD_CASES``; each backward row
    names its route (``flash_attention.flash_bwd_route``): every bf16 row
@@ -43,7 +47,9 @@ Phases (any failure raises, and the script exits non-zero):
    prompts of 5 to 250 tokens, 32 new tokens each. Three streams are held
    token for token against the full-forward greedy oracle (``net(tokens)``
    re-run per token), and K4's launch count shows the path went through it:
-   every decode step on the split route (``decode_routes``);
+   every decode step on the split route, every prefill on the route of its
+   bucket's length (``decode_routes``: f32 from ``FWD_F32_MIN_TQ`` rows,
+   SIMT below);
 5. training phase: ``gpt_decoder_117m`` with ``max_length`` 256 and
    dropout 0 at B=8, T=256: the fp32 gradient of every parameter through
    the kernels against the same model with its attention swapped for the
@@ -58,9 +64,8 @@ Phases (any failure raises, and the script exits non-zero):
    momentum 0.9), timed; and a ``torch.profiler`` breakdown of one bf16
    step. K4, K5 and K6 each launch exactly 12 times per training pass
    (counted over the training steps alone; train -> decode and the bf16
-   gate are counted on their own), K4 of every fp32 pass on the SIMT
-   route and K5/K6 on the f32 route, K4/K5/K6 of every bf16 pass on the
-   tensor-core route;
+   gate are counted on their own), K4, K5 and K6 of every fp32 pass on
+   the f32 route, of every bf16 pass on the tensor-core route;
 6. conv kernel phase: the fused conv + BatchNorm kernels (K1 forward, K2
    input gradient, K3 weight gradient) against their plain versions in
    fp32 and bf16 at ResNet-50's shapes at B=32 and one shape off the
@@ -69,9 +74,13 @@ Phases (any failure raises, and the script exits non-zero):
    ``aten.convolution_backward`` for the input and the weight gradient).
    Each row names its route (``fused_conv.conv_route``): every bf16 row
    must take the tensor-core kernels (``csrc/fused_conv_tc.cu``,
-   ``csrc/conv_bwd_tc.cu``), every fp32 row the SIMT kernels
-   (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``); a bf16 row also times
-   the SIMT kernel on the same inputs (``simt_ms``). At the head case the
+   ``csrc/conv_bwd_tc.cu``), every fp32 K2 row the register micro-tile
+   kernel (``csrc/conv_bwd_f32.cu``, its outputs bit-equal to a second
+   launch's), the other fp32 rows the SIMT kernels
+   (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``); a row not on the SIMT
+   route also times the SIMT kernel on the same inputs (``simt_ms``; fp32
+   K2 also holds it to the plain version, a SIMT row of its own). At the
+   head case the
    tensor-core K1's per-channel sums and sums of squares lie within
    ``K1_SUMS_RTOL`` (relative L2) of an fp64 evaluation on the same bf16
    inputs (``k1_sums_fp64``);
@@ -95,8 +104,9 @@ Phases (any failure raises, and the script exits non-zero):
    bench row
    (B=128, ``SPMDTrainer`` SGD lr 0.1 momentum 0.9), timed, with a
    ``torch.profiler`` breakdown of one step. K1 launches exactly 52 times
-   per forward, K2 and K3 52 times per backward: every fp32 pass on the
-   SIMT route, every bf16 one on the tensor-core route;
+   per forward, K2 and K3 52 times per backward: in every fp32 pass K2 on
+   the f32 route and K1 and K3 on the SIMT route, every bf16 one on the
+   tensor-core route;
 8. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
    kernels (K7, ``csrc/rtc/*.cu``, compiled by NVRTC in the build step)
    run an ``mx.rtc`` program (``scale`` and ``saxpy`` over 163,037,184
@@ -109,8 +119,8 @@ Phases (any failure raises, and the script exits non-zero):
    ``gluon.Trainer.step``: its 149 gradients against the plain loss's
    (``SoftmaxCrossEntropyLoss``, summed; relative L2 <= 1e-4), a learning
    check, the step's time and peak memory. softmax_ce_fwd/bwd launch once
-   per step and K4-K6 12 times per pass, K4 on the SIMT route and K5/K6 on
-   the f32 route (counted over this main path alone). Then each rtc kernel
+   per step and K4-K6 12 times per pass, all three on the f32 route
+   (counted over this main path alone). Then each rtc kernel
    against its plain version at the path's shapes (softmax_ce_fwd within
    1e-5 of each probability, relative; the
    rest bit for bit), timed (CUDA-graph replay) beside its plain version,
@@ -127,8 +137,9 @@ Phases (any failure raises, and the script exits non-zero):
 The line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
-fp32 head case, ``flash_bwd_dq_f32``/``flash_bwd_dkv_f32`` the fp32
-micro-tile kernels there, ``flash_fwd_tc``/``fused_conv_tc``/
+fp32 head case, ``flash_fwd_f32``/``conv_bwd_dx_f32``/
+``flash_bwd_dq_f32``/``flash_bwd_dkv_f32`` the fp32 micro-tile kernels
+there, ``flash_fwd_tc``/``fused_conv_tc``/
 ``conv_bwd_dx_tc``/``conv_bwd_dw_tc``/``flash_bwd_dq_tc``/
 ``flash_bwd_dkv_tc`` the tensor-core kernels at the bf16 head case,
 ``flash_fwd_split`` the split kernels at the fp32 decode case); the last
@@ -164,10 +175,12 @@ TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # parameter tensor (both fp32, TF32 off; only the order of sums differs)
 GRAD_RTOL = 1e-3
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
-# the routes of the conv kernels K1-K3: "tc" the bf16 tensor-core
-# kernels, "simt" the others (K4 has three, ``FWD_ROUTES``; K5/K6 three,
-# ``BWD_ROUTES``)
-ROUTES = ("tc", "simt")
+# the routes of each conv kernel K1-K3: "tc" the bf16 tensor-core
+# kernels, "f32" K2's fp32 register micro-tiles, "simt" the others (K4 has
+# four, ``FWD_ROUTES``; K5/K6 three, ``BWD_ROUTES``)
+CONV_ROUTES = {"fused_conv": ("tc", "simt"),
+               "conv_bwd_dx": ("tc", "f32", "simt"),
+               "conv_bwd_dw": ("tc", "simt")}
 
 
 def card_line() -> str:
@@ -308,7 +321,7 @@ FWD_HEAD = "train_causal_lse_B8_T256"
 FWD_DECODE = "decode_cache_offset_S8_Tk512"
 # the lse against the plain version's, absolute (-inf rows identical)
 LSE_TOL = 1e-3
-FWD_ROUTES = ("tc", "split", "simt")
+FWD_ROUTES = ("tc", "f32", "split", "simt")
 
 
 def fwd_cases():
@@ -324,10 +337,19 @@ def fwd_cases():
 
 
 def fwd_route_expected(tq, d, dtype):
-    """The route ``flash_fwd_route`` gives a call with aligned operands."""
+    """The route ``flash_fwd_route`` gives a call with aligned operands:
+    one query row the split kernels; D 64 or 128 in bf16 the tensor-core
+    kernel, in fp32 from ``FWD_F32_MIN_TQ`` query rows the f32 kernel;
+    the rest SIMT."""
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
     if tq == 1:
         return "split"
-    return "tc" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    if d in (64, 128) and dtype == torch.bfloat16:
+        return "tc"
+    if d in (64, 128) and tq >= fa.FWD_F32_MIN_TQ:
+        return "f32"
+    return "simt"
 
 
 def _fwd_route_counts(fa):
@@ -370,7 +392,9 @@ def kernel_phase(seed, dev=None, cases=None, h=12):
     Each row names its route (``flash_attention.flash_fwd_route``) and must
     take the one the rule gives its shape; a row not on the SIMT route
     also runs the SIMT kernel on the same inputs, held to the same
-    tolerances, and times it (``simt_ms``). The
+    tolerances, and times it (``simt_ms``; the SIMT numbers also make a
+    row of their own, route "simt"); an f32 row's output and lse equal a
+    second launch's bit for bit. The
     library call is SDPA under the same boolean mask and, for causal rows
     with Tq == Tk and no lengths (where its top-left causal mask is the
     same one), with ``is_causal=True`` (``library_causal_ms``). o is held
@@ -407,12 +431,19 @@ def kernel_phase(seed, dev=None, cases=None, h=12):
             _check_fwd_route(label, before, _fwd_route_counts(fa), expect)
             want = fa.flash_attention_reference(q, k, v, lens, **kw)
             err, lse_err = _check_fwd_out(label, got, want, dtype)
-            simt_err = None
+            simt_err = simt_lse_err = None
             if expect != "simt":
-                simt_err, _ = _check_fwd_out(
+                simt_err, simt_lse_err = _check_fwd_out(
                     f"{label} simt", fa.flash_attention(q, k, v, lens,
                                                         route="simt", **kw),
                     want, dtype)
+            if expect == "f32":
+                again = fa.flash_attention(q, k, v, lens, **kw)
+                if not (torch.equal(again[0], got[0])
+                        and torch.equal(again[1], got[1])):
+                    raise AssertionError(f"flash_fwd {label}: a second "
+                                         "launch differs")
+                del again
             tol = TOLS[dtype]
             lse_tol = min(tol, LSE_TOL)
             valid = _valid_mask(b, tq, tk, lens, causal, cache_offset, dev)
@@ -444,6 +475,12 @@ def kernel_phase(seed, dev=None, cases=None, h=12):
                      library_causal_ms=library_causal_ms,
                      bound_ms=bound_ms, bound_by=bound_by)
             results.append(r)
+            if simt_ms is not None:
+                results.append(dict(
+                    r, route="simt", max_abs_err=simt_err,
+                    lse_err=simt_lse_err, simt_max_abs_err=None,
+                    ms=simt_ms, wrapper_ms=call_ms(lambda: kernel("simt")),
+                    simt_ms=None))
             also = "" if simt_ms is None else \
                 (f" simt_ms={simt_ms:.5f} (SIMT kernel, max_abs_err="
                  f"{simt_err:.3e})")
@@ -460,9 +497,9 @@ def kernel_phase(seed, dev=None, cases=None, h=12):
     slower = [f"{r['case']} {r['dtype']} ({r['route']} {r['ms']:.5f} >= "
               f"simt {r['simt_ms']:.5f})" for r in results
               if r["simt_ms"] is not None and r["ms"] >= r["simt_ms"]]
-    print("flash_fwd: the tc and split routes against the SIMT kernel on "
-          "the same inputs: " + ("faster in every row" if not slower else
-                                 "not faster in " + "; ".join(slower)),
+    print("flash_fwd: the tc, f32 and split routes against the SIMT kernel "
+          "on the same inputs: " + ("faster in every row" if not slower else
+                                    "not faster in " + "; ".join(slower)),
           flush=True)
     return results
 
@@ -929,6 +966,7 @@ def gpt_bf16_gate(net, loss_fn, x, y):
 
 
 FLASH_TAGS = ("flash_fwd_kernel", "flash_fwd_tc_kernel",
+              "flash_fwd_f32_kernel",
               "flash_fwd_split_kernel", "flash_fwd_merge_kernel",
               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
               "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
@@ -986,13 +1024,15 @@ def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14,
     return rows
 
 
-def training_routes(fp32_passes, bf16_passes, layers=12):
+def training_routes(fp32_passes, bf16_passes, layers=12, t=256, d=64):
     """The flash launches by route of ``fp32_passes`` and ``bf16_passes``
-    training passes of a GPT of ``layers`` layers: each kernel once a
-    layer a pass, K4 of fp32 passes on SIMT, K5/K6 of fp32 passes on f32,
-    every bf16 pass on tc."""
+    training passes of a GPT of ``layers`` layers at sequence length ``t``
+    and head dim ``d``: each kernel once a layer a pass, K4 of fp32 passes
+    where ``fwd_route_expected`` sends them (f32 at T=256), K5/K6 of fp32
+    passes on f32, every bf16 pass on tc."""
     want = dict.fromkeys(ROUTE_COUNTERS, 0)
-    want["flash_fwd_simt"] = layers * fp32_passes
+    want["flash_fwd_" + fwd_route_expected(t, d, torch.float32)] = \
+        layers * fp32_passes
     want["flash_fwd_tc"] = layers * bf16_passes
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
         want[f"{kernel}_f32"] = layers * fp32_passes
@@ -1098,8 +1138,8 @@ def train_phase(seed, card):
                  "flash_bwd_dq_tc": 12, "flash_bwd_dkv_tc": 12,
                  "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0,
                  "flash_bwd_dq_simt": 0, "flash_bwd_dkv_simt": 0,
-                 "flash_fwd_tc": 24, "flash_fwd_split": 0,
-                 "flash_fwd_simt": 0}
+                 "flash_fwd_tc": 24, "flash_fwd_f32": 0,
+                 "flash_fwd_split": 0, "flash_fwd_simt": 0}
     if gate != want_gate:
         raise AssertionError(f"bf16 gate launches {gate}, not {want_gate}")
 
@@ -1135,19 +1175,19 @@ def train_phase(seed, card):
     routes = {name: routes[name] + window[name] for name in ROUTE_COUNTERS}
 
     # one forward and one backward per pass, each through the 12 layers;
-    # every fp32 pass on the SIMT K4 and the f32 K5/K6, every bf16 pass on
-    # the tensor-core ones
+    # every fp32 pass on the f32 K4, K5 and K6, every bf16 pass on the
+    # tensor-core ones
     want = 12 * backward_passes
     print(f"launches on the training path: {launches} over "
           f"{backward_passes} backward passes (12 x {backward_passes} = "
           f"{want} each); by route {routes} ({fp32_passes} fp32 passes "
-          f"on simt K4 and f32 K5/K6, {bf16_passes} bf16 on tc)",
+          f"on f32 K4/K5/K6, {bf16_passes} bf16 on tc)",
           flush=True)
     for name in COUNTERS:
         if launches[name] != want:
             raise AssertionError(f"training launched {name} "
                                  f"{launches[name]} times, not {want}")
-    want_routes = training_routes(fp32_passes, bf16_passes)
+    want_routes = training_routes(fp32_passes, bf16_passes, t=t)
     if routes != want_routes:
         raise AssertionError(f"training launched by route {routes}, not "
                              f"{want_routes}")
@@ -1275,13 +1315,24 @@ def _route_launches():
     from incubator_mxnet_tpu_torch.ops import fused_conv as fc
 
     return {(k, r): getattr(fc, f"{k}_{r}_launches") for k in ROUTED
-            for r in ROUTES}
+            for r in CONV_ROUTES[k]}
+
+
+def conv_routes_expected(dtype):
+    """{kernel: route} of ResNet-50's convs in ``dtype``, as
+    ``fused_conv.conv_route`` gives them for its widths (multiples of 8)
+    and the model's operands (16-byte aligned): bf16 every kernel on the
+    tensor cores; fp32 K2 on f32, K1 and K3 on SIMT."""
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+    return {kernel: fc.conv_route(dtype, 64, 64, kernel)
+            for kernel in ROUTED}
 
 
 def _route_taken(before, kernel):
     """The route ``kernel`` took since ``before`` (one launch)."""
     now = _route_launches()
-    taken = [r for r in ROUTES
+    taken = [r for r in CONV_ROUTES[kernel]
              if now[kernel, r] - before[kernel, r] == 1]
     if len(taken) != 1:
         raise AssertionError(f"{kernel}: launches by route {now} after "
@@ -1376,7 +1427,7 @@ def conv_kernel_phase(seed):
                 route = None
                 if kernel in ROUTED:
                     route = _route_taken(before, kernel)
-                    expect = "tc" if dtype == torch.bfloat16 else "simt"
+                    expect = fc.conv_route(dtype, ci, co, kernel)
                     if route != expect:
                         raise AssertionError(f"{kernel} {name} "
                                              f"{DTYPE_NAMES[dtype]} took "
@@ -1396,10 +1447,21 @@ def conv_kernel_phase(seed):
                                for v in sums_l2):
                         raise AssertionError(f"K1 sums guard: {sums_l2} > "
                                              f"{K1_SUMS_RTOL}")
+                simt_err = None
+                if route == "f32":
+                    again = launch()
+                    if not all(a is None and b is None or torch.equal(a, b)
+                               for a, b in zip(got, again)):
+                        raise AssertionError(f"{kernel} {name} f32: a "
+                                             "second launch differs")
+                    simt_err = _conv_errs(names, simt[kernel](), want,
+                                          dtype)
+                    del again
                 ms = device_ms(launch)
                 plain_ms = device_ms(plain)
                 library_ms = device_ms(library[kernel])
-                simt_ms = device_ms(simt[kernel]) if route == "tc" else None
+                simt_ms = device_ms(simt[kernel]) if route != "simt" \
+                    else None
                 bound_ms, bound_by = conv_bound(kernel, case, dtype)
                 r = dict(kernel=kernel, case=name, dtype=DTYPE_NAMES[dtype],
                          route=route, max_abs_err=err, err_over_max_ref=rel,
@@ -1409,6 +1471,11 @@ def conv_kernel_phase(seed):
                 if sums_l2 is not None:
                     r["sums_rel_l2_fp64"] = sums_l2
                 results.append(r)
+                if simt_err is not None:    # the SIMT K2: a row of its own
+                    results.append(dict(r, route="simt", ms=simt_ms,
+                                        max_abs_err=simt_err[0],
+                                        err_over_max_ref=simt_err[1],
+                                        simt_ms=None))
                 also = "" if simt_ms is None else \
                     f" simt_ms={simt_ms:.5f} (SIMT kernel)"
                 print(f"kernel {kernel} {name} {r['dtype']}"
@@ -1514,15 +1581,15 @@ def _reset_conv_launches():
     for k in CONV_KERNELS:
         setattr(fc, k + "_launches", 0)
     for k in ROUTED:
-        for r in ROUTES:
+        for r in CONV_ROUTES[k]:
             setattr(fc, f"{k}_{r}_launches", 0)
 
 
 def _check_launches(label, got, per_pass, forwards, backwards, routes=None,
                     route=None):
     """The window's launches against ``per_pass`` per forward and per
-    backward; with ``route``, every launch in ``routes`` (from
-    ``_route_launches``) took that route."""
+    backward; with ``route`` (one route, or {kernel: route}), every launch
+    in ``routes`` (from ``_route_launches``) took that route."""
     want = {"fused_conv": per_pass * forwards,
             "conv_bwd_dx": per_pass * backwards,
             "conv_bwd_dw": per_pass * backwards}
@@ -1532,8 +1599,10 @@ def _check_launches(label, got, per_pass, forwards, backwards, routes=None,
     if got != want:
         raise AssertionError(f"{label}: launches {got} != {want}")
     if route is not None:
-        want_r = {(k, r): want[k] if r == route else 0 for k in ROUTED
-                  for r in ROUTES}
+        if isinstance(route, str):
+            route = dict.fromkeys(ROUTED, route)
+        want_r = {(k, r): want[k] if r == route[k] else 0 for k in ROUTED
+                  for r in CONV_ROUTES[k]}
         if routes != want_r:
             raise AssertionError(f"{label}: launches by route {routes} != "
                                  f"{want_r}")
@@ -1590,7 +1659,8 @@ def resnet_oracle(net, ce, x, y):
     (ref_loss, plain_grads), ref_stats = run(_plain_fused_conv_bn)
     (_, ref_grads), _ = run(_pinned_fused_conv_bn)
     _check_launches("gradient oracle (kernel run)", launches,
-                    convs_per_pass(net), 1, 1, routes, "simt")
+                    convs_per_pass(net), 1, 1, routes,
+                    conv_routes_expected(torch.float32))
     if not torch.isfinite(loss) or abs(float(loss - ref_loss)) > \
             1e-5 * abs(float(ref_loss)):
         raise AssertionError(f"oracle loss {float(loss)} != plain "
@@ -1833,6 +1903,7 @@ def resnet_bf16_forward_gate(net, ce, x, y):
 
 CONV_TAGS = ("fused_conv_fwd_kernel", "fused_conv_tc_kernel",
              "conv_bwd_dx_kernel", "conv_bwd_dw_kernel",
+             "conv_bwd_dx_f32_kernel",
              "conv_bwd_dx_tc_kernel", "conv_bwd_dw_tc_kernel",
              "column_sum_kernel", "column_sums_kernel", "split_sum_kernel",
              "split_finish_kernel", "join_emit_kernel")
@@ -1958,7 +2029,8 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
     _check_launches("eval", eval_launches, per_pass, 2, 0, eval_routes,
                     "simt")
     _check_launches("fp32 training path (SPMDTrainer, gluon.Trainer)",
-                    first, per_pass, passes, passes, first_routes, "simt")
+                    first, per_pass, passes, passes, first_routes,
+                    conv_routes_expected(torch.float32))
 
     # bf16: the gradient gate, a learning check, then (e) the bench row:
     # B=128, SPMDTrainer SGD lr 0.1 momentum 0.9; K2/K3 on the tensor cores
@@ -2397,12 +2469,13 @@ def imperative_phase(seed, card, net, ctx, b=8, flat=RTC_FLAT, lr=3e-4,
           f"Custom(softmax_ce_rtc) -> backward -> gluon.Trainer adam; "
           f"{card}): {step_ms:.3f} ms per step (host clock, 3 steps), peak "
           f"memory {peak / 2**20:.1f} MiB", flush=True)
-    # every pass fp32: K4 on SIMT, K5/K6 on f32, 12 a pass each
+    # every pass fp32: K4 where the rule sends T (f32 at 256), K5/K6 on
+    # f32, 12 a pass each
     _check_imperative_launches(
         launches, dict(scale=1, saxpy=1, first_row=1,
                        softmax_ce_fwd=rtc_steps, softmax_ce_bwd=rtc_steps),
         flash, net.num_layers * passes, flash_routes,
-        training_routes(passes, 0, net.num_layers))
+        training_routes(passes, 0, net.num_layers, t, head_dim))
 
     # beside it (not counted): the same step on tensors with the plain loss,
     # and a profile of one imperative step
@@ -2614,18 +2687,21 @@ TC_KERNELS = ("fused_conv_tc_kernel", "conv_bwd_dx_tc_kernel",
               "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
 TC_SOURCES = ("fused_conv_tc", "conv_bwd_tc", "flash_fwd_tc",
               "flash_bwd_tc")
-# the fp32 flash backward, on the FP32 pipes (no HGMMA), and its source
-F32_KERNELS = ("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel")
-F32_SOURCES = ("flash_bwd_f32",)
+# the fp32 kernels on the FP32 pipes (no HGMMA, tiles by TMA): the flash
+# backward and forward, the conv input gradient; their sources
+F32_KERNELS = ("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel",
+               "flash_fwd_f32_kernel", "conv_bwd_dx_f32_kernel")
+F32_SOURCES = ("flash_bwd_f32", "flash_fwd_f32", "conv_bwd_f32")
 
 
 def kernel_sass():
     """``tools/torch_ptxas_report.py fused_conv_tc conv_bwd_tc flash_fwd_tc
-    flash_bwd_tc flash_bwd_f32``, printed: registers, spills, and the
-    HGMMA (wgmma) and UTMALDG (TMA) instructions in each kernel's SASS;
-    raises unless every tensor-core instantiation has both, the fp32
-    backward's instantiations (D 64 and 128) have no HGMMA, and none
-    spills."""
+    flash_bwd_tc flash_bwd_f32 flash_fwd_f32 conv_bwd_f32``, printed:
+    registers, spills, and the HGMMA (wgmma) and UTMALDG (TMA)
+    instructions in each kernel's SASS; raises unless every tensor-core
+    instantiation has both, every instantiation of the fp32 kernels
+    (``F32_KERNELS``: the flash ones at D 64 and 128) has UTMALDG and no
+    HGMMA, and none spills."""
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, str(Path(__file__).resolve().parent / "tools"
@@ -2642,9 +2718,11 @@ def kernel_sass():
                              "UTMALDG in its SASS")
     f32 = [ln for ln in out.splitlines()
            if any(k in ln for k in F32_KERNELS) and "Used" in ln]
-    if len(f32) != 2 * len(F32_KERNELS) \
-            or any(" HGMMA 0" not in ln for ln in f32):
-        raise AssertionError(f"the fp32 backward's SASS: {f32}")
+    if len(f32) != 2 * len(F32_KERNELS) - 1 \
+            or {k for k in F32_KERNELS if any(k in ln for ln in f32)} \
+            != set(F32_KERNELS) \
+            or any(" HGMMA 0," not in ln or "UTMALDG 0" in ln for ln in f32):
+        raise AssertionError(f"the fp32 kernels' SASS: {f32}")
     spills = [ln for ln in out.splitlines()
               if any(k in ln for k in TC_KERNELS + F32_KERNELS)
               and "spill" in ln
@@ -2653,7 +2731,7 @@ def kernel_sass():
     if spills:
         raise AssertionError(f"kernels spill: {spills}")
     print(f"SASS: {len(rows)} tensor-core kernels with HGMMA and UTMALDG, "
-          f"{len(f32)} fp32 backward kernels on the FP32 pipes, no spills "
+          f"{len(f32)} fp32 kernels on the FP32 pipes with UTMALDG, no spills "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
@@ -2700,23 +2778,29 @@ def main(argv=None) -> int:
     src = "incubator_mxnet_tpu_torch/csrc/"
     ref = "incubator_mxnet_tpu/ops/pallas_attention.py:"
     train_case = BWD_HEAD
-    # K4 by route: the SIMT kernel carries fp32 training and the prefills,
-    # the tensor-core kernel bf16 training (the gate, the bench row), the
-    # split kernels the decode steps
+    # K4 by route: the f32 kernel carries fp32 training, the imperative
+    # step and the longer fp32 prefills, the SIMT kernel the prefills of 32
+    # rows or fewer, the tensor-core kernel bf16 training (the bench row;
+    # the gate), the split kernels the decode steps; launches: the sum over
+    # the main paths (serving, training, the imperative step), each read
+    # in its own windows; the gate and train -> decode stand in
+    # launches_by_path alone
     record = {"kernels": []}
     for route, source, head, dtype in (
             ("simt", "flash_fwd.cu", FWD_HEAD, "fp32"),
+            ("f32", "flash_fwd_f32.cu", FWD_HEAD, "fp32"),
             ("tc", "flash_fwd_tc.cu", FWD_HEAD, "bf16"),
             ("split", "flash_fwd_split.cu", FWD_DECODE, "fp32")):
         name = "flash_fwd" if route == "simt" else f"flash_fwd_{route}"
         by_path = {
             "decode": served["routes"][route],
             "train": trained["routes"][f"flash_fwd_{route}"],
-            "train_to_decode": trained["decode_routes"][route]}
+            "imperative": imperative["flash_routes"][f"flash_fwd_{route}"]}
+        main_paths = sum(by_path.values())
+        by_path["train_to_decode"] = trained["decode_routes"][route]
         if route == "tc":
             by_path["bf16_gate"] = trained["gate_launches"]["flash_fwd_tc"]
-        main_path = "decode" if route == "split" else "train"
-        entry = _entry(name, src + source, ref + "54", by_path[main_path],
+        entry = _entry(name, src + source, ref + "54", main_paths,
                        [r for r in kernel if r["route"] == route], head,
                        dtype)
         row = next(r for r in entry["cases"] if r["case"] == head
@@ -2751,21 +2835,26 @@ def main(argv=None) -> int:
                     trained["gate_launches"][f"{name}_tc"]
             record["kernels"].append(entry)
     conv_ref = "incubator_mxnet_tpu/ops/pallas_conv.py:"
-    # K1, K2 and K3 by route: the SIMT kernels carry fp32 (the oracle, the
-    # fp32 training steps, eval), the tensor-core kernels bf16 (the gates,
-    # the bf16 learning check and the bench row)
+    # K1, K2 and K3 by route: fp32 (the oracle, the fp32 training steps,
+    # eval) K2 on the f32 kernel, K1 and K3 on SIMT; bf16 (the gates, the
+    # bf16 learning check and the bench row) on the tensor cores; the SIMT
+    # K2, which no main path launches any more, timed on the same inputs
+    # through route="simt"
     for name, line, sources in (
             ("fused_conv", "222", ("fused_conv.cu", "fused_conv_tc.cu")),
-            ("conv_bwd_dx", "553", ("conv_bwd.cu", "conv_bwd_tc.cu")),
+            ("conv_bwd_dx", "553", ("conv_bwd.cu", "conv_bwd_tc.cu",
+                                    "conv_bwd_f32.cu")),
             ("conv_bwd_dw", "780", ("conv_bwd.cu", "conv_bwd_tc.cu"))):
-        for route, source, dtype in (("simt", sources[0], "fp32"),
-                                     ("tc", sources[1], "bf16")):
-            entry = _entry(name if route == "simt" else f"{name}_tc",
+        routes = [("simt", sources[0], "fp32"), ("tc", sources[1], "bf16")]
+        if len(sources) == 3:
+            routes.append(("f32", sources[2], "fp32"))
+        for route, source, dtype in routes:
+            entry = _entry(name if route == "simt" else f"{name}_{route}",
                            src + source, conv_ref + line,
                            resnet["routes"][name, route],
                            [r for r in conv if r["kernel"] == name
                             and r["route"] == route], CONV_HEAD, dtype)
-            if route == "tc":
+            if route != "simt":
                 entry["simt_ms"] = next(
                     r["simt_ms"] for r in entry["cases"]
                     if r["case"] == CONV_HEAD)

@@ -78,25 +78,20 @@
 
 #include <type_traits>
 
+#include "f32_tile.cuh"
 #include "flash_tc.cuh"
 
 namespace {
 
 using namespace mxflash;
+using namespace mxf32;
 
 constexpr int kThreads = 256;
-constexpr int kBoxBytes = kTile * 128;     // 64 rows of 32 floats
 constexpr int kStages = 2;                 // ring of shared-memory stages
 // depth chunks unrolled in the product loops: a multiple of 8 keeps every
 // swizzle offset an immediate; 16 measured faster than 8 on an H100, and
 // 32 overflows the instruction cache at D = 128 (twice as slow)
 constexpr int kUnroll = 16;
-// tiles start 1024-byte aligned, as TMA's 128-byte swizzle needs
-constexpr int kAlign = 1024;
-
-struct Strides {
-  long long b, h, t;
-};
 
 // the TMA maps of q, k, v and dO
 struct Maps {
@@ -107,58 +102,9 @@ struct Maps {
 template <int D>
 constexpr int kTileBytes = kTile * D * 4;
 
-// The swizzle key of row r: its byte offset in a box with the row's XOR in
-// bits 4-6, so chunk c of the row lies at (key ^ (c % 8) << 4) + (c / 8)
-// boxes (tiles start 1024-byte aligned).
-__device__ __forceinline__ uint32_t row_key(int r) {
-  return r * 128 + ((r & 7) << 4);
-}
-
-__device__ __forceinline__ uint32_t chunk_off(uint32_t key, int c) {
-  return (key ^ ((c & 7) << 4)) + (c >> 3) * kBoxBytes;
-}
-
-// A thread's rows r0 + 4i (r0 % 8 < 4) or r0 + 8j of a swizzled tile, as
-// the byte offsets of row r0's chunks c % 8: x[cc] = r0 * 128 + ((r0 % 8 ^
-// cc) << 4). Every other row and box lies an immediate away (rows r0 + 4i
-// and r0 differ in bit 2 of r % 8 for odd i, which flips bit 6 of the
-// offset: +64 or -64 as bit 2 of c), so once the loops are unrolled a load
-// takes no address arithmetic.
-struct RowOffs {
-  uint32_t x[8];
-  __device__ __forceinline__ explicit RowOffs(int r0) {
-#pragma unroll
-    for (int cc = 0; cc < 8; ++cc) x[cc] = r0 * 128 + (((r0 & 7) ^ cc) << 4);
-  }
-  // chunk c of row r0 + 4i
-  __device__ __forceinline__ uint32_t step4(int i, int c) const {
-    const int flip = (i & 1) ? ((c & 4) ? -64 : 64) : 0;
-    return x[c & 7] + (512 * i + flip + (c >> 3) * kBoxBytes);
-  }
-  // chunk c of row r0 + 8j
-  __device__ __forceinline__ uint32_t step8(int j, int c) const {
-    return x[c & 7] + (1024 * j + (c >> 3) * kBoxBytes);
-  }
-};
-
-__device__ __forceinline__ float4 ld4(const uint8_t* base, uint32_t off) {
-  return *reinterpret_cast<const float4*>(base + off);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float lane_of(float4 a, int e) {
-  return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
-}
-
 // ---------------------------------------------------------------------------
 // loads: 4-byte row statistics by cp.async (src_size 0 zero-fills the
-// destination without reading) and the tiles by TMA
+// destination without reading); the tiles by TMA (f32_tile.cuh)
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
@@ -176,31 +122,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// the D/32 boxes of rows [r0, r0 + 64) of (batch b, head h) by TMA onto
-// `bar`, started by one thread; rows past T are zero-filled
-template <int D>
-__device__ __forceinline__ void tma_tile(uint8_t* tile,
-                                         const CUtensorMap* map,
-                                         uint64_t* bar, int r0, int h,
-                                         int b) {
-#pragma unroll
-  for (int c = 0; c < D / 32; ++c)
-    tma_load_4d(tile + c * kBoxBytes, map, bar, 32 * c, r0, h, b);
-}
-
-__device__ __forceinline__ void init_bars(uint64_t* bars) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(&bars[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + kAlign - 1) & ~(kAlign - 1u)) - a);
 }
 
 // ---------------------------------------------------------------------------
@@ -283,13 +204,6 @@ __device__ __forceinline__ void products(const uint8_t* a1, const uint8_t* b1,
       }
     }
   }
-}
-
-// one fp32 element (row r, column col) of a swizzled 64 x 64 tile
-__device__ __forceinline__ void st1(uint8_t* tile, uint32_t key, int col,
-                                    float x) {
-  *reinterpret_cast<float*>(tile + chunk_off(key, col >> 2) +
-                            (col & 3) * 4) = x;
 }
 
 // the thread's rows of an accumulator (4 rows, D/16 columns in D/64
@@ -393,7 +307,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ lse,
     __syncthreads();
   };
 
-  init_bars(bars);
+  init_bars<S>(bars);
   if (ntiles > 0) {
     fetch(0, std::true_type{});
     wait(0);
@@ -527,7 +441,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ lse,
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) dka[i][j] = dva[i][j] = 0.f;
 
-  init_bars(bars);
+  init_bars<S>(bars);
   if (ntiles > 0) {
     fetch(0, std::true_type{});
     wait(0);
@@ -598,26 +512,6 @@ struct Args {
   int causal, cache_offset;
 };
 
-// The TMA map of a (B, H, T, D) fp32 operand with element strides s and a
-// contiguous head dim, in boxes of 32 floats x 64 rows. A dim of size 1
-// gets the packed stride (the dims below it end to end).
-int encode_f32(CUtensorMap* map, const void* base, int B, int H, int T,
-               int D, const Strides& s) {
-  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)T, (uint64_t)H,
-                            (uint64_t)B};
-  const long long e[3] = {s.t, s.h, s.b};
-  uint64_t strides[3];
-  for (int i = 0; i < 3; ++i) {
-    const uint64_t packed = i == 0 ? dims[0] * 4 : strides[i - 1] * dims[i];
-    strides[i] = dims[i + 1] == 1 ? packed : (uint64_t)e[i] * 4;
-    if (strides[i] % 16 != 0) return (int)cudaErrorInvalidValue;
-  }
-  const uint32_t box[4] = {32, (uint32_t)kTile, 1, 1};
-  const uint32_t es[4] = {1, 1, 1, 1};
-  return encode(map, base, 4, dims, strides, box, es,
-                CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
-}
-
 // the maps of q, k, v and dO
 int make_maps(const Args& a, int D, Maps* m) {
   int err;
@@ -658,14 +552,6 @@ int launch_dkv(const Args& a, cudaStream_t stream) {
       a.lse, a.delta, a.lengths, a.o1, a.o2, a.H, a.Tq, a.Tk, a.s[4],
       a.s[5], a.scale, a.causal, a.cache_offset, maps);
   return (int)cudaGetLastError();
-}
-
-// every operand is read and written in 16-byte chunks: bases and the
-// strides of dims larger than 1 in multiples of 4 floats
-bool aligned(const void* p, const Strides& s, int B, int H, int T) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-         (B == 1 || s.b % 4 == 0) && (H == 1 || s.h % 4 == 0) &&
-         (T == 1 || s.t % 4 == 0);
 }
 
 int run(bool dkv, const void* q, const void* k, const void* v,

@@ -55,7 +55,6 @@ namespace {
 using namespace mxflash;
 
 constexpr int kStages = 2;  // ring of shared-memory stages
-constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int kThreads = 160;  // the consumer warpgroup + the producer warp
 

@@ -24,6 +24,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kTile = 64;               // rows of a tile (queries/keys)
 constexpr int kBox = kTile * 64 * 2;    // one 64 x 64 bf16 box
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // which (query, key) pairs of one batch entry are attended
 struct Mask {

@@ -6,7 +6,9 @@ Counterpart of the JAX package's ``ops/pallas_attention.py``.
 launches the kernels: the forward (which replaces the TPU kernel
 ``_flash_fwd_kernel``) on the route :func:`flash_fwd_route` names: the
 bf16 tensor-core kernel of ``csrc/flash_fwd_tc.cu`` (``"tc"``: training
-and prefill), the kernels of ``csrc/flash_fwd_split.cu`` that split the
+and prefill), the fp32 kernel of ``csrc/flash_fwd_f32.cu`` (``"f32"``:
+register micro-tiles on the FP32 pipes, training and prefill), the
+kernels of ``csrc/flash_fwd_split.cu`` that split the
 keys of a decode step (one query row) over blocks and merge them
 (``"split"``), or the SIMT kernel of ``csrc/flash_fwd.cu`` (``"simt"``);
 and, for a gradient, the two backward kernels (``_flash_bwd_dq_kernel``
@@ -55,7 +57,8 @@ __all__ = ["FlashAttentionFunction", "flash_attention",
            "flash_bwd_dkv_tc_launches", "flash_bwd_dq_launches",
            "flash_bwd_dq_f32_launches", "flash_bwd_dq_simt_launches",
            "flash_bwd_dq_tc_launches", "flash_fwd_launches",
-           "flash_fwd_route", "flash_fwd_simt_launches",
+           "flash_fwd_f32_launches", "flash_fwd_route",
+           "flash_fwd_simt_launches",
            "flash_fwd_split_launches", "flash_fwd_tc_launches",
            "split_plan"]
 
@@ -65,7 +68,7 @@ __all__ = ["FlashAttentionFunction", "flash_attention",
 flash_fwd_launches = 0
 #: the forward calls by route (see :func:`flash_fwd_route`)
 flash_fwd_tc_launches = flash_fwd_split_launches = 0
-flash_fwd_simt_launches = 0
+flash_fwd_f32_launches = flash_fwd_simt_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 #: the backward launches by route (see :func:`flash_bwd_route`)
@@ -81,6 +84,9 @@ _TC_HEAD_DIMS = (64, 128)
 #: cache, chunks of one tile: PERF.md)
 SPLIT_TILE = 64
 SPLIT_BLOCKS_PER_SM = 8
+#: the fewest query rows an fp32 call takes the f32 forward with (up to 32
+#: the SIMT kernel, at every batch measured): see :func:`flash_fwd_route`
+FWD_F32_MIN_TQ = 33
 _fwd_fns = {}
 _bwd_fns = {}
 _sm_counts = {}
@@ -188,14 +194,15 @@ def flash_attention_bwd_reference(q, k, v, lengths, lse, delta, g,
 def _fwd_kernel(route):
     """The forward entry point of the route's library: ``"simt"``
     ``csrc/flash_fwd.cu`` (a dtype argument before the stream), ``"tc"``
-    ``csrc/flash_fwd_tc.cu`` (bf16 only), ``"split"``
+    ``csrc/flash_fwd_tc.cu`` (bf16 only), ``"f32"``
+    ``csrc/flash_fwd_f32.cu`` (fp32 only), ``"split"``
     ``csrc/flash_fwd_split.cu`` (one query row: the workspace after
     lengths, no Tq and no causal flags; dtype, chunk and chunk count
     before the stream)."""
     fn = _fwd_fns.get(route)
     if fn is None:
         source = {"simt": "flash_fwd", "tc": "flash_fwd_tc",
-                  "split": "flash_fwd_split"}[route]
+                  "f32": "flash_fwd_f32", "split": "flash_fwd_split"}[route]
         fn = getattr(_build.load(source), "mxtpu_" + source)
         p, i = ctypes.c_void_p, ctypes.c_int
         strides = ctypes.POINTER(ctypes.c_longlong)
@@ -249,7 +256,8 @@ def _aligned16(t, d):
 def _fwd_routes(q, k, v, out):
     """The forward routes whose kernels take this call: ``"simt"`` any;
     with every operand 16-byte aligned, ``"split"`` one query row in fp32
-    or bf16 with D in (32, 64, 128), ``"tc"`` bf16 with D 64 or 128."""
+    or bf16 with D in (32, 64, 128), ``"tc"`` bf16 with D 64 or 128,
+    ``"f32"`` fp32 with D 64 or 128 and more than one query row."""
     d = q.shape[-1]
     routes = ["simt"]
     ops = (q, k, v) + (() if out is None else (out,))
@@ -259,6 +267,9 @@ def _fwd_routes(q, k, v, out):
             routes.append("split")
         if q.dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
             routes.append("tc")
+        if q.dtype == torch.float32 and d in _TC_HEAD_DIMS \
+                and q.shape[2] > 1:
+            routes.append("f32")
     return routes
 
 
@@ -266,28 +277,48 @@ def flash_fwd_route(q, k, v, out=None):
     """Which forward kernel a call takes on the card: ``"split"``
     (``csrc/flash_fwd_split.cu``) for a decode step (Tq = 1), fp32 or
     bf16, D in (32, 64, 128); ``"tc"`` (``csrc/flash_fwd_tc.cu``) for the
-    rest in bf16 with D 64 or 128; ``"simt"`` (``csrc/flash_fwd.cu``) for
-    everything else: fp32 training and prefill (no tensor-core path keeps
-    fp32 off TF32), D = 32 and misaligned views. The split and tc routes
+    rest in bf16 with D 64 or 128; ``"f32"`` (``csrc/flash_fwd_f32.cu``:
+    register micro-tiles on the FP32 pipes, fed by TMA; no tensor-core
+    path keeps fp32 off TF32) for the rest in fp32 with D 64 or 128 and at
+    least ``FWD_F32_MIN_TQ`` query rows; ``"simt"`` (``csrc/flash_fwd.cu``)
+    for everything else: D = 32, misaligned views and fp32 prompts
+    shorter than that. The split, tc and f32 routes
     need q, k, v and the output ``out`` with a contiguous head dim, a base
     address and (b, h, t) strides that are multiples of 16 bytes, as TMA
     and 16-byte loads need. Decided from dtype, shape and alignment before
     the launch. Measured on an H100 (``tools/torch_flash_fwd_routes.py``,
     PERF.md): at Tq = 1 the split kernels beat the tensor-core kernel in
-    bf16 and the SIMT one 8x in fp32. A prompt takes tc or SIMT: a split
-    with 8 query rows a block, since removed, was slower than tc at every
-    Tq above 1 and than SIMT on prompts of 2 to 24 tokens."""
+    bf16 and the SIMT one 8x in fp32. A prompt takes tc, f32 or SIMT: a
+    split with 8 query rows a block, since removed, was slower than tc at
+    every Tq above 1 and than SIMT on prompts of 2 to 24 tokens. In fp32
+    a B=1 causal prompt of 12 heads takes the f32 kernel about 0.0078 ms
+    from Tq = 2 to 64 (12 blocks of 64 rows on 132 SMs: one tile's
+    latency), the SIMT kernel 0.0048 at Tq = 2, 0.0064 at 16, 0.0072 at
+    24, 0.0080 at 32 (the f32 kernel 0.0078 there: within 3%, a tie
+    kept on SIMT), 0.0105 at 40 and 0.0129 at 64; at T=256 0.0239 against
+    0.0422. The crossover does not move with the grid: from B = 1 to 64
+    (12 to 768 heads, a tenth of the SMs to about six waves of 64-row
+    tiles) SIMT wins at every Tq from 2 to 24, is level at 32 up to B = 4
+    and ahead beyond (B = 64: 0.0226 against 0.0354), and loses at 40 and
+    64 everywhere (B = 64, Tq = 40: 0.0554 against 0.0356). So fp32 calls
+    of 32 query rows or fewer stay on SIMT whatever B and H
+    (``FWD_F32_MIN_TQ``)."""
     routes = _fwd_routes(q, k, v, out)
     if "split" in routes:
         return "split"
-    return "tc" if "tc" in routes else "simt"
+    if "tc" in routes:
+        return "tc"
+    if "f32" in routes and q.shape[2] >= FWD_F32_MIN_TQ:
+        return "f32"
+    return "simt"
 
 
 def _pick_fwd_route(q, k, v, out, route):
     """:func:`flash_fwd_route`'s choice, or ``route`` where a caller names
     one whose kernel takes the call (to time one route beside another):
-    ``"simt"`` any call, ``"split"`` and ``"tc"`` aligned operands of
-    their dtypes and head dims, ``"split"`` one query row."""
+    ``"simt"`` any call, ``"split"``, ``"tc"`` and ``"f32"`` aligned
+    operands of their dtypes and head dims, ``"split"`` one query row,
+    ``"f32"`` more than one."""
     if route is None:
         return flash_fwd_route(q, k, v, out)
     if route in _fwd_routes(q, k, v, out):
@@ -419,6 +450,7 @@ def _forward(q, k, v, lengths, scale, causal, cache_offset, return_lse,
     tensor: the plain version, after checking a named route)."""
     global flash_fwd_launches, flash_fwd_tc_launches
     global flash_fwd_split_launches, flash_fwd_simt_launches
+    global flash_fwd_f32_launches
     if _device_of(q) == "cpu":
         if route is not None:
             _pick_fwd_route(q, k, v, None, route)
@@ -447,7 +479,7 @@ def _forward(q, k, v, lengths, scale, causal, cache_offset, return_lse,
             err = fn(*head, part.data_ptr(), b, h, tk, d, strides, s,
                      _DTYPE_CODE[q.dtype], chunk, nchunks, stream)
         else:
-            dtype = () if route == "tc" else (_DTYPE_CODE[q.dtype],)
+            dtype = (_DTYPE_CODE[q.dtype],) if route == "simt" else ()
             err = fn(*head, b, h, tq, tk, d, strides, s, int(causal),
                      int(bool(cache_offset)), *dtype, stream)
     if err != 0:
@@ -457,6 +489,8 @@ def _forward(q, k, v, lengths, scale, causal, cache_offset, return_lse,
         flash_fwd_tc_launches += 1
     elif route == "split":
         flash_fwd_split_launches += 1
+    elif route == "f32":
+        flash_fwd_f32_launches += 1
     else:
         flash_fwd_simt_launches += 1
     flash_fwd_launches += 1

@@ -15,9 +15,12 @@ the TPU kernel ``_fused_conv_kernel``, both of its stride-2 layouts in one
 kernel) and, for a gradient, the input-gradient and weight-gradient
 kernels (``_conv_bwd_dx_kernel``, ``_conv_bwd_dw_kernel``; stride 2
 included, where the JAX package's default keeps XLA for dx).
-:func:`conv_route` picks all three by type and widths: bf16 with Ci and Co
+:func:`conv_route` picks each by type and widths: bf16 with Ci and Co
 multiples of 8 goes to the tensor-core kernels of ``csrc/fused_conv_tc.cu``
-and ``csrc/conv_bwd_tc.cu`` (wgmma fed by TMA), everything else to
+and ``csrc/conv_bwd_tc.cu`` (wgmma fed by TMA); the input gradient in
+fp32 with Ci and Co multiples of 4 and 16-byte aligned operands to
+``csrc/conv_bwd_f32.cu`` (register micro-tiles on the FP32 pipes, fed by
+TMA); everything else to
 ``csrc/fused_conv.cu`` and ``csrc/conv_bwd.cu`` (scalar fp32 FMAs). A
 CPU tensor takes the plain versions, :func:`fused_conv_reference`,
 :func:`conv_bwd_dx_reference` and :func:`conv_bwd_dw_reference`, which
@@ -50,7 +53,8 @@ from .registry import register
 __all__ = ["FusedConvEpiFunction", "FusedConvFunction", "apply_prologue",
            "bn_scale_shift", "conv_bwd_dw", "conv_bwd_dw_launches",
            "conv_bwd_dw_reference", "conv_bwd_dx", "conv_bwd_dx_launches",
-           "conv_bwd_dx_reference", "conv_route", "dw_splits",
+           "conv_bwd_dx_reference", "conv_bwd_dx_f32_launches",
+           "conv_route", "dw_splits",
            "dw_tc_box", "dw_tc_taps", "dx_tc_box", "dx_tc_cols",
            "dx_tc_taps", "fused_conv", "fwd_tc_cols", "fwd_tc_splits",
            "tc_box",
@@ -66,6 +70,7 @@ conv_bwd_dw_launches = 0
 #: the same launches by route (see :func:`conv_route`)
 fused_conv_tc_launches = fused_conv_simt_launches = 0
 conv_bwd_dx_tc_launches = conv_bwd_dx_simt_launches = 0
+conv_bwd_dx_f32_launches = 0
 conv_bwd_dw_tc_launches = conv_bwd_dw_simt_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -204,6 +209,9 @@ def _kernel(name):
         elif name == "dx_tc":        # relu, then bw, bh, bn, cols, taps
             fn = _build.load("conv_bwd_tc").mxtpu_conv_bwd_dx_tc
             fn.argtypes = [p] * 18 + [i] * 17 + [p]
+        elif name == "dx_f32":       # relu, then bw, bh, bn
+            fn = _build.load("conv_bwd_f32").mxtpu_conv_bwd_dx_f32
+            fn.argtypes = [p] * 18 + [i] * 15 + [p]
         else:                        # dw_tc: relu, then bw, bh, bn, taps
             fn = _build.load("conv_bwd_tc").mxtpu_conv_bwd_dw_tc
             fn.argtypes = [p] * 12 + [i] * 17 + [p]
@@ -365,14 +373,15 @@ def conv_bwd_dx(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
                 r=None, ar=None, br=None, g=None, route=None):
     """The input-gradient kernel: ``(dx, da, db)`` (+ ``dr, dar`` with a
     residual). A CPU tensor takes :func:`conv_bwd_dx_reference`; a CUDA
-    tensor launches the kernel :func:`conv_route` names (or
-    ``route="simt"``: the SIMT kernel whatever the type) or raises."""
+    tensor launches the kernel :func:`conv_route` names for its widths
+    and operands (or ``route="simt"``: the SIMT kernel whatever the type)
+    or raises."""
     global conv_bwd_dx_launches, conv_bwd_dx_tc_launches
-    global conv_bwd_dx_simt_launches
+    global conv_bwd_dx_simt_launches, conv_bwd_dx_f32_launches
     n, h, wd, ci, co, kh, kw, ho, wo = _backward_operands(
         x, w, y, dy, stride, pad)
-    route = _pick_route(x.dtype, ci, co, route)
     if _device_of(x) == "cpu":
+        _pick_route(x.dtype, ci, co, route, "conv_bwd_dx")
         return conv_bwd_dx_reference(x, w, a, b, y, dy, ds, dss, stride, pad,
                                      relu, r, ar, br, g)
     x = x.contiguous()
@@ -395,7 +404,15 @@ def conv_bwd_dx(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
             _ptr(dss), _ptr(r), _ptr(ar), _ptr(br), _ptr(g), _ptr(dx),
             _ptr(da), _ptr(db), _ptr(dr), _ptr(dar))
     dims = (n, h, wd, ci, co, kh, kw, stride, pad, ho, wo, int(bool(relu)))
-    if route == "tc":
+    route = _pick_route(x.dtype, ci, co, route, "conv_bwd_dx",
+                        (dy, y, x, w, a, b, ds, dss, r, ar, br, g, dx, dr))
+    if route == "f32":
+        box = dx_tc_box(n, h, wd, kw, stride, 1)
+        rows = stride * stride * _boxes(n, hq, wq, box)
+        part = torch.empty(3 * rows * ci if pro else 1, **f32)
+        _run(_kernel("dx_f32"), x, *ptrs, _ptr(part), *dims, *box)
+        conv_bwd_dx_f32_launches += 1
+    elif route == "tc":
         taps = dx_tc_taps(kw, stride, wd)
         box = dx_tc_box(n, h, wd, kw, stride, taps)
         rows = stride * stride * _boxes(n, hq, wq, box)
@@ -413,29 +430,47 @@ def conv_bwd_dx(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
     return (dx, da, db, dr, dar) if r is not None else (dx, da, db)
 
 
-def conv_route(dtype, ci, co):
-    """Which kernels a conv takes on the card, forward and backward alike:
-    ``"tc"`` (the tensor-core kernels of ``csrc/fused_conv_tc.cu`` and
+def conv_route(dtype, ci, co, kernel="fused_conv", operands=()):
+    """Which kernel ``kernel`` (``"fused_conv"``: K1, ``"conv_bwd_dx"``:
+    K2, ``"conv_bwd_dw"``: K3) takes on the card: ``"tc"`` (the
+    tensor-core kernels of ``csrc/fused_conv_tc.cu`` and
     ``csrc/conv_bwd_tc.cu``) for bf16 with ``ci`` and ``co`` multiples of
-    8, whose NHWC rows are whole 16-byte units as TMA needs; ``"simt"``
-    (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``) for everything else:
-    fp32 (no tensor-core path keeps fp32 off TF32) and ragged bf16
-    widths."""
+    8, whose NHWC rows are whole 16-byte units as TMA needs; for K2 in
+    fp32 with ``ci`` and ``co`` multiples of 4 (16-byte rows) and every
+    tensor of ``operands`` (those the wrapper hands the kernel: the C
+    entry of ``csrc/conv_bwd_f32.cu`` checks the same) on a 16-byte
+    boundary, ``"f32"`` (register micro-tiles on the FP32 pipes, fed by
+    TMA); ``"simt"`` (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``) for
+    everything else: fp32 K1 and K3 (no tensor-core path keeps fp32 off
+    TF32), ragged widths and misaligned fp32 K2 operands. Measured on an
+    H100 (``chip_smoke.py``'s conv kernel phase,
+    ``tools/torch_resnet_conv_times.py``; PERF.md): the f32 K2 beats the
+    SIMT one on the same inputs."""
     if dtype == torch.bfloat16 and ci % 8 == 0 and co % 8 == 0:
         return "tc"
+    if kernel == "conv_bwd_dx" and dtype == torch.float32 \
+            and ci % 4 == 0 and co % 4 == 0 and _aligned16(*operands):
+        return "f32"
     return "simt"
 
 
-def _pick_route(dtype, ci, co, route):
-    """:func:`conv_route`'s choice, or ``route`` where a caller names
-    one: ``"simt"`` takes any call (to time the SIMT kernels in bf16
-    beside the tensor-core ones), ``"tc"`` only what the rule sends
-    there."""
-    rule = conv_route(dtype, ci, co)
+def _aligned16(*tensors):
+    """Every tensor given (None aside) starts on a 16-byte boundary."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _pick_route(dtype, ci, co, route, kernel="fused_conv", operands=()):
+    """:func:`conv_route`'s choice for ``kernel``, or ``route`` where a
+    caller names one: ``"simt"`` takes any call (to time the SIMT kernels
+    beside the tensor-core or f32 ones), ``"tc"`` and ``"f32"`` only what
+    the rule sends there."""
+    rule = conv_route(dtype, ci, co, kernel, operands)
     if route is None or route == rule or route == "simt":
         return rule if route is None else route
-    raise ValueError(f"route {route!r}: {dtype} with Ci={ci}, Co={co} "
-                     f"takes {rule!r}")
+    off = "" if _aligned16(*operands) else \
+        ", an operand off a 16-byte boundary,"
+    raise ValueError(f"route {route!r}: {dtype} with Ci={ci}, Co={co}"
+                     f"{off} takes {rule!r}")
 
 
 def tc_box(n, h, w):
@@ -486,9 +521,10 @@ def dx_tc_taps(kw, stride, w):
 
 
 def dx_tc_box(n, h, w, kw, stride, taps):
-    """The box of input pixels of a tensor-core dx block: :func:`tc_box`
-    over a stride phase for one tap; for a row of taps, whole rows widened
-    by the ``kw - 1`` columns the taps reach (no pixels of dx there)."""
+    """The box of input pixels of a tensor-core or f32 dx block:
+    :func:`tc_box` over a stride phase for one tap; for a row of taps
+    (tensor cores only), whole rows widened by the ``kw - 1`` columns the
+    taps reach (no pixels of dx there)."""
     if taps == 1:
         return tc_box(n, -(-h // stride), -(-w // stride))
     bw = w + kw - 1
@@ -560,7 +596,7 @@ def conv_bwd_dw(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
     global conv_bwd_dw_simt_launches
     n, h, wd, ci, co, kh, kw, ho, wo = _backward_operands(
         x, w, y, dy, stride, pad)
-    route = _pick_route(x.dtype, ci, co, route)
+    route = _pick_route(x.dtype, ci, co, route, "conv_bwd_dw")
     if _device_of(x) == "cpu":
         return conv_bwd_dw_reference(x, w, a, b, y, dy, ds, dss, stride, pad,
                                      relu, r, ar, br)

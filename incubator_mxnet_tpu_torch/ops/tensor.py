@@ -186,10 +186,12 @@ def argmin(x, axis=None, keepdims=False):
 
 @register("norm")
 def norm(x, ord=2, axis=None, keepdims=False):
-    """Vector norm over ``axis`` (an int), or of the flattened array."""
+    """Vector norm over ``axis`` (an int), or of the flattened array: with
+    ``keepdims`` that one is shape (1,), as the reference keeps the
+    flattened axis."""
     if axis is None:
-        out = torch.linalg.vector_norm(x.reshape(-1), ord)
-        return out.reshape((1,) * x.dim()) if keepdims else out
+        return torch.linalg.vector_norm(x.reshape(-1), ord, dim=0,
+                                        keepdim=keepdims)
     if not isinstance(axis, int):
         raise NotImplementedError("norm over several axes (a matrix norm) "
                                   "is not ported")
@@ -317,11 +319,29 @@ def take(x, indices, axis=0, mode="clip"):
 
 @register("pick")
 def pick(x, index, axis=-1, keepdims=False):
-    """``x``'s element at ``index`` along ``axis`` (reference ``pick``)."""
+    """``x``'s element at ``index`` along ``axis`` (reference ``pick``).
+    An index in ``[-n, n)`` counts from the end where negative; one outside
+    reads the fill of ``jnp.take_along_axis``: NaN for floats, the least
+    value of a signed integer type, the largest of an unsigned one. The
+    gather reads a clamped index, so no read leaves the array."""
     axis %= x.dim()
+    n = x.shape[axis]
     idx = torch.unsqueeze(index.long(), axis)
+    out_of_range = (idx < -n) | (idx >= n)
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
     out = torch.take_along_dim(x, idx, dim=axis)
+    out = out.masked_fill(out_of_range, _pick_fill(x.dtype))
     return out if keepdims else torch.squeeze(out, axis)
+
+
+def _pick_fill(dtype):
+    """What ``jnp.take_along_axis`` reads outside the array."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
 
 
 @register("one_hot", differentiable=False)
@@ -338,7 +358,20 @@ def one_hot(indices, depth=None, on_value=1.0, off_value=0.0,
 # -- casting -----------------------------------------------------------------
 @register("cast", aliases=("Cast",))
 def cast(x, dtype=torch.float32):
-    return x.to(resolve_dtype(dtype))
+    """``x`` in ``dtype``. Floats into an integer type saturate, as the
+    reference's ``jnp.asarray`` does: truncated toward zero, clamped to the
+    type's range (+-inf to its ends), NaN to 0."""
+    dtype = resolve_dtype(dtype)
+    if not x.is_floating_point() or dtype.is_floating_point \
+            or dtype.is_complex or dtype == torch.bool:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    # fp64 holds every 32-bit integer; the ends of int64 (2**63 - 1 rounds
+    # up to 2**63) are written after the cast
+    y = torch.nan_to_num(x.double(), nan=0.0)
+    high, low = y >= float(info.max), y <= float(info.min)
+    out = torch.where(high | low, torch.zeros_like(y), y).to(dtype)
+    return out.masked_fill(high, info.max).masked_fill(low, info.min)
 
 
 # -- scalar arithmetic (reference _plus_scalar/_mul_scalar/... family). The

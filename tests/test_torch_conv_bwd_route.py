@@ -3,8 +3,15 @@ each route sizes, checked on the CPU.
 
 ``fused_conv.conv_route`` sends bf16 with both widths multiples of 8 to
 the tensor-core K1/K2/K3 (``csrc/fused_conv_tc.cu``,
-``csrc/conv_bwd_tc.cu``) and everything else to the SIMT kernels
-(``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``): one rule for all three.
+``csrc/conv_bwd_tc.cu``), K2 in fp32 with both widths multiples of 4 to
+the register micro-tile kernel of ``csrc/conv_bwd_f32.cu`` (``"f32"``),
+and everything else to the SIMT kernels (``csrc/fused_conv.cu``,
+``csrc/conv_bwd.cu``). The f32 K2 is mirrored here block by block in
+numpy (its pixel boxes, TMA's zero fill, the fold and its zeroing, the
+micro-tile product, the epilogue and the ordered sums) against the plain
+version, its boxes are held to cover every dx pixel once at every
+``chip_smoke.CONV_CASES`` shape and all 52 of ResNet-50, and its shared
+loads and stores to their fewest wavefronts.
 The rule, the pixel boxes of the tensor-core kernels, their column blocks,
 their splits of K and their scratch are plain Python, so they are held
 here at all 52 conv shapes of ResNet-50; the kernels themselves run in
@@ -12,6 +19,7 @@ here at all 52 conv shapes of ResNet-50; the kernels themselves run in
 nothing of JAX.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -52,9 +60,14 @@ def _out(h, k, stride, pad):
 
 
 def test_fp32_takes_the_simt_kernels_at_every_width():
+    """fp32 K1 and K3 stay on SIMT at every width (K2: the f32 route,
+    below)."""
     for ci in (3, 8, 20, 24, 64, 2048):
         for co in (8, 40, 64, 1000):
             assert fc.conv_route(torch.float32, ci, co) == "simt"
+            for kernel in ("fused_conv", "conv_bwd_dw"):
+                assert fc.conv_route(torch.float32, ci, co, kernel) == \
+                    "simt"
 
 
 @pytest.mark.parametrize("ci, co", [(20, 72), (64, 12), (7, 8), (8, 100)])
@@ -75,7 +88,8 @@ def test_bf16_resnet50_convs_take_the_tensor_cores(resnet50_convs):
 
 def test_a_named_route_is_checked_against_the_rule():
     """``route="simt"`` takes any call (chip_smoke times the SIMT kernels in
-    bf16 with it); ``"tc"`` only what the rule sends there; the check
+    bf16 with it); ``"tc"`` only what the rule sends there (fp32 K2 with
+    16-byte rows: ``"f32"``); the check
     runs before the CPU's plain version, for the forward as for the
     backward."""
     x = torch.zeros(1, 4, 4, 20)
@@ -87,9 +101,9 @@ def test_a_named_route_is_checked_against_the_rule():
         fc.fused_conv(x, w, relu=False, route="tc")
     with pytest.raises(ValueError, match="route 'fast'"):
         fc.fused_conv(x.bfloat16(), w.bfloat16(), relu=False, route="fast")
-    for t in (fc.conv_bwd_dx, fc.conv_bwd_dw):
+    for t, rule in ((fc.conv_bwd_dx, "f32"), (fc.conv_bwd_dw, "simt")):
         t(x, w, None, None, y, dy, ds, dss, relu=False, route="simt")
-        with pytest.raises(ValueError, match="takes 'simt'"):
+        with pytest.raises(ValueError, match=f"takes '{rule}'"):
             t(x, w, None, None, y, dy, ds, dss, relu=False, route="tc")
         with pytest.raises(ValueError, match="route 'fast'"):
             t(x.bfloat16(), w.bfloat16(), None, None, y.bfloat16(),
@@ -340,3 +354,361 @@ def test_forward_scratch_holds_every_partial():
     assert _fwd_plan(8, 7, 7, 512, 512, 3, 1, 1)[:4] == (3, (9, 7, 1), 64, 1)
     # the same conv at B=32 fills the card (256 blocks): no split
     assert _fwd_plan(32, 7, 7, 512, 512, 3, 1, 1)[3] == 1
+
+
+# ---------------------------------------------------------------------------
+# the fp32 K2 on the FP32 pipes (csrc/conv_bwd_f32.cu)
+# ---------------------------------------------------------------------------
+def test_fp32_input_gradient_takes_the_f32_kernel_where_rows_are_16_bytes(
+        resnet50_convs):
+    """K2 in fp32 with Ci and Co multiples of 4 takes ``"f32"``; ragged
+    widths stay on SIMT, bf16 on the tensor cores, and K1 and K3 keep
+    their routes at the same widths: every ResNet-50 conv and chip_smoke's
+    5x5 case (24 -> 40)."""
+    for _, _, ci, co, *_ in resnet50_convs + [(0, 0, 24, 40)]:
+        assert fc.conv_route(torch.float32, ci, co, "conv_bwd_dx") == "f32"
+        assert fc.conv_route(torch.bfloat16, ci, co, "conv_bwd_dx") == "tc"
+        assert fc.conv_route(torch.float32, ci, co, "fused_conv") == "simt"
+        assert fc.conv_route(torch.float32, ci, co, "conv_bwd_dw") == "simt"
+    for ci, co in ((20, 74), (6, 8), (3, 64), (64, 10)):
+        assert fc.conv_route(torch.float32, ci, co, "conv_bwd_dx") == "simt"
+
+
+def test_fp32_input_gradient_with_a_misaligned_operand_takes_simt():
+    """The f32 rule holds every operand the kernel takes to a 16-byte base
+    (the C entry refuses any other): a view 4 bytes into its buffer sends
+    fp32 K2 to SIMT, and a named ``"f32"`` route raises for it; aligned
+    operands, or none given, keep ``"f32"``."""
+    buf = torch.zeros(1 + 4 * 4 * 8)
+    off = buf[1:].view(1, 4, 4, 8)
+    assert off.data_ptr() % 16 == 4
+    ok = torch.zeros(1, 4, 4, 8)
+    assert fc.conv_route(torch.float32, 8, 8, "conv_bwd_dx") == "f32"
+    assert fc.conv_route(torch.float32, 8, 8, "conv_bwd_dx",
+                         (ok, None, ok)) == "f32"
+    assert fc.conv_route(torch.float32, 8, 8, "conv_bwd_dx",
+                         (ok, None, off)) == "simt"
+    assert fc._pick_route(torch.float32, 8, 8, None, "conv_bwd_dx",
+                          (off,)) == "simt"
+    assert fc._pick_route(torch.float32, 8, 8, "simt", "conv_bwd_dx",
+                          (off,)) == "simt"
+    with pytest.raises(ValueError, match="16-byte boundary.*takes 'simt'"):
+        fc._pick_route(torch.float32, 8, 8, "f32", "conv_bwd_dx", (off,))
+
+
+def test_a_named_f32_route_only_where_the_rule_sends_it():
+    """``route="f32"`` takes fp32 K2 calls with 16-byte rows (on the CPU
+    the plain version runs either way), and raises for K1, K3, bf16 and
+    ragged widths; ``"simt"`` still takes every K2 call."""
+    x = torch.zeros(1, 4, 4, 8)
+    w = torch.zeros(3, 3, 8, 12)
+    y = dy = torch.zeros(1, 4, 4, 12)
+    ds = dss = torch.zeros(12)
+    args = (x, w, None, None, y, dy, ds, dss, 1, 1, False)
+    want = fc.conv_bwd_dx_reference(*args)
+    for route in ("f32", "simt", None):
+        assert torch.equal(fc.conv_bwd_dx(*args, route=route)[0], want[0])
+    with pytest.raises(ValueError, match="takes 'f32'"):
+        fc.conv_bwd_dx(*args, route="tc")
+    with pytest.raises(ValueError, match="route 'f32'.*takes 'simt'"):
+        fc.conv_bwd_dw(*args, route="f32")
+    with pytest.raises(ValueError, match="route 'f32'.*takes 'simt'"):
+        fc.fused_conv(x, w, stride=1, pad=1, relu=False, route="f32")
+    xr = torch.zeros(1, 4, 4, 6)
+    with pytest.raises(ValueError, match="route 'f32'.*takes 'simt'"):
+        fc.conv_bwd_dx(xr, torch.zeros(3, 3, 6, 12), None, None, y, dy, ds,
+                       dss, 1, 1, False, route="f32")
+    with pytest.raises(ValueError, match="route 'f32'.*takes 'simt'"):
+        fc.conv_bwd_dx(x.bfloat16(), w.bfloat16(), None, None, y.bfloat16(),
+                       dy.bfloat16(), ds, dss, 1, 1, False, route="f32")
+
+
+F32_BLOCK = 64   # pixels and input channels of a block
+F32_DEPTH = 32   # output channels of a step
+
+
+def _fold_np(dy, y, ds, dss):
+    """``fold_cotangent`` in fp32: (dy + ds) + (2 * y) * dss, no fma."""
+    f = np.float32
+    return ((dy.astype(f) + ds.astype(f)).astype(f)
+            + ((f(2) * y.astype(f)).astype(f) * dss.astype(f)).astype(f)
+            ).astype(f)
+
+
+def dx_f32_mirror(x, w, a, b, y, dy, ds, dss, stride, pad, relu, r=None,
+                  ar=None, br=None, g=None, zero_fill=True):
+    """``conv_bwd_dx_f32_kernel`` and its column sums on numpy inputs
+    (NHWC, HWIO), block by block: the phase's pixel boxes
+    (``fc.dx_tc_box`` for one tap), per 32 channels of Co the tap's dy and
+    y boxes with TMA's zero fill outside the tensor, the fold (rows
+    outside the tensor or the box and channels past Co written as 0,
+    unless ``zero_fill`` is False), the w box (64 rows of the flattened
+    (tap, ci) rows, zero past their end), the block's product, the
+    epilogue with the prologue's mask, and the partial sums of each block
+    added in block order. Returns (dx, da, db, dr, dar, written):
+    ``written`` counts the stores to each element of dx."""
+    n, h, wd, ci = x.shape
+    kh, kw, _, co = w.shape
+    ho, wo = dy.shape[1:3]
+    s = stride
+    pro = a is not None or r is not None
+    bw, bh, bn = fc.dx_tc_box(n, h, wd, kw, s, 1)
+    ew, eh = -(-wd // s), -(-h // s)
+    tw, th, tn = -(-ew // bw), -(-eh // bh), -(-n // bn)
+    wflat = w.reshape(kh * kw * ci, co)
+    dx = np.full(x.shape, np.nan, np.float32)
+    dr = np.full(x.shape, np.nan, np.float32) if r is not None else None
+    written = np.zeros(x.shape, int)
+    parts = []
+    rows = np.arange(F32_BLOCK)
+    jj, ii, nn = rows % bw, (rows // bw) % bh, rows // (bw * bh)
+    av = a if a is not None else np.ones(ci, np.float32)
+    bv = b if a is not None else np.zeros(ci, np.float32)
+    for ph in range(s * s):
+        ry, rx = ph // s, ph % s
+        ky0, kx0 = (ry + pad) % s, (rx + pad) % s
+        kys = range(ky0, kh, s)
+        kxs = range(kx0, kw, s)
+        hq = -(-(h - ry) // s) if ry < h else 0
+        wq = -(-(wd - rx) // s) if rx < wd else 0
+        for blk in range(tw * th * tn):
+            wb, hb, nb = blk % tw, (blk // tw) % th, blk // (tw * th)
+            i0, j0, n0 = hb * bh, wb * bw, nb * bn
+            pn, pi, pj = n0 + nn, i0 + ii, j0 + jj
+            row_ok = (rows < bw * bh * bn) & (pn < n)
+            sums = np.zeros((3, ci))
+            for c0blk in range(0, ci, F32_BLOCK):
+                acc = np.zeros((F32_BLOCK, F32_BLOCK), np.float64)
+                for ky in kys:
+                    for kx in kxs:
+                        oy, ox = (ry + pad - ky) // s, (rx + pad - kx) // s
+                        oh, ow = pi + oy, pj + ox
+                        inside = (pn < n) & (oh >= 0) & (oh < ho) & \
+                            (ow >= 0) & (ow < wo) & (rows < bw * bh * bn)
+                        for c0 in range(0, co, F32_DEPTH):
+                            cols = c0 + np.arange(F32_DEPTH)
+                            cin = cols < co
+                            dyt = np.zeros((F32_BLOCK, F32_DEPTH), np.float32)
+                            yt = np.zeros_like(dyt)
+                            sel = np.ix_(inside, cin)
+                            idx = (pn[inside], oh[inside], ow[inside])
+                            dyt[sel] = dy[idx][:, cols[cin]]
+                            yt[sel] = y[idx][:, cols[cin]]
+                            dsv = np.zeros(F32_DEPTH, np.float32)
+                            dssv = np.zeros(F32_DEPTH, np.float32)
+                            dsv[cin], dssv[cin] = ds[cols[cin]], \
+                                dss[cols[cin]]
+                            at = _fold_np(dyt, yt, dsv, dssv)
+                            if zero_fill:
+                                at[~inside] = 0.0
+                                at[:, ~cin] = 0.0
+                            wrow = (ky * kw + kx) * ci + c0blk + rows
+                            bt = np.zeros((F32_BLOCK, F32_DEPTH), np.float32)
+                            win = wrow < kh * kw * ci
+                            bt[np.ix_(win, cin)] = \
+                                wflat[wrow[win]][:, cols[cin]]
+                            acc += at.astype(np.float64) @ bt.T
+                # epilogue
+                ok = row_ok & (pi < hq) & (pj < wq)
+                chans = c0blk + np.arange(F32_BLOCK)
+                cok = chans < ci
+                hh, ww = ry + s * pi[ok], rx + s * pj[ok]
+                v = acc[np.ix_(ok, cok)].astype(np.float32)
+                pix = (pn[ok], hh, ww)
+                cc = chans[cok]
+                if g is not None:
+                    v = (v + g[pix][:, cc]).astype(np.float32)
+                np.add.at(written, (pix[0][:, None], pix[1][:, None],
+                                    pix[2][:, None], cc[None, :]), 1)
+                if not pro:
+                    dx[pix[0][:, None], pix[1][:, None], pix[2][:, None],
+                       cc] = v
+                    continue
+                xv = x[pix][:, cc]
+                lin = (xv * av[cc]).astype(np.float32) + bv[cc]
+                rv = np.zeros_like(xv)
+                if r is not None:
+                    rv = r[pix][:, cc]
+                    lin = (lin.astype(np.float32)
+                           + (rv * ar[cc]).astype(np.float32)).astype(
+                        np.float32) + br[cc]
+                d = np.where(lin > 0, v, 0.0) if relu else v
+                dx[pix[0][:, None], pix[1][:, None], pix[2][:, None], cc] = \
+                    d * av[cc]
+                if r is not None:
+                    dr[pix[0][:, None], pix[1][:, None], pix[2][:, None],
+                       cc] = d * ar[cc]
+                sums[0, cc] += (d * xv).sum(0)
+                sums[1, cc] += d.sum(0)
+                sums[2, cc] += (d * rv).sum(0)
+            parts.append(sums)
+    tot = np.sum(parts, axis=0) if pro else None
+    da = tot[0] if a is not None else None
+    db = tot[1] if a is not None else None
+    dar = tot[2] if r is not None else None
+    return dx, da, db, dr, dar, written
+
+
+# (n, h, w, ci, co, k, stride, pad, kind) at small sizes: the box kinds
+# (part of a row, whole rows, whole images), both phases of stride 2, taps
+# reaching past the image, a ragged last Co chunk and Ci block
+F32_DX_CASES = [
+    ("3x3_pro_rows", 2, 9, 11, 8, 12, 3, 1, 1, "pro"),
+    ("3x3_s2_pro_odd", 2, 9, 7, 16, 8, 3, 2, 1, "pro"),
+    ("1x1_s2_plain", 3, 6, 6, 4, 36, 1, 2, 0, "plain"),
+    ("5x5_s2_res_emit", 2, 15, 15, 24, 40, 5, 2, 2, "res"),
+    ("3x3_res_wide", 1, 3, 70, 68, 8, 3, 1, 1, "res"),
+    ("1x1_images", 5, 3, 4, 72, 4, 1, 1, 0, "pro"),
+]
+
+
+def _np_case(case, seed=0):
+    _, n, h, w, ci, co, k, stride, pad, kind = case
+    rs = np.random.RandomState(seed)
+    ho, wo = _out(h, k, stride, pad), _out(w, k, stride, pad)
+    f = np.float32
+    t = dict(x=rs.randn(n, h, w, ci).astype(f),
+             w=(rs.randn(k, k, ci, co) / np.sqrt(k * k * ci)).astype(f),
+             y=rs.randn(n, ho, wo, co).astype(f),
+             dy=rs.randn(n, ho, wo, co).astype(f),
+             ds=(rs.randn(co) * 0.1).astype(f),
+             dss=(rs.randn(co) * 0.01).astype(f))
+    if kind != "plain":
+        t.update(a=(rs.rand(ci) + 0.5).astype(f),
+                 b=(rs.randn(ci) * 0.5).astype(f))
+    if kind == "res":
+        t.update(r=rs.randn(n, h, w, ci).astype(f),
+                 ar=(rs.rand(ci) + 0.5).astype(f),
+                 br=(rs.randn(ci) * 0.5).astype(f),
+                 g=rs.randn(n, h, w, ci).astype(f))
+    return t
+
+
+def _mirror_and_plain(case, zero_fill=True):
+    _, n, h, w, ci, co, k, stride, pad, kind = case
+    t = _np_case(case)
+    kw = {key: t.get(key) for key in ("r", "ar", "br", "g")}
+    got = dx_f32_mirror(t["x"], t["w"], t.get("a"), t.get("b"), t["y"],
+                        t["dy"], t["ds"], t["dss"], stride, pad, True,
+                        zero_fill=zero_fill, **kw)
+    tt = {key: torch.from_numpy(v) for key, v in t.items()}
+    want = fc.conv_bwd_dx_reference(
+        tt["x"], tt["w"], tt.get("a"), tt.get("b"), tt["y"], tt["dy"],
+        tt["ds"], tt["dss"], stride, pad, True,
+        **{key: tt.get(key) for key in ("r", "ar", "br", "g")})
+    return got, want, kind
+
+
+@pytest.mark.parametrize("case", F32_DX_CASES, ids=[c[0] for c in F32_DX_CASES])
+def test_f32_dx_mirror_matches_the_plain_version(case):
+    """The mirrored kernel writes every dx element exactly once and equals
+    ``conv_bwd_dx_reference`` within 1e-5 of max(1, max|plain|) (fp32
+    sums in another order), the sums within 1e-5 relative L2."""
+    (dx, da, db, dr, dar, written), want, kind = _mirror_and_plain(case)
+    assert (written == 1).all()
+    names = ("dx", "da", "db", "dr", "dar")
+    for name, got, ref in zip(names, (dx, da, db, dr, dar), want + (None,)
+                              * (5 - len(want))):
+        if ref is None:
+            assert got is None, name
+            continue
+        ref = ref.numpy().astype(np.float64)
+        assert not np.isnan(got).any(), name
+        err = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+        assert err <= 1e-5, (name, err)
+        if ref.ndim == 1:
+            l2 = np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
+            assert l2 <= 1e-5, (name, l2)
+
+
+@pytest.mark.parametrize("case", [F32_DX_CASES[0], F32_DX_CASES[3]],
+                         ids=[F32_DX_CASES[0][0], F32_DX_CASES[3][0]])
+def test_f32_dx_fold_must_zero_what_tma_zero_fills(case):
+    """TMA fills rows outside dy (the conv's padding), rows past the box's
+    pixels and channels past Co with zeros, and the fold of a zero is ds:
+    without the kernel's zeroing after the fold the mirror leaves the
+    plain version."""
+    (dx, *_), want, _ = _mirror_and_plain(case, zero_fill=False)
+    ref = want[0].numpy()
+    assert np.abs(dx - ref).max() > 1e-2
+
+
+def _dx_f32_coverage(n, h, w, stride):
+    """How many times the f32 K2's blocks write each input pixel: per
+    phase, its boxes' rows read as the kernel reads them."""
+    bw, bh, bn = fc.dx_tc_box(n, h, w, 1, stride, 1)
+    assert bw * bh * bn <= F32_BLOCK
+    ew, eh = -(-w // stride), -(-h // stride)
+    tw, th, tn = -(-ew // bw), -(-eh // bh), -(-n // bn)
+    count = np.zeros((n, h, w), int)
+    rows = np.arange(bw * bh * bn)
+    jj, ii, nn = rows % bw, (rows // bw) % bh, rows // (bw * bh)
+    for ph in range(stride * stride):
+        ry, rx = ph // stride, ph % stride
+        hq = -(-(h - ry) // stride) if ry < h else 0
+        wq = -(-(w - rx) // stride) if rx < w else 0
+        blk = np.arange(tw * th * tn)
+        i0 = ((blk // tw) % th) * bh
+        j0 = (blk % tw) * bw
+        n0 = (blk // (tw * th)) * bn
+        pn, pi, pj = (n0[:, None] + nn, i0[:, None] + ii, j0[:, None] + jj)
+        ok = (pn < n) & (pi < hq) & (pj < wq)
+        np.add.at(count, (pn[ok], ry + stride * pi[ok], rx + stride * pj[ok]),
+                  1)
+    return count
+
+
+def test_f32_dx_boxes_cover_every_pixel_once(resnet50_convs):
+    """Per stride phase and box, the rows the f32 K2 stores (the box's
+    pixels inside the phase) hold every input pixel exactly once, at
+    ResNet-50's 52 conv shapes (B=32) and chip_smoke's conv cases."""
+    import chip_smoke as cs
+
+    shapes = {(32, h, w, s) for h, w, _, _, _, s, _ in resnet50_convs}
+    shapes |= {(c[1], c[2], c[3], c[7]) for c in cs.CONV_CASES}
+    for n, h, w, s in sorted(shapes):
+        assert (_dx_f32_coverage(n, h, w, s) == 1).all(), (n, h, w, s)
+
+
+def test_f32_dx_shared_memory_patterns():
+    """The product's loads are flash_bwd_f32.cu's scores (4 A rows and 4 B
+    rows of one 128-byte box, each load one wavefront; held in
+    tests/test_torch_flash_bwd_route.py). The fold: thread tid takes
+    chunk position tid % 8 of rows tid / 8 and tid / 8 + 32, both of one
+    r % 8 and so one logical chunk (4 channels), the 256 threads every
+    (row, chunk) of the 64 x 32 tile once, a warp's loads 4 rows x 8
+    positions: 4 wavefronts, the least for 512 bytes. The epilogue's
+    staging stores (row stride 72 floats) fall on 32 distinct banks."""
+    tid = np.arange(256)
+    fr, fp = tid >> 3, tid & 7
+    seen = set()
+    for k in range(2):
+        row = fr + 32 * k
+        logical = fp ^ (row & 7)
+        assert (logical == (fp ^ (fr & 7))).all()
+        seen |= set(zip(row.tolist(), logical.tolist()))
+    assert len(seen) == 64 * 8
+    for wp in range(8):
+        lanes = slice(32 * wp, 32 * wp + 32)
+        off = fr[lanes] * 128 + fp[lanes] * 16
+        assert np.bincount((off // 16) % 8).max() == 4
+    warp, lane = tid >> 5, tid & 31
+    wr, wc, ly, lx = warp >> 1, warp & 1, lane >> 3, lane & 7
+    ra, rb = 16 * wr + ly, 32 * wc + lx
+    for i in range(4):
+        for j in range(4):
+            word = (ra + 4 * i) * 72 + rb + 8 * j
+            for wp in range(8):
+                banks = word[32 * wp:32 * wp + 32] % 32
+                assert np.unique(banks).size == 32
+
+
+def test_f32_dx_scratch_holds_every_partial(resnet50_convs):
+    """The scratch ``conv_bwd_dx`` allocates for the f32 route: one row of
+    Ci per (phase, box), three planes."""
+    for h, w, ci, co, k, s, p in resnet50_convs:
+        box = fc.dx_tc_box(32, h, w, k, s, 1)
+        boxes = fc._boxes(32, -(-h // s), -(-w // s), box)
+        ew, eh = -(-w // s), -(-h // s)
+        assert boxes == -(-ew // box[0]) * -(-eh // box[1]) * \
+            -(-32 // box[2])

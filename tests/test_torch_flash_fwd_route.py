@@ -2,11 +2,12 @@
 card, no nvcc).
 
 ``flash_attention.flash_fwd_route`` sends a forward call to the bf16
-tensor-core kernel of ``csrc/flash_fwd_tc.cu`` (``"tc"``), to the split
-kernels of ``csrc/flash_fwd_split.cu`` (``"split"``, a decode step: one
-query row) or to the SIMT kernel of ``csrc/flash_fwd.cu`` (``"simt"``); it
+tensor-core kernel of ``csrc/flash_fwd_tc.cu`` (``"tc"``), the fp32
+register micro-tile kernel of ``csrc/flash_fwd_f32.cu`` (``"f32"``), the
+split kernels of ``csrc/flash_fwd_split.cu`` (``"split"``, a decode step:
+one query row) or the SIMT kernel of ``csrc/flash_fwd.cu`` (``"simt"``); it
 reads only dtypes, shapes, strides and addresses, so it runs here on CPU
-tensors. Two plans are mirrored in Python and held against the plain
+tensors. Three plans are mirrored in Python and held against the plain
 version:
 
 * the tensor-core kernel's tiles (``key_tiles``, ``Mask::full`` in
@@ -21,10 +22,18 @@ version:
   chunk order, in fp32. Equal to ``flash_attention_reference`` to 1e-6,
   with empty chunks, length-0 slots and ``cache_offset``, and to the JAX
   package's ``_flash_fwd`` (Pallas, interpret mode) on the same numpy
-  inputs.
+  inputs;
+* the f32 kernel (``flash_fwd_f32_kernel``), thread by thread: a warp's
+  whole rows, the 2 x 8 score micro-tiles read from TMA's swizzled tiles,
+  the row max over the 8 lanes of a row, P through the swizzled P tile,
+  the P.V micro-tiles and the epilogue. Equal to the JAX package's
+  ``_flash_fwd`` (interpret mode) with lengths (a 0 among them),
+  ``cache_offset`` and causal masks; its shared loads are one wavefront.
 """
 
+import importlib.util
 import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -63,11 +72,65 @@ def test_head_split_views_of_a_fused_projection_take_the_tensor_cores():
     assert fa.flash_fwd_route(q, k, v, fa._like_out(q)) == "tc"
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq", [2, 16, 256])
+def test_fp32_aligned_prompts_and_training_take_the_f32_kernel(d, tq):
+    """fp32, D 64 or 128, every operand 16-byte aligned, more than one
+    query row (from ``FWD_F32_MIN_TQ``): the register micro-tile kernel."""
+    q, k, v = (_zeros(2, 3, t, d, torch.float32) for t in (tq, 300, 300))
+    want = "f32" if tq >= fa.FWD_F32_MIN_TQ else "simt"
+    assert fa.flash_fwd_route(q, k, v) == want
+    assert fa.flash_fwd_route(q, k, v, fa._like_out(q)) == want
+    assert "f32" in fa._fwd_routes(q, k, v, None)
+    assert "f32" not in fa._fwd_routes(q[:, :, :1], k, v, None)
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_the_fp32_crossover_is_in_query_rows_at_every_batch(b):
+    """The f32 forward's crossover with SIMT was measured at 33 query rows
+    from 12 to 768 heads (``tools/torch_flash_fwd_routes.py``): the rule
+    keys on Tq alone, whatever the grid."""
+    for tq, want in ((fa.FWD_F32_MIN_TQ - 1, "simt"),
+                     (fa.FWD_F32_MIN_TQ, "f32")):
+        q, k, v = (_zeros(b, 12, tq, 64, torch.float32) for _ in range(3))
+        assert fa.flash_fwd_route(q, k, v) == want
+    assert fa.FWD_F32_MIN_TQ == 33
+
+
+def test_fp32_head_split_views_of_a_fused_projection_take_the_f32_kernel():
+    """The fp32 GPT's q, k, v: views of one (B, T, 3, H, D) buffer (rows
+    3*H*D floats apart, k and v H*D floats into each row), the output a
+    (B, H, T, D) view of (B, T, H, D)."""
+    qkv = torch.zeros(2, 256, 3, 12, 64)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    assert fa.flash_fwd_route(q, k, v, fa._like_out(q)) == "f32"
+
+
+@pytest.mark.parametrize("case", ["row_stride", "base", "out_base",
+                                  "strided_head_dim"])
+def test_fp32_misaligned_views_take_the_simt_kernel(case):
+    q, k, v = (_zeros(2, 3, t, 64, torch.float32) for t in (16, 70, 70))
+    out = fa._like_out(q)
+    if case == "row_stride":             # rows of 65 floats
+        q = torch.zeros(2, 3, 16, 65)[..., :64]
+    elif case == "base":                 # a view 4 bytes into its buffer
+        k = torch.zeros(2, 3, 70, 65)[..., 1:]
+        assert k.data_ptr() % 16 == 4
+    elif case == "out_base":
+        out = torch.zeros(2, 16, 3, 65)[..., 1:].transpose(1, 2)
+    else:
+        v = torch.zeros(2, 3, 70, 128)[..., ::2]
+    assert fa.flash_fwd_route(q, k, v, out) == "simt"
+
+
 @pytest.mark.parametrize("case", ["fp32", "d32", "row_stride", "base",
                                   "v_row_stride", "strided_head_dim",
                                   "mixed_dtype"])
 def test_everything_else_takes_the_simt_kernel(case):
-    d = 32 if case == "d32" else 64
+    """bf16 and fp32 calls no tensor-core, f32 or split kernel takes: D =
+    32 (fp32 at D = 32 here: the f32 kernel takes D 64 and 128),
+    misaligned rows, bases and head dims, mixed types."""
+    d = 32 if case in ("d32", "fp32") else 64
     dtype = torch.float32 if case == "fp32" else torch.bfloat16
     tq = 2
     q, k, v = (_zeros(2, 3, t, d, dtype) for t in (tq, 70, 70))
@@ -91,13 +154,14 @@ def test_everything_else_takes_the_simt_kernel(case):
 def test_decode_sized_query_counts_take_the_split_kernels(dtype, d):
     """The serving step: Tq = 1 against a contiguous (S, H, T, D) cache,
     q a view of the fused projection. Two query rows or more (a prompt,
-    Tq = 16 against the cache with its offset) take tc or SIMT."""
+    Tq = 16 against the cache with its offset) take tc, f32 or SIMT."""
     qkv = torch.zeros(8, 1, 3, 12, d, dtype=dtype)
     q = qkv.unbind(2)[0].transpose(1, 2)
     cache = torch.zeros(8, 12, 512, d, dtype=dtype)
     assert fa.flash_fwd_route(q, cache, cache, fa._like_out(q)) == "split"
-    want = "tc" if dtype == torch.bfloat16 and d != 32 else "simt"
     for tq in (2, 16):
+        want = "simt" if d == 32 else "tc" if dtype == torch.bfloat16 \
+            else "f32" if tq >= fa.FWD_F32_MIN_TQ else "simt"
         q = _zeros(8, 12, tq, d, dtype)
         assert fa.flash_fwd_route(q, cache, cache) == want
         assert "split" not in fa._fwd_routes(q, cache, cache, None)
@@ -112,21 +176,27 @@ def test_misaligned_decode_takes_the_simt_kernel():
 def test_named_routes_only_where_their_kernels_take_the_call():
     """``route="simt"`` takes any call, ``"tc"`` aligned bf16 operands
     with D 64 or 128 (at any Tq: to time one route beside another),
-    ``"split"`` aligned operands with one query row; a route whose kernel
-    cannot take the call raises, on the CPU too, where the plain version
-    runs either way."""
+    ``"f32"`` aligned fp32 operands with D 64 or 128 and more than one
+    query row, ``"split"`` aligned operands with one query row; a route
+    whose kernel cannot take the call raises, on the CPU too, where the
+    plain version runs either way."""
     rs = np.random.RandomState(0)
     q, k, v = (torch.from_numpy(rs.randn(1, 2, t, 64).astype(np.float32))
                for t in (6, 9, 9))
     want = fa.flash_attention_reference(q, k, v, causal=True)
-    assert torch.equal(fa.flash_attention(q, k, v, causal=True,
-                                          route="simt"), want)
+    for route in ("simt", "f32"):
+        assert torch.equal(fa.flash_attention(q, k, v, causal=True,
+                                              route=route), want)
+    rule = fa.flash_fwd_route(q, k, v)      # a 6-row prompt: SIMT
+    assert rule == ("f32" if 6 >= fa.FWD_F32_MIN_TQ else "simt")
     for route in ("split", "tc"):
         with pytest.raises(ValueError, match=f"route '{route}'.*takes "
-                                             "'simt'"):
+                                             f"'{rule}'"):
             fa.flash_attention(q, k, v, causal=True, route=route)
     for route in ("simt", "split"):
         fa.flash_attention(q[:, :, :1], k, v, causal=True, route=route)
+    with pytest.raises(ValueError, match="route 'f32'.*takes 'split'"):
+        fa.flash_attention(q[:, :, :1], k, v, causal=True, route="f32")
     bq, bk, bv = (x.to(torch.bfloat16) for x in (q, k, v))
     for route in ("simt", "tc"):
         fa.flash_attention(bq, bk, bv, causal=True, route=route)
@@ -134,8 +204,10 @@ def test_named_routes_only_where_their_kernels_take_the_call():
         fa.flash_attention(bq, bk, bv, causal=True, route="split")
     for route in ("simt", "split", "tc"):
         fa.flash_attention(bq[:, :, :1], bk, bv, causal=True, route=route)
+    with pytest.raises(ValueError, match="route 'f32'.*takes 'tc'"):
+        fa.flash_attention(bq, bk, bv, causal=True, route="f32")
     odd = torch.zeros(1, 2, 6, 65, dtype=torch.bfloat16)[..., :64]
-    for route in ("split", "tc"):
+    for route in ("split", "tc", "f32"):
         with pytest.raises(ValueError, match="takes 'simt'"):
             fa.flash_attention(odd, bk, bv, route=route)
     with pytest.raises(ValueError, match="route 'cuda'"):
@@ -424,3 +496,197 @@ def test_split_mirror_matches_the_pallas_kernel(case):
     fin = np.isfinite(want_lse)
     np.testing.assert_allclose(got_lse.numpy()[fin], want_lse[fin],
                                rtol=1e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the f32 kernel, mirrored thread by thread
+# ---------------------------------------------------------------------------
+def _bwd_mirror():
+    """The swizzle helpers of the fp32 backward's mirror
+    (tests/test_torch_flash_bwd_route.py): the same tiles and offsets."""
+    path = pathlib.Path(__file__).resolve().parent / \
+        "test_torch_flash_bwd_route.py"
+    spec = importlib.util.spec_from_file_location("_flash_bwd_mirror", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_bm = _bwd_mirror()
+F32_THREADS = 256
+
+
+def _f32_fwd_threads():
+    """Per thread (256) of ``flash_fwd_f32_kernel``: lx, its 2 query rows
+    ra + 4i (ra = 8 * warp + lane / 8) and its 8 keys lx + 8j of a tile."""
+    tid = np.arange(F32_THREADS)
+    warp, lane = tid >> 5, tid & 31
+    ly, lx = lane >> 3, lane & 7
+    ra = (8 * warp + ly)[:, None] + 4 * np.arange(2)
+    keys = lx[:, None] + 8 * np.arange(8)
+    return lx, ra, keys
+
+
+def _row_lanes(x):
+    """A per-thread (256, ...) value reduced over the 8 lanes of each row
+    group (lanes with one lane / 8 in a warp: the kernel's shuffles over
+    xor 1, 2, 4), broadcast back: (256, ...) -> the group's values."""
+    return x.reshape(8, 4, 8, *x.shape[1:])
+
+
+def f32_fwd_mirror(q, k, v, lengths, causal, cache_offset):
+    """``flash_fwd_f32_kernel`` block by block and thread by thread on
+    numpy (B, H, T, D) inputs: (o, lse). TMA zero-fills rows past Tq and
+    Tk; every output element is written once."""
+    b_, h_, tq, d = q.shape
+    tk = k.shape[2]
+    scale = 1.0 / np.sqrt(d)
+    sl2 = np.float32(scale * np.log2(np.e))
+    lx, ra, keys = _f32_fwd_threads()
+    o = np.full(q.shape, np.nan, np.float32)
+    lse = np.full(q.shape[:3], np.nan, np.float32)
+    # the thread's output chunks u: columns 4 * (lx + 8u) .. + 3
+    cols = (4 * (lx[:, None] + 8 * np.arange(d // 32)))[:, :, None] \
+        + np.arange(4)
+    cols = cols.reshape(F32_THREADS, d // 8)
+    t = np.arange(TILE)[None, :, None]
+    u = np.arange(d // 32)[None, None, :]
+    v_off = (t * 128 + ((lx[:, None, None] ^ (t & 7)) << 4)
+             + u * _bm.BOX) // 4                    # V's chunk lx of box u
+    with np.errstate(over="ignore", invalid="ignore"):
+        for b in range(b_):
+            klen = None if lengths is None else int(lengths[b])
+            kmax, diag = _mask(tq, tk, causal, cache_offset, klen)
+            for h in range(h_):
+                qb, kb, vb = q[b, h], k[b, h], v[b, h]
+                for q0, tiles in tc_plan(tq, tk, causal, cache_offset,
+                                         klen):
+                    qa = _bm._gather_rows(_bm._load_tile(qb, q0, tq, d), ra,
+                                          d)
+                    rows = q0 + ra
+                    acc = np.zeros((F32_THREADS, 2, d // 8), np.float64)
+                    mrow = np.full((F32_THREADS, 2), -np.inf)
+                    lrow = np.zeros((F32_THREADS, 2))
+                    for j0, full in tiles:
+                        kt = _bm._load_tile(kb, j0, tk, d)
+                        vt = _bm._load_tile(vb, j0, tk, d)
+                        s = np.einsum("tid,tjd->tij", qa,
+                                      _bm._gather_rows(kt, keys, d)) * sl2
+                        if not full:
+                            s = np.where(_bm._ok(rows[:, :, None],
+                                                 j0 + keys[:, None, :], tq,
+                                                 kmax, diag, causal), s,
+                                         -np.inf)
+                        mx = _row_lanes(s.max(axis=2)).max(axis=2,
+                                                           keepdims=True)
+                        mx = np.broadcast_to(mx, (8, 4, 8, 2)).reshape(
+                            F32_THREADS, 2)
+                        mnew = np.maximum(mrow, mx)
+                        muse = np.where(mnew == -np.inf, 0.0, mnew)
+                        alpha = np.exp2(mrow - muse)
+                        p = np.exp2(s - muse[:, :, None])
+                        mrow = mnew
+                        lrow = lrow * alpha + p.sum(axis=2)
+                        pt = _store_p(p, ra, keys)
+                        x = _bm._gather_rows(pt, ra, TILE)  # (256, 2, 64)
+                        vv = vt[v_off[..., None] + np.arange(4)].reshape(
+                            F32_THREADS, TILE, d // 8)
+                        acc = acc * alpha[:, :, None] + x @ vv
+                    l = np.broadcast_to(_row_lanes(lrow).sum(
+                        axis=2, keepdims=True), (8, 4, 8, 2)).reshape(
+                        F32_THREADS, 2)
+                    inv = np.where(l > 0, 1.0 / np.where(l > 0, l, 1.0), 0.0)
+                    out = acc * inv[:, :, None]
+                    r = np.broadcast_to(rows[:, :, None], out.shape)
+                    c = np.broadcast_to(cols[:, None, :], out.shape)
+                    flat = r * d + c
+                    assert np.unique(flat).size == flat.size == TILE * d
+                    keep = r < tq
+                    o[b, h][r[keep], c[keep]] = out[keep]
+                    lv = np.where(l > 0, (mrow + np.log2(np.where(
+                        l > 0, l, 1.0))) * np.log(2.0), -np.inf)
+                    first = (lx == 0)[:, None] & (rows < tq)
+                    lse[b, h][rows[first]] = lv[first]
+    return o, lse
+
+
+def _store_p(p, ra, keys):
+    """``st1`` of every thread's 2 x 8 P values into the swizzled 64 x 64
+    P tile; each word is written exactly once."""
+    tile = np.full(TILE * TILE, np.nan, np.float32)
+    col = np.broadcast_to(keys[:, None, :], p.shape)
+    row = np.broadcast_to(ra[:, :, None], p.shape)
+    word = (_bm._chunk_off(_bm._row_key(row), col >> 2) + (col & 3) * 4) // 4
+    assert np.unique(word).size == word.size == tile.size
+    tile[word] = p
+    return tile
+
+
+# (name, b, tq, tk, d, causal, cache_offset, lengths)
+F32_FWD_CASES = [
+    ("causal_T130_D64", 1, 130, 130, 64, True, False, None),
+    ("lengths_zero_T70x100_D64", 3, 70, 100, 64, False, False, [100, 33, 0]),
+    ("cache_offset_T16x140_D128", 2, 16, 140, 128, True, True, [140, 70]),
+    ("tq_gt_tk_causal_T150x40_D64", 1, 150, 40, 64, True, False, None),
+    ("noncausal_T100x200_D128", 1, 100, 200, 128, False, False, None),
+    ("causal_lengths_T96_D64", 2, 96, 96, 64, True, False, [96, 0]),
+    ("causal_T256_D64", 1, 256, 256, 64, True, False, None),
+]
+
+
+@pytest.mark.parametrize("case", F32_FWD_CASES,
+                         ids=[c[0] for c in F32_FWD_CASES])
+def test_f32_fwd_mirror_matches_the_pallas_kernel(case):
+    """The mirror against the JAX package's ``_flash_fwd`` (interpret
+    mode) and the plain version on the same numpy inputs: o and the lse
+    within 2e-5 (fp32 both, the sums in other orders), the -inf rows
+    identical, rows with no key 0."""
+    _, b, tq, tk, d, causal, cache_offset, lengths = case
+    q, k, v = _inputs(b, 2, tq, tk, d, seed=5)
+    scale = 1.0 / np.sqrt(d)
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+    want_o, want_lse = pa._flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if lens is None else jnp.asarray(lens), scale, causal, True,
+        return_lse=True, cache_offset=cache_offset)
+    got_o, got_lse = f32_fwd_mirror(q, k, v, lengths, causal, cache_offset)
+    assert not np.isnan(got_o).any() and not np.isnan(got_lse).any()
+    want_o, want_lse = np.asarray(want_o), np.asarray(want_lse)
+    np.testing.assert_allclose(got_o, want_o, rtol=1e-5, atol=2e-5)
+    np.testing.assert_array_equal(np.isinf(got_lse), np.isinf(want_lse))
+    fin = np.isfinite(want_lse)
+    np.testing.assert_allclose(got_lse[fin], want_lse[fin], rtol=1e-5,
+                               atol=2e-5)
+    assert (got_o[np.isinf(got_lse)] == 0).all()
+    plain_o, plain_lse = fa.flash_attention_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        None if lens is None else torch.from_numpy(lens), causal=causal,
+        cache_offset=cache_offset, return_lse=True)
+    np.testing.assert_allclose(got_o, plain_o.numpy(), rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_fwd_loads_are_one_wavefront(d):
+    """Each float4 load of a warp in ``flash_fwd_f32_kernel`` (Q rows and
+    K rows of S = Q.K^T, P rows and V chunks of P.V) touches distinct bank
+    quads: one wavefront, broadcast over the lanes that share an address.
+    A load reads 4 distinct Q (or P) rows and 8 distinct K rows or V
+    chunks; the immediate forms (``RowOffs``) land on the swizzle."""
+    lx, ra, keys = _f32_fwd_threads()
+    for w in range(8):
+        lanes = slice(32 * w, 32 * w + 32)
+        for c in range(max(d, TILE) // 4):
+            for i in range(2):
+                off = _bm._chunk_off(_bm._row_key(ra[lanes, i]), c)
+                assert _bm._wavefronts(off) == 1 and np.unique(off).size == 4
+                assert (_bm._step4(ra[lanes, 0], i, c) == off).all()
+            if c < d // 4:
+                for j in range(8):
+                    off = _bm._chunk_off(_bm._row_key(keys[lanes, j]), c)
+                    assert _bm._wavefronts(off) == 1 \
+                        and np.unique(off).size == 8
+                    assert (_bm._step8(keys[lanes, 0], j, c) == off).all()
+        for t in range(TILE):
+            for u in range(d // 32):
+                off = t * 128 + ((lx[lanes] ^ (t & 7)) << 4) + u * _bm.BOX
+                assert _bm._wavefronts(off) == 1 and np.unique(off).size == 8

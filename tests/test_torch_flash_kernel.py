@@ -13,11 +13,12 @@ Backward (dq, dk, dv), relative to max|plain| of each: fp32 1e-4 (order of
 sums), bf16 2e-2 (the kernels round p and dS to bf16 before their
 products, as the TPU kernels do; the plain version keeps them in fp32).
 The forward takes the route ``flash_fwd_route`` names: a decode step (one
-query row) on the split kernels (``csrc/flash_fwd_split.cu``), the rest in
-bf16 with D 64 or 128 and 16-byte aligned operands on the tensor-core
-kernel (``csrc/flash_fwd_tc.cu``), everything else on the SIMT kernel
-(``csrc/flash_fwd.cu``); every route is also run by name on every case
-its kernel takes. The backward takes the route ``flash_bwd_route`` names:
+query row) on the split kernels (``csrc/flash_fwd_split.cu``), the rest
+with D 64 or 128 and 16-byte aligned operands in bf16 on the tensor-core
+kernel (``csrc/flash_fwd_tc.cu``) and in fp32 from ``FWD_F32_MIN_TQ``
+query rows on the register micro-tile kernel (``csrc/flash_fwd_f32.cu``),
+everything else on the SIMT kernel (``csrc/flash_fwd.cu``); every route
+is also run by name on every case its kernel takes. The backward takes the route ``flash_bwd_route`` names:
 with D 64 or 128 and 16-byte aligned operands, bf16 on the tensor-core
 kernels (``csrc/flash_bwd_tc.cu``) and fp32 on the register micro-tile
 kernels (``csrc/flash_bwd_f32.cu``); everything else on the SIMT kernels
@@ -84,7 +85,7 @@ def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
     torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=tol)
 
 
-FWD_ROUTES = ("tc", "split", "simt")
+FWD_ROUTES = ("tc", "f32", "split", "simt")
 
 
 def _fwd_route_counts():
@@ -103,6 +104,8 @@ def _takes(route, dtype, tq, d):
     query count and head dim (``flash_attention._fwd_routes``)."""
     if route == "tc":
         return dtype == torch.bfloat16 and d in (64, 128)
+    if route == "f32":
+        return dtype == torch.float32 and d in (64, 128) and tq > 1
     if route == "split":
         return tq == 1
     return True
@@ -145,11 +148,12 @@ def test_each_forward_route_matches_plain_on_card(cuda_device, case, dtype,
 
 @pytest.mark.parametrize("route, dtype", [
     ("tc", torch.bfloat16), ("split", torch.float32),
-    ("split", torch.bfloat16)], ids=["tc", "split_fp32", "split_bf16"])
+    ("split", torch.bfloat16), ("f32", torch.float32)],
+    ids=["tc", "split_fp32", "split_bf16", "f32"])
 def test_forward_routes_repeat_bit_for_bit(cuda_device, route, dtype):
-    """No atomics: the tensor-core and split kernels repeat exactly (the
-    prefill case on tc, the decode case on split)."""
-    case = CASES[5] if route == "tc" else CASES[6]
+    """No atomics: the tensor-core, split and f32 kernels repeat exactly
+    (the prefill case on tc and f32, the decode case on split)."""
+    case = CASES[5] if route in ("tc", "f32") else CASES[6]
     _, b, h, tq, tk, d, causal, cache_offset, lengths = case
     q, k, v = (t.to(cuda_device, dtype) for t in _inputs(b, h, tq, tk, d))
     lens = None if lengths is None else torch.tensor(lengths)
@@ -163,9 +167,9 @@ def test_forward_routes_repeat_bit_for_bit(cuda_device, route, dtype):
 
 
 def test_forward_rule_on_the_main_paths_shapes(cuda_device):
-    """The GPT's bf16 head-split views take tc, a decode step takes split
-    (fp32 and bf16), a misaligned bf16 view takes simt; each matches the
-    plain version."""
+    """The GPT's bf16 head-split views take tc and its fp32 ones f32, a
+    decode step takes split (fp32 and bf16), a misaligned bf16 view and an
+    fp32 prompt of 16 rows take simt; each matches the plain version."""
     rs = np.random.RandomState(13)
     qkv = torch.from_numpy(rs.randn(2, 150, 3, 4, 64).astype(np.float32))
     qkv = qkv.to(cuda_device, torch.bfloat16)
@@ -180,6 +184,14 @@ def test_forward_rule_on_the_main_paths_shapes(cuda_device):
         want = fa.flash_attention_reference(qq, k, v, causal=True)
         torch.testing.assert_close(out.float(), want.float(), rtol=0,
                                    atol=TOLS[torch.bfloat16])
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    for qq, route in ((q32, "f32"), (q32[:, :, :16], "simt")):
+        before = _fwd_route_counts()
+        out = fa.flash_attention(qq, k32, v32, causal=True)
+        _expect_fwd_route(before, route)
+        want = fa.flash_attention_reference(qq, k32, v32, causal=True)
+        torch.testing.assert_close(out, want, rtol=0,
+                                   atol=TOLS[torch.float32])
     _, b, h, tq, tk, d, causal, cache_offset, lengths = CASES[6]
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (t.to(cuda_device, dtype)
@@ -411,7 +423,7 @@ def test_autograd_through_the_tc_route_on_card(cuda_device):
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=tol)
 
 
-# the f32 route's cases, (name, b, h, tq, tk, d, causal, cache_offset,
+# the f32 routes' cases, (name, b, h, tq, tk, d, causal, cache_offset,
 # lengths): causal, lengths with a length-0 entry, cache offset, Tq > Tk,
 # D=128 (the GPT's head-split views are their own test below)
 F32_CASES = [
@@ -493,3 +505,48 @@ def test_f32_route_repeats_bit_for_bit(cuda_device):
         second = fa.flash_attention_bwd(*args, **kw)
         for x, y in zip(first, second):
             assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", F32_CASES, ids=[c[0] for c in F32_CASES])
+def test_f32_forward_matches_plain_on_card(cuda_device, case):
+    """The f32 forward, named (Tq = 5 is below the rule's crossover), on
+    the f32 backward's cases: o within 1e-4, the lse within 1e-4 with the
+    -inf rows identical, rows with no key 0; the SIMT kernel on the same
+    inputs too."""
+    _, b, h, tq, tk, d, causal, cache_offset, lengths = case
+    q, k, v = (t.to(cuda_device) for t in _inputs(b, h, tq, tk, d, seed=8))
+    lens = None if lengths is None else torch.tensor(lengths)
+    kw = dict(causal=causal, cache_offset=cache_offset, return_lse=True)
+    want, want_lse = fa.flash_attention_reference(q, k, v, lens, **kw)
+    for route in ("f32", "simt"):
+        before = _fwd_route_counts()
+        got, got_lse = fa.flash_attention(q, k, v, lens, route=route, **kw)
+        torch.cuda.synchronize()
+        _expect_fwd_route(before, route)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        assert torch.equal(torch.isneginf(got_lse), torch.isneginf(want_lse))
+        fin = torch.isfinite(want_lse)
+        torch.testing.assert_close(got_lse[fin], want_lse[fin], rtol=0,
+                                   atol=1e-4)
+        assert (got[~fin.unsqueeze(-1).expand_as(got)] == 0).all()
+
+
+def test_f32_forward_on_the_gpt_views_on_card(cuda_device):
+    """The fp32 GPT's forward: q, k, v head-split views of one fused
+    (B, T, 3, H, D) projection, o into a (B, T, H, D) buffer; the f32
+    kernel takes them by the rule and matches the plain version, and
+    autograd runs f32 K4 then f32 K5/K6."""
+    rs = np.random.RandomState(23)
+    b, t, h, d = 2, 150, 12, 64
+    base = torch.from_numpy(rs.randn(b, t, 3, h, d).astype(np.float32))
+    qkv = base.to(cuda_device).requires_grad_(True)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    assert fa.flash_fwd_route(q, k, v, fa._like_out(q)) == "f32"
+    before, before_bwd = _fwd_route_counts(), _route_counts()
+    out = fa.flash_attention(q, k, v, causal=True)
+    _expect_fwd_route(before, "f32")
+    want = fa.flash_attention_reference(q, k, v, causal=True)
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
+    assert out.transpose(1, 2).is_contiguous()
+    out.sum().backward()
+    _expect_route(before_bwd, "f32")

@@ -13,9 +13,11 @@ cuDNN), bf16 2e-2 (outputs rounded to bf16 on both sides, at times on the
 two sides of a rounding boundary); the fp32 per-channel sums and dW also
 by relative L2 error, 1e-4.
 
-Each conv takes one of two kernel sets (``fc.conv_route``): bf16 with
-both widths multiples of 8 the tensor-core kernels (``csrc/fused_conv_tc.cu``
-forward, ``csrc/conv_bwd_tc.cu`` backward), everything else the SIMT
+Each kernel takes the route ``fc.conv_route`` names: bf16 with both
+widths multiples of 8 the tensor-core kernels (``csrc/fused_conv_tc.cu``
+forward, ``csrc/conv_bwd_tc.cu`` backward), the fp32 input gradient with
+both widths multiples of 4 and 16-byte aligned operands the register
+micro-tile kernel (``csrc/conv_bwd_f32.cu``), everything else the SIMT
 kernels (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``); each test below
 states which it reaches.
 """
@@ -151,10 +153,12 @@ def test_kernels_match_plain_on_card(cuda_device, case, dtype):
 
 
 def _route_launches():
-    """(dx tc, dw tc, dx simt, dw simt, fwd tc, fwd simt) launches."""
+    """(dx tc, dw tc, dx simt, dw simt, fwd tc, fwd simt, dx f32)
+    launches."""
     return (fc.conv_bwd_dx_tc_launches, fc.conv_bwd_dw_tc_launches,
             fc.conv_bwd_dx_simt_launches, fc.conv_bwd_dw_simt_launches,
-            fc.fused_conv_tc_launches, fc.fused_conv_simt_launches)
+            fc.fused_conv_tc_launches, fc.fused_conv_simt_launches,
+            fc.conv_bwd_dx_f32_launches)
 
 
 def _check_against_plain(t, case, dtype):
@@ -184,7 +188,7 @@ def test_bf16_resnet_widths_take_the_tensor_cores(cuda_device, case):
     n0 = _route_launches()
     _check_against_plain(t, case, torch.bfloat16)
     assert _route_launches() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3],
-                                 n0[4] + 1, n0[5])
+                                 n0[4] + 1, n0[5], n0[6])
 
 
 def test_bf16_tensor_core_kernels_repeat_bit_for_bit(cuda_device):
@@ -215,7 +219,7 @@ def test_ragged_bf16_widths_take_the_simt_kernels(cuda_device):
     n0 = _route_launches()
     _check_against_plain(t, case, torch.bfloat16)
     assert _route_launches() == (n0[0], n0[1], n0[2] + 1, n0[3] + 1, n0[4],
-                                 n0[5] + 1)
+                                 n0[5] + 1, n0[6])
 
 
 def test_padding_is_zero_after_the_prologue(cuda_device):
@@ -335,3 +339,60 @@ def test_weight_gradient_splits_fill_the_card_and_keep_whole_steps():
     # of two 32-pixel rows)
     assert fc.dw_splits(1, 4, 4, 8, 8, 1, 1, "tc") == 1
     assert fc.dw_splits(1, 32, 32, 8, 8, 1, 1, "tc") == 4
+
+
+@pytest.mark.parametrize("case", CASES + RESNET_CASES[:5],
+                         ids=[c[0] for c in CASES + RESNET_CASES[:5]])
+def test_fp32_input_gradient_takes_the_f32_kernel(cuda_device, case):
+    """fp32 with both widths multiples of 4 (every case here): K2 on the
+    register micro-tile kernel, K1 and K3 on SIMT, all matching the plain
+    versions; the SIMT K2 named on the same inputs matches too, and the
+    f32 K2 repeats bit for bit (partials, then the ordered column
+    sums)."""
+    assert fc.conv_route(torch.float32, case[4], case[5], "conv_bwd_dx") \
+        == "f32"
+    t = make_case(case, torch.float32, cuda_device)
+    n0 = _route_launches()
+    got = _check_against_plain(t, case, torch.float32)
+    assert _route_launches() == (n0[0], n0[1], n0[2], n0[3] + 1, n0[4],
+                                 n0[5] + 1, n0[6] + 1)
+    _, _, _, _, _, _, _, stride, pad, kind = case
+    rkw = dict(r=t.get("r"), ar=t.get("ar"), br=t.get("br"), g=t.get("g"))
+    args = (t["x"], t["w"], t.get("a"), t.get("b"), t["y"], t["dy"],
+            t["ds"], t["dss"], stride, pad, True)
+    again = fc.conv_bwd_dx(*args, **rkw)
+    for x, y in zip(again, (got[k] for k in ("dx", "da", "db", "dr", "dar")
+                            if k in got)):
+        assert (x is None and y is None) or torch.equal(x, y)
+    want = fc.conv_bwd_dx_reference(*args, **rkw)
+    simt = fc.conv_bwd_dx(*args, route="simt", **rkw)
+    assert _route_launches()[2] == n0[2] + 1
+    for x, y in zip(simt, want):
+        if y is not None:
+            err, l2 = _err(x, y)
+            assert err <= TOLS[torch.float32]
+            if y.dim() == 1:
+                assert l2 <= L2_TOL
+
+
+def test_fp32_input_gradient_of_a_misaligned_view_takes_simt(cuda_device):
+    """An operand whose base is not 16-byte aligned (a view 4 bytes into
+    its buffer) keeps K2 on SIMT; named, the f32 route raises."""
+    case = CASES[0]
+    t = make_case(case, torch.float32, cuda_device)
+    t["y"] = fc.fused_conv_reference(t["x"], t["w"], None, None, 1, 0,
+                                     True)[0]
+    buf = torch.empty(t["dy"].numel() + 1, device=cuda_device)
+    dy = buf[1:].view_as(t["dy"])
+    dy.copy_(t["dy"])
+    assert dy.data_ptr() % 16 == 4
+    args = (t["x"], t["w"], None, None, t["y"], dy, t["ds"], t["dss"], 1, 0,
+            True)
+    n0 = _route_launches()
+    got = fc.conv_bwd_dx(*args)
+    assert _route_launches()[2] == n0[2] + 1
+    assert _route_launches()[6] == n0[6]
+    want = fc.conv_bwd_dx_reference(*args)
+    assert _err(got[0], want[0])[0] <= TOLS[torch.float32]
+    with pytest.raises(ValueError, match="16-byte"):
+        fc.conv_bwd_dx(*args, route="f32")

@@ -157,9 +157,10 @@ def test_kernel_build_is_content_addressed():
     assert (_build.CSRC / "flash_fwd.cu").exists()
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
     assert set(_build.SOURCES) == {"flash_fwd", "flash_fwd_tc",
-                                   "flash_fwd_split", "flash_bwd",
-                                   "flash_bwd_f32", "flash_bwd_tc",
-                                   "fused_conv", "conv_bwd", "conv_bwd_tc",
+                                   "flash_fwd_f32", "flash_fwd_split",
+                                   "flash_bwd", "flash_bwd_f32",
+                                   "flash_bwd_tc", "fused_conv", "conv_bwd",
+                                   "conv_bwd_f32", "conv_bwd_tc",
                                    "fused_conv_tc"}
     assert not fa._fwd_fns or torch.cuda.is_available()
     assert not fa._bwd_fns or torch.cuda.is_available()
@@ -321,7 +322,8 @@ def test_chip_smoke_kernel_phase_rehearses_on_the_cpu(monkeypatch):
     versions run, so the route check is recorded instead of made): every
     case, the GPT's head-split views among them, passes its gates in fp32
     and bf16, names the route the rule gives its shape, and holds the SIMT
-    kernel to the plain version and times it beside every other route."""
+    kernel to the plain version and times it beside every other route, in
+    a row of its own."""
     cs = _chip_smoke()
     monkeypatch.setattr(cs, "device_ms", lambda fn, **k: (fn(), 0.0)[1])
     monkeypatch.setattr(cs, "call_ms", lambda fn, **k: (fn(), 0.0)[1])
@@ -331,18 +333,23 @@ def test_chip_smoke_kernel_phase_rehearses_on_the_cpu(monkeypatch):
                         checks.append((label, expect)))
     cases = [("prefill", 1, 20, 20, 64, True, False, None, False),
              ("decode", 3, 1, 40, 64, True, True, (3, 40, 17), False),
-             (cs.GPT_VIEWS, 2, 24, 24, 64, True, False, None, True),
+             (cs.GPT_VIEWS, 2, 40, 40, 64, True, False, None, True),
              ("offset_T16_D128", 2, 16, 40, 128, True, True, (40, 16), True),
              ("tq_gt_tk_D32", 1, 30, 8, 32, True, False, None, True)]
     rows = cs.kernel_phase(0, torch.device("cpu"), cases, h=2)
+    # (fp32 route, bf16 route) by the rule: a prompt of 20 or 16 rows
+    # stays on SIMT in fp32, the 40-row views take f32
     want = {"prefill": ("simt", "tc"), "decode": ("split", "split"),
-            cs.GPT_VIEWS: ("simt", "tc"),
+            cs.GPT_VIEWS: ("f32", "tc"),
             "offset_T16_D128": ("simt", "tc"),
             "tq_gt_tk_D32": ("simt", "simt")}
-    assert [(r["case"], r["route"]) for r in rows] == \
-        [(c, w) for c, pair in want.items() for w in pair]
-    assert checks == [(f"{r['case']} {r['dtype']}", r["route"])
-                      for r in rows]
+    main = [(c, dt, route) for c, pair in want.items()
+            for dt, route in zip(("fp32", "bf16"), pair)]
+    expanded = [row for c, dt, route in main
+                for row in [(c, dt, route)] + ([(c, dt, "simt")]
+                                               if route != "simt" else [])]
+    assert [(r["case"], r["dtype"], r["route"]) for r in rows] == expanded
+    assert checks == [(f"{c} {dt}", route) for c, dt, route in main]
     for r in rows:
         assert r["max_abs_err"] == 0 and r["lse_err"] == 0
         assert (r["simt_ms"] is None) == (r["route"] == "simt")
@@ -428,13 +435,14 @@ def test_chip_smoke_backward_route_check_names_the_route_taken():
 
 def test_chip_smoke_decode_routes_follow_the_prefill_buckets():
     """Serving in fp32: 12 split launches a decode step, and 12 a prefill
-    on the route its bucket's Tq takes: SIMT, the 16-token bucket too."""
+    on the route its bucket's Tq takes: SIMT up to 32 rows (the 16-token
+    bucket), f32 from ``FWD_F32_MIN_TQ`` (the 64-token bucket)."""
     cs = _chip_smoke()
     buckets = (16, 64)
     got = cs.decode_routes(buckets, [1, 16, 17, 48], steps=5)
-    assert got == {"tc": 0, "split": 12 * 5, "simt": 12 * 4}
+    assert got == {"tc": 0, "f32": 12 * 2, "split": 12 * 5, "simt": 12 * 2}
     assert cs.decode_routes((1, 16), [1], steps=2) == \
-        {"tc": 0, "split": 12 * 3, "simt": 0}
+        {"tc": 0, "f32": 0, "split": 12 * 3, "simt": 0}
 
 
 def test_chip_smoke_resnet_phase_rehearses_on_the_cpu(monkeypatch):
@@ -467,13 +475,16 @@ def test_chip_smoke_resnet_phase_rehearses_on_the_cpu(monkeypatch):
     assert out["bf16_learning_losses"][-1] < \
         0.95 * out["bf16_learning_losses"][0]
     zero = {k: 0 for k in cs.CONV_KERNELS}
-    routes = {(k, r): 0 for k in cs.ROUTED for r in cs.ROUTES}
-    assert windows == [(zero, (19, 1, 1, routes, "simt")),
+    routes = {(k, r): 0 for k in cs.ROUTED for r in cs.CONV_ROUTES[k]}
+    fp32 = cs.conv_routes_expected(torch.float32)
+    assert fp32 == {"fused_conv": "simt", "conv_bwd_dx": "f32",
+                    "conv_bwd_dw": "simt"}
+    assert windows == [(zero, (19, 1, 1, routes, fp32)),
                        (zero, (19, 1, 0, routes, "simt")),
                        (zero, (19, 1, 0, routes, "tc")),
                        (zero, (19, 1, 0, routes, "simt")),
                        (zero, (19, 2, 0, routes, "simt")),
-                       (zero, (19, 12, 12, routes, "simt")),
+                       (zero, (19, 12, 12, routes, fp32)),
                        (zero, (19, 1, 1, routes, "tc")),
                        (zero, (19, 18, 18, routes, "tc"))]
     gate = out["bf16_fwd_gate"]
@@ -536,9 +547,11 @@ def test_chip_smoke_imperative_phase_rehearses_on_the_cpu(monkeypatch):
     want = dict(scale=1, saxpy=1, first_row=1, softmax_ce_fwd=9,
                 softmax_ce_bwd=9)
     # on the CPU no kernel launches: every count 0, against 2 layers x 10
-    # passes, K4 on simt and K5/K6 on f32
-    routes = cs.training_routes(10, 0, layers=2)
+    # passes at T=16, K4 on simt (16 rows) and K5/K6 on f32; at T=256 K4
+    # would take f32
+    routes = cs.training_routes(10, 0, layers=2, t=16, d=net.head_dim)
     assert routes["flash_bwd_dq_f32"] == routes["flash_fwd_simt"] == 20
+    assert cs.training_routes(10, 0, layers=2)["flash_fwd_f32"] == 20
     assert windows == [(zero, want, {k: 0 for k in cs.COUNTERS}, 2 * 10,
                         dict.fromkeys(cs.ROUTE_COUNTERS, 0), routes)]
     rows = out["rows"]

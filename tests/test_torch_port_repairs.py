@@ -169,3 +169,78 @@ def test_spmd_nag_without_momentum_is_plain_sgd_as_in_jax():
         np.testing.assert_allclose(p.detach().numpy(),
                                    np.asarray(jst.params[n]), rtol=1e-4,
                                    atol=1e-5, err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# pick, cast and norm against the JAX package's ops on the same numpy
+# inputs: out-of-range picks read jnp.take_along_axis's fill, float ->
+# integer casts saturate, and the norm of the flattened array keeps one axis
+# ---------------------------------------------------------------------------
+from incubator_mxnet_tpu.ops import tensor as jtensor  # noqa: E402
+
+from incubator_mxnet_tpu_torch.ops import tensor as ptensor  # noqa: E402
+
+
+def _jax_np(fn, *args, **kw):
+    import jax.numpy as jnp
+
+    return np.asarray(fn(*(jnp.asarray(a) for a in args), **kw))
+
+
+# (axis, index) over x of shape (3, 4): past both ends, the negative ends
+# in range, and the edges
+PICKS = [(-1, [-5, 4, -1]), (-1, [100, -4, 3]), (0, [-4, 3, -1, 0]),
+         (0, [-3, 2, 7, -100])]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.uint8],
+                         ids=["float32", "int32", "uint8"])
+@pytest.mark.parametrize("axis, index", PICKS)
+def test_pick_out_of_range_reads_the_reference_fill(dtype, axis, index):
+    x = np.arange(3 * 4).reshape(3, 4).astype(dtype)
+    idx = np.array(index, np.float32)
+    want = _jax_np(jtensor.pick, x, idx, axis=axis)
+    got = ptensor.pick(torch.from_numpy(x), torch.from_numpy(idx), axis=axis)
+    assert got.dtype == torch.from_numpy(x).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    # keepdims keeps the picked axis as 1
+    want_k = _jax_np(jtensor.pick, x, idx, axis=axis, keepdims=True)
+    got_k = ptensor.pick(torch.from_numpy(x), torch.from_numpy(idx),
+                         axis=axis, keepdims=True)
+    np.testing.assert_array_equal(got_k.numpy(), want_k)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32"])
+def test_cast_float_to_int_saturates_as_the_reference(dtype):
+    v = np.array([-3.7, -1.2, 2.5, 300.0, np.nan, np.inf, -np.inf, 255.9,
+                  -0.5, 1e10, -1e10, 2.0 ** 31], np.float32)
+    want = _jax_np(jtensor.cast, v, dtype=np.dtype(dtype))
+    got = ptensor.cast(torch.from_numpy(v), dtype)
+    assert str(got.dtype) == f"torch.{dtype}"
+    np.testing.assert_array_equal(got.numpy(), want)
+    if dtype == "uint8":
+        np.testing.assert_array_equal(got.numpy()[:4], [0, 0, 2, 255])
+
+
+def test_norm_keepdims_without_axis_is_shape_1_as_the_reference():
+    x = np.random.RandomState(3).randn(2, 3, 4).astype(np.float32)
+    want = _jax_np(jtensor.norm, x, keepdims=True)
+    got = ptensor.norm(torch.from_numpy(x), keepdims=True)
+    assert tuple(got.shape) == want.shape == (1,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    # over an axis, and without keepdims, the shapes still agree
+    for kw in (dict(), dict(axis=1, keepdims=True)):
+        want = _jax_np(jtensor.norm, x, **kw)
+        got = ptensor.norm(torch.from_numpy(x), **kw)
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+
+
+def test_pick_out_of_range_on_the_card_raises_no_device_assert():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x = torch.arange(12, dtype=torch.float32, device="cuda").view(3, 4)
+    idx = torch.tensor([-9.0, 2.0, 40.0], device="cuda")
+    got = ptensor.pick(x, idx)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[0]) and got[1] == 6 and torch.isnan(got[2])

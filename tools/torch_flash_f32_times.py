@@ -2,7 +2,9 @@
 """The fp32 flash backward (K5 dq, K6 dk/dv of
 ``incubator_mxnet_tpu_torch/csrc/flash_bwd_f32.cu``) against the SIMT
 kernels and SDPA, and against builds of the same source with other
-compile-time choices, on the same inputs in one process.
+compile-time choices, on the same inputs in one process; with
+``--phases`` also the cycles per phase of the fp32 forward (K4 of
+``csrc/flash_fwd_f32.cu``).
 
     python3 tools/torch_flash_f32_times.py [--variant NAME=FLAGS ...]
                                            [--cases head|all] [--phases]
@@ -27,8 +29,12 @@ case: ``setup`` (offsets, row statistics), ``wait_first`` (the first
 stage and the tiles loaded once), per tile ``fetch`` (the next stage's
 loads), ``scores`` (S and dP), ``softmax`` (p and dS into shared memory,
 and the barrier after), ``products`` (dQ, or dV and dK), ``wait`` (the
-next stage and the barrier after), and ``tail`` (the epilogue). Needs
-``nvcc`` and a card.
+next stage and the barrier after), and ``tail`` (the epilogue). The forward's copy
+(``flash_fwd_f32.cu``, launched by name on the same q, k, v with the
+lse) has the same phases: ``scores`` is S = Q.K^T, ``softmax`` the row
+max, the exponentials and P into shared memory (to the ``__syncwarp``),
+``products`` the rescale and O += P.V; its line also gives the forward's
+time beside the SIMT kernel's. Needs ``nvcc`` and a card.
 """
 
 from __future__ import annotations
@@ -151,19 +157,82 @@ def instrumented_source() -> str:
     return src[:i5] + bodies[0] + bodies[1] + src[i7:] + _READERS
 
 
-def build_phases(tmp: str):
-    """The instrumented library, its entry points typed like the
-    package's."""
-    cu, so = f"{tmp}/flash_bwd_f32_phases.cu", f"{tmp}/phases.so"
-    pathlib.Path(cu).write_text(instrumented_source())
+def instrumented_fwd_source() -> str:
+    """flash_fwd_f32.cu with the phase probes in its kernel (slot 0)."""
+    src = (_build.CSRC / "flash_fwd_f32.cu").read_text()
+    src = _sub(src, '#include "flash_tc.cuh"',
+               '#include "flash_tc.cuh"\n' + _PROBES)
+    tid = "  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"
+    src = _sub(src, tid, tid + "  TSTART\n")
+    first = "  if (ntiles > 0) {\n    fetch(0, std::true_type{});\n" \
+        "    wait(0);\n  }\n"
+    src = _sub(src, first, "  TMARK(0);\n" + first + "  TMARK(1);\n")
+    nxt = "      fetch(it + 1, std::false_type{});\n"
+    src = _sub(src, nxt, nxt + "    TMARK(2);\n")
+    soft = "    // the online softmax in registers;"
+    src = _sub(src, soft, "    TMARK(3);\n" + soft)
+    sync = "    __syncwarp();  // the warp's P rows complete\n"
+    src = _sub(src, sync, sync + "    TMARK(4);\n")
+    nxt_wait = "    // the next stage has landed, and every warp is done"
+    src = _sub(src, nxt_wait, "    TMARK(5);\n" + nxt_wait)
+    wait = "    if (it + 1 < ntiles) wait(it + 1);\n"
+    src = _sub(src, wait, wait + "    TMARK(6);\n    ++t_tiles;\n")
+    end = "          l > 0.f ? (mrow[i] + log2f(l)) * kLn2 : -INFINITY;\n  }\n"
+    src = _sub(src, end, end + "  TMARK(7);\n  if (tid == 0) TFLUSH(0);\n")
+    return src + _READERS
+
+
+def _compile(tmp: str, name: str, text: str):
+    cu, so = f"{tmp}/{name}.cu", f"{tmp}/{name}.so"
+    pathlib.Path(cu).write_text(text)
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
                     str(_build.CSRC), "-o", so, cu], check=True)
-    lib = ctypes.CDLL(so)
+    return ctypes.CDLL(so)
+
+
+def build_phases(tmp: str):
+    """The instrumented libraries (backward, forward), their entry points
+    typed like the package's."""
+    lib = _compile(tmp, "flash_bwd_f32_phases", instrumented_source())
     base = fa._bwd_kernels("f32")
     fns = (lib.mxtpu_flash_bwd_dq_f32, lib.mxtpu_flash_bwd_dkv_f32)
     for fn, ref in zip(fns, base):
         fn.argtypes, fn.restype = ref.argtypes, ref.restype
-    return lib, fns
+    flib = _compile(tmp, "flash_fwd_f32_phases", instrumented_fwd_source())
+    fwd, ref = flib.mxtpu_flash_fwd_f32, fa._fwd_kernel("f32")
+    fwd.argtypes, fwd.restype = ref.argtypes, ref.restype
+    return lib, fns, flib, fwd
+
+
+def _print_row(case, label, vals):
+    blocks = max(1, vals[8])
+    print(f"{case} fp32 {label} phases: {vals[8]} blocks, "
+          f"{vals[9] / blocks:.2f} tiles per block; mean cycles per "
+          "block " + ", ".join(f"{ph}={vals[i] / blocks:.0f}"
+                               for i, ph in enumerate(PHASES)), flush=True)
+
+
+def print_fwd_phases(flib, fwd, case, q, k, v, lens, kw):
+    """One launch of the instrumented forward, then the forward's f32 and
+    SIMT times on the same inputs."""
+    buf = (ctypes.c_ulonglong * 20)()
+    saved = fa._fwd_fns["f32"]
+    fa._fwd_fns["f32"] = fwd
+    try:
+        fa.flash_attention(q, k, v, lens, route="f32", return_lse=True, **kw)
+        torch.cuda.synchronize()
+        flib.phase_reset()
+        fa.flash_attention(q, k, v, lens, route="f32", return_lse=True, **kw)
+        torch.cuda.synchronize()
+        flib.phase_read(buf)
+        _print_row(case, "fwd", list(buf)[:10])
+    finally:
+        fa._fwd_fns["f32"] = saved
+    times = {r: cs.device_ms(lambda: fa.flash_attention(
+        q, k, v, lens, route=r, return_lse=True, **kw))
+        for r in ("f32", "simt")}
+    print(f"{case} fp32 fwd: f32 {times['f32']:.5f} ms; simt "
+          f"{times['simt']:.5f}", flush=True)
 
 
 def print_phases(lib, fns, case, call, kw):
@@ -181,13 +250,7 @@ def print_phases(lib, fns, case, call, kw):
             run(*call, route="f32", **kw)
             torch.cuda.synchronize()
             lib.phase_read(buf)
-            vals = list(buf)[10 * slot:10 * slot + 10]
-            blocks = max(1, vals[8])
-            print(f"{case} fp32 {label} phases: {vals[8]} blocks, "
-                  f"{vals[9] / blocks:.2f} tiles per block; mean cycles per "
-                  "block " + ", ".join(f"{ph}={vals[i] / blocks:.0f}"
-                                       for i, ph in enumerate(PHASES)),
-                  flush=True)
+            _print_row(case, label, list(buf)[10 * slot:10 * slot + 10])
     finally:
         fa._bwd_fns["f32"] = saved
 
@@ -242,7 +305,8 @@ def main(argv=None) -> int:
                     lambda: fa.flash_bwd_dkv(*call, route="f32", **kw)))
             fa._bwd_fns["f32"] = builds["base"]
             if phases is not None:
-                print_phases(*phases, case, call, kw)
+                print_phases(*phases[:2], case, call, kw)
+                print_fwd_phases(*phases[2:], case, q, k, v, lens, kw)
             simt = {kernel: cs.device_ms(
                 lambda: launch(*call, route="simt", **kw))
                 for kernel, launch in (("dq", fa.flash_bwd_dq),
