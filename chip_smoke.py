@@ -74,13 +74,14 @@ Phases (any failure raises, and the script exits non-zero):
    ``aten.convolution_backward`` for the input and the weight gradient).
    Each row names its route (``fused_conv.conv_route``): every bf16 row
    must take the tensor-core kernels (``csrc/fused_conv_tc.cu``,
-   ``csrc/conv_bwd_tc.cu``), every fp32 K2 row the register micro-tile
-   kernel (``csrc/conv_bwd_f32.cu``, its outputs bit-equal to a second
-   launch's), the other fp32 rows the SIMT kernels
-   (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``); a row not on the SIMT
-   route also times the SIMT kernel on the same inputs (``simt_ms``; fp32
-   K2 also holds it to the plain version, a SIMT row of its own). At the
-   head case the
+   ``csrc/conv_bwd_tc.cu``), every fp32 row (widths multiples of 4) the
+   register micro-tile kernels (``csrc/fused_conv_f32.cu``,
+   ``csrc/conv_bwd_f32.cu``, their outputs bit-equal to a second
+   launch's, and K1's to the SIMT K1's); a row not on the SIMT route also
+   times the SIMT kernel
+   (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``) on the same inputs
+   (``simt_ms``; in fp32 also held to the plain version, a SIMT row of its
+   own). At the head case the
    tensor-core K1's per-channel sums and sums of squares lie within
    ``K1_SUMS_RTOL`` (relative L2) of an fp64 evaluation on the same bf16
    inputs (``k1_sums_fp64``);
@@ -92,8 +93,8 @@ Phases (any failure raises, and the script exits non-zero):
    on K1's forward values, see ``resnet_oracle``); the bf16 forward gate
    at the net as drawn (cast to bf16 for it and restored after: one
    training-mode forward at B=8 through the tensor-core K1 and through the
-   SIMT K1, each against an fp32 forward on the same bf16-rounded weights
-   and input, the tensor-core one no farther,
+   SIMT K1, each against an fp32 forward (the f32 K1) on the same
+   bf16-rounded weights and input, the tensor-core one no farther,
    ``resnet_bf16_forward_gate``); a learning check (fp32
    ``SPMDTrainer``, SGD, one repeated batch); two eager ``gluon.Trainer``
    steps; eval logits at B=32, with the running statistics set to that
@@ -104,9 +105,10 @@ Phases (any failure raises, and the script exits non-zero):
    bench row
    (B=128, ``SPMDTrainer`` SGD lr 0.1 momentum 0.9), timed, with a
    ``torch.profiler`` breakdown of one step. K1 launches exactly 52 times
-   per forward, K2 and K3 52 times per backward: in every fp32 pass K2 on
-   the f32 route and K1 and K3 on the SIMT route, every bf16 one on the
-   tensor-core route;
+   per forward, K2 and K3 52 times per backward: in every fp32 pass (the
+   oracle, the forward gate's fp32 forward, the learning check, the eager
+   steps, eval) on the f32 route, every bf16 one on the tensor-core
+   route;
 8. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
    kernels (K7, ``csrc/rtc/*.cu``, compiled by NVRTC in the build step)
    run an ``mx.rtc`` program (``scale`` and ``saxpy`` over 163,037,184
@@ -137,9 +139,10 @@ Phases (any failure raises, and the script exits non-zero):
 The line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
-fp32 head case, ``flash_fwd_f32``/``conv_bwd_dx_f32``/
-``flash_bwd_dq_f32``/``flash_bwd_dkv_f32`` the fp32 micro-tile kernels
-there, ``flash_fwd_tc``/``fused_conv_tc``/
+fp32 head case, ``flash_fwd_f32``/``fused_conv_f32``/``conv_bwd_dx_f32``/
+``conv_bwd_dw_f32``/``flash_bwd_dq_f32``/``flash_bwd_dkv_f32`` the fp32
+micro-tile kernels there (a conv record also names its CUDA function,
+``kernel``), ``flash_fwd_tc``/``fused_conv_tc``/
 ``conv_bwd_dx_tc``/``conv_bwd_dw_tc``/``flash_bwd_dq_tc``/
 ``flash_bwd_dkv_tc`` the tensor-core kernels at the bf16 head case,
 ``flash_fwd_split`` the split kernels at the fp32 decode case); the last
@@ -176,11 +179,11 @@ TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GRAD_RTOL = 1e-3
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 # the routes of each conv kernel K1-K3: "tc" the bf16 tensor-core
-# kernels, "f32" K2's fp32 register micro-tiles, "simt" the others (K4 has
+# kernels, "f32" the fp32 register micro-tiles, "simt" the others (K4 has
 # four, ``FWD_ROUTES``; K5/K6 three, ``BWD_ROUTES``)
-CONV_ROUTES = {"fused_conv": ("tc", "simt"),
+CONV_ROUTES = {"fused_conv": ("tc", "f32", "simt"),
                "conv_bwd_dx": ("tc", "f32", "simt"),
-               "conv_bwd_dw": ("tc", "simt")}
+               "conv_bwd_dw": ("tc", "f32", "simt")}
 
 
 def card_line() -> str:
@@ -1220,8 +1223,9 @@ CONV_CASES = [
 CONV_HEAD = "3x3_64to64_56_pro"
 CONV_KERNELS = ("fused_conv", "conv_bwd_dx", "conv_bwd_dw")
 # the conv kernels' routes (ops/fused_conv.conv_route): "tc" the bf16
-# tensor-core kernels (csrc/fused_conv_tc.cu, csrc/conv_bwd_tc.cu), "simt"
-# csrc/fused_conv.cu and csrc/conv_bwd.cu
+# tensor-core kernels (csrc/fused_conv_tc.cu, csrc/conv_bwd_tc.cu), "f32"
+# the fp32 micro-tile kernels (csrc/fused_conv_f32.cu,
+# csrc/conv_bwd_f32.cu), "simt" csrc/fused_conv.cu and csrc/conv_bwd.cu
 ROUTED = ("fused_conv", "conv_bwd_dx", "conv_bwd_dw")
 # fp32 per-channel sums and dW: relative L2 error, kernels vs plain
 CONV_L2_TOL = 1e-4
@@ -1322,7 +1326,7 @@ def conv_routes_expected(dtype):
     """{kernel: route} of ResNet-50's convs in ``dtype``, as
     ``fused_conv.conv_route`` gives them for its widths (multiples of 8)
     and the model's operands (16-byte aligned): bf16 every kernel on the
-    tensor cores; fp32 K2 on f32, K1 and K3 on SIMT."""
+    tensor cores, fp32 every kernel on f32."""
     from incubator_mxnet_tpu_torch.ops import fused_conv as fc
 
     return {kernel: fc.conv_route(dtype, 64, 64, kernel)
@@ -1416,8 +1420,8 @@ def conv_kernel_phase(seed):
                     *fargs, emit=res, route="simt", **rkw),
                 "conv_bwd_dx": lambda: fc.conv_bwd_dx(
                     *bargs, g=t.get("g"), route="simt", **rkw),
-                "conv_bwd_dw": lambda: fc.conv_bwd_dw(*bargs, route="simt",
-                                                      **rkw),
+                "conv_bwd_dw": lambda: (fc.conv_bwd_dw(*bargs, route="simt",
+                                                       **rkw),),
             }
             for kernel in CONV_KERNELS:
                 launch, plain, names = calls[kernel]
@@ -1449,14 +1453,18 @@ def conv_kernel_phase(seed):
                                              f"{K1_SUMS_RTOL}")
                 simt_err = None
                 if route == "f32":
-                    again = launch()
+                    again, by_simt = launch(), simt[kernel]()
                     if not all(a is None and b is None or torch.equal(a, b)
                                for a, b in zip(got, again)):
                         raise AssertionError(f"{kernel} {name} f32: a "
                                              "second launch differs")
-                    simt_err = _conv_errs(names, simt[kernel](), want,
-                                          dtype)
-                    del again
+                    # the f32 K1 gives the SIMT K1's bits (y and the sums)
+                    if kernel == "fused_conv" and not all(
+                            torch.equal(a, b) for a, b in zip(got, by_simt)):
+                        raise AssertionError(f"fused_conv {name} f32: not "
+                                             "the SIMT kernel's bits")
+                    simt_err = _conv_errs(names, by_simt, want, dtype)
+                    del again, by_simt
                 ms = device_ms(launch)
                 plain_ms = device_ms(plain)
                 library_ms = device_ms(library[kernel])
@@ -1823,8 +1831,8 @@ def bf16_forward_distances(net, ce, x, y):
     running statistics move) from one state, three times: through the
     tensor-core K1 (the route the rule takes); through the SIMT K1
     (``route="simt"``) on the same inputs; and in fp32, the net cast up
-    (the same bf16-rounded weights, running statistics and input; the SIMT
-    K1 in fp32). Each bf16 forward's distance from the fp32 one: the loss
+    (the same bf16-rounded weights, running statistics and input; the f32
+    K1). Each bf16 forward's distance from the fp32 one: the loss
     (relative), the logits (relative L2) and the running statistics after
     the forward (the worst max abs error over max(1, max|fp32|)). The state
     is restored after each run. Returns ``{"tc": {...}, "simt": {...}}``
@@ -1853,7 +1861,8 @@ def bf16_forward_distances(net, ce, x, y):
                 net.cast("bfloat16")
         _check_launches(f"bf16 forward gate ({label})", _conv_launches(),
                         per_pass, 1, 0, _route_launches(),
-                        "simt" if fp32 or route == "simt" else "tc")
+                        conv_routes_expected(torch.float32) if fp32
+                        else "simt" if route == "simt" else "tc")
         return loss, logits, stats
 
     ref_loss, ref_logits, ref_stats = run("fp32", fp32=True)
@@ -1902,8 +1911,9 @@ def resnet_bf16_forward_gate(net, ce, x, y):
 
 
 CONV_TAGS = ("fused_conv_fwd_kernel", "fused_conv_tc_kernel",
-             "conv_bwd_dx_kernel", "conv_bwd_dw_kernel",
-             "conv_bwd_dx_f32_kernel",
+             "fused_conv_f32_kernel", "conv_bwd_dx_kernel",
+             "conv_bwd_dw_kernel", "conv_bwd_dx_f32_kernel",
+             "conv_bwd_dw_f32_kernel",
              "conv_bwd_dx_tc_kernel", "conv_bwd_dw_tc_kernel",
              "column_sum_kernel", "column_sums_kernel", "split_sum_kernel",
              "split_finish_kernel", "join_emit_kernel")
@@ -2027,7 +2037,7 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
         raise AssertionError("eval logits disagree with the plain path or "
                              "with the training-mode forward")
     _check_launches("eval", eval_launches, per_pass, 2, 0, eval_routes,
-                    "simt")
+                    conv_routes_expected(torch.float32))
     _check_launches("fp32 training path (SPMDTrainer, gluon.Trainer)",
                     first, per_pass, passes, passes, first_routes,
                     conv_routes_expected(torch.float32))
@@ -2687,20 +2697,25 @@ TC_KERNELS = ("fused_conv_tc_kernel", "conv_bwd_dx_tc_kernel",
               "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
 TC_SOURCES = ("fused_conv_tc", "conv_bwd_tc", "flash_fwd_tc",
               "flash_bwd_tc")
-# the fp32 kernels on the FP32 pipes (no HGMMA, tiles by TMA): the flash
-# backward and forward, the conv input gradient; their sources
-F32_KERNELS = ("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel",
-               "flash_fwd_f32_kernel", "conv_bwd_dx_f32_kernel")
-F32_SOURCES = ("flash_bwd_f32", "flash_fwd_f32", "conv_bwd_f32")
+# the fp32 kernels on the FP32 pipes (no HGMMA, tiles by TMA), with their
+# instantiations: the flash backward and forward (D 64 and 128), the conv
+# forward, input gradient and weight gradient (one tap or a row of 3 taps
+# a block); their sources
+F32_KERNELS = {"flash_bwd_dq_f32_kernel": 2, "flash_bwd_dkv_f32_kernel": 2,
+               "flash_fwd_f32_kernel": 2, "fused_conv_f32_kernel": 1,
+               "conv_bwd_dx_f32_kernel": 1, "conv_bwd_dw_f32_kernel": 2}
+F32_SOURCES = ("flash_bwd_f32", "flash_fwd_f32", "fused_conv_f32",
+               "conv_bwd_f32")
 
 
 def kernel_sass():
     """``tools/torch_ptxas_report.py fused_conv_tc conv_bwd_tc flash_fwd_tc
-    flash_bwd_tc flash_bwd_f32 flash_fwd_f32 conv_bwd_f32``, printed:
+    flash_bwd_tc flash_bwd_f32 flash_fwd_f32 fused_conv_f32 conv_bwd_f32``,
+    printed:
     registers, spills, and the HGMMA (wgmma) and UTMALDG (TMA)
     instructions in each kernel's SASS; raises unless every tensor-core
     instantiation has both, every instantiation of the fp32 kernels
-    (``F32_KERNELS``: the flash ones at D 64 and 128) has UTMALDG and no
+    (``F32_KERNELS``, as many instantiations as it names) has UTMALDG and no
     HGMMA, and none spills."""
     t0 = time.perf_counter()
     out = subprocess.run(
@@ -2718,13 +2733,13 @@ def kernel_sass():
                              "UTMALDG in its SASS")
     f32 = [ln for ln in out.splitlines()
            if any(k in ln for k in F32_KERNELS) and "Used" in ln]
-    if len(f32) != 2 * len(F32_KERNELS) - 1 \
+    if len(f32) != sum(F32_KERNELS.values()) \
             or {k for k in F32_KERNELS if any(k in ln for ln in f32)} \
             != set(F32_KERNELS) \
             or any(" HGMMA 0," not in ln or "UTMALDG 0" in ln for ln in f32):
         raise AssertionError(f"the fp32 kernels' SASS: {f32}")
     spills = [ln for ln in out.splitlines()
-              if any(k in ln for k in TC_KERNELS + F32_KERNELS)
+              if any(k in ln for k in TC_KERNELS + tuple(F32_KERNELS))
               and "spill" in ln
               and not re.search(r"\b0 bytes spill stores, 0 bytes spill "
                                 r"loads", ln)]
@@ -2836,24 +2851,32 @@ def main(argv=None) -> int:
             record["kernels"].append(entry)
     conv_ref = "incubator_mxnet_tpu/ops/pallas_conv.py:"
     # K1, K2 and K3 by route: fp32 (the oracle, the fp32 training steps,
-    # eval) K2 on the f32 kernel, K1 and K3 on SIMT; bf16 (the gates, the
-    # bf16 learning check and the bench row) on the tensor cores; the SIMT
-    # K2, which no main path launches any more, timed on the same inputs
-    # through route="simt"
-    for name, line, sources in (
-            ("fused_conv", "222", ("fused_conv.cu", "fused_conv_tc.cu")),
-            ("conv_bwd_dx", "553", ("conv_bwd.cu", "conv_bwd_tc.cu",
-                                    "conv_bwd_f32.cu")),
-            ("conv_bwd_dw", "780", ("conv_bwd.cu", "conv_bwd_tc.cu"))):
-        routes = [("simt", sources[0], "fp32"), ("tc", sources[1], "bf16")]
-        if len(sources) == 3:
-            routes.append(("f32", sources[2], "fp32"))
-        for route, source, dtype in routes:
+    # eval) on the f32 kernels; bf16 (the gates, the bf16 learning check
+    # and the bench row) on the tensor cores; the SIMT kernels, which no
+    # main path launches any more, timed on the same inputs through
+    # route="simt"
+    for name, line, cuda_fns, sources in (
+            ("fused_conv", "222", ("fused_conv_fwd_kernel",
+                                   "fused_conv_tc_kernel",
+                                   "fused_conv_f32_kernel"),
+             ("fused_conv.cu", "fused_conv_tc.cu", "fused_conv_f32.cu")),
+            ("conv_bwd_dx", "553", ("conv_bwd_dx_kernel",
+                                    "conv_bwd_dx_tc_kernel",
+                                    "conv_bwd_dx_f32_kernel"),
+             ("conv_bwd.cu", "conv_bwd_tc.cu", "conv_bwd_f32.cu")),
+            ("conv_bwd_dw", "780", ("conv_bwd_dw_kernel",
+                                    "conv_bwd_dw_tc_kernel",
+                                    "conv_bwd_dw_f32_kernel"),
+             ("conv_bwd.cu", "conv_bwd_tc.cu", "conv_bwd_f32.cu"))):
+        for route, fn, source, dtype in zip(("simt", "tc", "f32"), cuda_fns,
+                                            sources, ("fp32", "bf16",
+                                                      "fp32")):
             entry = _entry(name if route == "simt" else f"{name}_{route}",
                            src + source, conv_ref + line,
                            resnet["routes"][name, route],
                            [r for r in conv if r["kernel"] == name
                             and r["route"] == route], CONV_HEAD, dtype)
+            entry["kernel"] = fn
             if route != "simt":
                 entry["simt_ms"] = next(
                     r["simt_ms"] for r in entry["cases"]

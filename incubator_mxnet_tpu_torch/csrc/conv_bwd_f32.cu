@@ -1,6 +1,6 @@
-// Fused conv + BatchNorm input gradient in fp32 on Hopper's FP32 pipes
-// (sm_90a): K2 as register micro-tiles fed by TMA. Plain C interface for
-// ctypes.
+// Fused conv + BatchNorm input and weight gradients in fp32 on Hopper's
+// FP32 pipes (sm_90a): K2 and K3 as register micro-tiles fed by TMA. Plain
+// C interface for ctypes. K2 first; K3 (below, "K3: dW") after it.
 //
 // It computes what conv_bwd_dx_kernel of csrc/conv_bwd.cu computes (see
 // its header: the TPU kernel `_conv_bwd_dx_kernel` of the JAX package's
@@ -62,9 +62,37 @@
 // about half of a block's cycles and the fold, the waits and the barrier
 // about a third (tools/torch_conv_f32_phases.py; PERF.md); two blocks an
 // SM (128 registers a thread) overlap one's products with the other's.
+//
+// K3 computes what conv_bwd_dw_kernel of csrc/conv_bwd.cu computes (the
+// TPU kernel `_conv_bwd_dw_kernel`), for the same widths and operands:
+//   dW[ky,kx] = sum over output pixels of x_pro(tap ky,kx)^T . dy_t
+// with x_pro = relu(a*x + b [+ ar*r + br]) and dy_t folded as in K2, in
+// fp32; the fp32 planes of the pixel ranges are added in order by
+// conv_common.cuh's split_sum_kernel (one range writes dW itself): no
+// atomics, a run repeats bit for bit. Per tap, C[ci, co] = sum_p x_pro[p,
+// ci] . dy_t[p, co] has its depth (the pixels) on both operands' rows, so
+// a thread's 4 x 4 micro-tile (4 input channels of one 16-byte chunk of
+// x's row, 4 output channels of one chunk of dy's) reads, per pixel, one
+// float4 of each: 8 loads of one wavefront for 64 FMAs, as in K2, with the
+// lanes laid out so a warp's x chunks are the 8 of one row of a box and
+// its dy chunks 4 of another. A block of 256 threads owns one tap (or, at
+// a 3x3 stride-1 conv without a residual, the row of 3 taps: one x row
+// and 3 dy rows a pixel, 4 loads for 48 FMAs, the x box rewritten once for
+// the three), 64 input and 64 output channels, and walks its range of
+// output-pixel boxes (ops/fused_conv.py's `dw_tc_box`, ranges by
+// `dw_splits(..., "f32", taps)`): per box TMA brings dy, and x shifted by
+// the tap (every second pixel at stride 2: the map's elementStrides), two
+// 32-channel boxes each, into a ring of two stages, and y and r, which
+// only the rewrite reads, into one buffer each, refilled with the next
+// stage after the step's barrier.
+// Once a stage lands each thread rewrites x_pro and dy_t in place, chunk by
+// chunk, writing 0 for rows past the box, pixels outside the output, taps
+// outside x and channels past Ci or Co (TMA's zero fill folds to ds and
+// has a prologue of relu(b)); a plain conv only zeroes the rows past the
+// box. The block's per-channel operands stay in shared memory. What bounds
+// it: the same FLOPs as K2 against a few bytes per 100: the FP32 rate.
 
-#include "conv_common.cuh"
-#include "f32_tile.cuh"
+#include "conv_f32.cuh"
 
 namespace {
 
@@ -89,12 +117,6 @@ constexpr int dx_f32_smem_bytes() {
   return kAlign + kStagesF * kStageBytes + 3 * 8 * kCols * 4;
 }
 
-// A box of pixels of a stride phase: bw x bh x bn of (width, height,
-// image), tw x th x tn boxes over the phase, `rows` = bw*bh*bn <= 64.
-struct Box {
-  int bw, bh, bn, tw, th, tn, rows;
-};
-
 // The steps of a block in order: each tap of its phase (column tx, row
 // ty), and within a tap each 32-channel chunk c of Co.
 struct Walk {
@@ -109,15 +131,6 @@ struct Walk {
     }
   }
 };
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ void st4(float* p, float a, float b, float c,
-                                    float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
 
 // One block: pixel box blockIdx.x of stride phase blockIdx.z, input
 // channels blockIdx.y * 64 (+64).
@@ -152,10 +165,8 @@ conv_bwd_dx_f32_kernel(const __grid_constant__ CUtensorMap map_dy,
   const int nkx = kx0 < sh.KW ? (sh.KW - 1 - kx0) / s + 1 : 0;
   const int chunks = (sh.Co + kNB * kDepthF - 1) / (kNB * kDepthF);
   const int nsteps = nky * nkx * chunks;
-  const int wb = blockIdx.x % box.tw;
-  const int hb = (blockIdx.x / box.tw) % box.th;
-  const int nb = blockIdx.x / (box.tw * box.th);
-  const int i0 = hb * box.bh, j0 = wb * box.bw, n0 = nb * box.bn;
+  int j0, i0, n0;
+  box_origin(box, blockIdx.x, j0, i0, n0);
   const int ci0 = blockIdx.y * kCols;
   const int hq = ry < sh.H ? (sh.H - ry + s - 1) / s : 0;
   const int wq = rx < sh.W ? (sh.W - rx + s - 1) / s : 0;
@@ -400,19 +411,271 @@ conv_bwd_dx_f32_kernel(const __grid_constant__ CUtensorMap map_dy,
 }
 
 // ---------------------------------------------------------------------------
-// host: tensor maps and the launch
+// K3: dW
 // ---------------------------------------------------------------------------
-// A packed fp32 tensor of `rank` dims (innermost first, dims[0]
-// contiguous) in boxes of `box`, under the 128-byte swizzle.
-int encode_packed_f32(CUtensorMap* map, const void* base, int rank,
-                      const uint64_t* dims, const uint32_t* box) {
-  uint64_t strides[4], bytes = 4;
-  for (int i = 0; i + 1 < rank; ++i) strides[i] = bytes *= dims[i];
-  const uint32_t es[4] = {1, 1, 1, 1};
-  return encode(map, base, rank, dims, strides, box, es,
-                CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+// A block takes T taps of one kernel row: T = 1 in general; T = KW (3) at
+// stride 1 without a residual, where its boxes are whole output rows
+// widened by the KW - 1 columns the row's taps reach past them (no output
+// pixels there: ops/fused_conv.py's `dw_tc_box`), so that one box of x,
+// rewritten once, serves the three taps: tap kx pairs x's row p with dy's
+// row p - kx. A widened column of dy is past Wo, so the fold writes it as
+// 0, and the rows before a box's first (p - kx < 0) lie in 8 rows of
+// zeros kept before each dy box.
+template <int T>
+__host__ __device__ constexpr int dw_dy_box() {  // a dy box and its zeros
+  return T == 1 ? kBoxF : kBoxF + 1024;
 }
 
+// A stage holds one box of pixels: x (shifted by the block's first tap)
+// and dy, two 32-channel boxes each; y and r, which only the rewrite
+// reads, have one buffer each (refilled after the rewrite's barrier, with
+// the stage).
+template <int T>
+__host__ __device__ constexpr int dw_stage() {
+  return 2 * kBoxF + 2 * dw_dy_box<T>();
+}
+constexpr int kDwOne = 2 * kBoxF;  // y, or r
+
+template <int T>
+constexpr int dw_f32_smem_bytes(bool res) {
+  return kAlign + kStagesF * dw_stage<T>() + (res ? 2 : 1) * kDwOne;
+}
+
+// One block: taps ky, kx0 .. kx0 + T - 1 (group blockIdx.x / ceil(Ci/64))
+// and their 64 input channels, output channels blockIdx.y * 64 (+64), over
+// the output-pixel boxes [blockIdx.z * per_split, + per_split) in order.
+// Writes its T tiles of 64 x 64 fp32 of dW to `out` (a split's plane, or
+// dw itself with one split).
+template <int T>
+__global__ void __launch_bounds__(kBlockThreads, 2)
+conv_bwd_dw_f32_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_r,
+                       const __grid_constant__ CUtensorMap map_dy,
+                       const __grid_constant__ CUtensorMap map_y,
+                       const float* __restrict__ a,
+                       const float* __restrict__ b,
+                       const float* __restrict__ ds,
+                       const float* __restrict__ dss, int has_res,
+                       const float* __restrict__ ar,
+                       const float* __restrict__ br, float* __restrict__ out,
+                       Shape sh, Box box, int relu, int per_split) {
+  constexpr int S = kStagesF, SB = dw_stage<T>(), DB = dw_dy_box<T>();
+  constexpr int DY0 = DB - kBoxF;  // the zero rows before a dy box
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[S];  // the stages' TMA barriers
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint8_t* ys = smem + S * SB;  // y of the step being rewritten
+  uint8_t* rs = ys + kDwOne;    // r of the same step
+  // the block's per-channel operands: a, b, ar, br of its input channels,
+  // ds, dss of its output channels (the prologue's identity and 0 where an
+  // operand is absent or past the width)
+  __shared__ float4 par[6][kCols / 4];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int s = sh.stride;
+  const int cib = (sh.Ci + kCols - 1) / kCols;
+  const int group = blockIdx.x / cib;
+  const int ci0 = (blockIdx.x - group * cib) * kCols;
+  const int ky = T == 1 ? group / sh.KW : group;
+  const int kx0 = T == 1 ? group - ky * sh.KW : 0;
+  const int co0 = blockIdx.y * kCols;
+  const int c_begin = blockIdx.z * per_split;
+  const int total = box.tw * box.th * box.tn;
+  const int nsteps = max(0, min(c_begin + per_split, total) - c_begin);
+  const bool pro = a != nullptr || has_res;
+
+  // thread 0 starts box c_begin + t's loads: x and dy into stage t % S, y
+  // and r into their buffers
+  auto fetch = [&](int t) {
+    int wo0, ho0, n0;
+    box_origin(box, c_begin + t, wo0, ho0, n0);
+    const int wi0 = wo0 * s - sh.pad + kx0, hi0 = ho0 * s - sh.pad + ky;
+    uint8_t* st = smem + (t % S) * SB;
+    uint64_t* bar = &bars[t % S];
+    fence_proxy_async();  // the stage's last reads and writes come first
+    mbar_expect_tx(bar, (6 + 2 * has_res) * box.rows * 128);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tma_load_4d(st + h * kBoxF, &map_x, bar, ci0 + h * kDepthF, wi0, hi0,
+                  n0);
+      tma_load_4d(st + 2 * kBoxF + h * DB + DY0, &map_dy, bar,
+                  co0 + h * kDepthF, wo0, ho0, n0);
+      tma_load_4d(ys + h * kBoxF, &map_y, bar, co0 + h * kDepthF, wo0, ho0,
+                  n0);
+      if (has_res)
+        tma_load_4d(rs + h * kBoxF, &map_r, bar, ci0 + h * kDepthF, wi0, hi0,
+                    n0);
+    }
+  };
+
+  if (tid < kCols / 4) {
+    const int ci = ci0 + 4 * tid, co = co0 + 4 * tid;
+    const Pro4 p = load_pro4(a, b, ar, br, ci, ci < sh.Ci);
+    par[0][tid] = p.a;
+    par[1][tid] = p.b;
+    par[2][tid] = p.ar;
+    par[3][tid] = p.br;
+    const bool cok = co < sh.Co;
+    par[4][tid] = cok ? ldg4(ds + co) : make_float4(0.f, 0.f, 0.f, 0.f);
+    par[5][tid] = cok ? ldg4(dss + co) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if constexpr (T > 1)  // the zero rows before each dy box of each stage
+    for (int q = tid; q < S * 2 * DY0 / 16; q += kBlockThreads) {
+      const int box_i = q / (DY0 / 16), off = q % (DY0 / 16);
+      *reinterpret_cast<float4*>(smem + (box_i / 2) * SB + 2 * kBoxF +
+                                 (box_i % 2) * DB + off * 16) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  init_bars<S>(bars);  // its barrier also makes `par` and the zeros whole
+  if (tid == 0 && nsteps > 0) fetch(0);
+
+  // the rewrite: thread tid takes chunk position fp = tid % 8 of rows fr
+  // and fr + 32 (fr = tid / 8: one r % 8, so one logical chunk, channels
+  // 4 * fchunk of each box) of the x and the dy tiles
+  const int fr = tid >> 3, fp = tid & 7;
+  const int fchunk = fp ^ (fr & 7);
+  int fj[2], fi[2], fn[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int row = fr + 32 * k;
+    fj[k] = row % box.bw;
+    fi[k] = (row / box.bw) % box.bh;
+    fn[k] = row / (box.bw * box.bh);
+  }
+
+  // the product: input channels 32 * (warp % 2) + 4 * (lane % 8) + i and
+  // output channels 4 * cy + j, cy = 4 * (warp / 2) + lane / 8; per pixel
+  // row p one float4 of x and, per tap, one of dy's row p - kx: x's lands
+  // in the 8 chunks of one row of a box and dy's in 4 (each one
+  // wavefront). oxk[k], oyk[k]: the offsets of those chunks in row k of a
+  // stage (row p: + (p / 8) * 1024, p % 8 = k).
+  const int xb = warp & 1, lx = lane & 7;
+  const int cy = 4 * (warp >> 1) + (lane >> 3);
+  uint32_t oxk[8], oyk[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    oxk[k] = xb * kBoxF + k * 128 + ((lx ^ k) << 4);
+    oyk[k] = 2 * kBoxF + (cy >> 3) * DB + DY0 + k * 128 +
+             (((cy & 7) ^ k) << 4);
+  }
+  const int nq = (box.rows + 7) >> 3;  // 8-row groups holding pixels
+  float acc[T][4][4];
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[t][i][j] = 0.f;
+
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int step = 0; step < nsteps; ++step) {
+    uint8_t* st = smem + (step % S) * SB;
+    int wo0, ho0, n0;
+    box_origin(box, c_begin + step, wo0, ho0, n0);
+    mbar_wait(&bars[step % S], (step / S) & 1);
+    // dW's rewrite: x_pro in place of x, dy_t in place of dy; 0 for rows
+    // past the box, pixels outside the output, taps outside x (the
+    // padding) and channels past Ci or Co
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int row = fr + 32 * k;
+      const uint32_t off = row * 128 + fp * 16;
+      const int n = n0 + fn[k], ho = ho0 + fi[k], wo = wo0 + fj[k];
+      const bool in = row < box.rows && n < sh.N;
+      const bool pix = in && ho < sh.Ho && wo < sh.Wo;
+      const int hi = ho * s - sh.pad + ky, wi = wo * s - sh.pad + kx0;
+      const bool xin = in && hi >= 0 && hi < sh.H && wi >= 0 && wi < sh.W;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int co = co0 + h * kDepthF + 4 * fchunk;
+        uint8_t* dt = st + 2 * kBoxF + h * DB + DY0;
+        const int pc = h * (kDepthF / 4) + fchunk;  // chunk in `par`
+        float4 d = zero;
+        if (pix && co < sh.Co) {
+          const float4 dv = ld4(dt, off), yv = ld4(ys + h * kBoxF, off);
+          const float4 sv = par[4][pc], qv = par[5][pc];
+          d = make_float4(fold_cotangent(dv.x, yv.x, sv.x, qv.x),
+                          fold_cotangent(dv.y, yv.y, sv.y, qv.y),
+                          fold_cotangent(dv.z, yv.z, sv.z, qv.z),
+                          fold_cotangent(dv.w, yv.w, sv.w, qv.w));
+        }
+        *reinterpret_cast<float4*>(dt + off) = d;
+        // x: with no prologue TMA's zero fill is the padding already;
+        // only the rows past the box hold stale values
+        const int ci = ci0 + h * kDepthF + 4 * fchunk;
+        uint8_t* xt = st + h * kBoxF;
+        if (pro) {
+          float4 v = zero;
+          if (xin && ci < sh.Ci)
+            v = prologue4(ld4(xt, off),
+                          has_res ? ld4(rs + h * kBoxF, off) : zero,
+                          Pro4{par[0][pc], par[1][pc], par[2][pc],
+                               par[3][pc]},
+                          has_res, relu);
+          *reinterpret_cast<float4*>(xt + off) = v;
+        } else if (row >= box.rows) {
+          *reinterpret_cast<float4*>(xt + off) = zero;
+        }
+      }
+    }
+    // the rewritten tiles whole, and every thread done with the stage and
+    // the y and r buffers that the next loads refill
+    __syncthreads();
+    if (tid == 0 && step + 1 < nsteps) fetch(step + 1);
+
+    // 8 pixel rows of the product, rows 8q .. 8q + 7
+    auto rows8 = [&](int q) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float4 xv = ld4(st, q * 1024 + oxk[k]);
+        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          // dy's row p - t: row k - t of this 8-row group, or of the one
+          // before (the zero rows before the box for the first group)
+          const float4 dv = k >= t ? ld4(st, q * 1024 + oyk[k - t])
+                                   : ld4(st, (q - 1) * 1024 + oyk[k - t + 8]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[t][i][0] = fmaf(xs[i], dv.x, acc[t][i][0]);
+            acc[t][i][1] = fmaf(xs[i], dv.y, acc[t][i][1]);
+            acc[t][i][2] = fmaf(xs[i], dv.z, acc[t][i][2]);
+            acc[t][i][3] = fmaf(xs[i], dv.w, acc[t][i][3]);
+          }
+        }
+      }
+    };
+    if constexpr (T == 1) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (q >= nq) break;  // uniform over the block
+        rows8(q);
+      }
+    } else {  // unrolled over 64 rows, 3 taps outgrow the instruction cache
+      for (int q = 0; q < nq; ++q) rows8(q);
+    }
+  }
+
+  // the block's tiles of dW[ky, kx0 + t], rows ci, 4 channels of Co each
+  const long long plane = (long long)sh.KH * sh.KW * sh.Ci * sh.Co;
+  const int co = co0 + 4 * cy;
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    float* o = out + blockIdx.z * plane +
+               (long long)(ky * sh.KW + kx0 + t) * sh.Ci * sh.Co + co;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ci = ci0 + 32 * xb + 4 * lx + i;
+      if (ci < sh.Ci && co < sh.Co)
+        st4(o + (long long)ci * sh.Co, acc[t][i][0], acc[t][i][1],
+            acc[t][i][2], acc[t][i][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps and the launches
+// ---------------------------------------------------------------------------
 int launch_dx(const float* dy, const float* y, const float* x,
               const float* w, const float* a, const float* b,
               const float* ds, const float* dss, const float* r,
@@ -421,22 +684,18 @@ int launch_dx(const float* dy, const float* y, const float* x,
               const Shape& sh, int relu, int bw, int bh, int bn,
               cudaStream_t stream) {
   const int s = sh.stride;
-  const int ew = (sh.W + s - 1) / s, eh = (sh.H + s - 1) / s;
-  if (bw < 1 || bh < 1 || bn < 1 || bw * bh * bn > kTileRows)
+  Box box;
+  if (!make_box(bw, bh, bn, (sh.W + s - 1) / s, (sh.H + s - 1) / s, sh.N,
+                &box))
     return (int)cudaErrorInvalidValue;
-  const Box box{bw, bh, bn, (ew + bw - 1) / bw, (eh + bh - 1) / bh,
-                (sh.N + bn - 1) / bn, bw * bh * bn};
   CUtensorMap map_dy, map_y, map_w;
-  const uint64_t adims[4] = {(uint64_t)sh.Co, (uint64_t)sh.Wo,
-                             (uint64_t)sh.Ho, (uint64_t)sh.N};
-  const uint32_t abox[4] = {(uint32_t)kDepthF, (uint32_t)bw, (uint32_t)bh,
-                            (uint32_t)bn};
   const uint64_t wdims[2] = {(uint64_t)sh.Co,
                              (uint64_t)sh.KH * sh.KW * sh.Ci};
   const uint32_t wbox[2] = {(uint32_t)kDepthF, (uint32_t)kTileRows};
   int err;
-  if ((err = encode_packed_f32(&map_dy, dy, 4, adims, abox)) ||
-      (err = encode_packed_f32(&map_y, y, 4, adims, abox)) ||
+  if ((err = encode_act_f32(&map_dy, dy, sh.N, sh.Ho, sh.Wo, sh.Co, box,
+                            1)) ||
+      (err = encode_act_f32(&map_y, y, sh.N, sh.Ho, sh.Wo, sh.Co, box, 1)) ||
       (err = encode_packed_f32(&map_w, w, 2, wdims, wbox)))
     return err;
   constexpr int smem = dx_f32_smem_bytes();
@@ -456,8 +715,57 @@ int launch_dx(const float* dy, const float* y, const float* x,
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+template <int T>
+int launch_dw_taps(const CUtensorMap (&maps)[4], const float* a,
+                   const float* b, const float* ds, const float* dss,
+                   const float* r, const float* ar, const float* br,
+                   float* out, int splits, const Shape& sh, const Box& box,
+                   int relu, cudaStream_t stream) {
+  static bool opted = false;
+  const int err = allow_smem((const void*)conv_bwd_dw_f32_kernel<T>,
+                             dw_f32_smem_bytes<T>(true), &opted);
+  if (err) return err;
+  const int total = box.tw * box.th * box.tn;
+  const int per_split = (total + splits - 1) / splits;
+  const dim3 grid(sh.KH * (sh.KW / T) * ((sh.Ci + kCols - 1) / kCols),
+                  (sh.Co + kCols - 1) / kCols, splits);
+  conv_bwd_dw_f32_kernel<T><<<grid, kBlockThreads,
+                              dw_f32_smem_bytes<T>(r != nullptr), stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a, b, ds, dss, r != nullptr ? 1 : 0,
+      ar, br, out, sh, box, relu, per_split);
+  return (int)cudaGetLastError();
+}
+
+int launch_dw(const float* x, const float* dy, const float* y,
+              const float* a, const float* b, const float* ds,
+              const float* dss, const float* r, const float* ar,
+              const float* br, float* dw, float* part, int splits,
+              const Shape& sh, int relu, int bw, int bh, int bn, int taps,
+              cudaStream_t stream) {
+  Box box;
+  if (splits < 1 || !make_box(bw, bh, bn, sh.Wo, sh.Ho, sh.N, &box))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];  // x, r, dy, y
+  int err;
+  if ((err = encode_act_f32(&maps[0], x, sh.N, sh.H, sh.W, sh.Ci, box,
+                            sh.stride)) ||
+      (err = encode_act_f32(&maps[1], r != nullptr ? r : x, sh.N, sh.H, sh.W,
+                            sh.Ci, box, sh.stride)) ||
+      (err = encode_act_f32(&maps[2], dy, sh.N, sh.Ho, sh.Wo, sh.Co, box,
+                            1)) ||
+      (err = encode_act_f32(&maps[3], y, sh.N, sh.Ho, sh.Wo, sh.Co, box, 1)))
+    return err;
+  float* out = splits == 1 ? dw : part;
+  err = taps == 1 ? launch_dw_taps<1>(maps, a, b, ds, dss, r, ar, br, out,
+                                      splits, sh, box, relu, stream)
+                  : launch_dw_taps<3>(maps, a, b, ds, dss, r, ar, br, out,
+                                      splits, sh, box, relu, stream);
+  if (err != 0 || splits == 1) return err;
+  const long long cols = (long long)sh.KH * sh.KW * sh.Ci * sh.Co;
+  const long long blocks = (cols + 255) / 256;
+  split_sum_kernel<float><<<(int)(blocks < 65535 ? blocks : 65535), 256, 0,
+                            stream>>>(part, splits, cols, dw);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -491,4 +799,39 @@ extern "C" int mxtpu_conv_bwd_dx_f32(
                    static_cast<const float*>(g), static_cast<float*>(dx), da,
                    db, static_cast<float*>(dr), dar, part, sh, relu, bw, bh,
                    bn, static_cast<cudaStream_t>(stream));
+}
+
+// The fp32 weight gradient on the FP32 pipes: mxtpu_conv_bwd_dw's contract
+// (conv_bwd.cu) for fp32 with Ci % 4 == 0, Co % 4 == 0 and every operand
+// 16-byte aligned. The output pixels are cut into boxes of bw x bh x bn
+// (<= 64) and the boxes into `splits` ranges of whole boxes. taps: 1, or
+// KW (3) for a stride-1 conv without a residual, whose boxes are then bw =
+// Wo + KW - 1 wide (one whole row of the output and the KW - 1 columns the
+// row's taps reach past it). part: scratch of splits * KH*KW*Ci*Co floats
+// (unused with one split). Returns the cudaError_t of the launch (0 on
+// success), cudaErrorInvalidValue for widths, boxes or operands it does
+// not take, or kMapError + a CUresult when the tensor-map encoder refuses
+// one.
+extern "C" int mxtpu_conv_bwd_dw_f32(
+    const void* x, const void* dy, const void* y, const float* a,
+    const float* b, const float* ds, const float* dss, const void* r,
+    const float* ar, const float* br, void* dw, float* part, int splits,
+    int N, int H, int W, int Ci, int Co, int KH, int KW, int stride, int pad,
+    int Ho, int Wo, int relu, int bw, int bh, int bn, int taps,
+    void* stream) {
+  const Shape sh{N, H, W, Ci, Co, KH, KW, Ho, Wo, stride, pad};
+  if (Ci % 4 != 0 || Co % 4 != 0 || (stride != 1 && stride != 2))
+    return (int)cudaErrorInvalidValue;
+  if (taps != 1 && (taps != 3 || KW != 3 || stride != 1 || r != nullptr ||
+                    bw != Wo + KW - 1 || bn != 1))
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {x, dy, y, a, b, ds, dss, r, ar, br, dw, part};
+  for (const void* p : ptrs)
+    if (p != nullptr && !aligned16(p)) return (int)cudaErrorInvalidValue;
+  return launch_dw(static_cast<const float*>(x),
+                   static_cast<const float*>(dy),
+                   static_cast<const float*>(y), a, b, ds, dss,
+                   static_cast<const float*>(r), ar, br,
+                   static_cast<float*>(dw), part, splits, sh, relu, bw, bh,
+                   bn, taps, static_cast<cudaStream_t>(stream));
 }

@@ -1,11 +1,13 @@
 // The fp32 register micro-tiles of the kernels on Hopper's FP32 pipes: the
 // flash-attention backward of flash_bwd_f32.cu (K5, K6), the forward of
-// flash_fwd_f32.cu (K4) and the conv input gradient of conv_bwd_f32.cu
-// (K2). What they share: the layout of a 64-row fp32 tile under TMA's
-// 128-byte swizzle, the per-thread offset tables that make every shared
-// load an immediate, the 16-byte loads and the 4-deep dot product, and the
+// flash_fwd_f32.cu (K4), the conv input and weight gradients of
+// conv_bwd_f32.cu (K2, K3) and the conv forward of fused_conv_f32.cu (K1).
+// What they share: the layout of a 64-row fp32 tile under TMA's 128-byte
+// swizzle, the per-thread offset tables that make every shared load an
+// immediate, the 16-byte loads and the 4-deep dot product, and the
 // mbarrier ring's set-up; and for the flash kernels, the TMA tiles of a
-// strided (B, H, T, D) fp32 operand.
+// strided (B, H, T, D) fp32 operand (conv_f32.cuh adds the conv kernels'
+// pixel boxes).
 //
 // Every tile is 64 rows of 32-float (128-byte) boxes under the 128-byte
 // swizzle: the 16-byte chunk c of row r of a box lies at r * 128 + ((c ^
@@ -13,8 +15,8 @@
 // kBoxBytes on. The rows that one warp's load reads lie in distinct 16-byte
 // bank quads when their r % 8 differ, so such a load is one shared-memory
 // wavefront (tools/torch_lds_wavefronts.py measures it; the CPU mirrors in
-// tests/test_torch_flash_bwd_route.py and tests/test_torch_flash_fwd_route.py
-// check the quads).
+// tests/test_torch_flash_bwd_route.py, tests/test_torch_flash_fwd_route.py
+// and tests/test_torch_conv_bwd_route.py check the quads).
 
 #pragma once
 

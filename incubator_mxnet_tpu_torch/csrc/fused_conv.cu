@@ -30,9 +30,12 @@
 //
 // What bounds it: at ResNet-50's shapes the work is 2*M*N*K FLOPs against
 // a few bytes per FLOP, so the bound is the card's arithmetic; these are
-// scalar fp32 FMAs (67 TFLOP/s peak), not tensor cores. It serves fp32 and
-// bf16 widths that are no multiple of 8; the rest of bf16 goes to the
-// tensor-core fused_conv_tc.cu (ops/fused_conv.py's conv_route).
+// scalar fp32 FMAs (67 TFLOP/s peak), not tensor cores. It serves the
+// widths and operands the other routes do not take (ops/fused_conv.py's
+// conv_route): bf16 widths that are no multiple of 8 (the rest of bf16
+// goes to the tensor-core fused_conv_tc.cu), fp32 widths that are no
+// multiple of 4 and misaligned fp32 views (the rest of fp32 goes to the
+// register micro-tiles of fused_conv_f32.cu).
 
 #include "conv_common.cuh"
 

@@ -341,6 +341,16 @@ inline int encode(CUtensorMap* map, const void* base, int rank,
                       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return kMapError + (int)CUDA_ERROR_NOT_FOUND;
+  // cuTensorMapEncodeTiled needs a current context, which the runtime
+  // binds to a thread at its first call that needs one: a thread whose
+  // first CUDA work is an encode (a backward on torch's autograd thread,
+  // say) makes such a call first, once.
+  static thread_local bool bound = false;
+  if (!bound) {
+    const cudaError_t e = cudaFree(nullptr);
+    if (e != cudaSuccess) return (int)e;
+    bound = true;
+  }
   cuuint64_t gdim[5], gstride[4];
   cuuint32_t bdim[5], es[5];
   for (int i = 0; i < rank; ++i) {

@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: every kernel source of the package
 SOURCES = ("conv_bwd", "conv_bwd_f32", "conv_bwd_tc", "flash_bwd",
            "flash_bwd_f32", "flash_bwd_tc", "flash_fwd", "flash_fwd_f32",
-           "flash_fwd_split", "flash_fwd_tc", "fused_conv", "fused_conv_tc")
+           "flash_fwd_split", "flash_fwd_tc", "fused_conv", "fused_conv_f32",
+           "fused_conv_tc")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -17,11 +17,11 @@ kernels (``_conv_bwd_dx_kernel``, ``_conv_bwd_dw_kernel``; stride 2
 included, where the JAX package's default keeps XLA for dx).
 :func:`conv_route` picks each by type and widths: bf16 with Ci and Co
 multiples of 8 goes to the tensor-core kernels of ``csrc/fused_conv_tc.cu``
-and ``csrc/conv_bwd_tc.cu`` (wgmma fed by TMA); the input gradient in
-fp32 with Ci and Co multiples of 4 and 16-byte aligned operands to
-``csrc/conv_bwd_f32.cu`` (register micro-tiles on the FP32 pipes, fed by
-TMA); everything else to
-``csrc/fused_conv.cu`` and ``csrc/conv_bwd.cu`` (scalar fp32 FMAs). A
+and ``csrc/conv_bwd_tc.cu`` (wgmma fed by TMA); fp32 with Ci and Co
+multiples of 4 and 16-byte aligned operands to ``csrc/fused_conv_f32.cu``
+and ``csrc/conv_bwd_f32.cu`` (register micro-tiles on the FP32 pipes, fed
+by TMA); everything else to ``csrc/fused_conv.cu`` and
+``csrc/conv_bwd.cu`` (scalar fp32 FMAs). A
 CPU tensor takes the plain versions, :func:`fused_conv_reference`,
 :func:`conv_bwd_dx_reference` and :func:`conv_bwd_dw_reference`, which
 follow the JAX package's ``_apply_prologue_host`` and ``_conv_raw`` with
@@ -54,11 +54,12 @@ __all__ = ["FusedConvEpiFunction", "FusedConvFunction", "apply_prologue",
            "bn_scale_shift", "conv_bwd_dw", "conv_bwd_dw_launches",
            "conv_bwd_dw_reference", "conv_bwd_dx", "conv_bwd_dx_launches",
            "conv_bwd_dx_reference", "conv_bwd_dx_f32_launches",
-           "conv_route", "dw_splits",
+           "conv_bwd_dw_f32_launches", "conv_route", "dw_splits",
            "dw_tc_box", "dw_tc_taps", "dx_tc_box", "dx_tc_cols",
            "dx_tc_taps", "fused_conv", "fwd_tc_cols", "fwd_tc_splits",
            "tc_box",
-           "fused_conv_bn", "fused_conv_launches", "fused_conv_reference",
+           "fused_conv_bn", "fused_conv_f32_launches", "fused_conv_launches",
+           "fused_conv_reference",
            "join_defaults"]
 
 #: kernel launches made by each wrapper (one per CUDA call); reset them to
@@ -69,9 +70,11 @@ conv_bwd_dx_launches = 0
 conv_bwd_dw_launches = 0
 #: the same launches by route (see :func:`conv_route`)
 fused_conv_tc_launches = fused_conv_simt_launches = 0
+fused_conv_f32_launches = 0
 conv_bwd_dx_tc_launches = conv_bwd_dx_simt_launches = 0
 conv_bwd_dx_f32_launches = 0
 conv_bwd_dw_tc_launches = conv_bwd_dw_simt_launches = 0
+conv_bwd_dw_f32_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64          # rows and columns of a kernel tile
@@ -200,6 +203,9 @@ def _kernel(name):
         elif name == "fwd_tc":       # relu, bw, bh, bn, cols, taps, splits
             fn = _build.load("fused_conv_tc").mxtpu_fused_conv_tc
             fn.argtypes = [p] * 13 + [i] * 18 + [p]
+        elif name == "fwd_f32":      # relu, then bw, bh, bn
+            fn = _build.load("fused_conv_f32").mxtpu_fused_conv_f32
+            fn.argtypes = [p] * 12 + [i] * 15 + [p]
         elif name == "dx":
             fn = _build.load("conv_bwd").mxtpu_conv_bwd_dx
             fn.argtypes = [p] * 18 + shape
@@ -212,6 +218,9 @@ def _kernel(name):
         elif name == "dx_f32":       # relu, then bw, bh, bn
             fn = _build.load("conv_bwd_f32").mxtpu_conv_bwd_dx_f32
             fn.argtypes = [p] * 18 + [i] * 15 + [p]
+        elif name == "dw_f32":       # splits, N..Wo, relu, bw, bh, bn, taps
+            fn = _build.load("conv_bwd_f32").mxtpu_conv_bwd_dw_f32
+            fn.argtypes = [p] * 12 + [i] * 17 + [p]
         else:                        # dw_tc: relu, then bw, bh, bn, taps
             fn = _build.load("conv_bwd_tc").mxtpu_conv_bwd_dw_tc
             fn.argtypes = [p] * 12 + [i] * 17 + [p]
@@ -312,22 +321,24 @@ def fused_conv(x, w, a=None, b=None, stride=1, pad=0, relu=True, r=None,
                ar=None, br=None, emit=False, route=None):
     """The forward kernel: ``(y, sum, sumsq)`` (+ the prologue output when
     ``emit``). A CPU tensor takes :func:`fused_conv_reference`; a CUDA
-    tensor launches the kernel :func:`conv_route` names (or
-    ``route="simt"``: ``csrc/fused_conv.cu`` whatever the type) or
-    raises."""
+    tensor launches the kernel :func:`conv_route` names for its widths
+    and operands (or ``route="simt"``: ``csrc/fused_conv.cu`` whatever the
+    type) or raises."""
     global fused_conv_launches, fused_conv_tc_launches
-    global fused_conv_simt_launches
+    global fused_conv_simt_launches, fused_conv_f32_launches
     n, h, wd, ci, co, kh, kw, ho, wo = _geometry(x, w, stride, pad)
     if emit and r is None:
         raise ValueError("emit needs a resid operand")
-    route = _pick_route(x.dtype, ci, co, route)
     if _device_of(x) == "cpu":
+        _pick_route(x.dtype, ci, co, route)
         return fused_conv_reference(x, w, a, b, stride, pad, relu, r, ar, br,
                                     emit)
     x, w = x.contiguous(), w.contiguous()
     if w.device != x.device:
         raise ValueError(f"w on {w.device}, x on {x.device}")
     a, b, r, ar, br = _prologue_operands(x, a, b, r, ar, br, ci)
+    route = _pick_route(x.dtype, ci, co, route, "fused_conv",
+                        (x, w, a, b, r, ar, br))
     dev = x.device
     y = torch.empty((n, ho, wo, co), dtype=x.dtype, device=dev)
     s = torch.empty(co, dtype=torch.float32, device=dev)
@@ -349,12 +360,17 @@ def fused_conv(x, w, a=None, b=None, stride=1, pad=0, relu=True, r=None,
         _run(_kernel("fwd_tc"), x, *ptrs, _ptr(part), _ptr(part_y), *dims,
              *box, cols, taps, splits)
         fused_conv_tc_launches += 1
-    else:
-        mtiles = -(-n * ho * wo // _TILE)
-        part = torch.empty(2 * mtiles * co, dtype=torch.float32, device=dev)
-        _run(_kernel("fwd"), x, *ptrs, _ptr(part), *dims,
-             _DTYPE_CODE[x.dtype])
-        fused_conv_simt_launches += 1
+    else:   # f32 and SIMT: the sums' partials over 64-row tiles of y
+        part = torch.empty(2 * -(-n * ho * wo // _TILE) * co,
+                           dtype=torch.float32, device=dev)
+        if route == "f32":
+            _run(_kernel("fwd_f32"), x, *ptrs, _ptr(part), *dims,
+                 *tc_box(n, ho, wo))
+            fused_conv_f32_launches += 1
+        else:
+            _run(_kernel("fwd"), x, *ptrs, _ptr(part), *dims,
+                 _DTYPE_CODE[x.dtype])
+            fused_conv_simt_launches += 1
     fused_conv_launches += 1
     return (y, s, ss, xp) if emit else (y, s, ss)
 
@@ -435,21 +451,23 @@ def conv_route(dtype, ci, co, kernel="fused_conv", operands=()):
     K2, ``"conv_bwd_dw"``: K3) takes on the card: ``"tc"`` (the
     tensor-core kernels of ``csrc/fused_conv_tc.cu`` and
     ``csrc/conv_bwd_tc.cu``) for bf16 with ``ci`` and ``co`` multiples of
-    8, whose NHWC rows are whole 16-byte units as TMA needs; for K2 in
-    fp32 with ``ci`` and ``co`` multiples of 4 (16-byte rows) and every
-    tensor of ``operands`` (those the wrapper hands the kernel: the C
-    entry of ``csrc/conv_bwd_f32.cu`` checks the same) on a 16-byte
-    boundary, ``"f32"`` (register micro-tiles on the FP32 pipes, fed by
-    TMA); ``"simt"`` (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``) for
-    everything else: fp32 K1 and K3 (no tensor-core path keeps fp32 off
-    TF32), ragged widths and misaligned fp32 K2 operands. Measured on an
-    H100 (``chip_smoke.py``'s conv kernel phase,
-    ``tools/torch_resnet_conv_times.py``; PERF.md): the f32 K2 beats the
-    SIMT one on the same inputs."""
+    8, whose NHWC rows are whole 16-byte units as TMA needs; for fp32 with
+    ``ci`` and ``co`` multiples of 4 (16-byte rows) and every tensor of
+    ``operands`` (those the wrapper hands the kernel: the C entries of
+    ``csrc/fused_conv_f32.cu`` and ``csrc/conv_bwd_f32.cu`` check the
+    same) on a 16-byte boundary, ``"f32"`` (register micro-tiles on the
+    FP32 pipes, fed by TMA; no tensor-core path keeps fp32 off TF32);
+    ``"simt"`` (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``) for
+    everything else: ragged widths and misaligned fp32 operands. Measured
+    on an H100 (``chip_smoke.py``'s conv kernel phase,
+    ``tools/torch_resnet_conv_times.py``; PERF.md): the f32 kernels beat
+    the SIMT ones on the same inputs at ResNet-50's 52 shapes (K1 at 1x1
+    64->256 plain level), so the three kernels share one rule (``kernel``
+    names the one asked about)."""
     if dtype == torch.bfloat16 and ci % 8 == 0 and co % 8 == 0:
         return "tc"
-    if kernel == "conv_bwd_dx" and dtype == torch.float32 \
-            and ci % 4 == 0 and co % 4 == 0 and _aligned16(*operands):
+    if dtype == torch.float32 and ci % 4 == 0 and co % 4 == 0 \
+            and _aligned16(*operands):
         return "f32"
     return "simt"
 
@@ -492,9 +510,9 @@ def _boxes(n, h, w, box=None):
 
 
 def dw_tc_taps(kw, stride, wo, res):
-    """Taps of one kernel row that a tensor-core weight-gradient block, or
-    a step of a tensor-core forward block, takes: all 3 of a 3-wide
-    stride-1 kernel without a residual, whose output rows and the 2
+    """Taps of one kernel row that a tensor-core or f32 weight-gradient
+    block, or a step of a tensor-core forward block, takes: all 3 of a
+    3-wide stride-1 kernel without a residual, whose output rows and the 2
     columns its taps reach past them fit a block (one box of x then serves
     the 3 taps, rewritten once); 1 otherwise."""
     return 3 if kw == 3 and stride == 1 and not res \
@@ -573,17 +591,25 @@ def dw_splits(n, ho, wo, ci, co, kh, kw, route="simt", taps=1):
     """How many ranges the weight-gradient kernel cuts its N*Ho*Wo pixels
     into, each of whole steps, enough to fill the card. ``"simt"``: about
     ``_DW_BLOCKS`` blocks of 64x64, each range at least 8 steps of 16
-    pixels. ``"tc"``: at most ``_TC_BLOCKS`` blocks of 64x64 (by ``taps``
-    taps) where the tiles allow (one wave of two blocks per SM: a second,
-    short wave would double the time), a step is a box of
-    :func:`dw_tc_box`, each range at least 4 boxes, and no range is
-    empty."""
+    pixels. ``"tc"`` and ``"f32"``: at most
+    ``_TC_BLOCKS`` blocks of 64x64 (by ``taps`` taps) where the tiles allow
+    (one wave of two blocks per SM: a second, short wave would double the
+    time), a step is a box of :func:`dw_tc_box`, each range at least 4
+    boxes, and no range is empty. ``"f32"`` where the tiles alone would
+    leave one block on most SMs (more than half of ``_TC_BLOCKS``, fewer
+    than all): about four blocks an SM instead, since one f32 block alone
+    leaves its SM idle between steps (3x3 256->256 at 14x14: 0.38 ms
+    against 0.58 in one range on an H100, ``tools/torch_dw_f32_splits.py``;
+    PERF.md)."""
     tiles = kh * (kw // taps) * -(-ci // _TILE) * -(-co // _TILE)
     if route == "simt":
         steps = -(-n * ho * wo // _KSTEP)
         return max(1, min(-(-_DW_BLOCKS // tiles), steps // 8))
     boxes = _boxes(n, ho, wo, dw_tc_box(n, ho, wo, kw, taps))
-    want = max(1, min(_TC_BLOCKS // tiles, boxes // 4))
+    want = _TC_BLOCKS // tiles
+    if route == "f32" and _TC_BLOCKS // 2 < tiles < _TC_BLOCKS:
+        want = -(-2 * _TC_BLOCKS // tiles)
+    want = max(1, min(want, boxes // 4))
     return -(-boxes // -(-boxes // want))
 
 
@@ -591,16 +617,16 @@ def conv_bwd_dw(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
                 r=None, ar=None, br=None, route=None):
     """The weight-gradient kernel: dW in w's type. A CPU tensor takes
     :func:`conv_bwd_dw_reference`; a CUDA tensor launches the kernel
-    :func:`conv_route` names (or ``route="simt"``) or raises."""
+    :func:`conv_route` names for its widths and operands (or
+    ``route="simt"``) or raises."""
     global conv_bwd_dw_launches, conv_bwd_dw_tc_launches
-    global conv_bwd_dw_simt_launches
+    global conv_bwd_dw_simt_launches, conv_bwd_dw_f32_launches
     n, h, wd, ci, co, kh, kw, ho, wo = _backward_operands(
         x, w, y, dy, stride, pad)
-    route = _pick_route(x.dtype, ci, co, route, "conv_bwd_dw")
     if _device_of(x) == "cpu":
+        _pick_route(x.dtype, ci, co, route, "conv_bwd_dw")
         return conv_bwd_dw_reference(x, w, a, b, y, dy, ds, dss, stride, pad,
                                      relu, r, ar, br)
-    taps = dw_tc_taps(kw, stride, wo, r is not None) if route == "tc" else 1
     x = x.contiguous()
     w, y = w.contiguous(), y.contiguous()
     dy = _same("dy", dy.to(y.dtype), y)
@@ -608,10 +634,16 @@ def conv_bwd_dw(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
         raise ValueError("x, w, y and dy must share one type and device")
     a, b, r, ar, br = _prologue_operands(x, a, b, r, ar, br, ci)
     ds, dss = _vec("ds", ds, co, x.device), _vec("dss", dss, co, x.device)
+    route = _pick_route(x.dtype, ci, co, route, "conv_bwd_dw",
+                        (x, dy, y, a, b, ds, dss, r, ar, br))
+    taps = dw_tc_taps(kw, stride, wo, r is not None) if route != "simt" \
+        else 1
     splits = dw_splits(n, ho, wo, ci, co, kh, kw, route, taps)
     dw = torch.empty_like(w)
-    part = torch.empty(splits * kh * kw * ci * co, dtype=torch.float32,
-                       device=x.device)
+    # the f32 kernel writes dW itself when there is one range
+    part = torch.empty(1 if route == "f32" and splits == 1
+                       else splits * kh * kw * ci * co,
+                       dtype=torch.float32, device=x.device)
     args = (_ptr(x), _ptr(dy), _ptr(y), _ptr(a), _ptr(b), _ptr(ds),
             _ptr(dss), _ptr(r), _ptr(ar), _ptr(br), _ptr(dw), _ptr(part),
             splits, n, h, wd, ci, co, kh, kw, stride, pad, ho, wo,
@@ -620,6 +652,10 @@ def conv_bwd_dw(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
         _run(_kernel("dw_tc"), x, *args, *dw_tc_box(n, ho, wo, kw, taps),
              taps)
         conv_bwd_dw_tc_launches += 1
+    elif route == "f32":
+        _run(_kernel("dw_f32"), x, *args, *dw_tc_box(n, ho, wo, kw, taps),
+             taps)
+        conv_bwd_dw_f32_launches += 1
     else:
         _run(_kernel("dw"), x, *args, _DTYPE_CODE[x.dtype])
         conv_bwd_dw_simt_launches += 1

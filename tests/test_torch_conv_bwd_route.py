@@ -3,15 +3,17 @@ each route sizes, checked on the CPU.
 
 ``fused_conv.conv_route`` sends bf16 with both widths multiples of 8 to
 the tensor-core K1/K2/K3 (``csrc/fused_conv_tc.cu``,
-``csrc/conv_bwd_tc.cu``), K2 in fp32 with both widths multiples of 4 to
-the register micro-tile kernel of ``csrc/conv_bwd_f32.cu`` (``"f32"``),
-and everything else to the SIMT kernels (``csrc/fused_conv.cu``,
-``csrc/conv_bwd.cu``). The f32 K2 is mirrored here block by block in
-numpy (its pixel boxes, TMA's zero fill, the fold and its zeroing, the
-micro-tile product, the epilogue and the ordered sums) against the plain
-version, its boxes are held to cover every dx pixel once at every
-``chip_smoke.CONV_CASES`` shape and all 52 of ResNet-50, and its shared
-loads and stores to their fewest wavefronts.
+``csrc/conv_bwd_tc.cu``), fp32 with both widths multiples of 4 to the
+register micro-tile kernels of ``csrc/fused_conv_f32.cu`` and
+``csrc/conv_bwd_f32.cu`` (``"f32"``), and everything else to the SIMT
+kernels (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``). The f32 K1, K2
+and K3 are mirrored here block by block in numpy (their pixel boxes,
+TMA's zero fill, the fold or the prologue and its zeroing, the micro-tile
+product, the epilogue, the ranges and the ordered sums) against the plain
+versions, their boxes are held to cover every pixel once at every
+``chip_smoke.CONV_CASES`` shape and all 52 of ResNet-50, K3's ranges to
+fill the card with whole boxes, and their shared loads and stores to
+their fewest wavefronts.
 The rule, the pixel boxes of the tensor-core kernels, their column blocks,
 their splits of K and their scratch are plain Python, so they are held
 here at all 52 conv shapes of ResNet-50; the kernels themselves run in
@@ -60,14 +62,15 @@ def _out(h, k, stride, pad):
 
 
 def test_fp32_takes_the_simt_kernels_at_every_width():
-    """fp32 K1 and K3 stay on SIMT at every width (K2: the f32 route,
-    below)."""
-    for ci in (3, 8, 20, 24, 64, 2048):
-        for co in (8, 40, 64, 1000):
-            assert fc.conv_route(torch.float32, ci, co) == "simt"
-            for kernel in ("fused_conv", "conv_bwd_dw"):
-                assert fc.conv_route(torch.float32, ci, co, kernel) == \
-                    "simt"
+    """fp32 takes the SIMT K1, K2 and K3 at every width that is no whole
+    number of 16-byte rows (Ci or Co not a multiple of 4), and the f32
+    kernels at every other width (with aligned operands, below)."""
+    for ci in (3, 8, 20, 24, 64, 2048, 6, 66):
+        for co in (8, 40, 64, 1000, 10, 1001):
+            want = "f32" if ci % 4 == 0 and co % 4 == 0 else "simt"
+            assert fc.conv_route(torch.float32, ci, co) == want
+            for kernel in ("fused_conv", "conv_bwd_dx", "conv_bwd_dw"):
+                assert fc.conv_route(torch.float32, ci, co, kernel) == want
 
 
 @pytest.mark.parametrize("ci, co", [(20, 72), (64, 12), (7, 8), (8, 100)])
@@ -81,14 +84,14 @@ def test_ragged_bf16_widths_take_the_simt_kernels(ci, co):
 def test_bf16_resnet50_convs_take_the_tensor_cores(resnet50_convs):
     for _, _, ci, co, *_ in resnet50_convs:
         assert fc.conv_route(torch.bfloat16, ci, co) == "tc"
-        assert fc.conv_route(torch.float32, ci, co) == "simt"
+        assert fc.conv_route(torch.float32, ci, co) == "f32"
     # chip_smoke's off-path 5x5 case (widths 24 and 40) too
     assert fc.conv_route(torch.bfloat16, 24, 40) == "tc"
 
 
 def test_a_named_route_is_checked_against_the_rule():
     """``route="simt"`` takes any call (chip_smoke times the SIMT kernels in
-    bf16 with it); ``"tc"`` only what the rule sends there (fp32 K2 with
+    bf16 with it); ``"tc"`` only what the rule sends there (fp32 with
     16-byte rows: ``"f32"``); the check
     runs before the CPU's plain version, for the forward as for the
     backward."""
@@ -97,11 +100,11 @@ def test_a_named_route_is_checked_against_the_rule():
     y = dy = torch.zeros(1, 4, 4, 8)
     ds = dss = torch.zeros(8)
     fc.fused_conv(x, w, relu=False, route="simt")
-    with pytest.raises(ValueError, match="takes 'simt'"):
+    with pytest.raises(ValueError, match="takes 'f32'"):
         fc.fused_conv(x, w, relu=False, route="tc")
     with pytest.raises(ValueError, match="route 'fast'"):
         fc.fused_conv(x.bfloat16(), w.bfloat16(), relu=False, route="fast")
-    for t, rule in ((fc.conv_bwd_dx, "f32"), (fc.conv_bwd_dw, "simt")):
+    for t, rule in ((fc.conv_bwd_dx, "f32"), (fc.conv_bwd_dw, "f32")):
         t(x, w, None, None, y, dy, ds, dss, relu=False, route="simt")
         with pytest.raises(ValueError, match=f"takes '{rule}'"):
             t(x, w, None, None, y, dy, ds, dss, relu=False, route="tc")
@@ -261,10 +264,10 @@ def _fwd_plan(n, h, w, ci, co, k, s, p, res=False):
 def test_forward_takes_bf16_resnet50_convs_to_the_tensor_cores(
         resnet50_convs):
     """K1 follows the same rule as K2/K3: every ResNet-50 conv in bf16 on
-    the tensor cores, in fp32 on the SIMT kernel; ragged bf16 on SIMT."""
+    the tensor cores, in fp32 on the f32 kernel; ragged bf16 on SIMT."""
     for _, _, ci, co, *_ in resnet50_convs:
         assert fc._pick_route(torch.bfloat16, ci, co, None) == "tc"
-        assert fc._pick_route(torch.float32, ci, co, None) == "simt"
+        assert fc._pick_route(torch.float32, ci, co, None) == "f32"
     assert fc._pick_route(torch.bfloat16, 20, 72, None) == "simt"
 
 
@@ -361,45 +364,47 @@ def test_forward_scratch_holds_every_partial():
 # ---------------------------------------------------------------------------
 def test_fp32_input_gradient_takes_the_f32_kernel_where_rows_are_16_bytes(
         resnet50_convs):
-    """K2 in fp32 with Ci and Co multiples of 4 takes ``"f32"``; ragged
-    widths stay on SIMT, bf16 on the tensor cores, and K1 and K3 keep
-    their routes at the same widths: every ResNet-50 conv and chip_smoke's
-    5x5 case (24 -> 40)."""
+    """K2 in fp32 with Ci and Co multiples of 4 takes ``"f32"``, and K1
+    and K3 with it at the same widths; ragged widths stay on SIMT, bf16 on
+    the tensor cores: every ResNet-50 conv and chip_smoke's 5x5 case (24
+    -> 40)."""
     for _, _, ci, co, *_ in resnet50_convs + [(0, 0, 24, 40)]:
         assert fc.conv_route(torch.float32, ci, co, "conv_bwd_dx") == "f32"
         assert fc.conv_route(torch.bfloat16, ci, co, "conv_bwd_dx") == "tc"
-        assert fc.conv_route(torch.float32, ci, co, "fused_conv") == "simt"
-        assert fc.conv_route(torch.float32, ci, co, "conv_bwd_dw") == "simt"
+        assert fc.conv_route(torch.float32, ci, co, "fused_conv") == "f32"
+        assert fc.conv_route(torch.float32, ci, co, "conv_bwd_dw") == "f32"
     for ci, co in ((20, 74), (6, 8), (3, 64), (64, 10)):
         assert fc.conv_route(torch.float32, ci, co, "conv_bwd_dx") == "simt"
 
 
 def test_fp32_input_gradient_with_a_misaligned_operand_takes_simt():
     """The f32 rule holds every operand the kernel takes to a 16-byte base
-    (the C entry refuses any other): a view 4 bytes into its buffer sends
-    fp32 K2 to SIMT, and a named ``"f32"`` route raises for it; aligned
-    operands, or none given, keep ``"f32"``."""
+    (the C entries refuse any other): a view 4 bytes into its buffer sends
+    fp32 K2, and K1 and K3 alike, to SIMT, and a named ``"f32"`` route
+    raises for it; aligned operands, or none given, keep ``"f32"``."""
     buf = torch.zeros(1 + 4 * 4 * 8)
     off = buf[1:].view(1, 4, 4, 8)
     assert off.data_ptr() % 16 == 4
     ok = torch.zeros(1, 4, 4, 8)
-    assert fc.conv_route(torch.float32, 8, 8, "conv_bwd_dx") == "f32"
-    assert fc.conv_route(torch.float32, 8, 8, "conv_bwd_dx",
-                         (ok, None, ok)) == "f32"
-    assert fc.conv_route(torch.float32, 8, 8, "conv_bwd_dx",
-                         (ok, None, off)) == "simt"
-    assert fc._pick_route(torch.float32, 8, 8, None, "conv_bwd_dx",
-                          (off,)) == "simt"
-    assert fc._pick_route(torch.float32, 8, 8, "simt", "conv_bwd_dx",
-                          (off,)) == "simt"
-    with pytest.raises(ValueError, match="16-byte boundary.*takes 'simt'"):
-        fc._pick_route(torch.float32, 8, 8, "f32", "conv_bwd_dx", (off,))
+    for kernel in ("conv_bwd_dx", "fused_conv", "conv_bwd_dw"):
+        assert fc.conv_route(torch.float32, 8, 8, kernel) == "f32"
+        assert fc.conv_route(torch.float32, 8, 8, kernel,
+                             (ok, None, ok)) == "f32"
+        assert fc.conv_route(torch.float32, 8, 8, kernel,
+                             (ok, None, off)) == "simt"
+        assert fc._pick_route(torch.float32, 8, 8, None, kernel,
+                              (off,)) == "simt"
+        assert fc._pick_route(torch.float32, 8, 8, "simt", kernel,
+                              (off,)) == "simt"
+        with pytest.raises(ValueError,
+                           match="16-byte boundary.*takes 'simt'"):
+            fc._pick_route(torch.float32, 8, 8, "f32", kernel, (off,))
 
 
 def test_a_named_f32_route_only_where_the_rule_sends_it():
-    """``route="f32"`` takes fp32 K2 calls with 16-byte rows (on the CPU
-    the plain version runs either way), and raises for K1, K3, bf16 and
-    ragged widths; ``"simt"`` still takes every K2 call."""
+    """``route="f32"`` takes fp32 K1, K2 and K3 calls with 16-byte rows
+    (on the CPU the plain version runs either way), and raises for bf16
+    and ragged widths; ``"simt"`` still takes every call."""
     x = torch.zeros(1, 4, 4, 8)
     w = torch.zeros(3, 3, 8, 12)
     y = dy = torch.zeros(1, 4, 4, 12)
@@ -410,17 +415,28 @@ def test_a_named_f32_route_only_where_the_rule_sends_it():
         assert torch.equal(fc.conv_bwd_dx(*args, route=route)[0], want[0])
     with pytest.raises(ValueError, match="takes 'f32'"):
         fc.conv_bwd_dx(*args, route="tc")
-    with pytest.raises(ValueError, match="route 'f32'.*takes 'simt'"):
-        fc.conv_bwd_dw(*args, route="f32")
-    with pytest.raises(ValueError, match="route 'f32'.*takes 'simt'"):
-        fc.fused_conv(x, w, stride=1, pad=1, relu=False, route="f32")
+    want_dw = fc.conv_bwd_dw_reference(*args)
+    want_y = fc.fused_conv_reference(x, w, stride=1, pad=1, relu=False)[0]
+    for route in ("f32", "simt", None):
+        assert torch.equal(fc.conv_bwd_dw(*args, route=route), want_dw)
+        assert torch.equal(fc.fused_conv(x, w, stride=1, pad=1, relu=False,
+                                         route=route)[0], want_y)
+    with pytest.raises(ValueError, match="takes 'f32'"):
+        fc.conv_bwd_dw(*args, route="tc")
+    with pytest.raises(ValueError, match="takes 'f32'"):
+        fc.fused_conv(x, w, stride=1, pad=1, relu=False, route="tc")
     xr = torch.zeros(1, 4, 4, 6)
+    for t in (fc.conv_bwd_dx, fc.conv_bwd_dw):
+        with pytest.raises(ValueError, match="route 'f32'.*takes 'simt'"):
+            t(xr, torch.zeros(3, 3, 6, 12), None, None, y, dy, ds, dss, 1, 1,
+              False, route="f32")
     with pytest.raises(ValueError, match="route 'f32'.*takes 'simt'"):
-        fc.conv_bwd_dx(xr, torch.zeros(3, 3, 6, 12), None, None, y, dy, ds,
-                       dss, 1, 1, False, route="f32")
-    with pytest.raises(ValueError, match="route 'f32'.*takes 'simt'"):
-        fc.conv_bwd_dx(x.bfloat16(), w.bfloat16(), None, None, y.bfloat16(),
-                       dy.bfloat16(), ds, dss, 1, 1, False, route="f32")
+        fc.fused_conv(xr, torch.zeros(3, 3, 6, 12), stride=1, pad=1,
+                      relu=False, route="f32")
+    for t in (fc.conv_bwd_dx, fc.conv_bwd_dw):
+        with pytest.raises(ValueError, match="route 'f32'.*takes 'simt'"):
+            t(x.bfloat16(), w.bfloat16(), None, None, y.bfloat16(),
+              dy.bfloat16(), ds, dss, 1, 1, False, route="f32")
 
 
 F32_BLOCK = 64   # pixels and input channels of a block
@@ -712,3 +728,418 @@ def test_f32_dx_scratch_holds_every_partial(resnet50_convs):
         ew, eh = -(-w // s), -(-h // s)
         assert boxes == -(-ew // box[0]) * -(-eh // box[1]) * \
             -(-32 // box[2])
+
+
+# ---------------------------------------------------------------------------
+# the fp32 K1 and K3 on the FP32 pipes (csrc/fused_conv_f32.cu,
+# csrc/conv_bwd_f32.cu's conv_bwd_dw_f32_kernel)
+# ---------------------------------------------------------------------------
+def _tma_box(t, n0, h_idx, w_idx, c0, nn, rows_ok):
+    """A 4-D TMA box of 32-channel chunks as the kernel receives it: rows
+    whose pixel (n0 + nn, h_idx, w_idx) lies inside ``t`` (N, H, W, C)
+    hold its channels c0 .. c0 + 63, zero past C (TMA's zero fill), zero
+    outside the tensor; rows past the box (``~rows_ok``) are never written
+    by TMA and hold stale values (NaN here)."""
+    n, h, w, c = t.shape
+    tile = np.zeros((F32_BLOCK, F32_BLOCK), np.float32)
+    tile[~rows_ok] = np.nan
+    pn = n0 + nn
+    inside = rows_ok & (pn < n) & (h_idx >= 0) & (h_idx < h) & \
+        (w_idx >= 0) & (w_idx < w)
+    cols = c0 + np.arange(F32_BLOCK)
+    cin = cols < c
+    tile[np.ix_(inside, cin)] = \
+        t[pn[inside], h_idx[inside], w_idx[inside]][:, cols[cin]]
+    return tile, inside, cin
+
+
+def _prologue_np(xt, rt, a, b, ar, br, cols, relu):
+    """x_pro of a tile's channels ``cols`` (valid ones) in fp32, rounded as
+    ``prologue_lin``: ((x*a) + b), then (+ r*ar), then + br."""
+    f = np.float32
+    av = a[cols] if a is not None else np.ones(cols.size, f)
+    bv = b[cols] if a is not None else np.zeros(cols.size, f)
+    lin = ((xt * av).astype(f) + bv).astype(f)
+    if rt is not None:
+        lin = ((lin + (rt * ar[cols]).astype(f)).astype(f)
+               + br[cols]).astype(f)
+    return np.where(lin > 0, lin, f(0)) if relu else lin
+
+
+def _tile_sums(y):
+    """The per-channel sum and sum of squares of y (rows x channels) as
+    ``tile_stats_kernel`` and the SIMT K1's epilogue take them, then
+    ``column_sum``: 64-row tiles, 4 rows a thread of 16 x 16, the 16
+    thread rows in order; then each of 32 thread rows adds every 32nd
+    tile, and the 32 in order. All fp32."""
+    f = np.float32
+    m, co = y.shape
+    tiles = -(-m // F32_BLOCK)
+    part = np.zeros((2, tiles, co), f)
+    for t in range(tiles):
+        red = np.zeros((2, 16, co), f)
+        for ty in range(16):
+            rows = [t * F32_BLOCK + ty * 4 + i for i in range(4)]
+            for row in (row for row in rows if row < m):
+                red[0, ty] = (red[0, ty] + y[row]).astype(f)
+                red[1, ty] = (red[1, ty] + (y[row] * y[row]).astype(f)
+                              ).astype(f)
+        for k in range(16):
+            part[:, t] = (part[:, t] + red[:, k]).astype(f)
+    out = np.zeros((2, co), f)
+    for ty in range(32):
+        acc = np.zeros((2, co), f)
+        for t in range(ty, tiles, 32):
+            acc = (acc + part[:, t]).astype(f)
+        out = (out + acc).astype(f)
+    return out[0], out[1]
+
+
+def fwd_f32_mirror(x, w, a, b, stride, pad, relu, r=None, ar=None, br=None,
+                   emit=False, zero_fill=True):
+    """``fused_conv_f32_kernel`` and its column sums on numpy inputs (NHWC,
+    HWIO), block by block: the output boxes of ``fc.tc_box``, per tap and
+    64 channels of Ci the shifted (strided) x box and the r box as TMA
+    brings them, the prologue in place (taps outside x and channels past
+    Ci written as 0, unless ``zero_fill`` is False; no rewrite for a plain
+    conv), the w box (64 rows of the flattened (tap, ci) rows, zero past
+    their end and past Co), the block's product, the epilogue's valid
+    rows, and the sums of y in the SIMT kernel's order (``_tile_sums``).
+    Returns (y, s, ss, xp, written, emitted): ``written`` and ``emitted``
+    count the stores to each element of y and xp."""
+    n, h, wd, ci = x.shape
+    kh, kw, _, co = w.shape
+    ho, wo = _out(h, kh, stride, pad), _out(wd, kw, stride, pad)
+    s = stride
+    pro = a is not None or r is not None
+    bw, bh, bn = fc.tc_box(n, ho, wo)
+    tw, th, tn = -(-wo // bw), -(-ho // bh), -(-n // bn)
+    rows = np.arange(F32_BLOCK)
+    jj, ii, nn = rows % bw, (rows // bw) % bh, rows // (bw * bh)
+    rows_ok = rows < bw * bh * bn
+    wflat = w.reshape(kh * kw * ci, co)
+    emit_rows = emit and kh == kw == 1 and s == 1 and pad == 0
+    y = np.full((n, ho, wo, co), np.nan, np.float32)
+    xp = np.full(x.shape, np.nan, np.float32) if emit else None
+    written = np.zeros(y.shape, int)
+    emitted = np.zeros(x.shape, int)
+    for blk in range(tw * th * tn):
+        wo0, ho0 = (blk % tw) * bw, ((blk // tw) % th) * bh
+        n0 = (blk // (tw * th)) * bn
+        pn, po, pw = n0 + nn, ho0 + ii, wo0 + jj
+        ok = rows_ok & (pn < n) & (po < ho) & (pw < wo)
+        for co0 in range(0, co, F32_BLOCK):
+            acc = np.zeros((F32_BLOCK, F32_BLOCK), np.float64)
+            for tap in range(kh * kw):
+                ky, kx = divmod(tap, kw)
+                hi, wi = po * s - pad + ky, pw * s - pad + kx
+                for c0 in range(0, ci, F32_BLOCK):
+                    at, xin, cin = _tma_box(x, n0, hi, wi, c0, nn, rows_ok)
+                    if pro:
+                        rt = _tma_box(r, n0, hi, wi, c0, nn, rows_ok)[0] \
+                            if r is not None else None
+                        chans = np.minimum(c0 + np.arange(F32_BLOCK),
+                                           ci - 1)
+                        v = _prologue_np(at, rt, a, b, ar, br, chans, relu)
+                        if zero_fill:
+                            v[~xin] = 0.0
+                            v[:, ~cin] = 0.0
+                        else:   # only the channels past Ci: b is not read
+                            v[:, ~cin] = 0.0
+                        v[~rows_ok] = 0.0
+                        at = v.astype(np.float32)
+                        if emit_rows and co0 == 0:
+                            sel = np.ix_(xin & ok, cin)
+                            pix = (pn[xin & ok], hi[xin & ok], wi[xin & ok])
+                            cc = (c0 + np.arange(F32_BLOCK))[cin]
+                            xp[pix[0][:, None], pix[1][:, None],
+                               pix[2][:, None], cc] = at[sel]
+                            np.add.at(emitted, (pix[0][:, None],
+                                                pix[1][:, None],
+                                                pix[2][:, None],
+                                                cc[None, :]), 1)
+                    wrow = tap * ci + c0 + rows
+                    bt = np.zeros((F32_BLOCK, F32_BLOCK), np.float32)
+                    cols = co0 + np.arange(F32_BLOCK)
+                    win, con = wrow < kh * kw * ci, cols < co
+                    bt[np.ix_(win, con)] = wflat[wrow[win]][:, cols[con]]
+                    with np.errstate(invalid="ignore"):
+                        acc += at.astype(np.float64) @ bt
+            cols = co0 + np.arange(F32_BLOCK)
+            con = cols < co
+            v = acc[np.ix_(ok, con)].astype(np.float32)
+            y[pn[ok][:, None], po[ok][:, None], pw[ok][:, None],
+              cols[con]] = v
+            np.add.at(written, (pn[ok][:, None], po[ok][:, None],
+                                pw[ok][:, None], cols[con][None, :]), 1)
+    s, ss = _tile_sums(y.reshape(-1, co))
+    if emit and not emit_rows:      # join_emit_kernel
+        chans = np.arange(ci)
+        xp = _prologue_np(x, r, a, b, ar, br, chans, relu)
+        emitted[:] = 1
+    return y, s, ss, xp, written, emitted
+
+
+def dw_f32_mirror(x, w, a, b, y, dy, ds, dss, stride, pad, relu, r=None,
+                  ar=None, br=None, zero_fill=True):
+    """``conv_bwd_dw_f32_kernel`` and its split sum on numpy inputs: per
+    (taps, 64 input channels, 64 output channels) tile and range of
+    ``fc.dw_splits(..., "f32", taps)`` whole output boxes
+    (``fc.dw_tc_box``; a row of 3 taps at stride 1, ``fc.dw_tc_taps``),
+    per box the x box shifted (strided) by the first tap and the dy, y
+    (and r) boxes as TMA brings them; the rewrite in place (dy_t, and
+    x_pro with a prologue), writing 0 to rows past the box, to pixels
+    outside the output (the widened columns of a row of taps among them)
+    or whose tap lies outside x, and to channels past Ci or Co (unless
+    ``zero_fill`` is False: then only rows past the box and channels past
+    the widths); per tap t the product x_pro^T . dy_t shifted down t rows
+    (zero rows before the box); each range's fp32 plane, then the planes
+    added in order. Returns (dw, splits, taps)."""
+    n, h, wd, ci = x.shape
+    kh, kw, _, co = w.shape
+    ho, wo = dy.shape[1:3]
+    s = stride
+    pro = a is not None or r is not None
+    taps = fc.dw_tc_taps(kw, s, wo, r is not None)
+    bw, bh, bn = fc.dw_tc_box(n, ho, wo, kw, taps)
+    tw, th, tn = -(-wo // bw), -(-ho // bh), -(-n // bn)
+    total = tw * th * tn
+    splits = fc.dw_splits(n, ho, wo, ci, co, kh, kw, "f32", taps)
+    per = -(-total // splits)
+    rows = np.arange(F32_BLOCK)
+    jj, ii, nn = rows % bw, (rows // bw) % bh, rows // (bw * bh)
+    rows_ok = rows < bw * bh * bn
+    planes = np.zeros((splits, kh * kw, ci, co), np.float32)
+    for z in range(splits):
+        for group in range(kh * kw // taps):
+            ky, kx = divmod(group * taps, kw)
+            for ci0 in range(0, ci, F32_BLOCK):
+                for co0 in range(0, co, F32_BLOCK):
+                    acc = np.zeros((taps, F32_BLOCK, F32_BLOCK), np.float64)
+                    for c in range(z * per, min(z * per + per, total)):
+                        wo0, ho0 = (c % tw) * bw, ((c // tw) % th) * bh
+                        n0 = (c // (tw * th)) * bn
+                        pn, po, pw = n0 + nn, ho0 + ii, wo0 + jj
+                        pix = rows_ok & (pn < n) & (po < ho) & (pw < wo)
+                        hi, wi = po * s - pad + ky, pw * s - pad + kx
+                        xt, xin, cin = _tma_box(x, n0, hi, wi, ci0, nn,
+                                                rows_ok)
+                        dt, _, con = _tma_box(dy, n0, po, pw, co0, nn,
+                                              rows_ok)
+                        yt = _tma_box(y, n0, po, pw, co0, nn, rows_ok)[0]
+                        cols = np.minimum(co0 + np.arange(F32_BLOCK), co - 1)
+                        d = _fold_np(dt, yt, ds[cols], dss[cols])
+                        if zero_fill:
+                            d[~pix] = 0.0
+                        d[:, ~con] = 0.0
+                        d[~rows_ok] = 0.0
+                        if pro:
+                            rt = _tma_box(r, n0, hi, wi, ci0, nn, rows_ok)[0] \
+                                if r is not None else None
+                            chans = np.minimum(ci0 + np.arange(F32_BLOCK),
+                                               ci - 1)
+                            xt = _prologue_np(xt, rt, a, b, ar, br, chans,
+                                              relu)
+                            if zero_fill:
+                                xt[~xin] = 0.0
+                            xt[:, ~cin] = 0.0
+                        xt[~rows_ok] = 0.0
+                        for t in range(taps):   # dy's row p - t
+                            dt_ = np.zeros_like(d)
+                            dt_[t:] = d[:F32_BLOCK - t]
+                            acc[t] += xt.astype(np.float64).T @ dt_
+                    cis = ci0 + np.arange(F32_BLOCK)
+                    cos = co0 + np.arange(F32_BLOCK)
+                    for t in range(taps):
+                        planes[z, ky * kw + kx + t][np.ix_(
+                            cis[cis < ci], cos[cos < co])] = \
+                            acc[t][np.ix_(cis < ci, cos < co)]
+    dw = np.zeros((kh * kw, ci, co), np.float32)
+    for z in range(splits):
+        dw = (dw + planes[z]).astype(np.float32)
+    return dw.reshape(kh, kw, ci, co), splits, taps
+
+
+# (n, h, w, ci, co, k, stride, pad, kind) at small sizes: the box kinds
+# (part of a row, whole rows, whole images), stride 2 with odd sizes, taps
+# reaching past the image, Co = 40 with a box partly past it, Ci past 64,
+# 7x7 boxes of 49 rows, a 1x1 stride-2 plain conv
+F32_FWD_DW_CASES = [
+    ("3x3_pro_rows", 2, 9, 11, 8, 12, 3, 1, 1, "pro"),
+    ("3x3_s2_pro_odd", 2, 9, 7, 16, 8, 3, 2, 1, "pro"),
+    ("1x1_s2_plain", 3, 6, 6, 4, 36, 1, 2, 0, "plain"),
+    ("5x5_s2_res_emit", 2, 15, 15, 24, 40, 5, 2, 2, "res"),
+    ("3x3_res_wide", 1, 3, 70, 68, 8, 3, 1, 1, "res"),
+    ("1x1_join_emit_images", 5, 3, 4, 72, 4, 1, 1, 0, "res"),
+    ("3x3_7x7_boxes_plain", 2, 7, 7, 8, 68, 3, 1, 1, "plain"),
+]
+
+
+def _f32_mirrors(case, zero_fill=True):
+    _, n, h, w, ci, co, k, stride, pad, kind = case
+    t = _np_case(case)
+    res = kind == "res"
+    rkw = {key: t.get(key) for key in ("r", "ar", "br")}
+    fwd = fwd_f32_mirror(t["x"], t["w"], t.get("a"), t.get("b"), stride, pad,
+                         True, emit=res, zero_fill=zero_fill, **rkw)
+    dw = dw_f32_mirror(t["x"], t["w"], t.get("a"), t.get("b"), t["y"],
+                       t["dy"], t["ds"], t["dss"], stride, pad, True,
+                       zero_fill=zero_fill, **rkw)
+    tt = {key: torch.from_numpy(v) for key, v in t.items()}
+    trkw = {key: tt.get(key) for key in ("r", "ar", "br")}
+    want_f = fc.fused_conv_reference(tt["x"], tt["w"], tt.get("a"),
+                                     tt.get("b"), stride, pad, True,
+                                     emit=res, **trkw)
+    want_dw = fc.conv_bwd_dw_reference(tt["x"], tt["w"], tt.get("a"),
+                                       tt.get("b"), tt["y"], tt["dy"],
+                                       tt["ds"], tt["dss"], stride, pad,
+                                       True, **trkw)
+    return fwd, dw, want_f, want_dw
+
+
+def _rel_err(got, ref):
+    ref = ref.numpy().astype(np.float64) if isinstance(ref, torch.Tensor) \
+        else ref.astype(np.float64)
+    return np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("case", F32_FWD_DW_CASES,
+                         ids=[c[0] for c in F32_FWD_DW_CASES])
+def test_f32_fwd_and_dw_mirrors_match_the_plain_version(case):
+    """The mirrored f32 K1 writes every y element exactly once (and, when
+    it emits, every xp element once) and equals ``fused_conv_reference``
+    within 1e-5 of max(1, max|plain|), its sums within 1e-5 relative L2;
+    the mirrored f32 K3, its ranges of whole boxes summed in order, equals
+    ``conv_bwd_dw_reference`` within 1e-5 (fp32 sums in another order)."""
+    (y, s, ss, xp, written, emitted), (dw, splits, taps), want_f, want_dw = \
+        _f32_mirrors(case)
+    assert (written == 1).all()
+    assert not np.isnan(y).any()
+    assert _rel_err(y, want_f[0]) <= 1e-5
+    for got, ref in ((s, want_f[1]), (ss, want_f[2])):
+        ref = ref.numpy().astype(np.float64)
+        assert _rel_err(got, ref) <= 1e-5
+        assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-5
+    if case[-1] == "res":
+        assert (emitted == 1).all()
+        assert np.array_equal(xp, want_f[3].numpy())
+    assert splits >= 1 and not np.isnan(dw).any()
+    assert taps == (3 if case[6] == 3 and case[7] == 1 and case[-1] != "res"
+                    else 1)
+    assert _rel_err(dw, want_dw) <= 1e-5
+
+
+@pytest.mark.parametrize("case", [F32_FWD_DW_CASES[0], F32_FWD_DW_CASES[3]],
+                         ids=[F32_FWD_DW_CASES[0][0], F32_FWD_DW_CASES[3][0]])
+def test_f32_fwd_and_dw_must_zero_what_tma_zero_fills(case):
+    """TMA fills the taps outside x (the padding) and the dy pixels
+    outside the output with zeros; the prologue of a zero is relu(b) and
+    the fold of a zero is ds. Without the kernels' zeroing after the
+    rewrite both mirrors leave the plain versions."""
+    (y, *_), (dw, *_), want_f, want_dw = _f32_mirrors(case, zero_fill=False)
+    assert _rel_err(y, want_f[0]) > 1e-2
+    assert _rel_err(dw, want_dw) > 1e-2
+
+
+def test_f32_forward_boxes_cover_every_output_pixel_once(resnet50_convs):
+    """The rows of every f32 K1 box (``fc.tc_box`` over the output), read
+    as the kernel reads them, hold every output pixel exactly once, at the
+    52 ResNet-50 convs (B=32) and chip_smoke's conv cases; the f32 K3
+    walks the same boxes."""
+    import chip_smoke as cs
+
+    shapes = {(32, _out(h, k, s, p), _out(w, k, s, p))
+              for h, w, _, _, k, s, p in resnet50_convs}
+    shapes |= {(c[1], _out(c[2], c[6], c[7], c[8]),
+                _out(c[3], c[6], c[7], c[8])) for c in cs.CONV_CASES}
+    for n, ho, wo in sorted(shapes):
+        bw, bh, bn = fc.tc_box(n, ho, wo)
+        assert bw * bh * bn <= F32_BLOCK
+        tw, th, tn = -(-wo // bw), -(-ho // bh), -(-n // bn)
+        count = np.zeros((n, ho, wo), int)
+        rows = np.arange(bw * bh * bn)
+        jj, ii, nn = rows % bw, (rows // bw) % bh, rows // (bw * bh)
+        blk = np.arange(tw * th * tn)
+        pw = (blk % tw)[:, None] * bw + jj
+        po = ((blk // tw) % th)[:, None] * bh + ii
+        pn = (blk // (tw * th))[:, None] * bn + nn
+        ok = (pn < n) & (po < ho) & (pw < wo)
+        np.add.at(count, (pn[ok], po[ok], pw[ok]), 1)
+        assert (count == 1).all(), (n, ho, wo)
+
+
+@pytest.mark.parametrize("batch", [8, 32, 128])
+def test_f32_weight_gradient_splits_fill_the_card_with_whole_boxes(
+        resnet50_convs, batch):
+    """At every ResNet-50 shape the f32 K3 takes a row of 3 taps a block
+    exactly at 3x3 stride 1, its ranges are whole boxes, none empty, at
+    least 4 boxes each where there are that many; its grid (tiles x
+    ranges) stays within one wave of two blocks an SM where the tiles
+    allow, except where the tiles alone would leave one block on most SMs
+    (132 < tiles < 264: the 144 tiles of 3x3/2 256->256 and the 192 row
+    tiles of 3x3 512->512), which take about four blocks an SM; at B=32
+    and 128 it busies every SM. The head case (3x3 64->64 at 56^2, B=32):
+    3 row tiles x 86 ranges of 21 boxes (58-pixel rows); one tap a block
+    would be 9 tiles x 29 ranges of 62."""
+    for h, w, ci, co, k, s, p in resnet50_convs:
+        ho, wo = _out(h, k, s, p), _out(w, k, s, p)
+        taps = fc.dw_tc_taps(k, s, wo, False)
+        assert taps == (3 if k == 3 and s == 1 else 1)
+        tiles = k * (k // taps) * -(-ci // 64) * -(-co // 64)
+        boxes = fc._boxes(batch, ho, wo, fc.dw_tc_box(batch, ho, wo, k, taps))
+        splits = fc.dw_splits(batch, ho, wo, ci, co, k, k, "f32", taps)
+        per = -(-boxes // splits)
+        assert 1 <= splits <= boxes and (splits - 1) * per < boxes
+        assert per >= min(4, boxes)
+        if 132 < tiles < 264:
+            assert splits == min(-(-528 // tiles), boxes // 4)
+        elif tiles <= 264:
+            assert tiles * splits <= 264
+        if batch >= 32:
+            assert tiles * splits >= SMS, (h, ci, co, k, s)
+    assert fc.dw_splits(32, 56, 56, 64, 64, 3, 3, "f32", 3) == 86
+    assert fc.dw_splits(32, 56, 56, 64, 64, 3, 3, "f32") == 29
+    assert -(-fc._boxes(32, 56, 56) // 29) == 62
+    assert fc.dw_splits(32, 14, 14, 256, 256, 3, 3, "f32") == 4
+    assert fc.dw_splits(32, 14, 14, 256, 256, 3, 3, "tc") == 1
+
+
+def test_f32_fwd_and_dw_shared_memory_patterns():
+    """Each warp-wide 16-byte load of the f32 K1 and K3 products is one
+    wavefront under the 128-byte swizzle (chunk c of row r at r * 128 +
+    ((c ^ r % 8) << 4)): its lanes read at most 8 distinct 16-byte chunks,
+    each in a bank quad of its own. K1: A rows ra + 4i (ra = 16 * (warp /
+    2) + lane / 8) at one chunk, 4 chunks; B row t at chunk lane % 8, 8
+    chunks (tools/torch_lds_wavefronts.py's a_rows and b_rows). K3: per
+    pixel row p the x chunk lane % 8 of box warp % 2 (8 chunks) and the dy
+    chunk of cy = 4 * (warp / 2) + lane / 8 (4 chunks). The rewrites take
+    K2's pattern (held above); K1's epilogue stores its 4 x 4 tile as
+    float4 rows of a 72-float stage: a quarter warp on 32 distinct
+    banks."""
+    lane = np.arange(32)
+
+    def quads_ok(addr):
+        uniq = np.unique(addr)
+        return uniq.size <= 8 and np.unique((uniq // 16) % 8).size == \
+            uniq.size and (uniq % 16 == 0).all()
+
+    def sw(r, c):   # byte offset of chunk c of row r of a 2-box tile
+        return (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r % 8)) << 4)
+
+    for warp in range(8):
+        wr, wc = warp >> 1, warp & 1
+        ra = 16 * wr + (lane >> 3)
+        for c in range(16):
+            for i in range(4):
+                assert quads_ok(sw(ra + 4 * i, np.full(32, c)))
+        for t in range(64):
+            assert quads_ok(wc * 8192 + sw(np.full(32, t), lane & 7))
+        xb, cy = warp & 1, 4 * (warp >> 1) + (lane >> 3)
+        for p in range(64):
+            assert quads_ok(sw(np.full(32, p), 8 * xb + (lane & 7)))
+            assert quads_ok(sw(np.full(32, p), cy))
+        for i in range(4):
+            word = (ra + 4 * i) * 72 + 32 * wc + 4 * (lane & 7)
+            for q in range(4):
+                banks = (word[8 * q:8 * q + 8, None] + np.arange(4)) % 32
+                assert np.unique(banks).size == 32

@@ -15,12 +15,14 @@ by relative L2 error, 1e-4.
 
 Each kernel takes the route ``fc.conv_route`` names: bf16 with both
 widths multiples of 8 the tensor-core kernels (``csrc/fused_conv_tc.cu``
-forward, ``csrc/conv_bwd_tc.cu`` backward), the fp32 input gradient with
-both widths multiples of 4 and 16-byte aligned operands the register
-micro-tile kernel (``csrc/conv_bwd_f32.cu``), everything else the SIMT
-kernels (``csrc/fused_conv.cu``, ``csrc/conv_bwd.cu``); each test below
-states which it reaches.
+forward, ``csrc/conv_bwd_tc.cu`` backward), fp32 with both widths
+multiples of 4 and 16-byte aligned operands the register micro-tile
+kernels (``csrc/fused_conv_f32.cu`` forward, ``csrc/conv_bwd_f32.cu``
+backward), everything else the SIMT kernels (``csrc/fused_conv.cu``,
+``csrc/conv_bwd.cu``); each test below states which it reaches.
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -153,12 +155,13 @@ def test_kernels_match_plain_on_card(cuda_device, case, dtype):
 
 
 def _route_launches():
-    """(dx tc, dw tc, dx simt, dw simt, fwd tc, fwd simt, dx f32)
-    launches."""
+    """(dx tc, dw tc, dx simt, dw simt, fwd tc, fwd simt, dx f32, fwd f32,
+    dw f32) launches."""
     return (fc.conv_bwd_dx_tc_launches, fc.conv_bwd_dw_tc_launches,
             fc.conv_bwd_dx_simt_launches, fc.conv_bwd_dw_simt_launches,
             fc.fused_conv_tc_launches, fc.fused_conv_simt_launches,
-            fc.conv_bwd_dx_f32_launches)
+            fc.conv_bwd_dx_f32_launches, fc.fused_conv_f32_launches,
+            fc.conv_bwd_dw_f32_launches)
 
 
 def _check_against_plain(t, case, dtype):
@@ -188,7 +191,7 @@ def test_bf16_resnet_widths_take_the_tensor_cores(cuda_device, case):
     n0 = _route_launches()
     _check_against_plain(t, case, torch.bfloat16)
     assert _route_launches() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3],
-                                 n0[4] + 1, n0[5], n0[6])
+                                 n0[4] + 1, n0[5], n0[6], n0[7], n0[8])
 
 
 def test_bf16_tensor_core_kernels_repeat_bit_for_bit(cuda_device):
@@ -219,7 +222,7 @@ def test_ragged_bf16_widths_take_the_simt_kernels(cuda_device):
     n0 = _route_launches()
     _check_against_plain(t, case, torch.bfloat16)
     assert _route_launches() == (n0[0], n0[1], n0[2] + 1, n0[3] + 1, n0[4],
-                                 n0[5] + 1, n0[6])
+                                 n0[5] + 1, n0[6], n0[7], n0[8])
 
 
 def test_padding_is_zero_after_the_prologue(cuda_device):
@@ -345,17 +348,18 @@ def test_weight_gradient_splits_fill_the_card_and_keep_whole_steps():
                          ids=[c[0] for c in CASES + RESNET_CASES[:5]])
 def test_fp32_input_gradient_takes_the_f32_kernel(cuda_device, case):
     """fp32 with both widths multiples of 4 (every case here): K2 on the
-    register micro-tile kernel, K1 and K3 on SIMT, all matching the plain
+    register micro-tile kernel, and K1 and K3 too, all matching the plain
     versions; the SIMT K2 named on the same inputs matches too, and the
     f32 K2 repeats bit for bit (partials, then the ordered column
     sums)."""
-    assert fc.conv_route(torch.float32, case[4], case[5], "conv_bwd_dx") \
-        == "f32"
+    for kernel in ("fused_conv", "conv_bwd_dx", "conv_bwd_dw"):
+        assert fc.conv_route(torch.float32, case[4], case[5], kernel) \
+            == "f32"
     t = make_case(case, torch.float32, cuda_device)
     n0 = _route_launches()
     got = _check_against_plain(t, case, torch.float32)
-    assert _route_launches() == (n0[0], n0[1], n0[2], n0[3] + 1, n0[4],
-                                 n0[5] + 1, n0[6] + 1)
+    assert _route_launches() == (n0[0], n0[1], n0[2], n0[3], n0[4],
+                                 n0[5], n0[6] + 1, n0[7] + 1, n0[8] + 1)
     _, _, _, _, _, _, _, stride, pad, kind = case
     rkw = dict(r=t.get("r"), ar=t.get("ar"), br=t.get("br"), g=t.get("g"))
     args = (t["x"], t["w"], t.get("a"), t.get("b"), t["y"], t["dy"],
@@ -396,3 +400,167 @@ def test_fp32_input_gradient_of_a_misaligned_view_takes_simt(cuda_device):
     assert _err(got[0], want[0])[0] <= TOLS[torch.float32]
     with pytest.raises(ValueError, match="16-byte"):
         fc.conv_bwd_dx(*args, route="f32")
+
+
+@pytest.mark.parametrize("case", RESNET_CASES,
+                         ids=[c[0] for c in RESNET_CASES])
+def test_fp32_resnet_widths_take_the_f32_kernels(cuda_device, case):
+    """fp32 at ResNet-50's widths (a stride-2 3x3, a 1x1/2 512->1024, a
+    join with its emitted rows, the 7x7 convs) goes through the f32 K1, K2
+    and K3 and matches the plain versions (sums and dW also by relative
+    L2); the SIMT K1 and K3 named on the same inputs match too."""
+    t = make_case(case, torch.float32, cuda_device)
+    n0 = _route_launches()
+    got = _check_against_plain(t, case, torch.float32)
+    assert _route_launches() == n0[:6] + (n0[6] + 1, n0[7] + 1, n0[8] + 1)
+    want = _run_all(t, case, False)
+    for name in ("sum", "sumsq", "dw"):
+        assert _err(got[name], want[name])[1] <= L2_TOL, name
+    _, _, _, _, _, _, _, stride, pad, kind = case
+    rkw = dict(r=t.get("r"), ar=t.get("ar"), br=t.get("br"))
+    simt = fc.fused_conv(t["x"], t["w"], t.get("a"), t.get("b"), stride, pad,
+                         True, emit=kind == "res", route="simt", **rkw)
+    args = (t["x"], t["w"], t.get("a"), t.get("b"), t["y"], t["dy"],
+            t["ds"], t["dss"], stride, pad, True)
+    simt_dw = fc.conv_bwd_dw(*args, route="simt", **rkw)
+    assert _route_launches()[3] == n0[3] + 1
+    assert _route_launches()[5] == n0[5] + 1
+    assert _err(simt[0], want["y"])[0] <= TOLS[torch.float32]
+    assert _err(simt_dw, want["dw"])[1] <= L2_TOL
+
+
+def test_fp32_misaligned_view_takes_simt_for_the_forward_and_dw(
+        cuda_device):
+    """An x whose base is not 16-byte aligned (a view 4 bytes into its
+    buffer) keeps K1 and K3 on SIMT, matching the plain versions; named,
+    the f32 route raises."""
+    case = CASES[3]
+    t = make_case(case, torch.float32, cuda_device)
+    buf = torch.empty(t["x"].numel() + 1, device=cuda_device)
+    x = buf[1:].view_as(t["x"])
+    x.copy_(t["x"])
+    assert x.data_ptr() % 16 == 4
+    fargs = (x, t["w"], t["a"], t["b"], 2, 1, True)
+    n0 = _route_launches()
+    got = fc.fused_conv(*fargs)
+    want = fc.fused_conv_reference(*fargs)
+    args = (x, t["w"], t["a"], t["b"], want[0], t["dy"], t["ds"], t["dss"],
+            2, 1, True)
+    dw = fc.conv_bwd_dw(*args)
+    now = _route_launches()
+    assert (now[3], now[5], now[7], now[8]) == (n0[3] + 1, n0[5] + 1, n0[7],
+                                                n0[8])
+    assert _err(got[0], want[0])[0] <= TOLS[torch.float32]
+    assert _err(dw, fc.conv_bwd_dw_reference(*args))[1] <= L2_TOL
+    with pytest.raises(ValueError, match="16-byte"):
+        fc.fused_conv(*fargs, route="f32")
+    with pytest.raises(ValueError, match="16-byte"):
+        fc.conv_bwd_dw(*args, route="f32")
+
+
+def test_f32_kernels_repeat_bit_for_bit(cuda_device):
+    """The f32 K1 (partials, then the ordered column sums) and K3 (fp32
+    range planes, then the ordered split sum; one range writes dW itself)
+    use no atomics: two runs give the same bits, at a stride-2 3x3, a join
+    that emits and the 7x7 convs whose K3 takes one range."""
+    for case in (RESNET_CASES[1], RESNET_CASES[3], RESNET_CASES[4]):
+        t = make_case(case, torch.float32, cuda_device)
+        t["y"] = fc.fused_conv_reference(
+            t["x"], t["w"], t.get("a"), t.get("b"), case[7], case[8], True,
+            t.get("r"), t.get("ar"), t.get("br"))[0]
+        n0 = _route_launches()
+        first, second = (_run_all(t, case, True) for _ in range(2))
+        assert _route_launches()[7:] == (n0[7] + 2, n0[8] + 2)
+        for name in first:
+            if first[name] is not None:
+                assert torch.equal(first[name], second[name]), name
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_f32_padding_is_zero_after_the_prologue(cuda_device, stride):
+    """The f32 K1 rewrites a padded tap to 0, not relu(b) (TMA fills it
+    with 0, which the prologue would map to relu(b)): with x = 0 and b =
+    0.5 the centre of a 3x3 all-ones conv is 9*0.5*Ci, a corner 4*0.5*Ci
+    (exact in fp32); the f32 K3 of the same conv, with dy = 1 and no
+    statistics cotangents, counts the taps inside: its centre tap sees
+    every output pixel, a corner tap fewer."""
+    ci = 8
+    x = torch.zeros(2, 5, 5, ci, device=cuda_device)
+    w = torch.ones(3, 3, ci, 8, device=cuda_device)
+    a = torch.ones(ci, device=cuda_device)
+    b = torch.full((ci,), 0.5, device=cuda_device)
+    n0 = _route_launches()
+    y, s, _ = fc.fused_conv(x, w, a, b, stride, 1, True)
+    torch.cuda.synchronize()
+    want, want_s, _ = fc.fused_conv_reference(x, w, a, b, stride, 1, True)
+    assert torch.equal(y, want) and torch.equal(s, want_s)
+    c = 2 // stride
+    assert y[0, c, c, 0].item() == 9 * 0.5 * ci
+    assert y[1, 0, 0, 7].item() == 4 * 0.5 * ci
+    dy = torch.ones_like(y)
+    zero = torch.zeros(8, device=cuda_device)
+    dw = fc.conv_bwd_dw(x, w, a, b, y, dy, zero, zero, stride, 1, True)
+    want_dw = fc.conv_bwd_dw_reference(x, w, a, b, y, dy, zero, zero,
+                                       stride, 1, True)
+    assert _route_launches()[7:] == (n0[7] + 1, n0[8] + 1)
+    assert torch.equal(dw, want_dw)
+    pixels = y.shape[0] * y.shape[1] * y.shape[2]
+    assert dw[1, 1, 0, 0].item() == 0.5 * pixels
+    assert dw[0, 0, 0, 0].item() < 0.5 * pixels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_tma_kernels_launch_from_a_fresh_thread(cuda_device, dtype):
+    """A thread whose first CUDA work is a kernel fed by TMA (torch's
+    autograd thread running a conv's backward, or any new thread) still
+    launches it: the tensor-map encoder (cuTensorMapEncodeTiled) needs
+    the thread's context, which the wrappers' first runtime call binds. K3
+    (f32 in fp32, tensor cores in bf16) and then K1 on the new thread
+    match the same calls on this one."""
+    case = RESNET_CASES[1]
+    t = make_case(case, dtype, cuda_device)
+    args = (t["x"], t["w"], t["a"], t["b"], t["x"][:, ::2, ::2, :]
+            .contiguous(), t["dy"], t["ds"], t["dss"], 2, 1, True)
+    want = (fc.conv_bwd_dw(*args), fc.fused_conv(*args[:4], 2, 1, True)[0])
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["got"] = (fc.conv_bwd_dw(*args),
+                          fc.fused_conv(*args[:4], 2, 1, True)[0])
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised on the test's thread
+            out["err"] = e
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    if "err" in out:
+        raise out["err"]
+    for got, ref in zip(out["got"], want):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("case", CASES + RESNET_CASES,
+                         ids=[c[0] for c in CASES + RESNET_CASES])
+def test_f32_forward_gives_the_simt_kernels_bits(cuda_device, case):
+    """Where fp32 K1 takes the f32 route, its y, sums and emitted
+    activation equal the SIMT K1's bit for bit: both accumulate each
+    output over (tap, channel) in ascending order in fp32 FMAs, and the
+    f32 route takes the sums in the SIMT epilogue's order. So the fp32
+    results do not depend on the route (a misaligned view takes SIMT)."""
+    _, _, _, _, ci, co, _, stride, pad, kind = case
+    assert fc.conv_route(torch.float32, ci, co) == "f32"
+    t = make_case(case, torch.float32, cuda_device)
+    args = (t["x"], t["w"], t.get("a"), t.get("b"), stride, pad, True)
+    rkw = dict(r=t.get("r"), ar=t.get("ar"), br=t.get("br"),
+               emit=kind == "res")
+    n0 = _route_launches()
+    got = fc.fused_conv(*args, **rkw)
+    simt = fc.fused_conv(*args, route="simt", **rkw)
+    assert _route_launches()[5] == n0[5] + 1
+    assert _route_launches()[7] == n0[7] + 1
+    for a, b in zip(got, simt):
+        assert torch.equal(a, b)

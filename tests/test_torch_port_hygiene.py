@@ -161,7 +161,7 @@ def test_kernel_build_is_content_addressed():
                                    "flash_bwd", "flash_bwd_f32",
                                    "flash_bwd_tc", "fused_conv", "conv_bwd",
                                    "conv_bwd_f32", "conv_bwd_tc",
-                                   "fused_conv_tc"}
+                                   "fused_conv_f32", "fused_conv_tc"}
     assert not fa._fwd_fns or torch.cuda.is_available()
     assert not fa._bwd_fns or torch.cuda.is_available()
     assert not fc._fns or torch.cuda.is_available()
@@ -477,13 +477,13 @@ def test_chip_smoke_resnet_phase_rehearses_on_the_cpu(monkeypatch):
     zero = {k: 0 for k in cs.CONV_KERNELS}
     routes = {(k, r): 0 for k in cs.ROUTED for r in cs.CONV_ROUTES[k]}
     fp32 = cs.conv_routes_expected(torch.float32)
-    assert fp32 == {"fused_conv": "simt", "conv_bwd_dx": "f32",
-                    "conv_bwd_dw": "simt"}
+    assert fp32 == {"fused_conv": "f32", "conv_bwd_dx": "f32",
+                    "conv_bwd_dw": "f32"}
     assert windows == [(zero, (19, 1, 1, routes, fp32)),
-                       (zero, (19, 1, 0, routes, "simt")),
+                       (zero, (19, 1, 0, routes, fp32)),
                        (zero, (19, 1, 0, routes, "tc")),
                        (zero, (19, 1, 0, routes, "simt")),
-                       (zero, (19, 2, 0, routes, "simt")),
+                       (zero, (19, 2, 0, routes, fp32)),
                        (zero, (19, 12, 12, routes, fp32)),
                        (zero, (19, 1, 1, routes, "tc")),
                        (zero, (19, 18, 18, routes, "tc"))]

@@ -8,10 +8,13 @@ Builds a probe kernel (in a temporary directory, with the package's
 ``nvcc`` flags) in which every warp of a 1024-thread block runs a long
 run of independent ``ld.shared.v4.f32`` at one pattern, and prints the
 SM's clock cycles per warp-wide load. The patterns are the ones the fp32
-flash backward (``csrc/flash_bwd_f32.cu``) reads with: ``a_rows`` (4
-distinct 16-byte chunks in 4 bank quads, 8 lanes on each: a micro-tile's
-A rows), ``b_rows`` (8 distinct chunks in the 8 bank quads, 4 lanes on
-each: its B rows and the second products' B chunks); and, to read them
+micro-tile kernels (``csrc/flash_bwd_f32.cu``, ``csrc/flash_fwd_f32.cu``,
+``csrc/fused_conv_f32.cu``, ``csrc/conv_bwd_f32.cu``) read with:
+``a_rows`` (4 distinct 16-byte chunks in 4 bank quads, 8 lanes on each: a
+micro-tile's A rows; the conv K3's dy chunks), ``b_rows`` (8 distinct
+chunks in the 8 bank quads, 4 lanes on each: its B rows, the second
+products' B chunks, the conv K1's w rows and K3's x chunks); and, to read
+them
 against, ``broadcast`` (one chunk), ``distinct`` (32 chunks, 512
 contiguous bytes) and ``conflict4`` (4 chunks in one bank quad). About 1
 cycle a load means one wavefront; 4 means the hardware serves the warp in

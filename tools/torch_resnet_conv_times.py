@@ -8,12 +8,13 @@ model's own bottlenecks (shape, stride, and what its prologue holds: none,
 the BatchNorm, or the residual join with its emitted activation), and for
 each distinct one times K1 (``fused_conv``), K2 (``conv_bwd_dx``) and K3
 (``conv_bwd_dw``) on the routes the rule takes (CUDA-graph replay,
-``chip_smoke.device_ms``), K2 on the SIMT kernel by name where the rule
-takes another (``K2 simt``), and cuDNN's forward (``F.conv2d`` on
-channels-last tensors) and input gradient (``aten.convolution_backward``),
-timed only, on random inputs made as ``chip_smoke.py`` makes its conv
-cases. Prints one row per shape with its count in the net and each
-kernel's time, and the sums over the 52 convs: a forward's and a
+``chip_smoke.device_ms``), each of them on the SIMT kernel by name where
+the rule takes another (``K1 simt``, ``K2 simt``, ``K3 simt``), and
+cuDNN's forward (``F.conv2d`` on channels-last tensors), input gradient
+and weight gradient (``aten.convolution_backward`` with the input's or
+the weight's mask), timed only, on random inputs made as ``chip_smoke.py``
+makes its conv cases. Prints one row per shape with its count in the net
+and each kernel's time, and the sums over the 52 convs: a forward's and a
 backward's kernel time split by shape. Needs a card.
 """
 
@@ -82,8 +83,8 @@ def main(argv=None) -> int:
     print(f"fused convs of fused_resnet50_v1, B={args.batch}, "
           f"{args.dtype}: ms per call (device, CUDA graph) and x count",
           flush=True)
-    totals = dict(fwd=0.0, dx=0.0, dw=0.0, cudnn=0.0, dx_simt=0.0,
-                  cudnn_dx=0.0)
+    totals = dict(fwd=0.0, dx=0.0, dw=0.0, fwd_simt=0.0, dx_simt=0.0,
+                  dw_simt=0.0, cudnn=0.0, cudnn_dx=0.0, cudnn_dw=0.0)
     for (h, ci, co, k, s, p, kind), count in counts.items():
         name = f"{k}x{k}{'/2' if s == 2 else ''} {ci}->{co} {h}^2 {kind}"
         case = (name, args.batch, h, h, ci, co, k, s, p, kind)
@@ -99,38 +100,48 @@ def main(argv=None) -> int:
         dy_cl = t["dy"].permute(0, 3, 1, 2)
         w_cl = t["w"].permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        routes = {kern: fc.conv_route(dtype, ci, co, kern) for kern in
-                  ("fused_conv", "conv_bwd_dx", "conv_bwd_dw")}
+        kernels = {
+            "fwd": ("fused_conv", lambda route=None: fc.fused_conv(
+                *fargs, emit=res, route=route, **rkw)),
+            "dx": ("conv_bwd_dx", lambda route=None: fc.conv_bwd_dx(
+                *bargs, g=t.get("g"), route=route, **rkw)),
+            "dw": ("conv_bwd_dw", lambda route=None: fc.conv_bwd_dw(
+                *bargs, route=route, **rkw))}
+        routes = {key: fc.conv_route(dtype, ci, co, kern)
+                  for key, (kern, _) in kernels.items()}
+        conv_args = ([s] * 2, [p] * 2, [1, 1], False, [0, 0], 1)
         ms = dict(
-            fwd=cs.device_ms(lambda: fc.fused_conv(*fargs, emit=res,
-                                                   **rkw)),
-            dx=cs.device_ms(lambda: fc.conv_bwd_dx(*bargs, g=t.get("g"),
-                                                   **rkw)),
-            dw=cs.device_ms(lambda: fc.conv_bwd_dw(*bargs, **rkw)),
             cudnn=cs.device_ms(lambda: F.conv2d(x_cl, w_cl, stride=s,
                                                 padding=p)),
-            dx_simt=cs.device_ms(lambda: fc.conv_bwd_dx(
-                *bargs, g=t.get("g"), route="simt", **rkw))
-            if routes["conv_bwd_dx"] != "simt" else None,
             cudnn_dx=cs.device_ms(
                 lambda: torch.ops.aten.convolution_backward(
-                    dy_cl, x_cl, w_cl, None, [s] * 2, [p] * 2, [1, 1],
-                    False, [0, 0], 1, [True, False, False])))
-        if ms["dx_simt"] is None:
-            ms["dx_simt"] = ms["dx"]
+                    dy_cl, x_cl, w_cl, None, *conv_args,
+                    [True, False, False])),
+            cudnn_dw=cs.device_ms(
+                lambda: torch.ops.aten.convolution_backward(
+                    dy_cl, x_cl, w_cl, None, *conv_args,
+                    [False, True, False])))
+        for key, (_, call) in kernels.items():
+            ms[key] = cs.device_ms(call)
+            ms[key + "_simt"] = ms[key] if routes[key] == "simt" else \
+                cs.device_ms(lambda: call("simt"))
         for key in totals:
             totals[key] += count * ms[key]
         print(f"  {name:28s} x{count:<2d} routes K1/K2/K3 "
               f"{'/'.join(routes.values())}: K1 {ms['fwd']:.5f}  K2 "
-              f"{ms['dx']:.5f}  K3 {ms['dw']:.5f}  K2 simt "
-              f"{ms['dx_simt']:.5f}  cuDNN fwd {ms['cudnn']:.5f}  cuDNN dx "
-              f"{ms['cudnn_dx']:.5f}", flush=True)
+              f"{ms['dx']:.5f}  K3 {ms['dw']:.5f}  K1 simt "
+              f"{ms['fwd_simt']:.5f}  K2 simt {ms['dx_simt']:.5f}  K3 simt "
+              f"{ms['dw_simt']:.5f}  cuDNN fwd {ms['cudnn']:.5f}  cuDNN dx "
+              f"{ms['cudnn_dx']:.5f}  cuDNN dw {ms['cudnn_dw']:.5f}",
+              flush=True)
         del t, y
         gc.collect()
     print(f"sum over the 52 convs (ms per pass): K1 {totals['fwd']:.3f}, "
-          f"K2 {totals['dx']:.3f}, K3 {totals['dw']:.3f}, K2 simt "
-          f"{totals['dx_simt']:.3f}, cuDNN forward {totals['cudnn']:.3f}, "
-          f"cuDNN dx {totals['cudnn_dx']:.3f}", flush=True)
+          f"K2 {totals['dx']:.3f}, K3 {totals['dw']:.3f}, K1 simt "
+          f"{totals['fwd_simt']:.3f}, K2 simt {totals['dx_simt']:.3f}, K3 "
+          f"simt {totals['dw_simt']:.3f}, cuDNN forward "
+          f"{totals['cudnn']:.3f}, cuDNN dx {totals['cudnn_dx']:.3f}, cuDNN "
+          f"dw {totals['cudnn_dw']:.3f}", flush=True)
     return 0
 
 
