@@ -109,7 +109,26 @@ Phases (any failure raises, and the script exits non-zero):
    oracle, the forward gate's fp32 forward, the learning check, the eager
    steps, eval) on the f32 route, every bf16 one on the tensor-core
    route;
-8. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
+8. unfused ResNet phase: ``get_model("resnet50_v1", classes=1000)``, the
+   gluon layer set (NCHW, cuDNN and cuBLAS; no hand-written kernel:
+   the JAX package leaves these convs to XLA), ``initialize("xavier")``
+   and one forward that fills its deferred shapes; its inventory
+   (25,610,152 values with the running statistics: 161 trainable tensors,
+   106 running statistics, 53 convs); one fp32 training step at B=8
+   against ``fused_resnet50_v1`` with the same weights (OIHW -> HWIO,
+   ``zoo_to_fused``): the loss and the 106 running statistics within
+   ``UNFUSED_TOL``, the 161 gradients within ``UNFUSED_GRAD_RTOL``
+   relative L2, then the eval logits; an fp32 learning check through
+   ``gluon.Trainer(..., kvstore="device")``; then bench.py's resnet50 row
+   (bf16, B=128, ``SPMDTrainer`` SGD lr 0.1 momentum 0.9, 5 steps after
+   2 warmup, a ``torch.profiler`` breakdown and the idle share), in NCHW
+   and with the activations and conv weights in ``torch.channels_last``
+   memory format. K1, K2 and K3 launch 0 times over every unfused pass;
+9. MLP phase: bench.py's mlp row (``Dense(512, activation="relu")``
+   twice and ``Dense(10)``, no ``in_units``; xavier, bf16, B=8192,
+   ``SPMDTrainer`` SGD lr 0.1 momentum 0.9): the loss falls by 5% over
+   20 steps on one batch, then the step is timed;
+10. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
    kernels (K7, ``csrc/rtc/*.cu``, compiled by NVRTC in the build step)
    run an ``mx.rtc`` program (``scale`` and ``saxpy`` over 163,037,184
    floats, ``first_row`` of a (50257, 768) embedding) held bit for bit
@@ -126,17 +145,22 @@ Phases (any failure raises, and the script exits non-zero):
    against its plain version at the path's shapes (softmax_ce_fwd within
    1e-5 of each probability, relative; the
    rest bit for bit), timed (CUDA-graph replay) beside its plain version,
-   a library call and its byte bound; K7's cases beside the path
+   a library call and its byte bound, ``first_row`` beside the graph
+   replay of an empty kernel (the launch floor); K7's cases beside the
+   path
    (``rtc_cases``: softmax_ce_fwd over rows longer than the resident limit,
    (256, 100003), and over (5, 7) and (3, 4099), each with its plan,
    resident or streamed, printed, and with req="add" at the path's shape;
    scale over 163,037,181 floats on views at offsets of 1 and 3 floats,
-   into a new array and into a view at x's offset), held and timed the
-   same way; and ``mx.nd.flash_attention`` and
+   into a new array and into a view at x's offset; saxpy over the same
+   views, a at the offset with b and out aligned, and all three at the
+   offset), held and timed the same way; and ``mx.nd.flash_attention`` and
    ``invoke_op("fused_conv_bn")`` with gradients, equal to the direct
    calls bit for bit.
 
-The line before the last is the kernels' JSON record (K1 to K7; K1 to K6
+The third line from the end (``rows: {...}``) gives the bench rows: the
+fused and unfused ResNet-50 and the MLP, bf16, step ms and images/s. The
+line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
 fp32 head case, ``flash_fwd_f32``/``fused_conv_f32``/``conv_bwd_dx_f32``/
@@ -2140,6 +2164,311 @@ def resnet_main(seed, card):
 
 
 # ---------------------------------------------------------------------------
+# unfused ResNet phase: the zoo resnet50_v1 of the gluon layer set (bench.py's
+# resnet50 row), and the MLP phase (bench.py's mlp row)
+# ---------------------------------------------------------------------------
+# the unfused model against the fused one, fp32, same weights: eval logits,
+# the training loss and the running statistics (relative), each gradient
+# (relative L2: the JAX package's own bound between the two models on a
+# chip, tests/test_fused_resnet.py)
+UNFUSED_TOL = 1e-4
+UNFUSED_GRAD_RTOL = 5e-2
+# batch sizes of the unfused phase: the parity check, the learning check,
+# the bench row
+UNFUSED_BATCHES = (8, 16, 128)
+
+
+def zoo_to_fused(zoo, fused):
+    """Set ``fused``'s parameters (NHWC/HWIO) to ``zoo``'s (NCHW/OIHW), on
+    the device, as the JAX package's ``tests/test_fused_resnet.py``
+    ``_build_pair`` maps them: the two inventories in order, conv weights
+    OIHW -> HWIO. Returns the pairs of names."""
+    zp = list(zoo.collect_params().items())
+    fp = list(fused.collect_params().items())
+    if len(zp) != len(fp):
+        raise AssertionError(f"{len(zp)} zoo tensors against {len(fp)} "
+                             "fused ones")
+    with torch.no_grad():
+        for (zn, z), (fn, f) in zip(zp, fp):
+            v = z.detach().permute(2, 3, 1, 0) if z.dim() == 4 \
+                else z.detach()
+            if tuple(v.shape) != tuple(f.shape):
+                raise AssertionError(f"{zn} {tuple(z.shape)} does not map "
+                                     f"to {fn} {tuple(f.shape)}")
+            fused.set_param(fn, v.contiguous().clone())
+    return [(zn, fn) for (zn, _), (fn, _) in zip(zp, fp)]
+
+
+def unfused_parity(zoo, fused, ce, x, y):
+    """One fp32 training step of ``zoo`` and of ``fused`` (its weights
+    mapped from ``zoo``'s) from the same state: the loss and every running
+    statistic within ``UNFUSED_TOL`` (largest difference over the largest
+    value), every gradient within ``UNFUSED_GRAD_RTOL`` relative L2; then
+    a training-mode forward of each at BatchNorm momentum 0 (the running
+    statistics become this batch's) and the eval logits within
+    ``UNFUSED_TOL`` relative L2. The zoo model's passes launch no fused conv kernel.
+    Returns the worst distances."""
+    import incubator_mxnet_tpu_torch as mx
+
+    pairs = zoo_to_fused(zoo, fused)
+    zps, fps = zoo.collect_params(), fused.collect_params()
+    out = {}
+    _reset_conv_launches()
+    for net in (zoo, fused):
+        with mx.autograd.record():
+            loss = ce(net(x), y).mean()
+        loss.backward()
+        out[net] = loss.item()
+        if net is zoo:
+            zoo_launches = _conv_launches()
+    loss_err = abs(out[zoo] - out[fused]) / abs(out[fused])
+    stats, grads = (0.0, ""), (0.0, "")
+    n_stats = n_grads = 0
+    for zn, fn in pairs:
+        z, f = zps[zn], fps[fn]
+        if z.requires_grad:
+            g = f.grad.permute(3, 2, 0, 1) if f.dim() == 4 else f.grad
+            grads = max(grads, (_rel_l2(z.grad, g), zn))
+            n_grads += 1
+        else:
+            stats = max(stats, (_rel_l2(z.detach(), f.detach()), zn))
+            n_stats += 1
+    momenta = {m: m._momentum for net in (zoo, fused)
+               for m in net.modules() if hasattr(m, "_momentum")}
+    try:
+        for m in momenta:
+            m._momentum = 0.0
+        with torch.no_grad(), mx.autograd.train_mode():
+            zoo(x), fused(x)
+    finally:
+        for m, v in momenta.items():
+            m._momentum = v
+    with mx.autograd.pause():
+        logits_err = _rel_l2(zoo(x), fused(x))
+    res = dict(loss=out[zoo], fused_loss=out[fused], loss_err=loss_err,
+               stats_worst=stats[0], stats_worst_name=stats[1],
+               grad_worst=grads[0], grad_worst_name=grads[1],
+               eval_logits_err=logits_err, n_trainable=n_grads,
+               n_running_stats=n_stats, zoo_launches=zoo_launches)
+    print(f"unfused vs fused (fp32, B={x.shape[0]}, same weights): loss "
+          f"{out[zoo]:.6f} vs {out[fused]:.6f} (relative {loss_err:.3e}); "
+          f"worst of the {n_stats} running statistics {stats[0]:.3e} "
+          f"relative L2 ({stats[1]}), tol {UNFUSED_TOL:g}; worst of the "
+          f"{n_grads} "
+          f"gradients {grads[0]:.3e} relative L2 ({grads[1]}), tol "
+          f"{UNFUSED_GRAD_RTOL:g}; eval logits {logits_err:.3e} relative "
+          f"L2, tol "
+          f"{UNFUSED_TOL:g}; fused conv launches over the unfused passes "
+          f"{zoo_launches}", flush=True)
+    if not (loss_err <= UNFUSED_TOL and stats[0] <= UNFUSED_TOL
+            and logits_err <= UNFUSED_TOL and grads[0] <= UNFUSED_GRAD_RTOL
+            and math.isfinite(out[zoo])):
+        raise AssertionError("the unfused ResNet disagrees with the fused "
+                             "one")
+    if any(zoo_launches.values()):
+        raise AssertionError("the unfused ResNet launched a fused conv "
+                             f"kernel: {zoo_launches}")
+    for net in (zoo, fused):
+        for p in net.parameters():
+            p.grad = None
+    return res
+
+
+def _bench_steps(st, x, y, steps=5, warmup=2):
+    """Host-clock ms per ``st.step`` over ``steps`` after ``warmup``, and
+    the peak memory of those steps."""
+    for _ in range(warmup):
+        st.step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [st.step(x, y) for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if not all(torch.isfinite(v) for v in losses):
+        raise AssertionError("bench row: loss not finite")
+    return step_ms, torch.cuda.max_memory_allocated(), \
+        [float(v) for v in losses]
+
+
+def _idle(rows, step_ms):
+    total = sum(r[0] for r in rows)
+    return None if total == 0 else max(0.0, 1 - total / step_ms)
+
+
+def unfused_resnet_phase(seed, card, net, fused, ctx, hw=224,
+                         batches=UNFUSED_BATCHES):
+    """Drive ``net`` (the zoo ``resnet50_v1`` from ``unfused_resnet_main``,
+    initialized on ``ctx``, deferred shapes filled) as the module
+    docstring says: the parity check against ``fused`` (a fused ResNet of
+    the same architecture), the fp32 learning check through
+    ``gluon.Trainer(..., kvstore="device")``, then bench.py's resnet50 row
+    in bf16 (NCHW, then the activations and conv weights in
+    ``torch.channels_last`` memory format). No fused conv kernel may
+    launch on the unfused passes."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, parallel
+
+    dev = ctx.torch_device()
+    b_parity, b_train, b_bench = batches
+    classes = net.output.weight.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 53)
+
+    def batch(b):
+        x = torch.rand((b, 3, hw, hw), generator=gen, device=dev)
+        y = torch.randint(0, classes, (b,), generator=gen, device=dev)
+        return x, y.float()
+
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    parity = unfused_parity(net, fused, ce, *batch(b_parity))
+
+    # the fp32 learning check: eager record -> backward -> gluon.Trainer
+    _reset_conv_launches()
+    x, y = batch(b_train)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.01, "momentum": 0.9},
+                            kvstore="device")
+    losses = []
+    for _ in range(6):
+        with mx.autograd.record():
+            per_sample = ce(net(x), y)
+        mx.autograd.backward(per_sample)
+        trainer.step(x.shape[0])
+        losses.append(float(per_sample.detach().mean()))
+    print(f"unfused learning check (fp32 gluon.Trainer kvstore='device', "
+          f"B={b_train}, sgd lr 0.01 momentum 0.9, one batch repeated): "
+          f"losses {[round(v, 4) for v in losses]}", flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 0.95 * losses[0]:
+        raise AssertionError("the unfused loss did not fall by 5% over 5 "
+                             "steps")
+    del trainer
+    _check_launches("unfused fp32 learning check", _conv_launches(), 0, 6,
+                    6, _route_launches(), "f32")
+
+    # bench.py's resnet50 row: bf16, SPMDTrainer SGD lr 0.1 momentum 0.9
+    net.cast("bfloat16")
+    gc.collect()
+    x, y = batch(b_bench)
+    x = x.to(torch.bfloat16)
+    rows = {}
+    _reset_conv_launches()
+    for layout in ("nchw", "channels_last"):
+        if layout == "channels_last":
+            with torch.no_grad():
+                for p in net.parameters():
+                    if p.dim() == 4:
+                        p.data = p.data.contiguous(
+                            memory_format=torch.channels_last)
+            x = x.contiguous(memory_format=torch.channels_last)
+        st = parallel.SPMDTrainer(net, ce, "sgd",
+                                  {"learning_rate": 0.1, "momentum": 0.9})
+        step_ms, peak, bench_losses = _bench_steps(st, x, y)
+        prof = _profile_step(st.step, x, y, card, step_ms, tags=(),
+                             top=12, what=f"unfused bf16 step ({layout})")
+        rows[layout] = dict(batch=b_bench, step_ms=step_ms,
+                            images_s=b_bench / step_ms * 1e3,
+                            peak_bytes=peak, idle=_idle(prof, step_ms),
+                            device_ms=sum(r[0] for r in prof),
+                            losses=bench_losses, profile=prof[:12])
+        print(f"unfused bf16 SPMDTrainer step ({layout}, B={b_bench}, sgd "
+              f"lr 0.1 momentum 0.9; {card}): {step_ms:.3f} ms per step "
+              f"(host clock, 5 steps after 2 warmup), "
+              f"{rows[layout]['images_s']:.1f} images/s, peak memory "
+              f"{peak / 2**20:.1f} MiB", flush=True)
+        del st
+        gc.collect()
+    _check_launches("unfused bf16 bench row (both layouts)", _conv_launches(),
+                    0, 16, 16, _route_launches(), "tc")
+    return dict(parity=parity, learning_losses=losses, bench=rows)
+
+
+def unfused_resnet_main(seed, card):
+    """The unfused phase on ``get_model("resnet50_v1", classes=1000)``,
+    held against ``fused_resnet50_v1`` with the same weights."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_model
+
+    ctx = mx.gpu(0)
+    mx.random.seed(seed)
+    net = get_model("resnet50_v1", classes=1000).initialize("xavier",
+                                                           ctx=ctx)
+    with mx.autograd.pause():              # fills the deferred shapes
+        net(torch.zeros(2, 3, 224, 224, device=ctx.torch_device()))
+    ps = net.collect_params()
+    counts = (sum(p.numel() for p in ps.values()),
+              sum(p.requires_grad for p in ps.values()),
+              sum(not p.requires_grad for p in ps.values()),
+              sum(p.dim() == 4 for p in ps.values()))
+    print(f"model resnet50_v1 (unfused, NCHW): {counts[0]} parameters "
+          f"with the running statistics, {counts[1]} trainable tensors, "
+          f"{counts[2]} running statistics, {counts[3]} convs", flush=True)
+    if counts != (25_610_152, 161, 106, 53):
+        raise AssertionError(f"resnet50_v1's inventory {counts}")
+    fused = get_model("fused_resnet50_v1", classes=1000).initialize(
+        "xavier", ctx=ctx)
+    out = unfused_resnet_phase(seed, card, net, fused, ctx)
+    out["inventory"] = counts
+    return out
+
+
+# bench.py's mlp row: B=8192, 784 -> 512 -> 512 -> 10
+MLP_BATCH = 8192
+
+
+def mlp_phase(seed, card, ctx, b=MLP_BATCH, steps=20):
+    """bench.py's mlp row at one card: ``HybridSequential`` of
+    ``Dense(512, activation="relu")`` twice and ``Dense(10)`` (no
+    ``in_units``), ``initialize("xavier")``, ``cast("bfloat16")``, one
+    forward of zeros that fills the deferred shapes, then
+    ``SPMDTrainer`` SGD lr 0.1 momentum 0.9 on one batch of ``b`` uniform
+    images whose labels a fixed random linear map of the image picks (a
+    task the net can learn; the row's random labels fall under 5% in
+    tens of steps): the loss must fall by 5% over ``steps`` steps; then
+    timed (5 steps after 2 warmup)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, parallel
+    from incubator_mxnet_tpu_torch.gluon import nn
+
+    dev = ctx.torch_device()
+    mx.random.seed(seed)
+    net = nn.HybridSequential()
+    net.add(nn.Dense(512, activation="relu"),
+            nn.Dense(512, activation="relu"), nn.Dense(10))
+    net.initialize("xavier", ctx=ctx)
+    net.cast("bfloat16")
+    net(torch.zeros(2, 784, dtype=torch.bfloat16, device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 61)
+    x = torch.rand((b, 784), generator=gen, device=dev)
+    proj = torch.randn((784, 10), generator=gen, device=dev)
+    y = ((x - 0.5) @ proj).argmax(1).float()
+    x = x.to(torch.bfloat16)
+    st = parallel.SPMDTrainer(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              "sgd", {"learning_rate": 0.1, "momentum": 0.9})
+    losses = [float(st.step(x, y)) for _ in range(steps)]
+    print(f"MLP learning check (bf16 SPMDTrainer, B={b}, sgd lr 0.1 "
+          f"momentum 0.9, one batch repeated): losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 0.95 * losses[0]:
+        raise AssertionError(f"the MLP loss did not fall by 5% over "
+                             f"{steps} steps")
+    step_ms, peak, _ = _bench_steps(st, x, y)
+    print(f"MLP bf16 SPMDTrainer step (B={b}, 784-512-512-10; {card}): "
+          f"{step_ms:.4f} ms per step (host clock, 5 steps after 2 warmup), "
+          f"{b / step_ms * 1e3:.1f} images/s, peak memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    prof = _profile_step(st.step, x, y, card, step_ms, tags=(), top=8,
+                         what="MLP bf16 step")
+    return dict(batch=b, learning_losses=losses, step_ms=step_ms,
+                images_s=b / step_ms * 1e3, peak_bytes=peak,
+                idle=_idle(prof, step_ms),
+                device_ms=sum(r[0] for r in prof))
+
+
+# ---------------------------------------------------------------------------
 # imperative phase: mx.nd, mx.operator and mx.rtc (K7)
 # ---------------------------------------------------------------------------
 RTC_KERNELS = ("scale", "saxpy", "first_row", "softmax_ce_fwd",
@@ -2231,14 +2560,18 @@ def _plan_text(plan):
 def rtc_cases(gen, dev, path_shape, flat, softmax_shapes=RTC_SOFTMAX_SHAPES,
               offsets=RTC_SCALE_OFFSETS):
     """K7's cases beside the path, each held against its plain version
-    (softmax_ce_fwd 1e-5 relative, scale bit for bit) and timed beside its
-    plain version, one library call (none for req="add") and its bound:
+    (softmax_ce_fwd 1e-5 relative, scale and saxpy bit for bit) and timed
+    beside its plain version, one library call (none for req="add") and
+    its bound:
     softmax_ce_fwd at each of ``softmax_shapes`` and, with req="add", at
     ``path_shape``, each with its plan (resident or streamed); scale over
     ``flat - 3`` floats on views of a larger buffer at each of ``offsets``,
     into a new array (x and y at two alignment phases: single floats) and
     into a view at x's offset (one phase: a head, 16-byte quads, a
-    tail). Launches made here are not counted. Any failure raises."""
+    tail); saxpy over the same views, a at each offset with b and out
+    aligned (three pointers at two phases: single floats) and all three at
+    the offset into a view (a head, quads, a tail). Launches made here are
+    not counted. Any failure raises."""
     from incubator_mxnet_tpu_torch.ndarray import NDArray
     from incubator_mxnet_tpu_torch.ops import rtc_kernels as rk
 
@@ -2321,7 +2654,39 @@ def rtc_cases(gen, dev, path_shape, flat, softmax_shapes=RTC_SOFTMAX_SHAPES,
               lambda: torch.mul(x.as_torch(), 0.5, out=y.as_torch()),
               rtc_bound("scale", (n,)), offset_x=off, offset_y=off)
         del x, y, want
-    del buf, out
+    # saxpy over the same views: a at the offset with b and out aligned
+    # (several phases: single floats), and all three at the offset into a
+    # view (one phase: a head, 16-byte quads, a tail)
+    bbuf = torch.randn(flat + 1, generator=gen, device=dev)
+    for off in offsets:
+        a = NDArray(buf[off:off + n])
+        for label, b, y in (
+                ("mixed", NDArray(bbuf[:n]), NDArray(out[:n])),
+                ("view_out", NDArray(bbuf[off:off + n]),
+                 NDArray(out[off:off + n]))):
+            want = rk.saxpy_reference(a.as_torch(), b.as_torch(), 2.0)
+
+            def launch(a=a, b=b, y=y):      # the kernel itself, into y
+                if a.ctx.device_type == "cpu":  # the CPU rehearsal
+                    y.as_torch().copy_(rk.saxpy_reference(
+                        a.as_torch(), b.as_torch(), 2.0))
+                else:
+                    rk.kernel("saxpy").launch([a, b, y, 2.0, n], a.ctx,
+                                              *rk.saxpy_plan(n))
+            launch()
+            check(f"saxpy_view{off}_{label}", "saxpy", (n,), y.as_torch(),
+                  want, 0.0, launch,
+                  lambda a=a, b=b: rk.saxpy_reference(a.as_torch(),
+                                                      b.as_torch(), 2.0),
+                  lambda a=a, b=b, y=y: torch.add(
+                      b.as_torch(), a.as_torch(), alpha=2.0,
+                      out=y.as_torch()),
+                  rtc_bound("saxpy", (n,)), offset_a=off,
+                  offset_b=0 if label == "mixed" else off,
+                  offset_out=0 if label == "mixed" else off)
+            del b, y, want
+        del a
+    del buf, bbuf, out
     gc.collect()
     return cases
 
@@ -2590,6 +2955,17 @@ def imperative_phase(seed, card, net, ctx, b=8, flat=RTC_FLAT, lr=3e-4,
               f"plain_ms={plain_ms:.5f} library_ms={lib_txt} bound_ms="
               f"{bound_ms:.5f} ({bound_by}); launches on the path "
               f"{launches[name]}", flush=True)
+    if dev.type == "cuda":
+        # first_row's floor: the graph replay of a launch that does nothing
+        empty = mx.rtc.CudaModule(
+            'extern "C" __global__ void empty_kernel(int n) {}').get_kernel(
+                "empty_kernel", "int n")
+        empty_ms = device_ms(lambda: empty.launch([0], ctx, (1, 1, 1),
+                                                  (32, 1, 1)))
+        rows["first_row"]["empty_kernel_ms"] = empty_ms
+        print(f"an empty kernel (launch floor): ms={empty_ms:.5f} (device, "
+              f"CUDA graph) beside first_row's "
+              f"{rows['first_row']['ms']:.5f}", flush=True)
     plan = rk.softmax_ce_fwd_plan(vocab, rk.smem_optin(dev))
     print(f"softmax_ce_fwd plan {shapes['softmax_ce_fwd']} (the path's): "
           f"{_plan_text(plan)}", flush=True)
@@ -2763,6 +3139,7 @@ def main(argv=None) -> int:
               "importable: run the script from the root of the repository",
               file=sys.stderr)
         return 2
+    import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch.ops import _build
     from incubator_mxnet_tpu_torch.ops import rtc_kernels as rk
 
@@ -2787,6 +3164,10 @@ def main(argv=None) -> int:
     trained = train_phase(args.seed, card)
     gc.collect()
     resnet = resnet_main(args.seed, card)
+    gc.collect()
+    unfused = unfused_resnet_main(args.seed, card)
+    gc.collect()
+    mlp = mlp_phase(args.seed, card, mx.gpu(0))
     gc.collect()
     imperative = imperative_main(args.seed, card)
 
@@ -2900,6 +3281,17 @@ def main(argv=None) -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "shape": RTC_HEAD,
         "cases": cases})
+    bench = unfused["bench"]
+    print("rows: " + json.dumps({
+        "resnet50_fused_bf16": {k: resnet["bench"][k]
+                                for k in ("batch", "step_ms", "images_s")},
+        "resnet50_unfused_bf16": {
+            layout: {k: row[k] for k in ("batch", "step_ms", "images_s",
+                                         "peak_bytes", "idle")}
+            for layout, row in bench.items()},
+        "mlp_bf16": {k: mlp[k] for k in ("batch", "step_ms", "images_s",
+                                         "peak_bytes", "idle")}}),
+        flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

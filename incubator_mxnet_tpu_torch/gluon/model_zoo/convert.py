@@ -21,7 +21,8 @@ def load_jax_params(net: Block, params: Mapping[str, np.ndarray],
     """Copy ``params`` (structural name -> numpy array, as the JAX
     package's ``collect_params`` names them) into ``net`` on ``ctx``
     (default ``gpu(0)``). Every name of ``net`` must be given and no
-    other, each with its exact shape; anything else raises ``ValueError``
+    other, each with its exact shape (a dim the net defers to its first
+    forward takes the given one); anything else raises ``ValueError``
     before a single parameter changes. Returns ``net``."""
     dev = resolve(ctx)
     own = net.collect_params()
@@ -33,7 +34,8 @@ def load_jax_params(net: Block, params: Mapping[str, np.ndarray],
     arrays = {}
     for name, p in own.items():
         arr = np.asarray(params[name])
-        if tuple(arr.shape) != tuple(p.shape):
+        if arr.ndim != p.dim() or any(s not in (0, a) for s, a in
+                                      zip(p.shape, arr.shape)):
             raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
                              f"{tuple(p.shape)}")
         arrays[name] = arr

@@ -1,0 +1,175 @@
+"""Convolution and pooling layers.
+
+Counterpart of the JAX package's ``gluon/nn/conv_layers.py``: ``Conv1D``,
+``Conv2D``, ``Conv3D`` and the max, average and global pools of 1-3
+spatial axes, over ``ops.nn.convolution`` and ``ops.nn.pooling`` (cuDNN
+on the card; the JAX package leaves them to XLA, outside its Pallas
+kernels). Layout NC + spatial axes, weight ``(channels, in_channels /
+groups, *kernel)``, as the reference's. ``in_channels=0`` takes
+``x.shape[1]`` from the first input (``Block.infer_shape``).
+"""
+
+from __future__ import annotations
+
+from ...ops import nn as F
+from ..block import Block
+
+__all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "Conv1D", "Conv2D",
+           "Conv3D", "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
+           "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
+           "MaxPool1D", "MaxPool2D", "MaxPool3D"]
+
+
+class _Conv(Block):
+    """Convolution of ``ndim`` spatial axes with an optional bias and
+    activation."""
+
+    def __init__(self, channels, kernel_size, strides, padding, dilation,
+                 groups, layout, in_channels=0, activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", ndim=2):
+        super().__init__()
+        if not layout.startswith("NC"):
+            raise NotImplementedError(f"layout {layout!r}: the port's "
+                                      "convolutions are NC + spatial axes")
+        self._channels = channels
+        self._kernel = F._ntuple(kernel_size, ndim)
+        self._strides = F._ntuple(strides, ndim)
+        self._padding = F._ntuple(padding, ndim)
+        self._dilation = F._ntuple(dilation, ndim)
+        self._groups = groups
+        self._act = activation
+        self._declare("weight", (channels, in_channels // groups)
+                      + self._kernel, init=weight_initializer)
+        if use_bias:
+            self._declare("bias", (channels,), init=bias_initializer)
+        else:
+            self.register_parameter("bias", None)
+
+    def infer_shape(self, x, *args):
+        return {"weight": (self._channels, x.shape[1] // self._groups)
+                + self._kernel}
+
+    def forward(self, x):
+        out = F.convolution(x, self.weight, self.bias, stride=self._strides,
+                            pad=self._padding, dilate=self._dilation,
+                            num_group=self._groups)
+        return out if self._act is None else F.activation(out, self._act)
+
+
+class Conv1D(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NCW", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, ndim=1, **kwargs)
+
+
+class Conv2D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 dilation=(1, 1), groups=1, layout="NCHW", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, ndim=2, **kwargs)
+
+
+class Conv3D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
+                 layout="NCDHW", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, ndim=3, **kwargs)
+
+
+class _Pool(Block):
+    """Pooling of ``ndim`` spatial axes (``ops.nn.pooling``); ``strides``
+    defaults to ``pool_size``, ``ceil_mode`` is the reference's "full"
+    convention."""
+
+    def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
+                 pool_type, ndim, count_include_pad=True):
+        super().__init__()
+        self._kernel = F._ntuple(pool_size, ndim)
+        self._strides = F._ntuple(pool_size if strides is None else strides,
+                                  ndim)
+        self._padding = F._ntuple(padding, ndim)
+        self._convention = "full" if ceil_mode else "valid"
+        self._global = global_pool
+        self._type = pool_type
+        self._count_include_pad = count_include_pad
+
+    def forward(self, x):
+        return F.pooling(x, self._kernel, self._type, self._strides,
+                         self._padding, global_pool=self._global,
+                         count_include_pad=self._count_include_pad,
+                         pooling_convention=self._convention)
+
+
+class MaxPool1D(_Pool):
+    def __init__(self, pool_size=2, strides=None, padding=0,
+                 ceil_mode=False):
+        super().__init__(pool_size, strides, padding, ceil_mode, False,
+                         "max", 1)
+
+
+class MaxPool2D(_Pool):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 ceil_mode=False):
+        super().__init__(pool_size, strides, padding, ceil_mode, False,
+                         "max", 2)
+
+
+class MaxPool3D(_Pool):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 ceil_mode=False):
+        super().__init__(pool_size, strides, padding, ceil_mode, False,
+                         "max", 3)
+
+
+class AvgPool1D(_Pool):
+    def __init__(self, pool_size=2, strides=None, padding=0, ceil_mode=False,
+                 count_include_pad=True):
+        super().__init__(pool_size, strides, padding, ceil_mode, False,
+                         "avg", 1, count_include_pad)
+
+
+class AvgPool2D(_Pool):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 ceil_mode=False, count_include_pad=True):
+        super().__init__(pool_size, strides, padding, ceil_mode, False,
+                         "avg", 2, count_include_pad)
+
+
+class AvgPool3D(_Pool):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 ceil_mode=False, count_include_pad=True):
+        super().__init__(pool_size, strides, padding, ceil_mode, False,
+                         "avg", 3, count_include_pad)
+
+
+class GlobalMaxPool1D(_Pool):
+    def __init__(self):
+        super().__init__(1, None, 0, False, True, "max", 1)
+
+
+class GlobalMaxPool2D(_Pool):
+    def __init__(self):
+        super().__init__(1, None, 0, False, True, "max", 2)
+
+
+class GlobalMaxPool3D(_Pool):
+    def __init__(self):
+        super().__init__(1, None, 0, False, True, "max", 3)
+
+
+class GlobalAvgPool1D(_Pool):
+    def __init__(self):
+        super().__init__(1, None, 0, False, True, "avg", 1)
+
+
+class GlobalAvgPool2D(_Pool):
+    def __init__(self):
+        super().__init__(1, None, 0, False, True, "avg", 2)
+
+
+class GlobalAvgPool3D(_Pool):
+    def __init__(self):
+        super().__init__(1, None, 0, False, True, "avg", 3)

@@ -15,8 +15,13 @@ backward has written since the last step is stale: ``step`` raises unless
 ``ignore_stale_grad=True``, which skips that parameter. A parameter
 without a gradient (``requires_grad=False`` or ``grad_req="null"``: the
 BatchNorm running statistics) is left alone. One device only:
-the JAX package's kvstore, FusedStep and SuperStep engines are not ported
-(``parallel.SPMDTrainer`` is the fused one-device step here).
+``kvstore`` takes ``"device"`` (the reference's default), ``"local"`` or
+None, which on one card all mean the same (there is no copy to reduce);
+a distributed kvstore, a kvstore object, ``update_on_kvstore=True`` and
+gradient compression wait for the multi-GPU slice and raise
+``NotImplementedError``. The JAX package's FusedStep and SuperStep engines
+are not ported (``parallel.SPMDTrainer`` is the fused one-device step
+here).
 """
 
 from __future__ import annotations
@@ -45,12 +50,28 @@ def _consumed(p) -> bool:
     return g is None or getattr(g, "_mx_consumed_version", None) == g._version
 
 
+#: the kvstore values of one card; the rest wait for this ROADMAP item
+_ONE_CARD_KVSTORES = ("device", "local", None)
+_MULTI_GPU = "ROADMAP.md queue 1, item 10 (Multi-GPU)"
+
+
 class Trainer:
     """Applies an optimizer to a set of parameters (reference
     ``gluon.Trainer``). ``params``: a name -> parameter mapping (as
-    ``Block.collect_params()`` returns) or a list of parameters."""
+    ``Block.collect_params()`` returns) or a list of parameters.
+    ``kvstore``: ``"device"``, ``"local"`` or None (one card)."""
 
-    def __init__(self, params, optimizer, optimizer_params=None):
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None):
+        if kvstore not in _ONE_CARD_KVSTORES:
+            raise NotImplementedError(
+                f"kvstore {kvstore!r}: the port trains on one card "
+                f"({_ONE_CARD_KVSTORES}); kvstores wait for {_MULTI_GPU}")
+        if update_on_kvstore or compression_params:
+            raise NotImplementedError(
+                "update_on_kvstore and gradient compression wait for "
+                f"{_MULTI_GPU}")
         if isinstance(params, Mapping):
             named = list(params.items())
         elif isinstance(params, (list, tuple)):

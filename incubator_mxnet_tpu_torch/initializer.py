@@ -1,9 +1,9 @@
 """Weight initializers.
 
-Counterpart of the JAX package's ``initializer.py``, cut to what the
-ported models use: ``zeros``, ``ones``, ``uniform`` (the default:
-``create(None)`` is ``Uniform(0.07)``, as in MXNet) and ``xavier``, with
-the reference's
+Counterpart of the JAX package's ``initializer.py``: ``zeros``, ``ones``,
+``constant``, ``uniform`` (the default: ``create(None)`` is
+``Uniform(0.07)``, as in MXNet), ``normal``, ``orthogonal``, ``xavier``,
+``msraprelu``, ``lecunn`` and ``bilinear``, with the reference's
 name-pattern dispatch (names ending in ``bias``/``beta`` or in
 ``running_mean``/``moving_mean`` take zeros; ``gamma`` and
 ``running_var``/``moving_var`` take ones). Values are drawn with numpy
@@ -105,3 +105,78 @@ class Xavier(Initializer):
         if self.rnd_type == "uniform":
             return rng.uniform(-scale, scale, shape).astype(np.float32)
         return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+@register("constant")
+class Constant(Initializer):
+    """Weights all ``value``."""
+
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def _init_weight(self, name, shape):
+        return np.full(shape, self.value, np.float32)
+
+
+@register("normal")
+class Normal(Initializer):
+    """Weights from N(0, ``sigma``^2)."""
+
+    def __init__(self, sigma=0.01):
+        self.sigma = sigma
+
+    def _init_weight(self, name, shape):
+        rng = np.random.default_rng(_random.next_seed())
+        return (rng.standard_normal(shape) * self.sigma).astype(np.float32)
+
+
+@register("orthogonal")
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal (out, prod(in)) matrix: the rows or
+    the columns, whichever are fewer, are orthonormal (the SVD of a
+    uniform or normal draw)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, shape):
+        nout, nin = shape[0], int(np.prod(shape[1:]))
+        rng = np.random.default_rng(_random.next_seed())
+        if self.rand_type == "uniform":
+            tmp = rng.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = rng.standard_normal((nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == (nout, nin) else v
+        return (self.scale * q.reshape(shape)).astype(np.float32)
+
+
+@register("msraprelu")
+class MSRAPrelu(Xavier):
+    """He et al.'s initialization for PReLU of ``slope``: normal, magnitude
+    ``2 / (1 + slope^2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+
+
+@register("lecunn")
+class LeCunN(Xavier):
+    """LeCun normal: N(0, 1 / fan_in)."""
+
+    def __init__(self):
+        super().__init__("gaussian", "in", 1)
+
+
+@register("bilinear")
+class Bilinear(Initializer):
+    """Bilinear upsampling weights for a deconvolution (N, C, H, W)."""
+
+    def _init_weight(self, name, shape):
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        x = np.arange(shape[3])
+        y = np.arange(shape[2])[:, None]
+        tile = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        return np.broadcast_to(tile, shape).astype(np.float32)

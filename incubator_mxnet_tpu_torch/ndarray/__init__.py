@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``ndarray/__init__.py`` for the ops the
 port has: wrappers generated from the op registry (``ops/tensor.py``,
-``ops/nn.py`` and the kernel ops ``flash_attention``/``fused_conv_bn``),
+``ops/nn.py``, with ``Convolution``, ``Pooling``, ``BatchNorm`` and
+``Activation``, and the kernel ops ``flash_attention``/``fused_conv_bn``),
 every call through :func:`invoke`, so autograd recording and the naive
 engine's sync apply alike. ``mx.nd.flash_attention`` launches the flash
 kernels on a CUDA array; ``invoke_op("fused_conv_bn", ...)`` the conv
@@ -85,6 +86,19 @@ def FullyConnected(data, weight, bias=None, **kwargs):
     return invoke_op("FullyConnected", *args, **kwargs)
 
 
+def Convolution(data, weight, bias=None, **kwargs):
+    args = [data, weight] + ([bias] if bias is not None else [])
+    if bias is None:
+        kwargs["no_bias"] = True
+    return invoke_op("Convolution", *args, **kwargs)
+
+
+#: data; (data, gamma, beta, moving_mean, moving_var); options as keywords
+Pooling = _wrap("Pooling", 1)
+BatchNorm = _wrap("BatchNorm", 5)
+Activation = _wrap("Activation", 1)
+
+
 def slice(data, begin, end, step=None):  # noqa: A001 (mxnet name)
     return data.slice(begin, end, step)
 
@@ -126,8 +140,8 @@ def Custom(*data, op_type=None, **kwargs):
     return invoke_custom(op_type, list(data), kwargs)
 
 
-__all__ = ["BlockGrad", "Cast", "Custom", "Flatten", "FullyConnected",
-           "NDArray", "Reshape", "SwapAxis", "arange", "array", "as_nd",
+__all__ = ["Activation", "BatchNorm", "BlockGrad", "Cast", "Convolution",
+           "Custom", "Flatten", "FullyConnected", "NDArray", "Pooling", "Reshape", "SwapAxis", "arange", "array", "as_nd",
            "empty", "eye", "flash_attention", "flatten", "full", "invoke",
            "invoke_op", "load", "one_hot", "ones", "ones_like", "save",
            "slice", "slice_axis", "stop_gradient", "swapaxes", "waitall",

@@ -1,14 +1,17 @@
 """Neural-network ops of the ported path.
 
 Counterparts of the ops of the JAX package's ``ops/nn.py`` that the GPT
-decoder and the fused ResNet run, and the registered ops of ``mx.nd``
-(``FullyConnected``, ``relu``, ``sigmoid``, ``softmax``, ``log_softmax``).
-None of them is a TPU kernel there (XLA compiles them), so here they are
-plain PyTorch.
+decoder, the fused ResNet and the gluon layer set run, and the registered
+ops of ``mx.nd`` (``FullyConnected``, ``Convolution``, ``Pooling``,
+``BatchNorm``, ``Activation``, ``relu``, ``sigmoid``, ``softmax``,
+``log_softmax``). None of them is a TPU kernel there (XLA compiles them),
+so here they are PyTorch's own (cuDNN and cuBLAS on the card). Layouts as
+the reference's: NC + 1-3 spatial axes, conv weights (O, I/groups, *k).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -16,9 +19,20 @@ import torch.nn.functional as F
 
 from .registry import register
 
-__all__ = ["activation", "dropout", "embedding", "fully_connected",
-           "layer_norm", "log_softmax", "pooling", "relu", "sigmoid",
-           "softmax"]
+__all__ = ["activation", "batch_norm", "convolution", "dropout",
+           "embedding", "fully_connected", "layer_norm", "log_softmax",
+           "pooling", "relu", "sigmoid", "softmax"]
+
+
+def _ntuple(v, n):
+    """``v`` as an ``n``-tuple of ints (a scalar repeated)."""
+    if isinstance(v, (tuple, list)):
+        t = tuple(int(x) for x in v)
+        if len(t) != n:
+            raise ValueError(
+                f"expected a scalar or length-{n} tuple, got {v!r}")
+        return t
+    return (int(v),) * n
 
 
 @register("FullyConnected", aliases=("fully_connected",))
@@ -73,11 +87,24 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-_ACTS = {"gelu": _gelu}
+def _softsign(x):
+    return x / (1 + x.abs())
 
 
-def activation(x, act_type):
-    """Reference ``Activation(act_type=...)``."""
+def _mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+_ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+         "softrelu": F.softplus, "softsign": _softsign, "gelu": _gelu,
+         "silu": F.silu, "log_sigmoid": F.logsigmoid, "mish": _mish}
+
+
+@register("Activation", aliases=("activation",))
+def activation(x, act_type="relu"):
+    """Reference ``Activation(act_type=...)``: relu, sigmoid, tanh,
+    softrelu, softsign, gelu (tanh approximation), silu, log_sigmoid,
+    mish."""
     if act_type not in _ACTS:
         raise ValueError(f"unknown act_type {act_type!r}; known "
                          f"{sorted(_ACTS)}")
@@ -102,19 +129,151 @@ def dropout(x, p=0.5, training=False,
     return x * mask.to(x.dtype) / keep
 
 
-def pooling(x, kernel=(2, 2), pool_type="max", stride=None, pad=(0, 0),
-            layout="NCHW"):
-    """2-D max pooling (reference ``Pooling``), padded with -inf as the JAX
-    package's ``lax.reduce_window``; ``stride`` defaults to ``kernel``.
-    ``layout="NHWC"`` takes and returns channels-last tensors without a
-    copy. Only ``pool_type="max"`` is ported."""
-    if pool_type != "max":
-        raise NotImplementedError(f"pool_type {pool_type!r}: the port has "
-                                  "max pooling only")
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+@register("Convolution", aliases=("convolution",))
+def convolution(x, weight, bias=None, kernel=None, stride=1, pad=0,
+                dilate=1, num_filter=None, num_group=1, no_bias=False,
+                layout="NCHW"):
+    """Reference ``Convolution``: NC + 1-3 spatial axes in and out, weight
+    (O, I/num_group, *k), zero padding ``pad`` on both sides of each
+    spatial axis. ``kernel`` and ``num_filter`` are the reference's
+    attributes (the weight gives them)."""
+    nsp = x.dim() - 2
+    if nsp not in _CONV:
+        raise ValueError(f"Convolution takes 1-3 spatial axes, got x of "
+                         f"shape {tuple(x.shape)}")
+    return _CONV[nsp](x, weight, None if no_bias else bias,
+                      _ntuple(stride, nsp), _ntuple(pad, nsp),
+                      _ntuple(dilate, nsp), num_group)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _window_sum(x, kernel, stride):
+    """Sum over each ``kernel`` window at ``stride``, no padding."""
+    if x.dim() == 3:                 # 1-D: as 2-D windows of height 1
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if x.dim() == 4 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+@register("Pooling", aliases=("pooling",))
+def pooling(x, kernel=(2, 2), pool_type="max", stride=None, pad=0,
+            global_pool=False, count_include_pad=True,
+            pooling_convention="valid", layout="NCHW"):
+    """Reference ``Pooling``: NC + 1-3 spatial axes. ``pool_type`` "max"
+    (padding is -inf), "avg" (``count_include_pad`` divides by the window
+    size, else by the input elements it covers), "sum" or "lp" (the L2
+    norm of the window); ``stride`` defaults to ``kernel``;
+    ``global_pool`` reduces every spatial axis to 1 (by the max, or for any
+    other type by the mean, as the reference);
+    ``pooling_convention="full"`` takes ``ceil`` windows, the last one
+    padded at the end, as the reference's. ``layout="NHWC"`` (2-D max
+    pooling) takes and returns channels-last tensors without a copy."""
     if layout not in ("NCHW", "NHWC"):
         raise ValueError(f"layout {layout!r}: NCHW or NHWC")
-    stride = kernel if stride is None else stride
     if layout == "NHWC":
         x = x.permute(0, 3, 1, 2)
-    out = F.max_pool2d(x, kernel, stride, pad)
-    return out.permute(0, 2, 3, 1) if layout == "NHWC" else out
+        out = pooling(x, kernel, pool_type, stride, pad, global_pool,
+                      count_include_pad, pooling_convention)
+        return out.permute(0, 2, 3, 1)
+    nsp = x.dim() - 2
+    if nsp not in _MAX_POOL:
+        raise ValueError(f"Pooling takes 1-3 spatial axes, got x of shape "
+                         f"{tuple(x.shape)}")
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise ValueError(f"unknown pool_type {pool_type!r}")
+    spatial = tuple(range(2, x.dim()))
+    if global_pool:                  # the reference's: any but max is a mean
+        if pool_type == "max":
+            return x.amax(dim=spatial, keepdim=True)
+        return x.mean(dim=spatial, keepdim=True)
+    kernel = _ntuple(kernel, nsp)
+    stride = kernel if stride is None else _ntuple(stride, nsp)
+    pad = _ntuple(pad, nsp)
+    extra = (0,) * nsp
+    if pooling_convention == "full":
+        # ceil windows: pad the end of each axis until the last one fits
+        extra = tuple(max(0, (-(-(n + 2 * p - k) // s)) * s + k - n - 2 * p)
+                      for n, k, s, p in zip(x.shape[2:], kernel, stride,
+                                            pad))
+    elif pooling_convention != "valid":
+        raise ValueError(f"pooling_convention {pooling_convention!r}: "
+                         "valid or full")
+    inside = not any(extra) and all(2 * p <= k for p, k in zip(pad, kernel))
+    if pool_type == "max":
+        if inside:                   # torch pads with -inf itself
+            return _MAX_POOL[nsp](x, kernel, stride, pad)
+        return _MAX_POOL[nsp](_pad(x, pad, extra, float("-inf")), kernel,
+                              stride)
+    if pool_type == "lp":
+        x = x * x
+    s = _window_sum(_pad(x, pad, extra, 0.0), kernel, stride)
+    if pool_type == "sum":
+        return s
+    if pool_type == "lp":
+        return torch.sqrt(s)
+    if count_include_pad:
+        return s / math.prod(kernel)
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    return s / _window_sum(_pad(ones, pad, extra, 0.0), kernel, stride)
+
+
+def _pad(x, pad, extra, value):
+    """``x`` padded by ``pad`` on both sides of each spatial axis and
+    ``extra`` more at the end."""
+    if not any(pad) and not any(extra):
+        return x
+    widths = []
+    for p, e in zip(reversed(pad), reversed(extra)):
+        widths += [p, p + e]
+    return F.pad(x, widths, value=value)
+
+
+@register("BatchNorm", aliases=("batch_norm",))
+def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
+               momentum=0.9, fix_gamma=False, use_global_stats=False,
+               output_mean_var=False, axis=1, training=False):
+    """Reference ``BatchNorm``: ``(x - mean) / sqrt(var + eps) * gamma +
+    beta`` over every axis but ``axis``. In training (and not
+    ``use_global_stats``) the batch's mean and *biased* variance, and the
+    result is ``(out, mean, var)`` (fp32 statistics for a 16-bit ``x``)
+    for the caller to
+    fold into its running statistics (the reference's own update is
+    functional; ``momentum`` is the caller's); else the moving statistics
+    and ``out`` alone. ``fix_gamma`` takes gamma as ones.
+
+    One call of PyTorch's batch norm (cuDNN or ATen) computes the
+    normalization and its gradient. The affine parameters and statistics
+    go in as fp32 for a 16-bit ``x``, so a bf16 ``x`` gives a bf16
+    ``out``. For the batch
+    variance it is handed fresh running buffers at momentum 1: it writes
+    the *unbiased* variance there, and ``var`` takes it back by
+    ``(n - 1) / n``."""
+    if axis < 0:
+        axis += x.dim()
+    if axis != 1:
+        x = x.movedim(axis, 1)
+    # the statistics' type: fp32 for a 16-bit x, else x's own
+    st = torch.float32 if x.element_size() < 4 else x.dtype
+    g = torch.ones_like(gamma, dtype=st) if fix_gamma else gamma.to(st)
+    be = beta.to(st)
+    if training and not use_global_stats:
+        n = x.numel() // x.shape[1]
+        mean = torch.zeros(x.shape[1], dtype=st, device=x.device)
+        var = torch.ones_like(mean)
+        out = F.batch_norm(x, mean, var, g, be, training=True, momentum=1.0,
+                           eps=eps)
+        stats = (mean, var * ((n - 1) / n))
+    else:
+        out = F.batch_norm(x, moving_mean.to(st), moving_var.to(st), g, be,
+                           training=False, eps=eps)
+        stats = None
+    if axis != 1:
+        out = out.movedim(1, axis)
+    return out if stats is None else (out, *stats)

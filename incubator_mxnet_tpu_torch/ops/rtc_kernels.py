@@ -19,10 +19,10 @@ live in ``csrc/rtc/`` and compile at the first call that needs them:
 Each wrapper takes NDArrays. An array on the CPU takes the plain version
 (``*_reference``, over tensors); an array on the card launches the kernel
 through ``CudaKernel.launch`` (counted in ``mx.rtc.launches`` under the
-kernel's name) or raises. Two launches are planned by pure functions:
-``scale_plan`` (one 1024-float tile a block) and ``softmax_ce_fwd_plan``
-(a row held in shared memory when the card's opt-in limit allows it, else
-streamed).
+kernel's name) or raises. Three launches are planned by pure functions:
+``scale_plan`` and ``saxpy_plan`` (one 1024-float tile a block) and
+``softmax_ce_fwd_plan`` (a row held in shared memory when the card's
+opt-in limit allows it, else streamed).
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ from ..ndarray.ndarray import NDArray
 from . import _nvrtc
 
 __all__ = ["KERNELS", "SoftmaxPlan", "first_row", "first_row_reference",
-           "kernel", "saxpy", "saxpy_reference", "scale", "scale_plan",
+           "kernel", "saxpy", "saxpy_plan", "saxpy_reference", "scale",
+           "scale_plan",
            "scale_reference", "smem_optin", "softmax_ce_bwd",
            "softmax_ce_bwd_reference", "softmax_ce_fwd", "softmax_ce_fwd_plan",
            "softmax_ce_fwd_reference"]
@@ -74,10 +75,9 @@ KERNELS: Dict[str, _Spec] = {
 }
 #: MXNet's req codes in the kernels
 _REQ = {"null": 0, "write": 1, "inplace": 1, "add": 2}
-#: threads per block; elementwise grids stop at this many blocks per SM
+#: threads per block
 _THREADS = 256
 _ROW_THREADS = 1024
-_BLOCKS_PER_SM = 16
 #: softmax_ce.cu: its static shared memory (32 reduction slots and
 #: ROW_CHUNKS mbarriers, bytes), and the threads of a block over a
 #: streamed row
@@ -106,11 +106,6 @@ def kernel(name: str):
     return k
 
 
-def _elementwise_grid(n: int, device: torch.device):
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return (max(1, min(math.ceil(n / _THREADS), sms * _BLOCKS_PER_SM)), 1, 1)
-
-
 def scale_plan(n: int):
     """``scale``'s grid and block over ``n`` floats: 256 threads a block,
     one tile of 1024 floats a block (a 16-byte quad a thread, or four
@@ -118,6 +113,14 @@ def scale_plan(n: int):
     of resident blocks, looping over the tiles, measured about 8% slower
     on the card (``tools/torch_rtc_designs.py``)."""
     return (max(1, math.ceil(n / (4 * _THREADS))), 1, 1), (_THREADS, 1, 1)
+
+
+def saxpy_plan(n: int):
+    """``saxpy``'s grid and block over ``n`` floats, as ``scale_plan``'s:
+    one tile of 1024 floats a block (a 16-byte quad of each operand a
+    thread, or four floats when a, b and out do not share one alignment
+    phase)."""
+    return scale_plan(n)
 
 
 class SoftmaxPlan(NamedTuple):
@@ -199,8 +202,7 @@ def saxpy(a: NDArray, b: NDArray, alpha: float) -> NDArray:
         return NDArray(saxpy_reference(a._data, b._data, alpha))
     out = NDArray(torch.empty_like(a._data))
     kernel("saxpy").launch([a, b, out, alpha, a.size], a.ctx,
-                           _elementwise_grid(a.size, a._data.device),
-                           (_THREADS, 1, 1))
+                           *saxpy_plan(a.size))
     return out
 
 

@@ -77,12 +77,15 @@ def _to_torch_optim(optimizer, optimizer_params: Optional[dict], params):
 
 def collect_params(block) -> "OrderedDict[str, torch.nn.Parameter]":
     """A Block's unique parameters by structural name; raises if one is
-    not initialized."""
+    not initialized or still waits for its shape (a deferred dim, filled
+    by the first forward)."""
     out: "OrderedDict[str, torch.nn.Parameter]" = OrderedDict()
     for name, p in block.named_parameters():
-        if p.device.type == "meta":
-            raise RuntimeError(f"parameter {name} not initialized; call "
-                               "initialize() or load weights first")
+        if p.device.type == "meta" or 0 in p.shape:
+            raise RuntimeError(
+                f"parameter {name} not initialized; call initialize() and "
+                "run one forward (deferred shapes), or load weights, before "
+                "building the trainer")
         out[name] = p
     return out
 

@@ -222,10 +222,18 @@ def test_resnet50_inventory_and_frozen_running_stats():
 
 
 def test_get_model_knows_the_fused_names_only():
+    """``get_model`` knows the fused names and, since the gluon layer set
+    is ported, the zoo ``resnet50_v1``; a vision model still unported
+    raises as before."""
     net = get_model("fused_resnet101_v1", classes=7)
     assert tuple(net.output.weight.shape) == (7, 2048)
+    for name in ("fused_resnet50_v1", "fused_resnet152_v1"):
+        assert isinstance(get_model(name, classes=3), FusedResNetV1)
+    zoo = get_model("resnet50_v1", classes=7)
+    assert not isinstance(zoo, FusedResNetV1)
+    assert tuple(zoo.output.weight.shape) == (7, 2048)
     with pytest.raises(ValueError, match="not ported yet.*ROADMAP"):
-        get_model("resnet50_v1")
+        get_model("vgg16")
 
 
 def test_trainer_leaves_running_stats_alone():

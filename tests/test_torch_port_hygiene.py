@@ -38,6 +38,11 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "incubator_mxnet_tpu_torch.parallel.spmd, "
             "incubator_mxnet_tpu_torch.ops.fused_conv, "
             "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.fused_resnet, "
+            "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet, "
+            "incubator_mxnet_tpu_torch.gluon.nn.basic_layers, "
+            "incubator_mxnet_tpu_torch.gluon.nn.conv_layers, "
+            "incubator_mxnet_tpu_torch.initializer, "
+            "incubator_mxnet_tpu_torch.ops.nn, "
             "incubator_mxnet_tpu_torch.ndarray, "
             "incubator_mxnet_tpu_torch.operator, "
             "incubator_mxnet_tpu_torch.rtc, "
@@ -69,7 +74,9 @@ def test_sources_import_no_jax_and_no_jax_package():
     assert len(files) > 10
     for name in ("ndarray/__init__.py", "ndarray/ndarray.py", "operator.py",
                  "rtc.py", "ops/_nvrtc.py", "ops/rtc_kernels.py",
-                 "ops/registry.py", "ops/tensor.py"):
+                 "ops/registry.py", "ops/tensor.py", "ops/nn.py",
+                 "gluon/nn/conv_layers.py", "gluon/nn/basic_layers.py",
+                 "gluon/model_zoo/vision/resnet.py", "initializer.py"):
         assert PKG / name in files, name
     for f in files + [ROOT / "chip_smoke.py"]:
         for mod in _imported_modules(f):
@@ -95,6 +102,9 @@ def test_default_device_is_the_card_never_a_silent_cpu():
                   max_length=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         net.initialize("xavier")
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model("resnet18_v1").initialize("xavier")   # deferred shapes
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_jax_params(net, {}, ctx=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -493,6 +503,49 @@ def test_chip_smoke_resnet_phase_rehearses_on_the_cpu(monkeypatch):
     assert gate["tc"] == gate["simt"] and gate["tc"]["logits"] > 0
 
 
+def test_chip_smoke_unfused_resnet_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.unfused_resnet_phase`` on a small zoo ResNet and a fused
+    one of the same architecture, on the CPU: the weights map across
+    (``zoo_to_fused``), the parity, learning and bench-row checks pass,
+    and every launch window expects 0 fused conv launches; then
+    ``chip_smoke.mlp_phase`` at a small batch."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+
+    cs = _chip_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+    windows = []
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda label, got, *want: windows.append((got, want)))
+    layers, channels = [1, 1, 1, 1], [8, 16, 32, 64, 128]
+    mx.random.seed(0)
+    net = vision.ResNetV1(vision.BottleneckV1, layers, channels,
+                          classes=10).initialize("xavier", ctx=mx.cpu())
+    with mx.autograd.pause():
+        net(torch.zeros(2, 3, 64, 64))
+    fused = vision.FusedResNetV1(layers, channels, classes=10).initialize(
+        "xavier", ctx=mx.cpu())
+    out = cs.unfused_resnet_phase(0, "cpu", net, fused, mx.cpu(), hw=64,
+                                  batches=(2, 4, 4))
+    parity = out["parity"]
+    assert (parity["n_trainable"], parity["n_running_stats"]) == (53, 34)
+    assert parity["grad_worst"] <= cs.UNFUSED_GRAD_RTOL
+    assert max(parity["loss_err"], parity["stats_worst"],
+               parity["eval_logits_err"]) <= cs.UNFUSED_TOL
+    assert out["learning_losses"][-1] < 0.95 * out["learning_losses"][0]
+    assert set(out["bench"]) == {"nchw", "channels_last"}
+    zero = {k: 0 for k in cs.CONV_KERNELS}
+    routes = {(k, r): 0 for k in cs.ROUTED for r in cs.CONV_ROUTES[k]}
+    assert windows == [(zero, (0, 6, 6, routes, "f32")),
+                       (zero, (0, 16, 16, routes, "tc"))]
+    assert net.output.weight.dtype == torch.bfloat16
+    mlp = cs.mlp_phase(0, "cpu", mx.cpu())
+    assert mlp["learning_losses"][-1] < 0.95 * mlp["learning_losses"][0]
+    assert mlp["batch"] == 8192 and mlp["images_s"] > 0
+
+
 def test_no_k7_launch_falls_back_to_a_plain_function():
     """``mx.rtc`` and the kernels it launches catch nothing: a launch that
     cannot happen raises. The only handler in the NVRTC bindings skips a
@@ -569,14 +622,20 @@ def test_chip_smoke_imperative_phase_rehearses_on_the_cpu(monkeypatch):
         "softmax_ce_fwd_write_2x60001", "softmax_ce_fwd_write_5x7",
         "softmax_ce_fwd_write_3x41", "softmax_ce_fwd_add_32x97",
         "scale_view1_new_out", "scale_view1_view_out",
-        "scale_view3_new_out", "scale_view3_view_out"]
+        "scale_view3_new_out", "scale_view3_view_out",
+        "saxpy_view1_mixed", "saxpy_view1_view_out", "saxpy_view3_mixed",
+        "saxpy_view3_view_out"]
     assert [c["plan"]["resident"] for c in out["rtc_cases"][:4]] == [
         False, True, True, True]
     assert all(c["max_rel_err"] <= c["rel_tol"] for c in cases.values())
     assert all(c["max_abs_err"] == 0 for c in cases.values()
-               if c["name"] == "scale")
-    assert [c["shape"] for c in cases.values() if c["name"] == "scale"] \
-        == [[997]] * 4
+               if c["name"] in ("scale", "saxpy"))
+    for name in ("scale", "saxpy"):
+        assert [c["shape"] for c in cases.values()
+                if c["name"] == name] == [[997]] * 4
+    assert [(c["offset_a"], c["offset_b"], c["offset_out"])
+            for c in cases.values() if c["name"] == "saxpy"] == [
+        (1, 0, 0), (1, 1, 1), (3, 0, 0), (3, 3, 3)]
     assert cases["softmax_ce_fwd_add_32x97"]["library_ms"] is None
     assert cases["softmax_ce_fwd_add_32x97"]["bound_ms"] == pytest.approx(
         3 * 32 * 97 * 4 / cs.HBM_BYTES_PER_S * 1e3)

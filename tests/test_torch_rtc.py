@@ -10,7 +10,8 @@ path of the kernels' wrappers. On the card (the tests skip without one,
 decided in a fixture): the five kernels of ``csrc/rtc/`` built and
 launched at small and odd shapes against their plain versions (the
 forward's rows resident in shared memory and streamed, on views at every
-alignment phase, by ``req``; ``scale`` on views at every phase), the
+alignment phase, by ``req``; ``scale`` and ``saxpy`` on views at every
+phase and on small grids), the
 softmax cross-entropy custom op forward and backward, MXNet's ``axpy``
 example, an opt-in to over 48 KB of dynamic shared memory, capture in a
 CUDA graph, and a compile error carrying NVRTC's log.
@@ -417,6 +418,56 @@ def test_scale_on_views_at_every_phase_on_card(cuda_ctx, n, offsets):
     outside = torch.cat([yb[:offsets[1]], yb[offsets[1] + n:]])
     assert torch.equal(outside, torch.full_like(outside, 7.0))
     assert torch.equal(rtc_kernels.scale(x, -1.75).as_torch(), want)
+
+
+# a, b and out: all aligned, all at one phase (1 or 3), and each operand
+# alone at offset 1 or 3 with the other two aligned
+SAXPY_OFFSETS = [(0, 0, 0), (1, 1, 1), (3, 3, 3), (1, 0, 0), (0, 1, 0),
+                 (0, 0, 1), (3, 0, 0), (0, 3, 0), (0, 0, 3), (1, 3, 0)]
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 4099, 1_000_003])
+@pytest.mark.parametrize("offsets", SAXPY_OFFSETS)
+def test_saxpy_on_views_at_every_phase_on_card(cuda_ctx, n, offsets):
+    """``saxpy`` on views of larger buffers, a, b and out at one alignment
+    phase (a scalar head, 16-byte quads, a scalar tail) or at several
+    (single floats): bit for bit ``a * alpha + b`` (two roundings, no
+    FMA), into a view and into a new array; nothing written around the
+    view."""
+    rs = np.random.RandomState(n + 7 * offsets[0] + 3 * offsets[1])
+    ab = torch.from_numpy(rs.randn(n + 4).astype(np.float32)).cuda()
+    bb = torch.from_numpy(rs.randn(n + 4).astype(np.float32)).cuda()
+    ob = torch.full((n + 4,), 7.0, device="cuda")
+    a, b, out = (_view(buf, off, (n,))
+                 for buf, off in zip((ab, bb, ob), offsets))
+    n0 = rtc.launches["saxpy"]
+    rtc_kernels.kernel("saxpy").launch([a, b, out, -1.3, n], cuda_ctx,
+                                       *rtc_kernels.saxpy_plan(n))
+    assert rtc.launches["saxpy"] == n0 + 1
+    want = rtc_kernels.saxpy_reference(a.as_torch(), b.as_torch(), -1.3)
+    assert torch.equal(out.as_torch(), want)
+    outside = torch.cat([ob[:offsets[2]], ob[offsets[2] + n:]])
+    assert torch.equal(outside, torch.full_like(outside, 7.0))
+    assert torch.equal(rtc_kernels.saxpy(a, b, -1.3).as_torch(), want)
+    assert rtc.launches["saxpy"] == n0 + 2
+
+
+@pytest.mark.parametrize("grid,block", [((1, 1, 1), (1, 1, 1)),
+                                        ((3, 1, 1), (32, 1, 1))])
+@pytest.mark.parametrize("offsets", [(1, 1, 1), (3, 3, 3), (1, 0, 0)])
+def test_saxpy_is_right_on_any_grid_on_card(cuda_ctx, grid, block,
+                                            offsets):
+    """The kernel itself on grids far smaller than ``saxpy_plan``'s, down
+    to one thread: the grid-stride loops cover every element."""
+    n = 4099
+    rs = np.random.RandomState(offsets[0])
+    bufs = [torch.from_numpy(rs.randn(n + 4).astype(np.float32)).cuda()
+            for _ in range(2)] + [torch.full((n + 4,), 7.0, device="cuda")]
+    a, b, out = (_view(buf, off, (n,)) for buf, off in zip(bufs, offsets))
+    rtc_kernels.kernel("saxpy").launch([a, b, out, 0.375, n], cuda_ctx,
+                                       grid, block)
+    assert torch.equal(out.as_torch(), rtc_kernels.saxpy_reference(
+        a.as_torch(), b.as_torch(), 0.375))
 
 
 @pytest.mark.parametrize("grid,block", [((1, 1, 1), (1, 1, 1)),

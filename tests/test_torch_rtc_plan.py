@@ -3,8 +3,13 @@
 ``softmax_ce_fwd_plan`` says whether a row of logits is held in shared
 memory (``csrc/rtc/softmax_ce.cu``, the resident branch: one read, one
 write) or streamed (two reads, one write), with the threads and the bytes
-of shared memory of the launch; ``scale_plan`` gives ``scale`` one tile
-of 1024 floats a block. The resident branch's layout (element i of a
+of shared memory of the launch; ``scale_plan`` and ``saxpy_plan`` give
+``scale`` and ``saxpy`` one tile of 1024 floats a block. ``saxpy``'s
+split of its elements (a scalar head, 16-byte quads, a scalar tail when
+its three pointers share an alignment phase; four floats a thread
+``blockDim.x`` apart when they do not) is mirrored here in Python and
+checked to cover every element once at every combination of the three
+phases. The resident branch's layout (element i of a
 row at shared float ``phase + i``, the aligned middle in bulk copies of
 16-byte quads, the partial quads at the ends by threads 0-7) is mirrored
 here in Python and checked to cover every float it reads and writes at
@@ -157,3 +162,61 @@ def test_cpu_wrappers_take_the_plain_versions(shape, req):
     assert torch.equal(rtc_kernels.scale(view, 0.5).as_torch(),
                        view.as_torch() * 0.5)
     assert dict(rtc.launches) == before
+
+
+def test_saxpy_takes_one_tile_of_1024_floats_a_block():
+    assert rtc_kernels.saxpy_plan(163_037_184) == ((159_216, 1, 1),
+                                                   (256, 1, 1))
+    for n in (0, 1, 3, 1024, 1025, 4099, 2**31 - 1):
+        (blocks, _, _), (threads, _, _) = rtc_kernels.saxpy_plan(n)
+        assert (blocks, threads) == ((max(1, -(-n // 1024))), 256), n
+        assert blocks * 4 * threads >= n             # the tiles cover n
+    src = (rtc_kernels.RTC_SRC / "saxpy.cu").read_text()
+    assert "const long long tile = 4ll * blockDim.x;" in src
+    assert rtc_kernels.KERNELS["saxpy"].options == ("--fmad=false",)
+
+
+def _saxpy_elements(phases, n, grid, block):
+    """``csrc/rtc/saxpy.cu``'s elements, mirrored: the element indices each
+    thread of a ``grid`` x ``block`` launch writes (with the inputs it
+    reads at the same index) for a, b and out at the given float
+    alignment phases (0-3: the pointer's offset in floats from a 16-byte
+    boundary)."""
+    threads = grid * block
+    written = []
+    if len(set(phases)) != 1:                   # four floats a thread
+        tile = 4 * block
+        for bx in range(grid):
+            for t in range(block):
+                base = bx * tile
+                while base < n:
+                    written += [base + k * block + t for k in range(4)
+                                if base + k * block + t < n]
+                    base += grid * tile
+        return written
+    pa = 4 * phases[0]                          # bytes past the boundary
+    head = min(n, ((16 - pa) & 15) >> 2)
+    n4 = (n - head) >> 2
+    for tid in range(threads):
+        written += [head + 4 * i + k for i in range(tid, n4, threads)
+                    for k in range(4)]
+        written += list(range(tid, head, threads))
+        written += list(range(head + 4 * n4 + tid, n, threads))
+    # every quad starts on a 16-byte boundary of each pointer
+    assert all((phases[0] + head + 4 * i) % 4 == 0 for i in range(n4))
+    return written
+
+
+@pytest.mark.parametrize("pa", range(4))
+@pytest.mark.parametrize("pb", range(4))
+@pytest.mark.parametrize("po", range(4))
+def test_saxpy_split_covers_every_element_once(pa, pb, po):
+    """At every combination of the three pointers' phases, for n below 4
+    and around the quads, on the plan's grid and on smaller ones: each
+    element is written once, by one thread, and nothing past n."""
+    for n in (0, 1, 2, 3, 4, 5, 7, 8, 9, 1023, 1024, 1025, 4099):
+        grids = {rtc_kernels.saxpy_plan(n)[0][0], 1, 2}
+        for grid in grids:
+            for block in (256, 32, 1):
+                got = _saxpy_elements((pa, pb, po), n, grid, block)
+                assert sorted(got) == list(range(n)), (n, grid, block)
