@@ -49,7 +49,12 @@ Phases (any failure raises, and the script exits non-zero):
    re-run per token), and K4's launch count shows the path went through it:
    every decode step on the split route, every prefill on the route of its
    bucket's length (``decode_routes``: f32 from ``FWD_F32_MIN_TQ`` rows,
-   SIMT below);
+   SIMT below). The decode step is one captured CUDA graph (its capture
+   records 12 split-route launches, which each replay counts);
+   ``decode_step_times`` then holds the graph's next tokens against the
+   same step run eagerly, times both (host ms and device time a step),
+   and checks the split kernels' launches a step as the graph steps
+   counted them and as the profiler saw them;
 5. training phase: ``gpt_decoder_117m`` with ``max_length`` 256 and
    dropout 0 at B=8, T=256: the fp32 gradient of every parameter through
    the kernels against the same model with its attention swapped for the
@@ -128,7 +133,28 @@ Phases (any failure raises, and the script exits non-zero):
    twice and ``Dense(10)``, no ``in_units``; xavier, bf16, B=8192,
    ``SPMDTrainer`` SGD lr 0.1 momentum 0.9): the loss falls by 5% over
    20 steps on one batch, then the step is timed;
-10. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
+10. graph phase (``parallel/superstep.py``): the MLP row (K=20), the GPT
+   bf16 row (``gpt_decoder_117m``, B=8, T=256, dropout 0.1 as built,
+   K=10), the fused and the unfused (channels-last) ResNet-50 bf16 rows
+   (B=128, K=5), each through ``SPMDTrainer.run_superstep`` over windows
+   of K distinct batches drawn from ``--seed``: one window's [K] losses
+   and every parameter and running statistic bit-equal to K eager
+   ``step()`` calls from the same state and seed; the launch counters of
+   the eager steps (GPT: 12 K4, K5 and K6 a step on the tensor cores;
+   fused ResNet: 52 K1, K2 and K3 a pass; the others none), of the
+   capture's recording (K steps) and of every graph call, measured around
+   it (K steps a window, K + 1 for the first: its warm-up step ran), and
+   the profiler's own count of each kernel's CUDA function in K eager
+   steps and in a graph window (K a step: the kernels ran on the card);
+   then host ms a step of the eager step beside the graph path (the
+   median of alternating turns), device time and idle share
+   (``torch.profiler``), peak memory, and the SM clock and power draw of
+   each kind of turn (``nvidia-smi`` sampling, ``ClockSampler``)
+   (``graph_row``); the gluon ``SuperStep`` on the MLP (sgd, momentum)
+   against its eager path bit for bit; K3 and K1 captured on a thread
+   that never ran an encode, bit-equal to the eager calls
+   (``fresh_thread_capture``);
+11. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
    kernels (K7, ``csrc/rtc/*.cu``, compiled by NVRTC in the build step)
    run an ``mx.rtc`` program (``scale`` and ``saxpy`` over 163,037,184
    floats, ``first_row`` of a (50257, 768) embedding) held bit for bit
@@ -159,7 +185,8 @@ Phases (any failure raises, and the script exits non-zero):
    calls bit for bit.
 
 The third line from the end (``rows: {...}``) gives the bench rows: the
-fused and unfused ResNet-50 and the MLP, bf16, step ms and images/s. The
+fused and unfused ResNet-50 and the MLP, bf16, step ms and images/s, and
+the graph phase's rows and the decode step, eager beside graph. The
 line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
@@ -802,7 +829,7 @@ def decode_routes(buckets, prompt_lens, steps):
     return want
 
 
-def slice_phase(seed):
+def slice_phase(seed, card=None):
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch import serving
     from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
@@ -847,6 +874,8 @@ def slice_phase(seed):
         routes = _fwd_route_counts(fa)
         stats = sess.stats()
         peak = torch.cuda.max_memory_allocated(dev)
+        step_times = decode_step_times(sess, card or card_line(),
+                                        net.vocab_size)
         if not sess.drain(60):
             raise AssertionError("decode session did not drain")
     finally:
@@ -890,7 +919,78 @@ def slice_phase(seed):
               f"{n} of {len(streams[i])} tokens", flush=True)
     return dict(launches=launches, routes=routes, steps=steps,
                 prefills=prefills, tokens=tokens, wall_s=wall, stats=stats,
-                peak_bytes=peak)
+                peak_bytes=peak, step_times=step_times)
+
+
+def decode_step_times(sess, card, vocab, steps=20):
+    """The decode step of ``sess`` (all slots free: its sequences are
+    done) as the captured graph (one replay) and eagerly (the same body
+    launched from the host), on the same inputs (8 slots at cache lengths
+    48 to 360): the next tokens equal, host ms a step including the
+    next-token copy to the host (two alternating turns each), device time
+    (``torch.profiler``), and K4's split-route launches: 12 a step
+    recorded by the capture, counted by every graph step (measured over
+    the graph turns) and seen by the profiler in a graph step and an
+    eager one."""
+    from incubator_mxnet_tpu_torch.ops import launches
+
+    rs = np.random.RandomState(5)
+    cl = np.linspace(48, 360, sess.max_slots).astype(np.int32)
+    tk = rs.randint(0, vocab, (sess.max_slots,)).astype(np.int32)
+    dev = sess.device
+
+    def graph_step(c, t):
+        return sess._decode(c, t).cpu()
+
+    def eager_step(c, t):
+        return sess._decode_step(torch.from_numpy(t).to(dev),
+                                 torch.from_numpy(c).to(dev)).cpu()
+
+    out = {}
+    measured = {}
+    with sess._exec_lock:
+        got = {name: fn(cl, tk) for name, fn in (("graph", graph_step),
+                                                 ("eager", eager_step))}
+        if not torch.equal(got["graph"], got["eager"]):
+            raise AssertionError(f"decode graph tokens {got['graph']} != "
+                                 f"eager {got['eager']}")
+        for name, fn in (("graph", graph_step), ("eager", eager_step),
+                         ("graph", graph_step), ("eager", eager_step)):
+            torch.cuda.synchronize()
+            c0 = launches.snapshot()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn(cl, tk)
+            out[name] = (time.perf_counter() - t0) * 1e3 / steps
+            if name == "graph":
+                for n, v in _launch_delta(c0).items():
+                    measured[n] = measured.get(n, 0) + v
+        prof = {}
+        for name, fn in (("graph", graph_step), ("eager", eager_step)):
+            rows = _profile_step(fn, cl, tk, card, out[name],
+                                 tags=FLASH_TAGS[3:5], top=4,
+                                 what=f"decode step ({name})")
+            _check_profiled(f"decode step ({name})", rows,
+                            {"flash_fwd_split_kernel": 12,
+                             "flash_fwd_merge_kernel": 12}, 1)
+            prof[name] = sum(r[0] for r in rows)
+    (graph,) = sess._graphs.graphs()
+    counted = _counts_by_name(graph.counted)
+    want = {"flash_fwd": 12, "flash_fwd_split": 12}
+    print(f"decode step ({card}; 8 slots at 48-360 of 512): captured "
+          f"graph {out['graph']:.4f} ms, eager {out['eager']:.4f} ms a step "
+          f"(host clock, {steps} steps each, second turn); device time "
+          f"{prof['graph']:.4f} / {prof['eager']:.4f} ms; the capture "
+          f"recorded {counted}, {2 * steps} graph steps counted {measured}; "
+          f"next tokens equal", flush=True)
+    if counted != want or measured != {n: v * 2 * steps
+                                       for n, v in want.items()}:
+        raise AssertionError(f"the decode capture recorded {counted} and "
+                             f"{2 * steps} graph steps counted {measured},"
+                             f" not {want} a step")
+    return dict(graph_ms=out["graph"], eager_ms=out["eager"],
+                graph_device_ms=prof["graph"], eager_device_ms=prof["eager"],
+                per_replay=counted, launches=measured)
 
 
 # ---------------------------------------------------------------------------
@@ -1128,7 +1228,10 @@ def train_phase(seed, card):
             or decode_launches["flash_bwd_dkv"]:
         raise AssertionError("train -> decode: the decode path did not go "
                              "through flash_fwd alone")
-    want_routes = decode_routes(sess.prefill_buckets, [len(prompt)], steps)
+    # the session was not warmed up: its first decode step captured the
+    # step's graph, whose warm-up ran the step once more on the card
+    want_routes = decode_routes(sess.prefill_buckets, [len(prompt)],
+                                steps + 1)
     if decode_routes_got != want_routes or prefills != 1:
         raise AssertionError(f"train -> decode launched flash_fwd by route "
                              f"{decode_routes_got}, not {want_routes}")
@@ -2469,6 +2572,593 @@ def mlp_phase(seed, card, ctx, b=MLP_BATCH, steps=20):
 
 
 # ---------------------------------------------------------------------------
+# graph phase: the step engines on CUDA graphs (parallel/superstep.py)
+# ---------------------------------------------------------------------------
+# window K of each row
+GRAPH_K = {"mlp": 20, "gpt": 10, "resnet50_fused": 5, "resnet50_unfused": 5}
+# windows a row times after the one that captures
+GRAPH_TIMED = 2
+
+
+def _counts_by_name(counts):
+    """``ops.launches`` counts keyed by counter name (``flash_fwd_tc``,
+    ``conv_bwd_dw``, ...; ``rtc:<kernel>``), zeros left out."""
+    return {(f"rtc:{name}" if mod == "rtc"
+             else name[:-len("_launches")]): n
+            for (mod, name), n in sorted(counts.items()) if n}
+
+
+def _launch_delta(before):
+    from incubator_mxnet_tpu_torch.ops import launches
+
+    return _counts_by_name(launches.delta(before, launches.snapshot()))
+
+
+def _worst_rel(pairs):
+    """The largest relative L2 distance over ``(name, got, want)``."""
+    worst = (0.0, "")
+    for name, got, want in pairs:
+        got, want = got.float(), want.float()
+        den = want.norm().item()
+        rel = (got - want).norm().item() / (den if den > 0 else 1.0)
+        worst = max(worst, (rel, name))
+    return worst
+
+
+def _replay_span_ms(fn, *args):
+    """Device time from the first to the last kernel of ``fn(*args)``
+    (CUDA events on the current stream; the host waits after)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _check_graph_launches(label, per_step, expect):
+    """Each counter of ``expect`` launched exactly so often a step."""
+    for name, want in expect.items():
+        if per_step.get(name, 0) != want:
+            raise AssertionError(f"graph {label}: {name} launched "
+                                 f"{per_step.get(name, 0)} times a "
+                                 f"step, not {want}")
+
+
+def _kernel_counts(rows, symbols):
+    """Launches by CUDA function in ``_profile_step``'s rows (the
+    profiler's own count: the kernels that ran on the card, inside a
+    graph replay too), for each name of ``symbols``."""
+    out = {}
+    for sym in symbols:
+        pat = re.compile(rf"(?<![\w]){re.escape(sym)}(?![\w])")
+        out[sym] = sum(count for _, count, key in rows if pat.search(key))
+    return out
+
+
+def _check_profiled(label, rows, kernels, steps):
+    """The profiler saw each CUDA function of ``kernels`` (name ->
+    launches a step) launched exactly ``steps`` times as often."""
+    got = _kernel_counts(rows, kernels)
+    want = {sym: n * steps for sym, n in kernels.items()}
+    print(f"profiled launches of {label}: {got} (want {want})", flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: the profiler saw {got}, not {want}")
+
+
+class ClockSampler:
+    """The card's SM clock and power draw, sampled every ``ms`` by
+    ``nvidia-smi`` in the background while the block runs; ``between(t0,
+    t1)`` gives the median of the samples in a window of ``time.time()``
+    (the timestamps are nvidia-smi's own, on the same clock). Without
+    ``nvidia-smi`` there are no samples ("not measured")."""
+
+    def __init__(self, ms=20):
+        self.ms = ms
+        self.samples = []
+        self._proc = None
+
+    def __enter__(self):
+        import threading
+        from datetime import datetime
+
+        try:
+            self._proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits", f"--loop-ms={self.ms}",
+                 "-i", "0"], stdout=subprocess.PIPE,
+                stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            return self
+
+        def read():
+            for line in self._proc.stdout:
+                try:
+                    ts, clk, watts = (f.strip() for f in line.split(","))
+                    t = datetime.strptime(ts, "%Y/%m/%d %H:%M:%S.%f")
+                    self.samples.append((t.timestamp(), float(clk),
+                                         float(watts)))
+                except ValueError:
+                    continue
+
+        self._reader = threading.Thread(target=read, daemon=True)
+        self._reader.start()
+        time.sleep(0.3)                 # nvidia-smi's first sample
+        return self
+
+    def __exit__(self, *exc):
+        if self._proc is not None:
+            time.sleep(2 * self.ms / 1e3)
+            self._proc.terminate()
+            try:
+                self._proc.wait(5)
+            except subprocess.TimeoutExpired:
+                self._proc.kill()
+                self._proc.wait()
+            self._reader.join(5)
+        return False
+
+    def between(self, windows):
+        """``(median SM MHz, median W, samples)`` over the samples inside
+        any of ``windows`` (``(t0, t1)`` pairs), or None."""
+        got = [(c, w) for t, c, w in self.samples
+               if any(t0 <= t <= t1 for t0, t1 in windows)]
+        if not got:
+            return None
+        return (float(np.median([c for c, _ in got])),
+                float(np.median([w for _, w in got])), len(got))
+
+
+def _clock_text(reading):
+    if reading is None:
+        return "SM clock not measured"
+    mhz, watts, n = reading
+    return f"SM clock {mhz:.0f} MHz at {watts:.1f} W (median of {n})"
+
+
+# alternating eager and graph turns a row times, after the first window
+GRAPH_ROUNDS = 5
+
+
+def graph_row(label, make, wins, card, seed, expect, kernels=None,
+              tags=()):
+    """One row of the graph phase. ``make()`` gives a fresh
+    ``SPMDTrainer`` (the same start state each call), ``wins`` at least
+    ``1 + GRAPH_TIMED`` windows ``(data, labels)`` of K batches on the
+    device; ``expect``: launch counter name -> launches a step;
+    ``kernels``: CUDA function -> launches a step.
+
+    From the same state and seed, K eager ``step()`` calls and one
+    ``run_superstep`` (warm-up step, capture, one replay) on the first
+    window: the [K] losses and every parameter and running statistic bit
+    for bit. The launch counters: the K eager steps count ``expect`` a
+    step; the capture records K steps' worth and counts nothing; the first
+    ``run_superstep`` counts K + 1 steps (the warm-up ran), every later
+    one K (each graph call's own counter change, measured around it and
+    summed into ``launches``). Then ``GRAPH_ROUNDS`` alternating turns
+    (K eager steps, one graph window) on the next windows give host ms a
+    step, the median of each; the peak memory above what the row held
+    before (the eager turn of the first round; the graph's first call);
+    a profile (``torch.profiler``) of K eager steps and of one graph
+    window: device time a step, idle share against the medians, and the
+    profiler's own launch count of each of ``kernels`` (K a step in both:
+    the kernels ran on the card); the SM clock and power of each kind of
+    turn and profile (``ClockSampler``); the device span of a replay
+    (CUDA events)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops import launches
+
+    kernels = kernels or {}
+    k = int(wins[0][0].shape[0])
+    x0, y0 = wins[0]
+    eager = make()
+    mx.random.seed(seed)
+    c0 = launches.snapshot()
+    ref = torch.stack([eager.step(x0[i], y0[i]) for i in range(k)])
+    eager_counts = _launch_delta(c0)
+    per_step = {n: c // k for n, c in eager_counts.items()}
+    if any(c % k for c in eager_counts.values()):
+        raise AssertionError(f"graph {label}: K={k} eager steps launched "
+                             f"{eager_counts}, not K times a step's")
+    _check_graph_launches(label, per_step, expect)
+
+    graph = make()
+    mx.random.seed(seed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    total = {}
+
+    def graph_call(fn, *args, windows=1, warm=0):
+        """``fn(*args)``, its own launch counts gated (``windows`` graph
+        windows and ``warm`` eager warm-up steps) and summed into
+        ``total``."""
+        c = launches.snapshot()
+        out = fn(*args)
+        got = _launch_delta(c)
+        want = {n: v * (k * windows + warm) for n, v in per_step.items()}
+        if got != want:
+            raise AssertionError(f"graph {label}: a call of {windows} "
+                                 f"window(s) and {warm} warm-up step(s) "
+                                 f"launched {got}, not {want}")
+        for n, v in got.items():
+            total[n] = total.get(n, 0) + v
+        return out
+
+    t0 = time.perf_counter()
+    got = graph_call(graph.run_superstep, x0, y0, warm=1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    graph_peak = torch.cuda.max_memory_allocated() - base
+    entries = graph._graphs.graphs()
+    capture_counts = _counts_by_name(entries[0].counted) if entries \
+        else {}
+    if entries and capture_counts != {n: v * k for n, v in
+                                      per_step.items()}:
+        raise AssertionError(f"graph {label}: the capture recorded "
+                             f"{capture_counts}, not K={k} steps of "
+                             f"{per_step}")
+
+    equal = torch.equal(ref, got) and all(
+        torch.equal(eager.params[n], graph.params[n]) for n in eager.params)
+    worst = _worst_rel([("losses", got, ref)] + [
+        (n, graph.params[n], eager.params[n]) for n in eager.params])
+    print(f"graph {label}: K={k}, one run_superstep (warm-up, capture, one "
+          f"replay) in {first_s:.2f} s; [K] losses and "
+          f"{len(eager.params)} parameter tensors against K eager step() "
+          f"calls: {'bit-equal' if equal else 'NOT bit-equal'} (worst "
+          f"relative L2 {worst[0]:.3e}, {worst[1] or '-'}); launches a "
+          f"step {per_step}, recorded by the capture {capture_counts}",
+          flush=True)
+    if not equal:
+        raise AssertionError(f"graph {label}: the graph path is not "
+                             f"bit-equal to K eager steps ({worst})")
+
+    timed = wins[1:1 + GRAPH_TIMED]
+    turns = {"eager": [], "graph": []}
+    spans = {"eager": [], "graph": [], "eager_profile": [],
+             "graph_profile": []}
+    eager_peak = 0
+    with ClockSampler() as clocks:
+        for r in range(GRAPH_ROUNDS):
+            x, y = timed[r % len(timed)]
+            torch.cuda.synchronize()
+            if r == 0:
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            w0, t0 = time.time(), time.perf_counter()
+            for i in range(k):
+                eager.step(x[i], y[i])
+            torch.cuda.synchronize()
+            turns["eager"].append((time.perf_counter() - t0) * 1e3 / k)
+            spans["eager"].append((w0, time.time()))
+            if r == 0:
+                eager_peak = torch.cuda.max_memory_allocated() - base
+            w0, t0 = time.time(), time.perf_counter()
+            losses = graph_call(graph.run_superstep, x, y)
+            torch.cuda.synchronize()
+            turns["graph"].append((time.perf_counter() - t0) * 1e3 / k)
+            spans["graph"].append((w0, time.time()))
+        eager_ms = float(np.median(turns["eager"]))
+        graph_ms = float(np.median(turns["graph"]))
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"graph {label}: a loss is not finite")
+        x1, y1 = timed[0]
+        span_ms = _replay_span_ms(graph_call, graph.run_superstep, x1, y1)
+
+        def eager_window(x, y):
+            for i in range(k):
+                eager.step(x[i], y[i])
+
+        w0 = time.time()
+        prof_e = _profile_step(eager_window, x1, y1, card, eager_ms * k,
+                               tags=tags, top=6,
+                               what=f"{label} eager window (K={k})")
+        spans["eager_profile"].append((w0, time.time()))
+        w0 = time.time()
+        prof_g = _profile_step(
+            lambda x, y: graph_call(graph.run_superstep, x, y), x1, y1,
+            card, graph_ms * k, tags=tags, top=6,
+            what=f"{label} graph window (K={k})")
+        spans["graph_profile"].append((w0, time.time()))
+    clock = {kind: clocks.between(w) for kind, w in spans.items()}
+    if kernels:
+        _check_profiled(f"{label} eager window", prof_e, kernels, k)
+        _check_profiled(f"{label} graph window", prof_g, kernels, k)
+    dev_e = sum(r[0] for r in prof_e) / k
+    dev_g = sum(r[0] for r in prof_g) / k
+    print(f"graph {label} ({card}): eager step() {eager_ms:.4f} ms per "
+          f"step, graph path {graph_ms:.4f} ms per step (host clock, "
+          f"median of {GRAPH_ROUNDS} alternating turns of {k} steps: eager "
+          f"{[round(t, 4) for t in turns['eager']]}, graph "
+          f"{[round(t, 4) for t in turns['graph']]}); device time "
+          f"{dev_e:.4f} ms a step eager (idle "
+          f"{100 * (_idle(prof_e, eager_ms * k) or 0):.1f}%), {dev_g:.4f} "
+          f"ms a step in the graph (idle "
+          f"{100 * (_idle(prof_g, graph_ms * k) or 0):.1f}%), a replay's "
+          f"device span {span_ms / k:.4f} ms a step; peak memory above the "
+          f"row's baseline: eager {eager_peak / 2**20:.1f} MiB, graph "
+          f"(warm-up, capture, replay) {graph_peak / 2**20:.1f} MiB; "
+          f"eager turns {_clock_text(clock['eager'])}, graph turns "
+          f"{_clock_text(clock['graph'])}, eager profile "
+          f"{_clock_text(clock['eager_profile'])}, graph profile "
+          f"{_clock_text(clock['graph_profile'])}; launches on the graph "
+          f"path (every graph call of the row, measured) {total}",
+          flush=True)
+    return dict(k=k, eager_ms=eager_ms, graph_ms=graph_ms,
+                eager_turns_ms=turns["eager"], graph_turns_ms=turns["graph"],
+                eager_device_ms=dev_e, graph_device_ms=dev_g,
+                eager_idle=_idle(prof_e, eager_ms * k),
+                graph_idle=_idle(prof_g, graph_ms * k),
+                replay_span_ms=span_ms / k, eager_peak_bytes=eager_peak,
+                graph_peak_bytes=graph_peak, first_call_s=first_s,
+                per_step=per_step, per_capture=capture_counts,
+                clocks=clock, launches=total)
+
+
+def _windows(n, make_batch):
+    """``n`` windows, each a stacked ``(data, labels)`` of K batches."""
+    out = []
+    for _ in range(n):
+        xs, ys = zip(*make_batch())
+        out.append((torch.stack(xs), torch.stack(ys)))
+    return out
+
+
+def gluon_superstep_row(seed, card, net, wins):
+    """The gluon SuperStep (``Trainer.superstep``) on ``net`` with sgd and
+    momentum: the fused path (one replay a window on the card) against
+    its eager path (``MXTPU_SUPERSTEP=0``: forward, backward,
+    ``Trainer.step(1)``) from the same weights and seed over the first
+    window, bit for bit, then host ms a step of each over the others."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.config import config
+
+    start = {n: p.detach().clone() for n, p in net.named_parameters()}
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    out = {}
+    for mode, knob in (("graph", "auto"), ("eager", "0")):
+        with torch.no_grad():
+            for n, p in net.named_parameters():
+                p.copy_(start[n])
+        config.set("MXTPU_SUPERSTEP", knob)
+        try:
+            tr = gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9})
+            eng = tr.superstep(net, ce, window=int(wins[0][0].shape[0]))
+            mx.random.seed(seed)
+            first = eng.run_window(*wins[0])
+            params = {n: p.detach().clone()
+                      for n, p in net.named_parameters()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x, y in wins[1:]:
+                last = eng.run_window(x, y)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / sum(
+                int(x.shape[0]) for x, _ in wins[1:])
+        finally:
+            config.unset("MXTPU_SUPERSTEP")
+        if not bool(torch.isfinite(last).all()):
+            raise AssertionError("gluon superstep: a loss is not finite")
+        out[mode] = dict(first=first, params=params, ms=ms,
+                         dispatches=eng.dispatch_count,
+                         fallback=eng.last_fallback)
+    g, e = out["graph"], out["eager"]
+    equal = torch.equal(g["first"], e["first"]) and all(
+        torch.equal(g["params"][n], e["params"][n]) for n in g["params"])
+    print(f"gluon SuperStep (MLP, sgd lr 0.1 momentum 0.9, K="
+          f"{wins[0][0].shape[0]}; {card}): fused {g['ms']:.4f} ms per step "
+          f"({g['dispatches']} dispatches), eager path {e['ms']:.4f} ms per "
+          f"step ({e['fallback']}); first window "
+          f"{'bit-equal' if equal else 'NOT bit-equal'}", flush=True)
+    if not equal or g["dispatches"] != len(wins) or e["dispatches"] != 0 \
+            or g["fallback"] is not None:
+        raise AssertionError(f"gluon superstep: fused against eager "
+                             f"{equal}, dispatches {g['dispatches']}/"
+                             f"{e['dispatches']}, {g['fallback']}")
+    return dict(graph_ms=g["ms"], eager_ms=e["ms"], k=int(wins[0][0].shape[0]))
+
+
+def fresh_thread_capture(dev, n=32, h=56, c=64):
+    """K3 (the weight gradient, TMA-fed) and K1 captured in a CUDA graph on
+    a thread that never ran an encode, at ResNet-50's 3x3 64->64 56x56
+    shape, fp32 and bf16: the replay equals the eager calls bit for bit
+    (the encoder binds the thread's context with libcuda calls, which a
+    capture allows)."""
+    import threading
+
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(n, h, h, c, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(3, 3, c, c, generator=gen, device=dev) / 24
+             ).to(dtype)
+        a = torch.rand(c, generator=gen, device=dev) + 0.5
+        b = torch.randn(c, generator=gen, device=dev) * 0.5
+        y = fc.fused_conv(x, w, a, b, 1, 1, True)[0]
+        dy = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+        z = torch.zeros(c, device=dev)
+        args = (x, w, a, b, y, dy, z, z, 1, 1, True)
+        want = (fc.conv_bwd_dw(*args), fc.fused_conv(x, w, a, b, 1, 1,
+                                                     True)[0])
+        torch.cuda.synchronize()
+        res = {}
+
+        def run():
+            try:
+                side = torch.cuda.Stream()
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, stream=side):
+                    got = (fc.conv_bwd_dw(*args),
+                           fc.fused_conv(x, w, a, b, 1, 1, True)[0])
+                g.replay()
+                torch.cuda.synchronize()
+                res["got"] = got
+            except Exception as e:  # re-raised on this thread
+                res["err"] = e
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        if "err" in res:
+            raise AssertionError(f"capture on a fresh thread failed "
+                                 f"({DTYPE_NAMES[dtype]}): {res['err']}")
+        ok = all(torch.equal(g, r) for g, r in zip(res["got"], want))
+        out[DTYPE_NAMES[dtype]] = ok
+        if not ok:
+            raise AssertionError(f"the fresh-thread capture of K3/K1 "
+                                 f"({DTYPE_NAMES[dtype]}) differs from the "
+                                 f"eager calls")
+    print(f"fresh-thread capture: K3 and K1 at B={n}, {h}x{h}, {c}->{c} "
+          f"captured on a new thread and replayed, bit-equal to the eager "
+          f"calls in fp32 and bf16", flush=True)
+    return out
+
+
+def graph_phase(seed, card, ctx, mlp_b=MLP_BATCH, gpt=("gpt_decoder_117m",
+                50257, 8, 256, {}), resnet_b=128, hw=224,
+                resnet_layers=None, k=None):
+    """The graph phase (the module docstring's phase 10): each row's
+    ``SPMDTrainer.run_superstep`` over windows of distinct synthetic
+    batches drawn from ``seed`` against K eager steps (``graph_row``), the
+    gluon SuperStep on the MLP, and the fresh-thread capture. Sizes are
+    the rows' own unless a test passes small ones (``gpt``: spec name,
+    vocab, B, T, extra spec keys; ``resnet_layers``: (layers, channels)
+    of a small ResNet of both kinds; ``k``: window K for every row)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, parallel
+    from incubator_mxnet_tpu_torch.gluon import nn
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import (get_gpt,
+                                                          get_model, vision)
+
+    dev = ctx.torch_device()
+    gk = {row: (k or kk) for row, kk in GRAPH_K.items()}
+    n_win = 1 + GRAPH_TIMED
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 71)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    rows = {}
+
+    # the MLP row (bench.py's mlp: bf16, B=8192, 784-512-512-10)
+    mx.random.seed(seed)
+    net = nn.HybridSequential()
+    net.add(nn.Dense(512, activation="relu"),
+            nn.Dense(512, activation="relu"), nn.Dense(10))
+    net.initialize("xavier", ctx=ctx)
+    net.cast("bfloat16")
+    net(torch.zeros(2, 784, dtype=torch.bfloat16, device=dev))
+
+    def mlp_batch():
+        return [(torch.rand((mlp_b, 784), generator=gen, device=dev).to(
+            torch.bfloat16), torch.randint(0, 10, (mlp_b,), generator=gen,
+                                           device=dev).float())
+                for _ in range(gk["mlp"])]
+
+    wins = _windows(n_win, mlp_batch)
+    rows["mlp"] = graph_row(
+        "mlp", lambda: parallel.SPMDTrainer(
+            net, ce, "sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+        wins, card, seed, expect={})
+    rows["mlp_gluon_superstep"] = gluon_superstep_row(seed, card, net, wins)
+    del net, wins
+    gc.collect()
+
+    # the GPT bf16 row: dropout as built
+    name, vocab, b, t, spec = gpt
+    mx.random.seed(seed)
+    net = get_gpt(name, vocab_size=vocab, max_length=t, **spec).initialize(
+        "xavier", ctx=ctx)
+    net.cast("bfloat16")
+    layers = net.num_layers
+
+    def lm_loss(logits, labels):
+        return ce(logits, labels).mean()
+
+    def gpt_batch():
+        return [(torch.randint(0, vocab, (b, t), generator=gen, device=dev,
+                               dtype=torch.int32),
+                 torch.randint(0, vocab, (b, t), generator=gen,
+                               device=dev).float())
+                for _ in range(gk["gpt"])]
+
+    rows["gpt"] = graph_row(
+        "gpt", lambda: parallel.SPMDTrainer(
+            net, lm_loss, "sgd", {"learning_rate": 1e-4, "momentum": 0.9}),
+        _windows(n_win, gpt_batch), card, seed,
+        expect={f"{kern}{route}": layers for kern in COUNTERS
+                for route in ("", "_tc")},
+        kernels={f"{kern}_tc_kernel": layers for kern in COUNTERS},
+        tags=FLASH_TAGS)
+    del net
+    gc.collect()
+
+    # the fused and unfused ResNet-50 rows (bf16, B=128; unfused in
+    # channels-last memory format)
+    if resnet_layers is None:
+        fused = get_model("fused_resnet50_v1", classes=1000)
+        zoo = get_model("resnet50_v1", classes=1000)
+    else:
+        lay, chans = resnet_layers
+        fused = vision.FusedResNetV1(lay, chans, classes=10)
+        zoo = vision.ResNetV1(vision.BottleneckV1, lay, chans, classes=10)
+    for row, net in (("resnet50_fused", fused), ("resnet50_unfused", zoo)):
+        mx.random.seed(seed)
+        net.initialize("xavier", ctx=ctx)
+        with mx.autograd.pause():             # fills deferred shapes
+            net(torch.zeros(2, 3, hw, hw, device=dev))
+        net.cast("bfloat16")
+        classes = net.output.weight.shape[0]
+        channels_last = row == "resnet50_unfused"
+        if channels_last:
+            with torch.no_grad():
+                for p in net.parameters():
+                    if p.dim() == 4:
+                        p.data = p.data.contiguous(
+                            memory_format=torch.channels_last)
+
+        def resnet_batch(k_row=gk[row], cl=channels_last, nc=classes):
+            out = []
+            for _ in range(k_row):
+                x = torch.rand((resnet_b, 3, hw, hw), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                y = torch.randint(0, nc, (resnet_b,), generator=gen,
+                                  device=dev).float()
+                out.append((x, y))
+            return out
+
+        wins = _windows(n_win, resnet_batch)
+        if channels_last:       # each batch of the window channels-last
+            wins = [(x.permute(0, 1, 3, 4, 2).contiguous().permute(
+                0, 1, 4, 2, 3), y) for x, y in wins]
+        per_pass = convs_per_pass(net) if row == "resnet50_fused" else 0
+        expect = {f"{kern}_tc": per_pass for kern in CONV_KERNELS} \
+            if per_pass else {}
+        expect.update({kern: per_pass for kern in CONV_KERNELS})
+        rows[row] = graph_row(
+            row, lambda n=net: parallel.SPMDTrainer(
+                n, ce, "sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+            wins, card, seed, expect=expect,
+            kernels={f"{kern}_tc_kernel": per_pass
+                     for kern in CONV_KERNELS} if per_pass else None,
+            tags=CONV_TAGS if per_pass else ())
+        rows[row]["per_pass"] = per_pass
+        del wins
+        gc.collect()
+    del fused, zoo
+    gc.collect()
+    rows["fresh_thread"] = fresh_thread_capture(dev) \
+        if dev.type == "cuda" else None
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # imperative phase: mx.nd, mx.operator and mx.rtc (K7)
 # ---------------------------------------------------------------------------
 RTC_KERNELS = ("scale", "saxpy", "first_row", "softmax_ce_fwd",
@@ -3159,7 +3849,7 @@ def main(argv=None) -> int:
     kernel = kernel_phase(args.seed)
     bwd = backward_kernel_phase(args.seed)
     conv = conv_kernel_phase(args.seed)
-    served = slice_phase(args.seed)
+    served = slice_phase(args.seed, card)
     gc.collect()
     trained = train_phase(args.seed, card)
     gc.collect()
@@ -3168,6 +3858,8 @@ def main(argv=None) -> int:
     unfused = unfused_resnet_main(args.seed, card)
     gc.collect()
     mlp = mlp_phase(args.seed, card, mx.gpu(0))
+    gc.collect()
+    graph = graph_phase(args.seed, card, mx.gpu(0))
     gc.collect()
     imperative = imperative_main(args.seed, card)
 
@@ -3191,7 +3883,9 @@ def main(argv=None) -> int:
         by_path = {
             "decode": served["routes"][route],
             "train": trained["routes"][f"flash_fwd_{route}"],
-            "imperative": imperative["flash_routes"][f"flash_fwd_{route}"]}
+            "imperative": imperative["flash_routes"][f"flash_fwd_{route}"],
+            "gpt_graph": graph["gpt"]["launches"].get(f"flash_fwd_{route}",
+                                                      0)}
         main_paths = sum(by_path.values())
         by_path["train_to_decode"] = trained["decode_routes"][route]
         if route == "tc":
@@ -3213,10 +3907,12 @@ def main(argv=None) -> int:
         for route, source, dtype in (("simt", "flash_bwd.cu", "fp32"),
                                      ("f32", "flash_bwd_f32.cu", "fp32"),
                                      ("tc", "flash_bwd_tc.cu", "bf16")):
+            in_graph = graph["gpt"]["launches"].get(f"{name}_{route}", 0)
             entry = _entry(name if route == "simt" else f"{name}_{route}",
                            src + source, ref + line,
                            trained["routes"][f"{name}_{route}"]
-                           + imperative["flash_routes"][f"{name}_{route}"],
+                           + imperative["flash_routes"][f"{name}_{route}"]
+                           + in_graph,
                            [r for r in bwd if r["kernel"] == name
                             and r["route"] == route], train_case, dtype)
             head = next(r for r in entry["cases"] if r["case"] == train_case
@@ -3225,7 +3921,8 @@ def main(argv=None) -> int:
             entry["simt_ms"] = head["simt_ms"]
             entry["launches_by_path"] = {
                 "train": trained["routes"][f"{name}_{route}"],
-                "imperative": imperative["flash_routes"][f"{name}_{route}"]}
+                "imperative": imperative["flash_routes"][f"{name}_{route}"],
+                "gpt_graph": in_graph}
             if route == "tc":
                 entry["launches_by_path"]["bf16_gate"] = \
                     trained["gate_launches"][f"{name}_tc"]
@@ -3252,9 +3949,11 @@ def main(argv=None) -> int:
         for route, fn, source, dtype in zip(("simt", "tc", "f32"), cuda_fns,
                                             sources, ("fp32", "bf16",
                                                       "fp32")):
+            in_graph = graph["resnet50_fused"]["launches"].get(
+                f"{name}_{route}", 0)
             entry = _entry(name if route == "simt" else f"{name}_{route}",
                            src + source, conv_ref + line,
-                           resnet["routes"][name, route],
+                           resnet["routes"][name, route] + in_graph,
                            [r for r in conv if r["kernel"] == name
                             and r["route"] == route], CONV_HEAD, dtype)
             entry["kernel"] = fn
@@ -3263,7 +3962,8 @@ def main(argv=None) -> int:
                     r["simt_ms"] for r in entry["cases"]
                     if r["case"] == CONV_HEAD)
             entry["launches_by_path"] = {"resnet_train":
-                                         resnet["routes"][name, route]}
+                                         resnet["routes"][name, route],
+                                         "resnet_graph": in_graph}
             if name == "fused_conv":
                 entry["launches_by_path"]["resnet_eval"] = \
                     resnet["eval_routes"][name, route]
@@ -3290,7 +3990,17 @@ def main(argv=None) -> int:
                                          "peak_bytes", "idle")}
             for layout, row in bench.items()},
         "mlp_bf16": {k: mlp[k] for k in ("batch", "step_ms", "images_s",
-                                         "peak_bytes", "idle")}}),
+                                         "peak_bytes", "idle")},
+        "graph": {row: {k: v for k, v in r.items()
+                        if k in ("k", "eager_ms", "graph_ms",
+                                 "eager_device_ms", "graph_device_ms",
+                                 "eager_idle", "graph_idle",
+                                 "replay_span_ms", "eager_peak_bytes",
+                                 "graph_peak_bytes")}
+                  for row, r in graph.items() if isinstance(r, dict)
+                  and "graph_ms" in r},
+        "decode_step": {k: served["step_times"][k] for k in (
+            "graph_ms", "eager_ms", "graph_device_ms", "eager_device_ms")}}),
         flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

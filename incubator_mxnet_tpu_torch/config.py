@@ -106,6 +106,20 @@ config.register(
     "max_new_tokens overrides). Generation also stops at the request's "
     "eos_id or at cache capacity.")
 
+config.register(
+    "MXTPU_SUPERSTEP", "auto", str,
+    "K training steps per dispatch: 'auto' (the default) or '1' captures "
+    "the K step bodies of a window in one CUDA graph wherever a caller "
+    "drives stacked windows (SPMDTrainer.run_superstep and run_steps, "
+    "gluon Trainer.superstep) on a CUDA device and the step is fusable; "
+    "'0'/'off' runs the same K steps eagerly, one after another (the same "
+    "loss stream, K host dispatches).")
+config.register(
+    "MXTPU_SUPERSTEP_WINDOW", 8, int,
+    "Default superstep window K (gluon Trainer.superstep): batches per "
+    "graph replay. A larger K spreads the host's dispatch over more steps "
+    "but holds K stacked batches on the device and captures K step bodies.")
+
 
 def is_naive_engine() -> bool:
     return str(config.get("MXTPU_ENGINE_TYPE")).lower() == "naive"

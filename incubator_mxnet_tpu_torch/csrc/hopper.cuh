@@ -311,23 +311,68 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, through the runtime: no -lcuda.
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
+// A libcuda function, looked up through the runtime: no -lcuda (nullptr
+// if absent).
+inline void* cuda_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+  const cudaError_t e = cudaGetDriverEntryPointByVersion(
+      name, &p, 12000, cudaEnableDefault, &q);
 #else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+  const cudaError_t e = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault,
+                                                &q);
 #endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
+  return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
+// cuTensorMapEncodeTiled from libcuda.
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn =
+      reinterpret_cast<EncodeTiled>(cuda_entry("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+// Make the current device's primary context current on this thread if no
+// context is. cuTensorMapEncodeTiled needs a current context, which the
+// runtime binds to a thread only at its first call that needs one: a
+// thread whose first CUDA work is an encode (a backward on torch's
+// autograd thread, say) has none. libcuda calls only: the runtime's way
+// to bind one (cudaFree(nullptr)) is refused while a stream of the
+// process is being captured into a CUDA graph, and such a thread may meet
+// its first encode inside a capture. Returns 0 or kMapError + the
+// CUresult.
+inline int bind_context() {
+  using GetCurrent = CUresult (*)(CUcontext*);
+  using SetCurrent = CUresult (*)(CUcontext);
+  using DeviceGet = CUresult (*)(CUdevice*, int);
+  using Retain = CUresult (*)(CUcontext*, CUdevice);
+  static const GetCurrent get_current =
+      reinterpret_cast<GetCurrent>(cuda_entry("cuCtxGetCurrent"));
+  static const SetCurrent set_current =
+      reinterpret_cast<SetCurrent>(cuda_entry("cuCtxSetCurrent"));
+  static const DeviceGet device_get =
+      reinterpret_cast<DeviceGet>(cuda_entry("cuDeviceGet"));
+  static const Retain retain =
+      reinterpret_cast<Retain>(cuda_entry("cuDevicePrimaryCtxRetain"));
+  static thread_local bool bound = false;
+  if (bound) return 0;
+  if (!get_current || !set_current || !device_get || !retain)
+    return kMapError + (int)CUDA_ERROR_NOT_FOUND;
+  CUcontext ctx = nullptr;
+  CUresult r = get_current(&ctx);
+  if (r == CUDA_SUCCESS && ctx == nullptr) {
+    int ordinal = 0;
+    const cudaError_t e = cudaGetDevice(&ordinal);
+    if (e != cudaSuccess) return (int)e;
+    CUdevice dev;
+    r = device_get(&dev, ordinal);
+    if (r == CUDA_SUCCESS) r = retain(&ctx, dev);
+    if (r == CUDA_SUCCESS) r = set_current(ctx);
+  }
+  if (r != CUDA_SUCCESS) return kMapError + (int)r;
+  bound = true;
+  return 0;
 }
 
 // A bf16 tensor (or one of `dtype`) of `rank` dims (innermost first,
@@ -341,16 +386,7 @@ inline int encode(CUtensorMap* map, const void* base, int rank,
                       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return kMapError + (int)CUDA_ERROR_NOT_FOUND;
-  // cuTensorMapEncodeTiled needs a current context, which the runtime
-  // binds to a thread at its first call that needs one: a thread whose
-  // first CUDA work is an encode (a backward on torch's autograd thread,
-  // say) makes such a call first, once.
-  static thread_local bool bound = false;
-  if (!bound) {
-    const cudaError_t e = cudaFree(nullptr);
-    if (e != cudaSuccess) return (int)e;
-    bound = true;
-  }
+  if (const int err = bind_context()) return err;
   cuuint64_t gdim[5], gstride[4];
   cuuint32_t bdim[5], es[5];
   for (int i = 0; i < rank; ++i) {

@@ -46,6 +46,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from . import launches as _launches
 from .registry import register
 
 __all__ = ["FlashAttentionFunction", "flash_attention",
@@ -448,9 +449,6 @@ def _forward(q, k, v, lengths, scale, causal, cache_offset, return_lse,
              route=None):
     """The forward on the route :func:`_pick_fwd_route` names (a CPU
     tensor: the plain version, after checking a named route)."""
-    global flash_fwd_launches, flash_fwd_tc_launches
-    global flash_fwd_split_launches, flash_fwd_simt_launches
-    global flash_fwd_f32_launches
     if _device_of(q) == "cpu":
         if route is not None:
             _pick_fwd_route(q, k, v, None, route)
@@ -485,15 +483,8 @@ def _forward(q, k, v, lengths, scale, causal, cache_offset, return_lse,
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed ({route} route):"
                            f" CUDA error {err}")
-    if route == "tc":
-        flash_fwd_tc_launches += 1
-    elif route == "split":
-        flash_fwd_split_launches += 1
-    elif route == "f32":
-        flash_fwd_f32_launches += 1
-    else:
-        flash_fwd_simt_launches += 1
-    flash_fwd_launches += 1
+    _launches.count(__name__, f"flash_fwd_{route}_launches",
+                    "flash_fwd_launches")
     return (out, lse) if return_lse else out
 
 
@@ -543,8 +534,6 @@ def flash_bwd_dq(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
     the route :func:`flash_bwd_route` names (or ``route="simt"``: the SIMT
     kernel whatever the type) or raises. A ``route`` the rule does not
     allow raises on the CPU too."""
-    global flash_bwd_dq_launches, flash_bwd_dq_tc_launches
-    global flash_bwd_dq_simt_launches, flash_bwd_dq_f32_launches
     if _device_of(q) == "cpu":
         if route is not None:
             _pick_bwd_route(q, k, v, g, (), route)
@@ -552,13 +541,8 @@ def flash_bwd_dq(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
                                       causal, cache_offset)
     (dq,), route = _launch_bwd(0, q, k, v, lengths, lse, delta, g, scale,
                                causal, cache_offset, route)
-    if route == "tc":
-        flash_bwd_dq_tc_launches += 1
-    elif route == "f32":
-        flash_bwd_dq_f32_launches += 1
-    else:
-        flash_bwd_dq_simt_launches += 1
-    flash_bwd_dq_launches += 1
+    _launches.count(__name__, f"flash_bwd_dq_{route}_launches",
+                    "flash_bwd_dq_launches")
     return dq
 
 
@@ -568,8 +552,6 @@ def flash_bwd_dkv(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
     :func:`flash_bwd_dkv_reference`, a CUDA tensor launches the dk/dv kernel
     of the route :func:`flash_bwd_route` names (or ``route="simt"``) or
     raises. A ``route`` the rule does not allow raises on the CPU too."""
-    global flash_bwd_dkv_launches, flash_bwd_dkv_tc_launches
-    global flash_bwd_dkv_simt_launches, flash_bwd_dkv_f32_launches
     if _device_of(q) == "cpu":
         if route is not None:
             _pick_bwd_route(q, k, v, g, (), route)
@@ -577,13 +559,8 @@ def flash_bwd_dkv(q, k, v, lengths, lse, delta, g, scale=None, causal=False,
                                        scale, causal, cache_offset)
     (dk, dv), route = _launch_bwd(1, q, k, v, lengths, lse, delta, g, scale,
                                   causal, cache_offset, route)
-    if route == "tc":
-        flash_bwd_dkv_tc_launches += 1
-    elif route == "f32":
-        flash_bwd_dkv_f32_launches += 1
-    else:
-        flash_bwd_dkv_simt_launches += 1
-    flash_bwd_dkv_launches += 1
+    _launches.count(__name__, f"flash_bwd_dkv_{route}_launches",
+                    "flash_bwd_dkv_launches")
     return dk, dv
 
 

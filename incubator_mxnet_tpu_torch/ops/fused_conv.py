@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from . import launches as _launches
 from .registry import register
 
 __all__ = ["FusedConvEpiFunction", "FusedConvFunction", "apply_prologue",
@@ -324,8 +325,6 @@ def fused_conv(x, w, a=None, b=None, stride=1, pad=0, relu=True, r=None,
     tensor launches the kernel :func:`conv_route` names for its widths
     and operands (or ``route="simt"``: ``csrc/fused_conv.cu`` whatever the
     type) or raises."""
-    global fused_conv_launches, fused_conv_tc_launches
-    global fused_conv_simt_launches, fused_conv_f32_launches
     n, h, wd, ci, co, kh, kw, ho, wo = _geometry(x, w, stride, pad)
     if emit and r is None:
         raise ValueError("emit needs a resid operand")
@@ -359,19 +358,17 @@ def fused_conv(x, w, a=None, b=None, stride=1, pad=0, relu=True, r=None,
             if splits > 1 else None
         _run(_kernel("fwd_tc"), x, *ptrs, _ptr(part), _ptr(part_y), *dims,
              *box, cols, taps, splits)
-        fused_conv_tc_launches += 1
     else:   # f32 and SIMT: the sums' partials over 64-row tiles of y
         part = torch.empty(2 * -(-n * ho * wo // _TILE) * co,
                            dtype=torch.float32, device=dev)
         if route == "f32":
             _run(_kernel("fwd_f32"), x, *ptrs, _ptr(part), *dims,
                  *tc_box(n, ho, wo))
-            fused_conv_f32_launches += 1
         else:
             _run(_kernel("fwd"), x, *ptrs, _ptr(part), *dims,
                  _DTYPE_CODE[x.dtype])
-            fused_conv_simt_launches += 1
-    fused_conv_launches += 1
+    _launches.count(__name__, f"fused_conv_{route}_launches",
+                    "fused_conv_launches")
     return (y, s, ss, xp) if emit else (y, s, ss)
 
 
@@ -392,8 +389,6 @@ def conv_bwd_dx(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
     tensor launches the kernel :func:`conv_route` names for its widths
     and operands (or ``route="simt"``: the SIMT kernel whatever the type)
     or raises."""
-    global conv_bwd_dx_launches, conv_bwd_dx_tc_launches
-    global conv_bwd_dx_simt_launches, conv_bwd_dx_f32_launches
     n, h, wd, ci, co, kh, kw, ho, wo = _backward_operands(
         x, w, y, dy, stride, pad)
     if _device_of(x) == "cpu":
@@ -427,7 +422,6 @@ def conv_bwd_dx(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
         rows = stride * stride * _boxes(n, hq, wq, box)
         part = torch.empty(3 * rows * ci if pro else 1, **f32)
         _run(_kernel("dx_f32"), x, *ptrs, _ptr(part), *dims, *box)
-        conv_bwd_dx_f32_launches += 1
     elif route == "tc":
         taps = dx_tc_taps(kw, stride, wd)
         box = dx_tc_box(n, h, wd, kw, stride, taps)
@@ -435,14 +429,13 @@ def conv_bwd_dx(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
         part = torch.empty(3 * rows * ci if pro else 1, **f32)
         _run(_kernel("dx_tc"), x, *ptrs, _ptr(part), *dims, *box,
              dx_tc_cols(n, h, wd, ci, stride, taps), taps)
-        conv_bwd_dx_tc_launches += 1
     else:
         rows = stride * stride * -(-n * hq * wq // _TILE)
         part = torch.empty(3 * rows * ci if pro else 1, **f32)
         _run(_kernel("dx"), x, *ptrs, _ptr(part), *dims,
              _DTYPE_CODE[x.dtype])
-        conv_bwd_dx_simt_launches += 1
-    conv_bwd_dx_launches += 1
+    _launches.count(__name__, f"conv_bwd_dx_{route}_launches",
+                    "conv_bwd_dx_launches")
     return (dx, da, db, dr, dar) if r is not None else (dx, da, db)
 
 
@@ -619,8 +612,6 @@ def conv_bwd_dw(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
     :func:`conv_bwd_dw_reference`; a CUDA tensor launches the kernel
     :func:`conv_route` names for its widths and operands (or
     ``route="simt"``) or raises."""
-    global conv_bwd_dw_launches, conv_bwd_dw_tc_launches
-    global conv_bwd_dw_simt_launches, conv_bwd_dw_f32_launches
     n, h, wd, ci, co, kh, kw, ho, wo = _backward_operands(
         x, w, y, dy, stride, pad)
     if _device_of(x) == "cpu":
@@ -651,15 +642,13 @@ def conv_bwd_dw(x, w, a, b, y, dy, ds, dss, stride=1, pad=0, relu=True,
     if route == "tc":
         _run(_kernel("dw_tc"), x, *args, *dw_tc_box(n, ho, wo, kw, taps),
              taps)
-        conv_bwd_dw_tc_launches += 1
     elif route == "f32":
         _run(_kernel("dw_f32"), x, *args, *dw_tc_box(n, ho, wo, kw, taps),
              taps)
-        conv_bwd_dw_f32_launches += 1
     else:
         _run(_kernel("dw"), x, *args, _DTYPE_CODE[x.dtype])
-        conv_bwd_dw_simt_launches += 1
-    conv_bwd_dw_launches += 1
+    _launches.count(__name__, f"conv_bwd_dw_{route}_launches",
+                    "conv_bwd_dw_launches")
     return dw
 
 

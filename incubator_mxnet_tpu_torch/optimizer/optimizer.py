@@ -4,10 +4,15 @@ Counterpart of the JAX package's ``optimizer/optimizer.py``: ``register``
 and ``create``, the ``Optimizer`` base (``rescale_grad``, ``wd``,
 ``clip_gradient``, an ``lr_scheduler``, lr/wd multipliers, per-index update
 counts), the rules ``SGD``, ``NAG``, ``Adam`` and ``AdamW`` (dense
-gradients), and ``Updater``. The JAX package compiles each rule's pure
-core; here each rule updates the weight and its states in place with
-PyTorch tensor ops (the weight is a parameter: updating it in place keeps
-every reference to it, and saves a copy of the model per step).
+gradients), and ``Updater``. Each rule is written once, as its functional
+core ``update_fn``: it updates a list of weights and their states in place
+(the weight is a parameter: updating it in place keeps every reference to
+it, and saves a copy of the model per step) with the ``torch._foreach_*``
+multi-tensor ops (a handful of launches for every parameter of a model),
+and takes ``lr``, ``wd`` and ``t`` as device scalars, so that a CUDA graph
+that captured it reads their values at each replay (``gluon.Trainer``'s
+FusedStep and SuperStep). ``update`` (the ``Updater``'s one parameter at
+a time) is the same core over a list of one.
 
 The other rules of the JAX package (AdaGrad, AdaDelta, RMSProp, Ftrl,
 LAMB, Signum, SGLD, DCASGD, LARS), sparse gradients and multi-precision
@@ -16,9 +21,8 @@ master weights are not ported yet.
 
 from __future__ import annotations
 
-import math
 import pickle
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -46,6 +50,9 @@ def create(name, **kwargs) -> "Optimizer":
 
 class Optimizer:
     """Base optimizer (reference ``mxnet.optimizer.Optimizer``)."""
+
+    #: the rule has a functional core (:meth:`update_fn`)
+    _has_fused_core = False
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -123,28 +130,82 @@ class Optimizer:
     def create_state(self, index, weight: torch.Tensor):
         return None
 
-    # -- update -------------------------------------------------------------
-    def _prepare_grad(self, weight, grad):
-        """The rescaled, clipped gradient in the weight's dtype (a new
-        tensor: the caller's gradient is left as it is)."""
-        g = grad.to(weight.dtype) * self.rescale_grad
-        if self.clip_gradient is not None:
-            g = g.clamp_(-self.clip_gradient, self.clip_gradient)
-        return g
+    # external state (None / a tensor / a tuple) <-> the flat tuple the
+    # functional core takes
+    @staticmethod
+    def _pack_state(state) -> Tuple:
+        if state is None:
+            return ()
+        if isinstance(state, tuple):
+            return state
+        return (state,)
 
-    def step(self, weight, g, state, lr, wd, t):
-        """Apply the rule in place: ``weight`` and ``state`` are updated,
-        ``g`` is the prepared gradient, ``t`` this index's update count."""
+    def _hyper_key(self) -> tuple:
+        """Every plain scalar hyperparameter of the rule (what a captured
+        update bakes in: a changed value must capture again)."""
+        return tuple(sorted(
+            (k, v) for k, v in self.__dict__.items()
+            if not k.startswith("_") and k not in self._NON_HYPER
+            and isinstance(v, (int, float, bool, str, type(None)))))
+
+    # per-step inputs (device scalars or counters), not hyperparameters
+    _NON_HYPER = frozenset(("lr", "wd", "rescale_grad", "num_update",
+                            "begin_num_update"))
+
+    # -- functional core ------------------------------------------------------
+    @torch.no_grad()
+    def update_fn(self, ws, gs, states, lr, wd, t):
+        """The rule over a list of parameters, in place: ``ws`` the
+        weights, ``gs`` their gradients (already rescaled; left as they
+        are), ``states`` one ``_pack_state`` tuple each, ``lr``/``wd``/
+        ``t`` 0-d fp32 tensors on the weights' device shared by the list
+        (``t``: the update count, for bias corrections). Every weight of
+        the list has one dtype. Returns ``(ws, states)``; a single tensor
+        ``ws`` (the JAX package's per-parameter form) gives a single
+        weight and its tuple back."""
+        if not self._has_fused_core:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no functional core")
+        if isinstance(ws, torch.Tensor):
+            self._core([ws], [gs], [tuple(states)], lr, wd, t)
+            return ws, tuple(states)
+        ws, gs, states = list(ws), list(gs), [tuple(s) for s in states]
+        if ws:
+            self._core(ws, gs, states, lr, wd, t)
+        return ws, states
+
+    def _prologue(self, ws, gs) -> List[torch.Tensor]:
+        """Shared core prologue: the gradients cast to the weights' dtype
+        and clipped. The rules never write into what it returns (it may be
+        the caller's gradients)."""
+        gs = [g.to(w.dtype) for w, g in zip(ws, gs)]
+        if self.clip_gradient is not None:
+            gs = torch._foreach_clamp_min(gs, -self.clip_gradient)
+            torch._foreach_clamp_max_(gs, self.clip_gradient)
+        return gs
+
+    def _core(self, ws: List[torch.Tensor], gs: List[torch.Tensor],
+              states: Sequence[Tuple], lr, wd, t) -> None:
         raise NotImplementedError
 
+    # -- update -------------------------------------------------------------
     @torch.no_grad()
     def update(self, index, weight: torch.Tensor, grad: torch.Tensor,
                state):
-        """Update ``weight`` (and ``state``) in place; returns the state."""
+        """Update ``weight`` (and ``state``) in place: the rule's core over
+        this one parameter, with its rescale, lr, wd and update count as
+        device scalars (as FusedStep gives them); returns the state. A
+        rule of a user's that cannot be fused (``_has_fused_core`` False)
+        overrides this."""
+        from ..parallel.superstep import device_scalars
+
         self._update_count(index)
-        t = self._index_update_count[index]
-        self.step(weight, self._prepare_grad(weight, grad), state,
-                  self._get_lr(index), self._get_wd(index), t)
+        lr, wd, t, rescale = device_scalars(
+            (self._get_lr(index), self._get_wd(index),
+             self._index_update_count[index], self.rescale_grad),
+            weight.device)
+        self._core([weight], [grad * rescale.to(grad.dtype)],
+                   [self._pack_state(state)], lr, wd, t)
         return state
 
 
@@ -164,13 +225,19 @@ class SGD(Optimizer):
             return None
         return torch.zeros_like(weight)
 
-    def step(self, weight, g, state, lr, wd, t):
-        g.add_(weight, alpha=wd)
-        if state is None:
-            weight.sub_(g, alpha=lr)
+    _has_fused_core = True
+
+    def _core(self, ws, gs, states, lr, wd, t):
+        lr, wd = lr.to(ws[0].dtype), wd.to(ws[0].dtype)
+        gs = torch._foreach_add(self._prologue(ws, gs),
+                                torch._foreach_mul(ws, wd))
+        if not states[0]:
+            torch._foreach_sub_(ws, torch._foreach_mul(gs, lr))
             return
-        state.mul_(self.momentum).sub_(g, alpha=lr)
-        weight.add_(state)
+        ms = [st[0] for st in states]
+        torch._foreach_mul_(ms, self.momentum)
+        torch._foreach_sub_(ms, torch._foreach_mul(gs, lr))
+        torch._foreach_add_(ws, ms)
 
 
 @register
@@ -186,13 +253,20 @@ class NAG(Optimizer):
             return None
         return torch.zeros_like(weight)
 
-    def step(self, weight, g, state, lr, wd, t):
-        g.add_(weight, alpha=wd)
-        if state is None:
-            weight.sub_(g, alpha=lr)
+    _has_fused_core = True
+
+    def _core(self, ws, gs, states, lr, wd, t):
+        lr, wd = lr.to(ws[0].dtype), wd.to(ws[0].dtype)
+        gs = torch._foreach_add(self._prologue(ws, gs),
+                                torch._foreach_mul(ws, wd))
+        if not states[0]:
+            torch._foreach_sub_(ws, torch._foreach_mul(gs, lr))
             return
-        state.mul_(self.momentum).add_(g)
-        weight.sub_(g.add_(state, alpha=self.momentum), alpha=lr)
+        ms = [st[0] for st in states]
+        torch._foreach_mul_(ms, self.momentum)
+        torch._foreach_add_(ms, gs)
+        upd = torch._foreach_add(gs, torch._foreach_mul(ms, self.momentum))
+        torch._foreach_sub_(ws, torch._foreach_mul(upd, lr))
 
 
 class _AdamBase(Optimizer):
@@ -204,14 +278,23 @@ class _AdamBase(Optimizer):
     def create_state(self, index, weight):
         return torch.zeros_like(weight), torch.zeros_like(weight)
 
-    def _moments(self, g, state: Tuple[torch.Tensor, torch.Tensor]):
-        m, v = state
-        m.mul_(self.beta1).add_(g, alpha=1 - self.beta1)
-        v.mul_(self.beta2).addcmul_(g, g, value=1 - self.beta2)
-        return m, v.sqrt().add_(self.epsilon)
+    _has_fused_core = True
 
-    def _correction(self, t):
-        return math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+    def _moments_of(self, gs, states):
+        """The moments of a list, in place; returns ``(ms, sqrt(v)+eps)``."""
+        ms = [st[0] for st in states]
+        vs = [st[1] for st in states]
+        torch._foreach_mul_(ms, self.beta1)
+        torch._foreach_add_(ms, gs, alpha=1 - self.beta1)
+        torch._foreach_mul_(vs, self.beta2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - self.beta2)
+        denom = torch._foreach_sqrt(vs)
+        torch._foreach_add_(denom, self.epsilon)
+        return ms, denom
+
+    def _correction_of(self, t):
+        """The bias correction at the device scalar ``t`` (fp32)."""
+        return torch.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
 
 
 @register
@@ -224,10 +307,15 @@ class Adam(_AdamBase):
         super().__init__(**kwargs)
         self.lazy_update = lazy_update
 
-    def step(self, weight, g, state, lr, wd, t):
-        g.add_(weight, alpha=wd)
-        m, denom = self._moments(g, state)
-        weight.addcdiv_(m, denom, value=-lr * self._correction(t))
+    def _core(self, ws, gs, states, lr, wd, t):
+        dt = ws[0].dtype
+        lr_t = (lr * self._correction_of(t)).to(dt)
+        gs = torch._foreach_add(self._prologue(ws, gs),
+                                torch._foreach_mul(ws, wd.to(dt)))
+        ms, denom = self._moments_of(gs, states)
+        upd = torch._foreach_mul(ms, lr_t)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_sub_(ws, upd)
 
 
 @register
@@ -235,10 +323,14 @@ class AdamW(_AdamBase):
     """Adam with decoupled weight decay:
     ``w -= lr * (correction * m / (sqrt(v) + eps) + wd * w)``."""
 
-    def step(self, weight, g, state, lr, wd, t):
-        m, denom = self._moments(g, state)
-        upd = (m * self._correction(t)).div_(denom).add_(weight, alpha=wd)
-        weight.sub_(upd, alpha=lr)
+    def _core(self, ws, gs, states, lr, wd, t):
+        dt = ws[0].dtype
+        ms, denom = self._moments_of(self._prologue(ws, gs), states)
+        upd = torch._foreach_mul(ms, self._correction_of(t).to(dt))
+        torch._foreach_div_(upd, denom)
+        torch._foreach_add_(upd, torch._foreach_mul(ws, wd.to(dt)))
+        torch._foreach_mul_(upd, lr.to(dt))
+        torch._foreach_sub_(ws, upd)
 
 
 class Updater:

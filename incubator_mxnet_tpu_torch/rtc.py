@@ -48,6 +48,7 @@ from .config import is_naive_engine
 from .device import Context
 from .ndarray.ndarray import NDArray
 from .ops import _nvrtc
+from .ops import launches as _launches
 
 __all__ = ["CudaKernel", "CudaModule", "PallasKernel", "PallasModule",
            "launches", "parse_signature"]
@@ -235,7 +236,7 @@ class CudaKernel:
         cuda.launch(fn, [int(g) for g in grid_dims],
                    [int(b) for b in block_dims], int(shared_mem), stream,
                    values)
-        launches[self.name] += 1
+        _launches.count("rtc", self.name)
         if is_naive_engine():
             torch.cuda.synchronize(device)
 

@@ -24,10 +24,19 @@ Front door: bounded-queue backpressure (``QueueFullError.retry_after``),
 per-request deadline shedding while queued, ``drain``/``close``/
 ``healthz``; tokens stream out per step through :class:`DecodeHandle`.
 
+**The decode step is one CUDA graph** (the counterpart of the JAX
+package's one jitted decode executable): on a CUDA device the first step
+(``warmup`` makes it) captures ``decode_step`` and the argmax over every
+slot, reading static ``tokens`` and ``cache_len`` buffers that each step
+fills from the host mirrors before its replay, and writing the next tokens
+into a static output; the KV cache planes already sit at fixed addresses.
+A step then costs one ``graph.replay()`` instead of some hundreds of
+launches from the host. Prefill stays eager (one forward a prompt, its
+length bucketed). On the CPU the step runs eagerly.
+
 Not ported yet: persistent artifacts, weight hot-swap, ``from_checkpoint``,
-trace spans and telemetry export. PyTorch runs eagerly, so there is no
-executable set to compile; ``warmup`` runs each prefill bucket and one
-decode step once instead.
+trace spans and telemetry export. ``warmup`` runs each prefill bucket once
+and captures the decode step.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import torch
 
 from ..config import config
 from ..device import Context, resolve
+from ..parallel import superstep
 from .batcher import DeadlineExceededError, QueueFullError, ServerClosedError
 from .executor_cache import BucketPolicy
 from .metrics import DecodeMetrics
@@ -246,6 +256,11 @@ class DecodeSession:
         self.metrics = DecodeMetrics(self.name)
         self.metrics.set_capacity(self._kv.nbytes)
         self._warmup_seconds: Optional[float] = None
+        # the captured decode step (CUDA); thread-local capture mode:
+        # other threads of the process may use the card meanwhile
+        self._graphs = superstep.GraphCache(
+            self.device, size=1, capture_error_mode="thread_local") \
+            if self.device.type == "cuda" else None
         self._step_ema: Optional[float] = None
         # serializes device work on the cache: the scheduler's prefills
         # and steps, and a client's warmup()
@@ -275,22 +290,41 @@ class DecodeSession:
         logits, k, v = self._block.prefill(tokens[None])
         return torch.argmax(logits[0, n - 1]), k[:, 0], v[:, 0]
 
+    def _decode_step(self, tokens: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+        """The step body: ``decode_step`` over every slot (cache updated in
+        place) and the greedy next token per slot."""
+        with torch.no_grad():
+            logits, _, _ = self._block.decode_step(tokens, self._kv.k,
+                                                   self._kv.v, cache_len)
+            return torch.argmax(logits, dim=-1)
+
     def _decode(self, cache_len: np.ndarray,
                 tokens: np.ndarray) -> torch.Tensor:
-        """One decode step over every slot (cache updated in place); the
-        next greedy token per slot (device)."""
-        logits, _, _ = self._block.decode_step(
-            torch.from_numpy(tokens).to(self.device), self._kv.k, self._kv.v,
-            torch.from_numpy(cache_len).to(self.device))
-        return torch.argmax(logits, dim=-1)
+        """One decode step over every slot; the next greedy token per slot
+        (device). On a CUDA device: the inputs copied into the graph's
+        static buffers, one replay; the result is the graph's static
+        output, valid until the next step (callers read it under
+        ``_exec_lock``)."""
+        tok, clen = torch.from_numpy(tokens), torch.from_numpy(cache_len)
+        if self.device.type != "cuda":
+            return self._decode_step(tok, clen)
+        return self._graphs.run((), (tok, clen), self._decode_body, 1,
+                                ())[0]
+
+    def _decode_body(self, static):
+        """The captured body over the static ``(tokens, cache_len)``: its
+        capture's warm-up (``capture_steps`` runs the body once first)
+        writes the KV rows the step that captures will write anyway."""
+        return lambda i: self._decode_step(*static)
 
     def warmup(self) -> None:
         """Run every prefill bucket and one decode step ahead of traffic,
         so the first requests pay no one-time costs (the kernel library
-        build and load, allocator growth, library handles). The decode
-        step reuses the current host mirrors, so it rewrites exactly what
-        the next real step will write: it is harmless while sequences
-        are live."""
+        build and load, allocator growth, library handles, the capture of
+        the decode step's CUDA graph). The decode step reuses the current
+        host mirrors, so it rewrites exactly what the next real step will
+        write: it is harmless while sequences are live."""
         t0 = time.perf_counter()
         with self._exec_lock:
             for b in self._buckets.buckets:

@@ -515,7 +515,9 @@ def test_tma_kernels_launch_from_a_fresh_thread(cuda_device, dtype):
     """A thread whose first CUDA work is a kernel fed by TMA (torch's
     autograd thread running a conv's backward, or any new thread) still
     launches it: the tensor-map encoder (cuTensorMapEncodeTiled) needs
-    the thread's context, which the wrappers' first runtime call binds. K3
+    the thread's context, which the encoder binds with libcuda calls
+    where the thread has none (``bind_context`` in
+    ``csrc/hopper.cuh``). K3
     (f32 in fp32, tensor cores in bf16) and then K1 on the new thread
     match the same calls on this one."""
     case = RESNET_CASES[1]

@@ -36,6 +36,8 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "incubator_mxnet_tpu_torch.lr_scheduler, "
             "incubator_mxnet_tpu_torch.optimizer, "
             "incubator_mxnet_tpu_torch.parallel.spmd, "
+            "incubator_mxnet_tpu_torch.parallel.superstep, "
+            "incubator_mxnet_tpu_torch.ops.launches, "
             "incubator_mxnet_tpu_torch.ops.fused_conv, "
             "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.fused_resnet, "
             "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet, "
@@ -76,7 +78,8 @@ def test_sources_import_no_jax_and_no_jax_package():
                  "rtc.py", "ops/_nvrtc.py", "ops/rtc_kernels.py",
                  "ops/registry.py", "ops/tensor.py", "ops/nn.py",
                  "gluon/nn/conv_layers.py", "gluon/nn/basic_layers.py",
-                 "gluon/model_zoo/vision/resnet.py", "initializer.py"):
+                 "gluon/model_zoo/vision/resnet.py", "initializer.py",
+                 "parallel/superstep.py", "ops/launches.py"):
         assert PKG / name in files, name
     for f in files + [ROOT / "chip_smoke.py"]:
         for mod in _imported_modules(f):
@@ -672,3 +675,137 @@ def test_chip_smoke_rtc_bounds_are_the_quoted_figures():
         assert got_ms == pytest.approx(ms, abs=5e-4)
     ms, by = cs.rtc_bound("first_row", (50257, 768))
     assert by == "bytes" and ms == pytest.approx(2 * 768 * 4 / 3.35e9)
+
+
+def test_chip_smoke_graph_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.graph_phase`` on the CPU at small sizes (a 2-layer GPT
+    with dropout, small ResNets of both kinds, K=2): every row's
+    ``run_superstep`` equals K eager steps bit for bit (on the CPU the same
+    body runs K times), the gluon SuperStep's fused path equals its eager
+    one, and each row expects the launches its model makes a step on the
+    card, by counter and by CUDA function in the profiles (recorded here:
+    the CPU launches no kernel)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+
+    cs = _chip_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+
+    class Event:
+        def __init__(self, **kw):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 1.0
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    checks, profiled = [], []
+    monkeypatch.setattr(cs, "_check_graph_launches",
+                        lambda label, got, want: checks.append((label, got,
+                                                                want)))
+    monkeypatch.setattr(cs, "_check_profiled",
+                        lambda label, rows, kernels, steps: profiled.append(
+                            (label, kernels, steps)))
+    layers = ([1, 1, 1, 1], [16, 32, 64, 128, 256])
+    rows = cs.graph_phase(0, "cpu", mx.cpu(), mlp_b=32,
+                          gpt=("gpt_decoder_117m", 97, 2, 64,
+                               {"units": 128, "num_layers": 2,
+                                "num_heads": 2}),
+                          resnet_b=2, hw=64, resnet_layers=layers, k=2)
+    assert set(rows) == {"mlp", "mlp_gluon_superstep", "gpt",
+                         "resnet50_fused", "resnet50_unfused",
+                         "fresh_thread"}
+    for name in ("mlp", "gpt", "resnet50_fused", "resnet50_unfused"):
+        assert rows[name]["k"] == 2 and rows[name]["graph_ms"] > 0
+        assert rows[name]["per_step"] == {}         # no kernel on the CPU
+        assert rows[name]["launches"] == {}
+    per_pass = cs.convs_per_pass(vision.FusedResNetV1(*layers, classes=10))
+    assert rows["resnet50_fused"]["per_pass"] == per_pass > 0
+    assert [c[0] for c in checks] == ["mlp", "gpt", "resnet50_fused",
+                                      "resnet50_unfused"]
+    flash = {f"{k}{r}": 2 for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv") for r in ("", "_tc")}
+    conv = {f"{k}{r}": per_pass for k in cs.CONV_KERNELS
+            for r in ("", "_tc")}
+    assert [c[2] for c in checks] == [
+        {}, flash, conv, {k: 0 for k in cs.CONV_KERNELS}]
+    # the profiler's count of each kernel's CUDA function, K a step, in
+    # the eager window and in the graph window of the GPT and fused rows
+    fk = {f"{k}_tc_kernel": 2 for k in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")}
+    ck = {f"{k}_tc_kernel": per_pass for k in cs.CONV_KERNELS}
+    assert profiled == [("gpt eager window", fk, 2),
+                        ("gpt graph window", fk, 2),
+                        ("resnet50_fused eager window", ck, 2),
+                        ("resnet50_fused graph window", ck, 2)]
+    assert rows["mlp_gluon_superstep"]["k"] == 2
+
+
+def _superstep_pair(dropout=0.3):
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.gluon import nn
+
+    mx.random.seed(3)
+    net = nn.HybridSequential()
+    net.add(nn.Dense(16, in_units=8, activation="relu"), nn.Dropout(dropout),
+            nn.Dense(4, in_units=16))
+    net.initialize("xavier", ctx=mx.cpu())
+    rs = np.random.RandomState(0)
+    win = [rs.rand(3, 16, 8).astype(np.float32),
+           rs.randint(0, 4, (3, 16)).astype(np.float32)]
+    return net, gluon.loss.SoftmaxCrossEntropyLoss(), win
+
+
+@pytest.mark.parametrize("engine", ["spmd", "gluon"])
+def test_a_failing_capture_never_turns_into_the_eager_loop(monkeypatch,
+                                                           engine):
+    """With the path choice saying "graph" (as on a card) and the capture
+    helper failing after a draw, ``run_superstep``/``run_window`` raise;
+    no eager step runs, and the parameters, the optimizer's counts and
+    the generator are as they were."""
+    from incubator_mxnet_tpu_torch import gluon, parallel
+    from incubator_mxnet_tpu_torch import random as prandom
+    from incubator_mxnet_tpu_torch.parallel import superstep
+
+    net, ce, win = _superstep_pair()
+    gen = prandom.generator(mx.cpu())
+    if engine == "spmd":
+        eng = parallel.SPMDTrainer(net, ce, "sgd", {"learning_rate": 0.1})
+        params = eng.params
+        run = eng.run_superstep
+        monkeypatch.setattr(eng, "step", lambda *a: pytest.fail(
+            "the eager loop ran"))
+    else:
+        tr = gluon.Trainer(net.collect_params(), "adam")
+        eng = tr.superstep(net, ce, window=3)
+        params = dict(net.named_parameters())
+        run = eng.run_window
+        monkeypatch.setattr(eng, "_eager_window", lambda *a: pytest.fail(
+            "the eager loop ran"))
+        monkeypatch.setattr(tr, "step", lambda *a: pytest.fail(
+            "the eager loop ran"))
+    before = {n: p.detach().clone() for n, p in params.items()}
+    state = gen.get_state()
+    fa0 = fa.flash_fwd_launches
+
+    def broken_capture(body, k, state, device, **kw):
+        torch.rand(64, generator=gen)
+        raise RuntimeError("capture failed")
+
+    monkeypatch.setattr(superstep, "step_path", lambda device: "graph")
+    monkeypatch.setattr(superstep, "capture_steps", broken_capture)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        run(*win)
+    assert torch.equal(gen.get_state(), state)
+    assert fa.flash_fwd_launches == fa0
+    for n, p in params.items():
+        assert torch.equal(p.detach(), before[n]), n
+    if engine == "gluon":
+        assert eng.dispatch_count == 0
+        assert tr._optimizer._index_update_count == {}
+        assert tr._optimizer.num_update == 0
