@@ -71,7 +71,25 @@ Phases (any failure raises, and the script exits non-zero):
    (counted over the training steps alone; train -> decode and the bf16
    gate are counted on their own), K4, K5 and K6 of every fp32 pass on
    the f32 route, of every bf16 pass on the tensor-core route;
-6. conv kernel phase: the fused conv + BatchNorm kernels (K1 forward, K2
+6. BERT phase: ``bert_12_768_12`` (12 layers, 768 units, 12 heads of 64,
+   vocab 30522, ``max_length`` 512, dropout 0, ``attention_impl="pallas"``:
+   K4-K6 with no causal mask and per-sample key lengths) at B=8, T=128,
+   segments mixed, ``valid_length`` drawn from the seed (1 and 128 among
+   them): the fp32 gradient of all 207 parameter tensors of the
+   pretraining loss (MLM plus NSP cross entropy) against the attention
+   swapped for the autograd of the plain versions; eval against the plain
+   versions, a float32 ``valid_length`` bit-equal to the int32 one, and
+   padding independence (every token at or beyond a sample's length
+   changed: ``seq_out`` at the valid positions bit for bit); a learning
+   check (fp32 ``SPMDTrainer``); two eager ``gluon.Trainer`` steps;
+   ``mx.nd.invoke_op("flash_attention", q, k, v, lengths)`` bit-equal to
+   the direct call; the bf16 gradient gate; then bench.py's bert row
+   (bf16, B=24, T=128, ``SPMDTrainer`` SGD lr 1e-4 momentum 0.9) with
+   ``attention_impl="pallas"``, with ``"xla"`` (the dense chain) and with
+   pallas on seeded mixed lengths, each timed and profiled (the share of
+   cuBLAS's unaligned GEMMs, the MLM head's). K4, K5 and K6 launch 12 times a pass,
+   fp32 passes on f32, bf16 on tc, the xla row none;
+7. conv kernel phase: the fused conv + BatchNorm kernels (K1 forward, K2
    input gradient, K3 weight gradient) against their plain versions in
    fp32 and bf16 at ResNet-50's shapes at B=32 and one shape off the
    model's path, with the same timings; the library call is cuDNN
@@ -90,7 +108,7 @@ Phases (any failure raises, and the script exits non-zero):
    tensor-core K1's per-channel sums and sums of squares lie within
    ``K1_SUMS_RTOL`` (relative L2) of an fp64 evaluation on the same bf16
    inputs (``k1_sums_fp64``);
-7. ResNet phase: ``fused_resnet50_v1`` (1000 classes, 224x224 inputs,
+8. ResNet phase: ``fused_resnet50_v1`` (1000 classes, 224x224 inputs,
    weights drawn from ``--seed``): the fp32 oracle of one training step at
    B=8 (loss and the 106 running statistics against the model with
    ``fused_conv_bn`` swapped for the autograd of its plain versions; the
@@ -114,7 +132,7 @@ Phases (any failure raises, and the script exits non-zero):
    oracle, the forward gate's fp32 forward, the learning check, the eager
    steps, eval) on the f32 route, every bf16 one on the tensor-core
    route;
-8. unfused ResNet phase: ``get_model("resnet50_v1", classes=1000)``, the
+9. unfused ResNet phase: ``get_model("resnet50_v1", classes=1000)``, the
    gluon layer set (NCHW, cuDNN and cuBLAS; no hand-written kernel:
    the JAX package leaves these convs to XLA), ``initialize("xavier")``
    and one forward that fills its deferred shapes; its inventory
@@ -129,19 +147,21 @@ Phases (any failure raises, and the script exits non-zero):
    2 warmup, a ``torch.profiler`` breakdown and the idle share), in NCHW
    and with the activations and conv weights in ``torch.channels_last``
    memory format. K1, K2 and K3 launch 0 times over every unfused pass;
-9. MLP phase: bench.py's mlp row (``Dense(512, activation="relu")``
+10. MLP phase: bench.py's mlp row (``Dense(512, activation="relu")``
    twice and ``Dense(10)``, no ``in_units``; xavier, bf16, B=8192,
    ``SPMDTrainer`` SGD lr 0.1 momentum 0.9): the loss falls by 5% over
    20 steps on one batch, then the step is timed;
-10. graph phase (``parallel/superstep.py``): the MLP row (K=20), the GPT
+11. graph phase (``parallel/superstep.py``): the MLP row (K=20), the GPT
    bf16 row (``gpt_decoder_117m``, B=8, T=256, dropout 0.1 as built,
-   K=10), the fused and the unfused (channels-last) ResNet-50 bf16 rows
+   K=10), the BERT bf16 row (``bert_12_768_12``, B=24, T=128, dropout 0.1,
+   K=5, each batch's mixed segments and ``valid_length`` in the window),
+   the fused and the unfused (channels-last) ResNet-50 bf16 rows
    (B=128, K=5), each through ``SPMDTrainer.run_superstep`` over windows
    of K distinct batches drawn from ``--seed``: one window's [K] losses
    and every parameter and running statistic bit-equal to K eager
    ``step()`` calls from the same state and seed; the launch counters of
-   the eager steps (GPT: 12 K4, K5 and K6 a step on the tensor cores;
-   fused ResNet: 52 K1, K2 and K3 a pass; the others none), of the
+   the eager steps (GPT and BERT: 12 K4, K5 and K6 a step on the tensor
+   cores; fused ResNet: 52 K1, K2 and K3 a pass; the others none), of the
    capture's recording (K steps) and of every graph call, measured around
    it (K steps a window, K + 1 for the first: its warm-up step ran), and
    the profiler's own count of each kernel's CUDA function in K eager
@@ -154,7 +174,7 @@ Phases (any failure raises, and the script exits non-zero):
    against its eager path bit for bit; K3 and K1 captured on a thread
    that never ran an encode, bit-equal to the eager calls
    (``fresh_thread_capture``);
-11. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
+12. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
    kernels (K7, ``csrc/rtc/*.cu``, compiled by NVRTC in the build step)
    run an ``mx.rtc`` program (``scale`` and ``saxpy`` over 163,037,184
    floats, ``first_row`` of a (50257, 768) embedding) held bit for bit
@@ -185,7 +205,8 @@ Phases (any failure raises, and the script exits non-zero):
    calls bit for bit.
 
 The third line from the end (``rows: {...}``) gives the bench rows: the
-fused and unfused ResNet-50 and the MLP, bf16, step ms and images/s, and
+fused and unfused ResNet-50, the MLP and BERT (pallas, xla and mixed
+lengths), bf16, step ms and images/s or sequences/s, and
 the graph phase's rows and the decode step, eager beside graph. The
 line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
@@ -367,6 +388,10 @@ FWD_CASES = [
     # the training forward: B=8, T=256, causal, with the lse the backward
     # needs
     ("train_causal_lse_B8_T256", 8, 256, 256, 64, True, False, None, True),
+    # BERT-base's training forward (bench.py's bert row): B=24, T=128, no
+    # causal mask, key lengths "bert" drawn from the seed, with the lse
+    ("bert_lengths_lse_B24_T128", 24, 128, 128, 64, False, False, "bert",
+     True),
 ]
 # the training forward on the GPT's own operands: q, k, v views of one
 # fused (B, T, 3, H, D) projection, o into a (B, T, H, D) buffer
@@ -376,6 +401,14 @@ FWD_DECODE = "decode_cache_offset_S8_Tk512"
 # the lse against the plain version's, absolute (-inf rows identical)
 LSE_TOL = 1e-3
 FWD_ROUTES = ("tc", "f32", "split", "simt")
+
+
+def bert_lengths(seed, b, t):
+    """BERT's per-sample ``valid_length``: ``b`` lengths drawn from
+    ``seed`` in [1, t], with t and 1 both among them (int32)."""
+    lens = np.random.RandomState(seed + 91).randint(1, t + 1, size=b)
+    lens[:2] = (t, 1)[:b]
+    return lens.astype(np.int32)
 
 
 def fwd_cases():
@@ -465,7 +498,8 @@ def kernel_phase(seed, dev=None, cases=None, h=12):
     for name, b, tq, tk, d, causal, cache_offset, lengths, want_lse in \
             (fwd_cases() if cases is None else cases):
         if isinstance(lengths, str):
-            lengths = decode_lens
+            lengths = decode_lens if lengths == "decode" else \
+                bert_lengths(seed, b, tk)
         for dtype in (torch.float32, torch.bfloat16):
             if name == GPT_VIEWS:
                 qkv = torch.from_numpy(rs.randn(b, tq, 3, h, d).astype(
@@ -609,6 +643,9 @@ BWD_CASES = [
     ("tq_gt_tk_causal_B2_T256x64", 2, 256, 64, 64, True, False, None),
     # D=128: two 64-column boxes a row on the tensor-core route
     ("causal_D128_B2_T512", 2, 512, 512, 128, True, False, None),
+    # BERT-base's training shape: no causal mask, key lengths "bert" drawn
+    # from the seed (one sample of 1 key, one of all 128)
+    ("bert_lengths_B24_T128", 24, 128, 128, 64, False, False, "bert"),
 ]
 BWD_HEAD = "train_causal_B8_T256"
 
@@ -694,6 +731,8 @@ def backward_kernel_phase(seed, dev=None, cases=None, h=12):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, g = (torch.from_numpy(rs.randn(b, h, t, d).astype(
                 np.float32)).to(dev, dtype) for t in (tq, tk, tk, tq))
+            if isinstance(lengths, str):
+                lengths = bert_lengths(seed, b, tk)
             lens = None if lengths is None else \
                 torch.tensor(lengths, dtype=torch.int32, device=dev)
             kw = dict(causal=causal, cache_offset=cache_offset)
@@ -1012,45 +1051,86 @@ def _read_launches(fa):
     return {name: getattr(fa, name + "_launches") for name in COUNTERS}
 
 
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
 def _grads(net, loss_fn, x, y):
     """fp32 loss and the gradient of every trainable parameter, eager
-    (record)."""
+    (record). ``x``/``y``: a tensor or a list of them (the net's inputs,
+    the labels after its outputs in ``loss_fn``'s arguments)."""
     import incubator_mxnet_tpu_torch as mx
 
     params = [p for p in net.parameters() if p.requires_grad]
     with mx.autograd.record():
-        loss = loss_fn(net(x), y)
+        loss = loss_fn(*_as_list(net(*_as_list(x))), *_as_list(y))
     return loss.detach(), torch.autograd.grad(loss, params)
 
 
-def gradient_oracle(net, loss_fn, x, y):
+class swap_attention:
+    """``flash_attention`` of ``module`` (the model's module, which
+    imported it) swapped for the plain forward, whose autograd is the
+    plain backward, inside the block: for an oracle only."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __enter__(self):
+        from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+        self.kernel = self.module.flash_attention
+        self.module.flash_attention = fa.flash_attention_reference
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention = self.kernel
+        return False
+
+
+# the key projection's bias of an attention with separate projections
+# (BERT's) gets no gradient in exact arithmetic: it adds one constant to a
+# row of scores, which the softmax drops
+KEY_BIAS = ("attention.key.bias",)
+
+
+def _worst_grad(label, names, grads, ref_grads, tol):
+    """The worst relative L2 error ``||g - r|| / ||r||`` over the tensors,
+    each within ``tol``. A tensor named by ``KEY_BIAS`` has a gradient of 0
+    in exact arithmetic, so both sides carry rounding noise there: its
+    error is held against the norm of the same layer's weight gradient
+    instead."""
+    ref = dict(zip(names, ref_grads))
+    worst = (0.0, "")
+    for name, g, r in zip(names, grads, ref_grads):
+        scale = ref[name[:-len("bias")] + "weight"] \
+            if name.endswith(KEY_BIAS) else r
+        den = scale.float().norm().item()
+        err = (g.float() - r.float()).norm().item()
+        rel = err / den if den > 0 else err
+        if not math.isfinite(rel) or rel > tol:
+            raise AssertionError(f"{label}: {name} relative L2 error {rel} "
+                                 f"> {tol}")
+        worst = max(worst, (rel, name))
+    return worst
+
+
+def gradient_oracle(net, loss_fn, x, y, module=None):
     """Gradients through the kernels against the same model with its
-    attention swapped for the autograd of the plain forward (dense, fp32):
-    relative L2 error per parameter tensor <= GRAD_RTOL."""
+    attention swapped for the autograd of the plain forward (dense, fp32;
+    ``swap_attention`` of ``module``, the GPT's by default): relative L2
+    error per parameter tensor <= GRAD_RTOL (``_worst_grad``)."""
     from incubator_mxnet_tpu_torch.gluon.model_zoo import gpt as gpt_mod
-    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
 
     loss, grads = _grads(net, loss_fn, x, y)
-    kernel_attention = gpt_mod.flash_attention
-    gpt_mod.flash_attention = fa.flash_attention_reference
-    try:
+    with swap_attention(gpt_mod if module is None else module):
         ref_loss, ref_grads = _grads(net, loss_fn, x, y)
-    finally:
-        gpt_mod.flash_attention = kernel_attention
     if not torch.isfinite(loss) or abs(float(loss - ref_loss)) > \
             1e-5 * abs(float(ref_loss)):
         raise AssertionError(f"oracle loss {float(loss)} != plain "
                              f"{float(ref_loss)}")
-    worst = (0.0, "")
     names = [n for n, _ in net.named_parameters()]
-    for name, g, r in zip(names, grads, ref_grads):
-        den = r.norm().item()
-        err = (g - r).norm().item()
-        rel = err / den if den > 0 else err
-        if not math.isfinite(rel) or rel > GRAD_RTOL:
-            raise AssertionError(f"gradient oracle: {name} relative L2 "
-                                 f"error {rel} > {GRAD_RTOL}")
-        worst = max(worst, (rel, name))
+    worst = _worst_grad("gradient oracle", names, grads, ref_grads,
+                        GRAD_RTOL)
     print(f"gradient oracle (fp32, {len(names)} parameter tensors): loss "
           f"{float(loss):.6f} vs plain {float(ref_loss):.6f}; worst relative "
           f"L2 error {worst[0]:.3e} ({worst[1]}), tolerance {GRAD_RTOL:g}",
@@ -1062,7 +1142,8 @@ def gpt_bf16_gate(net, loss_fn, x, y):
     """One bf16 step's gradients through the tensor-core K5/K6 against the
     same step with ``flash_attention_bwd`` swapped for its plain version
     (made here, for this gate only; the forward is the same K4 in both):
-    relative L2 error per parameter tensor <= BF16_GRAD_RTOL."""
+    relative L2 error per parameter tensor <= BF16_GRAD_RTOL
+    (``_worst_grad``)."""
     from incubator_mxnet_tpu_torch.ops import flash_attention as fa
 
     loss, grads = _grads(net, loss_fn, x, y)
@@ -1075,16 +1156,9 @@ def gpt_bf16_gate(net, loss_fn, x, y):
     if not torch.isfinite(loss) or not torch.equal(loss, ref_loss):
         raise AssertionError(f"bf16 gate: loss {float(loss)} != "
                              f"{float(ref_loss)} (the same forward)")
-    worst = (0.0, "")
     names = [n for n, p in net.named_parameters() if p.requires_grad]
-    for name, g, r in zip(names, grads, ref_grads):
-        g, r = g.float(), r.float()
-        den = r.norm().item()
-        rel = (g - r).norm().item() / den if den > 0 else g.norm().item()
-        if not math.isfinite(rel) or rel > BF16_GRAD_RTOL:
-            raise AssertionError(f"bf16 gradient gate: {name} relative L2 "
-                                 f"error {rel} > {BF16_GRAD_RTOL}")
-        worst = max(worst, (rel, name))
+    worst = _worst_grad("bf16 gradient gate", names, grads, ref_grads,
+                        BF16_GRAD_RTOL)
     print(f"bf16 gradient gate ({len(names)} parameter tensors, tensor-core "
           f"K5/K6 vs their plain version on the same forward): worst "
           f"relative L2 error {worst[0]:.3e} ({worst[1]}), tolerance "
@@ -1328,6 +1402,293 @@ def train_phase(seed, card):
                 bf16_grad_worst_rel=bf16_worst,
                 learning_losses=losses, step_ms=step_ms, tokens_s=tokens_s,
                 peak_bytes=peak, profile=rows[:14])
+
+# ---------------------------------------------------------------------------
+# BERT phase: BERT-base pretraining (bench.py's bert row), the path through
+# K4-K6 with no causal mask and per-sample key lengths
+# ---------------------------------------------------------------------------
+# (oracle B, T, bench B) of the phase: the oracle and checks at B=8, the
+# bench rows at bench.py's B=24, T=128
+BERT_SIZES = (8, 128, 24)
+# eval outputs through the kernels against the plain versions' (fp32):
+# relative L2 per output (only the order of sums differs)
+BERT_EVAL_RTOL = 1e-4
+BERT_OUTPUTS = ("seq", "pooled", "mlm", "nsp")
+
+
+def bert_pretrain_loss(ce):
+    """bench.py's BERT objective (``bench.py:471-473``): MLM cross entropy
+    plus NSP cross entropy, each a mean."""
+    def loss(seq, pooled, mlm_scores, nsp_scores, mlm_y, nsp_y):
+        return ce(mlm_scores, mlm_y).mean() + ce(nsp_scores, nsp_y).mean()
+
+    return loss
+
+
+def bert_batch(rs, b, t, vocab, dev, lengths, mixed_segments=True):
+    """``([tokens, segments, valid_length], [mlm labels, nsp labels])`` on
+    ``dev``: segments 0 then 1 from a point drawn per sample (zeros unless
+    ``mixed_segments``), ``lengths`` as given."""
+    tok = rs.randint(0, vocab, (b, t)).astype(np.int32)
+    split = rs.randint(1, t, (b, 1)) if mixed_segments else t
+    seg = (np.arange(t)[None, :] >= split).astype(np.int32)
+    mlm = rs.randint(0, vocab, (b, t)).astype(np.float32)
+    nsp = rs.randint(0, 2, (b,)).astype(np.float32)
+    to = functools.partial(torch.as_tensor, device=dev)
+    return ([to(tok), to(seg), to(np.asarray(lengths, np.int32))],
+            [to(mlm), to(nsp)])
+
+
+def set_attention_impl(net, impl):
+    """Every ``MultiHeadAttention`` of ``net`` on ``impl`` ("pallas": K4-K6,
+    "xla": the dense chain), the weights kept."""
+    from incubator_mxnet_tpu_torch.models import MultiHeadAttention
+
+    for m in net.modules():
+        if isinstance(m, MultiHeadAttention):
+            m._impl = impl
+
+
+def _check_flash_launches(label, launches, routes, want, want_routes):
+    """The flash counters of a window: ``want`` by kernel, ``want_routes``
+    by route."""
+    print(f"launches on {label}: {launches}; by route {routes}", flush=True)
+    if launches != want or routes != want_routes:
+        raise AssertionError(f"{label} launched {launches} by route "
+                             f"{routes}, not {want} by route {want_routes}")
+
+
+def bert_phase(seed, card, net, ctx, sizes=BERT_SIZES):
+    """The BERT phase on ``net`` (a ``BERTModel`` with its four heads,
+    ``attention_impl="pallas"``, dropout 0, fp32, initialized on ``ctx``):
+    the fp32 gradient oracle (every trainable tensor through K4-K6 against
+    the autograd of the plain forward), eval against the plain versions,
+    float ``valid_length`` bit-equal to int32, padding independence, a
+    learning check (fp32 ``SPMDTrainer``), two eager ``gluon.Trainer``
+    steps, ``mx.nd.invoke_op("flash_attention", ...)`` with lengths, the
+    bf16 gradient gate (tensor-core K5/K6 against their plain version),
+    then bench.py's bert row in bf16 (``SPMDTrainer`` SGD lr 1e-4
+    momentum 0.9, ``valid_length`` = T) with ``attention_impl="pallas"``,
+    with ``"xla"`` (the dense chain) and with pallas on the seeded mixed
+    lengths, each timed and profiled. K4, K5 and K6 launch once a layer a
+    pass: fp32 passes on f32, bf16 on tc, none on SIMT; the xla row none."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, parallel
+    from incubator_mxnet_tpu_torch.models import MultiHeadAttention
+    from incubator_mxnet_tpu_torch.models import transformer
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    b, t, b_bench = sizes
+    dev = ctx.torch_device()
+    vocab = net.word_embed.weight.shape[0]
+    cells = [m for m in net.modules() if isinstance(m, MultiHeadAttention)]
+    layers, h = len(cells), cells[0]._heads
+    d = cells[0]._units // h
+    loss = bert_pretrain_loss(gluon.loss.SoftmaxCrossEntropyLoss())
+    lens = bert_lengths(seed, b, t)
+    data, labels = bert_batch(np.random.RandomState(seed + 97), b, t, vocab,
+                              dev, lens)
+    tok, seg, vl = data
+    print(f"BERT phase: {layers} layers, {len(list(net.parameters()))} "
+          f"parameter tensors, B={b}, T={t}, valid_length "
+          f"{lens.tolist()}", flush=True)
+
+    # the fp32 window: counts set to 0 just before the oracle and read just
+    # after the eager steps
+    _reset_launches(fa)
+    worst = gradient_oracle(net, loss, data, labels, module=transformer)
+    fp32_passes, fwd_only = 1, 0
+
+    # eval: the kernels against the plain versions; a float valid_length;
+    # every token at or beyond a sample's length changed
+    pad = torch.arange(t, device=dev)[None, :] >= vl[:, None].long()
+    with torch.no_grad():
+        got = net(*data)
+        with swap_attention(transformer):
+            want = net(*data)
+        as_float = net(tok, seg, vl.float())
+        padded = net(torch.where(pad, (tok + 1) % vocab, tok),
+                     torch.where(pad, 1 - seg, seg), vl)
+    fwd_only += 3
+    eval_worst = _worst_rel(zip(BERT_OUTPUTS, got, want))
+    float_equal = all(torch.equal(x, y) for x, y in zip(got, as_float))
+    keep = ~pad
+    pad_equal = torch.equal(got[0][keep], padded[0][keep])
+    print(f"BERT eval (fp32, no_grad): outputs {BERT_OUTPUTS} against the "
+          f"plain versions, worst relative L2 {eval_worst[0]:.3e} "
+          f"({eval_worst[1]}), tolerance {BERT_EVAL_RTOL:g}; float32 "
+          f"valid_length {'bit-equal' if float_equal else 'NOT equal'} to "
+          f"int32; padding changed: seq_out at the {int(keep.sum())} valid "
+          f"positions {'bit-equal' if pad_equal else 'CHANGED'}", flush=True)
+    if not eval_worst[0] <= BERT_EVAL_RTOL:
+        raise AssertionError(f"BERT eval: {eval_worst}")
+    if not float_equal:
+        raise AssertionError("BERT: a float32 valid_length differs from the "
+                             "int32 one")
+    if not pad_equal:
+        raise AssertionError("BERT: padding reached the valid positions")
+    del got, want, as_float, padded
+
+    # learning check: the loss on one repeated batch falls; adam at BERT's
+    # published peak rate, 1e-4 (at 3e-4 the post-norm net's first steps
+    # overshoot: over seeds 0-2 the loss fell 2.8-15% in 10 steps, at 1e-4
+    # 6.8-13.9%, PERF.md)
+    st = parallel.SPMDTrainer(net, loss, "adam", {"learning_rate": 1e-4})
+    losses = [float(st.step(data, labels)) for _ in range(10)]
+    fp32_passes += 10
+    print(f"BERT learning check (fp32 SPMDTrainer, adam lr 1e-4, one batch "
+          f"repeated): losses {[round(v, 4) for v in losses]}", flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 0.95 * losses[0]:
+        raise AssertionError("the BERT loss did not fall by 5% over 10 "
+                             "steps")
+    st.sync_to_net()
+    del st
+
+    # the eager entry point: record -> backward -> step
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 1e-4, "momentum": 0.9})
+    eager = []
+    for _ in range(2):
+        with mx.autograd.record():
+            step_loss = loss(*net(*data), *labels)
+        mx.autograd.backward(step_loss)
+        trainer.step(1)
+        eager.append(float(step_loss.detach()))
+    fp32_passes += 2
+    if not all(math.isfinite(v) for v in eager):
+        raise AssertionError(f"BERT gluon.Trainer losses not finite: {eager}")
+    print(f"BERT gluon.Trainer (fp32, sgd lr 1e-4 momentum 0.9): 2 steps, "
+          f"losses {eager}", flush=True)
+    launches, routes = _read_launches(fa), _read_routes(fa)
+    want_routes = training_routes(fp32_passes, 0, layers, t, d)
+    want_routes["flash_fwd_" + fwd_route_expected(t, d, torch.float32)] += \
+        layers * fwd_only
+    _check_flash_launches(
+        f"the BERT fp32 path ({fp32_passes} training passes, {fwd_only} "
+        f"forwards)", launches, routes,
+        {"flash_fwd": layers * (fp32_passes + fwd_only),
+         "flash_bwd_dq": layers * fp32_passes,
+         "flash_bwd_dkv": layers * fp32_passes}, want_routes)
+
+    # mx.nd's string dispatch with lengths, int32 and float32, bit-equal to
+    # the direct call (launches read on their own)
+    qkv = [mx.nd.NDArray(torch.randn(b, h, t, d, device=dev))
+           for _ in range(3)]
+    before = fa.flash_fwd_launches
+    for lengths in (vl, vl.float()):
+        nd_out = mx.nd.invoke_op("flash_attention", *qkv,
+                                 mx.nd.NDArray(lengths))
+        direct = fa.flash_attention(*(a._data for a in qkv), vl)
+        if not torch.equal(nd_out._data, direct):
+            raise AssertionError(f"invoke_op('flash_attention') with "
+                                 f"{lengths.dtype} lengths differs from the "
+                                 "direct call")
+    invoke_launches = fa.flash_fwd_launches - before
+    if dev.type == "cuda" and invoke_launches != 4:
+        raise AssertionError(f"invoke_op with lengths: {invoke_launches} "
+                             "K4 launches, not 4")
+    print(f"mx.nd.invoke_op('flash_attention', q, k, v, lengths) with int32 "
+          f"and float32 lengths: bit-equal to the direct call, "
+          f"{invoke_launches} K4 launches (2 through mx.nd)", flush=True)
+    del qkv, nd_out, direct
+
+    # the bf16 gradient gate, read on its own: one pass through the
+    # tensor-core K5/K6, one through their plain version (K4 in both)
+    net.cast("bfloat16")
+    _reset_launches(fa)
+    bf16_worst = gpt_bf16_gate(net, loss, data, labels)
+    gate, gate_routes = _read_launches(fa), _read_routes(fa)
+    want_gate_routes = training_routes(0, 1, layers, t, d)
+    want_gate_routes["flash_fwd_tc"] = 2 * layers
+    _check_flash_launches("the BERT bf16 gate", gate, gate_routes,
+                          {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+                           "flash_bwd_dkv": layers}, want_gate_routes)
+
+    # bench.py's bert row: bf16, B=24, T=128, segments 0, valid_length = T,
+    # SGD lr 1e-4 momentum 0.9; pallas (K4-K6), xla (the dense chain), and
+    # pallas on the seeded mixed lengths
+    full = np.full((b_bench,), t, np.int32)
+    rows = {}
+    for row, impl, lengths in (
+            ("pallas", "pallas", full), ("xla", "xla", full),
+            ("pallas_mixed_lengths", "pallas",
+             bert_lengths(seed, b_bench, t))):
+        bdata, blabels = bert_batch(np.random.RandomState(seed + 98),
+                                    b_bench, t, vocab, dev, lengths,
+                                    mixed_segments=False)
+        set_attention_impl(net, impl)
+        _reset_launches(fa)
+        st = parallel.SPMDTrainer(net, loss, "sgd",
+                                  {"learning_rate": 1e-4, "momentum": 0.9})
+        step_ms, peak, blosses = _bench_steps(st, bdata, blabels, steps=10,
+                                              warmup=3)
+        seq_s = b_bench / step_ms * 1e3
+        print(f"BERT bf16 SPMDTrainer step, {row} (B={b_bench}, T={t}, sgd "
+              f"lr 1e-4 momentum 0.9; {card}): {step_ms:.4f} ms per step "
+              f"(host clock, 10 steps after 3 warmup), {seq_s:.1f} "
+              f"sequences/s, peak memory {peak / 2**20:.1f} MiB", flush=True)
+        prof = _profile_step(st.step, bdata, blabels, card, step_ms,
+                             top=14 if row == "pallas" else 6,
+                             what=f"BERT bf16 step ({row})")
+        device = sum(r[0] for r in prof)
+        # cuBLAS's GEMMs on vectors of 1, 2 or 4 elements (CUTLASS names
+        # them align1/2/4): the MLM head's, whose vocabulary is not a
+        # multiple of 8
+        unaligned = sum(r[0] for r in prof
+                        if re.search(r"_align[124]\b", r[2]))
+        if device:
+            print(f"  cuBLAS GEMMs on unaligned vectors (align1/2/4; the MLM "
+                  f"head's vocabulary {vocab} is not a multiple of 8): "
+                  f"{unaligned:.3f} ms, {100 * unaligned / device:.1f}% of "
+                  f"device time", flush=True)
+        passes = 3 + 10 + 1
+        per_pass = 0 if impl == "xla" else layers
+        window, window_routes = _read_launches(fa), _read_routes(fa)
+        _check_flash_launches(
+            f"the BERT {row} row ({passes} bf16 passes)", window,
+            window_routes, dict.fromkeys(COUNTERS, per_pass * passes),
+            training_routes(0, passes, per_pass, t, d))
+        launches = {n: launches[n] + window[n] for n in COUNTERS}
+        routes = {n: routes[n] + window_routes[n] for n in ROUTE_COUNTERS}
+        rows[row] = dict(batch=b_bench, t=t, step_ms=step_ms,
+                         sequences_s=seq_s, peak_bytes=peak,
+                         idle=_idle(prof, step_ms), device_ms=device,
+                         unaligned_gemm_ms=unaligned, losses=blosses,
+                         valid_length=lengths.tolist(), profile=prof[:14])
+        del st, bdata, blabels
+        gc.collect()
+    set_attention_impl(net, "pallas")
+    return dict(launches=launches, routes=routes,
+                gate_launches={**gate, **gate_routes}, layers=layers,
+                grad_worst_rel=worst, eval_worst_rel=eval_worst[0],
+                float_lengths_equal=float_equal, padding_equal=pad_equal,
+                learning_losses=losses, bf16_grad_worst_rel=bf16_worst,
+                rows=rows, invoke_launches=invoke_launches)
+
+
+def bert_main(seed, card):
+    """The BERT phase on ``get_bert("bert_12_768_12", vocab_size=30522,
+    max_length=512, attention_impl="pallas")``, dropout 0: 207 parameter
+    tensors, 133,547,324 values."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.models import get_bert
+
+    ctx = mx.gpu(0)
+    mx.random.seed(seed)
+    t0 = time.perf_counter()
+    net = get_bert("bert_12_768_12", vocab_size=30522, max_length=512,
+                   dropout=0.0, attention_impl="pallas").initialize(
+                       "xavier", ctx=ctx)
+    counts = (len(list(net.parameters())),
+              sum(p.numel() for p in net.parameters()))
+    print(f"model bert_12_768_12: {counts[0]} parameter tensors, "
+          f"{counts[1]} values, drawn in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if counts != (207, 133_547_324):
+        raise AssertionError(f"bert_12_768_12's inventory {counts}")
+    return bert_phase(seed, card, net, ctx)
+
 
 # ---------------------------------------------------------------------------
 # conv kernel phase
@@ -2575,7 +2936,8 @@ def mlp_phase(seed, card, ctx, b=MLP_BATCH, steps=20):
 # graph phase: the step engines on CUDA graphs (parallel/superstep.py)
 # ---------------------------------------------------------------------------
 # window K of each row
-GRAPH_K = {"mlp": 20, "gpt": 10, "resnet50_fused": 5, "resnet50_unfused": 5}
+GRAPH_K = {"mlp": 20, "gpt": 10, "bert": 5, "resnet50_fused": 5,
+           "resnet50_unfused": 5}
 # windows a row times after the one that captures
 GRAPH_TIMED = 2
 
@@ -2722,12 +3084,20 @@ def _clock_text(reading):
 GRAPH_ROUNDS = 5
 
 
+def _batch_of(window, i):
+    """Batch ``i`` of a stacked window: a tensor, or a list of them."""
+    if isinstance(window, (list, tuple)):
+        return [w[i] for w in window]
+    return window[i]
+
+
 def graph_row(label, make, wins, card, seed, expect, kernels=None,
               tags=()):
     """One row of the graph phase. ``make()`` gives a fresh
     ``SPMDTrainer`` (the same start state each call), ``wins`` at least
     ``1 + GRAPH_TIMED`` windows ``(data, labels)`` of K batches on the
-    device; ``expect``: launch counter name -> launches a step;
+    device (each a stacked tensor or a list of them); ``expect``: launch
+    counter name -> launches a step;
     ``kernels``: CUDA function -> launches a step.
 
     From the same state and seed, K eager ``step()`` calls and one
@@ -2751,12 +3121,13 @@ def graph_row(label, make, wins, card, seed, expect, kernels=None,
     from incubator_mxnet_tpu_torch.ops import launches
 
     kernels = kernels or {}
-    k = int(wins[0][0].shape[0])
     x0, y0 = wins[0]
+    k = int(_as_list(x0)[0].shape[0])
     eager = make()
     mx.random.seed(seed)
     c0 = launches.snapshot()
-    ref = torch.stack([eager.step(x0[i], y0[i]) for i in range(k)])
+    ref = torch.stack([eager.step(_batch_of(x0, i), _batch_of(y0, i))
+                       for i in range(k)])
     eager_counts = _launch_delta(c0)
     per_step = {n: c // k for n, c in eager_counts.items()}
     if any(c % k for c in eager_counts.values()):
@@ -2830,7 +3201,7 @@ def graph_row(label, make, wins, card, seed, expect, kernels=None,
                 torch.cuda.reset_peak_memory_stats()
             w0, t0 = time.time(), time.perf_counter()
             for i in range(k):
-                eager.step(x[i], y[i])
+                eager.step(_batch_of(x, i), _batch_of(y, i))
             torch.cuda.synchronize()
             turns["eager"].append((time.perf_counter() - t0) * 1e3 / k)
             spans["eager"].append((w0, time.time()))
@@ -2850,7 +3221,7 @@ def graph_row(label, make, wins, card, seed, expect, kernels=None,
 
         def eager_window(x, y):
             for i in range(k):
-                eager.step(x[i], y[i])
+                eager.step(_batch_of(x, i), _batch_of(y, i))
 
         w0 = time.time()
         prof_e = _profile_step(eager_window, x1, y1, card, eager_ms * k,
@@ -3023,20 +3394,23 @@ def fresh_thread_capture(dev, n=32, h=56, c=64):
 
 
 def graph_phase(seed, card, ctx, mlp_b=MLP_BATCH, gpt=("gpt_decoder_117m",
-                50257, 8, 256, {}), resnet_b=128, hw=224,
+                50257, 8, 256, {}), bert=("bert_12_768_12", 30522, 24, 128,
+                                          {}), resnet_b=128, hw=224,
                 resnet_layers=None, k=None):
-    """The graph phase (the module docstring's phase 10): each row's
+    """The graph phase (the module docstring's phase 11): each row's
     ``SPMDTrainer.run_superstep`` over windows of distinct synthetic
     batches drawn from ``seed`` against K eager steps (``graph_row``), the
     gluon SuperStep on the MLP, and the fresh-thread capture. Sizes are
-    the rows' own unless a test passes small ones (``gpt``: spec name,
-    vocab, B, T, extra spec keys; ``resnet_layers``: (layers, channels)
-    of a small ResNet of both kinds; ``k``: window K for every row)."""
+    the rows' own unless a test passes small ones (``gpt`` and ``bert``:
+    spec name, vocab, B, T, extra spec keys; ``resnet_layers``: (layers,
+    channels) of a small ResNet of both kinds; ``k``: window K for every
+    row)."""
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch import gluon, parallel
     from incubator_mxnet_tpu_torch.gluon import nn
     from incubator_mxnet_tpu_torch.gluon.model_zoo import (get_gpt,
                                                           get_model, vision)
+    from incubator_mxnet_tpu_torch.models import get_bert
 
     dev = ctx.torch_device()
     gk = {row: (k or kk) for row, kk in GRAPH_K.items()}
@@ -3092,6 +3466,44 @@ def graph_phase(seed, card, ctx, mlp_b=MLP_BATCH, gpt=("gpt_decoder_117m",
         "gpt", lambda: parallel.SPMDTrainer(
             net, lm_loss, "sgd", {"learning_rate": 1e-4, "momentum": 0.9}),
         _windows(n_win, gpt_batch), card, seed,
+        expect={f"{kern}{route}": layers for kern in COUNTERS
+                for route in ("", "_tc")},
+        kernels={f"{kern}_tc_kernel": layers for kern in COUNTERS},
+        tags=FLASH_TAGS)
+    del net
+    gc.collect()
+
+    # the BERT bf16 row (bench.py's bert shape): dropout 0.1 as built,
+    # attention on K4-K6; each batch of a window has its own mixed segments
+    # and valid_length, a (K, B) device tensor, so each step of a replay
+    # reads its own lengths
+    name, vocab, b, t, spec = bert
+    mx.random.seed(seed)
+    net = get_bert(name, vocab_size=vocab, max_length=512,
+                   attention_impl="pallas", **spec).initialize("xavier",
+                                                               ctx=ctx)
+    net.cast("bfloat16")
+    layers = len(net.encoder._modules)
+    kb = gk["bert"]
+
+    def bert_window():
+        split = torch.randint(1, t, (kb, b, 1), generator=gen, device=dev)
+        data = [torch.randint(0, vocab, (kb, b, t), generator=gen,
+                              device=dev, dtype=torch.int32),
+                (torch.arange(t, device=dev) >= split).to(torch.int32),
+                torch.randint(1, t + 1, (kb, b), generator=gen, device=dev,
+                              dtype=torch.int32)]
+        labels = [torch.randint(0, vocab, (kb, b, t), generator=gen,
+                                device=dev).float(),
+                  torch.randint(0, 2, (kb, b), generator=gen,
+                                device=dev).float()]
+        return data, labels
+
+    rows["bert"] = graph_row(
+        "bert", lambda: parallel.SPMDTrainer(
+            net, bert_pretrain_loss(ce), "sgd",
+            {"learning_rate": 1e-4, "momentum": 0.9}),
+        [bert_window() for _ in range(n_win)], card, seed,
         expect={f"{kern}{route}": layers for kern in COUNTERS
                 for route in ("", "_tc")},
         kernels={f"{kern}_tc_kernel": layers for kern in COUNTERS},
@@ -3853,6 +4265,8 @@ def main(argv=None) -> int:
     gc.collect()
     trained = train_phase(args.seed, card)
     gc.collect()
+    bert = bert_main(args.seed, card)
+    gc.collect()
     resnet = resnet_main(args.seed, card)
     gc.collect()
     unfused = unfused_resnet_main(args.seed, card)
@@ -3868,11 +4282,11 @@ def main(argv=None) -> int:
     train_case = BWD_HEAD
     # K4 by route: the f32 kernel carries fp32 training, the imperative
     # step and the longer fp32 prefills, the SIMT kernel the prefills of 32
-    # rows or fewer, the tensor-core kernel bf16 training (the bench row;
-    # the gate), the split kernels the decode steps; launches: the sum over
-    # the main paths (serving, training, the imperative step), each read
-    # in its own windows; the gate and train -> decode stand in
-    # launches_by_path alone
+    # rows or fewer, the tensor-core kernel bf16 training (the bench rows;
+    # the gates), the split kernels the decode steps; launches: the sum over
+    # the main paths (serving, GPT and BERT training, the imperative step,
+    # the graph rows), each read in its own windows; the gates and train ->
+    # decode stand in launches_by_path alone
     record = {"kernels": []}
     for route, source, head, dtype in (
             ("simt", "flash_fwd.cu", FWD_HEAD, "fp32"),
@@ -3885,11 +4299,15 @@ def main(argv=None) -> int:
             "train": trained["routes"][f"flash_fwd_{route}"],
             "imperative": imperative["flash_routes"][f"flash_fwd_{route}"],
             "gpt_graph": graph["gpt"]["launches"].get(f"flash_fwd_{route}",
-                                                      0)}
+                                                      0),
+            "bert_train": bert["routes"][f"flash_fwd_{route}"],
+            "bert_graph": graph["bert"]["launches"].get(
+                f"flash_fwd_{route}", 0)}
         main_paths = sum(by_path.values())
         by_path["train_to_decode"] = trained["decode_routes"][route]
         if route == "tc":
             by_path["bf16_gate"] = trained["gate_launches"]["flash_fwd_tc"]
+            by_path["bert_bf16_gate"] = bert["gate_launches"]["flash_fwd_tc"]
         entry = _entry(name, src + source, ref + "54", main_paths,
                        [r for r in kernel if r["route"] == route], head,
                        dtype)
@@ -3908,11 +4326,13 @@ def main(argv=None) -> int:
                                      ("f32", "flash_bwd_f32.cu", "fp32"),
                                      ("tc", "flash_bwd_tc.cu", "bf16")):
             in_graph = graph["gpt"]["launches"].get(f"{name}_{route}", 0)
+            bert_graph = graph["bert"]["launches"].get(f"{name}_{route}", 0)
             entry = _entry(name if route == "simt" else f"{name}_{route}",
                            src + source, ref + line,
                            trained["routes"][f"{name}_{route}"]
                            + imperative["flash_routes"][f"{name}_{route}"]
-                           + in_graph,
+                           + in_graph + bert["routes"][f"{name}_{route}"]
+                           + bert_graph,
                            [r for r in bwd if r["kernel"] == name
                             and r["route"] == route], train_case, dtype)
             head = next(r for r in entry["cases"] if r["case"] == train_case
@@ -3922,10 +4342,14 @@ def main(argv=None) -> int:
             entry["launches_by_path"] = {
                 "train": trained["routes"][f"{name}_{route}"],
                 "imperative": imperative["flash_routes"][f"{name}_{route}"],
-                "gpt_graph": in_graph}
+                "gpt_graph": in_graph,
+                "bert_train": bert["routes"][f"{name}_{route}"],
+                "bert_graph": bert_graph}
             if route == "tc":
                 entry["launches_by_path"]["bf16_gate"] = \
                     trained["gate_launches"][f"{name}_tc"]
+                entry["launches_by_path"]["bert_bf16_gate"] = \
+                    bert["gate_launches"][f"{name}_tc"]
             record["kernels"].append(entry)
     conv_ref = "incubator_mxnet_tpu/ops/pallas_conv.py:"
     # K1, K2 and K3 by route: fp32 (the oracle, the fp32 training steps,
@@ -3991,6 +4415,10 @@ def main(argv=None) -> int:
             for layout, row in bench.items()},
         "mlp_bf16": {k: mlp[k] for k in ("batch", "step_ms", "images_s",
                                          "peak_bytes", "idle")},
+        "bert_bf16": {row: {k: r[k] for k in (
+            "batch", "t", "step_ms", "sequences_s", "peak_bytes", "idle",
+            "device_ms", "unaligned_gemm_ms")}
+            for row, r in bert["rows"].items()},
         "graph": {row: {k: v for k, v in r.items()
                         if k in ("k", "eager_ms", "graph_ms",
                                  "eager_device_ms", "graph_device_ms",

@@ -16,7 +16,8 @@ Slice 4 is MXNet's imperative front door: ``mx.nd`` (NDArrays over torch
 tensors, the op registry, ``mx.nd.Custom``), ``autograd.Function`` and
 ``mark_variables``, ``mx.operator`` custom ops, and ``mx.rtc.CudaModule``,
 which compiles CUDA source at run time with NVRTC and launches it on
-NDArrays.
+NDArrays. Slice 15 trains BERT (``models.get_bert``) through the same
+flash kernels, with per-sample key lengths and no causal mask.
 
 Devices are explicit: every entry point takes a ``ctx``; the default is
 ``gpu(0)`` (``cuda:0``) and raises when there is no card. The CPU runs only
@@ -33,7 +34,7 @@ torch.backends.cudnn.allow_tf32 = False
 from . import base, config, device, initializer, random  # noqa: E402
 from . import autograd, lr_scheduler, optimizer  # noqa: E402
 from . import ops, ndarray, operator, rtc  # noqa: E402
-from . import gluon, parallel, serving  # noqa: E402
+from . import gluon, models, parallel, serving  # noqa: E402
 from .base import MXTPUError  # noqa: E402
 from .device import Context, cpu, current_context, gpu  # noqa: E402
 from .ops import rtc_kernels  # noqa: E402,F401  (registers softmax_ce_rtc)
@@ -42,5 +43,5 @@ nd = ndarray
 
 __all__ = ["Context", "MXTPUError", "autograd", "base", "config", "cpu",
            "current_context", "device", "gluon", "gpu", "initializer",
-           "lr_scheduler", "nd", "ndarray", "operator", "ops", "optimizer",
-           "parallel", "random", "rtc", "serving"]
+           "lr_scheduler", "models", "nd", "ndarray", "operator", "ops",
+           "optimizer", "parallel", "random", "rtc", "serving"]

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``ndarray/__init__.py`` for the ops the
 port has: wrappers generated from the op registry (``ops/tensor.py``,
 ``ops/nn.py``, with ``Convolution``, ``Pooling``, ``BatchNorm`` and
-``Activation``, and the kernel ops ``flash_attention``/``fused_conv_bn``),
+``Activation``, ``scaled_dot_product_attention``, and the kernel ops
+``flash_attention``/``fused_conv_bn``),
 every call through :func:`invoke`, so autograd recording and the naive
 engine's sync apply alike. ``mx.nd.flash_attention`` launches the flash
 kernels on a CUDA array; ``invoke_op("fused_conv_bn", ...)`` the conv
@@ -99,6 +100,14 @@ BatchNorm = _wrap("BatchNorm", 5)
 Activation = _wrap("Activation", 1)
 
 
+def scaled_dot_product_attention(q, k, v, mask=None, **kwargs):
+    """The dense attention chain (``ops.nn.scaled_dot_product_attention``):
+    q, k, v and an optional ``mask`` are arrays; ``scale`` and ``causal``
+    keywords."""
+    args = [q, k, v] + ([mask] if mask is not None else [])
+    return invoke_op("scaled_dot_product_attention", *args, **kwargs)
+
+
 def slice(data, begin, end, step=None):  # noqa: A001 (mxnet name)
     return data.slice(begin, end, step)
 
@@ -144,5 +153,6 @@ __all__ = ["Activation", "BatchNorm", "BlockGrad", "Cast", "Convolution",
            "Custom", "Flatten", "FullyConnected", "NDArray", "Pooling", "Reshape", "SwapAxis", "arange", "array", "as_nd",
            "empty", "eye", "flash_attention", "flatten", "full", "invoke",
            "invoke_op", "load", "one_hot", "ones", "ones_like", "save",
-           "slice", "slice_axis", "stop_gradient", "swapaxes", "waitall",
+           "scaled_dot_product_attention", "slice", "slice_axis",
+           "stop_gradient", "swapaxes", "waitall",
            "zeros", "zeros_like"] + _UNARY + _BINARY

@@ -411,9 +411,11 @@ def _check_cuda(q, k, v, lengths):
             raise ValueError(f"{name} has a negative stride")
     if lengths is not None:
         lengths = torch.as_tensor(lengths)
-        if lengths.shape != (b,) or lengths.is_floating_point():
-            raise ValueError(f"lengths must be ({b},) integers, got "
-                             f"{tuple(lengths.shape)} {lengths.dtype}")
+        if lengths.shape != (b,):
+            raise ValueError(f"lengths must be ({b},), got "
+                             f"{tuple(lengths.shape)}")
+        # a float length (GluonNLP's valid_length) is truncated toward
+        # zero, as the reference's astype(int32) and the plain version do
         lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
     return lengths
 
@@ -605,7 +607,8 @@ class FlashAttentionFunction(torch.autograd.Function):
 def flash_attention(q, k, v, lengths=None, scale=None, causal=False,
                     cache_offset=False, return_lse=False, route=None):
     """Block-tiled flash attention. q (B, H, Tq, D), k/v (B, H, Tk, D);
-    ``lengths`` (B,) optional per-sample valid key length.
+    ``lengths`` (B,) optional per-sample valid key length (a float one is
+    truncated toward zero, as the reference does).
 
     ``causal`` aligns the diagonal bottom-right (``col <= row + Tk - Tq``).
     ``cache_offset=True`` is the KV-cache decode alignment: K/V are the

@@ -1,12 +1,13 @@
 """Neural-network ops of the ported path.
 
 Counterparts of the ops of the JAX package's ``ops/nn.py`` that the GPT
-decoder, the fused ResNet and the gluon layer set run, and the registered
-ops of ``mx.nd`` (``FullyConnected``, ``Convolution``, ``Pooling``,
-``BatchNorm``, ``Activation``, ``relu``, ``sigmoid``, ``softmax``,
-``log_softmax``). None of them is a TPU kernel there (XLA compiles them),
-so here they are PyTorch's own (cuDNN and cuBLAS on the card). Layouts as
-the reference's: NC + 1-3 spatial axes, conv weights (O, I/groups, *k).
+decoder, BERT, the fused ResNet and the gluon layer set run, and the
+registered ops of ``mx.nd`` (``FullyConnected``, ``Convolution``,
+``Pooling``, ``BatchNorm``, ``Activation``, ``relu``, ``sigmoid``,
+``softmax``, ``log_softmax``, ``scaled_dot_product_attention``). None of
+them is a TPU kernel there (XLA compiles them), so here they are
+PyTorch's own (cuDNN and cuBLAS on the card). Layouts as the reference's:
+NC + 1-3 spatial axes, conv weights (O, I/groups, *k).
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from .registry import register
 
 __all__ = ["activation", "batch_norm", "convolution", "dropout",
            "embedding", "fully_connected", "layer_norm", "log_softmax",
-           "pooling", "relu", "sigmoid", "softmax"]
+           "pooling", "relu", "scaled_dot_product_attention", "sigmoid",
+           "softmax"]
 
 
 def _ntuple(v, n):
@@ -277,3 +279,27 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
     if axis != 1:
         out = out.movedim(1, axis)
     return out if stats is None else (out, *stats)
+
+@register("scaled_dot_product_attention")
+def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
+                                 causal=False):
+    """The dense attention chain: q, k, v (B, H, T, D). In the reference's
+    order of operations: the scores in ``q.dtype``, times ``scale``
+    (default ``1/sqrt(D)`` rounded to ``q.dtype``); ``causal`` keeps the
+    bottom-right triangle (``col <= row + Tk - Tq``); ``mask`` (broadcast
+    to the scores) keeps a score where it is nonzero; every other score is
+    ``-inf``; softmax in fp32, cast back to ``q.dtype``, times V. No
+    kernel: the reference computes it outside any Pallas kernel too."""
+    if scale is None:
+        scale = float(torch.tensor(math.sqrt(q.shape[-1])).to(
+            q.dtype).reciprocal())
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if causal:
+        tq, tk = scores.shape[-2], scores.shape[-1]
+        keep = torch.ones((tq, tk), dtype=torch.bool,
+                          device=scores.device).tril(tk - tq)
+        scores = scores.masked_fill(~keep, float("-inf"))
+    if mask is not None:
+        scores = scores.masked_fill(mask == 0, float("-inf"))
+    w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.matmul(w, v)

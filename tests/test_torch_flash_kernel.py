@@ -243,9 +243,9 @@ def test_cache_offset_requires_lengths():
     (dict(d=48), ValueError, "head dim"),
     (dict(kv_len_mismatch=True), ValueError, "k/v must be"),
     (dict(strided_d=True), ValueError, "contiguous"),
-    (dict(lengths=[1.5]), ValueError, "lengths"),
+    (dict(lengths=[5, 5]), ValueError, "lengths"),
     (dict(grad_shape=True), ValueError, "g must be shaped like q"),
-], ids=["fp16", "d48", "kv_mismatch", "strided_d", "float_lengths", "grad"])
+], ids=["fp16", "d48", "kv_mismatch", "strided_d", "lengths_shape", "grad"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, err,
                                                                match):
     """The checks the CUDA path runs before a launch (run here on CPU
@@ -263,6 +263,22 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, err,
         if bad.get("grad_shape"):          # the backward's extra checks
             rows = torch.zeros(q.shape[:3])
             fa._check_bwd(q, rows, rows, torch.zeros(1, 2, 4, d))
+
+
+def test_kernel_wrapper_truncates_float_lengths_as_the_plain_version():
+    """A float ``valid_length`` (GluonNLP's convention) is taken on the
+    card path: ``_check_cuda`` hands the kernel its truncation toward zero
+    as int32, which are the keys the plain version masks (run here on CPU
+    tensors: the check reads shapes and dtypes only)."""
+    q = torch.zeros(4, 2, 3, 32)
+    k = v = torch.zeros(4, 2, 12, 32)
+    lens = torch.tensor([9.7, 1.0, 12.0, 0.5])
+    got = fa._check_cuda(q, k, v, lens)
+    assert got.dtype == torch.int32 and got.tolist() == [9, 1, 12, 0]
+    keys = fa._valid(q, k, lens, False, False)[:, 0, 0].sum(-1)
+    assert keys.tolist() == got.tolist()
+    assert fa._check_cuda(q, k, v, [9.7, 1, 12, 0.5]).tolist() == \
+        [9, 1, 12, 0]
 
 
 def _bwd_case(case, dtype, device, seed=0):

@@ -49,7 +49,9 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "incubator_mxnet_tpu_torch.operator, "
             "incubator_mxnet_tpu_torch.rtc, "
             "incubator_mxnet_tpu_torch.ops._nvrtc, "
-            "incubator_mxnet_tpu_torch.ops.rtc_kernels\n"
+            "incubator_mxnet_tpu_torch.ops.rtc_kernels, "
+            "incubator_mxnet_tpu_torch.models, "
+            "incubator_mxnet_tpu_torch.models.transformer\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) "
             "or m == 'incubator_mxnet_tpu' "
@@ -79,7 +81,8 @@ def test_sources_import_no_jax_and_no_jax_package():
                  "ops/registry.py", "ops/tensor.py", "ops/nn.py",
                  "gluon/nn/conv_layers.py", "gluon/nn/basic_layers.py",
                  "gluon/model_zoo/vision/resnet.py", "initializer.py",
-                 "parallel/superstep.py", "ops/launches.py"):
+                 "parallel/superstep.py", "ops/launches.py",
+                 "models/__init__.py", "models/transformer.py"):
         assert PKG / name in files, name
     for f in files + [ROOT / "chip_smoke.py"]:
         for mod in _imported_modules(f):
@@ -549,6 +552,60 @@ def test_chip_smoke_unfused_resnet_phase_rehearses_on_the_cpu(monkeypatch):
     assert mlp["batch"] == 8192 and mlp["images_s"] > 0
 
 
+def test_chip_smoke_bert_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.bert_phase`` on a small BERT (2 layers, 2 heads of 64)
+    on the CPU: the oracle, eval, float lengths, padding independence,
+    learning, eager steps, ``invoke_op`` and the bf16 gate pass, the three
+    bench rows run, and each launch window expects 12-style counts from
+    the net's own layers (recorded here: the CPU launches no kernel)."""
+    from incubator_mxnet_tpu_torch.models import get_bert
+
+    cs = _chip_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+    windows = []
+    monkeypatch.setattr(cs, "_check_flash_launches",
+                        lambda label, got, routes, want, want_routes:
+                        windows.append((want, {k: v for k, v in
+                                               want_routes.items() if v})))
+    mx.random.seed(0)
+    net = get_bert("bert_12_768_12", vocab_size=97, units=128,
+                   hidden_size=256, num_layers=2, num_heads=2,
+                   max_length=64, dropout=0.0,
+                   attention_impl="pallas").initialize("xavier",
+                                                       ctx=mx.cpu())
+    # T=40: fp32 forwards on f32 from FWD_F32_MIN_TQ (33) query rows
+    out = cs.bert_phase(0, "cpu", net, mx.cpu(), sizes=(4, 40, 4))
+    assert out["grad_worst_rel"] <= cs.GRAD_RTOL
+    assert out["eval_worst_rel"] <= cs.BERT_EVAL_RTOL
+    assert out["float_lengths_equal"] and out["padding_equal"]
+    assert out["learning_losses"][-1] < 0.95 * out["learning_losses"][0]
+    assert out["bf16_grad_worst_rel"] <= cs.BF16_GRAD_RTOL
+    assert set(out["rows"]) == {"pallas", "xla", "pallas_mixed_lengths"}
+    assert out["rows"]["pallas_mixed_lengths"]["valid_length"][:2] == \
+        [40, 1]
+    assert all(r["sequences_s"] > 0 for r in out["rows"].values())
+    fwd, bwd = ("flash_fwd_f32", ("flash_bwd_dq_f32", "flash_bwd_dkv_f32"))
+    tc = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+    # 13 fp32 training passes (oracle, 10 learning steps, 2 eager steps)
+    # and 3 forwards (eval, float lengths, padding), 2 layers each
+    assert windows[0] == ({"flash_fwd": 32, "flash_bwd_dq": 26,
+                           "flash_bwd_dkv": 26},
+                          {fwd: 32, bwd[0]: 26, bwd[1]: 26})
+    assert windows[1] == ({"flash_fwd": 4, "flash_bwd_dq": 2,
+                           "flash_bwd_dkv": 2},
+                          {tc[0]: 4, tc[1]: 2, tc[2]: 2})
+    # each bench row: 3 warmup, 10 timed and 1 profiled step
+    row = dict.fromkeys(cs.COUNTERS, 28)
+    assert windows[2:] == [(row, dict.fromkeys(tc, 28)),
+                           (dict.fromkeys(cs.COUNTERS, 0), {}),
+                           (row, dict.fromkeys(tc, 28))]
+    assert cs.bert_lengths(0, 24, 128)[:2].tolist() == [128, 1]
+    assert all(1 <= n <= 128 for n in cs.bert_lengths(0, 24, 128))
+
+
 def test_no_k7_launch_falls_back_to_a_plain_function():
     """``mx.rtc`` and the kernels it launches catch nothing: a launch that
     cannot happen raises. The only handler in the NVRTC bindings skips a
@@ -679,12 +736,12 @@ def test_chip_smoke_rtc_bounds_are_the_quoted_figures():
 
 def test_chip_smoke_graph_phase_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.graph_phase`` on the CPU at small sizes (a 2-layer GPT
-    with dropout, small ResNets of both kinds, K=2): every row's
-    ``run_superstep`` equals K eager steps bit for bit (on the CPU the same
-    body runs K times), the gluon SuperStep's fused path equals its eager
-    one, and each row expects the launches its model makes a step on the
-    card, by counter and by CUDA function in the profiles (recorded here:
-    the CPU launches no kernel)."""
+    and a 2-layer BERT with dropout, small ResNets of both kinds, K=2):
+    every row's ``run_superstep`` equals K eager steps bit for bit (on the
+    CPU the same body runs K times), the gluon SuperStep's fused path
+    equals its eager one, and each row expects the launches its model
+    makes a step on the card, by counter and by CUDA function in the
+    profiles (recorded here: the CPU launches no kernel)."""
     from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 
     cs = _chip_smoke()
@@ -716,24 +773,28 @@ def test_chip_smoke_graph_phase_rehearses_on_the_cpu(monkeypatch):
                           gpt=("gpt_decoder_117m", 97, 2, 64,
                                {"units": 128, "num_layers": 2,
                                 "num_heads": 2}),
+                          bert=("bert_12_768_12", 97, 2, 40,
+                                {"units": 128, "hidden_size": 256,
+                                 "num_layers": 2, "num_heads": 2}),
                           resnet_b=2, hw=64, resnet_layers=layers, k=2)
-    assert set(rows) == {"mlp", "mlp_gluon_superstep", "gpt",
+    assert set(rows) == {"mlp", "mlp_gluon_superstep", "gpt", "bert",
                          "resnet50_fused", "resnet50_unfused",
                          "fresh_thread"}
-    for name in ("mlp", "gpt", "resnet50_fused", "resnet50_unfused"):
+    for name in ("mlp", "gpt", "bert", "resnet50_fused",
+                 "resnet50_unfused"):
         assert rows[name]["k"] == 2 and rows[name]["graph_ms"] > 0
         assert rows[name]["per_step"] == {}         # no kernel on the CPU
         assert rows[name]["launches"] == {}
     per_pass = cs.convs_per_pass(vision.FusedResNetV1(*layers, classes=10))
     assert rows["resnet50_fused"]["per_pass"] == per_pass > 0
-    assert [c[0] for c in checks] == ["mlp", "gpt", "resnet50_fused",
-                                      "resnet50_unfused"]
+    assert [c[0] for c in checks] == ["mlp", "gpt", "bert",
+                                      "resnet50_fused", "resnet50_unfused"]
     flash = {f"{k}{r}": 2 for k in ("flash_fwd", "flash_bwd_dq",
                                     "flash_bwd_dkv") for r in ("", "_tc")}
     conv = {f"{k}{r}": per_pass for k in cs.CONV_KERNELS
             for r in ("", "_tc")}
     assert [c[2] for c in checks] == [
-        {}, flash, conv, {k: 0 for k in cs.CONV_KERNELS}]
+        {}, flash, flash, conv, {k: 0 for k in cs.CONV_KERNELS}]
     # the profiler's count of each kernel's CUDA function, K a step, in
     # the eager window and in the graph window of the GPT and fused rows
     fk = {f"{k}_tc_kernel": 2 for k in ("flash_fwd", "flash_bwd_dq",
@@ -741,6 +802,8 @@ def test_chip_smoke_graph_phase_rehearses_on_the_cpu(monkeypatch):
     ck = {f"{k}_tc_kernel": per_pass for k in cs.CONV_KERNELS}
     assert profiled == [("gpt eager window", fk, 2),
                         ("gpt graph window", fk, 2),
+                        ("bert eager window", fk, 2),
+                        ("bert graph window", fk, 2),
                         ("resnet50_fused eager window", ck, 2),
                         ("resnet50_fused graph window", ck, 2)]
     assert rows["mlp_gluon_superstep"]["k"] == 2

@@ -11,6 +11,9 @@ the JAX package does, each held against the JAX package.
   and the variance of each tensor.
 - NAG at momentum 0 in ``SPMDTrainer`` runs as plain SGD, as
   ``optax.sgd(lr, momentum=0.0, nesterov=True)`` does.
+- A float ``lengths`` (BERT's ``valid_length``) in ``flash_attention`` is
+  truncated toward zero to int32, as the reference's ``astype(int32)``:
+  the card path took only integers before.
 """
 
 import numpy as np
@@ -244,3 +247,34 @@ def test_pick_out_of_range_on_the_card_raises_no_device_assert():
     got = ptensor.pick(x, idx)
     torch.cuda.synchronize()
     assert torch.isnan(got[0]) and got[1] == 6 and torch.isnan(got[2])
+
+
+# ---------------------------------------------------------------------------
+# flash_attention with float lengths
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("interpret", [True, None],
+                         ids=["pallas_interpret", "dense_below_crossover"])
+def test_flash_attention_float_lengths_truncate_as_the_reference(interpret):
+    """Non-integer float lengths through the JAX ``flash_attention`` op
+    (its Pallas kernel in interpret mode, and its dense path below
+    ``MXTPU_FLASH_MIN_SEQ``) and through the port's CPU path: the same
+    output, the int32 truncation's, with and without a gradient."""
+    import jax.numpy as jnp
+
+    from incubator_mxnet_tpu.ops.pallas_attention import (
+        flash_attention as jflash)
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    rs = np.random.RandomState(21)
+    q, k, v = (rs.randn(3, 2, 16, 32).astype(np.float32) for _ in range(3))
+    lens = np.array([9.7, 1.2, 16.0], np.float32)
+    want = np.asarray(jflash(*(jnp.asarray(a) for a in (q, k, v)),
+                             jnp.asarray(lens), interpret=interpret))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = fa.flash_attention(tq, tk, tv, torch.from_numpy(lens))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    as_int = fa.flash_attention(tq, tk, tv, torch.tensor([9, 1, 16]))
+    assert torch.equal(got, as_int)
+    tq.requires_grad_(True)
+    with_grad = fa.flash_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert torch.equal(with_grad.detach(), got)
