@@ -54,7 +54,14 @@ Phases (any failure raises, and the script exits non-zero):
    ``decode_step_times`` then holds the graph's next tokens against the
    same step run eagerly, times both (host ms and device time a step),
    and checks the split kernels' launches a step as the graph steps
-   counted them and as the profiler saw them;
+   counted them and as the profiler saw them. Prefill is one CUDA graph a
+   prompt bucket (the session's ``BucketedExecutorCache``, the true
+   length a static device scalar; its capture records 12 K4 on the
+   bucket's route, which each replay counts): ``prefill_times`` holds each
+   bucket's graph against the eager prefill bit for bit (the first token
+   and the K/V planes) at two true lengths of the bucket, and times both
+   (host ms a prefill and device time); TTFT p50/p90 is printed beside
+   the eager prefill's that ``PERF.md`` holds;
 5. training phase: ``gpt_decoder_117m`` with ``max_length`` 256 and
    dropout 0 at B=8, T=256: the fp32 gradient of every parameter through
    the kernels against the same model with its attention swapped for the
@@ -94,7 +101,9 @@ Phases (any failure raises, and the script exits non-zero):
    fp32 and bf16 at ResNet-50's shapes at B=32 and one shape off the
    model's path, with the same timings; the library call is cuDNN
    (``F.conv2d`` on channels-last tensors, and
-   ``aten.convolution_backward`` for the input and the weight gradient).
+   ``aten.convolution_backward`` for the input and the weight gradient),
+   then K1 alone at the serving shapes (``SERVING_CONV_CASES``: the head
+   case and the last stage at B=1, the ModelServer's smallest bucket).
    Each row names its route (``fused_conv.conv_route``): every bf16 row
    must take the tensor-core kernels (``csrc/fused_conv_tc.cu``,
    ``csrc/conv_bwd_tc.cu``), every fp32 row (widths multiples of 4) the
@@ -132,7 +141,31 @@ Phases (any failure raises, and the script exits non-zero):
    oracle, the forward gate's fp32 forward, the learning check, the eager
    steps, eval) on the f32 route, every bf16 one on the tensor-core
    route;
-9. unfused ResNet phase: ``get_model("resnet50_v1", classes=1000)``, the
+9. ModelServer phase: ``fused_resnet50_v1`` (weights drawn from
+   ``--seed``, the running statistics set from one batch as the ResNet
+   phase sets them for eval) behind ``serving.ModelServer(net,
+   buckets=(1, 2, 4, 8, 16, 32), max_wait_ms=2)``, one CUDA graph a
+   bucket, captured by ``warmup((3, 224, 224), "float32")`` (the graphs'
+   memory printed, in one shared pool and with a pool each). fp32: each
+   bucket's replay bit-equal to the eager eval forward of the same padded
+   batch; 64 single-image requests from 8 client threads, each row within
+   ``SERVER_ROW_RTOL`` (relative L2) of its image's own B=1 eager forward
+   and all within 1e-4 of the forward with ``fused_conv_bn`` swapped for
+   its plain versions; K1 exactly 52 times an executed batch on the f32
+   route (each capture recorded 52); six signatures after warm-up and no
+   capture from traffic; a 32-request burst into ``max_queue=4`` meets
+   ``QueueFullError``; ``healthz`` flips at ``drain``. bf16 (the net
+   cast; warm-up on a fresh thread): K1 52 times a batch on the
+   tensor-core route; the served logits no farther from an fp32 forward on
+   the same bf16-rounded weights and inputs than the eager forward through
+   the SIMT K1 (``FWD_GATE_SLACK``, as ``resnet_bf16_forward_gate``).
+   Then, in each type, every bucket's batch through its graph beside the
+   eager forward (host ms, device time), and open-loop Poisson traffic at
+   ``SERVER_RATES`` (the JAX package's ``serving_bench.open_loop``,
+   copied): requests/s, latency p50/p99, mean batch occupancy, refusals,
+   beside the same traffic unbatched (``Unbatched``: one eager B=1
+   forward a request);
+10. unfused ResNet phase: ``get_model("resnet50_v1", classes=1000)``, the
    gluon layer set (NCHW, cuDNN and cuBLAS; no hand-written kernel:
    the JAX package leaves these convs to XLA), ``initialize("xavier")``
    and one forward that fills its deferred shapes; its inventory
@@ -147,11 +180,11 @@ Phases (any failure raises, and the script exits non-zero):
    2 warmup, a ``torch.profiler`` breakdown and the idle share), in NCHW
    and with the activations and conv weights in ``torch.channels_last``
    memory format. K1, K2 and K3 launch 0 times over every unfused pass;
-10. MLP phase: bench.py's mlp row (``Dense(512, activation="relu")``
+11. MLP phase: bench.py's mlp row (``Dense(512, activation="relu")``
    twice and ``Dense(10)``, no ``in_units``; xavier, bf16, B=8192,
    ``SPMDTrainer`` SGD lr 0.1 momentum 0.9): the loss falls by 5% over
    20 steps on one batch, then the step is timed;
-11. graph phase (``parallel/superstep.py``): the MLP row (K=20), the GPT
+12. graph phase (``parallel/superstep.py``): the MLP row (K=20), the GPT
    bf16 row (``gpt_decoder_117m``, B=8, T=256, dropout 0.1 as built,
    K=10), the BERT bf16 row (``bert_12_768_12``, B=24, T=128, dropout 0.1,
    K=5, each batch's mixed segments and ``valid_length`` in the window),
@@ -174,7 +207,7 @@ Phases (any failure raises, and the script exits non-zero):
    against its eager path bit for bit; K3 and K1 captured on a thread
    that never ran an encode, bit-equal to the eager calls
    (``fresh_thread_capture``);
-12. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
+13. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
    kernels (K7, ``csrc/rtc/*.cu``, compiled by NVRTC in the build step)
    run an ``mx.rtc`` program (``scale`` and ``saxpy`` over 163,037,184
    floats, ``first_row`` of a (50257, 768) embedding) held bit for bit
@@ -207,7 +240,9 @@ Phases (any failure raises, and the script exits non-zero):
 The third line from the end (``rows: {...}``) gives the bench rows: the
 fused and unfused ResNet-50, the MLP and BERT (pallas, xla and mixed
 lengths), bf16, step ms and images/s or sequences/s, and
-the graph phase's rows and the decode step, eager beside graph. The
+the graph phase's rows and the decode step, eager beside graph, the
+prefill buckets, graph beside eager, and TTFT, and the ModelServer's
+graph memory, warm-up, bucket times and open-loop rows. The
 line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
@@ -915,6 +950,7 @@ def slice_phase(seed, card=None):
         peak = torch.cuda.max_memory_allocated(dev)
         step_times = decode_step_times(sess, card or card_line(),
                                         net.vocab_size)
+        prefill = prefill_times(sess, card or card_line(), net.vocab_size)
         if not sess.drain(60):
             raise AssertionError("decode session did not drain")
     finally:
@@ -932,7 +968,9 @@ def slice_phase(seed, card=None):
           f"ms, {decode_tok_s:.1f} decode tokens/s; mean occupancy "
           f"{stats['mean_step_occupancy']:.2f} of 8; TTFT p50 "
           f"{stats['ttft_ms']['p50']:.2f} ms p90 "
-          f"{stats['ttft_ms']['p90']:.2f} ms; prefill share "
+          f"{stats['ttft_ms']['p90']:.2f} ms (with an eager prefill "
+          f"PERF.md section 5 holds 197.60 / 269.56 and 33.85 / 99.66); "
+          f"prefill share "
           f"{stats['prefill_frac']:.3f}; peak memory {peak / 2**20:.1f} MiB "
           f"(allocated before serving, weights and KV cache: "
           f"{base / 2**20:.1f} MiB)", flush=True)
@@ -958,7 +996,72 @@ def slice_phase(seed, card=None):
               f"{n} of {len(streams[i])} tokens", flush=True)
     return dict(launches=launches, routes=routes, steps=steps,
                 prefills=prefills, tokens=tokens, wall_s=wall, stats=stats,
-                peak_bytes=peak, step_times=step_times)
+                peak_bytes=peak, step_times=step_times, prefill=prefill)
+
+
+def prefill_times(sess, card, vocab, reps=5):
+    """Each prompt bucket's prefill as its captured CUDA graph (one replay
+    through the session's prefill cache) and eagerly (``_prefill_apply``
+    on the same padded tokens and true length): the first token and the
+    K/V planes bit-equal for two true lengths in the bucket (one graph
+    serves both); the launches each graph's capture recorded (12 K4 on
+    its bucket's route, ``fwd_route_expected``); host ms a prefill (the
+    prompt's copy to the card and the first token's back included; the
+    median of ``reps`` alternating turns) and device time
+    (``torch.profiler``) of each."""
+    dev = sess.device
+    cache = sess._prefill_cache
+    rs = np.random.RandomState(9)
+    rows = {}
+    for b in sess.prefill_buckets:
+        for n in sorted({b // 2 + 1, b}):
+            prompt = rs.randint(0, vocab, (n,)).astype(np.int32)
+            padded = np.zeros((b,), np.int32)
+            padded[:n] = prompt
+            tokens = torch.from_numpy(padded).to(dev)
+            count = torch.tensor(n, dtype=torch.int32, device=dev)
+            with sess._exec_lock:
+                got = [t.clone() for t in sess._prefill(prompt)]
+            want = sess._prefill_apply(tokens, count)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"prefill bucket {b}, {n} tokens: the "
+                                     "graph's first token or K/V planes "
+                                     "differ from the eager prefill")
+
+        def graph_call():
+            with sess._exec_lock:
+                return int(sess._prefill(prompt)[0])
+
+        def eager_call():
+            return int(sess._prefill_apply(
+                torch.from_numpy(padded).to(dev),
+                torch.tensor(n, dtype=torch.int32, device=dev))[0])
+
+        host = _median_turns({"graph": graph_call, "eager": eager_call},
+                             reps)
+        ex = cache._execs[(b, (), "int32")]
+        recorded = _counts_by_name(ex.graph.counted) \
+            if hasattr(ex, "graph") else {}
+        route = fwd_route_expected(b, 64, torch.float32)
+        want_rec = {"flash_fwd": 12, f"flash_fwd_{route}": 12} \
+            if dev.type == "cuda" else {}
+        if {k: v for k, v in recorded.items()
+                if k.startswith("flash_fwd")} != want_rec:
+            raise AssertionError(f"prefill bucket {b}: the capture recorded"
+                                 f" {recorded}, not {want_rec}")
+        rows[b] = dict(graph_ms=host["graph"], eager_ms=host["eager"],
+                       graph_device_ms=_kernel_ms(graph_call),
+                       eager_device_ms=_kernel_ms(eager_call),
+                       route=route, recorded=recorded)
+        r = rows[b]
+        print(f"prefill bucket {b} ({card}): captured graph "
+              f"{r['graph_ms']:.4f} ms, eager {r['eager_ms']:.4f} ms a "
+              f"prefill (host clock, median of {reps} turns); device time "
+              f"{r['graph_device_ms']:.4f} / {r['eager_device_ms']:.4f} ms;"
+              f" K4 on {route}, the capture recorded {recorded}; first "
+              f"token and K/V planes bit-equal to eager at "
+              f"{sorted({b // 2 + 1, b})} tokens", flush=True)
+    return rows
 
 
 def decode_step_times(sess, card, vocab, steps=20):
@@ -1174,13 +1277,11 @@ FLASH_TAGS = ("flash_fwd_kernel", "flash_fwd_tc_kernel",
               "flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel")
 
 
-def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14,
-                  what="bf16 training step"):
-    """Device time per kernel of one training step (``torch.profiler``;
-    kernel events only, so no time is counted twice), printed largest
-    first, with the device's idle share of an unprofiled step of
-    ``step_ms`` and the share of the kernels named by ``tags``; returns
-    the rows."""
+def _kernel_rows(fn, *args):
+    """``(rows, wall ms)`` of one call of ``fn(*args)`` under
+    ``torch.profiler``: ``(device ms, launches, CUDA function)`` per
+    kernel, largest first (kernel events only, so no time is counted
+    twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1188,7 +1289,7 @@ def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14,
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(x, y)
+        fn(*args)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -1204,6 +1305,37 @@ def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14,
         if us > 0:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
+    return rows, wall_ms
+
+
+def _kernel_ms(fn, *args):
+    """Device time (ms) of one call of ``fn(*args)``: its kernels' sum
+    under ``torch.profiler`` (0 where it reports none: not measured)."""
+    return sum(r[0] for r in _kernel_rows(fn, *args)[0])
+
+
+def _median_turns(fns, reps):
+    """Host ms a call of each of ``fns`` (name -> function), the median
+    of ``reps`` alternating turns, each ending in a synchronize."""
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: float(np.median(v)) for name, v in times.items()}
+
+
+def _profile_step(step, x, y, card, step_ms, tags=FLASH_TAGS, top=14,
+                  what="bf16 training step"):
+    """Device time per kernel of one training step (``torch.profiler``;
+    kernel events only, so no time is counted twice), printed largest
+    first, with the device's idle share of an unprofiled step of
+    ``step_ms`` and the share of the kernels named by ``tags``; returns
+    the rows."""
+    rows, wall_ms = _kernel_rows(step, x, y)
     total = sum(r[0] for r in rows)
     print(f"profile of one {what} ({card}): device time "
           f"{total:.3f} ms in {sum(r[1] for r in rows)} kernel launches "
@@ -1303,8 +1435,10 @@ def train_phase(seed, card):
         raise AssertionError("train -> decode: the decode path did not go "
                              "through flash_fwd alone")
     # the session was not warmed up: its first decode step captured the
-    # step's graph, whose warm-up ran the step once more on the card
-    want_routes = decode_routes(sess.prefill_buckets, [len(prompt)],
+    # step's graph, whose warm-up ran the step once more on the card, and
+    # its prefill captured the prompt's bucket, whose warm-up ran the
+    # prefill once more
+    want_routes = decode_routes(sess.prefill_buckets, [len(prompt)] * 2,
                                 steps + 1)
     if decode_routes_got != want_routes or prefills != 1:
         raise AssertionError(f"train -> decode launched flash_fwd by route "
@@ -1709,6 +1843,13 @@ CONV_CASES = [
     ("5x5_s2_24to40_15_res_emit", 32, 15, 15, 24, 40, 5, 2, 2, "res"),
 ]
 CONV_HEAD = "3x3_64to64_56_pro"
+# K1 alone at the serving shapes: ResNet-50's eval forward behind the
+# ModelServer at its smallest bucket, B=1 (B=32, its largest, is above), at
+# the head case and the last stage (7x7: 49 rows a launch at B=1)
+SERVING_CONV_CASES = [
+    ("3x3_64to64_56_pro_B1", 1, 56, 56, 64, 64, 3, 1, 1, "pro"),
+    ("3x3_512to512_7_pro_B1", 1, 7, 7, 512, 512, 3, 1, 1, "pro"),
+]
 CONV_KERNELS = ("fused_conv", "conv_bwd_dx", "conv_bwd_dw")
 # the conv kernels' routes (ops/fused_conv.conv_route): "tc" the bf16
 # tensor-core kernels (csrc/fused_conv_tc.cu, csrc/conv_bwd_tc.cu), "f32"
@@ -1856,7 +1997,8 @@ def conv_kernel_phase(seed):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 21)
     results = []
-    for case in CONV_CASES:
+    for case, kernels in [(c, CONV_KERNELS) for c in CONV_CASES] \
+            + [(c, ("fused_conv",)) for c in SERVING_CONV_CASES]:
         name = case[0]
         n, h, w, ci, co, k, stride, pad, kind, ho, wo = _conv_dims(case)
         res = kind == "res"
@@ -1911,7 +2053,7 @@ def conv_kernel_phase(seed):
                 "conv_bwd_dw": lambda: (fc.conv_bwd_dw(*bargs, route="simt",
                                                        **rkw),),
             }
-            for kernel in CONV_KERNELS:
+            for kernel in kernels:
                 launch, plain, names = calls[kernel]
                 before = _route_launches()
                 got, want = launch(), plain()
@@ -2412,6 +2554,25 @@ CONV_TAGS = ("fused_conv_fwd_kernel", "fused_conv_tc_kernel",
 RESNET_BATCHES = (32, 8, 16, (128, 64))
 
 
+def set_eval_statistics(net, x):
+    """One training-mode forward of ``x`` (no grad) with every BatchNorm
+    momentum at 0: each running statistic becomes this batch's, so an eval
+    forward of ``x`` folds the statistics that forward used. Returns its
+    logits."""
+    import incubator_mxnet_tpu_torch as mx
+
+    momenta = {m: m._momentum for m in net.modules()
+               if hasattr(m, "_momentum")}
+    try:
+        for m in momenta:
+            m._momentum = 0.0
+        with torch.no_grad(), mx.autograd.train_mode():
+            return net(x)
+    finally:
+        for m, v in momenta.items():
+            m._momentum = v
+
+
 def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
     """Drive ``net`` (``fused_resnet50_v1`` from ``main``; initialized on
     ``ctx``) through eval, the gradient oracle and the training entry
@@ -2496,17 +2657,8 @@ def resnet_phase(seed, card, net, ctx, hw=224, batches=RESNET_BATCHES):
     # that forward's logits (the same folded BatchNorm), and the logits of
     # the model with fused_conv_bn swapped for the plain versions
     x, _ = batch(b_eval)
-    momenta = {m: m._momentum for m in net.modules()
-               if hasattr(m, "_momentum")}
     _reset_conv_launches()
-    try:
-        for m in momenta:
-            m._momentum = 0.0
-        with torch.no_grad(), mx.autograd.train_mode():
-            train_logits = net(x)
-    finally:
-        for m, v in momenta.items():
-            m._momentum = v
+    train_logits = set_eval_statistics(net, x)
     with mx.autograd.pause():
         logits = net(x)
     eval_launches, eval_routes = _conv_launches(), _route_launches()
@@ -2624,6 +2776,506 @@ def resnet_main(seed, card):
         raise AssertionError("fused_resnet50_v1 runs 52 fused convs per "
                              "pass and has 161 trainable tensors and 106 "
                              "running statistics")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ModelServer phase: fused_resnet50_v1 behind serving.ModelServer, one CUDA
+# graph a batch bucket
+# ---------------------------------------------------------------------------
+SERVER_BUCKETS = (1, 2, 4, 8, 16, 32)
+# single-image requests and the client threads that send them
+SERVER_REQUESTS = 64
+SERVER_CLIENTS = 8
+# a served row against the same image's own B=1 eager forward, relative
+# L2: not bit-equal, since the Dense head may take another cuBLAS
+# algorithm at M=1 than at M=32 (a graph against eager on one batch is)
+SERVER_ROW_RTOL = 1e-5
+# open-loop Poisson traffic: the offered rates (requests/s) and seconds a
+# rate, per dtype
+SERVER_RATES = {"fp32": (100.0, 400.0, 1600.0),
+                "bf16": (200.0, 800.0, 3200.0)}
+SERVER_RATE_S = 3.0
+
+
+def open_loop(fire, rate_rps, duration_s, seed=0, join_timeout=120.0):
+    """Open-loop (Poisson) load: the harness of the JAX package's
+    ``benchmark/serving_bench.py`` (``open_loop``), copied. ``fire(i)``
+    starts request ``i`` and returns its Future; completion latency is
+    recorded from the Future's own done-callback (no waiter thread a
+    request). A backpressure refusal raises ``QueueFullError`` from
+    ``fire``. Returns offered/completed counts, rejected/shed/error counts
+    and the completed requests' latencies."""
+    import threading
+
+    from incubator_mxnet_tpu_torch.serving import (DeadlineExceededError,
+                                                   QueueFullError)
+
+    rs = np.random.RandomState(seed)
+    cv = threading.Condition()
+    lats, counts = [], {"rejected": 0, "shed": 0, "errors": 0}
+    outstanding = [0]
+
+    def record(obj, ts):
+        dt = time.perf_counter() - ts
+        try:
+            exc = obj.exception(0)         # done: never blocks
+        except Exception:                  # noqa: BLE001 — cancelled etc.
+            exc = RuntimeError("unresolved")
+        with cv:
+            if exc is None:
+                lats.append(dt)
+            elif isinstance(exc, DeadlineExceededError):
+                counts["shed"] += 1
+            else:
+                counts["errors"] += 1
+            outstanding[0] -= 1
+            cv.notify_all()
+
+    offered = 0
+    t0 = time.perf_counter()
+    next_t = rs.exponential(1.0 / rate_rps)
+    while True:
+        now = time.perf_counter() - t0
+        if now >= duration_s:
+            break
+        if now < next_t:
+            time.sleep(min(next_t - now, 0.005))
+            continue
+        next_t += rs.exponential(1.0 / rate_rps)
+        offered += 1
+        t_sub = time.perf_counter()
+        try:
+            obj = fire(offered - 1)
+        except QueueFullError:
+            counts["rejected"] += 1
+            continue
+        except DeadlineExceededError:
+            counts["shed"] += 1
+            continue
+        with cv:
+            outstanding[0] += 1
+        obj.add_done_callback(lambda o, ts=t_sub: record(o, ts))
+    deadline = time.perf_counter() + join_timeout
+    with cv:
+        while outstanding[0] > 0 and time.perf_counter() < deadline:
+            cv.wait(timeout=0.1)
+    wall = time.perf_counter() - t0
+    return {"offered": offered, "completed": len(lats),
+            "offered_rps": offered / duration_s,
+            "achieved_rps": len(lats) / wall, "lats": lats,
+            "duration_s": duration_s, **counts}
+
+
+def _pctl_ms(lats, p):
+    """The reference harness's percentile (``pctl``), in ms."""
+    if not lats:
+        return 0.0
+    return sorted(lats)[min(len(lats) - 1, int(p / 100.0 * len(lats)))] * 1e3
+
+
+class Unbatched:
+    """The same traffic without a server: one eager B=1 forward a request,
+    one at a time on one worker thread, behind a queue bounded as the
+    server's (``QueueFullError`` past ``max_queue``)."""
+
+    def __init__(self, forward, max_queue):
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._forward = forward
+        self._max = max_queue
+        self._waiting = 0
+        self._lock = threading.Lock()
+
+    def submit(self, x):
+        from incubator_mxnet_tpu_torch.serving import QueueFullError
+
+        with self._lock:
+            if self._waiting >= self._max:
+                raise QueueFullError("unbatched queue full", retry_after=0.0)
+            self._waiting += 1
+        fut = self._pool.submit(self._forward, x)
+        fut.add_done_callback(self._done)
+        return fut
+
+    def _done(self, _):
+        with self._lock:
+            self._waiting -= 1
+
+    def close(self):
+        self._pool.shutdown(wait=True)
+
+
+def _eager_rows(net, x, dev):
+    """``net``'s eval forward of the host batch ``x`` (cast to the net's
+    type, as the server's runner casts it), back on the host in fp32."""
+    import incubator_mxnet_tpu_torch as mx
+
+    dtype = next(net.parameters()).dtype
+    with torch.no_grad(), mx.autograd.pause():
+        return net(torch.as_tensor(x).to(dev, dtype)).float().cpu()
+
+
+def _memory_mark(dev):
+    """What is allocated and reserved now (after a collection and an
+    ``empty_cache``), the peak reset: the base of :func:`_memory_since`."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+
+
+def _memory_since(dev, mark):
+    """Bytes allocated and reserved above ``mark``, and the peak
+    allocation above it (a warm-up's graphs: their pools keep the
+    activations reserved)."""
+    torch.cuda.synchronize()
+    a0, r0 = mark
+    return dict(allocated=torch.cuda.memory_allocated(dev) - a0,
+                reserved=torch.cuda.memory_reserved(dev) - r0,
+                peak=torch.cuda.max_memory_allocated(dev) - a0)
+
+
+def _mib(mem):
+    return (f"{mem['reserved'] / 2**20:.1f} MiB reserved, "
+            f"{mem['allocated'] / 2**20:.1f} MiB allocated, peak "
+            f"{mem['peak'] / 2**20:.1f} MiB")
+
+
+def _check_server_launches(label, got, per_pass, batches, routes, route):
+    """K1 ``per_pass`` times an executed batch, all on ``route``, K2/K3
+    never (the server runs the eval forward)."""
+    _check_launches(label, got, per_pass, batches, 0, routes,
+                    {"fused_conv": route, "conv_bwd_dx": route,
+                     "conv_bwd_dw": route})
+
+
+def _serve_rows(srv, images, clients):
+    """``images`` as single-image requests from ``clients`` threads: the
+    rows in order, the batches and requests they took, host seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    m = srv.metrics
+    b0, q0 = m.batches, m.requests
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        futs = list(pool.map(srv.submit, images))
+    rows = np.stack([f.result(300) for f in futs])
+    return rows, m.batches - b0, m.requests - q0, time.perf_counter() - t0
+
+
+def _bucket_times(cache, net, dev, images, reps=5):
+    """Each bucket's full batch through its graph (the cache call: staging,
+    copy, replay, rows back) beside the eager eval forward of the same
+    batch (copy, forward, rows back): host ms (median of ``reps``
+    alternating turns) and device time (``torch.profiler``)."""
+    out = {}
+    for b in cache.buckets:
+        x = np.resize(images, (b,) + images.shape[1:])
+        fns = {"graph": lambda: cache(x),
+               "eager": lambda: _eager_rows(net, x, dev)}
+        host = _median_turns(fns, reps)
+        out[b] = dict(graph_ms=host["graph"], eager_ms=host["eager"],
+                      graph_device_ms=_kernel_ms(fns["graph"]),
+                      eager_device_ms=_kernel_ms(fns["eager"]))
+    return out
+
+
+def _open_loop_rows(cache, net, dev, images, rates, seconds, buckets, label):
+    """Open-loop Poisson traffic at each offered rate through a fresh
+    ``ModelServer`` over ``cache`` (a clean queue a rate; max_wait 2 ms,
+    the queue bounded at 4 x the largest bucket), then the same traffic
+    unbatched (``Unbatched``): requests/s, latency p50/p99, mean batch
+    occupancy, refusals."""
+    from incubator_mxnet_tpu_torch import serving
+
+    rows = []
+    for i, rate in enumerate(rates):
+        row = {"rate": rate}
+        srv = serving.ModelServer(cache, max_wait_ms=2.0,
+                                  max_queue=4 * buckets[-1],
+                                  name=f"{label}_r{i}")
+        b0, q0 = srv.metrics.batches, srv.metrics.requests
+        try:
+            res = open_loop(lambda j: srv.submit(images[j % len(images)]),
+                            rate, seconds, seed=i)
+        finally:
+            srv.drain(60)
+            srv.close()
+        batches = srv.metrics.batches - b0
+        row["batched"] = dict(
+            offered_rps=res["offered_rps"], achieved_rps=res["achieved_rps"],
+            p50_ms=_pctl_ms(res["lats"], 50), p99_ms=_pctl_ms(res["lats"], 99),
+            occupancy=(srv.metrics.requests - q0) / max(1, batches),
+            completed=res["completed"], rejected=res["rejected"],
+            errors=res["errors"])
+        unb = Unbatched(lambda x: _eager_rows(net, x[None], dev)[0],
+                        4 * buckets[-1])
+        try:
+            res = open_loop(lambda j: unb.submit(images[j % len(images)]),
+                            rate, seconds, seed=i)
+        finally:
+            unb.close()
+        row["unbatched"] = dict(
+            offered_rps=res["offered_rps"], achieved_rps=res["achieved_rps"],
+            p50_ms=_pctl_ms(res["lats"], 50), p99_ms=_pctl_ms(res["lats"], 99),
+            completed=res["completed"], rejected=res["rejected"],
+            errors=res["errors"])
+        if row["batched"]["errors"] or row["unbatched"]["errors"]:
+            raise AssertionError(f"open loop {label} at {rate} requests/s: "
+                                 f"errors {row}")
+        rows.append(row)
+        bt, ub = row["batched"], row["unbatched"]
+        print(f"open loop {label} at {rate:g} requests/s offered "
+              f"({seconds:g} s, Poisson): ModelServer {bt['achieved_rps']:.1f}"
+              f" requests/s, p50 {bt['p50_ms']:.3f} ms, p99 "
+              f"{bt['p99_ms']:.3f} ms, occupancy {bt['occupancy']:.2f}, "
+              f"refused {bt['rejected']} of {bt['completed'] + bt['rejected']}"
+              f"; unbatched (eager B=1) {ub['achieved_rps']:.1f} requests/s,"
+              f" p50 {ub['p50_ms']:.3f} ms, p99 {ub['p99_ms']:.3f} ms, "
+              f"refused {ub['rejected']} of "
+              f"{ub['completed'] + ub['rejected']}", flush=True)
+    return rows
+
+
+def model_server_phase(seed, card, net, ctx, hw=224,
+                       buckets=SERVER_BUCKETS, requests=SERVER_REQUESTS,
+                       clients=SERVER_CLIENTS, rates=SERVER_RATES,
+                       rate_s=SERVER_RATE_S):
+    """Serve ``net`` (``fused_resnet50_v1`` from ``main``, initialized on
+    ``ctx``) through ``serving.ModelServer``, as the module docstring's
+    ModelServer phase says; returns its numbers."""
+    import threading
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import serving
+
+    dev = ctx.torch_device()
+    per_pass = convs_per_pass(net)
+    feat = (3, hw, hw)
+    on_card = dev.type == "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 51)
+    set_eval_statistics(net, torch.rand((buckets[-1],) + feat,
+                                        generator=gen, device=dev))
+    rs = np.random.RandomState(seed + 52)
+    images = rs.rand(requests, *feat).astype(np.float32)
+    out = {"per_pass": per_pass}
+
+    # -- fp32 -----------------------------------------------------------------
+    route = conv_routes_expected(torch.float32)["fused_conv"]
+    # the six graphs with a memory pool each, for the footprint only
+    mark = _memory_mark(dev)
+    own = serving.BucketedExecutorCache.from_block(
+        net, ctx=ctx, buckets=buckets, share_pool=False)
+    own.warmup(feat, "float32")
+    own_mem = _memory_since(dev, mark)
+    del own
+    mark = _memory_mark(dev)
+    srv = serving.ModelServer(net, buckets=buckets, max_wait_ms=2.0,
+                              ctx=ctx, name="resnet50_fp32")
+    t0 = time.perf_counter()
+    srv.warmup(feat, "float32")
+    warm_s = time.perf_counter() - t0
+    shared_mem = _memory_since(dev, mark)
+    cache = srv._cache
+    want_captures = len(buckets) if on_card else 0
+    sigs = srv.compiled_signatures()
+    print(f"ModelServer fp32 ({card}): warm-up captured "
+          f"{srv.metrics.compiles} graphs in {warm_s:.2f} s ({sigs}); the "
+          f"graphs hold {_mib(shared_mem)} in one shared pool; "
+          f"{_mib(own_mem)} with a pool a graph", flush=True)
+    if sigs != [(b, feat, "float32") for b in buckets] \
+            or srv.metrics.compiles != want_captures:
+        raise AssertionError(f"warm-up: signatures {sigs}, "
+                             f"{srv.metrics.compiles} captures")
+    want_rec = {"fused_conv": per_pass, f"fused_conv_{route}": per_pass}
+    for key, ex in cache._execs.items():
+        rec = _counts_by_name(ex.graph.counted) if on_card else want_rec
+        if rec != want_rec:
+            raise AssertionError(f"bucket {key}: the capture recorded {rec},"
+                                 f" not {want_rec}")
+
+    # each bucket's replay against the eager forward of the same padded
+    # batch, bit for bit (b // 2 + 1 rows, the fewest the bucket takes:
+    # its padding rides)
+    for b in buckets:
+        n = b // 2 + 1 if b > 1 else 1
+        x = images[:n] if n <= requests else np.resize(images, (n,) + feat)
+        padded = np.zeros((b,) + feat, np.float32)
+        padded[:n] = x
+        got = torch.from_numpy(cache(x))
+        want = _eager_rows(net, padded, dev)[:n]
+        if not torch.equal(got, want):
+            raise AssertionError(f"bucket {b}: the graph's rows differ from "
+                                 f"the eager forward (max "
+                                 f"{(got - want).abs().max().item():.3e})")
+    print(f"ModelServer fp32: each bucket's replay bit-equal to the eager "
+          f"eval forward of the same padded batch ({list(buckets)})",
+          flush=True)
+
+    # traffic: single-image requests from client threads
+    _reset_conv_launches()
+    rows, batches, served, wall = _serve_rows(srv, images, clients)
+    launches, routes = _conv_launches(), _route_launches()
+    _check_server_launches("ModelServer fp32 traffic", launches, per_pass,
+                           batches, routes, route)
+    one = torch.cat([_eager_rows(net, x[None], dev) for x in images])
+    row_err = max(_rel_l2(torch.from_numpy(r), o) for r, o in zip(rows, one))
+    with mx.autograd.pause(), swap_convs(_plain_fused_conv_bn):
+        plain = torch.cat([_eager_rows(net, images[i:i + buckets[-1]], dev)
+                           for i in range(0, requests, buckets[-1])])
+    plain_err = _rel_l2(torch.from_numpy(rows), plain)
+    print(f"ModelServer fp32 traffic: {served} requests from {clients} "
+          f"threads in {batches} batches (occupancy "
+          f"{served / max(1, batches):.2f}) in {wall:.3f} s; worst row "
+          f"against its B=1 eager forward {row_err:.3e} (tol "
+          f"{SERVER_ROW_RTOL:g}), rows against the plain versions "
+          f"{plain_err:.3e} (tol {TOLS[torch.float32]:g}); captures after "
+          f"traffic {srv.metrics.compiles}", flush=True)
+    if rows.shape != (requests, net.output.weight.shape[0]) \
+            or not np.isfinite(rows).all() or served != requests \
+            or row_err > SERVER_ROW_RTOL or plain_err > TOLS[torch.float32] \
+            or srv.metrics.compiles != want_captures:
+        raise AssertionError("ModelServer fp32: rows, counts or captures "
+                             "wrong")
+
+    # backpressure and drain, through a second server over the same graphs
+    small = serving.ModelServer(cache, max_wait_ms=2.0, max_queue=4,
+                                name="resnet50_small_queue")
+    futs, refused = [], 0
+    for x in np.resize(images, (32,) + feat):
+        try:
+            futs.append(small.submit(x))
+        except serving.QueueFullError as e:
+            refused += 1
+            retry_after = e.retry_after
+    ready = small.healthz()["ready"]
+    drained = small.drain(60)
+    after = small.healthz()
+    small.close()
+    print(f"backpressure: a 32-request burst into max_queue=4: "
+          f"{refused} refused (QueueFullError, retry_after "
+          f"{retry_after if refused else 0:.4f} s), {len(futs)} answered; "
+          f"healthz ready {ready} before drain, {after['ready']} "
+          f"({after['state']}) after; clean drain {drained}", flush=True)
+    if not refused or not ready or after["ready"] or not drained \
+            or not all(f.done() and f.exception() is None for f in futs):
+        raise AssertionError("ModelServer: backpressure or drain wrong")
+
+    out["fp32"] = dict(memory=dict(shared=shared_mem, own=own_mem),
+                       warmup_s=warm_s,
+                       launches=launches, routes=routes, batches=batches,
+                       row_err=row_err, plain_err=plain_err,
+                       captures=srv.metrics.compiles,
+                       bucket_ms=_bucket_times(cache, net, dev, images),
+                       open_loop=_open_loop_rows(
+                           cache, net, dev, images, rates["fp32"], rate_s,
+                           buckets, "fp32"))
+    srv.drain(60)
+    srv.close()
+    del srv, cache, small
+    gc.collect()
+
+    # -- bf16 -----------------------------------------------------------------
+    # the fp32 forward on the bf16-rounded weights and inputs, then the net
+    # in bf16 (its graphs captured on a thread that never ran a kernel)
+    route = conv_routes_expected(torch.bfloat16)["fused_conv"]
+    net.cast("bfloat16").cast("float32")
+    images16 = torch.from_numpy(images).bfloat16().float().numpy()
+    ref = torch.cat([_eager_rows(net, images16[i:i + buckets[-1]], dev)
+                     for i in range(0, requests, buckets[-1])])
+    net.cast("bfloat16")
+    mark = _memory_mark(dev)
+    srv = serving.ModelServer(net, buckets=buckets, max_wait_ms=2.0,
+                              ctx=ctx, name="resnet50_bf16")
+    err = []
+    t0 = time.perf_counter()
+    warm = threading.Thread(target=lambda: err.append(
+        _capture_or_error(srv, feat)))
+    warm.start()
+    warm.join()
+    if err[0] is not None:
+        raise AssertionError(f"bf16 warm-up on a fresh thread: {err[0]}")
+    warm_s = time.perf_counter() - t0
+    mem16 = _memory_since(dev, mark)
+    cache = srv._cache
+    want_rec = {"fused_conv": per_pass, f"fused_conv_{route}": per_pass}
+    for key, ex in cache._execs.items():
+        rec = _counts_by_name(ex.graph.counted) if on_card else want_rec
+        if rec != want_rec:
+            raise AssertionError(f"bf16 bucket {key}: the capture recorded "
+                                 f"{rec}, not {want_rec}")
+    _reset_conv_launches()
+    rows, batches, served, wall = _serve_rows(srv, images16, clients)
+    launches, routes = _conv_launches(), _route_launches()
+    _check_server_launches("ModelServer bf16 traffic", launches, per_pass,
+                           batches, routes, route)
+    # held as resnet_bf16_forward_gate holds the bf16 forward: the served
+    # logits (the tensor-core K1) no farther from the fp32 forward than the
+    # same eager forward through the SIMT K1
+    gate = _rel_l2(torch.from_numpy(rows), ref)
+    with force_conv_route("simt"):
+        simt = torch.cat([_eager_rows(net, images16[i:i + buckets[-1]], dev)
+                          for i in range(0, requests, buckets[-1])])
+    simt_gate = _rel_l2(simt, ref)
+    ratio = gate / max(simt_gate, 1e-30)
+    print(f"ModelServer bf16 ({card}): warm-up {warm_s:.2f} s on a fresh "
+          f"thread, {srv.metrics.compiles} captures, the graphs hold "
+          f"{_mib(mem16)} in one shared pool; {served} requests in "
+          f"{batches} batches; relative L2 from the fp32 forward on the "
+          f"same bf16-rounded weights and inputs: served (tensor-core K1) "
+          f"{gate:.4e}, eager through the SIMT K1 {simt_gate:.4e}, ratio "
+          f"{ratio:.4f} (held <= {1 + FWD_GATE_SLACK:g})", flush=True)
+    if not np.isfinite(rows).all() or not math.isfinite(ratio) \
+            or ratio > 1 + FWD_GATE_SLACK \
+            or srv.metrics.compiles != want_captures:
+        raise AssertionError("ModelServer bf16: logits or captures wrong")
+    out["bf16"] = dict(memory=dict(shared=mem16), warmup_s=warm_s,
+                       launches=launches, routes=routes, batches=batches,
+                       gate=gate, simt_gate=simt_gate, ratio=ratio, captures=srv.metrics.compiles,
+                       bucket_ms=_bucket_times(cache, net, dev, images16),
+                       open_loop=_open_loop_rows(
+                           cache, net, dev, images16, rates["bf16"], rate_s,
+                           buckets, "bf16"))
+    srv.drain(60)
+    srv.close()
+    for dt in ("fp32", "bf16"):
+        for b, r in out[dt]["bucket_ms"].items():
+            print(f"ModelServer {dt} bucket {b} ({card}): graph "
+                  f"{r['graph_ms']:.4f} ms, eager {r['eager_ms']:.4f} ms a "
+                  f"batch (host clock, rows back on the host); device time "
+                  f"{r['graph_device_ms']:.4f} / {r['eager_device_ms']:.4f} "
+                  f"ms", flush=True)
+    return out
+
+
+def _capture_or_error(srv, feat):
+    """``srv.warmup`` (the caller runs it on a fresh thread); the error, or
+    None."""
+    try:
+        srv.warmup(feat, "float32")
+    except Exception as e:   # noqa: BLE001 — raised on the caller's thread
+        return e
+    return None
+
+
+def model_server_main(seed, card):
+    """The ModelServer phase on ``fused_resnet50_v1``: 1000 classes,
+    224x224, weights drawn from ``seed``."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_model
+
+    ctx = mx.gpu(0)
+    mx.random.seed(seed)
+    net = get_model("fused_resnet50_v1", classes=1000).initialize(
+        "xavier", ctx=ctx)
+    out = model_server_phase(seed, card, net, ctx)
+    if out["per_pass"] != 52:
+        raise AssertionError("fused_resnet50_v1 runs 52 fused convs a pass")
     return out
 
 
@@ -3397,7 +4049,7 @@ def graph_phase(seed, card, ctx, mlp_b=MLP_BATCH, gpt=("gpt_decoder_117m",
                 50257, 8, 256, {}), bert=("bert_12_768_12", 30522, 24, 128,
                                           {}), resnet_b=128, hw=224,
                 resnet_layers=None, k=None):
-    """The graph phase (the module docstring's phase 11): each row's
+    """The graph phase (the module docstring's phase 12): each row's
     ``SPMDTrainer.run_superstep`` over windows of distinct synthetic
     batches drawn from ``seed`` against K eager steps (``graph_row``), the
     gluon SuperStep on the MLP, and the fresh-thread capture. Sizes are
@@ -4269,6 +4921,8 @@ def main(argv=None) -> int:
     gc.collect()
     resnet = resnet_main(args.seed, card)
     gc.collect()
+    server = model_server_main(args.seed, card)
+    gc.collect()
     unfused = unfused_resnet_main(args.seed, card)
     gc.collect()
     mlp = mlp_phase(args.seed, card, mx.gpu(0))
@@ -4375,9 +5029,12 @@ def main(argv=None) -> int:
                                                       "fp32")):
             in_graph = graph["resnet50_fused"]["launches"].get(
                 f"{name}_{route}", 0)
+            served_by = sum(server[dt]["routes"][name, route]
+                            for dt in ("fp32", "bf16"))
             entry = _entry(name if route == "simt" else f"{name}_{route}",
                            src + source, conv_ref + line,
-                           resnet["routes"][name, route] + in_graph,
+                           resnet["routes"][name, route] + in_graph
+                           + served_by,
                            [r for r in conv if r["kernel"] == name
                             and r["route"] == route], CONV_HEAD, dtype)
             entry["kernel"] = fn
@@ -4391,6 +5048,7 @@ def main(argv=None) -> int:
             if name == "fused_conv":
                 entry["launches_by_path"]["resnet_eval"] = \
                     resnet["eval_routes"][name, route]
+                entry["launches_by_path"]["model_server"] = served_by
             record["kernels"].append(entry)
     rows = imperative["rows"]
     head = rows[RTC_HEAD]
@@ -4428,7 +5086,15 @@ def main(argv=None) -> int:
                   for row, r in graph.items() if isinstance(r, dict)
                   and "graph_ms" in r},
         "decode_step": {k: served["step_times"][k] for k in (
-            "graph_ms", "eager_ms", "graph_device_ms", "eager_device_ms")}}),
+            "graph_ms", "eager_ms", "graph_device_ms", "eager_device_ms")},
+        "prefill": {b: {k: r[k] for k in ("graph_ms", "eager_ms",
+                                          "graph_device_ms",
+                                          "eager_device_ms")}
+                    for b, r in served["prefill"].items()},
+        "ttft_ms": served["stats"]["ttft_ms"],
+        "model_server": {dt: {k: server[dt][k] for k in (
+            "memory", "warmup_s", "bucket_ms", "open_loop")}
+            for dt in ("fp32", "bf16")}}),
         flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

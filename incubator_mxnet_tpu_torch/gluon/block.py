@@ -177,6 +177,74 @@ class Block(torch.nn.Module):
             p.grad = None
         return self
 
+    # -- serialization --------------------------------------------------------
+    def save_parameters(self, filename: str) -> None:
+        """Save every parameter under its structural name with
+        ``mx.nd.save`` (reference ``Block.save_parameters``; the JAX
+        package writes the same container, so either package loads the
+        other's file). A parameter still waiting for its shape is left
+        out, as the reference leaves out one with no data."""
+        from ..ndarray import ndarray as _nd
+
+        _nd.save(filename, {n: NDArray(p.detach())
+                            for n, p in self.named_parameters()
+                            if p.device.type != "meta" and 0 not in p.shape})
+
+    def load_parameters(self, filename: str, ctx: Optional[Context] = None,
+                        allow_missing: bool = False,
+                        ignore_extra: bool = False) -> "Block":
+        """Load a ``save_parameters`` file (reference
+        ``Block.load_parameters``). Each value takes its parameter's type;
+        a drawn parameter is written in place (same tensor and address, so
+        a trainer or a captured graph that holds it sees the new values),
+        one not drawn yet (or waiting for its shape) is placed on ``ctx``
+        (default ``gpu(0)``). A missing parameter raises unless
+        ``allow_missing``, an unknown name unless ``ignore_extra``."""
+        from ..device import cpu
+        from ..ndarray import ndarray as _nd
+
+        loaded = {k: v._data for k, v in _nd.load(filename,
+                                                 ctx=cpu()).items()}
+        return self._load_parameters_dict(loaded, filename, ctx,
+                                          allow_missing, ignore_extra)
+
+    def _load_parameters_dict(self, loaded, source: str = "<dict>",
+                  ctx: Optional[Context] = None, allow_missing: bool = False,
+                  ignore_extra: bool = False) -> "Block":
+        """:meth:`load_parameters` over an in-memory ``{name: tensor}``
+        dict."""
+        params = dict(self.named_parameters())
+        for name, p in params.items():
+            if name not in loaded:
+                if not allow_missing:
+                    raise KeyError(
+                        f"parameter {name} missing in {source}; available:"
+                        f" {sorted(loaded)[:8]}...")
+                continue
+            v = torch.as_tensor(loaded[name])
+            if v.dim() != p.dim() or any(d and d != s for d, s in
+                                         zip(p.shape, v.shape)):
+                raise ValueError(f"parameter {name}: declared shape "
+                                 f"{tuple(p.shape)} does not match saved "
+                                 f"shape {tuple(v.shape)}")
+            if p.device.type == "meta" or 0 in p.shape:
+                dev = resolve(ctx) if p.device.type == "meta" else p.device
+                self.set_param(name, v.to(device=dev, dtype=p.dtype))
+            else:
+                with torch.no_grad():
+                    p.copy_(v)
+        for mod in self.modules():
+            if isinstance(mod, Block) and mod._shapes_pending:
+                mod._shapes_pending = any(
+                    0 in q.shape for q in mod._parameters.values()
+                    if q is not None)
+        if not ignore_extra:
+            extra = set(loaded) - set(params)
+            if extra:
+                raise KeyError(f"{source} has extra parameters "
+                               f"{sorted(extra)[:8]}")
+        return self
+
     @property
     def device(self) -> torch.device:
         """Device of the parameters (``meta`` before initialization)."""

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.tensor import wrap_index
 from .block import Block
 
 __all__ = ["L1Loss", "L2Loss", "Loss", "SoftmaxCELoss",
@@ -75,8 +76,12 @@ class SoftmaxCrossEntropyLoss(Loss):
         logp = pred.float() if self._from_logits \
             else F.log_softmax(pred.float(), dim=axis)
         if self._sparse:
-            idx = label.to(torch.int64).unsqueeze(axis)
-            loss = -torch.gather(logp, axis, idx).squeeze(axis)
+            # a label in [-n, -1] counts from the end, one outside [-n, n)
+            # gives a NaN loss, as jnp.take_along_axis reads it
+            idx, outside = wrap_index(label.unsqueeze(axis),
+                                      logp.shape[axis])
+            loss = -torch.gather(logp, axis, idx).masked_fill(
+                outside, float("nan")).squeeze(axis)
         else:
             loss = -(logp * label.float()).sum(dim=axis)
         loss = _apply_weighting(loss, self._weight, sample_weight)

@@ -45,6 +45,7 @@ from ..base import numpy_dtype, resolve_dtype
 from ..config import is_naive_engine
 from ..device import Context, resolve
 from ..ops.registry import get as get_op
+from ..ops.tensor import _index_along
 
 __all__ = ["NDArray", "arange", "array", "as_nd", "empty", "eye", "full",
            "invoke", "invoke_op", "load", "ones", "ones_like", "save",
@@ -388,7 +389,7 @@ class NDArray:
     # -- indexing ----------------------------------------------------------
     def __getitem__(self, key) -> "NDArray":
         key = _convert_index(key)
-        return invoke(lambda x: x[key], [self], name="getitem")
+        return invoke(lambda x: _getitem(x, key), [self], name="getitem")
 
     def __setitem__(self, key, value) -> None:
         """Write ``value`` at ``key`` into a fresh copy and rebind to it
@@ -397,7 +398,15 @@ class NDArray:
         new = self._data.detach().clone()
         if isinstance(value, NDArray):
             value = value._data.detach()
-        new[key] = torch.as_tensor(value, dtype=new.dtype, device=new.device)
+        value = torch.as_tensor(value, dtype=new.dtype, device=new.device)
+        if _negative_steps(key, new.dim()) is None:
+            new[key] = value
+        else:
+            # the flat positions the key selects, in the key's order
+            flat = torch.arange(new.numel(), device=new.device)
+            at = _getitem(flat.view(new.shape), key)
+            new.view(-1)[at.reshape(-1)] = \
+                value.broadcast_to(at.shape).reshape(-1)
         self._data = new
         if self._grad is not None:
             self._make_variable()
@@ -573,6 +582,52 @@ class NDArray:
     def __array__(self, dtype=None, copy=None):
         a = self.asnumpy()
         return a.astype(dtype) if dtype is not None else a
+
+
+def _key_width(part) -> int:
+    """The input dims one part of an index key consumes."""
+    if part is None:
+        return 0
+    if isinstance(part, torch.Tensor) and part.dtype == torch.bool:
+        return part.dim()
+    if isinstance(part, _np.ndarray) and part.dtype == bool:
+        return part.ndim
+    return 1
+
+
+def _negative_steps(key, ndim):
+    """None if no slice of ``key`` has a negative step; else ``({input
+    dim: slice}, key)`` with those slices taken out of the key (each
+    replaced by a full slice, which moves no dim)."""
+    parts = list(key) if isinstance(key, tuple) else [key]
+    if not any(isinstance(p, slice) and p.step is not None and p.step < 0
+               for p in parts):
+        return None
+    ell = [i for i, p in enumerate(parts) if p is Ellipsis]
+    if ell:
+        fill = ndim - sum(_key_width(p) for p in parts if p is not Ellipsis)
+        parts[ell[0]:ell[0] + 1] = [slice(None)] * fill
+    steps, rest, dim = {}, [], 0
+    for p in parts:
+        if isinstance(p, slice) and p.step is not None and p.step < 0:
+            steps[dim] = p
+            p = slice(None)
+        rest.append(p)
+        dim += _key_width(p)
+    return steps, tuple(rest)
+
+
+def _getitem(x: torch.Tensor, key) -> torch.Tensor:
+    """``x[key]`` with numpy's meaning, negative slice steps included:
+    torch refuses those, so each is taken first along its own dim
+    (``ops.tensor``'s ``slice`` does the same), the rest of the key
+    after."""
+    split = _negative_steps(key, x.dim())
+    if split is not None:
+        steps, key = split
+        for dim, s in steps.items():
+            x = _index_along(x, dim, s.start, s.stop, s.step)
+    return x[key]
 
 
 def _convert_index(key):

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from .registry import register
+from .tensor import gather_fill, wrap_index
 
 __all__ = ["activation", "batch_norm", "convolution", "dropout",
            "embedding", "fully_connected", "layer_norm", "log_softmax",
@@ -79,8 +80,13 @@ def layer_norm(x, gamma, beta, eps=1e-5):
 
 
 def embedding(indices, weight):
-    """Rows of ``weight`` at integer ``indices``."""
-    return F.embedding(indices.long(), weight)
+    """Rows of ``weight`` at ``indices`` (truncated to integers), as
+    ``jnp.take(weight, indices, axis=0)``: an index in ``[-n, -1]`` counts
+    from the end, a row outside ``[-n, n)`` is NaN (a padding id of -1
+    reads the last row, and no index leaves the table)."""
+    idx, outside = wrap_index(indices, weight.shape[0])
+    return F.embedding(idx, weight).masked_fill(outside.unsqueeze(-1),
+                                                gather_fill(weight.dtype))
 
 
 def _gelu(x):

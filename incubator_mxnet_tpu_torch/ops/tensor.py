@@ -100,7 +100,9 @@ def clip(x, a_min=None, a_max=None):
 
 # -- reductions --------------------------------------------------------------
 def _axes(x, axis, exclude=False):
-    """``axis`` (None, int or tuple) as a tuple of non-negative dims."""
+    """``axis`` (None, int or tuple) as a tuple of non-negative dims; an
+    empty tuple or list reduces nothing (jnp's meaning; MXNet's own
+    ``axis=()`` reduced every axis)."""
     if axis is None:
         return tuple(range(x.dim()))
     axes = (axis,) if isinstance(axis, int) else tuple(axis)
@@ -114,16 +116,35 @@ def _acc_dtype(x):
     return torch.float32 if x.dtype in _LOW_PRECISION else None
 
 
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+
+def _int_acc_dtype(x):
+    """The type jnp sums and multiplies an integer or bool array in: a
+    narrow signed integer or bool widens to int32, a narrow unsigned one
+    to uint32; int32 stays (and int64, which only a caller outside
+    ``NDArray`` passes)."""
+    if x.dtype in _UNSIGNED:
+        return torch.uint32
+    return torch.int64 if x.dtype == torch.int64 else torch.int32
+
+
 def _sum(x, axes, keepdims):
+    if not axes:
+        return x if x.is_floating_point() else x.to(_int_acc_dtype(x))
     acc = _acc_dtype(x)
     if acc is not None:
         return torch.sum(x, dim=axes, keepdim=keepdims, dtype=acc).to(x.dtype)
+    if not x.is_floating_point():
+        return torch.sum(x, dim=axes, keepdim=keepdims).to(_int_acc_dtype(x))
     return torch.sum(x, dim=axes, keepdim=keepdims)
 
 
 def _mean(x, axes, keepdims):
     if not x.is_floating_point():
         x = x.float()                    # jnp.mean of ints is float32
+    if not axes:
+        return x
     acc = _acc_dtype(x)
     if acc is not None:
         return torch.mean(x.to(acc), dim=axes, keepdim=keepdims).to(x.dtype)
@@ -132,6 +153,13 @@ def _mean(x, axes, keepdims):
 
 def _prod(x, axes, keepdims):
     acc = _acc_dtype(x)
+    if acc is None and not x.is_floating_point():
+        # torch multiplies integers in int64; the product wraps in the
+        # 32-bit type as jnp's does
+        out = x.to(torch.int64)
+        for a in sorted(axes, reverse=True):
+            out = torch.prod(out, dim=a, keepdim=keepdims)
+        return out.to(_int_acc_dtype(x))
     out = x if acc is None else x.to(acc)
     for a in sorted(axes, reverse=True):
         out = torch.prod(out, dim=a, keepdim=keepdims)
@@ -325,16 +353,27 @@ def pick(x, index, axis=-1, keepdims=False):
     value of a signed integer type, the largest of an unsigned one. The
     gather reads a clamped index, so no read leaves the array."""
     axis %= x.dim()
-    n = x.shape[axis]
-    idx = torch.unsqueeze(index.long(), axis)
-    out_of_range = (idx < -n) | (idx >= n)
-    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    idx, out_of_range = wrap_index(torch.unsqueeze(index, axis),
+                                   x.shape[axis])
     out = torch.take_along_dim(x, idx, dim=axis)
-    out = out.masked_fill(out_of_range, _pick_fill(x.dtype))
+    out = out.masked_fill(out_of_range, gather_fill(x.dtype))
     return out if keepdims else torch.squeeze(out, axis)
 
 
-def _pick_fill(dtype):
+def wrap_index(index, n):
+    """``(idx, outside)`` for a gather over an axis of ``n``: ``index``
+    truncated to integers, an index in ``[-n, -1]`` counted from the end,
+    and clamped into ``[0, n)`` (no read leaves the array; on the card an
+    out-of-range gather is a device-side assert that ends the CUDA
+    context), and where it lay outside ``[-n, n)``: the positions whose
+    result takes :func:`gather_fill`, as ``jnp.take`` and
+    ``jnp.take_along_axis`` read them."""
+    idx = index.long()
+    outside = (idx < -n) | (idx >= n)
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1), outside
+
+
+def gather_fill(dtype):
     """What ``jnp.take_along_axis`` reads outside the array."""
     if dtype.is_floating_point or dtype.is_complex:
         return float("nan")

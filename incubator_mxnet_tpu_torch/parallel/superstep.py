@@ -37,6 +37,7 @@ generators and raises: it never turns into the eager loop.
 from __future__ import annotations
 
 import contextlib
+import threading
 from collections import OrderedDict
 from typing import Any, Callable, List, Sequence
 
@@ -190,9 +191,15 @@ class StepGraph:
         return self.outputs
 
 
+#: one capture (and its warm-up) at a time in the process: they all run
+#: on the device's one side stream, whichever thread asks
+_capture_lock = threading.Lock()
+
+
 def capture_steps(body: Callable[[int], torch.Tensor], k: int,
                   state: Sequence[torch.Tensor], device: torch.device,
-                  capture_error_mode: str = "global") -> StepGraph:
+                  capture_error_mode: str = "global",
+                  pool=None) -> StepGraph:
     """Capture ``body(0) ... body(k-1)`` in one CUDA graph.
 
     ``body(i)`` runs step ``i`` on the engine's static buffers and
@@ -203,26 +210,29 @@ def capture_steps(body: Callable[[int], torch.Tensor], k: int,
     count). The capture runs nothing and counts nothing; the caller
     replays. On a failure the state goes back too, and the error is
     raised: call it inside :func:`dispatch`, which puts back the
-    generators."""
+    generators. ``pool`` (``torch.cuda.graph_pool_handle()``) lets graphs
+    share one memory pool: safe when each replay's outputs are consumed
+    before another graph of the pool replays."""
     device = torch.device(device)
     saved = [t.detach().clone() for t in state]
     reserved = _random.reserve_keys(device)
     side = side_stream(device)
     try:
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            body(0)
-        torch.cuda.current_stream(device).wait_stream(side)
-        _put_back(state, saved)
-        _random.rollback_keys(reserved)
-        graph = torch.cuda.CUDAGraph()
-        gens = _random.generators_of(device)
-        for g in gens:
-            graph.register_generator_state(g)
-        with _launches.recording(side) as counted, \
-                torch.cuda.graph(graph, stream=side,
-                                 capture_error_mode=capture_error_mode):
-            outputs = [body(i) for i in range(k)]
+        with _capture_lock:
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                body(0)
+            torch.cuda.current_stream(device).wait_stream(side)
+            _put_back(state, saved)
+            _random.rollback_keys(reserved)
+            graph = torch.cuda.CUDAGraph()
+            gens = _random.generators_of(device)
+            for g in gens:
+                graph.register_generator_state(g)
+            with _launches.recording(side) as counted, \
+                    torch.cuda.graph(graph, pool=pool, stream=side,
+                                     capture_error_mode=capture_error_mode):
+                outputs = [body(i) for i in range(k)]
     except BaseException:
         torch.cuda.synchronize(device)
         _put_back(state, saved)

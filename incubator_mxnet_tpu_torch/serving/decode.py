@@ -31,12 +31,20 @@ slot, reading static ``tokens`` and ``cache_len`` buffers that each step
 fills from the host mirrors before its replay, and writing the next tokens
 into a static output; the KV cache planes already sit at fixed addresses.
 A step then costs one ``graph.replay()`` instead of some hundreds of
-launches from the host. Prefill stays eager (one forward a prompt, its
-length bucketed). On the CPU the step runs eagerly.
+launches from the host.
 
-Not ported yet: persistent artifacts, weight hot-swap, ``from_checkpoint``,
-trace spans and telemetry export. ``warmup`` runs each prefill bucket once
-and captures the decode step.
+**Prefill is one CUDA graph per prompt bucket**, through the batch tier's
+``BucketedExecutorCache(pass_count=True, depad=False)`` as in the JAX
+package: the prompt's true length rides a static int32 device scalar, so
+one graph serves every length of its bucket, and the greedy read of the
+last valid position indexes with it on the device. The join (the copy of
+the graph's static K/V planes into the slot's cache range) stays eager
+under the session's lock: two copies a prefill, made before the next
+replay can overwrite the planes. On the CPU prefill and step run eagerly.
+
+Not ported yet: persistent artifacts, weight hot-swap, trace spans and
+telemetry export. ``warmup`` captures every prefill bucket and the decode
+step.
 """
 
 from __future__ import annotations
@@ -55,8 +63,8 @@ from ..config import config
 from ..device import Context, resolve
 from ..parallel import superstep
 from .batcher import DeadlineExceededError, QueueFullError, ServerClosedError
-from .executor_cache import BucketPolicy
-from .metrics import DecodeMetrics
+from .executor_cache import BucketedExecutorCache, pure_method_runner
+from .metrics import DecodeMetrics, ServingMetrics
 
 __all__ = ["DecodeHandle", "DecodeSession", "KVCache"]
 
@@ -249,7 +257,12 @@ class DecodeSession:
         if bad:
             raise ValueError(f"prefill buckets {bad} exceed max_len="
                              f"{self.max_len}")
-        self._buckets = BucketPolicy(buckets)
+        self._run, params = pure_method_runner(block)
+        self._prefill_cache = BucketedExecutorCache(
+            self._prefill_apply, params, buckets=buckets, ctx=ctx,
+            name=f"{self.name}.prefill",
+            metrics=ServingMetrics(f"{self.name}.prefill"),
+            pass_count=True, depad=False)
         self._kv = KVCache(block.num_layers, self.max_slots, block.num_heads,
                            self.max_len, block.head_dim, dtype=param.dtype,
                            device=self.device)
@@ -263,7 +276,8 @@ class DecodeSession:
             if self.device.type == "cuda" else None
         self._step_ema: Optional[float] = None
         # serializes device work on the cache: the scheduler's prefills
-        # and steps, and a client's warmup()
+        # (and their joins, which read the prefill graph's static
+        # outputs) and steps, and a client's warmup()
         self._exec_lock = threading.Lock()
 
         # host mirrors of the device cache state — fully determined by
@@ -280,15 +294,36 @@ class DecodeSession:
             daemon=True)
         self._worker.start()
 
+    # -- construction from a checkpoint ---------------------------------------
+    @classmethod
+    def from_checkpoint(cls, block, params_path: str, ctx=None,
+                        **kwargs) -> "DecodeSession":
+        """Load ``params_path`` (an ``mx.nd.save`` checkpoint, as
+        ``Block.save_parameters`` writes) into ``block`` on ``ctx`` and
+        serve decode from it; the loader is shared with
+        ``ModelServer.from_checkpoint`` (``load_block_checkpoint``)."""
+        from .server import load_block_checkpoint
+
+        load_block_checkpoint(block, params_path, ctx=ctx)
+        return cls(block, ctx=ctx, **kwargs)
+
     # -- device work ----------------------------------------------------------
-    def _prefill(self, prompt: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor,
-                                                   torch.Tensor]:
-        """(first greedy token (device scalar), k/v planes [L, H, Lb, D])
-        of one prompt padded to its bucket."""
-        n = int(prompt.shape[0])
-        tokens = torch.from_numpy(self._buckets.pad(prompt)).to(self.device)
-        logits, k, v = self._block.prefill(tokens[None])
-        return torch.argmax(logits[0, n - 1]), k[:, 0], v[:, 0]
+    def _prefill_apply(self, tokens: torch.Tensor,
+                       n: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """(first greedy token (int32 device scalar), k/v planes [L, H, Lb,
+        D]) of one prompt padded to its bucket ``Lb``; ``n`` is the true
+        length as an int32 device scalar, so the greedy read of the last
+        valid position neither synchronizes nor needs a graph per
+        length."""
+        logits, k, v = self._run(self._block.prefill, tokens[None])
+        last = logits[0].index_select(0, (n - 1).long().view(1))[0]
+        return torch.argmax(last).to(torch.int32), k[:, 0], v[:, 0]
+
+    def _prefill(self, prompt: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """``_prefill_apply`` of one prompt through the prefill cache: on
+        a CUDA device one replay of its bucket's graph, whose static
+        outputs the caller consumes under ``_exec_lock``."""
+        return self._prefill_cache(prompt)
 
     def _decode_step(self, tokens: torch.Tensor,
                      cache_len: torch.Tensor) -> torch.Tensor:
@@ -319,16 +354,15 @@ class DecodeSession:
         return lambda i: self._decode_step(*static)
 
     def warmup(self) -> None:
-        """Run every prefill bucket and one decode step ahead of traffic,
-        so the first requests pay no one-time costs (the kernel library
-        build and load, allocator growth, library handles, the capture of
-        the decode step's CUDA graph). The decode step reuses the current
-        host mirrors, so it rewrites exactly what the next real step will
-        write: it is harmless while sequences are live."""
+        """Capture every prefill bucket's graph and the decode step's
+        ahead of traffic, so the first requests pay no one-time costs (the
+        kernel library build and load, allocator growth, library handles,
+        the captures). The decode step reuses the current host mirrors, so
+        it rewrites exactly what the next real step will write: it is
+        harmless while sequences are live."""
         t0 = time.perf_counter()
         with self._exec_lock:
-            for b in self._buckets.buckets:
-                self._prefill(np.zeros((b,), np.int32))
+            self._prefill_cache.warmup((), "int32")
             with self._cv:
                 cache_len = self._cache_len.copy()
                 tokens = self._tokens.copy()
@@ -348,10 +382,11 @@ class DecodeSession:
         n = arr.shape[0]
         if n < 1:
             raise ValueError("empty prompt")
-        if n > self._buckets.max_batch_size:
+        if n > self._prefill_cache.max_batch_size:
             raise ValueError(
                 f"prompt of {n} tokens exceeds the largest prefill bucket "
-                f"{self._buckets.max_batch_size}; raise prefill_buckets=")
+                f"{self._prefill_cache.max_batch_size}; raise "
+                "prefill_buckets=")
         if n >= self.max_len:
             raise ValueError(f"prompt of {n} tokens leaves no cache room "
                              f"(max_len={self.max_len})")
@@ -622,11 +657,13 @@ class DecodeSession:
 
     @property
     def prefill_buckets(self) -> Tuple[int, ...]:
-        return self._buckets.buckets
+        return self._prefill_cache.buckets
 
     def stats(self) -> dict:
         snap = self.metrics.snapshot()
-        snap["prefill_buckets"] = list(self._buckets.buckets)
+        snap["prefill_buckets"] = list(self._prefill_cache.buckets)
+        snap["prefill_cache"] = self._prefill_cache.metrics.snapshot()[
+            "executor_cache"]
         snap["warmup_seconds"] = self._warmup_seconds
         snap["max_len"] = self.max_len
         if self._step_ema is not None:

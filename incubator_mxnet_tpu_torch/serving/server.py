@@ -1,0 +1,251 @@
+"""ModelServer: the serving front door over the batcher and the executor
+cache.
+
+Counterpart of the JAX package's ``serving/server.py`` (the MXNet Model
+Server / ``Module.predict`` capability). A server owns one model end to
+end: load it (a live gluon Block, a prebuilt ``BucketedExecutorCache``, or
+a ``save_parameters`` checkpoint), capture one CUDA graph per batch bucket
+(``warmup``), dispatch traffic through the dynamic batcher's worker
+thread, and wind down (graceful ``drain`` with a forced close past its
+timeout, or an immediate ``close``).
+
+Usage::
+
+    import incubator_mxnet_tpu_torch as mx
+
+    net = mx.gluon.nn.Dense(10, in_units=784).initialize(ctx=mx.gpu(0))
+    with mx.serving.ModelServer(net, max_wait_ms=2.0) as srv:
+        srv.warmup((784,), "float32")
+        probs = srv.submit(example).result()   # one example, no batch axis
+        print(srv.stats()["latency_ms"]["p99"])
+
+Not ported yet: ``from_exported`` (it waits for hybridize/export), the
+sharded-checkpoint reader and the native C reader of
+``load_block_checkpoint``, weight hot-swap (``publish_weights``) and the
+persistent artifacts; the telemetry spans, the health registry and the
+profiler scopes wait for the telemetry port.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from concurrent.futures import Future
+from typing import Optional, Sequence, Tuple
+
+from ..config import config
+from ..device import Context
+from .batcher import (DeadlineExceededError, DynamicBatcher, QueueFullError,
+                      ServerClosedError)
+from .executor_cache import DEFAULT_BUCKETS, BucketedExecutorCache
+from .metrics import ServingMetrics
+
+__all__ = ["DeadlineExceededError", "ModelServer", "QueueFullError",
+           "ServerClosedError", "load_block_checkpoint"]
+
+logger = logging.getLogger("mxtpu_torch.serving")
+
+
+def load_block_checkpoint(block, params_path: str,
+                          ctx: Optional[Context] = None,
+                          use_native: Optional[bool] = None):
+    """Load ``params_path`` into ``block`` on ``ctx`` (default ``gpu(0)``):
+    the loader of every serving front door (``ModelServer.from_checkpoint``
+    and ``DecodeSession.from_checkpoint``). ``params_path`` is an
+    ``mx.nd.save`` checkpoint as ``Block.save_parameters`` writes it (in
+    either package), read by ``nd.load``. A sharded training checkpoint
+    (``{prefix}.manifest.json``) and the native C reader
+    (``use_native=True``) raise ``NotImplementedError``: they wait for the
+    sharded checkpoints (queue 1 item 10) and the native C library (item
+    12) of the port."""
+    if params_path.endswith(".manifest.json") \
+            or os.path.exists(params_path + ".manifest.json"):
+        raise NotImplementedError(
+            "sharded training checkpoints are not ported yet (ROADMAP "
+            "queue 1 item 10): save_parameters() a dense checkpoint")
+    if use_native:
+        raise NotImplementedError(
+            "the native C checkpoint reader is not ported yet (ROADMAP "
+            "queue 1 item 12): load through nd.load (use_native=None)")
+    return block.load_parameters(params_path, ctx=ctx)
+
+
+class ModelServer:
+    """Serve one model with dynamic batching over one CUDA graph a batch
+    bucket.
+
+    ``model`` is a gluon Block (parameters initialized on ``ctx``, default
+    ``gpu(0)``; pass ``mx.cpu()`` to serve eagerly on the CPU) or a prebuilt
+    :class:`BucketedExecutorCache`, which fixes the buckets and the device
+    (``buckets=``/``ctx=`` are then refused). ``max_batch_size`` defaults
+    to the largest bucket and may not exceed it (a flushed batch must fit
+    the biggest graph). ``deadline_ms`` (default
+    ``MXTPU_SERVING_DEADLINE_MS``; 0 disables) sheds requests that aged
+    past it while queued.
+    """
+
+    def __init__(self, model, buckets: Optional[Sequence[int]] = None,
+                 max_batch_size: Optional[int] = None,
+                 max_wait_ms: float = 5.0, max_queue: int = 64,
+                 name: Optional[str] = None,
+                 deadline_ms: Optional[float] = None,
+                 ctx: Optional[Context] = None):
+        if isinstance(model, BucketedExecutorCache):
+            if buckets is not None or ctx is not None:
+                raise ValueError(
+                    "buckets/ctx are fixed by the prebuilt "
+                    "BucketedExecutorCache; configure them there")
+            self._cache = model
+            name = name or model.name
+        else:
+            name = name or (getattr(model, "name", "") or "model")
+            self._cache = BucketedExecutorCache.from_block(
+                model, ctx=ctx,
+                buckets=DEFAULT_BUCKETS if buckets is None else buckets,
+                name=name, metrics=ServingMetrics(name))
+        self.name = name
+        self.metrics: ServingMetrics = self._cache.metrics
+        if max_batch_size is None:
+            max_batch_size = self._cache.max_batch_size
+        if max_batch_size > self._cache.max_batch_size:
+            raise ValueError(
+                f"max_batch_size={max_batch_size} exceeds the largest "
+                f"bucket {self._cache.max_batch_size}")
+        if deadline_ms is None:
+            deadline_ms = float(config.get("MXTPU_SERVING_DEADLINE_MS"))
+        self._batcher = DynamicBatcher(
+            self._cache, max_batch_size=max_batch_size,
+            max_wait_ms=max_wait_ms, max_queue=max_queue,
+            metrics=self.metrics, name=name, deadline_ms=deadline_ms)
+        self._maintenance = 0          # healthz unready while > 0
+        self._maintenance_lock = threading.Lock()
+
+    @classmethod
+    def from_checkpoint(cls, block, params_path: str,
+                        ctx: Optional[Context] = None,
+                        use_native: Optional[bool] = None,
+                        **kwargs) -> "ModelServer":
+        """Load ``params_path`` into ``block`` on ``ctx``
+        (:func:`load_block_checkpoint`) and serve it there."""
+        load_block_checkpoint(block, params_path, ctx=ctx,
+                              use_native=use_native)
+        return cls(block, ctx=ctx, **kwargs)
+
+    @classmethod
+    def from_exported(cls, path: str, ctx=None, **kwargs) -> "ModelServer":
+        """Serve ``export_for_serving`` artifacts: not ported yet."""
+        raise NotImplementedError(
+            "ModelServer.from_exported waits for hybridize/export (ROADMAP "
+            "queue 1 item 6); serve the Block itself or from_checkpoint()")
+
+    # -- dispatch -------------------------------------------------------------
+    def submit(self, example) -> Future:
+        """Enqueue one example (feature shape, no batch axis); resolves to
+        the model's output row (a tuple of rows for a multi-output net).
+        Raises ``QueueFullError`` (backpressure) / ``ServerClosedError``."""
+        return self._batcher.submit(example)
+
+    def predict(self, example, timeout: Optional[float] = 60.0):
+        """Synchronous ``submit``: one request through the batcher."""
+        return self.submit(example).result(timeout=timeout)
+
+    # -- lifecycle ------------------------------------------------------------
+    def warmup(self, feature_shape: Tuple[int, ...], dtype="float32",
+               buckets: Optional[Sequence[int]] = None) -> None:
+        """Capture every bucket's graph for the request signature before
+        traffic arrives (else the captures land on the first unlucky
+        requests), and pin the accepted signature."""
+        self._cache.warmup(tuple(feature_shape), dtype, buckets)
+        self._batcher.expect_features(tuple(feature_shape), dtype)
+
+    def resident_bytes(self) -> int:
+        """Device bytes the server's parameters hold."""
+        return self._cache.param_bytes()
+
+    def estimated_wait_s(self) -> float:
+        """Queue-wait estimate for a new request (0 when the backlog fits
+        one batch)."""
+        return self._batcher.estimated_wait_s()
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Graceful: refuse new requests, answer everything queued; after
+        ``timeout`` seconds (default ``MXTPU_SERVING_DRAIN_TIMEOUT_S``) a
+        wedged in-flight batch is force-closed with a warning, queued
+        requests fail with ``ServerClosedError``, and the event counts in
+        ``forced_closes``. True on a clean drain."""
+        if timeout is None:
+            timeout = float(config.get("MXTPU_SERVING_DRAIN_TIMEOUT_S"))
+        if self._batcher.drain(timeout):
+            return True
+        logger.warning(
+            "drain of %s did not finish within %.1fs (queue_depth=%d); "
+            "force-closing", self.name, timeout, self.queue_depth)
+        self.metrics.observe_forced_close()
+        self._batcher.close(join_timeout=0.5)
+        return False
+
+    def close(self) -> None:
+        """Immediate: fail queued requests, stop the worker."""
+        self._batcher.close()
+
+    def maintenance(self):
+        """Context manager flipping :meth:`healthz` unready for its
+        duration (traffic is still served meanwhile)."""
+        server = self
+
+        class _Maintenance:
+            def __enter__(self):
+                with server._maintenance_lock:
+                    server._maintenance += 1
+                return server
+
+            def __exit__(self, *exc):
+                with server._maintenance_lock:
+                    server._maintenance -= 1
+                return False
+
+        return _Maintenance()
+
+    def healthz(self) -> dict:
+        """Readiness probe: ``ready`` only while the server accepts and
+        serves traffic; it flips during drain/close and inside a
+        :meth:`maintenance` window."""
+        state = self._batcher._state
+        with self._maintenance_lock:
+            in_maintenance = self._maintenance > 0
+        return {
+            "ready": state == "running" and not in_maintenance,
+            "state": state,
+            "maintenance": in_maintenance,
+            "model": self.name,
+            "queue_depth": self.queue_depth,
+            "compiled_buckets": len(self.compiled_signatures()),
+        }
+
+    def __enter__(self) -> "ModelServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if exc and exc[0] is None:
+            self.drain(timeout=30.0)
+        self.close()
+
+    # -- introspection --------------------------------------------------------
+    @property
+    def queue_depth(self) -> int:
+        return self._batcher.queue_depth
+
+    @property
+    def buckets(self) -> Tuple[int, ...]:
+        return self._cache.buckets
+
+    def compiled_signatures(self):
+        """(bucket, feature_shape, dtype) keys with a captured graph."""
+        return self._cache.compiled_signatures()
+
+    def stats(self) -> dict:
+        snap = self.metrics.snapshot()
+        snap["buckets"] = list(self.buckets)
+        snap["compiled"] = [list(k) for k in self.compiled_signatures()]
+        return snap

@@ -271,7 +271,7 @@ def test_forward_takes_bf16_resnet50_convs_to_the_tensor_cores(
     assert fc._pick_route(torch.bfloat16, 20, 72, None) == "simt"
 
 
-@pytest.mark.parametrize("batch", [8, 32, 128])
+@pytest.mark.parametrize("batch", [1, 2, 4, 8, 16, 32, 128])
 def test_forward_grid_fills_the_card_with_whole_steps(resnet50_convs,
                                                       batch):
     """At every ResNet-50 shape: a row of 3 taps exactly at 3x3 stride 1
@@ -1044,14 +1044,17 @@ def test_f32_fwd_and_dw_must_zero_what_tma_zero_fills(case):
 def test_f32_forward_boxes_cover_every_output_pixel_once(resnet50_convs):
     """The rows of every f32 K1 box (``fc.tc_box`` over the output), read
     as the kernel reads them, hold every output pixel exactly once, at the
-    52 ResNet-50 convs (B=32) and chip_smoke's conv cases; the f32 K3
-    walks the same boxes."""
+    52 ResNet-50 convs at every batch bucket the ModelServer captures
+    (1-32) and chip_smoke's conv cases; the f32 K3 walks the same
+    boxes."""
     import chip_smoke as cs
 
-    shapes = {(32, _out(h, k, s, p), _out(w, k, s, p))
-              for h, w, _, _, k, s, p in resnet50_convs}
+    shapes = {(n, _out(h, k, s, p), _out(w, k, s, p))
+              for h, w, _, _, k, s, p in resnet50_convs
+              for n in cs.SERVER_BUCKETS}
     shapes |= {(c[1], _out(c[2], c[6], c[7], c[8]),
-                _out(c[3], c[6], c[7], c[8])) for c in cs.CONV_CASES}
+                _out(c[3], c[6], c[7], c[8]))
+               for c in cs.CONV_CASES + cs.SERVING_CONV_CASES}
     for n, ho, wo in sorted(shapes):
         bw, bh, bn = fc.tc_box(n, ho, wo)
         assert bw * bh * bn <= F32_BLOCK

@@ -235,6 +235,40 @@ def test_defaults_come_from_config_knobs(nets):
             config.unset(k)
 
 
+def test_prefill_through_the_cache_matches_the_jax_session(nets):
+    """Prefill through the session's ``BucketedExecutorCache`` (one
+    executable per prompt bucket, the true length passed as an int32
+    scalar): the first token and the K/V planes of several true lengths in
+    one bucket against the JAX session's ``_prefill_apply``; one
+    executable serves them all, and the prefill cache counts them."""
+    import jax.numpy as jnp
+
+    jnet, net = nets
+    jsess = jserving.DecodeSession(jnet, max_slots=1, max_len=48,
+                                   prefill_buckets=(16,), name="jprefill")
+    jsess.close()
+    sess = serving.DecodeSession(net, ctx=mx.cpu(), max_slots=1, max_len=48,
+                                 prefill_buckets=(8, 16), name="prefill")
+    try:
+        for n, prompt in zip((9, 13, 16), _prompts([9, 13, 16], seed=11)):
+            padded = np.zeros((16,), np.int32)
+            padded[:n] = prompt
+            want = [np.asarray(a) for a in jsess._prefill_apply(
+                jsess._params, jnp.asarray(padded), jnp.int32(n))]
+            with sess._exec_lock:
+                got = [t.numpy() for t in sess._prefill(prompt)]
+            assert int(got[0]) == int(want[0]), n
+            assert got[1].shape == want[1].shape == (2, 4, 16, 8)
+            # the planes past n are the padding's: both sides compute them
+            for g, w in zip(got[1:], want[1:]):
+                np.testing.assert_allclose(g, w, **TOL)
+        stats = sess.stats()["prefill_cache"]
+        assert (stats["misses"], stats["hits"], stats["compiles"]) \
+            == (1, 2, 0)
+    finally:
+        sess.close()
+
+
 # ---------------------------------------------------------------------------
 # front door: backpressure, deadline shedding, lifecycle
 # ---------------------------------------------------------------------------

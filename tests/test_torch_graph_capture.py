@@ -11,7 +11,9 @@ Each engine's graph path (``SPMDTrainer.run_superstep``/``run_steps``, the
 gluon ``SuperStep``, the captured decode step) is held against the eager
 path from the same state and seed, bit for bit: the same kernels run in
 the same order on the same inputs, dropout draws included. The kernel
-launch counters of a replay equal those of the K eager steps.
+launch counters of a replay equal those of the K eager steps. So are the
+serving tier's graphs: a ``BucketedExecutorCache`` bucket (the
+``ModelServer``'s batch forward) and a ``DecodeSession`` prefill bucket.
 """
 
 import threading
@@ -268,3 +270,100 @@ def test_decode_graph_streams_equal_the_eager_session(cuda_device):
         sess.close()
         streams.append(got)
     assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# the serving tier: one CUDA graph a bucket
+# ---------------------------------------------------------------------------
+HW = 64
+
+
+def _served_resnet():
+    """A small fused ResNet on the card, its running statistics set by one
+    training-mode forward."""
+    mx.random.seed(5)
+    net = FusedResNetV1([1, 1, 1, 1], [16, 32, 64, 128, 256],
+                        classes=10).initialize("xavier", ctx=mx.gpu(0))
+    x = torch.rand((4, 3, HW, HW), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(6))
+    with torch.no_grad(), mx.autograd.train_mode():
+        net(x)
+    return net
+
+
+@pytest.mark.parametrize("share_pool", [True, False], ids=["shared", "own"])
+def test_bucket_graph_replay_bit_equal_to_eager(cuda_device, share_pool):
+    """Each bucket's graph, at the fewest rows it takes (its padding
+    rides) and full, bit-equal to the eager eval forward of the same padded
+    batch; one capture a bucket at warm-up and none after; K1 16 times a
+    replay (three convs a bottleneck and the four projections), by the
+    capture's recording."""
+    net = _served_resnet()
+    cache = serving.BucketedExecutorCache.from_block(
+        net, buckets=(1, 2, 4), ctx=mx.gpu(0), share_pool=share_pool)
+    cache.warmup((3, HW, HW), "float32")
+    assert cache.metrics.compiles == 3
+    rs = np.random.RandomState(13)
+    for n in (1, 2, 3, 4):
+        x = rs.rand(n, 3, HW, HW).astype(np.float32)
+        pad = np.zeros((cache.bucket_for(n),) + x.shape[1:], np.float32)
+        pad[:n] = x
+        before = launches.snapshot()
+        got = cache(x)
+        moved = launches.delta(before, launches.snapshot())
+        with torch.no_grad(), mx.autograd.pause():
+            want = net(torch.from_numpy(pad).to(cuda_device))[:n].cpu()
+        assert torch.equal(torch.from_numpy(got), want), n
+        assert moved[fc.__name__, "fused_conv_launches"] == 16
+    assert cache.metrics.compiles == 3
+
+
+def test_model_server_on_the_card_bf16_on_a_fresh_thread(cuda_device):
+    """A bf16 net behind ``ModelServer``: fp32 requests cast in the graph,
+    bf16 rows back as float32, equal to the eager forward of the cast
+    batch; the warm-up on a thread that never ran a kernel."""
+    net = _served_resnet().cast("bfloat16")
+    srv = serving.ModelServer(net, buckets=(1, 2, 4), max_wait_ms=1.0,
+                              ctx=mx.gpu(0))
+    try:
+        t = threading.Thread(target=srv.warmup,
+                             args=((3, HW, HW), "float32"))
+        t.start()
+        t.join()
+        assert srv.metrics.compiles == 3
+        x = np.random.RandomState(14).rand(4, 3, HW, HW).astype(np.float32)
+        got = srv._cache(x)
+        with torch.no_grad(), mx.autograd.pause():
+            want = net(torch.from_numpy(x).to(cuda_device).bfloat16())
+        assert got.dtype == np.float32
+        assert torch.equal(torch.from_numpy(got), want.float().cpu())
+        rows = np.stack([srv.submit(r).result(60) for r in x])
+        assert np.isfinite(rows).all() and rows.shape == (4, 10)
+    finally:
+        srv.close()
+
+
+def test_prefill_graph_bit_equal_to_eager_at_two_lengths(cuda_device):
+    """A prefill bucket's graph (through the session's cache) gives the
+    eager prefill's first token and K/V planes bit for bit at two true
+    lengths of the bucket: one graph serves both."""
+    mx.random.seed(3)
+    net = get_gpt("gpt_decoder_117m", vocab_size=97, units=128, num_layers=2,
+                  num_heads=2, max_length=64, dropout=0.0).initialize(
+                      "xavier", ctx=mx.gpu(0))       # heads of 64
+    with serving.DecodeSession(net, ctx=mx.gpu(0), max_slots=2, max_len=64,
+                               prefill_buckets=(16, 64)) as sess:
+        sess.warmup()
+        assert sess.stats()["prefill_cache"]["compiles"] == 2
+        rs = np.random.RandomState(4)
+        for b, n in ((16, 9), (16, 16), (64, 33), (64, 50)):
+            prompt = rs.randint(0, 97, (n,)).astype(np.int32)
+            pad = np.zeros((b,), np.int32)
+            pad[:n] = prompt
+            with sess._exec_lock:
+                got = [t.clone() for t in sess._prefill(prompt)]
+            want = sess._prefill_apply(
+                torch.from_numpy(pad).to(cuda_device),
+                torch.tensor(n, dtype=torch.int32, device=cuda_device))
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (b, n)
+        assert sess.stats()["prefill_cache"]["compiles"] == 2

@@ -29,6 +29,10 @@ PKG = ROOT / "incubator_mxnet_tpu_torch"
 def test_import_pulls_in_no_jax_and_no_jax_package():
     code = ("import sys, incubator_mxnet_tpu_torch, "
             "incubator_mxnet_tpu_torch.serving, "
+            "incubator_mxnet_tpu_torch.serving.server, "
+            "incubator_mxnet_tpu_torch.serving.batcher, "
+            "incubator_mxnet_tpu_torch.serving.executor_cache, "
+            "incubator_mxnet_tpu_torch.serving.metrics, "
             "incubator_mxnet_tpu_torch.gluon.model_zoo.gpt, "
             "incubator_mxnet_tpu_torch.autograd, "
             "incubator_mxnet_tpu_torch.gluon.loss, "
@@ -82,7 +86,9 @@ def test_sources_import_no_jax_and_no_jax_package():
                  "gluon/nn/conv_layers.py", "gluon/nn/basic_layers.py",
                  "gluon/model_zoo/vision/resnet.py", "initializer.py",
                  "parallel/superstep.py", "ops/launches.py",
-                 "models/__init__.py", "models/transformer.py"):
+                 "models/__init__.py", "models/transformer.py",
+                 "serving/server.py", "serving/batcher.py",
+                 "serving/executor_cache.py", "serving/metrics.py"):
         assert PKG / name in files, name
     for f in files + [ROOT / "chip_smoke.py"]:
         for mod in _imported_modules(f):
@@ -461,6 +467,28 @@ def test_chip_smoke_decode_routes_follow_the_prefill_buckets():
         {"tc": 0, "f32": 0, "split": 12 * 3, "simt": 0}
 
 
+def test_chip_smoke_prefill_times_rehearse_on_the_cpu(monkeypatch):
+    """``chip_smoke.prefill_times`` on a tiny GPT's session on the CPU:
+    each bucket's prefill through the session's cache equals the eager
+    ``_prefill_apply`` at two true lengths, and a row a bucket comes back
+    with the bucket's K4 route (nothing recorded: the CPU captures
+    nothing)."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    mx.random.seed(2)
+    net = get_gpt("gpt_decoder_tiny", vocab_size=31, units=32, num_layers=2,
+                  max_length=64, dropout=0.0).initialize("xavier",
+                                                         ctx=mx.cpu())
+    with serving.DecodeSession(net, ctx=mx.cpu(), max_slots=2, max_len=64,
+                               prefill_buckets=(16, 64)) as sess:
+        sess.warmup()
+        rows = cs.prefill_times(sess, "cpu", 31, reps=2)
+    assert set(rows) == {16, 64}
+    assert [rows[b]["route"] for b in (16, 64)] == ["simt", "f32"]
+    assert all(r["recorded"] == {} and r["graph_ms"] > 0
+               for r in rows.values())
+
+
 def test_chip_smoke_resnet_phase_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.resnet_phase`` on a small fused ResNet on the CPU (the
     plain versions run, so no launch is counted): every check of the phase
@@ -507,6 +535,59 @@ def test_chip_smoke_resnet_phase_rehearses_on_the_cpu(monkeypatch):
     assert gate["n_running_stats"] == 40
     # on the CPU both routes are the plain version: the same distances
     assert gate["tc"] == gate["simt"] and gate["tc"]["logits"] > 0
+
+
+def test_chip_smoke_model_server_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.model_server_phase`` on a small fused ResNet on the CPU
+    (the cache runs the eager apply there, nothing is captured, no kernel
+    launches): the gates pass (each bucket's rows equal the eager forward
+    of the padded batch, the served rows their own B=1 forwards and the
+    plain versions, the backpressure burst and the drain, the bf16 logits
+    the fp32 forward on the same bf16-rounded inputs), the launch windows
+    expect K1 once a conv a batch on the f32 then the tensor-core route,
+    and the open loop gives a row per rate, batched and unbatched."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import (
+        FusedResNetV1)
+
+    cs = _chip_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated",
+                 "memory_reserved"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    windows = []
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda label, got, *want: windows.append((got, want)))
+    mx.random.seed(0)
+    net = FusedResNetV1([1, 1, 1, 1], [16, 32, 64, 128, 256],
+                        classes=10).initialize("xavier", ctx=mx.cpu())
+    out = cs.model_server_phase(0, "cpu", net, mx.cpu(), hw=64,
+                                buckets=(1, 2, 4), requests=6, clients=3,
+                                rates={"fp32": (40.0,), "bf16": (40.0,)},
+                                rate_s=0.3)
+    per_pass = cs.convs_per_pass(net)
+    assert out["per_pass"] == per_pass == 16
+    zero = {k: 0 for k in cs.CONV_KERNELS}
+    routes = {(k, r): 0 for k in cs.ROUTED for r in cs.CONV_ROUTES[k]}
+    assert [w[0] for w in windows] == [zero, zero]
+    assert [w[1][:3] + w[1][4:] for w in windows] == [
+        (per_pass, out["fp32"]["batches"], 0, dict.fromkeys(cs.ROUTED,
+                                                            "f32")),
+        (per_pass, out["bf16"]["batches"], 0, dict.fromkeys(cs.ROUTED,
+                                                            "tc"))]
+    assert all(w[1][3] == routes for w in windows)
+    for dt in ("fp32", "bf16"):
+        assert 1 <= out[dt]["batches"] <= 6 and out[dt]["captures"] == 0
+        assert set(out[dt]["bucket_ms"]) == {1, 2, 4}
+        (row,) = out[dt]["open_loop"]
+        assert row["rate"] == 40.0
+        assert row["batched"]["completed"] > 0
+        assert row["unbatched"]["completed"] > 0
+    assert out["fp32"]["row_err"] <= cs.SERVER_ROW_RTOL
+    assert out["fp32"]["plain_err"] <= cs.TOLS[torch.float32]
+    # on the CPU both routes are the plain version
+    assert out["bf16"]["gate"] > 0
+    assert out["bf16"]["ratio"] <= 1 + cs.FWD_GATE_SLACK
 
 
 def test_chip_smoke_unfused_resnet_phase_rehearses_on_the_cpu(monkeypatch):

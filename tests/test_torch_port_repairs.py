@@ -14,6 +14,12 @@ the JAX package does, each held against the JAX package.
 - A float ``lengths`` (BERT's ``valid_length``) in ``flash_attention`` is
   truncated toward zero to int32, as the reference's ``astype(int32)``:
   the card path took only integers before.
+- Reductions: ``sum``/``mean``/``nansum`` over ``axis=()`` return the
+  input, and integer sums and products widen as jnp's do.
+- Gathers outside ``[0, n)`` (the sparse softmax cross entropy, the
+  ``embedding`` op, the ``Embedding`` layer): an index in ``[-n, -1]``
+  counts from the end, one outside ``[-n, n)`` reads NaN.
+- Negative slice steps in ``NDArray`` indexing, read and written.
 """
 
 import numpy as np
@@ -278,3 +284,154 @@ def test_flash_attention_float_lengths_truncate_as_the_reference(interpret):
     tq.requires_grad_(True)
     with_grad = fa.flash_attention(tq, tk, tv, torch.from_numpy(lens))
     assert torch.equal(with_grad.detach(), got)
+
+
+# ---------------------------------------------------------------------------
+# reductions over no axis, and the types of integer sums and products
+# ---------------------------------------------------------------------------
+def _nd_pair(x):
+    with mx.cpu():
+        return jmx.nd.array(x, dtype=x.dtype.name), \
+            mx.nd.array(x, dtype=x.dtype.name)
+
+
+# MXNet itself read ``axis=()`` as every axis; the JAX package (jnp) reads
+# it as none, and the port follows the JAX package
+@pytest.mark.parametrize("name", ["sum", "mean", "nansum"])
+@pytest.mark.parametrize("axis", [(), []], ids=["tuple", "list"])
+@pytest.mark.parametrize("dtype", [np.float32, np.int8, np.uint8],
+                         ids=["float32", "int8", "uint8"])
+def test_reduce_over_no_axis_returns_the_input_as_the_reference(name, axis,
+                                                                dtype):
+    x = (np.arange(12).reshape(4, 3) % 5 + 4).astype(dtype)
+    jx, px = _nd_pair(x)
+    # jnp.nansum refuses a list for axis: the reference is read with ()
+    want = getattr(jmx.nd, name)(jx, axis=() if name == "nansum"
+                                 else axis).asnumpy()
+    got = getattr(mx.nd, name)(px, axis=axis).asnumpy()
+    assert got.shape == want.shape == x.shape
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["sum", "nansum", "prod", "nanprod"])
+@pytest.mark.parametrize("dtype, want_dtype", [
+    (np.int8, np.int32), (np.uint8, np.uint32), (np.bool_, np.int32),
+    (np.int32, np.int32)], ids=["int8", "uint8", "bool", "int32"])
+@pytest.mark.parametrize("axis", [None, 0, 1])
+def test_integer_sums_and_products_widen_as_the_reference(name, dtype,
+                                                          want_dtype, axis):
+    x = np.array([[4, 5, 6, 7], [3, 1, 2, 5]]).astype(dtype)
+    jx, px = _nd_pair(x)
+    want = getattr(jmx.nd, name)(jx, axis=axis).asnumpy()
+    got = getattr(mx.nd, name)(px, axis=axis).asnumpy()
+    assert want.dtype == want_dtype
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    if name == "prod" and dtype == np.int8 and axis == 1:
+        assert got[0] == 840                # 4*5*6*7: int8 would wrap
+
+
+# ---------------------------------------------------------------------------
+# gathers outside [0, n): wrap [-n, -1], NaN outside [-n, n)
+# ---------------------------------------------------------------------------
+EMBED_IDS = [-5, -4, -1, 0, 3, 4, 9]
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_embedding_out_of_range_reads_the_reference_fill(dtype):
+    from incubator_mxnet_tpu_torch.ops import nn as pnn
+
+    w = np.arange(12, dtype=np.float32).reshape(4, 3)
+    ids = np.array(EMBED_IDS).astype(dtype)
+    with mx.cpu():
+        want = jmx.nd.Embedding(jmx.nd.array(ids, dtype=dtype),
+                                jmx.nd.array(w), input_dim=4,
+                                output_dim=3).asnumpy()
+    got = pnn.embedding(torch.from_numpy(ids), torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got[[0, 5, 6]]).all() and (got[2] == w[3]).all()
+
+
+def test_embedding_layer_out_of_range_reads_the_reference_fill():
+    jmx.random.seed(2)
+    jemb = jgluon.nn.Embedding(4, 3)
+    jemb.initialize()
+    ids = np.array([EMBED_IDS, EMBED_IDS[::-1]], np.int32)
+    want = jemb(jmx.nd.array(ids, dtype="int32")).asnumpy()
+    emb = gluon.nn.Embedding(4, 3).initialize(ctx=mx.cpu())
+    emb.set_param("weight", torch.from_numpy(
+        jemb.weight.data().asnumpy().copy()))
+    got = emb(torch.from_numpy(ids)).detach().numpy()
+    np.testing.assert_array_equal(got, want)
+    # the gradient reaches the rows the wrapped ids read, none of the rest
+    x = torch.from_numpy(ids)
+    emb(x).nan_to_num(0.0).sum().backward()
+    counts = np.bincount([i % 4 for i in EMBED_IDS if -4 <= i < 4] * 2,
+                         minlength=4)
+    np.testing.assert_array_equal(emb.weight.grad[:, 0].numpy(), counts)
+
+
+@pytest.mark.parametrize("labels", [[-4, -1, 2, 3, 0], [1, -3, 7, -9, 2]])
+def test_softmax_ce_sparse_labels_out_of_range_as_the_reference(labels):
+    rs = np.random.RandomState(9)
+    pred = rs.randn(5, 3).astype(np.float32)
+    lab = np.array(labels, np.float32)
+    want = jgluon.loss.SoftmaxCrossEntropyLoss()(
+        jmx.nd.array(pred), jmx.nd.array(lab)).asnumpy()
+    got = gluon.loss.SoftmaxCrossEntropyLoss()(
+        torch.from_numpy(pred), torch.from_numpy(lab)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(want).any() and not np.isnan(want).all()
+
+
+def test_gathers_out_of_range_on_the_card_raise_no_device_assert():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from incubator_mxnet_tpu_torch.ops import nn as pnn
+
+    w = torch.arange(12, dtype=torch.float32, device="cuda").view(4, 3)
+    rows = pnn.embedding(torch.tensor([-1, 9], device="cuda"), w)
+    loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+        torch.zeros(2, 3, device="cuda"), torch.tensor([-1.0, 5.0],
+                                                       device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(rows[0], w[3]) and torch.isnan(rows[1]).all()
+    assert torch.isfinite(loss[0]) and torch.isnan(loss[1])
+
+
+# ---------------------------------------------------------------------------
+# negative slice steps in NDArray indexing
+# ---------------------------------------------------------------------------
+NEG_KEYS = [np.s_[::-1], np.s_[:, ::-2], np.s_[1, ::-1, 1:3],
+            np.s_[..., ::-3], np.s_[::-1, None, 3:0:-2],
+            np.s_[:, [0, 2], ::-1], np.s_[5:-7:-1], np.s_[0, 4:1:-1]]
+
+
+@pytest.mark.parametrize("key", NEG_KEYS, ids=[str(k) for k in NEG_KEYS])
+def test_negative_slice_steps_read_and_write_as_the_reference(key):
+    x = np.arange(2 * 5 * 4).reshape(2, 5, 4).astype(np.float32)
+    jx, px = _nd_pair(x)
+    want = jx[key].asnumpy()
+    got = px[key].asnumpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    val = np.arange(want.size, dtype=np.float32).reshape(want.shape) + 100
+    for v in (val, 7.0):
+        jx, px = _nd_pair(x)
+        jx[key] = jmx.nd.array(v) if isinstance(v, np.ndarray) else v
+        with mx.cpu():
+            px[key] = mx.nd.array(v) if isinstance(v, np.ndarray) else v
+        np.testing.assert_array_equal(px.asnumpy(), jx.asnumpy())
+
+
+def test_negative_slice_step_gradient_reaches_the_read_elements():
+    with mx.cpu():
+        a = mx.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3))
+        a.attach_grad()
+        with mx.autograd.record():
+            y = (a[:, ::-2] * mx.nd.array([[1.0, 2.0], [3.0, 4.0]])).sum()
+        y.backward()
+    np.testing.assert_array_equal(a.grad.asnumpy(),
+                                  [[2.0, 0.0, 1.0], [4.0, 0.0, 3.0]])
