@@ -165,7 +165,36 @@ Phases (any failure raises, and the script exits non-zero):
    copied): requests/s, latency p50/p99, mean batch occupancy, refusals,
    beside the same traffic unbatched (``Unbatched``: one eager B=1
    forward a request);
-10. unfused ResNet phase: ``get_model("resnet50_v1", classes=1000)``, the
+10. registry phase (``serving.ModelRegistry``): three models at full width,
+   weights drawn from ``--seed``: ``fused_resnet50_v1`` fp32 behind a
+   ``ModelServer`` (buckets 1-32), a second instance cast to bf16, and
+   ``gpt_decoder_117m`` behind a ``DecodeSession`` (8 slots, 512-token
+   cache); each builder makes its block, so an eviction frees it. A
+   first registry learns each model's ``resident_bytes`` (parameters, KV
+   cache and graph memory) and its first rows; the budget then fits any
+   two and not three. Admitting the third evicts the least recently used
+   idle model, whose eviction gives back the ``memory_allocated`` its
+   admission took within ``EVICT_SLACK``; with the GPT in flight and the
+   least recently used, admitting the fp32 server evicts the bf16 one;
+   the fp32 re-admission takes its kernel libraries from the artifact
+   store (no build) and serves rows bit-equal to its first residency.
+   K1 52 a batch on f32 and tc, K4 12 a decode step on split (prefills
+   by bucket). Hot-swap under load: open-loop traffic at
+   ``REGISTRY_RATE`` while weight version 1 (``--seed + 1``) is
+   published: no request fails, every executed batch bit-equal to the
+   eager forward of exactly one version, every request submitted after
+   ``publish_weights`` returned on version 1, each bucket's replay after
+   the swap bit-equal to the eager forward on the new weights (what a
+   rebound parameter would break); the publish seconds, the ms the commit
+   held the replay lock, p99 in the swap window beside p99 without a
+   swap. Decode swap: a stream before the flip equals version 0's oracle,
+   one after it version 1's, one in flight across it finishes. A publish
+   to the evicted bf16 model lands at its next admission. Artifact warm
+   start: the fp32 server started in new processes (``--warm-start-child``)
+   with an empty kernel build directory, cold (empty store: ``nvcc``
+   runs, the store fills) and warm (no ``nvcc``), each bit-equal to this
+   process's rows, beside a recapture-only start here;
+11. unfused ResNet phase: ``get_model("resnet50_v1", classes=1000)``, the
    gluon layer set (NCHW, cuDNN and cuBLAS; no hand-written kernel:
    the JAX package leaves these convs to XLA), ``initialize("xavier")``
    and one forward that fills its deferred shapes; its inventory
@@ -180,11 +209,11 @@ Phases (any failure raises, and the script exits non-zero):
    2 warmup, a ``torch.profiler`` breakdown and the idle share), in NCHW
    and with the activations and conv weights in ``torch.channels_last``
    memory format. K1, K2 and K3 launch 0 times over every unfused pass;
-11. MLP phase: bench.py's mlp row (``Dense(512, activation="relu")``
+12. MLP phase: bench.py's mlp row (``Dense(512, activation="relu")``
    twice and ``Dense(10)``, no ``in_units``; xavier, bf16, B=8192,
    ``SPMDTrainer`` SGD lr 0.1 momentum 0.9): the loss falls by 5% over
    20 steps on one batch, then the step is timed;
-12. graph phase (``parallel/superstep.py``): the MLP row (K=20), the GPT
+13. graph phase (``parallel/superstep.py``): the MLP row (K=20), the GPT
    bf16 row (``gpt_decoder_117m``, B=8, T=256, dropout 0.1 as built,
    K=10), the BERT bf16 row (``bert_12_768_12``, B=24, T=128, dropout 0.1,
    K=5, each batch's mixed segments and ``valid_length`` in the window),
@@ -207,7 +236,7 @@ Phases (any failure raises, and the script exits non-zero):
    against its eager path bit for bit; K3 and K1 captured on a thread
    that never ran an encode, bit-equal to the eager calls
    (``fresh_thread_capture``);
-13. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
+14. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
    kernels (K7, ``csrc/rtc/*.cu``, compiled by NVRTC in the build step)
    run an ``mx.rtc`` program (``scale`` and ``saxpy`` over 163,037,184
    floats, ``first_row`` of a (50257, 768) embedding) held bit for bit
@@ -241,8 +270,9 @@ The third line from the end (``rows: {...}``) gives the bench rows: the
 fused and unfused ResNet-50, the MLP and BERT (pallas, xla and mixed
 lengths), bf16, step ms and images/s or sequences/s, and
 the graph phase's rows and the decode step, eager beside graph, the
-prefill buckets, graph beside eager, and TTFT, and the ModelServer's
-graph memory, warm-up, bucket times and open-loop rows. The
+prefill buckets, graph beside eager, and TTFT, the ModelServer's
+graph memory, warm-up, bucket times and open-loop rows, and the
+registry's sizes, budget, evictions, hot-swap and warm-start numbers. The
 line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
@@ -3085,13 +3115,13 @@ def model_server_phase(seed, card, net, ctx, hw=224,
     want_captures = len(buckets) if on_card else 0
     sigs = srv.compiled_signatures()
     print(f"ModelServer fp32 ({card}): warm-up captured "
-          f"{srv.metrics.compiles} graphs in {warm_s:.2f} s ({sigs}); the "
+          f"{srv.metrics.captures} graphs in {warm_s:.2f} s ({sigs}); the "
           f"graphs hold {_mib(shared_mem)} in one shared pool; "
           f"{_mib(own_mem)} with a pool a graph", flush=True)
     if sigs != [(b, feat, "float32") for b in buckets] \
-            or srv.metrics.compiles != want_captures:
+            or srv.metrics.captures != want_captures:
         raise AssertionError(f"warm-up: signatures {sigs}, "
-                             f"{srv.metrics.compiles} captures")
+                             f"{srv.metrics.captures} captures")
     want_rec = {"fused_conv": per_pass, f"fused_conv_{route}": per_pass}
     for key, ex in cache._execs.items():
         rec = _counts_by_name(ex.graph.counted) if on_card else want_rec
@@ -3135,11 +3165,11 @@ def model_server_phase(seed, card, net, ctx, hw=224,
           f"against its B=1 eager forward {row_err:.3e} (tol "
           f"{SERVER_ROW_RTOL:g}), rows against the plain versions "
           f"{plain_err:.3e} (tol {TOLS[torch.float32]:g}); captures after "
-          f"traffic {srv.metrics.compiles}", flush=True)
+          f"traffic {srv.metrics.captures}", flush=True)
     if rows.shape != (requests, net.output.weight.shape[0]) \
             or not np.isfinite(rows).all() or served != requests \
             or row_err > SERVER_ROW_RTOL or plain_err > TOLS[torch.float32] \
-            or srv.metrics.compiles != want_captures:
+            or srv.metrics.captures != want_captures:
         raise AssertionError("ModelServer fp32: rows, counts or captures "
                              "wrong")
 
@@ -3170,7 +3200,7 @@ def model_server_phase(seed, card, net, ctx, hw=224,
                        warmup_s=warm_s,
                        launches=launches, routes=routes, batches=batches,
                        row_err=row_err, plain_err=plain_err,
-                       captures=srv.metrics.compiles,
+                       captures=srv.metrics.captures,
                        bucket_ms=_bucket_times(cache, net, dev, images),
                        open_loop=_open_loop_rows(
                            cache, net, dev, images, rates["fp32"], rate_s,
@@ -3224,7 +3254,7 @@ def model_server_phase(seed, card, net, ctx, hw=224,
     simt_gate = _rel_l2(simt, ref)
     ratio = gate / max(simt_gate, 1e-30)
     print(f"ModelServer bf16 ({card}): warm-up {warm_s:.2f} s on a fresh "
-          f"thread, {srv.metrics.compiles} captures, the graphs hold "
+          f"thread, {srv.metrics.captures} captures, the graphs hold "
           f"{_mib(mem16)} in one shared pool; {served} requests in "
           f"{batches} batches; relative L2 from the fp32 forward on the "
           f"same bf16-rounded weights and inputs: served (tensor-core K1) "
@@ -3232,11 +3262,11 @@ def model_server_phase(seed, card, net, ctx, hw=224,
           f"{ratio:.4f} (held <= {1 + FWD_GATE_SLACK:g})", flush=True)
     if not np.isfinite(rows).all() or not math.isfinite(ratio) \
             or ratio > 1 + FWD_GATE_SLACK \
-            or srv.metrics.compiles != want_captures:
+            or srv.metrics.captures != want_captures:
         raise AssertionError("ModelServer bf16: logits or captures wrong")
     out["bf16"] = dict(memory=dict(shared=mem16), warmup_s=warm_s,
                        launches=launches, routes=routes, batches=batches,
-                       gate=gate, simt_gate=simt_gate, ratio=ratio, captures=srv.metrics.compiles,
+                       gate=gate, simt_gate=simt_gate, ratio=ratio, captures=srv.metrics.captures,
                        bucket_ms=_bucket_times(cache, net, dev, images16),
                        open_loop=_open_loop_rows(
                            cache, net, dev, images16, rates["bf16"], rate_s,
@@ -3277,6 +3307,606 @@ def model_server_main(seed, card):
     if out["per_pass"] != 52:
         raise AssertionError("fused_resnet50_v1 runs 52 fused convs a pass")
     return out
+
+
+# ---------------------------------------------------------------------------
+# registry phase: three full-width models behind one ModelRegistry and one
+# memory budget, weight hot-swap under load, the artifact warm start
+# ---------------------------------------------------------------------------
+# open-loop Poisson traffic during the hot-swap (the ModelServer phase's
+# middle fp32 rate)
+REGISTRY_RATE = 400.0
+REGISTRY_RATE_S = 2.0
+REGISTRY_IMAGES = 64
+REGISTRY_GPT = dict(max_slots=8, max_len=512)
+# the decode streams' prompt lengths and new tokens; the in-flight request's
+REGISTRY_PROMPTS = (9, 40, 200)
+REGISTRY_NEW = 24
+REGISTRY_LONG = 400
+# an eviction gives back what the model's admission took, within this share
+EVICT_SLACK = 0.05
+
+
+def _allocated(dev):
+    """Bytes allocated on the card after a collection (0 on the CPU)."""
+    gc.collect()
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _memory_hooks(reg, dev, log):
+    """Record around each admission and eviction of ``reg`` what the card
+    has allocated: ``log["admit"][name]`` the bytes the latest admission
+    took, ``log["evict"]`` ``(name, bytes given back, models in flight)``
+    in order."""
+    admit, evict = reg._admit, reg._evict_locked
+
+    def hooked_admit(entry):
+        a0 = _allocated(dev)
+        admit(entry)
+        log["admit"][entry.name] = _allocated(dev) - a0
+
+    def hooked_evict(entry):
+        busy = sorted(e.name for e in reg._entries.values()
+                      if e.in_flight > 0)
+        a0 = _allocated(dev)
+        evict(entry)
+        log["evict"].append((entry.name, a0 - _allocated(dev), busy))
+
+    reg._admit, reg._evict_locked = hooked_admit, hooked_evict
+
+
+def _register_models(reg, seed, ctx, feat, buckets, make_resnet, make_gpt,
+                     gpt_kw):
+    """The three models; each builder makes its block from ``seed``, so an
+    eviction frees the parameters too and a re-admission draws the same
+    weights."""
+    from incubator_mxnet_tpu_torch import serving
+
+    def server(name, cast=None):
+        def build(ad):
+            net = make_resnet(seed)
+            if cast is not None:
+                net.cast(cast)
+            srv = serving.ModelServer(net, buckets=buckets, max_wait_ms=2.0,
+                                      max_queue=4 * buckets[-1], ctx=ctx,
+                                      artifact_dir=ad, name=name)
+            srv.block = net               # for the eager references here
+            return srv
+        return build
+
+    warm = lambda srv: srv.warmup(feat, "float32")   # noqa: E731
+    reg.register("resnet_fp32", server("resnet_fp32"), warmup=warm)
+    reg.register("resnet_bf16", server("resnet_bf16", "bfloat16"),
+                 warmup=warm)
+    reg.register("gpt", lambda ad: serving.DecodeSession(
+        make_gpt(seed), ctx=ctx, artifact_dir=ad, name="gpt", **gpt_kw),
+        kind="decode", warmup=lambda s: s.warmup())
+
+
+def _check_eviction(label, log, name, footprint):
+    """The latest eviction of ``name`` gave back what its admission took,
+    within ``EVICT_SLACK``."""
+    back = [b for n, b, _ in log["evict"] if n == name][-1]
+    print(f"{label}: evicting {name} gave back {back / 2**20:.1f} MiB of "
+          f"the {footprint / 2**20:.1f} MiB its admission took "
+          f"(memory_allocated)", flush=True)
+    if abs(back - footprint) > EVICT_SLACK * footprint:
+        raise AssertionError(f"{label}: eviction of {name} gave back {back} "
+                             f"bytes, its admission took {footprint}")
+
+
+def _serve_via(reg, model, images, clients):
+    """``images`` as single-image requests through ``reg`` from
+    ``clients`` threads: the rows in order and the batches they took."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    m = reg.server(model).metrics
+    b0 = m.batches
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        futs = list(pool.map(lambda x: reg.submit(model, x), images))
+    rows = np.stack([f.result(300) for f in futs])
+    return rows, m.batches - b0
+
+
+def _swap_under_load(reg, srv, images, rate, seconds, new, seed):
+    """Open-loop traffic at ``rate`` through ``reg`` while another thread
+    publishes ``new`` into ``srv`` (resident in ``reg``) at 40% of the run.
+    Every executed batch is logged (its images by index, its rows); each
+    accepted request keeps its submit time and future. Returns the log,
+    the requests, the publish's times and stats, the run's result."""
+    import threading
+
+    # a row is known by its first pixels (the images are random): a key
+    # this cheap keeps the logging off the worker's time
+    def key(row):
+        return row.reshape(-1)[:8].tobytes()
+
+    index = {key(images[i]): i for i in range(len(images))}
+    if len(index) != len(images):
+        raise AssertionError("two images share their first pixels")
+    cache, log = srv._cache, []
+
+    def logged(batch):
+        out = cache(batch)
+        log.append(([index[key(r)] for r in batch], out))
+        return out
+
+    requests, pub = [], {}
+
+    def fire(i):
+        t = time.perf_counter()
+        fut = reg.submit("resnet_fp32", images[i % len(images)])
+        req = [i % len(images), t, fut, None]
+        requests.append(req)
+        fut.add_done_callback(
+            lambda f, r=req: r.__setitem__(3, time.perf_counter()))
+        return fut
+
+    def publish():
+        time.sleep(0.4 * seconds)
+        pub["t0"] = time.perf_counter()
+        pub["stats"] = reg.publish_weights("resnet_fp32", new)
+        pub["t1"] = time.perf_counter()
+
+    srv._batcher._runner = logged
+    try:
+        t = threading.Thread(target=publish)
+        t.start()
+        res = open_loop(fire, rate, seconds, seed=seed)
+        t.join(60)
+    finally:
+        srv._batcher._runner = cache
+    return log, requests, pub, res
+
+
+def _versions_of_batches(log, net_v0, net_v1, images, dev, buckets):
+    """Each logged batch's rows against the eager forward of the same padded
+    batch under version 0 and version 1, bit for bit: the version it
+    equals (0 or 1); a batch equal to neither raises (a mix, or a wrong
+    row)."""
+    seen, versions = {}, []
+    for idx, rows in log:
+        key = tuple(idx)
+        if key not in seen:
+            b = min(bk for bk in buckets if bk >= len(idx))
+            padded = np.zeros((b,) + images.shape[1:], np.float32)
+            padded[:len(idx)] = images[list(idx)]
+            seen[key] = [_eager_rows(net, padded, dev)[:len(idx)]
+                         for net in (net_v0, net_v1)]
+        got = torch.from_numpy(rows)
+        match = [v for v, want in enumerate(seen[key])
+                 if torch.equal(got, want)]
+        if len(match) != 1:
+            raise AssertionError(f"a batch of {len(idx)} served rows equal "
+                                 f"to versions {match} of its eager forward")
+        versions.append(match[0])
+    return versions
+
+
+def registry_phase(seed, card, ctx, make_resnet, make_gpt, hw=224,
+                   buckets=SERVER_BUCKETS, rate=REGISTRY_RATE,
+                   rate_s=REGISTRY_RATE_S, n_images=REGISTRY_IMAGES,
+                   gpt_kw=REGISTRY_GPT, prompt_lens=REGISTRY_PROMPTS,
+                   new_tokens=REGISTRY_NEW, long_tokens=REGISTRY_LONG,
+                   clients=SERVER_CLIENTS, warm_start=True):
+    """Three models behind one ``serving.ModelRegistry``, as the module
+    docstring's registry phase says: ``make_resnet(seed)`` makes the fused
+    ResNet (fp32, on ``ctx``; one instance is cast to bf16),
+    ``make_gpt(seed)`` the GPT. Returns the phase's numbers."""
+    import os
+    import tempfile
+
+    from incubator_mxnet_tpu_torch import serving
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    dev = ctx.torch_device()
+    on_card = dev.type == "cuda"
+    feat = (3, hw, hw)
+    rs = np.random.RandomState(seed + 61)
+    images = rs.rand(n_images, *feat).astype(np.float32)
+    xb = images[:min(8, buckets[-1])]
+    tmp = tempfile.TemporaryDirectory(prefix="mxtpu_registry_")
+    art = os.path.join(tmp.name, "artifacts")
+    out = {}
+
+    # -- first residency of each model: its size and reference outputs -------
+    log = {"admit": {}, "evict": []}
+    with serving.ModelRegistry(artifact_dir=art, name="probe") as reg:
+        _register_models(reg, seed, ctx, feat, buckets, make_resnet,
+                         make_gpt, gpt_kw)
+        _memory_hooks(reg, dev, log)
+        ref32 = reg.server("resnet_fp32")._cache(xb)
+        ref16 = reg.server("resnet_bf16")._cache(xb)
+        vocab = reg.server("gpt")._block.vocab_size
+        sizes = {n: e.bytes for n, e in reg._entries.items()}
+    first = dict(log["admit"])
+    prompts = [rs.randint(0, vocab, (n,)).astype(np.int32)
+               for n in prompt_lens]
+    budget = sum(sizes.values()) - min(sizes.values()) // 2
+    print(f"registry ({card}): resident_bytes (parameters, KV cache, graph "
+          f"memory) {({n: round(b / 2**20, 1) for n, b in sizes.items()})} "
+          f"MiB; allocated by each admission "
+          f"{({n: round(b / 2**20, 1) for n, b in first.items()})} MiB; "
+          f"budget {budget / 2**20:.1f} MiB (any two fit, not three)",
+          flush=True)
+
+    log = {"admit": {}, "evict": []}
+    reg = serving.ModelRegistry(budget_bytes=budget, artifact_dir=art,
+                                name="lru")
+    try:
+        _register_models(reg, seed, ctx, feat, buckets, make_resnet,
+                         make_gpt, gpt_kw)
+        _memory_hooks(reg, dev, log)
+        # -- fp32 traffic: K1 52 a batch on f32 ---------------------------
+        route32 = conv_routes_expected(torch.float32)["fused_conv"]
+        srv = reg.server("resnet_fp32")
+        per_pass = convs_per_pass(srv.block)
+        if not torch.equal(torch.from_numpy(srv._cache(xb)),
+                           torch.from_numpy(ref32)):
+            raise AssertionError("fp32: a second residency serves other "
+                                 "rows than the first")
+        _reset_conv_launches()
+        rows, batches32 = _serve_via(reg, "resnet_fp32", images, clients)
+        launches32, routes32 = _conv_launches(), _route_launches()
+        _check_server_launches("registry fp32 traffic", launches32,
+                               per_pass, batches32, routes32, route32)
+        if not np.isfinite(rows).all():
+            raise AssertionError("registry fp32 rows not finite")
+        del srv          # a server the caller holds keeps its model's memory
+        # -- gpt: K4 12 a decode step on split ----------------------------
+        sess = reg.server("gpt")
+        steps0 = sess.stats()["steps"]
+        _reset_launches(fa)
+        streams = [h.result(600) for h in
+                   [reg.submit("gpt", p, max_new_tokens=new_tokens)
+                    for p in prompts]]
+        steps = sess.stats()["steps"] - steps0
+        fwd_routes = _fwd_route_counts(fa)
+        want_routes = decode_routes(sess.prefill_buckets, prompt_lens, steps)
+        print(f"registry gpt: {len(prompts)} streams, {steps} decode steps; "
+              f"flash_fwd launches by route {fwd_routes} (want "
+              f"{want_routes}: 12 a step on split)", flush=True)
+        if on_card and fwd_routes != want_routes:
+            raise AssertionError("registry gpt: K4 launches by route "
+                                 f"{fwd_routes} != {want_routes}")
+        block = sess._block
+        for p, s in zip(prompts, streams):
+            n = oracle_check(block, p, s, dev)
+            print(f"registry gpt oracle: prompt {len(p)} tokens matched {n} "
+                  f"of {len(s)}", flush=True)
+        # -- bf16: the third model evicts the LRU idle one (fp32) --------
+        route16 = conv_routes_expected(torch.bfloat16)["fused_conv"]
+        reg.server("resnet_bf16")      # the admission (its warm-ups count)
+        _reset_conv_launches()
+        rows16, batches16 = _serve_via(reg, "resnet_bf16", images, clients)
+        launches16, routes16 = _conv_launches(), _route_launches()
+        _check_server_launches("registry bf16 traffic", launches16,
+                               per_pass, batches16, routes16, route16)
+        resident = sorted(reg.resident_models())
+        print(f"registry: admitting resnet_bf16 left {resident} resident "
+              f"({reg.resident_bytes() / 2**20:.1f} MiB of "
+              f"{budget / 2**20:.1f}); evictions {reg.metrics.evictions}; "
+              f"bf16 rows equal to the first residency's "
+              f"{bool(np.array_equal(reg.server('resnet_bf16')._cache(xb), ref16))}",
+              flush=True)
+        if resident != ["gpt", "resnet_bf16"] or reg.metrics.evictions != 1 \
+                or not np.isfinite(rows16).all():
+            raise AssertionError("registry: the LRU idle model was not the "
+                                 "one evicted")
+        _check_eviction("registry", log, "resnet_fp32",
+                        log["admit"]["resnet_fp32"])
+        # -- a model in flight is never evicted, even the LRU one ---------
+        h = reg.submit("gpt", prompts[0], max_new_tokens=long_tokens)
+        next(iter(h))
+        reg.predict("resnet_bf16", images[0])          # gpt is the LRU now
+        t0 = time.perf_counter()
+        srv = reg.server("resnet_fp32")                 # re-admission
+        readmit_s = time.perf_counter() - t0
+        victim, _, busy = log["evict"][-1]
+        streamed = len(h.result(600))
+        hits, builds = srv.metrics.artifact_hits, srv.metrics.compiles
+        print(f"registry: re-admitting resnet_fp32 ({readmit_s:.2f} s, "
+              f"{hits} signatures from the artifact store, {builds} kernel "
+              f"builds, {srv.metrics.captures} captures) evicted {victim} "
+              f"while {busy} was in flight (the least recently used); the "
+              f"in-flight stream finished with {streamed} tokens",
+              flush=True)
+        if victim != "resnet_bf16" or busy != ["gpt"] \
+                or streamed != long_tokens or builds:
+            raise AssertionError("registry: in-flight eviction check failed")
+        _check_eviction("registry", log, "resnet_bf16",
+                        log["admit"]["resnet_bf16"])
+        if not torch.equal(torch.from_numpy(srv._cache(xb)),
+                           torch.from_numpy(ref32)):
+            raise AssertionError("fp32: the re-admission serves other rows "
+                                 "than the first residency")
+        print("registry: resnet_fp32's re-admission serves rows bit-equal "
+              "to its first residency", flush=True)
+
+        # -- hot-swap under load ------------------------------------------
+        net_v0 = make_resnet(seed)
+        net_v1 = make_resnet(seed + 1)
+        new = {n: p.detach() for n, p in net_v1.named_parameters()}
+        base = open_loop(lambda i: reg.submit("resnet_fp32",
+                                              images[i % n_images]),
+                         rate, rate_s, seed=seed)
+        _reset_conv_launches()
+        b0 = srv.metrics.batches
+        swap_log, requests, pub, res = _swap_under_load(
+            reg, srv, images, rate, rate_s, new, seed + 1)
+        swap_batches = srv.metrics.batches - b0
+        launches_swap, routes_swap = _conv_launches(), _route_launches()
+        _check_server_launches("registry fp32 swap traffic", launches_swap,
+                               per_pass, swap_batches, routes_swap, route32)
+        versions = _versions_of_batches(swap_log, net_v0, net_v1, images,
+                                        dev, buckets)
+        order = [i for idx, _ in swap_log for i in idx]
+        per_request = [v for (idx, _), v in zip(swap_log, versions)
+                       for _ in idx]
+        if order != [r[0] for r in requests] or res["errors"] \
+                or res["rejected"] or res["shed"]:
+            raise AssertionError(f"hot-swap: requests {len(requests)}, rows "
+                                 f"{len(order)}, {res['errors']} errors, "
+                                 f"{res['rejected']} refused")
+        flat = [row for _, rows_ in swap_log for row in rows_]
+        for (k, t, fut, _), v, row in zip(requests, per_request, flat):
+            if not np.array_equal(fut.result(0), row):
+                raise AssertionError("hot-swap: a response differs from its "
+                                     "batch's row")
+            if t > pub["t1"] and v != 1:
+                raise AssertionError("hot-swap: a request submitted after "
+                                     "publish_weights returned got version 0")
+        # the swap window: from the publish's start to 0.25 s after it
+        # returned
+        swap_lats = [done - t for _, t, _, done in requests
+                     if pub["t0"] <= t <= pub["t1"] + 0.25]
+        n1 = sum(per_request)
+        stats = pub["stats"]
+        commit_ms = srv._cache.last_commit_ms
+        p99_swap = _pctl_ms(swap_lats, 99)
+        p99_base = _pctl_ms(base["lats"], 99)
+        print(f"hot-swap under load ({card}): {res['completed']} requests at "
+              f"{rate:g} requests/s offered ({rate_s:g} s, Poisson), 0 "
+              f"failed, {len(swap_log)} batches each bit-equal to one "
+              f"version's eager forward ({len(order) - n1} rows version 0, "
+              f"{n1} version 1; every request submitted after the publish "
+              f"returned: version 1); publish {stats['seconds']:.4f} s "
+              f"(updated {stats['updated']}, aliased {stats['aliased']}, "
+              f"carried {stats['carried']} of {stats['params']}), the "
+              f"commit held the replay lock {commit_ms:.3f} ms; p99 in the "
+              f"swap window {p99_swap:.3f} ms ({len(swap_lats)} requests) "
+              f"beside p99 {p99_base:.3f} ms without a swap, p50 "
+              f"{_pctl_ms(base['lats'], 50):.3f} ms", flush=True)
+        for b in buckets:
+            x = np.resize(images, (b,) + feat)
+            if not torch.equal(torch.from_numpy(srv._cache(x)),
+                               _eager_rows(srv.block, x, dev)):
+                raise AssertionError(f"bucket {b}: the replay after the swap "
+                                     "differs from the eager forward on the "
+                                     "new weights")
+        if not torch.equal(torch.from_numpy(srv._cache(xb)),
+                           _eager_rows(net_v1, xb, dev)):
+            raise AssertionError("the served weights are not version 1's")
+        print("hot-swap: every bucket's replay after the swap bit-equal to "
+              "the eager forward on the new weights (no parameter rebound)",
+              flush=True)
+        del net_v0, net_v1, new, srv
+
+        # -- decode swap: streams per version against their oracles -------
+        sess = reg.server("gpt")
+        p = prompts[1]
+        s0 = reg.generate("gpt", p, max_new_tokens=new_tokens)
+        m0 = oracle_check(sess._block, p, s0, dev)
+        h = reg.submit("gpt", prompts[0], max_new_tokens=64)
+        next(iter(h))
+        gpt_v1 = make_gpt(seed + 1)
+        dstats = reg.publish_weights(
+            "gpt", {n: q.detach() for n, q in gpt_v1.named_parameters()})
+        del gpt_v1
+        crossed = len(h.result(600))
+        s1 = reg.generate("gpt", p, max_new_tokens=new_tokens)
+        m1 = oracle_check(sess._block, p, s1, dev)
+        print(f"decode swap: version 0 stream matched its oracle for {m0} "
+              f"of {len(s0)} tokens, version 1 (admitted after the flip) "
+              f"{m1} of {len(s1)}; streams differ {s0 != s1}; the sequence "
+              f"in flight across the flip finished ({crossed} tokens); "
+              f"publish {dstats['seconds']:.4f} s, weights_version "
+              f"{sess.weights_version}", flush=True)
+        if crossed != 64 or sess.weights_version != 1:
+            raise AssertionError("decode swap failed")
+
+        # -- deferred publish: applied at the next admission --------------
+        if "resnet_bf16" in reg.resident_models():
+            reg.evict("resnet_bf16")
+        net16 = make_resnet(seed + 1).cast("bfloat16")
+        new16 = {n: q.detach() for n, q in net16.named_parameters()}
+        deferred = reg.publish_weights("resnet_bf16", new16)
+        srv16 = reg.server("resnet_bf16")
+        blk16 = srv16.block
+        same = all(torch.equal(q, new16[n])
+                   for n, q in blk16.named_parameters())
+        x = np.resize(images, (buckets[-1],) + feat)
+        replay_ok = torch.equal(torch.from_numpy(srv16._cache(x)),
+                                _eager_rows(net16, x, dev))
+        print(f"deferred publish: {deferred} while resnet_bf16 was evicted; "
+              f"its next admission serves weights_version "
+              f"{srv16.weights_version}, every parameter equal to version 1 "
+              f"{same}, a replay bit-equal to version 1's eager forward "
+              f"{replay_ok}", flush=True)
+        if not deferred.get("deferred") or srv16.weights_version != 1 \
+                or not same or not replay_ok:
+            raise AssertionError("deferred publish failed")
+        del net16, new16, blk16, srv16
+        out["stats"] = reg.stats()
+        print(f"registry stats: "
+              f"{ {k: v for k, v in out['stats'].items() if k != 'models'} }",
+              flush=True)
+    finally:
+        reg.close()
+    del sess, block
+
+    out.update(
+        sizes=sizes, budget=budget, admit_bytes=first,
+        evictions=list(log["evict"]),
+        conv_launches={"fp32": launches32, "bf16": launches16,
+                       "swap": launches_swap},
+        conv_routes={k: sum(r[k] for r in (routes32, routes16, routes_swap))
+                     for k in routes32},
+        fwd_routes=fwd_routes, decode_steps=steps,
+        swap=dict(publish_s=stats["seconds"], commit_ms=commit_ms,
+                  p99_swap_ms=p99_swap, p99_base_ms=p99_base,
+                  requests=res["completed"], batches=len(swap_log),
+                  v1_rows=n1, readmit_s=readmit_s))
+    if warm_start:
+        out["warm_start"] = artifact_warm_start(seed, card, ctx, make_resnet,
+                                                hw, buckets, ref32, xb, tmp)
+    tmp.cleanup()
+    return out
+
+
+def _run_child(mode, seed, artifact_dir, kernel_dir, out_path):
+    """``chip_smoke.py --warm-start-child`` in a fresh process with its own
+    (empty) kernel build directory: (its JSON report, wall seconds)."""
+    import os
+
+    env = dict(os.environ, MXTPU_KERNEL_BUILD_DIR=kernel_dir)
+    cmd = [sys.executable, str(Path(__file__).resolve()),
+           "--warm-start-child", mode, "--artifact-dir", artifact_dir,
+           "--out", out_path, "--seed", str(seed)]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"warm-start child ({mode}) exited "
+                             f"{done.returncode}:\n{done.stdout[-3000:]}\n"
+                             f"{done.stderr[-3000:]}")
+    line = [ln for ln in done.stdout.splitlines()
+            if ln.startswith('{"warm_start"')][-1]
+    return json.loads(line)["warm_start"], wall
+
+
+def artifact_warm_start(seed, card, ctx, make_resnet, hw, buckets, ref, xb,
+                        tmp):
+    """The fp32 ResNet's replica start three ways: cold (a new process, an
+    empty kernel build directory and an empty artifact store: ``nvcc``
+    builds what the graphs launch, and the store is filled), warm (a new
+    process, another empty build directory, the store filled: the
+    libraries are installed, no ``nvcc`` runs) and recapture-only (this
+    process, every library loaded: the captures alone). Both children's
+    rows bit-equal to ``ref``, this process's first residency."""
+    import os
+
+    from incubator_mxnet_tpu_torch import serving
+
+    store = os.path.join(tmp.name, "replica_store")
+    report = {}
+    for mode in ("cold", "warm"):
+        out_path = os.path.join(tmp.name, f"{mode}.npy")
+        rep, wall = _run_child(mode, seed, store,
+                               os.path.join(tmp.name, f"kernels_{mode}"),
+                               out_path)
+        rows = np.load(out_path)
+        rep.update(wall_s=wall, bit_equal=bool(np.array_equal(rows, ref)))
+        report[mode] = rep
+        print(f"artifact {mode} start ({card}): process wall {wall:.2f} s, "
+              f"ModelServer ready {rep['ready_s']:.2f} s after the script's "
+              f"start (warm-up {rep['warmup_s']:.2f} s); nvcc builds "
+              f"{rep['nvcc_builds']} ({rep['build_seconds']:.2f} s), "
+              f"signatures from the store {rep['artifact_hits']}, captures "
+              f"{rep['captures']}, libraries {rep['libraries']}; rows "
+              f"bit-equal to this process's {rep['bit_equal']}", flush=True)
+        if not rep["bit_equal"]:
+            raise AssertionError(f"artifact {mode} start: rows differ")
+    if report["warm"]["nvcc_builds"] or report["warm"]["compiles"] \
+            or report["warm"]["artifact_hits"] != len(buckets) \
+            or not report["cold"]["nvcc_builds"]:
+        raise AssertionError(f"artifact warm start: {report}")
+    net = make_resnet(seed)
+    t0 = time.perf_counter()
+    srv = serving.ModelServer(net, buckets=buckets, ctx=ctx,
+                              artifact_dir="", name="recapture")
+    srv.warmup((3, hw, hw), "float32")
+    report["recapture_s"] = time.perf_counter() - t0
+    same = np.array_equal(srv._cache(xb), ref)
+    srv.close()
+    srv.release()
+    del srv, net
+    print(f"recapture-only start ({card}): {report['recapture_s']:.2f} s "
+          f"for {len(buckets)} captures with every library loaded; rows "
+          f"bit-equal {same}", flush=True)
+    if not same:
+        raise AssertionError("recapture-only start: rows differ")
+    return report
+
+
+def warm_start_child(seed, mode, artifact_dir, out_path):
+    """One replica start (``--warm-start-child``): the fp32 fused ResNet-50
+    behind a ``ModelServer`` on ``artifact_dir``, warmed, its rows of the
+    registry phase's first images saved to ``out_path``; prints one
+    ``{"warm_start": {...}}`` line."""
+    t0 = time.perf_counter()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import serving
+    from incubator_mxnet_tpu_torch.ops import _build
+
+    ctx = mx.gpu(0)
+    net = _fused_resnet_maker(ctx)(seed)
+    images = np.random.RandomState(seed + 61).rand(
+        8, 3, 224, 224).astype(np.float32)
+    srv = serving.ModelServer(net, buckets=SERVER_BUCKETS, ctx=ctx,
+                              artifact_dir=artifact_dir, name="resnet_fp32")
+    t1 = time.perf_counter()
+    with _build.recorded() as rec:
+        srv.warmup((3, 224, 224), "float32")
+    t2 = time.perf_counter()
+    np.save(out_path, srv._cache(images))
+    m = srv.metrics
+    srv.close()
+    print(json.dumps({"warm_start": {
+        "mode": mode, "ready_s": t2 - t0, "warmup_s": t2 - t1,
+        "nvcc_builds": _build.builds, "build_seconds": rec["build_seconds"],
+        "compiles": m.compiles, "captures": m.captures,
+        "artifact_hits": m.artifact_hits,
+        "artifact_misses": m.artifact_misses,
+        "libraries": sorted(rec["loaded"])}}), flush=True)
+    return 0
+
+
+def _fused_resnet_maker(ctx, classes=1000):
+    """``make(seed)``: ``fused_resnet50_v1`` drawn from ``seed`` on
+    ``ctx``."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_model
+
+    def make(seed):
+        mx.random.seed(seed)
+        return get_model("fused_resnet50_v1", classes=classes).initialize(
+            "xavier", ctx=ctx)
+
+    return make
+
+
+def registry_main(seed, card):
+    """The registry phase at full width: ``fused_resnet50_v1`` (1000
+    classes, 224x224) in fp32 and in bf16, ``gpt_decoder_117m`` with 8
+    slots and a 512-token cache; weights drawn from ``seed`` (version 1
+    from ``seed + 1``)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
+
+    ctx = mx.gpu(0)
+
+    def make_gpt(s):
+        mx.random.seed(s)
+        return get_gpt("gpt_decoder_117m", dropout=0.0).initialize(
+            "xavier", ctx=ctx)
+
+    return registry_phase(seed, card, ctx, _fused_resnet_maker(ctx),
+                          make_gpt)
 
 
 # ---------------------------------------------------------------------------
@@ -4883,6 +5513,12 @@ def kernel_sass():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one replica start of the registry phase's artifact check (the script
+    # runs itself in a new process with these)
+    ap.add_argument("--warm-start-child", choices=("cold", "warm"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--artifact-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4893,6 +5529,9 @@ def main(argv=None) -> int:
               "importable: run the script from the root of the repository",
               file=sys.stderr)
         return 2
+    if args.warm_start_child:
+        return warm_start_child(args.seed, args.warm_start_child,
+                                args.artifact_dir, args.out)
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch.ops import _build
     from incubator_mxnet_tpu_torch.ops import rtc_kernels as rk
@@ -4922,6 +5561,8 @@ def main(argv=None) -> int:
     resnet = resnet_main(args.seed, card)
     gc.collect()
     server = model_server_main(args.seed, card)
+    gc.collect()
+    registry = registry_main(args.seed, card)
     gc.collect()
     unfused = unfused_resnet_main(args.seed, card)
     gc.collect()
@@ -4956,7 +5597,8 @@ def main(argv=None) -> int:
                                                       0),
             "bert_train": bert["routes"][f"flash_fwd_{route}"],
             "bert_graph": graph["bert"]["launches"].get(
-                f"flash_fwd_{route}", 0)}
+                f"flash_fwd_{route}", 0),
+            "registry": registry["fwd_routes"][route]}
         main_paths = sum(by_path.values())
         by_path["train_to_decode"] = trained["decode_routes"][route]
         if route == "tc":
@@ -5031,10 +5673,11 @@ def main(argv=None) -> int:
                 f"{name}_{route}", 0)
             served_by = sum(server[dt]["routes"][name, route]
                             for dt in ("fp32", "bf16"))
+            registry_by = registry["conv_routes"][name, route]
             entry = _entry(name if route == "simt" else f"{name}_{route}",
                            src + source, conv_ref + line,
                            resnet["routes"][name, route] + in_graph
-                           + served_by,
+                           + served_by + registry_by,
                            [r for r in conv if r["kernel"] == name
                             and r["route"] == route], CONV_HEAD, dtype)
             entry["kernel"] = fn
@@ -5049,6 +5692,7 @@ def main(argv=None) -> int:
                 entry["launches_by_path"]["resnet_eval"] = \
                     resnet["eval_routes"][name, route]
                 entry["launches_by_path"]["model_server"] = served_by
+                entry["launches_by_path"]["registry"] = registry_by
             record["kernels"].append(entry)
     rows = imperative["rows"]
     head = rows[RTC_HEAD]
@@ -5094,7 +5738,10 @@ def main(argv=None) -> int:
         "ttft_ms": served["stats"]["ttft_ms"],
         "model_server": {dt: {k: server[dt][k] for k in (
             "memory", "warmup_s", "bucket_ms", "open_loop")}
-            for dt in ("fp32", "bf16")}}),
+            for dt in ("fp32", "bf16")},
+        "registry": {k: registry[k] for k in (
+            "sizes", "budget", "admit_bytes", "evictions", "swap",
+            "warm_start")}}),
         flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

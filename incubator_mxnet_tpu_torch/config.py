@@ -86,6 +86,28 @@ config.register(
     "Default drain() timeout: past it the session is force-closed so "
     "shutdown can never hang.")
 config.register(
+    "MXTPU_SERVING_ARTIFACT_DIR", "", str,
+    "Root directory of the persistent serving artifact store: every "
+    "serving executor cache persists the kernel libraries its CUDA graphs "
+    "launch here, and a later boot (another replica, a re-admitted "
+    "model) installs them instead of running nvcc; the graphs themselves "
+    "are captured again at every warm-up (a CUDA graph cannot be "
+    "serialized). Artifacts are guarded by a (torch, CUDA, driver, "
+    "device, sm_90a, kernel sources, model fingerprint) fingerprint; any "
+    "mismatch refuses the artifact and falls back to build-and-repersist. "
+    "Empty (default) disables persistence.")
+config.register(
+    "MXTPU_REGISTRY_BUDGET_MB", 0.0, float,
+    "Device-memory budget (MiB) of a serving.ModelRegistry: resident "
+    "models' params + KV caches + CUDA-graph memory must fit it, idle "
+    "models are LRU-evicted to make room (re-admitted from the artifact "
+    "store on next use; in-flight models are never evicted). "
+    "0 (default) = unlimited.")
+config.register(
+    "MXTPU_REGISTRY_MAX_RESIDENT", 0, int,
+    "Cap on models resident in a serving.ModelRegistry at once, "
+    "independent of the byte budget. 0 (default) = unlimited.")
+config.register(
     "MXTPU_DECODE_SLOTS", 8, int,
     "KV-cache slot count of a serving.DecodeSession (how many sequences "
     "decode concurrently). Sizes the device-resident cache as slots x "

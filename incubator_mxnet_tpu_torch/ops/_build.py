@@ -10,6 +10,12 @@ Nothing is built or loaded at import.
 
 ``build_all()`` starts one ``nvcc`` per source together and waits for all,
 so a cold start costs the slowest build, not their sum.
+
+``MXTPU_KERNEL_BUILD_DIR`` (an environment variable, read at each call)
+puts the libraries elsewhere, e.g. an empty directory for a replica that
+starts cold. :func:`recorded` lists the libraries a thread loads and the
+``nvcc`` builds it starts (what the serving artifact store persists), and
+:func:`install` writes a library built elsewhere under its name.
 """
 
 from __future__ import annotations
@@ -19,9 +25,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import contextlib
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -35,6 +43,41 @@ SOURCES = ("conv_bwd", "conv_bwd_f32", "conv_bwd_tc", "flash_bwd",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: the ``nvcc`` processes this process started, and the open recordings
+#: (:func:`recorded`) of the calling thread
+builds = 0
+_local = threading.local()
+
+
+def build_dir() -> Path:
+    """Where the libraries go: ``$MXTPU_KERNEL_BUILD_DIR``, else
+    ``build/kernels/`` at the root of the checkout."""
+    env = os.environ.get("MXTPU_KERNEL_BUILD_DIR")
+    return Path(env) if env else BUILD_DIR
+
+
+@contextlib.contextmanager
+def recorded() -> Iterator[dict]:
+    """Around work on this thread: yields ``{"loaded": set of source names
+    whose library a wrapper asked for, "built": [source names nvcc built],
+    "build_seconds": float}``, filled as the work runs."""
+    rec = {"loaded": set(), "built": [], "build_seconds": 0.0}
+    stack = _local.__dict__.setdefault("recs", [])
+    stack.append(rec)
+    try:
+        yield rec
+    finally:
+        stack.remove(rec)
+
+
+def _note(key: str, value) -> None:
+    for rec in getattr(_local, "recs", ()):
+        if key == "loaded":
+            rec["loaded"].add(value)
+        elif key == "built":
+            rec["built"].append(value)
+        else:
+            rec["build_seconds"] += value
 
 
 def nvcc_path() -> str:
@@ -59,20 +102,39 @@ def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return build_dir() / f"lib{name}-{digest[:16]}.so"
+
+
+def install(name: str, filename: str, blob: bytes) -> bool:
+    """Write ``blob``, the library ``filename`` of source ``name`` built
+    elsewhere, into the build directory, unless it is there already;
+    atomic, as a build. False (nothing written) when ``filename`` is not
+    this checkout's name for ``name`` (another source or flags)."""
+    out = lib_path(name)
+    if out.name != filename:
+        return False
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        tmp.write_bytes(blob)
+        os.replace(tmp, out)
+    return True
 
 
 def _start(name: str):
     """Start ``nvcc`` for ``name`` unless its library is already built;
     returns ``(final_path, tmp_path, process)`` or None."""
+    global builds
     out = lib_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    builds += 1
+    _note("built", name)
     return out, tmp, proc
 
 
@@ -90,6 +152,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> None:
     """Build every listed kernel library (default: all) in parallel."""
     names = list(SOURCES if names is None else names)
     with _lock:
+        t0 = time.perf_counter()
         started = {n: _start(n) for n in names}
         errors = []
         for n, s in started.items():
@@ -99,12 +162,16 @@ def build_all(names: Optional[Iterable[str]] = None) -> None:
                 _finish(n, s)
             except RuntimeError as e:
                 errors.append(str(e))
+        if any(started.values()):
+            _note("build_seconds", time.perf_counter() - t0)
         if errors:
             raise RuntimeError("\n".join(errors))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel source ``name``, built if needed."""
+    if getattr(_local, "recs", None):
+        _note("loaded", name)
     lib = _libs.get(name)
     if lib is not None:
         return lib

@@ -192,8 +192,11 @@ class StepGraph:
 
 
 #: one capture (and its warm-up) at a time in the process: they all run
-#: on the device's one side stream, whichever thread asks
-_capture_lock = threading.Lock()
+#: on the device's one side stream, whichever thread asks. Reentrant: a
+#: caller that measures what its captures reserve (the serving warm-up), or
+#: releases cached memory (``torch.cuda.empty_cache`` must not run during
+#: a capture), holds it around them
+_capture_lock = threading.RLock()
 
 
 def capture_steps(body: Callable[[int], torch.Tensor], k: int,

@@ -42,9 +42,22 @@ the graph's static K/V planes into the slot's cache range) stays eager
 under the session's lock: two copies a prefill, made before the next
 replay can overwrite the planes. On the CPU prefill and step run eagerly.
 
-Not ported yet: persistent artifacts, weight hot-swap, trace spans and
-telemetry export. ``warmup`` captures every prefill bucket and the decode
-step.
+**Weight hot-swap**: ``publish_weights`` stages the new version on the
+publisher's thread; the scheduler commits it between decode steps, under
+the session's device lock. The prefill graphs and the decode graph read
+the same block tensors, so one in-place commit flips both at the same step
+boundary: a sequence that finished before the flip is a pure old-version
+stream, one admitted after it a pure new-version stream, and one in flight
+goes on over its KV cache under the new weights.
+
+**Persistent artifacts** (``artifact_dir``): the kernel libraries of the
+prefill graphs (through the prefill cache) and of the decode graph are
+stored, so a replica warms with no ``nvcc`` build; the graphs are captured
+again at every warm-up. ``engine_metrics`` counts the decode graph's
+builds, capture, artifacts and swaps (``<name>.engine``).
+
+Not ported yet: trace spans and telemetry export. ``warmup`` captures
+every prefill bucket and the decode step.
 """
 
 from __future__ import annotations
@@ -62,8 +75,13 @@ import torch
 from ..config import config
 from ..device import Context, resolve
 from ..parallel import superstep
+from ..ops import _build as _kernels
+from .artifacts import (ArtifactStore, environment_fingerprint,
+                        kernel_payload, params_fingerprint,
+                        serialization_supported)
 from .batcher import DeadlineExceededError, QueueFullError, ServerClosedError
-from .executor_cache import BucketedExecutorCache, pure_method_runner
+from .executor_cache import (BucketedExecutorCache, pure_method_runner,
+                             release_device_memory, reserved_bytes)
 from .metrics import DecodeMetrics, ServingMetrics
 
 __all__ = ["DecodeHandle", "DecodeSession", "KVCache"]
@@ -122,6 +140,8 @@ class DecodeHandle:
         self._done = threading.Event()
         self._tokens: List[int] = []
         self._exc: Optional[BaseException] = None
+        self._cb_lock = threading.Lock()
+        self._callbacks: List = []
 
     # -- session side -------------------------------------------------------
     def _put(self, tok: int) -> None:
@@ -134,12 +154,24 @@ class DecodeHandle:
         if not self._done.is_set():
             self._done.set()
             self._q.put(_DONE)
+            self._fire_callbacks()
 
     def _fail(self, exc: BaseException) -> None:
         if not self._done.is_set():
             self._exc = exc
             self._done.set()
             self._q.put(_DONE)
+            self._fire_callbacks()
+
+    def _fire_callbacks(self) -> None:
+        with self._cb_lock:
+            cbs, self._callbacks = self._callbacks, []
+        for fn in cbs:
+            try:
+                fn(self)
+            except Exception:              # noqa: BLE001 — a callback
+                logger.exception("decode done-callback failed")  # never
+                # breaks the scheduler
 
     # -- client side --------------------------------------------------------
     def __iter__(self):
@@ -156,6 +188,18 @@ class DecodeHandle:
 
     def done(self) -> bool:
         return self._done.is_set()
+
+    def add_done_callback(self, fn) -> None:
+        """Future-style completion hook: ``fn(handle)`` runs when the
+        sequence finishes or fails (at once if it already has). Keep it
+        small: it runs on the scheduler thread. The same completion
+        surface as the batch tier's ``Future``, which the registry and the
+        open-loop harness use."""
+        with self._cb_lock:
+            if not self._done.is_set():
+                self._callbacks.append(fn)
+                return
+        fn(self)
 
     def exception(self, timeout: Optional[float] = None):
         """Block until done; the failure (or None)."""
@@ -206,7 +250,12 @@ class DecodeSession:
     (``prefill``/``decode_step``/``num_layers``/``num_heads``/``head_dim``/
     ``max_length``) whose parameters already live on ``ctx`` (default
     ``gpu(0)``). Decoding is greedy (argmax), so the stream matches the
-    full-sequence forward oracle token for token.
+    full-sequence forward oracle token for token. ``artifact_dir``
+    (default ``MXTPU_SERVING_ARTIFACT_DIR``) is the persistent artifact
+    store, ``model_version`` rides its guard. ``donate`` is accepted for
+    the reference's signature: the port always updates the KV cache in
+    place (the decode graph writes the cache planes at their addresses),
+    which is what donation achieves there, so it needs nothing more.
 
     Usage::
 
@@ -224,7 +273,10 @@ class DecodeSession:
                  prefill_buckets: Optional[Sequence[int]] = None,
                  max_queue: int = 64, name: Optional[str] = None,
                  deadline_ms: Optional[float] = None,
-                 max_new_tokens: Optional[int] = None):
+                 donate: Optional[bool] = None,
+                 max_new_tokens: Optional[int] = None,
+                 artifact_dir: Optional[str] = None,
+                 model_version: str = ""):
         self.device = resolve(ctx)
         param = next(block.parameters())
         if param.device != self.device:
@@ -257,18 +309,41 @@ class DecodeSession:
         if bad:
             raise ValueError(f"prefill buckets {bad} exceed max_len="
                              f"{self.max_len}")
-        self._run, params = pure_method_runner(block)
+        self._run, self._params = pure_method_runner(block)
+        if artifact_dir is None:
+            artifact_dir = str(config.get("MXTPU_SERVING_ARTIFACT_DIR") or "")
         self._prefill_cache = BucketedExecutorCache(
-            self._prefill_apply, params, buckets=buckets, ctx=ctx,
+            self._prefill_apply, self._params, buckets=buckets, ctx=ctx,
             name=f"{self.name}.prefill",
             metrics=ServingMetrics(f"{self.name}.prefill"),
-            pass_count=True, depad=False)
+            pass_count=True, depad=False, artifact_dir=artifact_dir,
+            model_version=model_version)
+        # the same walk the tensors came from: a named publish maps a
+        # checkpoint onto positions with these
+        self._prefill_cache.param_names = list(self._run.param_names)
         self._kv = KVCache(block.num_layers, self.max_slots, block.num_heads,
                            self.max_len, block.head_dim, dtype=param.dtype,
                            device=self.device)
         self.metrics = DecodeMetrics(self.name)
         self.metrics.set_capacity(self._kv.nbytes)
-        self._warmup_seconds: Optional[float] = None
+        # the decode graph's builds, capture, artifacts and swaps
+        self.engine_metrics = ServingMetrics(f"{self.name}.engine")
+        self._store = ArtifactStore(artifact_dir) \
+            if artifact_dir and serialization_supported() else None
+        self._guard = dict(
+            environment_fingerprint(), model=self.name,
+            fingerprint=params_fingerprint(self._params),
+            version=str(model_version), kv_shape=tuple(self._kv.shape),
+            kv_dtype=str(param.dtype).replace("torch.", ""))
+        self._decode_kernels: frozenset = frozenset()
+        self._decode_built = False
+        #: device bytes the decode graph reserves, measured at its capture
+        self.graph_bytes = 0
+        # live weight hot-swap: a publisher stages off the hot path; the
+        # scheduler commits the staged version between decode steps
+        self._pending_swap: Optional[dict] = None
+        self._weights_version: object = 0
+        self._swap_lock = threading.Lock()
         # the captured decode step (CUDA); thread-local capture mode:
         # other threads of the process may use the card meanwhile
         self._graphs = superstep.GraphCache(
@@ -342,10 +417,57 @@ class DecodeSession:
         output, valid until the next step (callers read it under
         ``_exec_lock``)."""
         tok, clen = torch.from_numpy(tokens), torch.from_numpy(cache_len)
+        if not self._decode_built:
+            return self._build_decode(tok, clen)
         if self.device.type != "cuda":
             return self._decode_step(tok, clen)
         return self._graphs.run((), (tok, clen), self._decode_body, 1,
                                 ())[0]
+
+    def _build_decode(self, tok: torch.Tensor,
+                      clen: torch.Tensor) -> torch.Tensor:
+        """The first step: the decode graph's kernel libraries from the
+        artifact store where warm, then its capture (and its first
+        replay; on the CPU the eager step), counted in ``engine_metrics``,
+        with the memory the card reserves across it
+        (:attr:`graph_bytes`)."""
+        logical = {"component": "decode"}
+        m = self.engine_metrics
+        m.cache_miss()
+        installed = False
+        if self._store is not None:
+            t0 = time.perf_counter()
+            payload, reason = self._store.load(self.name, logical,
+                                               self._guard)
+            installed = payload is not None
+            if installed:
+                m.observe_deserialize(time.perf_counter() - t0)
+            else:
+                m.artifact_miss(refused=reason.startswith("refused"))
+        if self.device.type != "cuda":
+            out = self._decode_step(tok, clen)
+        else:
+            t0 = time.perf_counter()
+            with superstep._capture_lock:
+                r0 = reserved_bytes(self.device)
+                with _kernels.recorded() as rec:
+                    out = self._graphs.run((), (tok, clen),
+                                           self._decode_body, 1, ())[0]
+                self.graph_bytes = reserved_bytes(self.device) - r0
+            if rec["built"]:
+                m.observe_compile(rec["build_seconds"], len(rec["built"]))
+            m.observe_capture(time.perf_counter() - t0
+                              - rec["build_seconds"])
+            self._decode_kernels = frozenset(rec["loaded"])
+        self._decode_built = True
+        if self._store is not None and not installed:
+            try:
+                self._store.save(self.name, logical, self._guard,
+                                 kernel_payload(self._decode_kernels))
+            except OSError as e:
+                logger.warning("artifact persist failed for %s decode: %s",
+                               self.name, e)
+        return out
 
     def _decode_body(self, static):
         """The captured body over the static ``(tokens, cache_len)``: its
@@ -367,7 +489,170 @@ class DecodeSession:
                 cache_len = self._cache_len.copy()
                 tokens = self._tokens.copy()
             self._decode(cache_len, tokens).cpu()
-        self._warmup_seconds = time.perf_counter() - t0
+        self.engine_metrics.observe_warmup(time.perf_counter() - t0)
+
+    def save_artifacts(self, directory: Optional[str] = None) -> int:
+        """Persist the kernel libraries of the whole graph set (the prefill
+        buckets and the decode step) so the next replica warms with no
+        ``nvcc`` build; returns the artifact count written."""
+        if directory is None and self._store is None:
+            raise RuntimeError(
+                "no artifact store configured: pass artifact_dir= (or "
+                "set MXTPU_SERVING_ARTIFACT_DIR), or pass an explicit "
+                "directory")
+        store = self._store if directory is None \
+            else ArtifactStore(directory)
+        n = self._prefill_cache.save_artifacts(directory)
+        if self._decode_built:
+            store.save(self.name, {"component": "decode"}, self._guard,
+                       kernel_payload(self._decode_kernels))
+            n += 1
+        return n
+
+    # -- analytic cost ---------------------------------------------------------
+    def _layer_flops(self, rows: int, keys: int) -> float:
+        """Multiply-adds (x2) of one layer over ``rows`` query rows that
+        each attend to ``keys`` positions: the QKV, output and two FFN
+        matmuls, QK^T and PV."""
+        b = self._block
+        units = b.num_heads * b.head_dim
+        hidden = b._cells()[0].ffn1.weight.shape[0]
+        dense = 2 * rows * (units * 3 * units + units * units
+                            + 2 * units * hidden)
+        return dense + 4 * rows * keys * units
+
+    def decode_cost_analysis(self) -> float:
+        """FLOPs of ONE decode step over the whole cache (every slot, each
+        attending to all ``max_len`` positions, as the step's program
+        does): an analytic count from the model's dimensions (the
+        reference reads XLA's cost model, which the port does not have)."""
+        b = self._block
+        s = self.max_slots
+        return float(b.num_layers * self._layer_flops(s, self.max_len)
+                     + 2 * s * b.num_heads * b.head_dim * b.vocab_size)
+
+    def prefill_cost_analysis(self, bucket: int) -> float:
+        """FLOPs of one prefill at ``bucket`` tokens (causal attention over
+        the whole padded bucket, the head over every row), analytic as
+        :meth:`decode_cost_analysis`."""
+        b = self._block
+        return float(b.num_layers * self._layer_flops(bucket, bucket)
+                     + 2 * bucket * b.num_heads * b.head_dim * b.vocab_size)
+
+    # -- live weight hot-swap --------------------------------------------------
+    @property
+    def weights_version(self):
+        """Version tag of the live weights (0 until the first
+        :meth:`publish_weights`)."""
+        return self._weights_version
+
+    def publish_weights(self, source, version=None,
+                        allow_partial: bool = True,
+                        timeout: Optional[float] = 30.0) -> dict:
+        """Publish a new weight version into the live session: no drain,
+        no capture, nothing dropped. Reading the source, digesting and
+        putting changed values on the device happen here, on the
+        publisher's thread, while decoding goes on; the scheduler then
+        commits the staged version between decode steps (under the
+        device lock), so every prefill and every step runs under exactly
+        one version. In-flight sequences keep their KV cache (computed
+        under the old weights) and continue under the new ones from the
+        next step.
+
+        Blocks until the scheduler applies the swap (``timeout``); returns
+        the swap stats. On timeout the staged swap is withdrawn: a publish
+        reported failed never flips in later."""
+        from .server import _resolve_version, _stage_publish
+
+        with self._swap_lock:
+            t0 = time.perf_counter()
+            staged = _stage_publish(self._prefill_cache, source,
+                                    allow_partial, self.name)
+            version = _resolve_version(self._weights_version, version)
+            applied = threading.Event()
+            swap = {"staged": staged, "version": version,
+                    "applied": applied}
+            with self._cv:
+                if self._state != "running":
+                    raise ServerClosedError(
+                        f"decode session is {self._state}; not "
+                        "accepting a weight publish")
+                self._pending_swap = swap
+                self._cv.notify_all()
+            if not applied.wait(timeout):
+                with self._cv:
+                    if self._pending_swap is swap:
+                        # withdraw: the scheduler never saw it, and a
+                        # failed publish must not flip in later
+                        self._pending_swap = None
+                        raise TimeoutError(
+                            "weight swap staged but not applied in "
+                            "time (is the scheduler thread alive?)")
+                # lost the race: the scheduler applied it after the wait
+                # expired, so the publish did land
+            if "error" in swap:
+                raise swap["error"]
+            with self._cv:
+                if self._state == "closed" \
+                        and self._weights_version != version:
+                    raise ServerClosedError(
+                        "decode session closed before the staged swap "
+                        "was applied")
+            dt = time.perf_counter() - t0
+        stats = dict(staged.stats)
+        stats["version"] = version
+        stats["seconds"] = round(dt, 4)
+        self.engine_metrics.observe_swap()
+        return stats
+
+    def _apply_pending_swap(self) -> None:
+        """Commit a staged weight version (scheduler thread, between decode
+        steps): under the device lock, so no prefill, join or step runs
+        meanwhile, and under ``_cv``, so a publisher's timeout either
+        withdraws it first or sees it applied."""
+        if self._pending_swap is None:
+            return
+        with self._exec_lock, self._cv:
+            swap, self._pending_swap = self._pending_swap, None
+            if swap is None:
+                return
+            try:
+                self._prefill_cache.commit_params(swap["staged"])
+                self._weights_version = swap["version"]
+            except Exception as exc:   # noqa: BLE001 — the publisher raises
+                logger.exception("weight swap failed")
+                swap["error"] = exc
+            finally:
+                swap["applied"].set()
+
+    def resident_bytes(self) -> int:
+        """Device bytes this session pins: its parameters, the KV cache and
+        its graphs' memory (the prefill buckets' and the decode step's:
+        the port's own accounting, see ``executor_cache.reserved_bytes``)."""
+        return (self._prefill_cache.resident_bytes() + self._kv.nbytes
+                + max(0, self.graph_bytes))
+
+    def estimated_wait_s(self) -> float:
+        """Queue-wait estimate for a new request (0 while a slot is free
+        and nothing queues): the registry's SLO admission signal."""
+        with self._cv:
+            if self._free and not self._pending:
+                return 0.0
+            return self._retry_after_locked()
+
+    def release(self) -> None:
+        """After :meth:`close`: drop the prefill graphs, the decode graph
+        and the KV cache, and give their memory back to the card (what a
+        registry eviction does). The session serves no more."""
+        with self._exec_lock:
+            self._prefill_cache.release()
+            if self._graphs is not None:
+                self._graphs = superstep.GraphCache(
+                    self.device, size=1, capture_error_mode="thread_local")
+            self._kv.k = self._kv.v = None
+            self._decode_built = False
+            self.graph_bytes = 0
+        release_device_memory()
 
     # -- client side ---------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
@@ -438,6 +723,7 @@ class DecodeSession:
 
     def _loop(self) -> None:
         while True:
+            self._apply_pending_swap()
             admits, shed = self._wait_for_work()
             if admits is None:
                 return
@@ -486,6 +772,8 @@ class DecodeSession:
             while True:
                 if self._state == "closed":
                     return None, []
+                if self._pending_swap is not None:
+                    return [], []      # the loop commits it first
                 n_active = sum(1 for s in self._slots if s is not None)
                 if n_active or (self._pending and self._free):
                     break
@@ -624,6 +912,9 @@ class DecodeSession:
             self._free = deque(range(self.max_slots))
             self._cache_len[:] = 0
             self._tokens[:] = 0
+            swap, self._pending_swap = self._pending_swap, None
+            if swap is not None:
+                swap["applied"].set()   # a waiting publisher fails fast
             self._cv.notify_all()
         for req in pending:
             req.handle._fail(ServerClosedError("decode session closed"))
@@ -652,7 +943,7 @@ class DecodeSession:
             "model": self.name,
             "queue_depth": depth,
             "slots": {"active": active, "total": self.max_slots},
-            "warm": self._warmup_seconds is not None,
+            "warm": self.engine_metrics.warmup_seconds > 0,
         }
 
     @property
@@ -664,7 +955,10 @@ class DecodeSession:
         snap["prefill_buckets"] = list(self._prefill_cache.buckets)
         snap["prefill_cache"] = self._prefill_cache.metrics.snapshot()[
             "executor_cache"]
-        snap["warmup_seconds"] = self._warmup_seconds
+        snap["engine_cache"] = self.engine_metrics.snapshot()[
+            "executor_cache"]
+        snap["warmup_seconds"] = self.engine_metrics.warmup_seconds
+        snap["weights_version"] = self._weights_version
         snap["max_len"] = self.max_len
         if self._step_ema is not None:
             snap["step_ema_ms"] = self._step_ema * 1e3

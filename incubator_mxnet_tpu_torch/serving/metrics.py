@@ -1,16 +1,18 @@
-"""Serving metrics: the batch tier's ``ServingMetrics`` and the decode
-tier's ``DecodeMetrics``.
+"""Serving metrics: the batch tier's ``ServingMetrics``, the decode tier's
+``DecodeMetrics`` and the registry's ``RegistryMetrics``.
 
 Counterparts of the JAX package's ``serving/metrics.py`` classes of the
 same names, with the same ``snapshot()`` keys. One ``ServingMetrics`` is
 shared by a model's executor cache, batcher and server: request latency
 percentiles (a sliding window), queue depth, batch occupancy (requests per
 executed batch, the number dynamic batching exists to raise), rejects,
-sheds, forced closes, the executor cache's hits, misses and captures, the
-last warm-up's seconds. ``DecodeMetrics`` counts slot occupancy, token
+sheds, forced closes, the executor cache's hits, misses, kernel builds,
+captures, artifacts and weight swaps, the last warm-up's seconds. ``DecodeMetrics`` counts slot occupancy, token
 throughput, the prefill-vs-decode wall-time split, KV-cache bytes, queue
-wait and time to first token. The telemetry exporters and the profiler
-counters are not ported yet, so the counters live here only.
+wait and time to first token. ``RegistryMetrics`` counts a
+``ModelRegistry``'s admissions, evictions, SLO rejections and weight swaps
+and gauges its residency against its budget. The telemetry exporters and
+the profiler counters are not ported yet, so the counters live here only.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import threading
 from collections import deque
 from typing import Dict
 
-__all__ = ["DecodeMetrics", "ServingMetrics"]
+__all__ = ["DecodeMetrics", "RegistryMetrics", "ServingMetrics"]
 
 
 def _percentile(sorted_vals, p: float) -> float:
@@ -35,13 +37,14 @@ def _percentile(sorted_vals, p: float) -> float:
 class ServingMetrics:
     """Thread-safe counters and a sliding-window latency reservoir.
 
-    A CUDA-graph capture is this port's counterpart of the JAX package's
-    XLA compile: the executor cache records each under the reference's
-    names (:meth:`observe_compile`, ``compiles``, ``compile_seconds``).
-    The persistent-artifact keys (``artifact_hits``, ``artifact_misses``,
-    ``artifact_refused``, ``deserialize_seconds``) stay 0: a CUDA graph is
-    not serialized, and the artifact store is not ported. ``swaps`` stays
-    0 until weight hot-swap is ported."""
+    What a cold start pays for here is the kernel libraries' ``nvcc``
+    builds, so ``compiles`` (and ``compile_seconds``) count those: the
+    builds a signature's executable set off (:meth:`observe_compile`).
+    The CUDA-graph captures, which compile nothing, are counted apart
+    (:meth:`observe_capture`, ``captures``, ``capture_seconds``). An
+    artifact hit (:meth:`observe_deserialize`) is a signature whose kernel
+    libraries came off the artifact store; ``swaps`` counts weight
+    versions published into the live model."""
 
     def __init__(self, model: str = "model", window: int = 2048):
         self.model = model
@@ -57,6 +60,8 @@ class ServingMetrics:
         self.cache_misses = 0
         self.compiles = 0
         self.compile_seconds = 0.0
+        self.captures = 0
+        self.capture_seconds = 0.0
         self.artifact_hits = 0
         self.artifact_misses = 0
         self.artifact_refused = 0
@@ -104,15 +109,44 @@ class ServingMetrics:
         with self._lock:
             self.cache_misses += 1
 
-    def observe_compile(self, seconds: float) -> None:
+    def observe_compile(self, seconds: float, n: int = 1) -> None:
+        """``n`` kernel-library builds (``nvcc``) taking ``seconds``."""
+        with self._lock:
+            self.compiles += n
+            self.compile_seconds += seconds
+
+    def observe_capture(self, seconds: float) -> None:
         """One CUDA-graph capture (warm-up run included) of ``seconds``."""
         with self._lock:
-            self.compiles += 1
-            self.compile_seconds += seconds
+            self.captures += 1
+            self.capture_seconds += seconds
+
+    def observe_deserialize(self, seconds: float) -> None:
+        """A signature's kernel libraries came off the persistent artifact
+        store (installed in ``seconds``; no ``nvcc`` ran for them)."""
+        with self._lock:
+            self.artifact_hits += 1
+            self.deserialize_seconds += seconds
+
+    def artifact_miss(self, refused: bool = False) -> None:
+        """No usable artifact for a missed signature: its kernels build
+        where they must (and the artifact is written again).
+        ``refused`` marks a stale one: an artifact existed but its guard
+        (torch, CUDA, driver, device, kernel sources, model fingerprint)
+        disagreed."""
+        with self._lock:
+            self.artifact_misses += 1
+            if refused:
+                self.artifact_refused += 1
 
     def observe_warmup(self, seconds: float) -> None:
         with self._lock:
             self.warmup_seconds = seconds
+
+    def observe_swap(self) -> None:
+        """A new weight version was published into the live model."""
+        with self._lock:
+            self.swaps += 1
 
     # -- reads ----------------------------------------------------------------
     def latency_ms(self, p: float) -> float:
@@ -149,6 +183,8 @@ class ServingMetrics:
                     "misses": self.cache_misses,
                     "compiles": self.compiles,
                     "compile_seconds": self.compile_seconds,
+                    "captures": self.captures,
+                    "capture_seconds": self.capture_seconds,
                     "artifact_hits": self.artifact_hits,
                     "artifact_misses": self.artifact_misses,
                     "artifact_refused": self.artifact_refused,
@@ -247,4 +283,76 @@ class DecodeMetrics:
                 "decode_seconds": self.decode_seconds,
                 "prefill_frac":
                     (self.prefill_seconds / total) if total else 0.0,
+            }
+
+
+class RegistryMetrics:
+    """Registry-level counters of a ``ModelRegistry``: resident models and
+    bytes against the budget, and admissions (cold ones apart), evictions,
+    SLO rejections and weight swaps, in all and per model."""
+
+    def __init__(self, registry: str = "registry"):
+        self.registry = registry
+        self._lock = threading.Lock()
+        self.admissions = 0
+        self.cold_admissions = 0     # built by nvcc (no warm kernel artifacts)
+        self.evictions = 0
+        self.slo_rejections = 0
+        self.swaps = 0
+        self.resident = 0
+        self.resident_bytes = 0
+        self.budget_bytes = 0
+        self.per_model: Dict[str, Dict[str, int]] = {}
+
+    def _bump(self, model: str, key: str) -> None:
+        slot = self.per_model.setdefault(
+            model, {"admissions": 0, "evictions": 0, "slo_rejections": 0,
+                    "swaps": 0})
+        slot[key] += 1
+
+    def observe_admit(self, model: str, cold: bool) -> None:
+        with self._lock:
+            self.admissions += 1
+            if cold:
+                self.cold_admissions += 1
+            self._bump(model, "admissions")
+
+    def observe_evict(self, model: str) -> None:
+        with self._lock:
+            self.evictions += 1
+            self._bump(model, "evictions")
+
+    def observe_slo_rejection(self, model: str) -> None:
+        with self._lock:
+            self.slo_rejections += 1
+            self._bump(model, "slo_rejections")
+
+    def observe_swap(self, model: str) -> None:
+        with self._lock:
+            self.swaps += 1
+            self._bump(model, "swaps")
+
+    def set_residency(self, resident: int, resident_bytes: int) -> None:
+        with self._lock:
+            self.resident = int(resident)
+            self.resident_bytes = int(resident_bytes)
+
+    def set_budget(self, budget_bytes: int) -> None:
+        with self._lock:
+            self.budget_bytes = int(budget_bytes)
+
+    def snapshot(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "registry": self.registry,
+                "admissions": self.admissions,
+                "cold_admissions": self.cold_admissions,
+                "evictions": self.evictions,
+                "slo_rejections": self.slo_rejections,
+                "swaps": self.swaps,
+                "resident": self.resident,
+                "resident_bytes": self.resident_bytes,
+                "budget_bytes": self.budget_bytes,
+                "per_model": {m: dict(v)
+                              for m, v in self.per_model.items()},
             }

@@ -13,7 +13,10 @@ path from the same state and seed, bit for bit: the same kernels run in
 the same order on the same inputs, dropout draws included. The kernel
 launch counters of a replay equal those of the K eager steps. So are the
 serving tier's graphs: a ``BucketedExecutorCache`` bucket (the
-``ModelServer``'s batch forward) and a ``DecodeSession`` prefill bucket.
+``ModelServer``'s batch forward) and a ``DecodeSession`` prefill bucket; a
+weight swap followed by a replay (equal to eager on the new weights: the
+commit copies into the tensors the graphs read, never rebinds them), and
+a cache's release giving its graphs' memory back to the card.
 """
 
 import threading
@@ -302,7 +305,7 @@ def test_bucket_graph_replay_bit_equal_to_eager(cuda_device, share_pool):
     cache = serving.BucketedExecutorCache.from_block(
         net, buckets=(1, 2, 4), ctx=mx.gpu(0), share_pool=share_pool)
     cache.warmup((3, HW, HW), "float32")
-    assert cache.metrics.compiles == 3
+    assert cache.metrics.captures == 3
     rs = np.random.RandomState(13)
     for n in (1, 2, 3, 4):
         x = rs.rand(n, 3, HW, HW).astype(np.float32)
@@ -315,7 +318,7 @@ def test_bucket_graph_replay_bit_equal_to_eager(cuda_device, share_pool):
             want = net(torch.from_numpy(pad).to(cuda_device))[:n].cpu()
         assert torch.equal(torch.from_numpy(got), want), n
         assert moved[fc.__name__, "fused_conv_launches"] == 16
-    assert cache.metrics.compiles == 3
+    assert cache.metrics.captures == 3
 
 
 def test_model_server_on_the_card_bf16_on_a_fresh_thread(cuda_device):
@@ -330,7 +333,7 @@ def test_model_server_on_the_card_bf16_on_a_fresh_thread(cuda_device):
                              args=((3, HW, HW), "float32"))
         t.start()
         t.join()
-        assert srv.metrics.compiles == 3
+        assert srv.metrics.captures == 3
         x = np.random.RandomState(14).rand(4, 3, HW, HW).astype(np.float32)
         got = srv._cache(x)
         with torch.no_grad(), mx.autograd.pause():
@@ -354,7 +357,7 @@ def test_prefill_graph_bit_equal_to_eager_at_two_lengths(cuda_device):
     with serving.DecodeSession(net, ctx=mx.gpu(0), max_slots=2, max_len=64,
                                prefill_buckets=(16, 64)) as sess:
         sess.warmup()
-        assert sess.stats()["prefill_cache"]["compiles"] == 2
+        assert sess.stats()["prefill_cache"]["captures"] == 2
         rs = np.random.RandomState(4)
         for b, n in ((16, 9), (16, 16), (64, 33), (64, 50)):
             prompt = rs.randint(0, 97, (n,)).astype(np.int32)
@@ -366,4 +369,67 @@ def test_prefill_graph_bit_equal_to_eager_at_two_lengths(cuda_device):
                 torch.from_numpy(pad).to(cuda_device),
                 torch.tensor(n, dtype=torch.int32, device=cuda_device))
             assert all(torch.equal(g, w) for g, w in zip(got, want)), (b, n)
-        assert sess.stats()["prefill_cache"]["compiles"] == 2
+        assert sess.stats()["prefill_cache"]["captures"] == 2
+
+
+@pytest.mark.parametrize("share_pool", [True, False], ids=["shared", "own"])
+def test_swap_then_replay_equals_eager_on_the_new_weights(cuda_device,
+                                                         share_pool):
+    """A new weight version committed into a warm cache: every bucket's
+    replay equals the eager forward on the new weights bit for bit (a
+    rebound parameter would leave the graphs on the old storage), the
+    resident tensors keep their addresses, nothing is captured again."""
+    net = _served_resnet()
+    other = _served_resnet()
+    with torch.no_grad():
+        for p in other.parameters():
+            if p.requires_grad:
+                p.mul_(1.5)
+    cache = serving.BucketedExecutorCache.from_block(
+        net, buckets=(1, 2, 4), ctx=mx.gpu(0), share_pool=share_pool,
+        artifact_dir="")
+    cache.warmup((3, HW, HW), "float32")
+    ptrs = [p.data_ptr() for p in net.parameters()]
+    x = np.random.RandomState(15).rand(4, 3, HW, HW).astype(np.float32)
+    before = cache(x)
+    stats = cache.swap_params(dict(other.named_parameters()))
+    assert stats["updated"] > 0 and stats["updated"] + stats["aliased"] \
+        == stats["params"]
+    assert [p.data_ptr() for p in net.parameters()] == ptrs
+    for n in (1, 2, 4):
+        pad = np.zeros((cache.bucket_for(n),) + x.shape[1:], np.float32)
+        pad[:n] = x[:n]
+        with torch.no_grad(), mx.autograd.pause():
+            want = other(torch.from_numpy(pad).to(cuda_device))[:n].cpu()
+        assert torch.equal(torch.from_numpy(cache(x[:n])), want), n
+    assert not np.array_equal(cache(x), before)
+    assert cache.metrics.captures == 3 and cache.metrics.swaps == 1
+    assert cache.last_commit_ms > 0
+
+
+def test_release_gives_the_graph_memory_back(cuda_device):
+    """A cache's graphs hold memory beyond the parameters (``graph_bytes``,
+    counted in ``resident_bytes``); ``release`` (what a registry eviction
+    runs) gives it back: allocated and reserved memory return to their
+    level before the warm-up, within 5%."""
+    from incubator_mxnet_tpu_torch.serving.executor_cache import \
+        release_device_memory
+
+    net = _served_resnet()
+    release_device_memory()
+    a0 = torch.cuda.memory_allocated()
+    r0 = torch.cuda.memory_reserved()
+    cache = serving.BucketedExecutorCache.from_block(
+        net, buckets=(1, 2, 4), ctx=mx.gpu(0), artifact_dir="")
+    cache.warmup((3, HW, HW), "float32")
+    assert cache.graph_bytes > 0
+    assert cache.resident_bytes() == cache.param_bytes() + cache.graph_bytes
+    assert torch.cuda.memory_reserved() - r0 >= cache.graph_bytes // 2
+    cache.release()
+    assert cache.compiled_signatures() == [] and cache.graph_bytes == 0
+    assert abs(torch.cuda.memory_allocated() - a0) <= 0.05 * max(a0, 1)
+    assert torch.cuda.memory_reserved() - r0 <= 0.05 * max(r0, 1)
+    x = np.random.RandomState(16).rand(2, 3, HW, HW).astype(np.float32)
+    with torch.no_grad(), mx.autograd.pause():
+        want = net(torch.from_numpy(x).to(cuda_device)).cpu()
+    assert torch.equal(torch.from_numpy(cache(x)), want)   # captured again

@@ -88,7 +88,8 @@ def test_sources_import_no_jax_and_no_jax_package():
                  "parallel/superstep.py", "ops/launches.py",
                  "models/__init__.py", "models/transformer.py",
                  "serving/server.py", "serving/batcher.py",
-                 "serving/executor_cache.py", "serving/metrics.py"):
+                 "serving/executor_cache.py", "serving/metrics.py",
+                 "serving/registry.py", "serving/artifacts.py"):
         assert PKG / name in files, name
     for f in files + [ROOT / "chip_smoke.py"]:
         for mod in _imported_modules(f):
@@ -588,6 +589,55 @@ def test_chip_smoke_model_server_phase_rehearses_on_the_cpu(monkeypatch):
     # on the CPU both routes are the plain version
     assert out["bf16"]["gate"] > 0
     assert out["bf16"]["ratio"] <= 1 + cs.FWD_GATE_SLACK
+
+
+def test_chip_smoke_registry_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.registry_phase`` on a small fused ResNet and a tiny GPT
+    on the CPU (eager executables, no kernel launches, no card memory):
+    the budget fits two models of three, the LRU idle model goes, the one
+    in flight stays, a re-admission serves its first residency's rows,
+    the hot-swap under open-loop traffic gives every batch exactly one
+    version and every request after the publish version 1, a replay after
+    it equals the eager forward on the new weights, the decode streams
+    follow each version's oracle and a deferred publish lands at the next
+    admission. The artifact warm start (new processes on the card) is left
+    out here."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import (
+        FusedResNetV1)
+
+    cs = _chip_smoke()
+    windows = []
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda label, got, *want: windows.append(label))
+
+    def make_resnet(seed):
+        mx.random.seed(seed)
+        return FusedResNetV1([1, 1, 1, 1], [16, 32, 64, 128, 256],
+                             classes=10).initialize("xavier", ctx=mx.cpu())
+
+    def make_gpt(seed):
+        mx.random.seed(seed)
+        return get_gpt("gpt_decoder_tiny", vocab_size=61, units=32,
+                       num_layers=2, max_length=256, dropout=0.0).initialize(
+                           "xavier", ctx=mx.cpu())
+
+    out = cs.registry_phase(0, "cpu", mx.cpu(), make_resnet, make_gpt,
+                            hw=32, buckets=(1, 2, 4), rate=40.0, rate_s=0.6,
+                            n_images=12, gpt_kw=dict(max_slots=2,
+                                                     max_len=256),
+                            prompt_lens=(5, 9, 20), new_tokens=4,
+                            long_tokens=120, clients=3, warm_start=False)
+    assert windows == ["registry fp32 traffic", "registry bf16 traffic",
+                       "registry fp32 swap traffic"]
+    assert [e[0] for e in out["evictions"]][:2] == ["resnet_fp32",
+                                                    "resnet_bf16"]
+    assert out["evictions"][1][2] == ["gpt"]
+    sw = out["swap"]
+    assert sw["requests"] > 0 and 0 < sw["v1_rows"] <= sw["requests"]
+    assert out["budget"] < sum(out["sizes"].values())
+    assert out["stats"]["evictions"] >= 2 and out["stats"]["swaps"] == 3
+    assert "warm_start" not in out
 
 
 def test_chip_smoke_unfused_resnet_phase_rehearses_on_the_cpu(monkeypatch):
