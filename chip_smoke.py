@@ -264,7 +264,26 @@ Phases (any failure raises, and the script exits non-zero):
    views, a at the offset with b and out aligned, and all three at the
    offset), held and timed the same way; and ``mx.nd.flash_attention`` and
    ``invoke_op("fused_conv_bn")`` with gradients, equal to the direct
-   calls bit for bit.
+   calls bit for bit. ``first_row`` is also timed in ``FIRST_ROW_TURNS``
+   turns interleaved with ``torch.clone`` of row 0 and the empty kernel;
+15. mx.nd phase: ``gpt_decoder_117m`` at ``max_length`` 256, B=8, fp32,
+   trained through ``nd_gpt_step``, its forward written only in ``mx.nd``
+   ops (token and position ``Embedding``, ``LayerNorm``,
+   ``FullyConnected``, ``split`` of the fused QKV, ``reshape``/
+   ``transpose`` to (B, H, T, D), ``flash_attention(causal=True)``,
+   ``gelu``, ``Dropout``, the residual adds, the head) and its loss
+   ``SoftmaxOutput(normalization="valid")`` on the net's own parameters:
+   the loss and its 149 gradients against the gluon forward with
+   ``SoftmaxCrossEntropyLoss`` (mean; relative L2 <= 1e-4), a learning
+   check with dropout 0.1 (5 ``gluon.Trainer`` adam steps, the loss falls
+   5%), K4-K6 12 times a pass on the f32 route over those 7 passes; the
+   step's host ms beside the gluon step's (median of alternating turns)
+   and a profile; then every case of ``ND_CASES`` (the ops of the JAX
+   package's ``ops/tensor.py``, ``ops/nn.py``, ``ops/misc.py`` and the
+   alias block, at the CPU tests' shapes) on the card against the same
+   call on the CPU, forward and gradients (``ND_TOL``, or the case's own;
+   indices, ties and the index and sequence ops bit for bit), one line an
+   op family, and ``mx.nd.Dropout``'s statistics on the card.
 
 The third line from the end (``rows: {...}``) gives the bench rows: the
 fused and unfused ResNet-50, the MLP and BERT (pallas, xla and mixed
@@ -272,7 +291,9 @@ lengths), bf16, step ms and images/s or sequences/s, and
 the graph phase's rows and the decode step, eager beside graph, the
 prefill buckets, graph beside eager, and TTFT, the ModelServer's
 graph memory, warm-up, bucket times and open-loop rows, and the
-registry's sizes, budget, evictions, hot-swap and warm-start numbers. The
+registry's sizes, budget, evictions, hot-swap and warm-start numbers, and
+the mx.nd GPT step's ms beside the gluon step's, its device ms and the
+mx.nd phase's seconds. The
 line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
@@ -292,6 +313,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import functools
 import gc
 import importlib.util
@@ -4873,6 +4895,8 @@ IMPERATIVE_GRAD_RTOL = 1e-4
 # on views at these float offsets of a larger buffer
 RTC_SOFTMAX_SHAPES = ((256, 100003), (5, 7), (3, 4099))
 RTC_SCALE_OFFSETS = (1, 3)
+# turns of first_row beside torch.clone of row 0 and an empty kernel
+FIRST_ROW_TURNS = 7
 
 
 def _rtc_counts(reset=False):
@@ -5350,6 +5374,22 @@ def imperative_phase(seed, card, net, ctx, b=8, flat=RTC_FLAT, lr=3e-4,
         print(f"an empty kernel (launch floor): ms={empty_ms:.5f} (device, "
               f"CUDA graph) beside first_row's "
               f"{rows['first_row']['ms']:.5f}", flush=True)
+        # first_row, torch.clone of row 0 and the empty kernel in turns,
+        # so the gap between the three is read within one stretch of time
+        turns = {"first_row": calls["first_row"],
+                 "clone": library["first_row"],
+                 "empty": lambda: empty.launch([0], ctx, (1, 1, 1),
+                                               (32, 1, 1))}
+        turn_ms = {k: [] for k in turns}
+        for _ in range(FIRST_ROW_TURNS):
+            for k, fn in turns.items():
+                turn_ms[k].append(device_ms(fn))
+        rows["first_row"]["turns_ms"] = turn_ms
+        print(f"first_row, torch.clone of row 0 and an empty kernel in "
+              f"{FIRST_ROW_TURNS} interleaved turns (device ms, CUDA graph; "
+              "median [min, max]): " + "; ".join(
+                  f"{k} {np.median(v):.6f} [{min(v):.6f}, {max(v):.6f}]"
+                  for k, v in turn_ms.items()), flush=True)
     plan = rk.softmax_ce_fwd_plan(vocab, rk.smem_optin(dev))
     print(f"softmax_ce_fwd plan {shapes['softmax_ce_fwd']} (the path's): "
           f"{_plan_text(plan)}", flush=True)
@@ -5421,6 +5461,669 @@ def imperative_main(seed, card):
     net = get_gpt("gpt_decoder_117m", vocab_size=50257, dropout=0.0,
                   max_length=256).initialize("xavier", ctx=ctx)
     out = imperative_phase(seed, card, net, ctx)
+    if out["n_params"] != 149:
+        raise AssertionError("gpt_decoder_117m has 149 trainable tensors")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mx.nd phase: the everyday ops, and a GPT step written in them alone
+# ---------------------------------------------------------------------------
+def _nd_rand(seed, *shape, lo=-1.0, hi=1.0):
+    return np.random.RandomState(seed).uniform(lo, hi, shape).astype(
+        np.float32)
+
+
+def _f32(values):
+    return np.asarray(values, np.float32)
+
+
+#: one op call of the mx.nd phase: ``name`` is an ``mx.nd`` attribute, or
+#: ``"op:<registered name>"`` for ``invoke_op``; ``arrays`` (numpy) are its
+#: array arguments and a numpy value among ``kwargs`` goes in as an array;
+#: ``grad`` the positions of the arrays whose gradient of ``sum(out * w)``
+#: is held too; ``tol`` the float tolerance (None: ``ND_TOL``); ``exact``
+#: holds every value bit for bit
+NdCase = collections.namedtuple(
+    "NdCase", "family id name arrays kwargs grad tol exact",
+    defaults=({}, (), None, False))
+# fp32 results of the same formula in another order of operations
+ND_TOL = dict(rtol=1e-5, atol=1e-6)
+# the special functions and sums over windows: each library's own series
+# or summation order (lgamma, digamma, erfinv, the transposed convolution,
+# group statistics)
+ND_LOOSE = dict(rtol=1e-4, atol=1e-5)
+
+_X = _nd_rand(0, 3, 4)
+_XNZ = np.where(_X >= 0, _X + 0.2, _X - 0.2).astype(np.float32)
+_POS = _nd_rand(2, 3, 4, lo=0.2, hi=2.0)
+_UNIT = _nd_rand(3, 3, 4, lo=-0.9, hi=0.9)
+_ROUNDS = _nd_rand(5, 3, 4, lo=-3.0, hi=3.0)
+_HALVES = _f32([0.5, 1.5, 2.5, -0.5, -1.5, -2.5])
+_TIES = _f32([1, 3, 3, 2, 3])
+_IMG = _nd_rand(6, 2, 4, 4, 6)
+_SEQ = _nd_rand(7, 5, 3, 2)
+_LENS = _f32([2, 5, 3])
+
+
+def _unary(name, x, tol=None, grad=(0,)):
+    return NdCase("unary", name, name, [x], {}, grad, tol)
+
+
+ND_CASES = [
+    *[_unary(n, _ROUNDS) for n in ("rint", "ceil", "floor", "trunc", "fix",
+                                   "round")],
+    # jnp's rule, half to even ([0.5, 1.5, 2.5] -> [0, 2, 2]): MXNet's own
+    # round went half away from zero
+    NdCase("unary", "rint_half_to_even", "rint", [_HALVES], exact=True),
+    NdCase("unary", "round_half_to_even", "round", [_HALVES], exact=True),
+    _unary("rsqrt", _POS), _unary("cbrt", _XNZ), _unary("rcbrt", _XNZ),
+    _unary("log10", _POS), _unary("log2", _POS), _unary("log1p", _POS),
+    _unary("expm1", _X), _unary("reciprocal", _XNZ),
+    *[_unary(n, _X) for n in ("sin", "cos", "tan", "arctan", "sinh", "cosh",
+                              "arcsinh", "erf", "erfc", "degrees", "radians",
+                              "log_sigmoid")],
+    *[_unary(n, _UNIT) for n in ("arcsin", "arccos", "arctanh")],
+    _unary("arccosh", _nd_rand(4, 3, 4, lo=1.1, hi=3.0)),
+    _unary("erfinv", _UNIT, ND_LOOSE), _unary("gamma", _POS, ND_LOOSE),
+    _unary("gammaln", _POS, ND_LOOSE), _unary("digamma", _POS, ND_LOOSE),
+    # exp(gammaln(x)): the sign of Γ(x) < 0 is lost; digamma(0) is NaN
+    NdCase("unary", "gamma_loses_the_sign", "gamma",
+           [_f32([-0.5, -1.5, 2.5])], tol=ND_LOOSE),
+    NdCase("unary", "digamma_at_0_is_nan", "digamma",
+           [_f32([0.0, 1.0, 2.5])], tol=ND_LOOSE),
+    *[NdCase("unary", n, n, [_f32([0.0, np.nan, np.inf, -np.inf, 1.5])],
+             exact=True) for n in ("isnan", "isinf", "isfinite")],
+    NdCase("unary", "logical_not", "logical_not",
+           [_f32([0.0, 1.5, -2.0, 0.0])]),
+    # an integer input gives float32
+    NdCase("unary", "logical_not_int", "logical_not",
+           [np.array([0, 1, -2, 0], np.int32)], exact=True),
+    NdCase("products", "matmul", "matmul",
+           [_nd_rand(10, 2, 3, 4), _nd_rand(11, 2, 4, 5)], grad=(0, 1)),
+    NdCase("products", "linalg_gemm2", "linalg_gemm2",
+           [_nd_rand(12, 2, 4, 3), _nd_rand(13, 2, 4, 5)],
+           dict(transpose_a=True, alpha=0.5), (0, 1)),
+    NdCase("products", "khatri_rao", "khatri_rao",
+           [_nd_rand(14, 2, 3), _nd_rand(15, 4, 3), _nd_rand(16, 3, 3)],
+           grad=(0, 1, 2)),
+    NdCase("shape", "flip", "flip", [_IMG], dict(axis=1), (0,)),
+    NdCase("shape", "flip_axes", "flip", [_IMG], dict(axis=(0, 2)), (0,)),
+    NdCase("shape", "reverse", "reverse", [_X], dict(axis=0), (0,)),
+    NdCase("shape", "tile", "tile", [_X], dict(reps=(2, 1, 3)), (0,)),
+    NdCase("shape", "repeat", "repeat", [_X], dict(repeats=2, axis=1),
+           (0,)),
+    NdCase("shape", "repeat_flat", "repeat", [_X], dict(repeats=3), (0,)),
+    *[NdCase("shape", f"pad_{mode}", "pad", [_IMG[:1]],
+             dict(pad_width=((0, 0), (0, 0), (1, 2), (2, 3)), mode=mode,
+                  constant_value=0.5), (0,))
+      for mode in ("constant", "edge", "reflect")],
+    NdCase("shape", "Pad", "Pad", [_IMG[:1]],
+           dict(pad_width=((0, 0), (1, 0), (1, 1), (0, 2)),
+                mode="constant"), (0,)),
+    NdCase("shape", "depth_to_space", "depth_to_space",
+           [_nd_rand(17, 1, 8, 2, 3)], dict(block_size=2), (0,)),
+    NdCase("shape", "space_to_depth", "space_to_depth",
+           [_nd_rand(18, 1, 2, 4, 6)], dict(block_size=2), (0,)),
+    NdCase("shape", "concat", "concat", [_X, _nd_rand(19, 3, 2)], {},
+           (0, 1)),
+    NdCase("shape", "concat_axis", "concat", [_X, _nd_rand(19, 2, 4)],
+           dict(axis=0), (0, 1)),
+    NdCase("shape", "concatenate", "concatenate", [_X, _X], dict(axis=-1),
+           (0, 1)),
+    NdCase("shape", "Concat", "Concat", [_X, _X, _POS], dict(dim=0),
+           (0, 1, 2)),
+    NdCase("shape", "stack", "stack", [_X, _POS, _UNIT], dict(axis=1),
+           (0, 1, 2)),
+    NdCase("shape", "split", "split", [_nd_rand(20, 2, 6)],
+           dict(num_outputs=3, axis=1), (0,)),
+    NdCase("shape", "split_squeeze", "split", [_IMG[:, :3]],
+           dict(num_outputs=3, axis=1, squeeze_axis=True), (0,)),
+    NdCase("shape", "SliceChannel", "SliceChannel", [_IMG],
+           dict(num_outputs=2), (0,)),
+    NdCase("shape", "slice_channel", "slice_channel", [_IMG],
+           dict(num_outputs=2, axis=-1), (0,)),
+    NdCase("shape", "broadcast_axis", "broadcast_axis",
+           [_nd_rand(21, 1, 2, 1)], dict(axis=(0, 2), size=(3, 4)), (0,)),
+    NdCase("shape", "broadcast_axes", "broadcast_axes",
+           [_nd_rand(21, 1, 2, 1)], dict(axis=0, size=3), (0,)),
+    NdCase("shape", "diag", "diag", [_X], dict(k=1), (0,)),
+    NdCase("shape", "diag_vector", "diag", [_f32([1, 2, 3])], dict(k=-1),
+           (0,)),
+    NdCase("shape", "diag_batched", "diag", [_IMG[0]], {}, (0,)),
+    NdCase("shape", "zeros_like", "zeros_like", [_X], exact=True),
+    NdCase("shape", "ones_like", "ones_like", [_X], exact=True),
+    NdCase("shape", "shape_array", "shape_array", [_IMG], exact=True),
+    NdCase("shape", "size_array", "size_array", [_IMG], exact=True),
+    NdCase("indexing", "gather_nd", "gather_nd",
+           [_nd_rand(22, 3, 4, 2), _f32([[0, 2, -1, 5], [1, -5, 3, 0]])],
+           grad=(0,), exact=True),
+    # index (0, 1) written twice: the last write wins; (5, 0) is out of
+    # range and writes nothing
+    NdCase("indexing", "scatter_nd_repeated", "scatter_nd",
+           [_nd_rand(23, 5, 2), _f32([[0, 2, 0, 1, 5], [1, 3, 1, 0, 0]])],
+           dict(shape=(3, 4, 2)), (0,), exact=True),
+    NdCase("indexing", "where", "where",
+           [_f32([[1, 0, 2, 0], [0, 0, 1, 1], [3, 0, 0, 1]]), _X, _POS],
+           grad=(1, 2), exact=True),
+    NdCase("indexing", "boolean_mask", "boolean_mask",
+           [_nd_rand(24, 4, 3), _f32([1, 0, 1, 1])], exact=True),
+    NdCase("indexing", "slice_like", "slice_like",
+           [_nd_rand(25, 3, 4, 5), _nd_rand(26, 2, 4, 3)],
+           dict(axes=(0, 2)), (0,), exact=True),
+    NdCase("indexing", "batch_take", "batch_take",
+           [_nd_rand(27, 4, 5), _f32([0, 4, -1, 7])], grad=(0,),
+           exact=True),
+    NdCase("indexing", "ravel_multi_index", "ravel_multi_index",
+           [_f32([[0, 1, 2], [3, 0, 4]])], dict(shape=(3, 5)), exact=True),
+    NdCase("indexing", "unravel_index", "unravel_index",
+           [_f32([7, 0, 14, 22])], dict(shape=(3, 5)), exact=True),
+    NdCase("indexing", "index_array", "index_array", [_IMG[0]],
+           exact=True),
+    NdCase("indexing", "index_array_axes", "index_array", [_IMG[0]],
+           dict(axes=(0, 2)), exact=True),
+    *[NdCase("sequence", f"{name}_{tag}", name, [data, _LENS],
+             dict(axis=axis, **extra), (0,), exact=True)
+      for name in ("sequence_mask", "sequence_last", "sequence_reverse")
+      for tag, data, axis, extra in (
+          ("seq_major", _SEQ, 0, {}),
+          ("batch_major", np.ascontiguousarray(_SEQ.transpose(1, 0, 2)), 1,
+           {}))],
+    NdCase("sequence", "sequence_mask_value", "sequence_mask",
+           [_SEQ, _LENS], dict(value=-1.0), (0,), exact=True),
+    *[NdCase("sequence", f"{name}_no_lengths", name, [_SEQ],
+             dict(use_sequence_length=False), (0,), exact=True)
+      for name in ("sequence_last", "sequence_reverse")],
+    *[NdCase("sequence", name, name, [_SEQ, _LENS],
+             dict(use_sequence_length=True), (0,), exact=True)
+      for name in ("SequenceMask", "SequenceLast", "SequenceReverse")],
+    NdCase("ordering", "sort", "sort", [_X], {}, (0,)),
+    NdCase("ordering", "sort_descending", "sort", [_X],
+           dict(axis=0, is_ascend=False), (0,)),
+    NdCase("ordering", "sort_ties_descending", "sort", [_TIES],
+           dict(is_ascend=False), (0,)),
+    NdCase("ordering", "argsort", "argsort", [_X], exact=True),
+    # [1, 3, 3, 2, 3] -> [4, 2, 1, 3, 0]: the flip of a stable ascending
+    # sort, ties latest index first
+    NdCase("ordering", "argsort_descending_ties", "argsort", [_TIES],
+           dict(is_ascend=False), exact=True),
+    NdCase("ordering", "argsort_int32", "argsort", [_X],
+           dict(axis=0, dtype="int32"), exact=True),
+    # lax.top_k: ties to the lower index ([1, 2]; ascending [0, 3])
+    NdCase("ordering", "topk_ties", "topk", [_TIES], dict(k=2), exact=True),
+    NdCase("ordering", "topk_ties_ascending", "topk", [_TIES],
+           dict(k=2, is_ascend=True), exact=True),
+    NdCase("ordering", "topk_value", "topk", [_X],
+           dict(k=3, ret_typ="value"), exact=True),
+    NdCase("ordering", "topk_both", "topk", [_X],
+           dict(k=2, axis=0, ret_typ="both", dtype="int32"), exact=True),
+    # over two axes jnp's 2-norm is the largest singular value (MXNet:
+    # the Frobenius norm); [0.8266, 2.2403, 3.7144] on this input
+    NdCase("reductions", "norm_two_axes",
+           "norm", [(np.arange(60, dtype=np.float32) / 60).reshape(3, 4, 5)],
+           dict(axis=(1, 2)), (0,)),
+    NdCase("reductions", "norm_two_axes_fro", "norm", [_IMG],
+           dict(ord="fro", axis=(0, 2), keepdims=True), (0,)),
+    NdCase("reductions", "norm_two_axes_ord1", "norm", [_IMG],
+           dict(ord=1, axis=(-1, 1)), (0,)),
+    NdCase("reductions", "moments", "moments", [_IMG],
+           dict(axes=(0, 2), keepdims=True), (0,)),
+    *[NdCase("activations", n, n, [_X * 2], {}, (0,))
+      for n in ("softsign", "softrelu", "gelu", "silu", "mish",
+                "hard_sigmoid")],
+    NdCase("activations", "gelu_exact", "gelu", [_X * 2],
+           dict(approximate=False), (0,)),
+    NdCase("activations", "activation", "activation", [_X],
+           dict(act_type="softsign"), (0,)),
+    *[NdCase("activations", f"LeakyReLU_{act}", "LeakyReLU", [_X * 2],
+             dict(act_type=act, slope=0.1), (0,))
+      for act in ("leaky", "elu", "selu", "gelu")],
+    NdCase("activations", "LeakyReLU_prelu", "LeakyReLU",
+           [_IMG, _f32([0.1, 0.2, 0.3, 0.4])], dict(act_type="prelu"),
+           (0, 1)),
+    NdCase("norms", "LayerNorm", "LayerNorm",
+           [_IMG, _nd_rand(30, 6, lo=0.5, hi=1.5), _nd_rand(31, 6)], {},
+           (0, 1, 2)),
+    NdCase("norms", "LayerNorm_axis1", "LayerNorm",
+           [_IMG, _nd_rand(30, 4, lo=0.5, hi=1.5), _nd_rand(31, 4)],
+           dict(axis=1, eps=1e-3), (0, 1, 2)),
+    NdCase("norms", "InstanceNorm", "InstanceNorm",
+           [_IMG, _nd_rand(32, 4, lo=0.5, hi=1.5), _nd_rand(33, 4)], {},
+           (0, 1, 2)),
+    NdCase("norms", "GroupNorm", "GroupNorm",
+           [_IMG, _nd_rand(32, 4, lo=0.5, hi=1.5), _nd_rand(33, 4)],
+           dict(num_groups=2), (0, 1, 2), ND_LOOSE),
+    NdCase("norms", "rms_norm", "rms_norm",
+           [_IMG, _nd_rand(34, 6, lo=0.5, hi=1.5)], {}, (0, 1)),
+    *[NdCase("norms", f"L2Normalization_{mode}", "L2Normalization", [_IMG],
+             dict(mode=mode), (0,))
+      for mode in ("instance", "channel", "spatial")],
+    NdCase("norms", "l2_normalization", "l2_normalization", [_IMG], {},
+           (0,)),
+    NdCase("norms", "adaptive_avg_pool2d", "adaptive_avg_pool2d", [_IMG],
+           dict(output_size=2), (0,)),
+    NdCase("norms", "BatchNorm_v1", "BatchNorm_v1",
+           [_IMG, _nd_rand(35, 4, lo=0.5, hi=1.5), _nd_rand(36, 4),
+            _nd_rand(37, 4), _nd_rand(38, 4, lo=0.5, hi=2.0)], {},
+           (0, 1, 2)),
+    # the positions at or past each row's length get 0 (the reference's
+    # mx.nd.softmax refuses an array keyword: its op function takes it)
+    NdCase("softmax", "softmax_length", "softmax", [_nd_rand(40, 3, 6)],
+           dict(length=_f32([6, 2, 4])), (0,)),
+    NdCase("softmax", "SoftmaxActivation", "SoftmaxActivation", [_IMG],
+           dict(mode="channel"), (0,)),
+    NdCase("softmax", "softmax_cross_entropy", "softmax_cross_entropy",
+           [_nd_rand(41, 4, 5) * 3, _f32([0, 4, 2, 1])], grad=(0,)),
+    *[NdCase("softmax", f"SoftmaxOutput_{tag}", "SoftmaxOutput",
+             [_nd_rand(42, 4, 5) * 3, _f32([0, 3, 2, 3])], kw, (0,))
+      for tag, kw in (("null", dict(grad_scale=2.0)),
+                      ("batch", dict(normalization="batch")),
+                      ("valid", dict(normalization="valid")),
+                      ("ignore_valid", dict(use_ignore=True, ignore_label=3,
+                                            normalization="valid")),
+                      ("ignore_null", dict(use_ignore=True,
+                                           ignore_label=2)))],
+    NdCase("softmax", "SoftmaxOutput_multi_output", "SoftmaxOutput",
+           [_nd_rand(43, 2, 3, 4) * 3, _f32([[0, 2, 1, 1], [2, 2, 0, 1]])],
+           dict(multi_output=True, normalization="batch"), (0,)),
+    NdCase("softmax", "softmax_output", "softmax_output",
+           [_nd_rand(42, 4, 5), _f32([0, 3, 2, 3])], {}, (0,)),
+    NdCase("softmax", "Softmax", "op:Softmax",
+           [_nd_rand(42, 4, 5), _f32([0, 3, 2, 3])], {}, (0,)),
+    *[NdCase("losses", name, name, [_X, _nd_rand(44, 12)],
+             dict(grad_scale=2.0), (0,))
+      for name in ("LinearRegressionOutput", "MAERegressionOutput",
+                   "LogisticRegressionOutput")],
+    NdCase("losses", "MakeLoss", "MakeLoss", [_X], dict(grad_scale=3.0),
+           (0,)),
+    NdCase("losses", "make_loss", "make_loss", [_X], {}, (0,)),
+    # normalization and valid_thresh (the JAX package's mx.nd.MakeLoss is
+    # ops/more.py's, which reads grad_scale alone: held against
+    # ops/misc.py's op)
+    NdCase("losses", "make_loss_batch", "make_loss", [_IMG],
+           dict(grad_scale=2.0, normalization="batch"), (0,)),
+    NdCase("losses", "make_loss_valid", "make_loss", [_X],
+           dict(normalization="valid", valid_thresh=0.1), (0,)),
+    NdCase("embedding", "Embedding", "Embedding",
+           [_f32([[0, 3, -1], [10, 2, -11]]), _nd_rand(45, 10, 4)],
+           dict(input_dim=10, output_dim=4), (1,)),
+    NdCase("embedding", "embedding", "embedding",
+           [_f32([1, 2, 9]), _nd_rand(45, 10, 4)], {}, (1,)),
+    *[NdCase("embedding", name, "op:" + name,
+             [_f32([1, 0, 9]), _nd_rand(45, 10, 4)], {}, (1,))
+      for name in ("SparseEmbedding", "contrib_SparseEmbedding")],
+    NdCase("conv", "Deconvolution_1d", "Deconvolution",
+           [_nd_rand(50, 2, 3, 7), _nd_rand(51, 3, 2, 3),
+            _nd_rand(52, 2)], dict(stride=2, pad=1, adj=1, dilate=1),
+           (0, 1, 2),
+           ND_LOOSE),
+    NdCase("conv", "Deconvolution_groups_dilate", "Deconvolution",
+           [_nd_rand(53, 2, 4, 5, 5), _nd_rand(54, 4, 3, 3, 3)],
+           dict(kernel=(3, 3), stride=(2, 1), pad=(1, 2), dilate=(1, 2),
+                num_group=2), (0, 1), ND_LOOSE),
+    NdCase("conv", "Deconvolution_3d", "Deconvolution",
+           [_nd_rand(55, 1, 2, 3, 3, 3), _nd_rand(56, 2, 2, 2, 2, 2)],
+           dict(stride=2, pad=0, adj=0, dilate=1), (0, 1), ND_LOOSE),
+    # adj at or above the stride, which PyTorch's output_padding refuses:
+    # 3x3 at stride 2 on 4x4 with adj 2 gives 11x11
+    NdCase("conv", "Deconvolution_adj_at_stride", "Deconvolution",
+           [_nd_rand(57, 1, 1, 4, 4), _nd_rand(58, 1, 1, 3, 3)],
+           dict(stride=(2, 2), adj=(2, 2)), (0, 1), ND_LOOSE),
+    NdCase("conv", "Deconvolution_adj_above_stride_pad", "Deconvolution",
+           [_nd_rand(57, 1, 1, 4, 4), _nd_rand(58, 1, 1, 3, 3)],
+           dict(stride=2, pad=1, adj=3), (0, 1), ND_LOOSE),
+    NdCase("conv", "Convolution_v1", "op:Convolution_v1",
+           [_nd_rand(59, 1, 2, 5, 5), _nd_rand(60, 3, 2, 3, 3),
+            _nd_rand(61, 3)], dict(kernel=(3, 3), pad=(1, 1)), (0, 1, 2),
+           ND_LOOSE),
+    NdCase("conv", "Pooling_v1", "Pooling_v1", [_IMG],
+           dict(kernel=(2, 2), pool_type="avg"), (0,)),
+    NdCase("spatial", "UpSampling_nearest", "UpSampling", [_IMG],
+           dict(scale=2), (0,)),
+    NdCase("spatial", "UpSampling_bilinear", "UpSampling", [_IMG],
+           dict(scale=2, sample_type="bilinear"), (0,)),
+    NdCase("spatial", "BilinearResize2D", "BilinearResize2D", [_IMG],
+           dict(height=5, width=9), (0,)),
+    NdCase("spatial", "BilinearResize2D_half_pixel", "BilinearResize2D",
+           [_IMG], dict(scale_height=2.0, scale_width=0.5,
+                        align_corners=False), (0,)),
+    NdCase("spatial", "GridGenerator_affine", "GridGenerator",
+           [_nd_rand(62, 2, 6)], dict(target_shape=(3, 4)), (0,)),
+    NdCase("spatial", "GridGenerator_warp", "GridGenerator",
+           [_nd_rand(63, 2, 2, 3, 4)], dict(transform_type="warp"), (0,)),
+    NdCase("spatial", "BilinearSampler", "BilinearSampler",
+           [_IMG, _nd_rand(64, 2, 2, 3, 5, lo=-1.2, hi=1.2)], {}, (0, 1)),
+    NdCase("spatial", "SpatialTransformer", "SpatialTransformer",
+           [_IMG, _f32([1, 0, 0, 0, 1, 0]) + 0.2 * _nd_rand(65, 2, 6)],
+           dict(target_shape=(3, 5)), (0, 1)),
+    # corners at .5 round half to even (jnp.round)
+    NdCase("roi", "ROIPooling", "ROIPooling",
+           [_nd_rand(66, 2, 3, 8, 8), _f32([[0, 1.5, 2.5, 6.5, 7.0],
+                                            [1, 0, 0, 3.2, 4.6],
+                                            [0, 2.5, 0.5, 2.5, 4.5]])],
+           dict(pooled_size=(2, 3)), (0,)),
+    NdCase("roi", "ROIPooling_scaled", "ROIPooling",
+           [_nd_rand(66, 2, 3, 8, 8), _f32([[1, 3, 1, 13, 11],
+                                            [0, 5, 5, 9, 15]])],
+           dict(pooled_size=(3, 2), spatial_scale=0.5), (0,)),
+    NdCase("roi", "ROIAlign", "ROIAlign",
+           [_nd_rand(66, 2, 3, 8, 8), _f32([[0, 1.5, 2.5, 6.5, 7.0],
+                                            [1, 0, 0, 3.2, 4.6]])],
+           dict(pooled_size=(2, 2)), (0,)),
+    NdCase("roi", "ROIAlign_aligned", "ROIAlign",
+           [_nd_rand(66, 2, 3, 8, 8), _f32([[1, 3, 1, 13, 11],
+                                            [0, 5, 5, 9, 15]])],
+           dict(pooled_size=(2, 3), spatial_scale=0.5, sample_ratio=3,
+                aligned=True), (0,)),
+    NdCase("aliases", "broadcast_minus", "broadcast_minus",
+           [_X, _nd_rand(67, 1, 4)], {}, (0, 1)),
+    NdCase("aliases", "broadcast_plus", "broadcast_plus",
+           [_X, _nd_rand(67, 1, 4)], {}, (0, 1)),
+]
+
+
+def run_nd_case(pkg, case, ctx=None, raw_array_kwargs=False):
+    """``case`` through ``pkg.nd`` (either package's ``mx``) on ``ctx``:
+    its outputs, then the gradients of ``sum(out * w)`` (one ``w`` an
+    output, drawn from a seed) at ``case.grad``, as numpy arrays.
+    ``raw_array_kwargs`` passes an array keyword as the package's own
+    array (the JAX package's op functions take one; its ``mx.nd`` does
+    not unwrap an NDArray keyword)."""
+    nd = pkg.nd
+    xs = [nd.array(a, ctx=ctx, dtype=a.dtype) for a in case.arrays]
+    kwargs = {}
+    for key, v in case.kwargs.items():
+        if isinstance(v, np.ndarray):
+            v = nd.array(v, ctx=ctx, dtype=v.dtype)
+            v = v._data if raw_array_kwargs else v
+        kwargs[key] = v
+    if case.name.startswith("op:"):
+        fn = functools.partial(nd.invoke_op, case.name[3:])
+    else:
+        fn = getattr(nd, case.name)
+    for i in case.grad:
+        xs[i].attach_grad()
+    with pkg.autograd.record():
+        out = fn(*xs, **kwargs)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        if case.grad:
+            head = None
+            for i, o in enumerate(outs):
+                term = (o * nd.array(_nd_rand(99 + i, *o.shape),
+                                     ctx=ctx)).sum()
+                head = term if head is None else head + term
+    if case.grad:
+        head.backward()
+    return [o.asnumpy() for o in outs] + [xs[i].grad.asnumpy()
+                                          for i in case.grad]
+
+
+def check_nd_case(case, got, want):
+    """``got`` against ``want`` (``run_nd_case`` results): the same
+    shapes and types, values bit for bit where ``case.exact`` or integer,
+    else within ``case.tol``; returns the largest absolute error."""
+    if len(got) != len(want):
+        raise AssertionError(f"{case.id}: {len(got)} results, want "
+                             f"{len(want)}")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        label = f"{case.id} result {i}"
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label}: {g.dtype}{g.shape}, want "
+                                 f"{w.dtype}{w.shape}")
+        if case.exact or not np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_array_equal(g, w, err_msg=label)
+            continue
+        np.testing.assert_allclose(g, w, err_msg=label,
+                                   **(case.tol or ND_TOL))
+        both = np.isfinite(g) & np.isfinite(w)
+        if both.any():
+            worst = max(worst, float(np.abs(g[both] - w[both]).max()))
+    return worst
+
+
+def nd_dropout_checks(mx, ctx, n=200_000, p=0.3, sigmas=4.0):
+    """``mx.nd.Dropout`` by its statistics (its mask is the port's
+    generator's draw, so no draw is compared): the kept share of ``n``
+    ones within ``sigmas`` standard deviations of 1 - ``p``, each kept
+    value 1 / (1 - p), one draw along ``axes`` (the mask broadcast), the
+    identity when not training, and ``training`` read from
+    ``autograd.is_training()`` by default (on inside ``record()``). Returns
+    the kept share."""
+    nd = mx.nd
+    ones = nd.ones((n,), ctx=ctx)
+    out = nd.Dropout(ones, p=p, training=True).asnumpy()
+    kept = out != 0
+    share = float(kept.mean())
+    sd = math.sqrt(p * (1 - p) / n)
+    if abs(share - (1 - p)) > sigmas * sd:
+        raise AssertionError(f"Dropout keeps {share} of {n}, want "
+                             f"{1 - p} within {sigmas} x {sd:.2e}")
+    if not np.allclose(out[kept], 1 / (1 - p), rtol=1e-6, atol=0):
+        raise AssertionError("Dropout: a kept value is not 1 / (1 - p)")
+    cube = nd.Dropout(nd.ones((64, 8, 32), ctx=ctx), p=p, axes=(1,),
+                      training=True).asnumpy()
+    if not (cube == cube[:, :1, :]).all() or not (cube == 0).any():
+        raise AssertionError("Dropout(axes=(1,)): the mask is not one draw "
+                             "along axis 1")
+    x = nd.array(_nd_rand(70, 4, 5), ctx=ctx)
+    if not np.array_equal(nd.Dropout(x, p=p).asnumpy(), x.asnumpy()) \
+            or not np.array_equal(nd.Dropout(x, p=p, training=False)
+                                  .asnumpy(), x.asnumpy()):
+        raise AssertionError("Dropout is not the identity outside training")
+    with mx.autograd.record():
+        recorded = nd.Dropout(nd.ones((1000,), ctx=ctx), p=p).asnumpy()
+    if (recorded != 0).all():
+        raise AssertionError("mx.nd.Dropout inside record() dropped nothing")
+    return share
+
+
+def nd_cases_phase(mx, dev_ctx, cases=ND_CASES):
+    """Every case of ``cases`` on the card against the same call on the
+    CPU in the port (held to the JAX package by the CPU tests), with
+    gradients: one line an op family; raises on the first difference.
+    Then Dropout's statistics on the card."""
+    families = {}
+    for case in cases:
+        want = run_nd_case(mx, case, mx.cpu())
+        got = run_nd_case(mx, case, dev_ctx)
+        worst = check_nd_case(case, got, want)
+        fam = families.setdefault(case.family, dict(cases=0, worst=0.0))
+        fam["cases"] += 1
+        fam["worst"] = max(fam["worst"], worst)
+    for name, fam in families.items():
+        print(f"mx.nd ops on {dev_ctx} vs the CPU, {name}: {fam['cases']} "
+              f"cases equal (largest float difference {fam['worst']:.3e})",
+              flush=True)
+    share = nd_dropout_checks(mx, dev_ctx)
+    print(f"mx.nd.Dropout on {dev_ctx}: kept share {share:.5f} (p 0.3), "
+          "axes broadcast, identity outside training, training read from "
+          "autograd", flush=True)
+    return families
+
+
+def nd_gpt_logits(nd, params, tokens, num_layers, num_heads, dropout=0.0):
+    """The GPT decoder's forward (``gluon.model_zoo.gpt.GPTDecoder``)
+    written in ``mx.nd`` ops alone, for either package: ``tokens`` (B, T)
+    -> logits (B*T, V). ``params``: NDArrays by the decoder's parameter
+    names."""
+    b, t = tokens.shape
+    vocab, units = params["head.weight"].shape
+    d = units // num_heads
+
+    def ln(x, name):
+        return nd.LayerNorm(x, params[name + ".gamma"], params[name + ".beta"],
+                            axis=-1, eps=1e-5)
+
+    def dense(x, name, width, bias=True):
+        return nd.FullyConnected(x, params[name + ".weight"],
+                                 params[name + ".bias"] if bias else None,
+                                 num_hidden=width, flatten=False)
+
+    def heads(x):
+        return nd.transpose(nd.reshape(x, shape=(b, t, num_heads, d)),
+                            axes=(0, 2, 1, 3))
+
+    pos = nd.arange(t, ctx=tokens.context)
+    x = nd.broadcast_add(nd.Embedding(tokens, params["word_embed.weight"]),
+                         nd.Embedding(pos, params["position_embed.weight"]))
+    x = nd.Dropout(x, p=dropout)
+    for i in range(num_layers):
+        pre = f"layer{i}."
+        q, k, v = nd.split(dense(ln(x, pre + "ln1"), pre + "attn.qkv",
+                                 3 * units), num_outputs=3, axis=-1)
+        a = nd.flash_attention(heads(q), heads(k), heads(v), causal=True)
+        a = nd.reshape(nd.transpose(a, axes=(0, 2, 1, 3)),
+                       shape=(b, t, units))
+        x = x + nd.Dropout(dense(a, pre + "attn.proj", units), p=dropout)
+        f = nd.gelu(dense(ln(x, pre + "ln2"), pre + "ffn1", 4 * units))
+        x = x + nd.Dropout(dense(f, pre + "ffn2", units), p=dropout)
+    logits = dense(ln(x, "ln_f"), "head", vocab, bias=False)
+    return nd.reshape(logits, shape=(b * t, vocab))
+
+
+def nd_gpt_step(mx, params, tokens, labels, num_layers, num_heads,
+                dropout=0.0):
+    """One training step of ``nd_gpt_logits`` with the loss of
+    ``mx.nd.SoftmaxOutput(normalization="valid")``: records, runs the
+    backward (the gradients land in ``params``), and returns the mean
+    cross entropy of ``labels`` (B*T,)."""
+    nd = mx.nd
+    with mx.autograd.record():
+        probs = nd.SoftmaxOutput(nd_gpt_logits(nd, params, tokens,
+                                               num_layers, num_heads,
+                                               dropout),
+                                 labels, normalization="valid")
+    probs.backward()
+    return float(-nd.log(nd.pick(probs, labels)).mean().asscalar())
+
+
+def _check_nd_launches(flash, routes, want, want_routes):
+    if flash != want or routes != want_routes:
+        raise AssertionError(f"mx.nd GPT step: flash launches {flash} by "
+                             f"route {routes}, want {want} by route "
+                             f"{want_routes}")
+
+
+def nd_phase(seed, card, net, ctx, b=8, lr=3e-4, dropout=0.1,
+             cases=ND_CASES, reps=5):
+    """The mx.nd phase on a GPT decoder ``net`` (dropout 0) at B=``b``,
+    T=its ``max_length``: (a) ``nd_gpt_step`` on the net's own parameters,
+    its loss and every gradient against the gluon forward's with
+    ``SoftmaxCrossEntropyLoss`` (mean), a learning check with ``dropout``
+    (5 ``gluon.Trainer`` adam steps), the flash launches by route of those
+    steps, then the step timed beside the gluon step (dropout 0 in both)
+    and profiled; (b) ``nd_cases_phase`` on ``cases``."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.ndarray import NDArray
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    t0_phase = time.perf_counter()
+    t, vocab = net.max_length, net.vocab_size
+    layers, heads = net.num_layers, net.num_heads
+    n_rows = b * t
+    rs = np.random.RandomState(seed + 7)
+    tokens = mx.nd.array(rs.randint(0, vocab, (b, t)), ctx=ctx)
+    labels = mx.nd.array(rs.randint(0, vocab, (n_rows,)), ctx=ctx)
+    named = [(n, p) for n, p in net.collect_params().items()
+             if p.requires_grad]
+    names = [n for n, _ in named]
+    params = {n: NDArray(p) for n, p in named}
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": lr})
+
+    def gluon_step():
+        with mx.autograd.record():
+            loss = ce(net(tokens).reshape((-1, vocab)), labels).mean()
+        loss.backward()
+        return loss.asscalar()
+
+    def nd_step(p=0.0):
+        return nd_gpt_step(mx, params, tokens, labels, layers, heads, p)
+
+    ref_loss = float(gluon_step())
+    ref_grads = [p.grad.clone() for _, p in named]
+    torch.cuda.synchronize()
+    _reset_launches(fa)
+    loss0 = nd_step()
+    grads = [p.grad for _, p in named]
+    worst = _worst_grad("mx.nd GPT step", names, grads, ref_grads,
+                        IMPERATIVE_GRAD_RTOL)
+    print(f"mx.nd GPT step oracle (fp32, B={b}, T={t}, {len(names)} "
+          f"parameter tensors): mean cross entropy {loss0:.6f} "
+          f"(SoftmaxOutput) vs {ref_loss:.6f} (gluon, "
+          f"SoftmaxCrossEntropyLoss); worst gradient relative L2 error "
+          f"{worst[0]:.3e} ({worst[1]}), tolerance {IMPERATIVE_GRAD_RTOL:g}",
+          flush=True)
+    if not abs(loss0 - ref_loss) <= 1e-5 * abs(ref_loss):
+        raise AssertionError("mx.nd GPT step: the loss differs from the "
+                             "gluon step's")
+    del ref_grads
+    losses = [nd_step(dropout)]
+    trainer.step(1)                 # SoftmaxOutput("valid"): a mean already
+    for _ in range(5):
+        losses.append(nd_step(dropout))
+        trainer.step(1)
+    passes = 7
+    flash = _read_launches(fa)
+    routes = _read_routes(fa)
+    print(f"mx.nd GPT learning check (dropout {dropout}, gluon.Trainer adam "
+          f"lr {lr:g}, one batch): mean cross entropy "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 0.95 * losses[0]:
+        raise AssertionError("mx.nd GPT step: the loss did not fall by 5% "
+                             "over 5 steps")
+    print(f"mx.nd GPT step launches over {passes} passes: {flash}; by route "
+          f"{ {k: v for k, v in routes.items() if v} }", flush=True)
+    _check_nd_launches(flash, routes, {k: layers * passes for k in COUNTERS},
+                       training_routes(passes, 0, layers, t, net.head_dim))
+
+    def nd_train():
+        nd_step()
+        trainer.step(1)
+
+    def gluon_train():
+        gluon_step()
+        trainer.step(1)
+
+    gc.collect()
+    times = _median_turns({"nd": nd_train, "gluon": gluon_train}, reps)
+    print(f"mx.nd GPT step (fp32, B={b}, T={t}, dropout 0; {card}): "
+          f"{times['nd']:.3f} ms a step beside the gluon step's "
+          f"{times['gluon']:.3f} (host clock, median of {reps} alternating "
+          "turns, each with its gluon.Trainer adam step)", flush=True)
+    profile = _profile_step(lambda *_: nd_train(), None, None, card,
+                            times["nd"], top=12, what="fp32 mx.nd GPT step")
+    device_ms = sum(r[0] for r in profile)
+    gluon_device_ms = _kernel_ms(gluon_train)
+    print(f"device time a step: mx.nd {device_ms:.3f} ms, gluon "
+          f"{gluon_device_ms:.3f} ms (torch.profiler)", flush=True)
+    gc.collect()
+    families = nd_cases_phase(mx, ctx, cases)
+    seconds = time.perf_counter() - t0_phase
+    print(f"mx.nd phase: {seconds:.1f} s", flush=True)
+    return dict(n_params=len(names), grad_worst_rel=worst[0], loss=loss0,
+                ref_loss=ref_loss, learning_losses=losses, passes=passes,
+                flash_launches=flash, flash_routes=routes,
+                step_ms=times["nd"], gluon_step_ms=times["gluon"],
+                device_ms=device_ms, gluon_device_ms=gluon_device_ms,
+                families=families, seconds=seconds)
+
+
+def nd_main(seed, card):
+    """The mx.nd phase on ``gpt_decoder_117m`` at ``max_length`` 256 (12
+    layers, 768 units, vocab 50257; 149 trainable tensors)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
+
+    ctx = mx.gpu(0)
+    mx.random.seed(seed)
+    net = get_gpt("gpt_decoder_117m", vocab_size=50257, dropout=0.0,
+                  max_length=256).initialize("xavier", ctx=ctx)
+    out = nd_phase(seed, card, net, ctx)
     if out["n_params"] != 149:
         raise AssertionError("gpt_decoder_117m has 149 trainable tensors")
     return out
@@ -5571,6 +6274,8 @@ def main(argv=None) -> int:
     graph = graph_phase(args.seed, card, mx.gpu(0))
     gc.collect()
     imperative = imperative_main(args.seed, card)
+    gc.collect()
+    nd = nd_main(args.seed, card)
 
     src = "incubator_mxnet_tpu_torch/csrc/"
     ref = "incubator_mxnet_tpu/ops/pallas_attention.py:"
@@ -5598,7 +6303,8 @@ def main(argv=None) -> int:
             "bert_train": bert["routes"][f"flash_fwd_{route}"],
             "bert_graph": graph["bert"]["launches"].get(
                 f"flash_fwd_{route}", 0),
-            "registry": registry["fwd_routes"][route]}
+            "registry": registry["fwd_routes"][route],
+            "nd": nd["flash_routes"][f"flash_fwd_{route}"]}
         main_paths = sum(by_path.values())
         by_path["train_to_decode"] = trained["decode_routes"][route]
         if route == "tc":
@@ -5628,7 +6334,8 @@ def main(argv=None) -> int:
                            trained["routes"][f"{name}_{route}"]
                            + imperative["flash_routes"][f"{name}_{route}"]
                            + in_graph + bert["routes"][f"{name}_{route}"]
-                           + bert_graph,
+                           + bert_graph + nd["flash_routes"][
+                               f"{name}_{route}"],
                            [r for r in bwd if r["kernel"] == name
                             and r["route"] == route], train_case, dtype)
             head = next(r for r in entry["cases"] if r["case"] == train_case
@@ -5640,7 +6347,8 @@ def main(argv=None) -> int:
                 "imperative": imperative["flash_routes"][f"{name}_{route}"],
                 "gpt_graph": in_graph,
                 "bert_train": bert["routes"][f"{name}_{route}"],
-                "bert_graph": bert_graph}
+                "bert_graph": bert_graph,
+                "nd": nd["flash_routes"][f"{name}_{route}"]}
             if route == "tc":
                 entry["launches_by_path"]["bf16_gate"] = \
                     trained["gate_launches"][f"{name}_tc"]
@@ -5741,7 +6449,10 @@ def main(argv=None) -> int:
             for dt in ("fp32", "bf16")},
         "registry": {k: registry[k] for k in (
             "sizes", "budget", "admit_bytes", "evictions", "swap",
-            "warm_start")}}),
+            "warm_start")},
+        "nd_gpt_fp32": {k: nd[k] for k in (
+            "step_ms", "gluon_step_ms", "device_ms", "gluon_device_ms",
+            "seconds")}}),
         flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

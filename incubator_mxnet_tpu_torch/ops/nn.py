@@ -1,13 +1,17 @@
-"""Neural-network ops of the ported path.
+"""Neural-network ops.
 
-Counterparts of the ops of the JAX package's ``ops/nn.py`` that the GPT
-decoder, BERT, the fused ResNet and the gluon layer set run, and the
-registered ops of ``mx.nd`` (``FullyConnected``, ``Convolution``,
-``Pooling``, ``BatchNorm``, ``Activation``, ``relu``, ``sigmoid``,
-``softmax``, ``log_softmax``, ``scaled_dot_product_attention``). None of
+Counterparts of the JAX package's ``ops/nn.py``: the dense and conv ops
+(``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
+``adaptive_avg_pool2d``), the norms (``BatchNorm``, ``LayerNorm``,
+``InstanceNorm``, ``GroupNorm``, ``RMSNorm``, ``L2Normalization``), the
+activations (``Activation`` and each one by name, ``LeakyReLU``), the
+softmax family and its losses (``softmax`` with ``length``,
+``log_softmax``, ``softmax_cross_entropy``, ``SoftmaxOutput``),
+``Dropout``, ``Embedding`` and ``scaled_dot_product_attention``. None of
 them is a TPU kernel there (XLA compiles them), so here they are
 PyTorch's own (cuDNN and cuBLAS on the card). Layouts as the reference's:
-NC + 1-3 spatial axes, conv weights (O, I/groups, *k).
+NC + 1-3 spatial axes, conv weights (O, I/groups, *k), transposed-conv
+weights (I, O/groups, *k).
 """
 
 from __future__ import annotations
@@ -19,12 +23,16 @@ import torch
 import torch.nn.functional as F
 
 from .registry import register
-from .tensor import gather_fill, wrap_index
+from .tensor import gather_fill, positions_along, take_along, wrap_index
 
-__all__ = ["activation", "batch_norm", "convolution", "dropout",
-           "embedding", "fully_connected", "layer_norm", "log_softmax",
-           "pooling", "relu", "scaled_dot_product_attention", "sigmoid",
-           "softmax"]
+__all__ = ["activation", "adaptive_avg_pool2d", "batch_norm", "convolution",
+           "deconvolution", "dropout", "embedding", "fully_connected",
+           "gelu", "group_norm", "hard_sigmoid", "instance_norm",
+           "l2_normalization", "layer_norm", "leaky_relu", "log_softmax",
+           "mish", "pooling", "relu", "rms_norm",
+           "scaled_dot_product_attention", "sigmoid", "silu", "softmax",
+           "softmax_cross_entropy", "softmax_output", "softrelu",
+           "softsign"]
 
 
 def _ntuple(v, n):
@@ -61,9 +69,15 @@ def sigmoid(x):
 
 
 @register("softmax")
-def softmax(x, axis=-1, temperature=None):
+def softmax(x, axis=-1, temperature=None, length=None):
+    """Softmax along ``axis``; ``length`` (one per row of axis 0) gives
+    the positions at or past a row's length probability 0."""
     if temperature is not None and temperature != 1.0:
         x = x / temperature
+    if length is not None:
+        keep = positions_along(x, axis) < length.reshape(
+            [x.shape[0]] + [1] * (x.dim() - 1))
+        x = x.masked_fill(~keep, float("-inf"))
     return torch.softmax(x, dim=axis)
 
 
@@ -74,16 +88,123 @@ def log_softmax(x, axis=-1, temperature=None):
     return torch.log_softmax(x, dim=axis)
 
 
-def layer_norm(x, gamma, beta, eps=1e-5):
-    """Layer norm over the last axis, population variance."""
+@register("softmax_cross_entropy")
+def softmax_cross_entropy(logits, label):
+    """The summed cross entropy of integer ``label`` (a label out of range
+    reads NaN, as ``jnp.take_along_axis``)."""
+    lp = torch.log_softmax(logits, dim=-1)
+    return -take_along(lp, label.long().unsqueeze(-1), -1).sum()
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; backward the cross entropy's gradient ``(p -
+    onehot(label)) * grad_scale`` with the head gradient taken as ones (the
+    reference's loss op), ``ignore_label`` rows zeroed when ``use_ignore``,
+    divided by the batch (``"batch"``) or the count of rows kept
+    (``"valid"``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                axis, normalization):
+        p = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(p, label)
+        ctx.opts = (grad_scale, ignore_label, use_ignore, axis,
+                    normalization)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, axis, normalization = ctx.opts
+        lab = label.long().unsqueeze(axis)
+        grad = p - (lab == positions_along(p, axis)).to(p.dtype)
+        valid = lab != ignore_label
+        if use_ignore:
+            grad = grad * valid.to(p.dtype)
+        if normalization == "batch":
+            grad = grad / p.shape[0]
+        elif normalization == "valid":
+            n = valid.sum().clamp(min=1) if use_ignore else label.numel()
+            grad = grad / n
+        return grad * grad_scale, None, None, None, None, None, None
+
+
+@register("SoftmaxOutput", aliases=("softmax_output",))
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1,
+                   use_ignore=False, multi_output=False,
+                   normalization="null"):
+    """Output layer with an implicit cross-entropy loss (reference
+    ``SoftmaxOutput``): forward ``softmax(data)`` over the classes (axis 1
+    with ``multi_output``, else the last); backward the loss's gradient,
+    whatever the head gradient. ``label`` gets no gradient."""
+    return _SoftmaxOutput.apply(data, label, float(grad_scale),
+                                int(ignore_label), bool(use_ignore),
+                                1 if multi_output else -1,
+                                str(normalization))
+
+
+@register("LayerNorm", aliases=("layer_norm",))
+def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
+    """Layer norm over ``axis``, population variance."""
+    if axis % x.dim() != x.dim() - 1:
+        return layer_norm(x.movedim(axis, -1), gamma, beta, -1,
+                          eps).movedim(-1, axis)
     return F.layer_norm(x, (x.shape[-1],), gamma, beta, eps)
 
 
-def embedding(indices, weight):
+@register("InstanceNorm", aliases=("instance_norm",))
+def instance_norm(x, gamma, beta, eps=1e-3):
+    """Each (sample, channel) normalized over its spatial axes."""
+    return F.instance_norm(x, weight=gamma, bias=beta, eps=eps)
+
+
+@register("GroupNorm", aliases=("group_norm",))
+def group_norm(x, gamma, beta, num_groups=1, eps=1e-5):
+    """Each group of ``C / num_groups`` consecutive channels of a sample
+    normalized together."""
+    return F.group_norm(x, num_groups, gamma, beta, eps)
+
+
+@register("RMSNorm", aliases=("rms_norm",))
+def rms_norm(x, gamma, axis=-1, eps=1e-6):
+    """``x / sqrt(mean(x**2) + eps) * gamma``, the mean over ``axis`` in
+    fp32."""
+    ms = x.float().square().mean(dim=axis, keepdim=True)
+    return x * torch.rsqrt(ms + eps).to(x.dtype) * gamma
+
+
+@register("L2Normalization", aliases=("l2_normalization",))
+def l2_normalization(x, eps=1e-10, mode="instance"):
+    """``x`` over the L2 norm of each sample (``"instance"``), of each
+    position's channels (``"channel"``) or of each channel's spatial plane
+    (``"spatial"``)."""
+    if mode == "instance":
+        axes = tuple(range(1, x.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, x.dim()))
+    return x / torch.sqrt(x.square().sum(dim=axes, keepdim=True) + eps)
+
+
+@register("adaptive_avg_pool2d")
+def adaptive_avg_pool2d(x, output_size=1):
+    """The mean of each of ``output_size`` equal windows (H and W must
+    divide by it, as in the reference)."""
+    oh, ow = _ntuple(output_size, 2)
+    n, c, h, w = x.shape
+    return x.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+
+
+@register("Embedding", aliases=("embedding",))
+def embedding(indices, weight, input_dim=None, output_dim=None, dtype=None,
+              sparse_grad=False):
     """Rows of ``weight`` at ``indices`` (truncated to integers), as
     ``jnp.take(weight, indices, axis=0)``: an index in ``[-n, -1]`` counts
     from the end, a row outside ``[-n, n)`` is NaN (a padding id of -1
-    reads the last row, and no index leaves the table)."""
+    reads the last row, and no index leaves the table). ``input_dim``,
+    ``output_dim``, ``dtype`` and ``sparse_grad`` are the reference's
+    attributes (the weight gives them; the gradient is dense)."""
     idx, outside = wrap_index(indices, weight.shape[0])
     return F.embedding(idx, weight).masked_fill(outside.unsqueeze(-1),
                                                 gather_fill(weight.dtype))
@@ -95,17 +216,64 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _softsign(x):
+@register("softsign")
+def softsign(x):
     return x / (1 + x.abs())
 
 
-def _mish(x):
+@register("softrelu", aliases=("softplus",))
+def softrelu(x):
+    return F.softplus(x)
+
+
+@register("gelu")
+def gelu(x, approximate=True):
+    """``approximate``: the tanh form (``jax.nn.gelu``'s default), else
+    the exact erf form."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+@register("silu", aliases=("swish",))
+def silu(x):
+    return F.silu(x)
+
+
+@register("mish")
+def mish(x):
     return x * torch.tanh(F.softplus(x))
 
 
+@register("hard_sigmoid")
+def hard_sigmoid(x, alpha=0.2, beta=0.5):
+    return torch.clamp(alpha * x + beta, 0.0, 1.0)
+
+
+@register("LeakyReLU", aliases=("leaky_relu",))
+def leaky_relu(x, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """Reference ``LeakyReLU``: ``leaky`` (``slope``), ``prelu`` (the
+    learned ``gamma``, one a channel on axis 1), ``elu`` (``slope``),
+    ``selu``, and ``gelu``, the exact erf form here (unlike ``gelu`` and
+    ``Activation("gelu")``). ``lower_bound``/``upper_bound`` belong to
+    ``rrelu``, which the reference does not take either."""
+    if act_type == "leaky":
+        return torch.where(x > 0, x, slope * x)
+    if act_type == "prelu":
+        if gamma.dim() == 1 and x.dim() > 2:
+            gamma = gamma.reshape((1, -1) + (1,) * (x.dim() - 2))
+        return torch.where(x > 0, x, gamma * x)
+    if act_type == "elu":
+        return torch.where(x > 0, x, slope * torch.expm1(x))
+    if act_type == "selu":
+        return F.selu(x)
+    if act_type == "gelu":
+        return F.gelu(x)
+    raise ValueError(f"unknown LeakyReLU act_type {act_type!r}")
+
+
 _ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
-         "softrelu": F.softplus, "softsign": _softsign, "gelu": _gelu,
-         "silu": F.silu, "log_sigmoid": F.logsigmoid, "mish": _mish}
+         "softrelu": F.softplus, "softsign": softsign, "gelu": _gelu,
+         "silu": F.silu, "log_sigmoid": F.logsigmoid, "mish": mish}
 
 
 @register("Activation", aliases=("activation",))
@@ -119,10 +287,15 @@ def activation(x, act_type="relu"):
     return _ACTS[act_type](x)
 
 
-def dropout(x, p=0.5, training=False,
+@register("Dropout", aliases=("dropout",))
+def dropout(x, p=0.5, mode="training", axes=(), training=True,
             generator: Optional[torch.Generator] = None):
-    """Inverted dropout; the identity unless ``training``. The mask is drawn
-    from ``generator`` (the device's ``random.generator`` by default)."""
+    """Inverted dropout (reference ``Dropout``); the identity unless
+    ``training``. One mask value is drawn for every position along
+    ``axes`` (the mask broadcast along them). The mask is drawn from
+    ``generator`` (the device's ``random.generator`` by default).
+    ``mode`` is the reference's attribute, which it does not read
+    either."""
     if not training or p <= 0.0:
         return x
     if generator is None:
@@ -132,8 +305,11 @@ def dropout(x, p=0.5, training=False,
         ctx = Context("cpu") if x.device.type == "cpu" else \
             Context("gpu", x.device.index or 0)
         generator = _random.generator(ctx)
+    shape = list(x.shape)
+    for ax in axes:
+        shape[ax] = 1
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
     return x * mask.to(x.dtype) / keep
 
 
@@ -155,6 +331,33 @@ def convolution(x, weight, bias=None, kernel=None, stride=1, pad=0,
     return _CONV[nsp](x, weight, None if no_bias else bias,
                       _ntuple(stride, nsp), _ntuple(pad, nsp),
                       _ntuple(dilate, nsp), num_group)
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution", aliases=("deconvolution",))
+def deconvolution(x, weight, bias=None, kernel=None, stride=1, pad=0, adj=0,
+                  dilate=1, num_filter=None, num_group=1, no_bias=False):
+    """Reference ``Deconvolution`` (transposed convolution): NC + 1-3
+    spatial axes, weight (I, O/num_group, *k); each spatial axis of the
+    output is ``(n - 1) * stride + dilate * (k - 1) + 1 - 2 * pad + adj``.
+    The full transposed convolution is cut by ``pad`` at both ends and
+    extended by ``adj`` at the end, so any ``adj`` works (PyTorch's
+    ``output_padding`` must stay below the stride)."""
+    nsp = x.dim() - 2
+    if nsp not in _CONV_T:
+        raise ValueError(f"Deconvolution takes 1-3 spatial axes, got x of "
+                         f"shape {tuple(x.shape)}")
+    pad, adj = _ntuple(pad, nsp), _ntuple(adj, nsp)
+    y = _CONV_T[nsp](x, weight, None, _ntuple(stride, nsp), 0, 0, num_group,
+                     _ntuple(dilate, nsp))
+    y = F.pad(y, [w for p, a in zip(reversed(pad), reversed(adj))
+                  for w in (-p, a - p)])
+    if bias is not None and not no_bias:
+        y = y + bias.reshape((1, -1) + (1,) * nsp)
+    return y
 
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}

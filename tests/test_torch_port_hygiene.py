@@ -49,6 +49,7 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "incubator_mxnet_tpu_torch.gluon.nn.conv_layers, "
             "incubator_mxnet_tpu_torch.initializer, "
             "incubator_mxnet_tpu_torch.ops.nn, "
+            "incubator_mxnet_tpu_torch.ops.misc, "
             "incubator_mxnet_tpu_torch.ndarray, "
             "incubator_mxnet_tpu_torch.operator, "
             "incubator_mxnet_tpu_torch.rtc, "
@@ -83,6 +84,7 @@ def test_sources_import_no_jax_and_no_jax_package():
     for name in ("ndarray/__init__.py", "ndarray/ndarray.py", "operator.py",
                  "rtc.py", "ops/_nvrtc.py", "ops/rtc_kernels.py",
                  "ops/registry.py", "ops/tensor.py", "ops/nn.py",
+                 "ops/misc.py",
                  "gluon/nn/conv_layers.py", "gluon/nn/basic_layers.py",
                  "gluon/model_zoo/vision/resnet.py", "initializer.py",
                  "parallel/superstep.py", "ops/launches.py",
@@ -830,6 +832,43 @@ def test_chip_smoke_imperative_phase_rehearses_on_the_cpu(monkeypatch):
     assert cases["softmax_ce_fwd_add_32x97"]["library_ms"] is None
     assert cases["softmax_ce_fwd_add_32x97"]["bound_ms"] == pytest.approx(
         3 * 32 * 97 * 4 / cs.HBM_BYTES_PER_S * 1e3)
+
+
+def test_chip_smoke_nd_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.nd_phase`` on a small GPT on the CPU (the plain
+    versions run, so no launch is counted): the mx.nd step's loss and its
+    29 gradients against the gluon step's, the learning check with dropout,
+    the launch window expecting a flash launch per layer per pass on the
+    fp32 routes, the timing and the profile, then every op case of
+    ``ND_CASES`` (here the CPU against itself) and Dropout's statistics."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
+
+    cs = _chip_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    windows = []
+    monkeypatch.setattr(cs, "_check_nd_launches",
+                        lambda *a: windows.append(a))
+    mx.random.seed(0)
+    net = get_gpt("gpt_decoder_tiny", vocab_size=97, units=64, num_layers=2,
+                  max_length=16, dropout=0.0).initialize("xavier",
+                                                         ctx=mx.cpu())
+    out = cs.nd_phase(0, "cpu", net, mx.cpu(), b=2, lr=1e-2, reps=2)
+    assert out["n_params"] == 29
+    assert out["grad_worst_rel"] <= cs.IMPERATIVE_GRAD_RTOL
+    assert abs(out["loss"] - out["ref_loss"]) <= 1e-5 * out["ref_loss"]
+    assert out["learning_losses"][-1] < 0.95 * out["learning_losses"][0]
+    assert out["passes"] == 7
+    # on the CPU no kernel launches: every count 0, against 2 layers x 7
+    # passes, K4 on simt at T=16 and K5/K6 on f32
+    assert windows == [({k: 0 for k in cs.COUNTERS},
+                        dict.fromkeys(cs.ROUTE_COUNTERS, 0),
+                        {k: 2 * 7 for k in cs.COUNTERS},
+                        cs.training_routes(7, 0, layers=2, t=16,
+                                           d=net.head_dim))]
+    assert sum(f["cases"] for f in out["families"].values()) == len(
+        cs.ND_CASES)
+    assert all(f["worst"] == 0.0 for f in out["families"].values())
 
 
 def test_chip_smoke_softmax_gate_catches_flushed_probabilities():
