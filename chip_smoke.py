@@ -95,7 +95,26 @@ Phases (any failure raises, and the script exits non-zero):
    ``attention_impl="pallas"``, with ``"xla"`` (the dense chain) and with
    pallas on seeded mixed lengths, each timed and profiled (the share of
    cuBLAS's unaligned GEMMs, the MLM head's). K4, K5 and K6 launch 12 times a pass,
-   fp32 passes on f32, bf16 on tc, the xla row none;
+   fp32 passes on f32, bf16 on tc, the xla row none. Then the mx.nd 1.x
+   phase on the same net, in fp32 and drawn again from the seed
+   (``nd1x_phase``), on the phase's batch (B=8, T=128, mixed segments and
+   lengths): ``nd_bert_step``, the forward written the
+   GluonNLP 1.x way in ``mx.nd`` ops alone (time-major layers, the query,
+   key and value weights interleaved per head into one
+   ``FullyConnected``, ``interleaved_matmul_selfatt_qk``, a key mask from
+   ``arange_like``/``broadcast_like`` under ``masked_softmax``,
+   ``interleaved_matmul_selfatt_valatt``), its loss and 207 gradients
+   against the gluon pass through K4-K6 (relative L2 <= GRAD_RTOL; K4, K5
+   and K6 12 times on f32 in the gluon pass, none in the 1.x steps) and
+   against the same pass in fp64 (the 1.x step within GRAD_RTOL); the
+   1.x update (``multi_sum_sq`` global norm, ``adamw_update(out=w)``)
+   seen by the gluon forward; 10 steps lowering the loss by 5%; the 1.x
+   step's host ms beside the gluon step's with "pallas" and "xla" and the
+   device times; then every op of ``MORE_CASES`` and ``UPDATE_CASES`` (the
+   JAX package's ``ops/more.py``, ``ops/random_ops.py`` and
+   ``ops/optimizer_ops.py``) on the card against the CPU, the update
+   wrappers' in-place rule, every sampler by its statistics at 2^20 draws,
+   and ``mx.random.set_state`` replaying on the card;
 7. conv kernel phase: the fused conv + BatchNorm kernels (K1 forward, K2
    input gradient, K3 weight gradient) against their plain versions in
    fp32 and bf16 at ResNet-50's shapes at B=32 and one shape off the
@@ -293,7 +312,8 @@ prefill buckets, graph beside eager, and TTFT, the ModelServer's
 graph memory, warm-up, bucket times and open-loop rows, and the
 registry's sizes, budget, evictions, hot-swap and warm-start numbers, and
 the mx.nd GPT step's ms beside the gluon step's, its device ms and the
-mx.nd phase's seconds. The
+mx.nd phase's seconds, and the mx.nd 1.x BERT step's beside the gluon
+BERT step's (pallas and xla). The
 line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
@@ -314,6 +334,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import functools
 import gc
 import importlib.util
@@ -1329,21 +1350,34 @@ FLASH_TAGS = ("flash_fwd_kernel", "flash_fwd_tc_kernel",
               "flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel")
 
 
+# idle host time inside the profiler's window before and after the
+# profiled call: the profiler drops kernels whose device timestamps fall
+# outside its window, and the card's timestamps can lie milliseconds from
+# the host's (tools/torch_profiler_window.py: with the window tight around
+# a CUDA graph replay, the first kernels went missing in some profiles;
+# a whole BERT step's K4-K6 once)
+PROFILE_MARGIN_S = 0.1
+
+
 def _kernel_rows(fn, *args):
     """``(rows, wall ms)`` of one call of ``fn(*args)`` under
     ``torch.profiler``: ``(device ms, launches, CUDA function)`` per
     kernel, largest first (kernel events only, so no time is counted
-    twice)."""
+    twice). On a card the window holds ``PROFILE_MARGIN_S`` of idle time
+    on each side of the call; the wall time is the call's own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    margin = PROFILE_MARGIN_S if torch.cuda.is_available() else 0.0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin)
+        t0 = time.perf_counter()
         fn(*args)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(margin)
     rows = []
     for e in prof.key_averages():
         # kernels only: no CPU op and no user range (which would count
@@ -1856,7 +1890,9 @@ def bert_phase(seed, card, net, ctx, sizes=BERT_SIZES):
 def bert_main(seed, card):
     """The BERT phase on ``get_bert("bert_12_768_12", vocab_size=30522,
     max_length=512, attention_impl="pallas")``, dropout 0: 207 parameter
-    tensors, 133,547,324 values."""
+    tensors, 133,547,324 values; then the mx.nd 1.x phase on the same net,
+    in fp32 and drawn again from the seed (its result under
+    ``"nd1x"``)."""
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch.models import get_bert
 
@@ -1873,7 +1909,18 @@ def bert_main(seed, card):
           flush=True)
     if counts != (207, 133_547_324):
         raise AssertionError(f"bert_12_768_12's inventory {counts}")
-    return bert_phase(seed, card, net, ctx)
+    out = bert_phase(seed, card, net, ctx)
+    gc.collect()
+    # the same net drawn again from the seed, in fp32: after the phase's
+    # training its top layers' query and key gradients lie below fp32's
+    # noise (every fp32 path far from an fp64 pass), so the oracle starts
+    # where the BERT phase's does
+    mx.random.seed(seed)
+    net.cast("float32").initialize("xavier", ctx=ctx)
+    out["nd1x"] = nd1x_phase(seed, card, net, ctx)
+    if out["nd1x"]["n_params"] != 207:
+        raise AssertionError("bert_12_768_12 has 207 trainable tensors")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5478,8 +5525,9 @@ def _f32(values):
     return np.asarray(values, np.float32)
 
 
-#: one op call of the mx.nd phase: ``name`` is an ``mx.nd`` attribute, or
-#: ``"op:<registered name>"`` for ``invoke_op``; ``arrays`` (numpy) are its
+#: one op call of the mx.nd phase: ``name`` is an ``mx.nd`` attribute
+#: (dotted through ``image`` or ``contrib``), or ``"op:<registered name>"``
+#: for ``invoke_op``; ``arrays`` (numpy) are its
 #: array arguments and a numpy value among ``kwargs`` goes in as an array;
 #: ``grad`` the positions of the arrays whose gradient of ``sum(out * w)``
 #: is held too; ``tol`` the float tolerance (None: ``ND_TOL``); ``exact``
@@ -5822,6 +5870,14 @@ ND_CASES = [
 ]
 
 
+def _nd_fn(nd, name):
+    """``nd.<name>`` (dotted through ``random``/``image``/``contrib``), or
+    ``invoke_op`` of ``"op:<registered name>"``."""
+    if name.startswith("op:"):
+        return functools.partial(nd.invoke_op, name[3:])
+    return functools.reduce(getattr, name.split("."), nd)
+
+
 def run_nd_case(pkg, case, ctx=None, raw_array_kwargs=False):
     """``case`` through ``pkg.nd`` (either package's ``mx``) on ``ctx``:
     its outputs, then the gradients of ``sum(out * w)`` (one ``w`` an
@@ -5837,10 +5893,7 @@ def run_nd_case(pkg, case, ctx=None, raw_array_kwargs=False):
             v = nd.array(v, ctx=ctx, dtype=v.dtype)
             v = v._data if raw_array_kwargs else v
         kwargs[key] = v
-    if case.name.startswith("op:"):
-        fn = functools.partial(nd.invoke_op, case.name[3:])
-    else:
-        fn = getattr(nd, case.name)
+    fn = _nd_fn(nd, case.name)
     for i in case.grad:
         xs[i].attach_grad()
     with pkg.autograd.record():
@@ -5923,14 +5976,7 @@ def nd_cases_phase(mx, dev_ctx, cases=ND_CASES):
     CPU in the port (held to the JAX package by the CPU tests), with
     gradients: one line an op family; raises on the first difference.
     Then Dropout's statistics on the card."""
-    families = {}
-    for case in cases:
-        want = run_nd_case(mx, case, mx.cpu())
-        got = run_nd_case(mx, case, dev_ctx)
-        worst = check_nd_case(case, got, want)
-        fam = families.setdefault(case.family, dict(cases=0, worst=0.0))
-        fam["cases"] += 1
-        fam["worst"] = max(fam["worst"], worst)
+    families = _check_cases(mx, dev_ctx, cases, run_nd_case, check_nd_case)
     for name, fam in families.items():
         print(f"mx.nd ops on {dev_ctx} vs the CPU, {name}: {fam['cases']} "
               f"cases equal (largest float difference {fam['worst']:.3e})",
@@ -6129,6 +6175,1047 @@ def nd_main(seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# mx.nd 1.x phase: ops/more.py, ops/random_ops.py and ops/optimizer_ops.py,
+# and a GluonNLP-1.x-style BERT step written in them
+# ---------------------------------------------------------------------------
+_NCHW = _nd_rand(80, 2, 6, 5, 5)
+_HWC = _nd_rand(81, 8, 8, 3, lo=0.0, hi=1.0)
+_NHWC = _nd_rand(82, 2, 5, 7, 3, lo=0.0, hi=1.0)
+_QKV = _nd_rand(83, 5, 2, 3 * 2 * 4)            # (T, N, 3*H*D), H=2, D=4
+_Q = _nd_rand(84, 3, 2, 2 * 4)                  # (Tq, N, H*D)
+_KV = _nd_rand(85, 5, 2, 2 * 2 * 4)             # (Tk, N, 2*H*D)
+_ATT = _nd_rand(86, 4, 5, 5, lo=0.0, hi=0.4)    # (N*H, T, T)
+_ATT_DEC = _nd_rand(87, 4, 3, 5, lo=0.0, hi=0.4)
+_INTS = np.random.RandomState(88).randint(-4, 5, (2, 3, 6, 5)).astype(
+    np.float32)
+# a mask with a row of no valid position (row 1) and a partial row
+_MASK = _f32([[1, 1, 0, 1], [0, 0, 0, 0], [1, 0, 0, 0]])
+_MASK0 = _f32([[1, 0, 1, 1], [0, 0, 1, 0], [1, 0, 1, 0]])
+# (T, N, C) = (6, 3, 5) activations; labels padded with -1; sample 2 asks
+# for 5 labels, with a repeat, of 6 frames (2 of them cut by its length):
+# an alignment that cannot be made
+_CTC = _nd_rand(89, 6, 3, 5, lo=-2.0, hi=2.0)
+_CTC_LABELS = _f32([[1, 2, -1, -1, -1], [3, 3, 1, -1, -1],
+                    [2, 2, 2, 2, 4]])
+_CTC_BLANK_LAST = _f32([[0, 1, -1, -1, -1], [2, 2, 0, -1, -1],
+                        [1, 3, 3, -1, -1]])
+#: the tolerance of a CTC gradient through path costs near 1e5
+CTC_FAR = dict(rtol=1e-5, atol=5e-3)
+_OFFSETS = _nd_rand(90, 2, 2 * 9 * 2, 3, 3, lo=-1.5, hi=1.5)
+_POS_S = _nd_rand(91, 3, 4, lo=0.2, hi=3.0)
+_PROB = _nd_rand(92, 3, 4, lo=0.1, hi=0.9)
+_COUNTS = np.random.RandomState(93).randint(0, 6, (3, 4)).astype(
+    np.float32)
+_DIR = np.random.RandomState(94).dirichlet([1.0, 2.0, 3.0], 4).astype(
+    np.float32)
+
+MORE_CASES = [
+    # image ops: HWC and NHWC
+    NdCase("image", "to_tensor", "image.to_tensor",
+           [np.random.RandomState(95).randint(0, 256, (4, 5, 3)).astype(
+               np.uint8)]),
+    NdCase("image", "to_tensor_batch", "image.to_tensor",
+           [np.random.RandomState(96).randint(0, 256, (2, 4, 5, 3)).astype(
+               np.uint8)]),
+    NdCase("image", "normalize", "image.normalize", [_NCHW[0, :3]],
+           dict(mean=(0.1, 0.2, 0.3), std=(0.5, 1.5, 2.0)), (0,)),
+    NdCase("image", "normalize_batch", "image.normalize", [_NCHW[:, :3]],
+           dict(mean=(0.1, 0.2, 0.3), std=(0.5, 1.5, 2.0)), (0,)),
+    # jax.image.resize antialiases a downscale (F.interpolate's default
+    # does not: 0.14 apart on 8x8 -> 4x4, 0.32 on 3x5)
+    NdCase("image", "resize_down_antialiased", "image.resize", [_HWC],
+           dict(size=4), (0,)),
+    NdCase("image", "resize_down_3x5", "image.resize", [_HWC],
+           dict(size=(5, 3)), (0,)),
+    NdCase("image", "resize_up_batch", "image.resize", [_NHWC],
+           dict(size=(9, 8)), (0,)),
+    NdCase("image", "resize_nearest", "image.resize", [_NHWC],
+           dict(size=(4, 3), interp=0), (0,)),
+    # an integer image resizes to float32
+    NdCase("image", "resize_uint8", "image.resize",
+           [np.random.RandomState(95).randint(0, 256, (6, 5, 3)).astype(
+               np.uint8)], dict(size=(3, 4))),
+    NdCase("image", "crop", "image.crop", [_HWC],
+           dict(x0=1, y0=2, width=4, height=3), (0,), exact=True),
+    NdCase("image", "crop_batch", "image.crop", [_NHWC],
+           dict(x0=2, y0=1, width=3, height=2), (0,), exact=True),
+    NdCase("image", "flip_left_right", "image.flip_left_right", [_NHWC],
+           {}, (0,), exact=True),
+    NdCase("image", "flip_top_bottom", "image.flip_top_bottom", [_HWC],
+           {}, (0,), exact=True),
+    # classic NN stragglers
+    NdCase("nn", "LRN", "LRN", [_NCHW], dict(nsize=3, alpha=0.01), (0,)),
+    NdCase("nn", "lrn", "op:lrn", [_NCHW], dict(beta=0.5, knorm=1.0), (0,)),
+    NdCase("nn", "softmin", "softmin", [_X], dict(axis=0), (0,)),
+    # a row with no valid position: 0 forward (log: -inf) and a 0 gradient
+    NdCase("nn", "masked_softmax_empty_row", "masked_softmax",
+           [_X, _MASK], {}, (0,)),
+    NdCase("nn", "masked_softmax_temperature", "masked_softmax",
+           [_X, _MASK0], dict(axis=0, temperature=0.5), (0,)),
+    NdCase("nn", "masked_log_softmax_empty_row", "masked_log_softmax",
+           [_X, _MASK], {}, (0,)),
+    NdCase("nn", "identity", "identity", [_X], {}, (0,), exact=True),
+    NdCase("nn", "_copy", "op:_copy", [_X], exact=True),
+    NdCase("nn", "stop_gradient_op", "stop_gradient_op", [_X], exact=True),
+    NdCase("nn", "BlockGrad_op", "op:BlockGrad", [_X], exact=True),
+    NdCase("nn", "add_n", "add_n", [_X, _POS, _UNIT], {}, (0, 1, 2)),
+    NdCase("nn", "ElementWiseSum", "ElementWiseSum", [_X, _POS], {},
+           (0, 1)),
+    NdCase("nn", "argmax_channel", "argmax_channel", [_NCHW], exact=True),
+    # Crop (NCHW): like another array, at an offset, centred, by h_w
+    NdCase("layout", "Crop_like", "Crop", [_NCHW, _IMG[:1, :1, :3, :2]],
+           dict(offset=(1, 2)), exact=True),
+    NdCase("layout", "Crop_center", "Crop", [_NCHW],
+           dict(h_w=(2, 3), center_crop=True), exact=True),
+    NdCase("layout", "crop_like", "op:crop_like", [_NCHW],
+           dict(h_w=(3, 2), offset=(2, 1)), exact=True),
+    NdCase("layout", "im2col", "im2col", [_NCHW],
+           dict(kernel=(3, 2), stride=(2, 1), dilate=(1, 2), pad=(1, 1)),
+           (0,)),
+    NdCase("layout", "im2col_ints", "im2col", [_INTS],
+           dict(kernel=(2, 3), pad=(1, 0)), exact=True),
+    NdCase("layout", "col2im", "col2im", [_nd_rand(97, 2, 6 * 6, 15)],
+           dict(output_size=(5, 5), kernel=(3, 2), stride=(2, 1),
+                dilate=(1, 2), pad=(1, 1)), (0,)),
+    # overlaps sum: integer values sum exactly
+    NdCase("layout", "col2im_ints", "col2im",
+           [np.random.RandomState(98).randint(-4, 5, (2, 18, 21)).astype(
+               np.float32)],
+           dict(output_size=(6, 5), kernel=(2, 3), pad=(1, 0)), exact=True),
+    # the FlowNet fast path: kernel_size and stride1 are not read
+    NdCase("vision", "Correlation", "Correlation", [_NCHW, _NCHW[::-1]],
+           dict(max_displacement=2, stride2=2, pad_size=1), (0, 1)),
+    NdCase("vision", "Correlation_ignores_kernel_size", "Correlation",
+           [_NCHW, _NCHW[::-1]],
+           dict(kernel_size=3, stride1=2, max_displacement=1), (0, 1)),
+    NdCase("vision", "Correlation_abs", "Correlation", [_NCHW, _NCHW[::-1]],
+           dict(max_displacement=1, is_multiply=False), (0, 1)),
+    NdCase("vision", "DeformableConvolution", "DeformableConvolution",
+           [_NCHW[:, :4], _OFFSETS, _nd_rand(99, 3, 4, 3, 3),
+            _nd_rand(100, 3)],
+           dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                num_deformable_group=2, num_filter=3), (0, 1, 2, 3)),
+    NdCase("vision", "DeformableConvolution_no_bias",
+           "contrib.DeformableConvolution",
+           [_NCHW[:, :4], _OFFSETS[:, :18], _nd_rand(99, 3, 4, 3, 3)],
+           dict(kernel=(3, 3), dilate=(2, 2), pad=(2, 2), stride=(2, 2),
+                num_filter=3), (0, 1, 2)),
+    # CTC: optax's lattice, labels padded with -1 or cut by lengths
+    NdCase("ctc", "CTCLoss", "CTCLoss", [_CTC[:, :2], _CTC_LABELS[:2]], {},
+           (0,)),
+    NdCase("ctc", "ctc_loss_lengths", "ctc_loss",
+           [_CTC, _CTC_LABELS, _f32([6, 5, 6]), _f32([2, 3, 1])], {}, (0,)),
+    NdCase("ctc", "ctc_loss_blank_last", "contrib.ctc_loss",
+           [_CTC, _CTC_BLANK_LAST], dict(blank_label="last"), (0,)),
+    # sample 2 cannot align: about 1e5 (log 0 is -1e5), finite. Its
+    # gradient is a difference of path costs near 1e5, where fp32 keeps
+    # steps of 0.0078, so either side carries ~1e-3 of rounding there
+    NdCase("ctc", "CTCLoss_impossible", "CTCLoss",
+           [_CTC, _CTC_LABELS, _f32([6, 6, 4])], {}, (0,), CTC_FAR),
+    # the fused transformer matmuls: (T, N, H, 3, D) interleaved
+    NdCase("attention", "selfatt_qk", "interleaved_matmul_selfatt_qk",
+           [_QKV], dict(heads=2), (0,)),
+    NdCase("attention", "selfatt_valatt",
+           "interleaved_matmul_selfatt_valatt", [_QKV, _ATT], dict(heads=2),
+           (0, 1)),
+    NdCase("attention", "encdec_qk", "interleaved_matmul_encdec_qk",
+           [_Q, _KV], dict(heads=2), (0, 1)),
+    NdCase("attention", "encdec_valatt", "interleaved_matmul_encdec_valatt",
+           [_KV, _ATT_DEC], dict(heads=2), (0, 1)),
+    NdCase("attention", "div_sqrt_dim", "contrib.div_sqrt_dim", [_IMG], {},
+           (0,)),
+    # shape-derived and indexing stragglers
+    NdCase("shape", "arange_like", "arange_like", [_IMG],
+           dict(start=1.5, step=0.5, repeat=2), exact=True),
+    NdCase("shape", "arange_like_axis", "contrib.arange_like", [_IMG],
+           dict(axis=2), exact=True),
+    NdCase("shape", "broadcast_like", "broadcast_like",
+           [_nd_rand(101, 3, 1), _X], {}, (0,)),
+    NdCase("shape", "broadcast_like_axes", "broadcast_like",
+           [_nd_rand(102, 1, 4, 1), _IMG], dict(lhs_axes=(0, 2),
+                                                rhs_axes=(0, 1)), (0,)),
+    NdCase("shape", "reshape_like", "reshape_like",
+           [_X, np.zeros((2, 6), np.float32)], {}, (0,)),
+    NdCase("shape", "nan_to_num", "nan_to_num",
+           [_f32([np.nan, np.inf, -np.inf, 1.5])],
+           dict(nan=-1.0, posinf=9.0), exact=True),
+    NdCase("shape", "nan_to_num_defaults", "nan_to_num",
+           [_f32([np.nan, np.inf, -np.inf, -2.5])], exact=True),
+    NdCase("shape", "choose_element_0index", "choose_element_0index",
+           [_X, _f32([3, 0, 2])], exact=True),
+    NdCase("shape", "fill_element_0index", "fill_element_0index",
+           [_X, _f32([7, 8, 9]), _f32([1, 3, 0])], exact=True),
+    NdCase("shape", "index_copy", "contrib.index_copy",
+           [_nd_rand(103, 5, 3), _f32([4, 0]), _nd_rand(104, 2, 3)],
+           exact=True),
+    NdCase("shape", "sparse_retain_rows", "sparse_retain_rows",
+           [_nd_rand(105, 5, 2), _f32([3, 0])], exact=True),
+    # the loss and contrib ops; SVMOutput's and gradientmultiplier's own
+    # backwards
+    NdCase("contrib", "SVMOutput", "SVMOutput", [_X, _f32([1, 3, 0])],
+           dict(margin=0.5, regularization_coefficient=2.0), (0,)),
+    NdCase("contrib", "quadratic", "contrib.quadratic", [_X],
+           dict(a=0.5, b=-2.0, c=1.5), (0,)),
+    NdCase("contrib", "gradientmultiplier", "contrib.gradientmultiplier",
+           [_X], dict(scalar=-0.5), (0,)),
+    NdCase("contrib", "AdaptiveAvgPooling2D",
+           "contrib.AdaptiveAvgPooling2D", [_NCHW[:, :, :, :4]],
+           dict(output_size=(2, 3)), (0,)),
+    NdCase("contrib", "AdaptiveAvgPooling2D_op", "op:adaptive_avg_pooling2d",
+           [_NCHW], dict(output_size=3), (0,)),
+    NdCase("contrib", "BatchNormWithReLU", "contrib.BatchNormWithReLU",
+           [_NCHW, _nd_rand(106, 6, lo=0.5, hi=1.5), _nd_rand(107, 6),
+            _nd_rand(108, 6), _nd_rand(109, 6, lo=0.5, hi=1.5)], {},
+           (0, 1, 2)),
+    # in training the batch statistics come back, and carry a gradient
+    NdCase("contrib", "BatchNormWithReLU_training",
+           "contrib.BatchNormWithReLU",
+           [_NCHW, _nd_rand(106, 6, lo=0.5, hi=1.5), _nd_rand(107, 6),
+            _nd_rand(108, 6), _nd_rand(109, 6, lo=0.5, hi=1.5)],
+           dict(training=True), (0, 1, 2)),
+    NdCase("contrib", "BatchNorm_training", "BatchNorm",
+           [_NCHW, _nd_rand(106, 6, lo=0.5, hi=1.5), _nd_rand(107, 6),
+            _nd_rand(108, 6), _nd_rand(109, 6, lo=0.5, hi=1.5)],
+           dict(training=True), (0, 1, 2)),
+    NdCase("contrib", "requantize", "contrib.requantize",
+           [np.random.RandomState(110).randint(-2**20, 2**20, (3, 4)).astype(
+               np.int32), _f32([-8.0]), _f32([6.0])], exact=True),
+    NdCase("contrib", "requantize_calibrated", "contrib.requantize",
+           [np.random.RandomState(110).randint(-2**20, 2**20, (3, 4)).astype(
+               np.int32), _f32([-8.0]), _f32([6.0])],
+           dict(min_calib_range=-0.002, max_calib_range=0.003), exact=True),
+    # the pdfs, is_log and gradients
+    NdCase("pdf", "uniform", "random_pdf_uniform",
+           [_nd_rand(111, 3, 4, lo=-1.0, hi=2.0), _f32([[-0.5]] * 3),
+            _f32([[1.5]] * 3)], {}, (0, 2)),
+    NdCase("pdf", "normal_log", "random_pdf_normal",
+           [_X, _nd_rand(112, 3, 4), _POS], dict(is_log=True), (0, 1, 2)),
+    NdCase("pdf", "normal", "random_pdf_normal", [_X, _nd_rand(112, 3, 4),
+                                                  _POS], {}, (0, 1, 2)),
+    NdCase("pdf", "gamma", "random_pdf_gamma", [_POS, _POS_S, _POS[::-1]],
+           {}, (0, 1, 2), ND_LOOSE),
+    NdCase("pdf", "exponential_log", "random_pdf_exponential", [_POS, _POS_S],
+           dict(is_log=True), (0, 1)),
+    NdCase("pdf", "poisson", "random_pdf_poisson", [_COUNTS, _POS_S], {},
+           (1,), ND_LOOSE),
+    NdCase("pdf", "negative_binomial", "random_pdf_negative_binomial",
+           [_COUNTS, _POS_S, _PROB], {}, (1, 2), ND_LOOSE),
+    NdCase("pdf", "generalized_negative_binomial_log",
+           "random_pdf_generalized_negative_binomial",
+           [_COUNTS, _POS_S, _PROB], dict(is_log=True), (1, 2), ND_LOOSE),
+    NdCase("pdf", "dirichlet", "random_pdf_dirichlet",
+           [_DIR, _nd_rand(113, 4, 3, lo=0.5, hi=3.0)], {}, (0, 1),
+           ND_LOOSE),
+    # the AMP ops and the multi-tensor reductions
+    NdCase("amp", "amp_cast", "amp_cast", [_X], exact=True),
+    NdCase("amp", "amp_cast_float32", "amp_cast", [_X.astype(np.float16)],
+           dict(dtype="float32"), exact=True),
+    NdCase("amp", "amp_multicast", "amp_multicast",
+           [_X.astype(np.float16), _POS], dict(num_outputs=2), exact=True),
+    NdCase("amp", "amp_multicast_narrow", "amp_multicast",
+           [_X.astype(np.float16), _POS], dict(num_outputs=2,
+                                               cast_narrow=True), exact=True),
+    NdCase("amp", "all_finite", "all_finite", [_X], exact=True),
+    NdCase("amp", "all_finite_inf", "all_finite",
+           [_f32([1.0, np.inf, 2.0])], exact=True),
+    NdCase("amp", "multi_all_finite", "multi_all_finite",
+           [_X, _f32([np.nan]), _POS], dict(num_arrays=3), exact=True),
+    NdCase("amp", "multi_sum_sq", "multi_sum_sq", [_X, _POS, _IMG],
+           dict(num_arrays=3)),
+    NdCase("amp", "multi_lars", "op:multi_lars",
+           [_f32([0.1, 0.2, 0.3]), _f32([4.0, 0.0, 9.0]),
+            _f32([1.0, 2.0, 0.25]), _f32([0.01, 0.0, 0.1])],
+           dict(eta=0.01, rescale_grad=0.5)),
+]
+
+#: one chain of an update op: ``name`` (an ``mx.nd`` update wrapper, run
+#: with ``out=`` the weight so its in-place rule carries the state, or
+#: ``"op:<name>"`` run functionally, its outputs fed back by ``feeds``:
+#: output i -> argument feeds[i]); ``arrays`` the first step's arguments,
+#: ``grads`` the argument positions that take the next of ``GRADS`` at
+#: each of the three steps; float results within ``tol`` (None: ND_TOL)
+UpdCase = collections.namedtuple(
+    "UpdCase", "id name arrays kwargs grads feeds tol",
+    defaults=({}, (1,), (), None))
+_W = _nd_rand(120, 3, 4)
+_GRADS = [_nd_rand(121 + i, 3, 4, lo=-2.0, hi=2.0) for i in range(3)]
+_OPT = dict(wd=0.01, rescale_grad=0.5, clip_gradient=0.6)
+_MOM = _nd_rand(124, 3, 4, lo=-0.1, hi=0.1)
+_VAR = _nd_rand(125, 3, 4, lo=0.0, hi=0.2)
+_Z = np.zeros((3, 4), np.float32)
+
+UPDATE_CASES = [
+    UpdCase("sgd_update", "sgd_update", [_W, _Z], dict(lr=0.1, **_OPT)),
+    UpdCase("sgd_mom_update", "sgd_mom_update", [_W, _Z, _MOM],
+            dict(lr=0.1, momentum=0.9, **_OPT)),
+    UpdCase("mp_sgd_update", "mp_sgd_update", [_W, _Z, _W],
+            dict(lr=0.1, **_OPT)),
+    UpdCase("mp_sgd_mom_update", "mp_sgd_mom_update", [_W, _Z, _MOM, _W],
+            dict(lr=0.1, momentum=0.9, **_OPT)),
+    UpdCase("nag_mom_update", "nag_mom_update", [_W, _Z, _MOM],
+            dict(lr=0.1, momentum=0.9, **_OPT)),
+    UpdCase("mp_nag_mom_update", "mp_nag_mom_update", [_W, _Z, _MOM, _W],
+            dict(lr=0.1, momentum=0.9, **_OPT)),
+    UpdCase("adam_update", "adam_update", [_W, _Z, _MOM, _VAR],
+            dict(lr=0.01, **_OPT)),
+    UpdCase("adamw_update", "adamw_update", [_W, _Z, _MOM, _VAR],
+            dict(lr=0.01, eta=0.7, **_OPT)),
+    UpdCase("rmsprop_update", "rmsprop_update", [_W, _Z, _VAR],
+            dict(lr=0.01, clip_weights=0.8, **_OPT)),
+    UpdCase("rmspropalex_update", "rmspropalex_update",
+            [_W, _Z, _VAR + 0.5, _MOM, _MOM], dict(lr=0.01, **_OPT)),
+    UpdCase("ftrl_update", "ftrl_update", [_W, _Z, _MOM, _VAR],
+            dict(lr=0.1, lamda1=0.05, **_OPT)),
+    UpdCase("ftml_update", "ftml_update", [_W, _Z, _VAR, _VAR, _MOM],
+            dict(lr=0.1, t=2, wd=0.01, rescale_grad=0.5, clip_grad=0.6)),
+    UpdCase("signsgd_update", "signsgd_update", [_W, _Z],
+            dict(lr=0.1, **_OPT)),
+    UpdCase("signum_update", "signum_update", [_W, _Z, _MOM],
+            dict(lr=0.1, momentum=0.9, wd_lh=0.02, **_OPT)),
+    UpdCase("lamb_update_phase1", "lamb_update_phase1",
+            [_W, _Z, _MOM, _VAR], dict(t=3, **_OPT), feeds=(None, 2, 3)),
+    UpdCase("lamb_update_phase1_uncorrected", "lamb_update_phase1",
+            [_W, _Z, _MOM, _VAR], dict(bias_correction=False, **_OPT),
+            feeds=(None, 2, 3)),
+    UpdCase("lamb_update_phase2", "lamb_update_phase2",
+            [_W, _Z, _f32([2.0]), _f32([0.5])],
+            dict(lr=0.1, lower_bound=0.5, upper_bound=3.0), feeds=(0,)),
+    UpdCase("mp_lamb_update_phase1", "op:mp_lamb_update_phase1",
+            [_W, _Z, _MOM, _VAR, _W], dict(t=2, wd=0.01, rescale_grad=0.5),
+            feeds=(None, 2, 3)),
+    UpdCase("mp_lamb_update_phase2", "op:mp_lamb_update_phase2",
+            [_W, _Z, _f32([2.0]), _f32([0.5]), _W], dict(lr=0.1),
+            feeds=(0, 4)),
+    UpdCase("multi_sgd_update", "multi_sgd_update", [_W, _Z, _POS, _Z],
+            dict(lrs=(0.1, 0.2), wds=(0.0, 0.01), rescale_grad=0.5,
+                 clip_gradient=0.6, num_weights=2), (1, 3), (0, 2)),
+    UpdCase("multi_sgd_mom_update", "multi_sgd_mom_update",
+            [_W, _Z, _MOM, _POS, _Z, _MOM],
+            dict(lrs=(0.1, 0.2), wds=(0.0, 0.01), momentum=0.9,
+                 num_weights=2), (1, 4), (0, 2, 3, 5)),
+    UpdCase("multi_mp_sgd_update", "op:multi_mp_sgd_update",
+            [_W, _Z, _W, _POS, _Z, _POS],
+            dict(lrs=(0.1, 0.2), wds=(0.0, 0.01), clip_gradient=0.6,
+                 num_weights=2), (1, 4), (0, 2, 3, 5)),
+    UpdCase("multi_mp_sgd_mom_update", "op:multi_mp_sgd_mom_update",
+            [_W, _Z, _MOM, _W, _POS, _Z, _MOM, _POS],
+            dict(lrs=(0.1, 0.2), wds=(0.0, 0.01), momentum=0.9,
+                 num_weights=2), (1, 5), (0, 2, 3, 4, 6, 7)),
+    # lrs and wds as the last two (device) arrays
+    UpdCase("preloaded_multi_sgd_update", "op:preloaded_multi_sgd_update",
+            [_W, _Z, _POS, _Z, _f32([0.1, 0.2]), _f32([0.0, 0.01])],
+            dict(rescale_grad=0.5), (1, 3), (0, 2)),
+    UpdCase("preloaded_multi_sgd_mom_update",
+            "op:preloaded_multi_sgd_mom_update",
+            [_W, _Z, _MOM, _POS, _Z, _MOM, _f32([0.1, 0.2]),
+             _f32([0.0, 0.01])],
+            dict(momentum=0.9, clip_gradient=0.6), (1, 4), (0, 2, 3, 5)),
+    UpdCase("preloaded_multi_mp_sgd_update",
+            "op:preloaded_multi_mp_sgd_update",
+            [_W, _Z, _W, _POS, _Z, _POS, _f32([0.1, 0.2]),
+             _f32([0.0, 0.01])], {}, (1, 4), (0, 2, 3, 5)),
+    UpdCase("preloaded_multi_mp_sgd_mom_update",
+            "op:preloaded_multi_mp_sgd_mom_update",
+            [_W, _Z, _MOM, _W, _POS, _Z, _MOM, _POS, _f32([0.1, 0.2]),
+             _f32([0.0, 0.01])], dict(momentum=0.9, rescale_grad=0.5),
+            (1, 5), (0, 2, 3, 4, 6, 7)),
+]
+#: the ``mx.nd`` update wrappers with the reference's in-place rule: name
+#: -> (array arguments, trailing state arrays written in place)
+UPDATE_WRAPPERS = {
+    "sgd_update": (2, 0), "sgd_mom_update": (3, 1), "mp_sgd_update": (3, 1),
+    "mp_sgd_mom_update": (4, 2), "nag_mom_update": (3, 1),
+    "adam_update": (4, 2), "adamw_update": (4, 2), "rmsprop_update": (3, 1),
+    "rmspropalex_update": (5, 3), "ftrl_update": (4, 2),
+    "signsgd_update": (2, 0), "signum_update": (3, 1),
+    "ftml_update": (5, 3), "mp_nag_mom_update": (4, 2)}
+
+
+def run_update_case(pkg, case, ctx=None):
+    """Three chained steps of ``case`` through ``pkg.nd`` on ``ctx``, the
+    gradients of ``_GRADS`` (scaled per weight); every argument and
+    result of the last step as numpy arrays. A wrapper with the in-place
+    rule runs with ``out=`` its weight; an op runs functionally, its
+    results fed back."""
+    nd = pkg.nd
+    xs = [nd.array(a, ctx=ctx, dtype=a.dtype) for a in case.arrays]
+    fn = _nd_fn(nd, case.name)
+    for step in range(3):
+        for j, pos in enumerate(case.grads):
+            xs[pos] = nd.array(_GRADS[step] * (1 + j), ctx=ctx)
+        if case.name in UPDATE_WRAPPERS:
+            res = fn(*xs, out=xs[0], **case.kwargs)
+        else:
+            res = fn(*xs, **case.kwargs)
+            outs = list(res) if isinstance(res, (tuple, list)) else [res]
+            feeds = case.feeds or tuple(range(len(outs)))
+            for o, pos in zip(outs, feeds):
+                if pos is not None:
+                    xs[pos] = o
+    res = list(res) if isinstance(res, (tuple, list)) else [res]
+    return [x.asnumpy() for x in xs + res]
+
+
+def check_update_case(case, got, want):
+    """``got`` against ``want`` (``run_update_case`` results): types and
+    shapes equal, floats within ``case.tol``; the largest absolute
+    error."""
+    return check_nd_case(NdCase("update", case.id, case.name, [],
+                                tol=case.tol), got, want)
+
+
+def update_inplace_checks(mx, ctx):
+    """The in-place rule of every update wrapper of ``mx.nd`` (either
+    package's ``mx``) on ``ctx``: without ``out=`` the weight keeps its
+    value; with ``out=`` it takes the returned weight (in the port, in its
+    own tensor); the trailing states always take the returned states, bit
+    for bit; the gradient and any other argument never change.
+    ``reset_arrays`` zeroes its arguments; ``multi_sgd_update`` writes
+    nothing. Returns the number of wrappers checked."""
+    nd = mx.nd
+    cases = {c.name: c for c in UPDATE_CASES}
+    for name, (narr, n_state) in UPDATE_WRAPPERS.items():
+        case = cases[name]
+        for use_out in (False, True):
+            xs = [nd.array(a, ctx=ctx, dtype=a.dtype) for a in case.arrays]
+            xs[1] = nd.array(_GRADS[0], ctx=ctx)
+            before = [x.asnumpy() for x in xs]
+            own = xs[0]._data
+            kw = dict(case.kwargs, out=xs[0]) if use_out else case.kwargs
+            res = getattr(nd, name)(*xs, **kw)
+            res = list(res) if isinstance(res, (tuple, list)) else [res]
+            after = [x.asnumpy() for x in xs]
+            label = f"{name}{' out=w' if use_out else ''}"
+            want_w = res[0].asnumpy() if use_out else before[0]
+            if not np.array_equal(after[0], want_w):
+                raise AssertionError(f"{label}: the weight")
+            if torch.is_tensor(own) and use_out and xs[0]._data is not own:
+                raise AssertionError(f"{label}: out= rebound the weight")
+            if not np.array_equal(after[1], before[1]):
+                raise AssertionError(f"{label}: the gradient changed")
+            for k in range(n_state):
+                pos = narr - n_state + k
+                if not np.array_equal(after[pos], res[1 + k].asnumpy()):
+                    raise AssertionError(f"{label}: state {pos} not written")
+            for pos in range(2, narr - n_state):
+                if not np.array_equal(after[pos], before[pos]):
+                    raise AssertionError(f"{label}: argument {pos} changed")
+    xs = [nd.array(_W, ctx=ctx), nd.array(_POS, ctx=ctx)]
+    zeros = nd.reset_arrays(*xs, num_arrays=2)
+    if any(x.asnumpy().any() for x in xs) or len(zeros) != 2:
+        raise AssertionError("reset_arrays did not zero its arguments")
+    xs = [nd.array(a, ctx=ctx) for a in (_W, _GRADS[0], _POS, _GRADS[1])]
+    before = [x.asnumpy() for x in xs]
+    nd.multi_sgd_update(*xs, lrs=(0.1, 0.1), wds=(0.0, 0.0), num_weights=2)
+    if not all(np.array_equal(x.asnumpy(), b) for x, b in zip(xs, before)):
+        raise AssertionError("multi_sgd_update wrote an argument")
+    return len(UPDATE_WRAPPERS)
+
+
+def _moment_check(label, x, mean, var, mu4, sigmas):
+    """The sample mean and variance of ``x`` (float64) within ``sigmas``
+    standard errors of ``mean``/``var`` (``mu4`` the fourth central
+    moment); returns the larger of the two in standard errors."""
+    n = x.size
+    m = float(x.mean())
+    v = float(x.var())
+    z_mean = abs(m - mean) / math.sqrt(var / n)
+    z_var = abs(v - var) / math.sqrt(max(mu4 - var * var, 1e-30) / n)
+    if not (z_mean <= sigmas and z_var <= sigmas):
+        raise AssertionError(f"{label}: mean {m} (want {mean}), variance {v} "
+                             f"(want {var}): {z_mean:.2f} and {z_var:.2f} "
+                             f"standard errors, limit {sigmas}")
+    return max(z_mean, z_var)
+
+
+def sampler_checks(pkg, ctx=None, n=2**20, sigmas=5.0):
+    """Every sampler of ``pkg.nd`` (either package's ``mx``) by its
+    statistics on ``ctx``: ``n`` draws of each, mean and variance within
+    ``sigmas`` standard errors, the support, the dtype and the shape;
+    ``randint`` covering [low, high), ``shuffle`` a permutation along axis
+    0, ``multinomial``'s frequencies by chi-squared, and
+    ``image.random_flip_left_right`` flipping the whole batch or none of
+    it, one coin a call. Returns name -> (dtype, shape, the larger
+    distance in standard errors; for ``multinomial`` the chi-squared's
+    above its mean, the flip count's from half)."""
+    nd = pkg.nd
+    r = nd.random
+    on = {} if ctx is None else {"ctx": ctx}
+    out = {}
+
+    def draws(label, x, dtype, shape, mean, var, mu4, lo=None, hi=None):
+        a = x.asnumpy()
+        if str(a.dtype) != dtype or a.shape != shape:
+            raise AssertionError(f"{label}: {a.dtype}{a.shape}, want "
+                                 f"{dtype}{shape}")
+        a = a.astype(np.float64).ravel()
+        if (lo is not None and a.min() < lo) or (hi is not None
+                                                 and a.max() > hi):
+            raise AssertionError(f"{label}: draws outside [{lo}, {hi}]")
+        out[label] = (dtype, shape, _moment_check(label, a, mean, var, mu4,
+                                                  sigmas))
+
+    def gamma_moments(k, theta):
+        var = k * theta * theta
+        return k * theta, var, (3 + 6 / k) * var * var
+
+    def nb_moments(k, p):
+        mean, var = k * (1 - p) / p, k * (1 - p) / p ** 2
+        return mean, var, (3 + 6 / k + p * p / (k * (1 - p))) * var * var
+
+    draws("uniform", r.uniform(-1.0, 3.0, shape=(n,), **on), "float32",
+          (n,), 1.0, 16 / 12, 4 ** 4 / 80, -1.0, 3.0)
+    draws("normal", r.normal(0.5, 2.0, shape=(n,), **on), "float32", (n,),
+          0.5, 4.0, 3 * 16.0)
+    draws("gamma", r.gamma(2.5, 0.5, shape=(n,), **on), "float32", (n,),
+          *gamma_moments(2.5, 0.5), 0.0)
+    draws("exponential", r.exponential(4.0, shape=(n,), **on), "float32",
+          (n,), 0.25, 1 / 16, 9 / 256, 0.0)
+    draws("poisson", r.poisson(3.5, shape=(n,), **on), "float32", (n,),
+          3.5, 3.5, 3 * 3.5 ** 2 + 3.5, 0.0)
+    draws("bernoulli", r.bernoulli(0.3, shape=(n,), **on), "float32", (n,),
+          0.3, 0.21, 0.21 * (1 - 3 * 0.21), 0.0, 1.0)
+    ints = r.randint(-3, 5, shape=(n,), **on)
+    k2 = 8 ** 2                     # 8 values, each of probability 1/8
+    var = (k2 - 1) / 12
+    draws("randint", ints, "int32", (n,), 0.5, var,
+          (3 - 6 * (k2 + 1) / (5 * (k2 - 1))) * var * var, -3, 4)
+    if set(np.unique(ints.asnumpy()).tolist()) != set(range(-3, 5)):
+        raise AssertionError("randint does not cover [-3, 5)")
+    draws("negative_binomial",
+          _nb_draws(nd, "random_negative_binomial",
+                    dict(k=3, p=0.4, shape=(n,)), ctx),
+          "float32", (n,), *nb_moments(3.0, 0.4), 0.0)
+    kg = 1 / 0.5
+    draws("generalized_negative_binomial",
+          _nb_draws(nd, "random_generalized_negative_binomial",
+                    dict(mu=2.0, alpha=0.5, shape=(n,)), ctx),
+          "float32", (n,), *nb_moments(kg, kg / (kg + 2.0)), 0.0)
+    # the per-parameter samplers: a row of draws per parameter element
+    m = n // 2
+    lows = nd.array(_f32([-1.0, 2.0]), ctx=ctx)
+    highs = nd.array(_f32([1.0, 6.0]), ctx=ctx)
+    both = nd.sample_uniform(lows, highs, shape=m)
+    for i, (lo, hi) in enumerate(((-1.0, 1.0), (2.0, 6.0))):
+        draws(f"sample_uniform[{i}]", both[i], "float32", (m,),
+              (lo + hi) / 2, (hi - lo) ** 2 / 12, (hi - lo) ** 4 / 80, lo,
+              hi)
+    mus, sds = nd.array(_f32([0.0, -3.0]), ctx=ctx), \
+        nd.array(_f32([1.0, 0.5]), ctx=ctx)
+    both = nd.sample_normal(mus, sds, shape=(m,))
+    for i, (mu, sd) in enumerate(((0.0, 1.0), (-3.0, 0.5))):
+        draws(f"sample_normal[{i}]", both[i], "float32", (m,), mu, sd * sd,
+              3 * sd ** 4)
+    both = nd.sample_gamma(nd.array(_f32([0.5, 4.0]), ctx=ctx),
+                           nd.array(_f32([2.0, 0.25]), ctx=ctx), shape=(m,))
+    for i, (a, b) in enumerate(((0.5, 2.0), (4.0, 0.25))):
+        draws(f"sample_gamma[{i}]", both[i], "float32", (m,),
+              *gamma_moments(a, b), 0.0)
+    both = nd.sample_exponential(nd.array(_f32([0.5, 5.0]), ctx=ctx),
+                                 shape=(m,))
+    for i, lam in enumerate((0.5, 5.0)):
+        draws(f"sample_exponential[{i}]", both[i], "float32", (m,),
+              1 / lam, 1 / lam ** 2, 9 / lam ** 4, 0.0)
+    both = nd.sample_poisson(nd.array(_f32([0.7, 12.0]), ctx=ctx),
+                             shape=(m,))
+    for i, lam in enumerate((0.7, 12.0)):
+        draws(f"sample_poisson[{i}]", both[i], "float32", (m,), lam, lam,
+              3 * lam * lam + lam, 0.0)
+    both = nd.sample_negative_binomial(nd.array(_f32([2.0, 5.0]), ctx=ctx),
+                                       nd.array(_f32([0.3, 0.7]), ctx=ctx),
+                                       shape=(m,))
+    for i, (kk, p) in enumerate(((2.0, 0.3), (5.0, 0.7))):
+        draws(f"sample_negative_binomial[{i}]", both[i], "float32", (m,),
+              *nb_moments(kk, p), 0.0)
+    # multinomial: rows need not sum to 1; chi-squared of the frequencies
+    probs = _f32([[0.1, 0.2, 0.3, 0.4], [2.0, 0.0, 1.0, 1.0]])
+    idx = r.multinomial(nd.array(probs, ctx=ctx), shape=m)
+    got = idx.asnumpy()
+    if got.dtype != np.int32 or got.shape != (2, m):
+        raise AssertionError(f"multinomial: {got.dtype}{got.shape}")
+    chi = 0.0
+    for row, p in zip(got, probs):
+        p = p / p.sum()
+        seen = np.bincount(row, minlength=4)
+        if seen[p == 0].any():
+            raise AssertionError("multinomial drew a category of weight 0")
+        want = p[p > 0] * m
+        chi = max(chi, float(((seen[p > 0] - want) ** 2 / want).sum()))
+    dof = 3
+    if chi > dof + sigmas * math.sqrt(2 * dof):
+        raise AssertionError(f"multinomial: chi-squared {chi} over {dof} "
+                             "degrees of freedom")
+    out["multinomial"] = ("int32", (2, m), (chi - dof) / math.sqrt(2 * dof))
+    cat = r.categorical(nd.array(probs[0], ctx=ctx)).asnumpy()
+    if cat.shape != () or not 0 <= int(cat) < 4:
+        raise AssertionError(f"categorical: {cat}")
+    rows = nd.array(np.arange(4096 * 3, dtype=np.float32).reshape(4096, 3),
+                    ctx=ctx)
+    perm = r.shuffle(rows).asnumpy()
+    if not np.array_equal(np.sort(perm[:, 0]), rows.asnumpy()[:, 0]) \
+            or not np.array_equal(perm[:, 1] - perm[:, 0], np.ones(4096)) \
+            or np.array_equal(perm, rows.asnumpy()):
+        raise AssertionError("shuffle is not a permutation of the rows")
+    # one coin for the whole batch: every call flips all images or none
+    imgs = nd.array(_NHWC, ctx=ctx)
+    flips, calls = 0, 400
+    for _ in range(calls):
+        got = nd.image.random_flip_left_right(imgs).asnumpy()
+        if np.array_equal(got, _NHWC[:, :, ::-1]):
+            flips += 1
+        elif not np.array_equal(got, _NHWC):
+            raise AssertionError("random_flip_left_right flipped part of "
+                                 "the batch")
+    z = abs(flips - calls / 2) / math.sqrt(calls / 4)
+    if z > sigmas:
+        raise AssertionError(f"random_flip_left_right flipped {flips} of "
+                             f"{calls} batches")
+    out["random_flip_left_right"] = ("float32", _NHWC.shape, z)
+    return out
+
+
+def _nb_draws(nd, name, kwargs, ctx):
+    """A sampler with no ``mx.nd.random`` wrapper, by name on ``ctx``."""
+    if ctx is None:
+        return nd.invoke_op(name, **kwargs)
+    with ctx:
+        return nd.invoke_op(name, **kwargs)
+
+
+def state_replay_check(mx, ctx, n=4096):
+    """``mx.random.get_state``/``set_state`` on ``ctx``: a restored state
+    replays the same draws (a scalar sampler, a per-parameter one and a
+    shuffle), and the draws after it differ."""
+    nd = mx.nd
+
+    def draw():
+        return [nd.random.normal(shape=(n,), ctx=ctx).asnumpy(),
+                nd.sample_gamma(nd.ones((2,), ctx=ctx),
+                                nd.ones((2,), ctx=ctx), shape=n).asnumpy(),
+                nd.random.shuffle(nd.arange(n, ctx=ctx)).asnumpy()]
+
+    state = mx.random.get_state()
+    first = draw()
+    mx.random.set_state(state)
+    again = draw()
+    later = draw()
+    if not all(np.array_equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("set_state did not replay the draws")
+    if any(np.array_equal(a, b) for a, b in zip(first, later)):
+        raise AssertionError("the draws after the replay repeat it")
+    return len(first)
+
+
+def captured_sampler_check(mx, ctx, n=4096):
+    """A sampler inside a CUDA graph (``superstep.capture_steps``) on the
+    card ``ctx``: each replay draws afresh from the generator the graph
+    registered (``random.generators_of``), and ``rollback_keys`` after a
+    replay makes the next replay draw the same values again."""
+    from incubator_mxnet_tpu_torch import random as _random
+    from incubator_mxnet_tpu_torch.parallel import superstep
+
+    dev = ctx.torch_device()
+    with superstep.dispatch(dev):
+        graph = superstep.capture_steps(
+            lambda i: mx.nd.random.uniform(shape=(n,), ctx=ctx).as_torch(),
+            1, [], dev)
+        first = graph.replay()[0].clone()
+        reserved = _random.reserve_keys(dev)
+        second = graph.replay()[0].clone()
+        _random.rollback_keys(reserved)
+        again = graph.replay()[0].clone()
+    if torch.equal(first, second) or not torch.equal(second, again):
+        raise AssertionError("a captured sampler does not draw afresh on "
+                             "each replay, or rollback_keys does not hold")
+    return float(second.mean())
+
+
+def _check_cases(mx, ctx, cases, run, check):
+    """Each case run on the CPU and on ``ctx``; family -> (cases, worst
+    float difference)."""
+    families = {}
+    for case in cases:
+        want = run(mx, case, mx.cpu())
+        got = run(mx, case, ctx)
+        worst = check(case, got, want)
+        fam = families.setdefault(getattr(case, "family", "update"),
+                                  dict(cases=0, worst=0.0))
+        fam["cases"] += 1
+        fam["worst"] = max(fam["worst"], worst)
+    return families
+
+
+def nd1x_cases_phase(mx, ctx, n_draws=2**20):
+    """Every op of the slice on ``ctx`` against the port on the CPU (held
+    to the JAX package by the CPU tests): ``MORE_CASES`` with gradients,
+    ``UPDATE_CASES`` over three chained steps, the update wrappers'
+    in-place rule on ``ctx``; the samplers by their statistics at
+    ``n_draws`` draws; ``set_state`` replaying on ``ctx``; on the card a
+    sampler captured in a CUDA graph (``captured_sampler_check``). One
+    line an op family; raises on the first failure."""
+    families = _check_cases(mx, ctx, MORE_CASES, run_nd_case, check_nd_case)
+    families.update(_check_cases(mx, ctx, UPDATE_CASES, run_update_case,
+                                 check_update_case))
+    for name, fam in families.items():
+        print(f"mx.nd 1.x ops on {ctx} vs the CPU, {name}: {fam['cases']} "
+              f"cases equal (largest float difference {fam['worst']:.3e})",
+              flush=True)
+    wrappers = update_inplace_checks(mx, ctx)
+    print(f"update wrappers on {ctx}: the in-place rule of {wrappers} "
+          "wrappers (out= writes the weight's own tensor, the states always "
+          "written, bit-equal to the returned values), reset_arrays, "
+          "multi_* writing nothing", flush=True)
+    stats = sampler_checks(mx, ctx, n_draws)
+    worst = max(stats.items(), key=lambda kv: kv[1][2])
+    print(f"samplers on {ctx}: {len(stats)} checks of {n_draws} draws (a "
+          f"per-parameter row {n_draws // 2}), mean and variance within 5 "
+          f"standard errors, support, dtype and shape; largest "
+          f"{worst[1][2]:.2f} ({worst[0]}); multinomial by chi-squared, "
+          "shuffle a permutation, "
+          "random_flip_left_right all or none", flush=True)
+    replayed = state_replay_check(mx, ctx)
+    print(f"mx.random.set_state on {ctx}: {replayed} draws replayed bit for "
+          "bit", flush=True)
+    if ctx.device_type == "gpu":
+        mean = captured_sampler_check(mx, ctx)
+        print(f"a sampler captured in a CUDA graph on {ctx}: fresh draws "
+              f"each replay (mean {mean:.4f}), rollback_keys replays the "
+              "last one", flush=True)
+    return dict(families=families, wrappers=wrappers, samplers=stats)
+
+
+def nd_bert_forward(nd, params, tokens, segments, valid_length, num_layers,
+                    num_heads):
+    """``BERTModel``'s forward (``models.get_bert``, post-norm, the four
+    outputs) written the GluonNLP 1.x way in ``mx.nd`` ops alone, for
+    either package: time-major (T, B, C) layers whose query, key and value
+    weights are interleaved per head into one ``FullyConnected`` of
+    (H, 3, D, C) rows, scores by ``interleaved_matmul_selfatt_qk``, a key
+    mask from ``valid_length`` (``arange_like``, ``broadcast_like``,
+    repeated per head) under ``masked_softmax``, and
+    ``interleaved_matmul_selfatt_valatt``. Returns (seq (B, T, C), pooled
+    (B, C), mlm scores (B, T, V), nsp scores (B, 2))."""
+    p = params
+    b, t = tokens.shape
+    vocab, units = p["word_embed.weight"].shape
+    d = units // num_heads
+
+    def ln(x, name):
+        return nd.LayerNorm(x, p[name + ".gamma"], p[name + ".beta"],
+                            axis=-1, eps=1e-5)
+
+    def dense(x, name, width):
+        return nd.FullyConnected(x, p[name + ".weight"], p[name + ".bias"],
+                                 num_hidden=width, flatten=False)
+
+    def interleaved(prefix, part, shape):
+        return nd.reshape(nd.stack(*[
+            nd.reshape(p[f"{prefix}{n}.{part}"], shape=shape)
+            for n in ("query", "key", "value")], axis=1), shape=(-1,)
+            + shape[2:])
+
+    pos = nd.Embedding(nd.arange(t, ctx=tokens.context),
+                       p["position_embed.weight"])
+    x = nd.broadcast_add(nd.Embedding(tokens, p["word_embed.weight"]), pos) \
+        + nd.Embedding(segments, p["token_type_embed.weight"])
+    x = nd.transpose(ln(x, "embed_ln"), axes=(1, 0, 2))     # (T, B, C)
+    keys = nd.broadcast_lesser(
+        nd.reshape(nd.arange_like(tokens, axis=1), shape=(1, 1, t)),
+        nd.reshape(nd.cast(valid_length, dtype="float32"), shape=(b, 1, 1)))
+    mask = nd.repeat(nd.broadcast_like(keys, tokens, lhs_axes=(1,),
+                                       rhs_axes=(1,)),
+                     repeats=num_heads, axis=0)             # (B*H, T, T)
+    hidden = p["encoder.layer0.ffn.ffn1.weight"].shape[0]
+    for i in range(num_layers):
+        pre = f"encoder.layer{i}."
+        att = pre + "attention."
+        qkv = nd.FullyConnected(
+            x, interleaved(att, "weight", (num_heads, d, units)),
+            interleaved(att, "bias", (num_heads, d)),
+            num_hidden=3 * units, flatten=False)            # (T, B, 3C)
+        scores = nd.interleaved_matmul_selfatt_qk(qkv, heads=num_heads)
+        probs = nd.masked_softmax(scores, mask)
+        ctx_v = nd.interleaved_matmul_selfatt_valatt(qkv, probs,
+                                                     heads=num_heads)
+        x = ln(x + dense(ctx_v, att + "proj", units), pre + "ln1")
+        f = dense(nd.gelu(dense(x, pre + "ffn.ffn1", hidden)),
+                  pre + "ffn.ffn2", units)
+        x = ln(x + f, pre + "ln2")
+    seq = nd.transpose(x, axes=(1, 0, 2))
+    first = nd.reshape(nd.slice_axis(seq, axis=1, begin=0, end=1),
+                       shape=(b, units))
+    pooled = nd.tanh(nd.FullyConnected(first, p["pooler.weight"],
+                                       p["pooler.bias"], num_hidden=units))
+    mlm = dense(ln(nd.gelu(dense(seq, "mlm_decoder.0", units)),
+                   "mlm_decoder.1"), "mlm_decoder.2", vocab)
+    nsp = nd.FullyConnected(pooled, p["nsp_classifier.weight"],
+                            p["nsp_classifier.bias"], num_hidden=2)
+    return seq, pooled, mlm, nsp
+
+
+def nd_bert_loss(nd, mlm, nsp, mlm_y, nsp_y):
+    """``bert_pretrain_loss``'s objective in ``mx.nd`` ops: the mean MLM
+    cross entropy plus the mean NSP cross entropy."""
+    vocab = mlm.shape[-1]
+    mlm_ce = nd.pick(nd.log_softmax(nd.reshape(mlm, shape=(-1, vocab))),
+                     nd.reshape(mlm_y, shape=(-1,))).mean()
+    nsp_ce = nd.pick(nd.log_softmax(nsp), nsp_y).mean()
+    return -(mlm_ce + nsp_ce)
+
+
+def nd_bert_step(mx, params, data, labels, num_layers, num_heads):
+    """Forward and backward of ``nd_bert_forward`` with ``nd_bert_loss``
+    under ``autograd.record()``: the gradients land in ``params``; returns
+    the loss. ``data`` = (tokens, segments, valid_length), ``labels`` =
+    (MLM labels (B, T), NSP labels (B,)), all NDArrays."""
+    nd = mx.nd
+    with mx.autograd.record():
+        _, _, mlm, nsp = nd_bert_forward(nd, params, *data, num_layers,
+                                         num_heads)
+        loss = nd_bert_loss(nd, mlm, nsp, *labels)
+    loss.backward()
+    return float(loss.asscalar())
+
+
+def nd_bert_update(nd, params, grads, states, lr=1e-4, wd=0.01):
+    """The 1.x update: ``multi_sum_sq`` over the gradients gives the
+    global norm, the clip factor ``min(1, 1/norm)`` is read once as a
+    float (the reference's ``rescale_grad``), then ``adamw_update(w, g,
+    mean, var, out=w)`` per parameter. Returns the norm."""
+    names = list(params)
+    sq = nd.multi_sum_sq(*[grads[n] for n in names], num_arrays=len(names))
+    norm = math.sqrt(float(sq.sum().asscalar()))
+    clip = min(1.0, 1.0 / norm) if norm > 0 else 1.0
+    for n in names:
+        mean, var = states[n]
+        nd.adamw_update(params[n], grads[n], mean, var, lr=lr, wd=wd,
+                        rescale_grad=clip, out=params[n])
+    return norm
+
+
+#: the learning check of the 1.x step: AdamW at BERT's published peak rate
+ND1X_LR = 1e-4
+
+
+def fp64_referee(net, loss_fn, data, labels, module, candidates):
+    """Each gradient list of ``candidates`` (label -> gradients of
+    ``net``'s trainable parameters, in ``collect_params`` order) against
+    the same pass in fp64 through the plain attention (``swap_attention``
+    of ``module``) on a copy of ``net``: label -> (worst relative L2
+    error, its tensor), ``_worst_grad``'s measure."""
+    import incubator_mxnet_tpu_torch as mx
+
+    net64 = copy.deepcopy(net).cast("float64")
+    named = [(n, p) for n, p in net64.collect_params().items()
+             if p.requires_grad]
+    with swap_attention(module), mx.autograd.record():
+        loss = loss_fn(*net64(*data), *labels)
+    ref = torch.autograd.grad(loss, [p for _, p in named])
+    del net64, loss
+    names = [n for n, _ in named]
+    return {label: _worst_grad(f"{label} against fp64", names,
+                               [g.double() for g in grads], ref, math.inf)
+            for label, grads in candidates.items()}
+
+
+def nd1x_phase(seed, card, net, ctx, sizes=BERT_SIZES[:2], steps=10, reps=5,
+               n_draws=2**20):
+    """The mx.nd 1.x phase on ``net`` (a fp32 ``BERTModel`` with its four
+    heads, ``attention_impl="pallas"``, dropout 0) at B, T = ``sizes``
+    with ``bert_batch`` and ``bert_lengths`` (mixed segments; the BERT
+    phase's batch): (a) the
+    gluon forward and backward through K4-K6 (counted: a launch of each a
+    layer, f32), then ``nd_bert_step`` on the net's own parameters, its
+    loss and every gradient against the gluon pass's (relative L2 <=
+    GRAD_RTOL), both against the same pass in fp64 (``fp64_referee``: the
+    1.x step within GRAD_RTOL, the flash pass's error printed),
+    ``nd_bert_update`` (adamw with ``out=``) seen by the gluon forward
+    (counted: a K4 a layer), ``steps`` 1.x steps lowering the loss by 5% on
+    one batch (the 1.x steps and updates counted: no flash launch), then
+    the 1.x step timed beside the gluon step with "pallas" and with "xla"
+    (each with the same 1.x update) and profiled; (b)
+    ``nd1x_cases_phase``."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.models import MultiHeadAttention
+    from incubator_mxnet_tpu_torch.models import transformer
+    from incubator_mxnet_tpu_torch.ndarray import NDArray
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    t0_phase = time.perf_counter()
+    b, t = sizes
+    dev = ctx.torch_device()
+    cells = [m for m in net.modules() if isinstance(m, MultiHeadAttention)]
+    layers, heads = len(cells), cells[0]._heads
+    d = cells[0]._units // heads
+    vocab = net.word_embed.weight.shape[0]
+    lens = bert_lengths(seed, b, t)
+    # the BERT phase's batch, the one its gradient oracle holds K4-K6 on
+    data, labels = bert_batch(np.random.RandomState(seed + 97), b, t, vocab,
+                              dev, lens)
+    nd_data = [NDArray(x) for x in data]
+    nd_labels = [NDArray(y) for y in labels]
+    named = [(n, p) for n, p in net.collect_params().items()
+             if p.requires_grad]
+    names = [n for n, _ in named]
+    params = {n: NDArray(p) for n, p in named}
+    loss_fn = bert_pretrain_loss(gluon.loss.SoftmaxCrossEntropyLoss())
+
+    # (a) the gluon pass through K4-K6, its launches read on their own
+    _reset_launches(fa)
+    with mx.autograd.record():
+        ref = loss_fn(*net(*data), *labels)
+    ref_grads = torch.autograd.grad(ref, [p for _, p in named])
+    ref_loss = float(ref.detach())
+    del ref
+    torch.cuda.synchronize()
+    gluon_launches, gluon_routes = _read_launches(fa), _read_routes(fa)
+    _check_flash_launches(
+        "the gluon BERT pass beside the 1.x step (1 fp32 pass)",
+        gluon_launches, gluon_routes, dict.fromkeys(COUNTERS, layers),
+        training_routes(1, 0, layers, t, d))
+    # the 1.x steps and updates: the dense masked softmax, no flash kernel
+    # (their window holds them alone)
+    _reset_launches(fa)
+    loss0 = nd_bert_step(mx, params, nd_data, nd_labels, layers, heads)
+    grads = [p.grad for _, p in named]
+    worst = _worst_grad("mx.nd 1.x BERT step", names, grads, ref_grads,
+                        math.inf)
+    referee = fp64_referee(net, loss_fn, data, labels, transformer,
+                           {"K4-K6": ref_grads, "1.x": grads})
+    print(f"mx.nd 1.x BERT step oracle (fp32, B={b}, T={t}, valid_length "
+          f"{lens.tolist()}, {len(names)} parameter tensors): loss "
+          f"{loss0:.6f} (interleaved matmuls, masked_softmax) vs "
+          f"{ref_loss:.6f} (gluon, K4-K6 with key lengths); worst gradient "
+          f"relative L2 error {worst[0]:.3e} ({worst[1]}), tolerance "
+          f"{GRAD_RTOL:g}", flush=True)
+    print(f"fp64 referee (the same pass in fp64 through the plain "
+          f"attention): worst relative L2 error of the gluon pass through "
+          f"K4-K6 {referee['K4-K6'][0]:.3e} ({referee['K4-K6'][1]}), of the "
+          f"1.x step {referee['1.x'][0]:.3e} ({referee['1.x'][1]}), "
+          f"tolerance {GRAD_RTOL:g}", flush=True)
+    if not abs(loss0 - ref_loss) <= BERT_EVAL_RTOL * abs(ref_loss):
+        raise AssertionError("mx.nd 1.x BERT step: the loss differs from "
+                             "the gluon pass's")
+    if not worst[0] <= GRAD_RTOL or not referee["1.x"][0] <= GRAD_RTOL:
+        raise AssertionError(f"mx.nd 1.x BERT step: worst gradient "
+                             f"{worst} against the gluon pass, {referee} "
+                             "against fp64")
+    del ref_grads, grads
+    states = {n: (mx.nd.zeros(p.shape, ctx=ctx), mx.nd.zeros(p.shape,
+                                                             ctx=ctx))
+              for n, p in named}
+
+    def nd_grads():
+        return {n: NDArray(p.grad) for n, p in named}
+
+    # the update writes into the parameters' own tensors: the gluon
+    # forward sees it
+    ptrs = [p.data_ptr() for _, p in named]
+    before = [p.detach().clone() for _, p in named]
+    norm0 = nd_bert_update(mx.nd, params, nd_grads(), states, ND1X_LR)
+    nd_launches = _read_launches(fa)
+    moved = sum(not torch.equal(p, w) for (_, p), w in zip(named, before))
+    _reset_launches(fa)
+    with torch.no_grad():
+        seen = float(loss_fn(*net(*data), *labels))
+    seen_launches, seen_routes = _read_launches(fa), _read_routes(fa)
+    want_seen = training_routes(0, 0, layers, t, d)
+    want_seen["flash_fwd_" + fwd_route_expected(t, d, torch.float32)] = \
+        layers
+    _check_flash_launches("the gluon forward after the update",
+                          seen_launches, seen_routes,
+                          {"flash_fwd": layers, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}, want_seen)
+    gluon_launches = {k: gluon_launches[k] + seen_launches[k]
+                      for k in COUNTERS}
+    gluon_routes = {k: gluon_routes[k] + seen_routes[k]
+                    for k in ROUTE_COUNTERS}
+    with mx.autograd.pause():
+        _, _, mlm, nsp = nd_bert_forward(mx.nd, params, *nd_data, layers,
+                                         heads)
+        nd_seen = float(nd_bert_loss(mx.nd, mlm, nsp, *nd_labels)
+                        .asscalar())
+    del before, mlm, nsp
+    print(f"mx.nd 1.x update (multi_sum_sq global norm {norm0:.4f}, "
+          f"adamw_update(out=w) lr {ND1X_LR:g} wd 0.01 rescale_grad "
+          f"{min(1.0, 1 / norm0):.4f}): {moved} of {len(names)} parameter "
+          f"tensors written in place; the gluon forward's loss {seen:.6f} "
+          f"(before {ref_loss:.6f}), the 1.x forward's {nd_seen:.6f}",
+          flush=True)
+    if [p.data_ptr() for _, p in named] != ptrs or moved != len(names):
+        raise AssertionError("adamw_update(out=w) did not write into every "
+                             "parameter's own tensor")
+    if not abs(seen - nd_seen) <= BERT_EVAL_RTOL * abs(nd_seen) \
+            or seen == ref_loss:
+        raise AssertionError("the gluon forward does not see the weights "
+                             "adamw_update wrote")
+    _reset_launches(fa)
+    losses = [loss0]
+    for _ in range(steps - 1):
+        losses.append(nd_bert_step(mx, params, nd_data, nd_labels, layers,
+                                   heads))
+        nd_bert_update(mx.nd, params, nd_grads(), states, ND1X_LR)
+    nd_launches = {k: nd_launches[k] + v
+                   for k, v in _read_launches(fa).items()}
+    print(f"mx.nd 1.x BERT learning check ({steps} steps on one batch, "
+          f"adamw_update lr {ND1X_LR:g} wd 0.01, global-norm clip): losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 0.95 * losses[0]:
+        raise AssertionError("mx.nd 1.x BERT step: the loss did not fall by "
+                             f"5% over {steps} steps")
+    _check_flash_launches(f"the mx.nd 1.x BERT steps ({steps} passes)",
+                          nd_launches, {}, dict.fromkeys(COUNTERS, 0), {})
+
+    def nd_train():
+        nd_bert_step(mx, params, nd_data, nd_labels, layers, heads)
+        nd_bert_update(mx.nd, params, nd_grads(), states, ND1X_LR)
+
+    def gluon_train(impl):
+        def step():
+            set_attention_impl(net, impl)
+            with mx.autograd.record():
+                loss = loss_fn(*net(*data), *labels)
+            mx.autograd.backward(loss)
+            nd_bert_update(mx.nd, params, nd_grads(), states, ND1X_LR)
+        return step
+
+    gc.collect()
+    times = _median_turns({"nd": nd_train, "pallas": gluon_train("pallas"),
+                           "xla": gluon_train("xla")}, reps)
+    set_attention_impl(net, "pallas")
+    print(f"mx.nd 1.x BERT step (fp32, B={b}, T={t}, mixed lengths; {card}): "
+          f"{times['nd']:.3f} ms a step beside the gluon step's "
+          f"{times['pallas']:.3f} (pallas, K4-K6) and {times['xla']:.3f} "
+          f"(xla, the dense chain) (host clock, median of {reps} alternating "
+          "turns, each with the 1.x update)", flush=True)
+    profile = _profile_step(lambda *_: nd_train(), None, None, card,
+                            times["nd"], top=12,
+                            what="fp32 mx.nd 1.x BERT step")
+    device_ms = sum(r[0] for r in profile)
+    pallas_device_ms = _kernel_ms(gluon_train("pallas"))
+    xla_device_ms = _kernel_ms(gluon_train("xla"))
+    set_attention_impl(net, "pallas")
+    print(f"device time a step: mx.nd 1.x {device_ms:.3f} ms, gluon pallas "
+          f"{pallas_device_ms:.3f} ms, gluon xla {xla_device_ms:.3f} ms "
+          "(torch.profiler)", flush=True)
+    del states, params
+    gc.collect()
+    cases = nd1x_cases_phase(mx, ctx, n_draws)
+    seconds = time.perf_counter() - t0_phase
+    print(f"mx.nd 1.x phase: {seconds:.1f} s", flush=True)
+    return dict(n_params=len(names), grad_worst_rel=worst[0], loss=loss0,
+                ref_loss=ref_loss, learning_losses=losses,
+                fp64_worst_rel={k: v[0] for k, v in referee.items()},
+                flash_launches=gluon_launches, flash_routes=gluon_routes,
+                nd_launches=nd_launches, step_ms=times["nd"],
+                pallas_step_ms=times["pallas"], xla_step_ms=times["xla"],
+                device_ms=device_ms, pallas_device_ms=pallas_device_ms,
+                xla_device_ms=xla_device_ms, seconds=seconds, **cases)
+
+
 def _entry(name, source, replaces, launches, cases, head_case,
            dtype="fp32"):
     """A kernel's record: its numbers at ``head_case`` in ``dtype``, and
@@ -6304,7 +7391,8 @@ def main(argv=None) -> int:
             "bert_graph": graph["bert"]["launches"].get(
                 f"flash_fwd_{route}", 0),
             "registry": registry["fwd_routes"][route],
-            "nd": nd["flash_routes"][f"flash_fwd_{route}"]}
+            "nd": nd["flash_routes"][f"flash_fwd_{route}"],
+            "nd1x": bert["nd1x"]["flash_routes"][f"flash_fwd_{route}"]}
         main_paths = sum(by_path.values())
         by_path["train_to_decode"] = trained["decode_routes"][route]
         if route == "tc":
@@ -6335,7 +7423,8 @@ def main(argv=None) -> int:
                            + imperative["flash_routes"][f"{name}_{route}"]
                            + in_graph + bert["routes"][f"{name}_{route}"]
                            + bert_graph + nd["flash_routes"][
-                               f"{name}_{route}"],
+                               f"{name}_{route}"]
+                           + bert["nd1x"]["flash_routes"][f"{name}_{route}"],
                            [r for r in bwd if r["kernel"] == name
                             and r["route"] == route], train_case, dtype)
             head = next(r for r in entry["cases"] if r["case"] == train_case
@@ -6348,7 +7437,8 @@ def main(argv=None) -> int:
                 "gpt_graph": in_graph,
                 "bert_train": bert["routes"][f"{name}_{route}"],
                 "bert_graph": bert_graph,
-                "nd": nd["flash_routes"][f"{name}_{route}"]}
+                "nd": nd["flash_routes"][f"{name}_{route}"],
+                "nd1x": bert["nd1x"]["flash_routes"][f"{name}_{route}"]}
             if route == "tc":
                 entry["launches_by_path"]["bf16_gate"] = \
                     trained["gate_launches"][f"{name}_tc"]
@@ -6452,6 +7542,10 @@ def main(argv=None) -> int:
             "warm_start")},
         "nd_gpt_fp32": {k: nd[k] for k in (
             "step_ms", "gluon_step_ms", "device_ms", "gluon_device_ms",
+            "seconds")},
+        "nd1x_bert_fp32": {k: bert["nd1x"][k] for k in (
+            "step_ms", "pallas_step_ms", "xla_step_ms", "device_ms",
+            "pallas_device_ms", "xla_device_ms", "grad_worst_rel",
             "seconds")}}),
         flush=True)
     print(json.dumps(record), flush=True)

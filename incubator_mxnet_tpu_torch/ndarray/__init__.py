@@ -2,9 +2,13 @@
 
 Counterpart of the JAX package's ``ndarray/__init__.py`` for the ops the
 port has: wrappers generated from the op registry (``ops/tensor.py``,
-``ops/nn.py``, ``ops/misc.py``, and the kernel ops
+``ops/nn.py``, ``ops/misc.py``, ``ops/random_ops.py``, ``ops/more.py``,
+``ops/optimizer_ops.py``, and the kernel ops
 ``flash_attention``/``fused_conv_bn``), every call through :func:`invoke`,
-so autograd recording and the naive engine's sync apply alike.
+so autograd recording and the naive engine's sync apply alike. The
+submodules ``mx.nd.random`` (the samplers, drawing on ``ctx=``),
+``mx.nd.image`` and ``mx.nd.contrib`` hold the names the reference puts
+there; the update ops write back with the reference's in-place rule.
 ``mx.nd.flash_attention`` launches the flash kernels on a CUDA array;
 ``invoke_op("fused_conv_bn", ...)`` the conv kernels; ``mx.nd.Custom``
 runs a registered ``mx.operator`` op. The MXNet 1.x spellings the
@@ -15,11 +19,15 @@ the same wrappers.
 from __future__ import annotations
 
 import sys as _sys
+from types import ModuleType as _ModuleType
 
 from ..ops import flash_attention as _flash  # noqa: F401  (registers ops)
 from ..ops import fused_conv as _fused_conv  # noqa: F401
 from ..ops import misc as _misc  # noqa: F401
+from ..ops import more as _more  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
+from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
+from ..ops import random_ops as _random_ops  # noqa: F401
 from ..ops import registry as _registry
 from ..ops import tensor as _tensor  # noqa: F401
 from .ndarray import (NDArray, arange, array, as_nd, empty, eye, full,
@@ -39,7 +47,8 @@ def _wrap(name, narr, variadic=False):
             raise TypeError(f"{name} takes {narr} array arguments; pass "
                             "options as keywords")
         return invoke(opdef.fn, args, kwargs, name=opdef.name,
-                      differentiable=opdef.differentiable)
+                      differentiable=opdef.differentiable,
+                      needs_rng=opdef.needs_rng)
 
     op.__name__ = name
     op.__doc__ = opdef.doc
@@ -226,6 +235,207 @@ SequenceReverse = _this.sequence_reverse
 SliceChannel = slice_channel = _this.split
 SwapAxis = swapaxes
 
+# ---------------------------------------------------------------------------
+# mx.nd.random: the samplers (ops/random_ops.py)
+# ---------------------------------------------------------------------------
+random = _ModuleType(__name__ + ".random")
+
+#: the positional order of each sampler's parameters
+_SAMPLER_ARGS = {
+    "uniform": ("low", "high", "shape"),
+    "normal": ("loc", "scale", "shape"),
+    "gamma_sample": ("alpha", "beta", "shape"),
+    "exponential": ("lam", "shape"),
+    "poisson": ("lam", "shape"),
+    "randint": ("low", "high", "shape"),
+    "bernoulli": ("prob", "shape"),
+}
+
+
+def _wrap_sampler(name):
+    """``mx.nd.random.<name>(*params, shape=..., dtype=..., ctx=None)``:
+    the draws are made on ``ctx`` (the default context if None) by its
+    generator."""
+    opdef = _registry.get(name)
+
+    def op(*args, ctx=None, **kwargs):
+        kwargs = dict(zip(_SAMPLER_ARGS[name], args)) | kwargs
+        return invoke(opdef.fn, [], kwargs, name=opdef.name,
+                      differentiable=False, needs_rng=True, ctx=ctx)
+
+    op.__name__ = name
+    op.__doc__ = opdef.doc
+    return op
+
+
+for _n in _SAMPLER_ARGS:
+    setattr(random, _n.replace("_sample", ""), _wrap_sampler(_n))
+
+
+def _multinomial(data, shape=(), get_prob=False, dtype="int32"):
+    """Category draws from each row of ``data`` (..., k):
+    ``data.shape[:-1] + shape``."""
+    return invoke_op("sample_multinomial", data, shape=shape,
+                     get_prob=get_prob, dtype=dtype)
+
+
+def _shuffle(data):
+    """``data`` with its rows (axis 0) permuted."""
+    return invoke_op("shuffle", data)
+
+
+random.multinomial = random.categorical = _multinomial
+random.shuffle = shuffle = _shuffle
+_sys.modules[random.__name__] = random
+uniform = random_uniform = random.uniform
+normal = random_normal = random.normal
+sample_multinomial = random.multinomial
+
+
+# ---------------------------------------------------------------------------
+# the update ops (ops/optimizer_ops.py)
+# ---------------------------------------------------------------------------
+def _wrap_update(name, narr, n_state):
+    """``mx.nd.<name>(*arrays, out=None, **options)`` with the reference's
+    in-place rule: the first ``narr`` arguments are arrays; the new weight
+    is returned, and written into ``out`` (its own tensor) only when
+    ``out=`` is given; the trailing ``n_state`` arrays (momentum, mean,
+    var, ...) are always written with their new values."""
+    opdef = _registry.get(name)
+
+    def op(*args, out=None, **kwargs):
+        arrays = list(args[:narr])
+        res = invoke(opdef.fn, arrays, kwargs, name=opdef.name,
+                     differentiable=False)
+        outs = list(res) if isinstance(res, tuple) else [res]
+        if out is not None:
+            out._write(outs[0])
+        for new, state in zip(outs[1:], arrays[narr - n_state:]):
+            state._write(new)
+        return res
+
+    op.__name__ = name
+    op.__doc__ = opdef.doc
+    return op
+
+
+for _n, _k, _s in [("sgd_update", 2, 0), ("sgd_mom_update", 3, 1),
+                   ("mp_sgd_update", 3, 1), ("mp_sgd_mom_update", 4, 2),
+                   ("nag_mom_update", 3, 1), ("adam_update", 4, 2),
+                   ("adamw_update", 4, 2), ("rmsprop_update", 3, 1),
+                   ("rmspropalex_update", 5, 3), ("ftrl_update", 4, 2),
+                   ("signsgd_update", 2, 0), ("signum_update", 3, 1),
+                   ("ftml_update", 5, 3), ("mp_nag_mom_update", 4, 2)]:
+    setattr(_this, _n, _wrap_update(_n, _k, _s))
+
+
+def reset_arrays(*arrays, num_arrays=None):
+    """Zero the arrays in place (the reference calls it for that); returns
+    the zeros."""
+    outs = invoke_op("reset_arrays", *arrays, num_arrays=num_arrays)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    for a, z in zip(arrays, outs):
+        a._write(z)
+    return outs if len(outs) > 1 else outs[0]
+
+
+# ---------------------------------------------------------------------------
+# ops/more.py, the samplers' pdfs and the AMP ops
+# ---------------------------------------------------------------------------
+_MORE = [
+    ("lamb_update_phase1", 4), ("lamb_update_phase2", 4), ("amp_cast", 1),
+    ("all_finite", 1), ("LRN", 1), ("softmin", 1), ("masked_softmax", 2),
+    ("masked_log_softmax", 2), ("identity", 1), ("argmax_channel", 1),
+    ("im2col", 1), ("col2im", 1), ("Correlation", 2),
+    ("stop_gradient_op", 1),
+    # the per-parameter samplers: mx.nd.sample_uniform(low, high, shape=..)
+    ("sample_uniform", 2), ("sample_normal", 2), ("sample_gamma", 2),
+    ("sample_exponential", 1), ("sample_poisson", 1),
+    ("sample_negative_binomial", 2),
+    ("interleaved_matmul_selfatt_qk", 1),
+    ("interleaved_matmul_selfatt_valatt", 2),
+    ("interleaved_matmul_encdec_qk", 2),
+    ("interleaved_matmul_encdec_valatt", 2), ("arange_like", 1),
+    ("broadcast_like", 2), ("reshape_like", 2), ("nan_to_num", 1),
+    ("choose_element_0index", 2), ("fill_element_0index", 3),
+    ("index_copy", 3), ("SVMOutput", 2), ("sparse_retain_rows", 2),
+    # two-parameter pdfs take (sample, p1, p2), one-parameter (sample, p1)
+    ("random_pdf_uniform", 3), ("random_pdf_normal", 3),
+    ("random_pdf_gamma", 3), ("random_pdf_negative_binomial", 3),
+    ("random_pdf_generalized_negative_binomial", 3),
+    ("random_pdf_exponential", 2), ("random_pdf_poisson", 2),
+    ("random_pdf_dirichlet", 2)]
+_MORE_VARIADIC = ["add_n", "ElementWiseSum", "multi_sgd_update",
+                  "multi_sgd_mom_update", "amp_multicast",
+                  "multi_all_finite", "multi_sum_sq"]
+for _n, _k in _MORE:
+    setattr(_this, _n, _wrap(_n, _k))
+for _n in _MORE_VARIADIC:
+    setattr(_this, _n, _wrap(_n, 0, variadic=True))
+
+
+def ctc_loss(data, label, data_lengths=None, label_lengths=None, **kwargs):
+    """CTC loss per sample: ``data`` (T, N, C), ``label`` (N, L) padded
+    with -1; ``data_lengths``/``label_lengths`` (N,) set
+    ``use_data_lengths``/``use_label_lengths``."""
+    def fn(d, lab, *lengths, **kw):
+        dl = lengths[0] if data_lengths is not None else None
+        ll = lengths[-1] if label_lengths is not None else None
+        return _registry.get("CTCLoss").fn(d, lab, dl, ll, **kw)
+
+    args = [data, label]
+    if data_lengths is not None:
+        args.append(data_lengths)
+        kwargs.setdefault("use_data_lengths", True)
+    if label_lengths is not None:
+        args.append(label_lengths)
+        kwargs.setdefault("use_label_lengths", True)
+    return invoke(fn, args, kwargs, name="CTCLoss")
+
+
+CTCLoss = ctc_loss
+
+
+def DeformableConvolution(data, offset, weight, bias=None, **kwargs):
+    """(data, offset, weight[, bias]); no bias sets ``no_bias``."""
+    args = [data, offset, weight] + ([bias] if bias is not None else [])
+    if bias is None:
+        kwargs["no_bias"] = True
+    return invoke_op("DeformableConvolution", *args, **kwargs)
+
+
+def Crop(data, shape_like=None, **kwargs):
+    """``data`` cut to ``shape_like``'s H, W, or to ``h_w``."""
+    args = [data] + ([shape_like] if shape_like is not None else [])
+    return invoke_op("Crop", *args, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# mx.nd.image and mx.nd.contrib
+# ---------------------------------------------------------------------------
+image = _ModuleType(__name__ + ".image")
+for _n in ("image_to_tensor", "image_normalize", "image_resize",
+           "image_crop", "image_flip_left_right", "image_flip_top_bottom",
+           "image_random_flip_left_right"):
+    setattr(image, _n.replace("image_", ""), _wrap(_n, 1))
+_sys.modules[image.__name__] = image
+
+contrib = _ModuleType(__name__ + ".contrib")
+for _n, _k in [("div_sqrt_dim", 1), ("quadratic", 1),
+               ("gradientmultiplier", 1), ("AdaptiveAvgPooling2D", 1),
+               ("BatchNormWithReLU", 5), ("requantize", 3)]:
+    setattr(contrib, _n, _wrap(_n, _k))
+contrib.BilinearResize2D = _this.BilinearResize2D
+contrib.DeformableConvolution = DeformableConvolution
+contrib.ROIAlign = _this.ROIAlign
+contrib.SparseEmbedding = _this.Embedding
+contrib.arange_like = _this.arange_like
+contrib.ctc_loss = ctc_loss
+contrib.index_array = _this.index_array
+contrib.index_copy = _this.index_copy
+_sys.modules[contrib.__name__] = contrib
+
+
 __all__ = ["BatchNorm", "BatchNorm_v1", "BlockGrad", "Cast", "Concat",
            "Convolution", "Custom", "Deconvolution", "Dropout", "Flatten",
            "FullyConnected", "GroupNorm", "InstanceNorm", "LayerNorm",
@@ -237,4 +447,13 @@ __all__ = ["BatchNorm", "BatchNorm_v1", "BlockGrad", "Cast", "Concat",
            "ravel_multi_index", "rms_norm", "save",
            "scaled_dot_product_attention", "slice", "slice_axis",
            "slice_channel", "stop_gradient", "swapaxes", "unravel_index",
-           "waitall", "zeros"] + _UNARY + _BINARY + _TERNARY + _VARIADIC
+           "waitall", "zeros", "random", "uniform", "normal",
+           "random_uniform", "random_normal", "sample_multinomial",
+           "shuffle", "reset_arrays", "ctc_loss", "CTCLoss",
+           "DeformableConvolution", "Crop", "image", "contrib",
+           "sgd_update", "sgd_mom_update", "mp_sgd_update",
+           "mp_sgd_mom_update", "nag_mom_update", "adam_update",
+           "adamw_update", "rmsprop_update", "rmspropalex_update",
+           "ftrl_update", "signsgd_update", "signum_update", "ftml_update",
+           "mp_nag_mom_update"] + _UNARY + _BINARY + _TERNARY + _VARIADIC \
+    + [n for n, _ in _MORE] + _MORE_VARIADIC

@@ -99,16 +99,27 @@ def _sync(tensors) -> None:
 # Imperative dispatch (the Imperative::Invoke analog)
 # ---------------------------------------------------------------------------
 def invoke(fn, inputs: Sequence, kwargs: Optional[dict] = None,
-           name: str = "", differentiable: bool = True):
+           name: str = "", differentiable: bool = True,
+           needs_rng: bool = False, ctx: Optional[Context] = None):
     """Run ``fn`` (a function over torch tensors) on NDArray operands and
     wrap its result(s). Torch records the op iff ``autograd.record()`` is
     on and the op is differentiable. An NDArray among ``kwargs`` passes
-    its tensor. Under ``MXTPU_ENGINE_TYPE=naive`` the stream synchronizes
-    after the op."""
-    in_nd = _operands(inputs)
+    its tensor. ``needs_rng`` passes ``rng=``: the package's generator of
+    the first operand's device, or of ``ctx`` (the default context if
+    None) where there is no operand, so an op with no operand draws on
+    that device (reference ``invoke(..., needs_rng=True)``). Inside a CUDA
+    graph capture it is the generator the graph registered, so each
+    replay draws afresh. Under ``MXTPU_ENGINE_TYPE=naive`` the stream
+    synchronizes after the op."""
+    in_nd = _operands(inputs, ctx)
     in_data = [x._data for x in in_nd]
     kw = {k: (v._data if isinstance(v, NDArray) else v)
           for k, v in (kwargs or {}).items()}
+    if needs_rng and kw.get("rng") is None:
+        from .. import random as _random
+
+        kw["rng"] = _random.generator(
+            _context_of(in_data[0]) if in_data else ctx)
     with torch.set_grad_enabled(autograd.is_recording() and differentiable):
         out = fn(*in_data, **kw)
         single = not isinstance(out, (tuple, list))
@@ -119,10 +130,11 @@ def invoke(fn, inputs: Sequence, kwargs: Optional[dict] = None,
     return nds[0] if single else tuple(nds)
 
 
-def _operands(inputs) -> list:
+def _operands(inputs, ctx: Optional[Context] = None) -> list:
     """NDArrays of ``inputs``; anything else goes onto the first
-    NDArray's device (the default context if there is none)."""
-    ctx = next((x.ctx for x in inputs if isinstance(x, NDArray)), None)
+    NDArray's device (``ctx``, or the default context, if there is
+    none)."""
+    ctx = next((x.ctx for x in inputs if isinstance(x, NDArray)), ctx)
     return [as_nd(x, ctx=ctx) for x in inputs]
 
 
@@ -132,7 +144,8 @@ def invoke_op(name: str, *inputs, **kwargs):
     if opdef is None:
         raise ValueError(f"unknown op {name!r}")
     return invoke(opdef.fn, inputs, kwargs, name=opdef.name,
-                  differentiable=opdef.differentiable)
+                  differentiable=opdef.differentiable,
+                  needs_rng=opdef.needs_rng)
 
 
 def as_nd(x, ctx: Optional[Context] = None, dtype=None) -> "NDArray":
@@ -275,6 +288,16 @@ class NDArray:
         self._data = t
         if self._grad is not None:
             self._make_variable()
+
+    def _write(self, data: "NDArray") -> None:
+        """Write ``data`` into this array's own tensor, off the tape (the
+        reference's ops that mutate their inputs): whatever else holds
+        the tensor, a gluon parameter or a CUDA graph's buffer, sees the
+        new value."""
+        if tuple(data.shape) != self.shape:
+            raise ValueError(f"cannot write {data.shape} into {self.shape}")
+        with torch.no_grad():
+            self._data.copy_(data._data)
 
     def _make_variable(self) -> None:
         """Make the tensor a leaf that requires grad and knows its handle

@@ -462,10 +462,9 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
     One call of PyTorch's batch norm (cuDNN or ATen) computes the
     normalization and its gradient. The affine parameters and statistics
     go in as fp32 for a 16-bit ``x``, so a bf16 ``x`` gives a bf16
-    ``out``. For the batch
-    variance it is handed fresh running buffers at momentum 1: it writes
-    the *unbiased* variance there, and ``var`` takes it back by
-    ``(n - 1) / n``."""
+    ``out``. The returned batch statistics are their own reductions of
+    ``x``, so a gradient flows through them too, as through the
+    reference's ``jnp.mean``/``jnp.var``."""
     if axis < 0:
         axis += x.dim()
     if axis != 1:
@@ -475,12 +474,9 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
     g = torch.ones_like(gamma, dtype=st) if fix_gamma else gamma.to(st)
     be = beta.to(st)
     if training and not use_global_stats:
-        n = x.numel() // x.shape[1]
-        mean = torch.zeros(x.shape[1], dtype=st, device=x.device)
-        var = torch.ones_like(mean)
-        out = F.batch_norm(x, mean, var, g, be, training=True, momentum=1.0,
-                           eps=eps)
-        stats = (mean, var * ((n - 1) / n))
+        out = F.batch_norm(x, None, None, g, be, training=True, eps=eps)
+        dims = [0] + list(range(2, x.dim()))
+        stats = (x.to(st).mean(dims), x.to(st).var(dims, unbiased=False))
     else:
         out = F.batch_norm(x, moving_mean.to(st), moving_var.to(st), g, be,
                            training=False, eps=eps)

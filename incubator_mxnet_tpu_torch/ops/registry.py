@@ -4,8 +4,11 @@ Counterpart of the JAX package's ``ops/registry.py`` (the reference's nnvm
 op registry, ``NNVM_REGISTER_OP``). An op is a function over torch
 tensors. Torch infers shapes and types and differentiates every op, so the
 registry's jobs are the name -> op lookup that generates the ``mx.nd.*``
-surface, per-op metadata (docs, whether the op is differentiable) and
-``list_ops``.
+surface, per-op metadata (docs, whether the op is differentiable, whether
+it draws random numbers) and ``list_ops``. An op with ``needs_rng`` takes
+a keyword ``rng``: the ``torch.Generator`` it draws from, whose device is
+the device it draws on (``ndarray.invoke`` passes the operands' device's,
+or the context's).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ class OpDef:
     name: str
     fn: Callable[..., Any]          # (*tensors, **kwargs) -> tensor | tuple
     differentiable: bool = True
+    needs_rng: bool = False          # fn takes rng=<torch.Generator>
     aliases: tuple = ()
     doc: str = ""
 
@@ -27,12 +31,13 @@ _OPS: Dict[str, OpDef] = {}
 
 
 def register(name: str, *, differentiable: bool = True,
-             aliases: tuple = ()) -> Callable:
+             needs_rng: bool = False, aliases: tuple = ()) -> Callable:
     """Register a function over torch tensors as a framework op."""
 
     def deco(fn: Callable) -> Callable:
         opdef = OpDef(name=name, fn=fn, differentiable=differentiable,
-                      aliases=aliases, doc=fn.__doc__ or "")
+                      needs_rng=needs_rng, aliases=aliases,
+                      doc=fn.__doc__ or "")
         _OPS[name] = opdef
         for a in aliases:
             _OPS[a] = opdef

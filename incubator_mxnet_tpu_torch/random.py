@@ -7,6 +7,10 @@ numpy seed per draw, so weights are reproducible from ``seed()`` alone.
 The draws differ from the JAX package's threefry draws: tests that compare
 the two packages carry weights across instead of drawing them twice.
 
+``get_state``/``set_state`` save and restore all of it, so a restored
+state replays the same draws (the samplers of ``ops/random_ops.py`` and
+``ops/more.py`` draw from these generators alone).
+
 ``reserve_keys``/``rollback_keys`` are the superstep's RNG contract. In the
 JAX package a dispatch of K steps reserves K fold-in keys up front. Here a
 CUDA graph of K steps advances a registered generator on every replay by
@@ -97,3 +101,35 @@ def rollback_keys(reserved: Tuple) -> None:
     the state it had."""
     for g, state in reserved:
         g.set_state(state)
+
+
+def get_state() -> dict:
+    """Snapshot the package's random state as plain JSON-able data: the
+    global seed, the initializers' counter and every generator's state
+    by device (reference ``mx.random.get_state``). :func:`set_state`
+    replays the same draws from it."""
+    with _lock:
+        return {"seed": _seed, "counter": _counter,
+                "generators": {str(d): g.get_state().tolist()
+                               for d, g in _generators.items()}}
+
+
+def set_state(state: dict) -> None:
+    """Inverse of :func:`get_state`. Each generator is set in place (a
+    captured CUDA graph keeps the one it registered); a generator made
+    since the snapshot goes back to its first state, seeded from the
+    seed."""
+    global _seed, _counter
+    saved = {torch.device(d): torch.tensor(v, dtype=torch.uint8)
+             for d, v in state["generators"].items()}
+    with _lock:
+        _seed = int(state["seed"])
+        _counter = int(state["counter"])
+        for dev in saved.keys() - _generators.keys():
+            gen = torch.Generator(device=dev)
+            _generators[dev] = gen
+        for dev, gen in _generators.items():
+            if dev in saved:
+                gen.set_state(saved[dev])
+            else:
+                gen.manual_seed(_seed)

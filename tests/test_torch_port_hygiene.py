@@ -50,6 +50,10 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "incubator_mxnet_tpu_torch.initializer, "
             "incubator_mxnet_tpu_torch.ops.nn, "
             "incubator_mxnet_tpu_torch.ops.misc, "
+            "incubator_mxnet_tpu_torch.ops.more, "
+            "incubator_mxnet_tpu_torch.ops.random_ops, "
+            "incubator_mxnet_tpu_torch.ops.optimizer_ops, "
+            "incubator_mxnet_tpu_torch.random, "
             "incubator_mxnet_tpu_torch.ndarray, "
             "incubator_mxnet_tpu_torch.operator, "
             "incubator_mxnet_tpu_torch.rtc, "
@@ -84,7 +88,8 @@ def test_sources_import_no_jax_and_no_jax_package():
     for name in ("ndarray/__init__.py", "ndarray/ndarray.py", "operator.py",
                  "rtc.py", "ops/_nvrtc.py", "ops/rtc_kernels.py",
                  "ops/registry.py", "ops/tensor.py", "ops/nn.py",
-                 "ops/misc.py",
+                 "ops/misc.py", "ops/more.py", "ops/random_ops.py",
+                 "ops/optimizer_ops.py", "random.py",
                  "gluon/nn/conv_layers.py", "gluon/nn/basic_layers.py",
                  "gluon/model_zoo/vision/resnet.py", "initializer.py",
                  "parallel/superstep.py", "ops/launches.py",
@@ -869,6 +874,61 @@ def test_chip_smoke_nd_phase_rehearses_on_the_cpu(monkeypatch):
     assert sum(f["cases"] for f in out["families"].values()) == len(
         cs.ND_CASES)
     assert all(f["worst"] == 0.0 for f in out["families"].values())
+
+
+def test_chip_smoke_nd_1x_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.nd1x_phase`` on a small BERT (2 layers, 2 heads of 32)
+    on the CPU (the plain versions run, so no launch is counted): the 1.x
+    step's loss and 47 gradients against the gluon pass's, both against
+    fp64, the update seen by the gluon forward, the learning check, the
+    launch windows expecting a flash launch per layer in the gluon pass, a
+    K4 a layer in the gluon forward after the update and none in the 1.x
+    steps, the timing and the profile, then every case of
+    ``MORE_CASES`` and ``UPDATE_CASES`` (here the CPU against itself), the
+    update wrappers' in-place rule, the samplers' statistics and the state
+    replay."""
+    from incubator_mxnet_tpu_torch.models import get_bert
+
+    cs = _chip_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    windows = []
+    monkeypatch.setattr(cs, "_check_flash_launches",
+                        lambda label, got, routes, want, want_routes:
+                        windows.append((got, want, {k: v for k, v in
+                                                    want_routes.items()
+                                                    if v})))
+    mx.random.seed(0)
+    net = get_bert("bert_12_768_12", vocab_size=97, units=64,
+                   hidden_size=128, num_layers=2, num_heads=2,
+                   max_length=64, dropout=0.0,
+                   attention_impl="pallas").initialize("xavier",
+                                                       ctx=mx.cpu())
+    out = cs.nd1x_phase(0, "cpu", net, mx.cpu(), sizes=(4, 40), reps=2,
+                        n_draws=2**14)
+    assert out["n_params"] == 47
+    assert out["grad_worst_rel"] <= cs.GRAD_RTOL
+    assert abs(out["loss"] - out["ref_loss"]) <= \
+        cs.BERT_EVAL_RTOL * out["ref_loss"]
+    assert len(out["learning_losses"]) == 10
+    assert out["learning_losses"][-1] < 0.95 * out["learning_losses"][0]
+    # on the CPU no kernel launches: every count 0, against a launch of
+    # K4, K5 and K6 a layer on f32 in the gluon pass, none in the 1.x steps
+    zeros = dict.fromkeys(cs.COUNTERS, 0)
+    gluon_routes = {k: v for k, v in cs.training_routes(
+        1, 0, layers=2, t=40, d=32).items() if v}
+    fwd = "flash_fwd_" + cs.fwd_route_expected(40, 32, torch.float32)
+    assert windows == [(zeros, dict.fromkeys(cs.COUNTERS, 2), gluon_routes),
+                       (zeros, dict(zeros, flash_fwd=2), {fwd: 2}),
+                       (zeros, zeros, {})]
+    assert out["fp64_worst_rel"]["1.x"] <= cs.GRAD_RTOL
+    assert sum(f["cases"] for f in out["families"].values()) == len(
+        cs.MORE_CASES) + len(cs.UPDATE_CASES)
+    assert all(f["worst"] == 0.0 for f in out["families"].values())
+    assert out["wrappers"] == 14 and len(out["samplers"]) == 23
+    assert all(z <= 5.0 for *_, z in out["samplers"].values())
+    assert all(out[k] > 0 for k in ("step_ms", "pallas_step_ms",
+                                    "xla_step_ms"))
 
 
 def test_chip_smoke_softmax_gate_catches_flushed_probabilities():
