@@ -302,7 +302,22 @@ Phases (any failure raises, and the script exits non-zero):
    alias block, at the CPU tests' shapes) on the card against the same
    call on the CPU, forward and gradients (``ND_TOL``, or the case's own;
    indices, ties and the index and sequence ops bit for bit), one line an
-   op family, and ``mx.nd.Dropout``'s statistics on the card.
+   op family, and ``mx.nd.Dropout``'s statistics on the card. Then the
+   mx.np phase on the same net: ``np_gpt_step``, the forward in ``mx.np``/
+   ``mx.npx`` names (``np.einsum`` for every dense layer and the head,
+   ``npx.layer_norm``, ``npx.gelu``, ``npx.embedding``, ``np.split``/
+   ``reshape``/``transpose``) with ``mx.nd.flash_attention(causal=True)``,
+   the loss ``-np.mean(np.take_along_axis(npx.log_softmax(logits), ...))``:
+   the loss and its 149 gradients against the gluon pass (``GRAD_RTOL``),
+   ``mx.nd.clip_by_global_norm`` over the gradients, a learning check (5
+   adam steps, the loss falls 5%), K4-K6 12 times a pass on the f32 route
+   over those 6 passes, the step's host ms and device ms beside the gluon
+   step's; then every case of ``NP_CASES`` (``ops/numpy_ops.py``,
+   ``ops/fft_ops.py``, ``ops/linalg.py`` and the ``mx.np`` shims, at the
+   CPU tests' shapes) on the card against the CPU (``ND_TOL``, or the
+   case's own: ``LINALG_TOL`` through a factorization, ``fft_tol(n)``;
+   vectors unique up to sign by their invariants), and the dynamic-shape
+   ops' results on the card, each refused inside a CUDA graph capture.
 
 The third line from the end (``rows: {...}``) gives the bench rows: the
 fused and unfused ResNet-50, the MLP and BERT (pallas, xla and mixed
@@ -312,7 +327,8 @@ prefill buckets, graph beside eager, and TTFT, the ModelServer's
 graph memory, warm-up, bucket times and open-loop rows, and the
 registry's sizes, budget, evictions, hot-swap and warm-start numbers, and
 the mx.nd GPT step's ms beside the gluon step's, its device ms and the
-mx.nd phase's seconds, and the mx.nd 1.x BERT step's beside the gluon
+mx.nd phase's seconds, the mx.np GPT step's (``np_gpt_fp32``) likewise,
+and the mx.nd 1.x BERT step's beside the gluon
 BERT step's (pallas and xla). The
 line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
@@ -334,6 +350,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import functools
 import gc
@@ -5525,16 +5542,21 @@ def _f32(values):
     return np.asarray(values, np.float32)
 
 
-#: one op call of the mx.nd phase: ``name`` is an ``mx.nd`` attribute
-#: (dotted through ``image`` or ``contrib``), or ``"op:<registered name>"``
-#: for ``invoke_op``; ``arrays`` (numpy) are its
-#: array arguments and a numpy value among ``kwargs`` goes in as an array;
-#: ``grad`` the positions of the arrays whose gradient of ``sum(out * w)``
-#: is held too; ``tol`` the float tolerance (None: ``ND_TOL``); ``exact``
-#: holds every value bit for bit
+#: one op call of the mx.nd and mx.np phases: ``name`` is an ``mx.nd``
+#: attribute (dotted through ``image`` or ``contrib``), ``"np:<dotted>"``
+#: for an ``mx.np`` attribute (through ``linalg``, ``fft``), or
+#: ``"op:<registered name>"`` for ``invoke_op``; ``arrays`` (numpy) are its
+#: array arguments (any other value goes in positionally as it is) and a
+#: numpy value among ``kwargs`` goes in as an array; ``grad`` the positions
+#: of the arrays whose gradient of the seeded head (``_head_terms``) is
+#: held too; ``tol`` the float tolerance (None: ``ND_TOL``); ``exact``
+#: holds every value bit for bit; ``post`` maps the outputs (numpy) to the
+#: values compared, for a result unique only up to signs (its invariants:
+#: sign-fixed vectors and the reconstruction); ``sq`` the outputs that
+#: enter the head squared (a loss that a vector's sign does not change)
 NdCase = collections.namedtuple(
-    "NdCase", "family id name arrays kwargs grad tol exact",
-    defaults=({}, (), None, False))
+    "NdCase", "family id name arrays kwargs grad tol exact post sq",
+    defaults=({}, (), None, False, None, ()))
 # fp32 results of the same formula in another order of operations
 ND_TOL = dict(rtol=1e-5, atol=1e-6)
 # the special functions and sums over windows: each library's own series
@@ -5870,51 +5892,80 @@ ND_CASES = [
 ]
 
 
-def _nd_fn(nd, name):
-    """``nd.<name>`` (dotted through ``random``/``image``/``contrib``), or
-    ``invoke_op`` of ``"op:<registered name>"``."""
+def _nd_fn(pkg, name):
+    """``pkg.nd.<name>`` (dotted through ``random``/``image``/``contrib``),
+    ``pkg.np.<dotted>`` for ``"np:<dotted>"``, or ``invoke_op`` of
+    ``"op:<registered name>"``."""
     if name.startswith("op:"):
-        return functools.partial(nd.invoke_op, name[3:])
-    return functools.reduce(getattr, name.split("."), nd)
+        return functools.partial(pkg.nd.invoke_op, name[3:])
+    if name.startswith("np:"):
+        return functools.reduce(getattr, name[3:].split("."), pkg.np)
+    return functools.reduce(getattr, name.split("."), pkg.nd)
+
+
+def _head_terms(nd, outs, sq, ctx):
+    """``sum(out * w)`` over the float outputs, ``w`` drawn from a seed;
+    a complex output by its real and imaginary parts; an output in ``sq``
+    squared first."""
+    head = None
+    for i, o in enumerate(outs):
+        dt = np.dtype(o.dtype)
+        if not np.issubdtype(dt, np.inexact):
+            continue
+        parts = [nd.real(o), nd.imag(o)] if np.issubdtype(
+            dt, np.complexfloating) else [o]
+        for j, p in enumerate(parts):
+            if i in sq:
+                p = p * p
+            term = (p * nd.array(_nd_rand(99 + i + 50 * j, *p.shape),
+                                 ctx=ctx)).sum()
+            head = term if head is None else head + term
+    return head
 
 
 def run_nd_case(pkg, case, ctx=None, raw_array_kwargs=False):
-    """``case`` through ``pkg.nd`` (either package's ``mx``) on ``ctx``:
-    its outputs, then the gradients of ``sum(out * w)`` (one ``w`` an
-    output, drawn from a seed) at ``case.grad``, as numpy arrays.
-    ``raw_array_kwargs`` passes an array keyword as the package's own
-    array (the JAX package's op functions take one; its ``mx.nd`` does
-    not unwrap an NDArray keyword)."""
+    """``case`` through ``pkg`` (either package's ``mx``) on ``ctx`` (also
+    the default context of the call, for the creators): its outputs (after
+    ``case.post``), then the gradients of ``_head_terms`` at ``case.grad``,
+    as numpy arrays. ``raw_array_kwargs`` passes an array keyword as the
+    package's own array (the JAX package's op functions take one; its
+    ``mx.nd`` does not unwrap an NDArray keyword)."""
     nd = pkg.nd
-    xs = [nd.array(a, ctx=ctx, dtype=a.dtype) for a in case.arrays]
-    kwargs = {}
-    for key, v in case.kwargs.items():
-        if isinstance(v, np.ndarray):
-            v = nd.array(v, ctx=ctx, dtype=v.dtype)
-            v = v._data if raw_array_kwargs else v
-        kwargs[key] = v
-    fn = _nd_fn(nd, case.name)
-    for i in case.grad:
-        xs[i].attach_grad()
-    with pkg.autograd.record():
-        out = fn(*xs, **kwargs)
-        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    with ctx if ctx is not None else contextlib.nullcontext():
+        xs = [nd.array(a, ctx=ctx, dtype=a.dtype)
+              if isinstance(a, np.ndarray) else a for a in case.arrays]
+        kwargs = {}
+        for key, v in case.kwargs.items():
+            if isinstance(v, np.ndarray):
+                v = nd.array(v, ctx=ctx, dtype=v.dtype)
+                v = v._data if raw_array_kwargs else v
+            kwargs[key] = v
+        fn = _nd_fn(pkg, case.name)
+        for i in case.grad:
+            xs[i].attach_grad()
+        # recorded only for gradients: the JAX package's tape would
+        # differentiate ops that have no rule (nextafter)
+        with pkg.autograd.record() if case.grad \
+                else contextlib.nullcontext():
+            if case.name in NP_SEQUENCE_ARGS:
+                out = fn(xs, **kwargs)
+            else:
+                out = fn(*xs, **kwargs)
+            outs = list(out) if isinstance(out, (tuple, list)) else [out]
+            head = _head_terms(nd, outs, case.sq, ctx) if case.grad else None
         if case.grad:
-            head = None
-            for i, o in enumerate(outs):
-                term = (o * nd.array(_nd_rand(99 + i, *o.shape),
-                                     ctx=ctx)).sum()
-                head = term if head is None else head + term
-    if case.grad:
-        head.backward()
-    return [o.asnumpy() for o in outs] + [xs[i].grad.asnumpy()
-                                          for i in case.grad]
+            head.backward()
+        got = [o.asnumpy() for o in outs]
+    if case.post is not None:
+        got = list(case.post(got))
+    return got + [xs[i].grad.asnumpy() for i in case.grad]
 
 
 def check_nd_case(case, got, want):
     """``got`` against ``want`` (``run_nd_case`` results): the same
     shapes and types, values bit for bit where ``case.exact`` or integer,
-    else within ``case.tol``; returns the largest absolute error."""
+    else (real or complex) within ``case.tol``; returns the largest
+    absolute error."""
     if len(got) != len(want):
         raise AssertionError(f"{case.id}: {len(got)} results, want "
                              f"{len(want)}")
@@ -5924,7 +5975,7 @@ def check_nd_case(case, got, want):
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{label}: {g.dtype}{g.shape}, want "
                                  f"{w.dtype}{w.shape}")
-        if case.exact or not np.issubdtype(w.dtype, np.floating):
+        if case.exact or not np.issubdtype(w.dtype, np.inexact):
             np.testing.assert_array_equal(g, w, err_msg=label)
             continue
         np.testing.assert_allclose(g, w, err_msg=label,
@@ -5933,6 +5984,10 @@ def check_nd_case(case, got, want):
         if both.any():
             worst = max(worst, float(np.abs(g[both] - w[both]).max()))
     return worst
+
+
+#: ``mx.np`` functions that take their arrays as one sequence
+NP_SEQUENCE_ARGS = ("np:concatenate", "np:linalg.multi_dot")
 
 
 def nd_dropout_checks(mx, ctx, n=200_000, p=0.3, sigmas=4.0):
@@ -6160,8 +6215,9 @@ def nd_phase(seed, card, net, ctx, b=8, lr=3e-4, dropout=0.1,
 
 
 def nd_main(seed, card):
-    """The mx.nd phase on ``gpt_decoder_117m`` at ``max_length`` 256 (12
-    layers, 768 units, vocab 50257; 149 trainable tensors)."""
+    """The mx.nd phase, then the mx.np phase, on ``gpt_decoder_117m`` at
+    ``max_length`` 256 (12 layers, 768 units, vocab 50257; 149 trainable
+    tensors)."""
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
 
@@ -6172,6 +6228,8 @@ def nd_main(seed, card):
     out = nd_phase(seed, card, net, ctx)
     if out["n_params"] != 149:
         raise AssertionError("gpt_decoder_117m has 149 trainable tensors")
+    gc.collect()
+    out["np"] = np_phase(seed, card, net, ctx)
     return out
 
 
@@ -6540,7 +6598,7 @@ def run_update_case(pkg, case, ctx=None):
     results fed back."""
     nd = pkg.nd
     xs = [nd.array(a, ctx=ctx, dtype=a.dtype) for a in case.arrays]
-    fn = _nd_fn(nd, case.name)
+    fn = _nd_fn(pkg, case.name)
     for step in range(3):
         for j, pos in enumerate(case.grads):
             xs[pos] = nd.array(_GRADS[step] * (1 + j), ctx=ctx)
@@ -7216,6 +7274,749 @@ def nd1x_phase(seed, card, net, ctx, sizes=BERT_SIZES[:2], steps=10, reps=5,
                 xla_device_ms=xla_device_ms, seconds=seconds, **cases)
 
 
+# ---------------------------------------------------------------------------
+# mx.np phase: ops/numpy_ops.py, ops/fft_ops.py, ops/linalg.py and the
+# mx.np/mx.npx front, and a GPT step written in mx.np names
+# ---------------------------------------------------------------------------
+#: the factorizations (QR, SVD, eigh, least squares, the pseudo-inverse):
+#: LAPACK's and cuSOLVER's iterations round in another order than jnp's
+LINALG_TOL = dict(rtol=1e-4, atol=1e-5)
+def fft_tol(n):
+    """An FFT of ``n`` points: fp32 rounding grows with log2(n)."""
+    g = max(1.0, math.log2(n))
+    return dict(rtol=1e-5 * g, atol=1e-6 * g)
+
+
+def _flip_cols(m):
+    """Each column of ``m`` (..., r, c) signed so that its entry of the
+    largest magnitude is positive."""
+    i = np.abs(m).argmax(-2)[..., None, :]
+    return m * np.where(np.take_along_axis(m, i, -2) < 0, -1, 1)
+
+
+def _flip_rows(m):
+    return np.swapaxes(_flip_cols(np.swapaxes(m, -1, -2)), -1, -2)
+
+
+def _diag_signs(m):
+    d = np.diagonal(m, axis1=-2, axis2=-1)
+    return np.where(d < 0, -1, 1).astype(m.dtype)
+
+
+def post_eigh(outs):
+    """(w, v): w, v's columns sign-fixed, and v diag(w) vᵀ."""
+    w, v = outs
+    return [w, _flip_cols(v), (v * w[..., None, :]) @ np.swapaxes(v, -1, -2)]
+
+
+def post_syevd(outs):
+    """(U, L) with eigenvectors as U's rows: U sign-fixed, L, Uᵀ diag(L)
+    U."""
+    u, w = outs
+    return [_flip_rows(u), w, (np.swapaxes(u, -1, -2) * w[..., None, :]) @ u]
+
+
+def post_svd(outs):
+    """(u, s, vh) reduced: s, u's columns and vh's rows sign-fixed, and u
+    diag(s) vh."""
+    u, s, vh = outs
+    return [s, _flip_cols(u), _flip_rows(vh), (u * s[..., None, :]) @ vh]
+
+
+def post_qr(outs):
+    """(q, r): r with a non-negative diagonal and q to match, and q r."""
+    q, r = outs
+    d = _diag_signs(r)
+    return [q * d[..., None, :], r * d[..., :, None], q @ r]
+
+
+def post_qr_r(outs):
+    return [outs[0] * _diag_signs(outs[0])[..., :, None]]
+
+
+def post_gelqf(outs):
+    """(Q, L) with A = L Q: L with a non-negative diagonal, Q to match,
+    and L Q."""
+    q, low = outs
+    d = _diag_signs(low)
+    return [q * d[..., :, None], low * d[..., None, :], low @ q]
+
+
+def _spd(seed, *batch, n=3):
+    a = _nd_rand(seed, *batch, n, n)
+    return (a @ np.swapaxes(a, -1, -2) + n * np.eye(n)).astype(np.float32)
+
+
+def _sym(seed, n=4):
+    a = _nd_rand(seed, n, n)
+    return ((a + a.T) / 2 + np.diag(np.arange(n) * 1.5)).astype(np.float32)
+
+
+def _cplx(seed, *shape):
+    return (_nd_rand(seed, *shape) + 1j * _nd_rand(seed + 1, *shape)).astype(
+        np.complex64)
+
+
+_V = _nd_rand(140, 8)
+_M = _nd_rand(141, 3, 4)
+_M2 = _nd_rand(142, 3, 4)
+_EVEN = _nd_rand(143, 4, 6)
+_NANS = _M.copy()
+_NANS[0, 1] = _NANS[1, 3] = np.nan
+_NANS[2, :] = np.nan                      # an all-NaN row
+_INTS = np.array([[3, 0, 5, 12], [1, 7, 2, 0]], np.int32)
+_SHIFTS = np.array([[1, 2, 0, 3], [4, 1, 2, 5]], np.int32)
+_BYTES = np.random.RandomState(144).randint(0, 3, (2, 11)).astype(np.uint8)
+_PART = _f32([5, 1, 4, 1, 3, 2, 9])
+_SQ = (_nd_rand(145, 3, 3) + 3 * np.eye(3)).astype(np.float32)
+_SQB = (_nd_rand(146, 2, 3, 3) + 3 * np.eye(3)).astype(np.float32)
+_TALL = _nd_rand(147, 5, 3)
+_WIDE = _nd_rand(148, 2, 3, 5)
+_DEFICIENT = np.concatenate([_TALL[:, :2], _TALL[:, :1] + _TALL[:, 1:2]],
+                            1).astype(np.float32)
+_SPDB = _spd(150, 2)
+_LOW = np.linalg.cholesky(_SPDB).astype(np.float32)
+_SYM4 = _sym(151)
+_C8 = _cplx(152, 8)
+_C25 = _cplx(154, 2, 5)
+_GRID = _nd_rand(156, 2, 3, 4)
+_SEQ8 = np.cumsum(_nd_rand(157, 10, lo=-2.5, hi=2.5)).astype(np.float32)
+_SORTED = np.sort(_nd_rand(158, 6, lo=-2.0, hi=2.0))
+_TENSOR_A = (np.eye(6) + 0.1 * _nd_rand(159, 6, 6)).astype(np.float32)
+_DUPS = _f32([[3, 1, 2, 3], [1, 5, 2, 2]])
+_EDGES = _f32(np.arange(11))                # values on every bin edge
+
+
+def _np(name, arrays, kwargs=None, grad=(), tol=None, family="numpy",
+        **kw):
+    return NdCase(family, kw.pop("id", name.replace("np:", "np.")), name,
+                  arrays, kwargs or {}, grad, tol, **kw)
+
+
+def _unique_ids(cases):
+    """``cases`` with the second and later of a repeated id numbered."""
+    seen = collections.Counter()
+    out = []
+    for c in cases:
+        seen[c.id] += 1
+        out.append(c if seen[c.id] == 1 else c._replace(
+            id=f"{c.id}_{seen[c.id]}"))
+    return out
+
+
+NP_CASES = _unique_ids([
+    # elementwise
+    _np("exp2", [_M], grad=(0,)), _np("sinc", [_M], grad=(0,)),
+    _np("i0", [_M], grad=(0,)), _np("fabs", [_M], grad=(0,)),
+    _np("signbit", [_f32([-0.0, 0.0, -1.5, 2.0])], exact=True),
+    _np("relu6", [_M * 8], grad=(0,)), _np("hard_swish", [_M * 4],
+                                           grad=(0,)),
+    _np("hardswish", [_M * 4], id="hardswish_alias"),
+    _np("logaddexp", [_M, _M2], grad=(0, 1)),
+    _np("logaddexp2", [_M, _M2], grad=(0, 1)),
+    _np("copysign", [_M, _M2], grad=(0,)),
+    _np("heaviside", [_f32([-1.5, 0.0, 2.0, 0.0]), _f32([0.5, 0.5, 3, 1])]),
+    _np("ldexp", [_M, _SHIFTS[:, :4].repeat(2, 0)[:3].astype(np.float32)],
+        grad=(0,)),
+    _np("float_power", [_nd_rand(160, 3, 4, lo=0.5, hi=2.0), _M2],
+        grad=(0, 1)),
+    _np("fmod", [_M * 5, _M2 + 1.5], grad=(0,)),
+    _np("nextafter", [_M, _M2], exact=True),
+    _np("floor_divide", [_M * 5, _M2 + 1.5]),
+    _np("op:broadcast_floor_divide", [_INTS, _SHIFTS + 1],
+        id="floor_divide_int"),
+    _np("invert", [_INTS]), _np("bitwise_not", [_f32([1.7, -2.2, 0.0])],
+                                id="bitwise_not_of_floats"),
+    _np("bitwise_and", [_INTS, _SHIFTS]), _np("bitwise_or", [_INTS, _SHIFTS]),
+    _np("bitwise_xor", [_INTS, _SHIFTS]),
+    _np("left_shift", [_INTS, _SHIFTS]), _np("right_shift",
+                                             [_INTS * 40, _SHIFTS]),
+    _np("fmax", [_NANS, _M2], grad=(0, 1)), _np("fmin", [_NANS, _M2]),
+    _np("isclose", [_M, _M + _f32([0, 1e-6, 1e-3, 0])]),
+    _np("allclose", [_M, _M + 1e-7]),
+    _np("array_equal", [_INTS, _INTS]),
+    # reductions and statistics
+    _np("std", [_M], dict(axis=1, ddof=1), (0,)),
+    _np("var", [_M], dict(axis=0, keepdims=True), (0,)),
+    _np("average", [_M], dict(axis=1, weights=_f32([1, 2, 3, 4])), (0,)),
+    _np("median", [_EVEN], dict(axis=1), (0,), id="median_even_count"),
+    _np("median", [_M], {}, (0,), id="median_all"),
+    _np("quantile", [_EVEN], dict(q=_f32([0.1, 0.5, 0.9]), axis=0),
+        (0,)),
+    _np("percentile", [_EVEN], dict(q=30.0, axis=(0, 1), keepdims=True),
+        (0,)),
+    _np("ptp", [_M], dict(axis=1), (0,)),
+    _np("nanmax", [_NANS], dict(axis=1), (0,)),
+    _np("nanmin", [_NANS], dict(axis=0)),
+    _np("nanmean", [_NANS], dict(axis=1), (0,)),
+    _np("nanstd", [_NANS], dict(axis=1, ddof=1)),
+    _np("nanvar", [_NANS], dict(axis=0), (0,)),
+    _np("nanargmax", [_NANS], dict(axis=1)),
+    _np("nanargmin", [_NANS], dict(axis=1)),
+    _np("nancumsum", [_NANS], dict(axis=1), (0,)),
+    _np("nancumprod", [_NANS], dict(axis=0)),
+    _np("cumprod", [_M], dict(axis=1), (0,)),
+    _np("count_nonzero", [_INTS], dict(axis=0)),
+    _np("nanmedian", [_NANS], dict(axis=1)),
+    _np("nanquantile", [_NANS], dict(q=0.25, axis=1)),
+    _np("nanpercentile", [_NANS], dict(q=75.0)),
+    _np("cov", [_M], {}, (0,)), _np("cov", [_M], dict(rowvar=False, ddof=0),
+                                    id="cov_columns"),
+    _np("corrcoef", [_M], {}, (0,)),
+    # shape and joining
+    _np("roll", [_M], dict(shift=2, axis=1), (0,)),
+    _np("roll", [_M], dict(shift=-3), id="roll_flat"),
+    _np("rot90", [_GRID], dict(k=3, axes=(1, 2)), (0,)),
+    _np("tril", [_M], dict(k=1), (0,)), _np("triu", [_M], dict(k=-1)),
+    _np("trace_op", [_GRID], dict(offset=1, axis1=1, axis2=2), (0,)),
+    _np("trace", [_INTS], id="trace_int"),
+    _np("flipud", [_M], grad=(0,)), _np("fliplr", [_M]),
+    _np("moveaxis", [_GRID], dict(source=0, destination=2), (0,)),
+    _np("rollaxis", [_GRID], dict(axis=2, start=0)),
+    _np("diff", [_GRID], dict(n=2, axis=2), (0,)),
+    _np("ediff1d", [_M], grad=(0,)),
+    _np("hstack", [_M, _M2], grad=(0, 1)), _np("vstack", [_V, _V]),
+    _np("dstack", [_M, _M2]), _np("column_stack", [_V, _V]),
+    _np("meshgrid", [_V[:3], _V[:2]], grad=(0, 1)),
+    _np("meshgrid", [_V[:3], _V[:2]], dict(indexing="ij"),
+        id="meshgrid_ij"),
+    _np("broadcast_arrays", [_M, _V[:4]], grad=(0, 1)),
+    _np("atleast_2d", [_V]), _np("atleast_3d", [_M]),
+    _np("resize_op", [_M], dict(new_shape=(5, 3)), (0,)),
+    _np("np_resize", [_V], dict(new_shape=(3, 5)), id="np_resize_tiles"),
+    # products
+    _np("kron", [_M[:2, :2], _M2[:2]], grad=(0, 1)),
+    _np("outer", [_V[:3], _M], grad=(0, 1)),
+    _np("inner", [_M, _M2], grad=(0, 1)), _np("vdot", [_M, _M2], grad=(0,)),
+    _np("vdot", [_C25, _C25 * 2], id="vdot_complex"),
+    _np("tensordot", [_GRID, _nd_rand(161, 3, 4, 2)],
+        dict(axes=((1, 2), (0, 1))), (0, 1)),
+    _np("einsum", [_GRID, _M], dict(subscripts="bij,ij->bi"), (0, 1)),
+    _np("cross", [_nd_rand(162, 4, 3), _nd_rand(163, 4, 3)], grad=(0, 1)),
+    _np("cross", [_nd_rand(164, 3, 2), _nd_rand(165, 3, 2)],
+        id="cross_2d"),
+    _np("vander", [_V[:4]], dict(n=5), (0,)),
+    _np("vander", [_V[:4]], dict(increasing=True), id="vander_increasing"),
+    _np("polyval", [_f32([2, -1, 0.5]), _M], grad=(0, 1)),
+    _np("trapz", [_M], grad=(0,)),
+    _np("trapz", [_M, _SORTED[:4]], grad=(0,), id="trapz_x"),
+    *[_np("convolve", [_V, _V[:3] * 2], dict(mode=m), (0, 1),
+          id=f"convolve_{m}") for m in ("full", "same", "valid")],
+    _np("correlate", [_V, _V[:3] * 2], grad=(0, 1)),
+    _np("correlate", [_V[:3], _V], dict(mode="full"), (0, 1),
+        id="correlate_swapped"),
+    _np("correlate", [_C8, _C8[:3]], dict(mode="same"),
+        id="correlate_complex_conjugates"),
+    # searching and sorting
+    _np("searchsorted", [_SORTED, _M]),
+    _np("searchsorted", [_f32([1, 2, 2, 3]), _f32([2, 2.5])],
+        dict(side="right"), id="searchsorted_right"),
+    _np("digitize", [_M, _SORTED]),
+    _np("digitize", [_M, _SORTED[::-1].copy()], dict(right=True),
+        id="digitize_falling"),
+    _np("lexsort", [_DUPS]),
+    _np("partition_op", [_PART], dict(kth=2), exact=True,
+        id="partition_fixed_order"),
+    _np("argpartition", [_PART], dict(kth=2), id="argpartition_fixed"),
+    _np("np_partition", [_EVEN], dict(kth=3, axis=0), exact=True),
+    _np("argpartition", [_EVEN], dict(kth=1, axis=1), id="argpartition_2d"),
+    # dynamic shapes
+    _np("unique", [_DUPS], dict(return_index=True, return_inverse=True,
+                                return_counts=True)),
+    _np("unique", [_INTS], id="unique_plain"),
+    _np("nonzero", [_INTS]), _np("flatnonzero", [_INTS]),
+    _np("argwhere", [_INTS]),
+    _np("bincount", [_f32([0, 1, 1, 3, 6])], dict(minlength=8)),
+    _np("bincount", [_f32([0, 1, 1, 3])], dict(weights=_f32([.5, 1, 2,
+                                                             3])),
+        id="bincount_weights"),
+    _np("histogram", [_M], dict(bins=4)),
+    _np("histogram", [_EDGES], dict(bins=5, range=(0.0, 10.0)),
+        id="histogram_on_the_edges"),
+    _np("histogram", [_EDGES], dict(bins=_f32([0, 2.5, 3, 10])),
+        id="histogram_edges_given"),
+    _np("histogram", [_INTS], dict(bins=3), id="histogram_ints"),
+    _np("setdiff1d", [_DUPS, _f32([2, 7])]),
+    _np("intersect1d", [_DUPS, _f32([2, 5, 7])]),
+    _np("union1d", [_DUPS, _f32([2, 7])]),
+    _np("isin", [_DUPS, _f32([2, 5])]),
+    _np("compress_op", [_f32([1, 0, 1]), _M], dict(axis=0), id="compress"),
+    _np("np_compress", [_f32([0, 1, 1, 0, 1]), _M], id="compress_flat"),
+    _np("extract", [(_M > 0).astype(np.float32), _M]),
+    _np("interp", [_f32([-3, -1.5, 0.1, 0.7, 2.2, 9]), _SORTED,
+                   _SORTED ** 2], grad=(0, 2)),
+    # the rest
+    _np("clip_by_global_norm", [_M, _M2 * 3, _V], dict(max_norm=1.5),
+        (0, 1, 2)),
+    _np("take_along_axis", [_M, _f32([[0, 3], [1, 1], [2, 0]])],
+        dict(axis=1), (0,)),
+    _np("put_along_axis", [_M, _f32([[0, 3], [1, -1], [2, 0]]),
+                           _f32([[9, 8], [7, 6], [5, 4]])], dict(axis=1)),
+    _np("select", [np.stack([_M > 0.5, _M < -0.5]).astype(np.float32),
+                   np.stack([_M * 10, _M2])], dict(default=-1.0), (1,)),
+    _np("unwrap", [_SEQ8], grad=(0,)),
+    _np("gradient_op", [_GRID], {}, (0,)),
+    _np("np_gradient", [_GRID], dict(axis=1), (0,), id="gradient_axis"),
+    _np("packbits", [_BYTES], dict(axis=1)),
+    _np("packbits", [_BYTES], id="packbits_flat"),
+    _np("unpackbits", [_BYTES * 60], dict(axis=0, count=3)),
+    _np("unpackbits", [_BYTES * 60], id="unpackbits_flat"),
+    # mx.np's numpy signatures
+    *[_np(f"np:{n}", arrays, kwargs, grad, family="np")
+      for n, arrays, kwargs, grad in [
+          ("reshape", [_GRID, (4, 6)], {}, ()),
+          ("transpose", [_GRID], dict(axes=(2, 0, 1)), (0,)),
+          ("expand_dims", [_M, 1], {}, ()),
+          ("squeeze", [_M[:1]], {}, ()),
+          ("clip", [_M, -0.3, 0.4], {}, (0,)),
+          ("roll", [_M, 1], dict(axis=0), ()),
+          ("rot90", [_M], {}, ()),
+          ("moveaxis", [_GRID, 0, -1], {}, ()),
+          ("rollaxis", [_GRID, 2], {}, ()),
+          ("repeat", [_M, 2], dict(axis=0), (0,)),
+          ("tile", [_M, (2, 1)], {}, ()),
+          ("flip", [_M], dict(axis=1), ()),
+          ("split", [_EVEN, 3], dict(axis=1), (0,)),
+          ("split", [_EVEN, [1, 4]], dict(axis=1), ()),
+          ("take", [_M, _f32([0, 5, 11])], {}, (0,)),
+          ("quantile", [_EVEN, 0.3], dict(axis=1), (0,)),
+          ("percentile", [_EVEN, 90.0], {}, ()),
+          ("tensordot", [_M, _M2.T.copy()], dict(axes=1), ()),
+          ("partition", [_PART, 3], {}, ()),
+          ("argpartition", [_PART, 4], {}, ()),
+          ("resize", [_M, (2, 2)], {}, ()),
+          ("cumsum", [_M], dict(axis=0), (0,)),
+          ("cumprod", [_M], {}, ()),
+          ("diff", [_M], dict(n=1, axis=0), ()),
+          ("tril", [_M], {}, ()), ("triu", [_M], dict(k=1), ()),
+          ("trace", [_M], {}, (0,)),
+          ("searchsorted", [_SORTED, _V], {}, ()),
+          ("take_along_axis", [_M, _f32([[1], [0], [3]])],
+           dict(axis=1), (0,)),
+          ("put_along_axis", [_M, _f32([[1], [0], [3]]), _f32([[1], [2],
+                                                              [3]])],
+           dict(axis=1), ()),
+          ("einsum", ["ij,kj->ik", _M, _M2], {}, (1, 2)),
+          ("concatenate", [_M, _M2], dict(axis=0), (0, 1)),
+          ("append", [_M, _M2], {}, ()),
+          ("append", [_M, _M2], dict(axis=1), ()),
+          ("absolute", [_M], {}, ()), ("true_divide", [_M, _M2], {}, ()),
+          ("amax", [_M], {}, ()), ("deg2rad", [_M], {}, ()),
+          ("remainder", [_M, _M2 + 1.5], {}, ()),
+          ("full_like", [_M, 2.5], {}, ()),
+          ("empty_like", [_INTS], {}, ()),
+          ("asarray", [_M], {}, ()),
+      ]],
+    *[_np(f"np:{n}", [], kwargs, family="np_creators")
+      for n, kwargs in [
+          ("linspace", dict(start=-1.0, stop=2.0, num=7)),
+          ("linspace", dict(start=0, stop=1, num=5, endpoint=False)),
+          ("logspace", dict(start=0.0, stop=2.0, num=5)),
+          ("geomspace", dict(start=1.0, stop=1000.0, num=4)),
+          ("identity", dict(n=3)),
+      ]],
+    # the FFTs, through mx.np.fft
+    _np("np:fft.fft", [_V], {}, (0,), fft_tol(8), family="fft"),
+    _np("np:fft.fft", [_V], dict(n=6, norm="ortho"), (0,), fft_tol(6),
+        family="fft", id="fft_cut"),
+    _np("np:fft.fft", [_M], dict(n=12, axis=0, norm="forward"), (0,),
+        fft_tol(12), family="fft", id="fft_padded_axis0"),
+    _np("np:fft.fft", [_C8], {}, (), fft_tol(8), family="fft",
+        id="fft_complex"),
+    _np("np:fft.ifft", [_C25], dict(norm="forward"), (), fft_tol(5),
+        family="fft"),
+    _np("np:fft.ifft", [_M], {}, (0,), fft_tol(4), family="fft",
+        id="ifft_real"),
+    _np("np:fft.rfft", [_V], {}, (0,), fft_tol(8), family="fft"),
+    _np("np:fft.rfft", [_M], dict(n=10, axis=0), (0,), fft_tol(10),
+        family="fft", id="rfft_padded"),
+    _np("np:fft.irfft", [_C25], {}, (), fft_tol(8), family="fft"),
+    _np("np:fft.irfft", [_C25], dict(n=9, norm="ortho"), (), fft_tol(9),
+        family="fft", id="irfft_n"),
+    _np("np:fft.fft2", [_M], {}, (0,), fft_tol(12), family="fft"),
+    _np("np:fft.fft2", [_GRID], dict(s=(2, 6), axes=(0, 2)), (0,),
+        fft_tol(12), family="fft", id="fft2_s_axes"),
+    _np("np:fft.ifft2", [_C25], {}, (), fft_tol(10), family="fft"),
+    _np("np:fft.fftn", [_GRID], {}, (0,), fft_tol(24), family="fft"),
+    _np("np:fft.fftn", [_GRID], dict(s=(4, 2), axes=(2, 0)), (0,),
+        fft_tol(8), family="fft", id="fftn_s_axes"),
+    _np("np:fft.ifftn", [_C25], dict(norm="ortho"), (), fft_tol(10),
+        family="fft"),
+    _np("np:fft.fftshift", [_GRID], {}, (0,), family="fft"),
+    _np("np:fft.ifftshift", [_GRID], dict(axes=(1,)), (0,), family="fft"),
+    *[_np(n, [_C25], family="complex", id=f"{n}_complex")
+      for n in ("real", "imag", "conj", "angle", "op:absolute_complex")],
+    _np("op:complex_abs", [_C8], family="complex", id="complex_abs_alias"),
+    *[_np(n, [_M], {}, (0,) if n != "imag" else (), family="complex",
+          id=f"{n}_of_reals") for n in ("real", "imag", "conj", "angle",
+                                        "op:absolute_complex")],
+    # np.linalg (ops/fft_ops.py), through mx.np.linalg
+    *[_np("np:linalg.norm", [x], kw, (0,), LINALG_TOL, family="np_linalg",
+          id=f"norm_{i}")
+      for i, (x, kw) in enumerate([
+          (_GRID, {}), (_M, dict(ord="fro")), (_M, dict(ord=2)),
+          (_M, dict(ord="nuc")), (_M, dict(ord=1)),
+          (_M, dict(ord=-np.inf, axis=1)), (_V, dict(ord=3)),
+          (_GRID, dict(axis=(1, 2), keepdims=True)),
+          (_GRID, dict(keepdims=True))])],
+    _np("np:linalg.solve", [_SQ, _V[:3]], {}, (0, 1), LINALG_TOL,
+        family="np_linalg"),
+    _np("np:linalg.solve", [_SQB, _nd_rand(166, 2, 3, 2)], {}, (0, 1),
+        LINALG_TOL, family="np_linalg", id="solve_batched"),
+    # torch would read this b as a batch of vectors, numpy 2 as a matrix
+    _np("np:linalg.solve", [_SQB.repeat(2, 0)[:3], _nd_rand(167, 3, 3)], {},
+        (0, 1), LINALG_TOL, family="np_linalg", id="solve_b_as_matrix"),
+    _np("np:linalg.lstsq", [_TALL, _V[:5]], {}, (), LINALG_TOL,
+        family="np_linalg"),
+    _np("np:linalg.lstsq", [_DEFICIENT, _M.T[:, :2].copy()[:3]
+                            .repeat(2, 0)[:5]], {}, (), LINALG_TOL,
+        family="np_linalg", id="lstsq_rank_deficient"),
+    _np("np:linalg.qr", [_TALL], {}, (), LINALG_TOL, family="np_linalg",
+        post=post_qr),
+    _np("np:linalg.qr", [_SQB], dict(mode="complete"), (0,), LINALG_TOL,
+        family="np_linalg", post=post_qr, sq=(0, 1), id="qr_complete"),
+    _np("np:linalg.qr", [_TALL], dict(mode="r"), (), LINALG_TOL,
+        family="np_linalg", post=post_qr_r, id="qr_r"),
+    _np("np:linalg.svd", [_TALL], dict(full_matrices=False), (0,),
+        LINALG_TOL, family="np_linalg", post=post_svd, sq=(0, 2)),
+    _np("np:linalg.svd", [_WIDE], dict(compute_uv=False), (0,), LINALG_TOL,
+        family="np_linalg", id="svd_values"),
+    _np("np:linalg.eigh", [_SYM4], {}, (0,), LINALG_TOL,
+        family="np_linalg", post=post_eigh, sq=(1,)),
+    _np("np:linalg.eigh", [_M[:, :3] + np.eye(3, dtype=np.float32) * 2],
+        dict(UPLO="U"), (), LINALG_TOL, family="np_linalg", post=post_eigh,
+        id="eigh_upper"),
+    _np("np:linalg.eigvalsh", [_SYM4], {}, (0,), LINALG_TOL,
+        family="np_linalg"),
+    _np("np:linalg.cholesky", [_SPDB], {}, (0,), LINALG_TOL,
+        family="np_linalg"),
+    _np("np:linalg.inv", [_SQB], {}, (0,), LINALG_TOL, family="np_linalg"),
+    _np("np:linalg.det", [_SQB], {}, (0,), LINALG_TOL, family="np_linalg"),
+    _np("np:linalg.slogdet", [_SQ * _f32([[-1], [1], [1]])], {}, (0,),
+        LINALG_TOL, family="np_linalg"),
+    _np("np:linalg.pinv", [_TALL], {}, (0,), LINALG_TOL, family="np_linalg"),
+    _np("np:linalg.pinv", [_DEFICIENT], {}, (), LINALG_TOL,
+        family="np_linalg", id="pinv_rank_deficient"),
+    _np("np:linalg.matrix_rank", [_TALL], family="np_linalg"),
+    _np("np:linalg.matrix_rank", [_DEFICIENT], family="np_linalg",
+        id="matrix_rank_deficient"),
+    _np("np:linalg.matrix_rank", [_TALL], dict(tol=0.5), family="np_linalg",
+        id="matrix_rank_tol"),
+    _np("np:linalg.matrix_power", [_SQ, 3], {}, (0,), LINALG_TOL,
+        family="np_linalg"),
+    _np("np:linalg.matrix_power", [_SQ, -2], {}, (), LINALG_TOL,
+        family="np_linalg", id="matrix_power_inverse"),
+    _np("np:linalg.matrix_power", [_SQ, 0], family="np_linalg",
+        id="matrix_power_0"),
+    _np("np:linalg.multi_dot", [_V[:3], _M, _M2.T.copy(), _V[:3]], {},
+        (0, 1, 2, 3), LINALG_TOL, family="np_linalg"),
+    *[_np("np:linalg.cond", [_SQB], dict(p=p) if p else {}, (), LINALG_TOL,
+          family="np_linalg", id=f"cond_{p}")
+      for p in (None, "fro", 1, -2)],
+    _np("np:linalg.tensorsolve", [_TENSOR_A.reshape(2, 3, 6),
+                                  _nd_rand(168, 2, 3)], {}, (0, 1),
+        LINALG_TOL, family="np_linalg"),
+    _np("np:linalg.tensorinv", [_TENSOR_A.reshape(6, 2, 3)], dict(ind=1),
+        (0,), LINALG_TOL, family="np_linalg"),
+    # la_op (ops/linalg.py), through mx.nd.linalg
+    _np("linalg.gemm", [_WIDE[:, :, :3], _M2[None].repeat(2, 0)[:, :3],
+                        _nd_rand(169, 2, 3, 4)],
+        dict(alpha=0.5, beta=2.0), (0, 1, 2), family="la_op"),
+    _np("linalg.gemm", [_WIDE, _WIDE, _nd_rand(170, 2, 5, 5)],
+        dict(transpose_a=True), (0, 1), family="la_op", id="gemm_ta"),
+    _np("linalg.gemm2", [_WIDE, _WIDE], dict(transpose_b=True, alpha=2.0),
+        (0, 1), family="la_op"),
+    _np("linalg.syrk", [_WIDE], dict(alpha=1.5), (0,), family="la_op"),
+    _np("linalg.syrk", [_WIDE], dict(transpose=True), (0,), family="la_op",
+        id="syrk_t"),
+    _np("linalg.potrf", [_SPDB], {}, (0,), LINALG_TOL, family="la_op"),
+    _np("linalg.potri", [_LOW], {}, (0,), LINALG_TOL, family="la_op"),
+    *[_np("linalg.trmm", [_SQB, _nd_rand(171, 2, 3, 3)], kw, (0, 1),
+          family="la_op", id=f"trmm_{i}")
+      for i, kw in enumerate([{}, dict(transpose=True, alpha=2.0),
+                              dict(rightside=True, lower=False)])],
+    *[_np("linalg.trsm", [_SQB, _nd_rand(172, 2, 3, 3)], kw, (0, 1),
+          LINALG_TOL, family="la_op", id=f"trsm_{i}")
+      for i, kw in enumerate([{}, dict(transpose=True, alpha=-0.5),
+                              dict(rightside=True, lower=False),
+                              dict(rightside=True, transpose=True)])],
+    _np("linalg.sumlogdiag", [_LOW], {}, (0,), family="la_op"),
+    _np("linalg.gelqf", [_WIDE], {}, (), LINALG_TOL, family="la_op",
+        post=post_gelqf),
+    _np("linalg.syevd", [_SYM4], {}, (), LINALG_TOL, family="la_op",
+        post=post_syevd),
+    _np("linalg.inverse", [_SQB], {}, (0,), LINALG_TOL, family="la_op"),
+    _np("linalg.det", [_SQB], {}, (0,), LINALG_TOL, family="la_op"),
+    _np("linalg.slogdet", [_SQB], {}, (0,), LINALG_TOL, family="la_op"),
+    _np("linalg.extractdiag", [_GRID[:, :, :3]], dict(offset=1), (0,),
+        family="la_op"),
+    _np("linalg.makediag", [_M], dict(offset=-1), (0,), family="la_op"),
+    *[_np("linalg.extracttrian", [_SQB], kw, (0,), family="la_op",
+          id=f"extracttrian_{i}")
+      for i, kw in enumerate([{}, dict(offset=-1),
+                              dict(offset=1, lower=False)])],
+    *[_np("linalg.maketrian", [_nd_rand(173, 2, n)], kw, (0,),
+          family="la_op", id=f"maketrian_{i}")
+      for i, (n, kw) in enumerate([(6, {}), (3, dict(offset=-1)),
+                                   (3, dict(offset=1, lower=False))])],
+    _np("op:inverse", [_SQ], family="la_op", id="inverse_alias"),
+    _np("op:det", [_SQ], family="la_op", id="det_alias"),
+    _np("op:slogdet", [_SQ], family="la_op", id="slogdet_alias"),
+])
+
+
+#: the dynamic-shape ops, each with its arrays: their results stay on the
+#: operand's device
+NP_DYNAMIC = [("unique", [_DUPS], dict(return_index=True,
+                                       return_inverse=True,
+                                       return_counts=True)),
+              ("nonzero", [_INTS], {}), ("flatnonzero", [_INTS], {}),
+              ("argwhere", [_INTS], {}), ("bincount", [_f32([0, 2])], {}),
+              ("histogram", [_M], {}), ("setdiff1d", [_DUPS, _V], {}),
+              ("intersect1d", [_DUPS, _V], {}),
+              ("union1d", [_DUPS, _V], {}),
+              ("compress_op", [_f32([1, 0, 1]), _M], dict(axis=0)),
+              ("extract", [_M > 0, _M], {})]
+
+
+def np_dynamic_checks(mx, ctx):
+    """Each dynamic-shape op on ``ctx``: every result on ``ctx``; on the
+    card, each raises ``MXTPUError`` inside a CUDA graph capture. Returns
+    the count of ops."""
+    nd = mx.nd
+    for name, arrays, kwargs in NP_DYNAMIC:
+        xs = [nd.array(a, ctx=ctx, dtype=a.dtype) for a in arrays]
+        out = getattr(nd, name)(*xs, **kwargs)
+        for o in out if isinstance(out, tuple) else (out,):
+            if o.ctx != ctx:
+                raise AssertionError(f"{name}: a result on {o.ctx}, its "
+                                     f"operands on {ctx}")
+        if ctx.device_type != "gpu":
+            continue
+        graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        torch.cuda.synchronize()
+        try:
+            with torch.cuda.stream(stream), torch.cuda.graph(graph):
+                getattr(nd, name)(*xs, **kwargs)
+        except mx.MXTPUError:
+            pass
+        else:
+            raise AssertionError(f"{name} inside a CUDA graph capture "
+                                 "raised nothing")
+    return len(NP_DYNAMIC)
+
+
+def np_cases_phase(mx, dev_ctx, cases=NP_CASES):
+    """Every case of ``cases`` on the card against the same call on the CPU
+    in the port (held to the JAX package by the CPU tests), with
+    gradients: one line an op family; then the dynamic-shape ops' device
+    and capture checks."""
+    families = _check_cases(mx, dev_ctx, cases, run_nd_case, check_nd_case)
+    for name, fam in families.items():
+        print(f"mx.np ops on {dev_ctx} vs the CPU, {name}: {fam['cases']} "
+              f"cases equal (largest float difference {fam['worst']:.3e})",
+              flush=True)
+    n = np_dynamic_checks(mx, dev_ctx)
+    print(f"dynamic-shape ops on {dev_ctx}: {n} ops, every result on "
+          f"{dev_ctx}" + (", each refused inside a CUDA graph capture"
+                          if dev_ctx.device_type == "gpu" else ""),
+          flush=True)
+    return families
+
+
+def np_gpt_logits(mx, params, tokens, num_layers, num_heads):
+    """The GPT decoder's forward (``gluon.model_zoo.gpt.GPTDecoder``, no
+    dropout) written in ``mx.np``/``mx.npx`` names, for either package:
+    ``np.einsum`` for every dense layer and the head, ``npx.layer_norm``,
+    ``npx.gelu``, ``npx.embedding``, ``np.split``/``reshape``/
+    ``transpose``, and ``mx.nd.flash_attention(causal=True)`` (``mx.npx``
+    has no attention): ``tokens`` (B, T) -> logits (B, T, V)."""
+    np_, npx = mx.np, mx.npx
+    b, t = tokens.shape
+    vocab, units = params["head.weight"].shape
+    d = units // num_heads
+
+    def ln(x, name):
+        return npx.layer_norm(x, params[name + ".gamma"],
+                              params[name + ".beta"], axis=-1, eps=1e-5)
+
+    def dense(x, name, bias=True):
+        y = np_.einsum("btc,oc->bto", x, params[name + ".weight"])
+        return np_.add(y, params[name + ".bias"]) if bias else y
+
+    def heads(x):
+        return np_.transpose(np_.reshape(x, (b, t, num_heads, d)),
+                             (0, 2, 1, 3))
+
+    pos = np_.arange(t, ctx=tokens.context)
+    x = np_.add(npx.embedding(tokens, params["word_embed.weight"]),
+                npx.embedding(pos, params["position_embed.weight"]))
+    for i in range(num_layers):
+        pre = f"layer{i}."
+        q, k, v = np_.split(dense(ln(x, pre + "ln1"), pre + "attn.qkv"), 3,
+                            axis=-1)
+        a = mx.nd.flash_attention(heads(q), heads(k), heads(v), causal=True)
+        a = np_.reshape(np_.transpose(a, (0, 2, 1, 3)), (b, t, units))
+        x = np_.add(x, dense(a, pre + "attn.proj"))
+        f = npx.gelu(dense(ln(x, pre + "ln2"), pre + "ffn1"))
+        x = np_.add(x, dense(f, pre + "ffn2"))
+    return dense(ln(x, "ln_f"), "head", bias=False)
+
+
+def np_gpt_step(mx, params, tokens, labels, num_layers, num_heads):
+    """One training step of ``np_gpt_logits``: the mean cross entropy of
+    ``labels`` (B, T) as ``-mean(take_along_axis(log_softmax(logits)))``,
+    recorded and run backward (the gradients land in ``params``); returns
+    the loss."""
+    np_, npx = mx.np, mx.npx
+    with mx.autograd.record():
+        logp = npx.log_softmax(np_gpt_logits(mx, params, tokens, num_layers,
+                                             num_heads))
+        loss = -np_.mean(np_.take_along_axis(
+            logp, np_.expand_dims(labels, -1), axis=-1))
+    loss.backward()
+    return float(loss.asscalar())
+
+
+def np_phase(seed, card, net, ctx, b=8, lr=3e-4, cases=NP_CASES, reps=5):
+    """The mx.np phase on a GPT decoder ``net`` (dropout 0) at B=``b``,
+    T=its ``max_length``: ``np_gpt_step`` on the net's own parameters, its
+    loss and every gradient against the gluon forward's with
+    ``SoftmaxCrossEntropyLoss`` (mean; ``GRAD_RTOL``);
+    ``mx.nd.clip_by_global_norm`` over the gradients, with ``max_norm``
+    half their global norm, against the same scaling in torch; a learning
+    check (5 ``gluon.Trainer`` adam steps, the loss falls 5%); the flash
+    launches by route of those 6 passes; the step timed beside the gluon
+    step and both profiled (device ms and launches a step); then
+    ``np_cases_phase`` on ``cases``."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.ndarray import NDArray
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    t0_phase = time.perf_counter()
+    t, vocab = net.max_length, net.vocab_size
+    layers, heads = net.num_layers, net.num_heads
+    rs = np.random.RandomState(seed + 11)
+    tokens = mx.nd.array(rs.randint(0, vocab, (b, t)), ctx=ctx)
+    labels = mx.nd.array(rs.randint(0, vocab, (b, t)), ctx=ctx,
+                         dtype="int32")
+    flat_labels = labels.reshape(-1)
+    named = [(n, p) for n, p in net.collect_params().items()
+             if p.requires_grad]
+    names = [n for n, _ in named]
+    params = {n: NDArray(p) for n, p in named}
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": lr})
+
+    def gluon_step():
+        with mx.autograd.record():
+            loss = ce(net(tokens).reshape((-1, vocab)), flat_labels).mean()
+        loss.backward()
+        return loss.asscalar()
+
+    def np_step():
+        return np_gpt_step(mx, params, tokens, labels, layers, heads)
+
+    ref_loss = float(gluon_step())
+    ref_grads = [p.grad.clone() for _, p in named]
+    torch.cuda.synchronize()
+    _reset_launches(fa)
+    loss0 = np_step()
+    grads = [p.grad for _, p in named]
+    worst = _worst_grad("mx.np GPT step", names, grads, ref_grads, GRAD_RTOL)
+    print(f"mx.np GPT step oracle (fp32, B={b}, T={t}, {len(names)} "
+          f"parameter tensors): mean cross entropy {loss0:.6f} "
+          f"(np.take_along_axis of npx.log_softmax) vs {ref_loss:.6f} "
+          f"(gluon, SoftmaxCrossEntropyLoss); worst gradient relative L2 "
+          f"error {worst[0]:.3e} ({worst[1]}), tolerance {GRAD_RTOL:g}",
+          flush=True)
+    if not abs(loss0 - ref_loss) <= 1e-5 * abs(ref_loss):
+        raise AssertionError("mx.np GPT step: the loss differs from the "
+                             "gluon step's")
+    del ref_grads
+    total = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                                 for g in grads)))
+    # half the norm, so that the op scales (at or under it, it returns its
+    # inputs)
+    max_norm = 0.5 * total
+    scale = min(1.0, max_norm / max(total, 1e-12))
+    if not 0.0 < scale < 1.0:
+        raise AssertionError(f"clip_by_global_norm check: scale {scale}, "
+                             f"the gradients' global norm {total}")
+    clipped = mx.nd.clip_by_global_norm(*[NDArray(g) for g in grads],
+                                        max_norm=max_norm)
+    clip_err = max(float((c.as_torch() - g * scale).abs().max())
+                   for c, g in zip(clipped, grads))
+    print(f"mx.nd.clip_by_global_norm over the {len(grads)} gradients: "
+          f"global norm {total:.6f}, max_norm {max_norm:.6f}, scale "
+          f"{scale:.6f}, largest difference from the fp64 scaling "
+          f"{clip_err:.3e}", flush=True)
+    if len(clipped) != len(grads) or not clip_err <= 1e-6 * max(
+            float(g.abs().max()) for g in grads):
+        raise AssertionError("clip_by_global_norm over the gradients "
+                             "differs from the scaling")
+    del clipped
+    trainer.step(1)
+    losses = [loss0]
+    for _ in range(5):
+        losses.append(np_step())
+        trainer.step(1)
+    passes = 6
+    flash = _read_launches(fa)
+    routes = _read_routes(fa)
+    print(f"mx.np GPT learning check (gluon.Trainer adam lr {lr:g}, one "
+          f"batch): mean cross entropy {[round(v, 4) for v in losses]}",
+          flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 0.95 * losses[0]:
+        raise AssertionError("mx.np GPT step: the loss did not fall by 5% "
+                             "over 5 steps")
+    _check_flash_launches(f"the mx.np GPT step's {passes} passes", flash,
+                          routes, {k: layers * passes for k in COUNTERS},
+                          training_routes(passes, 0, layers, t,
+                                          net.head_dim))
+
+    def np_train():
+        np_step()
+        trainer.step(1)
+
+    def gluon_train():
+        gluon_step()
+        trainer.step(1)
+
+    gc.collect()
+    times = _median_turns({"np": np_train, "gluon": gluon_train}, reps)
+    print(f"mx.np GPT step (fp32, B={b}, T={t}; {card}): {times['np']:.3f} "
+          f"ms a step beside the gluon step's {times['gluon']:.3f} (host "
+          f"clock, median of {reps} alternating turns, each with its "
+          "gluon.Trainer adam step)", flush=True)
+    profile = _profile_step(lambda *_: np_train(), None, None, card,
+                            times["np"], top=12, what="fp32 mx.np GPT step")
+    gluon_profile = _kernel_rows(gluon_train)[0]
+    device_ms, gluon_device_ms = (sum(r[0] for r in rows)
+                                  for rows in (profile, gluon_profile))
+    launches, gluon_launches = (sum(r[1] for r in rows)
+                                for rows in (profile, gluon_profile))
+    print(f"device time a step: mx.np {device_ms:.3f} ms in {launches} "
+          f"launches, gluon {gluon_device_ms:.3f} ms in {gluon_launches} "
+          "(torch.profiler)", flush=True)
+    gc.collect()
+    families = np_cases_phase(mx, ctx, cases)
+    seconds = time.perf_counter() - t0_phase
+    print(f"mx.np phase: {seconds:.1f} s", flush=True)
+    return dict(n_params=len(names), grad_worst_rel=worst[0], loss=loss0,
+                ref_loss=ref_loss, learning_losses=losses, passes=passes,
+                flash_launches=flash, flash_routes=routes,
+                clip_err=clip_err, step_ms=times["np"],
+                gluon_step_ms=times["gluon"], device_ms=device_ms,
+                gluon_device_ms=gluon_device_ms, launches=launches,
+                gluon_launches=gluon_launches, families=families,
+                seconds=seconds)
+
+
+
 def _entry(name, source, replaces, launches, cases, head_case,
            dtype="fp32"):
     """A kernel's record: its numbers at ``head_case`` in ``dtype``, and
@@ -7392,7 +8193,8 @@ def main(argv=None) -> int:
                 f"flash_fwd_{route}", 0),
             "registry": registry["fwd_routes"][route],
             "nd": nd["flash_routes"][f"flash_fwd_{route}"],
-            "nd1x": bert["nd1x"]["flash_routes"][f"flash_fwd_{route}"]}
+            "nd1x": bert["nd1x"]["flash_routes"][f"flash_fwd_{route}"],
+            "np": nd["np"]["flash_routes"][f"flash_fwd_{route}"]}
         main_paths = sum(by_path.values())
         by_path["train_to_decode"] = trained["decode_routes"][route]
         if route == "tc":
@@ -7424,7 +8226,8 @@ def main(argv=None) -> int:
                            + in_graph + bert["routes"][f"{name}_{route}"]
                            + bert_graph + nd["flash_routes"][
                                f"{name}_{route}"]
-                           + bert["nd1x"]["flash_routes"][f"{name}_{route}"],
+                           + bert["nd1x"]["flash_routes"][f"{name}_{route}"]
+                           + nd["np"]["flash_routes"][f"{name}_{route}"],
                            [r for r in bwd if r["kernel"] == name
                             and r["route"] == route], train_case, dtype)
             head = next(r for r in entry["cases"] if r["case"] == train_case
@@ -7438,7 +8241,8 @@ def main(argv=None) -> int:
                 "bert_train": bert["routes"][f"{name}_{route}"],
                 "bert_graph": bert_graph,
                 "nd": nd["flash_routes"][f"{name}_{route}"],
-                "nd1x": bert["nd1x"]["flash_routes"][f"{name}_{route}"]}
+                "nd1x": bert["nd1x"]["flash_routes"][f"{name}_{route}"],
+                "np": nd["np"]["flash_routes"][f"{name}_{route}"]}
             if route == "tc":
                 entry["launches_by_path"]["bf16_gate"] = \
                     trained["gate_launches"][f"{name}_tc"]
@@ -7543,6 +8347,9 @@ def main(argv=None) -> int:
         "nd_gpt_fp32": {k: nd[k] for k in (
             "step_ms", "gluon_step_ms", "device_ms", "gluon_device_ms",
             "seconds")},
+        "np_gpt_fp32": {k: nd["np"][k] for k in (
+            "step_ms", "gluon_step_ms", "device_ms", "gluon_device_ms",
+            "launches", "gluon_launches", "grad_worst_rel", "seconds")},
         "nd1x_bert_fp32": {k: bert["nd1x"][k] for k in (
             "step_ms", "pallas_step_ms", "xla_step_ms", "device_ms",
             "pallas_device_ms", "xla_device_ms", "grad_worst_rel",

@@ -17,7 +17,9 @@ tensors, the op registry, ``mx.nd.Custom``), ``autograd.Function`` and
 ``mark_variables``, ``mx.operator`` custom ops, and ``mx.rtc.CudaModule``,
 which compiles CUDA source at run time with NVRTC and launches it on
 NDArrays. Slice 15 trains BERT (``models.get_bert``) through the same
-flash kernels, with per-sample key lengths and no causal mask.
+flash kernels, with per-sample key lengths and no causal mask. Slice 20
+is the numpy front door: ``mx.np`` (with ``linalg``, ``fft`` and
+``random``) and ``mx.npx``, loaded on first use.
 
 Devices are explicit: every entry point takes a ``ctx``; the default is
 ``gpu(0)`` (``cuda:0``) and raises when there is no card. The CPU runs only
@@ -40,6 +42,20 @@ from .device import Context, cpu, current_context, gpu  # noqa: E402
 from .ops import rtc_kernels  # noqa: E402,F401  (registers softmax_ce_rtc)
 
 nd = ndarray
+
+
+def __getattr__(name):
+    # mx.np and mx.npx load on first use, as in the JAX package
+    if name in ("np", "npx"):
+        import importlib
+        import sys
+
+        mod = importlib.import_module(
+            {"np": ".numpy", "npx": ".numpy_extension"}[name], __name__)
+        setattr(sys.modules[__name__], name, mod)
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = ["Context", "MXTPUError", "autograd", "base", "config", "cpu",
            "current_context", "device", "gluon", "gpu", "initializer",

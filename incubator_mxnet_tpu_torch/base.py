@@ -21,6 +21,8 @@ DTYPE_ALIASES = {
     "int32": torch.int32,
     "int64": torch.int64,
     "bool": torch.bool,
+    "complex64": torch.complex64,
+    "complex128": torch.complex128,
 }
 
 _NUMPY_TO_TORCH = {
@@ -35,6 +37,8 @@ _NUMPY_TO_TORCH = {
     _np.dtype(_np.uint32): torch.uint32,
     _np.dtype(_np.uint64): torch.uint64,
     _np.dtype(_np.bool_): torch.bool,
+    _np.dtype(_np.complex64): torch.complex64,
+    _np.dtype(_np.complex128): torch.complex128,
 }
 _TORCH_TO_NUMPY = {t: n for n, t in _NUMPY_TO_TORCH.items()}
 

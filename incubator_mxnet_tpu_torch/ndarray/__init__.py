@@ -3,12 +3,14 @@
 Counterpart of the JAX package's ``ndarray/__init__.py`` for the ops the
 port has: wrappers generated from the op registry (``ops/tensor.py``,
 ``ops/nn.py``, ``ops/misc.py``, ``ops/random_ops.py``, ``ops/more.py``,
-``ops/optimizer_ops.py``, and the kernel ops
+``ops/optimizer_ops.py``, ``ops/numpy_ops.py``, ``ops/fft_ops.py``,
+``ops/linalg.py``, and the kernel ops
 ``flash_attention``/``fused_conv_bn``), every call through :func:`invoke`,
 so autograd recording and the naive engine's sync apply alike. The
 submodules ``mx.nd.random`` (the samplers, drawing on ``ctx=``),
-``mx.nd.image`` and ``mx.nd.contrib`` hold the names the reference puts
-there; the update ops write back with the reference's in-place rule.
+``mx.nd.image``, ``mx.nd.contrib`` and ``mx.nd.linalg`` hold the names
+the reference puts there; the update ops write back with the reference's
+in-place rule.
 ``mx.nd.flash_attention`` launches the flash kernels on a CUDA array;
 ``invoke_op("fused_conv_bn", ...)`` the conv kernels; ``mx.nd.Custom``
 runs a registered ``mx.operator`` op. The MXNet 1.x spellings the
@@ -21,11 +23,14 @@ from __future__ import annotations
 import sys as _sys
 from types import ModuleType as _ModuleType
 
-from ..ops import flash_attention as _flash  # noqa: F401  (registers ops)
+from ..ops import fft_ops as _fft_ops  # noqa: F401  (registers ops)
+from ..ops import flash_attention as _flash  # noqa: F401
 from ..ops import fused_conv as _fused_conv  # noqa: F401
+from ..ops import linalg as _linalg  # noqa: F401
 from ..ops import misc as _misc  # noqa: F401
 from ..ops import more as _more  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
+from ..ops import numpy_ops as _numpy_ops  # noqa: F401
 from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
 from ..ops import random_ops as _random_ops  # noqa: F401
 from ..ops import registry as _registry
@@ -96,6 +101,37 @@ _BINARY = [
     "LogisticRegressionOutput"]
 _TERNARY = ["where", "scatter_nd"]
 _VARIADIC = ["concat", "concatenate", "stack", "khatri_rao"]
+# ops/numpy_ops.py and ops/fft_ops.py (the reference's numpy-parity and
+# fft/complex waves)
+_UNARY += [
+    "exp2", "signbit", "sinc", "i0", "fabs", "invert", "bitwise_not",
+    "std", "var", "average", "median", "quantile", "percentile", "ptp",
+    "nanmax", "nanmin", "nanmean", "nanstd", "nanvar", "nanargmax",
+    "nanargmin", "nancumsum", "nancumprod", "cumprod", "count_nonzero",
+    "roll", "rot90", "tril", "triu", "trace_op", "trace", "flipud",
+    "fliplr", "moveaxis", "rollaxis", "diff", "ediff1d", "resize_op",
+    "np_resize", "vander", "unique", "nonzero", "flatnonzero", "argwhere",
+    "bincount", "histogram", "partition_op", "np_partition",
+    "argpartition", "atleast_2d", "atleast_3d", "lexsort",
+    "relu6", "hard_swish", "hardswish", "cov", "corrcoef", "nanmedian",
+    "nanquantile", "nanpercentile", "unwrap", "gradient_op", "np_gradient",
+    "packbits", "unpackbits",
+    "fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "fftn", "ifftn",
+    "fftshift", "ifftshift", "real", "imag", "conj", "angle",
+    "linalg_norm", "linalg_cholesky", "linalg_eigvalsh", "linalg_pinv",
+    "linalg_matrix_rank", "linalg_matrix_power", "linalg_cond"]
+_BINARY += [
+    "logaddexp", "logaddexp2", "copysign", "heaviside", "ldexp",
+    "float_power", "fmod", "nextafter", "floor_divide", "bitwise_and",
+    "bitwise_or", "bitwise_xor", "left_shift", "right_shift", "allclose",
+    "isclose", "array_equal", "kron", "outer", "inner", "vdot",
+    "tensordot", "cross", "polyval", "trapz", "convolve", "correlate",
+    "searchsorted", "digitize", "setdiff1d", "intersect1d", "union1d",
+    "isin", "linalg_solve", "linalg_tensorsolve", "take_along_axis",
+    "fmax", "fmin", "compress_op", "np_compress", "extract", "select"]
+_TERNARY += ["interp", "put_along_axis"]
+_VARIADIC += ["hstack", "vstack", "dstack", "column_stack", "meshgrid",
+              "broadcast_arrays", "einsum", "clip_by_global_norm"]
 for _n in _UNARY:
     setattr(_this, _n, _wrap(_n, 1))
 for _n in _BINARY:
@@ -411,6 +447,25 @@ def Crop(data, shape_like=None, **kwargs):
 
 
 # ---------------------------------------------------------------------------
+# mx.nd.linalg (ops/linalg.py and linalg_gemm2): each also as
+# mx.nd.linalg_<name>
+# ---------------------------------------------------------------------------
+linalg = _ModuleType(__name__ + ".linalg")
+for _n, _k in [("linalg_gemm", 3), ("linalg_gemm2", 2), ("linalg_syrk", 1),
+               ("linalg_potrf", 1), ("linalg_potri", 1), ("linalg_trmm", 2),
+               ("linalg_trsm", 2), ("linalg_sumlogdiag", 1),
+               ("linalg_gelqf", 1), ("linalg_syevd", 1),
+               ("linalg_inverse", 1), ("linalg_det", 1),
+               ("linalg_slogdet", 1), ("linalg_extractdiag", 1),
+               ("linalg_makediag", 1), ("linalg_extracttrian", 1),
+               ("linalg_maketrian", 1)]:
+    _w = _wrap(_n, _k)
+    setattr(_this, _n, _w)
+    setattr(linalg, _n.replace("linalg_", ""), _w)
+_sys.modules[linalg.__name__] = linalg
+_LINALG = [n for n in dir(linalg) if not n.startswith("_")]
+
+# ---------------------------------------------------------------------------
 # mx.nd.image and mx.nd.contrib
 # ---------------------------------------------------------------------------
 image = _ModuleType(__name__ + ".image")
@@ -455,5 +510,6 @@ __all__ = ["BatchNorm", "BatchNorm_v1", "BlockGrad", "Cast", "Concat",
            "mp_sgd_mom_update", "nag_mom_update", "adam_update",
            "adamw_update", "rmsprop_update", "rmspropalex_update",
            "ftrl_update", "signsgd_update", "signum_update", "ftml_update",
-           "mp_nag_mom_update"] + _UNARY + _BINARY + _TERNARY + _VARIADIC \
-    + [n for n, _ in _MORE] + _MORE_VARIADIC
+           "mp_nag_mom_update", "linalg"] + _UNARY + _BINARY + _TERNARY \
+    + _VARIADIC + [n for n, _ in _MORE] + _MORE_VARIADIC \
+    + [f"linalg_{n}" for n in _LINALG]

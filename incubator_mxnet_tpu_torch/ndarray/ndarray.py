@@ -12,8 +12,8 @@ stream, so ``wait_to_read``, ``asnumpy`` and ``waitall`` are the sync
 points where a device fault surfaces, as at the reference engine's
 rethrow. Semantics kept from the JAX package:
 
-* **x32**: float64 becomes float32 and int64 becomes int32, at creation
-  and on every op's result.
+* **x32**: float64 becomes float32, int64 int32 and complex128
+  complex64, at creation and on every op's result.
 * **Views are values**: a ``reshape``, slice or transpose result is a copy.
   Torch's views alias their base, so :func:`invoke` copies any result that
   shares storage with an input: writing through the result never changes
@@ -64,6 +64,8 @@ def _narrow_x32(dt: torch.dtype) -> torch.dtype:
         return torch.int32
     if dt == torch.uint64:
         return torch.uint32
+    if dt == torch.complex128:
+        return torch.complex64
     return dt
 
 
@@ -237,7 +239,7 @@ class NDArray:
 
     def asnumpy(self) -> _np.ndarray:
         """A numpy copy (bf16 comes back as float32: numpy has no bf16)."""
-        t = self._data.detach()
+        t = self._data.detach().resolve_conj().resolve_neg()
         if numpy_dtype(t.dtype) is None:
             t = t.float()
         return t.cpu().numpy()

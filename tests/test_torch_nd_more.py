@@ -276,7 +276,6 @@ def test_every_slice_op_is_registered_and_covered():
     assert len(RANDOM_OPS) == 19 and len(OPTIMIZER_OPS) == 33
     slice_ops = set(MORE_OPS + RANDOM_OPS + OPTIMIZER_OPS)
     assert len(slice_ops) == 98
-    assert len(registry.list_ops()) == 290
     assert slice_ops <= set(registry.list_ops())
     assert slice_ops <= set(jregistry.list_ops())
     for name in slice_ops:
@@ -286,7 +285,7 @@ def test_every_slice_op_is_registered_and_covered():
     covered = set(BY_STATISTICS)
     for case in list(cs.MORE_CASES) + list(cs.UPDATE_CASES):
         name = case.name[3:] if case.name.startswith("op:") else \
-            cs._nd_fn(mx.nd, case.name).__name__
+            cs._nd_fn(mx, case.name).__name__
         covered.add(registry.get(name).name)
     covered.add("reset_arrays")         # test_torch_nd_update.py, in place
     assert slice_ops <= covered, sorted(slice_ops - covered)

@@ -60,7 +60,15 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "incubator_mxnet_tpu_torch.ops._nvrtc, "
             "incubator_mxnet_tpu_torch.ops.rtc_kernels, "
             "incubator_mxnet_tpu_torch.models, "
-            "incubator_mxnet_tpu_torch.models.transformer\n"
+            "incubator_mxnet_tpu_torch.models.transformer, "
+            "incubator_mxnet_tpu_torch.ops.numpy_ops, "
+            "incubator_mxnet_tpu_torch.ops.fft_ops, "
+            "incubator_mxnet_tpu_torch.ops.linalg, "
+            "incubator_mxnet_tpu_torch.numpy, "
+            "incubator_mxnet_tpu_torch.numpy.linalg, "
+            "incubator_mxnet_tpu_torch.numpy.fft, "
+            "incubator_mxnet_tpu_torch.numpy.random, "
+            "incubator_mxnet_tpu_torch.numpy_extension\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) "
             "or m == 'incubator_mxnet_tpu' "
@@ -96,7 +104,10 @@ def test_sources_import_no_jax_and_no_jax_package():
                  "models/__init__.py", "models/transformer.py",
                  "serving/server.py", "serving/batcher.py",
                  "serving/executor_cache.py", "serving/metrics.py",
-                 "serving/registry.py", "serving/artifacts.py"):
+                 "serving/registry.py", "serving/artifacts.py",
+                 "ops/numpy_ops.py", "ops/fft_ops.py", "ops/linalg.py",
+                 "numpy/__init__.py", "numpy/linalg.py", "numpy/fft.py",
+                 "numpy/random.py", "numpy_extension/__init__.py"):
         assert PKG / name in files, name
     for f in files + [ROOT / "chip_smoke.py"]:
         for mod in _imported_modules(f):
@@ -110,6 +121,22 @@ def test_sources_import_no_jax_and_no_jax_package():
         for i, line in enumerate(f.read_text().splitlines(), 1):
             for part in line.split("incubator_mxnet_tpu")[1:]:
                 assert part.startswith("_torch"), f"{f}:{i}: {line.strip()}"
+
+
+def test_numpy_ops_never_copy_an_operand_to_the_host():
+    """``ops/numpy_ops.py`` computes the dynamic-shape ops on the operand's
+    device: no ``.numpy()``, ``.cpu()``, ``.tolist()`` or ``.item()`` on a
+    tensor, and no ``np.asarray``/``np.array`` (the module does not even
+    import numpy)."""
+    for name in ("ops/numpy_ops.py", "ops/fft_ops.py", "ops/linalg.py"):
+        tree = ast.parse((PKG / name).read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and isinstance(node.func,
+                                                         ast.Attribute):
+                assert node.func.attr not in ("numpy", "cpu", "tolist",
+                                              "item", "asarray"), \
+                    f"{name}:{node.lineno}: .{node.func.attr}()"
+        assert "numpy" not in set(_imported_modules(PKG / name)), name
 
 
 def test_default_device_is_the_card_never_a_silent_cpu():
@@ -873,6 +900,42 @@ def test_chip_smoke_nd_phase_rehearses_on_the_cpu(monkeypatch):
                                            d=net.head_dim))]
     assert sum(f["cases"] for f in out["families"].values()) == len(
         cs.ND_CASES)
+    assert all(f["worst"] == 0.0 for f in out["families"].values())
+
+
+def test_chip_smoke_np_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.np_phase`` on a small GPT on the CPU (the plain
+    versions run, so no launch is counted): the mx.np step's loss and its
+    29 gradients against the gluon step's, ``clip_by_global_norm`` over
+    them, the learning check, the launch window expecting a flash launch
+    per layer per pass on the fp32 routes, the timing and the profile,
+    then every case of ``NP_CASES`` (here the CPU against itself) and the
+    dynamic-shape ops' results on the device."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
+
+    cs = _chip_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    windows = []
+    monkeypatch.setattr(cs, "_check_flash_launches",
+                        lambda label, *a: windows.append(a))
+    mx.random.seed(0)
+    net = get_gpt("gpt_decoder_tiny", vocab_size=97, units=64, num_layers=2,
+                  max_length=16, dropout=0.0).initialize("xavier",
+                                                         ctx=mx.cpu())
+    out = cs.np_phase(0, "cpu", net, mx.cpu(), b=2, lr=1e-2, reps=2)
+    assert out["n_params"] == 29
+    assert out["grad_worst_rel"] <= cs.GRAD_RTOL
+    assert abs(out["loss"] - out["ref_loss"]) <= 1e-5 * out["ref_loss"]
+    assert out["learning_losses"][-1] < 0.95 * out["learning_losses"][0]
+    assert out["passes"] == 6 and out["clip_err"] <= 1e-6
+    assert windows == [({k: 0 for k in cs.COUNTERS},
+                        dict.fromkeys(cs.ROUTE_COUNTERS, 0),
+                        {k: 2 * 6 for k in cs.COUNTERS},
+                        cs.training_routes(6, 0, layers=2, t=16,
+                                           d=net.head_dim))]
+    assert sum(f["cases"] for f in out["families"].values()) == len(
+        cs.NP_CASES)
     assert all(f["worst"] == 0.0 for f in out["families"].values())
 
 

@@ -20,6 +20,10 @@ the JAX package does, each held against the JAX package.
   ``embedding`` op, the ``Embedding`` layer): an index in ``[-n, -1]``
   counts from the end, one outside ``[-n, n)`` reads NaN.
 - Negative slice steps in ``NDArray`` indexing, read and written.
+- Complex arrays: complex128 narrows to complex64 at creation and on an
+  op's result (x32), and complex64 survives ``array``, ``asnumpy``,
+  ``asscalar``, ``save``/``load`` and dtype names whole; the port dropped
+  the imaginary part, or refused the dtype name.
 """
 
 import numpy as np
@@ -435,3 +439,56 @@ def test_negative_slice_step_gradient_reaches_the_read_elements():
         y.backward()
     np.testing.assert_array_equal(a.grad.asnumpy(),
                                   [[2.0, 0.0, 1.0], [4.0, 0.0, 3.0]])
+
+
+# ---------------------------------------------------------------------------
+# complex arrays
+# ---------------------------------------------------------------------------
+_Z = np.array([[1 + 2j, 3 - 1j], [-0.5j, 2.25 + 0j]])
+
+
+def test_complex_array_narrows_to_complex64_and_asnumpy_keeps_it_whole():
+    want = jmx.nd.array(_Z)
+    got = mx.nd.array(_Z, ctx=mx.cpu())
+    assert want.dtype == got.dtype == np.complex64
+    assert got.asnumpy().dtype == np.complex64
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+    np.testing.assert_array_equal(got.asnumpy(), _Z.astype(np.complex64))
+
+
+@pytest.mark.parametrize("name", ["complex64", "complex128", np.complex64,
+                                  np.complex128])
+def test_complex_dtype_names_as_the_reference(name):
+    want = jmx.nd.zeros((2,), dtype=name)
+    got = mx.nd.zeros((2,), ctx=mx.cpu(), dtype=name)
+    assert got.dtype == want.dtype == np.complex64
+    cast = mx.nd.array(_Z.real, ctx=mx.cpu()).astype(name)
+    assert cast.dtype == jmx.nd.array(_Z.real).astype(name).dtype
+
+
+def test_complex_scalar_and_op_results():
+    with mx.cpu():
+        a = mx.nd.array(_Z)
+        b = a * a + 1.0
+    ja = jmx.nd.array(_Z)
+    jb = ja * ja + 1.0
+    assert b.dtype == jb.dtype == np.complex64
+    np.testing.assert_allclose(b.asnumpy(), jb.asnumpy(), rtol=1e-6)
+    got, want = a[0, 0].asscalar(), ja[0, 0].asscalar()
+    assert got == want == 1 + 2j and np.asarray(got).dtype == np.complex64
+
+
+def test_complex_save_load_round_trip_as_the_reference(tmp_path):
+    for pkg, kw in ((jmx, {}), (mx, {"ctx": mx.cpu()})):
+        f = str(tmp_path / f"{pkg.__name__}.params")
+        pkg.nd.save(f, {"z": pkg.nd.array(_Z, **kw),
+                        "x": pkg.nd.array(_Z.real, **kw)})
+        back = pkg.nd.load(f, **kw)
+        assert back["z"].dtype == np.complex64
+        np.testing.assert_array_equal(back["z"].asnumpy(),
+                                      _Z.astype(np.complex64))
+    # a file either package saved loads in the other
+    back = mx.nd.load(str(tmp_path / "incubator_mxnet_tpu.params"),
+                      ctx=mx.cpu())
+    np.testing.assert_array_equal(back["z"].asnumpy(),
+                                  _Z.astype(np.complex64))
