@@ -114,7 +114,27 @@ Phases (any failure raises, and the script exits non-zero):
    JAX package's ``ops/more.py``, ``ops/random_ops.py`` and
    ``ops/optimizer_ops.py``) on the card against the CPU, the update
    wrappers' in-place rule, every sampler by its statistics at 2^20 draws,
-   and ``mx.random.set_state`` replaying on the card;
+   and ``mx.random.set_state`` replaying on the card. Then the sparse
+   phase on the same net, drawn again from the seed (``sparse_phase``):
+   (a) ``word_embed`` replaced by ``Embedding(30522, 768,
+   sparse_grad=True)`` holding the same weight, beside a copy of the net
+   with its dense embedding, 3 ``gluon.Trainer`` steps of each (sgd,
+   momentum 0.9, wd 1e-4, ``lazy_update``) on fresh batches (B=8, T=128,
+   mixed lengths): the row-sparse gradient on the card with the batch's
+   sorted distinct tokens as int32 indices, its rows and every other
+   gradient against the dense run's (GRAD_RTOL), the table and momentum
+   after each step against the lazy rule written out in plain PyTorch
+   (1e-6), untouched rows bit-equal, the FusedStep's "row-sparse
+   gradient" fallback, the loss falling, K4-K6 12 a pass on f32, and the
+   lazy update's device ms beside dense SGD over the table; (b) a csr
+   linear classifier at 1,000,000 features (8192 rows, 15 nonzeros a
+   row, MXNet's LibSVM linear classification): ``sparse.dot`` forward,
+   ``SigmoidBinaryCrossEntropyLoss``, ``sparse.dot(transpose_a=True)``
+   gradient, 5 SGD steps, both products against ``scipy.sparse`` in
+   float64 (1e-5), a row slice and a ``cast_storage`` round trip, device
+   ms beside ``torch.sparse.mm``; (c) ``SPARSE_CASES``, ``LAYER_CASES``,
+   ``LOSS_CASES`` and ``REPAIR_CASES`` on the card against the CPU, and
+   the data-sized sparse ops refused inside a CUDA graph capture;
 7. conv kernel phase: the fused conv + BatchNorm kernels (K1 forward, K2
    input gradient, K3 weight gradient) against their plain versions in
    fp32 and bf16 at ResNet-50's shapes at B=32 and one shape off the
@@ -1909,7 +1929,8 @@ def bert_main(seed, card):
     max_length=512, attention_impl="pallas")``, dropout 0: 207 parameter
     tensors, 133,547,324 values; then the mx.nd 1.x phase on the same net,
     in fp32 and drawn again from the seed (its result under
-    ``"nd1x"``)."""
+    ``"nd1x"``), and the sparse phase, drawn again (under
+    ``"sparse"``)."""
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch.models import get_bert
 
@@ -1937,6 +1958,12 @@ def bert_main(seed, card):
     out["nd1x"] = nd1x_phase(seed, card, net, ctx)
     if out["nd1x"]["n_params"] != 207:
         raise AssertionError("bert_12_768_12 has 207 trainable tensors")
+    gc.collect()
+    # drawn again from the seed for the sparse phase (its word embedding
+    # row-sparse)
+    mx.random.seed(seed)
+    net.initialize("xavier", ctx=ctx)
+    out["sparse"] = sparse_phase(seed, card, net, ctx)
     return out
 
 
@@ -8017,6 +8044,796 @@ def np_phase(seed, card, net, ctx, b=8, lr=3e-4, cases=NP_CASES, reps=5):
 
 
 
+# ---------------------------------------------------------------------------
+# sparse phase: ndarray/sparse.py, row-sparse gradients, the sparse-gradient
+# Embedding and lazy SGD, the gluon layers and losses of slice 21 and the
+# repairs of queue 3's faults
+# ---------------------------------------------------------------------------
+#: one call of the sparse phase's case tables: ``fn(mx, ctx)`` runs it in
+#: the port with ``ctx`` the default context and returns its results as
+#: numpy arrays; integers (indices, indptr) are held bit for bit, floats
+#: within ``tol`` (None: ND_TOL), everything where ``exact``
+FnCase = collections.namedtuple("FnCase", "family id fn tol exact",
+                                defaults=(None, False))
+
+
+def run_fn_case(mx, case, ctx):
+    with ctx:
+        return [np.asarray(r) for r in case.fn(mx, ctx)]
+
+
+def check_fn_case(case, got, want):
+    return check_nd_case(NdCase(case.family, case.id, case.id, [],
+                                tol=case.tol, exact=case.exact), got, want)
+
+
+def _rsp_out(r):
+    return [r.indices.asnumpy(), r.data.asnumpy(), r.asnumpy()]
+
+
+def _csr_out(c):
+    return [c.indices.asnumpy(), c.indptr.asnumpy(), c.data.asnumpy(),
+            c.asnumpy()]
+
+
+def _sparse_rows(seed, shape, rows):
+    a = np.zeros(shape, np.float32)
+    a[list(rows)] = _nd_rand(seed, len(rows), *shape[1:])
+    return a
+
+
+_SP_ROWS = _sparse_rows(160, (6, 4), (1, 4))
+_SP_ROWS_B = _sparse_rows(161, (6, 4), (0, 4, 5))
+_SP_CSR = np.where(np.abs(_nd_rand(162, 6, 8)) > 0.5, _nd_rand(162, 6, 8),
+                   0).astype(np.float32)
+_SP_RHS = _nd_rand(163, 8, 5)
+_SP_RHS_T = _nd_rand(164, 6, 3)
+_SP_TABLE = _nd_rand(165, 10, 3)
+_SP_IDS = np.array([[1, 3, -1], [3, 7, 12]], np.int32)
+
+
+def _rows_op(mx, rows, shape):
+    """A custom op ``x -> x[rows]`` whose backward returns a row-sparse
+    gradient."""
+    nd = mx.nd
+
+    class Rows(mx.autograd.Function):
+        def forward(self, x):
+            return x[nd.array(rows, dtype="int32")]
+
+        def backward(self, dy):
+            return nd.sparse.row_sparse_array((dy, rows), shape=shape)
+
+    return Rows()
+
+
+def _grads_into(mx, stype, req, rows_seq):
+    """``x``'s gradient buffer of ``stype`` after one backward of a
+    row-sparse cotangent (``_rows_op``) for each of ``rows_seq``."""
+    x = mx.nd.array(_SP_ROWS_B)
+    x.attach_grad(grad_req=req, stype=stype)
+    for i, rows in enumerate(rows_seq):
+        with mx.autograd.record():
+            y = _rows_op(mx, rows, x.shape)(x)
+        y.backward(mx.nd.array(_nd_rand(166 + i, len(rows), 4)))
+    return _rsp_out(x.grad) if stype == "row_sparse" else [x.grad.asnumpy()]
+
+
+def _dense_into_rsp(mx, ctx):
+    x = mx.nd.array(_SP_ROWS_B)
+    x.attach_grad(stype="row_sparse")
+    with mx.autograd.record():
+        y = (x * mx.nd.array(_f32([[1], [0], [1], [0], [1], [0]]))).sum()
+    y.backward()
+    return _rsp_out(x.grad)
+
+
+def _interior_dense(mx, ctx):
+    x = mx.nd.array(_SP_TABLE)
+    x.attach_grad()
+    with mx.autograd.record():
+        y = (_rows_op(mx, [3, 0], x.shape)(x * 2.0) * 3.0).sum()
+    y.backward()
+    return [x.grad.asnumpy()]
+
+
+def _grad_returns_rsp(mx, ctx):
+    x = mx.nd.array(_SP_TABLE)
+    x.attach_grad()
+    with mx.autograd.record():
+        y = (_rows_op(mx, [7, 2], x.shape)(x) ** 2).sum()
+    (g,) = mx.autograd.grad([y], [x])
+    if not isinstance(g, mx.nd.RowSparseNDArray):
+        raise AssertionError(f"autograd.grad gave {type(g).__name__}")
+    return _rsp_out(g)
+
+
+def _dot_off_tape(mx, ctx):
+    w = mx.nd.array(_SP_RHS)
+    w.attach_grad()
+    with mx.autograd.record():
+        out = mx.nd.sparse.dot(mx.nd.sparse.csr_matrix(_SP_CSR), w)
+    if out.as_torch().requires_grad:
+        raise AssertionError("sparse.dot recorded a tape node")
+    return [out.asnumpy()]
+
+
+def _embedding_grad(mx, ctx, ids=_SP_IDS):
+    """The sparse-gradient Embedding's output and row-sparse weight
+    gradient (ids with the padding id -1 and one outside [-n, n))."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import load_jax_params
+
+    emb = mx.gluon.nn.Embedding(10, 3, sparse_grad=True)
+    load_jax_params(emb, {"weight": _SP_TABLE}, ctx=ctx)
+    with mx.autograd.record():
+        out = emb(mx.nd.array(ids, dtype="int32"))
+        head = (out * out).sum()
+    head.backward()
+    g = mx.nd.sparse.RowSparseNDArray.from_torch(emb.weight.grad)
+    return [out.asnumpy()] + _rsp_out(g)
+
+
+def _embedding_trained(mx, ctx, opt, kw, steps=3):
+    """The sparse-gradient Embedding's table (and momentum) after
+    ``steps`` trainer steps on seeded batches."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import load_jax_params
+
+    emb = mx.gluon.nn.Embedding(10, 3, sparse_grad=True)
+    load_jax_params(emb, {"weight": _SP_TABLE}, ctx=ctx)
+    tr = mx.gluon.Trainer(emb.collect_params(), opt, kw)
+    for i in range(steps):
+        ids = np.random.RandomState(167 + i).randint(0, 10, (2, 3))
+        with mx.autograd.record():
+            head = (emb(mx.nd.array(ids, dtype="int32")) ** 2).sum()
+        head.backward()
+        tr.step(2)
+    if tr._fused.last_fallback != "row-sparse gradient":
+        raise AssertionError(f"FusedStep: {tr._fused.last_fallback}")
+    states = tr._updater.states.get(0)
+    states = () if states is None else (
+        states if isinstance(states, tuple) else (states,))
+    return [emb.weight.detach().cpu().numpy()] + [
+        s.detach().cpu().numpy() for s in states]
+
+
+_SGD_LAZY = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-2,
+             "clip_gradient": 0.5}
+SPARSE_CASES = [
+    FnCase("storage", "cast_storage_row_sparse", lambda mx, ctx: _rsp_out(
+        mx.nd.array(_SP_ROWS).tostype("row_sparse"))),
+    FnCase("storage", "cast_storage_csr", lambda mx, ctx: _csr_out(
+        mx.nd.cast_storage(mx.nd.array(_SP_CSR), "csr"))),
+    FnCase("storage", "tostype_default", lambda mx, ctx: [
+        mx.nd.sparse.csr_matrix(_SP_CSR).tostype("default").asnumpy(),
+        mx.nd.sparse.row_sparse_array(_SP_ROWS).tostype(
+            "default").asnumpy()]),
+    # duplicates kept, so the dense view (which of two writes wins) is
+    # left out
+    FnCase("storage", "row_sparse_array_sorts", lambda mx, ctx: _rsp_out(
+        mx.nd.sparse.row_sparse_array((_SP_RHS[:3], [5, 1, 5]),
+                                      shape=(8, 5)))[:2]),
+    FnCase("storage", "csr_matrix_parts", lambda mx, ctx: _csr_out(
+        mx.nd.sparse.csr_matrix((_f32([1, 2, 3]), [0, 2, 1], [0, 2, 2, 3]),
+                                shape=(3, 3)))),
+    FnCase("storage", "csr_slices", lambda mx, ctx: [
+        a for key in (slice(1, 4), slice(0, 1), slice(5, 5), slice(None))
+        for a in _csr_out(mx.nd.sparse.csr_matrix(_SP_CSR)[key])]),
+    FnCase("storage", "zeros", lambda mx, ctx: _rsp_out(
+        mx.nd.sparse.zeros("row_sparse", (4, 3))) + _csr_out(
+        mx.nd.sparse.zeros("csr", (4, 3)))),
+    FnCase("storage", "retain", lambda mx, ctx: _rsp_out(
+        mx.nd.sparse.retain(mx.nd.sparse.row_sparse_array(_SP_ROWS_B),
+                            mx.nd.array([0, 5, 2])))),
+    FnCase("arith", "add_row_sparse", lambda mx, ctx: _rsp_out(
+        mx.nd.sparse.add(mx.nd.sparse.row_sparse_array(_SP_ROWS),
+                         mx.nd.sparse.row_sparse_array(_SP_ROWS_B)))),
+    FnCase("arith", "elemwise_add", lambda mx, ctx: _rsp_out(
+        mx.nd.sparse.elemwise_add(mx.nd.sparse.row_sparse_array(_SP_ROWS),
+                                  mx.nd.sparse.row_sparse_array(
+                                      _SP_ROWS_B)))),
+    FnCase("arith", "add_densifies", lambda mx, ctx: [
+        (mx.nd.sparse.row_sparse_array(_SP_ROWS)
+         + mx.nd.array(_SP_ROWS_B)).asnumpy(),
+        mx.nd.sparse.add(mx.nd.array(_SP_ROWS_B[:, :4]),
+                         mx.nd.sparse.csr_matrix(_SP_ROWS)).asnumpy()]),
+    FnCase("dot", "csr_dense", lambda mx, ctx: [mx.nd.sparse.dot(
+        mx.nd.sparse.csr_matrix(_SP_CSR), mx.nd.array(_SP_RHS)).asnumpy()]),
+    FnCase("dot", "csr_t_dense", lambda mx, ctx: [mx.nd.sparse.dot(
+        mx.nd.sparse.csr_matrix(_SP_CSR), mx.nd.array(_SP_RHS_T),
+        transpose_a=True).asnumpy()]),
+    FnCase("dot", "row_sparse_dense", lambda mx, ctx: [mx.nd.sparse.dot(
+        mx.nd.sparse.row_sparse_array(_SP_ROWS), mx.nd.array(_SP_RHS[:4]))
+        .asnumpy()]),
+    FnCase("dot", "off_the_tape", _dot_off_tape),
+    FnCase("autograd", "row_sparse_into_row_sparse_write",
+             lambda mx, ctx: _grads_into(mx, "row_sparse", "write",
+                                         ([4, 1], [2, 4]))),
+    FnCase("autograd", "row_sparse_into_row_sparse_add",
+             lambda mx, ctx: _grads_into(mx, "row_sparse", "add",
+                                         ([4, 1], [2, 4]))),
+    FnCase("autograd", "row_sparse_into_dense",
+             lambda mx, ctx: _grads_into(mx, "default", "add",
+                                         ([4, 1], [2, 4]))),
+    FnCase("autograd", "dense_into_row_sparse", _dense_into_rsp),
+    FnCase("autograd", "interior_nodes_dense", _interior_dense),
+    FnCase("autograd", "grad_returns_row_sparse", _grad_returns_rsp),
+    FnCase("embedding", "sparse_grad", _embedding_grad),
+    FnCase("optimizer", "lazy_sgd_3_steps", lambda mx, ctx:
+             _embedding_trained(mx, ctx, "sgd", _SGD_LAZY)),
+    FnCase("optimizer", "sgd_not_lazy_densifies", lambda mx, ctx:
+             _embedding_trained(mx, ctx, "sgd", dict(_SGD_LAZY,
+                                                     lazy_update=False))),
+    FnCase("optimizer", "adam_densifies", lambda mx, ctx:
+             _embedding_trained(mx, ctx, "adam", {"learning_rate": 0.01,
+                                                  "wd": 1e-2})),
+]
+
+
+def _layer_case(name, cls, kwargs, shape, tol=None):
+    """A layer's output, input gradient and parameter gradients of
+    ``sum(out * g)``; its parameters (drawn after a first forward fills
+    the deferred shapes) set from a seed."""
+    def fn(mx, ctx):
+        net = getattr(mx.gluon.nn, cls)(**kwargs)
+        net.initialize(ctx=ctx)
+        x = mx.nd.array(_nd_rand(171, *shape))
+        with torch.no_grad():
+            net(x)
+        named = sorted(net.named_parameters())
+        with torch.no_grad():
+            for i, (_, p) in enumerate(named):
+                p.copy_(torch.from_numpy(_nd_rand(172 + i, *p.shape)))
+        x.attach_grad()
+        with mx.autograd.record():
+            out = net(x)
+            head = (out * mx.nd.array(_nd_rand(180, *out.shape))).sum()
+        head.backward()
+        return [out.asnumpy(), x.grad.asnumpy()] + [
+            p.grad.cpu().numpy() for _, p in named]
+
+    return FnCase("layers", name, fn, tol)
+
+
+LAYER_CASES = [
+    _layer_case("LeakyReLU", "LeakyReLU", dict(alpha=0.1), (3, 7)),
+    _layer_case("PReLU", "PReLU", dict(in_channels=3), (2, 3, 4, 4)),
+    _layer_case("ELU", "ELU", dict(alpha=0.5), (3, 7)),
+    _layer_case("SELU", "SELU", {}, (3, 7)),
+    _layer_case("GELU", "GELU", {}, (3, 7)),
+    _layer_case("GELU_erf", "GELU", dict(approximate=False), (3, 7)),
+    _layer_case("SiLU", "SiLU", {}, (3, 7)),
+    _layer_case("Lambda", "Lambda", dict(function="tanh"), (3, 4)),
+    _layer_case("HybridLambda", "HybridLambda", dict(function="relu"),
+                (3, 4)),
+    _layer_case("GroupNorm", "GroupNorm", dict(num_groups=2), (2, 4, 3, 3),
+                ND_LOOSE),
+    _layer_case("InstanceNorm", "InstanceNorm", {}, (2, 3, 4, 4), ND_LOOSE),
+    _layer_case("RMSNorm", "RMSNorm", dict(epsilon=1e-5), (2, 5, 6)),
+    _layer_case("Conv1DTranspose", "Conv1DTranspose",
+                dict(channels=4, kernel_size=3, strides=2, padding=1,
+                     output_padding=1, use_bias=False, in_channels=3),
+                (2, 3, 7), ND_LOOSE),
+    _layer_case("Conv2DTranspose", "Conv2DTranspose",
+                dict(channels=6, kernel_size=3, strides=(2, 1),
+                     padding=(1, 0), output_padding=(1, 0),
+                     dilation=(1, 2), groups=2, activation="relu"),
+                (2, 4, 5, 5), ND_LOOSE),
+    _layer_case("ReflectionPad2D", "ReflectionPad2D", dict(padding=(1, 2)),
+                (2, 3, 5, 6)),
+]
+
+_L_P = _nd_rand(190, 4, 3, lo=-3.0, hi=3.0)
+_L_PROB = _nd_rand(191, 4, 3, lo=0.05, hi=0.95)
+_L_Y01 = (_nd_rand(192, 4, 3) > 0).astype(np.float32)
+_L_SIGNED = np.where(_nd_rand(193, 4, 3) > 0, 1.0, -1.0).astype(np.float32)
+_L_SW = _nd_rand(194, 4, 1, lo=0.2, hi=1.0)
+_L_LOGP = np.log(np.random.RandomState(195).dirichlet(np.ones(5), 4)).astype(
+    np.float32)
+_L_Q = np.random.RandomState(196).dirichlet(np.ones(5), 4).astype(np.float32)
+_L_A, _L_POS, _L_NEG = (_nd_rand(197 + i, 4, 2, 3) for i in range(3))
+_L_COUNTS = np.random.RandomState(200).poisson(2.0, (4, 3)).astype(
+    np.float32)
+_L_CTC = _nd_rand(201, 3, 6, 5, lo=-2.0, hi=2.0)
+_L_CTC_LABELS = _f32([[1, 2, -1], [3, 3, 1], [4, -1, -1]])
+
+
+def _loss_case(name, cls, kwargs, arrays, grads=(0,), tol=None):
+    """A loss's per-sample values and the gradients of ``sum(loss * g)``
+    with respect to ``arrays[grads]`` (None: an argument left out)."""
+    def fn(mx, ctx):
+        xs = [None if a is None else mx.nd.array(a) for a in arrays]
+        for i in grads:
+            xs[i].attach_grad()
+        with mx.autograd.record():
+            out = getattr(mx.gluon.loss, cls)(**kwargs)(*xs)
+            head = (out * mx.nd.array(_nd_rand(202, *out.shape, lo=0.5,
+                                               hi=1.5))).sum()
+        head.backward()
+        return [out.asnumpy()] + [xs[i].grad.asnumpy() for i in grads]
+
+    return FnCase("losses", name, fn, tol)
+
+
+LOSS_CASES = [
+    _loss_case("sigmoid_bce", "SigmoidBinaryCrossEntropyLoss",
+               dict(weight=0.5), [_L_P, _L_Y01, _L_SW]),
+    _loss_case("sigmoid_bce_from_sigmoid", "SigmoidBinaryCrossEntropyLoss",
+               dict(from_sigmoid=True, batch_axis=1), [_L_PROB, _L_Y01]),
+    _loss_case("sigmoid_bce_pos_weight", "SigmoidBinaryCrossEntropyLoss",
+               {}, [_L_P, _L_Y01, None, _nd_rand(203, 1, 3, lo=0.5,
+                                                 hi=3.0)]),
+    _loss_case("kldiv", "KLDivLoss", dict(from_logits=False, weight=2.0),
+               [_L_LOGP * 3, _L_Q]),
+    _loss_case("huber", "HuberLoss", dict(rho=0.5), [_L_P, _L_P * 0.5
+                                                     + _L_PROB, _L_SW],
+               (0, 1)),
+    _loss_case("hinge", "HingeLoss", dict(margin=2.0, batch_axis=1),
+               [_L_P, _L_SIGNED]),
+    _loss_case("squared_hinge", "SquaredHingeLoss", dict(weight=0.3),
+               [_L_P, _L_SIGNED, _L_SW]),
+    _loss_case("logistic_signed", "LogisticLoss", {}, [_L_P, _L_SIGNED]),
+    _loss_case("logistic_binary", "LogisticLoss",
+               dict(label_format="binary"), [_L_P, _L_Y01]),
+    _loss_case("triplet", "TripletLoss", dict(margin=0.5),
+               [_L_A, _L_POS, _L_NEG], (0, 1, 2)),
+    _loss_case("cosine", "CosineEmbeddingLoss", dict(margin=0.2),
+               [_L_A, _L_POS, _L_SIGNED[:, 0].copy()], (0, 1)),
+    _loss_case("poisson_full", "PoissonNLLLoss",
+               dict(from_logits=False, compute_full=True),
+               [_L_PROB * 3, _L_COUNTS, _L_SW]),
+    _loss_case("ctc_lengths", "CTCLoss", dict(layout="NTC"),
+               [_L_CTC, _L_CTC_LABELS, _f32([6, 4, 5]), _f32([2, 3, 1])]),
+    _loss_case("ctc_tnc", "CTCLoss", dict(layout="TNC", weight=0.5),
+               [_L_CTC.transpose(1, 0, 2).copy(), _L_CTC_LABELS]),
+    _loss_case("sdml", "SDMLLoss", dict(smoothing_parameter=0.1),
+               [_nd_rand(204, 4, 6), _nd_rand(205, 4, 6)], (0, 1)),
+]
+
+_SATURATE = _f32([-300.7, -100.2, 200.3, 300.6, 1e10, -1e10, np.nan,
+                  np.inf, -np.inf])
+_DIVIDEND = np.array([5, -5, 0, 7, -7, 6, -6, 0], np.int32)
+_DIVISOR = np.array([0, 0, 0, 3, 2, -4, 4, -3], np.int32)
+_DIVISIONS = {
+    "operator": lambda mx, a, b: a % b,
+    "broadcast_mod": lambda mx, a, b: mx.nd.broadcast_mod(a, b),
+    "scalar": lambda mx, a, b: a % 0,
+    "reversed_scalar": lambda mx, a, b: -7 % b,
+    "nd_floor_divide": lambda mx, a, b: mx.nd.floor_divide(a, b),
+    "np_mod": lambda mx, a, b: mx.np.mod(a, b),
+    "np_remainder": lambda mx, a, b: mx.np.remainder(a, b),
+    "np_fmod": lambda mx, a, b: mx.np.fmod(a, b),
+    "np_floor_divide": lambda mx, a, b: mx.np.floor_divide(a, b)}
+
+
+def _division_case(name):
+    def fn(mx, ctx):
+        a = mx.nd.array(_DIVIDEND, dtype="int32")
+        b = mx.nd.array(_DIVISOR, dtype="int32")
+        return [_DIVISIONS[name](mx, a, b).asnumpy()]
+
+    return FnCase("repairs", f"division_by_zero_{name}", fn, exact=True)
+
+
+def _null_head(mx, ctx):
+    """``backward`` of a head recorded from an input with ``grad_req=
+    "null"``: returns, every gradient as it was."""
+    x = mx.nd.array(_f32([1, 2, 3, 4]))
+    x.attach_grad(grad_req="null")
+    y = mx.nd.array(_f32([1, 1, 1, 1]))
+    y.attach_grad()
+    y.grad[:] = 7.0
+    with mx.autograd.record():
+        head = (x * x).sum()
+    head.backward()
+    return [x.grad.asnumpy(), y.grad.asnumpy()]
+
+
+def _second_backward(mx, ctx):
+    """A second ``backward`` through a freed graph raises, naming
+    ``retain_graph=True``; the gradient of the first stays."""
+    x = mx.nd.array(_f32([1, 2, 3]))
+    x.attach_grad()
+    with mx.autograd.record():
+        y = (x * x).sum()
+    y.backward()
+    try:
+        y.backward()
+    except RuntimeError as e:
+        if "you need to pass retain_graph=True to backward" not in str(e):
+            raise
+        return [x.grad.asnumpy()]
+    raise AssertionError("a second backward through a freed graph raised "
+                         "nothing")
+
+
+REPAIR_CASES = [
+    FnCase("repairs", f"astype_{dt}", functools.partial(
+        lambda dt, mx, ctx: [mx.nd.array(_SATURATE).astype(dt).asnumpy(),
+                             mx.nd.cast(mx.nd.array(_SATURATE),
+                                        dtype=dt).asnumpy()], dt),
+        exact=True) for dt in ("int8", "uint8", "int32", "int64")
+] + [_division_case(name) for name in _DIVISIONS] + [
+    FnCase("repairs", "recorded_head_with_no_gradient", _null_head,
+           exact=True),
+    FnCase("repairs", "second_backward_names_retain_graph",
+           _second_backward, exact=True)]
+
+
+def _sparse_capture_checks(mx, ctx):
+    """On the card, each sparse op whose output size depends on the data
+    raises ``MXTPUError`` inside a CUDA graph capture; returns the count
+    of ops."""
+    sp = mx.nd.sparse
+    with ctx:
+        rsp = sp.row_sparse_array(_SP_ROWS)
+        csr = sp.csr_matrix(_SP_CSR)
+        dense = mx.nd.array(_SP_ROWS)
+        emb = mx.gluon.nn.Embedding(10, 3, sparse_grad=True)
+        emb.initialize(ctx=ctx)
+        ids = mx.nd.array(_SP_IDS, dtype="int32")
+
+        def embedding_backward():
+            with mx.autograd.record():
+                head = emb(ids).sum()
+            head.backward()
+
+        ops = {"cast_storage": lambda: dense.tostype("row_sparse"),
+               "retain": lambda: rsp.retain([1]),
+               "row_sparse add": lambda: rsp + rsp,
+               "csr slice": lambda: csr[1:3],
+               "Embedding(sparse_grad=True) backward": embedding_backward}
+        for name, op in ops.items():
+            graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+            torch.cuda.synchronize()
+            try:
+                with torch.cuda.stream(stream), torch.cuda.graph(graph):
+                    op()
+            except mx.MXTPUError:
+                continue
+            raise AssertionError(f"{name} inside a CUDA graph capture "
+                                 "raised nothing")
+    return len(ops)
+
+
+def sparse_cases_phase(mx, ctx, tables=None):
+    """Every case of ``SPARSE_CASES``, ``LAYER_CASES``, ``LOSS_CASES`` and
+    ``REPAIR_CASES`` (or ``tables``) on ``ctx`` against the port on the CPU
+    (held to the JAX package by the CPU tests): one line a family; then on
+    the card the sparse ops refused inside a CUDA graph capture."""
+    cases = [c for table in (tables or (SPARSE_CASES, LAYER_CASES,
+                                        LOSS_CASES, REPAIR_CASES))
+             for c in table]
+    families = _check_cases(mx, ctx, cases, run_fn_case, check_fn_case)
+    for name, fam in families.items():
+        print(f"slice 21 on {ctx} vs the CPU, {name}: {fam['cases']} cases "
+              f"equal (largest float difference {fam['worst']:.3e})",
+              flush=True)
+    if ctx.device_type == "gpu":
+        n = _sparse_capture_checks(mx, ctx)
+        print(f"sparse ops on {ctx}: {n} data-sized ops each refused inside "
+              "a CUDA graph capture", flush=True)
+    return families
+
+
+SPARSE_LR = 3e-5
+SPARSE_WD = 1e-4
+#: the lazy update against its plain version (the same rule written out
+#: over the dense gradient): relative L2 of the table and the momentum
+LAZY_RTOL = 1e-6
+#: the csr products against scipy in float64 (relative L2)
+CSR_RTOL = 1e-5
+CSR_FIELDS = 15
+
+
+def _rel_l2(got, want):
+    """``||got - want|| / ||want||`` in float64 (``||got - want||`` where
+    ``want`` is 0): tensors on their device, else numpy."""
+    if isinstance(got, torch.Tensor):
+        got, want = got.detach().double(), want.detach().double()
+        den, err = want.norm().item(), (got - want).norm().item()
+    else:
+        got = np.asarray(got, np.float64)
+        want = np.asarray(want, np.float64)
+        den, err = np.linalg.norm(want), np.linalg.norm(got - want)
+    return err / den if den > 0 else err
+
+
+def _lazy_plain(table, mom, dense_grad, ids, lr, wd, momentum):
+    """The lazy SGD rule written out in plain PyTorch over the dense
+    gradient and the batch's distinct ids: ``(table, momentum)`` after
+    the step (copies)."""
+    g = dense_grad[ids] + wd * table[ids]
+    m = momentum * mom[ids] - lr * g
+    new_table, new_mom = table.clone(), mom.clone()
+    new_table[ids] = table[ids] + m
+    new_mom[ids] = m
+    return new_table, new_mom
+
+
+def sparse_bert(seed, card, net, ctx, sizes=BERT_SIZES[:2], steps=3,
+                lr=SPARSE_LR):
+    """(a) of the sparse phase on ``net`` (a fp32 ``BERTModel``,
+    ``attention_impl="pallas"``, dropout 0): ``word_embed`` replaced by
+    ``Embedding(vocab, units, sparse_grad=True)`` holding the same weight,
+    beside a copy of the net with its dense embedding; ``steps`` steps of
+    both through ``gluon.Trainer`` (sgd, momentum 0.9, wd ``SPARSE_WD``,
+    ``lazy_update``), a fresh batch each (``bert_batch`` with
+    ``bert_lengths``). Each step: the row-sparse gradient on the device,
+    its indices the batch's sorted distinct tokens (int32), its rows the
+    dense run's within GRAD_RTOL (every other gradient too at the first
+    step); after the update every other parameter the dense run's within
+    GRAD_RTOL, the table and the momentum against ``_lazy_plain`` within
+    ``LAZY_RTOL``. Then: rows no batch touched
+    bit-equal to their start, ``last_fallback``, each step lowering its
+    batch's loss (a forward after the update), K4-K6 a layer a pass on
+    f32 (the training passes and those forwards), and the device ms of the
+    lazy update beside a dense SGD over the whole table."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, optimizer
+    from incubator_mxnet_tpu_torch.models import MultiHeadAttention
+    from incubator_mxnet_tpu_torch.ndarray import sparse
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    b, t = sizes
+    dev = ctx.torch_device()
+    set_attention_impl(net, "pallas")
+    cells = [m for m in net.modules() if isinstance(m, MultiHeadAttention)]
+    layers, heads = len(cells), cells[0]._heads
+    d = cells[0]._units // heads
+    vocab, units = net.word_embed.weight.shape
+    dense_net = copy.deepcopy(net)
+    emb = gluon.nn.Embedding(vocab, units, sparse_grad=True)
+    emb.weight = net.word_embed.weight
+    net.word_embed = emb
+    table = emb.weight
+    loss_fn = bert_pretrain_loss(gluon.loss.SoftmaxCrossEntropyLoss())
+    kw = {"learning_rate": lr, "momentum": 0.9, "wd": SPARSE_WD,
+          "lazy_update": True}
+    tr = gluon.Trainer(net.collect_params(), "sgd", kw)
+    dtr = gluon.Trainer(dense_net.collect_params(), "sgd", kw)
+    names = [n for n, p in net.collect_params().items()
+             if p.requires_grad and n != "word_embed.weight"]
+    params = dict(net.collect_params())
+    dparams = dict(dense_net.collect_params())
+    slot = tr._param2idx[id(table)]
+    start = table.detach().clone()
+    lens = bert_lengths(seed, b, t)
+    rs = np.random.RandomState(seed + 131)
+    touched = torch.zeros(vocab, dtype=torch.bool, device=dev)
+    losses, after = [], []
+    worst_rows, worst_other, worst_plain = 0.0, (0.0, ""), 0.0
+    worst_grad = (0.0, "")
+    _reset_launches(fa)
+    for step in range(steps):
+        data, labels = bert_batch(rs, b, t, vocab, dev, lens)
+        with mx.autograd.record():
+            loss = loss_fn(*net(*data), *labels)
+        mx.autograd.backward(loss)
+        with mx.autograd.record():
+            dloss = loss_fn(*dense_net(*data), *labels)
+        mx.autograd.backward(dloss)
+        losses.append(float(loss.detach()))
+        g = table.grad
+        if not (g.is_sparse and g.is_cuda == (dev.type == "cuda")):
+            raise AssertionError(f"word_embed's gradient: sparse "
+                                 f"{g.is_sparse} on {g.device}")
+        rsp = sparse.RowSparseNDArray.from_torch(g)
+        ids = torch.unique(data[0].long())
+        if rsp._indices.dtype != torch.int32 \
+                or not torch.equal(rsp._indices.long(), ids):
+            raise AssertionError("word_embed's gradient: its indices are "
+                                 "not the batch's sorted distinct tokens")
+        dense_g = dense_net.word_embed.weight.grad
+        worst_rows = max(worst_rows, _rel_l2(rsp._data, dense_g[ids]))
+        if step == 0:
+            # the same weights and batch: every other gradient the dense
+            # run's (later steps start from weights the two rules moved
+            # apart, and the top layers' query and key gradients in fp32
+            # amplify any difference: ROADMAP.md queue 2, item 6)
+            worst_grad = _worst_grad(
+                "sparse BERT's first step", names,
+                [params[n].grad for n in names],
+                [dparams[n].grad for n in names], GRAD_RTOL)
+        before = table.detach().clone()
+        mom = tr._updater.states.get(slot)
+        mom = torch.zeros_like(before) if mom is None else mom.clone()
+        tr.step(1)
+        dtr.step(1)
+        worst_other = max(worst_other, _worst_grad(
+            f"sparse BERT step {step}'s parameters", names,
+            [params[n] for n in names], [dparams[n] for n in names],
+            GRAD_RTOL))
+        want_table, want_mom = _lazy_plain(before, mom, g.to_dense(), ids,
+                                           lr, SPARSE_WD, 0.9)
+        worst_plain = max(worst_plain, _rel_l2(table, want_table),
+                          _rel_l2(tr._updater.states[slot], want_mom))
+        touched[ids] = True
+        # the step's own batch after its update: a descent step lowers it
+        with torch.no_grad():
+            after.append(float(loss_fn(*net(*data), *labels)))
+    torch.cuda.synchronize()
+    launches, routes = _read_launches(fa), _read_routes(fa)
+    want_routes = training_routes(2 * steps, 0, layers, t, d)
+    want_routes["flash_fwd_" + fwd_route_expected(t, d, torch.float32)] \
+        += layers * steps
+    _check_flash_launches(f"the sparse BERT steps ({2 * steps} passes and "
+                          f"{steps} forwards)", launches, routes,
+                          {"flash_fwd": layers * 3 * steps,
+                           "flash_bwd_dq": layers * 2 * steps,
+                           "flash_bwd_dkv": layers * 2 * steps},
+                          want_routes)
+    untouched = ~touched
+    kept = bool(torch.equal(table.detach()[untouched], start[untouched]))
+    print(f"sparse BERT (fp32, B={b}, T={t}, word_embed "
+          f"Embedding({vocab}, {units}, sparse_grad=True), sgd lr {lr:g} "
+          f"momentum 0.9 wd {SPARSE_WD:g} lazy_update; {card}): losses "
+          f"{[round(v, 4) for v in losses]}, each batch's after its step "
+          f"{[round(v, 4) for v in after]}; row-sparse gradient rows against "
+          f"the dense run's: worst relative L2 {worst_rows:.3e}; every other "
+          f"gradient of the first step {worst_grad[0]:.3e} "
+          f"({worst_grad[1]}), every other parameter after each step "
+          f"{worst_other[0]:.3e} ({worst_other[1]}), tolerance "
+          f"{GRAD_RTOL:g}; table and momentum against the plain lazy rule "
+          f"{worst_plain:.3e} (tolerance {LAZY_RTOL:g}); "
+          f"{int(untouched.sum())} untouched rows bit-equal: {kept}; "
+          f"FusedStep fallback: {tr._fused.last_fallback!r}", flush=True)
+    if not worst_rows <= GRAD_RTOL or not worst_plain <= LAZY_RTOL:
+        raise AssertionError("sparse BERT: the row-sparse gradient or the "
+                             "lazy update differs")
+    if not kept or tr._fused.last_fallback != "row-sparse gradient":
+        raise AssertionError("sparse BERT: an untouched row moved, or the "
+                             "FusedStep did not fall back")
+    if not all(math.isfinite(v) and a < v for v, a in zip(losses, after)):
+        raise AssertionError("sparse BERT: a step did not lower its batch's "
+                             "loss")
+    # the update alone, on copies: the lazy rule against dense SGD over
+    # the whole table (device ms, the mean of 10 calls)
+    sgd = optimizer.create("sgd", learning_rate=lr, momentum=0.9,
+                           wd=SPARSE_WD)
+    w, m = table.detach().clone(), tr._updater.states[slot].clone()
+    dense_grad = g.to_dense()
+    reps = 10
+    lazy_ms = _kernel_ms(lambda: [sgd.update(0, w, g, m)
+                                  for _ in range(reps)]) / reps
+    dense_ms = _kernel_ms(lambda: [sgd.update(1, w, dense_grad, m)
+                                   for _ in range(reps)]) / reps
+    print(f"word_embed's update ({card}): lazy {lazy_ms:.5f} ms over "
+          f"{rsp.nnz} rows, dense SGD over the {vocab}x{units} table "
+          f"{dense_ms:.5f} ms (device time, torch.profiler, mean of {reps})",
+          flush=True)
+    del dense_net, dtr
+    return dict(losses=losses, losses_after=after,
+                grad_rows_worst_rel=worst_rows,
+                grad_worst_rel=worst_grad[0],
+                param_worst_rel=worst_other[0], lazy_worst_rel=worst_plain,
+                untouched_rows=int(untouched.sum()), rows=rsp.nnz,
+                lazy_update_ms=lazy_ms, dense_update_ms=dense_ms,
+                flash_launches=launches, flash_routes=routes)
+
+
+def csr_linear(seed, card, ctx, rows=8192, features=1_000_000,
+               fields=CSR_FIELDS, steps=5, lr=0.1):
+    """(b) of the sparse phase: a LibSVM-style linear classifier (MXNet's
+    ``example/sparse/linear_classification``) on synthetic csr data drawn
+    from ``seed``: ``rows`` rows of ``features`` features, one nonzero
+    (1.0) in each of ``fields`` field blocks, labels from a hidden weight.
+    ``steps`` SGD steps of ``sparse.dot(X, w)`` + bias through
+    ``SigmoidBinaryCrossEntropyLoss`` (summed over the rows; the bias
+    takes the mean gradient), the weight gradient
+    ``sparse.dot(X, dy, transpose_a=True)``: both products each step
+    against ``scipy.sparse`` in float64 within ``CSR_RTOL``, the loss
+    falling; ``X[0:rows // 2]`` and a ``cast_storage`` round trip of 64
+    rows against scipy; the products' device ms beside
+    ``torch.sparse.mm`` on the same csr."""
+    import scipy.sparse as ssp
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, optimizer
+    from incubator_mxnet_tpu_torch.ndarray import NDArray, sparse
+
+    dev = ctx.torch_device()
+    rs = np.random.RandomState(seed + 211)
+    edges = np.linspace(0, features, fields + 1).astype(np.int64)
+    cols = (edges[:-1] + rs.randint(0, np.diff(edges), (rows, fields))
+            ).astype(np.int32).ravel()
+    vals = np.ones(cols.size, np.float32)
+    indptr = np.arange(0, cols.size + 1, fields, dtype=np.int32)
+    host = ssp.csr_matrix((vals, cols, indptr), shape=(rows, features))
+    hidden = rs.randn(features)
+    y = (host @ hidden > 0).astype(np.float32).reshape(rows, 1)
+    X = sparse.csr_matrix((vals, cols, indptr), shape=(rows, features),
+                          ctx=ctx)
+    yt = torch.as_tensor(y, device=dev)
+    w = torch.zeros((features, 1), device=dev)
+    bias = torch.zeros((1,), device=dev)
+    sgd = optimizer.create("sgd", learning_rate=lr)
+    upd = optimizer.get_updater(sgd)
+    loss_fn = gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    losses, worst = [], 0.0
+    for _ in range(steps):
+        prod = sparse.dot(X, NDArray(w)).as_torch()
+        z = (prod + bias).requires_grad_()
+        with mx.autograd.record():
+            loss = loss_fn(z, yt).sum()
+        (dy,) = torch.autograd.grad(loss, z)
+        gw = sparse.dot(X, NDArray(dy), transpose_a=True).as_torch()
+        worst = max(worst,
+                    _rel_l2(prod.cpu().numpy(),
+                            host @ w.double().cpu().numpy()),
+                    _rel_l2(gw.cpu().numpy(),
+                            host.T @ dy.double().cpu().numpy()))
+        losses.append(float(loss.detach()) / rows)
+        upd(0, gw, w)
+        # the bias, which every row shares, steps by the mean gradient; a
+        # weight, which sits in few rows, by the summed one
+        upd(1, dy.mean(0), bias)
+    half = X[0:rows // 2]
+    part = X[64:128]
+    back = part.tostype("default").tostype("csr")
+    for got, want in ((half, host[0:rows // 2]), (back, host[64:128])):
+        want = want.tocsr()
+        for name, ref in (("indptr", want.indptr), ("indices", want.indices),
+                          ("data", want.data)):
+            arr = getattr(got, name).asnumpy()
+            if arr.shape != ref.shape or not np.array_equal(arr, ref):
+                raise AssertionError(f"csr slice/round trip: {name} differs "
+                                     "from scipy's")
+    print(f"csr linear classifier ({rows} rows, {features} features, "
+          f"{fields} nonzeros a row, sgd lr {lr:g}; {card}): losses "
+          f"{[round(v, 5) for v in losses]}; both products against scipy "
+          f"(float64) worst relative L2 {worst:.3e} (tolerance "
+          f"{CSR_RTOL:g}); X[0:{rows // 2}] and a cast_storage round trip "
+          "of 64 rows equal scipy's", flush=True)
+    if not worst <= CSR_RTOL:
+        raise AssertionError("csr linear classifier: a product differs from "
+                             "scipy's")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] \
+            < losses[0]:
+        raise AssertionError("csr linear classifier: the loss did not fall")
+    # device ms: the port's products beside torch.sparse.mm on the same
+    # csr (X^T handed to the library in csr form, built on the host)
+    reps = 10
+    dy = NDArray(dy)
+    lib = torch.sparse_csr_tensor(X._indptr.long(), X._indices.long(),
+                                  X._data, (rows, features),
+                                  check_invariants=False)
+    host_t = host.T.tocsr()
+    lib_t = torch.sparse_csr_tensor(
+        torch.as_tensor(host_t.indptr, dtype=torch.int64, device=dev),
+        torch.as_tensor(host_t.indices, dtype=torch.int64, device=dev),
+        torch.as_tensor(host_t.data, device=dev), (features, rows),
+        check_invariants=False)
+    times = {
+        "dot_ms": lambda: sparse.dot(X, NDArray(w)),
+        "dot_t_ms": lambda: sparse.dot(X, dy, transpose_a=True),
+        "library_dot_ms": lambda: torch.sparse.mm(lib, w),
+        "library_dot_t_ms": lambda: torch.sparse.mm(lib_t, dy.as_torch())}
+    times = {k: _kernel_ms(lambda fn=fn: [fn() for _ in range(reps)]) / reps
+             for k, fn in times.items()}
+    print(f"csr products ({card}; device time, torch.profiler, mean of "
+          f"{reps}): X.w {times['dot_ms']:.5f} ms (torch.sparse.mm "
+          f"{times['library_dot_ms']:.5f}), X^T.dy {times['dot_t_ms']:.5f} ms "
+          f"(torch.sparse.mm {times['library_dot_t_ms']:.5f})", flush=True)
+    return dict(losses=losses, products_worst_rel=worst, rows=rows,
+                features=features, nnz=int(cols.size), **times)
+
+
+def sparse_phase(seed, card, net, ctx, sizes=BERT_SIZES[:2],
+                 csr_rows=8192, csr_features=1_000_000):
+    """The sparse phase: ``sparse_bert`` on ``net``, ``csr_linear`` at
+    ``csr_rows`` x ``csr_features``, then ``sparse_cases_phase``."""
+    import incubator_mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    out = dict(bert=sparse_bert(seed, card, net, ctx, sizes))
+    gc.collect()
+    out["csr"] = csr_linear(seed, card, ctx, csr_rows, csr_features)
+    out["families"] = sparse_cases_phase(mx, ctx)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"sparse phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _entry(name, source, replaces, launches, cases, head_case,
            dtype="fp32"):
     """A kernel's record: its numbers at ``head_case`` in ``dtype``, and
@@ -8176,6 +8993,7 @@ def main(argv=None) -> int:
     # the graph rows), each read in its own windows; the gates and train ->
     # decode stand in launches_by_path alone
     record = {"kernels": []}
+    sparse_bert_routes = bert["sparse"]["bert"]["flash_routes"]
     for route, source, head, dtype in (
             ("simt", "flash_fwd.cu", FWD_HEAD, "fp32"),
             ("f32", "flash_fwd_f32.cu", FWD_HEAD, "fp32"),
@@ -8194,7 +9012,8 @@ def main(argv=None) -> int:
             "registry": registry["fwd_routes"][route],
             "nd": nd["flash_routes"][f"flash_fwd_{route}"],
             "nd1x": bert["nd1x"]["flash_routes"][f"flash_fwd_{route}"],
-            "np": nd["np"]["flash_routes"][f"flash_fwd_{route}"]}
+            "np": nd["np"]["flash_routes"][f"flash_fwd_{route}"],
+            "sparse": sparse_bert_routes[f"flash_fwd_{route}"]}
         main_paths = sum(by_path.values())
         by_path["train_to_decode"] = trained["decode_routes"][route]
         if route == "tc":
@@ -8227,7 +9046,8 @@ def main(argv=None) -> int:
                            + bert_graph + nd["flash_routes"][
                                f"{name}_{route}"]
                            + bert["nd1x"]["flash_routes"][f"{name}_{route}"]
-                           + nd["np"]["flash_routes"][f"{name}_{route}"],
+                           + nd["np"]["flash_routes"][f"{name}_{route}"]
+                           + sparse_bert_routes[f"{name}_{route}"],
                            [r for r in bwd if r["kernel"] == name
                             and r["route"] == route], train_case, dtype)
             head = next(r for r in entry["cases"] if r["case"] == train_case
@@ -8242,7 +9062,8 @@ def main(argv=None) -> int:
                 "bert_graph": bert_graph,
                 "nd": nd["flash_routes"][f"{name}_{route}"],
                 "nd1x": bert["nd1x"]["flash_routes"][f"{name}_{route}"],
-                "np": nd["np"]["flash_routes"][f"{name}_{route}"]}
+                "np": nd["np"]["flash_routes"][f"{name}_{route}"],
+                "sparse": sparse_bert_routes[f"{name}_{route}"]}
             if route == "tc":
                 entry["launches_by_path"]["bf16_gate"] = \
                     trained["gate_launches"][f"{name}_tc"]
@@ -8353,7 +9174,16 @@ def main(argv=None) -> int:
         "nd1x_bert_fp32": {k: bert["nd1x"][k] for k in (
             "step_ms", "pallas_step_ms", "xla_step_ms", "device_ms",
             "pallas_device_ms", "xla_device_ms", "grad_worst_rel",
-            "seconds")}}),
+            "seconds")},
+        "bert_sparse_emb_fp32": {k: bert["sparse"]["bert"][k] for k in (
+            "losses", "losses_after", "rows", "untouched_rows",
+            "grad_rows_worst_rel", "grad_worst_rel", "param_worst_rel",
+            "lazy_worst_rel",
+            "lazy_update_ms", "dense_update_ms")},
+        "csr_linear_1m": {k: bert["sparse"]["csr"][k] for k in (
+            "rows", "features", "nnz", "losses", "products_worst_rel",
+            "dot_ms", "dot_t_ms", "library_dot_ms", "library_dot_t_ms")},
+        "sparse_phase_s": bert["sparse"]["seconds"]}),
         flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

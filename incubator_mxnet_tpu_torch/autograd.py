@@ -26,8 +26,26 @@ NDArrays: ``backward`` and ``grad`` take NDArray heads, head gradients
 and variables. A variable is an NDArray made one by ``attach_grad`` or
 :func:`mark_variables`; ``backward`` writes its gradient into its
 ``grad`` array (``'write'`` replaces, ``'add'`` accumulates, ``'null'``
-skips). :class:`Function` is MXNet's custom differentiable op over
-NDArrays, run as a ``torch.autograd.Function``.
+skips). A head computed under ``record()`` from no input that carries a
+gradient backpropagates nothing and leaves every gradient as it was, as
+in the JAX package. :class:`Function` is MXNet's custom differentiable op
+over NDArrays, run as a ``torch.autograd.Function``.
+
+Row-sparse gradients (reference ``grad_stype="row_sparse"``): a
+cotangent may reach a leaf as a torch sparse COO tensor (the gluon
+``Embedding(sparse_grad=True)``, a :class:`Function` whose ``backward``
+returns a ``RowSparseNDArray``). A gluon parameter keeps it, coalesced,
+as its ``.grad``; an NDArray variable whose buffer is row-sparse
+(``attach_grad(stype="row_sparse")``) takes it as a ``RowSparseNDArray``
+(``'write'`` replaces, ``'add'`` merges the rows), a dense cotangent
+there is cast, and a dense buffer takes a sparse cotangent scattered.
+Sparsity is a leaf's: an interior node receives a dense cotangent.
+``grad`` returns a ``RowSparseNDArray`` for such a variable.
+
+A graph is freed by the backward that walks it, so a second ``backward``
+through it raises (MXNet's words: pass ``retain_graph=True``), where the
+JAX package would compute the same gradient again: holding every graph
+would cost memory on each step.
 """
 
 from __future__ import annotations
@@ -37,15 +55,20 @@ from typing import Optional
 
 import torch
 
-__all__ = ["Function", "backward", "grad", "is_recording", "is_training",
-           "mark_variables", "pause", "predict_mode", "record",
-           "set_recording", "set_training", "train_mode"]
+__all__ = ["Function", "backward", "dense_grads", "grad", "is_recording",
+           "is_training", "mark_recorded", "mark_variables", "pause",
+           "predict_mode", "record", "set_recording", "set_training",
+           "sparse_grads_enabled", "train_mode"]
 
 
 class _TLS(threading.local):
     def __init__(self):
         self.recording = False
         self.training = False
+        # off inside a step engine whose whole step is one traced or
+        # captured body (the JAX package's trace): layers keep their
+        # gradients dense there
+        self.sparse_grads = True
 
 
 _state = _TLS()
@@ -102,6 +125,35 @@ def is_training() -> bool:
     return _state.training
 
 
+def sparse_grads_enabled() -> bool:
+    """Whether a layer may give its weight a row-sparse gradient: under
+    ``record()`` and outside :func:`dense_grads`."""
+    return _state.recording and _state.sparse_grads
+
+
+class dense_grads:
+    """``with autograd.dense_grads():`` every gradient dense (the step
+    engines' bodies, where the JAX package traces the step and its sparse
+    layers take their dense path)."""
+
+    def __enter__(self):
+        self._prev, _state.sparse_grads = _state.sparse_grads, False
+        return self
+
+    def __exit__(self, *exc):
+        _state.sparse_grads = self._prev
+
+
+def mark_recorded(tensors) -> None:
+    """Flag results computed under ``record()`` that torch left off its
+    graph (no input carries a gradient): ``backward`` of such a head
+    backpropagates nothing, where one computed outside ``record()``
+    raises."""
+    for t in tensors:
+        if t.grad_fn is None:
+            t._mx_recorded = True
+
+
 def set_recording(is_record: bool) -> bool:
     prev, _state.recording = _state.recording, bool(is_record)
     torch.set_grad_enabled(bool(is_record))
@@ -152,13 +204,52 @@ def _owner(leaf):
 
 
 def _write_grad(var, g) -> None:
-    """Store gradient ``g`` into NDArray variable ``var`` by its
-    ``grad_req``."""
+    """Store gradient ``g`` (dense or sparse COO) into NDArray variable
+    ``var`` by its ``grad_req``."""
+    from .ndarray.sparse import RowSparseNDArray, _merge_row_sparse
+
     buf = var._grad
     if var._grad_req == "null" or buf is None:
         return
+    if isinstance(buf, RowSparseNDArray):
+        g = RowSparseNDArray.from_torch(g)
+        if var._grad_req == "add":
+            g = _merge_row_sparse(buf, g)
+        # in place: whoever holds the buffer sees the new rows
+        buf._data, buf._indices = g._data.to(buf._data.dtype), g._indices
+        return
+    if g.is_sparse:
+        g = g.to_dense()
     g = g.to(buf._data.dtype)
     buf._data = g if var._grad_req == "write" else buf._data + g
+
+
+_FREED_GRAPH = (
+    "Cannot differentiate node because it is not in a computational graph: "
+    "an earlier backward freed it. If you want to differentiate the same "
+    "graph twice, you need to pass retain_graph=True to backward.")
+
+
+def _run(walk, *args, **kwargs):
+    """``walk`` (torch's backward or grad) with a freed graph reported in
+    MXNet's words."""
+    try:
+        return walk(*args, **kwargs)
+    except RuntimeError as e:
+        if "backward through the graph a second time" in str(e):
+            raise RuntimeError(_FREED_GRAPH) from None
+        raise
+
+
+def _differentiable(heads):
+    """The heads torch can differentiate; a head computed outside
+    ``record()`` raises, one computed under it from no input that carries
+    a gradient is left out (:func:`mark_recorded`)."""
+    for h in heads:
+        if h.grad_fn is None and not getattr(h, "_mx_recorded", False):
+            raise ValueError("cannot differentiate a head that was not "
+                             "computed under autograd.record()")
+    return [h.grad_fn is not None for h in heads]
 
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
@@ -166,27 +257,33 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     NDArray variables the heads depend on. A missing head gradient is
     ones, whatever the head's shape. Parameters with ``grad_req ==
     'write'`` (the default) lose their previous gradient first; ``'add'``
-    accumulates."""
+    accumulates. A parameter's row-sparse gradient is left coalesced."""
     heads = list(heads) if isinstance(heads, (list, tuple)) else [heads]
     heads = [_tensor(h) for h in heads]
-    for h in heads:
-        if h.grad_fn is None:
-            raise ValueError("cannot differentiate a head that was not "
-                             "computed under autograd.record()")
-    variables = []
+    live = _differentiable(heads)
+    grads = [g for g, on in zip(_head_grads(heads, head_grads), live) if on]
+    heads = [h for h, on in zip(heads, live) if on]
+    if not heads:
+        return
+    variables, params = [], []
     for leaf in _leaves(heads):
         var = _owner(leaf)
         if var is not None:
             variables.append((leaf, var))
             leaf.grad = None
-        elif getattr(leaf, "grad_req", "write") == "write":
+            continue
+        params.append(leaf)
+        if getattr(leaf, "grad_req", "write") == "write":
             leaf.grad = None
-    torch.autograd.backward(heads, _head_grads(heads, head_grads),
-                            retain_graph=retain_graph)
+    _run(torch.autograd.backward, heads, grads, retain_graph=retain_graph)
     for leaf, var in variables:
         if leaf.grad is not None:
             _write_grad(var, leaf.grad)
             leaf.grad = None
+    for leaf in params:
+        if leaf.grad is not None and leaf.grad.is_sparse \
+                and not leaf.grad.is_coalesced():
+            leaf.grad = leaf.grad.coalesce()
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -195,8 +292,10 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     without touching ``.grad`` (reference ``autograd.grad``). NDArray
     variables must have a gradient attached (``attach_grad``), as in the
     JAX package, and give NDArray gradients; with ``create_graph`` those
-    are on the tape for a higher-order gradient."""
+    are on the tape for a higher-order gradient; a row-sparse gradient
+    comes back as a ``RowSparseNDArray``."""
     from .ndarray.ndarray import NDArray
+    from .ndarray.sparse import RowSparseNDArray
 
     heads = list(heads) if isinstance(heads, (list, tuple)) else [heads]
     heads = [_tensor(h) for h in heads]
@@ -208,12 +307,13 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                              "attached (call x.attach_grad() before "
                              "recording)")
     leaves = [_tensor(v) for v in variables]
-    out = torch.autograd.grad(heads, leaves, _head_grads(heads, head_grads),
-                              retain_graph=retain_graph,
-                              create_graph=create_graph, allow_unused=True)
+    out = _run(torch.autograd.grad, heads, leaves,
+               _head_grads(heads, head_grads), retain_graph=retain_graph,
+               create_graph=create_graph, allow_unused=True)
     out = [torch.zeros_like(t) if g is None else g
            for g, t in zip(out, leaves)]
-    out = [NDArray(g) if isinstance(v, NDArray) else g
+    out = [g if not isinstance(v, NDArray) else
+           RowSparseNDArray.from_torch(g) if g.is_sparse else NDArray(g)
            for g, v in zip(out, variables)]
     return out[0] if single else out
 
@@ -246,6 +346,7 @@ class _Bridge(torch.autograd.Function):
         outs, saved = body.run_forward(tensors)
         ctx.body = body
         ctx.float_in = [t.is_floating_point() for t in tensors]
+        ctx.leaf_in = [t.grad_fn is None for t in tensors]
         ctx.save_for_backward(*saved)
         ctx.mark_non_differentiable(*[o for o in outs
                                       if not o.is_floating_point()])
@@ -254,8 +355,12 @@ class _Bridge(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         in_grads = ctx.body.run_backward(grads, ctx.saved_tensors)
-        return (None, *[g if f else None
-                        for g, f in zip(in_grads, ctx.float_in)])
+        # a sparse gradient reaches a leaf only: an interior node takes it
+        # dense
+        out = [g if f else None for g, f in zip(in_grads, ctx.float_in)]
+        return (None, *[g.to_dense() if g is not None and g.is_sparse
+                        and not leaf else g
+                        for g, leaf in zip(out, ctx.leaf_in)])
 
 
 class Function:
@@ -263,9 +368,9 @@ class Function:
 
     Subclass and implement ``forward(self, *inputs)`` and
     ``backward(self, *output_grads)`` over NDArrays; ``backward`` returns
-    one gradient per input. Both run with recording off. Under
-    ``record()`` the call is one node of the tape (a
-    ``torch.autograd.Function``)."""
+    one gradient per input (a ``RowSparseNDArray`` is a row-sparse
+    gradient). Both run with recording off. Under ``record()`` the call
+    is one node of the tape (a ``torch.autograd.Function``)."""
 
     def __init__(self):
         self._saved = ()
@@ -303,7 +408,9 @@ class Function:
             in_grads = self.backward(*[NDArray(g) for g in grads])
         if not isinstance(in_grads, (list, tuple)):
             in_grads = [in_grads]
-        return [_tensor(g) for g in in_grads]
+        # an NDArray's tensor, a RowSparseNDArray's sparse COO tensor
+        return [g.as_torch() if hasattr(g, "as_torch") else g
+                for g in in_grads]
 
     def __call__(self, *inputs):
         from .ndarray.ndarray import NDArray

@@ -1,15 +1,16 @@
 """Basic layers of the ported path.
 
 Counterpart of the JAX package's ``gluon/nn/basic_layers.py``: ``Dense``,
-``Activation``, ``Flatten``, ``BatchNorm``, ``Embedding``, ``LayerNorm``,
-``Dropout``, ``Sequential`` and ``HybridSequential``, with the reference's
+``Activation``, ``Flatten``, ``BatchNorm``, ``Embedding`` (with
+``sparse_grad``), ``LayerNorm``, ``GroupNorm``, ``InstanceNorm``,
+``RMSNorm``, ``Dropout``, ``Lambda``, ``HybridLambda``, ``Sequential``
+and ``HybridSequential``, with the reference's
 parameter names, layouts and defaults (Dense weight ``(units,
 in_units)``, BatchNorm ``gamma``/``beta``/``running_mean``/
 ``running_var``; the children of a sequential block are named ``0``,
 ``1``, ..., so their parameters read ``features.4.0.body.0.weight`` as in
-the JAX package). ``Dense`` without ``in_units`` and ``BatchNorm``
-without ``in_channels`` take them from their first input
-(``Block.infer_shape``).
+the JAX package). ``Dense`` without ``in_units`` and the norms without
+``in_channels`` take them from their first input (``Block.infer_shape``).
 """
 
 from __future__ import annotations
@@ -19,11 +20,16 @@ import math
 import torch
 
 from ... import autograd
+from ...ndarray.ndarray import NDArray
+from ...ndarray.sparse import embedding_grad
 from ...ops import nn as F
+from ...ops.registry import get as _get_op
+from ...ops.tensor import wrap_index
 from ..block import Block
 
 __all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "Embedding",
-           "Flatten", "HybridSequential", "LayerNorm", "Sequential"]
+           "Flatten", "GroupNorm", "HybridLambda", "HybridSequential",
+           "InstanceNorm", "Lambda", "LayerNorm", "RMSNorm", "Sequential"]
 
 
 class Sequential(Block):
@@ -162,15 +168,49 @@ class BatchNorm(Block):
         return out
 
 
-class Embedding(Block):
-    """Lookup table (input_dim, output_dim)."""
+class _SparseGradEmbedding(torch.autograd.Function):
+    """The lookup of ``ops.nn.embedding`` whose weight gradient is
+    row-sparse (reference ``_SparseGradEmbedding``): one row a distinct id
+    of the batch, the repeats summed, in ascending order, as a coalesced
+    sparse COO tensor. The padding id -1 counts from the end (row
+    ``input_dim - 1``, the row it reads); an id outside ``[-n, n)`` reads
+    NaN and adds no row."""
 
-    def __init__(self, input_dim, output_dim):
+    @staticmethod
+    def forward(ctx, indices, weight):
+        ctx.save_for_backward(indices)
+        ctx.shape = tuple(weight.shape)
+        return F.embedding(indices, weight)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (indices,) = ctx.saved_tensors
+        ids, outside = wrap_index(indices, ctx.shape[0])
+        return None, embedding_grad(ids, outside, dy, ctx.shape)
+
+
+class Embedding(Block):
+    """Lookup table ``(input_dim, output_dim)`` of ``dtype``, drawn by
+    ``weight_initializer`` (or the global initializer). With
+    ``sparse_grad``, a backward under ``autograd.record()`` leaves the
+    weight a row-sparse gradient (a coalesced sparse COO ``.grad``,
+    ``gluon.Trainer`` and ``optimizer.SGD``'s lazy update read it); inside
+    ``autograd.dense_grads()`` (the step engines' bodies) the gradient is
+    dense, as under the JAX package's trace."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False):
         super().__init__()
-        self._declare("weight", (input_dim, output_dim))
+        self._sparse_grad = sparse_grad
+        self._declare("weight", (input_dim, output_dim),
+                      init=weight_initializer, dtype=dtype)
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        w = self.weight
+        if self._sparse_grad and autograd.sparse_grads_enabled() \
+                and w.requires_grad and w.grad_fn is None:
+            return _SparseGradEmbedding.apply(x, w)
+        return F.embedding(x, w)
 
 
 class LayerNorm(Block):
@@ -186,6 +226,110 @@ class LayerNorm(Block):
 
     def forward(self, x):
         return F.layer_norm(x, self.gamma, self.beta, eps=self._eps)
+
+
+class _Norm(Block):
+    """A norm with ``gamma`` (and ``beta``) of the channel count on
+    ``axis``, taken from the first input when ``in_channels`` is 0."""
+
+    def __init__(self, axis, in_channels, gamma_initializer,
+                 beta_initializer=None):
+        super().__init__()
+        self._axis = axis
+        self._declare("gamma", (in_channels,), init=gamma_initializer)
+        if beta_initializer is not None:
+            self._declare("beta", (in_channels,), init=beta_initializer)
+
+    def infer_shape(self, x, *args):
+        return dict.fromkeys(self._parameters, (x.shape[self._axis],))
+
+
+class GroupNorm(_Norm):
+    """Each sample's channels (axis 1) in ``num_groups`` groups of
+    consecutive channels, each normalized over its channels and spatial
+    axes, then scaled and shifted a channel. ``center`` and ``scale`` are
+    accepted and both parameters train, as in the reference."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__(1, in_channels, gamma_initializer,
+                         beta_initializer)
+        self._num_groups = num_groups
+        self._eps = epsilon
+
+    def forward(self, x):
+        return F.group_norm(x, self.gamma, self.beta,
+                            num_groups=self._num_groups, eps=self._eps)
+
+
+class InstanceNorm(_Norm):
+    """Each (sample, channel) normalized over its spatial axes (channels
+    on axis 1; ``axis``, ``center`` and ``scale`` are accepted, as the
+    reference accepts them)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__(1, in_channels, gamma_initializer,
+                         beta_initializer)
+        self._eps = epsilon
+
+    def forward(self, x):
+        return F.instance_norm(x, self.gamma, self.beta, eps=self._eps)
+
+
+class RMSNorm(_Norm):
+    """``x / sqrt(mean(x**2 over axis) + eps) * gamma``."""
+
+    def __init__(self, axis=-1, epsilon=1e-6, gamma_initializer="ones",
+                 in_channels=0):
+        super().__init__(axis, in_channels, gamma_initializer)
+        self._eps = epsilon
+
+    def forward(self, x):
+        return F.rms_norm(x, self.gamma, axis=self._axis, eps=self._eps)
+
+
+def _op_function(name):
+    """``mx.nd.<name>`` for NDArrays, the registered op's function for
+    tensors (a block on tensors returns tensors)."""
+    from ... import ndarray as nd
+
+    opdef = _get_op(name)
+    if opdef is None:
+        raise ValueError(f"Lambda: no op named {name!r}")
+    on_nd = getattr(nd, name, None) or (
+        lambda *a, **k: nd.invoke_op(name, *a, **k))
+
+    def call(*args, **kwargs):
+        if any(isinstance(a, NDArray) for a in args):
+            return on_nd(*args, **kwargs)
+        return opdef.fn(*args, **kwargs)
+
+    return call
+
+
+class Lambda(Block):
+    """A function as a block (reference ``nn.Lambda``): ``function`` is a
+    callable or the name of an ``mx.nd`` op. It gets the block's
+    arguments as they are (NDArrays or tensors)."""
+
+    def __init__(self, function):
+        super().__init__()
+        self._func = _op_function(function) if isinstance(function, str) \
+            else function
+
+    def __call__(self, *args, **kwargs):
+        return self._func(*args, **kwargs)
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(Lambda):
+    """Reference ``nn.HybridLambda``: the same block here, since the port
+    runs eagerly."""
 
 
 class Dropout(Block):

@@ -1,23 +1,29 @@
 """Convolution and pooling layers.
 
 Counterpart of the JAX package's ``gluon/nn/conv_layers.py``: ``Conv1D``,
-``Conv2D``, ``Conv3D`` and the max, average and global pools of 1-3
-spatial axes, over ``ops.nn.convolution`` and ``ops.nn.pooling`` (cuDNN
-on the card; the JAX package leaves them to XLA, outside its Pallas
-kernels). Layout NC + spatial axes, weight ``(channels, in_channels /
-groups, *kernel)``, as the reference's. ``in_channels=0`` takes
-``x.shape[1]`` from the first input (``Block.infer_shape``).
+``Conv2D``, ``Conv3D``, ``Conv1DTranspose``, ``Conv2DTranspose``, the
+max, average and global pools of 1-3 spatial axes and
+``ReflectionPad2D``, over ``ops.nn.convolution``, ``ops.nn.deconvolution``
+and ``ops.nn.pooling`` (cuDNN on the card; the JAX package leaves them to
+XLA, outside its Pallas kernels). Layout NC + spatial axes, weight
+``(channels, in_channels / groups, *kernel)`` (a transposed convolution's
+``(in_channels, channels / groups, *kernel)``), as the reference's.
+``in_channels=0`` takes ``x.shape[1]`` from the first input
+(``Block.infer_shape``).
 """
 
 from __future__ import annotations
 
+import torch.nn.functional as TF
+
 from ...ops import nn as F
 from ..block import Block
 
-__all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "Conv1D", "Conv2D",
-           "Conv3D", "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
+__all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "Conv1D",
+           "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D",
+           "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
            "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
-           "MaxPool1D", "MaxPool2D", "MaxPool3D"]
+           "MaxPool1D", "MaxPool2D", "MaxPool3D", "ReflectionPad2D"]
 
 
 class _Conv(Block):
@@ -77,6 +83,71 @@ class Conv3D(_Conv):
                  layout="NCDHW", **kwargs):
         super().__init__(channels, kernel_size, strides, padding, dilation,
                          groups, layout, ndim=3, **kwargs)
+
+
+class _ConvTranspose(Block):
+    """Transposed convolution of ``ndim`` spatial axes
+    (``ops.nn.deconvolution``): each output axis is ``(n - 1) * stride +
+    dilation * (k - 1) + 1 - 2 * padding + output_padding``."""
+
+    def __init__(self, channels, kernel_size, strides, padding,
+                 output_padding, dilation, groups, in_channels=0,
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", ndim=2):
+        super().__init__()
+        self._channels = channels
+        self._kernel = F._ntuple(kernel_size, ndim)
+        self._strides = F._ntuple(strides, ndim)
+        self._padding = F._ntuple(padding, ndim)
+        self._out_padding = F._ntuple(output_padding, ndim)
+        self._dilation = F._ntuple(dilation, ndim)
+        self._groups = groups
+        self._act = activation
+        self._declare("weight", (in_channels, channels // groups)
+                      + self._kernel, init=weight_initializer)
+        if use_bias:
+            self._declare("bias", (channels,), init=bias_initializer)
+        else:
+            self.register_parameter("bias", None)
+
+    def infer_shape(self, x, *args):
+        return {"weight": (x.shape[1], self._channels // self._groups)
+                + self._kernel}
+
+    def forward(self, x):
+        out = F.deconvolution(x, self.weight, self.bias,
+                              stride=self._strides, pad=self._padding,
+                              adj=self._out_padding, dilate=self._dilation,
+                              num_group=self._groups)
+        return out if self._act is None else F.activation(out, self._act)
+
+
+class Conv1DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, **kwargs):
+        super().__init__(channels, kernel_size, strides, padding,
+                         output_padding, dilation, groups, ndim=1, **kwargs)
+
+
+class Conv2DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1, **kwargs):
+        super().__init__(channels, kernel_size, strides, padding,
+                         output_padding, dilation, groups, ndim=2, **kwargs)
+
+
+class ReflectionPad2D(Block):
+    """The two spatial axes of NCHW padded by ``padding`` (an int or
+    ``(h, w)``) on both sides, mirrored about the edge (numpy's
+    ``"reflect"``)."""
+
+    def __init__(self, padding=0):
+        super().__init__()
+        self._padding = F._ntuple(padding, 2)
+
+    def forward(self, x):
+        ph, pw = self._padding
+        return TF.pad(x, (pw, pw, ph, ph), mode="reflect")
 
 
 class _Pool(Block):

@@ -86,8 +86,9 @@ class FusedStep:
     dtype): the rescale, clip and rule of every parameter in a handful of
     multi-tensor launches, with ``lr``/``wd``/``t``/the rescale as device
     scalars. ``run`` returns False (and names why in ``last_fallback``)
-    when the rule has no functional core; the trainer then takes the
-    per-parameter path."""
+    when the rule has no functional core or a gradient is row-sparse; the
+    trainer then takes the per-parameter path (SGD's lazy row update, the
+    other rules densifying)."""
 
     def __init__(self, trainer: "Trainer"):
         self._trainer = trainer
@@ -106,9 +107,11 @@ class FusedStep:
             return self._fallback("optimizer has no functional core")
         if not todo:
             return True
+        params = tr._params
+        if any(params[i].grad.is_sparse for i in todo):
+            return self._fallback("row-sparse gradient")
         from ..parallel import superstep
 
-        params = tr._params
         for i in todo:
             opt._update_count(i)
             if i not in upd.states:
@@ -295,7 +298,7 @@ class SuperStep:
                 for j, pos in enumerate(groups.values())]
 
         def body(i):
-            with autograd.record():
+            with autograd.record(), autograd.dense_grads():
                 out = self._net(*superstep.slice_window(data, i))
                 outs = out if isinstance(out, tuple) else (out,)
                 loss = self._loss_fn(

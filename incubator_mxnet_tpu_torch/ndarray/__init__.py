@@ -8,9 +8,9 @@ port has: wrappers generated from the op registry (``ops/tensor.py``,
 ``flash_attention``/``fused_conv_bn``), every call through :func:`invoke`,
 so autograd recording and the naive engine's sync apply alike. The
 submodules ``mx.nd.random`` (the samplers, drawing on ``ctx=``),
-``mx.nd.image``, ``mx.nd.contrib`` and ``mx.nd.linalg`` hold the names
-the reference puts there; the update ops write back with the reference's
-in-place rule.
+``mx.nd.image``, ``mx.nd.contrib``, ``mx.nd.linalg`` and ``mx.nd.sparse``
+(row_sparse and csr storage) hold the names the reference puts there;
+the update ops write back with the reference's in-place rule.
 ``mx.nd.flash_attention`` launches the flash kernels on a CUDA array;
 ``invoke_op("fused_conv_bn", ...)`` the conv kernels; ``mx.nd.Custom``
 runs a registered ``mx.operator`` op. The MXNet 1.x spellings the
@@ -37,6 +37,9 @@ from ..ops import registry as _registry
 from ..ops import tensor as _tensor  # noqa: F401
 from .ndarray import (NDArray, arange, array, as_nd, empty, eye, full,
                       invoke, invoke_op, load, ones, save, waitall, zeros)
+from . import sparse
+from .sparse import (BaseSparseNDArray, CSRNDArray, RowSparseNDArray,
+                     cast_storage)
 
 _this = _sys.modules[__name__]
 
@@ -510,6 +513,8 @@ __all__ = ["BatchNorm", "BatchNorm_v1", "BlockGrad", "Cast", "Concat",
            "mp_sgd_mom_update", "nag_mom_update", "adam_update",
            "adamw_update", "rmsprop_update", "rmspropalex_update",
            "ftrl_update", "signsgd_update", "signum_update", "ftml_update",
-           "mp_nag_mom_update", "linalg"] + _UNARY + _BINARY + _TERNARY \
+           "mp_nag_mom_update", "linalg", "sparse", "cast_storage",
+           "BaseSparseNDArray", "CSRNDArray", "RowSparseNDArray"] \
+    + _UNARY + _BINARY + _TERNARY \
     + _VARIADIC + [n for n, _ in _MORE] + _MORE_VARIADIC \
     + [f"linalg_{n}" for n in _LINALG]

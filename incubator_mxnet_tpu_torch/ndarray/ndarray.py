@@ -27,8 +27,9 @@ handle's ``grad`` array with MXNet's ``write``/``add`` semantics. Ops
 record only under ``autograd.record()`` (torch's grad mode follows
 MXNet's recording flag inside :func:`invoke`).
 
-Not ported: the capture scope and ``GraphRecorder`` (hybridize, export,
-control flow), the AMP hook and sparse storage.
+Sparse storage (``tostype``, ``attach_grad(stype="row_sparse")``) is in
+``ndarray/sparse.py``. Not ported: the capture scope and
+``GraphRecorder`` (hybridize, export, control flow) and the AMP hook.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from ..base import numpy_dtype, resolve_dtype
 from ..config import is_naive_engine
 from ..device import Context, resolve
 from ..ops.registry import get as get_op
-from ..ops.tensor import _index_along
+from ..ops.tensor import _index_along, cast, int_division
 
 __all__ = ["NDArray", "arange", "array", "as_nd", "empty", "eye", "full",
            "invoke", "invoke_op", "load", "ones", "ones_like", "save",
@@ -122,10 +123,13 @@ def invoke(fn, inputs: Sequence, kwargs: Optional[dict] = None,
 
         kw["rng"] = _random.generator(
             _context_of(in_data[0]) if in_data else ctx)
-    with torch.set_grad_enabled(autograd.is_recording() and differentiable):
+    recording = autograd.is_recording() and differentiable
+    with torch.set_grad_enabled(recording):
         out = fn(*in_data, **kw)
         single = not isinstance(out, (tuple, list))
         outs = [_own(o, in_data) for o in ([out] if single else out)]
+    if recording:
+        autograd.mark_recorded(outs)
     if is_naive_engine():
         _sync(outs)
     nds = [NDArray(o) for o in outs]
@@ -172,6 +176,10 @@ _SCALAR_OPS = {
     ("gt", False): "_greater_scalar", ("ge", False): "_greater_equal_scalar",
     ("lt", False): "_lesser_scalar", ("le", False): "_lesser_equal_scalar",
 }
+
+
+def _remainder(a, b):
+    return int_division(torch.remainder, a, b)
 
 
 class NDArray:
@@ -312,13 +320,21 @@ class NDArray:
     def attach_grad(self, grad_req: str = "write", stype=None) -> None:
         """Allocate a zero gradient buffer and make this array a variable
         (reference ``NDArray.attach_grad``); ``grad_req`` is ``"write"``,
-        ``"add"`` or ``"null"``."""
-        if stype not in (None, "default"):
-            raise NotImplementedError(f"grad stype {stype!r}: sparse "
-                                      "storage is not ported")
+        ``"add"`` or ``"null"``. ``stype="row_sparse"`` makes the buffer an
+        empty ``RowSparseNDArray``: ``backward`` stores a row-sparse
+        gradient there."""
+        if stype not in (None, "default", "row_sparse"):
+            raise ValueError(f"grad stype {stype!r}: 'default' or "
+                             "'row_sparse'")
         if grad_req not in ("write", "add", "null"):
             raise ValueError(f"grad_req {grad_req!r}")
-        self._grad = NDArray(torch.zeros_like(self._data.detach()))
+        if stype == "row_sparse":
+            from . import sparse
+
+            self._grad = sparse.zeros("row_sparse", self.shape, ctx=self.ctx,
+                                      dtype=self._data.dtype)
+        else:
+            self._grad = NDArray(torch.zeros_like(self._data.detach()))
         self._grad_req = grad_req
         self._make_variable()
 
@@ -333,10 +349,12 @@ class NDArray:
 
     # -- conversion / placement -------------------------------------------
     def astype(self, dtype, copy: bool = True) -> "NDArray":
+        """This array in ``dtype``, by ``cast``'s rule: a float into an
+        integer type saturates (NaN to 0), as the JAX package's."""
         dt = _narrow_x32(resolve_dtype(dtype))
         if not copy and self._data.dtype == dt:
             return self
-        return invoke(lambda x: x.to(dt), [self], name="astype")
+        return invoke(lambda x: cast(x, dt), [self], name="astype")
 
     def copyto(self, other) -> "NDArray":
         """Copy into another NDArray (in place) or onto a Context."""
@@ -469,10 +487,10 @@ class NDArray:
         return self._binop(other, torch.true_divide, "rdiv", reverse=True)
 
     def __mod__(self, other):
-        return self._binop(other, torch.remainder, "mod")
+        return self._binop(other, _remainder, "mod")
 
     def __rmod__(self, other):
-        return self._binop(other, torch.remainder, "rmod", reverse=True)
+        return self._binop(other, _remainder, "rmod", reverse=True)
 
     def __pow__(self, other):
         return self._binop(other, torch.pow, "pow")
@@ -598,10 +616,10 @@ class NDArray:
                    off_value=off_value)
 
     def tostype(self, stype: str):
-        if stype == "default":
-            return self
-        raise NotImplementedError(f"stype {stype!r}: sparse storage is not "
-                                  "ported")
+        """This array in storage ``stype`` (``sparse.cast_storage``)."""
+        from . import sparse
+
+        return sparse.cast_storage(self, stype)
 
     # numpy-protocol interop
     def __array__(self, dtype=None, copy=None):

@@ -36,7 +36,8 @@ import torch.nn.functional as F
 
 from ..base import MXTPUError
 from .registry import register
-from .tensor import _axes, _int_acc_dtype, take_along, wrap_index
+from .tensor import (_axes, _int_acc_dtype, floor_divide_at_zero,
+                     int_division, take_along, wrap_index)
 
 
 def _promote(*ts):
@@ -107,7 +108,7 @@ def float_power(a, b):
 
 @register("fmod")
 def fmod(a, b):
-    return torch.fmod(*_promote(a, b))
+    return int_division(torch.fmod, *_promote(a, b))
 
 
 @register("nextafter")
@@ -148,7 +149,7 @@ class _FloorDivide(torch.autograd.Function):
 def floor_divide(a, b):
     a, b = _promote(a, b)
     if not a.is_floating_point():
-        return torch.floor_divide(a, b)
+        return int_division(torch.floor_divide, a, b, floor_divide_at_zero)
     return _FloorDivide.apply(a, b)
 
 

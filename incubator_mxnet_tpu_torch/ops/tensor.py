@@ -59,10 +59,36 @@ def minimum(a, b):
     return torch.minimum(a, b)
 
 
+def int_division(fn, a, b, at_zero=None):
+    """``fn(a, b)`` (``torch.remainder``, ``torch.fmod`` or
+    ``torch.floor_divide``; either operand may be a Python number) with
+    the JAX package's answer where an integer divisor is 0: ``at_zero(a)``,
+    or 0. Torch raises there on the CPU and the card's integer division
+    gives undefined bits, so the division never sees a zero: it runs on a
+    divisor made safe, and a select writes the answer at the zeros."""
+    kind = torch.result_type(a, b)
+    if kind.is_floating_point or kind.is_complex or kind == torch.bool:
+        return fn(a, b)
+    dev = next(t.device for t in (a, b) if isinstance(t, torch.Tensor))
+    a, b = (torch.as_tensor(t, device=dev) for t in (a, b))
+    zero = b == 0
+    out = fn(a, torch.where(zero, torch.ones_like(b), b))
+    fill = torch.zeros_like(out) if at_zero is None else at_zero(a).to(
+        out.dtype)
+    return torch.where(zero, fill, out)
+
+
+def floor_divide_at_zero(a):
+    """jnp's ``floor_divide(a, 0)`` for integers: XLA's quotient, all ones
+    (-1), less one where ``a`` is nonzero (its remainder ``a`` is nonzero
+    and its sign differs from 0's)."""
+    return torch.zeros_like(a).bitwise_not() - (a != 0).to(a.dtype)
+
+
 @register("broadcast_mod", aliases=("mod",))
 def mod(a, b):
     # Python/numpy semantics: the result takes the divisor's sign
-    return torch.remainder(a, b)
+    return int_division(torch.remainder, a, b)
 
 
 @register("broadcast_hypot")
@@ -778,12 +804,17 @@ def topk(x, k=1, axis=-1, ret_typ="indices", is_ascend=False,
 
 
 # -- casting -----------------------------------------------------------------
+#: the JAX package runs x32: a 64-bit integer type is its 32-bit type
+_X32_INTS = {torch.int64: torch.int32, torch.uint64: torch.uint32}
+
+
 @register("cast", aliases=("Cast",))
 def cast(x, dtype=torch.float32):
     """``x`` in ``dtype``. Floats into an integer type saturate, as the
     reference's ``jnp.asarray`` does: truncated toward zero, clamped to the
-    type's range (+-inf to its ends), NaN to 0."""
-    dtype = resolve_dtype(dtype)
+    type's range (+-inf to its ends), NaN to 0. A 64-bit integer type
+    narrows first (x32), so a float saturates at the 32-bit type's ends."""
+    dtype = _X32_INTS.get(resolve_dtype(dtype), resolve_dtype(dtype))
     if not x.is_floating_point() or dtype.is_floating_point \
             or dtype.is_complex or dtype == torch.bool:
         return x.to(dtype)
@@ -841,12 +872,12 @@ def _rpower_scalar(x, scalar=1.0):
 
 @register("_mod_scalar", aliases=("mod_scalar",))
 def _mod_scalar(x, scalar=1.0):
-    return torch.remainder(x, scalar)
+    return int_division(torch.remainder, x, scalar)
 
 
 @register("_rmod_scalar", aliases=("rmod_scalar",))
 def _rmod_scalar(x, scalar=1.0):
-    return torch.remainder(scalar, x)
+    return int_division(torch.remainder, scalar, x)
 
 
 @register("_maximum_scalar", aliases=("maximum_scalar",))

@@ -3,11 +3,16 @@
 Counterpart of the JAX package's ``optimizer/optimizer.py``: ``register``
 and ``create``, the ``Optimizer`` base (``rescale_grad``, ``wd``,
 ``clip_gradient``, an ``lr_scheduler``, lr/wd multipliers, per-index update
-counts), the rules ``SGD``, ``NAG``, ``Adam`` and ``AdamW`` (dense
-gradients), and ``Updater``. Each rule is written once, as its functional
-core ``update_fn``: it updates a list of weights and their states in place
-(the weight is a parameter: updating it in place keeps every reference to
-it, and saves a copy of the model per step) with the ``torch._foreach_*``
+counts), the rules ``SGD``, ``NAG``, ``Adam`` and ``AdamW``, and
+``Updater``. A row-sparse gradient (a sparse COO tensor, as a gluon
+``Embedding(sparse_grad=True)`` leaves it) takes SGD's lazy update, which
+moves only the rows it holds; every other rule, and SGD with
+``lazy_update=False``, densifies it first, as the JAX package's
+``update_multi_precision`` does. Each rule is written once, as its
+functional core ``update_fn``: it updates a list of weights and their
+states in place (the weight is a parameter: updating it in place keeps
+every reference to it, and saves a copy of the model per step) with the
+``torch._foreach_*``
 multi-tensor ops (a handful of launches for every parameter of a model),
 and takes ``lr``, ``wd`` and ``t`` as device scalars, so that a CUDA graph
 that captured it reads their values at each replay (``gluon.Trainer``'s
@@ -15,8 +20,8 @@ FusedStep and SuperStep). ``update`` (the ``Updater``'s one parameter at
 a time) is the same core over a list of one.
 
 The other rules of the JAX package (AdaGrad, AdaDelta, RMSProp, Ftrl,
-LAMB, Signum, SGLD, DCASGD, LARS), sparse gradients and multi-precision
-master weights are not ported yet.
+LAMB, Signum, SGLD, DCASGD, LARS) and multi-precision master weights are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -196,9 +201,11 @@ class Optimizer:
         this one parameter, with its rescale, lr, wd and update count as
         device scalars (as FusedStep gives them); returns the state. A
         rule of a user's that cannot be fused (``_has_fused_core`` False)
-        overrides this."""
+        overrides this. A row-sparse ``grad`` is densified first."""
         from ..parallel.superstep import device_scalars
 
+        if grad.is_sparse:
+            grad = grad.to_dense()
         self._update_count(index)
         lr, wd, t, rescale = device_scalars(
             (self._get_lr(index), self._get_wd(index),
@@ -212,13 +219,42 @@ class Optimizer:
 @register
 class SGD(Optimizer):
     """SGD with momentum: ``m = momentum*m - lr*(g + wd*w); w += m``.
-    ``lazy_update`` (kept, default True as in MXNet) chooses how a sparse
-    gradient updates; a dense gradient updates the same either way."""
+    ``lazy_update`` (default True, as in MXNet) chooses how a row-sparse
+    gradient updates: lazily, only the rows it holds (their weight decay,
+    clipping and momentum; an untouched row's momentum does not decay),
+    or densified; a dense gradient updates the same either way."""
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
         self.lazy_update = lazy_update
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        if grad.is_sparse and self.lazy_update:
+            return self._update_rows(index, weight, grad, state)
+        return super().update(index, weight, grad, state)
+
+    def _update_rows(self, index, weight, grad, state):
+        """The lazy rule over the rows of a sparse COO ``grad`` (reference
+        ``sgd_update``/``sgd_mom_update`` on row_sparse with
+        ``lazy_update``), in place."""
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = grad.coalesce()
+        idx = grad.indices()[0]
+        w = weight.index_select(0, idx)
+        g = grad.values().to(weight.dtype) * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        g = g + wd * w
+        if state is None:
+            weight.index_copy_(0, idx, w - lr * g)
+            return state
+        m = self.momentum * state.index_select(0, idx) - lr * g
+        weight.index_copy_(0, idx, w + m)
+        state.index_copy_(0, idx, m)
+        return state
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -341,7 +377,11 @@ class Updater:
         self.optimizer = optimizer
         self.states: Dict[Any, Any] = {}
 
-    def __call__(self, index, grad: torch.Tensor, weight: torch.Tensor):
+    def __call__(self, index, grad, weight):
+        """Update ``weight`` in place by ``grad``: tensors, or an NDArray
+        weight and an NDArray or ``RowSparseNDArray`` gradient."""
+        grad, weight = (x.as_torch() if hasattr(x, "as_torch") else x
+                        for x in (grad, weight))
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
         self.states[index] = self.optimizer.update(index, weight, grad,

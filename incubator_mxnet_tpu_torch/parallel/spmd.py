@@ -130,11 +130,12 @@ def collect_params(block) -> "OrderedDict[str, torch.nn.Parameter]":
 def make_functional_loss(net, loss_fn) -> Callable:
     """``loss_of(param_values, data, labels) -> fp32 mean loss``: runs
     ``net`` on the given parameter values (name -> tensor) under
-    ``autograd.record()`` (recording, training mode: dropout on) and
-    reduces ``loss_fn(*outputs, *labels)`` to its mean in fp32."""
+    ``autograd.record()`` (recording, training mode: dropout on; every
+    gradient dense, as under the JAX trainer's trace) and reduces
+    ``loss_fn(*outputs, *labels)`` to its mean in fp32."""
 
     def loss_of(values: Dict[str, torch.Tensor], data, labels):
-        with autograd.record():
+        with autograd.record(), autograd.dense_grads():
             out = functional_call(net, values, tuple(data))
             outs = out if isinstance(out, tuple) else (out,)
             loss = loss_fn(*outs, *labels)

@@ -11,7 +11,10 @@ their statistics, never by their draws (JAX threefry and numpy differ).
 Tolerances (relative L2 error, fp32 on both sides; the two differ only in
 the order of sums): ``RTOL`` 1e-5 for convolutions, dense layers,
 BatchNorm and the pools' gradients; max pooling's outputs are equal;
-average pooling ``RTOL``.
+average pooling ``RTOL``. The same for the layers of slice 21: the
+activation blocks, ``Lambda``/``HybridLambda``, ``GroupNorm``,
+``InstanceNorm``, ``RMSNorm``, the transposed convolutions and
+``ReflectionPad2D``.
 """
 
 import math
@@ -547,3 +550,55 @@ def test_trainer_refuses_what_waits_for_multi_gpu():
         with pytest.raises(NotImplementedError, match="Multi-GPU"):
             gluon.Trainer(net.collect_params(), "sgd", **kw)
     gluon.Trainer(net.collect_params(), "sgd", update_on_kvstore=False)
+
+
+# ---------------------------------------------------------------------------
+# slice 21: activation blocks, lambdas, norms, transposed convolutions,
+# reflection padding
+# ---------------------------------------------------------------------------
+LAYER21_CASES = {
+    "LeakyReLU": (dict(alpha=0.1), (3, 7)),
+    "PReLU": (dict(in_channels=3), (2, 3, 4, 4)),
+    "ELU": (dict(alpha=0.5), (3, 7)),
+    "SELU": (dict(), (3, 7)),
+    "GELU": (dict(), (3, 7)),
+    "GELU_erf": (dict(approximate=False), (3, 7)),
+    "SiLU": (dict(), (3, 7)),
+    "Lambda": (dict(function="tanh"), (3, 4)),
+    "HybridLambda": (dict(function="relu"), (3, 4)),
+    "GroupNorm": (dict(num_groups=2), (2, 4, 3, 3)),
+    "InstanceNorm": (dict(), (2, 3, 4, 4)),
+    "RMSNorm": (dict(epsilon=1e-5), (2, 5, 6)),
+    "Conv1DTranspose": (dict(channels=4, kernel_size=3, strides=2,
+                             padding=1, output_padding=1, use_bias=False,
+                             in_channels=3), (2, 3, 7)),
+    "Conv2DTranspose": (dict(channels=6, kernel_size=3, strides=(2, 1),
+                             padding=(1, 0), output_padding=(1, 0),
+                             dilation=(1, 2), groups=2, activation="relu"),
+                        (2, 4, 5, 5)),
+    "ReflectionPad2D": (dict(padding=(1, 2)), (2, 3, 5, 6)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LAYER21_CASES))
+def test_slice21_layer_matches_jax(name):
+    """Output, input gradient and parameter gradients after
+    ``load_jax_params`` carried the JAX layer's parameters across."""
+    kw, shape = LAYER21_CASES[name]
+    cls = name.split("_")[0]
+    jnet, net = getattr(jnn, cls)(**kw), getattr(nn, cls)(**kw)
+    x = np.random.RandomState(21).randn(*shape).astype(np.float32)
+    got, want = _compare(jnet, net, x, train=True)
+    assert sorted(got["values"]) == sorted(want["values"])
+
+
+def test_lambda_takes_a_function_and_passes_ndarrays_through():
+    x = np.random.RandomState(22).randn(2, 3).astype(np.float32)
+    _compare(jnn.Lambda(lambda a: a * 2 + 1), nn.Lambda(lambda a: a * 2 + 1),
+             x)
+    with mx.cpu():
+        out = nn.Lambda("relu")(mx.nd.array(x))
+    assert isinstance(out, mx.nd.NDArray)
+    np.testing.assert_array_equal(out.asnumpy(), np.maximum(x, 0))
+    with pytest.raises(ValueError, match="no op named"):
+        nn.Lambda("no_such_op")

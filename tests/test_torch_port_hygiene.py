@@ -107,7 +107,10 @@ def test_sources_import_no_jax_and_no_jax_package():
                  "serving/registry.py", "serving/artifacts.py",
                  "ops/numpy_ops.py", "ops/fft_ops.py", "ops/linalg.py",
                  "numpy/__init__.py", "numpy/linalg.py", "numpy/fft.py",
-                 "numpy/random.py", "numpy_extension/__init__.py"):
+                 "numpy/random.py", "numpy_extension/__init__.py",
+                 "ndarray/sparse.py", "gluon/nn/activations.py",
+                 "gluon/loss.py", "optimizer/optimizer.py",
+                 "gluon/trainer.py", "autograd.py"):
         assert PKG / name in files, name
     for f in files + [ROOT / "chip_smoke.py"]:
         for mod in _imported_modules(f):
@@ -137,6 +140,23 @@ def test_numpy_ops_never_copy_an_operand_to_the_host():
                                               "item", "asarray"), \
                     f"{name}:{node.lineno}: .{node.func.attr}()"
         assert "numpy" not in set(_imported_modules(PKG / name)), name
+
+
+def test_sparse_storage_never_copies_an_operand_to_the_host():
+    """``ndarray/sparse.py`` keeps data, indices and indptr on the
+    operand's device: no ``.cpu()``, ``.numpy()``, ``.tolist()`` or
+    ``.item()`` on a tensor, no ``np.asarray``/``np.array`` (the module
+    does not import numpy); the sizes that depend on the data come from
+    device ops (``torch.unique``, boolean masks)."""
+    name = "ndarray/sparse.py"
+    tree = ast.parse((PKG / name).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func,
+                                                     ast.Attribute):
+            assert node.func.attr not in ("numpy", "cpu", "tolist", "item",
+                                          "asarray", "array"), \
+                f"{name}:{node.lineno}: .{node.func.attr}()"
+    assert "numpy" not in set(_imported_modules(PKG / name))
 
 
 def test_default_device_is_the_card_never_a_silent_cpu():
@@ -992,6 +1012,64 @@ def test_chip_smoke_nd_1x_phase_rehearses_on_the_cpu(monkeypatch):
     assert all(z <= 5.0 for *_, z in out["samplers"].values())
     assert all(out[k] > 0 for k in ("step_ms", "pallas_step_ms",
                                     "xla_step_ms"))
+
+
+def test_chip_smoke_sparse_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.sparse_phase`` on a small BERT (2 layers, 2 heads of
+    32, vocab 1000) and a csr of 4096 features on the CPU (the plain
+    versions run, so no launch is counted): the row-sparse word
+    embedding's gradient against the dense run's, the lazy update against
+    its plain version, untouched rows, the fallback and each step's
+    descent; the csr
+    classifier's products against scipy; every case of ``SPARSE_CASES``,
+    ``LAYER_CASES``, ``LOSS_CASES`` and ``REPAIR_CASES`` (here the CPU
+    against itself)."""
+    from incubator_mxnet_tpu_torch.models import get_bert
+
+    cs = _chip_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    windows = []
+    monkeypatch.setattr(cs, "_check_flash_launches",
+                        lambda label, got, routes, want, want_routes:
+                        windows.append((got, want, {k: v for k, v in
+                                                    want_routes.items()
+                                                    if v})))
+    mx.random.seed(0)
+    net = get_bert("bert_12_768_12", vocab_size=1000, units=64,
+                   hidden_size=128, num_layers=2, num_heads=2,
+                   max_length=64, dropout=0.0,
+                   attention_impl="pallas").initialize("xavier",
+                                                       ctx=mx.cpu())
+    out = cs.sparse_phase(0, "cpu", net, mx.cpu(), sizes=(4, 24),
+                          csr_rows=512, csr_features=4096)
+    bert = out["bert"]
+    assert bert["grad_rows_worst_rel"] <= cs.GRAD_RTOL
+    assert bert["grad_worst_rel"] <= cs.GRAD_RTOL
+    assert bert["param_worst_rel"] <= cs.GRAD_RTOL
+    assert bert["lazy_worst_rel"] <= cs.LAZY_RTOL
+    assert 0 < bert["untouched_rows"] < 1000
+    assert all(a < v for v, a in zip(bert["losses"], bert["losses_after"]))
+    # on the CPU no kernel launches: every count 0, against a launch of
+    # K4, K5 and K6 a layer a pass on f32 (6 passes and 3 forwards)
+    routes = cs.training_routes(6, 0, layers=2, t=24, d=32)
+    routes["flash_fwd_" + cs.fwd_route_expected(24, 32, torch.float32)] += 6
+    assert windows == [(dict.fromkeys(cs.COUNTERS, 0),
+                        {"flash_fwd": 18, "flash_bwd_dq": 12,
+                         "flash_bwd_dkv": 12},
+                        {k: v for k, v in routes.items() if v})]
+    csr = out["csr"]
+    assert csr["products_worst_rel"] <= cs.CSR_RTOL
+    assert csr["losses"][-1] < csr["losses"][0] and csr["nnz"] == 512 * 15
+    cases = (cs.SPARSE_CASES, cs.LAYER_CASES, cs.LOSS_CASES,
+             cs.REPAIR_CASES)
+    assert sum(f["cases"] for f in out["families"].values()) == sum(
+        len(t) for t in cases)
+    assert set(out["families"]) == {"storage", "arith", "dot", "autograd",
+                                    "embedding", "optimizer", "layers",
+                                    "losses", "repairs"}
+    assert all(f["worst"] == 0.0 for f in out["families"].values())
+    assert len(cs.LAYER_CASES) >= 14 and len(cs.LOSS_CASES) >= 11
 
 
 def test_chip_smoke_softmax_gate_catches_flushed_probabilities():

@@ -24,6 +24,18 @@ the JAX package does, each held against the JAX package.
   op's result (x32), and complex64 survives ``array``, ``asnumpy``,
   ``asscalar``, ``save``/``load`` and dtype names whole; the port dropped
   the imaginary part, or refused the dtype name.
+- ``astype`` from a float to an integer type saturates as ``cast`` does
+  (the port wrapped), and a 64-bit integer type narrows first (the port
+  saturated in int64, then wrapped into int32).
+- Integer ``%``, ``mod``, ``fmod``, ``remainder`` and ``floor_divide`` by
+  zero give the JAX package's values (the port raised on the CPU; on the
+  card the division gave undefined bits).
+- ``backward`` of a head recorded from inputs that carry no gradient
+  returns and leaves every gradient as it was (the port raised); one
+  computed outside ``record()`` still raises.
+- A second ``backward`` through a freed graph raises in MXNet's words,
+  naming ``retain_graph=True`` (the JAX package computes the gradient
+  again; the port keeps the refusal, which saves holding every graph).
 """
 
 import numpy as np
@@ -492,3 +504,115 @@ def test_complex_save_load_round_trip_as_the_reference(tmp_path):
                       ctx=mx.cpu())
     np.testing.assert_array_equal(back["z"].asnumpy(),
                                   _Z.astype(np.complex64))
+
+
+# ---------------------------------------------------------------------------
+# astype saturates; integer division by zero; the recorded head with no
+# gradient; the second backward
+# ---------------------------------------------------------------------------
+_SATURATE = np.array([-300.7, -100.2, 200.3, 300.6, 1e10, -1e10, np.nan,
+                      np.inf, -np.inf], np.float32)
+
+
+@pytest.mark.parametrize("entry", ["astype", "np_astype", "cast"])
+@pytest.mark.parametrize("dtype", ["int8", "uint8", "int32", "int64"])
+def test_astype_saturates_as_the_reference(entry, dtype):
+    def run(pkg, **kw):
+        if entry == "cast":
+            return pkg.nd.cast(pkg.nd.array(_SATURATE, **kw), dtype=dtype)
+        if entry == "np_astype":
+            return pkg.np.array(_SATURATE, **kw).astype(dtype)
+        return pkg.nd.array(_SATURATE, **kw).astype(dtype)
+
+    want, got = run(jmx), run(mx, ctx=mx.cpu())
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+
+
+_DIVIDEND = np.array([5, -5, 0, 7, -7, 6, -6, 0], np.int64)
+_DIVISOR = np.array([0, 0, 0, 3, 2, -4, 4, -3], np.int64)
+_DIVISIONS = {
+    "operator": lambda nd, a, b: a % b,
+    "broadcast_mod": lambda nd, a, b: nd.broadcast_mod(a, b),
+    "scalar": lambda nd, a, b: a % 0,
+    "reversed_scalar": lambda nd, a, b: 7 % b,
+    "reversed_negative_scalar": lambda nd, a, b: -7 % b,
+    "nd_floor_divide": lambda nd, a, b: nd.floor_divide(a, b),
+    "np_mod": lambda nd, a, b: nd.np.mod(a, b),
+    "np_remainder": lambda nd, a, b: nd.np.remainder(a, b),
+    "np_fmod": lambda nd, a, b: nd.np.fmod(a, b),
+    "np_floor_divide": lambda nd, a, b: nd.np.floor_divide(a, b),
+}
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+@pytest.mark.parametrize("entry", sorted(_DIVISIONS))
+def test_integer_division_by_zero_as_the_reference(entry, dtype):
+    def run(pkg, **kw):
+        a = pkg.nd.array(_DIVIDEND, dtype=dtype, **kw)
+        b = pkg.nd.array(_DIVISOR, dtype=dtype, **kw)
+        nd = pkg.nd
+        nd.np = pkg.np
+        return _DIVISIONS[entry](nd, a, b)
+
+    want, got = run(jmx), run(mx, ctx=mx.cpu())
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+
+
+def _null_head(pkg, recorded, **kw):
+    """``x`` attached with ``grad_req="null"``, ``y`` attached ``"write"``
+    and the head ``sum(x * x)``, recorded or not."""
+    x = pkg.nd.array(np.arange(1.0, 5.0, dtype=np.float32), **kw)
+    x.attach_grad(grad_req="null")
+    y = pkg.nd.array(np.ones(4, np.float32), **kw)
+    y.attach_grad()
+    if recorded:
+        with pkg.autograd.record():
+            return x, y, (x * x).sum()
+    return x, y, (x * x).sum()
+
+
+def test_backward_of_a_recorded_head_with_no_gradient_returns():
+    jx, jy, jhead = _null_head(jmx, True)
+    jhead.backward()
+    x, y, head = _null_head(mx, True, ctx=mx.cpu())
+    y.grad._data.fill_(7.0)
+    head.backward()
+    mx.autograd.backward([head])
+    np.testing.assert_array_equal(x.grad.asnumpy(), jx.grad.asnumpy())
+    np.testing.assert_array_equal(y.grad.asnumpy(), np.full(4, 7.0))
+
+
+def test_backward_of_a_head_computed_outside_record_still_raises():
+    words = "cannot differentiate a head that was not computed under"
+    for pkg, kw in ((jmx, {}), (mx, {"ctx": mx.cpu()})):
+        _, _, head = _null_head(pkg, False, **kw)
+        with pytest.raises(ValueError, match=words):
+            head.backward()
+
+
+def test_a_second_backward_names_retain_graph():
+    x = mx.nd.array(np.arange(1.0, 4.0, dtype=np.float32), ctx=mx.cpu())
+    x.attach_grad()
+    with mx.autograd.record():
+        y = (x * x).sum()
+    y.backward(retain_graph=True)
+    y.backward()
+    np.testing.assert_array_equal(x.grad.asnumpy(), [2.0, 4.0, 6.0])
+    # MXNet's words (torch's own message names retain_graph=True too, but
+    # not the graph that is gone)
+    words = ("not in a computational graph.*you need to pass "
+             "retain_graph=True to backward")
+    with pytest.raises(RuntimeError, match=words):
+        y.backward()
+    with pytest.raises(RuntimeError, match=words):
+        mx.autograd.grad(y, [x])
+    # the JAX package computes the same gradient again
+    jx = jmx.nd.array(np.arange(1.0, 4.0, dtype=np.float32))
+    jx.attach_grad()
+    with jmx.autograd.record():
+        jy = (jx * jx).sum()
+    jy.backward()
+    jy.backward()
+    np.testing.assert_array_equal(jx.grad.asnumpy(), x.grad.asnumpy())
