@@ -248,11 +248,36 @@ Phases (any failure raises, and the script exits non-zero):
    2 warmup, a ``torch.profiler`` breakdown and the idle share), in NCHW
    and with the activations and conv weights in ``torch.channels_last``
    memory format. K1, K2 and K3 launch 0 times over every unfused pass;
-12. MLP phase: bench.py's mlp row (``Dense(512, activation="relu")``
+12. vision phase (``vision_main``): eight models of the zoo at ImageNet
+   width, classes=1000 (``VISION_MODELS``: ``alexnet``, ``vgg16_bn``,
+   ``squeezenet1.1``, ``densenet121``, ``inceptionv3`` at 299x299,
+   ``mobilenet1.0``, ``mobilenetv2_1.0``, ``mobilenetv3_large``; NCHW,
+   cuDNN, cuBLAS and ATen, no hand-written kernel), xavier on the card,
+   the deferred shapes filled by one forward: each one's inventory
+   against the JAX package's (pinned); the eval logits and a training
+   pass at B=2 against a copy on the port's CPU path with the same values
+   (every Dropout rate at 0 for the pass; past ``GRAD_RTOL``, each side
+   within it of the exact backward of its own forward,
+   ``hold_gradients``); the learning check (fp32 ``gluon.Trainer`` sgd,
+   momentum 0.9, ``kvstore="device"``, B=32, the batch loaded by
+   ``gluon.utils.split_and_load`` and the gradients clipped by
+   ``gluon.utils.clip_global_norm(grads, 10)`` before each step; the loss
+   falls 5% in 6 steps, rates ``VISION_LR``); the step's host ms, images/s,
+   device ms, idle share, peak memory and top kernels. Then
+   ``gpt_decoder_117m`` (fp32, B=8, T=256, dropout 0) takes 3 adam steps
+   with ``split_and_load`` and ``clip_global_norm(max_norm=1)`` before
+   each, beside a copy stepped on the plain version's clipping: the norm,
+   the scaling and the parameters after each step within 1e-6, one
+   synchronizing read a call, NaN and inf as the reference, K4-K6 12 a
+   pass on f32; the call's device ms beside the reference's loop of one
+   host float an array. Then ``VISION_CASES`` (all 36 names at
+   classes=10), ``UTILS_CASES`` and ``CONTRIB_CASES`` on the card against
+   the CPU;
+13. MLP phase: bench.py's mlp row (``Dense(512, activation="relu")``
    twice and ``Dense(10)``, no ``in_units``; xavier, bf16, B=8192,
    ``SPMDTrainer`` SGD lr 0.1 momentum 0.9): the loss falls by 5% over
    20 steps on one batch, then the step is timed;
-13. graph phase (``parallel/superstep.py``): the MLP row (K=20), the GPT
+14. graph phase (``parallel/superstep.py``): the MLP row (K=20), the GPT
    bf16 row (``gpt_decoder_117m``, B=8, T=256, dropout 0.1 as built,
    K=10), the BERT bf16 row (``bert_12_768_12``, B=24, T=128, dropout 0.1,
    K=5, each batch's mixed segments and ``valid_length`` in the window),
@@ -275,7 +300,7 @@ Phases (any failure raises, and the script exits non-zero):
    against its eager path bit for bit; K3 and K1 captured on a thread
    that never ran an encode, bit-equal to the eager calls
    (``fresh_thread_capture``);
-14. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
+15. imperative phase (``mx.nd``, ``mx.operator``, ``mx.rtc``): the rtc
    kernels (K7, ``csrc/rtc/*.cu``, compiled by NVRTC in the build step)
    run an ``mx.rtc`` program (``scale`` and ``saxpy`` over 163,037,184
    floats, ``first_row`` of a (50257, 768) embedding) held bit for bit
@@ -305,7 +330,7 @@ Phases (any failure raises, and the script exits non-zero):
    ``invoke_op("fused_conv_bn")`` with gradients, equal to the direct
    calls bit for bit. ``first_row`` is also timed in ``FIRST_ROW_TURNS``
    turns interleaved with ``torch.clone`` of row 0 and the empty kernel;
-15. mx.nd phase: ``gpt_decoder_117m`` at ``max_length`` 256, B=8, fp32,
+16. mx.nd phase: ``gpt_decoder_117m`` at ``max_length`` 256, B=8, fp32,
    trained through ``nd_gpt_step``, its forward written only in ``mx.nd``
    ops (token and position ``Embedding``, ``LayerNorm``,
    ``FullyConnected``, ``split`` of the fused QKV, ``reshape``/
@@ -349,7 +374,8 @@ registry's sizes, budget, evictions, hot-swap and warm-start numbers, and
 the mx.nd GPT step's ms beside the gluon step's, its device ms and the
 mx.nd phase's seconds, the mx.np GPT step's (``np_gpt_fp32``) likewise,
 and the mx.nd 1.x BERT step's beside the gluon
-BERT step's (pallas and xla). The
+BERT step's (pallas and xla), and the vision phase's models
+(``vision_fp32``) and clipped GPT step (``gpt_clip_fp32``). The
 line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
@@ -2402,11 +2428,6 @@ def convs_per_pass(net):
 def _frozen(net):
     return {n: p.detach().clone() for n, p in net.named_parameters()
             if not p.requires_grad}
-
-
-def _rel_l2(got, want):
-    den = want.norm().item()
-    return (got - want).norm().item() / (den if den > 0 else 1.0)
 
 
 def resnet_oracle(net, ce, x, y):
@@ -8525,16 +8546,23 @@ CSR_RTOL = 1e-5
 CSR_FIELDS = 15
 
 
+def _as_double(a, device=None):
+    a = a if isinstance(a, torch.Tensor) else torch.tensor(np.asarray(a))
+    return a.detach().to(device or a.device, torch.float64)
+
+
+def _l2(a):
+    """``||a||`` in float64 (a tensor or numpy)."""
+    return _as_double(a).norm().item()
+
+
 def _rel_l2(got, want):
     """``||got - want|| / ||want||`` in float64 (``||got - want||`` where
-    ``want`` is 0): tensors on their device, else numpy."""
-    if isinstance(got, torch.Tensor):
-        got, want = got.detach().double(), want.detach().double()
-        den, err = want.norm().item(), (got - want).norm().item()
-    else:
-        got = np.asarray(got, np.float64)
-        want = np.asarray(want, np.float64)
-        den, err = np.linalg.norm(want), np.linalg.norm(got - want)
+    ``want`` is 0), on ``got``'s device: tensors (on any devices) or
+    numpy."""
+    got = _as_double(got)
+    want = _as_double(want, got.device)
+    den, err = want.norm().item(), (got - want).norm().item()
     return err / den if den > 0 else err
 
 
@@ -8834,6 +8862,868 @@ def sparse_phase(seed, card, net, ctx, sizes=BERT_SIZES[:2],
     return out
 
 
+# ---------------------------------------------------------------------------
+# vision phase: the rest of the vision zoo (gluon/model_zoo/vision), with
+# gluon.contrib.nn, and gluon/utils.py on the GPT-117M step
+# ---------------------------------------------------------------------------
+#: the vision phase's models at ImageNet width: image size and the
+#: inventory the JAX package gives at classes=1000 once its first forward
+#: filled the deferred shapes (values with the running statistics,
+#: trainable tensors, running statistics, convs)
+VISION_MODELS = {
+    "alexnet": (224, (61_100_840, 16, 0, 5)),
+    "vgg16_bn": (224, (138_374_440, 58, 26, 13)),
+    "squeezenet1.1": (224, (1_235_496, 52, 0, 26)),
+    "densenet121": (224, (8_062_504, 364, 242, 120)),
+    "inceptionv3": (299, (23_869_000, 284, 188, 94)),
+    "mobilenet1.0": (224, (4_253_864, 83, 54, 27)),
+    "mobilenetv2_1.0": (224, (3_539_136, 160, 106, 54)),
+    "mobilenetv3_large": (224, (5_505_598, 174, 92, 62)),
+}
+#: sgd learning rates of the learning check (momentum 0.9) where they are
+#: not VISION_LR_DEFAULT: the smallest rate of
+#: tools/torch_vision_lr_sweep.py's (0.01 to 3) that lowered the loss by
+#: 10% (twice the gate) over the 6 steps on the card; SqueezeNet's, where
+#: none did and 3 diverged, the one that lowered it most (7.4%)
+VISION_LR = {"alexnet": 0.03, "squeezenet1.1": 1.0, "inceptionv3": 0.3,
+             "mobilenet1.0": 0.1, "mobilenetv2_1.0": 0.1}
+VISION_LR_DEFAULT = 0.01
+VISION_CLIP = 10.0
+VISION_BATCHES = (2, 32)             # the parity check, the learning check
+VISION_STEPS = 6
+#: the eval logits, card against the CPU (relative L2)
+VISION_EVAL_RTOL = 1e-4
+#: a deep net's training-mode forward amplifies its rounding: its logits
+#: are held to be no farther from its fp64 model's than this times the CPU
+#: copy's distance from its own (``vision_parity``)
+COND_SLACK = 2.0
+#: the kernels on the profile of a vision step worth naming: the depthwise
+#: and grouped convs
+VISION_TAGS = ("depthwise", "group")
+GPT_CLIP = 1.0
+#: clip_global_norm against its plain version: the norm, the scaled
+#: gradients and the parameters after each step (relative)
+CLIP_RTOL = 1e-6
+
+
+def inventory(net):
+    """(values with the running statistics, trainable tensors, running
+    statistics, convs) of ``net``."""
+    ps = list(net.collect_params().values())
+    return (sum(p.numel() for p in ps), sum(p.requires_grad for p in ps),
+            sum(not p.requires_grad for p in ps),
+            sum(p.dim() == 4 for p in ps))
+
+
+@contextlib.contextmanager
+def no_dropout(*nets):
+    """Every ``Dropout`` rate of ``nets`` at 0 inside the block (the rate
+    is an attribute: no code changes), restored after."""
+    from incubator_mxnet_tpu_torch.gluon.nn import Dropout
+
+    drops = [m for net in nets for m in net.modules()
+             if isinstance(m, Dropout)]
+    rates = [m._rate for m in drops]
+    try:
+        for m in drops:
+            m._rate = 0.0
+        yield len(drops)
+    finally:
+        for m, r in zip(drops, rates):
+            m._rate = r
+
+
+def _leaves(net):
+    return {n: m for n, m in net.named_modules() if not list(m.children())}
+
+
+def train_grads(net, x, y, seen=None):
+    """One training pass of ``net`` (record, mean softmax cross entropy,
+    backward): the logits and the loss, and every trainable parameter's
+    gradient by name (a copy, on its device). With ``seen`` (a dict) every
+    leaf module's output of the pass lands in it by name."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+
+    hooks = [] if seen is None else [
+        m.register_forward_hook(
+            lambda m, i, o, n=n: seen.__setitem__(n, o.detach()))
+        for n, m in _leaves(net).items()]
+    for p in net.parameters():
+        p.grad = None
+    try:
+        with mx.autograd.record():
+            logits = net(x)
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(logits, y).mean()
+        loss.backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()
+             if p.requires_grad}
+    for p in net.parameters():
+        p.grad = None
+    return logits.detach(), loss.detach(), grads
+
+
+def replayed_grads(net64, x, y, seen):
+    """The gradients of ``net64`` (an fp64 copy) at the fp32 pass whose
+    leaf outputs are ``seen`` (``train_grads``): every leaf module's output
+    replaced by the fp32 one in value, its fp64 graph kept, so each ReLU,
+    clip and max pool decides on the fp32 values. The exact backward of
+    that fp32 forward: it differs from the fp32 gradients only by the
+    backward's rounding."""
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, n=n: o + (seen[n].to(o.dtype) - o).detach())
+        for n, m in _leaves(net64).items()]
+    try:
+        return train_grads(net64, x.double(), y)[2]
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _sibling(name):
+    """The tensor whose gradient sets the scale of a BatchNorm's or a
+    bias's: a beta's gamma, a gamma's beta, a bias's weight (None for a
+    weight)."""
+    stem, _, leaf = name.rpartition(".")
+    sib = {"beta": "gamma", "gamma": "beta", "bias": "weight"}.get(leaf)
+    return sib and f"{stem}.{sib}"
+
+
+def hold_gradients(label, got, want, tol, replay, ref_replay):
+    """Every gradient of ``got`` within ``tol`` (relative L2) of ``want``'s
+    (by name; tensors or numpy). Past it, a gradient is held if each side
+    is within ``tol`` of the exact backward of its own forward, ``got`` of
+    ``replay()`` and ``want`` of ``ref_replay()`` (the port's fp64 model
+    fed that side's every leaf output, ``replayed_grads``), on the scale of
+    the larger of that exact gradient's norm and its sibling's
+    (``_sibling``); else raise.
+
+    Deep nets' fp32 forwards drift apart by 1e-5 relative, and an
+    activation that close to a ReLU's or a clip's kink takes the other side
+    in one of them: the gradients upstream of it then differ by percents
+    between any two fp32 evaluations, each the exact backward of its own
+    forward. ``want``'s side ties the rule to the reference: its gradient
+    must be what the port's backward gives at its forward, so an error of
+    the port's backward shared by its fp32 and fp64 graphs fails. The
+    sibling's scale covers the shifts whose gradient is 0 in exact
+    arithmetic (a bias or a beta that a training-mode BatchNorm takes out
+    as a constant: both sides round noise) and the sums that cancel (the
+    stem BatchNorm's gamma at 224x224 rounds 1e-2 from its exact value on
+    any device): their rounding follows the terms of the sum, of the
+    sibling's size.
+
+    ``replay`` and ``ref_replay`` are called once each, and only when a
+    gradient is past ``tol``. Returns ``(worst direct relative error and
+    its name, {"replay": names held on their own scale, "sibling": names
+    held on their sibling's})``."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: gradients of {sorted(got)[:4]}... "
+                             f"against {sorted(want)[:4]}...")
+    errs = {n: _rel_l2(got[n], want[n]) for n in want}
+    past = sorted(n for n, e in errs.items() if not e <= tol)
+    held = dict(replay=[], sibling=[])
+    exact = (replay(), ref_replay()) if past else ()
+    for n in past:
+        sib = _sibling(n)
+        dists = []
+        for side, ex in zip((got, want), exact):
+            g = _as_double(side[n])
+            e = _as_double(ex[n], g.device)
+            own = e.norm().item()
+            scale = max(own, _l2(ex[sib]) if sib in ex else 0.0)
+            dists.append(((g - e).norm().item(), scale, own))
+        if not all(d <= tol * s for d, s, _ in dists):
+            raise AssertionError(
+                f"{label}: gradient {n} relative L2 error {errs[n]} against "
+                "the reference; from the exact backward of its own forward "
+                f"{dists[0][0] / dists[0][1]}, the reference's "
+                f"{dists[1][0] / dists[1][1]}, of the larger of its norm "
+                f"and {sib}'s (tolerance {tol})")
+        held["sibling" if any(s > o for _, s, o in dists)
+             else "replay"].append(n)
+    worst = max(((e, n) for n, e in errs.items() if n not in past),
+                default=(0.0, ""))
+    return worst, held
+
+
+def vision_net(name, ctx, hw, classes, params=None, init="xavier"):
+    """``get_model(name, classes=classes)`` on ``ctx``: ``params`` (name
+    -> array, every shape given) carried in; without them drawn by
+    ``init`` from the package's seed, the deferred shapes filled by one
+    forward at ``hw``."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import (get_model,
+                                                           load_jax_params)
+
+    net = get_model(name, classes=classes)
+    if params is not None:
+        return load_jax_params(net, params, ctx=ctx)
+    net.initialize(init, ctx=ctx)
+    with mx.autograd.pause(), torch.no_grad():
+        net(torch.zeros(1, 3, hw, hw, device=ctx.torch_device()))
+    return net
+
+
+def net_values(net):
+    return {n: p.detach().cpu().numpy() for n, p in
+            net.collect_params().items()}
+
+
+def vision_parity(label, name, net, hw, classes, x, y, ctx):
+    """``net`` (``name`` on ``ctx``) against a copy on the port's CPU path
+    with the same values: eval logits within ``VISION_EVAL_RTOL`` (relative
+    L2), then a training pass with every Dropout rate at 0: the training
+    logits within ``VISION_EVAL_RTOL`` (or, a deep net's training-mode
+    forward amplifying its rounding, no farther from the fp64 model's than
+    ``COND_SLACK`` times the copy's distance from its own fp64 model's, the
+    two fp64 models' within ``VISION_EVAL_RTOL``), every gradient
+    held by ``hold_gradients`` at ``GRAD_RTOL``, the exact backward of
+    either side's forward from the fp64 model on ``ctx``: the copy's
+    gradients ask the card's backward, in fp64, to give them at the copy's
+    forward. Returns the distances."""
+    import incubator_mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    values = net_values(net)
+    ref = vision_net(name, mx.cpu(), hw, classes, values)
+    xc, yc = x.cpu(), y.cpu()
+    with mx.autograd.pause():
+        eval_err = _rel_l2(net(x), ref(xc))
+    seen, ref_seen = {}, {}
+    with no_dropout(net, ref) as drops:
+        logits, loss, got = train_grads(net, x, y, seen)
+        ref_logits, ref_loss, want = train_grads(ref, xc, yc, ref_seen)
+    train_err = _rel_l2(logits, ref_logits)
+    del ref
+    cache = {}
+
+    def net64():
+        if "net" not in cache:
+            cache["net"] = vision_net(name, ctx, hw, classes, values).cast(
+                "float64")
+        return cache["net"]
+
+    def replay_of(leaf_outputs):
+        def run():
+            with no_dropout(net64()):
+                return replayed_grads(net64(), x, y, leaf_outputs())
+        return run
+
+    worst, held = hold_gradients(
+        label, got, want, GRAD_RTOL, replay_of(lambda: seen),
+        replay_of(lambda: {n: v.to(x.device) for n, v in ref_seen.items()}))
+    train_f64 = None
+    if not train_err <= VISION_EVAL_RTOL:
+        ref64 = vision_net(name, mx.cpu(), hw, classes, values).cast(
+            "float64")
+        with no_dropout(net64(), ref64), mx.autograd.pause(True), \
+                torch.no_grad():
+            f64, ref_f64 = net64()(x.double()), ref64(xc.double())
+        train_f64 = (_rel_l2(logits, f64), _rel_l2(ref_logits, ref_f64),
+                     _rel_l2(f64, ref_f64))
+    cache.clear()
+    if not (eval_err <= VISION_EVAL_RTOL and math.isfinite(float(loss))
+            and (train_f64 is None
+                 or (train_f64[0] <= COND_SLACK * train_f64[1]
+                     and train_f64[2] <= VISION_EVAL_RTOL))):
+        raise AssertionError(f"{label}: eval logits {eval_err}, training "
+                             f"logits {train_err} from the CPU copy's "
+                             f"(tolerance {VISION_EVAL_RTOL}); the card's "
+                             "from its fp64 model's, the copy's from its "
+                             "own, and the two fp64 models' apart: "
+                             f"{train_f64}")
+    return dict(eval_err=eval_err, train_err=train_err, train_f64=train_f64,
+                grad_worst=worst[0], grad_worst_name=worst[1],
+                n_grads=len(got), dropouts=drops,
+                held={k: len(v) for k, v in held.items()},
+                held_names={k: v[:4] for k, v in held.items() if v},
+                seconds=time.perf_counter() - t0)
+
+
+def vision_batches(seed, hw, classes, dev, batches=VISION_BATCHES):
+    """The vision phase's batches of a model, one of each size in
+    ``batches`` (images in [0, 1), labels as floats), drawn on ``dev``
+    from ``seed``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 97)
+    return [(torch.rand((b, 3, hw, hw), generator=gen, device=dev),
+             torch.randint(0, classes, (b,), generator=gen,
+                           device=dev).float()) for b in batches]
+
+
+def vision_step(net, x, y, ctx, lr):
+    """A training step of the learning check on the batch ``x``, ``y``
+    (numpy): ``gluon.utils.split_and_load`` onto ``ctx``, the mean softmax
+    cross entropy, ``gluon.utils.clip_global_norm(grads, VISION_CLIP)``,
+    then ``gluon.Trainer(..., "sgd", momentum 0.9, kvstore="device")``'s
+    step. Returns the step (which returns the loss) and the list it
+    appends each norm to."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": lr, "momentum": 0.9},
+                            kvstore="device")
+    trainable = [p for p in net.parameters() if p.requires_grad]
+    norms = []
+
+    def step():
+        data = gluon.utils.split_and_load(x, [ctx])[0]
+        label = gluon.utils.split_and_load(y, [ctx])[0]
+        with mx.autograd.record():
+            loss = ce(net(data), label).mean()
+        loss.backward()
+        norms.append(gluon.utils.clip_global_norm(
+            [p.grad for p in trainable], VISION_CLIP))
+        trainer.step(1)
+        return loss
+
+    return step, norms
+
+
+def vision_model_phase(seed, card, name, ctx, hw, pinned, classes=1000,
+                       batches=VISION_BATCHES, steps=VISION_STEPS):
+    """One model of the vision phase at ``hw``: its inventory against
+    ``pinned``, ``vision_parity`` at B=``batches[0]``, the learning check
+    (fp32 ``gluon.Trainer`` sgd, momentum 0.9, ``kvstore="device"``, on one
+    batch of ``batches[1]`` repeated: each step loads it with
+    ``gluon.utils.split_and_load`` and clips with
+    ``gluon.utils.clip_global_norm(grads, VISION_CLIP)`` before
+    ``trainer.step``; the loss falls by 5% over ``steps`` steps), then the
+    step timed (host ms, median of 5 after 2 warm-ups), its peak memory and
+    a ``torch.profiler`` breakdown."""
+    import incubator_mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    dev = ctx.torch_device()
+    mx.random.seed(seed)
+    net = vision_net(name, ctx, hw, classes)
+    counts = inventory(net)
+    print(f"model {name} ({hw}x{hw}, NCHW): {counts[0]} parameters with the "
+          f"running statistics, {counts[1]} trainable tensors, {counts[2]} "
+          f"running statistics, {counts[3]} convs", flush=True)
+    if pinned is not None and counts != tuple(pinned):
+        raise AssertionError(f"{name}'s inventory {counts}, the JAX "
+                             f"package's {pinned}")
+    (xp, yp), (x, y) = vision_batches(seed, hw, classes, dev, batches)
+    parity = vision_parity(name, name, net, hw, classes, xp, yp, ctx)
+    print(f"{name} on the card vs the CPU (fp32, B={batches[0]}, same "
+          f"values): eval logits {parity['eval_err']:.3e}, training logits "
+          f"{parity['train_err']:.3e} relative L2 (tol "
+          f"{VISION_EVAL_RTOL:g}); worst direct gradient "
+          f"{parity['grad_worst']:.3e} ({parity['grad_worst_name']}) of "
+          f"{parity['n_grads']}, tol {GRAD_RTOL:g}; held past it: "
+          f"{parity['held']} {parity['held_names']}; "
+          f"{parity['seconds']:.1f} s", flush=True)
+    gc.collect()
+
+    lr = VISION_LR.get(name, VISION_LR_DEFAULT)
+    step, norms = vision_step(net, x.cpu().numpy(), y.cpu().numpy(), ctx,
+                              lr)
+    losses = [float(step().asscalar()) for _ in range(steps)]
+    print(f"{name} learning check (fp32 gluon.Trainer kvstore='device', "
+          f"B={batches[1]}, sgd lr {lr:g} momentum 0.9, clip_global_norm "
+          f"{VISION_CLIP:g}, one batch repeated): losses "
+          f"{[round(v, 4) for v in losses]}, gradient norms "
+          f"{[round(v, 3) for v in norms]}", flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 0.95 * losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall by 5% over "
+                             f"{steps} steps")
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    step_ms = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile_step(lambda *_: step(), None, None, card, step_ms,
+                         tags=VISION_TAGS, top=8,
+                         what=f"fp32 {name} step (B={batches[1]})")
+    device_ms = sum(r[0] for r in prof)
+    row = dict(batch=batches[1], lr=lr, step_ms=step_ms,
+               images_s=batches[1] / step_ms * 1e3, peak_bytes=peak,
+               device_ms=device_ms, idle=_idle(prof, step_ms),
+               launches=sum(r[1] for r in prof), losses=losses,
+               top=[(round(ms, 4), n, k[:80]) for ms, n, k in prof[:5]],
+               depthwise_ms=sum(r[0] for r in prof
+                                if any(t in r[2] for t in VISION_TAGS)),
+               inventory=counts, parity=parity,
+               seconds=time.perf_counter() - t0)
+    print(f"{name} fp32 step (B={batches[1]}; {card}): {step_ms:.3f} ms "
+          f"(host clock, median of 5 after 2 warm-ups), "
+          f"{row['images_s']:.1f} images/s, device {device_ms:.3f} ms, "
+          f"idle {100 * (row['idle'] or 0):.1f}%, peak memory "
+          f"{peak / 2**20:.1f} MiB; {row['seconds']:.1f} s", flush=True)
+    del step, net
+    gc.collect()
+    return row
+
+
+def plain_clip(arrays, max_norm):
+    """The reference's ``clip_global_norm`` loop in plain PyTorch: one
+    host float an array, then each scaled."""
+    total = sum(float((a * a).sum()) for a in arrays)
+    norm = math.sqrt(total)
+    scale = max_norm / (norm + 1e-8)
+    if scale < 1.0:
+        for a in arrays:
+            a.mul_(scale)
+    return norm
+
+
+def _syncs_of(fn, *args):
+    """``fn(*args)`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result, the file and line of each synchronizing read it made, and the
+    other warnings."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if torch.cuda.is_available():
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args)
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice when it is first switched on is no read
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return out, [f"{Path(w.filename).name}:{w.lineno}" for w in syncs], [
+        str(w.message) for w in caught if w not in syncs]
+
+
+def clip_checks(grads, syncs):
+    """``gluon.utils.clip_global_norm`` on copies of ``grads``: at half
+    their norm every array scaled as the plain version scales it (fp64
+    norm; ``CLIP_RTOL``) in ``syncs`` synchronizing reads; a NaN in one
+    warns and scales nothing, an inf warns and scales by 0 (inf * 0 is
+    NaN), as the reference; a norm at or under ``max_norm`` leaves the
+    arrays as they were. Returns the scaled arrays' worst distance."""
+    from incubator_mxnet_tpu_torch import gluon
+
+    arrays = [g.clone() for g in grads]
+    want = math.sqrt(sum(float((g.double() ** 2).sum()) for g in grads))
+    norm, reads, _ = _syncs_of(gluon.utils.clip_global_norm, arrays,
+                               0.5 * want)
+    scale = 0.5 * want / (want + 1e-8)
+    worst = max(_rel_l2(a, g * scale) for a, g in zip(arrays, grads))
+    if not (abs(norm - want) <= CLIP_RTOL * want and worst <= CLIP_RTOL
+            and len(reads) == syncs):
+        raise AssertionError(f"clip_global_norm at half the norm: {norm} "
+                             f"against {want}, arrays {worst} from the plain "
+                             f"scaling, synchronizing reads at {reads}")
+
+    for bad in (math.nan, math.inf):
+        arrays = [g.clone() for g in grads]
+        arrays[0].view(-1)[0] = bad
+        before = [a.clone() for a in arrays]
+        norm, _, warned = _syncs_of(gluon.utils.clip_global_norm, arrays,
+                                    GPT_CLIP)
+        if not any("nan or inf in clip_global_norm" in w for w in warned) \
+                or math.isfinite(norm):
+            raise AssertionError(f"clip_global_norm with a {bad}: norm "
+                                 f"{norm}, warnings {warned}")
+        want = before if math.isnan(bad) else [b * 0.0 for b in before]
+        for a, w in zip(arrays, want):
+            if not torch.equal(a.isnan(), w.isnan()) or not torch.equal(
+                    a.nan_to_num(), w.nan_to_num()):
+                raise AssertionError(f"clip_global_norm with a {bad}: the "
+                                     "arrays differ from the reference's "
+                                     "scaling")
+    arrays = [g.clone() for g in grads]
+    gluon.utils.clip_global_norm(arrays, 1e30)
+    if not all(torch.equal(a, g) for a, g in zip(arrays, grads)):
+        raise AssertionError("clip_global_norm scaled under max_norm")
+    return worst
+
+
+def gpt_clip_phase(seed, card, net, ctx, b=8, steps=3, lr=3e-4, reps=5):
+    """gluon.utils on ``net`` (``gpt_decoder_117m``, fp32, dropout 0, the
+    "pallas" attention: K4-K6) at B=``b``, T=its ``max_length``: ``steps``
+    ``gluon.Trainer`` adam steps, each batch loaded with ``split_and_load``
+    and every gradient clipped with ``clip_global_norm(max_norm=GPT_CLIP)``
+    before ``trainer.step``, beside a copy of the net whose trainer steps
+    on the same gradients clipped by the plain version (their fp64 norm,
+    taken before the call). Each call: the norm within ``CLIP_RTOL`` of the
+    fp64 one, every gradient within ``CLIP_RTOL`` of the plain scaling,
+    exactly one synchronizing read (``set_sync_debug_mode("warn")``), and
+    the parameters after each step within ``CLIP_RTOL`` of the copy's;
+    ``clip_checks`` (NaN, inf, no scaling); K4, K5 and K6 12 times a pass
+    on f32; the call's device ms beside ``plain_clip``'s."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    t, vocab = net.max_length, net.vocab_size
+    layers = net.num_layers
+    plain_net = copy.deepcopy(net)
+    rs = np.random.RandomState(seed + 23)
+    tokens = rs.randint(0, vocab, (b, t)).astype(np.int32)
+    labels = rs.randint(0, vocab, (b * t,)).astype(np.float32)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainers = [gluon.Trainer(n.collect_params(), "adam",
+                              {"learning_rate": lr})
+                for n in (net, plain_net)]
+    params = [p for p in net.parameters() if p.requires_grad]
+    plain_params = [p for p in plain_net.parameters() if p.requires_grad]
+    rows = []
+    torch.cuda.synchronize()
+    _reset_launches(fa)
+    for _ in range(steps):
+        data = gluon.utils.split_and_load(tokens, [ctx])[0]
+        label = gluon.utils.split_and_load(labels, [ctx])[0]
+        with mx.autograd.record():
+            loss = ce(net(data).reshape((-1, vocab)), label).mean()
+        loss.backward()
+        grads = [p.grad for p in params]
+        raw = [g.clone() for g in grads]
+        want = math.sqrt(sum(float((g.double() ** 2).sum()) for g in raw))
+        norm, reads, _ = _syncs_of(gluon.utils.clip_global_norm, grads,
+                                   GPT_CLIP)
+        scale = GPT_CLIP / (want + 1e-8)
+        plain = [g * scale for g in raw] if scale < 1.0 else raw
+        grad_err = max(_rel_l2(g, w) for g, w in zip(grads, plain))
+        for p, g in zip(plain_params, plain):
+            p.grad = g
+        for tr in trainers:
+            tr.step(1)
+        param_err = max(_rel_l2(p, q) for p, q in zip(params, plain_params))
+        rows.append(dict(loss=float(loss.asscalar()), norm=norm,
+                         plain_norm=want, scale=min(1.0, scale),
+                         norm_err=abs(norm - want) / want, syncs=len(reads),
+                         sync_sites=reads, grad_err=grad_err,
+                         param_err=param_err))
+        print(f"clipped GPT-117M step (fp32, B={b}, T={t}, "
+              f"{len(grads)} gradients): loss {rows[-1]['loss']:.6f}; "
+              f"clip_global_norm {norm:.6f} against the fp64 "
+              f"{want:.6f} (relative {rows[-1]['norm_err']:.3e}), scale "
+              f"{rows[-1]['scale']:.6f}, {len(reads)} synchronizing "
+              f"read(s) {reads}; "
+              f"gradients {grad_err:.3e} and parameters after the step "
+              f"{param_err:.3e} from the plain version's (relative L2)",
+              flush=True)
+        # one read back on the card; the CPU has no stream to wait for
+        if not (rows[-1]["norm_err"] <= CLIP_RTOL
+                and len(reads) == (ctx.device_type == "gpu")
+                and grad_err <= CLIP_RTOL and param_err <= CLIP_RTOL):
+            raise AssertionError("clip_global_norm differs from its plain "
+                                 f"version: {rows[-1]}")
+    flash, routes = _read_launches(fa), _read_routes(fa)
+    _check_flash_launches(f"the clipped GPT-117M steps' {steps} passes",
+                          flash, routes, {k: layers * steps
+                                          for k in COUNTERS},
+                          training_routes(steps, 0, layers, t,
+                                          net.head_dim))
+    grads = [p.grad for p in params]
+    half_err = clip_checks(grads, int(ctx.device_type == "gpu"))
+    # each timed call halves its own copy of the gradients, so that every
+    # call scales
+    total = math.sqrt(sum(float((g.double() ** 2).sum()) for g in grads))
+    state = {fn: [[g.clone() for g in grads], total]
+             for fn in (gluon.utils.clip_global_norm, plain_clip)}
+
+    def halve(fn):
+        arrays, norm = state[fn]
+        state[fn][1] = 0.5 * fn(arrays, 0.5 * norm)
+
+    def utility():
+        halve(gluon.utils.clip_global_norm)
+
+    def reference():
+        halve(plain_clip)
+
+    device = _kernel_rows(utility)[0]
+    ref_rows = _kernel_rows(reference)[0]
+    device_ms, ref_device_ms = (sum(r[0] for r in rs_) for rs_ in
+                                (device, ref_rows))
+    launches, ref_launches = (sum(r[1] for r in rs_) for rs_ in
+                              (device, ref_rows))
+    times = _median_turns({"utils": utility, "plain": reference}, reps)
+    print(f"clip_global_norm over {len(grads)} gradients ({card}): "
+          f"device {device_ms:.4f} ms in {launches} launches, host "
+          f"{times['utils']:.3f} ms; the reference's loop of one host float "
+          f"an array in plain PyTorch: device {ref_device_ms:.4f} ms in "
+          f"{ref_launches} launches, host {times['plain']:.3f} ms (median "
+          f"of {reps} alternating turns)", flush=True)
+    del plain_net, trainers
+    gc.collect()
+    return dict(steps=rows, half_norm_err=half_err, flash_launches=flash,
+                flash_routes=routes,
+                n_grads=len(grads), device_ms=device_ms,
+                plain_device_ms=ref_device_ms, launches=launches,
+                plain_launches=ref_launches, host_ms=times["utils"],
+                plain_host_ms=times["plain"],
+                seconds=time.perf_counter() - t0)
+
+
+#: every name of the reference's vision ``get_model`` at classes=10: the
+#: image size and the batch (Inception takes 299x299, the size its closing
+#: 8x8 pool needs)
+VISION_CASES = [
+    (name, 299 if name == "inceptionv3" else 64,
+     1 if name == "inceptionv3" else 2)
+    for name in (
+        [f"resnet{d}_v{v}" for d in (18, 34, 50, 101, 152) for v in (1, 2)]
+        + [f"vgg{d}{bn}" for d in (11, 13, 16, 19) for bn in ("", "_bn")]
+        + ["alexnet"] + [f"densenet{d}" for d in (121, 161, 169, 201)]
+        + ["squeezenet1.0", "squeezenet1.1", "inceptionv3"]
+        + [f"mobilenet{m}" for m in ("1.0", "0.75", "0.5", "0.25")]
+        + [f"mobilenetv2_{m}" for m in ("1.0", "0.75", "0.5", "0.25")]
+        + ["mobilenetv3_large", "mobilenetv3_small"])]
+
+
+def vision_cases_phase(mx, ctx, cases=VISION_CASES, seed=0):
+    """Each case of ``cases`` at classes=10 on ``ctx`` against the port on
+    the CPU, its values drawn on ``ctx`` from ``seed`` (weights N(0,
+    0.1^2), gammas and running variances |N(0, 0.1^2)| + 0.5): the eval
+    logits and a training pass with every Dropout rate at 0, held by
+    ``vision_parity``. Returns the worst distances."""
+    out = dict(cases=0, eval_worst=0.0, train_worst=0.0, grad_worst=0.0,
+               held=dict(replay=0, sibling=0),
+               seconds={})
+    dev = ctx.torch_device()
+    for i, (name, hw, b) in enumerate(cases):
+        t0 = time.perf_counter()
+        net = vision_net(name, ctx, hw, 10, init="zeros")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + i)
+        with torch.no_grad():
+            for n, p in net.collect_params().items():
+                v = torch.randn(p.shape, generator=gen, device=dev) * 0.1
+                p.copy_(v.abs() + 0.5 if n.endswith(("running_var", "gamma"))
+                        else v)
+        x = torch.rand((b, 3, hw, hw), generator=gen, device=dev)
+        y = torch.randint(0, 10, (b,), generator=gen, device=dev).float()
+        res = vision_parity(f"vision case {name}", name, net, hw, 10, x, y,
+                            ctx)
+        del net
+        out["cases"] += 1
+        out["eval_worst"] = max(out["eval_worst"], res["eval_err"])
+        out["train_worst"] = max(out["train_worst"], res["train_err"])
+        out["grad_worst"] = max(out["grad_worst"], res["grad_worst"])
+        for k, v in res["held"].items():
+            out["held"][k] += v
+        out["seconds"][name] = round(time.perf_counter() - t0, 2)
+    print(f"slice 22 on {ctx} vs the CPU, vision: {out['cases']} models "
+          f"equal (eval logits within {out['eval_worst']:.3e}, training "
+          f"logits {out['train_worst']:.3e}, gradients within "
+          f"{out['grad_worst']:.3e} directly; held past GRAD_RTOL: "
+          f"{out['held']}); seconds by model {out['seconds']}", flush=True)
+    return out
+
+
+def _utils_split(mx, ctx):
+    from incubator_mxnet_tpu_torch.gluon import utils
+
+    x = _nd_rand(210, 10, 3)
+    even = utils.split_data(mx.nd.array(x, ctx=ctx), 5)
+    rest = utils.split_data(mx.nd.array(x, ctx=ctx), 4, even_split=False)
+    if any(s.as_torch().device != ctx.torch_device() for s in even + rest):
+        raise AssertionError("split_data: a slice left the operand's device")
+    try:
+        utils.split_data(mx.nd.array(x, ctx=ctx), 3)
+    except ValueError as e:
+        if str(e) != "batch size 10 not divisible by num_slice 3":
+            raise
+    else:
+        raise AssertionError("split_data: no ValueError for 10 into 3")
+    return [s.asnumpy() for s in even + rest]
+
+
+def _utils_load(mx, ctx):
+    from incubator_mxnet_tpu_torch.gluon import utils
+
+    x = _nd_rand(211, 6, 4)
+    out = []
+    for src in (x, mx.nd.array(x, ctx=ctx),
+                torch.from_numpy(x).to(ctx.torch_device())):
+        for ctxs in ([ctx], [ctx, ctx], [ctx] * 3):
+            parts = utils.split_and_load(src, ctxs)
+            if any(p.ctx != ctx for p in parts):
+                raise AssertionError("split_and_load: a slice off its "
+                                     "context")
+            out += [p.asnumpy() for p in parts]
+    return out
+
+
+def _utils_clip(max_norm, bad=None):
+    def fn(mx, ctx):
+        from incubator_mxnet_tpu_torch.gluon import utils
+
+        arrays = [torch.from_numpy(_nd_rand(212 + i, *s)).to(
+            ctx.torch_device()) for i, s in enumerate(((3, 4), (7,),
+                                                       (2, 3, 5)))]
+        if bad is not None:
+            arrays[1][2] = bad
+        norm, _, warned = _syncs_of(utils.clip_global_norm, arrays,
+                                    max_norm)
+        if (bad is not None) != any("nan or inf" in w for w in warned):
+            raise AssertionError(f"clip_global_norm warned {warned}")
+        return [np.array([norm])] + [a.cpu().numpy() for a in arrays]
+
+    return fn
+
+
+def _utils_files(mx, ctx):
+    import hashlib
+    import tempfile
+
+    from incubator_mxnet_tpu_torch.gluon import utils
+
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "weights.params"
+        path.write_bytes(bytes(range(256)) * 300)
+        digest = hashlib.sha1(path.read_bytes()).hexdigest()
+        url = "https://example.com/weights.params"
+        ok = [utils.check_sha1(str(path), digest),
+              not utils.check_sha1(str(path), "0" * 40),
+              utils.download(url, path=d) == str(path),
+              utils.download(url, path=str(path), sha1_hash=digest)
+              == str(path)]
+        for kw in (dict(path=str(path), overwrite=True),
+                   dict(path=str(Path(d) / "missing"))):
+            try:
+                utils.download(url, **kw)
+                ok.append(False)
+            except RuntimeError as e:
+                ok.append("no network egress" in str(e))
+    if not all(ok):
+        raise AssertionError(f"check_sha1/download: {ok}")
+    return [np.array(ok)]
+
+
+UTILS_CASES = [
+    FnCase("utils", "split_data", _utils_split),
+    FnCase("utils", "split_and_load", _utils_load),
+    FnCase("utils", "clip_global_norm_scales", _utils_clip(0.5)),
+    FnCase("utils", "clip_global_norm_under", _utils_clip(100.0)),
+    FnCase("utils", "clip_global_norm_nan", _utils_clip(1.0, math.nan)),
+    FnCase("utils", "clip_global_norm_inf", _utils_clip(1.0, math.inf)),
+    FnCase("utils", "check_sha1_download", _utils_files, exact=True),
+]
+
+
+def _concurrent_case(axis):
+    def fn(mx, ctx):
+        from incubator_mxnet_tpu_torch.gluon import contrib, nn
+
+        net = contrib.nn.HybridConcurrent(axis=axis)
+        inner = nn.HybridSequential()
+        inner.add(nn.Conv2D(5, 1), nn.Activation("relu"))
+        nested = contrib.nn.Concurrent(axis=axis)
+        nested.add(nn.Conv2D(5, 1, in_channels=5),
+                   nn.BatchNorm(in_channels=5))
+        net.add(nn.Conv2D(5, 3, padding=1), inner, nested)
+        return _block_case(mx, ctx, net, (2, 5, 4, 4), 220)
+
+    return fn
+
+
+def _block_case(mx, ctx, net, shape, seed):
+    """``net``'s output, input gradient and parameter gradients of
+    ``sum(out * g)`` in training mode, its values drawn from ``seed``
+    after a first forward, and its running statistics after the pass."""
+    net.initialize(ctx=ctx)
+    x = mx.nd.array(_nd_rand(seed, *shape), ctx=ctx)
+    with torch.no_grad():
+        net(x)
+    named = list(net.named_parameters())
+    with torch.no_grad():
+        for i, (n, p) in enumerate(named):
+            v = _nd_rand(seed + 1 + i, *p.shape)
+            p.copy_(torch.from_numpy(np.abs(v) + 0.5 if n.endswith(
+                ("gamma", "running_var")) else v))
+    x.attach_grad()
+    with mx.autograd.record():
+        out = net(x)
+        head = (out * mx.nd.array(_nd_rand(seed + 50, *out.shape),
+                                  ctx=ctx)).sum()
+    head.backward()
+    return [out.asnumpy(), x.grad.asnumpy()] + [
+        p.grad.cpu().numpy() if p.requires_grad else p.detach().cpu().numpy()
+        for _, p in named]
+
+
+def _sync_bn_case(mx, ctx):
+    from incubator_mxnet_tpu_torch.gluon import contrib, nn
+
+    got = _block_case(mx, ctx, contrib.nn.SyncBatchNorm(num_devices=4,
+                                                        momentum=0.8),
+                      (4, 3, 5, 5), 230)
+    want = _block_case(mx, ctx, nn.BatchNorm(momentum=0.8), (4, 3, 5, 5),
+                       230)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    return got
+
+
+CONTRIB_CASES = [
+    FnCase("contrib", "HybridConcurrent_axis1", _concurrent_case(1),
+           ND_LOOSE),
+    FnCase("contrib", "HybridConcurrent_axis-1", _concurrent_case(-1),
+           ND_LOOSE),
+    FnCase("contrib", "SyncBatchNorm", _sync_bn_case, ND_LOOSE),
+]
+
+
+def vision_phase(seed, card, ctx, models=None, gpt=None, cases=None,
+                 batches=VISION_BATCHES, gpt_b=8):
+    """The vision phase: ``vision_model_phase`` on each of ``models``
+    (name -> (image size, pinned inventory); ``VISION_MODELS``), then
+    ``gpt_clip_phase`` on ``gpt`` (a GPT decoder), then the cases of
+    ``cases`` (default ``VISION_CASES``, ``UTILS_CASES`` and
+    ``CONTRIB_CASES``: vision by ``vision_cases_phase``, the others by
+    ``_check_cases``) on ``ctx`` against the CPU."""
+    import incubator_mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    rows = {}
+    for name, (hw, pinned) in (models or VISION_MODELS).items():
+        rows[name] = vision_model_phase(seed, card, name, ctx, hw, pinned,
+                                        batches=batches)
+        gc.collect()
+    clip = gpt_clip_phase(seed, card, gpt, ctx, b=gpt_b) \
+        if gpt is not None else None
+    gc.collect()
+    vision_cases, fn_cases = cases if cases is not None else (
+        VISION_CASES, UTILS_CASES + CONTRIB_CASES)
+    vision = vision_cases_phase(mx, ctx, vision_cases, seed)
+    families = _check_cases(mx, ctx, fn_cases, run_fn_case, check_fn_case)
+    for name, fam in families.items():
+        print(f"slice 22 on {ctx} vs the CPU, {name}: {fam['cases']} cases "
+              f"equal (largest float difference {fam['worst']:.3e})",
+              flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"vision phase: {seconds:.1f} s", flush=True)
+    return dict(models=rows, clip=clip, vision_cases=vision,
+                families=families, seconds=seconds)
+
+
+def vision_main(seed, card):
+    """The vision phase on the eight ``VISION_MODELS`` at classes=1000 and
+    ``gpt_decoder_117m`` at ``max_length`` 256 (fp32, dropout 0)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
+
+    ctx = mx.gpu(0)
+    mx.random.seed(seed)
+    gpt = get_gpt("gpt_decoder_117m", vocab_size=50257, dropout=0.0,
+                  max_length=256).initialize("xavier", ctx=ctx)
+    return vision_phase(seed, card, ctx, gpt=gpt)
+
+
 def _entry(name, source, replaces, launches, cases, head_case,
            dtype="fp32"):
     """A kernel's record: its numbers at ``head_case`` in ``dtype``, and
@@ -8974,6 +9864,8 @@ def main(argv=None) -> int:
     gc.collect()
     unfused = unfused_resnet_main(args.seed, card)
     gc.collect()
+    vision = vision_main(args.seed, card)
+    gc.collect()
     mlp = mlp_phase(args.seed, card, mx.gpu(0))
     gc.collect()
     graph = graph_phase(args.seed, card, mx.gpu(0))
@@ -8994,6 +9886,7 @@ def main(argv=None) -> int:
     # decode stand in launches_by_path alone
     record = {"kernels": []}
     sparse_bert_routes = bert["sparse"]["bert"]["flash_routes"]
+    utils_routes = vision["clip"]["flash_routes"]
     for route, source, head, dtype in (
             ("simt", "flash_fwd.cu", FWD_HEAD, "fp32"),
             ("f32", "flash_fwd_f32.cu", FWD_HEAD, "fp32"),
@@ -9013,7 +9906,8 @@ def main(argv=None) -> int:
             "nd": nd["flash_routes"][f"flash_fwd_{route}"],
             "nd1x": bert["nd1x"]["flash_routes"][f"flash_fwd_{route}"],
             "np": nd["np"]["flash_routes"][f"flash_fwd_{route}"],
-            "sparse": sparse_bert_routes[f"flash_fwd_{route}"]}
+            "sparse": sparse_bert_routes[f"flash_fwd_{route}"],
+            "utils": utils_routes[f"flash_fwd_{route}"]}
         main_paths = sum(by_path.values())
         by_path["train_to_decode"] = trained["decode_routes"][route]
         if route == "tc":
@@ -9047,7 +9941,8 @@ def main(argv=None) -> int:
                                f"{name}_{route}"]
                            + bert["nd1x"]["flash_routes"][f"{name}_{route}"]
                            + nd["np"]["flash_routes"][f"{name}_{route}"]
-                           + sparse_bert_routes[f"{name}_{route}"],
+                           + sparse_bert_routes[f"{name}_{route}"]
+                           + utils_routes[f"{name}_{route}"],
                            [r for r in bwd if r["kernel"] == name
                             and r["route"] == route], train_case, dtype)
             head = next(r for r in entry["cases"] if r["case"] == train_case
@@ -9063,7 +9958,8 @@ def main(argv=None) -> int:
                 "nd": nd["flash_routes"][f"{name}_{route}"],
                 "nd1x": bert["nd1x"]["flash_routes"][f"{name}_{route}"],
                 "np": nd["np"]["flash_routes"][f"{name}_{route}"],
-                "sparse": sparse_bert_routes[f"{name}_{route}"]}
+                "sparse": sparse_bert_routes[f"{name}_{route}"],
+                "utils": utils_routes[f"{name}_{route}"]}
             if route == "tc":
                 entry["launches_by_path"]["bf16_gate"] = \
                     trained["gate_launches"][f"{name}_tc"]
@@ -9183,7 +10079,20 @@ def main(argv=None) -> int:
         "csr_linear_1m": {k: bert["sparse"]["csr"][k] for k in (
             "rows", "features", "nnz", "losses", "products_worst_rel",
             "dot_ms", "dot_t_ms", "library_dot_ms", "library_dot_t_ms")},
-        "sparse_phase_s": bert["sparse"]["seconds"]}),
+        "sparse_phase_s": bert["sparse"]["seconds"],
+        "vision_fp32": {name: {k: r[k] for k in (
+            "batch", "lr", "step_ms", "images_s", "device_ms", "idle",
+            "peak_bytes", "launches", "depthwise_ms", "losses", "top",
+            "inventory", "seconds")} | {"parity": {
+                k: r["parity"][k] for k in ("eval_err", "train_err",
+                                            "grad_worst", "held",
+                                            "seconds")}}
+            for name, r in vision["models"].items()},
+        "gpt_clip_fp32": {k: vision["clip"][k] for k in (
+            "steps", "n_grads", "device_ms", "plain_device_ms", "launches",
+            "plain_launches", "host_ms", "plain_host_ms", "seconds")},
+        "vision_cases": vision["vision_cases"],
+        "vision_phase_s": vision["seconds"]}),
         flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Gluon API of the port."""
 
-from . import loss, model_zoo, nn
+from . import contrib, loss, model_zoo, nn, utils
 from .block import Block
 from .trainer import Trainer
 
-__all__ = ["Block", "Trainer", "loss", "model_zoo", "nn"]
+__all__ = ["Block", "Trainer", "contrib", "loss", "model_zoo", "nn",
+           "utils"]

@@ -21,6 +21,7 @@ import torch
 from ...block import Block
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, Flatten,
                    GlobalAvgPool2D, HybridSequential, MaxPool2D)
+from ._zoo import build
 
 __all__ = ["BasicBlockV1", "BasicBlockV2", "BottleneckV1", "BottleneckV2",
            "ResNetV1", "ResNetV2", "get_resnet", "resnet101_v1",
@@ -218,13 +219,11 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
         raise ValueError(f"invalid resnet depth {num_layers}")
     if version not in (1, 2):
         raise ValueError("version must be 1 or 2")
-    if pretrained:
-        raise RuntimeError("pretrained weights are not available; load a "
-                           "checkpoint or JAX parameters instead")
     block_type, layers, channels = resnet_spec[num_layers]
-    return resnet_net_versions[version - 1](
-        resnet_block_versions[version - 1][block_type], layers, channels,
-        **kwargs)
+    return build(resnet_net_versions[version - 1],
+                 resnet_block_versions[version - 1][block_type], layers,
+                 channels, pretrained=pretrained, ctx=ctx, root=root,
+                 **kwargs)
 
 
 def resnet18_v1(**kwargs):

@@ -223,8 +223,8 @@ def test_resnet50_inventory_and_frozen_running_stats():
 
 def test_get_model_knows_the_fused_names_only():
     """``get_model`` knows the fused names and, since the gluon layer set
-    is ported, the zoo ``resnet50_v1``; a vision model still unported
-    raises as before."""
+    is ported, the zoo ``resnet50_v1``; since the whole vision zoo is
+    ported, only an unknown name raises, in the reference's words."""
     net = get_model("fused_resnet101_v1", classes=7)
     assert tuple(net.output.weight.shape) == (7, 2048)
     for name in ("fused_resnet50_v1", "fused_resnet152_v1"):
@@ -232,8 +232,9 @@ def test_get_model_knows_the_fused_names_only():
     zoo = get_model("resnet50_v1", classes=7)
     assert not isinstance(zoo, FusedResNetV1)
     assert tuple(zoo.output.weight.shape) == (7, 2048)
-    with pytest.raises(ValueError, match="not ported yet.*ROADMAP"):
-        get_model("vgg16")
+    assert not isinstance(get_model("vgg16"), FusedResNetV1)
+    with pytest.raises(ValueError, match="'vgg17' not found; available:"):
+        get_model("vgg17")
 
 
 def test_trainer_leaves_running_stats_alone():

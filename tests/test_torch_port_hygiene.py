@@ -45,6 +45,14 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "incubator_mxnet_tpu_torch.ops.fused_conv, "
             "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.fused_resnet, "
             "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet, "
+            "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.alexnet, "
+            "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.vgg, "
+            "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.squeezenet, "
+            "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.densenet, "
+            "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.mobilenet, "
+            "incubator_mxnet_tpu_torch.gluon.model_zoo.vision.inception, "
+            "incubator_mxnet_tpu_torch.gluon.contrib.nn, "
+            "incubator_mxnet_tpu_torch.gluon.utils, "
             "incubator_mxnet_tpu_torch.gluon.nn.basic_layers, "
             "incubator_mxnet_tpu_torch.gluon.nn.conv_layers, "
             "incubator_mxnet_tpu_torch.initializer, "
@@ -110,7 +118,15 @@ def test_sources_import_no_jax_and_no_jax_package():
                  "numpy/random.py", "numpy_extension/__init__.py",
                  "ndarray/sparse.py", "gluon/nn/activations.py",
                  "gluon/loss.py", "optimizer/optimizer.py",
-                 "gluon/trainer.py", "autograd.py"):
+                 "gluon/trainer.py", "autograd.py", "gluon/utils.py",
+                 "gluon/contrib/__init__.py", "gluon/contrib/nn.py",
+                 "gluon/model_zoo/vision/_zoo.py",
+                 "gluon/model_zoo/vision/alexnet.py",
+                 "gluon/model_zoo/vision/vgg.py",
+                 "gluon/model_zoo/vision/squeezenet.py",
+                 "gluon/model_zoo/vision/densenet.py",
+                 "gluon/model_zoo/vision/mobilenet.py",
+                 "gluon/model_zoo/vision/inception.py"):
         assert PKG / name in files, name
     for f in files + [ROOT / "chip_smoke.py"]:
         for mod in _imported_modules(f):
@@ -1070,6 +1086,72 @@ def test_chip_smoke_sparse_phase_rehearses_on_the_cpu(monkeypatch):
                                     "losses", "repairs"}
     assert all(f["worst"] == 0.0 for f in out["families"].values())
     assert len(cs.LAYER_CASES) >= 14 and len(cs.LOSS_CASES) >= 11
+
+
+def test_chip_smoke_vision_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.vision_phase`` on the CPU at small sizes: two models of
+    the zoo at 64x64 (``squeezenet1.1`` against its pinned inventory, and
+    ``mobilenetv3_small``) through the parity check against a CPU copy,
+    the learning check with ``split_and_load`` and ``clip_global_norm``,
+    the timed steps and the profile; ``gpt_clip_phase`` on a 2-layer GPT
+    (the norm, the scaling and the parameters against the plain version's,
+    NaN and inf, the launch window expecting a flash launch per layer per
+    pass on the fp32 routes); then two ``VISION_CASES`` and every case of
+    ``UTILS_CASES`` and ``CONTRIB_CASES`` (here the CPU against itself)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
+
+    cs = _chip_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+    windows = []
+    monkeypatch.setattr(cs, "_check_flash_launches",
+                        lambda label, *a: windows.append(a))
+    # the CPU's small batch of 64x64 images learns at its own rates
+    monkeypatch.setattr(cs, "VISION_LR", {"squeezenet1.1": 0.3,
+                                          "mobilenetv3_small": 0.3})
+    mx.random.seed(0)
+    gpt = get_gpt("gpt_decoder_tiny", vocab_size=97, units=64, num_layers=2,
+                  max_length=16, dropout=0.0).initialize("xavier",
+                                                         ctx=mx.cpu())
+    models = {"squeezenet1.1": (64, cs.VISION_MODELS["squeezenet1.1"][1]),
+              "mobilenetv3_small": (64, None)}
+    cases = ([("squeezenet1.0", 64, 2), ("mobilenet0.25", 64, 2)],
+             cs.UTILS_CASES + cs.CONTRIB_CASES)
+    # small ops: one intra-op thread (beside other test processes torch's
+    # thread team waits on its descheduled members)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = cs.vision_phase(0, "cpu", mx.cpu(), models=models, gpt=gpt,
+                              cases=cases, batches=(2, 4), gpt_b=2)
+    finally:
+        torch.set_num_threads(threads)
+    for name, row in out["models"].items():
+        assert row["losses"][-1] < 0.95 * row["losses"][0], name
+        assert row["parity"]["eval_err"] <= cs.VISION_EVAL_RTOL
+        assert row["parity"]["grad_worst"] <= cs.GRAD_RTOL
+        assert row["images_s"] > 0 and row["batch"] == 4
+    assert out["models"]["squeezenet1.1"]["inventory"] == (
+        1_235_496, 52, 0, 26)
+    clip = out["clip"]
+    assert len(clip["steps"]) == 3 and clip["n_grads"] == 29
+    for step in clip["steps"]:
+        assert step["syncs"] == 0 and step["scale"] < 1.0
+        assert max(step["norm_err"], step["grad_err"],
+                   step["param_err"]) <= cs.CLIP_RTOL
+    assert windows == [({k: 0 for k in cs.COUNTERS},
+                        dict.fromkeys(cs.ROUTE_COUNTERS, 0),
+                        {k: 2 * 3 for k in cs.COUNTERS},
+                        cs.training_routes(3, 0, layers=2, t=16,
+                                           d=gpt.head_dim))]
+    assert out["vision_cases"]["cases"] == 2
+    assert out["vision_cases"]["eval_worst"] == 0.0
+    assert sum(f["cases"] for f in out["families"].values()) == len(
+        cs.UTILS_CASES) + len(cs.CONTRIB_CASES)
+    assert all(f["worst"] == 0.0 for f in out["families"].values())
+    assert len(cs.VISION_CASES) == 36
 
 
 def test_chip_smoke_softmax_gate_catches_flushed_probabilities():
