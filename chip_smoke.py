@@ -362,7 +362,29 @@ Phases (any failure raises, and the script exits non-zero):
    CPU tests' shapes) on the card against the CPU (``ND_TOL``, or the
    case's own: ``LINALG_TOL`` through a factorization, ``fft_tol(n)``;
    vectors unique up to sign by their invariants), and the dynamic-shape
-   ops' results on the card, each refused inside a CUDA graph capture.
+   ops' results on the card, each refused inside a CUDA graph capture;
+17. hybrid phase (``hybrid_main``): ``gpt_decoder_117m`` (``max_length``
+   256, dropout 0, B=8, T=256) hybridized, in fp32 then bf16: the
+   inference forward one CUDA graph (one capture, replayed) against the
+   eager forward of the same net (``HYBRID_RTOL``), K4's launches of a
+   replay equal to an eager call's route by route; the recorded step
+   (forward and backward captured as one pair of graphs, K4-K6 12 each)
+   with every gradient against the eager step's; in fp32 a
+   ``gluon.Trainer(net.collect_params(), "adam")`` step over the
+   ParameterDict, after which the forward graph captured before it
+   replays the updated weights; eager and hybridized forward times. The
+   zoo ``resnet50_v1`` (1000 classes, 224x224, B=8, fp32; 3 SGD steps move
+   its 106 running statistics) exported and imported by
+   ``SymbolBlock.imports`` (``EXPORT_RTOL``, the statistics as auxiliary
+   states), then ``export_for_serving(buckets=(1, 2, 4, 8))`` and
+   ``ModelServer.from_exported``: 32 requests from 8 threads, each row
+   against ``net(x)`` (``SERVE_RTOL``), one graph a bucket. An attention
+   block at GPT-117M width (a QKV ``Dense(2304)`` and ``flash_attention``
+   over (8, 12, 256, 64)) exported and imported: the SymbolBlock launches
+   K4 and equals the block. ``foreach`` (256 steps of a ``Dense(768)``
+   +tanh cell at B=8), ``while_loop`` (``max_iterations`` 16) and ``cond``
+   (with ``inputs``) against their unrolled forms, values and gradients
+   (``CONTROL_RTOL``).
 
 The third line from the end (``rows: {...}``) gives the bench rows: the
 fused and unfused ResNet-50, the MLP and BERT (pallas, xla and mixed
@@ -375,7 +397,8 @@ the mx.nd GPT step's ms beside the gluon step's, its device ms and the
 mx.nd phase's seconds, the mx.np GPT step's (``np_gpt_fp32``) likewise,
 and the mx.nd 1.x BERT step's beside the gluon
 BERT step's (pallas and xla), and the vision phase's models
-(``vision_fp32``) and clipped GPT step (``gpt_clip_fp32``). The
+(``vision_fp32``) and clipped GPT step (``gpt_clip_fp32``), and the
+hybrid phase's rows (``hybrid_gpt``, ``hybrid_export``). The
 line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
@@ -403,6 +426,7 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -427,6 +451,14 @@ DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 CONV_ROUTES = {"fused_conv": ("tc", "f32", "simt"),
                "conv_bwd_dx": ("tc", "f32", "simt"),
                "conv_bwd_dw": ("tc", "f32", "simt")}
+
+
+def _param_tensors(net):
+    """``net``'s parameter tensors by structural name (the port's
+    ``parallel.collect_params``)."""
+    from incubator_mxnet_tpu_torch import parallel
+
+    return parallel.collect_params(net)
 
 
 def card_line() -> str:
@@ -1980,7 +2012,7 @@ def bert_main(seed, card):
     # noise (every fp32 path far from an fp64 pass), so the oracle starts
     # where the BERT phase's does
     mx.random.seed(seed)
-    net.cast("float32").initialize("xavier", ctx=ctx)
+    net.cast("float32").initialize("xavier", ctx=ctx, force_reinit=True)
     out["nd1x"] = nd1x_phase(seed, card, net, ctx)
     if out["nd1x"]["n_params"] != 207:
         raise AssertionError("bert_12_768_12 has 207 trainable tensors")
@@ -1988,7 +2020,7 @@ def bert_main(seed, card):
     # drawn again from the seed for the sparse phase (its word embedding
     # row-sparse)
     mx.random.seed(seed)
-    net.initialize("xavier", ctx=ctx)
+    net.initialize("xavier", ctx=ctx, force_reinit=True)
     out["sparse"] = sparse_phase(seed, card, net, ctx)
     return out
 
@@ -4063,8 +4095,8 @@ def zoo_to_fused(zoo, fused):
     the device, as the JAX package's ``tests/test_fused_resnet.py``
     ``_build_pair`` maps them: the two inventories in order, conv weights
     OIHW -> HWIO. Returns the pairs of names."""
-    zp = list(zoo.collect_params().items())
-    fp = list(fused.collect_params().items())
+    zp = list(_param_tensors(zoo).items())
+    fp = list(_param_tensors(fused).items())
     if len(zp) != len(fp):
         raise AssertionError(f"{len(zp)} zoo tensors against {len(fp)} "
                              "fused ones")
@@ -4091,7 +4123,7 @@ def unfused_parity(zoo, fused, ce, x, y):
     import incubator_mxnet_tpu_torch as mx
 
     pairs = zoo_to_fused(zoo, fused)
-    zps, fps = zoo.collect_params(), fused.collect_params()
+    zps, fps = _param_tensors(zoo), _param_tensors(fused)
     out = {}
     _reset_conv_launches()
     for net in (zoo, fused):
@@ -4276,7 +4308,7 @@ def unfused_resnet_main(seed, card):
                                                            ctx=ctx)
     with mx.autograd.pause():              # fills the deferred shapes
         net(torch.zeros(2, 3, 224, 224, device=ctx.torch_device()))
-    ps = net.collect_params()
+    ps = _param_tensors(net)
     counts = (sum(p.numel() for p in ps.values()),
               sum(p.requires_grad for p in ps.values()),
               sum(not p.requires_grad for p in ps.values()),
@@ -6175,7 +6207,7 @@ def nd_phase(seed, card, net, ctx, b=8, lr=3e-4, dropout=0.1,
     rs = np.random.RandomState(seed + 7)
     tokens = mx.nd.array(rs.randint(0, vocab, (b, t)), ctx=ctx)
     labels = mx.nd.array(rs.randint(0, vocab, (n_rows,)), ctx=ctx)
-    named = [(n, p) for n, p in net.collect_params().items()
+    named = [(n, p) for n, p in _param_tensors(net).items()
              if p.requires_grad]
     names = [n for n, _ in named]
     params = {n: NDArray(p) for n, p in named}
@@ -7113,7 +7145,7 @@ def fp64_referee(net, loss_fn, data, labels, module, candidates):
     import incubator_mxnet_tpu_torch as mx
 
     net64 = copy.deepcopy(net).cast("float64")
-    named = [(n, p) for n, p in net64.collect_params().items()
+    named = [(n, p) for n, p in _param_tensors(net64).items()
              if p.requires_grad]
     with swap_attention(module), mx.autograd.record():
         loss = loss_fn(*net64(*data), *labels)
@@ -7162,7 +7194,7 @@ def nd1x_phase(seed, card, net, ctx, sizes=BERT_SIZES[:2], steps=10, reps=5,
                               dev, lens)
     nd_data = [NDArray(x) for x in data]
     nd_labels = [NDArray(y) for y in labels]
-    named = [(n, p) for n, p in net.collect_params().items()
+    named = [(n, p) for n, p in _param_tensors(net).items()
              if p.requires_grad]
     names = [n for n, _ in named]
     params = {n: NDArray(p) for n, p in named}
@@ -7950,7 +7982,7 @@ def np_phase(seed, card, net, ctx, b=8, lr=3e-4, cases=NP_CASES, reps=5):
     labels = mx.nd.array(rs.randint(0, vocab, (b, t)), ctx=ctx,
                          dtype="int32")
     flat_labels = labels.reshape(-1)
-    named = [(n, p) for n, p in net.collect_params().items()
+    named = [(n, p) for n, p in _param_tensors(net).items()
              if p.requires_grad]
     names = [n for n, _ in named]
     params = {n: NDArray(p) for n, p in named}
@@ -8619,10 +8651,10 @@ def sparse_bert(seed, card, net, ctx, sizes=BERT_SIZES[:2], steps=3,
           "lazy_update": True}
     tr = gluon.Trainer(net.collect_params(), "sgd", kw)
     dtr = gluon.Trainer(dense_net.collect_params(), "sgd", kw)
-    names = [n for n, p in net.collect_params().items()
+    names = [n for n, p in _param_tensors(net).items()
              if p.requires_grad and n != "word_embed.weight"]
-    params = dict(net.collect_params())
-    dparams = dict(dense_net.collect_params())
+    params = dict(_param_tensors(net))
+    dparams = dict(_param_tensors(dense_net))
     slot = tr._param2idx[id(table)]
     start = table.detach().clone()
     lens = bert_lengths(seed, b, t)
@@ -8909,7 +8941,7 @@ CLIP_RTOL = 1e-6
 def inventory(net):
     """(values with the running statistics, trainable tensors, running
     statistics, convs) of ``net``."""
-    ps = list(net.collect_params().values())
+    ps = list(_param_tensors(net).values())
     return (sum(p.numel() for p in ps), sum(p.requires_grad for p in ps),
             sum(not p.requires_grad for p in ps),
             sum(p.dim() == 4 for p in ps))
@@ -9069,7 +9101,7 @@ def vision_net(name, ctx, hw, classes, params=None, init="xavier"):
 
 def net_values(net):
     return {n: p.detach().cpu().numpy() for n, p in
-            net.collect_params().items()}
+            _param_tensors(net).items()}
 
 
 def vision_parity(label, name, net, hw, classes, x, y, ctx):
@@ -9500,7 +9532,7 @@ def vision_cases_phase(mx, ctx, cases=VISION_CASES, seed=0):
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed + i)
         with torch.no_grad():
-            for n, p in net.collect_params().items():
+            for n, p in _param_tensors(net).items():
                 v = torch.randn(p.shape, generator=gen, device=dev) * 0.1
                 p.copy_(v.abs() + 0.5 if n.endswith(("running_var", "gamma"))
                         else v)
@@ -9808,6 +9840,518 @@ def kernel_sass():
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# hybrid phase: hybridize (CachedOp on CUDA graphs), export, SymbolBlock,
+# ModelServer.from_exported and the control-flow ops
+# ---------------------------------------------------------------------------
+#: a hybridized pass against the eager pass of the same net (relative L2 of
+#: the logits, of each gradient): a replay runs the kernels the eager call
+#: launched, on the same inputs, so bit-equality is what is expected; the
+#: bound only leaves room for a library (cuBLAS) that picks another
+#: algorithm on the capture's side stream
+HYBRID_RTOL = {"fp32": 1e-6, "bf16": 1e-3}
+#: an exported graph run again by a SymbolBlock against the block (the same
+#: registered ops on the same inputs)
+EXPORT_RTOL = 1e-6
+#: a served row (its bucket's batch) against the row of ``net(x)`` over
+#: all the requests at once: another batch size may take another cuDNN
+#: algorithm, whose fp32 sums round differently
+SERVE_RTOL = 1e-4
+#: the control-flow constructs against their unrolled forms: the same ops
+CONTROL_RTOL = 1e-6
+
+
+def _graph_device_ms(step_graph, iters=20):
+    """Device ms a replay of a captured graph (CUDA events around
+    ``iters`` back-to-back replays)."""
+    step_graph.graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        step_graph.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _attention_block(gluon, nn, units, heads):
+    """A QKV ``Dense`` split into heads and ``mx.nd.flash_attention``
+    (the GPT's attention, as a user writes it with ``hybrid_forward``)."""
+
+    class Attention(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="attention_")
+            with self.name_scope():
+                self.qkv = nn.Dense(3 * units, flatten=False, in_units=units)
+
+        def hybrid_forward(self, F, x):
+            b, t, _ = x.shape
+            d = units // heads
+            qkv = self.qkv(x).reshape(b, t, 3, heads, d)
+            q, k, v = [qkv.slice_axis(axis=2, begin=i, end=i + 1)
+                       .reshape(b, t, heads, d).transpose((0, 2, 1, 3))
+                       for i in range(3)]
+            o = F.flash_attention(q, k, v, causal=True)
+            return o.transpose((0, 2, 1, 3)).reshape(b, t, units)
+
+    return Attention()
+
+
+def _hold(label, got, want, rtol):
+    """``got`` within ``rtol`` (relative L2) of ``want``; returns the
+    error and whether the two are bit-equal."""
+    got = got._data if hasattr(got, "_data") else got
+    want = want._data if hasattr(want, "_data") else want
+    err = _rel_l2(got, want)
+    same = bool(torch.equal(got, want))
+    if not (err <= rtol) or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: relative L2 {err:.3e} > {rtol}")
+    return err, same
+
+
+def hybrid_gpt_part(seed, card, net, ctx, dtype, b, t, steps=1, lr=1e-4,
+                    timed=True):
+    """``net`` (a GPT, dropout 0) hybridized in ``dtype``: the inference
+    forward captured once and replayed, against the eager forward of the
+    same net (``HYBRID_RTOL``), K4's launches of a replay equal to an eager
+    call's, route by route; the recorded step (forward and backward
+    captured as a pair of graphs) with every gradient against the eager
+    step's; in fp32 ``steps`` ``gluon.Trainer`` adam steps over
+    ``net.collect_params()`` (the ParameterDict), after which the replay of
+    the forward captured before them equals the eager forward of the
+    updated weights (the graphs read the parameters in place). On the CPU
+    the hybridized block runs eagerly and captures nothing."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.gluon import block as gblock
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    on_card = ctx.device_type == "gpu"
+    name = DTYPE_NAMES[dtype]
+    rtol = HYBRID_RTOL[name]
+    vocab, layers = net.vocab_size, net.num_layers
+    rs = np.random.RandomState(seed + 29)
+    x = mx.nd.array(rs.randint(0, vocab, (b, t)), ctx=ctx, dtype="int32")
+    y = mx.nd.array(rs.randint(0, vocab, (b * t,)).astype(np.float32),
+                    ctx=ctx)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainable = [(n, p) for n, p in net.named_parameters()
+                 if p.requires_grad]
+
+    def forward():
+        with mx.autograd.pause():
+            return net(x)
+
+    def step():
+        for _, p in trainable:
+            p.grad = None
+        with mx.autograd.record():
+            loss = ce(net(x).reshape((-1, vocab)), y).mean()
+        loss.backward()
+        return loss, {n: p.grad.clone() for n, p in trainable}
+
+    def launches_of(fn):
+        _sync(ctx)
+        _reset_launches(fa)
+        out = fn()
+        _sync(ctx)
+        return out, _read_routes(fa)
+
+    net.hybridize(False)
+    eager, eager_routes = launches_of(forward)
+    times = {}
+    if timed:
+        times["eager_call_ms"] = call_ms(forward, iters=10, warmup=2)
+        times["eager_device_ms"] = device_ms(forward, per_graph=5,
+                                             replays=4)
+    net.hybridize()
+    first, _ = launches_of(forward)            # the capture
+    hybrid, replay_routes = launches_of(forward)
+    cop = net._cached_op
+    if on_card:
+        if not (cop is not None and cop.captures == 1 and cop.replays == 2):
+            raise AssertionError(f"GPT {name}: the forward was not one "
+                                 f"capture replayed twice: {cop}")
+        if replay_routes != eager_routes or eager_routes[
+                "flash_fwd_" + fwd_route_expected(t, net.head_dim,
+                                                  dtype)] != layers:
+            raise AssertionError(f"GPT {name}: K4 by route on a replay "
+                                 f"{replay_routes}, eager {eager_routes}")
+    elif cop is not None:
+        raise AssertionError("the CPU captured a graph")
+    err, same = _hold(f"hybridized GPT {name} forward", hybrid, eager, rtol)
+    _hold(f"hybridized GPT {name} capture call", first, eager, rtol)
+    if timed and on_card:
+        times["hybrid_call_ms"] = call_ms(forward, iters=10, warmup=2)
+        times["hybrid_device_ms"] = _graph_device_ms(
+            cop._graphs.graphs()[-1])
+    print(f"hybridized GPT-117M forward ({name}, B={b}, T={t}, {card}): "
+          f"captures {cop.captures if cop else 0}, replays "
+          f"{cop.replays if cop else 0}; against eager: relative L2 "
+          f"{err:.3e}, bit-equal {same}; K4 a replay {replay_routes} = "
+          f"eager {eager_routes}; times {times}", flush=True)
+
+    # the recorded step: forward and backward as a pair of graphs
+    _, _ = step()                                 # the pair's capture
+    (loss, grads), step_routes = launches_of(step)
+    want_routes = training_routes(int(dtype == torch.float32),
+                                  int(dtype == torch.bfloat16), layers, t,
+                                  net.head_dim)
+    if on_card and step_routes != want_routes:
+        raise AssertionError(f"GPT {name} recorded step launched "
+                             f"{step_routes}, not {want_routes}")
+    pairs = sum(len(v) for v in cop._pairs.values()) if cop else 0
+    net.hybridize(False)
+    eager_loss, eager_grads = step()
+    worst, equal = 0.0, 0
+    for n, g in grads.items():
+        e, s = _hold(f"hybridized GPT {name} gradient {n}", g,
+                     eager_grads[n], rtol)
+        worst, equal = max(worst, e), equal + s
+    _hold(f"hybridized GPT {name} loss", loss.reshape(1),
+          eager_loss.reshape(1), rtol)
+    print(f"hybridized GPT-117M recorded step ({name}): loss "
+          f"{float(loss.asscalar()):.6f} (eager "
+          f"{float(eager_loss.asscalar()):.6f}); {len(grads)} gradients, "
+          f"worst relative L2 {worst:.3e}, {equal} bit-equal; "
+          f"{pairs} pair(s) of graphs; launches {step_routes}", flush=True)
+    out = dict(dtype=name, captures=cop.captures if cop else 0,
+               replays=cop.replays if cop else 0, pairs=pairs,
+               forward_err=err, forward_bit_equal=same, grad_worst=worst,
+               grads_bit_equal=equal, n_grads=len(grads),
+               eager_routes=eager_routes, replay_routes=replay_routes,
+               step_routes=step_routes, **times)
+    if dtype != torch.float32:
+        return out
+    # a Trainer over the ParameterDict; the forward graph captured before
+    # its steps reads the updated weights in place
+    net.hybridize()
+    forward()                                     # capture
+    tr = gluon.Trainer(net.collect_params(), "adam", {"learning_rate": lr})
+    losses = []
+    for _ in range(steps):
+        loss, _ = step()
+        tr.step(1)
+        losses.append(float(loss.asscalar()))
+    before = gblock.cached_op_counts["captures"]
+    after = forward()
+    recaptured = gblock.cached_op_counts["captures"] - before
+    if on_card and recaptured:
+        raise AssertionError("the trainer's in-place update made the "
+                             "forward capture again")
+    net.hybridize(False)
+    err_after, same_after = _hold("hybridized GPT forward after the "
+                                  "trainer's steps", after, forward(), rtol)
+    print(f"gluon.Trainer(net.collect_params(), 'adam') over the "
+          f"ParameterDict ({len(tr._params)} parameters): {steps} step(s), "
+          f"losses {losses}; the replay after it against eager: relative "
+          f"L2 {err_after:.3e}, bit-equal {same_after}", flush=True)
+    out.update(trainer_losses=losses, after_err=err_after,
+               after_bit_equal=same_after, trainer_params=len(tr._params))
+    return out
+
+
+def export_resnet_part(seed, card, net, ctx, hw, b, buckets, requests,
+                       threads, train_steps=3):
+    """``net`` (the zoo ``resnet50_v1``, fp32, drawn): ``train_steps`` SGD
+    steps move its running statistics; ``export`` then
+    ``SymbolBlock.imports`` on ``ctx``: the logits against the block's
+    (``EXPORT_RTOL``), the 106 statistics imported as auxiliary states;
+    ``export_for_serving(buckets)`` and ``ModelServer.from_exported``:
+    ``requests`` rows from ``threads`` threads, each against the row of
+    ``net(x)`` (``SERVE_RTOL``), one graph a bucket on the card."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.serving import ModelServer
+
+    on_card = ctx.device_type == "gpu"
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed + 31)
+    x = mx.nd.array(rs.rand(b, 3, hw, hw).astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rs.randint(0, 10, (b,)).astype(np.float32), ctx=ctx)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.01})
+    stats = [p for n, p in net.named_parameters() if "running" in n]
+    before = [s.detach().clone() for s in stats]
+    for _ in range(train_steps):
+        with mx.autograd.record():
+            loss = ce(net(x), y).mean()
+        loss.backward()
+        tr.step(b)
+    moved = sum(not torch.equal(s, p) for s, p in zip(stats, before))
+    if moved != len(stats):
+        raise AssertionError(f"{len(stats) - moved} running statistics "
+                             "did not move")
+    with mx.autograd.pause():
+        want = net(x)
+    with tempfile.TemporaryDirectory(prefix="mxtpu_export_") as d:
+        sj, pp = net.export(os.path.join(d, "resnet50"))
+        blk = gluon.SymbolBlock.imports(sj, "data", pp, ctx=ctx)
+        with mx.autograd.pause():
+            got = blk(x)
+        err, same = _hold("exported resnet50_v1 logits", got, want,
+                          EXPORT_RTOL)
+        if len(blk._sym_aux_names) != len(stats) or not all(
+                "running" in n for n in blk._sym_aux_names):
+            raise AssertionError(f"{len(blk._sym_aux_names)} auxiliary "
+                                 f"states imported, not {len(stats)}")
+        nodes = len(blk._sym_outputs._topo_nodes())
+        prefix = os.path.join(d, "served")
+        net.export_for_serving(prefix, buckets=buckets)
+        srv = ModelServer.from_exported(prefix, ctx=ctx, max_wait_ms=2.0)
+        try:
+            xs = rs.rand(requests, 3, hw, hw).astype(np.float32)
+            with ThreadPoolExecutor(threads) as pool:
+                futs = list(pool.map(srv.submit, xs))
+            rows = np.stack([f.result(300) for f in futs])
+            snap = srv.stats()
+            srv.drain(60)
+        finally:
+            srv.close()
+    with mx.autograd.pause():
+        full = net(mx.nd.array(xs, ctx=ctx)).asnumpy()
+    row_err = max(_rel_l2(r, w) for r, w in zip(rows, full))
+    captures = snap["executor_cache"]["captures"]
+    signatures = sorted(k[0] for k in snap["compiled"])
+    if row_err > SERVE_RTOL or signatures != sorted(buckets) or (
+            on_card and captures != len(buckets)):
+        raise AssertionError(
+            f"from_exported: worst row {row_err:.3e}, buckets "
+            f"{signatures}, captures {captures}")
+    seconds = time.perf_counter() - t0
+    print(f"resnet50_v1 export (B={b}, {hw}x{hw}, fp32, {card}): "
+          f"{nodes} nodes, {len(blk._sym_aux_names)} auxiliary states; "
+          f"SymbolBlock logits against the block's: relative L2 {err:.3e}, "
+          f"bit-equal {same}; from_exported: {requests} requests from "
+          f"{threads} threads, worst row {row_err:.3e}, {captures} "
+          f"captures for buckets {signatures}, occupancy "
+          f"{snap['batch_occupancy']}; {seconds:.1f} s", flush=True)
+    return dict(logits_err=err, logits_bit_equal=same, nodes=nodes,
+                aux=len(blk._sym_aux_names), row_err=row_err,
+                captures=captures, buckets=signatures,
+                occupancy=snap["batch_occupancy"],
+                latency_ms=snap["latency_ms"], seconds=seconds)
+
+
+def export_attention_part(seed, card, ctx, b, t, units, heads):
+    """The attention block at ``units`` and ``heads`` over (``b``, ``t``):
+    exported and imported; the SymbolBlock's forward launches K4 (once, on
+    the route of the shape) and equals the block's output."""
+    import tempfile
+
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon
+    from incubator_mxnet_tpu_torch.gluon import nn
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    on_card = ctx.device_type == "gpu"
+    blk = _attention_block(gluon, nn, units, heads)
+    blk.initialize("xavier", ctx=ctx)
+    rs = np.random.RandomState(seed + 37)
+    x = mx.nd.array(rs.randn(b, t, units).astype(np.float32), ctx=ctx)
+    with mx.autograd.pause():
+        want = blk(x)
+    with tempfile.TemporaryDirectory(prefix="mxtpu_export_") as d:
+        sj, pp = blk.export(os.path.join(d, "attention"))
+        ops = [n["op"] for n in json.load(open(sj))["nodes"]
+               if n["op"] != "null"]
+        sym = gluon.SymbolBlock.imports(sj, "data", pp, ctx=ctx)
+    _sync(ctx)
+    _reset_launches(fa)
+    with mx.autograd.pause():
+        got = sym(x)
+    _sync(ctx)
+    routes = _read_routes(fa)
+    route = "flash_fwd_" + fwd_route_expected(t, units // heads,
+                                              torch.float32)
+    if on_card and routes != {**dict.fromkeys(ROUTE_COUNTERS, 0),
+                              route: 1}:
+        raise AssertionError(f"the SymbolBlock launched {routes}, not K4 "
+                             f"once on {route}")
+    err, same = _hold("the exported attention block", got, want,
+                      EXPORT_RTOL)
+    print(f"attention block export ({b}x{heads}x{t}x{units // heads}, "
+          f"fp32, {card}): ops {ops}; the SymbolBlock's K4 launches "
+          f"{routes[route]} on {route}; against the block: relative L2 "
+          f"{err:.3e}, bit-equal {same}", flush=True)
+    return dict(ops=ops, routes=routes, err=err, bit_equal=same)
+
+
+def control_flow_part(seed, card, ctx, b, units, steps, max_iterations,
+                      stop):
+    """``foreach`` over ``steps`` steps of a ``Dense(units)``+tanh cell at
+    B=``b``, ``while_loop`` with ``max_iterations`` (its condition false
+    after ``stop`` steps) and ``cond`` with ``inputs``, each against its
+    unrolled or explicit form on the same inputs: the values and the
+    gradients of the inputs and the cell's parameters (``CONTROL_RTOL``);
+    the rows of ``while_loop`` after the last active step are zeros."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import contrib
+    from incubator_mxnet_tpu_torch.gluon import nn
+
+    mx.random.seed(seed + 41)
+    cx = nn.Dense(units, flatten=False, in_units=units).initialize(
+        "xavier", ctx=ctx)
+    ch = nn.Dense(units, flatten=False, in_units=units,
+                  use_bias=False).initialize("xavier", ctx=ctx)
+    params = [p for c in (cx, ch) for p in c.parameters()]
+    rs = np.random.RandomState(seed + 43)
+    xs_np = (0.5 * rs.randn(steps, b, units)).astype(np.float32)
+    h0_np = (0.5 * rs.randn(b, units)).astype(np.float32)
+
+    def cell(x_t, h):
+        return (cx(x_t) + ch(h)).tanh()
+
+    def run(fn):
+        xs = mx.nd.array(xs_np, ctx=ctx)
+        h0 = mx.nd.array(h0_np, ctx=ctx)
+        for v in (xs, h0):
+            v.attach_grad()
+        for p in params:
+            p.grad = None
+        with mx.autograd.record():
+            outs = fn(xs, h0)
+            loss = sum((o ** 2).sum() for o in outs)
+        loss.backward()
+        return ([o._data.detach().clone() for o in outs],
+                [xs.grad._data, h0.grad._data]
+                + [p.grad.clone() for p in params])
+
+    def foreach(xs, h0):
+        outs, h = contrib.foreach(lambda x, h: (cell(x, h),) * 2, xs, h0)
+        return [outs, h]
+
+    def unrolled(xs, h0):
+        rows, h = [], h0
+        for i in range(steps):
+            h = cell(xs[i], h)
+            rows.append(h)
+        return [mx.nd.stack(*rows, axis=0), h]
+
+    def while_loop(xs, h0):
+        i0 = mx.nd.zeros((1,), ctx=ctx)
+        outs, (i, h) = contrib.while_loop(
+            lambda i, h: i < stop,
+            lambda i, h: (cell(xs[0], h), (i + 1, cell(xs[0], h))),
+            (i0, h0), max_iterations=max_iterations)
+        return [outs, h]
+
+    def explicit_while(xs, h0):
+        rows, h = [], h0
+        for _ in range(min(stop, max_iterations)):
+            rows.append(cell(xs[0], h))
+            h = cell(xs[0], h)
+        rows += [mx.nd.zeros_like(h)] * (max_iterations - len(rows))
+        return [mx.nd.stack(*rows, axis=0), h]
+
+    def cond(xs, h0):
+        return [contrib.cond(lambda x, h: (x.sum() > 0),
+                             lambda x, h: cell(x, h),
+                             lambda x, h: cell(-x, h) * 0.5,
+                             [xs[0], h0])]
+
+    def explicit_cond(xs, h0):
+        taken = float(xs[0].sum().asscalar()) > 0
+        return [cell(xs[0], h0) if taken else cell(-xs[0], h0) * 0.5]
+
+    out = {}
+    for name, fn, ref in (("foreach", foreach, unrolled),
+                          ("while_loop", while_loop, explicit_while),
+                          ("cond", cond, explicit_cond)):
+        t0 = time.perf_counter()
+        got, got_g = run(fn)
+        _sync(ctx)
+        seconds = time.perf_counter() - t0
+        want, want_g = run(ref)
+        errs = [_hold(f"{name} value {i}", g, w, CONTROL_RTOL)[0]
+                for i, (g, w) in enumerate(zip(got, want))]
+        gerrs = [_hold(f"{name} gradient {i}", g, w, CONTROL_RTOL)[0]
+                 for i, (g, w) in enumerate(zip(got_g, want_g))]
+        out[name] = dict(value_err=max(errs), grad_err=max(gerrs),
+                         seconds=seconds)
+        if name == "while_loop":
+            tail = got[0][min(stop, max_iterations):]
+            if tail.numel() and tail.abs().max().item() != 0:
+                raise AssertionError("while_loop rows after the last "
+                                     "active step are not zeros")
+        print(f"{name} ({card}; B={b}, {units} units, "
+              f"{steps if name == 'foreach' else max_iterations} steps): "
+              f"values {max(errs):.3e}, {len(gerrs)} gradients "
+              f"{max(gerrs):.3e} from the unrolled form (relative L2); "
+              f"{seconds:.3f} s", flush=True)
+    return out
+
+
+def _sync(ctx):
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+
+
+def hybrid_phase(seed, card, ctx, gpt, resnet, hw=224, b=8, t=256,
+                 attention=(8, 256, 768, 12), control=(8, 768, 256, 16, 11),
+                 buckets=(1, 2, 4, 8), requests=32, threads=8, timed=True):
+    """The hybrid phase on ``ctx``: ``gpt`` hybridized in fp32 then bf16
+    (``hybrid_gpt_part``), ``resnet`` exported and served
+    (``export_resnet_part``), the attention block exported
+    (``export_attention_part``) and the control flow
+    (``control_flow_part``). Returns each part's record and the flash
+    launches by route of the main paths (the hybridized passes' replays
+    and the SymbolBlock's forward)."""
+    from incubator_mxnet_tpu_torch.gluon import block as gblock
+
+    t0 = time.perf_counter()
+    out = {"gpt": {}}
+    routes = dict.fromkeys(ROUTE_COUNTERS, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype != torch.float32:
+            gpt.cast("bfloat16")
+        row = hybrid_gpt_part(seed, card, gpt, ctx, dtype, b, t,
+                              timed=timed)
+        out["gpt"][row["dtype"]] = row
+        for r in ROUTE_COUNTERS:
+            routes[r] += row["replay_routes"][r] + row["step_routes"][r]
+    out["resnet"] = export_resnet_part(seed, card, resnet, ctx, hw, b,
+                                       buckets, requests, threads)
+    out["attention"] = export_attention_part(seed, card, ctx, *attention)
+    for r in ROUTE_COUNTERS:
+        routes[r] += out["attention"]["routes"][r]
+    out["control"] = control_flow_part(seed, card, ctx, *control)
+    out["flash_routes"] = routes
+    out["cached_op_counts"] = dict(gblock.cached_op_counts)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"hybrid phase ({card}): CachedOp captures and replays "
+          f"{out['cached_op_counts']}; flash launches of its main paths "
+          f"{routes}; {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def hybrid_main(seed, card):
+    """The hybrid phase at full width on the card: ``gpt_decoder_117m``
+    (max_length 256, dropout 0, B=8, T=256) and the zoo ``resnet50_v1``
+    (1000 classes, 224x224, B=8), both drawn from ``seed``."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt, vision
+
+    ctx = mx.gpu(0)
+    mx.random.seed(seed)
+    gpt = get_gpt("gpt_decoder_117m", vocab_size=50257, dropout=0.0,
+                  max_length=256).initialize("xavier", ctx=ctx)
+    resnet = vision.resnet50_v1(classes=1000)
+    resnet.initialize("xavier", ctx=ctx)
+    with mx.autograd.pause():
+        resnet(mx.nd.zeros((1, 3, 224, 224), ctx=ctx))   # deferred shapes
+    out = hybrid_phase(seed, card, ctx, gpt, resnet)
+    del gpt, resnet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9873,6 +10417,8 @@ def main(argv=None) -> int:
     imperative = imperative_main(args.seed, card)
     gc.collect()
     nd = nd_main(args.seed, card)
+    gc.collect()
+    hybrid = hybrid_main(args.seed, card)
 
     src = "incubator_mxnet_tpu_torch/csrc/"
     ref = "incubator_mxnet_tpu/ops/pallas_attention.py:"
@@ -9907,7 +10453,8 @@ def main(argv=None) -> int:
             "nd1x": bert["nd1x"]["flash_routes"][f"flash_fwd_{route}"],
             "np": nd["np"]["flash_routes"][f"flash_fwd_{route}"],
             "sparse": sparse_bert_routes[f"flash_fwd_{route}"],
-            "utils": utils_routes[f"flash_fwd_{route}"]}
+            "utils": utils_routes[f"flash_fwd_{route}"],
+            "hybrid": hybrid["flash_routes"][f"flash_fwd_{route}"]}
         main_paths = sum(by_path.values())
         by_path["train_to_decode"] = trained["decode_routes"][route]
         if route == "tc":
@@ -9942,7 +10489,8 @@ def main(argv=None) -> int:
                            + bert["nd1x"]["flash_routes"][f"{name}_{route}"]
                            + nd["np"]["flash_routes"][f"{name}_{route}"]
                            + sparse_bert_routes[f"{name}_{route}"]
-                           + utils_routes[f"{name}_{route}"],
+                           + utils_routes[f"{name}_{route}"]
+                           + hybrid["flash_routes"][f"{name}_{route}"],
                            [r for r in bwd if r["kernel"] == name
                             and r["route"] == route], train_case, dtype)
             head = next(r for r in entry["cases"] if r["case"] == train_case
@@ -9959,7 +10507,8 @@ def main(argv=None) -> int:
                 "nd1x": bert["nd1x"]["flash_routes"][f"{name}_{route}"],
                 "np": nd["np"]["flash_routes"][f"{name}_{route}"],
                 "sparse": sparse_bert_routes[f"{name}_{route}"],
-                "utils": utils_routes[f"{name}_{route}"]}
+                "utils": utils_routes[f"{name}_{route}"],
+                "hybrid": hybrid["flash_routes"][f"{name}_{route}"]}
             if route == "tc":
                 entry["launches_by_path"]["bf16_gate"] = \
                     trained["gate_launches"][f"{name}_tc"]
@@ -10092,7 +10641,14 @@ def main(argv=None) -> int:
             "steps", "n_grads", "device_ms", "plain_device_ms", "launches",
             "plain_launches", "host_ms", "plain_host_ms", "seconds")},
         "vision_cases": vision["vision_cases"],
-        "vision_phase_s": vision["seconds"]}),
+        "vision_phase_s": vision["seconds"],
+        "hybrid_gpt": {name: {k: v for k, v in row.items()
+                              if not k.endswith("routes")}
+                       for name, row in hybrid["gpt"].items()},
+        "hybrid_export": {k: hybrid[k] for k in ("resnet", "control")}
+        | {"attention": {k: v for k, v in hybrid["attention"].items()
+                         if k != "routes"}},
+        "hybrid_phase_s": hybrid["seconds"]}),
         flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,10 @@ which compiles CUDA source at run time with NVRTC and launches it on
 NDArrays. Slice 15 trains BERT (``models.get_bert``) through the same
 flash kernels, with per-sample key lengths and no causal mask. Slice 20
 is the numpy front door: ``mx.np`` (with ``linalg``, ``fft`` and
-``random``) and ``mx.npx``, loaded on first use.
+``random``) and ``mx.npx``, loaded on first use. Slice 23 is hybridize and
+export: ``gluon.Parameter``/``ParameterDict``, ``HybridBlock`` with its
+``CachedOp`` on CUDA graphs, ``export``/``SymbolBlock`` over ``mx.sym``,
+and ``mx.contrib``'s control flow.
 
 Devices are explicit: every entry point takes a ``ctx``; the default is
 ``gpu(0)`` (``cuda:0``) and raises when there is no card. The CPU runs only
@@ -37,11 +40,13 @@ from . import base, config, device, initializer, random  # noqa: E402
 from . import autograd, lr_scheduler, optimizer  # noqa: E402
 from . import ops, ndarray, operator, rtc  # noqa: E402
 from . import gluon, models, parallel, serving  # noqa: E402
+from . import contrib, executor, symbol  # noqa: E402
 from .base import MXTPUError  # noqa: E402
 from .device import Context, cpu, current_context, gpu  # noqa: E402
 from .ops import rtc_kernels  # noqa: E402,F401  (registers softmax_ce_rtc)
 
 nd = ndarray
+sym = symbol
 
 
 def __getattr__(name):
@@ -57,7 +62,8 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["Context", "MXTPUError", "autograd", "base", "config", "cpu",
-           "current_context", "device", "gluon", "gpu", "initializer",
-           "lr_scheduler", "models", "nd", "ndarray", "operator", "ops",
-           "optimizer", "parallel", "random", "rtc", "serving"]
+__all__ = ["Context", "MXTPUError", "autograd", "base", "config", "contrib",
+           "cpu", "current_context", "device", "executor", "gluon", "gpu",
+           "initializer", "lr_scheduler", "models", "nd", "ndarray",
+           "operator", "ops", "optimizer", "parallel", "random", "rtc",
+           "serving", "sym", "symbol"]

@@ -12,25 +12,25 @@ expert-parallel path.
 
 from __future__ import annotations
 
-import torch
-
+from ...ops.tensor import concat
+from ..block import HybridBlock
 from ..nn.basic_layers import BatchNorm, Sequential
 
 __all__ = ["Concurrent", "HybridConcurrent", "SyncBatchNorm"]
 
 
-class HybridConcurrent(Sequential):
+class HybridConcurrent(Sequential, HybridBlock):
     """Parallel branches: the same input to every child, their outputs
     concatenated on ``axis`` (reference ``gluon.contrib.nn.
     HybridConcurrent``). Children are added and indexed as a
     ``Sequential``'s."""
 
-    def __init__(self, axis=-1):
-        super().__init__()
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self.axis = axis
 
     def forward(self, x):
-        return torch.cat([child(x) for child in self], dim=self.axis)
+        return concat(*[child(x) for child in self], dim=self.axis)
 
 
 Concurrent = HybridConcurrent
@@ -50,7 +50,8 @@ class SyncBatchNorm(BatchNorm):
                  use_global_stats=False, beta_initializer="zeros",
                  gamma_initializer="ones",
                  running_mean_initializer="zeros",
-                 running_variance_initializer="ones"):
+                 running_variance_initializer="ones",
+                 prefix=None, params=None):
         super().__init__(
             axis=1, momentum=momentum, epsilon=epsilon, center=center,
             scale=scale, use_global_stats=use_global_stats,
@@ -58,5 +59,5 @@ class SyncBatchNorm(BatchNorm):
             gamma_initializer=gamma_initializer,
             running_mean_initializer=running_mean_initializer,
             running_variance_initializer=running_variance_initializer,
-            in_channels=in_channels)
+            in_channels=in_channels, prefix=prefix, params=params)
         self._num_devices = num_devices

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..ops.more import ctc_loss
 from ..ops.tensor import wrap_index
-from .block import Block
+from .block import HybridBlock
 
 __all__ = ["CTCLoss", "CosineEmbeddingLoss", "HingeLoss", "HuberLoss",
            "KLDivLoss", "L1Loss", "L2Loss", "LogisticLoss", "Loss",
@@ -37,12 +37,12 @@ def _apply_weighting(loss, weight=None, sample_weight=None):
     return loss
 
 
-class Loss(Block):
+class Loss(HybridBlock):
     """Base loss: one scalar per sample along ``batch_axis`` (mean over
     the other axes)."""
 
-    def __init__(self, weight=1.0, batch_axis=0):
-        super().__init__()
+    def __init__(self, weight=1.0, batch_axis=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._weight = weight
         self._batch_axis = batch_axis
 
@@ -76,8 +76,8 @@ class SoftmaxCrossEntropyLoss(Loss):
     back to the logits' type (a bf16 net gets a bf16 loss)."""
 
     def __init__(self, axis=-1, sparse_label=True, from_logits=False,
-                 weight=1.0, batch_axis=0):
-        super().__init__(weight, batch_axis)
+                 weight=1.0, batch_axis=0, prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix=prefix, params=params)
         self._axis = axis
         self._sparse = sparse_label
         self._from_logits = from_logits
@@ -127,8 +127,9 @@ class SigmoidBinaryCrossEntropyLoss(Loss):
     positive term, as MXNet's (the JAX package takes the argument and
     leaves it out)."""
 
-    def __init__(self, from_sigmoid=False, weight=1.0, batch_axis=0):
-        super().__init__(weight, batch_axis)
+    def __init__(self, from_sigmoid=False, weight=1.0, batch_axis=0,
+                 prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix=prefix, params=params)
         self._from_sigmoid = from_sigmoid
 
     def forward(self, pred, label, sample_weight=None, pos_weight=None):
@@ -156,8 +157,9 @@ class KLDivLoss(Loss):
     """``label * (log(label) - log_pred)``; ``pred`` is a log-probability
     when ``from_logits``, else logits (log-softmaxed over ``axis``)."""
 
-    def __init__(self, from_logits=True, axis=-1, weight=1.0, batch_axis=0):
-        super().__init__(weight, batch_axis)
+    def __init__(self, from_logits=True, axis=-1, weight=1.0, batch_axis=0,
+                 prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix=prefix, params=params)
         self._from_logits = from_logits
         self._axis = axis
 
@@ -173,8 +175,9 @@ class HuberLoss(_PointwiseLoss):
     """Quadratic ``0.5 / rho * d**2`` inside ``|d| <= rho``, linear
     ``|d| - 0.5 * rho`` outside, ``d = pred - label``."""
 
-    def __init__(self, rho=1.0, weight=1.0, batch_axis=0):
-        super().__init__(weight, batch_axis)
+    def __init__(self, rho=1.0, weight=1.0, batch_axis=0,
+                 prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix=prefix, params=params)
         self._rho = rho
 
     def _pointwise(self, pred, label):
@@ -186,8 +189,9 @@ class HuberLoss(_PointwiseLoss):
 class HingeLoss(_PointwiseLoss):
     """``relu(margin - pred * label)``, labels -1 or 1."""
 
-    def __init__(self, margin=1.0, weight=1.0, batch_axis=0):
-        super().__init__(weight, batch_axis)
+    def __init__(self, margin=1.0, weight=1.0, batch_axis=0,
+                 prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix=prefix, params=params)
         self._margin = margin
 
     def _pointwise(self, pred, label):
@@ -206,8 +210,9 @@ class LogisticLoss(_PointwiseLoss):
     labels (-1 or 1), the binary cross entropy of logits for ``"binary"``
     labels (0 or 1)."""
 
-    def __init__(self, label_format="signed", weight=1.0, batch_axis=0):
-        super().__init__(weight, batch_axis)
+    def __init__(self, label_format="signed", weight=1.0, batch_axis=0,
+                 prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix=prefix, params=params)
         if label_format not in ("signed", "binary"):
             raise ValueError(f"label_format {label_format!r}: 'signed' or "
                              "'binary'")
@@ -223,8 +228,9 @@ class TripletLoss(Loss):
     """``relu(sum((a - p)**2 - (a - n)**2) + margin)`` a sample, the sum
     over every axis but the first."""
 
-    def __init__(self, margin=1.0, weight=1.0, batch_axis=0):
-        super().__init__(weight, batch_axis)
+    def __init__(self, margin=1.0, weight=1.0, batch_axis=0,
+                 prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix=prefix, params=params)
         self._margin = margin
 
     def forward(self, pred, positive, negative, sample_weight=None):
@@ -239,8 +245,9 @@ class CosineEmbeddingLoss(Loss):
     """``1 - cos(x1, x2)`` for a positive label, ``relu(cos - margin)``
     otherwise, each sample flattened."""
 
-    def __init__(self, weight=1.0, batch_axis=0, margin=0.0):
-        super().__init__(weight, batch_axis)
+    def __init__(self, weight=1.0, batch_axis=0, margin=0.0,
+                 prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix=prefix, params=params)
         self._margin = margin
 
     def forward(self, input1, input2, label, sample_weight=None):
@@ -261,8 +268,8 @@ class PoissonNLLLoss(Loss):
     mean over every axis but the first."""
 
     def __init__(self, from_logits=True, compute_full=False, weight=1.0,
-                 batch_axis=0):
-        super().__init__(weight, batch_axis)
+                 batch_axis=0, prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix=prefix, params=params)
         self._from_logits = from_logits
         self._full = compute_full
 
@@ -288,8 +295,9 @@ class CTCLoss(Loss):
     padded with -1 unless ``label_lengths`` cut them, and
     ``pred_lengths`` cut the sequences."""
 
-    def __init__(self, layout="NTC", label_layout="NT", weight=None):
-        super().__init__(weight or 1.0, 0)
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 prefix=None, params=None):
+        super().__init__(weight or 1.0, 0, prefix=prefix, params=params)
         if layout not in ("NTC", "TNC") or label_layout not in ("NT", "TN"):
             raise ValueError(f"CTCLoss layouts {layout!r}, {label_layout!r}:"
                              " 'NTC'/'TNC' and 'NT'/'TN'")
@@ -312,8 +320,9 @@ class SDMLLoss(Loss):
     ``x2`` (2-D), the pairs on the diagonal the positives
     (``1 - smoothing_parameter``, the rest sharing the remainder)."""
 
-    def __init__(self, smoothing_parameter=0.3, weight=1.0, batch_axis=0):
-        super().__init__(weight, batch_axis)
+    def __init__(self, smoothing_parameter=0.3, weight=1.0, batch_axis=0,
+                 prefix=None, params=None):
+        super().__init__(weight, batch_axis, prefix=prefix, params=params)
         self._smooth = smoothing_parameter
 
     def forward(self, x1, x2):

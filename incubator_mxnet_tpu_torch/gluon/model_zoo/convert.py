@@ -25,7 +25,7 @@ def load_jax_params(net: Block, params: Mapping[str, np.ndarray],
     forward takes the given one); anything else raises ``ValueError``
     before a single parameter changes. Returns ``net``."""
     dev = resolve(ctx)
-    own = net.collect_params()
+    own = dict(net.named_parameters())
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:

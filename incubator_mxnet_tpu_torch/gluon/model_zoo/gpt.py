@@ -28,7 +28,8 @@ import torch
 
 from ...ops.flash_attention import flash_attention
 from ...ops.nn import activation
-from ..block import Block
+from ...ops.registry import recorded
+from ..block import HybridBlock
 from ..nn import Dense, Dropout, Embedding, LayerNorm
 
 __all__ = ["CausalSelfAttention", "GPTBlockCell", "GPTDecoder", "get_gpt"]
@@ -48,19 +49,21 @@ def _kv_cache_write(cache, new, total_lens):
     return cache
 
 
-class CausalSelfAttention(Block):
+class CausalSelfAttention(HybridBlock):
     """Fused-QKV multi-head causal self-attention with a decode mode."""
 
-    def __init__(self, units, num_heads, dropout=0.0):
-        super().__init__()
-        if units % num_heads:
-            raise ValueError(f"units {units} not divisible by heads "
-                             f"{num_heads}")
-        self._units = units
-        self._heads = num_heads
-        self.qkv = Dense(3 * units, flatten=False, in_units=units)
-        self.proj = Dense(units, flatten=False, in_units=units)
-        self.drop = Dropout(dropout)
+    def __init__(self, units, num_heads, dropout=0.0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            if units % num_heads:
+                raise ValueError(f"units {units} not divisible by heads "
+                                 f"{num_heads}")
+            self._units = units
+            self._heads = num_heads
+            self.qkv = Dense(3 * units, flatten=False, in_units=units)
+            self.proj = Dense(units, flatten=False, in_units=units)
+            self.drop = Dropout(dropout)
 
     def _project(self, x):
         """(B, H, T, D) views of q, k, v over the fused projection."""
@@ -99,17 +102,19 @@ class CausalSelfAttention(Block):
         return self.drop(self.proj(self._merge(out))), k_cache, v_cache
 
 
-class GPTBlockCell(Block):
+class GPTBlockCell(HybridBlock):
     """Pre-norm decoder block: x + attn(ln1(x)); x + ffn(ln2(x))."""
 
-    def __init__(self, units, hidden_size, num_heads, dropout=0.1):
-        super().__init__()
-        self.ln1 = LayerNorm(in_channels=units)
-        self.attn = CausalSelfAttention(units, num_heads, dropout=dropout)
-        self.ln2 = LayerNorm(in_channels=units)
-        self.ffn1 = Dense(hidden_size, flatten=False, in_units=units)
-        self.ffn2 = Dense(units, flatten=False, in_units=hidden_size)
-        self.ffn_drop = Dropout(dropout)
+    def __init__(self, units, hidden_size, num_heads, dropout=0.1,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.ln1 = LayerNorm(in_channels=units)
+            self.attn = CausalSelfAttention(units, num_heads, dropout=dropout)
+            self.ln2 = LayerNorm(in_channels=units)
+            self.ffn1 = Dense(hidden_size, flatten=False, in_units=units)
+            self.ffn2 = Dense(units, flatten=False, in_units=hidden_size)
+            self.ffn_drop = Dropout(dropout)
 
     def _ffn(self, x):
         return self.ffn_drop(self.ffn2(activation(self.ffn1(x), "gelu")))
@@ -130,31 +135,33 @@ class GPTBlockCell(Block):
         return x + self._ffn(self.ln2(x)), k_cache, v_cache
 
 
-class GPTDecoder(Block):
+class GPTDecoder(HybridBlock):
     """GPT-style decoder LM: tokens (B, T) int -> logits (B, T, V).
 
     ``max_length`` bounds both the sequence length and the serving KV-cache
     ``max_len`` (learned position table size)."""
 
     def __init__(self, vocab_size=50257, units=768, hidden_size=None,
-                 num_layers=12, num_heads=12, max_length=1024, dropout=0.1):
-        super().__init__()
-        self._vocab = vocab_size
-        self._units = units
-        self._layers = num_layers
-        self._heads = num_heads
-        self._max_length = max_length
-        hidden_size = 4 * units if hidden_size is None else hidden_size
-        self.word_embed = Embedding(vocab_size, units)
-        self.position_embed = Embedding(max_length, units)
-        self.embed_dropout = Dropout(dropout)
-        for i in range(num_layers):
-            setattr(self, f"layer{i}",
-                    GPTBlockCell(units, hidden_size, num_heads,
-                                 dropout=dropout))
-        self.ln_f = LayerNorm(in_channels=units)
-        self.head = Dense(vocab_size, flatten=False, use_bias=False,
-                          in_units=units)
+                 num_layers=12, num_heads=12, max_length=1024, dropout=0.1,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self._vocab = vocab_size
+            self._units = units
+            self._layers = num_layers
+            self._heads = num_heads
+            self._max_length = max_length
+            hidden_size = 4 * units if hidden_size is None else hidden_size
+            self.word_embed = Embedding(vocab_size, units)
+            self.position_embed = Embedding(max_length, units)
+            self.embed_dropout = Dropout(dropout)
+            for i in range(num_layers):
+                setattr(self, f"layer{i}",
+                        GPTBlockCell(units, hidden_size, num_heads,
+                                     dropout=dropout))
+            self.ln_f = LayerNorm(in_channels=units)
+            self.head = Dense(vocab_size, flatten=False, use_bias=False,
+                              in_units=units)
 
     # serving/decode.py sizes the KV cache off these
     @property
@@ -185,6 +192,7 @@ class GPTDecoder(Block):
                                   + self.position_embed(positions))
 
     @staticmethod
+    @recorded("positions")
     def _positions(tokens):
         b, t = tokens.shape
         return torch.arange(t, device=tokens.device).expand(b, t)

@@ -49,7 +49,8 @@ import torch.nn.functional as F
 from .... import autograd
 from ....ops.fused_conv import bn_scale_shift, fused_conv_bn
 from ....ops.nn import pooling
-from ...block import Block
+from ....ops.registry import recorded
+from ...block import HybridBlock
 from ...nn import Dense, HybridSequential
 
 __all__ = ["FusedBottleneckV1", "FusedResNetV1", "fused_resnet101_v1",
@@ -126,6 +127,7 @@ def _join_parts(y, a, b, r, ar, br):
     return torch.relu(out).to(y.dtype)
 
 
+@recorded("fused_stem")
 def _fused_stem(x, w, g, be, rm, rv, training=True, eps=1e-5):
     """NCHW input -> NHWC: 7x7/2 conv + BatchNorm + ReLU + 3x3/2 max pool,
     plain PyTorch. Returns ``(out, mean, var)``."""
@@ -173,7 +175,7 @@ class _BNParams:
             t.copy_(t * momentum + v.detach() * (1 - momentum))
 
 
-class FusedBottleneckV1(Block):
+class FusedBottleneckV1(HybridBlock):
     """Bottleneck v1 (stride on the 3x3, as the zoo ``BottleneckV1``) over
     the fused conv + BatchNorm kernels; weights HWIO, activations NHWC.
 
@@ -182,8 +184,8 @@ class FusedBottleneckV1(Block):
     used on its own."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 epsilon=1e-5, momentum=0.9):
-        super().__init__()
+                 epsilon=1e-5, momentum=0.9, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         c4 = channels // 4
         self._stride = stride
         self._eps = epsilon
@@ -229,33 +231,38 @@ def materialize(x):
     return x
 
 
-class FusedResNetV1(Block):
+class FusedResNetV1(HybridBlock):
     """ResNet v1 assembled from fused bottlenecks (50/101/152 depths).
     Input (N, 3, H, W) NCHW; output (N, classes) logits."""
 
     def __init__(self, layers, channels, classes=1000, epsilon=1e-5,
-                 momentum=0.9):
-        super().__init__()
+                 momentum=0.9, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._eps = epsilon
         self._momentum = momentum
         self._declare("conv0_weight", (7, 7, 3, channels[0]),
                       init="xavier")
         self.bn0 = _BNParams(self, "bn0", channels[0])
-        self.stages = HybridSequential()
-        for i, num_layer in enumerate(layers):
-            stride = 1 if i == 0 else 2
-            stage = HybridSequential()
-            stage.add(FusedBottleneckV1(
-                channels[i + 1], stride,
-                downsample=channels[i + 1] != channels[i],
-                in_channels=channels[i], epsilon=epsilon, momentum=momentum))
-            for _ in range(num_layer - 1):
-                stage.add(FusedBottleneckV1(
-                    channels[i + 1], 1, downsample=False,
-                    in_channels=channels[i + 1], epsilon=epsilon,
-                    momentum=momentum))
-            self.stages.add(stage)
-        self.output = Dense(classes, in_units=channels[-1])
+        with self.name_scope():
+            self.stages = HybridSequential(prefix="")
+            with self.stages.name_scope():
+                for i, num_layer in enumerate(layers):
+                    stride = 1 if i == 0 else 2
+                    stage = HybridSequential(prefix=f"stage{i + 1}_")
+                    with stage.name_scope():
+                        stage.add(FusedBottleneckV1(
+                            channels[i + 1], stride,
+                            downsample=channels[i + 1] != channels[i],
+                            in_channels=channels[i], epsilon=epsilon,
+                            momentum=momentum, prefix="unit1_"))
+                        for j in range(num_layer - 1):
+                            stage.add(FusedBottleneckV1(
+                                channels[i + 1], 1, downsample=False,
+                                in_channels=channels[i + 1],
+                                epsilon=epsilon, momentum=momentum,
+                                prefix=f"unit{j + 2}_"))
+                    self.stages.add(stage)
+            self.output = Dense(classes, in_units=channels[-1])
 
     def forward(self, x):
         training = autograd.is_training()

@@ -10,17 +10,21 @@ kernel runs here: the JAX package leaves these convs to XLA, the port to
 cuDNN. Parameter names are the JAX package's structural names
 (``features.0.weight``, ``features.4.0.body.0.weight``,
 ``features.4.0.downsample.1.running_var``, ``output.weight``), so
-``load_jax_params`` carries weights across by name. Channel counts not
-given by ``in_channels`` are filled in by the first forward.
+``load_jax_params`` carries weights across by name, and the prefix names
+are the reference's (``name_scope``, ``stage1_``). The ReLU after the sum,
+the sum and the flatten are registered ops, as the reference's, so the
+net exports. Channel counts not given by ``in_channels`` are filled in by
+the first forward.
 """
 
 from __future__ import annotations
 
-import torch
-
-from ...block import Block
+from ....ops.nn import relu
+from ....ops.tensor import add as elemwise_add
+from ...block import HybridBlock
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, Flatten,
                    GlobalAvgPool2D, HybridSequential, MaxPool2D)
+from ...nn.basic_layers import flatten
 from ._zoo import build
 
 __all__ = ["BasicBlockV1", "BasicBlockV2", "BottleneckV1", "BottleneckV2",
@@ -36,161 +40,184 @@ def _conv3x3(channels, stride, in_channels):
 
 
 def _downsample_v1(channels, stride, in_channels):
-    ds = HybridSequential()
+    ds = HybridSequential(prefix="")
     ds.add(Conv2D(channels, kernel_size=1, strides=stride, use_bias=False,
                   in_channels=in_channels))
     ds.add(BatchNorm())
     return ds
 
 
-class BasicBlockV1(Block):
+class BasicBlockV1(HybridBlock):
     """Two 3x3 convs with BatchNorm, ReLU after the sum."""
 
-    def __init__(self, channels, stride, downsample=False, in_channels=0):
-        super().__init__()
-        self.body = HybridSequential()
-        self.body.add(_conv3x3(channels, stride, in_channels), BatchNorm(),
-                      Activation("relu"), _conv3x3(channels, 1, channels),
-                      BatchNorm())
-        self.downsample = _downsample_v1(channels, stride, in_channels) \
-            if downsample else None
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.body = HybridSequential(prefix="")
+            self.body.add(_conv3x3(channels, stride, in_channels),
+                          BatchNorm(), Activation("relu"),
+                          _conv3x3(channels, 1, channels), BatchNorm())
+            self.downsample = _downsample_v1(channels, stride,
+                                             in_channels) \
+                if downsample else None
 
     def forward(self, x):
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(self.body(x) + residual)
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return relu(elemwise_add(x, residual))
 
 
-class BottleneckV1(Block):
+class BottleneckV1(HybridBlock):
     """1x1, 3x3 (strided), 1x1 convs with BatchNorm, ReLU after the sum."""
 
-    def __init__(self, channels, stride, downsample=False, in_channels=0):
-        super().__init__()
-        self.body = HybridSequential()
-        self.body.add(Conv2D(channels // 4, kernel_size=1, strides=1,
-                             use_bias=False), BatchNorm(),
-                      Activation("relu"),
-                      _conv3x3(channels // 4, stride, channels // 4),
-                      BatchNorm(), Activation("relu"),
-                      Conv2D(channels, kernel_size=1, strides=1,
-                             use_bias=False), BatchNorm())
-        self.downsample = _downsample_v1(channels, stride, in_channels) \
-            if downsample else None
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.body = HybridSequential(prefix="")
+            self.body.add(Conv2D(channels // 4, kernel_size=1, strides=1,
+                                 use_bias=False), BatchNorm(),
+                          Activation("relu"),
+                          _conv3x3(channels // 4, stride, channels // 4),
+                          BatchNorm(), Activation("relu"),
+                          Conv2D(channels, kernel_size=1, strides=1,
+                                 use_bias=False), BatchNorm())
+            self.downsample = _downsample_v1(channels, stride,
+                                             in_channels) \
+                if downsample else None
 
     def forward(self, x):
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(self.body(x) + residual)
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return relu(elemwise_add(x, residual))
 
 
-class BasicBlockV2(Block):
+class BasicBlockV2(HybridBlock):
     """Pre-activation basic block: BatchNorm and ReLU before each conv."""
 
-    def __init__(self, channels, stride, downsample=False, in_channels=0):
-        super().__init__()
-        self.bn1 = BatchNorm()
-        self.conv1 = _conv3x3(channels, stride, in_channels)
-        self.bn2 = BatchNorm()
-        self.conv2 = _conv3x3(channels, 1, channels)
-        self.downsample = Conv2D(channels, 1, stride, use_bias=False,
-                                 in_channels=in_channels) \
-            if downsample else None
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.bn1 = BatchNorm()
+            self.conv1 = _conv3x3(channels, stride, in_channels)
+            self.bn2 = BatchNorm()
+            self.conv2 = _conv3x3(channels, 1, channels)
+            self.downsample = Conv2D(channels, 1, stride, use_bias=False,
+                                     in_channels=in_channels) \
+                if downsample else None
 
     def forward(self, x):
         residual = x
-        x = torch.relu(self.bn1(x))
+        x = relu(self.bn1(x))
         if self.downsample is not None:
             residual = self.downsample(x)
         x = self.conv1(x)
-        x = self.conv2(torch.relu(self.bn2(x)))
-        return x + residual
+        x = self.conv2(relu(self.bn2(x)))
+        return elemwise_add(x, residual)
 
 
-class BottleneckV2(Block):
+class BottleneckV2(HybridBlock):
     """Pre-activation bottleneck: BatchNorm and ReLU before each conv."""
 
-    def __init__(self, channels, stride, downsample=False, in_channels=0):
-        super().__init__()
-        self.bn1 = BatchNorm()
-        self.conv1 = Conv2D(channels // 4, 1, 1, use_bias=False)
-        self.bn2 = BatchNorm()
-        self.conv2 = _conv3x3(channels // 4, stride, channels // 4)
-        self.bn3 = BatchNorm()
-        self.conv3 = Conv2D(channels, 1, 1, use_bias=False)
-        self.downsample = Conv2D(channels, 1, stride, use_bias=False,
-                                 in_channels=in_channels) \
-            if downsample else None
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.bn1 = BatchNorm()
+            self.conv1 = Conv2D(channels // 4, 1, 1, use_bias=False)
+            self.bn2 = BatchNorm()
+            self.conv2 = _conv3x3(channels // 4, stride, channels // 4)
+            self.bn3 = BatchNorm()
+            self.conv3 = Conv2D(channels, 1, 1, use_bias=False)
+            self.downsample = Conv2D(channels, 1, stride, use_bias=False,
+                                     in_channels=in_channels) \
+                if downsample else None
 
     def forward(self, x):
         residual = x
-        x = torch.relu(self.bn1(x))
+        x = relu(self.bn1(x))
         if self.downsample is not None:
             residual = self.downsample(x)
         x = self.conv1(x)
-        x = self.conv2(torch.relu(self.bn2(x)))
-        x = self.conv3(torch.relu(self.bn3(x)))
-        return x + residual
+        x = self.conv2(relu(self.bn2(x)))
+        x = self.conv3(relu(self.bn3(x)))
+        return elemwise_add(x, residual)
 
 
-def _make_layer(block, layers, channels, stride, in_channels):
-    layer = HybridSequential()
-    layer.add(block(channels, stride, channels != in_channels,
-                    in_channels=in_channels))
-    for _ in range(layers - 1):
-        layer.add(block(channels, 1, False, in_channels=channels))
+def _make_layer(block, layers, channels, stride, stage, in_channels):
+    layer = HybridSequential(prefix=f"stage{stage}_")
+    with layer.name_scope():
+        layer.add(block(channels, stride, channels != in_channels,
+                        in_channels=in_channels, prefix=""))
+        for _ in range(layers - 1):
+            layer.add(block(channels, 1, False, in_channels=channels,
+                            prefix=""))
     return layer
 
 
-class ResNetV1(Block):
+class ResNetV1(HybridBlock):
     """ResNet v1: a 7x7/2 stem with max pooling (a 3x3 conv when
     ``thumbnail``), ``len(layers)`` stages of ``block``, global average
     pooling and a ``classes``-way ``Dense``. Input (N, 3, H, W)."""
 
     def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False):
-        super().__init__()
+                 thumbnail=False, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         assert len(layers) == len(channels) - 1
-        self.features = HybridSequential()
-        if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, 0))
-        else:
-            self.features.add(Conv2D(channels[0], 7, 2, 3, use_bias=False),
-                              BatchNorm(), Activation("relu"),
-                              MaxPool2D(3, 2, 1))
-        for i, num_layer in enumerate(layers):
-            self.features.add(_make_layer(block, num_layer, channels[i + 1],
-                                          1 if i == 0 else 2, channels[i]))
-        self.features.add(GlobalAvgPool2D())
-        self.output = Dense(classes, in_units=channels[-1])
+        with self.name_scope():
+            self.features = HybridSequential(prefix="")
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0))
+            else:
+                self.features.add(Conv2D(channels[0], 7, 2, 3,
+                                         use_bias=False),
+                                  BatchNorm(), Activation("relu"),
+                                  MaxPool2D(3, 2, 1))
+            for i, num_layer in enumerate(layers):
+                self.features.add(_make_layer(
+                    block, num_layer, channels[i + 1], 1 if i == 0 else 2,
+                    i + 1, channels[i]))
+            self.features.add(GlobalAvgPool2D())
+            self.output = Dense(classes, in_units=channels[-1])
 
     def forward(self, x):
-        x = self.features(x)
-        return self.output(x.reshape(x.shape[0], -1))
+        return self.output(flatten(self.features(x)))
 
 
-class ResNetV2(Block):
+class ResNetV2(HybridBlock):
     """ResNet v2: a BatchNorm of the input (no scale, no shift), the stem
     of v1, ``len(layers)`` stages of pre-activation ``block``, BatchNorm,
     ReLU, global average pooling and a ``classes``-way ``Dense``."""
 
     def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False):
-        super().__init__()
+                 thumbnail=False, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         assert len(layers) == len(channels) - 1
-        self.features = HybridSequential()
-        self.features.add(BatchNorm(scale=False, center=False))
-        if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, 0))
-        else:
-            self.features.add(Conv2D(channels[0], 7, 2, 3, use_bias=False),
-                              BatchNorm(), Activation("relu"),
-                              MaxPool2D(3, 2, 1))
-        in_channels = channels[0]
-        for i, num_layer in enumerate(layers):
-            self.features.add(_make_layer(block, num_layer, channels[i + 1],
-                                          1 if i == 0 else 2, in_channels))
-            in_channels = channels[i + 1]
-        self.features.add(BatchNorm(), Activation("relu"), GlobalAvgPool2D(),
-                          Flatten())
-        self.output = Dense(classes, in_units=in_channels)
+        with self.name_scope():
+            self.features = HybridSequential(prefix="")
+            self.features.add(BatchNorm(scale=False, center=False))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0))
+            else:
+                self.features.add(Conv2D(channels[0], 7, 2, 3,
+                                         use_bias=False),
+                                  BatchNorm(), Activation("relu"),
+                                  MaxPool2D(3, 2, 1))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                self.features.add(_make_layer(
+                    block, num_layer, channels[i + 1], 1 if i == 0 else 2,
+                    i + 1, in_channels))
+                in_channels = channels[i + 1]
+            self.features.add(BatchNorm(), Activation("relu"),
+                              GlobalAvgPool2D(), Flatten())
+            self.output = Dense(classes, in_units=in_channels)
 
     def forward(self, x):
         return self.output(self.features(x))

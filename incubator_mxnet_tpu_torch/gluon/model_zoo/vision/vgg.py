@@ -11,7 +11,7 @@ its width from the first forward (25088 at 224x224).
 
 from __future__ import annotations
 
-from ...block import Block
+from ...block import HybridBlock
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, Dropout, Flatten,
                    HybridSequential, MaxPool2D)
 from ._zoo import build
@@ -27,23 +27,25 @@ vgg_spec = {
 }
 
 
-class VGG(Block):
+class VGG(HybridBlock):
     """VGG; input (N, 3, H, W), 224x224 as published."""
 
-    def __init__(self, layers, filters, classes=1000, batch_norm=False):
-        super().__init__()
-        self.features = HybridSequential()
-        for num, width in zip(layers, filters):
-            for _ in range(num):
-                self.features.add(Conv2D(width, 3, padding=1))
-                if batch_norm:
-                    self.features.add(BatchNorm())
-                self.features.add(Activation("relu"))
-            self.features.add(MaxPool2D(2, 2))
-        self.features.add(Flatten(), Dense(4096, activation="relu"),
-                          Dropout(0.5), Dense(4096, activation="relu"),
-                          Dropout(0.5))
-        self.output = Dense(classes)
+    def __init__(self, layers, filters, classes=1000, batch_norm=False,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.features = HybridSequential(prefix="")
+            for num, width in zip(layers, filters):
+                for _ in range(num):
+                    self.features.add(Conv2D(width, 3, padding=1))
+                    if batch_norm:
+                        self.features.add(BatchNorm())
+                    self.features.add(Activation("relu"))
+                self.features.add(MaxPool2D(2, 2))
+            self.features.add(Flatten(), Dense(4096, activation="relu"),
+                              Dropout(0.5), Dense(4096, activation="relu"),
+                              Dropout(0.5))
+            self.output = Dense(classes)
 
     def forward(self, x):
         return self.output(self.features(x))

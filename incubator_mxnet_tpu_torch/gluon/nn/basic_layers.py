@@ -24,8 +24,8 @@ from ...ndarray.ndarray import NDArray
 from ...ndarray.sparse import embedding_grad
 from ...ops import nn as F
 from ...ops.registry import get as _get_op
-from ...ops.tensor import wrap_index
-from ..block import Block
+from ...ops.tensor import reshape, wrap_index
+from ..block import Block, HybridBlock
 
 __all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "Embedding",
            "Flatten", "GroupNorm", "HybridLambda", "HybridSequential",
@@ -54,20 +54,21 @@ class Sequential(Block):
         return iter(self._modules.values())
 
 
-class HybridSequential(Sequential):
-    """Reference ``nn.HybridSequential``: the same stack here, since the
-    port runs eagerly (there is nothing to hybridize)."""
+class HybridSequential(Sequential, HybridBlock):
+    """Reference ``nn.HybridSequential``: a ``Sequential`` that hybridizes
+    (one captured graph for the stack on the card)."""
 
 
-class Dense(Block):
+class Dense(HybridBlock):
     """Fully-connected layer: ``y = act(x·Wᵀ + b)``, weight ``(units,
     in_units)``. ``in_units=0`` takes ``prod(x.shape[1:])`` (``flatten``)
     or ``x.shape[-1]`` from the first input."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
-                 bias_initializer="zeros", in_units=0):
-        super().__init__()
+                 bias_initializer="zeros", in_units=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._units = units
         self._flatten = flatten
         self._act = activation
@@ -84,31 +85,50 @@ class Dense(Block):
         return {"weight": (self._units, in_units)}
 
     def forward(self, x):
-        out = F.fully_connected(x, self.weight, self.bias,
-                                flatten=self._flatten)
-        return out if self._act is None else F.activation(out, self._act)
+        # the reference's arguments, so the op records its attributes
+        if self.bias is None:
+            out = F.fully_connected(x, self.weight, num_hidden=self._units,
+                                    no_bias=True, flatten=self._flatten)
+        else:
+            out = F.fully_connected(x, self.weight, self.bias,
+                                    num_hidden=self._units,
+                                    flatten=self._flatten)
+        return out if self._act is None else \
+            F.activation(out, act_type=self._act)
 
 
-class Activation(Block):
+class Activation(HybridBlock):
     """``Activation(act_type)`` of ``ops.nn.activation`` (relu, sigmoid,
     tanh, softrelu, softsign, gelu, ...)."""
 
-    def __init__(self, activation):
-        super().__init__()
+    def __init__(self, activation, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._act = activation
 
     def forward(self, x):
-        return F.activation(x, self._act)
+        return F.activation(x, act_type=self._act)
 
 
-class Flatten(Block):
+class Flatten(HybridBlock):
     """``(N, ...) -> (N, prod(...))``."""
 
     def forward(self, x):
-        return x.reshape(x.shape[0], -1)
+        return flatten(x)
 
 
-class BatchNorm(Block):
+def flatten(x):
+    """``(N, ...) -> (N, prod(...))`` through the registered ``reshape``,
+    which an export records, to ``(-1, prod(...))``: the reference's
+    ``x.flatten()`` records ``(N, -1)``, which fixes the batch of the
+    exported graph (a served bucket of another size fails); this shape
+    runs at any batch, in either package."""
+    features = math.prod(x.shape[1:])
+    if x.dim() == 0 or features == 0 or x.shape[0] == 0:
+        return reshape(x, shape=(x.shape[0] if x.dim() else 1, -1))
+    return reshape(x, shape=(-1, features))
+
+
+class BatchNorm(HybridBlock):
     """Batch normalization over every axis but ``axis``, with running
     statistics (reference ``nn.BatchNorm``).
 
@@ -130,8 +150,9 @@ class BatchNorm(Block):
                  scale=True, use_global_stats=False,
                  beta_initializer="zeros", gamma_initializer="ones",
                  running_mean_initializer="zeros",
-                 running_variance_initializer="ones", in_channels=0):
-        super().__init__()
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._axis = axis
         self._momentum = momentum
         self._eps = epsilon
@@ -154,6 +175,7 @@ class BatchNorm(Block):
         training = autograd.is_training() and not self._use_global_stats
         out = F.batch_norm(x, self.gamma, self.beta, self.running_mean,
                            self.running_var, eps=self._eps,
+                           momentum=self._momentum,
                            fix_gamma=not self._scale, axis=self._axis,
                            use_global_stats=self._use_global_stats,
                            training=training)
@@ -189,7 +211,7 @@ class _SparseGradEmbedding(torch.autograd.Function):
         return None, embedding_grad(ids, outside, dy, ctx.shape)
 
 
-class Embedding(Block):
+class Embedding(HybridBlock):
     """Lookup table ``(input_dim, output_dim)`` of ``dtype``, drawn by
     ``weight_initializer`` (or the global initializer). With
     ``sparse_grad``, a backward under ``autograd.record()`` leaves the
@@ -199,25 +221,28 @@ class Embedding(Block):
     dense, as under the JAX package's trace."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, sparse_grad=False):
-        super().__init__()
+                 weight_initializer=None, sparse_grad=False,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._sparse_grad = sparse_grad
+        self._dims = dict(input_dim=input_dim, output_dim=output_dim)
         self._declare("weight", (input_dim, output_dim),
-                      init=weight_initializer, dtype=dtype)
+                      init=weight_initializer, dtype=dtype,
+                      grad_stype="row_sparse" if sparse_grad else "default")
 
     def forward(self, x):
         w = self.weight
         if self._sparse_grad and autograd.sparse_grads_enabled() \
                 and w.requires_grad and w.grad_fn is None:
             return _SparseGradEmbedding.apply(x, w)
-        return F.embedding(x, w)
+        return F.embedding(x, w, **self._dims)
 
 
-class LayerNorm(Block):
+class LayerNorm(HybridBlock):
     """Layer normalization over the last axis."""
 
-    def __init__(self, epsilon=1e-5, in_channels=0):
-        super().__init__()
+    def __init__(self, epsilon=1e-5, in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if not in_channels:
             raise ValueError("LayerNorm needs in_channels")
         self._eps = epsilon
@@ -228,13 +253,13 @@ class LayerNorm(Block):
         return F.layer_norm(x, self.gamma, self.beta, eps=self._eps)
 
 
-class _Norm(Block):
+class _Norm(HybridBlock):
     """A norm with ``gamma`` (and ``beta``) of the channel count on
     ``axis``, taken from the first input when ``in_channels`` is 0."""
 
     def __init__(self, axis, in_channels, gamma_initializer,
-                 beta_initializer=None):
-        super().__init__()
+                 beta_initializer=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._axis = axis
         self._declare("gamma", (in_channels,), init=gamma_initializer)
         if beta_initializer is not None:
@@ -252,9 +277,9 @@ class GroupNorm(_Norm):
 
     def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0):
+                 in_channels=0, prefix=None, params=None):
         super().__init__(1, in_channels, gamma_initializer,
-                         beta_initializer)
+                         beta_initializer, prefix=prefix, params=params)
         self._num_groups = num_groups
         self._eps = epsilon
 
@@ -270,9 +295,9 @@ class InstanceNorm(_Norm):
 
     def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0):
+                 in_channels=0, prefix=None, params=None):
         super().__init__(1, in_channels, gamma_initializer,
-                         beta_initializer)
+                         beta_initializer, prefix=prefix, params=params)
         self._eps = epsilon
 
     def forward(self, x):
@@ -283,8 +308,9 @@ class RMSNorm(_Norm):
     """``x / sqrt(mean(x**2 over axis) + eps) * gamma``."""
 
     def __init__(self, axis=-1, epsilon=1e-6, gamma_initializer="ones",
-                 in_channels=0):
-        super().__init__(axis, in_channels, gamma_initializer)
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(axis, in_channels, gamma_initializer,
+                         prefix=prefix, params=params)
         self._eps = epsilon
 
     def forward(self, x):
@@ -315,8 +341,8 @@ class Lambda(Block):
     callable or the name of an ``mx.nd`` op. It gets the block's
     arguments as they are (NDArrays or tensors)."""
 
-    def __init__(self, function):
-        super().__init__()
+    def __init__(self, function, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._func = _op_function(function) if isinstance(function, str) \
             else function
 
@@ -327,19 +353,22 @@ class Lambda(Block):
         return self._func(*args)
 
 
-class HybridLambda(Lambda):
-    """Reference ``nn.HybridLambda``: the same block here, since the port
-    runs eagerly."""
+class HybridLambda(Lambda, HybridBlock):
+    """Reference ``nn.HybridLambda``: a ``Lambda`` that is a
+    ``HybridBlock`` (its function runs as called; a hybridized parent
+    captures it)."""
 
 
-class Dropout(Block):
+class Dropout(HybridBlock):
     """Inverted dropout, active iff ``autograd.is_training()`` (on inside
     ``autograd.record()`` and ``train_mode()``, off elsewhere), as in the
     JAX package. The mask is drawn from the device's ``random.generator``."""
 
-    def __init__(self, rate):
-        super().__init__()
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._rate = float(rate)
+        self._axes = tuple(axes)
 
     def forward(self, x):
-        return F.dropout(x, self._rate, training=autograd.is_training())
+        return F.dropout(x, p=self._rate, axes=self._axes,
+                         training=autograd.is_training())

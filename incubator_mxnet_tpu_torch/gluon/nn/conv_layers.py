@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch.nn.functional as TF
 
 from ...ops import nn as F
-from ..block import Block
+from ..block import HybridBlock
 
 __all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "Conv1D",
            "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D",
@@ -26,15 +26,15 @@ __all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "Conv1D",
            "MaxPool1D", "MaxPool2D", "MaxPool3D", "ReflectionPad2D"]
 
 
-class _Conv(Block):
+class _Conv(HybridBlock):
     """Convolution of ``ndim`` spatial axes with an optional bias and
     activation."""
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", ndim=2):
-        super().__init__()
+                 bias_initializer="zeros", ndim=2, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if not layout.startswith("NC"):
             raise NotImplementedError(f"layout {layout!r}: the port's "
                                       "convolutions are NC + spatial axes")
@@ -57,10 +57,16 @@ class _Conv(Block):
                 + self._kernel}
 
     def forward(self, x):
-        out = F.convolution(x, self.weight, self.bias, stride=self._strides,
-                            pad=self._padding, dilate=self._dilation,
-                            num_group=self._groups)
-        return out if self._act is None else F.activation(out, self._act)
+        # the reference's arguments, so the op records its attributes
+        kw = dict(kernel=self._kernel, stride=self._strides,
+                  pad=self._padding, dilate=self._dilation,
+                  num_filter=self._channels, num_group=self._groups)
+        if self.bias is None:
+            out = F.convolution(x, self.weight, no_bias=True, **kw)
+        else:
+            out = F.convolution(x, self.weight, self.bias, **kw)
+        return out if self._act is None else \
+            F.activation(out, act_type=self._act)
 
 
 class Conv1D(_Conv):
@@ -85,7 +91,7 @@ class Conv3D(_Conv):
                          groups, layout, ndim=3, **kwargs)
 
 
-class _ConvTranspose(Block):
+class _ConvTranspose(HybridBlock):
     """Transposed convolution of ``ndim`` spatial axes
     (``ops.nn.deconvolution``): each output axis is ``(n - 1) * stride +
     dilation * (k - 1) + 1 - 2 * padding + output_padding``."""
@@ -93,8 +99,8 @@ class _ConvTranspose(Block):
     def __init__(self, channels, kernel_size, strides, padding,
                  output_padding, dilation, groups, in_channels=0,
                  activation=None, use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", ndim=2):
-        super().__init__()
+                 bias_initializer="zeros", ndim=2, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._channels = channels
         self._kernel = F._ntuple(kernel_size, ndim)
         self._strides = F._ntuple(strides, ndim)
@@ -115,11 +121,16 @@ class _ConvTranspose(Block):
                 + self._kernel}
 
     def forward(self, x):
-        out = F.deconvolution(x, self.weight, self.bias,
-                              stride=self._strides, pad=self._padding,
-                              adj=self._out_padding, dilate=self._dilation,
-                              num_group=self._groups)
-        return out if self._act is None else F.activation(out, self._act)
+        kw = dict(kernel=self._kernel, stride=self._strides,
+                  pad=self._padding, adj=self._out_padding,
+                  dilate=self._dilation, num_filter=self._channels,
+                  num_group=self._groups)
+        if self.bias is None:
+            out = F.deconvolution(x, self.weight, no_bias=True, **kw)
+        else:
+            out = F.deconvolution(x, self.weight, self.bias, **kw)
+        return out if self._act is None else \
+            F.activation(out, act_type=self._act)
 
 
 class Conv1DTranspose(_ConvTranspose):
@@ -136,13 +147,13 @@ class Conv2DTranspose(_ConvTranspose):
                          output_padding, dilation, groups, ndim=2, **kwargs)
 
 
-class ReflectionPad2D(Block):
+class ReflectionPad2D(HybridBlock):
     """The two spatial axes of NCHW padded by ``padding`` (an int or
     ``(h, w)``) on both sides, mirrored about the edge (numpy's
     ``"reflect"``)."""
 
-    def __init__(self, padding=0):
-        super().__init__()
+    def __init__(self, padding=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._padding = F._ntuple(padding, 2)
 
     def forward(self, x):
@@ -150,14 +161,15 @@ class ReflectionPad2D(Block):
         return TF.pad(x, (pw, pw, ph, ph), mode="reflect")
 
 
-class _Pool(Block):
+class _Pool(HybridBlock):
     """Pooling of ``ndim`` spatial axes (``ops.nn.pooling``); ``strides``
     defaults to ``pool_size``, ``ceil_mode`` is the reference's "full"
     convention."""
 
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, ndim, count_include_pad=True):
-        super().__init__()
+                 pool_type, ndim, count_include_pad=True,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._kernel = F._ntuple(pool_size, ndim)
         self._strides = F._ntuple(pool_size if strides is None else strides,
                                   ndim)
@@ -176,71 +188,82 @@ class _Pool(Block):
 
 class MaxPool1D(_Pool):
     def __init__(self, pool_size=2, strides=None, padding=0,
-                 ceil_mode=False):
+                 ceil_mode=False, prefix=None, params=None):
         super().__init__(pool_size, strides, padding, ceil_mode, False,
-                         "max", 1)
+                         "max", 1, prefix=prefix, params=params)
 
 
 class MaxPool2D(_Pool):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 ceil_mode=False):
+                 ceil_mode=False, prefix=None, params=None):
         super().__init__(pool_size, strides, padding, ceil_mode, False,
-                         "max", 2)
+                         "max", 2, prefix=prefix, params=params)
 
 
 class MaxPool3D(_Pool):
     def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
-                 ceil_mode=False):
+                 ceil_mode=False, prefix=None, params=None):
         super().__init__(pool_size, strides, padding, ceil_mode, False,
-                         "max", 3)
+                         "max", 3, prefix=prefix, params=params)
 
 
 class AvgPool1D(_Pool):
     def __init__(self, pool_size=2, strides=None, padding=0, ceil_mode=False,
-                 count_include_pad=True):
+                 count_include_pad=True, prefix=None, params=None):
         super().__init__(pool_size, strides, padding, ceil_mode, False,
-                         "avg", 1, count_include_pad)
+                         "avg", 1, count_include_pad,
+                         prefix=prefix, params=params)
 
 
 class AvgPool2D(_Pool):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 ceil_mode=False, count_include_pad=True):
+                 ceil_mode=False, count_include_pad=True,
+                 prefix=None, params=None):
         super().__init__(pool_size, strides, padding, ceil_mode, False,
-                         "avg", 2, count_include_pad)
+                         "avg", 2, count_include_pad,
+                         prefix=prefix, params=params)
 
 
 class AvgPool3D(_Pool):
     def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
-                 ceil_mode=False, count_include_pad=True):
+                 ceil_mode=False, count_include_pad=True,
+                 prefix=None, params=None):
         super().__init__(pool_size, strides, padding, ceil_mode, False,
-                         "avg", 3, count_include_pad)
+                         "avg", 3, count_include_pad,
+                         prefix=prefix, params=params)
 
 
 class GlobalMaxPool1D(_Pool):
-    def __init__(self):
-        super().__init__(1, None, 0, False, True, "max", 1)
+    def __init__(self, prefix=None, params=None):
+        super().__init__(1, None, 0, False, True, "max", 1,
+                         prefix=prefix, params=params)
 
 
 class GlobalMaxPool2D(_Pool):
-    def __init__(self):
-        super().__init__(1, None, 0, False, True, "max", 2)
+    def __init__(self, prefix=None, params=None):
+        super().__init__(1, None, 0, False, True, "max", 2,
+                         prefix=prefix, params=params)
 
 
 class GlobalMaxPool3D(_Pool):
-    def __init__(self):
-        super().__init__(1, None, 0, False, True, "max", 3)
+    def __init__(self, prefix=None, params=None):
+        super().__init__(1, None, 0, False, True, "max", 3,
+                         prefix=prefix, params=params)
 
 
 class GlobalAvgPool1D(_Pool):
-    def __init__(self):
-        super().__init__(1, None, 0, False, True, "avg", 1)
+    def __init__(self, prefix=None, params=None):
+        super().__init__(1, None, 0, False, True, "avg", 1,
+                         prefix=prefix, params=params)
 
 
 class GlobalAvgPool2D(_Pool):
-    def __init__(self):
-        super().__init__(1, None, 0, False, True, "avg", 2)
+    def __init__(self, prefix=None, params=None):
+        super().__init__(1, None, 0, False, True, "avg", 2,
+                         prefix=prefix, params=params)
 
 
 class GlobalAvgPool3D(_Pool):
-    def __init__(self):
-        super().__init__(1, None, 0, False, True, "avg", 3)
+    def __init__(self, prefix=None, params=None):
+        super().__init__(1, None, 0, False, True, "avg", 3,
+                         prefix=prefix, params=params)

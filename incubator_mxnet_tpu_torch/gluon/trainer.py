@@ -46,6 +46,7 @@ from typing import Dict, List, Mapping, Optional
 import torch
 
 from .. import optimizer as opt_mod
+from .parameter import Parameter
 
 __all__ = ["FusedStep", "SuperStep", "Trainer"]
 
@@ -345,8 +346,9 @@ class SuperStep:
 
 class Trainer:
     """Applies an optimizer to a set of parameters (reference
-    ``gluon.Trainer``). ``params``: a name -> parameter mapping (as
-    ``Block.collect_params()`` returns) or a list of parameters.
+    ``gluon.Trainer``). ``params``: a name -> parameter mapping (the
+    ``ParameterDict`` ``Block.collect_params()`` returns, or tensors by
+    name as ``parallel.collect_params`` gives) or a list of parameters.
     ``kvstore``: ``"device"``, ``"local"`` or None (one card)."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
@@ -367,6 +369,10 @@ class Trainer:
                      for i, p in enumerate(params)]
         else:
             raise ValueError("params must be a dict of parameters or a list")
+        # a gluon Parameter trains the tensor it holds now (initialize
+        # before making the trainer: a deferred shape is filled in place)
+        named = [(n, p._var if isinstance(p, Parameter) else p)
+                 for n, p in named]
         for name, p in named:
             if not isinstance(p, torch.nn.Parameter):
                 raise ValueError(f"{name} is not a Parameter")

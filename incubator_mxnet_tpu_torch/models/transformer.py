@@ -25,10 +25,11 @@ from __future__ import annotations
 
 import torch
 
-from ..gluon.block import Block
+from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
 from ..ops.flash_attention import flash_attention
 from ..ops.nn import activation, scaled_dot_product_attention
+from ..ops.registry import recorded
 
 __all__ = ["BERTEncoder", "BERTModel", "MultiHeadAttention",
            "PositionwiseFFN", "TransformerEncoderCell", "get_bert"]
@@ -45,28 +46,35 @@ def _length_mask(lengths, t_k):
             < lengths.reshape(-1, 1, 1, 1)).to(torch.float32)
 
 
-class MultiHeadAttention(Block):
+@recorded("positions")
+def _positions(token_ids):
+    b, t = token_ids.shape
+    return torch.arange(t, device=token_ids.device).expand(b, t)
+
+
+class MultiHeadAttention(HybridBlock):
     """Self-attention over (B, T, C) with ``num_heads`` heads (GluonNLP
     ``MultiHeadAttentionCell`` capability). ``attn_dropout`` is declared
     and, as in the reference, never applied."""
 
     def __init__(self, units, num_heads, dropout=0.0, use_bias=True,
-                 attention_impl="xla"):
-        super().__init__()
-        if units % num_heads:
-            raise ValueError(f"units {units} not divisible by heads "
-                             f"{num_heads}")
-        if attention_impl == "ring":
-            raise NotImplementedError(
-                f"attention_impl='ring' (ring attention over a sequence "
-                f"mesh) waits for {_MULTI_GPU}")
-        self._units = units
-        self._heads = num_heads
-        self._impl = attention_impl
-        for name in ("query", "key", "value", "proj"):
-            setattr(self, name, Dense(units, flatten=False,
-                                      use_bias=use_bias, in_units=units))
-        self.attn_dropout = Dropout(dropout)
+                 attention_impl="xla", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            if units % num_heads:
+                raise ValueError(f"units {units} not divisible by heads "
+                                 f"{num_heads}")
+            if attention_impl == "ring":
+                raise NotImplementedError(
+                    f"attention_impl='ring' (ring attention over a sequence "
+                    f"mesh) waits for {_MULTI_GPU}")
+            self._units = units
+            self._heads = num_heads
+            self._impl = attention_impl
+            for name in ("query", "key", "value", "proj"):
+                setattr(self, name, Dense(units, flatten=False,
+                                          use_bias=use_bias, in_units=units))
+            self.attn_dropout = Dropout(dropout)
 
     def _split(self, x):
         """(B, T, C) -> a (B, H, T, D) view."""
@@ -89,51 +97,55 @@ class MultiHeadAttention(Block):
         return self.proj(out.transpose(1, 2).reshape(b, t, self._units))
 
 
-class PositionwiseFFN(Block):
+class PositionwiseFFN(HybridBlock):
     """``dropout(ffn2(act(ffn1(x))))``; gelu is the tanh approximation."""
 
-    def __init__(self, units, hidden_size, dropout=0.0, activation="gelu"):
-        super().__init__()
-        self.ffn1 = Dense(hidden_size, flatten=False, in_units=units)
-        self.ffn2 = Dense(units, flatten=False, in_units=hidden_size)
-        self.dropout = Dropout(dropout)
-        self._act = activation
+    def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.ffn1 = Dense(hidden_size, flatten=False, in_units=units)
+            self.ffn2 = Dense(units, flatten=False, in_units=hidden_size)
+            self.dropout = Dropout(dropout)
+            self._act = activation
 
     def forward(self, x):
         return self.dropout(self.ffn2(activation(self.ffn1(x), self._act)))
 
 
-class TransformerEncoderCell(Block):
+class TransformerEncoderCell(HybridBlock):
     """Post-norm encoder layer (BERT convention): ``h = ln1(x +
     dropout(attention(x)))``, then ``ln2(h + ffn(h))``."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.1,
-                 attention_impl="xla"):
-        super().__init__()
-        self.attention = MultiHeadAttention(units, num_heads,
-                                            dropout=dropout,
-                                            attention_impl=attention_impl)
-        self.dropout = Dropout(dropout)
-        self.ln1 = LayerNorm(in_channels=units)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout)
-        self.ln2 = LayerNorm(in_channels=units)
+                 attention_impl="xla", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.attention = MultiHeadAttention(units, num_heads,
+                                                dropout=dropout,
+                                                attention_impl=attention_impl)
+            self.dropout = Dropout(dropout)
+            self.ln1 = LayerNorm(in_channels=units)
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout)
+            self.ln2 = LayerNorm(in_channels=units)
 
     def forward(self, x, mask=None, lengths=None):
         h = self.ln1(x + self.dropout(self.attention(x, mask, lengths)))
         return self.ln2(h + self.ffn(h))
 
 
-class BERTEncoder(Block):
+class BERTEncoder(HybridBlock):
     """``num_layers`` encoder cells, named ``layer0``, ``layer1``, ...."""
 
     def __init__(self, num_layers, units, hidden_size, num_heads,
-                 dropout=0.1, attention_impl="xla"):
-        super().__init__()
-        for i in range(num_layers):
-            setattr(self, f"layer{i}",
-                    TransformerEncoderCell(units, hidden_size, num_heads,
-                                           dropout, attention_impl))
-        self._num_layers = num_layers
+                 dropout=0.1, attention_impl="xla", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            for i in range(num_layers):
+                setattr(self, f"layer{i}",
+                        TransformerEncoderCell(units, hidden_size, num_heads,
+                                               dropout, attention_impl))
+            self._num_layers = num_layers
 
     def forward(self, x, mask=None, lengths=None):
         for i in range(self._num_layers):
@@ -141,7 +153,7 @@ class BERTEncoder(Block):
         return x
 
 
-class BERTModel(Block):
+class BERTModel(HybridBlock):
     """BERT with MLM + NSP heads (GluonNLP ``BERTModel`` capability).
 
     The heads are opt-in by constructor flags, as in the reference: a head
@@ -160,37 +172,40 @@ class BERTModel(Block):
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512,
                  type_vocab_size=2, dropout=0.1, attention_impl="xla",
-                 use_pooler=True, use_decoder=True, use_classifier=True):
-        super().__init__()
-        if use_classifier and not use_pooler:
-            raise ValueError("use_classifier=True requires use_pooler=True "
-                             "(NSP scores come from the pooled output)")
-        self._units = units
-        self._use_pooler = use_pooler
-        self._use_decoder = use_decoder
-        self._use_classifier = use_classifier
-        self.word_embed = Embedding(vocab_size, units)
-        self.token_type_embed = Embedding(type_vocab_size, units)
-        self.position_embed = Embedding(max_length, units)
-        self.embed_ln = LayerNorm(in_channels=units)
-        self.embed_dropout = Dropout(dropout)
-        self.encoder = BERTEncoder(num_layers, units, hidden_size,
-                                   num_heads, dropout, attention_impl)
-        if use_pooler:
-            self.pooler = Dense(units, in_units=units, activation="tanh")
-        if use_classifier:
-            self.nsp_classifier = Dense(2, in_units=units)
-        if use_decoder:
-            self.mlm_decoder = HybridSequential()
-            self.mlm_decoder.add(
-                Dense(units, flatten=False, in_units=units,
-                      activation="gelu"),
-                LayerNorm(in_channels=units),
-                Dense(vocab_size, flatten=False, in_units=units))
+                 use_pooler=True, use_decoder=True, use_classifier=True,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            if use_classifier and not use_pooler:
+                raise ValueError(
+                    "use_classifier=True requires use_pooler=True (NSP "
+                    "scores come from the pooled output)")
+            self._units = units
+            self._use_pooler = use_pooler
+            self._use_decoder = use_decoder
+            self._use_classifier = use_classifier
+            self.word_embed = Embedding(vocab_size, units)
+            self.token_type_embed = Embedding(type_vocab_size, units)
+            self.position_embed = Embedding(max_length, units)
+            self.embed_ln = LayerNorm(in_channels=units)
+            self.embed_dropout = Dropout(dropout)
+            self.encoder = BERTEncoder(num_layers, units, hidden_size,
+                                       num_heads, dropout, attention_impl)
+            if use_pooler:
+                self.pooler = Dense(units, in_units=units, activation="tanh")
+            if use_classifier:
+                self.nsp_classifier = Dense(2, in_units=units)
+            if use_decoder:
+                self.mlm_decoder = HybridSequential(prefix="mlm_")
+                with self.mlm_decoder.name_scope():
+                    self.mlm_decoder.add(
+                        Dense(units, flatten=False, in_units=units,
+                              activation="gelu"),
+                        LayerNorm(in_channels=units),
+                        Dense(vocab_size, flatten=False, in_units=units))
 
     def forward(self, token_ids, segment_ids=None, valid_length=None):
-        b, t = token_ids.shape
-        pos = torch.arange(t, device=token_ids.device).expand(b, t)
+        pos = _positions(token_ids)
         if segment_ids is None:
             # segment 0 everywhere: token_type_embed contributes (and gets
             # a gradient) on every forward

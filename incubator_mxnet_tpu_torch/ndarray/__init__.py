@@ -491,6 +491,11 @@ contrib.arange_like = _this.arange_like
 contrib.ctc_loss = ctc_loss
 contrib.index_array = _this.index_array
 contrib.index_copy = _this.index_copy
+from ..contrib import control_flow as _control_flow  # noqa: E402
+
+contrib.foreach = _control_flow.foreach
+contrib.while_loop = _control_flow.while_loop
+contrib.cond = _control_flow.cond
 _sys.modules[contrib.__name__] = contrib
 
 

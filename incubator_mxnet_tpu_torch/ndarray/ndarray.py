@@ -28,8 +28,11 @@ record only under ``autograd.record()`` (torch's grad mode follows
 MXNet's recording flag inside :func:`invoke`).
 
 Sparse storage (``tostype``, ``attach_grad(stype="row_sparse")``) is in
-``ndarray/sparse.py``. Not ported: the capture scope and
-``GraphRecorder`` (hybridize, export, control flow) and the AMP hook.
+``ndarray/sparse.py``. Graph recording for ``HybridBlock.export`` is the
+registry's (``ops.registry.GraphRecorder``): a registered op records its
+own call, :func:`invoke` records the ops it names that the registry does
+not. Control flow (``contrib``) differentiates through torch's autograd
+and needs no capture scope. Not ported: the AMP hook.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from .. import autograd
 from ..base import numpy_dtype, resolve_dtype
 from ..config import is_naive_engine
 from ..device import Context, resolve
+from ..ops import registry as _registry
 from ..ops.registry import get as get_op
 from ..ops.tensor import _index_along, cast, int_division
 
@@ -125,9 +129,21 @@ def invoke(fn, inputs: Sequence, kwargs: Optional[dict] = None,
             _context_of(in_data[0]) if in_data else ctx)
     recording = autograd.is_recording() and differentiable
     with torch.set_grad_enabled(recording):
-        out = fn(*in_data, **kw)
+        if _registry._recorders and name and not hasattr(fn, "_mx_op"):
+            # an op the registry does not record itself (NDArray methods
+            # over a lambda: "add", "getitem", ...), as the reference's
+            # invoke records it
+            out = _registry.record_call(
+                name, fn, in_data, kw, inputs=in_data,
+                attrs={k: v for k, v in kw.items() if k != "rng"})
+        else:
+            out = fn(*in_data, **kw)
         single = not isinstance(out, (tuple, list))
-        outs = [_own(o, in_data) for o in ([out] if single else out)]
+        raw = [out] if single else list(out)
+        outs = [_own(o, in_data) for o in raw]
+    if _registry._recorders:
+        for r, o in zip(raw, outs):
+            _registry.alias(r, o)
     if recording:
         autograd.mark_recorded(outs)
     if is_naive_engine():

@@ -9,12 +9,24 @@ it draws random numbers) and ``list_ops``. An op with ``needs_rng`` takes
 a keyword ``rng``: the ``torch.Generator`` it draws from, whose device is
 the device it draws on (``ndarray.invoke`` passes the operands' device's,
 or the context's).
+
+Graph recording (reference ``ndarray.GraphRecorder``): while a
+:class:`GraphRecorder` is active (``HybridBlock.export`` runs one forward
+under one), each call of a registered op records one entry: the op's
+name, its attributes (the arguments that are not tensors, by parameter
+name), its input tensors and its output tensors. The port's layers call
+the op functions on tensors directly, so the record is taken here, where
+every such call passes, and not only in ``ndarray.invoke``. A registered
+op called inside another one's recorded call is part of that op and is
+not recorded again. With no recorder active an op call costs one check.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+import functools
+import inspect
+from typing import Any, Callable, Dict, List, Optional
 
 
 @dataclasses.dataclass
@@ -30,18 +42,138 @@ class OpDef:
 _OPS: Dict[str, OpDef] = {}
 
 
-def register(name: str, *, differentiable: bool = True,
-             needs_rng: bool = False, aliases: tuple = ()) -> Callable:
-    """Register a function over torch tensors as a framework op."""
+class GraphRecorder:
+    """The registered-op calls of one forward, in order: ``entries`` of
+    ``(name, attrs, inputs, outputs)``; an entry named ``"__alias__"``
+    says its output tensor holds the value of its input tensor (an
+    NDArray's own copy of an op's result)."""
+
+    def __init__(self):
+        self.entries: List[tuple] = []
+        self.depth = 0             # > 0 inside a recorded call
+
+    def alias(self, src, dst) -> None:
+        if src is not dst:
+            self.entries.append(("__alias__", {}, [src], [dst]))
+
+
+#: the active recorders (innermost last); empty outside an export
+_recorders: List[GraphRecorder] = []
+
+
+def _is_tensor(x) -> bool:
+    import torch
+
+    return isinstance(x, torch.Tensor)
+
+
+def _split_args(fn, args, kwargs):
+    """(input tensors, attributes by parameter name, names of the
+    optional parameters that got a tensor) of one call of ``fn``."""
+    sig = _signature(fn)
+    try:
+        bound = sig.bind(*args, **kwargs)
+    except (TypeError, AttributeError):   # a builtin has no signature
+        return ([a for a in args if _is_tensor(a)],
+                {k: v for k, v in kwargs.items() if not _is_tensor(v)}, [])
+    inputs, attrs, optional = [], {}, []
+    for pname, val in bound.arguments.items():
+        kind = sig.parameters[pname].kind
+        if kind is inspect.Parameter.VAR_POSITIONAL:
+            inputs.extend(v for v in val if _is_tensor(v))
+        elif kind is inspect.Parameter.VAR_KEYWORD:
+            attrs.update(val)
+        elif _is_tensor(val):
+            inputs.append(val)
+            if sig.parameters[pname].default is not inspect.Parameter.empty:
+                optional.append(pname)
+        elif isinstance(val, (list, tuple)) and val and \
+                all(_is_tensor(v) for v in val):
+            inputs.extend(val)
+        else:
+            attrs[pname] = val
+    return inputs, attrs, optional
+
+
+@functools.lru_cache(maxsize=None)
+def _signature(fn):
+    try:
+        return inspect.signature(fn)
+    except ValueError:
+        return None
+
+
+def record_call(name: str, fn: Callable, args, kwargs, inputs=None,
+                attrs=None):
+    """Call ``fn(*args, **kwargs)`` and record it as op ``name`` in the
+    innermost recorder (once: the calls it makes are not recorded).
+    ``inputs``/``attrs`` default to the tensors and the other arguments
+    of the call."""
+    rec = _recorders[-1]
+    if rec.depth:
+        return fn(*args, **kwargs)
+    rec.depth += 1
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        rec.depth -= 1
+    optional = []
+    if inputs is None:
+        inputs, found, optional = _split_args(fn, args, kwargs)
+        attrs = found if attrs is None else attrs
+    attrs = dict(attrs or {})
+    if optional:
+        attrs["__tensor_params__"] = tuple(optional)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    rec.entries.append((name, attrs, list(inputs), outs))
+    return out
+
+
+def alias(src, dst) -> None:
+    """Tell the active recorder that tensor ``dst`` holds ``src``'s
+    value (an op result made contiguous or copied for its NDArray)."""
+    if _recorders and src is not dst:
+        _recorders[-1].alias(src, dst)
+
+
+def recorded(name: str) -> Callable:
+    """Record the calls of a function that is not a registered op as op
+    ``name`` (the reference's ``invoke(fn, name=...)``): an export of a
+    forward that calls it raises, as the reference's does."""
 
     def deco(fn: Callable) -> Callable:
-        opdef = OpDef(name=name, fn=fn, differentiable=differentiable,
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if _recorders:
+                return record_call(name, fn, args, kwargs)
+            return fn(*args, **kwargs)
+
+        return call
+
+    return deco
+
+
+def register(name: str, *, differentiable: bool = True,
+             needs_rng: bool = False, aliases: tuple = ()) -> Callable:
+    """Register a function over torch tensors as a framework op. The
+    name is bound to the op's function, which records its calls while a
+    :class:`GraphRecorder` is active."""
+
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def op(*args, **kwargs):
+            if _recorders:
+                return record_call(name, fn, args, kwargs)
+            return fn(*args, **kwargs)
+
+        op._mx_op = name
+        opdef = OpDef(name=name, fn=op, differentiable=differentiable,
                       needs_rng=needs_rng, aliases=aliases,
                       doc=fn.__doc__ or "")
         _OPS[name] = opdef
         for a in aliases:
             _OPS[a] = opdef
-        return fn
+        return op
 
     return deco
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, List, Sequence
 
@@ -47,7 +48,8 @@ import torch
 from .. import random as _random
 from ..ops import launches as _launches
 
-__all__ = ["GraphCache", "StepGraph", "as_torch", "capture_steps",
+__all__ = ["GraphCache", "PairGraph", "StepGraph", "as_torch",
+           "capture_pair", "capture_steps",
            "device_scalars", "dispatch", "signature", "slice_window",
            "stack_window", "step_path", "superstep_enabled",
            "superstep_window", "window_len"]
@@ -243,6 +245,134 @@ def capture_steps(body: Callable[[int], torch.Tensor], k: int,
     return StepGraph(graph, outputs, dict(counted), gens, device)
 
 
+class PairGraph:
+    """A forward and its backward captured as two CUDA graphs of one memory
+    pool (the reference CachedOp's forward/backward pair; what
+    ``torch.cuda.make_graphed_callables`` makes). :meth:`run_forward`
+    copies the inputs into the static ones and replays the forward,
+    :meth:`run_backward` copies the output gradients into the static ones
+    and replays the backward, which leaves the gradients of the inputs
+    that require one and of ``params`` (the parameters that require one)
+    in static buffers. Between the two, the forward's saved tensors live
+    in the pool: the pair is busy until its backward ran or the autograd
+    node that owns it went away (:meth:`claim`)."""
+
+    def __init__(self, fwd, bwd, static_in, outputs, out_diff, grad_outs,
+                 grads, params, in_diff, single, counted, generators,
+                 device):
+        self.fwd, self.bwd = fwd, bwd
+        self.static_in = static_in
+        self.outputs = outputs
+        self.out_diff = out_diff
+        self.grad_outs = grad_outs
+        self.grads = grads
+        self.params = params
+        self.in_diff = in_diff
+        self.n_inputs = len(static_in)
+        self.single = single
+        self.counted = counted          # (forward's, backward's) launches
+        self._generators = generators
+        self.device = device
+        self._owner = None
+        self._done = True
+
+    def current(self) -> bool:
+        return [id(g) for g in self._generators] \
+            == [id(g) for g in _random.generators_of(self.device)]
+
+    def busy(self) -> bool:
+        return not self._done and self._owner is not None \
+            and self._owner() is not None
+
+    def claim(self, node) -> None:
+        self._owner = weakref.ref(node)
+        self._done = False
+
+    def run_forward(self, inputs) -> List[torch.Tensor]:
+        for dst, src in zip(self.static_in, inputs):
+            dst.detach().copy_(src.detach(), non_blocking=True)
+        with dispatch(self.device):
+            self.fwd.replay()
+        _launches.add(self.counted[0])
+        return [o.detach().clone() for o in self.outputs]
+
+    def run_backward(self, grads) -> list:
+        diff = [g for g, d in zip(grads, self.out_diff) if d]
+        for dst, g in zip(self.grad_outs, diff):
+            if g is None:
+                dst.zero_()
+            else:
+                dst.copy_(g, non_blocking=True)
+        self.bwd.replay()
+        _launches.add(self.counted[1])
+        self._done = True
+        got = [None if g is None else g.clone() for g in self.grads]
+        it = iter(got)
+        return [next(it) if d else None for d in self.in_diff] + list(it)
+
+
+def capture_pair(fn: Callable, inputs: Sequence[torch.Tensor],
+                 params: Sequence[torch.Tensor],
+                 state: Sequence[torch.Tensor],
+                 device: torch.device, pool=None) -> PairGraph:
+    """Capture ``fn(*inputs)`` (returning ``(tuple of tensors, single)``)
+    and the backward of its outputs to the inputs that require a gradient
+    and to ``params`` that do, as a :class:`PairGraph`. As
+    :func:`capture_steps`: a warm-up of the forward and the backward on
+    the side stream first, ``state`` (the tensors the forward writes, the
+    running statistics) and the generators put back after it, the launch
+    counters of each graph recorded; a failure puts the state back and
+    raises. Call it inside :func:`dispatch`."""
+    device = torch.device(device)
+    static_in = [x.detach().clone().requires_grad_(x.requires_grad)
+                 for x in inputs]
+    in_diff = [x.requires_grad for x in inputs]
+    wrt_params = [p for p in params if p.requires_grad]
+    wrt = [x for x in static_in if x.requires_grad] + wrt_params
+    saved = [t.detach().clone() for t in state]
+    reserved = _random.reserve_keys(device)
+    side = side_stream(device)
+
+    def backward(outs, seeds):
+        diff = [o for o in outs if o.requires_grad]
+        return torch.autograd.grad(diff, wrt, seeds, allow_unused=True)
+
+    try:
+        with _capture_lock:
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side), torch.enable_grad():
+                outs, _ = fn(*static_in)
+                backward(outs, [torch.ones_like(o) for o in outs
+                                if o.requires_grad])
+            torch.cuda.current_stream(device).wait_stream(side)
+            _put_back(state, saved)
+            _random.rollback_keys(reserved)
+            pool = torch.cuda.graph_pool_handle() if pool is None else pool
+            fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            gens = _random.generators_of(device)
+            for g in gens:
+                fwd.register_generator_state(g)
+            with _launches.recording(side) as counted_fwd, \
+                    torch.cuda.graph(fwd, pool=pool, stream=side), \
+                    torch.enable_grad():
+                outs, single = fn(*static_in)
+            out_diff = [o.requires_grad for o in outs]
+            grad_outs = [torch.empty_like(o) for o in outs
+                         if o.requires_grad]
+            with _launches.recording(side) as counted_bwd, \
+                    torch.cuda.graph(bwd, pool=pool, stream=side):
+                grads = backward(outs, grad_outs)
+    except BaseException:
+        torch.cuda.synchronize(device)
+        _put_back(state, saved)
+        raise
+    # the outputs keep no autograd graph (it holds the capture's nodes)
+    return PairGraph(fwd, bwd, static_in, [o.detach() for o in outs],
+                     out_diff, grad_outs,
+                     list(grads), wrt_params, in_diff, single,
+                     (dict(counted_fwd), dict(counted_bwd)), gens, device)
+
+
 def signature(xs: Sequence[torch.Tensor]) -> tuple:
     """Shapes, strides and dtypes: what a captured graph's static input
     buffers fix."""
@@ -274,6 +404,7 @@ class GraphCache:
         self.size = max(1, int(size))
         self.capture_error_mode = capture_error_mode
         self._entries: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self.captures = 0              # graphs captured (misses)
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -307,6 +438,7 @@ class GraphCache:
                 graph = capture_steps(
                     body_of(static), k, state, self.device,
                     capture_error_mode=self.capture_error_mode)
+                self.captures += 1
                 entry = self._entries[full] = (graph, static)
                 while len(self._entries) > self.size:
                     self._entries.popitem(last=False)

@@ -32,6 +32,7 @@ the health registry and the profiler scopes wait for the telemetry port.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import threading
@@ -221,11 +222,34 @@ class ModelServer:
         return cls(block, ctx=ctx, **kwargs)
 
     @classmethod
-    def from_exported(cls, path: str, ctx=None, **kwargs) -> "ModelServer":
-        """Serve ``export_for_serving`` artifacts: not ported yet."""
-        raise NotImplementedError(
-            "ModelServer.from_exported waits for hybridize/export (ROADMAP "
-            "queue 1 item 6); serve the Block itself or from_checkpoint()")
+    def from_exported(cls, path: str, ctx: Optional[Context] = None,
+                      **kwargs) -> "ModelServer":
+        """Serve the ``HybridBlock.export_for_serving`` trio at ``path``
+        (either package's): the graph as a ``SymbolBlock`` with its
+        parameters on ``ctx`` (default ``gpu(0)``), the recorded buckets
+        (unless ``buckets`` is given), warmed on the recorded input
+        signature, one CUDA graph a bucket on the card (reference
+        ``ModelServer.from_exported``)."""
+        from ..gluon.block import SymbolBlock
+
+        with open(f"{path}-serving.json") as f:
+            spec = json.load(f)
+        if spec.get("version") != 1:
+            raise ValueError(f"unsupported serving spec {path}-serving.json")
+        if len(spec["inputs"]) != 1:
+            raise NotImplementedError(
+                "serving batches single-input models")
+        base = os.path.dirname(os.path.abspath(path))
+        block = SymbolBlock.imports(
+            os.path.join(base, spec["symbol"]),
+            [io["name"] for io in spec["inputs"]],
+            os.path.join(base, spec["params"]), ctx=ctx)
+        kwargs.setdefault("buckets", tuple(spec["buckets"]))
+        kwargs.setdefault("name", os.path.basename(path))
+        srv = cls(block, ctx=ctx, **kwargs)
+        io0 = spec["inputs"][0]
+        srv.warmup(tuple(io0["features"]), io0["dtype"])
+        return srv
 
     # -- dispatch -------------------------------------------------------------
     def submit(self, example) -> Future:

@@ -28,6 +28,7 @@ from incubator_mxnet_tpu import parallel as jparallel
 from incubator_mxnet_tpu.parallel.spmd import collect_params
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch import gluon, models, parallel
 from incubator_mxnet_tpu_torch.gluon.model_zoo import load_jax_params
 from incubator_mxnet_tpu_torch.ops import nn as pnn
@@ -247,7 +248,7 @@ def test_bert_model_with_the_heads_off_matches_jax(impl):
     heads = dict(use_pooler=False, use_decoder=False, use_classifier=False)
     jnet = _jax_bert(impl, seed=10, **heads)
     net = _port_bert(jnet, impl, **heads)
-    assert len(net.collect_params()) == 5 + 16 * LAYERS
+    assert len(tensors_of(net)) == 5 + 16 * LAYERS
     tok, seg, vl, _, _ = _batch(1)
     got = _port_forward(net, tok, seg, vl)
     assert len(got) == 1 and got[0].shape == (B, T, UNITS)
@@ -278,7 +279,7 @@ def test_pretraining_gradients_match_jax(impl):
     np.testing.assert_allclose(float(pl.detach()), float(jl.asnumpy()),
                                **TOL)
     want = {n: p.grad().asnumpy() for n, p in collect_params(jnet).items()}
-    got = {n: p.grad.numpy() for n, p in net.collect_params().items()}
+    got = {n: p.grad.numpy() for n, p in tensors_of(net).items()}
     assert set(got) == set(want) and len(got) == 15 + 16 * LAYERS
     for n in want:
         np.testing.assert_allclose(got[n], want[n], err_msg=n, **TOL)
@@ -301,7 +302,7 @@ def test_spmd_trainer_three_steps_match_jax(impl):
         np.testing.assert_allclose(float(got), want, **TOL)
     st.sync_to_net()
     want = {n: np.asarray(v) for n, v in jst.params.items()}
-    got = {n: p.detach().numpy() for n, p in net.collect_params().items()}
+    got = {n: p.detach().numpy() for n, p in tensors_of(net).items()}
     assert set(got) == set(want)
     for n in want:
         np.testing.assert_allclose(got[n], want[n], err_msg=n, **TOL)
@@ -339,7 +340,7 @@ def test_get_bert_specs_and_unknown_name():
             "bert_12_768_12": (12, 768, 12),
             "bert_24_1024_16": (24, 1024, 16)}.items():
         net = models.get_bert(name)
-        params = net.collect_params()
+        params = dict(net.named_parameters())
         assert len(params) == 15 + 16 * layers
         assert params["word_embed.weight"].shape == (30522, units)
         assert params["position_embed.weight"].shape == (512, units)

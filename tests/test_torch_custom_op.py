@@ -33,6 +33,7 @@ from incubator_mxnet_tpu.gluon.model_zoo import get_gpt as jax_get_gpt
 from incubator_mxnet_tpu.parallel.spmd import collect_params
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch import gluon, operator
 from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt, load_jax_params
 from incubator_mxnet_tpu_torch.ops import rtc_kernels
@@ -398,14 +399,14 @@ def test_imperative_gpt_step_matches_jax():
         jparams, "torch_parity_softmax_ce", tokens, labels)
     got_loss, got_grads = _step(
         mx, net, gluon.Trainer(net.collect_params(), "sgd", dict(hyper)),
-        net.collect_params(), "softmax_ce_rtc", tokens, labels)
+        tensors_of(net), "softmax_ce_rtc", tokens, labels)
     np.testing.assert_allclose(got_loss, want_loss, **STEP_TOL)
     assert set(got_grads) == set(want_grads) and len(got_grads) == 29
     for n in want_grads:
         assert np.abs(want_grads[n]).max() > 0, n
         np.testing.assert_allclose(got_grads[n], want_grads[n], err_msg=n,
                                    **STEP_TOL)
-    for n, p in net.collect_params().items():
+    for n, p in tensors_of(net).items():
         np.testing.assert_allclose(p.detach().numpy(),
                                    jparams[n].data().asnumpy(), err_msg=n,
                                    **STEP_TOL)

@@ -30,6 +30,7 @@ from incubator_mxnet_tpu.gluon.model_zoo.vision import fused_resnet as jfr
 from incubator_mxnet_tpu.parallel.spmd import collect_params
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch import gluon, parallel
 from incubator_mxnet_tpu_torch.gluon.model_zoo import (get_model,
                                                        load_jax_params)
@@ -117,7 +118,7 @@ def test_eval_logits_match_jax(jax_side):
     _assert_rel("eval logits", got, jax_side["eval_logits"])
     assert fc.fused_conv_launches == 0        # CPU: the plain versions ran
     # eval leaves the running statistics alone
-    for name, v in net.collect_params().items():
+    for name, v in tensors_of(net).items():
         if name.endswith(("running_mean", "running_var")):
             np.testing.assert_array_equal(v.detach().numpy(),
                                           jax_side["params"][name])
@@ -134,7 +135,7 @@ def test_training_logits_stats_and_gradients_match_jax(jax_side):
     _assert_rel("training logits", logits, jax_side["logits"])
     assert abs(float(loss.detach()) - jax_side["loss"]) \
         <= RTOL * jax_side["loss"]
-    own = net.collect_params()
+    own = tensors_of(net)
     assert set(jax_side["grads"]) == {n for n, p in own.items()
                                       if p.requires_grad}
     assert set(jax_side["stats"]) == {n for n, p in own.items()
@@ -174,11 +175,11 @@ def test_spmd_step_matches_eager_trainer_step_with_running_stats():
     assert len(stat_names) == 2 * 17         # 17 BatchNorm sites
     for n in stat_names:                # the step's statistics persist
         assert not np.array_equal(st.params[n].numpy(), params[n]), n
-        np.testing.assert_array_equal(net.collect_params()[n].numpy(),
+        np.testing.assert_array_equal(tensors_of(net)[n].numpy(),
                                       params[n])
     st.sync_to_net()
-    want = eager.collect_params()
-    for n, p in net.collect_params().items():
+    want = tensors_of(eager)
+    for n, p in tensors_of(net).items():
         np.testing.assert_allclose(p.detach().numpy(),
                                    want[n].detach().numpy(), rtol=1e-5,
                                    atol=1e-6, err_msg=n)
@@ -191,7 +192,7 @@ def test_fresh_model_initializes_running_stats_and_norm_params():
     net = FusedResNetV1(LAYERS, CHANNELS, classes=CLASSES).initialize(
         "xavier", ctx=mx.cpu())
     seen = set()
-    for name, p in net.collect_params().items():
+    for name, p in tensors_of(net).items():
         v = p.detach().numpy()
         for suffix, want in (("running_mean", 0.0), ("running_var", 1.0),
                              ("gamma", 1.0), ("beta", 0.0), ("bias", 0.0)):
@@ -205,7 +206,7 @@ def test_fresh_model_initializes_running_stats_and_norm_params():
 
 def test_resnet50_inventory_and_frozen_running_stats():
     net = fused_resnet50_v1()
-    ps = net.collect_params()
+    ps = dict(net.named_parameters())
     assert len(ps) == 267
     assert sum(p.numel() for p in ps.values()) == 25_610_152
     train = [n for n, p in ps.items() if p.requires_grad]
@@ -248,8 +249,8 @@ def test_trainer_leaves_running_stats_alone():
     with mx.autograd.record():
         loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
     after_fwd = {n: p.detach().clone() for n, p in
-                 net.collect_params().items() if not p.requires_grad}
+                 tensors_of(net).items() if not p.requires_grad}
     mx.autograd.backward(loss)
     tr.step(B)
     for n, v in after_fwd.items():
-        assert torch.equal(net.collect_params()[n], v), n
+        assert torch.equal(tensors_of(net)[n], v), n

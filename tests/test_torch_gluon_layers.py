@@ -31,6 +31,7 @@ from incubator_mxnet_tpu.gluon import nn as jnn
 from incubator_mxnet_tpu.parallel.spmd import collect_params as jcollect
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch import gluon, initializer, parallel
 from incubator_mxnet_tpu_torch.gluon import nn
 from incubator_mxnet_tpu_torch.gluon.block import DeferredInitializationError
@@ -539,7 +540,7 @@ def test_trainer_takes_the_one_card_kvstores(kvstore):
     mx.autograd.backward(loss)
     tr.step(5)
     for n, p in jcollect(jnet).items():
-        _assert_rel(n, net.collect_params()[n], p.data().asnumpy())
+        _assert_rel(n, tensors_of(net)[n], p.data().asnumpy())
 
 
 def test_trainer_refuses_what_waits_for_multi_gpu():

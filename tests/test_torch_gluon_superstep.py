@@ -28,6 +28,7 @@ from incubator_mxnet_tpu.parallel import superstep as jss
 from incubator_mxnet_tpu.parallel.spmd import collect_params
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 import incubator_mxnet_tpu_torch.optimizer as popt
 from incubator_mxnet_tpu_torch import gluon
 from incubator_mxnet_tpu_torch.config import config
@@ -172,7 +173,7 @@ def test_gluon_superstep_fused_matches_eager(opt, kw):
         _batches(K, s)))) for s in (3, 17)])
     np.testing.assert_allclose(lf.numpy(), lj, rtol=1e-5, atol=1e-6)
     want = {n: p.data().asnumpy() for n, p in collect_params(jnet).items()}
-    for n, p in net_f.collect_params().items():
+    for n, p in tensors_of(net_f).items():
         np.testing.assert_allclose(p.detach().numpy(), want[n], rtol=1e-5,
                                    atol=1e-6, err_msg=n)
 

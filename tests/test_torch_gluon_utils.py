@@ -26,6 +26,7 @@ from incubator_mxnet_tpu.gluon import nn as jnn
 from incubator_mxnet_tpu.gluon import utils as jutils
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch import gluon
 from incubator_mxnet_tpu_torch.gluon import contrib, nn, utils
 from incubator_mxnet_tpu_torch.gluon.model_zoo import load_jax_params
@@ -232,7 +233,7 @@ def test_hybrid_concurrent_matches_jax(axis):
         yj = jnet(xj)
         (yj * yj).sum().backward()
     net = _concurrent(nn, contrib, axis)
-    assert list(net.collect_params()) == list(params)
+    assert list(dict(net.named_parameters())) == list(params)
     load_jax_params(net, params, ctx=mx.cpu())
     xt = torch.from_numpy(x).requires_grad_()
     with mx.autograd.record():
@@ -278,16 +279,18 @@ def test_sync_batch_norm_is_batch_norm_over_axis_1():
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
                                atol=1e-5)
     for n in ("running_mean", "running_var"):
-        torch.testing.assert_close(sbn.collect_params()[n],
-                                   bn.collect_params()[n], rtol=0, atol=0)
+        torch.testing.assert_close(tensors_of(sbn)[n],
+                                   tensors_of(bn)[n],
+                                   rtol=0, atol=0)
         np.testing.assert_allclose(
-            sbn.collect_params()[n].detach().numpy(),
+            tensors_of(sbn)[n].detach().numpy(),
             jsbn._collect_params_with_prefix()[n].data().asnumpy(),
             rtol=1e-5, atol=1e-6)
     with mx.autograd.pause():
         torch.testing.assert_close(sbn(torch.from_numpy(x)),
                                    bn(torch.from_numpy(x)), rtol=0, atol=0)
-    with pytest.raises(TypeError):
-        contrib.nn.SyncBatchNorm(prefix="sbn_")
-    with pytest.raises(TypeError):
-        contrib.nn.HybridConcurrent(axis=1, params=None)
+    assert contrib.nn.SyncBatchNorm(prefix="sbn_").prefix == "sbn_"
+    assert list(contrib.nn.SyncBatchNorm(in_channels=2, prefix="sbn_")
+                .collect_params())[:2] == ["sbn_gamma", "sbn_beta"]
+    assert contrib.nn.HybridConcurrent(axis=1, params=None).params.prefix \
+        .startswith("hybrid_concurrent")

@@ -18,6 +18,7 @@ from incubator_mxnet_tpu.gluon.model_zoo import get_gpt as jax_get_gpt
 from incubator_mxnet_tpu.parallel.spmd import collect_params
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch import serving
 from incubator_mxnet_tpu_torch.config import config
 from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt, load_jax_params
@@ -156,7 +157,7 @@ def test_initialize_is_seeded_xavier_with_name_dispatch():
     for (name, p), q in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(p, q), name
         assert p.device.type == "cpu" and p.dtype == torch.float32
-    pa = a.collect_params()
+    pa = tensors_of(a)
     assert torch.all(pa["layer0.attn.qkv.bias"] == 0)
     assert torch.all(pa["ln_f.beta"] == 0)
     assert torch.all(pa["layer1.ln2.gamma"] == 1)

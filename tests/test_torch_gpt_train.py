@@ -28,6 +28,7 @@ from incubator_mxnet_tpu.ndarray import NDArray
 from incubator_mxnet_tpu.parallel.spmd import collect_params
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch import gluon, parallel, serving
 from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt, load_jax_params
 from incubator_mxnet_tpu_torch.ops import flash_attention as fa
@@ -63,7 +64,7 @@ def _batch(seed):
 
 
 def _assert_params(net, want, **tol):
-    got = {n: p.detach().numpy() for n, p in net.collect_params().items()}
+    got = {n: p.detach().numpy() for n, p in tensors_of(net).items()}
     assert set(got) == set(want)
     for n in want:
         np.testing.assert_allclose(got[n], want[n], err_msg=n, **(tol or TOL))
@@ -139,7 +140,7 @@ def test_record_backward_gradients_match_jax():
     assert got_loss.shape == (B,)
     np.testing.assert_allclose(got_loss, want_loss, **TOL)
     want = {n: p.grad().asnumpy() for n, p in collect_params(jnet).items()}
-    got = {n: p.grad.numpy() for n, p in net.collect_params().items()}
+    got = {n: p.grad.numpy() for n, p in tensors_of(net).items()}
     assert set(got) == set(want)
     for n in want:
         np.testing.assert_allclose(got[n], want[n], err_msg=n, **TOL)
@@ -197,7 +198,7 @@ def test_spmd_trainer_three_steps_match_jax(opt, hyper):
     jloss, loss = _lm_losses()
     jst = jparallel.SPMDTrainer(jnet, jloss, opt, dict(hyper))
     st = parallel.SPMDTrainer(net, loss, opt, dict(hyper))
-    before = {n: p.detach().clone() for n, p in net.collect_params().items()}
+    before = {n: p.detach().clone() for n, p in tensors_of(net).items()}
     for i in range(3):
         x, y = _batch(i)
         want = float(jst.step(x, y))
@@ -205,7 +206,7 @@ def test_spmd_trainer_three_steps_match_jax(opt, hyper):
         assert got.dtype == torch.float32 and got.dim() == 0
         np.testing.assert_allclose(float(got), want, **TOL)
     # the trainer owns its copy: the net moves only at sync_to_net
-    for n, p in net.collect_params().items():
+    for n, p in tensors_of(net).items():
         assert torch.equal(p.detach(), before[n]), n
     st.sync_to_net()
     _assert_params(net, {n: np.asarray(v) for n, v in jst.params.items()})
@@ -259,11 +260,11 @@ def test_bf16_net_gives_bf16_loss_and_fp32_mean():
 
 def test_block_cast_round_trip():
     net = _port_net(_jax_net())
-    want = {n: p.detach().clone() for n, p in net.collect_params().items()}
-    net.collect_params()["ln_f.gamma"].grad_req = "add"
+    want = {n: p.detach().clone() for n, p in tensors_of(net).items()}
+    tensors_of(net)["ln_f.gamma"].grad_req = "add"
     net.cast("bfloat16").cast(torch.float32)
-    assert net.collect_params()["ln_f.gamma"].grad_req == "add"
-    for n, p in net.collect_params().items():
+    assert tensors_of(net)["ln_f.gamma"].grad_req == "add"
+    for n, p in tensors_of(net).items():
         assert p.dtype == torch.float32
         torch.testing.assert_close(p.detach(), want[n], rtol=8e-3, atol=0)
     with pytest.raises(TypeError, match="unknown dtype"):
@@ -282,14 +283,14 @@ def test_trainer_made_before_cast_trains_the_cast_weights():
     jnet.cast("bfloat16")
     net.cast("bfloat16")
     cast = {n: p.detach().float().clone()
-            for n, p in net.collect_params().items()}
+            for n, p in tensors_of(net).items()}
     for i in range(2):
         x, y = _batch(i)
         _jax_record_backward(jnet, x, y)
         jtr.step(B)
         _port_record_backward(net, x, y)
         tr.step(B)
-    got = net.collect_params()
+    got = tensors_of(net)
     assert all(p.dtype == torch.bfloat16 for p in got.values())
     assert not torch.equal(got["head.weight"].detach().float(),
                            cast["head.weight"])
@@ -308,13 +309,13 @@ def test_gradients_are_written_not_accumulated():
     (x0, y0), (x1, y1) = _batch(0), _batch(1)
     _port_record_backward(net, x0, y0)
     _port_record_backward(net, x1, y1)
-    second = {n: p.grad.clone() for n, p in net.collect_params().items()}
+    second = {n: p.grad.clone() for n, p in tensors_of(net).items()}
     fresh = _port_net(_jax_net())
     _port_record_backward(fresh, x1, y1)
-    for n, p in fresh.collect_params().items():
+    for n, p in tensors_of(fresh).items():
         torch.testing.assert_close(second[n], p.grad, rtol=0, atol=0)
     # grad_req 'add' accumulates instead
-    p = net.collect_params()["head.weight"]
+    p = tensors_of(net)["head.weight"]
     p.grad_req = "add"
     _port_record_backward(net, x1, y1)
     torch.testing.assert_close(p.grad, 2 * second["head.weight"])
@@ -323,22 +324,22 @@ def test_gradients_are_written_not_accumulated():
 def test_stale_gradients_raise_unless_ignored_and_rescale_grad():
     net = _port_net(_jax_net())
     tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.5})
-    w0 = net.collect_params()["head.weight"].detach().clone()
+    w0 = tensors_of(net)["head.weight"].detach().clone()
     with pytest.raises(UserWarning, match="has not been updated"):
         tr.step(B)                                   # no backward yet
-    assert torch.equal(net.collect_params()["head.weight"], w0)
+    assert torch.equal(tensors_of(net)["head.weight"], w0)
     x, y = _batch(0)
     _port_record_backward(net, x, y)
-    g = net.collect_params()["head.weight"].grad.clone()
+    g = tensors_of(net)["head.weight"].grad.clone()
     tr.step(4)
     assert tr.optimizer.rescale_grad == 1 / 4
-    torch.testing.assert_close(net.collect_params()["head.weight"].detach(),
+    torch.testing.assert_close(tensors_of(net)["head.weight"].detach(),
                                w0 - 0.5 * g / 4)
     with pytest.raises(UserWarning, match="has not been updated"):
         tr.step(B)                                   # grads already used
-    w1 = net.collect_params()["head.weight"].detach().clone()
+    w1 = tensors_of(net)["head.weight"].detach().clone()
     tr.step(B, ignore_stale_grad=True)               # skips every param
-    assert torch.equal(net.collect_params()["head.weight"], w1)
+    assert torch.equal(tensors_of(net)["head.weight"], w1)
     # a torch-native backward that adds in place also counts as new
     with mx.autograd.record():
         loss = gluon.loss.SoftmaxCrossEntropyLoss()(
@@ -368,7 +369,7 @@ def test_lr_schedulers_match_jax_and_drive_the_optimizer(name, kw):
 
 def test_lr_and_wd_multipliers_per_parameter():
     net = _port_net(_jax_net())
-    params = net.collect_params()
+    params = tensors_of(net)
     params["head.weight"].lr_mult = 0.0
     params["ln_f.gamma"].wd_mult = 0.0
     tr = gluon.Trainer(params, "sgd", {"learning_rate": 0.5, "wd": 0.1})

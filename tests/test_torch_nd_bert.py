@@ -35,6 +35,7 @@ from incubator_mxnet_tpu import models as jmodels
 from incubator_mxnet_tpu.parallel.spmd import collect_params
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch import gluon, models
 from incubator_mxnet_tpu_torch.gluon.model_zoo import load_jax_params
 
@@ -121,7 +122,7 @@ def test_nd_bert_step_matches_the_port_gluon_bert(weights):
                           weights, ctx=mx.cpu())
     data, labels = _batch()
     loss_fn = cs.bert_pretrain_loss(gluon.loss.SoftmaxCrossEntropyLoss())
-    named = list(net.collect_params().items())
+    named = list(tensors_of(net).items())
     with mx.autograd.record():
         ref = loss_fn(*net(*[torch.from_numpy(a) for a in data]),
                       *[torch.from_numpy(a) for a in labels])

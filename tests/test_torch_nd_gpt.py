@@ -49,7 +49,7 @@ def _weights(seed=0):
                   dropout=0.0)
     rs = np.random.RandomState(seed)
     out = {}
-    for name, p in net.collect_params().items():
+    for name, p in net.named_parameters():
         w = rs.randn(*p.shape).astype(np.float32)
         out[name] = 1 + 0.1 * w if name.endswith("gamma") else 0.1 * w
     return out

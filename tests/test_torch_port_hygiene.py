@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch import serving
 from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt, load_jax_params
 from incubator_mxnet_tpu_torch.ops import flash_attention as fa
@@ -76,7 +77,14 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "incubator_mxnet_tpu_torch.numpy.linalg, "
             "incubator_mxnet_tpu_torch.numpy.fft, "
             "incubator_mxnet_tpu_torch.numpy.random, "
-            "incubator_mxnet_tpu_torch.numpy_extension\n"
+            "incubator_mxnet_tpu_torch.numpy_extension, "
+            "incubator_mxnet_tpu_torch.gluon.parameter, "
+            "incubator_mxnet_tpu_torch.gluon.block, "
+            "incubator_mxnet_tpu_torch.symbol, "
+            "incubator_mxnet_tpu_torch.symbol.symbol, "
+            "incubator_mxnet_tpu_torch.executor, "
+            "incubator_mxnet_tpu_torch.contrib, "
+            "incubator_mxnet_tpu_torch.contrib.control_flow\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) "
             "or m == 'incubator_mxnet_tpu' "
@@ -234,7 +242,7 @@ def test_cpu_training_never_launches_a_kernel():
         loss = ce(net(x), y)
     mx.autograd.backward(loss)
     tr.step(2)
-    assert net.collect_params()["head.weight"].grad is not None
+    assert tensors_of(net)["head.weight"].grad is not None
     assert (fa.flash_fwd_launches, fa.flash_bwd_dq_launches,
             fa.flash_bwd_dkv_launches) == (0, 0, 0)
 
@@ -307,7 +315,7 @@ def test_cpu_resnet_path_never_launches_a_kernel():
         loss = ce(net(x), y)
     mx.autograd.backward(loss)
     tr.step(2)
-    assert net.collect_params()["conv0_weight"].grad is not None
+    assert tensors_of(net)["conv0_weight"].grad is not None
     assert (fc.fused_conv_launches, fc.conv_bwd_dx_launches,
             fc.conv_bwd_dw_launches) == (0, 0, 0)
 
@@ -1325,3 +1333,81 @@ def test_a_failing_capture_never_turns_into_the_eager_loop(monkeypatch,
         assert eng.dispatch_count == 0
         assert tr._optimizer._index_update_count == {}
         assert tr._optimizer.num_update == 0
+
+
+def _hybrid_phase_args(cs):
+    """The hybrid phase's nets at small sizes on the CPU: a 2-layer GPT
+    and ``resnet18_v1`` (10 classes, 32x32)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt, vision
+
+    mx.random.seed(0)
+    gpt = get_gpt("gpt_decoder_tiny", vocab_size=97, units=64, num_layers=2,
+                  max_length=16, dropout=0.0).initialize("xavier",
+                                                         ctx=mx.cpu())
+    resnet = vision.resnet18_v1(classes=10)
+    resnet.initialize("xavier", ctx=mx.cpu())
+    resnet(mx.nd.zeros((1, 3, 32, 32), ctx=mx.cpu()))
+    return gpt, resnet, dict(hw=32, b=2, t=16, attention=(2, 16, 32, 2),
+                             control=(2, 16, 6, 5, 3), buckets=(1, 2),
+                             requests=6, threads=3, timed=False)
+
+
+def test_chip_smoke_hybrid_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.hybrid_phase`` on the CPU at small sizes (a 2-layer
+    GPT in fp32 then bf16, ``resnet18_v1`` at 32x32, the attention block
+    at 32 units, the control flow at 16): the hybridized forward and the
+    recorded step against eager (eager here: the CPU captures nothing),
+    the trainer over the ParameterDict, the export of the ResNet with its
+    statistics as auxiliary states and ``from_exported`` serving every
+    request, the attention graph and the control flow against their
+    unrolled forms. Then each check fails when its output is perturbed."""
+    from incubator_mxnet_tpu_torch import contrib, gluon
+    from incubator_mxnet_tpu_torch.gluon import block as gblock
+
+    cs = _chip_smoke()
+    gpt, resnet, kw = _hybrid_phase_args(cs)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = cs.hybrid_phase(0, "cpu", mx.cpu(), gpt, resnet, **kw)
+        for name in ("fp32", "bf16"):
+            row = out["gpt"][name]
+            assert row["captures"] == row["pairs"] == 0
+            assert row["forward_bit_equal"]
+            assert row["grads_bit_equal"] == row["n_grads"] == 29
+        assert len(out["gpt"]["fp32"]["trainer_losses"]) == 1
+        assert out["gpt"]["fp32"]["trainer_params"] == 29
+        assert out["resnet"]["aux"] == 2 * 20
+        assert out["resnet"]["buckets"] == [1, 2]
+        assert out["resnet"]["row_err"] <= cs.SERVE_RTOL
+        assert out["attention"]["ops"][-3:] == ["flash_attention",
+                                                "transpose", "reshape"]
+        assert set(out["control"]) == {"foreach", "while_loop", "cond"}
+        assert out["flash_routes"]["flash_fwd_f32"] == 0  # the CPU
+        # a perturbed output fails its check
+        forward = gluon.SymbolBlock.forward
+        monkeypatch.setattr(
+            gluon.SymbolBlock, "forward",
+            lambda self, *a: forward(self, *a) * (1 + 1e-3))
+        with pytest.raises(AssertionError, match="exported"):
+            cs.export_attention_part(0, "cpu", mx.cpu(),
+                                     *kw["attention"])
+        monkeypatch.undo()
+        foreach = contrib.foreach
+        monkeypatch.setattr(
+            contrib, "foreach",
+            lambda *a, **k: (lambda o, h: (o * 1.001, h))(*foreach(*a, **k)))
+        with pytest.raises(AssertionError, match="foreach"):
+            cs.control_flow_part(0, "cpu", mx.cpu(), *kw["control"])
+        monkeypatch.undo()
+        call = gblock.HybridBlock._call
+        monkeypatch.setattr(
+            gblock.HybridBlock, "_call",
+            lambda self, *a, **k: (lambda o: o * 1.01 if self._active
+                                   and self is gpt else o)(
+                                       call(self, *a, **k)))
+        with pytest.raises(AssertionError, match="hybridized GPT"):
+            cs.hybrid_gpt_part(0, "cpu", gpt, mx.cpu(), torch.bfloat16, 2,
+                               16, timed=False)
+    finally:
+        torch.set_num_threads(threads)

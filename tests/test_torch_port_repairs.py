@@ -52,6 +52,7 @@ from incubator_mxnet_tpu.gluon.model_zoo.vision import fused_resnet as jfr
 from incubator_mxnet_tpu.parallel.spmd import collect_params
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch import gluon, initializer, optimizer, parallel
 from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt, load_jax_params
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import FusedResNetV1
@@ -111,7 +112,7 @@ def test_initialize_without_init_draws_uniform_007():
     jnet = jgluon.nn.Dense(256, in_units=512)
     jnet.initialize()
     want = {n: p.data().asnumpy() for n, p in collect_params(jnet).items()}
-    got = {n: p.detach().numpy() for n, p in net.collect_params().items()}
+    got = {n: p.detach().numpy() for n, p in tensors_of(net).items()}
     assert set(got) == set(want)
     var = 0.07 ** 2 / 3
     for arr in (got["weight"], want["weight"]):
@@ -135,7 +136,7 @@ def test_own_xavier_wins_over_the_global_uniform():
     jnet.initialize(init="uniform")
     jnet(jmx.nd.array(np.zeros((1, 3, 32, 32), np.float32)))
     want = {n: p.data().asnumpy() for n, p in collect_params(jnet).items()}
-    got = {n: p.detach().numpy() for n, p in net.collect_params().items()}
+    got = {n: p.detach().numpy() for n, p in tensors_of(net).items()}
     assert set(got) == set(want)
     convs = [n for n in got if n.endswith("_weight") and "conv" in n]
     assert len(convs) == 1 + 3 * 4 + 4
@@ -190,7 +191,7 @@ def test_spmd_nag_without_momentum_is_plain_sgd_as_in_jax():
                                    float(jst.step(x, y)), rtol=1e-4,
                                    atol=1e-5)
     st.sync_to_net()
-    for n, p in net.collect_params().items():
+    for n, p in tensors_of(net).items():
         np.testing.assert_allclose(p.detach().numpy(),
                                    np.asarray(jst.params[n]), rtol=1e-4,
                                    atol=1e-5, err_msg=n)

@@ -42,6 +42,7 @@ from incubator_mxnet_tpu.gluon.model_zoo import vision as jvision
 from incubator_mxnet_tpu.parallel.spmd import collect_params as jcollect
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch import gluon, parallel
 from incubator_mxnet_tpu_torch.gluon import nn
 from incubator_mxnet_tpu_torch.gluon.model_zoo import (get_model,
@@ -158,7 +159,7 @@ def test_zoo_resnet_matches_jax(pair):
     fc.conv_bwd_dw_launches = 0
     with mx.autograd.pause():
         _assert_rel("eval logits", net(x), pair["eval_logits"])
-    for n, v in net.collect_params().items():
+    for n, v in tensors_of(net).items():
         if n.endswith(("running_mean", "running_var")):
             np.testing.assert_array_equal(v.detach().numpy(),
                                           pair["params"][n])
@@ -168,7 +169,7 @@ def test_zoo_resnet_matches_jax(pair):
     loss.backward()
     _assert_rel("training logits", logits, pair["logits"])
     assert abs(float(loss) - pair["loss"]) <= RTOL * abs(pair["loss"])
-    ps = net.collect_params()
+    ps = tensors_of(net)
     assert sorted(pair["stats"]) == sorted(
         n for n, p in ps.items() if n.endswith(("running_mean",
                                                  "running_var")))
@@ -232,11 +233,11 @@ def test_spmd_step_matches_eager_trainer_step():
     assert len(stat_names) == 2 * 17         # 17 BatchNorm sites
     for n in stat_names:                # the step's statistics persist
         assert not np.array_equal(st.params[n].numpy(), params[n]), n
-        np.testing.assert_array_equal(net.collect_params()[n].numpy(),
-                                      params[n])
+        np.testing.assert_array_equal(
+            tensors_of(net)[n].numpy(), params[n])
     st.sync_to_net()
-    want = eager.collect_params()
-    for n, p in net.collect_params().items():
+    want = tensors_of(eager)
+    for n, p in tensors_of(net).items():
         np.testing.assert_allclose(p.detach().numpy(),
                                    want[n].detach().numpy(), rtol=1e-5,
                                    atol=1e-6, err_msg=n)
@@ -250,7 +251,7 @@ def test_resnet50_v1_inventory_and_names_equal_jax():
     jnet = jvision.resnet50_v1(classes=1000)
     jnames = list(jnet._collect_params_with_prefix())
     net = get_model("resnet50_v1", classes=1000)
-    ps = net.collect_params()
+    ps = dict(net.named_parameters())
     assert list(ps) == jnames
     assert len(ps) == 267
     train = [n for n, p in ps.items() if p.requires_grad]
@@ -265,7 +266,7 @@ def test_resnet50_v1_inventory_and_names_equal_jax():
     net.initialize("xavier", ctx=mx.cpu())
     with torch.no_grad():
         net(torch.zeros(1, 3, 32, 32))
-    ps = net.collect_params()
+    ps = tensors_of(net)
     assert sum(p.numel() for p in ps.values()) == 25_610_152
     assert sum(p.numel() for p in ps.values() if p.requires_grad) == \
         25_557_032
@@ -275,7 +276,7 @@ def test_resnet50_v1_inventory_and_names_equal_jax():
     for depth in (18, 34, 101, 152):
         for version in (1, 2):
             name = f"resnet{depth}_v{version}"
-            assert list(get_model(name).collect_params()) == list(
+            assert list(dict(get_model(name).named_parameters())) == list(
                 getattr(jvision, name)()._collect_params_with_prefix()), name
 
 
@@ -309,10 +310,11 @@ def test_bench_mlp_matches_jax():
     JAX package's; three ``SPMDTrainer`` steps (SGD lr 0.1 momentum 0.9,
     the row's) give the JAX package's losses and weights in fp32."""
     jnet, net = _mlp_pair()
-    assert [(n, tuple(p.shape)) for n, p in net.collect_params().items()] \
-        == [("0.weight", (512, 784)), ("0.bias", (512,)),
-            ("1.weight", (512, 512)), ("1.bias", (512,)),
-            ("2.weight", (10, 512)), ("2.bias", (10,))]
+    assert [(n, tuple(p.shape))
+            for n, p in tensors_of(net).items()] == [
+        ("0.weight", (512, 784)), ("0.bias", (512,)),
+        ("1.weight", (512, 512)), ("1.bias", (512,)),
+        ("2.weight", (10, 512)), ("2.bias", (10,))]
     x, _ = _mlp_batch(0)
     _assert_rel("logits", net(torch.from_numpy(x)),
                 jnet(jmx.nd.array(x)).asnumpy())
@@ -327,7 +329,7 @@ def test_bench_mlp_matches_jax():
         assert abs(float(st.step(x, y)) - want) <= RTOL * abs(want)
     st.sync_to_net()
     for n, v in jst.params.items():
-        _assert_rel(n, net.collect_params()[n], np.asarray(v))
+        _assert_rel(n, tensors_of(net)[n], np.asarray(v))
 
 
 def test_bench_mlp_in_bf16_matches_jax():

@@ -456,7 +456,9 @@ def test_server_max_batch_size_capped_by_buckets():
 
 
 def test_unported_loaders_name_their_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # from_exported is ported (item 6): without its files it raises the
+    # missing file's error
+    with pytest.raises(FileNotFoundError, match="serving.json"):
         ModelServer.from_exported(str(tmp_path / "net"))
     with pytest.raises(NotImplementedError, match="item 10"):
         serving.load_block_checkpoint(_dense(),

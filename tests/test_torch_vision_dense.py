@@ -65,7 +65,7 @@ def test_inception_structure_and_densenet_121_widths():
     package's; the first A block's first conv is ``features.7.0.0.0``.
     ``densenet121``'s transitions halve 256, 512 and 1024 channels."""
     net = get_model("inceptionv3")
-    names = list(net.collect_params())
+    names = list(dict(net.named_parameters()))
     assert names == list(
         jvision.inception_v3()._collect_params_with_prefix())
     assert names[names.index("features.7.0.0.0.weight") - 1].startswith(

@@ -63,7 +63,8 @@ def test_vision_names_equal_jax_for_every_model():
     """Every name of the reference's ``get_model`` builds in the port,
     with the JAX package's structural parameter names in its order (the
     three fused ResNets beside them); an unknown name raises in the
-    reference's words; ``pretrained`` and ``prefix`` raise."""
+    reference's words; ``pretrained`` raises; ``prefix`` and ``params``
+    pass through to the block, as the reference's."""
     assert len(jvision._models) == 36
     assert set(vision._models) == set(jvision._models) | {
         f"fused_resnet{d}_v1" for d in (50, 101, 152)}
@@ -72,8 +73,9 @@ def test_vision_names_equal_jax_for_every_model():
                                       classes=7)._collect_params_with_prefix())
         net = get_model(name.upper() if name == "alexnet" else name,
                         classes=7)
-        assert list(net.collect_params()) == want, name
-        assert net.collect_params()[want[-1]].shape[0] == 7, name
+        names = dict(net.named_parameters())
+        assert list(names) == want, name
+        assert names[want[-1]].shape[0] == 7, name
     with pytest.raises(ValueError) as err:
         get_model("vgg17")
     jerr = pytest.raises(ValueError, jvision.get_model, "vgg17")
@@ -81,10 +83,12 @@ def test_vision_names_equal_jax_for_every_model():
     assert "not found; available:" in str(err.value)
     with pytest.raises(RuntimeError, match="pretrained"):
         get_model("squeezenet1.0", pretrained=True)
-    with pytest.raises(TypeError):
-        get_model("vgg11", prefix="vgg_")
-    with pytest.raises(TypeError):
-        vision.inception_v3(params=None)
+    net, jnet = get_model("vgg11", prefix="vgg_"), \
+        jvision.get_model("vgg11", prefix="vgg_")
+    assert net.prefix == jnet.prefix == "vgg_"
+    assert list(net.collect_params()) == list(jnet.collect_params())
+    assert vision.inception_v3(params=None).params.prefix.startswith(
+        "inception3")
 
 
 #: the inventory the JAX package gives at classes=1000 once its first

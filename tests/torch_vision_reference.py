@@ -57,6 +57,7 @@ from incubator_mxnet_tpu.gluon.parameter import _trace
 from incubator_mxnet_tpu.ndarray import NDArray as JNDArray
 
 import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch.parallel import collect_params as tensors_of
 from incubator_mxnet_tpu_torch.gluon.model_zoo import load_jax_params
 from incubator_mxnet_tpu_torch.ops import fused_conv as fc
 
@@ -116,7 +117,7 @@ def draw(net, seed):
     """A value for every parameter of ``net`` from ``seed``, by name."""
     rs = np.random.RandomState(seed)
     out = {}
-    for name, p in net.collect_params().items():
+    for name, p in tensors_of(net).items():
         arr = (rs.randn(*p.shape) * 0.1).astype(np.float32)
         if name.endswith(("running_var", "gamma")):
             arr = np.abs(arr) + 0.5
@@ -240,7 +241,7 @@ def check(p):
     fc.conv_bwd_dw_launches = 0
     with mx.autograd.pause():
         assert_rel("eval logits", net(x), p["eval_logits"])
-    for n, v in net.collect_params().items():
+    for n, v in tensors_of(net).items():
         if n.endswith(STATS):
             np.testing.assert_array_equal(v.detach().numpy(),
                                           p["params"][n])
@@ -248,7 +249,7 @@ def check(p):
     logits, loss, got = cs.train_grads(net, x, y, seen)
     assert_rel("training logits", logits, p["logits"])
     assert abs(float(loss) - p["loss"]) <= RTOL * abs(p["loss"])
-    ps = net.collect_params()
+    ps = tensors_of(net)
     assert sorted(p["stats"]) == sorted(n for n in ps if n.endswith(STATS))
     for n, want in p["stats"].items():
         assert not np.array_equal(want, p["params"][n]), n
@@ -279,7 +280,7 @@ def check_mobilenet(make):
     scale."""
     p = pair(make, 64, 2)
     assert p["dropouts"] == 0
-    for name, w in p["net"].collect_params().items():
+    for name, w in tensors_of(p["net"]).items():
         if name.endswith("weight") and w.dim() == 4 and w.shape[1] == 1:
             assert tuple(w.shape) == p["params"][name].shape, name
     held = check(p)

@@ -54,7 +54,7 @@ def main(argv=None) -> int:
     net = get_bert("bert_12_768_12", vocab_size=30522, max_length=512,
                    dropout=0.0, attention_impl="pallas").initialize(
                        "xavier", ctx=ctx)
-    named = [(n, p) for n, p in net.collect_params().items()
+    named = [(n, p) for n, p in mx.parallel.collect_params(net).items()
              if p.requires_grad]
     names = [n for n, _ in named]
     loss_fn = cs.bert_pretrain_loss(gluon.loss.SoftmaxCrossEntropyLoss())

@@ -53,7 +53,8 @@ def main(argv=None) -> int:
         for lr in args.lrs:
             mx.random.seed(args.seed)
             net.initialize("xavier" if init == "xavier"
-                           else initializer.Normal(0.02), ctx=ctx)
+                           else initializer.Normal(0.02), ctx=ctx,
+                           force_reinit=True)
             tr = gluon.Trainer(net.collect_params(), "sgd",
                                {"learning_rate": lr, "momentum": 0.9,
                                 "wd": 1e-4})
