@@ -384,7 +384,31 @@ Phases (any failure raises, and the script exits non-zero):
    K4 and equals the block. ``foreach`` (256 steps of a ``Dense(768)``
    +tanh cell at B=8), ``while_loop`` (``max_iterations`` 16) and ``cond``
    (with ``inputs``) against their unrolled forms, values and gradients
-   (``CONTROL_RTOL``).
+   (``CONTROL_RTOL``);
+18. AMP, optimizers and SSD phase (``ssd_amp_main``): the fp16 K4, K5 and
+   K6 (``fp16_flash_checks``: the tensor-core route at GPT's shape and at
+   BERT's with key lengths, the split route at a decode step) against
+   their plain versions (``TOLS[fp16]``), timed beside SDPA in fp16;
+   ``gpt_decoder_117m`` from fp32 weights under ``amp.init("bfloat16")``
+   (``gpt_amp_part``): one step's loss and 149 gradients against the same
+   AMP step on the CPU (B=1, ``BF16_GRAD_RTOL``), 3 Adam steps through
+   ``gluon.Trainer`` with ``init_trainer``/``scale_loss`` (the bf16
+   tensor-core K4-K6 12 a step each, counted under
+   ``launches_by_path["amp"]``; the loss falls), an fp16 AMP step (the
+   fp16 K4-K6, the kernels line's ``*_tc_fp16`` entries) and an injected
+   overflow (the update skipped, the scale halved); the same net in bf16
+   with ``multi_precision`` Adam and LAMB (every fp32 master against an
+   fp32 update of the same gradients, ``MASTER_RTOL``); the nine
+   optimizers against the CPU (``OPT_RTOL``) and SGLD's noise moments;
+   ``SPMDTrainer`` lamb/rmsprop/adagrad, ``run_superstep`` bit-equal to
+   eager steps; SSD-300 VOC as bench.py's row (``ssd_part``: B=16, bf16,
+   SGD, ``MultiBoxTarget`` inside the loss): K eager steps, the graph path
+   bit-equal to them, one step under ``torch.cuda.set_sync_debug_mode(
+   "error")``, host and device ms and images/s eager and on graphs, the
+   AMP route from fp32 weights with a falling loss, ``multibox_detection``
+   on the trained net (timed; two images against the CPU),
+   ``multibox_target`` at the step's shapes and the 14 detection ops
+   against the CPU (``detection_checks``, ``DET_TOLS``).
 
 The third line from the end (``rows: {...}``) gives the bench rows: the
 fused and unfused ResNet-50, the MLP and BERT (pallas, xla and mixed
@@ -398,7 +422,10 @@ mx.nd phase's seconds, the mx.np GPT step's (``np_gpt_fp32``) likewise,
 and the mx.nd 1.x BERT step's beside the gluon
 BERT step's (pallas and xla), and the vision phase's models
 (``vision_fp32``) and clipped GPT step (``gpt_clip_fp32``), and the
-hybrid phase's rows (``hybrid_gpt``, ``hybrid_export``). The
+hybrid phase's rows (``hybrid_gpt``, ``hybrid_export``), and the
+AMP GPT step, the masters, the optimizers and the SSD-300 rows
+(``amp_gpt_bf16``, ``multi_precision``, ``optimizers``,
+``ssd300_bf16``). The
 line before the last is the kernels' JSON record (K1 to K7; K1 to K6
 once per route, ``flash_fwd``/``fused_conv``/``conv_bwd_dx``/
 ``conv_bwd_dw``/``flash_bwd_dq``/``flash_bwd_dkv`` the SIMT kernels at the
@@ -408,7 +435,9 @@ micro-tile kernels there (a conv record also names its CUDA function,
 ``kernel``), ``flash_fwd_tc``/``fused_conv_tc``/
 ``conv_bwd_dx_tc``/``conv_bwd_dw_tc``/``flash_bwd_dq_tc``/
 ``flash_bwd_dkv_tc`` the tensor-core kernels at the bf16 head case,
-``flash_fwd_split`` the split kernels at the fp32 decode case); the last
+``flash_fwd_split`` the split kernels at the fp32 decode case;
+``flash_fwd_tc_fp16``/``flash_bwd_dq_tc_fp16``/``flash_bwd_dkv_tc_fp16``
+the tensor-core kernels in fp16 at the GPT training case); the last
 line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or run alone without
 the repository beside it (the port does not import), the script exits 2
@@ -439,12 +468,15 @@ import torch
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and the
 # FLOP/s of the type the kernel's inputs come in.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.float16: 989e12}
+# fp16 keeps 3 more mantissa bits than bf16: half its tolerance
+TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 1e-2}
 # fp32 training gradients, kernels vs plain versions: relative L2 error per
 # parameter tensor (both fp32, TF32 off; only the order of sums differs)
 GRAD_RTOL = 1e-3
-DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16",
+               torch.float16: "fp16"}
 # the routes of each conv kernel K1-K3: "tc" the bf16 tensor-core
 # kernels, "f32" the fp32 register micro-tiles, "simt" the others (K4 has
 # four, ``FWD_ROUTES``; K5/K6 three, ``BWD_ROUTES``)
@@ -10352,6 +10384,845 @@ def hybrid_main(seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 24: AMP, the optimizers, multi_precision, SSD-300 and detection
+# ---------------------------------------------------------------------------
+# (name, b, tq, tk, d, causal, cache_offset, lengths) of the fp16 flash
+# checks, H = 12: the GPT training shape, BERT's with key lengths, and a
+# decode step (the split kernels; forward only)
+FP16_CASES = [
+    ("train_causal_B8_T256", 8, 256, 256, 64, True, False, None),
+    ("bert_lengths_B24_T128", 24, 128, 128, 64, False, False, "bert"),
+    ("decode_cache_offset_S8_Tk512", 8, 1, 512, 64, True, True, "decode"),
+]
+FP16_HEAD = "train_causal_B8_T256"
+# the nine optimizers the slice added (RMSProp twice: plain and centered),
+# each with its hyperparameters, held card against CPU
+OPT_RULES = [
+    ("adagrad", {"learning_rate": 0.1}),
+    ("adadelta", {"rho": 0.9}),
+    ("rmsprop", {"learning_rate": 0.01, "clip_weights": 2.0}),
+    ("rmsprop", {"learning_rate": 0.01, "centered": True}),
+    ("ftrl", {"learning_rate": 0.1}),
+    ("lamb", {"learning_rate": 0.01}),
+    ("lars", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("signum", {"learning_rate": 0.01, "momentum": 0.9}),
+    ("sgld", {"learning_rate": 0.01}),
+    ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9}),
+]
+# card against CPU, fp32 elementwise rules (LAMB and LARS: norms summed in
+# another order): relative to max|CPU|
+OPT_RTOL = 1e-5
+# the fp32 master weights of a multi_precision step against an fp32
+# update of the same gradients (the same arithmetic: bit-equal expected)
+MASTER_RTOL = 1e-6
+# detection ops card against CPU: floating outputs (fp32, other order of
+# operations), index outputs and masks equal. RROIAlign: the card's and
+# the CPU's fp32 sin/cos differ in their last bits, which sample
+# coordinates of magnitude ~10 carry into the bilinear weights (an image's
+# neighbours differ by O(1)): 1e-4 there
+DET_RTOL, DET_ATOL = 1e-5, 1e-6
+DET_TOLS = {"RROIAlign": (1e-4, 1e-4)}
+
+
+def fp16_flash_checks(seed, dev=None, cases=None, h=12):
+    """The fp16 repair on the card: K4 (tensor-core route; split for the
+    decode step), K5 and K6 (tensor-core) in fp16 against their plain
+    versions (fp32 sums, fp16 results) at ``FP16_CASES``, each route named
+    and checked; timed beside SDPA in fp16 under the same boolean mask.
+    o within ``TOLS[fp16]``, the lse within ``LSE_TOL``, each gradient
+    within ``TOLS[fp16]`` of max|plain| (``_bwd_errs``). On a CPU tensor
+    the wrappers take the plain versions and no route is counted."""
+    import torch.nn.functional as F
+
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    on_card = dev.type == "cuda"
+    dt = torch.float16
+    tol = TOLS[dt]
+    rs = np.random.RandomState(seed + 24)
+    decode_lens = np.sort(rs.randint(1, 513, size=8))
+    rows = []
+    for name, b, tq, tk, d, causal, co, lengths in \
+            (FP16_CASES if cases is None else cases):
+        if isinstance(lengths, str):
+            lengths = decode_lens if lengths == "decode" else \
+                bert_lengths(seed, b, tk)
+        q, k, v = (torch.from_numpy(rs.randn(b, h, t, d).astype(
+            np.float32)).to(dev, dt) for t in (tq, tk, tk))
+        lens = None if lengths is None else \
+            torch.tensor(np.asarray(lengths, np.int32), device=dev)
+        kw = dict(causal=causal, cache_offset=co)
+        label = f"{name} fp16"
+        expect = "split" if tq == 1 else "tc"
+        before = _fwd_route_counts(fa)
+        got = fa.flash_attention(q, k, v, lens, return_lse=True, **kw)
+        if on_card:
+            _check_fwd_route(label, before, _fwd_route_counts(fa), expect)
+        want = fa.flash_attention_reference(q, k, v, lens, return_lse=True,
+                                            **kw)
+        err, lse_err = _check_fwd_out(label, got, want, dt)
+        valid = _valid_mask(b, tq, tk, lens, causal, co, dev)
+        with_lse = tq > 1
+        ms = device_ms(lambda: fa.flash_attention(
+            q, k, v, lens, return_lse=with_lse, **kw))
+        plain_ms = device_ms(lambda: fa.flash_attention_reference(
+            q, k, v, lens, return_lse=with_lse, **kw))
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=valid))
+        bound_ms, bound_by = attention_bound(b, h, tq, tk, d, dt, valid,
+                                             with_lse)
+        rows.append(dict(kernel="flash_fwd", case=name, dtype="fp16",
+                         route=expect, max_abs_err=err, lse_err=lse_err,
+                         tol=tol, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+        print(f"fp16 flash_fwd {name} route {expect}: max_abs_err={err:.3e}"
+              f" (tol {tol:g}) lse_err={lse_err:.3e} ms={ms:.5f} plain_ms="
+              f"{plain_ms:.5f} library_ms={library_ms:.5f} (SDPA fp16, "
+              f"boolean mask) bound_ms={bound_ms:.5f} ({bound_by})",
+              flush=True)
+        if tq == 1:
+            continue
+        g = torch.from_numpy(rs.randn(b, h, tq, d).astype(np.float32)).to(
+            dev, dt)
+        out, lse = got
+        delta = (g.float() * out.float()).sum(-1)
+        args = (q, k, v, lens, lse, delta, g)
+        before = _read_routes(fa)
+        got_b = fa.flash_attention_bwd(*args, **kw)
+        if on_card:
+            _check_bwd_route(label, before, _read_routes(fa), "tc")
+        errs = _bwd_errs(label, got_b, fa.flash_attention_bwd_reference(
+            *args, **kw), valid, tol)
+        library_ms = _sdpa_bwd_ms(q, k, v, g, valid)
+        for kernel, labels, launch, plain in (
+                ("dq", ("dq",), fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
+                ("dkv", ("dk", "dv"), fa.flash_bwd_dkv,
+                 fa.flash_bwd_dkv_reference)):
+            ms = device_ms(lambda: launch(*args, **kw))
+            plain_ms = device_ms(lambda: plain(*args, **kw))
+            bound_ms, bound_by = attention_bwd_bound(kernel, b, h, tq, tk,
+                                                     d, dt, valid)
+            err = max(errs[x][0] for x in labels)
+            rows.append(dict(kernel=f"flash_bwd_{kernel}", case=name,
+                             dtype="fp16", route="tc", max_abs_err=err,
+                             tol=tol, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by))
+            print(f"fp16 flash_bwd_{kernel} {name} route tc: max_abs_err="
+                  f"{err:.3e} (tol {tol:g} x max|plain|) ms={ms:.5f} "
+                  f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+                  f"(SDPA fp16 backward, both gradients) bound_ms="
+                  f"{bound_ms:.5f} ({bound_by})", flush=True)
+    return rows
+
+
+def _lm_batch(seed, b, t, vocab, dev):
+    rs = np.random.RandomState(seed)
+    return (torch.from_numpy(rs.randint(0, vocab, (b, t)).astype(
+        np.int32)).to(dev), torch.from_numpy(rs.randint(
+            0, vocab, (b, t)).astype(np.float32)).to(dev))
+
+
+def _flash_tc_counts(fa):
+    return {n: getattr(fa, n + "_launches") for n in
+            ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")}
+
+
+def _since(before, now):
+    return {n: now[n] - before[n] for n in now}
+
+
+def _amp_step(mx, amp, net, tr, ce, x, y):
+    """One AMP step through ``gluon.Trainer``: the scaled backward inside
+    record() (the reference's usage), then ``step(1)`` (the loss is a
+    mean). Returns the fp32 loss and the logits' type."""
+    with mx.autograd.record():
+        logits = net(x)
+        loss = ce(logits, y).mean()
+        with amp.scale_loss(loss, tr) as scaled:
+            mx.autograd.backward(scaled)
+    tr.step(1)
+    return loss.detach().float(), logits.dtype
+
+
+def _gpt_like(net, ctx):
+    """A copy of the GPT decoder ``net`` (dropout 0) on ``ctx`` with its
+    weights in fp32."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import load_jax_params
+
+    other = type(net)(vocab_size=net._vocab, units=net._units,
+                      num_layers=net._layers, num_heads=net._heads,
+                      max_length=net._max_length, dropout=0.0)
+    return load_jax_params(other, {n: p.detach().float().cpu().numpy()
+                                   for n, p in net.named_parameters()},
+                           ctx=ctx)
+
+
+def gpt_amp_part(seed, card, net, ctx, b=8, t=256, cmp_b=1, steps=3,
+                 lr=1e-3, timed=True):
+    """GPT under AMP from fp32 weights: ``amp.init("bfloat16")`` (the LM
+    head's logits bf16), one step's gradients on ``ctx`` against the same
+    AMP step on the CPU (B=``cmp_b``, the same weights and batch: loss to
+    ``BF16_GRAD_RTOL`` relative, every gradient tensor to
+    ``BF16_GRAD_RTOL`` relative L2, ``_worst_grad``), then ``steps`` Adam
+    steps through ``gluon.Trainer`` with ``init_trainer``/``scale_loss``
+    (the main path: the tensor-core K4/K5/K6 launched 12 times a step each,
+    counted; the loss falls), then an fp16 AMP step with the scaler (the
+    fp16 tensor-core K4/K5/K6, counted) and an injected overflow (the
+    update skipped, the scale halved)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import amp, gluon
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+    dev = next(net.parameters()).device
+    on_card = dev.type == "cuda"
+    vocab, layers = net._vocab, net._layers
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    out = {}
+    try:
+        amp.init("bfloat16")
+        # the card's AMP gradients against the CPU's (same weights, batch)
+        x1, y1 = _lm_batch(seed + 1, cmp_b, t, vocab, dev)
+        cpu_net = _gpt_like(net, mx.cpu())
+
+        def loss_fn(logits, y):
+            if logits.dtype != torch.bfloat16:
+                raise AssertionError(f"amp: logits {logits.dtype}, not "
+                                     "bfloat16 (the LM head is a target op)")
+            return ce(logits, y).mean()
+
+        loss, grads = _grads(net, loss_fn, x1, y1)
+        ref_loss, ref_grads = _grads(cpu_net, loss_fn, x1.cpu(), y1.cpu())
+        del cpu_net
+        names = [n for n, p in net.named_parameters() if p.requires_grad]
+        if not math.isfinite(float(loss)) or abs(
+                float(loss) - float(ref_loss)) > BF16_GRAD_RTOL * abs(
+                    float(ref_loss)):
+            raise AssertionError(f"amp: loss {float(loss)} on {card} vs "
+                                 f"{float(ref_loss)} on the CPU")
+        worst = _worst_grad("amp card vs CPU", names,
+                            [g.float().cpu() for g in grads],
+                            [g.float() for g in ref_grads], BF16_GRAD_RTOL)
+        out["cpu_loss_rel"] = abs(float(loss) - float(ref_loss)) / abs(
+            float(ref_loss))
+        out["cpu_grad_worst"] = worst
+        print(f"amp bf16 step: loss {float(loss):.6f} ({card}) vs "
+              f"{float(ref_loss):.6f} (CPU); worst gradient relative L2 "
+              f"{worst[0]:.3e} ({worst[1]}) over {len(names)} tensors, "
+              f"tolerance {BF16_GRAD_RTOL:g}", flush=True)
+        del grads, ref_grads
+        # the main path: Adam steps through gluon.Trainer under AMP
+        x, y = _lm_batch(seed, b, t, vocab, dev)
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": lr})
+        scaler = amp.init_trainer(tr)
+        before = _flash_tc_counts(fa)
+        losses = []
+        for _ in range(steps):
+            loss, ldt = _amp_step(mx, amp, net, tr, ce, x, y)
+            losses.append(float(loss))
+        routes = _since(before, _flash_tc_counts(fa))
+        if ldt != torch.bfloat16:
+            raise AssertionError(f"amp: logits {ldt}, not bfloat16")
+        if on_card and any(c != layers * steps for c in routes.values()):
+            raise AssertionError(f"amp: {steps} bf16 steps launched "
+                                 f"{routes}, not {layers} a step each")
+        if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+            raise AssertionError(f"amp: losses {losses} do not fall")
+        out.update(losses=losses, routes=routes,
+                   scale=scaler.loss_scale)
+        if timed:
+            out["step_ms"] = _median_turns(
+                {"amp": lambda: _amp_step(mx, amp, net, tr, ce, x, y)},
+                3)["amp"]
+            out["tokens_s"] = b * t / out["step_ms"] * 1e3
+            out["device_ms"] = _kernel_ms(
+                lambda: _amp_step(mx, amp, net, tr, ce, x, y))
+        print(f"amp bf16 GPT (B={b}, T={t}, Adam lr {lr}) on {card}: losses"
+              f" {[round(v, 5) for v in losses]}; tensor-core launches "
+              f"{routes}; step_ms={out.get('step_ms')} device_ms="
+              f"{out.get('device_ms')}", flush=True)
+        # an fp16 step with the scaler, then an injected overflow
+        amp.deinit()
+        amp.init("float16")
+        tr16 = gluon.Trainer(net.collect_params(), "sgd",
+                             {"learning_rate": 1e-4})
+        scaler16 = amp.init_trainer(tr16)
+        before = _flash_tc_counts(fa)
+        loss16, ldt = _amp_step(mx, amp, net, tr16, ce, x, y)
+        out["fp16_routes"] = _since(before, _flash_tc_counts(fa))
+        if ldt != torch.float16 or not math.isfinite(float(loss16)):
+            raise AssertionError(f"amp fp16: logits {ldt}, loss "
+                                 f"{float(loss16)}")
+        if on_card and any(c != layers for c in out["fp16_routes"].values()):
+            raise AssertionError(f"amp fp16: one step launched "
+                                 f"{out['fp16_routes']}, not {layers} each")
+        if any(not torch.isfinite(p).all() for p in net.parameters()):
+            raise AssertionError("amp fp16: a parameter is not finite")
+        scale0 = scaler16.loss_scale
+        w = next(p for p in net.parameters() if p.requires_grad)
+        w0 = w.detach().clone()
+        with mx.autograd.record():
+            loss = ce(net(x), y).mean()
+            with amp.scale_loss(loss, tr16) as scaled:
+                mx.autograd.backward(scaled)
+        w.grad.view(-1)[0] = float("inf")
+        tr16.step(1)
+        if not torch.equal(w.detach(), w0) \
+                or scaler16.loss_scale != scale0 / 2:
+            raise AssertionError("amp overflow: the update ran or the "
+                                 f"scale went {scale0} -> "
+                                 f"{scaler16.loss_scale}")
+        out.update(fp16_loss=float(loss16), fp16_scale=scale0,
+                   overflow_scale=scaler16.loss_scale)
+        print(f"amp fp16 step: loss {float(loss16):.6f}, tensor-core "
+              f"launches {out['fp16_routes']}; injected overflow: update "
+              f"skipped, scale {scale0:g} -> {scaler16.loss_scale:g}",
+              flush=True)
+    finally:
+        amp.deinit()
+    return out
+
+
+def multi_precision_part(seed, card, net, ctx, b=8, t=256, rules=("adam",
+                                                                  "lamb")):
+    """``net`` cast to bf16 takes one step of each rule through
+    ``gluon.Trainer`` with ``multi_precision=True`` (FusedStep falls back
+    to the per-parameter path): every fp32 master weight against the same
+    rule's fp32 update of the same gradients from the same fp32 start
+    (``MASTER_RTOL`` of max|expected|), and every weight the cast of its
+    master."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, optimizer
+
+    dev = next(net.parameters()).device
+    net.cast("bfloat16")
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = _lm_batch(seed + 2, b, t, net._vocab, dev)
+    out = {}
+    for rule in rules:
+        hyper = {"learning_rate": 1e-4, "wd": 1e-4}
+        tr = gluon.Trainer(net.collect_params(), rule,
+                           dict(hyper, multi_precision=True))
+        with mx.autograd.record():
+            loss = ce(net(x), y).mean()
+        mx.autograd.backward(loss)
+        params = tr._params
+        grads = [p.grad.detach().clone() for p in params]
+        starts = [p.detach().float() for p in params]
+        tr.step(1)
+        if tr._fused.last_fallback != "multi_precision master weights":
+            raise AssertionError(f"multi_precision {rule}: FusedStep ran "
+                                 f"({tr._fused.last_fallback})")
+        ref = optimizer.create(rule, **hyper)
+        worst = 0.0
+        for i, (p, g, w32) in enumerate(zip(params, grads, starts)):
+            master, _ = tr._updater.states[i]
+            st = ref.create_state(i, w32)
+            ref.update(i, w32, g.float(), st)
+            err = (master - w32).abs().max().item() / max(
+                1e-30, w32.abs().max().item())
+            worst = max(worst, err)
+            if err > MASTER_RTOL or not torch.equal(p.detach(),
+                                                    master.bfloat16()):
+                raise AssertionError(
+                    f"multi_precision {rule}: parameter {i} master off by "
+                    f"{err:.3e} or the weight is not its cast")
+        out[rule] = {"loss": loss.item(), "master_worst": worst,
+                     "params": len(params)}
+        print(f"multi_precision {rule} (bf16 GPT, fp32 masters, "
+              f"{len(params)} parameters): worst master error {worst:.3e} "
+              f"(tol {MASTER_RTOL:g}) against an fp32 update of the same "
+              "gradients; every weight the cast of its master", flush=True)
+    return out
+
+
+def optimizer_checks(seed, dev, shapes=((1024, 1024), (4096,)), steps=3,
+                     n_noise=2 ** 20):
+    """Each of ``OPT_RULES`` on ``dev`` against the CPU on the same
+    tensors for ``steps`` steps (wd, clipping and a rescale on): weights
+    and states within ``OPT_RTOL`` of max|CPU| (SGLD with its noise taken
+    out); then SGLD's noise on ``dev`` against N(0, lr) by its mean and
+    variance over ``n_noise`` draws (6 standard errors)."""
+    from incubator_mxnet_tpu_torch import optimizer as opt
+
+    rs = np.random.RandomState(seed + 7)
+    ws = [rs.randn(*s).astype(np.float32) for s in shapes]
+    gs = [[rs.randn(*s).astype(np.float32) for s in shapes]
+          for _ in range(steps)]
+    cpu = torch.device("cpu")
+    out = {}
+    noise = opt.SGLD.__dict__["_noise"]        # the staticmethod itself
+    opt.SGLD._noise = staticmethod(lambda w, lr: torch.zeros_like(w))
+    try:
+        for name, kw in OPT_RULES:
+            label = name + ("_centered" if kw.get("centered") else "")
+            res = {}
+            for where in (cpu, dev):
+                o = opt.create(name, wd=1e-4, clip_gradient=1.0,
+                               rescale_grad=0.5, **kw)
+                u = opt.get_updater(o)
+                # copies: on the CPU .to() would hand back the numpy
+                # arrays' own memory, which the update writes
+                w = [torch.tensor(a, device=where) for a in ws]
+                for step in gs:
+                    for i, g in enumerate(step):
+                        u(i, torch.from_numpy(g).to(where), w[i])
+                states = [x for i in range(len(ws)) for x in
+                          _state_tensors(u.states[i])]
+                res[where.type] = [x.detach().cpu() for x in w + states]
+            worst = max((a - b).abs().max().item() / max(
+                1e-30, b.abs().max().item()) for a, b in zip(
+                    res[dev.type], res["cpu"]))
+            if not math.isfinite(worst) or worst > OPT_RTOL:
+                raise AssertionError(f"optimizer {label}: {dev} vs CPU off "
+                                     f"by {worst:.3e} > {OPT_RTOL:g}")
+            out[label] = worst
+    finally:
+        opt.SGLD._noise = noise
+    lr = 0.04
+    o = opt.create("sgld", learning_rate=lr)
+    w = torch.zeros(n_noise, device=dev)
+    opt.get_updater(o)(0, torch.zeros(n_noise, device=dev), w)
+    mean, var = w.mean().item(), w.var().item()
+    if abs(mean) > 6 * math.sqrt(lr / n_noise) or \
+            abs(var - lr) > 6 * lr * math.sqrt(2.0 / n_noise):
+        raise AssertionError(f"sgld noise: mean {mean}, var {var}, not "
+                             f"N(0, {lr})")
+    out["sgld_noise"] = (mean, var)
+    print(f"optimizers on {dev} vs CPU ({steps} steps, shapes {shapes}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in out.items()
+                      if k != "sgld_noise")
+          + f" (tol {OPT_RTOL:g}); SGLD noise mean {mean:.3e} var "
+          f"{var:.5f} (N(0, {lr}))", flush=True)
+    return out
+
+
+def _state_tensors(state):
+    """Every tensor of an optimizer state (None, a tensor or tuples)."""
+    if state is None:
+        return []
+    if isinstance(state, tuple):
+        return [x for s in state for x in _state_tensors(s)]
+    return [state]
+
+
+def spmd_optax_checks(seed, ctx, b=64, units=256, k=4):
+    """``SPMDTrainer`` with lamb, rmsprop and adagrad (``OptaxRule``) on an
+    MLP: ``run_superstep`` over a window of K batches (one CUDA graph on
+    the card) against K eager ``step`` calls from the same start: the K
+    losses and every parameter bit for bit."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import gluon, parallel
+
+    mx.random.seed(seed)
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(units, activation="relu", in_units=units),
+            gluon.nn.Dense(10, in_units=units))
+    net.initialize("xavier", ctx=ctx)
+    dev = next(net.parameters()).device
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    rs = np.random.RandomState(seed + 3)
+    xs = torch.from_numpy(rs.randn(k, b, units).astype(np.float32)).to(dev)
+    ys = torch.from_numpy(rs.randint(0, 10, (k, b)).astype(
+        np.float32)).to(dev)
+    out = {}
+    for name, hyper in (("lamb", {"learning_rate": 1e-3, "wd": 1e-4}),
+                        ("rmsprop", {"learning_rate": 1e-3}),
+                        ("adagrad", {"learning_rate": 1e-2})):
+        eager = parallel.SPMDTrainer(net, lambda o, l: ce(o, l), name,
+                                     dict(hyper))
+        ref = torch.stack([eager.step(xs[i], ys[i]) for i in range(k)])
+        graph = parallel.SPMDTrainer(net, lambda o, l: ce(o, l), name,
+                                     dict(hyper))
+        got = graph.run_superstep(xs, ys)
+        same = torch.equal(got, ref) and all(
+            torch.equal(graph.params[n], eager.params[n])
+            for n in eager.params)
+        if not same:
+            raise AssertionError(f"SPMDTrainer {name}: the graph path "
+                                 "differs from K eager steps")
+        out[name] = [float(v) for v in got]
+    print(f"SPMDTrainer lamb/rmsprop/adagrad: run_superstep (K={k}, "
+          f"{parallel.superstep.step_path(dev)}) bit-equal to {k} eager "
+          f"steps: "
+          f"{out}", flush=True)
+    return out
+
+
+def ssd_batch(i, b, hw=300):
+    """bench.py's SSD row batch ``i``: images (B, 3, hw, hw) in [0, 1),
+    one box a image in 4 label slots ([cls, corners], -1 padding)."""
+    rs = np.random.RandomState(i)
+    img = rs.rand(b, 3, hw, hw).astype(np.float32)
+    label = np.full((b, 4, 5), -1.0, np.float32)
+    for j in range(b):
+        cx, cy = rs.uniform(0.3, 0.7, 2)
+        w, h = rs.uniform(0.2, 0.4, 2)
+        label[j, 0] = [rs.randint(20), cx - w / 2, cy - h / 2, cx + w / 2,
+                       cy + h / 2]
+    return img, label
+
+
+def ssd_loss_fn():
+    """bench.py's SSD loss: ``MultiBoxTarget(negative_mining_ratio=3,
+    ignore_label=-1)`` on fp32 anchors and predictions, then
+    ``SSDMultiBoxLoss``."""
+    from incubator_mxnet_tpu_torch.models import SSDMultiBoxLoss
+    from incubator_mxnet_tpu_torch.ops import detection as det
+
+    box_loss = SSDMultiBoxLoss()
+
+    def ssd_loss(cls_pred, loc_pred, anchors, label):
+        bt, bm, ct = det.multibox_target(
+            anchors.float(), label, cls_pred.transpose(1, 2).float(),
+            negative_mining_ratio=3.0, ignore_label=-1)
+        return box_loss(cls_pred.float(), loc_pred.float(), ct, bt, bm)
+
+    return ssd_loss
+
+
+def _det_inputs(seed):
+    """Small inputs of the 14 detection ops (ties and invalid rows
+    among them): name -> (op function name, args, kwargs)."""
+    from incubator_mxnet_tpu_torch.ops import detection as det
+
+    rs = np.random.RandomState(seed + 11)
+
+    def boxes(*shape, hi=1.0):
+        a = rs.uniform(0, hi, shape + (2, 2)).astype(np.float32)
+        a.sort(axis=-2)
+        return np.concatenate([a[..., 0, :], a[..., 1, :]], -1)
+
+    t = torch.from_numpy
+    anchor = det.multibox_prior(torch.zeros(1, 1, 8, 8), sizes=(0.2, 0.3),
+                                ratios=(1.0, 2.0))
+    n = anchor.shape[1]
+    label = np.full((4, 4, 5), -1.0, np.float32)
+    for j in range(4):
+        for m in range(j % 3 + 1):
+            c = rs.uniform(0.3, 0.7, 2)
+            wh = rs.uniform(0.1, 0.4, 2)
+            label[j, m] = [rs.randint(5), *(c - wh / 2), *(c + wh / 2)]
+    pred = rs.randn(4, 6, n).astype(np.float32)
+    pred[:, 1:, :4] = 3.0
+    rec = np.zeros((2, 64, 6), np.float32)
+    rec[..., 0] = rs.randint(0, 3, (2, 64))
+    rec[..., 1] = rs.uniform(-0.2, 1.0, (2, 64))
+    rec[..., 2:] = boxes(2, 64, hi=0.6)
+    rec[:, 5, 1] = rec[:, 9, 1]
+    prob = np.exp(pred) / np.exp(pred).sum(1, keepdims=True)
+    a = 6
+    rpn_cls = rs.uniform(0, 1, (2, 2 * a, 6, 8)).astype(np.float32)
+    rpn_box = (rs.randn(2, 4 * a, 6, 8) * 0.2).astype(np.float32)
+    info = np.array([[96, 128, 1.0], [80, 112, 1.5]], np.float32)
+    rpn_kw = dict(feature_stride=16, scales=(2, 4, 8), ratios=(0.5, 1.0),
+                  rpn_pre_nms_top_n=80, rpn_post_nms_top_n=16,
+                  threshold=0.6, rpn_min_size=4)
+    fm = rs.randn(2, 2 * 9, 12, 14).astype(np.float32)
+    x0 = rs.uniform(0, 80, 5)
+    y0 = rs.uniform(0, 70, 5)
+    rois = np.stack([rs.randint(0, 2, 5), x0, y0, x0 + rs.uniform(8, 30, 5),
+                     y0 + rs.uniform(8, 30, 5)], 1).astype(np.float32)
+    rrois = np.stack([rs.randint(0, 2, 5), rs.uniform(10, 90, 5),
+                      rs.uniform(10, 80, 5), rs.uniform(8, 40, 5),
+                      rs.uniform(8, 30, 5), rs.uniform(-90, 90, 5)],
+                     1).astype(np.float32)
+    trans = (rs.randn(5, 2, 3, 3) * 0.5).astype(np.float32)
+    ps_kw = dict(spatial_scale=0.125, output_dim=2, pooled_size=3)
+    return {
+        "smooth_l1": ("smooth_l1", [t(rs.randn(6, 7).astype(np.float32))],
+                      {"scalar": 2.0}),
+        "box_iou": ("box_iou", [t(boxes(2, 9)), t(boxes(2, 5))], {}),
+        "box_encode": ("box_encode", [
+            t(rs.choice([-1.0, 0.0, 1.0], (2, 9)).astype(np.float32)),
+            t(rs.randint(0, 5, (2, 9)).astype(np.float32)),
+            t(boxes(2, 9)), t(boxes(2, 5))], {}),
+        "box_decode": ("box_decode", [
+            t((rs.randn(2, 9, 4) * 0.3).astype(np.float32)),
+            t(boxes(1, 9))], {"std0": 0.1, "std1": 0.1, "std2": 0.2,
+                              "std3": 0.2, "clip": 0.5}),
+        "bipartite_matching": ("bipartite_matching", [
+            t(np.round(rs.uniform(0, 1, (2, 7, 5)), 1).astype(
+                np.float32))], {"threshold": 0.2}),
+        "box_nms": ("box_nms", [t(rec)], {"id_index": 0, "topk": 40,
+                                          "overlap_thresh": 0.4}),
+        "multibox_prior": ("multibox_prior", [torch.zeros(1, 1, 5, 7)],
+                           {"sizes": (0.1, 0.141),
+                            "ratios": (1.0, 2.0, 0.5)}),
+        "multibox_target": ("multibox_target", [anchor, t(label), t(pred)],
+                            {"negative_mining_ratio": 3.0,
+                             "ignore_label": -1}),
+        "multibox_detection": ("multibox_detection", [
+            t(prob.astype(np.float32)),
+            t((rs.randn(4, n * 4) * 0.3).astype(np.float32)), anchor],
+            {"nms_topk": 100}),
+        "Proposal": ("proposal", [t(rpn_cls), t(rpn_box), t(info)],
+                     rpn_kw),
+        "MultiProposal": ("multi_proposal", [t(rpn_cls), t(rpn_box),
+                                             t(info)],
+                          dict(rpn_kw, output_score=True)),
+        "PSROIPooling": ("psroi_pooling", [t(fm), t(rois)], ps_kw),
+        "DeformablePSROIPooling": ("deformable_psroi_pooling", [
+            t(fm), t(rois), t(trans)], dict(ps_kw, sample_per_part=2,
+                                            trans_std=0.2)),
+        "RROIAlign": ("rroi_align", [t(fm), t(rrois)],
+                      {"pooled_size": (3, 4), "spatial_scale": 0.125}),
+    }
+
+
+def _outs(x):
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+def detection_checks(seed, dev):
+    """The 14 detection ops on ``dev`` against the CPU on the same inputs
+    (``_det_inputs``): floating outputs within ``DET_RTOL``/``DET_ATOL``,
+    NMS and matching outputs (index columns, -1 rows) equal. The ops are
+    looked up on ``ops.detection`` at call time."""
+    from incubator_mxnet_tpu_torch.ops import detection as det
+
+    out = {}
+    for name, (fname, args, kw) in _det_inputs(seed).items():
+        fn = getattr(det, fname)
+        got = _outs(fn(*[a.to(dev) for a in args], **kw))
+        want = _outs(fn(*args, **kw))
+        worst = 0.0
+        rtol, atol = DET_TOLS.get(name, (DET_RTOL, DET_ATOL))
+        for g, w in zip(got, want):
+            g = g.detach().float().cpu()
+            w = w.detach().float()
+            if g.shape != w.shape or not torch.allclose(
+                    g, w, rtol=rtol, atol=atol):
+                raise AssertionError(f"detection {name}: {dev} differs "
+                                     "from the CPU")
+            worst = max(worst, (g - w).abs().max().item() if g.numel()
+                        else 0.0)
+        out[name] = worst
+    print(f"detection ops on {dev} vs CPU: all {len(out)} within "
+          f"{DET_RTOL:g}/{DET_ATOL:g}: " + ", ".join(
+              f"{k} {v:.1e}" for k, v in out.items()), flush=True)
+    return out
+
+
+def ssd_part(seed, card, ctx, b=16, hw=300, k=3, amp_steps=4, timed=True):
+    """SSD-300 VOC as bench.py's row runs it: B=``b`` images of hw x hw,
+    21 classes, 8732 anchors, the net cast to bf16, ``SPMDTrainer`` SGD (lr
+    1e-3, momentum 0.9) over ``ssd_loss_fn``. K eager steps, then
+    ``run_superstep`` over the same K batches (one CUDA graph on the card)
+    bit-equal to them (losses and parameters; cuDNN held to deterministic
+    algorithms for the phase, so that two runs of one step agree); one
+    step under ``torch.cuda.set_sync_debug_mode("error")`` (no host read);
+    timed eager and on graphs (host ms a step, images/s, device ms a step
+    and its leading kernels). Then the AMP route: the fp32 weights,
+    ``amp.init("bfloat16")``, ``gluon.Trainer`` with ``init_trainer`` and
+    ``scale_loss``, ``amp_steps`` steps on one batch with a falling loss;
+    ``multibox_detection`` on that net (timed, image 0 and 1 held against
+    the CPU); ``multibox_target`` at the step's shapes held against the
+    CPU; ``box_nms`` over 8732 records timed."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import amp, gluon, models, parallel
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import load_jax_params
+    from incubator_mxnet_tpu_torch.ops import detection as det
+
+    on_card = ctx.device_type == "gpu"
+    mx.random.seed(seed)
+    net = models.get_ssd(num_classes=20)
+    net.initialize("xavier", ctx=ctx)
+    dev = next(net.parameters()).device
+    with mx.autograd.pause():
+        net(mx.nd.zeros((1, 3, hw, hw), ctx=ctx))
+    fp32 = {n: p.detach().float().cpu().numpy()
+            for n, p in net.named_parameters()}
+    net.cast("bfloat16")
+    ssd_loss = ssd_loss_fn()
+    batches = [ssd_batch(i, b, hw) for i in range(k)]
+    xs = torch.from_numpy(np.stack([x for x, _ in batches])).to(
+        dev, torch.bfloat16)
+    ys = torch.from_numpy(np.stack([y for _, y in batches])).to(dev)
+    hyper = {"learning_rate": 1e-3, "momentum": 0.9}
+    out = {"batch": b, "anchors": None}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = parallel.SPMDTrainer(net, ssd_loss, "sgd", dict(hyper))
+        ref = torch.stack([eager.step(xs[i], ys[i]) for i in range(k)])
+        graph = parallel.SPMDTrainer(net, ssd_loss, "sgd", dict(hyper))
+        got = graph.run_superstep(xs, ys)
+        if not (torch.equal(got, ref) and all(
+                torch.equal(graph.params[n], eager.params[n])
+                for n in eager.params)):
+            raise AssertionError(f"ssd: the graph path ({got.tolist()}) "
+                                 f"differs from {k} eager steps "
+                                 f"({ref.tolist()})")
+        if not torch.isfinite(ref).all():
+            raise AssertionError(f"ssd: losses {ref.tolist()}")
+        out["losses"] = [float(v) for v in ref]
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eager.step(xs[0], ys[0])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            out["sync_free"] = True
+        if timed:
+            turns = _median_turns({
+                "eager": lambda: [eager.step(xs[i], ys[i])
+                                  for i in range(k)],
+                "graph": lambda: graph.run_superstep(xs, ys)}, 3)
+            erows, _ = _kernel_rows(lambda: eager.step(xs[0], ys[0]))
+            grows, _ = _kernel_rows(lambda: graph.run_superstep(xs, ys))
+            out["eager_ms"] = turns["eager"] / k
+            out["graph_ms"] = turns["graph"] / k
+            out["eager_images_s"] = b / out["eager_ms"] * 1e3
+            out["graph_images_s"] = b / out["graph_ms"] * 1e3
+            out["eager_device_ms"] = sum(r[0] for r in erows)
+            out["graph_device_ms"] = sum(r[0] for r in grows) / k
+            out["top_kernels"] = [(round(r[0], 4), r[1], r[2][:80])
+                                  for r in erows[:6]]
+        print(f"ssd300 bf16 SPMDTrainer SGD (B={b}) on {card}: eager losses "
+              f"{out['losses']}, graph path bit-equal; sync-free step "
+              f"{out.get('sync_free')}; eager_ms={out.get('eager_ms')} "
+              f"graph_ms={out.get('graph_ms')} images/s eager "
+              f"{out.get('eager_images_s')} graph "
+              f"{out.get('graph_images_s')}; device ms a step eager "
+              f"{out.get('eager_device_ms')} graph "
+              f"{out.get('graph_device_ms')}; top kernels "
+              f"{out.get('top_kernels')}", flush=True)
+        # multibox_target at the step's shapes, card against CPU
+        with mx.autograd.pause():
+            cls_pred, loc_pred, anchors = eager.net(xs[0])
+        out["anchors"] = int(anchors.shape[1])
+        tgt = det.multibox_target(anchors.float(), ys[0],
+                                  cls_pred.transpose(1, 2).float(),
+                                  negative_mining_ratio=3.0,
+                                  ignore_label=-1)
+        tgt_cpu = det.multibox_target(
+            anchors.float().cpu(), ys[0].cpu(),
+            cls_pred.transpose(1, 2).float().cpu(),
+            negative_mining_ratio=3.0, ignore_label=-1)
+        for name, g, w in zip(("box_target", "box_mask", "cls_target"),
+                              tgt, tgt_cpu):
+            if not torch.allclose(g.cpu(), w, rtol=DET_RTOL, atol=DET_ATOL) \
+                    or (name != "box_target" and not torch.equal(g.cpu(), w)):
+                raise AssertionError(f"ssd multibox_target {name}: {dev} "
+                                     "differs from the CPU")
+        del eager, graph
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # the AMP route from the fp32 weights
+    net32 = load_jax_params(models.get_ssd(num_classes=20), fp32, ctx=ctx)
+    x32 = xs[0].float()
+    amp.init("bfloat16")
+    try:
+        tr = gluon.Trainer(net32.collect_params(), "sgd", dict(hyper))
+        amp.init_trainer(tr)
+        amp_losses = []
+        for _ in range(amp_steps):
+            with mx.autograd.record():
+                cls_pred, loc_pred, anchors = net32(x32)
+                loss = ssd_loss(cls_pred, loc_pred, anchors, ys[0]).mean()
+                with amp.scale_loss(loss, tr) as scaled:
+                    mx.autograd.backward(scaled)
+            tr.step(1)
+            amp_losses.append(loss.item())
+        if cls_pred.dtype != torch.bfloat16:
+            raise AssertionError(f"ssd amp: class predictions "
+                                 f"{cls_pred.dtype}, not bfloat16")
+        if not all(map(math.isfinite, amp_losses)) \
+                or amp_losses[-1] >= amp_losses[0]:
+            raise AssertionError(f"ssd amp: losses {amp_losses} do not "
+                                 "fall")
+        out["amp_losses"] = amp_losses
+        print(f"ssd300 AMP (fp32 weights, bf16 convolutions) on {card}: "
+              f"losses {amp_losses}", flush=True)
+    finally:
+        amp.deinit()
+    # detection on the trained net
+    with mx.autograd.pause():
+        cls_pred, loc_pred, anchors = net32(x32)
+    prob = torch.softmax(cls_pred.float(), -1).transpose(1, 2).contiguous()
+    loc_pred, anchors = loc_pred.float(), anchors.float()
+
+    def detect():
+        return det.multibox_detection(prob, loc_pred, anchors)
+
+    found = detect()
+    if found.shape != (b, anchors.shape[1], 6) or not torch.isfinite(
+            found).all():
+        raise AssertionError(f"ssd detection: {tuple(found.shape)}")
+    # the kept rows of each image, in the output's (score) order
+    kept = found[..., 0] >= 0
+    ordered = all(bool((s[1:] <= s[:-1]).all()) for s in (
+        found[i, kept[i], 1] for i in range(b)))
+    if not ordered or not kept.any() or (found[..., 0][kept] >= 20).any():
+        raise AssertionError("ssd detection: rows not sorted by score, "
+                             "none kept, or a class out of range")
+    want = det.multibox_detection(prob[:2].cpu(), loc_pred[:2].cpu(),
+                                  anchors.cpu())
+    if not torch.allclose(found[:2].cpu(), want, rtol=DET_RTOL,
+                          atol=DET_ATOL):
+        raise AssertionError(f"ssd detection: {dev} differs from the CPU")
+    out["detections_kept"] = int(kept.sum())
+    records = found[:, :, :].clone()
+    if timed:
+        out["detection_ms"] = _median_turns({"d": detect}, 3)["d"]
+        out["box_nms_ms"] = _median_turns({"n": lambda: det.box_nms(
+            records, id_index=0)}, 3)["n"]
+    print(f"ssd300 multibox_detection (B={b}, {anchors.shape[1]} anchors, "
+          f"NMS over all of them): {out['detections_kept']} kept; "
+          f"detection_ms={out.get('detection_ms')} box_nms_ms="
+          f"{out.get('box_nms_ms')} (host clock, one call, B={b})",
+          flush=True)
+    del net, net32
+    return out
+
+
+def ssd_amp_phase(seed, card, ctx, gpt, gpt_b=8, gpt_t=256, cmp_b=1,
+                  ssd_b=16, ssd_k=3, fp16_cases=None, timed=True):
+    """Slice 24's phase on ``ctx``: the fp16 flash checks, the AMP GPT
+    (``gpt_amp_part``), ``multi_precision`` on the same GPT cast to bf16,
+    the optimizers card against CPU and the SPMDTrainer optax rules on
+    the graph path, SSD-300 (``ssd_part``) and the 14 detection ops card
+    against CPU. Returns each part's record."""
+    t0 = time.perf_counter()
+    dev = next(gpt.parameters()).device
+    out = {"fp16": fp16_flash_checks(seed, dev, fp16_cases)}
+    out["amp"] = gpt_amp_part(seed, card, gpt, ctx, gpt_b, gpt_t, cmp_b,
+                              timed=timed)
+    out["multi_precision"] = multi_precision_part(seed, card, gpt, ctx,
+                                                  gpt_b, gpt_t)
+    out["optimizers"] = optimizer_checks(seed, dev)
+    out["spmd_optax"] = spmd_optax_checks(seed, ctx)
+    out["ssd"] = ssd_part(seed, card, ctx, ssd_b, k=ssd_k, timed=timed)
+    out["detection"] = detection_checks(seed, dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"ssd_amp phase ({card}): {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def ssd_amp_main(seed, card):
+    """The phase at full width on the card: ``gpt_decoder_117m`` (vocab
+    50257, max_length 256, dropout 0, fp32 weights from ``seed``) at
+    B=8, T=256, and SSD-300 VOC at B=16, 3x300x300."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import get_gpt
+
+    ctx = mx.gpu(0)
+    mx.random.seed(seed)
+    gpt = get_gpt("gpt_decoder_117m", vocab_size=50257, dropout=0.0,
+                  max_length=256).initialize("xavier", ctx=ctx)
+    out = ssd_amp_phase(seed, card, ctx, gpt)
+    del gpt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10419,6 +11290,8 @@ def main(argv=None) -> int:
     nd = nd_main(args.seed, card)
     gc.collect()
     hybrid = hybrid_main(args.seed, card)
+    gc.collect()
+    ssd_amp = ssd_amp_main(args.seed, card)
 
     src = "incubator_mxnet_tpu_torch/csrc/"
     ref = "incubator_mxnet_tpu/ops/pallas_attention.py:"
@@ -10454,7 +11327,8 @@ def main(argv=None) -> int:
             "np": nd["np"]["flash_routes"][f"flash_fwd_{route}"],
             "sparse": sparse_bert_routes[f"flash_fwd_{route}"],
             "utils": utils_routes[f"flash_fwd_{route}"],
-            "hybrid": hybrid["flash_routes"][f"flash_fwd_{route}"]}
+            "hybrid": hybrid["flash_routes"][f"flash_fwd_{route}"],
+            "amp": ssd_amp["amp"]["routes"].get(f"flash_fwd_{route}", 0)}
         main_paths = sum(by_path.values())
         by_path["train_to_decode"] = trained["decode_routes"][route]
         if route == "tc":
@@ -10490,7 +11364,9 @@ def main(argv=None) -> int:
                            + nd["np"]["flash_routes"][f"{name}_{route}"]
                            + sparse_bert_routes[f"{name}_{route}"]
                            + utils_routes[f"{name}_{route}"]
-                           + hybrid["flash_routes"][f"{name}_{route}"],
+                           + hybrid["flash_routes"][f"{name}_{route}"]
+                           + ssd_amp["amp"]["routes"].get(
+                               f"{name}_{route}", 0),
                            [r for r in bwd if r["kernel"] == name
                             and r["route"] == route], train_case, dtype)
             head = next(r for r in entry["cases"] if r["case"] == train_case
@@ -10508,13 +11384,32 @@ def main(argv=None) -> int:
                 "np": nd["np"]["flash_routes"][f"{name}_{route}"],
                 "sparse": sparse_bert_routes[f"{name}_{route}"],
                 "utils": utils_routes[f"{name}_{route}"],
-                "hybrid": hybrid["flash_routes"][f"{name}_{route}"]}
+                "hybrid": hybrid["flash_routes"][f"{name}_{route}"],
+                "amp": ssd_amp["amp"]["routes"].get(f"{name}_{route}", 0)}
             if route == "tc":
                 entry["launches_by_path"]["bf16_gate"] = \
                     trained["gate_launches"][f"{name}_tc"]
                 entry["launches_by_path"]["bert_bf16_gate"] = \
                     bert["gate_launches"][f"{name}_tc"]
             record["kernels"].append(entry)
+    # K4/K5/K6 in fp16 on the tensor cores (the fp16 repair): launches from
+    # the fp16 AMP step of the GPT, numbers at the GPT training shape
+    for name, source, line in (("flash_fwd", "flash_fwd_tc.cu", "54"),
+                               ("flash_bwd_dq", "flash_bwd_tc.cu", "209"),
+                               ("flash_bwd_dkv", "flash_bwd_tc.cu", "267")):
+        cases = [r for r in ssd_amp["fp16"] if r["kernel"] == name]
+        head = next(r for r in cases if r["case"] == FP16_HEAD)
+        launched = ssd_amp["amp"]["fp16_routes"][f"{name}_tc"]
+        record["kernels"].append({
+            "name": f"{name}_tc_fp16", "route": "cuda",
+            "source": src + source, "replaces": ref + line,
+            "launches": launched,
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": FP16_HEAD,
+            "dtype": "fp16", "cases": cases,
+            "launches_by_path": {"amp": launched}})
     conv_ref = "incubator_mxnet_tpu/ops/pallas_conv.py:"
     # K1, K2 and K3 by route: fp32 (the oracle, the fp32 training steps,
     # eval) on the f32 kernels; bf16 (the gates, the bf16 learning check
@@ -10648,7 +11543,19 @@ def main(argv=None) -> int:
         "hybrid_export": {k: hybrid[k] for k in ("resnet", "control")}
         | {"attention": {k: v for k, v in hybrid["attention"].items()
                          if k != "routes"}},
-        "hybrid_phase_s": hybrid["seconds"]}),
+        "hybrid_phase_s": hybrid["seconds"],
+        "amp_gpt_bf16": {k: ssd_amp["amp"].get(k) for k in (
+            "losses", "step_ms", "tokens_s", "device_ms", "cpu_loss_rel",
+            "cpu_grad_worst", "fp16_loss", "fp16_scale",
+            "overflow_scale")},
+        "multi_precision": ssd_amp["multi_precision"],
+        "optimizers": ssd_amp["optimizers"],
+        "ssd300_bf16": {k: ssd_amp["ssd"].get(k) for k in (
+            "batch", "anchors", "losses", "eager_ms", "graph_ms",
+            "eager_images_s", "graph_images_s", "eager_device_ms",
+            "graph_device_ms", "top_kernels", "amp_losses",
+            "detections_kept", "detection_ms", "box_nms_ms")},
+        "ssd_amp_phase_s": ssd_amp["seconds"]}),
         flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,10 @@ is the numpy front door: ``mx.np`` (with ``linalg``, ``fft`` and
 ``random``) and ``mx.npx``, loaded on first use. Slice 23 is hybridize and
 export: ``gluon.Parameter``/``ParameterDict``, ``HybridBlock`` with its
 ``CachedOp`` on CUDA graphs, ``export``/``SymbolBlock`` over ``mx.sym``,
-and ``mx.contrib``'s control flow.
+and ``mx.contrib``'s control flow. Slice 24 is mixed precision and
+detection: ``amp`` (the reference's cast policy and loss scaling), every
+optimizer of the JAX package with ``multi_precision`` master weights,
+``ops.detection`` and SSD-300 (``models.get_ssd``).
 
 Devices are explicit: every entry point takes a ``ctx``; the default is
 ``gpu(0)`` (``cuda:0``) and raises when there is no card. The CPU runs only
@@ -41,6 +44,7 @@ from . import autograd, lr_scheduler, optimizer  # noqa: E402
 from . import ops, ndarray, operator, rtc  # noqa: E402
 from . import gluon, models, parallel, serving  # noqa: E402
 from . import contrib, executor, symbol  # noqa: E402
+from . import amp  # noqa: E402
 from .base import MXTPUError  # noqa: E402
 from .device import Context, cpu, current_context, gpu  # noqa: E402
 from .ops import rtc_kernels  # noqa: E402,F401  (registers softmax_ce_rtc)
@@ -62,7 +66,7 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["Context", "MXTPUError", "autograd", "base", "config", "contrib",
+__all__ = ["Context", "MXTPUError", "amp", "autograd", "base", "config", "contrib",
            "cpu", "current_context", "device", "executor", "gluon", "gpu",
            "initializer", "lr_scheduler", "models", "nd", "ndarray",
            "operator", "ops", "optimizer", "parallel", "random", "rtc",

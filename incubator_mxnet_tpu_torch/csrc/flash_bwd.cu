@@ -51,6 +51,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -69,11 +70,20 @@ __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float load_f32(const __half* p) {
+  return __half2float(*p);
+}
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__half* p, float x) {
+  *p = __float2half(x);
+}
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 // round x to the input type (identity for fp32)
+__device__ __forceinline__ float round_to(float x, const __half*) {
+  return __half2float(__float2half(x));
+}
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
 __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
@@ -400,6 +410,7 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* g,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(dkv, D, a, st);
   if (dtype == 1) return dispatch<__nv_bfloat16>(dkv, D, a, st);
+  if (dtype == 2) return dispatch<__half>(dkv, D, a, st);
   return -1;
 }
 
@@ -407,7 +418,7 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* g,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 18 values, (b, h, t) for each
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. strides: 18 values, (b, h, t) for each
 // of q, k, v, g and the two outputs, in elements (dq uses the first output
 // only; its last three values are ignored). lse and delta are contiguous
 // fp32 (B*H, Tq); lengths may be null. Returns the cudaError_t of the launch

@@ -1,21 +1,23 @@
-// Flash-attention backward in bf16 on Hopper's tensor cores (sm_90a): the
-// dq kernel (K5) and the dk/dv kernel (K6) as wgmma products of
+// Flash-attention backward in bf16 or fp16 on Hopper's tensor cores
+// (sm_90a): the dq kernel (K5) and the dk/dv kernel (K6) as wgmma products of
 // shared-memory tiles that TMA fills, with the scores kept in registers.
 // Plain C interface for ctypes.
 //
 // They compute what csrc/flash_bwd.cu computes (see its header: the TPU
 // kernels `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` of the JAX
-// package's ops/pallas_attention.py), for bf16 with D = 64 or 128 and
-// every operand's base and (b, h, t) strides multiples of 16 bytes, as TMA
-// needs. ops/flash_attention.py's `flash_bwd_route` sends every other call
+// package's ops/pallas_attention.py), for bf16 or fp16 (one template over
+// the element type T: the wgmma operand type, the TMA element type and the
+// conversions differ) with D = 64 or 128 and every operand's base and
+// (b, h, t) strides multiples of 16 bytes, as TMA needs.
+// ops/flash_attention.py's `flash_bwd_route` sends every other call
 // to flash_bwd.cu. The contract, per (batch, head):
 //   p  = exp(scale * q.k - lse)      0 where masked or lse is not finite
 //   dS = p * (dO.v - delta) * scale
 //   dq = dS . K,  dk = dS^T . Q,  dv = P^T . dO
-// p and dS are rounded to bf16 before their products (the TPU kernels cast
-// them to the input type); every sum runs in fp32 and each output is
-// rounded to bf16 once. Masks: per-batch key `lengths`, causal aligned
-// bottom-right (key <= query + Tk - Tq) or, with `cache_offset`, at the
+// p and dS are rounded to the input type before their products (the TPU
+// kernels cast them to it); every sum runs in fp32 and each output is
+// rounded to the input type once. Masks: per-batch key `lengths`, causal
+// aligned bottom-right (key <= query + Tk - Tq) or, with `cache_offset`, at the
 // per-batch fill (key <= query + lengths[b] - Tq); queries past Tq and
 // keys past Tk are masked here. Each block owns its output tile and walks
 // the other sequence: no atomics, and a run repeats bit for bit.
@@ -31,7 +33,7 @@
 //   and V stream in 64-key tiles up to the causal/length bound `kend`.
 //   Per tile S = Q.K^T and dP = dO.V^T (both operands K-major in shared
 //   memory), p and dS formed in the accumulator registers, then dQ += dS.K
-//   with dS as the register A operand (bf16) and K read MN-major.
+//   with dS as the register A operand (bf16/fp16) and K read MN-major.
 // * dkv: one block per (b*h, 64-key tile). K and V are loaded once; Q and
 //   dO stream in 64-query tiles over the rows that reach the keys, with
 //   their 64 lse and delta (written by the producer warp's 32 lanes, which
@@ -42,7 +44,7 @@
 // The m64 accumulator's element d[4j + 2h + c] is row 16*warp + lane/4 +
 // 8h, column 8j + 2*(lane%4) + c: every mask is evaluated there, and a
 // tile wholly inside the valid pairs skips it. A register A fragment of
-// k-step s is the bf16 pairs (d[8s + 2i], d[8s + 2i + 1]), i < 4
+// k-step s is the bf16/fp16 pairs (d[8s + 2i], d[8s + 2i + 1]), i < 4
 // (hopper.cuh, pack_a). Causal grids put the heaviest blocks first: the
 // last query tiles of dq, the first key tiles of dk/dv. The epilogue
 // stages the tile in shared memory (swizzled) and writes 16-byte chunks.
@@ -81,7 +83,7 @@ constexpr int dq_smem_bytes() {  // Q, dO, the K/V ring, barriers
 // One block: queries [q0, q0 + 64) of (batch, head) blockIdx.x, q0 from
 // blockIdx.y counted from the last tile. Threads 0-127 are the consumer
 // warpgroup, thread 128 the producer.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
 flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -89,7 +91,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_g,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
-                       const int* __restrict__ lengths, bf16* __restrict__ dq,
+                       const int* __restrict__ lengths, T* __restrict__ dq,
                        int H, int Tq, int Tk, long long sb, long long sh,
                        long long st, float scale, int causal,
                        int cache_offset) {
@@ -175,8 +177,8 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4 * NB; ++kk) {
-      wgmma_n64<0, 0>(sc, kmajor(qs, kk), kmajor(kt, kk));
-      wgmma_n64<0, 0>(dp, kmajor(gs, kk), kmajor(vt, kk));
+      wgmma_n64<0, 0, T>(sc, kmajor(qs, kk), kmajor(kt, kk));
+      wgmma_n64<0, 0, T>(dp, kmajor(gs, kk), kmajor(vt, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -202,13 +204,14 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     else
       softmax(std::true_type{});
     uint32_t a[4][4];
-    pack_a<0>(dp, a[0]);
-    pack_a<1>(dp, a[1]);
-    pack_a<2>(dp, a[2]);
-    pack_a<3>(dp, a[3]);
+    pack_a<0, T>(dp, a[0]);
+    pack_a<1, T>(dp, a[1]);
+    pack_a<2, T>(dp, a[2]);
+    pack_a<3, T>(dp, a[3]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D, 1>(acc, a[kk], mnmajor(kt, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D, 1, T>(acc, a[kk], mnmajor(kt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -233,7 +236,7 @@ constexpr int dkv_smem_bytes() {  // K, V, the Q/dO ring, lse/delta, bars
 // producer warp (thread 128 issues the loads, all 32 write lse and delta).
 // One block an SM: at two (at most 200 registers) the D=64 instance spills
 // 32-36 bytes; it takes about 207, so two blocks rarely share an SM.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -242,7 +245,7 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const int* __restrict__ lengths,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                        T* __restrict__ dk, T* __restrict__ dv, int H,
                         int Tq, int Tk, long long sb, long long sh,
                         long long st, float scale, int causal,
                         int cache_offset) {
@@ -337,8 +340,8 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4 * NB; ++kk) {
-      wgmma_n64<0, 0>(sc, kmajor(ks, kk), kmajor(qt, kk));
-      wgmma_n64<0, 0>(dp, kmajor(vs, kk), kmajor(gt, kk));
+      wgmma_n64<0, 0, T>(sc, kmajor(ks, kk), kmajor(qt, kk));
+      wgmma_n64<0, 0, T>(dp, kmajor(vs, kk), kmajor(gt, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -371,19 +374,19 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     else
       softmax(std::true_type{});
     uint32_t pa[4][4], da[4][4];
-    pack_a<0>(sc, pa[0]);
-    pack_a<1>(sc, pa[1]);
-    pack_a<2>(sc, pa[2]);
-    pack_a<3>(sc, pa[3]);
-    pack_a<0>(dp, da[0]);
-    pack_a<1>(dp, da[1]);
-    pack_a<2>(dp, da[2]);
-    pack_a<3>(dp, da[3]);
+    pack_a<0, T>(sc, pa[0]);
+    pack_a<1, T>(sc, pa[1]);
+    pack_a<2, T>(sc, pa[2]);
+    pack_a<3, T>(sc, pa[3]);
+    pack_a<0, T>(dp, da[0]);
+    pack_a<1, T>(dp, da[1]);
+    pack_a<2, T>(dp, da[2]);
+    pack_a<3, T>(dp, da[3]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs<D, 1>(dva, pa[kk], mnmajor(gt, kk));
-      wgmma_rs<D, 1>(dka, da[kk], mnmajor(qt, kk));
+      wgmma_rs<D, 1, T>(dva, pa[kk], mnmajor(gt, kk));
+      wgmma_rs<D, 1, T>(dka, da[kk], mnmajor(qt, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -412,41 +415,41 @@ struct Args {
   int causal, cache_offset;
 };
 
-int maps(const Args& a, int D, CUtensorMap* mq, CUtensorMap* mk,
-         CUtensorMap* mv, CUtensorMap* mg) {
+int maps(const Args& a, int D, CUtensorMapDataType dt, CUtensorMap* mq,
+         CUtensorMap* mk, CUtensorMap* mv, CUtensorMap* mg) {
   const long long* s = a.strides;
   int err;
-  if ((err = encode_bhtd(mq, a.q, a.B, a.H, a.Tq, D, s)) ||
-      (err = encode_bhtd(mk, a.k, a.B, a.H, a.Tk, D, s + 3)) ||
-      (err = encode_bhtd(mv, a.v, a.B, a.H, a.Tk, D, s + 6)) ||
-      (err = encode_bhtd(mg, a.g, a.B, a.H, a.Tq, D, s + 9)))
+  if ((err = encode_bhtd(mq, a.q, a.B, a.H, a.Tq, D, s, dt)) ||
+      (err = encode_bhtd(mk, a.k, a.B, a.H, a.Tk, D, s + 3, dt)) ||
+      (err = encode_bhtd(mv, a.v, a.B, a.H, a.Tk, D, s + 6, dt)) ||
+      (err = encode_bhtd(mg, a.g, a.B, a.H, a.Tq, D, s + 9, dt)))
     return err;
   return 0;
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dq(const Args& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mg;
-  int err = maps(a, D, &mq, &mk, &mv, &mg);
+  int err = maps(a, D, tma_dtype<T>(), &mq, &mk, &mv, &mg);
   if (err) return err;
   constexpr int smem = dq_smem_bytes<D>();
   static bool opted = false;
-  if ((err = allow_smem((const void*)flash_bwd_dq_tc_kernel<D>, smem,
+  if ((err = allow_smem((const void*)flash_bwd_dq_tc_kernel<D, T>, smem,
                         &opted)))
     return err;
   const long long* so = a.strides + 12;
   const dim3 grid(a.B * a.H, (a.Tq + kTile - 1) / kTile);
-  flash_bwd_dq_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, mg, a.lse, a.delta, a.lengths, static_cast<bf16*>(a.o1),
+  flash_bwd_dq_tc_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mg, a.lse, a.delta, a.lengths, static_cast<T*>(a.o1),
       a.H, a.Tq, a.Tk, so[0], so[1], so[2], a.scale, a.causal,
       a.cache_offset);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dkv(const Args& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mg;
-  int err = maps(a, D, &mq, &mk, &mv, &mg);
+  int err = maps(a, D, tma_dtype<T>(), &mq, &mk, &mv, &mg);
   if (err) return err;
   const long long *s1 = a.strides + 12, *s2 = a.strides + 15;
   // dk and dv share one set of strides (both the wrapper's fresh buffers)
@@ -454,18 +457,26 @@ int launch_dkv(const Args& a, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   constexpr int smem = dkv_smem_bytes<D>();
   static bool opted = false;
-  if ((err = allow_smem((const void*)flash_bwd_dkv_tc_kernel<D>, smem,
+  if ((err = allow_smem((const void*)flash_bwd_dkv_tc_kernel<D, T>, smem,
                         &opted)))
     return err;
   const dim3 grid(a.B * a.H, (a.Tk + kTile - 1) / kTile);
-  flash_bwd_dkv_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, mg, a.lse, a.delta, a.lengths, static_cast<bf16*>(a.o1),
-      static_cast<bf16*>(a.o2), a.H, a.Tq, a.Tk, s1[0], s1[1], s1[2],
+  flash_bwd_dkv_tc_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mg, a.lse, a.delta, a.lengths, static_cast<T*>(a.o1),
+      static_cast<T*>(a.o2), a.H, a.Tq, a.Tk, s1[0], s1[1], s1[2],
       a.scale, a.causal, a.cache_offset);
   return (int)cudaGetLastError();
 }
 
-int run(bool dkv, const Args& a, int D, void* stream) {
+template <typename T>
+int run_t(bool dkv, const Args& a, int D, cudaStream_t st) {
+  if (D == 64) return dkv ? launch_dkv<64, T>(a, st) : launch_dq<64, T>(a, st);
+  if (D == 128)
+    return dkv ? launch_dkv<128, T>(a, st) : launch_dq<128, T>(a, st);
+  return -1;
+}
+
+int run(bool dkv, const Args& a, int D, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the outputs are written in 16-byte chunks
   for (int i = 12; i < (dkv ? 18 : 15); ++i)
@@ -473,8 +484,8 @@ int run(bool dkv, const Args& a, int D, void* stream) {
   if (reinterpret_cast<uintptr_t>(a.o1) % 16 != 0 ||
       (dkv && reinterpret_cast<uintptr_t>(a.o2) % 16 != 0))
     return (int)cudaErrorInvalidValue;
-  if (D == 64) return dkv ? launch_dkv<64>(a, st) : launch_dq<64>(a, st);
-  if (D == 128) return dkv ? launch_dkv<128>(a, st) : launch_dq<128>(a, st);
+  if (dtype == 1) return run_t<bf16>(dkv, a, D, st);
+  if (dtype == 2) return run_t<__half>(dkv, a, D, st);
   return -1;
 }
 
@@ -482,23 +493,25 @@ int run(bool dkv, const Args& a, int D, void* stream) {
 
 extern "C" {
 
-// The bf16 tensor-core backward: mxtpu_flash_bwd_dq's and
-// mxtpu_flash_bwd_dkv's contract (flash_bwd.cu) for bf16 with D = 64 or
-// 128, every operand's base and (b, h, t) strides multiples of 16 bytes
-// (dims of size 1 aside), and dk and dv with the same strides. strides: 18
+// The tensor-core backward: mxtpu_flash_bwd_dq's and
+// mxtpu_flash_bwd_dkv's contract (flash_bwd.cu) for bf16 (dtype 1) or fp16
+// (dtype 2) with D = 64 or 128, every operand's base and (b, h, t)
+// strides multiples of 16 bytes (dims of size 1 aside), and dk and dv with the
+// same strides. strides: 18
 // values, (b, h, t) of q, k, v, g and the two outputs, in elements.
 // Returns the cudaError_t of the launch (0 on success),
 // cudaErrorInvalidValue for operands TMA cannot describe, kMapError + a
-// CUresult when the tensor-map encoder refuses one, or -1 for another D.
+// CUresult when the tensor-map encoder refuses one, or -1 for another D
+// or dtype.
 int mxtpu_flash_bwd_dq_tc(const void* q, const void* k, const void* v,
                           const void* g, const float* lse, const float* delta,
                           const int* lengths, void* dq, int B, int H, int Tq,
                           int Tk, int D, const long long* strides,
                           float scale, int causal, int cache_offset,
-                          void* stream) {
+                          int dtype, void* stream) {
   const Args a{q, k, v, g, lse, delta, lengths, dq, nullptr, B, H, Tq, Tk,
                strides, scale, causal, cache_offset};
-  return run(false, a, D, stream);
+  return run(false, a, D, dtype, stream);
 }
 
 int mxtpu_flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
@@ -506,10 +519,10 @@ int mxtpu_flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
                            const float* delta, const int* lengths, void* dk,
                            void* dv, int B, int H, int Tq, int Tk, int D,
                            const long long* strides, float scale, int causal,
-                           int cache_offset, void* stream) {
+                           int cache_offset, int dtype, void* stream) {
   const Args a{q, k, v, g, lse, delta, lengths, dk, dv, B, H, Tq, Tk,
                strides, scale, causal, cache_offset};
-  return run(true, a, D, stream);
+  return run(true, a, D, dtype, stream);
 }
 
 }  // extern "C"

@@ -36,6 +36,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -53,7 +54,13 @@ __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float load_f32(const __half* p) {
+  return __half2float(*p);
+}
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__half* p, float x) {
+  *p = __float2half(x);
+}
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
@@ -211,7 +218,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 12 values, (b, h, t) for each
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. strides: 12 values, (b, h, t) for each
 // of q, k, v, o, in elements. lse and lengths may be null. Returns the
 // cudaError_t of the launch (0 on success), or -1 for an unsupported D or
 // dtype (the Python wrapper checks both before calling).
@@ -231,6 +238,9 @@ int mxtpu_flash_fwd(const void* q, const void* k, const void* v, void* o,
     return dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, lengths, B, H, Tq,
                                      Tk, sq, sk, sv, so, scale, causal,
                                      cache_offset, s);
+  if (dtype == 2)
+    return dispatch_d<__half>(D, q, k, v, o, lse, lengths, B, H, Tq, Tk, sq,
+                              sk, sv, so, scale, causal, cache_offset, s);
   return -1;
 }
 

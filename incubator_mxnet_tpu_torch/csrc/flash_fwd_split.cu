@@ -1,5 +1,5 @@
 // Flash-attention forward for a decode step on Hopper (sm_90a), split over
-// keys: fp32 and bf16. Plain C interface for ctypes.
+// keys: fp32, bf16 and fp16. Plain C interface for ctypes.
 //
 // It computes what csrc/flash_fwd.cu computes (see its header: the TPU
 // kernel `_flash_fwd_kernel` of the JAX package's ops/pallas_attention.py)
@@ -38,6 +38,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -63,7 +64,7 @@ __device__ __forceinline__ float exp2_fast(float x) {
   return y;
 }
 
-// 16 bytes of a row as fp32: 4 floats or 8 bf16
+// 16 bytes of a row as fp32: 4 floats, 8 bf16 or 8 fp16
 template <typename T>
 struct Vec;
 
@@ -95,6 +96,25 @@ struct Vec<__nv_bfloat16> {
   }
   __device__ __forceinline__ static __nv_bfloat16 from_f32(float x) {
     return __float2bfloat16(x);
+  }
+};
+
+template <>
+struct Vec<__half> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __half* p,
+                                              float (&x)[8]) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static __half from_f32(float x) {
+    return __float2half(x);
   }
 };
 
@@ -277,7 +297,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // One query row (Tq = 1) a (batch, head). dtype: 0 = float32, 1 =
-// bfloat16. strides: 12 values, (b, h, t) of q, k, v, o, in elements; q,
+// bfloat16, 2 = float16. strides: 12 values, (b, h, t) of q, k, v, o, in elements; q,
 // k and v rows 16-byte aligned (the wrapper checks). chunk: keys a block;
 // nchunks = ceil(Tk / chunk). part: fp32 workspace of B*H*nchunks*(D + 2)
 // values. lse and lengths may be null. Returns the cudaError_t of the
@@ -299,6 +319,9 @@ int mxtpu_flash_fwd_split(const void* q, const void* k, const void* v,
     return dispatch<__nv_bfloat16>(D, q, k, v, o, lse, lengths, part, B, H,
                                    Tk, sq, sk, sv, so, scale, chunk, nchunks,
                                    s);
+  if (dtype == 2)
+    return dispatch<__half>(D, q, k, v, o, lse, lengths, part, B, H, Tk, sq,
+                            sk, sv, so, scale, chunk, nchunks, s);
   return -1;
 }
 

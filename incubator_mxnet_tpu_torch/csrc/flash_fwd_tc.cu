@@ -1,10 +1,12 @@
-// Flash-attention forward in bf16 on Hopper's tensor cores (sm_90a): K4 as
-// wgmma products of shared-memory tiles that TMA fills, with the online
-// softmax in registers. Plain C interface for ctypes.
+// Flash-attention forward in bf16 or fp16 on Hopper's tensor cores
+// (sm_90a): K4 as wgmma products of shared-memory tiles that TMA fills,
+// with the online softmax in registers. Plain C interface for ctypes.
 //
 // It computes what csrc/flash_fwd.cu computes (see its header: the TPU
 // kernel `_flash_fwd_kernel` of the JAX package's ops/pallas_attention.py),
-// for bf16 with D = 64 or 128 and every operand's base and (b, h, t)
+// for bf16 or fp16 (one template over the element type T: the wgmma
+// operand type, the TMA element type and the conversions differ, the rest
+// is one code) with D = 64 or 128 and every operand's base and (b, h, t)
 // strides multiples of 16 bytes, as TMA needs. ops/flash_attention.py's
 // `flash_fwd_route` sends training and prefill calls of that kind here,
 // decode steps (one query row) to csrc/flash_fwd_split.cu and every other
@@ -14,8 +16,8 @@
 // over the attended keys: per-batch `lengths`, causal aligned bottom-right
 // (key <= query + Tk - Tq) or, with `cache_offset`, at the per-batch fill
 // (key <= query + lengths[b] - Tq). A row with no attended key writes 0
-// and lse = -inf. p is rounded to bf16 before P.V (as the TPU kernel casts
-// it to the input type); every sum runs in fp32 and o is rounded once.
+// and lse = -inf. p is rounded to the input type before P.V (as the TPU
+// kernel casts it); every sum runs in fp32 and o is rounded once.
 // Each block owns its output rows: no atomics, and a run repeats bit for
 // bit.
 //
@@ -29,7 +31,7 @@
 // S = Q.K^T (both K-major in shared memory) lands in registers; the row
 // max and sum are taken there (each accumulator row lives in one quad of
 // lanes, so a row reduction is two shfl_xor steps), p = exp2(s * scale *
-// log2e - m) is packed to bf16 A fragments (hopper.cuh, pack_a), and
+// log2e - m) is packed to bf16/fp16 A fragments (hopper.cuh, pack_a), and
 // O += P.V runs with A from registers and V read MN-major. The O
 // accumulator has the scores' row map, so the rescale by exp2(m_old -
 // m_new) is a multiply in place. One uniform branch a tile picks the
@@ -66,13 +68,13 @@ constexpr int fwd_smem_bytes() {  // Q, the K/V ring, barriers
 // One block: queries [q0, q0 + 64) of (batch, head) blockIdx.x, q0 from
 // blockIdx.y counted from the last tile. Threads 0..127 are the consumer
 // warpgroup, 128..159 the producer warp.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
                     float* __restrict__ lse, const int* __restrict__ lengths,
-                    bf16* __restrict__ o, int H, int Tq, int Tk, long long sb,
+                    T* __restrict__ o, int H, int Tq, int Tk, long long sb,
                     long long sh, long long st, float scale, int causal,
                     int cache_offset) {
   constexpr int NB = D / 64;  // 64-column boxes of a row
@@ -148,7 +150,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4 * NB; ++kk)
-      wgmma_n64<0, 0>(sc, kmajor(qs, kk), kmajor(kt, kk));
+      wgmma_n64<0, 0, T>(sc, kmajor(qs, kk), kmajor(kt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -195,15 +197,15 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     else
       softmax(std::true_type{});
     uint32_t a[4][4];
-    pack_a<0>(sc, a[0]);
-    pack_a<1>(sc, a[1]);
-    pack_a<2>(sc, a[2]);
-    pack_a<3>(sc, a[3]);
+    pack_a<0, T>(sc, a[0]);
+    pack_a<1, T>(sc, a[1]);
+    pack_a<2, T>(sc, a[2]);
+    pack_a<3, T>(sc, a[3]);
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D, 1>(acc, a[kk], mnmajor(vt, kk));
+      wgmma_rs<D, 1, T>(acc, a[kk], mnmajor(vt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -242,23 +244,25 @@ struct Args {
   int causal, cache_offset;
 };
 
-template <int D>
+template <int D, typename T>
 int launch(const Args& a, cudaStream_t stream) {
   const long long* s = a.strides;
   CUtensorMap mq, mk, mv;
   int err;
-  if ((err = encode_bhtd(&mq, a.q, a.B, a.H, a.Tq, D, s)) ||
-      (err = encode_bhtd(&mk, a.k, a.B, a.H, a.Tk, D, s + 3)) ||
-      (err = encode_bhtd(&mv, a.v, a.B, a.H, a.Tk, D, s + 6)))
+  constexpr CUtensorMapDataType dt = tma_dtype<T>();
+  if ((err = encode_bhtd(&mq, a.q, a.B, a.H, a.Tq, D, s, dt)) ||
+      (err = encode_bhtd(&mk, a.k, a.B, a.H, a.Tk, D, s + 3, dt)) ||
+      (err = encode_bhtd(&mv, a.v, a.B, a.H, a.Tk, D, s + 6, dt)))
     return err;
   constexpr int smem = fwd_smem_bytes<D>();
   static bool opted = false;
-  if ((err = allow_smem((const void*)flash_fwd_tc_kernel<D>, smem, &opted)))
+  if ((err = allow_smem((const void*)flash_fwd_tc_kernel<D, T>, smem,
+                        &opted)))
     return err;
   const long long* so = s + 9;
   const dim3 grid(a.B * a.H, (a.Tq + kTile - 1) / kTile);
-  flash_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, a.lse, a.lengths, static_cast<bf16*>(a.o), a.H, a.Tq, a.Tk,
+  flash_fwd_tc_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, a.lse, a.lengths, static_cast<T*>(a.o), a.H, a.Tq, a.Tk,
       so[0], so[1], so[2], a.scale, a.causal, a.cache_offset);
   return (int)cudaGetLastError();
 }
@@ -267,17 +271,19 @@ int launch(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// The bf16 tensor-core forward: mxtpu_flash_fwd's contract (flash_fwd.cu)
-// for bf16 with D = 64 or 128 and every operand's base and (b, h, t)
-// strides multiples of 16 bytes (dims of size 1 aside). strides: 12
-// values, (b, h, t) of q, k, v, o, in elements. Returns the cudaError_t
+// The tensor-core forward: mxtpu_flash_fwd's contract (flash_fwd.cu) for
+// bf16 (dtype 1) or fp16 (dtype 2) with D = 64 or 128 and every
+// operand's base and (b, h, t) strides multiples of 16 bytes (dims of
+// size 1 aside). strides: 12 values, (b, h, t) of q, k, v, o, in elements.
+// Returns the cudaError_t
 // of the launch (0 on success), cudaErrorInvalidValue for operands TMA
 // cannot describe, kMapError + a CUresult when the tensor-map encoder
-// refuses one, or -1 for another D.
+// refuses one, or -1 for another D or dtype.
 int mxtpu_flash_fwd_tc(const void* q, const void* k, const void* v, void* o,
                        float* lse, const int* lengths, int B, int H, int Tq,
                        int Tk, int D, const long long* strides, float scale,
-                       int causal, int cache_offset, void* stream) {
+                       int causal, int cache_offset, int dtype,
+                       void* stream) {
   // the output is written in 16-byte chunks
   for (int i = 9; i < 12; ++i)
     if (strides[i] % 8 != 0) return (int)cudaErrorInvalidValue;
@@ -286,8 +292,10 @@ int mxtpu_flash_fwd_tc(const void* q, const void* k, const void* v, void* o,
   const Args a{q, k, v, o, lse, lengths, B, H, Tq, Tk, strides, scale,
                causal, cache_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(a, st);
-  if (D == 128) return launch<128>(a, st);
+  if (dtype == 1 && D == 64) return launch<64, bf16>(a, st);
+  if (dtype == 1 && D == 128) return launch<128, bf16>(a, st);
+  if (dtype == 2 && D == 64) return launch<64, __half>(a, st);
+  if (dtype == 2 && D == 128) return launch<128, __half>(a, st);
   return -1;
 }
 

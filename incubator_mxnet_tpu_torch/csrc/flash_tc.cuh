@@ -3,12 +3,15 @@
 // mask of one batch entry, the tile walks, the exponentials in base 2, the
 // shared-memory descriptors of a 64-row tile, the epilogue that writes an
 // m64 x D accumulator through swizzled shared memory in 16-byte chunks,
-// and the TMA map of a strided (B, H, T, D) bf16 operand. The fp32
+// and the TMA map of a strided (B, H, T, D) bf16 or fp16 operand (the
+// kernels are templates over the element type T, which changes only the
+// wgmma operand type, the TMA element type and the conversions). The fp32
 // backward of flash_bwd_f32.cu takes the mask, the tile walks and the
 // exponentials from here too.
 //
-// Every tile is 64 rows (queries or keys) of 64 bf16 (128 bytes) under the
-// 128-byte swizzle (hopper.cuh), so a (64 x D) tile is D/64 boxes. The m64
+// Every tile is 64 rows (queries or keys) of 64 bf16 or fp16 (128 bytes)
+// under the 128-byte swizzle (hopper.cuh), so a (64 x D) tile is D/64 boxes.
+// The m64
 // accumulator's element d[4j + 2h + c] is row 16*warp + lane/4 + 8h,
 // column 8j + 2*(lane%4) + c, warp counted inside its warpgroup.
 
@@ -22,7 +25,7 @@ using namespace mxhop;
 using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;               // rows of a tile (queries/keys)
-constexpr int kBox = kTile * 64 * 2;    // one 64 x 64 bf16 box
+constexpr int kBox = kTile * 64 * 2;    // one 64 x 64 box of 2-byte values
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -96,12 +99,13 @@ __device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int kk) {
 }
 
 // Round the m64 x D accumulator of the consumer warpgroup (threads
-// 0..127) to bf16 and store its rows < `rows` to `out` (row stride `st`
-// elements), through shared memory `stage` (D/64 swizzled boxes) so that
+// 0..127) to T (bf16 or fp16) and store its rows < `rows` to `out` (row
+// stride `st` elements), through shared memory `stage` (D/64 swizzled boxes) so
+// that
 // each thread writes whole 16-byte chunks.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void store_tile(const float (&acc)[D / 2],
-                                           uint8_t* stage, bf16* out,
+                                           uint8_t* stage, T* out,
                                            long long st, int rows) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   sync_consumers();  // every product that read `stage` is done
@@ -112,7 +116,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[D / 2],
     const int box = col >> 6, chunk = (col & 63) >> 3;
     *reinterpret_cast<uint32_t*>(stage + box * kBox + r * 128 +
                                  ((chunk ^ (r & 7)) << 4) + (col & 7) * 2) =
-        pack_bf16(acc[i], acc[i + 1]);
+        pack2<T>(acc[i], acc[i + 1]);
   }
   sync_consumers();
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
@@ -126,12 +130,14 @@ __device__ __forceinline__ void store_tile(const float (&acc)[D / 2],
   }
 }
 
-// The map of a (B, H, T, D) bf16 operand with element strides (b, h, t)
+// The map of a (B, H, T, D) bf16 or fp16 (`dtype`) operand with element
+// strides (b, h, t)
 // and a contiguous head dim, in boxes of 64 rows x 64 columns. A dim of
 // size 1 has no stride to speak of: it gets the packed one (the dims
 // below it end to end).
 inline int encode_bhtd(CUtensorMap* map, const void* base, int B, int H,
-                       int T, int D, const long long* s) {
+                       int T, int D, const long long* s,
+                       CUtensorMapDataType dtype) {
   const uint64_t dims[4] = {(uint64_t)D, (uint64_t)T, (uint64_t)H,
                             (uint64_t)B};
   const long long e[3] = {s[2], s[1], s[0]};
@@ -145,7 +151,7 @@ inline int encode_bhtd(CUtensorMap* map, const void* base, int B, int H,
     return (int)cudaErrorInvalidValue;
   const uint32_t box[4] = {64, (uint32_t)kTile, 1, 1};
   const uint32_t es[4] = {1, 1, 1, 1};
-  return encode(map, base, 4, dims, strides, box, es);
+  return encode(map, base, 4, dims, strides, box, es, dtype);
 }
 
 }  // namespace mxflash

@@ -80,6 +80,24 @@ def _groups(keys) -> "OrderedDict[tuple, List[int]]":
     return out
 
 
+def _master_weights(opt, upd, entries) -> Optional[str]:
+    """Why the fused engines cannot take these ``(index, parameter)``
+    entries, or None: a 16-bit parameter under ``multi_precision``, or one
+    whose state already holds an fp32 master weight (the per-parameter
+    path updates the master)."""
+    for i, p in entries:
+        if p.dtype not in opt_mod.optimizer._LOW_PRECISION:
+            continue
+        if getattr(opt, "multi_precision", False):
+            return "multi_precision master weights"
+        st = upd.states.get(i)
+        if isinstance(st, tuple) and len(st) == 2 \
+                and isinstance(st[0], torch.Tensor) \
+                and st[0].dtype == torch.float32:
+            return "existing fp32 master state"
+    return None
+
+
 class FusedStep:
     """The whole-model update through the optimizer's functional core.
 
@@ -87,9 +105,11 @@ class FusedStep:
     dtype): the rescale, clip and rule of every parameter in a handful of
     multi-tensor launches, with ``lr``/``wd``/``t``/the rescale as device
     scalars. ``run`` returns False (and names why in ``last_fallback``)
-    when the rule has no functional core or a gradient is row-sparse; the
-    trainer then takes the per-parameter path (SGD's lazy row update, the
-    other rules densifying)."""
+    when the rule has no functional core, a gradient is row-sparse or a
+    parameter takes an fp32 master weight (``multi_precision``), as the
+    JAX package's FusedStep does; the trainer then takes the
+    per-parameter path (SGD's lazy row update, the other rules
+    densifying, the master weights' update)."""
 
     def __init__(self, trainer: "Trainer"):
         self._trainer = trainer
@@ -111,6 +131,9 @@ class FusedStep:
         params = tr._params
         if any(params[i].grad.is_sparse for i in todo):
             return self._fallback("row-sparse gradient")
+        why = _master_weights(opt, upd, [(i, params[i]) for i in todo])
+        if why:
+            return self._fallback(why)
         from ..parallel import superstep
 
         for i in todo:
@@ -191,6 +214,10 @@ class SuperStep:
             if id(p) not in tr._param2idx:
                 return self._fallback(
                     f"net parameter {n} not owned by the trainer")
+        why = _master_weights(opt, tr._updater, [
+            (tr._param2idx[id(p)], p) for p in self._trainable().values()])
+        if why:
+            return self._fallback(why)
         self.last_fallback = None      # this window runs fused
         return True
 

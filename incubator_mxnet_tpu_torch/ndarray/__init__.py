@@ -23,7 +23,8 @@ from __future__ import annotations
 import sys as _sys
 from types import ModuleType as _ModuleType
 
-from ..ops import fft_ops as _fft_ops  # noqa: F401  (registers ops)
+from ..ops import detection as _detection  # noqa: F401  (registers ops)
+from ..ops import fft_ops as _fft_ops  # noqa: F401
 from ..ops import flash_attention as _flash  # noqa: F401
 from ..ops import fused_conv as _fused_conv  # noqa: F401
 from ..ops import linalg as _linalg  # noqa: F401
@@ -478,7 +479,21 @@ for _n in ("image_to_tensor", "image_normalize", "image_resize",
     setattr(image, _n.replace("image_", ""), _wrap(_n, 1))
 _sys.modules[image.__name__] = image
 
+smooth_l1 = _wrap("smooth_l1", 1)
 contrib = _ModuleType(__name__ + ".contrib")
+# ops/detection.py: the bounding-box and MultiBox ops, the RPN proposals
+# and the PS/rotated ROI pooling, under the reference's contrib names
+for _n, _k in [("box_iou", 2), ("box_nms", 1), ("box_decode", 2),
+               ("box_encode", 4), ("bipartite_matching", 1),
+               ("multibox_prior", 1), ("multibox_target", 3),
+               ("multibox_detection", 3), ("Proposal", 3),
+               ("MultiProposal", 3), ("PSROIPooling", 2),
+               ("DeformablePSROIPooling", 3), ("RROIAlign", 2)]:
+    setattr(contrib, _n, _wrap(_n, _k))
+contrib.box_non_maximum_suppression = contrib.box_nms
+contrib.MultiBoxPrior = contrib.multibox_prior
+contrib.MultiBoxTarget = contrib.multibox_target
+contrib.MultiBoxDetection = contrib.multibox_detection
 for _n, _k in [("div_sqrt_dim", 1), ("quadratic", 1),
                ("gradientmultiplier", 1), ("AdaptiveAvgPooling2D", 1),
                ("BatchNormWithReLU", 5), ("requantize", 3)]:
@@ -513,7 +528,7 @@ __all__ = ["BatchNorm", "BatchNorm_v1", "BlockGrad", "Cast", "Concat",
            "waitall", "zeros", "random", "uniform", "normal",
            "random_uniform", "random_normal", "sample_multinomial",
            "shuffle", "reset_arrays", "ctc_loss", "CTCLoss",
-           "DeformableConvolution", "Crop", "image", "contrib",
+           "DeformableConvolution", "Crop", "image", "contrib", "smooth_l1",
            "sgd_update", "sgd_mom_update", "mp_sgd_update",
            "mp_sgd_mom_update", "nag_mom_update", "adam_update",
            "adamw_update", "rmsprop_update", "rmspropalex_update",

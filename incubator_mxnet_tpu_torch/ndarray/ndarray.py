@@ -128,6 +128,12 @@ def invoke(fn, inputs: Sequence, kwargs: Optional[dict] = None,
         kw["rng"] = _random.generator(
             _context_of(in_data[0]) if in_data else ctx)
     recording = autograd.is_recording() and differentiable
+    if _registry._amp_policy is not None and name \
+            and not hasattr(fn, "_mx_op"):
+        # an op that is not registered (the NDArray methods' lambdas:
+        # "add", "multiply", ...) takes the AMP policy by its name here;
+        # a registered op applies it itself
+        fn = _amp_wrapped(name, fn)
     with torch.set_grad_enabled(recording):
         if _registry._recorders and name and not hasattr(fn, "_mx_op"):
             # an op the registry does not record itself (NDArray methods
@@ -150,6 +156,15 @@ def invoke(fn, inputs: Sequence, kwargs: Optional[dict] = None,
         _sync(outs)
     nds = [NDArray(o) for o in outs]
     return nds[0] if single else tuple(nds)
+
+
+def _amp_wrapped(name: str, fn):
+    """``fn`` under the AMP policy as op ``name`` (not recorded: ``invoke``
+    records it)."""
+    def call(*args, **kwargs):
+        return _registry.amp_call(name, fn, args, kwargs, record=False)
+
+    return call
 
 
 def _operands(inputs, ctx: Optional[Context] = None) -> list:

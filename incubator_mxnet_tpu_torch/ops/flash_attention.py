@@ -5,20 +5,22 @@ Counterpart of the JAX package's ``ops/pallas_attention.py``.
 ``flash_attention`` keeps that module's contract. A CUDA tensor always
 launches the kernels: the forward (which replaces the TPU kernel
 ``_flash_fwd_kernel``) on the route :func:`flash_fwd_route` names: the
-bf16 tensor-core kernel of ``csrc/flash_fwd_tc.cu`` (``"tc"``: training
-and prefill), the fp32 kernel of ``csrc/flash_fwd_f32.cu`` (``"f32"``:
+bf16/fp16 tensor-core kernel of ``csrc/flash_fwd_tc.cu`` (``"tc"``:
+training and prefill), the fp32 kernel of ``csrc/flash_fwd_f32.cu`` (``"f32"``:
 register micro-tiles on the FP32 pipes, training and prefill), the
 kernels of ``csrc/flash_fwd_split.cu`` that split the
 keys of a decode step (one query row) over blocks and merge them
 (``"split"``), or the SIMT kernel of ``csrc/flash_fwd.cu`` (``"simt"``);
 and, for a gradient, the two backward kernels (``_flash_bwd_dq_kernel``
 and ``_flash_bwd_dkv_kernel``) on the route :func:`flash_bwd_route`
-names: the bf16 tensor-core kernels of ``csrc/flash_bwd_tc.cu``
+names: the bf16/fp16 tensor-core kernels of ``csrc/flash_bwd_tc.cu``
 (``"tc"``), the fp32 kernels of ``csrc/flash_bwd_f32.cu`` (``"f32"``:
 register micro-tiles on the FP32 pipes) or the SIMT kernels of
 ``csrc/flash_bwd.cu`` (``"simt"``). A CPU tensor takes the plain
 versions, ``flash_attention_reference`` and
-``flash_attention_bwd_reference``. There is no size crossover to a dense
+``flash_attention_bwd_reference``. fp16 goes wherever bf16 goes (the
+kernels are one template over the two types; the JAX kernels take fp16
+as they take bf16), with fp32 sums and outputs in the input type. There is no size crossover to a dense
 path here: whether one pays on this card has not been measured.
 
 Layouts: q (B, H, Tq, D), k/v (B, H, Tk, D), any strides with a contiguous
@@ -77,7 +79,9 @@ flash_bwd_dq_tc_launches = flash_bwd_dq_simt_launches = 0
 flash_bwd_dkv_tc_launches = flash_bwd_dkv_simt_launches = 0
 flash_bwd_dq_f32_launches = flash_bwd_dkv_f32_launches = 0
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the 16-bit types of the tensor-core routes
+_HALF_TYPES = (torch.bfloat16, torch.float16)
 _HEAD_DIMS = (32, 64, 128)
 _TC_HEAD_DIMS = (64, 128)
 #: the split kernels (one query row): keys a tile of the chunk, and the
@@ -128,7 +132,8 @@ def flash_attention_reference(q, k, v, lengths=None, scale=None,
                               causal=False, cache_offset=False,
                               return_lse=False):
     """Plain PyTorch attention with the kernel's contract, computed in
-    fp32 whatever the input dtype (output cast back to it). Rows with no
+    fp32 whatever the input dtype (fp32, bf16 or fp16: products and sums in
+    fp32, the output cast back to the input type). Rows with no
     valid key give 0 and lse = -inf, as the kernel does."""
     s, causal = _resolve(q, k, lengths, scale, causal, cache_offset)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * s
@@ -186,8 +191,8 @@ def flash_attention_bwd_reference(q, k, v, lengths, lse, delta, g,
                                   cache_offset=False):
     """Plain PyTorch version of the two backward kernels: ``lse`` and
     ``delta`` are the (B, H, Tq) fp32 row statistics (``delta = sum(g *
-    o)``), ``g`` the output cotangent. Dense, in fp32; returns (dq, dk, dv)
-    in the input dtypes."""
+    o)``), ``g`` the output cotangent. Dense, in fp32 for every input type
+    (fp32, bf16 or fp16); returns (dq, dk, dv) in the input dtypes."""
     args = (q, k, v, lengths, lse, delta, g, scale, causal, cache_offset)
     return (flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args))
 
@@ -195,7 +200,7 @@ def flash_attention_bwd_reference(q, k, v, lengths, lse, delta, g,
 def _fwd_kernel(route):
     """The forward entry point of the route's library: ``"simt"``
     ``csrc/flash_fwd.cu`` (a dtype argument before the stream), ``"tc"``
-    ``csrc/flash_fwd_tc.cu`` (bf16 only), ``"f32"``
+    ``csrc/flash_fwd_tc.cu`` (bf16 or fp16: a dtype argument too), ``"f32"``
     ``csrc/flash_fwd_f32.cu`` (fp32 only), ``"split"``
     ``csrc/flash_fwd_split.cu`` (one query row: the workspace after
     lengths, no Tq and no causal flags; dtype, chunk and chunk count
@@ -212,8 +217,8 @@ def _fwd_kernel(route):
                                      i, i, i, p]
         else:
             fn.argtypes = [p] * 6 + [i, i, i, i, i, strides, ctypes.c_float,
-                                     i, i] + ([i] if route == "simt" else
-                                              []) + [p]
+                                     i, i] + ([i] if route in ("simt", "tc")
+                                              else []) + [p]
         fn.restype = i
         _fwd_fns[route] = fn
     return fn
@@ -222,16 +227,16 @@ def _fwd_kernel(route):
 def _bwd_kernels(route):
     """(dq, dkv) entry points of the route's library: ``"simt"``
     ``csrc/flash_bwd.cu`` (a dtype argument before the stream), ``"tc"``
-    ``csrc/flash_bwd_tc.cu`` (bf16 only), ``"f32"``
+    ``csrc/flash_bwd_tc.cu`` (bf16 or fp16: a dtype argument too), ``"f32"``
     ``csrc/flash_bwd_f32.cu`` (fp32 only)."""
     fns = _bwd_fns.get(route)
     if fns is None:
-        simt = route == "simt"
-        suffix = "" if simt else "_" + route
+        suffix = "" if route == "simt" else "_" + route
         lib = _build.load("flash_bwd" + suffix)
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
-                ctypes.c_float, i, i] + ([i] if simt else []) + [p]
+                ctypes.c_float, i, i] + ([i] if route in ("simt", "tc")
+                                         else []) + [p]
         dq = getattr(lib, "mxtpu_flash_bwd_dq" + suffix)
         dkv = getattr(lib, "mxtpu_flash_bwd_dkv" + suffix)
         dq.argtypes = [p] * 8 + tail
@@ -256,8 +261,9 @@ def _aligned16(t, d):
 
 def _fwd_routes(q, k, v, out):
     """The forward routes whose kernels take this call: ``"simt"`` any;
-    with every operand 16-byte aligned, ``"split"`` one query row in fp32
-    or bf16 with D in (32, 64, 128), ``"tc"`` bf16 with D 64 or 128,
+    with every operand 16-byte aligned, ``"split"`` one query row in fp32,
+    bf16 or fp16 with D in (32, 64, 128), ``"tc"`` bf16 or fp16 with D 64
+    or 128,
     ``"f32"`` fp32 with D 64 or 128 and more than one query row."""
     d = q.shape[-1]
     routes = ["simt"]
@@ -266,7 +272,7 @@ def _fwd_routes(q, k, v, out):
             t.dtype == q.dtype and _aligned16(t, d) for t in ops):
         if q.shape[2] == 1:
             routes.append("split")
-        if q.dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+        if q.dtype in _HALF_TYPES and d in _TC_HEAD_DIMS:
             routes.append("tc")
         if q.dtype == torch.float32 and d in _TC_HEAD_DIMS \
                 and q.shape[2] > 1:
@@ -276,9 +282,9 @@ def _fwd_routes(q, k, v, out):
 
 def flash_fwd_route(q, k, v, out=None):
     """Which forward kernel a call takes on the card: ``"split"``
-    (``csrc/flash_fwd_split.cu``) for a decode step (Tq = 1), fp32 or
-    bf16, D in (32, 64, 128); ``"tc"`` (``csrc/flash_fwd_tc.cu``) for the
-    rest in bf16 with D 64 or 128; ``"f32"`` (``csrc/flash_fwd_f32.cu``:
+    (``csrc/flash_fwd_split.cu``) for a decode step (Tq = 1), fp32, bf16 or
+    fp16, D in (32, 64, 128); ``"tc"`` (``csrc/flash_fwd_tc.cu``) for the
+    rest in bf16 or fp16 with D 64 or 128; ``"f32"`` (``csrc/flash_fwd_f32.cu``:
     register micro-tiles on the FP32 pipes, fed by TMA; no tensor-core
     path keeps fp32 off TF32) for the rest in fp32 with D 64 or 128 and at
     least ``FWD_F32_MIN_TQ`` query rows; ``"simt"`` (``csrc/flash_fwd.cu``)
@@ -353,7 +359,7 @@ def flash_bwd_route(q, k, v, g, outs=()):
     a contiguous head dim, a base address and (b, h, t) strides that are
     multiples of 16 bytes (a dim of size 1 has no stride to hold to):
     ``"tc"`` (the tensor-core kernels of ``csrc/flash_bwd_tc.cu``, TMA and
-    ``wgmma``) in bf16, ``"f32"`` (``csrc/flash_bwd_f32.cu``: register
+    ``wgmma``) in bf16 or fp16, ``"f32"`` (``csrc/flash_bwd_f32.cu``: register
     micro-tiles on the FP32 pipes, fed by TMA; no tensor-core path keeps
     fp32 off TF32) in fp32. ``"simt"`` (``csrc/flash_bwd.cu``) takes
     everything else: D = 32 and misaligned views. Measured on an H100
@@ -366,7 +372,7 @@ def flash_bwd_route(q, k, v, g, outs=()):
     for t in (q, k, v, g, *outs):
         if t.dtype != q.dtype or not _aligned16(t, d):
             return "simt"
-    return "tc" if q.dtype == torch.bfloat16 else "f32"
+    return "tc" if q.dtype in _HALF_TYPES else "f32"
 
 
 def _pick_bwd_route(q, k, v, g, outs, route):
@@ -390,8 +396,8 @@ def _check_cuda(q, k, v, lengths):
         if t.dtype != q.dtype:
             raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"flash_attention kernel takes float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     b, h, tq, d = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[:2] != (b, h) \
             or k.shape[3] != d:
@@ -479,7 +485,8 @@ def _forward(q, k, v, lengths, scale, causal, cache_offset, return_lse,
             err = fn(*head, part.data_ptr(), b, h, tk, d, strides, s,
                      _DTYPE_CODE[q.dtype], chunk, nchunks, stream)
         else:
-            dtype = (_DTYPE_CODE[q.dtype],) if route == "simt" else ()
+            dtype = (_DTYPE_CODE[q.dtype],) if route in ("simt", "tc") \
+                else ()
             err = fn(*head, b, h, tq, tk, d, strides, s, int(causal),
                      int(bool(cache_offset)), *dtype, stream)
     if err != 0:
@@ -507,7 +514,7 @@ def _launch_bwd(which, q, k, v, lengths, lse, delta, g, scale, causal,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
         *ostrides)
     fn = _bwd_kernels(route)[which]
-    dtype = (_DTYPE_CODE[q.dtype],) if route == "simt" else ()
+    dtype = (_DTYPE_CODE[q.dtype],) if route in ("simt", "tc") else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),

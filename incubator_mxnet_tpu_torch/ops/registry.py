@@ -19,6 +19,14 @@ the op functions on tensors directly, so the record is taken here, where
 every such call passes, and not only in ``ndarray.invoke``. A registered
 op called inside another one's recorded call is part of that op and is
 not recorded again. With no recorder active an op call costs one check.
+
+AMP (``amp.init``): the cast policy sits here too, for the same reason:
+while one is set, the outermost call of a registered op casts its
+floating tensor arguments by the op's name (:func:`amp_call`); a
+registered op that another calls inside its own body runs as called, as
+the JAX package's ``invoke`` applies its policy once per op. The casts
+are tensor ops that autograd records, so gradients come back in each
+argument's own type. With no policy set an op call costs one more check.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import inspect
+import threading
 from typing import Any, Callable, Dict, List, Optional
 
 
@@ -59,6 +68,12 @@ class GraphRecorder:
 
 #: the active recorders (innermost last); empty outside an export
 _recorders: List[GraphRecorder] = []
+
+#: the AMP cast policy (``amp.AmpPolicy``: ``apply(name, fn, args,
+#: kwargs) -> (args, kwargs)``), or None (``amp.init``/``amp.deinit``)
+_amp_policy = None
+#: per thread: 1 inside the outermost op call under a policy
+_amp_state = threading.local()
 
 
 def _is_tensor(x) -> bool:
@@ -153,15 +168,41 @@ def recorded(name: str) -> Callable:
     return deco
 
 
+def _call(name: str, fn: Callable, args, kwargs):
+    if _recorders:
+        return record_call(name, fn, args, kwargs)
+    return fn(*args, **kwargs)
+
+
+def amp_call(name: str, fn: Callable, args, kwargs, record: bool = True):
+    """Call op ``name`` under the AMP policy: the outermost call casts its
+    arguments (``_amp_policy.apply``) and runs with the policy held off
+    for the ops it calls; a nested call runs as called. ``record``: record
+    it as a registered op is recorded (``_call``)."""
+    run = _call if record else (lambda _n, f, a, k: f(*a, **k))
+    policy = _amp_policy
+    if policy is None or getattr(_amp_state, "depth", 0):
+        return run(name, fn, args, kwargs)
+    args, kwargs = policy.apply(name, fn, args, kwargs)
+    _amp_state.depth = 1
+    try:
+        return run(name, fn, args, kwargs)
+    finally:
+        _amp_state.depth = 0
+
+
 def register(name: str, *, differentiable: bool = True,
              needs_rng: bool = False, aliases: tuple = ()) -> Callable:
     """Register a function over torch tensors as a framework op. The
     name is bound to the op's function, which records its calls while a
-    :class:`GraphRecorder` is active."""
+    :class:`GraphRecorder` is active and applies the AMP policy while one
+    is set."""
 
     def deco(fn: Callable) -> Callable:
         @functools.wraps(fn)
         def op(*args, **kwargs):
+            if _amp_policy is not None:
+                return amp_call(name, fn, args, kwargs)
             if _recorders:
                 return record_call(name, fn, args, kwargs)
             return fn(*args, **kwargs)

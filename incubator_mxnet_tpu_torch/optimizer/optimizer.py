@@ -19,9 +19,18 @@ that captured it reads their values at each replay (``gluon.Trainer``'s
 FusedStep and SuperStep). ``update`` (the ``Updater``'s one parameter at
 a time) is the same core over a list of one.
 
-The other rules of the JAX package (AdaGrad, AdaDelta, RMSProp, Ftrl,
-LAMB, Signum, SGLD, DCASGD, LARS) and multi-precision master weights are
-not ported yet.
+The rules: SGD, NAG, Adam, AdamW, AdaGrad, AdaDelta, RMSProp (plain and
+centered), Ftrl, LAMB, LARS, Signum, SGLD and DCASGD, with the JAX
+package's formulas. RMSProp, Ftrl, Signum and LAMB run the registered
+update ops of ``ops/optimizer_ops.py`` (which compute the same rules) a
+parameter at a time and write the results back in place; the others are
+written with ``torch._foreach_*``. SGLD draws its noise from the
+package's generator of the weights' device (``random.generator``).
+
+``multi_precision=True`` keeps an fp32 master weight for every fp16/bf16
+parameter (``create_state_multi_precision``): the rule updates the master
+with the gradient in fp32 and the parameter becomes the master's cast
+(``update_multi_precision``; a row-sparse gradient is densified there).
 """
 
 from __future__ import annotations
@@ -31,8 +40,12 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
-__all__ = ["Adam", "AdamW", "NAG", "Optimizer", "SGD", "Updater", "create",
-           "get_updater", "register"]
+__all__ = ["AdaDelta", "AdaGrad", "Adam", "AdamW", "DCASGD", "Ftrl", "LAMB",
+           "LARS", "NAG", "Optimizer", "RMSProp", "SGD", "SGLD", "Signum",
+           "Updater", "create", "get_updater", "register"]
+
+#: the parameter types that take an fp32 master weight
+_LOW_PRECISION = (torch.float16, torch.bfloat16)
 
 _OPTIMIZERS: Dict[str, type] = {}
 
@@ -48,8 +61,7 @@ def create(name, **kwargs) -> "Optimizer":
         return name
     if name.lower() not in _OPTIMIZERS:
         raise ValueError(
-            f"unknown optimizer {name!r}; known: {sorted(_OPTIMIZERS)} (the "
-            "JAX package's other rules are not ported yet)")
+            f"unknown optimizer {name!r}; known: {sorted(_OPTIMIZERS)}")
     return _OPTIMIZERS[name.lower()](**kwargs)
 
 
@@ -58,13 +70,13 @@ class Optimizer:
 
     #: the rule has a functional core (:meth:`update_fn`)
     _has_fused_core = False
+    #: the rule draws random numbers each step (SGLD)
+    _needs_rng = False
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  multi_precision=False, param_dict=None, begin_num_update=0):
-        if multi_precision:
-            raise NotImplementedError(
-                "multi_precision (fp32 master weights) is not ported yet")
+        self.multi_precision = multi_precision
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -134,6 +146,40 @@ class Optimizer:
     # -- state --------------------------------------------------------------
     def create_state(self, index, weight: torch.Tensor):
         return None
+
+    def create_state_multi_precision(self, index, weight: torch.Tensor):
+        """The state of ``weight``: with ``multi_precision`` and an fp16 or
+        bf16 weight, ``(fp32 master copy, the rule's state of the
+        master)``; else the rule's own state."""
+        if self.multi_precision and weight.dtype in _LOW_PRECISION:
+            master = weight.detach().to(torch.float32).clone()
+            return (master, self.create_state(index, master))
+        return self.create_state(index, weight)
+
+    def _has_master(self, weight, state) -> bool:
+        """``state`` holds an fp32 master weight of the 16-bit
+        ``weight``."""
+        return (self.multi_precision and weight.dtype in _LOW_PRECISION
+                and isinstance(state, tuple) and len(state) == 2
+                and isinstance(state[0], torch.Tensor)
+                and state[0].dtype == torch.float32
+                and state[0].shape == weight.shape)
+
+    @torch.no_grad()
+    def update_multi_precision(self, index, weight: torch.Tensor,
+                               grad: torch.Tensor, state):
+        """``update`` through the fp32 master weight where ``state`` holds
+        one (the gradient in fp32, the weight written back as the
+        master's cast); else ``update``. A row-sparse gradient is
+        densified under a master weight, as in the reference."""
+        if not self._has_master(weight, state):
+            return self.update(index, weight, grad, state)
+        if grad.is_sparse:
+            grad = grad.to_dense()
+        master, inner = state
+        inner = self.update(index, master, grad.to(torch.float32), inner)
+        weight.copy_(master)
+        return (master, inner)
 
     # external state (None / a tensor / a tuple) <-> the flat tuple the
     # functional core takes
@@ -369,6 +415,312 @@ class AdamW(_AdamBase):
         torch._foreach_sub_(ws, upd)
 
 
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: ``h += g^2; w -= lr * (g / sqrt(h + eps) + wd * w)`` (the
+    history takes the clipped gradient; wd applies at the update)."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    _has_fused_core = True
+
+    def _core(self, ws, gs, states, lr, wd, t):
+        dt = ws[0].dtype
+        gs = self._prologue(ws, gs)
+        hs = [st[0] for st in states]
+        torch._foreach_addcmul_(hs, gs, gs)
+        den = torch._foreach_add(hs, self.float_stable_eps)
+        torch._foreach_sqrt_(den)
+        upd = torch._foreach_div(gs, den)
+        torch._foreach_add_(upd, torch._foreach_mul(ws, wd.to(dt)))
+        torch._foreach_mul_(upd, lr.to(dt))
+        torch._foreach_sub_(ws, upd)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta: ``g += wd * w; E[g^2] = rho E[g^2] + (1-rho) g^2;
+    d = sqrt(E[d^2] + eps) / sqrt(E[g^2] + eps) * g; E[d^2] = rho E[d^2] +
+    (1-rho) d^2; w -= d`` (no learning rate)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight), torch.zeros_like(weight)
+
+    _has_fused_core = True
+
+    def _core(self, ws, gs, states, lr, wd, t):
+        rho, eps = self.rho, self.epsilon
+        gs = torch._foreach_add(self._prologue(ws, gs),
+                                torch._foreach_mul(ws, wd.to(ws[0].dtype)))
+        ags = [st[0] for st in states]
+        ads = [st[1] for st in states]
+        torch._foreach_mul_(ags, rho)
+        torch._foreach_addcmul_(ags, gs, gs, value=1 - rho)
+        num = torch._foreach_add(ads, eps)
+        torch._foreach_sqrt_(num)
+        den = torch._foreach_add(ags, eps)
+        torch._foreach_sqrt_(den)
+        d = torch._foreach_div(num, den)
+        torch._foreach_mul_(d, gs)
+        torch._foreach_mul_(ads, rho)
+        torch._foreach_addcmul_(ads, d, d, value=1 - rho)
+        torch._foreach_sub_(ws, d)
+
+
+def _write(dsts, srcs) -> None:
+    """Copy each result of a functional update op into its tensor."""
+    for dst, src in zip(dsts, srcs):
+        dst.copy_(src)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, plain (``rmsprop_update``) and ``centered`` (Graves',
+    ``rmspropalex_update``), with ``clip_weights``; wd added to the
+    gradient."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2, self.epsilon = gamma1, gamma2, epsilon
+        self.centered = centered
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return tuple(torch.zeros_like(weight) for _ in range(3))
+        return (torch.zeros_like(weight),)
+
+    _has_fused_core = True
+
+    def _core(self, ws, gs, states, lr, wd, t):
+        from ..ops import optimizer_ops as ops
+
+        dt = ws[0].dtype
+        lr, wd = lr.to(dt), wd.to(dt)
+        cw = self.clip_weights
+        for w, g, st in zip(ws, self._prologue(ws, gs), states):
+            if self.centered:
+                out = ops.rmspropalex_update(
+                    w, g, *st, lr=lr, gamma1=self.gamma1,
+                    gamma2=self.gamma2, epsilon=self.epsilon, wd=wd)
+                if cw is not None:
+                    out = (out[0].clamp(-cw, cw), *out[1:])
+            else:
+                out = ops.rmsprop_update(
+                    w, g, st[0], lr=lr, gamma1=self.gamma1,
+                    epsilon=self.epsilon, wd=wd,
+                    clip_weights=-1.0 if cw is None else cw)
+            _write((w, *st), out)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (``ftrl_update``): ``z += g - sigma * w``, ``n +=
+    g^2``, ``w = -(z - sign(z) l1) / ((beta + sqrt(n)) / lr + wd)`` where
+    ``|z| > l1``, else 0."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight), torch.zeros_like(weight)
+
+    _has_fused_core = True
+
+    def _core(self, ws, gs, states, lr, wd, t):
+        from ..ops import optimizer_ops as ops
+
+        dt = ws[0].dtype
+        lr, wd = lr.to(dt), wd.to(dt)
+        for w, g, st in zip(ws, self._prologue(ws, gs), states):
+            _write((w, *st), ops.ftrl_update(
+                w, g, *st, lr=lr, lamda1=self.lamda1, beta=self.beta,
+                wd=wd))
+
+
+@register
+class LAMB(Optimizer):
+    """LAMB (``lamb_update_phase1`` then ``lamb_update_phase2``): Adam's
+    moments (bias-corrected with ``bias_correction``), ``u = m / (sqrt(v)
+    + eps) + wd * w``, and ``w -= lr * (||w|| / ||u||) * u`` (the trust
+    ratio 1 unless both norms are positive; ``lower_bound``/
+    ``upper_bound`` clamp ``||w||``)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight), torch.zeros_like(weight)
+
+    _has_fused_core = True
+
+    def _core(self, ws, gs, states, lr, wd, t):
+        from ..ops import optimizer_ops as ops
+
+        dt = ws[0].dtype
+        lr, wd = lr.to(dt), wd.to(dt)
+        lb = -1.0 if self.lower_bound is None else self.lower_bound
+        ub = -1.0 if self.upper_bound is None else self.upper_bound
+        for w, g, (m, v) in zip(ws, self._prologue(ws, gs), states):
+            u, m2, v2 = ops.lamb_update_phase1(
+                w, g, m, v, beta1=self.beta1, beta2=self.beta2,
+                epsilon=self.epsilon, t=t,
+                bias_correction=self.bias_correction, wd=wd)
+            m.copy_(m2)
+            v.copy_(v2)
+            r1 = torch.linalg.vector_norm(w, dtype=torch.float32)
+            r2 = torch.linalg.vector_norm(u, dtype=torch.float32)
+            w.copy_(ops.lamb_update_phase2(w, u, r1, r2, lr=lr,
+                                           lower_bound=lb, upper_bound=ub))
+
+
+@register
+class LARS(Optimizer):
+    """LARS: the trust ratio ``eta * ||w|| / (||g|| + wd ||w|| + eps)``
+    (1 unless both norms are positive) scales the step: ``m = momentum *
+    m + trust * lr * (g + wd * w); w -= m``."""
+
+    def __init__(self, momentum=0.9, eta=0.001, epsilon=1e-9, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum, self.eta, self.epsilon = momentum, eta, epsilon
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    _has_fused_core = True
+
+    def _core(self, ws, gs, states, lr, wd, t):
+        dt = ws[0].dtype
+        gs = self._prologue(ws, gs)
+        ms = [st[0] for st in states]
+        for w, g, m in zip(ws, gs, ms):
+            wn = torch.linalg.vector_norm(w, dtype=torch.float32)
+            gn = torch.linalg.vector_norm(g, dtype=torch.float32)
+            trust = torch.where((wn > 0) & (gn > 0),
+                                self.eta * wn / (gn + wd * wn + self.epsilon),
+                                torch.ones_like(wn)).to(dt)
+            step = (g + wd.to(dt) * w) * (trust * lr.to(dt))
+            m.mul_(self.momentum).add_(step)
+            w.sub_(m)
+
+
+@register
+class Signum(Optimizer):
+    """signSGD with momentum (``signum_update``): ``m = momentum * m -
+    (1 - momentum) * (g + wd * w); w = w * (1 - lr * wd_lh) + lr *
+    sign(m)``; without momentum ``w -= lr * sign(g + wd * w)``."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum, self.wd_lh = momentum, wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight)
+
+    _has_fused_core = True
+
+    def _core(self, ws, gs, states, lr, wd, t):
+        from ..ops import optimizer_ops as ops
+
+        dt = ws[0].dtype
+        lr, wd = lr.to(dt), wd.to(dt)
+        gs = self._prologue(ws, gs)
+        if not states[0]:
+            gs = torch._foreach_add(gs, torch._foreach_mul(ws, wd))
+            torch._foreach_sign_(gs)
+            torch._foreach_sub_(ws, torch._foreach_mul(gs, lr))
+            return
+        for w, g, (m,) in zip(ws, gs, states):
+            _write((w, m), ops.signum_update(
+                w, g, m, lr=lr, momentum=self.momentum, wd=wd,
+                wd_lh=self.wd_lh))
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: ``w -= lr/2 * (g + wd * w)``
+    plus Gaussian noise of variance ``lr``, drawn from the package's
+    generator of the weights' device (``_noise``)."""
+
+    _needs_rng = True
+
+    def create_state(self, index, weight):
+        return None
+
+    _has_fused_core = True
+
+    @staticmethod
+    def _noise(w, lr):
+        """N(0, lr) noise shaped like ``w``, in its dtype."""
+        from .. import random as _random
+        from ..device import Context
+
+        dev = w.device
+        ctx = Context("cpu") if dev.type == "cpu" else \
+            Context("gpu", dev.index or 0)
+        z = torch.randn(w.shape, generator=_random.generator(ctx),
+                        device=dev, dtype=w.dtype)
+        return z * torch.sqrt(lr).to(w.dtype)
+
+    def _core(self, ws, gs, states, lr, wd, t):
+        dt = ws[0].dtype
+        gs = torch._foreach_add(self._prologue(ws, gs),
+                                torch._foreach_mul(ws, wd.to(dt)))
+        torch._foreach_mul_(gs, (0.5 * lr).to(dt))
+        torch._foreach_sub_(ws, gs)
+        torch._foreach_add_(ws, [self._noise(w, lr) for w in ws])
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated async SGD: ``g += wd * w; g += lamda * g * g *
+    (w - w_prev); m = momentum * m - lr * g; w_prev = w; w += m``. The
+    previous weight is its own copy (never the weight's storage)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum, self.lamda = momentum, lamda
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight), weight.detach().clone()
+
+    _has_fused_core = True
+
+    def _core(self, ws, gs, states, lr, wd, t):
+        dt = ws[0].dtype
+        gs = torch._foreach_add(self._prologue(ws, gs),
+                                torch._foreach_mul(ws, wd.to(dt)))
+        ms = [st[0] for st in states]
+        pws = [st[1] for st in states]
+        diff = torch._foreach_sub(ws, pws)
+        torch._foreach_mul_(diff, gs)
+        torch._foreach_mul_(diff, gs)
+        torch._foreach_add_(gs, diff, alpha=self.lamda)
+        torch._foreach_mul_(ms, self.momentum)
+        torch._foreach_sub_(ms, torch._foreach_mul(gs, lr.to(dt)))
+        torch._foreach_copy_(pws, ws)
+        torch._foreach_add_(ws, ms)
+
+
 class Updater:
     """State-managing update callable (reference
     ``mxnet.optimizer.Updater``)."""
@@ -383,9 +735,10 @@ class Updater:
         grad, weight = (x.as_torch() if hasattr(x, "as_torch") else x
                         for x in (grad, weight))
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
-        self.states[index] = self.optimizer.update(index, weight, grad,
-                                                   self.states[index])
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+        self.states[index] = self.optimizer.update_multi_precision(
+            index, weight, grad, self.states[index])
 
     def get_states(self, dump_optimizer=False) -> bytes:
         """The states (and optionally the optimizer) as bytes; tensors are

@@ -8,7 +8,10 @@ form: the trainer owns its own copy of the parameters (``params``), each
 ``torch.func.functional_call``, takes the fp32 mean of the loss, runs
 backward and applies a ``torch.optim`` rule chosen to give the optax
 formulas of ``_to_optax`` (clip -> coupled weight decay -> rule; ``adamw``
-decouples it). ``sync_to_net`` writes the trained values back into the
+and ``lamb`` decouple it). ``lamb``, ``rmsprop`` and ``adagrad`` have no
+``torch.optim`` rule with optax's formulas (torch has no LAMB, and its
+RMSprop and Adagrad put eps and the first accumulator elsewhere), so
+:class:`OptaxRule` writes them as optax defines them. ``sync_to_net`` writes the trained values back into the
 net.
 
 Auxiliary state: a parameter with ``requires_grad=False`` (declared with
@@ -32,9 +35,8 @@ optimizer states exist from construction (zeros, as the first step would
 make them), and Adam/AdamW are built ``capturable`` on the card, so the
 eager step and the captured one run the same arithmetic.
 
-Meshes, the ZeRO ladder, quantized collectives and the optax names other
-than ``sgd``, ``nag``, ``adam`` and ``adamw`` wait for the multi-GPU slice
-and raise ``NotImplementedError`` here; ``superstep_feed`` and
+Meshes, the ZeRO ladder and quantized collectives wait for the multi-GPU
+slice and raise ``NotImplementedError`` here; ``superstep_feed`` and
 ``device_prefetcher`` wait for the data pipeline.
 """
 
@@ -49,10 +51,88 @@ from torch.func import functional_call
 from .. import autograd
 from . import superstep
 
-__all__ = ["SPMDTrainer", "collect_params", "make_functional_loss"]
+__all__ = ["OptaxRule", "SPMDTrainer", "collect_params",
+           "make_functional_loss"]
 
 _MULTI_GPU = "the multi-GPU slice of the port"
 _DATA = "the data pipeline (ROADMAP.md queue 1, item 9)"
+
+
+class OptaxRule(torch.optim.Optimizer):
+    """The optax rules of the JAX trainer that ``torch.optim`` lacks, as
+    optax defines them (``kind``):
+
+    * ``"lamb"``: ``optax.lamb(lr, b1, b2, eps, weight_decay=wd)``: Adam's
+      bias-corrected moments, ``u = m_hat / (sqrt(v_hat) + eps) + wd *
+      p``, then ``p -= lr * u * ||p|| / ||u||`` (the ratio 1 where a norm
+      is 0);
+    * ``"rmsprop"``: ``optax.rmsprop(lr, decay, eps)`` (``initial_scale``
+      0, not centered): ``nu = decay * nu + (1 - decay) * g^2; p -= lr *
+      g / sqrt(nu + eps)``;
+    * ``"adagrad"``: ``optax.adagrad(lr, eps)`` (``initial_accumulator_
+      value`` 0.1): ``s += g^2; p -= lr * g / sqrt(s + eps)`` (0 where s
+      is 0).
+
+    ``weight_decay`` of rmsprop and adagrad is optax's
+    ``add_decayed_weights`` before the rule (``g += wd * p``). The states
+    (and lamb's step count) are device tensors made at construction, so a
+    CUDA graph may capture ``step``."""
+
+    def __init__(self, params, kind, lr=0.01, betas=(0.9, 0.999), eps=1e-6,
+                 decay=0.9, weight_decay=0.0):
+        if kind not in ("lamb", "rmsprop", "adagrad"):
+            raise ValueError(f"unknown optax rule {kind!r}")
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      decay=decay,
+                                      weight_decay=weight_decay))
+        self.kind = kind
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = self.state[p]
+                if kind == "lamb":
+                    st["step"] = torch.zeros((), dtype=torch.float32,
+                                             device=p.device)
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                elif kind == "rmsprop":
+                    st["nu"] = torch.zeros_like(p)
+                else:
+                    st["sum_of_squares"] = torch.full_like(p, 0.1)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g, st = p.grad, self.state[p]
+                if self.kind == "lamb":
+                    b1, b2 = group["betas"]
+                    st["step"].add_(1.0)
+                    st["mu"].mul_(b1).add_(g, alpha=1 - b1)
+                    st["nu"].mul_(b2).addcmul_(g, g, value=1 - b2)
+                    mu_hat = st["mu"] / (1 - b1 ** st["step"])
+                    nu_hat = st["nu"] / (1 - b2 ** st["step"])
+                    u = mu_hat / (nu_hat.sqrt() + eps) + wd * p
+                    pn = torch.linalg.vector_norm(p)
+                    un = torch.linalg.vector_norm(u)
+                    ratio = torch.where((pn == 0) | (un == 0),
+                                        torch.ones_like(pn), pn / un)
+                    p.sub_(u * ratio, alpha=lr)
+                    continue
+                if wd:
+                    g = g + wd * p
+                if self.kind == "rmsprop":
+                    d = group["decay"]
+                    st["nu"].mul_(d).addcmul_(g, g, value=1 - d)
+                    p.sub_(g * torch.rsqrt(st["nu"] + eps), alpha=lr)
+                else:
+                    s = st["sum_of_squares"]
+                    s.addcmul_(g, g)
+                    inv = torch.where(s > 0, torch.rsqrt(s + eps),
+                                      torch.zeros_like(s))
+                    p.sub_(inv * g, alpha=lr)
 
 
 def _to_torch_optim(optimizer, optimizer_params: Optional[dict], params,
@@ -84,10 +164,16 @@ def _to_torch_optim(optimizer, optimizer_params: Optional[dict], params,
                                        p.pop("beta2", 0.999)),
                  eps=p.pop("epsilon", 1e-8), weight_decay=wd,
                  capturable=capturable)
-    elif name in ("lamb", "rmsprop", "adagrad"):
-        raise NotImplementedError(
-            f"SPMDTrainer optimizer {optimizer!r} is not ported yet (the "
-            "port has sgd, nag, adam and adamw)")
+    elif name == "lamb":
+        tx = OptaxRule(params, "lamb", lr=lr, betas=(p.pop("beta1", 0.9),
+                                                     p.pop("beta2", 0.999)),
+                       eps=p.pop("epsilon", 1e-6), weight_decay=wd)
+    elif name == "rmsprop":
+        tx = OptaxRule(params, "rmsprop", lr=lr, decay=p.pop("gamma1", 0.9),
+                       eps=p.pop("epsilon", 1e-8), weight_decay=wd)
+    elif name == "adagrad":
+        tx = OptaxRule(params, "adagrad", lr=lr, eps=p.pop("eps", 1e-7),
+                       weight_decay=wd)
     else:
         raise ValueError(f"no optax mapping for optimizer {optimizer!r}")
     return tx, clip
@@ -101,6 +187,8 @@ def _init_optimizer_state(tx) -> None:
     for group in tx.param_groups:
         for p in group["params"]:
             st = tx.state[p]
+            if isinstance(tx, OptaxRule):
+                continue                   # made at construction
             if isinstance(tx, torch.optim.SGD):
                 if group["momentum"] != 0:
                     st["momentum_buffer"] = torch.zeros_like(p)

@@ -239,13 +239,18 @@ def test_cache_offset_requires_lengths():
 
 
 @pytest.mark.parametrize("bad, err, match", [
-    (dict(dtype=torch.float16), TypeError, "float32 or bfloat16"),
+    # fp16 is a kernel type since the fp16 repair: an fp16 q against a bf16
+    # k (mixed types) is what it refuses
+    (dict(dtype=torch.float16, k_dtype=torch.bfloat16), TypeError,
+     "k dtype"),
     (dict(d=48), ValueError, "head dim"),
     (dict(kv_len_mismatch=True), ValueError, "k/v must be"),
     (dict(strided_d=True), ValueError, "contiguous"),
     (dict(lengths=[5, 5]), ValueError, "lengths"),
     (dict(grad_shape=True), ValueError, "g must be shaped like q"),
-], ids=["fp16", "d48", "kv_mismatch", "strided_d", "lengths_shape", "grad"])
+    (dict(dtype=torch.float64), TypeError, "float32, bfloat16 or float16"),
+], ids=["fp16", "d48", "kv_mismatch", "strided_d", "lengths_shape", "grad",
+        "fp64"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, err,
                                                                match):
     """The checks the CUDA path runs before a launch (run here on CPU
@@ -253,7 +258,7 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, err,
     d = bad.get("d", 32)
     dtype = bad.get("dtype", torch.float32)
     q = torch.zeros(1, 2, 3, d, dtype=dtype)
-    k = torch.zeros(1, 2, 5, d, dtype=dtype)
+    k = torch.zeros(1, 2, 5, d, dtype=bad.get("k_dtype", dtype))
     v = torch.zeros(1, 2, 4 if bad.get("kv_len_mismatch") else 5, d,
                     dtype=dtype)
     if bad.get("strided_d"):

@@ -152,6 +152,11 @@ TRAINER_CASES = [
     ("adam", {"learning_rate": 0.01, "epsilon": 1e-4, "wd": 1e-3}),
     ("nag", {"learning_rate": 0.1, "momentum": 0.9}),
     ("adamw", {"learning_rate": 0.01, "epsilon": 1e-4, "wd": 1e-2}),
+    # the optax rules torch.optim lacks (parallel.spmd.OptaxRule)
+    ("lamb", {"learning_rate": 0.01, "epsilon": 1e-4, "wd": 1e-2,
+              "clip_gradient": 0.05}),
+    ("rmsprop", {"learning_rate": 0.01, "gamma1": 0.8, "wd": 1e-3}),
+    ("adagrad", {"learning_rate": 0.05, "eps": 1e-6, "wd": 1e-3}),
 ]
 
 
@@ -187,6 +192,11 @@ SPMD_CASES = [
               "clip_gradient": 0.05}),
     ("nag", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3}),
     ("adamw", {"learning_rate": 0.01, "epsilon": 1e-4, "wd": 1e-2}),
+    # the optax rules torch.optim lacks (parallel.spmd.OptaxRule)
+    ("lamb", {"learning_rate": 0.01, "epsilon": 1e-4, "wd": 1e-2,
+              "clip_gradient": 0.05}),
+    ("rmsprop", {"learning_rate": 0.01, "gamma1": 0.8, "wd": 1e-3}),
+    ("adagrad", {"learning_rate": 0.05, "eps": 1e-6, "wd": 1e-3}),
 ]
 
 
@@ -235,8 +245,10 @@ def test_spmd_trainer_refuses_what_waits_for_multi_gpu():
                dict(shard_weight_update=True)):
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             parallel.SPMDTrainer(net, loss, "sgd", **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        parallel.SPMDTrainer(net, loss, "lamb")
+    # lamb, rmsprop and adagrad are ported (SPMD_CASES): no longer refused
+    for name in ("lamb", "rmsprop", "adagrad"):
+        assert isinstance(parallel.SPMDTrainer(net, loss, name).tx,
+                          parallel.spmd.OptaxRule)
     with pytest.raises(ValueError, match="no optax mapping"):
         parallel.SPMDTrainer(net, loss, "bogus")
 

@@ -84,7 +84,13 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "incubator_mxnet_tpu_torch.symbol.symbol, "
             "incubator_mxnet_tpu_torch.executor, "
             "incubator_mxnet_tpu_torch.contrib, "
-            "incubator_mxnet_tpu_torch.contrib.control_flow\n"
+            "incubator_mxnet_tpu_torch.contrib.control_flow, "
+            "incubator_mxnet_tpu_torch.amp, "
+            "incubator_mxnet_tpu_torch.amp.amp, "
+            "incubator_mxnet_tpu_torch.amp.lists, "
+            "incubator_mxnet_tpu_torch.amp.loss_scaler, "
+            "incubator_mxnet_tpu_torch.ops.detection, "
+            "incubator_mxnet_tpu_torch.models.ssd\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) "
             "or m == 'incubator_mxnet_tpu' "
@@ -1409,5 +1415,72 @@ def test_chip_smoke_hybrid_phase_rehearses_on_the_cpu(monkeypatch):
         with pytest.raises(AssertionError, match="hybridized GPT"):
             cs.hybrid_gpt_part(0, "cpu", gpt, mx.cpu(), torch.bfloat16, 2,
                                16, timed=False)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_chip_smoke_ssd_amp_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.ssd_amp_phase`` on the CPU at a small batch: the fp16
+    flash checks at small shapes (plain versions here), the AMP step of a
+    2-layer GPT against its CPU copy, the bf16 Adam steps under
+    ``init_trainer``/``scale_loss`` with a falling loss, the fp16 step and
+    the injected overflow, ``multi_precision`` Adam and LAMB, the nine
+    optimizers (here CPU against CPU), the SPMDTrainer optax rules,
+    SSD-300 at B=1 (eager, the window, the AMP route, detection) and the
+    14 detection ops. Then a perturbed detection result and a perturbed
+    AMP cast each fail their check."""
+    from incubator_mxnet_tpu_torch import amp
+    from incubator_mxnet_tpu_torch.ops import detection as det
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "device_ms", lambda fn, **k: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "_sdpa_bwd_ms", lambda *a, **k: 0.0)
+    mx.random.seed(0)
+    gpt = get_gpt("gpt_decoder_tiny", vocab_size=97, units=64, num_layers=2,
+                  max_length=16, dropout=0.0).initialize("xavier",
+                                                         ctx=mx.cpu())
+    cases = [("train_causal_B2_T64", 2, 64, 64, 64, True, False, None),
+             ("bert_lengths_B3_T32", 3, 32, 32, 64, False, False, "bert"),
+             ("decode_S2_Tk64", 2, 1, 64, 64, True, True, (64, 9))]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        out = cs.ssd_amp_phase(0, "cpu", mx.cpu(), gpt, gpt_b=2, gpt_t=16,
+                               ssd_b=1, ssd_k=2, fp16_cases=cases,
+                               timed=False)
+        assert [r["kernel"] for r in out["fp16"]] == [
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd",
+            "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd"]
+        assert out["amp"]["losses"][-1] < out["amp"]["losses"][0]
+        assert out["amp"]["overflow_scale"] == out["amp"]["fp16_scale"] / 2
+        assert set(out["multi_precision"]) == {"adam", "lamb"}
+        assert len([k for k in out["optimizers"] if k != "sgld_noise"]) \
+            == len(cs.OPT_RULES)
+        assert set(out["spmd_optax"]) == {"lamb", "rmsprop", "adagrad"}
+        assert out["ssd"]["anchors"] == 8732
+        assert out["ssd"]["amp_losses"][-1] < out["ssd"]["amp_losses"][0]
+        assert len(out["detection"]) == 14
+        # a detection result perturbed on one side fails its check
+        real = det.box_nms
+        calls = []
+
+        def once(*a, **k):
+            calls.append(1)
+            got = real(*a, **k)
+            return got + 1e-3 if len(calls) == 1 else got
+
+        monkeypatch.setattr(det, "box_nms", once)
+        with pytest.raises(AssertionError, match="detection box_nms"):
+            cs.detection_checks(0, torch.device("cpu"))
+        monkeypatch.undo()
+        monkeypatch.setattr(cs, "device_ms", lambda fn, **k: (fn(), 0.0)[1])
+        # an AMP policy that casts the target ops to fp32 fails the phase
+        dtype_of = amp.AmpPolicy.dtype_of
+        monkeypatch.setattr(
+            amp.AmpPolicy, "dtype_of",
+            lambda self, name, *a: torch.float32 if name in self.target_ops
+            else dtype_of(self, name, *a))
+        with pytest.raises(AssertionError, match="amp: logits"):
+            cs.gpt_amp_part(0, "cpu", gpt, mx.cpu(), 2, 16, 1, timed=False)
     finally:
         torch.set_num_threads(threads)

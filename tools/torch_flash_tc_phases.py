@@ -198,7 +198,7 @@ def main(argv=None) -> int:
         fwd_lib = _build_lib(tmp, "flash_fwd_tc", instrumented_fwd_source())
     p, i = ctypes.c_void_p, ctypes.c_int
     tail = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
-            ctypes.c_float, i, i, p]
+            ctypes.c_float, i, i, i, p]
     dq, dkv = lib.mxtpu_flash_bwd_dq_tc, lib.mxtpu_flash_bwd_dkv_tc
     dq.argtypes = [p] * 8 + tail
     dkv.argtypes = [p] * 9 + tail
